@@ -35,5 +35,9 @@ def pytest_configure(config):
         "markers", "slow: long-running tier (excluded from tier-1 runs)")
     config.addinivalue_line(
         "markers",
+        "cuda: needs a CUDA card and nvcc (the PyTorch port's kernels); "
+        "skips without one")
+    config.addinivalue_line(
+        "markers",
         "smoke: <3-min verification tier (run with -m smoke; see "
         "ROADMAP.md tier-1 line)")
