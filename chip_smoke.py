@@ -7,19 +7,23 @@ Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit.  Phases (any failed check raises; the script exits
 non-zero and prints no result line):
 
-1. The card's name and power limit (``nvidia-smi``); both kernels built
-   by ``nvcc`` from ``hetu_tpu_torch/kernels/csrc`` (seconds printed).
+1. The card's name and power limit (``nvidia-smi``); every kernel
+   library built by ``nvcc`` from ``hetu_tpu_torch/kernels/csrc``, all
+   sources at once (seconds printed).
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes, f32 and bf16, with the max abs error beside a stated
    tolerance, and CUDA-event times (median of several warm runs) of the
    kernel, its plain version and one PyTorch library call as a
    yardstick (never called by the port), beside the least time the
-   card could take for the same work.
+   card could take for the same work: K1 ragged_paged_attention on a
+   mixed pool wave, K2 flash_attention on 8 prompts, K4/K5 decode over
+   8 slot rows / pool slots, K8 ragged_attention on a contiguous wave
+   with a 1024-row prompt q-block.
 3. Offline ``generate_fast`` on GPT-2-small at full width and depth
    (vocab 50257, hidden 768, 12 layers, 12 heads, 1024 positions),
    weights drawn from ``--seed``: 4 prompts x 128 tokens, 32 new tokens,
-   greedy, f32 then bf16; the flash kernel launched layers x prefill
-   calls times.
+   greedy, f32 then bf16; the flash kernel launched layers x 1 times,
+   the contiguous decode kernel (K4) layers x 31 decode positions.
 4. ``ServingEngine`` on the same model, f32 then bf16, with its auto
    settings (paged block 16, mixed ragged waves), slots 8,
    prefix sharing, prefill chunks of 256: 16 requests of 32-600 prompt
@@ -28,9 +32,15 @@ non-zero and prints no result line):
    top_k 40.  The ragged kernel is launched layers x steps times; the
    f32 engine's greedy tokens for phase 3's prompts equal offline
    ``generate_fast``'s (two different kernels, one answer).
+5. The same request set, f32 then bf16, through the three other engine
+   configurations: contiguous + phase-split; paged 16 + phase-split +
+   prefill chunks of 256 + prefix sharing; contiguous + mixed.  Each
+   launches exactly layers x decode waves of K4 or K5, layers x flash
+   groups of K2, layers x chunk passes of K1, or layers x steps of K8;
+   in f32 every greedy request's tokens equal phase 4's.
 
-With ``--profile DIR`` the serving run is then repeated under
-torch.profiler and its device time by kernel written into DIR.
+With ``--profile DIR`` each serving configuration is then run again
+under torch.profiler and its device time by kernel written into DIR.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is the device record.
@@ -121,98 +131,215 @@ def bound(nbytes, flops, dtype):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------- #
 
+# main-path head shapes (GPT-2-small), pool block and table width, and
+# the slot lengths of the 8-slot waves below: a full row, a long prompt,
+# short ones, a length-0 slot and a single position
+H, DH, BS, T_WIDTH = 12, 64, 16, 64
+LENGTHS = np.array([1024, 600, 37, 0, 1, 300, 512, 129], np.int32)
 
-def k1_case(torch, dtype, seed):
-    """A mixed wave of 8 slots at GPT-2-small head shapes: q_len in
-    {0, 1, 5, 256}, lengths up to 1024, slots 1 and 6 sharing their
-    first 8 pool blocks, slot 3 of length 0."""
-    H, Dh, bs, T = 12, 64, 16, 64
-    lengths = np.array([1024, 600, 37, 0, 1, 300, 512, 129], np.int32)
-    q_lens = np.array([256, 1, 5, 0, 1, 256, 1, 5], np.int32)
-    B, Q = len(lengths), 256
+
+def pool_case(torch, dtype, seed):
+    """The 8 slots of ``LENGTHS`` in a permuted block pool [N, 16, 12,
+    64], slots 1 and 6 sharing their first 8 blocks (a 128-position
+    prefix); dead table entries at scratch block 0.  Returns the pools,
+    the host tables and the count of distinct pool rows some slot's
+    length reaches (each read once: a shared row once)."""
+    B = len(LENGTHS)
     rng = np.random.default_rng(seed)
-    n_blocks = 1 + int(sum(-(-int(n) // bs) for n in lengths))
+    n_blocks = 1 + int(sum(-(-int(n) // BS) for n in LENGTHS))
     free = list(rng.permutation(np.arange(1, n_blocks)))
-    tables = np.zeros((B, T), np.int32)
+    tables = np.zeros((B, T_WIDTH), np.int32)
     for b in range(B):
-        for j in range(-(-int(lengths[b]) // bs)):
+        for j in range(-(-int(LENGTHS[b]) // BS)):
             tables[b, j] = free.pop()
     tables[6, :8] = tables[1, :8]              # a shared prefix
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    pool_k = torch.randn((n_blocks, bs, H, Dh), generator=g,
-                         device="cuda").to(dt)
-    pool_v = torch.randn((n_blocks, bs, H, Dh), generator=g,
-                         device="cuda").to(dt)
-    q = torch.randn((B, Q, H, Dh), generator=g, device="cuda").to(dt)
-    dev = {n: torch.from_numpy(a).cuda() for n, a in
-           (("lengths", lengths), ("q_lens", q_lens), ("tables", tables))}
-    # bytes the function must move: q of the slots with a length (a
-    # length-0 slot outputs zeros unread), o in full, each pool row some
-    # slot's length reaches once (shared rows once), the table entries
-    # of those blocks, lengths and q_lens
-    es = q.element_size()
-    live = lengths > 0
-    rows = {(int(tables[b, p // bs]), p % bs) for b in range(B)
-            for p in range(int(lengths[b]))}
-    n_tab = int(sum(-(-int(n) // bs) for n in lengths))
-    nbytes = (int(live.sum()) * Q * H * Dh * es + q.numel() * es
-              + 2 * len(rows) * H * Dh * es
-              + 4 * n_tab + lengths.nbytes + q_lens.nbytes)
+    pool_k, pool_v = (torch.randn((n_blocks, BS, H, DH), generator=g,
+                                  device="cuda").to(dt) for _ in range(2))
+    rows = {(int(tables[b, p // BS]), p % BS) for b in range(B)
+            for p in range(int(LENGTHS[b]))}
+    return pool_k, pool_v, tables, len(rows)
+
+
+def slot_rows_case(torch, dtype, seed):
+    """Slot-contiguous caches [8, 1024, 12, 64] of random K/V."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    return tuple(torch.randn((len(LENGTHS), 1024, H, DH), generator=g,
+                             device="cuda").to(dt) for _ in range(2))
+
+
+def ragged_flops(lengths, q_lens, Q):
+    """Score and PV flops of a ragged wave: every row of every slot with
+    a length, dead rows at their clipped positions."""
     flops = 0
-    for b in range(B):
-        if lengths[b] == 0:
+    for n, ql in zip(lengths, q_lens):
+        if n == 0:
             continue
-        posq = np.clip(lengths[b] - q_lens[b] + np.arange(Q), 0,
-                       lengths[b] - 1)
-        flops += int(4 * (posq + 1).sum() * H * Dh)
-    return dict(q=q, pool_k=pool_k, pool_v=pool_v, lengths=lengths,
-                q_lens=q_lens, tables=tables, dev=dev, nbytes=nbytes,
-                flops=flops)
+        posq = np.clip(n - ql + np.arange(Q), 0, n - 1)
+        flops += int(4 * (posq + 1).sum() * H * DH)
+    return flops
 
 
-def check_k1(torch, F, dtype, seed):
-    from hetu_tpu_torch.kernels import ragged_attention as ra
-    c = k1_case(torch, dtype, seed)
-    d = c["dev"]
-    args = (c["q"], c["pool_k"], c["pool_v"], d["lengths"], d["q_lens"],
-            d["tables"])
-    got = ra.ragged_paged_attention(*args)
-    torch.cuda.synchronize()
-    want = ra.ragged_paged_reference(*args).to(c["q"].dtype)
-    err, ok = compare(got, want, dtype)
-    if not ok:
-        fail(f"ragged_paged_attention {dtype}: max abs err {err}, past "
-             f"atol + rtol*|want| with (atol, rtol) = {TOL[dtype]}")
-    if got[3].abs().max() != 0:
-        fail("ragged_paged_attention: zero-length slot not zero")
-    ms = time_ms(torch, lambda: ra.ragged_paged_attention(*args))
-    plain_ms = time_ms(torch, lambda: ra.ragged_paged_reference(*args),
-                       reps=5)
-    # yardstick: SDPA over the pre-gathered dense view with the
-    # equivalent mask (the gather itself excluded)
-    B, Q, H, Dh = c["q"].shape
-    T, bs = c["tables"].shape[1], c["pool_k"].shape[1]
-    idx = d["tables"].long()
-    kd = c["pool_k"][idx].reshape(B, T * bs, H, Dh).transpose(1, 2)
-    vd = c["pool_v"][idx].reshape(B, T * bs, H, Dh).transpose(1, 2)
-    qd = c["q"].transpose(1, 2)
-    L, ql = d["lengths"].long(), d["q_lens"].long()
+def length_mask(torch, lengths, q_lens, Q, span):
+    """[B, 1, Q, span] bool: the ragged kernels' live keys per row (a
+    length-0 slot keeps position 0, so the yardstick's softmax has a
+    key), for the SDPA yardstick."""
+    L = torch.from_numpy(lengths).cuda().long()
+    ql = torch.from_numpy(q_lens).cuda().long()
     posq = torch.minimum(torch.clamp(
         (L - ql)[:, None] + torch.arange(Q, device="cuda")[None], min=0),
         torch.clamp(L - 1, min=0)[:, None])
-    mask = (torch.arange(T * bs, device="cuda")[None, None, :]
+    return (torch.arange(span, device="cuda")[None, None, :]
             <= posq[:, :, None])[:, None]
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask))
-    b_ms, b_by = bound(c["nbytes"], c["flops"], dtype)
-    log(f"  K1 ragged_paged_attention {dtype}: max_abs_err {err:.3e} "
-        f"(within atol + rtol*|want|, (atol, rtol) = {TOL[dtype]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, SDPA on the pre-gathered view (gather excluded) "
-        f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
-        f"({c['nbytes']} B, {c['flops']} flop)")
+
+
+def measure(torch, label, dtype, run, plain, library, nbytes, flops,
+            dead=3):
+    """Hold ``run()`` (the kernel) to ``plain()`` element by element,
+    check that slot ``dead`` (length 0) is zero, and time the kernel,
+    its plain version and the ``library()`` yardstick beside the
+    bound."""
+    got = run()
+    torch.cuda.synchronize()
+    want = plain().to(got.dtype)
+    err, ok = compare(got, want, dtype)
+    if not ok:
+        fail(f"{label} {dtype}: max abs err {err}, past atol + "
+             f"rtol*|want| with (atol, rtol) = {TOL[dtype]}")
+    if got[dead].abs().max() != 0:
+        fail(f"{label}: zero-length slot not zero")
+    ms = time_ms(torch, run)
+    plain_ms = time_ms(torch, plain, reps=5)
+    lib_ms = time_ms(torch, library)
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    log(f"  {label} {dtype}: max_abs_err {err:.3e} (within atol + "
+        f"rtol*|want|, (atol, rtol) = {TOL[dtype]}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, SDPA yardstick {lib_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def check_k1(torch, F, dtype, seed):
+    """K1 on a mixed wave of the 8 pool slots: q_len in {0, 1, 5, 256},
+    Q 256.  Yardstick: SDPA over the pre-gathered dense view with the
+    equivalent mask (the gather itself excluded)."""
+    from hetu_tpu_torch.kernels import ragged_attention as ra
+    pool_k, pool_v, tables, n_rows = pool_case(torch, dtype, seed)
+    q_lens = np.array([256, 1, 5, 0, 1, 256, 1, 5], np.int32)
+    B, Q = len(LENGTHS), 256
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    q = torch.randn((B, Q, H, DH), generator=g,
+                    device="cuda").to(pool_k.dtype)
+    args = (q, pool_k, pool_v, torch.from_numpy(LENGTHS).cuda(),
+            torch.from_numpy(q_lens).cuda(), torch.from_numpy(tables).cuda())
+    idx = args[5].long()
+    span = T_WIDTH * BS
+    kd, vd = (x[idx].reshape(B, span, H, DH).transpose(1, 2)
+              for x in (pool_k, pool_v))
+    qd = q.transpose(1, 2)
+    mask = length_mask(torch, LENGTHS, q_lens, Q, span)
+    # bytes the function must move: q of the slots with a length (a
+    # length-0 slot outputs zeros unread), o in full, each pool row some
+    # slot's length reaches once, the table entries of those blocks,
+    # lengths and q_lens
+    es = q.element_size()
+    n_tab = int(sum(-(-int(n) // BS) for n in LENGTHS))
+    nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
+              + 2 * n_rows * H * DH * es + 4 * n_tab + LENGTHS.nbytes
+              + q_lens.nbytes)
+    return measure(
+        torch, "K1 ragged_paged_attention", dtype,
+        lambda: ra.ragged_paged_attention(*args),
+        lambda: ra.ragged_paged_reference(*args),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+        nbytes, ragged_flops(LENGTHS, q_lens, Q))
+
+
+def check_k8(torch, F, dtype, seed):
+    """K8 on a contiguous mixed wave with a wide prompt q-block: a
+    600-token prompt (Q 1024, its pow2 bucket), a 300-token prompt,
+    decode tokens, a length-0 slot.  Yardstick: SDPA over the slot rows
+    with the equivalent mask."""
+    from hetu_tpu_torch.kernels import ragged_attention as ra
+    k, v = slot_rows_case(torch, dtype, seed + 7)
+    q_lens = np.array([1, 600, 1, 0, 1, 300, 1, 1], np.int32)
+    B, Q = len(LENGTHS), 1024
+    g = torch.Generator(device="cuda").manual_seed(seed + 8)
+    q = torch.randn((B, Q, H, DH), generator=g, device="cuda").to(k.dtype)
+    args = (q, k, v, torch.from_numpy(LENGTHS).cuda(),
+            torch.from_numpy(q_lens).cuda())
+    qd, kd, vd = (x.transpose(1, 2) for x in (q, k, v))
+    mask = length_mask(torch, LENGTHS, q_lens, Q, k.shape[1])
+    es = q.element_size()
+    nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
+              + 2 * int(LENGTHS.sum()) * H * DH * es + LENGTHS.nbytes
+              + q_lens.nbytes)
+    r = measure(
+        torch, "K8 ragged_attention", dtype,
+        lambda: ra.ragged_attention(*args),
+        lambda: ra.ragged_masked_reference(*args),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+        nbytes, ragged_flops(LENGTHS, q_lens, Q))
+    # the dead-row cost: the same slots with no dead row, each prompt
+    # slot launched at Q = its q_len and the decode slots at Q = 1
+    waves = []
+    for rows, width in (([1], 600), ([5], 300), ([0, 2, 4, 6, 7], 1)):
+        idx = torch.tensor(rows, device="cuda")
+        waves.append((q[idx, :width].contiguous(), k[idx].contiguous(),
+                      v[idx].contiguous(), args[3][idx].contiguous(),
+                      args[4][idx].contiguous()))
+    live_ms = time_ms(torch, lambda: [ra.ragged_attention(*w)
+                                      for w in waves])
+    log(f"  K8 {dtype}: the same slots without dead rows (three launches "
+        f"at Q = 600, 300, 1) {live_ms:.4f} ms against {r['ms']:.4f} ms "
+        f"for the Q 1024 wave: dead rows take "
+        f"{1 - live_ms / r['ms']:.1%} of the wave")
+    return r
+
+
+def check_decode(torch, F, dtype, seed, paged):
+    """K5 (``paged``) through the tables of the 8 pool slots, else K4
+    over slot rows, one query per slot.  Yardstick: SDPA with the length
+    mask over the pre-gathered view (K5, the gather excluded) or the
+    slot rows (K4)."""
+    from hetu_tpu_torch.kernels import decode_attention as da
+    B = len(LENGTHS)
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, H, DH), generator=g, device="cuda").to(dt)
+    lens = torch.from_numpy(LENGTHS).cuda()
+    es = q.element_size()
+    ones = np.ones(B, np.int32)
+    if paged:
+        pool_k, pool_v, tables, n_rows = pool_case(torch, dtype, seed + 10)
+        tab = torch.from_numpy(tables).cuda()
+        args = (q, pool_k, pool_v, lens, tab)
+        kd, vd = (x[tab.long()].reshape(B, T_WIDTH * BS, H, DH)
+                  for x in (pool_k, pool_v))
+        n_tab = int(sum(-(-int(n) // BS) for n in LENGTHS))
+        kv_bytes = 2 * n_rows * H * DH * es + 4 * n_tab
+        label, run, plain = ("K5 paged_block_decode_attention",
+                             da.paged_block_decode_attention,
+                             da.paged_block_decode_reference)
+    else:
+        kd, vd = slot_rows_case(torch, dtype, seed + 11)
+        args = (q, kd, vd, lens)
+        kv_bytes = 2 * int(LENGTHS.sum()) * H * DH * es
+        label, run, plain = ("K4 paged_decode_attention",
+                             da.paged_decode_attention,
+                             da.masked_decode_reference)
+    qd = q[:, :, None]
+    kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)
+    mask = length_mask(torch, LENGTHS, ones, 1, kd.shape[1])
+    nbytes = (int((LENGTHS > 0).sum()) * H * DH * es + q.numel() * es
+              + kv_bytes + LENGTHS.nbytes)
+    return measure(
+        torch, label, dtype, lambda: run(*args), lambda: plain(*args),
+        lambda: F.scaled_dot_product_attention(qd, kt, vt, attn_mask=mask),
+        nbytes, ragged_flops(LENGTHS, ones, 1))
 
 
 def check_k2(torch, F, dtype, seed):
@@ -303,29 +430,67 @@ def offline(torch, htt, params, cfg, prompts, dtype):
     sec = time.perf_counter() - t0
     counts = launch_counts()
     L = cfg.num_hidden_layers
-    if counts["flash_attention"] != L * 1:
-        fail(f"offline {dtype}: flash launched "
-             f"{counts['flash_attention']} times, want {L} (layers x 1 "
-             f"prefill call)")
-    if out.shape != (len(prompts), 128 + 32) \
+    P, n_new = prompts.shape[1], 32
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=L, paged_decode_attention=L * (n_new - 1))
+    if counts != want:
+        fail(f"offline {dtype}: launches {counts}, want {want} (layers x "
+             f"1 prefill call, layers x {n_new - 1} decode positions)")
+    if out.shape != (len(prompts), P + n_new) \
             or not ((out >= 0) & (out < cfg.vocab_size)).all() \
-            or not (out[:, :128] == prompts).all():
+            or not (out[:, :P] == prompts).all():
         fail(f"offline {dtype}: malformed output {out.shape}")
-    log(f"  generate_fast {dtype}: 4 x (128 + 32) tokens in {sec:.3f} s; "
-        f"launches {counts}")
+    log(f"  generate_fast {dtype}: {len(prompts)} x ({P} + {n_new}) tokens "
+        f"in {sec:.3f} s; launches {counts}")
     return out, counts
 
 
-def serve(torch, htt, params, cfg, reqs_spec, dtype, prof=None):
-    """One engine run over the request set; ``prof`` (a
-    torch.profiler.profile) wraps the run alone when given."""
+# the engine configurations: phase 4 is the auto settings on CUDA (the
+# paged pool, block 16, mixed waves); phase 5 the three others
+CONFIGS = {
+    "paged-mixed": dict(prefix_share=True, prefill_chunk=256),
+    "contiguous-split": dict(paged=False, ragged=False),
+    "paged-split": dict(paged=True, ragged=False, prefix_share=True,
+                        prefill_chunk=256),
+    "contiguous-mixed": dict(paged=False, ragged=True),
+}
+LAYOUT = {"paged-mixed": (True, True), "contiguous-split": (False, False),
+          "paged-split": (True, False), "contiguous-mixed": (False, True)}
+
+
+def want_launches(eng, L):
+    """The exact launches of one engine run: mixed, the ragged kernel of
+    the layout per layer per step; phase-split, the flash kernel per
+    layer per flash group, the ragged paged kernel per layer per chunk
+    pass, and the decode kernel of the layout per layer per decode
+    wave."""
+    from hetu_tpu_torch.kernels import KERNELS
+    want = dict.fromkeys(KERNELS, 0)
+    if eng.ragged:
+        want["ragged_paged_attention" if eng.paged
+             else "ragged_attention"] = L * eng.steps
+    else:
+        want["flash_attention"] = L * (eng.prefill_dispatches
+                                       - eng.prefill_chunks)
+        want["ragged_paged_attention"] = L * eng.prefill_chunks
+        want["paged_block_decode_attention" if eng.paged
+             else "paged_decode_attention"] = L * eng.steps
+    return want
+
+
+def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None):
+    """One engine run of ``config`` over the request set, its launches
+    held to ``want_launches``; ``prof`` (a torch.profiler.profile) wraps
+    the run alone when given."""
     from hetu_tpu_torch.kernels import launch_counts, reset_launches
     from hetu_tpu_torch.serving import Request
     dt = getattr(torch, dtype)
     eng = htt.ServingEngine(params, cfg, slots=8, dtype=dt,
-                            prefix_share=True, prefill_chunk=256)
-    if not (eng.paged and eng.kv.block == 16 and eng.ragged):
-        fail("the engine's auto settings are not paged-16 / mixed")
+                            **CONFIGS[config])
+    if (eng.paged, eng.ragged) != LAYOUT[config] \
+            or (eng.paged and eng.kv.block != 16):
+        fail(f"{config}: the engine runs paged={eng.paged} "
+             f"ragged={eng.ragged} block {getattr(eng.kv, 'block', 0)}")
     reqs = [Request(prompt=pr, max_new_tokens=64, temperature=t, top_k=k,
                     seed=i, request_id=f"r{i}")
             for i, (pr, t, k) in enumerate(reqs_spec)]
@@ -338,36 +503,47 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, prof=None):
         sec = time.perf_counter() - t0
     counts = launch_counts()
     L = cfg.num_hidden_layers
-    if counts["ragged_paged_attention"] != L * eng.steps:
-        fail(f"serve {dtype}: ragged kernel launched "
-             f"{counts['ragged_paged_attention']} times, want "
-             f"{L} x {eng.steps} steps")
+    want = want_launches(eng, L)
+    if counts != want or not eng.steps:
+        fail(f"{config} {dtype}: launches {counts}, want {want} ({L} "
+             f"layers, {eng.steps} steps, {eng.prefill_dispatches} "
+             f"prefill dispatches, {eng.prefill_chunks} chunk passes)")
     if len(res) != len(reqs):
-        fail(f"serve {dtype}: {len(res)} of {len(reqs)} requests done")
-    if eng.kv.prefix_hits < 3:
-        fail(f"serve {dtype}: {eng.kv.prefix_hits} prefix hits; the three "
-             f"later requests of the shared 128-token prefix should hit")
+        fail(f"{config} {dtype}: {len(res)} of {len(reqs)} requests done")
+    hits = eng.kv.prefix_hits if eng.paged else 0
+    if eng.paged and hits < 3:
+        fail(f"{config} {dtype}: {hits} prefix hits; the three later "
+             f"requests of the shared 128-token prefix should hit")
     for i, (pr, _, _) in enumerate(reqs_spec):
         toks = res[f"r{i}"].tokens
         if len(toks) != len(pr) + 64 or list(toks[:len(pr)]) != list(pr) \
                 or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            fail(f"serve {dtype}: request r{i} malformed")
+            fail(f"{config} {dtype}: request r{i} malformed")
     gen = sum(r.n_generated for r in res.values())
     ttft = np.array([r.ttft_s for r in res.values()]) * 1e3
     stats = dict(tokens_per_s=gen / sec, seconds=sec, steps=eng.steps,
                  generated=gen, ttft_p50_ms=float(np.percentile(ttft, 50)),
                  ttft_p99_ms=float(np.percentile(ttft, 99)),
-                 prefix_hits=eng.kv.prefix_hits)
-    log(f"  ServingEngine {dtype}: {gen} tokens in {sec:.3f} s = "
+                 prefix_hits=hits,
+                 prefill_dispatches=eng.prefill_dispatches,
+                 prefill_chunks=eng.prefill_chunks)
+    log(f"  {config} {dtype}: {gen} tokens in {sec:.3f} s = "
         f"{stats['tokens_per_s']:.1f} tok/s, TTFT p50 "
         f"{stats['ttft_p50_ms']:.1f} ms p99 {stats['ttft_p99_ms']:.1f} "
-        f"ms, {eng.steps} steps, prefix hits {eng.kv.prefix_hits}, "
-        f"launches {counts}")
+        f"ms, {eng.steps} steps, {eng.prefill_dispatches} prefill "
+        f"dispatches ({eng.prefill_chunks} chunk passes), prefix hits "
+        f"{hits}, launches {counts}")
     return res, counts, stats
 
 
 # kernel kinds of the profile, by name, first match wins
-KINDS = (("K1 ragged_paged_attention", re.compile("ragged_paged")),
+KINDS = (("K1 ragged_paged_attention", re.compile("ragged_kernel.*TableRows")),
+         ("K8 ragged_attention", re.compile("ragged_kernel.*SlotRows")),
+         ("K4 paged_decode_attention",
+          re.compile("decode_kernel.*SlotRows")),
+         ("K5 paged_block_decode_attention",
+          re.compile("decode_kernel.*TableRows")),
+         ("K2 flash_attention", re.compile("flash_fwd")),
          ("matmul", re.compile("gemm|nvjet|splitK")),
          ("KV writes (index_put)", re.compile("index_elementwise")),
          ("reductions", re.compile("reduce_kernel")),
@@ -379,45 +555,51 @@ def kind_of(name):
 
 
 def profile_serve(torch, htt, params, cfg, spec, out_dir):
-    """Where the serving run's device time goes: the phase-4 engine run
-    again, f32 and bf16, under torch.profiler; device time by kind and
-    by kernel (top 15, and the table in ``out_dir``) and the device's
-    busy share of the run's wall time (host tracing overhead inflates
-    the wall, so the busy share is a lower bound)."""
+    """Where each serving configuration's device time goes: its engine
+    run again, f32 and bf16, under torch.profiler; device time by kind
+    and by kernel (top 15, and the table in ``out_dir``) and the
+    device's busy share of the run's wall time (host tracing overhead
+    inflates the wall, so the busy share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for dtype in ("float32", "bfloat16"):
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        _, _, st = serve(torch, htt, params, cfg, spec, dtype, prof=prof)
-        # kernel rows only: an operator row repeats its kernels' time
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if not rows:
-            fail("the profiler recorded no device time")
-        rows.sort(key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in rows) / 1e6
-        lines = [f"{'kernel':64s} {'calls':>7s} {'device ms':>11s} share"]
-        lines += [f"{e.key[:64]:64s} {e.count:7d} "
-                  f"{e.self_device_time_total / 1e3:11.3f} "
-                  f"{e.self_device_time_total / 1e6 / busy:6.1%}"
-                  for e in rows]
-        (out_dir / f"profile_serve_{dtype}.txt").write_text(
-            "\n".join(lines) + "\n")
-        log(f"  profile {dtype}: device busy {busy:.4f} s of "
-            f"{st['seconds']:.4f} s wall ({busy / st['seconds']:.1%}) "
-            f"under the profiler")
-        kinds = collections.Counter()
-        for e in rows:
-            kinds[kind_of(e.key)] += e.self_device_time_total / 1e3
-        for k, ms in kinds.most_common():
-            log(f"    {k}: {ms:.3f} ms ({ms / 1e3 / busy:.1%})")
-        log("  top kernels:")
-        for line in lines[:16]:
-            log("    " + line)
+    for config in CONFIGS:
+        for dtype in ("float32", "bfloat16"):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            _, _, st = serve(torch, htt, params, cfg, spec, dtype, config,
+                             prof=prof)
+            # kernel rows only: an operator row repeats its kernels' time
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            if not rows:
+                fail("the profiler recorded no device time")
+            rows.sort(key=lambda e: -e.self_device_time_total)
+            busy = sum(e.self_device_time_total for e in rows) / 1e6
+            lines = [f"{'kernel':64s} {'calls':>7s} {'device ms':>11s} "
+                     f"share"]
+            lines += [f"{e.key[:64]:64s} {e.count:7d} "
+                      f"{e.self_device_time_total / 1e3:11.3f} "
+                      f"{e.self_device_time_total / 1e6 / busy:6.1%}"
+                      for e in rows]
+            (out_dir / f"profile_{config}_{dtype}.txt").write_text(
+                "\n".join(lines) + "\n")
+            log(f"  profile {config} {dtype}: device busy {busy:.4f} s of "
+                f"{st['seconds']:.4f} s wall "
+                f"({busy / st['seconds']:.1%}) under the profiler")
+            kinds = collections.Counter()
+            calls = collections.Counter()
+            for e in rows:
+                kinds[kind_of(e.key)] += e.self_device_time_total / 1e3
+                calls[kind_of(e.key)] += e.count
+            for k, ms in kinds.most_common():
+                log(f"    {k}: {ms:.3f} ms ({ms / 1e3 / busy:.1%}, "
+                    f"{calls[k]} launches)")
+            log("  top kernels:")
+            for line in lines[:16]:
+                log("    " + line)
 
 
 def request_set(prompts, seed, V):
@@ -479,10 +661,13 @@ def main(argv=None):
 
     # ---- phase 2 ---- #
     log("phase 2: kernels vs plain versions on the card")
-    k1 = {dt: check_k1(torch, F, dt, args.seed)
-          for dt in ("float32", "bfloat16")}
-    k2 = {dt: check_k2(torch, F, dt, args.seed)
-          for dt in ("float32", "bfloat16")}
+    checks = {"K1": lambda dt: check_k1(torch, F, dt, args.seed),
+              "K2": lambda dt: check_k2(torch, F, dt, args.seed),
+              "K4": lambda dt: check_decode(torch, F, dt, args.seed, False),
+              "K5": lambda dt: check_decode(torch, F, dt, args.seed, True),
+              "K8": lambda dt: check_k8(torch, F, dt, args.seed)}
+    kres = {k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
+            for k, fn in checks.items()}
 
     # ---- phase 3 ---- #
     log("phase 3: offline generate_fast, GPT-2-small")
@@ -497,55 +682,80 @@ def main(argv=None):
     _, c_off16 = offline(torch, htt, params, cfg, prompts, "bfloat16")
 
     # ---- phase 4 ---- #
-    log("phase 4: ServingEngine, GPT-2-small")
+    log("phase 4: ServingEngine, GPT-2-small, auto settings (paged mixed)")
     spec = request_set(prompts, args.seed, cfg.vocab_size)
-    res32, c_s32, s32 = serve(torch, htt, params, cfg, spec, "float32")
+    runs = {}      # (config, dtype) -> (results, launches, stats)
+    runs["paged-mixed", "float32"] = serve(torch, htt, params, cfg, spec,
+                                           "float32", "paged-mixed")
+    res32 = runs["paged-mixed", "float32"][0]
     for i in range(4):
         got = res32[f"r{i}"].tokens[128:128 + 32]
         if list(got) != list(off_f32[i, 128:]):
             fail(f"f32 engine greedy tokens of r{i} differ from "
                  f"generate_fast: {list(got)} vs {list(off_f32[i, 128:])}")
     log("  f32 engine greedy tokens == generate_fast tokens (4 prompts)")
-    res16, c_s16, s16 = serve(torch, htt, params, cfg, spec, "bfloat16")
+    runs["paged-mixed", "bfloat16"] = serve(torch, htt, params, cfg, spec,
+                                            "bfloat16", "paged-mixed")
+    res16 = runs["paged-mixed", "bfloat16"][0]
     agree = [int(np.argmax(np.append(
         res16[f"r{i}"].tokens != res32[f"r{i}"].tokens, True)))
         - len(spec[i][0]) for i in range(len(spec)) if spec[i][1] == 0]
     log(f"  bf16 vs f32 greedy: identical leading generated tokens per "
         f"request {agree} (of 64)")
-    log(f"  serving on {card}: f32 {s32['tokens_per_s']:.1f} tok/s, "
-        f"TTFT p50 {s32['ttft_p50_ms']:.1f} p99 {s32['ttft_p99_ms']:.1f} "
-        f"ms; bf16 {s16['tokens_per_s']:.1f} tok/s, TTFT p50 "
-        f"{s16['ttft_p50_ms']:.1f} p99 {s16['ttft_p99_ms']:.1f} ms")
 
+    # ---- phase 5 ---- #
+    log("phase 5: ServingEngine, GPT-2-small, the other layouts and "
+        "schedulers")
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    for config in ("contiguous-split", "paged-split", "contiguous-mixed"):
+        for dt in ("float32", "bfloat16"):
+            runs[config, dt] = serve(torch, htt, params, cfg, spec, dt,
+                                     config)
+        res = runs[config, "float32"][0]
+        bad = [i for i in greedy
+               if list(res[f"r{i}"].tokens) != list(res32[f"r{i}"].tokens)]
+        if bad:
+            fail(f"{config} f32 greedy tokens differ from phase 4's for "
+                 f"requests {bad}")
+        log(f"  {config} f32 greedy tokens == phase 4's ({len(greedy)} "
+            f"requests)")
+    for (config, dt), (_, _, st) in runs.items():
+        log(f"  serving on {card}: {config} {dt} "
+            f"{st['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{st['ttft_p50_ms']:.1f} p99 {st['ttft_p99_ms']:.1f} ms")
+
+    # each kernel's launches from the run of the path it serves: K1 the
+    # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
+    # engine of their layout and scheduler
     src = "hetu_tpu_torch/kernels/csrc/"
+    table = (
+        ("K1", "ragged_paged_attention", "ragged_paged.cu",
+         "hetu_tpu/kernels/ragged_attention.py:184", "paged-mixed"),
+        ("K2", "flash_attention", "flash_fwd.cu",
+         "hetu_tpu/kernels/flash_attention.py:173", None),
+        ("K4", "paged_decode_attention", "decode_attention.cu",
+         "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split"),
+        ("K5", "paged_block_decode_attention", "decode_attention.cu",
+         "hetu_tpu/kernels/decode_attention.py:259", "paged-split"),
+        ("K8", "ragged_attention", "ragged_paged.cu",
+         "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"))
     kernels = []
-    for dt in ("float32", "bfloat16"):
-        launches = (c_s32 if dt == "float32" else c_s16)[
-            "ragged_paged_attention"]
-        kernels.append(dict(
-            name=f"ragged_paged_attention[{dt}]", route="cuda",
-            source=src + "ragged_paged.cu",
-            replaces="hetu_tpu/kernels/ragged_attention.py:184",
-            launches=launches, max_abs_err=k1[dt]["err"],
-            ms=k1[dt]["ms"], plain_ms=k1[dt]["plain_ms"],
-            bound_ms=k1[dt]["bound_ms"], bound_by=k1[dt]["bound_by"],
-            library_ms=k1[dt]["library_ms"]))
-    for dt in ("float32", "bfloat16"):
-        launches = (c_off32 if dt == "float32" else c_off16)[
-            "flash_attention"]
-        kernels.append(dict(
-            name=f"flash_attention[{dt}]", route="cuda",
-            source=src + "flash_fwd.cu",
-            replaces="hetu_tpu/kernels/flash_attention.py:173",
-            launches=launches, max_abs_err=k2[dt]["err"],
-            ms=k2[dt]["ms"], plain_ms=k2[dt]["plain_ms"],
-            bound_ms=k2[dt]["bound_ms"], bound_by=k2[dt]["bound_by"],
-            library_ms=k2[dt]["library_ms"]))
+    for k, name, file, replaces, config in table:
+        for dt in ("float32", "bfloat16"):
+            counts = (runs[config, dt][1] if config else
+                      (c_off32 if dt == "float32" else c_off16))
+            r = kres[k][dt]
+            kernels.append(dict(
+                name=f"{name}[{dt}]", route="cuda", source=src + file,
+                replaces=replaces, launches=counts[name],
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"]))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")
     if args.profile:
-        log("profile: the serving run under torch.profiler")
+        log("profile: the serving runs under torch.profiler")
         profile_serve(torch, htt, params, cfg, spec, args.profile)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)

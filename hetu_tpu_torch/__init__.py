@@ -1,13 +1,15 @@
 """hetu_tpu_torch: the PyTorch/CUDA port of ``hetu_tpu``.
 
 The port lives beside the JAX package and imports nothing of it (nor of
-JAX).  Its first slice is GPT inference as the serving engine runs it:
+JAX).  It covers GPT inference as the serving engine runs it:
 
 - ``weights.params_from_numpy``: the named-parameter dict as tensors;
 - ``models.gpt_decode.generate_fast``: offline generation, prefill
-  through the flash kernel;
+  through the flash kernel, decode through the decode kernel;
 - ``serving.ServingEngine``: continuous batching over the block-table
-  paged pool, every step ONE mixed wave through the ragged paged kernel.
+  paged pool or the slot-contiguous cache, with the mixed scheduler
+  (ONE ragged wave per step) or the phase-split one (flash prefill
+  groups, chunk passes, then one decode wave).
 
 Every TPU kernel on that path is a CUDA C++ kernel for Hopper
 (``kernels/csrc``), built by ``nvcc`` at first use.  Entry points run on

@@ -4,9 +4,17 @@ compiled by ``nvcc`` the first time a wrapper launches it on a CUDA
 tensor (see ``_build``).
 
 - ``flash_attention``: forward flash attention on [B, S, H, D]
-  (csrc/flash_fwd.cu), the batched prefill of ``generate_fast``.
-- ``ragged_attention.ragged_paged_attention``: the serving engine's
-  mixed-wave attention over the block-table pool (csrc/ragged_paged.cu).
+  (csrc/flash_fwd.cu), the batched prefill of ``generate_fast`` and of
+  the phase-split schedulers.
+- ``ragged_attention.ragged_paged_attention`` /
+  ``ragged_attention.ragged_attention``: the mixed wave over the
+  block-table pool / the slot-contiguous cache (csrc/ragged_paged.cu);
+  the paged one also runs the phase-split chunk pass.
+- ``decode_attention.paged_decode_attention`` /
+  ``decode_attention.paged_block_decode_attention``: one decode query
+  per slot over the slot-contiguous cache / the block-table pool
+  (csrc/decode_attention.cu), the phase-split decode waves and
+  ``generate_fast``'s decode.
 
 ``launch_counts()`` reads how often each kernel was launched since
 ``reset_launches()``.
@@ -14,7 +22,8 @@ tensor (see ``_build``).
 
 from ._build import LAUNCHES, reset_launches  # noqa: F401
 
-KERNELS = ("flash_attention", "ragged_paged_attention")
+KERNELS = ("flash_attention", "ragged_paged_attention", "ragged_attention",
+           "paged_decode_attention", "paged_block_decode_attention")
 
 
 def launch_counts():

@@ -1,13 +1,15 @@
 // Shared device code of the port's attention kernels (flash_fwd.cu,
-// ragged_paged.cu): one thread block owns a tile of 32 query rows of one
-// (sequence, head); eight consecutive lanes share a row, each holding
-// Dh/8 of its dimensions (strided by 8, so the eight lanes read eight
-// consecutive floats of a shared-memory key row: no bank conflicts).
-// The kernels stage K/V tiles of KT positions in shared memory as f32
-// and fold them into an online softmax whose running max, denominator
-// and output accumulator stay in registers, in f32, over f32 or bf16
-// inputs.  Every thread runs every loop iteration (rows past the end of
-// the q tile compute on a clamped row and skip the store), so the
+// ragged_paged.cu, decode_attention.cu).  The flash and ragged kernels
+// give one thread block a tile of 32 query rows of one (sequence, head);
+// the decode kernels give one block one (slot, head) and its 32 rows the
+// slot's positions to share.  Eight consecutive lanes share a row, each
+// holding Dh/8 of its dimensions (strided by 8, so the eight lanes read
+// eight consecutive floats of a shared-memory key row: no bank
+// conflicts).  The kernels stage K/V tiles of KT positions in shared
+// memory as f32 and fold them into an online softmax whose running max,
+// denominator and output accumulator stay in registers, in f32, over f32
+// or bf16 inputs.  Every thread runs every loop iteration (rows past the
+// end of the q tile compute on a clamped row and skip the store), so the
 // row-group shuffles and __syncthreads() always see converged lanes.
 #pragma once
 
@@ -69,55 +71,66 @@ template <int DH> struct RowState {
     l = 0.f;
   }
 
-  // Fold keys [t0, t0+n) of the staged tile into the state.  A key at
+  // Fold keys [t0 + c, t0 + c + CH) of the staged tile into the state;
+  // tile rows at or past n are neither read nor scored.  A key at
   // absolute position p is live for this row iff p <= row_lim; the
   // arithmetic is the Pallas kernels' (scores scaled after the dot,
   // dead scores at NEG_INF, exp against a max clamped to 0 while
-  // nothing is live, alpha = 0 until the first live key).
+  // nothing is live, alpha = 0 until the first live key).  Every lane
+  // of the warp must call it (the row sums shuffle across the warp).
+  template <int CH>
+  __device__ __forceinline__ void fold(const float (*ks)[DH],
+                                       const float (*vs)[DH], int t0,
+                                       int c, int n, int row_lim, int lane,
+                                       float scale) {
+    float s[CH];
+    float cmax = kNegInf;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int kj = c + j;
+      float part = 0.f;
+      if (kj < n) {
+#pragma unroll
+        for (int i = 0; i < kDpt; ++i)
+          part = fmaf(q[i], ks[kj][lane + kLanesPerRow * i], part);
+      }
+      const float dot = row_sum(part) * scale;
+      const bool live = kj < n && t0 + kj <= row_lim;
+      s[j] = live ? dot : kNegInf;
+      cmax = fmaxf(cmax, s[j]);
+    }
+    const float m_new = fmaxf(m, cmax);
+    const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
+    const float alpha = m <= kNegInf / 2 ? 0.f : expf(fminf(m - m_new, 0.f));
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      s[j] = s[j] <= kNegInf / 2 ? 0.f : expf(s[j] - safe_m);
+      psum += s[j];
+    }
+    l = l * alpha + psum;
+#pragma unroll
+    for (int i = 0; i < kDpt; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int kj = c + j;
+      if (kj < n) {
+#pragma unroll
+        for (int i = 0; i < kDpt; ++i)
+          acc[i] = fmaf(s[j], vs[kj][lane + kLanesPerRow * i], acc[i]);
+      }
+    }
+    m = m_new;
+  }
+
+  // Fold keys [t0, t0+n) of the staged tile, kChunk keys per softmax
+  // update; n must be the same for every row of the block.
   __device__ __forceinline__ void attend(const float (*ks)[DH],
                                          const float (*vs)[DH], int t0,
                                          int n, int row_lim, int lane,
                                          float scale) {
-    for (int c = 0; c < n; c += kChunk) {
-      float s[kChunk];
-      float cmax = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int kj = c + j;
-        float part = 0.f;
-        if (kj < n) {   // uniform across the block
-#pragma unroll
-          for (int i = 0; i < kDpt; ++i)
-            part = fmaf(q[i], ks[kj][lane + kLanesPerRow * i], part);
-        }
-        const float dot = row_sum(part) * scale;
-        const bool live = kj < n && t0 + kj <= row_lim;
-        s[j] = live ? dot : kNegInf;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
-      const float alpha = m <= kNegInf / 2 ? 0.f : expf(fminf(m - m_new, 0.f));
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        s[j] = s[j] <= kNegInf / 2 ? 0.f : expf(s[j] - safe_m);
-        psum += s[j];
-      }
-      l = l * alpha + psum;
-#pragma unroll
-      for (int i = 0; i < kDpt; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int kj = c + j;
-        if (kj < n) {
-#pragma unroll
-          for (int i = 0; i < kDpt; ++i)
-            acc[i] = fmaf(s[j], vs[kj][lane + kLanesPerRow * i], acc[i]);
-        }
-      }
-      m = m_new;
-    }
+    for (int c = 0; c < n; c += kChunk)
+      fold<kChunk>(ks, vs, t0, c, n, row_lim, lane, scale);
   }
 
   // Normalised output (0 on a row with no live key).
@@ -136,6 +149,46 @@ template <int DH> struct RowState {
     return m + logf(l);
   }
 };
+
+// Where position p of slot b lives, as a row index into a [rows, H, Dh]
+// array: the two KV layouts of the serving engine.  The kernels template
+// on these, so one body serves both.
+
+// The slot-contiguous cache [B, S_max, H, Dh]: slot b's row p.
+struct SlotRows {
+  int s_max;
+  __device__ __forceinline__ size_t operator()(int b, int p) const {
+    return (size_t)b * s_max + p;
+  }
+};
+
+// The block-table pool [N_blocks, bs, H, Dh]: entry p / bs of slot b's
+// table row names the block, p % bs the row in it.
+struct TableRows {
+  const int* tables;
+  int t_width;
+  int bs;
+  __device__ __forceinline__ size_t operator()(int b, int p) const {
+    return (size_t)tables[(size_t)b * t_width + p / bs] * bs + p % bs;
+  }
+};
+
+// Stage K/V positions [t0, t0+n) of (slot b, head h) into the shared
+// tiles as f32, all threads of the block together.
+template <typename T, int DH, typename Rows>
+__device__ __forceinline__ void stage_kv(float (*ks)[DH], float (*vs)[DH],
+                                         const T* __restrict__ k,
+                                         const T* __restrict__ v,
+                                         const Rows& rows, int b, int h,
+                                         int H, int t0, int n) {
+  for (int idx = threadIdx.x; idx < n * DH; idx += blockDim.x) {
+    const int s = idx / DH;
+    const int d = idx % DH;
+    const size_t g = (rows(b, t0 + s) * H + h) * DH + d;
+    ks[s][d] = to_f32(k[g]);
+    vs[s][d] = to_f32(v[g]);
+  }
+}
 
 }  // namespace hetu
 

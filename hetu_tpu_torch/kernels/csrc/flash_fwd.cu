@@ -62,13 +62,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t0 = 0; t0 < kv_end; t0 += KT) {
     const int n = min(KT, kv_end - t0);
     __syncthreads();   // the previous tile is fully consumed
-    for (int idx = tid; idx < n * DH; idx += kThreads) {
-      const int s = idx / DH;
-      const int d = idx % DH;
-      const size_t g = ((size_t)(b * Sk + t0 + s) * H + h) * DH + d;
-      ks[s][d] = to_f32(k[g]);
-      vs[s][d] = to_f32(v[g]);
-    }
+    stage_kv(ks, vs, k, v, SlotRows{Sk}, b, h, H, t0, n);
     __syncthreads();
     st.attend(ks, vs, t0, n, row_lim, lane, scale);
   }

@@ -1,20 +1,22 @@
-"""The mixed-wave ragged attention over the block-table paged pool, the
-port of the JAX package's Pallas ``ragged_paged_attention``
-(``_ragged_kernel``): the serving engine's one attention dispatch per
-layer, whatever mix of prompt chunks and decode tokens a wave carries.
+"""The mixed-wave ragged attention over either KV layout of the serving
+engine, the port of the JAX package's Pallas ``ragged_paged_attention``
+(the block-table pool, K1) and ``ragged_attention`` (the slot-contiguous
+cache, K8), one Pallas body ``_ragged_kernel``: the mixed scheduler's
+one attention dispatch per layer, whatever mix of prompt q-blocks and
+decode tokens a wave carries.
 
 Slot b's query ``jq`` sits at ``lengths[b] - q_lens[b] + jq`` and sees
-pool positions up to itself through its block-table row; rows past
-``q_lens[b]`` clip to the last live position (their output is defined
-and discarded by the caller); a slot with length 0 returns zeros; the
-output has q's dtype.  The q-block's own K/V are read back from the pool,
-so the caller writes them before it attends.
+the slot's positions up to itself; rows past ``q_lens[b]`` clip to the
+last live position (their output is defined and discarded by the
+caller); a slot with length 0 returns zeros; the output has q's dtype.
+The q-block's own K/V are read back from the cache, so the caller writes
+them before it attends.
 
-``ragged_paged_attention`` launches ``csrc/ragged_paged.cu`` on CUDA
-tensors and runs :func:`ragged_paged_reference` on CPU tensors; nothing
-falls back from one to the other.  The int8 twin (``k_scale``/
-``v_scale``) and the slot-contiguous ``ragged_attention`` are later
-slices (ROADMAP B1 int8, B3).
+Both launch ``csrc/ragged_paged.cu`` on CUDA tensors and run their plain
+versions, :func:`ragged_paged_reference` and
+:func:`ragged_masked_reference`, on CPU tensors; nothing falls back from
+one to the other.  The int8 twins (``k_scale``/``v_scale``) are
+ROADMAP's int8 slice.
 """
 
 from __future__ import annotations
@@ -71,29 +73,72 @@ def ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
     return ragged_masked_reference(q, k, v, lengths, q_lens)
 
 
-def _check_args(q, pool_k, pool_v, lengths, q_lens, block_tables):
-    if q.dim() != 4 or pool_k.dim() != 4:
-        raise ValueError(f"q must be [B, Q, H, Dh] and the pools "
-                         f"[N, bs, H, Dh]; got {tuple(q.shape)}, "
-                         f"{tuple(pool_k.shape)}")
+def _refuse_int8(k_scale, v_scale):
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8 KV attention (k_scale/v_scale) is not ported yet "
+            "(ROADMAP, the int8 slice)")
+
+
+def _check_args(kind, q, k, v, lengths, q_lens, index):
+    """q [B, Q, H, Dh], k/v [*, *, H, Dh]; on CUDA also the kernel's
+    dtypes, head dims, contiguity and int32 indices.  ``index`` names the
+    int32 index tensors."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{kind}: q must be [B, Q, H, Dh] and k/v "
+                         f"[*, *, H, Dh]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
     B, Q, H, Dh = q.shape
-    if pool_k.shape != pool_v.shape or pool_k.shape[2:] != (H, Dh):
-        raise ValueError(f"pools {tuple(pool_k.shape)}/"
-                         f"{tuple(pool_v.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    if lengths.shape != (B,) or q_lens.shape != (B,) \
-            or block_tables.dim() != 2 or block_tables.shape[0] != B:
-        raise ValueError("lengths/q_lens must be [B] and block_tables "
-                         "[B, T]")
-    for name, t in (("pool_k", pool_k), ("pool_v", pool_v),
-                    ("lengths", lengths), ("q_lens", q_lens),
-                    ("block_tables", block_tables)):
+    if k.shape != v.shape or k.shape[2:] != (H, Dh):
+        raise ValueError(f"{kind}: k/v {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if lengths.shape != (B,) or q_lens.shape != (B,):
+        raise ValueError(f"{kind}: lengths/q_lens must be [B={B}]")
+    for name, t in [("k", k), ("v", v)] + list(index.items()):
         if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+            raise ValueError(f"{kind}: {name} is on {t.device}, q on "
+                             f"{q.device}")
+    if q.device.type == "cpu":
+        return
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{kind} kernel takes float32/bfloat16 q and "
+                         f"caches of one dtype, got {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}")
+    if Dh not in _HEAD_DIMS:
+        raise ValueError(f"{kind} kernel takes head dim in {_HEAD_DIMS}, "
+                         f"got {Dh}")
+    for name, t in [("q", q), ("k", k), ("v", v)] + list(index.items()):
+        if not t.is_contiguous():
+            raise ValueError(f"{kind} kernel takes a contiguous {name}")
+    for name, t in index.items():
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+
+
+def _launch(source, entry, name, q, args, ints):
+    """Launch C entry ``entry`` of kernel library ``source`` as
+    ``entry(q, *args, out, *ints, dtype, stream)`` into a fresh output
+    like q, and count it under ``name``."""
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = _build.library(source)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * (len(args) + 2) \
+        + [ctypes.c_int] * (len(ints) + 1) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
+                *ints, _DTYPES[q.dtype], _build.stream_of(q))
+    _build.check(lib, rc, f"{name} launch")
+    _build.LAUNCHES[name] += 1
+    return out
 
 
 def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
-                           block_tables):
+                           block_tables, *, k_scale=None, v_scale=None):
     """One mixed wave over one layer of the paged pool.
 
     q: [B, Q, H, Dh]; pool_k, pool_v: [N_blocks, bs, H, Dh]; lengths /
@@ -105,44 +150,42 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
     tensors launch the kernel (f32 or bf16 with q and the pools of one
     dtype, head dim 32/64/128, all contiguous, int32 indices); CPU
     tensors run :func:`ragged_paged_reference`."""
-    _check_args(q, pool_k, pool_v, lengths, q_lens, block_tables)
+    _refuse_int8(k_scale, v_scale)
+    _check_args("ragged_paged_attention", q, pool_k, pool_v, lengths,
+                q_lens, {"lengths": lengths, "q_lens": q_lens,
+                         "block_tables": block_tables})
+    if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
+        raise ValueError("ragged_paged_attention: block_tables must be "
+                         "[B, T]")
     if q.device.type == "cpu":
         return ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
                                       block_tables).to(q.dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     B, Q, H, Dh = q.shape
-    if q.dtype not in _DTYPES or pool_k.dtype != q.dtype \
-            or pool_v.dtype != q.dtype:
-        raise ValueError(f"ragged kernel takes float32/bfloat16 q and "
-                         f"pools of one dtype, got {q.dtype}/"
-                         f"{pool_k.dtype}/{pool_v.dtype}")
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(f"ragged kernel takes head dim in {_HEAD_DIMS}, "
-                         f"got {Dh}")
-    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
-                    ("lengths", lengths), ("q_lens", q_lens),
-                    ("block_tables", block_tables)):
-        if not t.is_contiguous():
-            raise ValueError(f"ragged kernel takes a contiguous {name}")
-    for name, t in (("lengths", lengths), ("q_lens", q_lens),
-                    ("block_tables", block_tables)):
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
-    out = torch.empty_like(q)
-    if B == 0 or Q == 0:
-        return out
-    lib = _build.library("ragged_paged")
-    fn = lib.hetu_ragged_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                lengths.data_ptr(), q_lens.data_ptr(),
-                block_tables.data_ptr(), out.data_ptr(), B, Q, H, Dh,
-                pool_k.shape[1], block_tables.shape[1], _DTYPES[q.dtype],
-                _build.stream_of(q))
-    _build.check(lib, rc, "ragged_paged_attention launch")
-    _build.LAUNCHES["ragged_paged_attention"] += 1
-    return out
+    return _launch("ragged_paged", "hetu_ragged_paged_attention",
+                   "ragged_paged_attention", q,
+                   (pool_k, pool_v, lengths, q_lens, block_tables),
+                   (B, Q, H, Dh, pool_k.shape[1], block_tables.shape[1]))
+
+
+def ragged_attention(q, k, v, lengths, q_lens, *, k_scale=None,
+                     v_scale=None):
+    """One mixed wave over one layer of the slot-contiguous cache.
+
+    q: [B, Q, H, Dh]; k, v: [B, S_max, H, Dh] (one row per slot);
+    lengths / q_lens: [B] int32 as in :func:`ragged_paged_attention`.
+    Returns o [B, Q, H, Dh] in q's dtype.  CUDA tensors launch the kernel
+    (same terms as the paged one); CPU tensors run
+    :func:`ragged_masked_reference`."""
+    _refuse_int8(k_scale, v_scale)
+    _check_args("ragged_attention", q, k, v, lengths, q_lens,
+                {"lengths": lengths, "q_lens": q_lens})
+    if k.shape[0] != q.shape[0]:
+        raise ValueError("ragged_attention: k/v must hold one row per "
+                         "slot of q")
+    if q.device.type == "cpu":
+        return ragged_masked_reference(q, k, v, lengths,
+                                       q_lens).to(q.dtype)
+    B, Q, H, Dh = q.shape
+    return _launch("ragged_paged", "hetu_ragged_attention",
+                   "ragged_attention", q,
+                   (k, v, lengths, q_lens), (B, Q, H, Dh, k.shape[1]))

@@ -9,14 +9,21 @@ executor / HF-importer contract, ``<name>_wte_table``,
     out = generate_fast(params, cfg, prompts, num_tokens=50,
                         temperature=0.8, top_k=40, seed=0)
 
-Two cores serve two callers:
+The cores, each attending through one kernel wrapper per layer:
 
-- ``_prefill_forward`` + ``_decode_step`` drive offline ``generate_fast``:
-  one batched full-prompt pass through the flash kernel, then one
-  position at a time over a contiguous ``[L, B, S_max, H, Dh]`` cache.
-- ``_mixed_step`` is the serving engine's ONE core per scheduler step:
-  every slot's ragged q-block (prompt chunk or decode token) is written
-  into the block-table pool and attended by the ragged paged kernel.
+- ``_prefill_forward``: one batched full-prompt pass through the flash
+  kernel (offline ``generate_fast`` and the phase-split schedulers'
+  admission groups, ``_serve_prefill_batch``);
+- ``_decode_step``: one position per slot through the decode kernels,
+  over the contiguous ``[L, B, S_max, H, Dh]`` cache at one position
+  (offline) or at per-slot positions, or over the block-table pool
+  (the phase-split decode waves, ``_serve_decode_step``);
+- ``_serve_prefill_chunk``: one prompt chunk of one slot through the
+  ragged paged kernel (the paged phase-split scheduler's chunked
+  prefill and prefix-tail pass);
+- ``_mixed_step``: the mixed scheduler's ONE core per step: every slot's
+  ragged q-block (prompt or decode token) is written into the cache and
+  attended by the ragged kernel of its layout (``_serve_mixed``).
 
 PyTorch idiom: plain functions on tensors and dicts of tensors, an
 explicit device (the one the params live on), explicit
@@ -33,8 +40,11 @@ import torch
 
 from .. import envvars
 from ..device import resolve_device
+from ..kernels.decode_attention import (paged_block_decode_attention,
+                                        paged_decode_attention)
 from ..kernels.flash_attention import flash_attention
-from ..kernels.ragged_attention import ragged_paged_attention
+from ..kernels.ragged_attention import (ragged_attention,
+                                        ragged_paged_attention)
 from ..weights import prep_param
 
 NEG_INF = -1e30
@@ -49,8 +59,8 @@ def _pow2(n, floor=1):
 def resolve_serve_ragged(mode=None):
     """Mixed-mode ragged dispatch selection: an explicit argument wins;
     else ``$HETU_SERVE_RAGGED``; else auto — mixed when
-    ``torch.cuda.is_available()``.  The port runs only the mixed
-    scheduler so far; the engine refuses False (ROADMAP A4)."""
+    ``torch.cuda.is_available()``, the phase-split scheduler
+    elsewhere."""
     if mode is None:
         mode = envvars.get_str("HETU_SERVE_RAGGED")
     if isinstance(mode, bool):
@@ -117,31 +127,68 @@ def _logits(params, name, h):
     return logits if bias is None else logits + bias
 
 
-def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token):
-    """One position for the whole batch: ``token`` [B] at scalar
-    position ``pos`` over the contiguous ``[L, B, S_max, H, Dh]`` cache
-    pair.  Writes this position's K/V in place (the JAX package donates
-    the cache to a dynamic_update_slice here) and returns logits [B, V]
-    f32.  Attention reads positions [0, pos] — the masked path's live
-    span; the masked-out tail contributes exactly zero there."""
+def _kv_index(cache_k, block_tables, slots, posns):
+    """Where positions ``posns`` of slots ``slots`` (1-D long tensors of
+    one length) live in one layer of the cache, as index tensors into
+    its axes 0 and 1: the slot row and position for the slot-contiguous
+    cache (``block_tables`` None), the block through the slot's table
+    row and the offset in it for the block-table pool."""
+    if block_tables is None:
+        return slots, posns
+    bs = cache_k.shape[2]
+    return block_tables.long()[slots, posns // bs], posns % bs
+
+
+def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
+                 block_tables=None, live_mask=None):
+    """One position per slot: ``token`` [B] int64 consumed at ``pos`` —
+    a Python int (offline: the whole batch at one position) or a [B]
+    tensor (serving: every slot at its own filled length).  Returns
+    logits [B, V] f32.
+
+    Layouts, each with one attention path:
+
+    - int ``pos`` over the contiguous cache ``[L, B, S_max, H, Dh]``:
+      ``paged_decode_attention`` with lengths ``pos + 1``;
+    - tensor ``pos`` over the contiguous cache: the same kernel over the
+      slot rows, lengths ``pos[b] + 1``;
+    - tensor ``pos`` with ``block_tables`` [B, T] int32 over the pool
+      ``[L, N_blocks, bs, H, Dh]``: ``paged_block_decode_attention``.
+
+    ``live_mask`` ([B] bool, tensor ``pos`` only; default all live)
+    marks the slots decoding this wave: the others ride along inert,
+    with length 0 (zeros attended, logits discarded by the caller) and
+    no cache write, so a slot mid-prefill keeps the prompt K/V it holds.
+    Each layer writes the live slots' K/V in place (the JAX package
+    donates the cache here) before it attends."""
     name, L, H, Dh = cfg_tuple[:4]
     B = token.shape[0]
     hdim = H * Dh
+    dev = token.device
+    if torch.is_tensor(pos):
+        pos = pos.long()
+        if live_mask is None:
+            live_mask = torch.ones(B, dtype=torch.bool, device=dev)
+        lens = torch.where(live_mask, pos + 1, 0).to(torch.int32)
+        rows = live_mask.nonzero()[:, 0]
+        wa, wo = _kv_index(cache_k, block_tables, rows, pos[rows])
+    else:
+        lens = torch.full((B,), int(pos) + 1, dtype=torch.int32, device=dev)
+        rows = slice(None)
+        wa, wo = slice(None), int(pos)
     h = params[f"{name}_wte_table"][token] + params[f"{name}_wpe"][pos]
-    scale = Dh ** -0.5
     for i in range(L):
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
         q, k, v = _qkv(params, us, x, (B, H, Dh))
-        # in place: the cache is donated in the JAX package
-        cache_k[i, :, pos] = k.to(cache_k.dtype)
-        cache_v[i, :, pos] = v.to(cache_v.dtype)
-        ks = cache_k[i, :, :pos + 1]
-        vs = cache_v[i, :, :pos + 1]
-        s = torch.einsum("bhd,bshd->bhs", q, ks) * scale
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhs,bshd->bhd", p, vs).reshape(B, hdim)
-        o = o @ params[f"{us}_attn_proj_weight"] \
+        ks, vs = cache_k[i], cache_v[i]
+        ks[wa, wo] = k[rows].to(ks.dtype)
+        vs[wa, wo] = v[rows].to(vs.dtype)
+        if block_tables is None:
+            o = paged_decode_attention(q, ks, vs, lens)
+        else:
+            o = paged_block_decode_attention(q, ks, vs, lens, block_tables)
+        o = o.reshape(B, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
         h = _ffn_block(params, us, h + o)
     return _logits(params, name, h)
@@ -205,6 +252,18 @@ def _spec_sample(logits, temperature, top_k, generators, first_row,
     return toks
 
 
+def _sample_slots(logits, temperature, top_k, generators, live=None):
+    """One token per row of logits [B, V] f32: row b draws once from
+    ``generators[b]`` when it is sampled and ``live[b]`` (default all
+    live), else takes the argmax.  Host arrays as for
+    :func:`_spec_sample`.  Returns [B] int64 numpy."""
+    B = logits.shape[0]
+    q_len = np.ones(B, np.int32) if live is None \
+        else np.asarray(live, np.int32)
+    return _spec_sample(logits[:, None], temperature, top_k, generators,
+                        np.zeros(B, np.int32), q_len)[:, 0]
+
+
 def _prefill_forward(params, cfg_tuple, tokens, kv_lens):
     """ONE full-prompt forward over a bucket-padded token block: every
     layer's K/V for all positions in one batched pass, attention through
@@ -233,24 +292,122 @@ def _prefill_forward(params, cfg_tuple, tokens, kv_lens):
     return _logits(params, name, last), torch.stack(ks), torch.stack(vs)
 
 
-def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
-                block_tables):
-    """One MIXED wave over the block-table pool ``[L, N_blocks, bs, H,
-    Dh]``: slot b consumes ``tokens[b, :q_len[b]]`` at positions
-    ``pos[b] .. pos[b]+q_len[b]-1`` — a prompt chunk or one decode token,
-    all in one call.  Returns logits [B, Q, V] f32; row ``[b, j]`` is the
-    next-token distribution after input j.
+def _serve_prefill_batch(params, cfg_tuple, cache_k, cache_v, slots,
+                         prompts, prompt_lens, temperature, top_k,
+                         generators, block_tables=None):
+    """Flash prefill of a group of same-bucket admissions in ONE
+    ``_prefill_forward`` (the JAX package's ``_serve_prefill_batch`` and,
+    with ``block_tables``, ``_serve_prefill_batch_paged``): every
+    prompt's live positions go into its slot's cache row, or through its
+    table row into its blocks, and each row samples its first token from
+    its own generator.  Host arrays: slots [N], prompts [N, P_b] (pad
+    past prompt_lens), prompt_lens / temperature / top_k [N], generators
+    (None for greedy); block_tables [B, T] int32 on the device.  The
+    group needs no pad rows: torch compiles no shape ladder, so nothing
+    writes a position twice.  Returns first tokens [N] int64 numpy."""
+    dev = cache_k.device
+    N, P_b = prompts.shape
+    lens = np.asarray(prompt_lens, np.int32)
+    logits, ks, vs = _prefill_forward(
+        params, cfg_tuple,
+        torch.from_numpy(np.asarray(prompts, np.int64)).to(dev),
+        torch.from_numpy(lens).to(dev))
+    rows, cols = np.nonzero(np.arange(P_b)[None, :] < lens[:, None])
+    r, c = (torch.from_numpy(a).to(dev) for a in (rows, cols))
+    wa, wo = _kv_index(cache_k, block_tables,
+                       torch.from_numpy(np.asarray(slots)[rows]).to(dev), c)
+    cache_k[:, wa, wo] = ks[:, r, c].to(cache_k.dtype)
+    cache_v[:, wa, wo] = vs[:, r, c].to(cache_v.dtype)
+    return _sample_slots(logits, temperature, top_k, generators)
 
-    Each layer writes the q-block's K/V into the pool IN PLACE (the JAX
-    package donates the pool) — dead rows and dead slots (``q_len`` 0)
-    write scratch block 0 — and then hands the wave to
-    ``ragged_paged_attention``, which reads everything back from the
-    pool.  This is the only attention path: the JAX package's masked
-    gather (``fast_path=False``) has no counterpart here, since the
-    kernel's plain version already serves CPU tensors.  pos/q_len [B]
-    int32, tokens [B, Q] int64, block_tables [B, T] int32, all on the
-    params' device."""
-    name, L, H, Dh, S_max = cfg_tuple[:5]
+
+def _serve_decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
+                       live, temperature, top_k, generators,
+                       block_tables=None):
+    """One decode wave over all slots plus per-slot sampling (the JAX
+    package's ``_serve_decode_step`` and, with ``block_tables``,
+    ``_serve_decode_paged``): slot b consumes ``token[b]`` at ``pos[b]``
+    when ``live[b]`` and draws its next token from its own generator,
+    once; the other slots ride along inert (see ``_decode_step``).
+    Device tensors: pos [B] int32, token [B] int64, block_tables; host
+    arrays: live [B] bool, temperature, top_k, generators.  Returns
+    sampled [B] int64 numpy (meaningful for live slots)."""
+    logits = _decode_step(
+        params, cfg_tuple, cache_k, cache_v, pos, token,
+        block_tables=block_tables,
+        live_mask=torch.from_numpy(np.asarray(live, bool)).to(pos.device))
+    return _sample_slots(logits, temperature, top_k, generators, live)
+
+
+def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
+                         tokens, pos_off, sample=None):
+    """One CHUNK of one slot's prompt into its blocks: ``tokens`` [C]
+    int64 at positions ``pos_off .. pos_off+C-1``, attending to the
+    slot's earlier positions and causally to itself.  This is both the
+    chunked prefill (a long prompt fills its blocks one chunk per step)
+    and the prefix-tail pass (a prompt whose first ``pos_off`` positions
+    came from shared blocks forwards only the rest).
+
+    The JAX package computes it with a masked einsum over the gathered
+    context plus the chunk's FRESH K/V.  Here each layer writes the
+    chunk's K/V into its blocks first and attends through
+    ``ragged_paged_attention`` as one slot (q_lens [C], lengths
+    [pos_off + C], the table row) — the same numbers, because the pool
+    holds the compute dtype (f32 or bf16), so the K/V read back equal
+    the fresh ones.  (An int8 pool would differ; it is ROADMAP's int8
+    slice.)  table_row: [T] int32 on the device.
+
+    ``sample`` is ``(temperature, top_k, generator)`` on the FINAL chunk,
+    None on a mid-prompt one, which draws nothing: a request's generator
+    is drawn once for its first token, as in the other paths.  Returns
+    (first token int or None, logits [V] f32 after the chunk's last
+    position)."""
+    name, L, H, Dh = cfg_tuple[:4]
+    C = tokens.shape[0]
+    dev = tokens.device
+    posns = int(pos_off) + torch.arange(C, device=dev)
+    h = params[f"{name}_wte_table"][tokens] + params[f"{name}_wpe"][posns]
+    tables = table_row[None]
+    lens = torch.tensor([int(pos_off) + C], dtype=torch.int32, device=dev)
+    q_len = torch.tensor([C], dtype=torch.int32, device=dev)
+    wa, wo = _kv_index(cache_k, tables, torch.zeros_like(posns), posns)
+    for i in range(L):
+        us = f"{name}_h{i}"
+        x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
+        q, k, v = _qkv(params, us, x, (1, C, H, Dh))
+        ks, vs = cache_k[i], cache_v[i]
+        ks[wa, wo] = k[0].to(ks.dtype)
+        vs[wa, wo] = v[0].to(vs.dtype)
+        o = ragged_paged_attention(q, ks, vs, lens, q_len, tables)
+        o = o.reshape(C, H * Dh) @ params[f"{us}_attn_proj_weight"] \
+            + params[f"{us}_attn_proj_bias"]
+        h = _ffn_block(params, us, h + o)
+    logits = _logits(params, name, h[C - 1])
+    if sample is None:
+        return None, logits
+    temperature, top_k, generator = sample
+    return _sample_slot(logits, float(temperature), int(top_k),
+                        generator), logits
+
+
+def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
+                block_tables=None):
+    """One MIXED wave: slot b consumes ``tokens[b, :q_len[b]]`` at
+    positions ``pos[b] .. pos[b]+q_len[b]-1`` — a prompt, a prompt chunk
+    or one decode token, all in one call.  Returns logits [B, Q, V] f32;
+    row ``[b, j]`` is the next-token distribution after input j.
+
+    The cache is the contiguous ``[L, B, S_max, H, Dh]`` pair, or with
+    ``block_tables`` [B, T] int32 the block-table pool ``[L, N_blocks,
+    bs, H, Dh]``.  Each layer writes the live (slot, row) pairs' K/V IN
+    PLACE (the JAX package donates the cache) and hands the wave to
+    ``ragged_attention`` or ``ragged_paged_attention``, which read
+    everything back.  Only live rows write: the JAX package also
+    scatters dead rows, at clipped positions in an order that lets the
+    live row win, or into scratch block 0; an unordered CUDA scatter
+    has no such order, and nothing reads those writes.  pos/q_len [B]
+    int32, tokens [B, Q] int64, all on the params' device."""
+    name, L, H, Dh = cfg_tuple[:4]
     B, Q = tokens.shape
     hdim = H * Dh
     dev = tokens.device
@@ -260,37 +417,37 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     wpe = params[f"{name}_wpe"]
     h = params[f"{name}_wte_table"][tokens] \
         + wpe[torch.clamp(posns, 0, wpe.shape[0] - 1)]           # [B,Q,hd]
-    bs = cache_k.shape[2]
-    posc = torch.clamp(posns, 0, S_max - 1)
-    wblk = torch.where(
-        valid, torch.gather(block_tables.long(), 1, posc // bs), 0)
-    woff = posc % bs
+    wb, wj = valid.nonzero(as_tuple=True)
+    wa, wo = _kv_index(cache_k, block_tables, wb, posns[wb, wj])
     for i in range(L):
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
         q, k, v = _qkv(params, us, x, (B, Q, H, Dh))
-        # in place: the pool is the engine's whole KV memory, donated
-        # to the step in the JAX package
         ks, vs = cache_k[i], cache_v[i]
-        ks[wblk, woff] = k.to(ks.dtype)
-        vs[wblk, woff] = v.to(vs.dtype)
-        o = ragged_paged_attention(q, ks, vs, lens, q_len, block_tables)
+        ks[wa, wo] = k[wb, wj].to(ks.dtype)
+        vs[wa, wo] = v[wb, wj].to(vs.dtype)
+        if block_tables is None:
+            o = ragged_attention(q, ks, vs, lens, q_len)
+        else:
+            o = ragged_paged_attention(q, ks, vs, lens, q_len, block_tables)
         o = o.reshape(B, Q, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
         h = _ffn_block(params, us, h + o)
     return _logits(params, name, h)
 
 
-def _serve_mixed_paged(params, cfg_tuple, cache_k, cache_v, tables, pos,
-                       tokens, q_len, first_row, temperature, top_k,
-                       generators):
-    """One fused MIXED wave over the paged pool plus each slot's
-    sampling window.  Device tensors: tables, pos, tokens, q_len; host
-    arrays: first_row, temperature, top_k, and the per-slot generators
-    (None for a free slot).  Returns sampled [B, Q] int64 numpy; the
-    host reads each slot's window and discards the rest."""
+def _serve_mixed(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
+                 first_row, temperature, top_k, generators,
+                 block_tables=None):
+    """One fused MIXED wave plus each slot's sampling window (the JAX
+    package's ``_serve_mixed`` and, with ``block_tables``,
+    ``_serve_mixed_paged``).  Device tensors: pos, tokens, q_len,
+    block_tables; host arrays: first_row, temperature, top_k, and the
+    per-slot generators (None for a free or greedy slot).  Returns
+    sampled [B, Q] int64 numpy; the host reads each slot's window and
+    discards the rest."""
     logits = _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens,
-                         q_len, tables)
+                         q_len, block_tables)
     return _spec_sample(logits, temperature, top_k, generators,
                         first_row, q_len.cpu().numpy())
 
@@ -327,9 +484,9 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
                   pad_id=0, spec=None, device=None):
     """KV-cached generation: the prompt runs as ONE batched pass through
     the flash kernel (pow2-bucketed prompt length), then one position at
-    a time over the contiguous cache.  The JAX package's scan prefill
-    (``prefill="scan"``) has no counterpart here; its greedy tokens are
-    the same.
+    a time over the contiguous cache through the decode kernel.  The JAX
+    package's scan prefill (``prefill="scan"``) has no counterpart here;
+    its greedy tokens are the same.
 
     params: {name: array or tensor} (the JAX package's named params);
     config: GPTConfig; prompts: a [B, P] array or list of equal-length

@@ -1,23 +1,30 @@
 """The continuous-batching serving engine of the PyTorch port: the JAX
-package's ``ServingEngine`` with its production configuration — the
-block-table paged KV pool and the MIXED-MODE scheduler, in which every
-scheduler step packs arrivals, prompt-chunk continuations and decode
-tokens into ONE ragged wave and runs ONE fused step (``_mixed_step``),
-whose attention is the ragged paged kernel on each layer.
+package's ``ServingEngine`` over both KV layouts and both schedulers.
 
-Division of labor: the DEVICE holds the weights and the KV pool; the
+- Layouts: the block-table paged pool (``PagedKVManager``) or the
+  slot-contiguous cache (``KVCacheManager``).
+- Schedulers: MIXED mode, in which every step packs arrivals, prompt
+  chunk continuations and decode tokens into ONE ragged wave and runs
+  ONE fused step (``_mixed_step``: the ragged kernel of the layout on
+  each layer); or PHASE-SPLIT, in which a step first prefills (flash
+  groups of same-bucket admissions, plus one-slot chunk passes on the
+  pool) and then runs one decode wave over the slots whose prompts are
+  written (the decode kernel of the layout on each layer).
+
+Division of labor: the DEVICE holds the weights and the KV cache; the
 HOST owns every piece of scheduling state (queue, positions, current
 tokens, per-request generators, sampling settings) as small numpy
 arrays and Python objects.  Each request samples from its own
-``torch.Generator`` seeded with ``request.seed``, drawn only at the rows
-that emit its tokens, so outputs are a pure function of the request —
-identical across arrival orders and slot assignments — and greedy
-outputs equal offline ``generate_fast``.
+``torch.Generator`` seeded with ``request.seed``, drawn once per token
+it emits (at its prompt's last position, then at each decode), so
+outputs are a pure function of the request — identical across arrival
+orders, slot assignments, layouts and schedulers — and greedy outputs
+equal offline ``generate_fast``.
 
 Not ported yet, and refused with NotImplementedError whether asked for
-by argument or environment variable: the slot-contiguous layout and the
-phase-split schedulers (ROADMAP A3/A4), speculative decoding (A5), int8
-KV (A2), MoE configs (A6), weight swaps and tiered KV (A7).
+by argument or environment variable: speculative decoding (ROADMAP A5),
+int8 KV (the int8 slice), MoE configs (A6), weight swaps and tiered KV
+(A7).
 """
 
 from __future__ import annotations
@@ -31,12 +38,15 @@ import torch
 from .. import envvars, telemetry
 from ..device import resolve_device
 from ..models.gpt_decode import (
-    _infer_name, _model_params, _pow2, _serve_mixed_paged, refuse_moe, resolve_serve_ragged, resolve_spec_k,
+    _infer_name, _model_params, _pow2, _serve_decode_step, _serve_mixed,
+    _serve_prefill_batch, _serve_prefill_chunk, refuse_moe,
+    resolve_serve_ragged, resolve_spec_k,
 )
 from ..telemetry import flight
 from ..telemetry import slo as slo_mod
-from .kv_manager import (PagedKVManager, assemble_mixed_wave,
-                         resolve_kv_block, resolve_kv_quant)
+from .kv_manager import (KVCacheManager, PagedKVManager,
+                         assemble_mixed_wave, resolve_kv_block,
+                         resolve_kv_quant)
 from .metrics import ServingMetrics
 from .request import Result
 
@@ -51,17 +61,7 @@ class QueueFull(RuntimeError):
 _STORM_REJECTS = 8
 
 
-def _refuse_unported(c, block, ragged, spec, kv_quant, tier_store):
-    if block <= 0:
-        raise NotImplementedError(
-            "the slot-contiguous KV layout (paged=False, HETU_KV_BLOCK=0, "
-            "or the auto setting without CUDA) is not ported yet "
-            "(ROADMAP A3): pass paged=True or kv_block=")
-    if not ragged:
-        raise NotImplementedError(
-            "the phase-split schedulers (ragged=False, "
-            "HETU_SERVE_RAGGED=0, or the auto setting without CUDA) are "
-            "not ported yet (ROADMAP A4): pass ragged=True")
+def _refuse_unported(c, spec, kv_quant, tier_store):
     if spec:
         raise NotImplementedError(
             "speculative decoding (spec=, HETU_SPEC_K) is not ported yet "
@@ -69,7 +69,7 @@ def _refuse_unported(c, block, ragged, spec, kv_quant, tier_store):
     if kv_quant:
         raise NotImplementedError(
             "int8 KV (kv_quant=, HETU_KV_QUANT) is not ported yet "
-            "(ROADMAP A2)")
+            "(ROADMAP, the int8 slice)")
     if tier_store is not None or envvars.get_int("HETU_KV_HOST_BYTES") \
             or envvars.get_bool("HETU_KV_PS_TIER"):
         raise NotImplementedError(
@@ -86,18 +86,22 @@ class ServingEngine:
     sequences (pow2-bucketed); queue_limit: bounded admission queue —
     ``submit`` raises QueueFull beyond it; max_seq_len: cap on
     prompt+generation (default max_position_embeddings); dtype: e.g.
-    ``torch.bfloat16`` casts weights AND the KV pool, default FOLLOWS the
-    params; device: CUDA unless ``"cpu"`` is passed.
+    ``torch.bfloat16`` casts weights AND the KV cache, default FOLLOWS
+    the params; device: CUDA unless ``"cpu"`` is passed.
 
-    kv_block / paged / pool_blocks / prefix_share: the paged pool
-    (``resolve_kv_block``: auto is block 16 when CUDA is available);
-    prefill_chunk (``$HETU_KV_CHUNK``): prompts longer than this fill
-    their blocks one chunk per step, interleaved with decode; ragged
-    (``$HETU_SERVE_RAGGED``): must resolve to the mixed scheduler.
-    Every wave attends through ``ragged_paged_attention`` (the kernel on
-    CUDA, its plain version on CPU tensors); the JAX engine's
-    ``fast_path`` / ``$HETU_SERVE_FAST`` choice of a masked reference
-    has no counterpart here.
+    kv_block / paged / pool_blocks / prefix_share: the layout
+    (``resolve_kv_block``: auto is the paged pool with block 16 when
+    CUDA is available, the slot-contiguous cache elsewhere); on the
+    pool, prefill_chunk (``$HETU_KV_CHUNK``): prompts longer than this
+    fill their blocks one chunk per step, interleaved with decode.
+    ragged (``$HETU_SERVE_RAGGED``, ``resolve_serve_ragged``: auto is
+    mixed when CUDA is available, phase-split elsewhere): the scheduler.
+    Every core attends through its kernel wrapper (the kernel on CUDA,
+    its plain version on CPU tensors); the JAX engine's ``fast_path`` /
+    ``$HETU_SERVE_FAST`` choice of a masked reference has no counterpart
+    here, and the counters (``prefill_dispatches``, ``prefill_chunks``,
+    ``steps``, ``peak_live``, prefix hits) count as the JAX engine's do
+    with ``fast_path=True``.
 
     Observability: lifecycle-traced requests (``metrics``), an
     ``SLOMonitor`` behind ``health()``, and the flight recorder dumped
@@ -113,34 +117,39 @@ class ServingEngine:
         c = config
         self.device = resolve_device(device)
         block = resolve_kv_block(paged, kv_block)
-        _refuse_unported(c, block, resolve_serve_ragged(ragged),
-                         resolve_spec_k(spec), resolve_kv_quant(kv_quant),
+        _refuse_unported(c, resolve_spec_k(spec), resolve_kv_quant(kv_quant),
                          tier_store)
-        self.paged = self.ragged = True
+        self.paged = block > 0
+        self.ragged = resolve_serve_ragged(ragged)
         self._name = _infer_name(params, name)
         self.params = _model_params(params, self._name, self.device, dtype)
         Dh = c.hidden_size // c.num_attention_heads
         want = int(max_seq_len or c.max_position_embeddings)
         cdtype = self.params[f"{self._name}_wte_table"].dtype
-        self.kv = PagedKVManager(
-            layers=c.num_hidden_layers, heads=c.num_attention_heads,
-            head_dim=Dh, slots=slots, max_seq_len=want,
-            pos_cap=c.max_position_embeddings, dtype=cdtype,
-            device=self.device, block=block, pool_blocks=pool_blocks,
-            prefix_share=prefix_share)
-        chunk = (prefill_chunk if prefill_chunk is not None
-                 else envvars.get_int("HETU_KV_CHUNK"))
-        self.chunk = max(int(chunk or 0), 0)
+        shape = dict(layers=c.num_hidden_layers,
+                     heads=c.num_attention_heads, head_dim=Dh, slots=slots,
+                     max_seq_len=want, pos_cap=c.max_position_embeddings,
+                     dtype=cdtype, device=self.device)
+        if self.paged:
+            self.kv = PagedKVManager(block=block, pool_blocks=pool_blocks,
+                                     prefix_share=prefix_share, **shape)
+            chunk = (prefill_chunk if prefill_chunk is not None
+                     else envvars.get_int("HETU_KV_CHUNK"))
+            self.chunk = max(int(chunk or 0), 0)
+        else:
+            self.kv = KVCacheManager(**shape)
+            self.chunk = 0
         self.cfg_tuple = (self._name, c.num_hidden_layers,
                           c.num_attention_heads, Dh, self.kv.s_max)
-        self.prefill_dispatches = 0   # waves that carried prompt rows
-        self.prefill_chunks = 0       # prompt q-blocks scored
+        self.prefill_dispatches = 0   # prefill calls (a flash group, a
+        # chunk pass, or a mixed wave that carried prompt rows)
+        self.prefill_chunks = 0       # paged prompt chunks scored
         self.peak_live = 0            # max concurrent admitted slots
         self.queue_limit = int(queue_limit)
         self._queue = collections.deque()
         self.metrics = ServingMetrics(log_path, tags=tags)
-        # the wave IS the prefill: chunk_stall residue folds to 0
-        self.metrics.mixed_mode = True
+        # mixed mode: the wave IS the prefill, chunk_stall residue folds
+        self.metrics.mixed_mode = self.ragged
         # optional fn(request, slot) called at retirement while the
         # slot is still live
         self.retire_hook = None
@@ -182,7 +191,8 @@ class ServingEngine:
             raise ValueError(
                 f"prompt + max_new_tokens = {total} exceeds the "
                 f"engine's S_max {self.kv.s_max}")
-        if self.kv.blocks_needed(total) > self.kv.capacity_blocks:
+        if self.paged and \
+                self.kv.blocks_needed(total) > self.kv.capacity_blocks:
             raise ValueError(
                 f"request needs {self.kv.blocks_needed(total)} KV "
                 f"blocks; the pool holds {self.kv.capacity_blocks}")
@@ -214,11 +224,16 @@ class ServingEngine:
     # ------------------------------------------------------------- #
 
     def step(self):
-        """One scheduler iteration (see ``_step_mixed``).  Returns the
-        Results that completed this iteration.  An exception escaping
+        """One scheduler iteration: ``_step_mixed`` in mixed mode, else
+        the phase-split ``_step_paged`` or ``_step_contiguous``.  Returns
+        the Results that completed this iteration.  An exception escaping
         the scheduler dumps the flight recorder before propagating."""
         try:
-            return self._step_mixed()
+            if self.ragged:
+                return self._step_mixed()
+            if self.paged:
+                return self._step_paged()
+            return self._step_contiguous()
         except QueueFull:
             raise
         except Exception as e:   # noqa: BLE001 — dump-and-reraise
@@ -228,6 +243,48 @@ class ServingEngine:
                 step=self.steps, live=len(self.kv.live()),
                 queue_depth=len(self._queue))
             raise
+
+    def _put(self, a, dtype):
+        """A host array as a tensor on the engine's device."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype)
+
+    def _tables(self):
+        """The pool's block tables on the device (None when contiguous)."""
+        return self._put(self.kv.tables, torch.int32) if self.paged else None
+
+    def _claim(self, slot, req, cached=0):
+        """Slot state for a freshly admitted request whose prompt is
+        written from position ``cached`` on."""
+        self._reqs[slot] = req
+        self._gen[slot] = None
+        self._prompt_arr[slot] = np.asarray(req.prompt, np.int32)
+        self._prefill_off[slot] = cached
+        self._pos[slot] = 0
+        self._tok[slot] = 0
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        gen = None
+        if req.temperature > 0:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(req.seed))
+        self._gens[slot] = gen
+
+    def _admit_contiguous(self):
+        """Claim a free slot for each queued request, FIFO, while slots
+        last.  Returns [(request, slot)]."""
+        admits = []
+        while self._queue and self.kv.free_slots:
+            req = self._queue.popleft()
+            t_a = time.perf_counter()
+            slot = self.kv.alloc(req.request_id, len(req.prompt))
+            self.metrics.lc_claimed(
+                req.request_id, (time.perf_counter() - t_a) * 1e3)
+            self._claim(slot, req)
+            admits.append((req, slot))
+        if admits:
+            telemetry.inc("serve.admission_waves")
+        return admits
 
     def _admit_paged(self):
         """Claim slots + block tables for queued requests, FIFO, until
@@ -252,19 +309,7 @@ class ServingEngine:
                 self.metrics.lc_claimed(
                     req.request_id, (time.perf_counter() - t_a) * 1e3)
                 self._queue.popleft()
-                self._reqs[slot] = req
-                self._gen[slot] = None
-                self._prompt_arr[slot] = np.asarray(req.prompt, np.int32)
-                self._prefill_off[slot] = cached
-                self._pos[slot] = 0
-                self._tok[slot] = 0
-                self._temp[slot] = req.temperature
-                self._topk[slot] = req.top_k
-                gen = None
-                if req.temperature > 0:
-                    gen = torch.Generator(device=self.device)
-                    gen.manual_seed(int(req.seed))
-                self._gens[slot] = gen
+                self._claim(slot, req, cached)
                 admitted.append(slot)
         if admitted:
             telemetry.inc("serve.admission_waves")
@@ -297,15 +342,16 @@ class ServingEngine:
 
     def _finish_prefill(self, slot, tok0):
         """Prompt fully written: the slot joins the decode wave (or
-        retires right here on max_new_tokens=1 / instant EOS).
-        Registers the prompt's blocks for prefix sharing."""
+        retires right here on max_new_tokens=1 / instant EOS).  On the
+        pool, registers the prompt's blocks for prefix sharing."""
         req = self._reqs[slot]
         now = time.perf_counter()
         req.first_token_at = now
         self._pos[slot] = len(self._prompt_arr[slot])
         self._tok[slot] = tok0
         self._gen[slot] = [tok0]
-        self.kv.register_prefix(self._prompt_arr[slot], slot)
+        if self.paged:
+            self.kv.register_prefix(self._prompt_arr[slot], slot)
         self.metrics.record_admit(
             req.request_id, slot, now - req.submitted_at,
             now - req.submitted_at)
@@ -313,27 +359,212 @@ class ServingEngine:
             req.stream_cb(req, tok0)
         return self._maybe_finish(slot, tok0)
 
-    def _wave_tensors(self, wave):
-        dev = self.device
+    def _chunk_take(self, slot):
+        """(offset, width, final) of the slot's next prompt q-block: one
+        chunk on a chunked pool, else the rest of the prompt."""
+        P = len(self._prompt_arr[slot])
+        off = int(self._prefill_off[slot])
+        if self.paged and self.chunk > 0:
+            C_b = min(_pow2(self.chunk, floor=8), self.kv.s_max)
+            take = min(self.chunk, C_b, P - off)
+        else:
+            take = P - off
+        return off, take, off + take >= P
 
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                device=dev, dtype=dtype)
+    # ------------------------------------------------------------- #
+    # phase-split schedulers
+    # ------------------------------------------------------------- #
 
-        return dict(
-            tables=put(self.kv.tables, torch.int32),
-            pos=put(wave["pos"], torch.int32),
-            tokens=put(wave["tokens"], torch.int64),
-            q_len=put(wave["q_len"], torch.int32))
+    def _step_contiguous(self):
+        """One phase-split iteration over the slot-contiguous cache:
+        admission WAVES — each claims every free slot, groups its
+        admissions by prompt bucket and prefills one group per flash
+        dispatch; a request finishing AT prefill frees its slot for the
+        next wave of the same step — then one decode wave over every
+        live slot."""
+        done = []
+        prefill_s = 0.0
+        while True:
+            admits = self._admit_contiguous()
+            if not admits:
+                break
+            groups = {}
+            for req, slot in admits:
+                pb = self.kv.bucket_prompt(len(req.prompt))
+                groups.setdefault(pb, []).append(slot)
+            for pb, group in sorted(groups.items()):
+                firsts, dt = self._prefill_group_flash(pb, group)
+                prefill_s += dt
+                for slot, tok0 in zip(group, firsts):
+                    r = self._finish_prefill(slot, tok0)
+                    if r:
+                        done.append(r)   # frees the slot: next wave
+        live = self.kv.live()
+        self.peak_live = max(self.peak_live, len(live))
+        if live:
+            done.extend(self._decode_wave(live, prefill_s))
+        return done
+
+    def _step_paged(self):
+        """One phase-split iteration over the pool: admit into block
+        tables, advance every mid-prefill slot (a flash group for whole
+        fresh prompts, one chunk for a long prompt or a prefix tail, so
+        long prompts fill their blocks INTERLEAVED with decode waves),
+        then one decode wave over the slots whose prompts are written.
+        A request finishing at prefill frees capacity for another
+        admission wave within the same step."""
+        done = []
+        prefill_s = 0.0
+        while True:
+            self._admit_paged()
+            fin, dt = self._prefill_wave_paged()
+            prefill_s += dt
+            done.extend(fin)
+            if not fin:
+                break   # nothing retired at prefill: no freed capacity
+        # a request deferred for a prefix that REGISTERED this step can
+        # claim its (shared) blocks now and prefill next step
+        self._admit_paged()
+        live = self.kv.live()
+        decoding = [s for s in live if self._gen[s] is not None]
+        self.peak_live = max(self.peak_live, len(live))
+        if decoding:
+            done.extend(self._decode_wave(decoding, prefill_s))
+        return done
+
+    def _prefill_wave_paged(self):
+        """Advance every mid-prefill slot: fresh whole-prompt slots in
+        flash groups by prompt bucket, K/V straight into their blocks;
+        slots with a shared-prefix tail or a chunked long prompt by one
+        chunk pass each.  Returns (finished Results, prefill seconds)."""
+        t_all = time.perf_counter()
+        fin = []
+        pre = [s for s in self.kv.live() if self._gen[s] is None]
+        if not pre:
+            return fin, 0.0
+        groups, chunked = {}, []
+        for s in pre:
+            P = len(self._prompt_arr[s])
+            if self._prefill_off[s] == 0 and (self.chunk == 0
+                                              or P <= self.chunk):
+                groups.setdefault(self.kv.bucket_prompt(P), []).append(s)
+            else:
+                chunked.append(s)
+        for pb, group in sorted(groups.items()):
+            firsts, _ = self._prefill_group_flash(pb, group)
+            for s, tok0 in zip(group, firsts):
+                P = len(self._prompt_arr[s])
+                self.kv.advance(s, P)
+                self._prefill_off[s] = P
+                r = self._finish_prefill(s, tok0)
+                if r:
+                    fin.append(r)
+        for s in chunked:
+            tok0 = self._chunk_advance(s)
+            if tok0 is not None:
+                r = self._finish_prefill(s, tok0)
+                if r:
+                    fin.append(r)
+        return fin, time.perf_counter() - t_all
+
+    def _prefill_group_flash(self, pb, group):
+        """ONE flash-prefill dispatch for a group of same-bucket fresh
+        prompts (slots ``group``), K/V into their cache rows or blocks.
+        Returns (first tokens, seconds)."""
+        t0 = time.perf_counter()
+        n = len(group)
+        prompts = np.zeros((n, pb), np.int64)
+        lens = np.zeros(n, np.int32)
+        for row, slot in enumerate(group):
+            P = len(self._prompt_arr[slot])
+            prompts[row, :P] = self._prompt_arr[slot]
+            lens[row] = P
+        firsts = _serve_prefill_batch(
+            self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
+            np.asarray(group), prompts, lens, self._temp[group],
+            self._topk[group], [self._gens[s] for s in group],
+            block_tables=self._tables())
+        self.prefill_dispatches += 1
+        dt = time.perf_counter() - t0
+        self.metrics.record_prefill(n, pb, dt, batched=True)
+        for slot in group:
+            self.metrics.lc_prefill(self._reqs[slot].request_id, dt)
+        return [int(t) for t in firsts], dt
+
+    def _chunk_advance(self, slot):
+        """One prefill chunk pass for one slot of the pool; returns the
+        first token when this chunk completed the prompt, else None."""
+        req = self._reqs[slot]
+        off, take, final = self._chunk_take(slot)
+        t0 = time.perf_counter()
+        tok0, _ = _serve_prefill_chunk(
+            self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
+            self._put(self.kv.tables[slot], torch.int32),
+            self._put(self._prompt_arr[slot][off:off + take], torch.int64),
+            off, sample=((req.temperature, req.top_k, self._gens[slot])
+                         if final else None))
+        self.prefill_dispatches += 1
+        self.prefill_chunks += 1
+        telemetry.inc("serve.prefill_chunks")
+        self.kv.advance(slot, take)
+        self._prefill_off[slot] = off + take
+        dt = time.perf_counter() - t0
+        self.metrics.record_prefill(1, take, dt, batched=False)
+        self.metrics.lc_prefill(req.request_id, dt)
+        return tok0
+
+    def _decode_wave(self, decoding, prefill_s):
+        """One fused decode step over the slots ``decoding`` (the decode
+        kernel of the layout on each layer); every other slot rides
+        along inert.  Returns the Results that completed."""
+        done = []
+        wave_reqs = [self._reqs[s].request_id for s in decoding]
+        B = self.kv.n_slots
+        live = np.zeros(B, bool)
+        live[decoding] = True
+        t0 = time.perf_counter()
+        sampled = _serve_decode_step(
+            self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
+            self._put(self._pos, torch.int32),
+            self._put(self._tok, torch.int64), live, self._temp,
+            self._topk, self._gens, block_tables=self._tables())
+        dt = time.perf_counter() - t0
+        for slot in decoding:
+            req = self._reqs[slot]
+            t = int(sampled[slot])
+            self._pos[slot] += 1
+            self._tok[slot] = t
+            self._gen[slot].append(t)
+            self.kv.advance(slot)
+            if req.stream_cb:
+                req.stream_cb(req, t)
+            r = self._maybe_finish(slot, t)
+            if r:
+                done.append(r)
+        self.steps += 1
+        self.metrics.record_step(
+            live=len(decoding), slots=B, queue_depth=len(self._queue),
+            dt_s=dt, new_tokens=len(decoding), prefill_s=prefill_s,
+            step=self.steps, requests=wave_reqs, end_perf=t0 + dt)
+        return done
+
+    # ------------------------------------------------------------- #
+    # mixed-mode scheduler
+    # ------------------------------------------------------------- #
 
     def _step_mixed(self):
         """One MIXED-MODE scheduler iteration: admissions, chunk
         continuations and plain decode pack into ONE ragged wave
         descriptor (per-slot ``q_len``/``first_row``) and run as ONE
         fused step — no prefill/decode phase barrier, so a decode slot
-        never stalls behind another request's prompt chunks."""
+        never stalls behind another request's prompt chunks.  Every
+        slot's writes, attention and generator draws are what its mode's
+        phase-split path does, so the tokens are the same."""
         done = []
-        self._admit_paged()
+        if self.paged:
+            self._admit_paged()
+        else:
+            self._admit_contiguous()
         live = self.kv.live()
         if not live:
             return done
@@ -346,28 +577,22 @@ class ServingEngine:
         entries = {}
         chunk_take = {}   # slot -> (take, final) for prefill q-blocks
         for s in pre:
-            prompt = self._prompt_arr[s]
-            P = len(prompt)
-            off = int(self._prefill_off[s])
-            if self.chunk > 0:
-                C_b = min(_pow2(self.chunk, floor=8), self.kv.s_max)
-                take = min(self.chunk, C_b, P - off)
-            else:
-                take = P - off
-            final = off + take >= P
+            off, take, final = self._chunk_take(s)
             # only the final chunk samples — at its last row; mid-prompt
             # chunks pass first_row == q_len
-            entries[s] = ([int(t) for t in prompt[off:off + take]],
-                          off, take - 1 if final else take)
+            toks = [int(t) for t in self._prompt_arr[s][off:off + take]]
+            entries[s] = (toks, off, take - 1 if final else take)
             chunk_take[s] = (take, final)
         for s in decoding:
             entries[s] = ([int(self._tok[s])], int(self._pos[s]), 0)
         wave = assemble_mixed_wave(B, entries)
-        dev = self._wave_tensors(wave)
-        sampled = _serve_mixed_paged(
+        sampled = _serve_mixed(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
-            dev["tables"], dev["pos"], dev["tokens"], dev["q_len"],
-            wave["first_row"], self._temp, self._topk, self._gens)
+            self._put(wave["pos"], torch.int32),
+            self._put(wave["tokens"], torch.int64),
+            self._put(wave["q_len"], torch.int32), wave["first_row"],
+            self._temp, self._topk, self._gens,
+            block_tables=self._tables())
         dt = time.perf_counter() - t0
         # ---- prefill q-blocks ---- #
         q_pre = 0
@@ -378,9 +603,11 @@ class ServingEngine:
             req = self._reqs[s]
             take, final = chunk_take[s]
             q_pre += take
-            self.kv.advance(s, take)
-            self.prefill_chunks += 1
-            telemetry.inc("serve.prefill_chunks")
+            if self.paged:
+                # a contiguous slot's length was set at its claim
+                self.kv.advance(s, take)
+                self.prefill_chunks += 1
+                telemetry.inc("serve.prefill_chunks")
             self._prefill_off[s] += take
             # the fused wave IS this request's prefill compute; credit
             # the wall since dispatch (topped up to the whole wave below)

@@ -1,5 +1,9 @@
-"""KV-cache management for the port's serving engine: the block-table
-paged pool and the mixed-wave descriptor.
+"""KV-cache management for the port's serving engine: the slot-contiguous
+cache, the block-table paged pool, and the mixed-wave descriptor.
+
+``KVCacheManager`` preallocates one ``[L, B_slots, S_max, H, Dh]`` cache
+pair on the device with one contiguous row per admitted sequence: every
+sequence pays for ``S_max`` positions however short it is.
 
 ``PagedKVManager`` holds a fixed pool of ``[L, N_blocks, block, H, Dh]``
 KV blocks on the device with a free list, a per-request BLOCK TABLE
@@ -9,10 +13,9 @@ system prompt reference its KV blocks once.  Block 0 is permanent
 scratch: dead table entries point at it and inert writes land in it.
 
 The host logic is the JAX package's ``serving/kv_manager.py`` as it is;
-where the JAX manager rebuilt a donated pool (``.at[].set``), this one
-writes the pool tensors in place.  The slot-contiguous
-``KVCacheManager``, the int8 pool and the fleet's block export/import
-are later slices (ROADMAP A2, A3, A7).
+where the JAX manager rebuilt a donated cache (``.at[].set``), these
+write the tensors in place.  The int8 caches and the fleet's block
+export/import are later slices (ROADMAP's int8 slice, A7).
 """
 
 from __future__ import annotations
@@ -37,6 +40,30 @@ def _bucket_prompt(p, s_max, pos_cap):
     if pos_cap is not None:
         b = min(b, int(pos_cap))
     return b
+
+
+def _bucket_shape(slots, max_seq_len, pos_cap, bucket):
+    """(slots, S_max): both pow2-bucketed (S_max floor 16) when
+    ``bucket``, S_max then capped at the position table ``pos_cap``;
+    raises when ``max_seq_len`` cannot fit under the cap."""
+    if bucket:
+        slots = round_up_pow2(slots)
+        s = round_up_pow2(max_seq_len, floor=16)
+    else:
+        s = int(max_seq_len)
+    if pos_cap is not None:
+        s = min(s, int(pos_cap))
+    if s < max_seq_len:
+        raise ValueError(
+            f"max_seq_len={max_seq_len} exceeds the position-table "
+            f"cap {pos_cap}")
+    return int(slots), int(s)
+
+
+def _refuse_int8(dtype):
+    if isinstance(dtype, str) or dtype == torch.int8:
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP, the int8 slice)")
 
 
 def assemble_mixed_wave(n_slots, entries, q_floor=1):
@@ -120,6 +147,110 @@ def resolve_kv_block(paged=None, block=None):
     return max(block, 0)
 
 
+class KVCacheManager:
+    """Free-slot allocator over one preallocated cache pair.
+
+    layers/heads/head_dim: model shape; slots: requested concurrent
+    sequences (bucketed up to a power of two); max_seq_len: longest
+    prompt+generation to admit (bucketed, then capped at ``pos_cap`` —
+    the model's max_position_embeddings, since the position table can't
+    index past it); dtype: cache dtype — the engine passes its param
+    dtype, so bf16 params mean a bf16 cache.  The cache pair is
+    ``[L, B, S_max, H, Dh]`` tensors on ``device``.
+    """
+
+    def __init__(self, *, layers, heads, head_dim, slots, max_seq_len,
+                 pos_cap=None, dtype=torch.float32, device="cpu",
+                 bucket=True):
+        _refuse_int8(dtype)
+        self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
+                                                 pos_cap, bucket)
+        self.pos_cap = int(pos_cap) if pos_cap is not None else self.s_max
+        shape = (layers, self.n_slots, self.s_max, heads, head_dim)
+        self.cache_k = torch.zeros(shape, dtype=dtype, device=device)
+        self.cache_v = torch.zeros(shape, dtype=dtype, device=device)
+        self._free = list(range(self.n_slots))
+        self.lengths = np.zeros(self.n_slots, np.int32)
+        self.owner = [None] * self.n_slots
+        self.total_allocs = 0
+
+    @property
+    def free_slots(self):
+        return len(self._free)
+
+    @property
+    def occupancy(self):
+        return 1.0 - len(self._free) / self.n_slots
+
+    @property
+    def cache_bytes(self):
+        """Device bytes of the cache pair."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cache_k, self.cache_v))
+
+    def live(self):
+        """Slot indices currently holding a sequence (ascending)."""
+        return [i for i in range(self.n_slots) if self.owner[i] is not None]
+
+    def _gauges(self):
+        telemetry.set_gauge("serve.occupancy", round(self.occupancy, 4))
+        telemetry.set_gauge("serve.slots_free", self.free_slots)
+
+    def bucket_prompt(self, p):
+        return _bucket_prompt(p, self.s_max, self.pos_cap)
+
+    def alloc(self, owner, length):
+        """Claim a free slot for ``owner`` whose prompt fills ``length``
+        positions; returns the slot index or None when full."""
+        if length > self.s_max:
+            raise ValueError(
+                f"sequence length {length} exceeds S_max {self.s_max}")
+        if not self._free:
+            return None
+        slot = self._free.pop()
+        self.owner[slot] = owner
+        self.lengths[slot] = length
+        self.total_allocs += 1
+        self._gauges()
+        return slot
+
+    def advance(self, slot, n=1):
+        """Record ``n`` more filled positions in ``slot``."""
+        self.lengths[slot] += n
+
+    def truncate(self, slot, n):
+        """Roll ``slot`` back to ``n`` filled positions: positions at or
+        past ``n`` are never attended and are overwritten in place by
+        the next writes there."""
+        n = int(n)
+        if self.owner[slot] is None:
+            raise ValueError(f"slot {slot} is free")
+        if not 0 <= n <= int(self.lengths[slot]):
+            raise ValueError(
+                f"cannot truncate slot {slot} to {n} "
+                f"(filled {int(self.lengths[slot])})")
+        self.lengths[slot] = n
+
+    def release(self, slot):
+        """Return a retired sequence's slot to the free list (its cache
+        row is left as-is: recycled content is never attended before it
+        is overwritten)."""
+        if self.owner[slot] is None:
+            raise ValueError(f"slot {slot} is already free")
+        self.owner[slot] = None
+        self.lengths[slot] = 0
+        self._free.append(slot)
+        self._gauges()
+
+    def export_blocks(self, slot, quant_mode=None):
+        raise NotImplementedError(
+            "KV span export is not ported yet (ROADMAP A7)")
+
+    def import_blocks(self, payload, owner, *, reserve=None):
+        raise NotImplementedError(
+            "KV span import is not ported yet (ROADMAP A7)")
+
+
 class _PrefixEntry:
     """One registered prompt prefix: the tokens (collision-proof key
     verification), the pool blocks holding its KV (each refcounted on
@@ -161,19 +292,9 @@ class PagedKVManager:
                  pos_cap=None, dtype=torch.float32, device="cpu",
                  bucket=True, block=16, pool_blocks=None,
                  prefix_share=None):
-        if bucket:
-            slots = round_up_pow2(slots)
-            s = round_up_pow2(max_seq_len, floor=16)
-        else:
-            s = int(max_seq_len)
-        if pos_cap is not None:
-            s = min(s, int(pos_cap))
-        if s < max_seq_len:
-            raise ValueError(
-                f"max_seq_len={max_seq_len} exceeds the position-table "
-                f"cap {pos_cap}")
-        self.n_slots = int(slots)
-        self.s_max = int(s)
+        _refuse_int8(dtype)
+        self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
+                                                 pos_cap, bucket)
         self.pos_cap = int(pos_cap) if pos_cap is not None else self.s_max
         self.block = int(block)
         if self.block < 1:

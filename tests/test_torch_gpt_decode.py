@@ -1,12 +1,14 @@
 """The PyTorch port's GPT decode cores against the JAX package's, on the
 CPU, same numpy weights and inputs on both sides: ``_prefill_forward``
-logits and K/V, one ``_mixed_step`` over the paged pool (against both
-JAX attention paths, the ragged kernel and the masked reference), and
-greedy ``generate_fast`` tokens (against both JAX prefills).  Plus the
-port's own contracts: the weights bridge keeps dtypes, entry points
-refuse to run on the CPU unasked, both cores attend through the kernel
-wrappers whatever the environment says, and importing the port loads
-neither JAX nor the JAX package.
+logits and K/V; ``_decode_step`` at one position, at per-slot positions
+and through block tables; ``_serve_prefill_chunk`` as a prefix tail and
+as a mid-prompt chunk; one ``_mixed_step`` over the paged pool and over
+the slot-contiguous cache (against both JAX attention paths, the kernel
+and the masked reference); and greedy ``generate_fast`` tokens (against
+both JAX prefills).  Plus the port's own contracts: the weights bridge
+keeps dtypes, entry points refuse to run on the CPU unasked, every core
+attends through its kernel wrapper whatever the environment says, and
+importing the port loads neither JAX nor the JAX package.
 
 Tolerance for logits and K/V: f32 ``atol 1e-4`` (the same arithmetic,
 matmuls and softmax summed in another order).
@@ -133,6 +135,155 @@ def test_mixed_step_matches_jax(model, attn):
                                atol=ATOL, rtol=0)
 
 
+def _pool_and_tables(rng, bs=8, T=4, B=4):
+    """A random pool [2, L, 1 + B*T, bs, H, Dh] (K and V) with B
+    permuted table rows: stale data everywhere, context for the cores
+    below."""
+    N = 1 + B * T
+    tables = rng.permutation(np.arange(1, N)).reshape(B, T).astype(np.int32)
+    return rng.randn(2, L, N, bs, H, Dh).astype(np.float32), tables
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _jit(fn, *static):
+    """A JAX core compiled once (faster here than running it op by op)."""
+    import jax
+    return jax.jit(fn, static_argnames=("cfg_tuple", "attn") + static)
+
+
+@pytest.mark.parametrize("layout", ["scalar", "slots", "paged-kernel",
+                                    "paged-masked"])
+def test_decode_step_matches_jax(model, layout):
+    """One decode position in each layout.  The port's inert slots (a
+    free contiguous row, a paged slot mid-prefill) write nothing and
+    attend to nothing; the JAX package writes the free row and sends the
+    inert paged write to scratch block 0."""
+    _, jp, tp, _, _ = model
+    rng = np.random.RandomState(5)
+    token = rng.randint(0, V, 4).astype(np.int32)
+    live = np.array([True, False, True, True])
+    tables = None
+    if layout.startswith("paged"):
+        cache, tables = _pool_and_tables(rng)
+        pos = np.array([3, 0, 16, 31], np.int32)     # a block edge, a brim
+        jl, jk, jv = _jit(jgd._decode_step)(
+            jp, CFG, jnp.asarray(cache[0]), jnp.asarray(cache[1]),
+            jnp.asarray(pos), jnp.asarray(token),
+            attn="ragged" if layout == "paged-kernel" else "masked",
+            block_tables=jnp.asarray(tables), live_mask=jnp.asarray(live))
+        tpos, tmask = _t(pos), _t(live)
+    else:
+        cache = rng.randn(2, L, 4, S, H, Dh).astype(np.float32)
+        pos = np.array([9, 0, 40, S - 1], np.int32)
+        jpos = 9 if layout == "scalar" else jnp.asarray(pos)
+        jl, jk, jv = _jit(jgd._decode_step)(
+            jp, CFG, jnp.asarray(cache[0]), jnp.asarray(cache[1]), jpos,
+            jnp.asarray(token))
+        tpos = 9 if layout == "scalar" else _t(pos)
+        tmask = None if layout == "scalar" else _t(live)
+        if layout == "scalar":
+            live[:] = True
+    ck, cv = _t(cache[0]), _t(cache[1])
+    tl = tgd._decode_step(tp, CFG, ck, cv, tpos, _t(token).long(),
+                          block_tables=None if tables is None
+                          else _t(tables), live_mask=tmask)
+    rows = slice(None) if layout == "paged-kernel" else live
+    np.testing.assert_allclose(tl.numpy()[rows], np.asarray(jl)[rows],
+                               atol=ATOL, rtol=0)
+    for got, want, old in ((ck, jk, cache[0]), (cv, jv, cache[1])):
+        got, want = got.numpy(), np.asarray(want)
+        if tables is not None:      # the pool, scratch block 0 aside
+            np.testing.assert_allclose(got[:, 1:], want[:, 1:], atol=ATOL,
+                                       rtol=0)
+        else:                       # live rows as JAX; the free row as was
+            np.testing.assert_allclose(got[:, live], want[:, live],
+                                       atol=ATOL, rtol=0)
+            np.testing.assert_array_equal(got[:, ~live], old[:, ~live])
+
+
+@pytest.mark.parametrize("case", ["prefix-tail", "mid-chunk"])
+def test_serve_prefill_chunk_matches_jax(model, case):
+    """One slot's chunk over its table row: a final 5-token tail after 8
+    shared positions, and a 4-token chunk at 4 that samples nothing.
+    The logits after the chunk equal the JAX chunk arithmetic (the masked
+    ``_mixed_step`` with the chunk's fresh K/V); the blocks written and
+    the greedy first token equal ``_serve_prefill_chunk``'s."""
+    import jax
+    _, jp, tp, _, _ = model
+    rng = np.random.RandomState(6)
+    cache, tables = _pool_and_tables(rng)
+    row, bs = tables[0], cache.shape[3]
+    pos_off, n = (8, 5) if case == "prefix-tail" else (4, 4)
+    final = case == "prefix-tail"
+    C_b = 8
+    toks = np.zeros(C_b, np.int32)
+    toks[:n] = rng.randint(0, V, n)
+    wblk = np.zeros(C_b, np.int32)
+    woff = np.zeros(C_b, np.int32)
+    for j in range(n):
+        wblk[j], woff[j] = row[(pos_off + j) // bs], (pos_off + j) % bs
+    first, jk, jv, _ = jgd.serve_prefill_chunk_fn(donate=False)(
+        jp, CFG, jnp.asarray(cache[0]), jnp.asarray(cache[1]),
+        jnp.asarray(row), jnp.asarray(toks), jnp.int32(pos_off),
+        jnp.int32(n), jnp.float32(0.0), jnp.int32(0),
+        jax.random.PRNGKey(0), jnp.asarray(wblk), jnp.asarray(woff))
+    jl, _, _ = _jit(jgd._mixed_step, "has_fresh")(
+        jp, CFG, jnp.asarray(cache[0]), jnp.asarray(cache[1]),
+        jnp.asarray([pos_off], jnp.int32), jnp.asarray(toks[None]),
+        jnp.asarray([n], jnp.int32), jnp.asarray([True]), attn="masked",
+        block_tables=jnp.asarray(row[None]), has_fresh=True)
+    ck, cv = _t(cache[0]), _t(cache[1])
+    tok, tl = tgd._serve_prefill_chunk(
+        tp, CFG, ck, cv, _t(row), _t(toks[:n]).long(), pos_off,
+        sample=(0.0, 0, None) if final else None)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[0, n - 1],
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(ck.numpy()[:, 1:], np.asarray(jk)[:, 1:],
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(cv.numpy()[:, 1:], np.asarray(jv)[:, 1:],
+                               atol=ATOL, rtol=0)
+    assert tok == (int(first) if final else None)
+
+
+@pytest.mark.parametrize("attn", ["ragged", "masked"])
+def test_mixed_step_contiguous_matches_jax(model, attn):
+    """A contiguous mixed wave (Q = 8): a 5-token prompt q-block at 3, a
+    decode token at 10, a free slot, and a decode token at the LAST
+    position, where the JAX package's clipped dead rows land too (it
+    writes them first so the live row wins).  The port writes live rows
+    only: every live position equals JAX's, every other position keeps
+    what it held."""
+    _, jp, tp, _, _ = model
+    rng = np.random.RandomState(7)
+    cache = rng.randn(2, L, 4, S, H, Dh).astype(np.float32)
+    pos = np.array([3, 10, 0, S - 1], np.int32)
+    q_len = np.array([5, 1, 0, 1], np.int32)
+    tokens = np.zeros((4, 8), np.int32)
+    for b in range(4):
+        tokens[b, :q_len[b]] = rng.randint(0, V, q_len[b])
+    jl, jk, jv = _jit(jgd._mixed_step, "has_fresh")(
+        jp, CFG, jnp.asarray(cache[0]), jnp.asarray(cache[1]),
+        jnp.asarray(pos), jnp.asarray(tokens), jnp.asarray(q_len),
+        jnp.zeros(4, bool), attn=attn)
+    ck, cv = _t(cache[0]), _t(cache[1])
+    tl = tgd._mixed_step(tp, CFG, ck, cv, _t(pos), _t(tokens).long(),
+                         _t(q_len))
+    valid = np.arange(8)[None, :] < q_len[:, None]
+    np.testing.assert_allclose(tl.numpy()[valid], np.asarray(jl)[valid],
+                               atol=ATOL, rtol=0)
+    written = np.zeros((4, S), bool)
+    for b in range(4):
+        written[b, pos[b]:pos[b] + q_len[b]] = True
+    for got, want, old in ((ck, jk, cache[0]), (cv, jv, cache[1])):
+        got, want = got.numpy(), np.asarray(want)
+        np.testing.assert_allclose(got[:, written], want[:, written],
+                                   atol=ATOL, rtol=0)
+        np.testing.assert_array_equal(got[:, ~written], old[:, ~written])
+
+
 @pytest.mark.parametrize("prefill", ["flash", "scan"])
 @pytest.mark.parametrize("eos", [False, True])
 def test_generate_fast_greedy_matches_jax(model, prefill, eos):
@@ -218,29 +369,57 @@ def _counting(monkeypatch, name):
     return calls
 
 
+KERNEL_WRAPPERS = ("flash_attention", "ragged_paged_attention",
+                   "ragged_attention", "paged_decode_attention",
+                   "paged_block_decode_attention")
+# engine entry -> (layout and scheduler arguments)
+ENGINES = {"engine": dict(paged=True, kv_block=8, ragged=True),
+           "contiguous-split": dict(paged=False, ragged=False),
+           "paged-split": dict(paged=True, kv_block=8, ragged=False,
+                               prefill_chunk=4),
+           "contiguous-mixed": dict(paged=False, ragged=True)}
+
+
 @pytest.mark.parametrize("fast", ["0", "1"])
-@pytest.mark.parametrize("entry", ["engine", "generate_fast"])
+@pytest.mark.parametrize("entry", ["engine", "generate_fast",
+                                   "contiguous-split", "paged-split",
+                                   "contiguous-mixed"])
 def test_cores_attend_through_the_kernels(model, monkeypatch, fast,
                                           entry):
     """The JAX package's ``$HETU_SERVE_FAST=0`` picks its masked/scan
-    reference; the port has no such path, so the engine calls the
-    ragged wrapper once per layer per step and ``generate_fast`` the
-    flash wrapper once per layer, whatever the variable says (on a card
-    every call is a kernel launch)."""
+    reference; the port has no such path, so every core calls its kernel
+    wrapper once per layer, whatever the variable says (on a card every
+    call is a kernel launch): the paged mixed engine the ragged paged
+    wrapper per step, the contiguous mixed one the contiguous ragged
+    wrapper; the phase-split engines the flash wrapper per prefill group,
+    the paged one the ragged paged wrapper per chunk pass, and the
+    decode wrapper of their layout per decode wave; ``generate_fast``
+    the flash wrapper once and the contiguous decode wrapper per decode
+    position."""
     from hetu_tpu_torch.serving import Request, ServingEngine
     p, _, _, _, tcfg = model
     monkeypatch.setenv("HETU_SERVE_FAST", fast)
-    ragged = _counting(monkeypatch, "ragged_paged_attention")
-    flash = _counting(monkeypatch, "flash_attention")
-    if entry == "engine":
-        eng = ServingEngine(p, tcfg, slots=2, paged=True, kv_block=8,
-                            ragged=True, device="cpu")
+    calls = {n: _counting(monkeypatch, n) for n in KERNEL_WRAPPERS}
+    want = dict.fromkeys(KERNEL_WRAPPERS, 0)
+    if entry == "generate_fast":
+        tgd.generate_fast(p, tcfg, [[1, 2, 3]], 4, device="cpu")
+        want.update(flash_attention=L, paged_decode_attention=3 * L)
+    else:
+        eng = ServingEngine(p, tcfg, slots=2, device="cpu", **ENGINES[entry])
         eng.run([Request(prompt=[1, 2, 3], max_new_tokens=3),
                  Request(prompt=[4] * 11, max_new_tokens=2)])
-        assert len(ragged) == L * eng.steps > 0 and not flash
-    else:
-        tgd.generate_fast(p, tcfg, [[1, 2, 3]], 4, device="cpu")
-        assert len(flash) == L and not ragged
+        assert eng.steps > 0
+        if eng.ragged:
+            want["ragged_paged_attention" if eng.paged
+                 else "ragged_attention"] = L * eng.steps
+        else:
+            groups = eng.prefill_dispatches - eng.prefill_chunks
+            assert groups > 0 and (eng.prefill_chunks > 0) == eng.paged
+            want.update(flash_attention=L * groups,
+                        ragged_paged_attention=L * eng.prefill_chunks)
+            want["paged_block_decode_attention" if eng.paged
+                 else "paged_decode_attention"] = L * eng.steps
+    assert {n: len(c) for n, c in calls.items()} == want
 
 
 _IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|hetu_tpu)(\.|\s|$)",
@@ -260,6 +439,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import hetu_tpu_torch, hetu_tpu_torch.serving.engine\n"
         "import hetu_tpu_torch.kernels.flash_attention\n"
+        "import hetu_tpu_torch.kernels.decode_attention\n"
         "import hetu_tpu_torch.kernels.ragged_attention\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "

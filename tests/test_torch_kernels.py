@@ -1,4 +1,7 @@
-"""The PyTorch port's kernels against the JAX package's.
+"""The PyTorch port's kernels against the JAX package's: K1
+``ragged_paged_attention``, K2 ``flash_attention``, K4
+``paged_decode_attention``, K5 ``paged_block_decode_attention`` and K8
+``ragged_attention``.
 
 On the CPU each port wrapper runs its plain PyTorch version; these tests
 hold that version to the JAX Pallas kernel (interpret mode) and to the
@@ -20,8 +23,10 @@ import torch
 
 import jax.numpy as jnp
 
+from hetu_tpu.kernels import decode_attention as jda
 from hetu_tpu.kernels import flash_attention as jfa
 from hetu_tpu.kernels import ragged_attention as jra
+from hetu_tpu_torch.kernels import decode_attention as tda
 from hetu_tpu_torch.kernels import flash_attention as tfa
 from hetu_tpu_torch.kernels import ragged_attention as tra
 from hetu_tpu_torch.kernels import launch_counts, reset_launches
@@ -180,6 +185,119 @@ def test_flash_lse_matches_pallas_forward():
     np.testing.assert_allclose(got[~dead], want[~dead], atol=1e-5, rtol=0)
 
 
+# ------------------------------------------------------------------- #
+# K4, K5: decode attention; K8: ragged attention over slot rows
+# ------------------------------------------------------------------- #
+
+
+def _decode_case(seed=0, H=2, Dh=8, bs=8, T=5):
+    """Six slots over the same K/V, as slot rows [B, T*bs, H, Dh] and as
+    a permuted pool [N, bs, H, Dh] with block tables: a length-0 slot, a
+    length at a block edge (16), a full row (40), one position, and
+    slots 1 and 4 sharing their first two blocks; dead table entries at
+    scratch block 0."""
+    lengths = np.array([23, 16, 0, 40, 1, 11], np.int32)
+    B, S = len(lengths), T * bs
+    rng = np.random.RandomState(seed)
+    need = [-(-int(n) // bs) for n in lengths]
+    N = 1 + sum(need)
+    free = list(rng.permutation(np.arange(1, N)))
+    tables = np.zeros((B, T), np.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = free.pop()
+    tables[4, :2] = tables[1, :2]
+    pk = rng.randn(N, bs, H, Dh).astype(np.float32)
+    pv = rng.randn(N, bs, H, Dh).astype(np.float32)
+    k = pk[tables].reshape(B, S, H, Dh)
+    v = pv[tables].reshape(B, S, H, Dh)
+    q = rng.randn(B, 8, H, Dh).astype(np.float32)
+    return q, k, v, pk, pv, lengths, tables
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_jax_kernel(dtype):
+    """K4 over the slot rows."""
+    q, k, v, _, _, lens, _ = _decode_case()
+    got = tda.paged_decode_attention(_t(q[:, 0], dtype), _t(k, dtype),
+                                     _t(v, dtype), _t(lens).int())
+    assert got.dtype == getattr(torch, dtype)
+    want = jda.paged_decode_attention(
+        _j(q[:, 0], dtype), _j(k, dtype), _j(v, dtype), jnp.asarray(lens),
+        interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                               rtol=0)
+    assert np.all(_f32(got)[2] == 0.0)          # zero-length slot
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_decode_plain_matches_jax_kernel(dtype):
+    """K5 through the block tables of a permuted pool."""
+    q, _, _, pk, pv, lens, tab = _decode_case(seed=1)
+    got = tda.paged_block_decode_attention(
+        _t(q[:, 0], dtype), _t(pk, dtype), _t(pv, dtype), _t(lens).int(),
+        _t(tab).int())
+    assert got.dtype == getattr(torch, dtype)
+    want = jda.paged_block_decode_attention(
+        _j(q[:, 0], dtype), _j(pk, dtype), _j(pv, dtype), jnp.asarray(lens),
+        jnp.asarray(tab), interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                               rtol=0)
+    assert np.all(_f32(got)[2] == 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_contiguous_plain_matches_jax_kernel(dtype):
+    """K8 over the slot rows: a prompt q-block of 8, decode tokens, an
+    inert slot with a length, a zero-length slot."""
+    q, k, v, _, _, lens, _ = _decode_case(seed=2)
+    q_lens = np.array([8, 1, 0, 3, 1, 0], np.int32)
+    got = tra.ragged_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                               _t(lens).int(), _t(q_lens).int())
+    assert got.dtype == getattr(torch, dtype)
+    want = jra.ragged_attention(
+        _j(q, dtype), _j(k, dtype), _j(v, dtype), jnp.asarray(lens),
+        jnp.asarray(q_lens), interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL[dtype],
+                               rtol=0)
+    assert np.all(_f32(got)[2] == 0.0)
+
+
+def test_decode_references_match_jax():
+    q, k, v, pk, pv, lens, tab = _decode_case(seed=3)
+    got = tda.masked_decode_reference(_t(q[:, 0]), _t(k), _t(v), _t(lens))
+    want = jda.masked_decode_reference(jnp.asarray(q[:, 0]), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(lens))
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
+    got = tda.paged_block_decode_reference(_t(q[:, 0]), _t(pk), _t(pv),
+                                           _t(lens), _t(tab))
+    want = jda.paged_block_decode_reference(
+        jnp.asarray(q[:, 0]), jnp.asarray(pk), jnp.asarray(pv),
+        jnp.asarray(lens), jnp.asarray(tab))
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
+
+
+def test_int8_scales_refused():
+    """The int8 twins are a later slice: a scale plane raises, naming
+    ROADMAP, on every wrapper."""
+    q, k, v, pk, pv, lens, tab = _decode_case()
+    L, s = _t(lens).int(), torch.ones(1)
+    calls = [
+        lambda: tda.paged_decode_attention(_t(q[:, 0]), _t(k), _t(v), L,
+                                           k_scale=s, v_scale=s),
+        lambda: tda.paged_block_decode_attention(
+            _t(q[:, 0]), _t(pk), _t(pv), L, _t(tab).int(), k_scale=s,
+            v_scale=s),
+        lambda: tra.ragged_attention(_t(q), _t(k), _t(v), L, L, k_scale=s,
+                                     v_scale=s),
+        lambda: tra.ragged_paged_attention(_t(q), _t(pk), _t(pv), L, L,
+                                           _t(tab).int(), k_scale=s,
+                                           v_scale=s)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
 def test_cpu_calls_launch_no_kernel():
     reset_launches()
     q, k, v, kv = _flash_inputs()
@@ -187,5 +305,14 @@ def test_cpu_calls_launch_no_kernel():
     q, pk, pv, lens, ql, tab = _ragged_wave()
     tra.ragged_paged_attention(_t(q), _t(pk), _t(pv), _t(lens).int(),
                                _t(ql).int(), _t(tab).int())
+    q, k, v, pk, pv, lens, tab = _decode_case()
+    L = _t(lens).int()
+    tra.ragged_attention(_t(q), _t(k), _t(v), L, L)
+    tda.paged_decode_attention(_t(q[:, 0]), _t(k), _t(v), L)
+    tda.paged_block_decode_attention(_t(q[:, 0]), _t(pk), _t(pv), L,
+                                     _t(tab).int())
     assert launch_counts() == {"flash_attention": 0,
-                               "ragged_paged_attention": 0}
+                               "ragged_paged_attention": 0,
+                               "ragged_attention": 0,
+                               "paged_decode_attention": 0,
+                               "paged_block_decode_attention": 0}

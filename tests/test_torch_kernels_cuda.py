@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from hetu_tpu_torch.kernels import decode_attention as tda
 from hetu_tpu_torch.kernels import flash_attention as tfa
 from hetu_tpu_torch.kernels import launch_counts, reset_launches
 from hetu_tpu_torch.kernels import ragged_attention as tra
@@ -70,6 +71,61 @@ def test_ragged_kernel_matches_plain(cuda, dtype, Dh, bs, Q):
     assert (got[3] == 0).all()
 
 
+def _slot_rows(pk, tables):
+    """The pool gathered into slot rows [B, T*bs, H, Dh] (contiguous)."""
+    B, T = tables.shape
+    idx = torch.from_numpy(tables).long()
+    return pk[idx].reshape(B, T * pk.shape[1], *pk.shape[2:]).contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh,bs,Q", [(64, 16, 64), (32, 8, 1),
+                                     (128, 16, 40)])
+def test_ragged_contiguous_kernel_matches_plain(cuda, dtype, Dh, bs, Q):
+    q, pk, pv, lens, ql, tab = _wave(Dh, bs, Q, seed=2)
+    dt = getattr(torch, dtype)
+    args = [q.to(cuda, dt), _slot_rows(pk, tab).to(cuda, dt),
+            _slot_rows(pv, tab).to(cuda, dt)] + [
+        torch.from_numpy(a).to(cuda) for a in (lens, ql)]
+    reset_launches()
+    got = tra.ragged_attention(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["ragged_attention"] == 1
+    want = tra.ragged_masked_reference(*args).to(dt)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **TOL[dtype])
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh,bs", [(64, 16), (32, 8), (128, 16)])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_decode_kernels_match_plain(cuda, dtype, Dh, bs, layout):
+    """K4 over slot rows and K5 through the block tables, on one wave
+    with a length-0 slot and lengths off and on block edges."""
+    q, pk, pv, lens, _, tab = _wave(Dh, bs, 1, seed=3)
+    dt = getattr(torch, dtype)
+    q = q[:, 0].to(cuda, dt)
+    lens_d, tab_d = (torch.from_numpy(a).to(cuda) for a in (lens, tab))
+    reset_launches()
+    if layout == "slots":
+        k, v = (_slot_rows(x, tab).to(cuda, dt) for x in (pk, pv))
+        got = tda.paged_decode_attention(q, k, v, lens_d)
+        want = tda.masked_decode_reference(q, k, v, lens_d)
+        name = "paged_decode_attention"
+    else:
+        k, v = pk.to(cuda, dt), pv.to(cuda, dt)
+        got = tda.paged_block_decode_attention(q, k, v, lens_d, tab_d)
+        want = tda.paged_block_decode_reference(q, k, v, lens_d, tab_d)
+        name = "paged_block_decode_attention"
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.to(dt).float().cpu().numpy(),
+                               **TOL[dtype])
+    assert (got[3] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,S,Sk", [(True, 100, 100),
                                          (False, 40, 72)])
@@ -109,3 +165,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn((1, 8, 2, 48), device=cuda)   # head dim 48
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(x, x, x, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        tda.paged_decode_attention(x[:, 0], x, x, args[3][:1])
+    rows = torch.randn((6, 32, 6, 64), device=cuda)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tra.ragged_attention(args[0], rows, rows, args[3], args[4])

@@ -1,9 +1,10 @@
-"""The PyTorch port's serving engine and paged KV manager against the
-JAX package's, on the CPU.
+"""The PyTorch port's serving engine and KV managers against the JAX
+package's, on the CPU.
 
 - The same operation sequence on both ``PagedKVManager``s leaves equal
   free lists, block tables, refcounts, prefix-cache counters and pool
-  contents (exact).
+  contents (exact); on both ``KVCacheManager``s, equal free lists,
+  lengths and owners.
 - ``ServingEngine(device="cpu")`` emits, request by request, the greedy
   tokens of the JAX ``ServingEngine(paged=True, kv_block=8,
   ragged=True)`` on a trace with queueing (more requests than slots),
@@ -11,7 +12,9 @@ JAX package's, on the CPU.
   masked reference configuration (``fast_path=False``) the JAX
   package's own mixed-mode tests pin on the CPU, and against its kernel
   configuration (the ragged kernel in interpret mode) on a short trace.
-  The port has one attention path, the ragged wrapper, for both.
+  The port has one attention path, the ragged wrapper, for both.  The
+  other layouts and schedulers are held to JAX in
+  test_torch_phase_split.py.
 - Inside the port: engine greedy == offline ``generate_fast``; sampled
   outputs depend on the request alone (seed, prompt, settings), not on
   slot or arrival order; every option not ported yet raises
@@ -27,13 +30,13 @@ import torch
 import jax.numpy as jnp
 
 from hetu_tpu.serving import Request, ServingEngine
-from hetu_tpu.serving.kv_manager import PagedKVManager
+from hetu_tpu.serving.kv_manager import KVCacheManager, PagedKVManager
 from hetu_tpu_torch.models import gpt_decode as tgd
 from hetu_tpu_torch.serving import QueueFull
 from hetu_tpu_torch.serving import Request as TRequest
 from hetu_tpu_torch.serving import ServingEngine as TServingEngine
 from hetu_tpu_torch.serving.kv_manager import (
-    PagedKVManager as TPagedKVManager)
+    KVCacheManager as TKVCacheManager, PagedKVManager as TPagedKVManager)
 from test_torch_gpt_decode import rand_gpt
 
 PREFIX = list(range(20, 32))          # shares one full 8-token block
@@ -119,6 +122,60 @@ def test_paged_kv_manager_matches_jax():
     both(lambda kv: kv.release(sb))
 
 
+def _slots_state(kv):
+    return dict(free=list(kv._free), lengths=kv.lengths.tolist(),
+                owner=list(kv.owner), allocs=kv.total_allocs,
+                occupancy=kv.occupancy, live=kv.live())
+
+
+def test_kv_cache_manager_matches_jax():
+    shape = dict(layers=2, heads=2, head_dim=4, slots=3, max_seq_len=40,
+                 pos_cap=48)
+    jkv = KVCacheManager(dtype=jnp.float32, **shape)
+    tkv = TKVCacheManager(dtype=torch.float32, device="cpu", **shape)
+    assert (tkv.n_slots, tkv.s_max) == (jkv.n_slots, jkv.s_max) == (4, 48)
+    assert tuple(tkv.cache_k.shape) == tuple(jkv.cache_k.shape)
+    assert tkv.cache_bytes == jkv.cache_bytes
+    assert [tkv.bucket_prompt(p) for p in (1, 9, 33, 48)] \
+        == [jkv.bucket_prompt(p) for p in (1, 9, 33, 48)]
+
+    def both(fn):
+        r = (fn(jkv), fn(tkv))
+        assert r[0] == r[1]
+        assert _slots_state(jkv) == _slots_state(tkv)
+        return r[0]
+
+    def both_raise(fn):
+        for kv in (jkv, tkv):
+            with pytest.raises(ValueError):
+                fn(kv)
+        assert _slots_state(jkv) == _slots_state(tkv)
+
+    a = both(lambda kv: kv.alloc("a", 7))
+    b = both(lambda kv: kv.alloc("b", 12))
+    both(lambda kv: kv.advance(a, 3))
+    both(lambda kv: kv.truncate(b, 5))
+    both_raise(lambda kv: kv.truncate(b, 6))
+    both(lambda kv: kv.release(a))
+    both_raise(lambda kv: kv.release(a))
+    both_raise(lambda kv: kv.alloc("x", 49))
+    for name in "cdef":               # fills the 4 slots, then None
+        both(lambda kv: kv.alloc(name, 2))
+    both(lambda kv: kv.release(b))
+    both(lambda kv: kv.alloc("g", 1))
+
+
+def test_kv_cache_manager_refuses_what_is_not_ported():
+    shape = dict(layers=1, heads=1, head_dim=4, slots=2, max_seq_len=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TKVCacheManager(dtype="int8", **shape)
+    kv = TKVCacheManager(**shape)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kv.export_blocks(0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kv.import_blocks({}, "a")
+
+
 # ------------------------------------------------------------------- #
 # the engine against the JAX engine
 # ------------------------------------------------------------------- #
@@ -182,19 +239,15 @@ PR = dict(paged=True, ragged=True)
 
 
 @pytest.mark.parametrize("kw,env", [
-    (dict(paged=False, ragged=True), None),
-    (dict(paged=True, ragged=False), None),
     (dict(PR, spec=2), None),
     (dict(PR, kv_quant="int8"), None),
     (dict(PR, tier_store=object()), None),
     (dict(PR, moe=True), None),
-    (dict(ragged=True), ("HETU_KV_BLOCK", "0")),
-    (dict(paged=True), ("HETU_SERVE_RAGGED", "0")),
     (PR, ("HETU_SPEC_K", "2")),
     (PR, ("HETU_KV_QUANT", "int8")),
     (PR, ("HETU_KV_HOST_BYTES", "4096")),
-], ids=["paged", "ragged", "spec", "int8", "tiers", "moe", "env-paged",
-        "env-ragged", "env-spec", "env-int8", "env-tiers"])
+], ids=["spec", "int8", "tiers", "moe", "env-spec", "env-int8",
+        "env-tiers"])
 def test_unported_options_raise(model, monkeypatch, kw, env):
     p, _, tcfg = model
     if env is not None:
