@@ -17,8 +17,9 @@ non-zero and prints no result line):
    yardstick (never called by the port), beside the least time the
    card could take for the same work: K1 ragged_paged_attention on a
    mixed pool wave, K2 flash_attention on 8 prompts, K4/K5 decode over
-   8 slot rows / pool slots, K8 ragged_attention on a contiguous wave
-   with a 1024-row prompt q-block.
+   8 slot rows / pool slots, K6/K7 verify over the same slot rows /
+   pool slots (Q 5, q_lens {5, 5, 3, 0, 1, 5, 2, 5}), K8
+   ragged_attention on a contiguous wave with a 1024-row prompt q-block.
 3. Offline ``generate_fast`` on GPT-2-small at full width and depth
    (vocab 50257, hidden 768, 12 layers, 12 heads, 1024 positions),
    weights drawn from ``--seed``: 4 prompts x 128 tokens, 32 new tokens,
@@ -38,6 +39,18 @@ non-zero and prints no result line):
    launches exactly layers x decode waves of K4 or K5, layers x flash
    groups of K2, layers x chunk passes of K1, or layers x steps of K8;
    in f32 every greedy request's tokens equal phase 4's.
+6. Speculation (``spec=4``, the auto draft of 3 of 12 layers, adaptive k)
+   on the same request set through all four configurations, f32 then
+   bf16: the phase-split verify waves launch K6 (contiguous) or K7
+   (paged) layers x waves times, the mixed waves carry verify rows on
+   K8/K1, and the draft launches K4 3 x (k + 1) per wave and K2 3 x per
+   admission; in f32 every greedy request's tokens equal phase 4's and
+   every sampled request's equal its configuration's phase 4/5 run.
+   Then the high-acceptance arm: layers 3-11 output-zeroed, all requests
+   greedy, paged phase-split and paged mixed in f32 — tokens equal a
+   non-speculative run on those weights, acceptance >= 0.9, fewer waves
+   than generated tokens.  Last, offline ``generate_fast(spec=4)`` on
+   phase 3's prompts equals phase 3's f32 tokens.
 
 With ``--profile DIR`` each serving configuration is then run again
 under torch.profiler and its device time by kernel written into DIR.
@@ -51,6 +64,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import itertools
 import json
 import re
 import subprocess
@@ -300,46 +314,67 @@ def check_k8(torch, F, dtype, seed):
     return r
 
 
-def check_decode(torch, F, dtype, seed, paged):
-    """K5 (``paged``) through the tables of the 8 pool slots, else K4
-    over slot rows, one query per slot.  Yardstick: SDPA with the length
-    mask over the pre-gathered view (K5, the gather excluded) or the
-    slot rows (K4)."""
+# the verify wave of phase 2: Q = spec 4 + 1, each slot's live rows
+VERIFY_QLENS = np.array([5, 5, 3, 0, 1, 5, 2, 5], np.int32)
+
+
+def check_decode(torch, F, dtype, seed, paged, verify=False):
+    """The 8 slots of ``LENGTHS`` through the tables of the pool (K5, or
+    with ``verify`` K7), else over slot rows (K4, or K6): one query per
+    slot, or with ``verify`` a Q-5 verify block of q_lens
+    ``VERIFY_QLENS`` (dead rows included in the comparison).  Yardstick:
+    SDPA with a per-query length mask over the pre-gathered view (the
+    gather excluded) or the slot rows."""
     from hetu_tpu_torch.kernels import decode_attention as da
     B = len(LENGTHS)
+    q_lens = VERIFY_QLENS if verify else np.ones(B, np.int32)
+    Q = int(q_lens.max())
+    seed += 3 if verify else 0
     g = torch.Generator(device="cuda").manual_seed(seed + 9)
     dt = getattr(torch, dtype)
-    q = torch.randn((B, H, DH), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, Q, H, DH), generator=g, device="cuda").to(dt)
+    if not verify:
+        q = q[:, 0]
     lens = torch.from_numpy(LENGTHS).cuda()
+    extra = (torch.from_numpy(q_lens).cuda(),) if verify else ()
     es = q.element_size()
-    ones = np.ones(B, np.int32)
     if paged:
         pool_k, pool_v, tables, n_rows = pool_case(torch, dtype, seed + 10)
         tab = torch.from_numpy(tables).cuda()
-        args = (q, pool_k, pool_v, lens, tab)
+        args = (q, pool_k, pool_v, lens) + extra + (tab,)
         kd, vd = (x[tab.long()].reshape(B, T_WIDTH * BS, H, DH)
                   for x in (pool_k, pool_v))
         n_tab = int(sum(-(-int(n) // BS) for n in LENGTHS))
         kv_bytes = 2 * n_rows * H * DH * es + 4 * n_tab
-        label, run, plain = ("K5 paged_block_decode_attention",
-                             da.paged_block_decode_attention,
-                             da.paged_block_decode_reference)
+        label, run, plain = (
+            ("K7 paged_block_verify_attention",
+             da.paged_block_verify_attention,
+             da.paged_block_verify_reference) if verify else
+            ("K5 paged_block_decode_attention",
+             da.paged_block_decode_attention,
+             da.paged_block_decode_reference))
     else:
         kd, vd = slot_rows_case(torch, dtype, seed + 11)
-        args = (q, kd, vd, lens)
+        args = (q, kd, vd, lens) + extra
         kv_bytes = 2 * int(LENGTHS.sum()) * H * DH * es
-        label, run, plain = ("K4 paged_decode_attention",
-                             da.paged_decode_attention,
-                             da.masked_decode_reference)
-    qd = q[:, :, None]
+        label, run, plain = (
+            ("K6 paged_verify_attention", da.paged_verify_attention,
+             da.masked_verify_reference) if verify else
+            ("K4 paged_decode_attention", da.paged_decode_attention,
+             da.masked_decode_reference))
+    qd = (q if verify else q[:, None]).transpose(1, 2)
     kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)
-    mask = length_mask(torch, LENGTHS, ones, 1, kd.shape[1])
-    nbytes = (int((LENGTHS > 0).sum()) * H * DH * es + q.numel() * es
-              + kv_bytes + LENGTHS.nbytes)
+    mask = length_mask(torch, LENGTHS, q_lens, Q, kd.shape[1])
+    # q of the slots with a length (a length-0 slot outputs zeros
+    # unread), o in full, the K/V rows up to each slot's length once (a
+    # shared pool row once, plus the table entries of those blocks),
+    # lengths and the verify block's q_lens
+    nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
+              + kv_bytes + LENGTHS.nbytes + (q_lens.nbytes if verify else 0))
     return measure(
         torch, label, dtype, lambda: run(*args), lambda: plain(*args),
         lambda: F.scaled_dot_product_attention(qd, kt, vt, attn_mask=mask),
-        nbytes, ragged_flops(LENGTHS, ones, 1))
+        nbytes, ragged_flops(LENGTHS, q_lens, Q))
 
 
 def check_k2(torch, F, dtype, seed):
@@ -460,10 +495,13 @@ LAYOUT = {"paged-mixed": (True, True), "contiguous-split": (False, False),
 
 def want_launches(eng, L):
     """The exact launches of one engine run: mixed, the ragged kernel of
-    the layout per layer per step; phase-split, the flash kernel per
-    layer per flash group, the ragged paged kernel per layer per chunk
-    pass, and the decode kernel of the layout per layer per decode
-    wave."""
+    the layout per layer per step (verify rows ride the wave);
+    phase-split, the flash kernel per layer per flash group, the ragged
+    paged kernel per layer per chunk pass, and per layer per wave the
+    decode kernel of the layout, or with speculation its verify kernel.
+    A speculative engine's draft adds the contiguous decode kernel per
+    draft layer per draft step (k + 1 a wave) and the flash kernel per
+    draft layer per admission."""
     from hetu_tpu_torch.kernels import KERNELS
     want = dict.fromkeys(KERNELS, 0)
     if eng.ragged:
@@ -473,20 +511,28 @@ def want_launches(eng, L):
         want["flash_attention"] = L * (eng.prefill_dispatches
                                        - eng.prefill_chunks)
         want["ragged_paged_attention"] = L * eng.prefill_chunks
-        want["paged_block_decode_attention" if eng.paged
-             else "paged_decode_attention"] = L * eng.steps
+        wave = (("paged_block_verify_attention", "paged_verify_attention")
+                if eng.spec_k else
+                ("paged_block_decode_attention", "paged_decode_attention"))
+        want[wave[0] if eng.paged else wave[1]] = L * eng.steps
+    if eng.spec_k:
+        Ld = eng.spec_draft_layers
+        want["paged_decode_attention"] += Ld * (eng.spec_k_sum
+                                                + eng.spec_waves)
+        want["flash_attention"] += Ld * eng.spec_draft_prefills
     return want
 
 
-def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None):
-    """One engine run of ``config`` over the request set, its launches
-    held to ``want_launches``; ``prof`` (a torch.profiler.profile) wraps
-    the run alone when given."""
+def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
+          **engine_kw):
+    """One engine run of ``config`` (plus ``engine_kw``) over the request
+    set, its launches held to ``want_launches``; ``prof`` (a
+    torch.profiler.profile) wraps the run alone when given."""
     from hetu_tpu_torch.kernels import launch_counts, reset_launches
     from hetu_tpu_torch.serving import Request
     dt = getattr(torch, dtype)
     eng = htt.ServingEngine(params, cfg, slots=8, dtype=dt,
-                            **CONFIGS[config])
+                            **CONFIGS[config], **engine_kw)
     if (eng.paged, eng.ragged) != LAYOUT[config] \
             or (eng.paged and eng.kv.block != 16):
         fail(f"{config}: the engine runs paged={eng.paged} "
@@ -507,7 +553,8 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None):
     if counts != want or not eng.steps:
         fail(f"{config} {dtype}: launches {counts}, want {want} ({L} "
              f"layers, {eng.steps} steps, {eng.prefill_dispatches} "
-             f"prefill dispatches, {eng.prefill_chunks} chunk passes)")
+             f"prefill dispatches, {eng.prefill_chunks} chunk passes, "
+             f"spec {eng.spec_k})")
     if len(res) != len(reqs):
         fail(f"{config} {dtype}: {len(res)} of {len(reqs)} requests done")
     hits = eng.kv.prefix_hits if eng.paged else 0
@@ -527,7 +574,19 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None):
                  prefix_hits=hits,
                  prefill_dispatches=eng.prefill_dispatches,
                  prefill_chunks=eng.prefill_chunks)
-    log(f"  {config} {dtype}: {gen} tokens in {sec:.3f} s = "
+    tag = ""
+    if eng.spec_k:
+        stats.update(spec_waves=eng.spec_waves,
+                     acceptance=eng.spec_acceptance,
+                     mean_k=eng.spec_mean_k,
+                     tokens_per_wave=eng.spec_emitted / eng.spec_waves,
+                     draft_prefills=eng.spec_draft_prefills)
+        tag = (f" spec {eng.spec_k} (draft {eng.spec_draft_layers} "
+               f"layers): acceptance {eng.spec_acceptance:.4f}, mean k "
+               f"{eng.spec_mean_k:.3f}, {stats['tokens_per_wave']:.3f} "
+               f"tokens per wave (all slots) over {eng.spec_waves} "
+               f"waves;")
+    log(f"  {config} {dtype}:{tag} {gen} tokens in {sec:.3f} s = "
         f"{stats['tokens_per_s']:.1f} tok/s, TTFT p50 "
         f"{stats['ttft_p50_ms']:.1f} ms p99 {stats['ttft_p99_ms']:.1f} "
         f"ms, {eng.steps} steps, {eng.prefill_dispatches} prefill "
@@ -540,8 +599,12 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None):
 KINDS = (("K1 ragged_paged_attention", re.compile("ragged_kernel.*TableRows")),
          ("K8 ragged_attention", re.compile("ragged_kernel.*SlotRows")),
          ("K4 paged_decode_attention",
-          re.compile("decode_kernel.*SlotRows")),
+          re.compile(r"decode_kernel<[^,]+, \d+, 1, hetu::SlotRows")),
          ("K5 paged_block_decode_attention",
+          re.compile(r"decode_kernel<[^,]+, \d+, 1, hetu::TableRows")),
+         ("K6 paged_verify_attention",
+          re.compile("decode_kernel.*SlotRows")),
+         ("K7 paged_block_verify_attention",
           re.compile("decode_kernel.*TableRows")),
          ("K2 flash_attention", re.compile("flash_fwd")),
          ("matmul", re.compile("gemm|nvjet|splitK")),
@@ -555,51 +618,154 @@ def kind_of(name):
 
 
 def profile_serve(torch, htt, params, cfg, spec, out_dir):
-    """Where each serving configuration's device time goes: its engine
-    run again, f32 and bf16, under torch.profiler; device time by kind
-    and by kernel (top 15, and the table in ``out_dir``) and the
-    device's busy share of the run's wall time (host tracing overhead
-    inflates the wall, so the busy share is a lower bound)."""
+    """Where each serving configuration's device time goes, without and
+    with speculation (``spec=4``): its engine run again, f32 and bf16,
+    under torch.profiler; device time by kind and by kernel (top 15, and
+    the table in ``out_dir``) and the device's busy share of the run's
+    wall time (host tracing overhead inflates the wall, so the busy
+    share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    for config, spec_k, dtype in itertools.product(
+            CONFIGS, (0, 4), ("float32", "bfloat16")):
+        label = f"{config}{'-spec' if spec_k else ''}"
+        t_prof = time.perf_counter()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _, _, st = serve(torch, htt, params, cfg, spec, dtype, config,
+                         prof=prof, spec=spec_k)
+        # kernel rows only: an operator row repeats its kernels' time
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if not rows:
+            fail("the profiler recorded no device time")
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        lines = [f"{'kernel':64s} {'calls':>7s} {'device ms':>11s} "
+                 f"share"]
+        lines += [f"{e.key[:64]:64s} {e.count:7d} "
+                  f"{e.self_device_time_total / 1e3:11.3f} "
+                  f"{e.self_device_time_total / 1e6 / busy:6.1%}"
+                  for e in rows]
+        (out_dir / f"profile_{label}_{dtype}.txt").write_text(
+            "\n".join(lines) + "\n")
+        log(f"  profile {label} {dtype}: device busy {busy:.4f} s of "
+            f"{st['seconds']:.4f} s wall "
+            f"({busy / st['seconds']:.1%}) under the profiler; "
+            f"{time.perf_counter() - t_prof:.1f} s with the profile's "
+            f"analysis")
+        kinds = collections.Counter()
+        calls = collections.Counter()
+        for e in rows:
+            kinds[kind_of(e.key)] += e.self_device_time_total / 1e3
+            calls[kind_of(e.key)] += e.count
+        for k, ms in kinds.most_common():
+            log(f"    {k}: {ms:.3f} ms ({ms / 1e3 / busy:.1%}, "
+                f"{calls[k]} launches)")
+        log("  top kernels:")
+        for line in lines[:16]:
+            log("    " + line)
+
+
+def zero_late_layers(torch, params, cfg, first, name="gpt"):
+    """Output-zero the blocks from ``first`` on (their attention and FFN
+    output projections): a draft of ``first`` layers then computes the
+    target's logits, so greedy drafts are accepted."""
+    hp = dict(params)
+    for i in range(first, cfg.num_hidden_layers):
+        for wn in ("attn_proj_weight", "attn_proj_bias", "ffn_wo_weight",
+                   "ffn_wo_bias"):
+            k = f"{name}_h{i}_{wn}"
+            hp[k] = torch.zeros_like(params[k])
+    return hp
+
+
+def phase6(torch, htt, params, cfg, spec, runs, res32, prompts, off_f32,
+           card, seed):
+    """Speculation through all four engine configurations, the
+    high-acceptance arm and offline ``generate_fast(spec=4)``.  Returns
+    {(config, dtype): (results, launches, stats)} of the speculative runs
+    on the random weights."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    K = 4
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    sampled = [i for i, (_, t, _) in enumerate(spec) if t > 0]
+    spec_runs = {}
     for config in CONFIGS:
-        for dtype in ("float32", "bfloat16"):
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            _, _, st = serve(torch, htt, params, cfg, spec, dtype, config,
-                             prof=prof)
-            # kernel rows only: an operator row repeats its kernels' time
-            rows = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-            if not rows:
-                fail("the profiler recorded no device time")
-            rows.sort(key=lambda e: -e.self_device_time_total)
-            busy = sum(e.self_device_time_total for e in rows) / 1e6
-            lines = [f"{'kernel':64s} {'calls':>7s} {'device ms':>11s} "
-                     f"share"]
-            lines += [f"{e.key[:64]:64s} {e.count:7d} "
-                      f"{e.self_device_time_total / 1e3:11.3f} "
-                      f"{e.self_device_time_total / 1e6 / busy:6.1%}"
-                      for e in rows]
-            (out_dir / f"profile_{config}_{dtype}.txt").write_text(
-                "\n".join(lines) + "\n")
-            log(f"  profile {config} {dtype}: device busy {busy:.4f} s of "
-                f"{st['seconds']:.4f} s wall "
-                f"({busy / st['seconds']:.1%}) under the profiler")
-            kinds = collections.Counter()
-            calls = collections.Counter()
-            for e in rows:
-                kinds[kind_of(e.key)] += e.self_device_time_total / 1e3
-                calls[kind_of(e.key)] += e.count
-            for k, ms in kinds.most_common():
-                log(f"    {k}: {ms:.3f} ms ({ms / 1e3 / busy:.1%}, "
-                    f"{calls[k]} launches)")
-            log("  top kernels:")
-            for line in lines[:16]:
-                log("    " + line)
+        for dt in ("float32", "bfloat16"):
+            spec_runs[config, dt] = serve(torch, htt, params, cfg, spec, dt,
+                                          config, spec=K)
+        res = spec_runs[config, "float32"][0]
+        bad = [i for i in greedy
+               if list(res[f"r{i}"].tokens) != list(res32[f"r{i}"].tokens)]
+        if bad:
+            fail(f"spec {config} f32 greedy tokens differ from phase 4's "
+                 f"for requests {bad}")
+        plain = runs[config, "float32"][0]
+        bad = [i for i in sampled
+               if list(res[f"r{i}"].tokens) != list(plain[f"r{i}"].tokens)]
+        if bad:
+            fail(f"spec {config} f32 sampled tokens differ from the "
+                 f"non-speculative run for requests {bad}")
+        log(f"  spec {config} f32: greedy tokens == phase 4's "
+            f"({len(greedy)}), sampled == non-speculative ({len(sampled)})")
+    for (config, dt), (_, _, st) in spec_runs.items():
+        log(f"  spec serving on {card}: {config} {dt} "
+            f"{st['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{st['ttft_p50_ms']:.1f} p99 {st['ttft_p99_ms']:.1f} ms, "
+            f"acceptance {st['acceptance']:.4f}, mean k {st['mean_k']:.3f}, "
+            f"{st['tokens_per_wave']:.3f} tokens per wave")
+
+    log("  high-acceptance arm: layers 3-11 output-zeroed, all greedy")
+    hp = zero_late_layers(torch, params, cfg, 3)
+    hspec = [(pr, 0.0, 0) for pr, _, _ in spec]
+    plain, _, _ = serve(torch, htt, hp, cfg, hspec, "float32", "paged-mixed")
+    for config in ("paged-split", "paged-mixed"):
+        res, _, st = serve(torch, htt, hp, cfg, hspec, "float32", config,
+                           spec=K)
+        bad = [r for r in res if list(res[r].tokens)
+               != list(plain[r].tokens)]
+        if bad:
+            fail(f"high-acceptance {config}: tokens differ from the "
+                 f"non-speculative run for {bad}")
+        if st["acceptance"] < 0.9 or st["spec_waves"] >= st["generated"]:
+            fail(f"high-acceptance {config}: acceptance "
+                 f"{st['acceptance']:.4f} (want >= 0.9), "
+                 f"{st['spec_waves']} waves for {st['generated']} tokens")
+        log(f"  high-acceptance {config} f32 on {card}: tokens == "
+            f"non-speculative; acceptance {st['acceptance']:.4f}, mean k "
+            f"{st['mean_k']:.3f}, {st['tokens_per_wave']:.3f} tokens per "
+            f"wave ({st['spec_waves']} waves, {st['generated']} tokens), "
+            f"{st['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{st['ttft_p50_ms']:.1f} p99 {st['ttft_p99_ms']:.1f} ms")
+
+    # offline: flash prefill of the target (12 layers) and the draft (3),
+    # then per wave K4 3 x (K + 1) and K6 12 x 1
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = htt.generate_fast(params, cfg, prompts, 32, spec=K,
+                            dtype=torch.float32)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    L, Ld = cfg.num_hidden_layers, cfg.num_hidden_layers // 4
+    waves = counts["paged_verify_attention"] // L
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=L + Ld, paged_verify_attention=L * waves,
+                paged_decode_attention=Ld * (K + 1) * waves)
+    if counts != want or not waves:
+        fail(f"offline spec: launches {counts}, want {want}")
+    if out.tolist() != off_f32.tolist():
+        fail("offline generate_fast(spec=4) f32 tokens differ from "
+             "phase 3's")
+    log(f"  generate_fast spec {K} f32: tokens == phase 3's; {waves} "
+        f"verify waves for {out.shape[0]} x 32 tokens in {sec:.3f} s; "
+        f"launches {counts}")
+    return spec_runs
 
 
 def request_set(prompts, seed, V):
@@ -665,6 +831,10 @@ def main(argv=None):
               "K2": lambda dt: check_k2(torch, F, dt, args.seed),
               "K4": lambda dt: check_decode(torch, F, dt, args.seed, False),
               "K5": lambda dt: check_decode(torch, F, dt, args.seed, True),
+              "K6": lambda dt: check_decode(torch, F, dt, args.seed, False,
+                                            verify=True),
+              "K7": lambda dt: check_decode(torch, F, dt, args.seed, True,
+                                            verify=True),
               "K8": lambda dt: check_k8(torch, F, dt, args.seed)}
     kres = {k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
             for k, fn in checks.items()}
@@ -724,9 +894,15 @@ def main(argv=None):
             f"{st['tokens_per_s']:.1f} tok/s, TTFT p50 "
             f"{st['ttft_p50_ms']:.1f} p99 {st['ttft_p99_ms']:.1f} ms")
 
+    # ---- phase 6 ---- #
+    log("phase 6: speculative decoding (spec 4, auto draft, adaptive k)")
+    spec_runs = phase6(torch, htt, params, cfg, spec, runs, res32, prompts,
+                       off_f32, card, args.seed)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
-    # engine of their layout and scheduler
+    # engine of their layout and scheduler, K6/K7 the phase-6 speculative
+    # engine of their layout, phase-split
     src = "hetu_tpu_torch/kernels/csrc/"
     table = (
         ("K1", "ragged_paged_attention", "ragged_paged.cu",
@@ -737,13 +913,22 @@ def main(argv=None):
          "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split"),
         ("K5", "paged_block_decode_attention", "decode_attention.cu",
          "hetu_tpu/kernels/decode_attention.py:259", "paged-split"),
+        ("K6", "paged_verify_attention", "decode_attention.cu",
+         "hetu_tpu/kernels/decode_attention.py:478",
+         "spec contiguous-split"),
+        ("K7", "paged_block_verify_attention", "decode_attention.cu",
+         "hetu_tpu/kernels/decode_attention.py:572", "spec paged-split"),
         ("K8", "ragged_attention", "ragged_paged.cu",
          "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"))
     kernels = []
     for k, name, file, replaces, config in table:
         for dt in ("float32", "bfloat16"):
-            counts = (runs[config, dt][1] if config else
-                      (c_off32 if dt == "float32" else c_off16))
+            if config is None:
+                counts = c_off32 if dt == "float32" else c_off16
+            elif config.startswith("spec "):
+                counts = spec_runs[config[5:], dt][1]
+            else:
+                counts = runs[config, dt][1]
             r = kres[k][dt]
             kernels.append(dict(
                 name=f"{name}[{dt}]", route="cuda", source=src + file,

@@ -9,7 +9,9 @@ JAX).  It covers GPT inference as the serving engine runs it:
 - ``serving.ServingEngine``: continuous batching over the block-table
   paged pool or the slot-contiguous cache, with the mixed scheduler
   (ONE ragged wave per step) or the phase-split one (flash prefill
-  groups, chunk passes, then one decode wave).
+  groups, chunk passes, then one decode wave);
+- speculative decoding (``spec=``) in both: a truncated-layer draft
+  proposes, the target verifies in one step per wave.
 
 Every TPU kernel on that path is a CUDA C++ kernel for Hopper
 (``kernels/csrc``), built by ``nvcc`` at first use.  Entry points run on

@@ -13,8 +13,12 @@ tensor (see ``_build``).
 - ``decode_attention.paged_decode_attention`` /
   ``decode_attention.paged_block_decode_attention``: one decode query
   per slot over the slot-contiguous cache / the block-table pool
-  (csrc/decode_attention.cu), the phase-split decode waves and
-  ``generate_fast``'s decode.
+  (csrc/decode_attention.cu), the phase-split decode waves,
+  ``generate_fast``'s decode and every speculative draft step.
+- ``decode_attention.paged_verify_attention`` /
+  ``decode_attention.paged_block_verify_attention``: the speculative
+  verify q-block per slot over the same two layouts (the same source),
+  the phase-split verify waves and speculative ``generate_fast``.
 
 ``launch_counts()`` reads how often each kernel was launched since
 ``reset_launches()``.
@@ -23,7 +27,8 @@ tensor (see ``_build``).
 from ._build import LAUNCHES, reset_launches  # noqa: F401
 
 KERNELS = ("flash_attention", "ragged_paged_attention", "ragged_attention",
-           "paged_decode_attention", "paged_block_decode_attention")
+           "paged_decode_attention", "paged_block_decode_attention",
+           "paged_verify_attention", "paged_block_verify_attention")
 
 
 def launch_counts():

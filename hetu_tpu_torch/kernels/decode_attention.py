@@ -1,16 +1,23 @@
-"""One decode query per slot over the serving engine's KV layouts, the
-port of the JAX package's Pallas ``paged_decode_attention`` (the
-slot-contiguous cache) and ``paged_block_decode_attention`` (the
-block-table pool): the phase-split schedulers' decode wave and offline
-``generate_fast``'s decode, one dispatch per layer.
+"""One decode query, or one speculative verify q-block, per slot over
+the serving engine's KV layouts: the port of the JAX package's Pallas
+``paged_decode_attention`` / ``paged_verify_attention`` (the
+slot-contiguous cache) and ``paged_block_decode_attention`` /
+``paged_block_verify_attention`` (the block-table pool).  The decode
+pair serves the phase-split schedulers' decode waves, offline
+``generate_fast``'s decode and every draft step of speculation; the
+verify pair serves the phase-split verify waves and offline speculative
+``generate_fast``.  One dispatch per layer.
 
-Slot b's query attends to its positions ``[0, lengths[b])``, the
-position just written included; a slot with length 0 returns zeros; the
-output has q's dtype.  Both launch ``csrc/decode_attention.cu`` on CUDA
-tensors and run their plain versions, the ``q_len = 1`` case of the
-ragged references, on CPU tensors; nothing falls back from one to the
-other.  The int8 twins (``k_scale``/``v_scale``) are ROADMAP's int8
-slice.
+Decode: slot b's query attends to its positions ``[0, lengths[b])``,
+the position just written included.  Verify: query ``jq`` of slot b sits
+at ``lengths[b] - q_lens[b] + jq`` and attends to the positions up to
+itself; rows past ``q_lens[b]`` clip to the last live position (their
+output is defined and discarded by the caller).  A slot with length 0
+returns zeros; the output has q's dtype.  All four launch one templated
+body in ``csrc/decode_attention.cu`` on CUDA tensors and run their plain
+versions, the ragged references (the ``q_len = 1`` case for decode), on
+CPU tensors; nothing falls back from one to the other.  The int8 twins
+(``k_scale``/``v_scale``) are ROADMAP's int8 slice.
 """
 
 from __future__ import annotations
@@ -35,6 +42,21 @@ def paged_block_decode_reference(q, pool_k, pool_v, lengths, block_tables):
     ones = torch.ones_like(lengths)
     return ragged_paged_reference(q[:, None], pool_k, pool_v, lengths, ones,
                                   block_tables)[:, 0]
+
+
+def masked_verify_reference(q, k, v, lengths, q_lens):
+    """Plain version of :func:`paged_verify_attention`: q [B, Q, H, Dh]
+    over the slot rows k, v [B, S_max, H, Dh] (a verify wave is a ragged
+    wave).  Returns f32."""
+    return ragged_masked_reference(q, k, v, lengths, q_lens)
+
+
+def paged_block_verify_reference(q, pool_k, pool_v, lengths, q_lens,
+                                 block_tables):
+    """Plain version of :func:`paged_block_verify_attention`: q [B, Q, H,
+    Dh] over the pool through the block tables.  Returns f32."""
+    return ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
+                                  block_tables)
 
 
 def _check(kind, q, k, v, lengths, index):
@@ -92,3 +114,67 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
                    "paged_block_decode_attention", q,
                    (pool_k, pool_v, lengths, block_tables),
                    (B, H, Dh, pool_k.shape[1], block_tables.shape[1]))
+
+
+# the kernel's q-block: NQ, the pow2 of Q, splits 32 row groups
+_MAX_Q = 16
+
+
+def _check_verify(kind, q, k, v, lengths, q_lens, index):
+    _check_args(kind, q, k, v, lengths, q_lens, index)
+    if q.device.type == "cuda" and q.shape[1] > _MAX_Q:
+        raise ValueError(f"{kind} kernel takes q-blocks of at most "
+                         f"{_MAX_Q} rows (spec <= {_MAX_Q - 1}), got "
+                         f"{q.shape[1]}")
+
+
+def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
+                           v_scale=None):
+    """One verify q-block per slot over the slot-contiguous cache.
+
+    q: [B, Q, H, Dh], the carried token and the draft's proposals, whose
+    K/V the caller has written; k, v: [B, S_max, H, Dh] (one layer's
+    cache rows); lengths: [B] int32, the filled count INCLUDING the
+    q-block's live positions (0 = inert slot, zeros out); q_lens: [B]
+    int32 live queries per slot.  Returns o [B, Q, H, Dh] in q's dtype.
+    CUDA tensors launch the kernel (the decode kernel's terms, and Q <=
+    16); CPU tensors run :func:`masked_verify_reference`."""
+    _refuse_int8(k_scale, v_scale)
+    _check_verify("paged_verify_attention", q, k, v, lengths, q_lens,
+                  {"lengths": lengths, "q_lens": q_lens})
+    if k.shape[0] != q.shape[0]:
+        raise ValueError("paged_verify_attention: k/v must hold one row "
+                         "per slot of q")
+    if q.device.type == "cpu":
+        return masked_verify_reference(q, k, v, lengths, q_lens).to(q.dtype)
+    B, Q, H, Dh = q.shape
+    return _launch("decode_attention", "hetu_paged_verify_attention",
+                   "paged_verify_attention", q, (k, v, lengths, q_lens),
+                   (B, Q, H, Dh, k.shape[1]))
+
+
+def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
+                                 block_tables, *, k_scale=None,
+                                 v_scale=None):
+    """One verify q-block per slot over the block-table pool.
+
+    q: [B, Q, H, Dh]; pool_k, pool_v: [N_blocks, bs, H, Dh] (one layer);
+    lengths / q_lens: [B] int32 as in :func:`paged_verify_attention`;
+    block_tables: [B, T] int32 as in :func:`paged_block_decode_attention`.
+    Returns o [B, Q, H, Dh] in q's dtype.  CUDA tensors launch the kernel;
+    CPU tensors run :func:`paged_block_verify_reference`."""
+    _refuse_int8(k_scale, v_scale)
+    _check_verify("paged_block_verify_attention", q, pool_k, pool_v,
+                  lengths, q_lens, {"lengths": lengths, "q_lens": q_lens,
+                                    "block_tables": block_tables})
+    if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
+        raise ValueError("paged_block_verify_attention: block_tables must "
+                         "be [B, T]")
+    if q.device.type == "cpu":
+        return paged_block_verify_reference(q, pool_k, pool_v, lengths,
+                                            q_lens, block_tables).to(q.dtype)
+    B, Q, H, Dh = q.shape
+    return _launch("decode_attention", "hetu_paged_block_verify_attention",
+                   "paged_block_verify_attention", q,
+                   (pool_k, pool_v, lengths, q_lens, block_tables),
+                   (B, Q, H, Dh, pool_k.shape[1], block_tables.shape[1]))

@@ -22,8 +22,13 @@ The cores, each attending through one kernel wrapper per layer:
   ragged paged kernel (the paged phase-split scheduler's chunked
   prefill and prefix-tail pass);
 - ``_mixed_step``: the mixed scheduler's ONE core per step: every slot's
-  ragged q-block (prompt or decode token) is written into the cache and
-  attended by the ragged kernel of its layout (``_serve_mixed``).
+  ragged q-block (prompt, decode token or speculative verify block) is
+  written into the cache and attended by the ragged kernel of its layout
+  (``_serve_mixed``);
+- ``_verify_step``: the same body on the verify kernels, the phase-split
+  schedulers' speculative verify wave (``_serve_verify``) and offline
+  speculative ``generate_fast``; its draft proposes through
+  ``_decode_step`` over its own contiguous cache (``_spec_propose``).
 
 PyTorch idiom: plain functions on tensors and dicts of tensors, an
 explicit device (the one the params live on), explicit
@@ -41,7 +46,9 @@ import torch
 from .. import envvars
 from ..device import resolve_device
 from ..kernels.decode_attention import (paged_block_decode_attention,
-                                        paged_decode_attention)
+                                        paged_block_verify_attention,
+                                        paged_decode_attention,
+                                        paged_verify_attention)
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ragged_attention import (ragged_attention,
                                         ragged_paged_attention)
@@ -79,6 +86,18 @@ def resolve_spec_k(spec=None):
     if spec is None:
         spec = envvars.get_int("HETU_SPEC_K")
     return max(int(spec or 0), 0)
+
+
+def resolve_draft_layers(layers, total_layers):
+    """Truncated-layer draft depth: explicit ``layers`` wins, then
+    ``$HETU_SPEC_DRAFT_LAYERS``, then max(1, L // 4).  The draft is the
+    target's first ``layers`` blocks plus the shared final LN and tied
+    head: no weights of its own."""
+    if not layers:
+        layers = envvars.get_int("HETU_SPEC_DRAFT_LAYERS")
+    if not layers or int(layers) <= 0:
+        layers = max(1, int(total_layers) // 4)
+    return min(int(layers), int(total_layers))
 
 
 def _ln(x, scale, bias, eps=1e-5):
@@ -235,21 +254,32 @@ def _sample_slot(logits, temperature, top_k, generator):
 
 def _spec_sample(logits, temperature, top_k, generators, first_row,
                  q_len):
-    """Per-slot sampling over a mixed wave's logits [B, Q, V]: slot b
-    draws from its generator only at rows ``first_row[b] <= j <
-    q_len[b]`` — row 0 of a decode slot, the last row of a prompt's
-    FINAL chunk, none for a mid-prompt chunk — so a request's stream is
-    consumed exactly once per emitted token whatever the wave around it.
-    Other rows (and greedy slots) get the argmax.  Returns [B, Q] int64
-    numpy."""
+    """Per-slot sampling over a wave's logits [B, Q, V]: slot b draws
+    from its generator only at rows ``first_row[b] <= j < q_len[b]`` —
+    row 0 of a decode slot, every row of a verify block, the last row of
+    a prompt's FINAL chunk, none for a mid-prompt chunk — in row order,
+    each row exactly as the row's own sequential step would.  Other rows
+    (and greedy slots) get the argmax.
+
+    Returns (tokens [B, Q] int64 numpy, after): ``after[b]`` is None for
+    a slot that drew nothing, else {row j: ``generator.get_state()``
+    right after row j's draw}.  A verify wave that emits n tokens puts
+    the generator back at ``after[b][n - 1]`` (the JAX package's
+    ``keys_after``), so a request's stream is consumed exactly once per
+    EMITTED token and sampled outputs equal the non-speculative ones."""
     toks = torch.argmax(logits, dim=-1).cpu().numpy()
+    after = [None] * len(generators)
     for b, gen in enumerate(generators):
         if gen is None or temperature[b] <= 0.0:
             continue
-        for j in range(int(first_row[b]), int(q_len[b])):
+        rows = range(int(first_row[b]), int(q_len[b]))
+        if rows:
+            after[b] = {}
+        for j in rows:
             toks[b, j] = _sample_slot(logits[b, j], float(temperature[b]),
                                       int(top_k[b]), gen)
-    return toks
+            after[b][j] = gen.get_state()
+    return toks, after
 
 
 def _sample_slots(logits, temperature, top_k, generators, live=None):
@@ -261,7 +291,7 @@ def _sample_slots(logits, temperature, top_k, generators, live=None):
     q_len = np.ones(B, np.int32) if live is None \
         else np.asarray(live, np.int32)
     return _spec_sample(logits[:, None], temperature, top_k, generators,
-                        np.zeros(B, np.int32), q_len)[:, 0]
+                        np.zeros(B, np.int32), q_len)[0][:, 0]
 
 
 def _prefill_forward(params, cfg_tuple, tokens, kv_lens):
@@ -292,19 +322,13 @@ def _prefill_forward(params, cfg_tuple, tokens, kv_lens):
     return _logits(params, name, last), torch.stack(ks), torch.stack(vs)
 
 
-def _serve_prefill_batch(params, cfg_tuple, cache_k, cache_v, slots,
-                         prompts, prompt_lens, temperature, top_k,
-                         generators, block_tables=None):
-    """Flash prefill of a group of same-bucket admissions in ONE
-    ``_prefill_forward`` (the JAX package's ``_serve_prefill_batch`` and,
-    with ``block_tables``, ``_serve_prefill_batch_paged``): every
-    prompt's live positions go into its slot's cache row, or through its
-    table row into its blocks, and each row samples its first token from
-    its own generator.  Host arrays: slots [N], prompts [N, P_b] (pad
-    past prompt_lens), prompt_lens / temperature / top_k [N], generators
-    (None for greedy); block_tables [B, T] int32 on the device.  The
-    group needs no pad rows: torch compiles no shape ladder, so nothing
-    writes a position twice.  Returns first tokens [N] int64 numpy."""
+def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
+                  prompt_lens, block_tables=None):
+    """ONE ``_prefill_forward`` over a group of prompts, each prompt's
+    live positions written into its slot's cache row, or through its
+    table row into its blocks.  Host arrays: slots [N], prompts [N, P_b]
+    (pad past prompt_lens), prompt_lens [N]; block_tables [B, T] int32 on
+    the device.  Returns the logits [N, V] f32 after each prompt."""
     dev = cache_k.device
     N, P_b = prompts.shape
     lens = np.asarray(prompt_lens, np.int32)
@@ -318,6 +342,22 @@ def _serve_prefill_batch(params, cfg_tuple, cache_k, cache_v, slots,
                        torch.from_numpy(np.asarray(slots)[rows]).to(dev), c)
     cache_k[:, wa, wo] = ks[:, r, c].to(cache_k.dtype)
     cache_v[:, wa, wo] = vs[:, r, c].to(cache_v.dtype)
+    return logits
+
+
+def _serve_prefill_batch(params, cfg_tuple, cache_k, cache_v, slots,
+                         prompts, prompt_lens, temperature, top_k,
+                         generators, block_tables=None):
+    """Flash prefill of a group of same-bucket admissions
+    (``_prefill_into``; the JAX package's ``_serve_prefill_batch`` and,
+    with ``block_tables``, ``_serve_prefill_batch_paged``), then each row
+    samples its first token from its own generator.  Host arrays as for
+    ``_prefill_into``, plus temperature / top_k [N] and generators (None
+    for greedy).  The group needs no pad rows: torch compiles no shape
+    ladder, so nothing writes a position twice.  Returns first tokens [N]
+    int64 numpy."""
+    logits = _prefill_into(params, cfg_tuple, cache_k, cache_v, slots,
+                           prompts, prompt_lens, block_tables)
     return _sample_slots(logits, temperature, top_k, generators)
 
 
@@ -391,17 +431,21 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
 
 
 def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
-                block_tables=None):
+                block_tables=None, verify=False):
     """One MIXED wave: slot b consumes ``tokens[b, :q_len[b]]`` at
-    positions ``pos[b] .. pos[b]+q_len[b]-1`` — a prompt, a prompt chunk
-    or one decode token, all in one call.  Returns logits [B, Q, V] f32;
-    row ``[b, j]`` is the next-token distribution after input j.
+    positions ``pos[b] .. pos[b]+q_len[b]-1`` — a prompt, a prompt chunk,
+    one decode token or a verify block, all in one call.  Returns logits
+    [B, Q, V] f32; row ``[b, j]`` is the next-token distribution after
+    input j.  A slot with q_len 0 rides along inert: length 0, no write,
+    its rows discarded.
 
     The cache is the contiguous ``[L, B, S_max, H, Dh]`` pair, or with
     ``block_tables`` [B, T] int32 the block-table pool ``[L, N_blocks,
     bs, H, Dh]``.  Each layer writes the live (slot, row) pairs' K/V IN
     PLACE (the JAX package donates the cache) and hands the wave to
-    ``ragged_attention`` or ``ragged_paged_attention``, which read
+    ``ragged_attention`` or ``ragged_paged_attention`` — with ``verify``
+    the verify kernels ``paged_verify_attention`` or
+    ``paged_block_verify_attention`` (``_verify_step``) — which read
     everything back.  Only live rows write: the JAX package also
     scatters dead rows, at clipped positions in an order that lets the
     live row win, or into scratch block 0; an unordered CUDA scatter
@@ -413,7 +457,8 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     dev = tokens.device
     posns = pos.long()[:, None] + torch.arange(Q, device=dev)[None, :]
     valid = torch.arange(Q, device=dev)[None, :] < q_len[:, None]
-    lens = (pos + q_len).to(torch.int32)      # filled after the writes
+    # filled after the writes; 0 for an inert slot
+    lens = torch.where(q_len > 0, pos + q_len, 0).to(torch.int32)
     wpe = params[f"{name}_wpe"]
     h = params[f"{name}_wte_table"][tokens] \
         + wpe[torch.clamp(posns, 0, wpe.shape[0] - 1)]           # [B,Q,hd]
@@ -426,7 +471,12 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
         ks, vs = cache_k[i], cache_v[i]
         ks[wa, wo] = k[wb, wj].to(ks.dtype)
         vs[wa, wo] = v[wb, wj].to(vs.dtype)
-        if block_tables is None:
+        if verify and block_tables is None:
+            o = paged_verify_attention(q, ks, vs, lens, q_len)
+        elif verify:
+            o = paged_block_verify_attention(q, ks, vs, lens, q_len,
+                                             block_tables)
+        elif block_tables is None:
             o = ragged_attention(q, ks, vs, lens, q_len)
         else:
             o = ragged_paged_attention(q, ks, vs, lens, q_len, block_tables)
@@ -434,6 +484,19 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
             + params[f"{us}_attn_proj_bias"]
         h = _ffn_block(params, us, h + o)
     return _logits(params, name, h)
+
+
+def _verify_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
+                 block_tables=None):
+    """Multi-position verify (the JAX package's ``_verify_step``): slot b
+    consumes ``tokens[b, :q_len[b]]`` at ``pos[b] ..`` in ONE step, row
+    ``[b, j]`` of the logits [B, Q, V] f32 being what ``j + 1``
+    sequential ``_decode_step`` calls give (within a tolerance: the
+    kernels sum in another order).  ``_mixed_step``'s body on the verify
+    kernels: a slot with q_len 0 (free, mid-prefill, or a finished
+    offline row) writes nothing and attends nothing."""
+    return _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens,
+                       q_len, block_tables, verify=True)
 
 
 def _serve_mixed(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
@@ -444,12 +507,70 @@ def _serve_mixed(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     ``_serve_mixed_paged``).  Device tensors: pos, tokens, q_len,
     block_tables; host arrays: first_row, temperature, top_k, and the
     per-slot generators (None for a free or greedy slot).  Returns
-    sampled [B, Q] int64 numpy; the host reads each slot's window and
-    discards the rest."""
+    ``_spec_sample``'s (sampled [B, Q] int64 numpy, generator states);
+    the host reads each slot's window and discards the rest."""
     logits = _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens,
                          q_len, block_tables)
     return _spec_sample(logits, temperature, top_k, generators,
                         first_row, q_len.cpu().numpy())
+
+
+def _serve_verify(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
+                  temperature, top_k, generators, block_tables=None):
+    """One VERIFY wave over all slots plus sampling at every live row (the
+    JAX package's ``_serve_verify`` and, with ``block_tables``,
+    ``_serve_verify_paged``).  Device tensors: pos [B] int32, tokens [B,
+    Q] int64, block_tables; host arrays: q_len [B], temperature, top_k,
+    generators.  Returns ``_spec_sample``'s (sampled [B, Q], states)."""
+    q_len = np.asarray(q_len, np.int32)
+    logits = _verify_step(params, cfg_tuple, cache_k, cache_v, pos, tokens,
+                          torch.from_numpy(q_len).to(pos.device),
+                          block_tables)
+    return _spec_sample(logits, temperature, top_k, generators,
+                        np.zeros_like(q_len), q_len)
+
+
+def _spec_propose(params, cfg_tuple, cache_k, cache_v, pos, token, k, live):
+    """``k`` greedy draft tokens per slot: ``k + 1`` ``_decode_step``
+    calls of the truncated-layer draft (``cfg_tuple``'s depth) over its
+    own contiguous cache, each feeding its argmax forward on the device
+    and one host copy at the end.  The last step exists only to write the
+    k-th draft token's K/V (after a fully accepted wave the draft's
+    history has no hole); its proposal is discarded.  pos [B] int32 /
+    token [B] int64 device tensors; live [B] bool host array, the
+    decoding slots: the others (free, mid-prefill, finished) write
+    nothing, nor does a step past the cache's last position.  Returns
+    draft tokens [B, k] int64 numpy."""
+    S = cache_k.shape[2]
+    dev = pos.device
+    live = torch.from_numpy(np.asarray(live, bool)).to(dev)
+    p = pos.long()
+    tok = token
+    toks = []
+    for i in range(k + 1):
+        pi = p + i
+        logits = _decode_step(params, cfg_tuple, cache_k, cache_v,
+                              torch.clamp(pi, max=S - 1), tok,
+                              live_mask=live & (pi < S))
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+    return torch.stack(toks[:k], 1).cpu().numpy()
+
+
+def _accept_span(sampled, tokens, q_len, eos_id):
+    """Longest-prefix acceptance of one slot's verify block: ``tokens``
+    the block fed (the carried token, then the draft), ``sampled`` the
+    target's token after each row.  Draft j + 1 is accepted while it
+    equals sampled j; the target's token at the first mismatch is the
+    bonus.  An EOS in the span cuts it there.  Returns (emitted tokens,
+    accepted draft count)."""
+    a = 0
+    while a < q_len - 1 and sampled[a] == tokens[a + 1]:
+        a += 1
+    emit = [int(t) for t in sampled[:a + 1]]
+    if eos_id is not None and eos_id in emit:
+        emit = emit[:emit.index(eos_id) + 1]
+    return emit, min(a, len(emit))
 
 
 def _infer_name(params, name=None):
@@ -479,9 +600,80 @@ def refuse_moe(config):
             "MoE decoding is not ported yet (ROADMAP A6)")
 
 
+def _generate_spec(params, cfg_tuple, draft_layers, prompts, num_tokens,
+                   temperature, top_k, seed, eos_id, pad_id, spec_k, dev):
+    """Offline speculative generation (the JAX package's
+    ``_generate_spec``): flash prefill of the target and of the draft's
+    own cache, then propose (``_spec_propose``, K4) and verify
+    (``_serve_verify``, K6) in lockstep over the whole batch; rows whose
+    acceptance differs sit at different positions, and finished rows ride
+    along with q_len 0.  Greedy outputs equal the non-speculative
+    ``generate_fast``'s; sampling draws one generator per row seeded
+    ``seed + row``, so sampled rows equal the serving engine's requests
+    seeded alike, not the batch-seeded offline path."""
+    name, L, H, Dh, S_max = cfg_tuple[:5]
+    cfg_d = (name, draft_layers, H, Dh, S_max)
+    B, P = prompts.shape
+    Q = spec_k + 1
+    cdtype = params[f"{name}_wte_table"].dtype
+    ck = torch.zeros((L, B, S_max, H, Dh), dtype=cdtype, device=dev)
+    cv = torch.zeros_like(ck)
+    dck = torch.zeros((draft_layers, B, S_max, H, Dh), dtype=cdtype,
+                      device=dev)
+    dcv = torch.zeros_like(dck)
+    P_b = min(_pow2(P, floor=8), S_max)
+    padb = np.zeros((B, P_b), np.int64)
+    padb[:, :P] = prompts
+    slots = np.arange(B)
+    lens = np.full(B, P, np.int32)
+    temps = np.full(B, temperature, np.float32)
+    topks = np.full(B, top_k, np.int32)
+    gens = [None] * B
+    if temperature > 0:
+        for r in range(B):
+            gens[r] = torch.Generator(device=dev)
+            gens[r].manual_seed(int(seed) + r)
+    first = _serve_prefill_batch(params, cfg_tuple, ck, cv, slots, padb,
+                                 lens, temps, topks, gens)
+    _prefill_into(params, cfg_d, dck, dcv, slots, padb, lens)
+    pos = np.full(B, P, np.int32)
+    tok = first.astype(np.int64)
+    total = P + int(num_tokens)
+    out = np.full((B, total), pad_id, np.int64)
+    out[:, :P] = prompts
+    out[:, P] = first
+    emitted = np.ones(B, np.int32)
+    done = emitted >= num_tokens
+    if eos_id is not None:
+        done |= first == eos_id
+    while not done.all():
+        pos_d = torch.from_numpy(pos).to(dev)
+        draft = _spec_propose(params, cfg_d, dck, dcv, pos_d,
+                              torch.from_numpy(tok).to(dev), spec_k, ~done)
+        tokens = np.concatenate([tok[:, None], draft], 1)
+        qlen = np.where(done, 0, np.minimum(Q, num_tokens - emitted))
+        tgt, after = _serve_verify(params, cfg_tuple, ck, cv, pos_d,
+                                   torch.from_numpy(tokens).to(dev), qlen,
+                                   temps, topks, gens)
+        for b in np.flatnonzero(~done):
+            emit, _ = _accept_span(tgt[b], tokens[b], int(qlen[b]), eos_id)
+            n = len(emit)
+            out[b, P + emitted[b]:P + emitted[b] + n] = emit
+            emitted[b] += n
+            pos[b] += n
+            tok[b] = emit[-1]
+            if after[b] is not None:
+                gens[b].set_state(after[b][n - 1])
+            if emitted[b] >= num_tokens or \
+                    (eos_id is not None and emit[-1] == eos_id):
+                done[b] = True
+    return out.astype(np.int32)
+
+
 def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
                   top_k=0, seed=0, name=None, dtype=None, eos_id=None,
-                  pad_id=0, spec=None, device=None):
+                  pad_id=0, spec=None, spec_draft_layers=None,
+                  device=None):
     """KV-cached generation: the prompt runs as ONE batched pass through
     the flash kernel (pow2-bucketed prompt length), then one position at
     a time over the contiguous cache through the decode kernel.  The JAX
@@ -494,12 +686,14 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
     default FOLLOWS the params; eos_id: a row that samples it past its
     prompt emits it, then ``pad_id``.  Sampling draws from one
     ``torch.Generator`` seeded with ``seed``.  device: CUDA unless
-    ``"cpu"`` is passed.  ``spec > 0`` (speculative decoding) is
-    ROADMAP A5.  Returns [B, P + num_tokens] numpy int32."""
+    ``"cpu"`` is passed.  spec: > 0 (default ``$HETU_SPEC_K``) decodes
+    speculatively (``_generate_spec``): a draft of ``spec_draft_layers``
+    of the model's own blocks (``resolve_draft_layers``) proposes
+    ``spec`` tokens per wave through the decode kernel and the verify
+    kernel scores them in one step; greedy outputs are the same, sampled
+    ones draw one generator per row (``seed + row``), as the engine's
+    requests do.  Returns [B, P + num_tokens] numpy int32."""
     dev = resolve_device(device)
-    if resolve_spec_k(spec):
-        raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP A5)")
     refuse_moe(config)
     prompts = np.asarray(prompts, np.int64)
     if prompts.ndim == 1:
@@ -520,6 +714,12 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
     Dh = c.hidden_size // H
     cfg_tuple = (name, L, H, Dh, S_max)
     params = _model_params(params, name, dev, dtype)
+    spec_k = resolve_spec_k(spec)
+    if spec_k:
+        return _generate_spec(
+            params, cfg_tuple, resolve_draft_layers(spec_draft_layers, L),
+            prompts, int(num_tokens), float(temperature), int(top_k),
+            int(seed), eos_id, int(pad_id), spec_k, dev)
     cdtype = params[f"{name}_wte_table"].dtype
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))

@@ -10,6 +10,12 @@ package's ``ServingEngine`` over both KV layouts and both schedulers.
   groups of same-bucket admissions, plus one-slot chunk passes on the
   pool) and then runs one decode wave over the slots whose prompts are
   written (the decode kernel of the layout on each layer).
+- Speculation (``spec=``): a truncated-layer draft proposes through the
+  decode kernel over its own contiguous cache, then the target verifies
+  the carried token and the proposals in one step per wave — the verify
+  kernel of the layout in a phase-split wave, verify rows of the mixed
+  wave otherwise — with longest-prefix acceptance, a bonus token and KV
+  rollback.
 
 Division of labor: the DEVICE holds the weights and the KV cache; the
 HOST owns every piece of scheduling state (queue, positions, current
@@ -19,11 +25,13 @@ arrays and Python objects.  Each request samples from its own
 it emits (at its prompt's last position, then at each decode), so
 outputs are a pure function of the request — identical across arrival
 orders, slot assignments, layouts and schedulers — and greedy outputs
-equal offline ``generate_fast``.
+equal offline ``generate_fast``.  A speculative wave puts a request's
+generator back at its state after the last EMITTED token's draw, so
+speculation changes no output, sampled ones included.
 
 Not ported yet, and refused with NotImplementedError whether asked for
-by argument or environment variable: speculative decoding (ROADMAP A5),
-int8 KV (the int8 slice), MoE configs (A6), weight swaps and tiered KV
+by argument or environment variable: int8 KV (the int8 slice, with or
+without speculation), MoE configs (A6), weight swaps and tiered KV
 (A7).
 """
 
@@ -38,9 +46,10 @@ import torch
 from .. import envvars, telemetry
 from ..device import resolve_device
 from ..models.gpt_decode import (
-    _infer_name, _model_params, _pow2, _serve_decode_step, _serve_mixed,
-    _serve_prefill_batch, _serve_prefill_chunk, refuse_moe,
-    resolve_serve_ragged, resolve_spec_k,
+    _accept_span, _infer_name, _model_params, _pow2, _prefill_into,
+    _serve_decode_step, _serve_mixed, _serve_prefill_batch,
+    _serve_prefill_chunk, _serve_verify, _spec_propose, refuse_moe,
+    resolve_draft_layers, resolve_serve_ragged, resolve_spec_k,
 )
 from ..telemetry import flight
 from ..telemetry import slo as slo_mod
@@ -61,11 +70,7 @@ class QueueFull(RuntimeError):
 _STORM_REJECTS = 8
 
 
-def _refuse_unported(c, spec, kv_quant, tier_store):
-    if spec:
-        raise NotImplementedError(
-            "speculative decoding (spec=, HETU_SPEC_K) is not ported yet "
-            "(ROADMAP A5)")
+def _refuse_unported(c, kv_quant, tier_store):
     if kv_quant:
         raise NotImplementedError(
             "int8 KV (kv_quant=, HETU_KV_QUANT) is not ported yet "
@@ -103,6 +108,16 @@ class ServingEngine:
     ``steps``, ``peak_live``, prefix hits) count as the JAX engine's do
     with ``fast_path=True``.
 
+    spec (``$HETU_SPEC_K``): > 0 decodes speculatively — a draft of
+    ``spec_draft_layers`` of the target's own blocks (default
+    ``$HETU_SPEC_DRAFT_LAYERS`` or max(1, L // 4)) proposes up to
+    ``spec`` tokens per slot per wave over its own contiguous cache, the
+    target verifies them with the carried token in one step, and each
+    slot emits 1..spec+1 tokens; outputs stay those of the
+    non-speculative engine.  spec_adapt (``$HETU_SPEC_ADAPT``, default
+    on) moves the per-wave draft length through the pow2 ladder 1..spec
+    on a sliding acceptance window.
+
     Observability: lifecycle-traced requests (``metrics``), an
     ``SLOMonitor`` behind ``health()``, and the flight recorder dumped
     when an exception escapes ``step()`` or on QueueFull storms.
@@ -113,12 +128,12 @@ class ServingEngine:
                  paged=None, kv_block=None,
                  pool_blocks=None, prefix_share=None, prefill_chunk=None,
                  kv_quant=None, slo=None, tags=None, spec=None,
-                 ragged=None, tier_store=None, device=None):
+                 spec_adapt=None, spec_draft_layers=None, ragged=None,
+                 tier_store=None, device=None):
         c = config
         self.device = resolve_device(device)
         block = resolve_kv_block(paged, kv_block)
-        _refuse_unported(c, resolve_spec_k(spec), resolve_kv_quant(kv_quant),
-                         tier_store)
+        _refuse_unported(c, resolve_kv_quant(kv_quant), tier_store)
         self.paged = block > 0
         self.ragged = resolve_serve_ragged(ragged)
         self._name = _infer_name(params, name)
@@ -174,6 +189,37 @@ class ServingEngine:
         self._prefill_off = np.zeros(B, np.int32)  # next prompt position
         self._prompt_arr = [None] * B              # to prefill
         self.steps = 0
+        # ---- speculative decoding (spec=/$HETU_SPEC_K) ---- #
+        self.spec_k = resolve_spec_k(spec)
+        self.spec_adapt = False
+        if self.spec_k:
+            dl = resolve_draft_layers(spec_draft_layers,
+                                      c.num_hidden_layers)
+            self.spec_draft_layers = dl
+            self.cfg_tuple_draft = (self._name, dl, c.num_attention_heads,
+                                    Dh, self.kv.s_max)
+            adapt = (spec_adapt if spec_adapt is not None
+                     else envvars.get_bool("HETU_SPEC_ADAPT"))
+            self.spec_adapt = bool(adapt) and self.spec_k > 1
+            # adaptive runs ramp up from mid-ladder; pinned runs stay at k
+            self._spec_kcur = (max(1, self.spec_k // 2)
+                               if self.spec_adapt else self.spec_k)
+            # the draft's own cache: always slot-contiguous, whatever the
+            # target's layout; rollback there is position bookkeeping
+            self._draft_ck = torch.zeros(
+                (dl, B, self.kv.s_max, c.num_attention_heads, Dh),
+                dtype=cdtype, device=self.device)
+            self._draft_cv = torch.zeros_like(self._draft_ck)
+            self._acc_window = collections.deque(maxlen=32)
+            self.spec_proposed = 0    # draft tokens scored
+            self.spec_accepted = 0    # draft tokens emitted
+            self.spec_emitted = 0     # tokens emitted by verify waves
+            self.spec_waves = 0
+            self.spec_k_sum = 0       # sum of per-wave k (mean_k)
+            self.spec_draft_prefills = 0
+            self._spec_acc = np.zeros(B, np.int64)
+            self._spec_prop = np.zeros(B, np.int64)
+            self._spec_bonus = np.zeros(B, np.int64)
 
     def swap_params(self, params, *, version=None):
         raise NotImplementedError(
@@ -343,8 +389,14 @@ class ServingEngine:
     def _finish_prefill(self, slot, tok0):
         """Prompt fully written: the slot joins the decode wave (or
         retires right here on max_new_tokens=1 / instant EOS).  On the
-        pool, registers the prompt's blocks for prefix sharing."""
+        pool, registers the prompt's blocks for prefix sharing.  A
+        speculative engine prefills the draft's cache row first."""
         req = self._reqs[slot]
+        if self.spec_k:
+            t_d = time.perf_counter()
+            self._draft_prefill_slot(slot)
+            self.metrics.lc_prefill(req.request_id,
+                                    time.perf_counter() - t_d)
         now = time.perf_counter()
         req.first_token_at = now
         self._pos[slot] = len(self._prompt_arr[slot])
@@ -401,7 +453,9 @@ class ServingEngine:
                         done.append(r)   # frees the slot: next wave
         live = self.kv.live()
         self.peak_live = max(self.peak_live, len(live))
-        if live:
+        if live and self.spec_k:
+            done.extend(self._spec_wave(live, prefill_s))
+        elif live:
             done.extend(self._decode_wave(live, prefill_s))
         return done
 
@@ -428,7 +482,9 @@ class ServingEngine:
         live = self.kv.live()
         decoding = [s for s in live if self._gen[s] is not None]
         self.peak_live = max(self.peak_live, len(live))
-        if decoding:
+        if decoding and self.spec_k:
+            done.extend(self._spec_wave(decoding, prefill_s))
+        elif decoding:
             done.extend(self._decode_wave(decoding, prefill_s))
         return done
 
@@ -574,6 +630,11 @@ class ServingEngine:
         decoding = [s for s in live if self._gen[s] is not None]
         wave_reqs = [self._reqs[s].request_id for s in live]
         t0 = time.perf_counter()
+        # the speculative draft proposes ahead of the wave
+        k_cur = 0
+        if decoding and self.spec_k:
+            k_cur = self._spec_kcur
+            draft = self._propose(decoding, k_cur)
         entries = {}
         chunk_take = {}   # slot -> (take, final) for prefill q-blocks
         for s in pre:
@@ -583,10 +644,15 @@ class ServingEngine:
             toks = [int(t) for t in self._prompt_arr[s][off:off + take]]
             entries[s] = (toks, off, take - 1 if final else take)
             chunk_take[s] = (take, final)
+        qlen_v = {}       # slot -> q_len of its verify q-block
         for s in decoding:
-            entries[s] = ([int(self._tok[s])], int(self._pos[s]), 0)
+            toks = [int(self._tok[s])]
+            if k_cur:
+                qlen_v[s] = self._verify_len(s, k_cur)
+                toks += [int(t) for t in draft[s, :qlen_v[s] - 1]]
+            entries[s] = (toks, int(self._pos[s]), 0)
         wave = assemble_mixed_wave(B, entries)
-        sampled = _serve_mixed(
+        sampled, after = _serve_mixed(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             self._put(wave["pos"], torch.int32),
             self._put(wave["tokens"], torch.int64),
@@ -621,10 +687,20 @@ class ServingEngine:
         if pre:
             self.metrics.record_prefill(len(pre), wave["q"], dt,
                                         batched=True)
-        # ---- decode q-blocks ---- #
+        # ---- verify / decode q-blocks ---- #
         n_dec = 0
+        wave_emit = wave_acc = wave_prop = 0
         for s in decoding:
             req = self._reqs[s]
+            if k_cur:
+                emit, accepted, r = self._spec_commit(
+                    s, sampled[s], entries[s][0], qlen_v[s], after[s])
+                wave_emit += len(emit)
+                wave_acc += accepted
+                wave_prop += qlen_v[s] - 1
+                if r:
+                    done.append(r)
+                continue
             t = int(sampled[s, 0])
             n_dec += 1
             self._pos[s] += 1
@@ -642,13 +718,167 @@ class ServingEngine:
                 if t_wave > e:
                     self.metrics.lc_prefill(rid, t_wave - e, count=False)
         self.steps += 1
-        q_tot = max(q_pre + n_dec, 1)
+        spec = (self._spec_record(k_cur, wave_acc, wave_prop, wave_emit)
+                if k_cur else None)
+        q_ver = sum(qlen_v.values())
+        q_tot = max(q_pre + q_ver + n_dec, 1)
         self.metrics.record_step(
             live=len(live), slots=B, queue_depth=len(self._queue),
-            dt_s=dt, new_tokens=n_dec, prefill_s=dt * q_pre / q_tot,
-            step=self.steps, requests=wave_reqs, end_perf=t0 + dt,
-            mix={"q_prefill": q_pre, "q_verify": 0, "q_decode": n_dec})
+            dt_s=dt, new_tokens=wave_emit if k_cur else n_dec,
+            prefill_s=dt * q_pre / q_tot, step=self.steps,
+            requests=wave_reqs, end_perf=t0 + dt, spec=spec,
+            mix={"q_prefill": q_pre, "q_verify": q_ver, "q_decode": n_dec})
         return done
+
+    # ------------------------------------------------------------- #
+    # speculative decoding (spec=/$HETU_SPEC_K)
+    # ------------------------------------------------------------- #
+
+    def _draft_prefill_slot(self, slot):
+        """Prefill the draft's cache row of a slot whose prompt is written
+        (one flash pass of the draft's depth; it samples nothing), and
+        zero the slot's per-request speculation attribution: every
+        admission passes here exactly once."""
+        prompt = self._prompt_arr[slot]
+        P = len(prompt)
+        arr = np.zeros((1, self.kv.bucket_prompt(P)), np.int64)
+        arr[0, :P] = prompt
+        _prefill_into(self.params, self.cfg_tuple_draft, self._draft_ck,
+                      self._draft_cv, np.array([slot]), arr,
+                      np.array([P], np.int32))
+        self.spec_draft_prefills += 1
+        self._spec_acc[slot] = 0
+        self._spec_prop[slot] = 0
+        self._spec_bonus[slot] = 0
+
+    def _adapt_k(self):
+        """Sliding-window acceptance controller: raise the draft length
+        through the pow2 ladder while acceptance stays high, back off
+        while it stays low; the window clears on every move so the new k
+        is judged on its own evidence."""
+        if not self.spec_adapt or len(self._acc_window) < 8:
+            return
+        prop = sum(p for _, p in self._acc_window)
+        if prop == 0:
+            return
+        rate = sum(a for a, _ in self._acc_window) / prop
+        if rate >= 0.75 and self._spec_kcur < self.spec_k:
+            self._spec_kcur = min(self._spec_kcur * 2, self.spec_k)
+            self._acc_window.clear()
+        elif rate <= 0.35 and self._spec_kcur > 1:
+            self._spec_kcur = max(self._spec_kcur // 2, 1)
+            self._acc_window.clear()
+
+    def _propose(self, decoding, k):
+        """The draft's ``k`` proposals for the slots ``decoding`` ([B, k]
+        host array; other rows are meaningless)."""
+        live = np.zeros(self.kv.n_slots, bool)
+        live[decoding] = True
+        return _spec_propose(self.params, self.cfg_tuple_draft,
+                             self._draft_ck, self._draft_cv,
+                             self._put(self._pos, torch.int32),
+                             self._put(self._tok, torch.int64), k, live)
+
+    def _verify_len(self, slot, k):
+        """The slot's verify q-block: the carried token and up to ``k``
+        proposals, no more than it may still emit or the cache holds."""
+        rem = self._reqs[slot].max_new_tokens - len(self._gen[slot])
+        return min(k + 1, rem, self.kv.s_max - int(self._pos[slot]))
+
+    def _spec_commit(self, s, sampled, tokens, ql, after):
+        """Accept slot ``s``'s verify block (``tokens`` fed, ``sampled``
+        the target's token after each row, ``after`` its generator states
+        or None): emit the accepted prefix and the bonus token, roll the
+        cache back past them, and put the request's generator back at its
+        state after the last emitted token's draw.  Returns (emitted
+        tokens, accepted drafts, Result or None)."""
+        req = self._reqs[s]
+        emit, accepted = _accept_span(sampled, tokens, ql, req.eos_id)
+        n_emit = len(emit)
+        self._spec_acc[s] += accepted
+        self._spec_prop[s] += ql - 1
+        self._spec_bonus[s] += n_emit - accepted
+        base = int(self._pos[s])
+        # the verify wrote all ql positions: keep the emitted ones
+        self.kv.advance(s, ql)
+        self.kv.truncate(s, base + n_emit)
+        self._pos[s] = base + n_emit
+        self._tok[s] = emit[-1]
+        if after is not None:
+            self._gens[s].set_state(after[n_emit - 1])
+        self._gen[s].extend(emit)
+        if req.stream_cb:
+            for t in emit:
+                req.stream_cb(req, t)
+        return emit, accepted, self._maybe_finish(s, emit[-1])
+
+    def _spec_record(self, k_cur, wave_acc, wave_prop, wave_emit):
+        """Count one speculative wave and adapt k; returns its step-event
+        record."""
+        self.spec_waves += 1
+        self.spec_k_sum += k_cur
+        self.spec_proposed += wave_prop
+        self.spec_accepted += wave_acc
+        self.spec_emitted += wave_emit
+        self._acc_window.append((wave_acc, wave_prop))
+        self._adapt_k()
+        return {"k": k_cur, "proposed": wave_prop, "accepted": wave_acc}
+
+    def _spec_wave(self, decoding, prefill_s):
+        """One phase-split speculative wave over the slots ``decoding``:
+        the draft proposes (k_cur + 1 decode-kernel steps), the target
+        verifies every slot's carried token and proposals in ONE step
+        (the verify kernel of the layout), and each slot emits 1..k_cur+1
+        tokens.  Returns the Results that completed."""
+        B = self.kv.n_slots
+        k_cur = self._spec_kcur
+        wave_reqs = [self._reqs[s].request_id for s in decoding]
+        t0 = time.perf_counter()
+        draft = self._propose(decoding, k_cur)
+        tokens = np.zeros((B, k_cur + 1), np.int64)
+        tokens[:, 0] = self._tok
+        tokens[:, 1:] = draft
+        qlen = np.zeros(B, np.int32)
+        for s in decoding:
+            qlen[s] = self._verify_len(s, k_cur)
+        sampled, after = _serve_verify(
+            self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
+            self._put(self._pos, torch.int32),
+            self._put(tokens, torch.int64), qlen, self._temp, self._topk,
+            self._gens, block_tables=self._tables())
+        dt = time.perf_counter() - t0
+        done = []
+        wave_emit = wave_acc = wave_prop = 0
+        for s in decoding:
+            emit, accepted, r = self._spec_commit(
+                s, sampled[s], tokens[s], int(qlen[s]), after[s])
+            wave_emit += len(emit)
+            wave_acc += accepted
+            wave_prop += int(qlen[s]) - 1
+            if r:
+                done.append(r)
+        self.steps += 1
+        spec = self._spec_record(k_cur, wave_acc, wave_prop, wave_emit)
+        self.metrics.record_step(
+            live=len(decoding), slots=B, queue_depth=len(self._queue),
+            dt_s=dt, new_tokens=wave_emit, prefill_s=prefill_s,
+            step=self.steps, requests=wave_reqs, end_perf=t0 + dt,
+            spec=spec)
+        return done
+
+    @property
+    def spec_acceptance(self):
+        """Lifetime draft acceptance rate (None before any proposal)."""
+        if not self.spec_k or not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
+
+    @property
+    def spec_mean_k(self):
+        """Mean per-wave draft length (adaptation's observable)."""
+        if not self.spec_k or not self.spec_waves:
+            return None
+        return self.spec_k_sum / self.spec_waves
 
     def run(self, requests=()):
         """Submit ``requests`` then step until everything (including
@@ -676,13 +906,22 @@ class ServingEngine:
         tokens = np.concatenate([
             np.asarray(req.prompt, np.int32),
             np.asarray(self._gen[slot], np.int32)])
+        spec = None
+        if self.spec_k:
+            # every generated token is the prefill sample, an accepted
+            # draft or a bonus sample: accepted + bonus + 1 == n
+            spec = {"accepted": int(self._spec_acc[slot]),
+                    "proposed": int(self._spec_prop[slot]),
+                    "bonus": int(self._spec_bonus[slot])}
         res = Result(
             request_id=req.request_id, tokens=tokens,
             prompt_len=len(req.prompt), finish_reason=reason,
             n_generated=n, ttft_s=req.first_token_at - req.submitted_at,
-            latency_s=now - req.submitted_at, slot=slot)
+            latency_s=now - req.submitted_at, slot=slot,
+            spec_accepted=spec["accepted"] if spec else 0,
+            spec_proposed=spec["proposed"] if spec else 0)
         self.metrics.record_finish(req.request_id, reason, n,
-                                   res.latency_s)
+                                   res.latency_s, spec=spec)
         decode_s = now - req.first_token_at
         self.slo.observe(
             request_id=req.request_id, ttft_ms=res.ttft_s * 1e3,

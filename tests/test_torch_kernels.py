@@ -292,7 +292,12 @@ def test_int8_scales_refused():
                                      v_scale=s),
         lambda: tra.ragged_paged_attention(_t(q), _t(pk), _t(pv), L, L,
                                            _t(tab).int(), k_scale=s,
-                                           v_scale=s)]
+                                           v_scale=s),
+        lambda: tda.paged_verify_attention(_t(q), _t(k), _t(v), L, L,
+                                           k_scale=s, v_scale=s),
+        lambda: tda.paged_block_verify_attention(
+            _t(q), _t(pk), _t(pv), L, L, _t(tab).int(), k_scale=s,
+            v_scale=s)]
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -311,8 +316,13 @@ def test_cpu_calls_launch_no_kernel():
     tda.paged_decode_attention(_t(q[:, 0]), _t(k), _t(v), L)
     tda.paged_block_decode_attention(_t(q[:, 0]), _t(pk), _t(pv), L,
                                      _t(tab).int())
+    tda.paged_verify_attention(_t(q), _t(k), _t(v), L, L)
+    tda.paged_block_verify_attention(_t(q), _t(pk), _t(pv), L, L,
+                                     _t(tab).int())
     assert launch_counts() == {"flash_attention": 0,
                                "ragged_paged_attention": 0,
                                "ragged_attention": 0,
                                "paged_decode_attention": 0,
-                               "paged_block_decode_attention": 0}
+                               "paged_block_decode_attention": 0,
+                               "paged_verify_attention": 0,
+                               "paged_block_verify_attention": 0}

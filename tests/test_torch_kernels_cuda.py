@@ -127,6 +127,53 @@ def test_decode_kernels_match_plain(cuda, dtype, Dh, bs, layout):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh,bs,Q", [(64, 16, 5), (32, 8, 2), (128, 16, 16),
+                                     (64, 8, 3)])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_verify_kernels_match_plain(cuda, dtype, Dh, bs, Q, layout):
+    """K6 over slot rows and K7 through the block tables, on one verify
+    wave with a full q-block, a shorter one, a q_len-0 slot, a length-0
+    slot and dead rows (their clipped output is compared too)."""
+    q, pk, pv, lens, ql, tab = _wave(Dh, bs, Q, seed=4)
+    ql = np.minimum(np.array([Q, Q - 1, 1, 0, Q, 0], np.int32), lens)
+    dt = getattr(torch, dtype)
+    q = q.to(cuda, dt)
+    lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
+                           for a in (lens, ql, tab))
+    reset_launches()
+    if layout == "slots":
+        k, v = (_slot_rows(x, tab).to(cuda, dt) for x in (pk, pv))
+        got = tda.paged_verify_attention(q, k, v, lens_d, ql_d)
+        want = tda.masked_verify_reference(q, k, v, lens_d, ql_d)
+        name = "paged_verify_attention"
+    else:
+        k, v = pk.to(cuda, dt), pv.to(cuda, dt)
+        got = tda.paged_block_verify_attention(q, k, v, lens_d, ql_d, tab_d)
+        want = tda.paged_block_verify_reference(q, k, v, lens_d, ql_d,
+                                                tab_d)
+        name = "paged_block_verify_attention"
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.to(dt).float().cpu().numpy(),
+                               **TOL[dtype])
+    assert (got[3] == 0).all()
+
+
+def test_verify_kernel_q1_equals_decode_kernel(cuda):
+    """A one-row verify block scores what the decode kernel scores: both
+    are the same body, at NQ = 1."""
+    q, pk, pv, lens, _, tab = _wave(64, 16, 1, seed=5)
+    k, v = (_slot_rows(x, tab).to(cuda) for x in (pk, pv))
+    lens_d = torch.from_numpy(lens).to(cuda)
+    ones = torch.ones_like(lens_d)
+    got = tda.paged_verify_attention(q.to(cuda), k, v, lens_d, ones)
+    want = tda.paged_decode_attention(q[:, 0].to(cuda), k, v, lens_d)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,S,Sk", [(True, 100, 100),
                                          (False, 40, 72)])
 def test_flash_kernel_matches_plain(cuda, dtype, causal, S, Sk):
@@ -167,6 +214,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tfa.flash_attention(x, x, x, causal=True)
     with pytest.raises(ValueError, match="head dim"):
         tda.paged_decode_attention(x[:, 0], x, x, args[3][:1])
+    with pytest.raises(ValueError, match="at most 16"):
+        tda.paged_verify_attention(args[0][:, :8].repeat(1, 3, 1, 1),
+                                   args[1][:6], args[2][:6], args[3],
+                                   args[4])
     rows = torch.randn((6, 32, 6, 64), device=cuda)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tra.ragged_attention(args[0], rows, rows, args[3], args[4])

@@ -239,16 +239,18 @@ PR = dict(paged=True, ragged=True)
 
 
 @pytest.mark.parametrize("kw,env", [
-    (dict(PR, spec=2), None),
+    (dict(PR, spec=2, kv_quant="int8"), None),
     (dict(PR, kv_quant="int8"), None),
     (dict(PR, tier_store=object()), None),
     (dict(PR, moe=True), None),
-    (PR, ("HETU_SPEC_K", "2")),
+    (dict(PR, kv_quant="int8"), ("HETU_SPEC_K", "2")),
     (PR, ("HETU_KV_QUANT", "int8")),
     (PR, ("HETU_KV_HOST_BYTES", "4096")),
 ], ids=["spec", "int8", "tiers", "moe", "env-spec", "env-int8",
         "env-tiers"])
 def test_unported_options_raise(model, monkeypatch, kw, env):
+    """Speculation is ported; with int8 KV it is refused, naming the int8
+    slice, like int8 alone."""
     p, _, tcfg = model
     if env is not None:
         monkeypatch.setenv(*env)
@@ -261,12 +263,16 @@ def test_unported_options_raise(model, monkeypatch, kw, env):
 
 
 def test_swap_params_and_spec_offline_raise(model):
+    """Weight swaps are not ported; offline speculation is, but not for
+    a MoE config."""
     p, _, tcfg = model
     eng = TServingEngine(p, tcfg, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.swap_params(p)
+    moe = copy.copy(tcfg)
+    moe.num_experts = 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgd.generate_fast(p, tcfg, [[1, 2]], 2, spec=2, device="cpu")
+        tgd.generate_fast(p, moe, [[1, 2]], 2, spec=2, device="cpu")
 
 
 def test_queue_limit_backpressure(model):
