@@ -51,9 +51,25 @@ non-zero and prints no result line):
    non-speculative run on those weights, acceptance >= 0.9, fewer waves
    than generated tokens.  Last, offline ``generate_fast(spec=4)`` on
    phase 3's prompts equals phase 3's f32 tokens.
+7. The int8 KV cache (``kv_quant="int8"``).  First the six int8 twins
+   (K1-int8, K4-int8 ... K8-int8) at phase 2's shapes, over phase 2's
+   f32 K/V encoded by ``quant.kv_encode`` on the card (equal to the CPU
+   encoding, payload and scales), q f32 and bf16, held to their plain
+   versions with phase 2's tolerances (both sides form the same f32
+   product payload x scale), timed beside an SDPA yardstick over the
+   pre-dequantized K/V (the dequantization not timed) and a bound from
+   the int8 bytes.  Then the request set through all four engine
+   configurations with an int8 cache, f32 then bf16: each int8 twin
+   launched exactly where its float twin was, the float twin never; the
+   footprint what the shapes give; every f32 greedy request equal to
+   phase 4's or first differing where the exact top-2 logit margin is
+   at most twice the int8 logit error (``teacher_forced_logits``, the
+   JAX package's gate).  Last ``spec=4`` with int8 in all four, whose
+   f32 tokens, greedy and sampled, equal the non-speculative int8 run's.
 
 With ``--profile DIR`` each serving configuration is then run again
-under torch.profiler and its device time by kernel written into DIR.
+under torch.profiler (without and with speculation, and with an int8
+cache) and its device time by kernel written into DIR.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is the device record.
@@ -209,6 +225,38 @@ def length_mask(torch, lengths, q_lens, Q, span):
             <= posq[:, :, None])[:, None]
 
 
+def int8_kv(torch, k, v):
+    """Phase 2's f32 K/V encoded on the card by ``quant.kv_encode``, held
+    to the CPU encoding exactly (payload and scales): ((k payload, k
+    scales), (v payload, v scales))."""
+    from hetu_tpu_torch.quant import kv_encode
+    out = []
+    for x in (k, v):
+        q, s = kv_encode(x)
+        qc, sc = kv_encode(x.cpu())
+        if not (torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)):
+            fail("kv_encode on the card differs from the CPU encoding")
+        out.append((q, s))
+    return out
+
+
+def kv_operands(torch, k, v, dtype, int8):
+    """A float K/V pair of ``dtype`` or, with ``int8``, its encoding:
+    (k, v), the wrapper's keyword scales, the plain version's trailing
+    scale arguments, the dense (dequantized) K/V for the SDPA yardstick
+    (the dequantization not timed), and the bytes one (position, head)
+    row of K and V takes."""
+    dt = getattr(torch, dtype)
+    if not int8:
+        k, v = k.to(dt), v.to(dt)
+        return (k, v), {}, (), (k, v), 2 * DH * k.element_size()
+    from hetu_tpu_torch.quant import kv_decode
+    (kq, ks), (vq, vs) = int8_kv(torch, k, v)
+    dense = (kv_decode(kq, ks).to(dt), kv_decode(vq, vs).to(dt))
+    return ((kq, vq), dict(k_scale=ks, v_scale=vs), (ks, vs), dense,
+            2 * (DH + 4))
+
+
 def measure(torch, label, dtype, run, plain, library, nbytes, flops,
             dead=3):
     """Hold ``run()`` (the kernel) to ``plain()`` element by element,
@@ -236,67 +284,80 @@ def measure(torch, label, dtype, run, plain, library, nbytes, flops,
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def check_k1(torch, F, dtype, seed):
+def check_k1(torch, F, dtype, seed, int8=False):
     """K1 on a mixed wave of the 8 pool slots: q_len in {0, 1, 5, 256},
-    Q 256.  Yardstick: SDPA over the pre-gathered dense view with the
-    equivalent mask (the gather itself excluded)."""
+    Q 256; with ``int8`` K1-int8 over the f32 pool's encoding, q of
+    ``dtype``.  Yardstick: SDPA over the pre-gathered dense (with
+    ``int8``, dequantized) view with the equivalent mask (the gather
+    itself excluded)."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
-    pool_k, pool_v, tables, n_rows = pool_case(torch, dtype, seed)
+    pool_k, pool_v, tables, n_rows = pool_case(
+        torch, "float32" if int8 else dtype, seed)
+    (pool_k, pool_v), sc, sc_plain, dense, row_bytes = kv_operands(
+        torch, pool_k, pool_v, dtype, int8)
     q_lens = np.array([256, 1, 5, 0, 1, 256, 1, 5], np.int32)
     B, Q = len(LENGTHS), 256
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     q = torch.randn((B, Q, H, DH), generator=g,
-                    device="cuda").to(pool_k.dtype)
+                    device="cuda").to(getattr(torch, dtype))
     args = (q, pool_k, pool_v, torch.from_numpy(LENGTHS).cuda(),
             torch.from_numpy(q_lens).cuda(), torch.from_numpy(tables).cuda())
     idx = args[5].long()
     span = T_WIDTH * BS
     kd, vd = (x[idx].reshape(B, span, H, DH).transpose(1, 2)
-              for x in (pool_k, pool_v))
+              for x in dense)
     qd = q.transpose(1, 2)
     mask = length_mask(torch, LENGTHS, q_lens, Q, span)
     # bytes the function must move: q of the slots with a length (a
     # length-0 slot outputs zeros unread), o in full, each pool row some
-    # slot's length reaches once, the table entries of those blocks,
-    # lengths and q_lens
+    # slot's length reaches once (with int8 its scales too), the table
+    # entries of those blocks, lengths and q_lens
     es = q.element_size()
     n_tab = int(sum(-(-int(n) // BS) for n in LENGTHS))
     nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
-              + 2 * n_rows * H * DH * es + 4 * n_tab + LENGTHS.nbytes
+              + n_rows * H * row_bytes + 4 * n_tab + LENGTHS.nbytes
               + q_lens.nbytes)
     return measure(
-        torch, "K1 ragged_paged_attention", dtype,
-        lambda: ra.ragged_paged_attention(*args),
-        lambda: ra.ragged_paged_reference(*args),
+        torch, f"K1{'-int8' if int8 else ''} ragged_paged_attention", dtype,
+        lambda: ra.ragged_paged_attention(*args, **sc),
+        lambda: ra.ragged_paged_reference(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-        nbytes, ragged_flops(LENGTHS, q_lens, Q))
+        nbytes, ragged_flops(LENGTHS, q_lens, Q)
+        + (2 * n_rows * H * DH if int8 else 0))
 
 
-def check_k8(torch, F, dtype, seed):
+def check_k8(torch, F, dtype, seed, int8=False):
     """K8 on a contiguous mixed wave with a wide prompt q-block: a
     600-token prompt (Q 1024, its pow2 bucket), a 300-token prompt,
-    decode tokens, a length-0 slot.  Yardstick: SDPA over the slot rows
+    decode tokens, a length-0 slot; with ``int8`` K8-int8 over the f32
+    rows' encoding.  Yardstick: SDPA over the (dequantized) slot rows
     with the equivalent mask."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
-    k, v = slot_rows_case(torch, dtype, seed + 7)
+    k, v = slot_rows_case(torch, "float32" if int8 else dtype, seed + 7)
+    (k, v), sc, sc_plain, dense, row_bytes = kv_operands(torch, k, v,
+                                                         dtype, int8)
     q_lens = np.array([1, 600, 1, 0, 1, 300, 1, 1], np.int32)
     B, Q = len(LENGTHS), 1024
     g = torch.Generator(device="cuda").manual_seed(seed + 8)
-    q = torch.randn((B, Q, H, DH), generator=g, device="cuda").to(k.dtype)
+    q = torch.randn((B, Q, H, DH), generator=g,
+                    device="cuda").to(getattr(torch, dtype))
     args = (q, k, v, torch.from_numpy(LENGTHS).cuda(),
             torch.from_numpy(q_lens).cuda())
-    qd, kd, vd = (x.transpose(1, 2) for x in (q, k, v))
+    qd, kd, vd = (x.transpose(1, 2) for x in (q, *dense))
     mask = length_mask(torch, LENGTHS, q_lens, Q, k.shape[1])
     es = q.element_size()
     nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
-              + 2 * int(LENGTHS.sum()) * H * DH * es + LENGTHS.nbytes
+              + int(LENGTHS.sum()) * H * row_bytes + LENGTHS.nbytes
               + q_lens.nbytes)
     r = measure(
-        torch, "K8 ragged_attention", dtype,
-        lambda: ra.ragged_attention(*args),
-        lambda: ra.ragged_masked_reference(*args),
+        torch, f"K8{'-int8' if int8 else ''} ragged_attention", dtype,
+        lambda: ra.ragged_attention(*args, **sc),
+        lambda: ra.ragged_masked_reference(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-        nbytes, ragged_flops(LENGTHS, q_lens, Q))
+        nbytes, ragged_flops(LENGTHS, q_lens, Q)
+        + (2 * int(LENGTHS.sum()) * H * DH if int8 else 0))
+    if int8:
+        return r
     # the dead-row cost: the same slots with no dead row, each prompt
     # slot launched at Q = its q_len and the decode slots at Q = 1
     waves = []
@@ -318,13 +379,14 @@ def check_k8(torch, F, dtype, seed):
 VERIFY_QLENS = np.array([5, 5, 3, 0, 1, 5, 2, 5], np.int32)
 
 
-def check_decode(torch, F, dtype, seed, paged, verify=False):
+def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
     """The 8 slots of ``LENGTHS`` through the tables of the pool (K5, or
     with ``verify`` K7), else over slot rows (K4, or K6): one query per
     slot, or with ``verify`` a Q-5 verify block of q_lens
-    ``VERIFY_QLENS`` (dead rows included in the comparison).  Yardstick:
-    SDPA with a per-query length mask over the pre-gathered view (the
-    gather excluded) or the slot rows."""
+    ``VERIFY_QLENS`` (dead rows included in the comparison); with
+    ``int8`` the int8 twin over the f32 K/V's encoding, q of ``dtype``.
+    Yardstick: SDPA with a per-query length mask over the pre-gathered
+    (dequantized) view (the gather excluded) or the slot rows."""
     from hetu_tpu_torch.kernels import decode_attention as da
     B = len(LENGTHS)
     q_lens = VERIFY_QLENS if verify else np.ones(B, np.int32)
@@ -338,14 +400,18 @@ def check_decode(torch, F, dtype, seed, paged, verify=False):
     lens = torch.from_numpy(LENGTHS).cuda()
     extra = (torch.from_numpy(q_lens).cuda(),) if verify else ()
     es = q.element_size()
+    kv_dtype = "float32" if int8 else dtype
     if paged:
-        pool_k, pool_v, tables, n_rows = pool_case(torch, dtype, seed + 10)
+        pool_k, pool_v, tables, n_rows = pool_case(torch, kv_dtype,
+                                                   seed + 10)
+        (pool_k, pool_v), sc, sc_plain, dense, row_bytes = kv_operands(
+            torch, pool_k, pool_v, dtype, int8)
         tab = torch.from_numpy(tables).cuda()
         args = (q, pool_k, pool_v, lens) + extra + (tab,)
         kd, vd = (x[tab.long()].reshape(B, T_WIDTH * BS, H, DH)
-                  for x in (pool_k, pool_v))
+                  for x in dense)
         n_tab = int(sum(-(-int(n) // BS) for n in LENGTHS))
-        kv_bytes = 2 * n_rows * H * DH * es + 4 * n_tab
+        kv_bytes = n_rows * H * row_bytes + 4 * n_tab
         label, run, plain = (
             ("K7 paged_block_verify_attention",
              da.paged_block_verify_attention,
@@ -354,9 +420,12 @@ def check_decode(torch, F, dtype, seed, paged, verify=False):
              da.paged_block_decode_attention,
              da.paged_block_decode_reference))
     else:
-        kd, vd = slot_rows_case(torch, dtype, seed + 11)
-        args = (q, kd, vd, lens) + extra
-        kv_bytes = 2 * int(LENGTHS.sum()) * H * DH * es
+        n_rows = int(LENGTHS.sum())
+        k, v = slot_rows_case(torch, kv_dtype, seed + 11)
+        (k, v), sc, sc_plain, (kd, vd), row_bytes = kv_operands(
+            torch, k, v, dtype, int8)
+        args = (q, k, v, lens) + extra
+        kv_bytes = n_rows * H * row_bytes
         label, run, plain = (
             ("K6 paged_verify_attention", da.paged_verify_attention,
              da.masked_verify_reference) if verify else
@@ -371,10 +440,14 @@ def check_decode(torch, F, dtype, seed, paged, verify=False):
     # lengths and the verify block's q_lens
     nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
               + kv_bytes + LENGTHS.nbytes + (q_lens.nbytes if verify else 0))
+    if int8:
+        label = label.replace(" ", "-int8 ", 1)
     return measure(
-        torch, label, dtype, lambda: run(*args), lambda: plain(*args),
+        torch, label, dtype, lambda: run(*args, **sc),
+        lambda: plain(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kt, vt, attn_mask=mask),
-        nbytes, ragged_flops(LENGTHS, q_lens, Q))
+        nbytes, ragged_flops(LENGTHS, q_lens, Q)
+        + (2 * n_rows * H * DH if int8 else 0))
 
 
 def check_k2(torch, F, dtype, seed):
@@ -499,22 +572,25 @@ def want_launches(eng, L):
     phase-split, the flash kernel per layer per flash group, the ragged
     paged kernel per layer per chunk pass, and per layer per wave the
     decode kernel of the layout, or with speculation its verify kernel.
-    A speculative engine's draft adds the contiguous decode kernel per
-    draft layer per draft step (k + 1 a wave) and the flash kernel per
-    draft layer per admission."""
+    With an int8 cache each of those but flash (which attends to the
+    fresh K/V) is the int8 twin, and its float twin launches never.  A
+    speculative engine's draft (never quantized) adds the contiguous
+    decode kernel per draft layer per draft step (k + 1 a wave) and the
+    flash kernel per draft layer per admission."""
     from hetu_tpu_torch.kernels import KERNELS
     want = dict.fromkeys(KERNELS, 0)
+    q = "_int8" if eng.kv_quant else ""
     if eng.ragged:
-        want["ragged_paged_attention" if eng.paged
-             else "ragged_attention"] = L * eng.steps
+        want[("ragged_paged_attention" if eng.paged
+              else "ragged_attention") + q] = L * eng.steps
     else:
         want["flash_attention"] = L * (eng.prefill_dispatches
                                        - eng.prefill_chunks)
-        want["ragged_paged_attention"] = L * eng.prefill_chunks
+        want["ragged_paged_attention" + q] = L * eng.prefill_chunks
         wave = (("paged_block_verify_attention", "paged_verify_attention")
                 if eng.spec_k else
                 ("paged_block_decode_attention", "paged_decode_attention"))
-        want[wave[0] if eng.paged else wave[1]] = L * eng.steps
+        want[(wave[0] if eng.paged else wave[1]) + q] = L * eng.steps
     if eng.spec_k:
         Ld = eng.spec_draft_layers
         want["paged_decode_attention"] += Ld * (eng.spec_k_sum
@@ -554,7 +630,7 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
         fail(f"{config} {dtype}: launches {counts}, want {want} ({L} "
              f"layers, {eng.steps} steps, {eng.prefill_dispatches} "
              f"prefill dispatches, {eng.prefill_chunks} chunk passes, "
-             f"spec {eng.spec_k})")
+             f"spec {eng.spec_k}, kv_quant {eng.kv_quant})")
     if len(res) != len(reqs):
         fail(f"{config} {dtype}: {len(res)} of {len(reqs)} requests done")
     hits = eng.kv.prefix_hits if eng.paged else 0
@@ -573,15 +649,18 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
                  ttft_p99_ms=float(np.percentile(ttft, 99)),
                  prefix_hits=hits,
                  prefill_dispatches=eng.prefill_dispatches,
-                 prefill_chunks=eng.prefill_chunks)
-    tag = ""
+                 prefill_chunks=eng.prefill_chunks,
+                 cache_bytes=eng.kv.cache_bytes,
+                 cache_rows=(eng.kv.n_blocks * eng.kv.block if eng.paged
+                             else eng.kv.n_slots * eng.kv.s_max))
+    tag = " int8 KV;" if eng.kv_quant else ""
     if eng.spec_k:
         stats.update(spec_waves=eng.spec_waves,
                      acceptance=eng.spec_acceptance,
                      mean_k=eng.spec_mean_k,
                      tokens_per_wave=eng.spec_emitted / eng.spec_waves,
                      draft_prefills=eng.spec_draft_prefills)
-        tag = (f" spec {eng.spec_k} (draft {eng.spec_draft_layers} "
+        tag += (f" spec {eng.spec_k} (draft {eng.spec_draft_layers} "
                f"layers): acceptance {eng.spec_acceptance:.4f}, mean k "
                f"{eng.spec_mean_k:.3f}, {stats['tokens_per_wave']:.3f} "
                f"tokens per wave (all slots) over {eng.spec_waves} "
@@ -599,9 +678,9 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 KINDS = (("K1 ragged_paged_attention", re.compile("ragged_kernel.*TableRows")),
          ("K8 ragged_attention", re.compile("ragged_kernel.*SlotRows")),
          ("K4 paged_decode_attention",
-          re.compile(r"decode_kernel<[^,]+, \d+, 1, hetu::SlotRows")),
+          re.compile(r"decode_kernel<[^,]+, [^,]+, \d+, 1, hetu::SlotRows")),
          ("K5 paged_block_decode_attention",
-          re.compile(r"decode_kernel<[^,]+, \d+, 1, hetu::TableRows")),
+          re.compile(r"decode_kernel<[^,]+, [^,]+, \d+, 1, hetu::TableRows")),
          ("K6 paged_verify_attention",
           re.compile("decode_kernel.*SlotRows")),
          ("K7 paged_block_verify_attention",
@@ -614,13 +693,20 @@ KINDS = (("K1 ragged_paged_attention", re.compile("ragged_kernel.*TableRows")),
 
 
 def kind_of(name):
-    return next((k for k, rx in KINDS if rx.search(name)), "other")
+    """The kind of a profiled kernel; an attention kernel over an int8
+    cache (element type int8_t, which demangles as signed char) is its
+    int8 twin, K1-int8 ... K8-int8."""
+    kind = next((k for k, rx in KINDS if rx.search(name)), "other")
+    if re.match(r"K\d ", kind) and ", signed char," in name:
+        kind = kind.replace(" ", "-int8 ", 1)
+    return kind
 
 
 def profile_serve(torch, htt, params, cfg, spec, out_dir):
     """Where each serving configuration's device time goes, without and
-    with speculation (``spec=4``): its engine run again, f32 and bf16,
-    under torch.profiler; device time by kind and by kernel (top 15, and
+    with speculation (``spec=4``) and with an int8 cache (no
+    speculation): its engine run again, f32 and bf16, under
+    torch.profiler; device time by kind and by kernel (top 15, and
     the table in ``out_dir``) and the device's busy share of the run's
     wall time (host tracing overhead inflates the wall, so the busy
     share is a lower bound)."""
@@ -628,14 +714,16 @@ def profile_serve(torch, htt, params, cfg, spec, out_dir):
     from torch.profiler import ProfilerActivity, profile
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for config, spec_k, dtype in itertools.product(
-            CONFIGS, (0, 4), ("float32", "bfloat16")):
-        label = f"{config}{'-spec' if spec_k else ''}"
+    for config, (spec_k, quant), dtype in itertools.product(
+            CONFIGS, ((0, None), (4, None), (0, "int8")),
+            ("float32", "bfloat16")):
+        label = (f"{config}{'-spec' if spec_k else ''}"
+                 f"{'-int8' if quant else ''}")
         t_prof = time.perf_counter()
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         _, _, st = serve(torch, htt, params, cfg, spec, dtype, config,
-                         prof=prof, spec=spec_k)
+                         prof=prof, spec=spec_k, kv_quant=quant)
         # kernel rows only: an operator row repeats its kernels' time
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
@@ -766,6 +854,91 @@ def phase6(torch, htt, params, cfg, spec, runs, res32, prompts, off_f32,
         f"verify waves for {out.shape[0]} x 32 tokens in {sec:.3f} s; "
         f"launches {counts}")
     return spec_runs
+
+
+def margin_gate(torch, params, cfg, want, got, prompt_len, oracle):
+    """The JAX package's int8 criterion (``teacher_forced_logits``): the
+    int8 run's greedy tokens ``got`` equal the f32 run's ``want``, or
+    they first differ at a position whose exact top-2 margin is at most
+    2 delta, delta the largest |fake-quant - exact| logit gap over the
+    f32 sequence.  ``oracle`` caches the two teacher-forced passes per
+    sequence.  Returns None when identical, else (position, margin,
+    delta); fails past the gate."""
+    from hetu_tpu_torch.models.gpt_decode import teacher_forced_logits
+    want, got = list(want), list(got)
+    if want == got:
+        return None
+    t = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    key = tuple(want)
+    if key not in oracle:
+        seq = np.asarray(want[:-1], np.int64)
+        exact = teacher_forced_logits(params, cfg, seq, dtype=torch.float32)
+        fake = teacher_forced_logits(params, cfg, seq, kv_fake_quant=True,
+                                     dtype=torch.float32)
+        oracle[key] = (exact, float((fake - exact).abs().max()))
+    exact, delta = oracle[key]
+    top2 = torch.topk(exact[t - 1], 2).values
+    margin = float(top2[0] - top2[1])
+    if t < prompt_len or margin > 2 * delta:
+        fail(f"int8 greedy tokens first differ from f32 at position {t} "
+             f"(prompt {prompt_len}), exact top-2 margin {margin:.4e} > "
+             f"2 delta = {2 * delta:.4e}")
+    return t, margin, delta
+
+
+def phase7(torch, htt, params, cfg, spec, res32, card):
+    """The int8 KV cache (``kv_quant="int8"``) through all four engine
+    configurations, f32 then bf16: exact launches of the int8 twins (and
+    none of their float twins), the footprint from the shapes, and the
+    margin gate of every f32 greedy request against phase 4; then
+    ``spec=4`` in all four, f32 then bf16, whose f32 tokens (greedy and
+    sampled) equal the non-speculative int8 run's.  Returns
+    ({(config, dtype): (results, launches, stats)} without speculation,
+    the same with)."""
+    L = cfg.num_hidden_layers
+    Dh = cfg.hidden_size // cfg.num_attention_heads
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    runs, spec_runs, oracle = {}, {}, {}
+    for config in CONFIGS:
+        for dt in ("float32", "bfloat16"):
+            runs[config, dt] = serve(torch, htt, params, cfg, spec, dt,
+                                     config, kv_quant="int8")
+        st = runs[config, "float32"][2]
+        want = 2 * L * st["cache_rows"] * cfg.num_attention_heads * (Dh + 4)
+        f32 = 2 * L * st["cache_rows"] * cfg.num_attention_heads * Dh * 4
+        if st["cache_bytes"] != want:
+            fail(f"int8 {config}: cache_bytes {st['cache_bytes']}, the "
+                 f"shapes give {want}")
+        res = runs[config, "float32"][0]
+        gates = [margin_gate(torch, params, cfg, res32[f"r{i}"].tokens,
+                             res[f"r{i}"].tokens, len(spec[i][0]), oracle)
+                 for i in greedy]
+        same = sum(g is None for g in gates)
+        log(f"  int8 {config}: KV {st['cache_bytes']} B = "
+            f"{st['cache_bytes'] / f32:.4f} of f32's {f32} B; f32 greedy "
+            f"tokens identical to phase 4's for {same} of {len(greedy)} "
+            f"requests, the rest first differ within the margin gate "
+            f"(position, exact top-2 margin, delta): "
+            f"{[g for g in gates if g is not None]}")
+    for config in CONFIGS:
+        for dt in ("float32", "bfloat16"):
+            spec_runs[config, dt] = serve(torch, htt, params, cfg, spec, dt,
+                                          config, kv_quant="int8", spec=4)
+        res = spec_runs[config, "float32"][0]
+        plain = runs[config, "float32"][0]
+        bad = [i for i in range(len(spec))
+               if list(res[f"r{i}"].tokens) != list(plain[f"r{i}"].tokens)]
+        if bad:
+            fail(f"int8 spec {config} f32 tokens differ from the "
+                 f"non-speculative int8 run for requests {bad}")
+        log(f"  int8 spec {config} f32: all {len(spec)} requests' tokens "
+            f"(greedy and sampled) == the non-speculative int8 run's")
+    for tag, rs in (("", runs), (" spec 4", spec_runs)):
+        for (config, dt), (_, _, st) in rs.items():
+            log(f"  int8 serving on {card}: {config}{tag} {dt} "
+                f"{st['tokens_per_s']:.1f} tok/s, TTFT p50 "
+                f"{st['ttft_p50_ms']:.1f} p99 {st['ttft_p99_ms']:.1f} ms")
+    return runs, spec_runs
 
 
 def request_set(prompts, seed, V):
@@ -899,10 +1072,29 @@ def main(argv=None):
     spec_runs = phase6(torch, htt, params, cfg, spec, runs, res32, prompts,
                        off_f32, card, args.seed)
 
+    # ---- phase 7 ---- #
+    log("phase 7: int8 KV cache: the int8 twins vs their plain versions "
+        "(phase 2's K/V encoded on the card), then the engines")
+    checks8 = {
+        "K1-int8": lambda dt: check_k1(torch, F, dt, args.seed, int8=True),
+        "K4-int8": lambda dt: check_decode(torch, F, dt, args.seed, False,
+                                           int8=True),
+        "K5-int8": lambda dt: check_decode(torch, F, dt, args.seed, True,
+                                           int8=True),
+        "K6-int8": lambda dt: check_decode(torch, F, dt, args.seed, False,
+                                           verify=True, int8=True),
+        "K7-int8": lambda dt: check_decode(torch, F, dt, args.seed, True,
+                                           verify=True, int8=True),
+        "K8-int8": lambda dt: check_k8(torch, F, dt, args.seed, int8=True)}
+    kres.update({k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
+                 for k, fn in checks8.items()})
+    runs8, spec_runs8 = phase7(torch, htt, params, cfg, spec, res32, card)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
-    # engine of their layout, phase-split
+    # engine of their layout, phase-split; each int8 twin the phase-7
+    # engine of its float twin's path
     src = "hetu_tpu_torch/kernels/csrc/"
     table = (
         ("K1", "ragged_paged_attention", "ragged_paged.cu",
@@ -919,12 +1111,34 @@ def main(argv=None):
         ("K7", "paged_block_verify_attention", "decode_attention.cu",
          "hetu_tpu/kernels/decode_attention.py:572", "spec paged-split"),
         ("K8", "ragged_attention", "ragged_paged.cu",
-         "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"))
+         "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"),
+        ("K1-int8", "ragged_paged_attention_int8", "ragged_paged_int8.cu",
+         "hetu_tpu/kernels/ragged_attention.py:96", "int8 paged-mixed"),
+        ("K4-int8", "paged_decode_attention_int8", "decode_attention_int8.cu",
+         "hetu_tpu/kernels/decode_attention.py:120",
+         "int8 contiguous-split"),
+        ("K5-int8", "paged_block_decode_attention_int8",
+         "decode_attention_int8.cu",
+         "hetu_tpu/kernels/decode_attention.py:247", "int8 paged-split"),
+        ("K6-int8", "paged_verify_attention_int8", "decode_attention_int8.cu",
+         "hetu_tpu/kernels/decode_attention.py:448",
+         "int8 spec contiguous-split"),
+        ("K7-int8", "paged_block_verify_attention_int8",
+         "decode_attention_int8.cu",
+         "hetu_tpu/kernels/decode_attention.py:562",
+         "int8 spec paged-split"),
+        ("K8-int8", "ragged_attention_int8", "ragged_paged_int8.cu",
+         "hetu_tpu/kernels/ragged_attention.py:96",
+         "int8 contiguous-mixed"))
     kernels = []
     for k, name, file, replaces, config in table:
         for dt in ("float32", "bfloat16"):
             if config is None:
                 counts = c_off32 if dt == "float32" else c_off16
+            elif config.startswith("int8 spec "):
+                counts = spec_runs8[config[10:], dt][1]
+            elif config.startswith("int8 "):
+                counts = runs8[config[5:], dt][1]
             elif config.startswith("spec "):
                 counts = spec_runs[config[5:], dt][1]
             else:

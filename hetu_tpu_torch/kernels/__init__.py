@@ -20,15 +20,23 @@ tensor (see ``_build``).
   verify q-block per slot over the same two layouts (the same source),
   the phase-split verify waves and speculative ``generate_fast``.
 
+Each of the six ragged, decode and verify wrappers also takes an int8
+cache with its scale planes (``quant.kv_encode``) and then launches its
+int8 twin (csrc/ragged_paged_int8.cu, csrc/decode_attention_int8.cu),
+counted under the wrapper's name plus ``_int8``.
+
 ``launch_counts()`` reads how often each kernel was launched since
 ``reset_launches()``.
 """
 
 from ._build import LAUNCHES, reset_launches  # noqa: F401
 
-KERNELS = ("flash_attention", "ragged_paged_attention", "ragged_attention",
-           "paged_decode_attention", "paged_block_decode_attention",
-           "paged_verify_attention", "paged_block_verify_attention")
+# the wrappers that take an int8 cache, whose twins count as name_int8
+QUANT_KERNELS = ("ragged_paged_attention", "ragged_attention",
+                 "paged_decode_attention", "paged_block_decode_attention",
+                 "paged_verify_attention", "paged_block_verify_attention")
+KERNELS = ("flash_attention",) + QUANT_KERNELS \
+    + tuple(f"{n}_int8" for n in QUANT_KERNELS)
 
 
 def launch_counts():

@@ -1,5 +1,6 @@
-// Shared device code of the port's attention kernels (flash_fwd.cu,
-// ragged_paged.cu, decode_attention.cu).  The flash and ragged kernels
+// Shared device code of the port's attention kernels (flash_fwd.cu and
+// the bodies ragged_body.cuh and decode_body.cuh, whose f32/bf16 and
+// int8 instances build as separate libraries).  The flash and ragged kernels
 // give one thread block a tile of 32 query rows of one (sequence, head);
 // the decode kernels give one block one (slot, head) and its 32 rows the
 // slot's positions to share.  Eight consecutive lanes share a row, each
@@ -12,6 +13,9 @@
 // end of the q tile compute on a clamped row and skip the store), so the
 // row-group shuffles and __syncthreads() always see converged lanes.
 #pragma once
+
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,20 +177,81 @@ struct TableRows {
   }
 };
 
+// One layer's K/V as the kernels read them, by element type: a float
+// cache [rows, H, Dh] of f32 or bf16, or an int8 cache, whose payload
+// [rows, H, Dh] comes with one f32 scale per (row, head) in [rows, H].
+template <typename KV> struct KVPlanes {
+  const KV* __restrict__ k;
+  const KV* __restrict__ v;
+};
+template <> struct KVPlanes<int8_t> {
+  const int8_t* __restrict__ k;
+  const float* __restrict__ k_scale;
+  const int8_t* __restrict__ v;
+  const float* __restrict__ v_scale;
+};
+
+// The caches of one call from its C entry's pointers: f32/bf16 caches of
+// q's type T (the scale pointers unused), or with kQuant int8 payloads
+// and their f32 scale planes.
+template <bool kQuant, typename T>
+using KVOf = std::conditional_t<kQuant, int8_t, T>;
+
+template <bool kQuant, typename T>
+KVPlanes<KVOf<kQuant, T>> planes(const void* k, const void* k_scale,
+                                 const void* v, const void* v_scale) {
+  if constexpr (kQuant)
+    return {static_cast<const int8_t*>(k),
+            static_cast<const float*>(k_scale),
+            static_cast<const int8_t*>(v),
+            static_cast<const float*>(v_scale)};
+  else
+    return {static_cast<const T*>(k), static_cast<const T*>(v)};
+}
+
 // Stage K/V positions [t0, t0+n) of (slot b, head h) into the shared
 // tiles as f32, all threads of the block together.
-template <typename T, int DH, typename Rows>
+template <typename KV, int DH, typename Rows>
 __device__ __forceinline__ void stage_kv(float (*ks)[DH], float (*vs)[DH],
-                                         const T* __restrict__ k,
-                                         const T* __restrict__ v,
+                                         const KVPlanes<KV>& kv,
                                          const Rows& rows, int b, int h,
                                          int H, int t0, int n) {
   for (int idx = threadIdx.x; idx < n * DH; idx += blockDim.x) {
     const int s = idx / DH;
     const int d = idx % DH;
     const size_t g = (rows(b, t0 + s) * H + h) * DH + d;
-    ks[s][d] = to_f32(k[g]);
-    vs[s][d] = to_f32(v[g]);
+    ks[s][d] = to_f32(kv.k[g]);
+    vs[s][d] = to_f32(kv.v[g]);
+  }
+}
+
+// The int8 cache: dequantize while staging (the Pallas int8 kernels'
+// "dequantize inside the online-softmax loop"), so the tiles hold
+// float(payload) * scale, the plain version's f32 product, and no f32
+// copy of the cache is ever written to device memory.  A thread takes
+// four payload bytes of one row with one 4-byte load and writes them as
+// one float4; the row's scale is one address for the 16 threads (at Dh
+// 64) that share the row, a single broadcast load per warp.
+template <int DH, typename Rows>
+__device__ __forceinline__ void stage_kv(float (*ks)[DH], float (*vs)[DH],
+                                         const KVPlanes<int8_t>& kv,
+                                         const Rows& rows, int b, int h,
+                                         int H, int t0, int n) {
+  constexpr int kWords = DH / 4;   // 4-byte words per payload row
+  for (int idx = threadIdx.x; idx < n * kWords; idx += blockDim.x) {
+    const int s = idx / kWords;
+    const int d = (idx % kWords) * 4;
+    const size_t g = rows(b, t0 + s) * H + h;   // the (position, head) row
+    const char4 kq = *reinterpret_cast<const char4*>(kv.k + g * DH + d);
+    const char4 vq = *reinterpret_cast<const char4*>(kv.v + g * DH + d);
+    const float sk = kv.k_scale[g];
+    const float sv = kv.v_scale[g];
+    *reinterpret_cast<float4*>(&ks[s][d]) =
+        make_float4(float(kq.x) * sk, float(kq.y) * sk, float(kq.z) * sk,
+                    float(kq.w) * sk);
+    *reinterpret_cast<float4*>(&vs[s][d]) =
+        make_float4(float(vq.x) * sv, float(vq.y) * sv, float(vq.z) * sv,
+                    float(vq.w) * sv);
   }
 }
 

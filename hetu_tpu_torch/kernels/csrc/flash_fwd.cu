@@ -62,7 +62,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t0 = 0; t0 < kv_end; t0 += KT) {
     const int n = min(KT, kv_end - t0);
     __syncthreads();   // the previous tile is fully consumed
-    stage_kv(ks, vs, k, v, SlotRows{Sk}, b, h, H, t0, n);
+    stage_kv(ks, vs, KVPlanes<T>{k, v}, SlotRows{Sk}, b, h, H, t0, n);
     __syncthreads();
     st.attend(ks, vs, t0, n, row_lim, lane, scale);
   }

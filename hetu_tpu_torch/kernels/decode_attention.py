@@ -16,76 +16,89 @@ output is defined and discarded by the caller).  A slot with length 0
 returns zeros; the output has q's dtype.  All four launch one templated
 body in ``csrc/decode_attention.cu`` on CUDA tensors and run their plain
 versions, the ragged references (the ``q_len = 1`` case for decode), on
-CPU tensors; nothing falls back from one to the other.  The int8 twins
-(``k_scale``/``v_scale``) are ROADMAP's int8 slice.
+CPU tensors; nothing falls back from one to the other.  An int8 cache
+(``quant.kv_encode``'s payload) passes ``k_scale``/``v_scale``, one f32
+scale per (position, head), and launches the int8 twin of its kernel
+(``csrc/decode_attention_int8.cu``, K4-int8 to K7-int8), which
+dequantizes each tile as it stages it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ragged_attention import (_check_args, _launch, _refuse_int8,
+from .ragged_attention import (_check_args, _kv, _launch,
                                ragged_masked_reference,
                                ragged_paged_reference)
 
 
-def masked_decode_reference(q, k, v, lengths):
+def masked_decode_reference(q, k, v, lengths, k_scale=None, v_scale=None):
     """Plain version of :func:`paged_decode_attention`: q [B, H, Dh] over
-    the slot rows k, v [B, S_max, H, Dh].  Returns f32."""
+    the slot rows k, v [B, S_max, H, Dh] (int8 with their [B, S_max, H]
+    scales, dequantized first).  Returns f32."""
     ones = torch.ones_like(lengths)
-    return ragged_masked_reference(q[:, None], k, v, lengths, ones)[:, 0]
+    return ragged_masked_reference(q[:, None], k, v, lengths, ones, k_scale,
+                                   v_scale)[:, 0]
 
 
-def paged_block_decode_reference(q, pool_k, pool_v, lengths, block_tables):
+def paged_block_decode_reference(q, pool_k, pool_v, lengths, block_tables,
+                                 k_scale=None, v_scale=None):
     """Plain version of :func:`paged_block_decode_attention`: q [B, H, Dh]
     over the pool through the block tables.  Returns f32."""
     ones = torch.ones_like(lengths)
     return ragged_paged_reference(q[:, None], pool_k, pool_v, lengths, ones,
-                                  block_tables)[:, 0]
+                                  block_tables, k_scale, v_scale)[:, 0]
 
 
-def masked_verify_reference(q, k, v, lengths, q_lens):
+def masked_verify_reference(q, k, v, lengths, q_lens, k_scale=None,
+                            v_scale=None):
     """Plain version of :func:`paged_verify_attention`: q [B, Q, H, Dh]
     over the slot rows k, v [B, S_max, H, Dh] (a verify wave is a ragged
     wave).  Returns f32."""
-    return ragged_masked_reference(q, k, v, lengths, q_lens)
+    return ragged_masked_reference(q, k, v, lengths, q_lens, k_scale,
+                                   v_scale)
 
 
 def paged_block_verify_reference(q, pool_k, pool_v, lengths, q_lens,
-                                 block_tables):
+                                 block_tables, k_scale=None, v_scale=None):
     """Plain version of :func:`paged_block_verify_attention`: q [B, Q, H,
     Dh] over the pool through the block tables.  Returns f32."""
     return ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
-                                  block_tables)
+                                  block_tables, k_scale, v_scale)
 
 
-def _check(kind, q, k, v, lengths, index):
-    """q [B, H, Dh]; the rest as the ragged kernels check it, at Q = 1."""
+def _check(kind, q, k, v, lengths, index, k_scale, v_scale):
+    """q [B, H, Dh]; the rest as the ragged kernels check it, at Q = 1.
+    Returns True for an int8 cache."""
     if q.dim() != 3:
         raise ValueError(f"{kind}: q must be [B, H, Dh], got "
                          f"{tuple(q.shape)}")
-    _check_args(kind, q[:, None], k, v, lengths, lengths, index)
+    return _check_args(kind, q[:, None], k, v, lengths, lengths, index,
+                       k_scale, v_scale)
 
 
 def paged_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None):
     """One decode position per slot over the slot-contiguous cache.
 
-    q: [B, H, Dh]; k, v: [B, S_max, H, Dh] (one layer's cache rows);
+    q: [B, H, Dh]; k, v: [B, S_max, H, Dh] (one layer's cache rows), int8
+    with ``k_scale``/``v_scale`` [B, S_max, H] f32 for an int8 cache;
     lengths: [B] int32, the slot's filled count including the position
     just written.  Returns o [B, H, Dh] in q's dtype.  CUDA tensors
-    launch the kernel (f32 or bf16, head dim 32/64/128, contiguous,
-    int32 lengths); CPU tensors run :func:`masked_decode_reference`."""
-    _refuse_int8(k_scale, v_scale)
-    _check("paged_decode_attention", q, k, v, lengths,
-           {"lengths": lengths})
+    launch the kernel (f32 or bf16 q; caches of q's dtype, or int8 with
+    their scales; head dim 32/64/128, contiguous, int32 lengths); CPU
+    tensors run :func:`masked_decode_reference`."""
+    quant = _check("paged_decode_attention", q, k, v, lengths,
+                   {"lengths": lengths}, k_scale, v_scale)
     if k.shape[0] != q.shape[0]:
         raise ValueError("paged_decode_attention: k/v must hold one row "
                          "per slot of q")
     if q.device.type == "cpu":
-        return masked_decode_reference(q, k, v, lengths).to(q.dtype)
+        return masked_decode_reference(q, k, v, lengths, k_scale,
+                                       v_scale).to(q.dtype)
     B, H, Dh = q.shape
     return _launch("decode_attention", "hetu_paged_decode_attention",
-                   "paged_decode_attention", q, (k, v, lengths),
+                   "paged_decode_attention", q,
+                   _kv(k, v, k_scale, v_scale, quant), (lengths,),
                    (B, H, Dh, k.shape[1]))
 
 
@@ -93,26 +106,30 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
                                  *, k_scale=None, v_scale=None):
     """One decode position per slot over the block-table pool.
 
-    q: [B, H, Dh]; pool_k, pool_v: [N_blocks, bs, H, Dh] (one layer);
-    lengths: [B] int32 filled counts (0 = inert slot, zeros out);
+    q: [B, H, Dh]; pool_k, pool_v: [N_blocks, bs, H, Dh] (one layer),
+    int8 with ``k_scale``/``v_scale`` [N_blocks, bs, H] f32 for an int8
+    pool; lengths: [B] int32 filled counts (0 = inert slot, zeros out);
     block_tables: [B, T] int32, entry (b, j) the pool block of slot b's
     positions [j*bs, (j+1)*bs); entries past a slot's length may hold any
     valid block (the engine points them at scratch block 0).  Returns o
     [B, H, Dh] in q's dtype.  CUDA tensors launch the kernel; CPU tensors
     run :func:`paged_block_decode_reference`."""
-    _refuse_int8(k_scale, v_scale)
-    _check("paged_block_decode_attention", q, pool_k, pool_v, lengths,
-           {"lengths": lengths, "block_tables": block_tables})
+    quant = _check("paged_block_decode_attention", q, pool_k, pool_v,
+                   lengths, {"lengths": lengths,
+                             "block_tables": block_tables},
+                   k_scale, v_scale)
     if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
         raise ValueError("paged_block_decode_attention: block_tables must "
                          "be [B, T]")
     if q.device.type == "cpu":
         return paged_block_decode_reference(q, pool_k, pool_v, lengths,
-                                            block_tables).to(q.dtype)
+                                            block_tables, k_scale,
+                                            v_scale).to(q.dtype)
     B, H, Dh = q.shape
     return _launch("decode_attention", "hetu_paged_block_decode_attention",
                    "paged_block_decode_attention", q,
-                   (pool_k, pool_v, lengths, block_tables),
+                   _kv(pool_k, pool_v, k_scale, v_scale, quant),
+                   (lengths, block_tables),
                    (B, H, Dh, pool_k.shape[1], block_tables.shape[1]))
 
 
@@ -120,12 +137,15 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
 _MAX_Q = 16
 
 
-def _check_verify(kind, q, k, v, lengths, q_lens, index):
-    _check_args(kind, q, k, v, lengths, q_lens, index)
+def _check_verify(kind, q, k, v, lengths, q_lens, index, k_scale,
+                  v_scale):
+    quant = _check_args(kind, q, k, v, lengths, q_lens, index, k_scale,
+                        v_scale)
     if q.device.type == "cuda" and q.shape[1] > _MAX_Q:
         raise ValueError(f"{kind} kernel takes q-blocks of at most "
                          f"{_MAX_Q} rows (spec <= {_MAX_Q - 1}), got "
                          f"{q.shape[1]}")
+    return quant
 
 
 def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
@@ -134,22 +154,25 @@ def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
 
     q: [B, Q, H, Dh], the carried token and the draft's proposals, whose
     K/V the caller has written; k, v: [B, S_max, H, Dh] (one layer's
-    cache rows); lengths: [B] int32, the filled count INCLUDING the
+    cache rows), int8 with ``k_scale``/``v_scale`` [B, S_max, H] f32 for
+    an int8 cache; lengths: [B] int32, the filled count INCLUDING the
     q-block's live positions (0 = inert slot, zeros out); q_lens: [B]
     int32 live queries per slot.  Returns o [B, Q, H, Dh] in q's dtype.
     CUDA tensors launch the kernel (the decode kernel's terms, and Q <=
     16); CPU tensors run :func:`masked_verify_reference`."""
-    _refuse_int8(k_scale, v_scale)
-    _check_verify("paged_verify_attention", q, k, v, lengths, q_lens,
-                  {"lengths": lengths, "q_lens": q_lens})
+    quant = _check_verify("paged_verify_attention", q, k, v, lengths,
+                          q_lens, {"lengths": lengths, "q_lens": q_lens},
+                          k_scale, v_scale)
     if k.shape[0] != q.shape[0]:
         raise ValueError("paged_verify_attention: k/v must hold one row "
                          "per slot of q")
     if q.device.type == "cpu":
-        return masked_verify_reference(q, k, v, lengths, q_lens).to(q.dtype)
+        return masked_verify_reference(q, k, v, lengths, q_lens, k_scale,
+                                       v_scale).to(q.dtype)
     B, Q, H, Dh = q.shape
     return _launch("decode_attention", "hetu_paged_verify_attention",
-                   "paged_verify_attention", q, (k, v, lengths, q_lens),
+                   "paged_verify_attention", q,
+                   _kv(k, v, k_scale, v_scale, quant), (lengths, q_lens),
                    (B, Q, H, Dh, k.shape[1]))
 
 
@@ -158,23 +181,27 @@ def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
                                  v_scale=None):
     """One verify q-block per slot over the block-table pool.
 
-    q: [B, Q, H, Dh]; pool_k, pool_v: [N_blocks, bs, H, Dh] (one layer);
-    lengths / q_lens: [B] int32 as in :func:`paged_verify_attention`;
-    block_tables: [B, T] int32 as in :func:`paged_block_decode_attention`.
-    Returns o [B, Q, H, Dh] in q's dtype.  CUDA tensors launch the kernel;
-    CPU tensors run :func:`paged_block_verify_reference`."""
-    _refuse_int8(k_scale, v_scale)
-    _check_verify("paged_block_verify_attention", q, pool_k, pool_v,
-                  lengths, q_lens, {"lengths": lengths, "q_lens": q_lens,
-                                    "block_tables": block_tables})
+    q: [B, Q, H, Dh]; pool_k, pool_v: [N_blocks, bs, H, Dh] (one layer),
+    int8 with ``k_scale``/``v_scale`` [N_blocks, bs, H] f32 for an int8
+    pool; lengths / q_lens: [B] int32 as in
+    :func:`paged_verify_attention`; block_tables: [B, T] int32 as in
+    :func:`paged_block_decode_attention`.  Returns o [B, Q, H, Dh] in q's
+    dtype.  CUDA tensors launch the kernel; CPU tensors run
+    :func:`paged_block_verify_reference`."""
+    quant = _check_verify("paged_block_verify_attention", q, pool_k,
+                          pool_v, lengths, q_lens,
+                          {"lengths": lengths, "q_lens": q_lens,
+                           "block_tables": block_tables}, k_scale, v_scale)
     if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
         raise ValueError("paged_block_verify_attention: block_tables must "
                          "be [B, T]")
     if q.device.type == "cpu":
         return paged_block_verify_reference(q, pool_k, pool_v, lengths,
-                                            q_lens, block_tables).to(q.dtype)
+                                            q_lens, block_tables, k_scale,
+                                            v_scale).to(q.dtype)
     B, Q, H, Dh = q.shape
     return _launch("decode_attention", "hetu_paged_block_verify_attention",
                    "paged_block_verify_attention", q,
-                   (pool_k, pool_v, lengths, q_lens, block_tables),
+                   _kv(pool_k, pool_v, k_scale, v_scale, quant),
+                   (lengths, q_lens, block_tables),
                    (B, Q, H, Dh, pool_k.shape[1], block_tables.shape[1]))

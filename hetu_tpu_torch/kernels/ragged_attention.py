@@ -12,11 +12,13 @@ caller); a slot with length 0 returns zeros; the output has q's dtype.
 The q-block's own K/V are read back from the cache, so the caller writes
 them before it attends.
 
-Both launch ``csrc/ragged_paged.cu`` on CUDA tensors and run their plain
-versions, :func:`ragged_paged_reference` and
-:func:`ragged_masked_reference`, on CPU tensors; nothing falls back from
-one to the other.  The int8 twins (``k_scale``/``v_scale``) are
-ROADMAP's int8 slice.
+The cache is f32/bf16 of q's dtype, or int8 (``quant.kv_encode``'s
+payload) with ``k_scale``/``v_scale``, one f32 scale per (position,
+head), which the int8 twins (K1-int8, K8-int8) dequantize as they stage
+each tile.  Both launch ``csrc/ragged_paged.cu`` (``ragged_paged_int8.cu``
+for an int8 cache) on CUDA tensors and run their plain versions,
+:func:`ragged_paged_reference` and :func:`ragged_masked_reference`, on
+CPU tensors; nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -32,12 +34,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
 
-def ragged_masked_reference(q, k, v, lengths, q_lens=None):
+def ragged_masked_reference(q, k, v, lengths, q_lens=None, k_scale=None,
+                            v_scale=None):
     """The masked-gather oracle over a slot-contiguous [B, S, H, Dh]
     view, in f32: query ``jq`` of slot b admits kv positions up to
     ``clip(lengths[b] - q_lens[b] + jq, 0, lengths[b] - 1)``; a slot
     with length 0 returns zeros.  ``q_lens=None`` means every row is
-    live.  Returns f32."""
+    live.  An int8 view passes its [B, S, H] scale planes and is
+    dequantized first.  Returns f32."""
+    if k_scale is not None:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
     B, Q = q.shape[:2]
     dev = q.device
     lengths = lengths.to(dev).long()
@@ -60,30 +67,60 @@ def ragged_masked_reference(q, k, v, lengths, q_lens=None):
 
 
 def ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
-                           block_tables):
+                           block_tables, k_scale=None, v_scale=None):
     """Gather-then-mask oracle for the block-table kernel: materialize
-    each slot's logical [T*bs] KV view from the pool and delegate to
+    each slot's logical [T*bs] KV view from the pool (and an int8 pool's
+    scale planes through the same tables) and delegate to
     :func:`ragged_masked_reference`.  Returns f32."""
     B = q.shape[0]
     bs = pool_k.shape[1]
     T = block_tables.shape[1]
     idx = block_tables.to(q.device).long()
-    k = pool_k[idx].reshape(B, T * bs, *pool_k.shape[2:])
-    v = pool_v[idx].reshape(B, T * bs, *pool_v.shape[2:])
-    return ragged_masked_reference(q, k, v, lengths, q_lens)
+
+    def view(pool):
+        return pool[idx].reshape(B, T * bs, *pool.shape[2:])
+    ks = vs = None
+    if k_scale is not None:
+        ks, vs = view(k_scale), view(v_scale)
+    return ragged_masked_reference(q, view(pool_k), view(pool_v), lengths,
+                                   q_lens, ks, vs)
 
 
-def _refuse_int8(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV attention (k_scale/v_scale) is not ported yet "
-            "(ROADMAP, the int8 slice)")
+def _check_scales(kind, q, k, v, k_scale, v_scale):
+    """An int8 cache comes with both scale planes, a float cache with
+    neither: int8 payloads, f32 scales of the payload's shape less its
+    Dh axis, on q's device.  Returns True for an int8 cache."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{kind}: pass both k_scale and v_scale, or "
+                         f"neither")
+    if k_scale is None:
+        if k.dtype == torch.int8 or v.dtype == torch.int8:
+            raise ValueError(f"{kind}: an int8 cache needs k_scale and "
+                             f"v_scale")
+        return False
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError(f"{kind}: k_scale/v_scale come with an int8 "
+                         f"cache, got {k.dtype}/{v.dtype}")
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.dtype != torch.float32:
+            raise ValueError(f"{kind}: {name} must be float32, got "
+                             f"{s.dtype}")
+        if s.shape != k.shape[:-1]:
+            raise ValueError(f"{kind}: {name} {tuple(s.shape)} must be "
+                             f"the cache's shape less Dh, "
+                             f"{tuple(k.shape[:-1])}")
+        if s.device != q.device:
+            raise ValueError(f"{kind}: {name} is on {s.device}, q on "
+                             f"{q.device}")
+    return True
 
 
-def _check_args(kind, q, k, v, lengths, q_lens, index):
-    """q [B, Q, H, Dh], k/v [*, *, H, Dh]; on CUDA also the kernel's
-    dtypes, head dims, contiguity and int32 indices.  ``index`` names the
-    int32 index tensors."""
+def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
+                v_scale=None):
+    """q [B, Q, H, Dh], k/v [*, *, H, Dh] (and the scale planes of an int8
+    cache, :func:`_check_scales`); on CUDA also the kernel's dtypes, head
+    dims, contiguity and int32 indices.  ``index`` names the int32 index
+    tensors.  Returns True for an int8 cache."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{kind}: q must be [B, Q, H, Dh] and k/v "
                          f"[*, *, H, Dh]; got {tuple(q.shape)}, "
@@ -98,29 +135,44 @@ def _check_args(kind, q, k, v, lengths, q_lens, index):
         if t.device != q.device:
             raise ValueError(f"{kind}: {name} is on {t.device}, q on "
                              f"{q.device}")
+    quant = _check_scales(kind, q, k, v, k_scale, v_scale)
     if q.device.type == "cpu":
-        return
+        return quant
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or (not quant and (k.dtype != q.dtype
+                                                 or v.dtype != q.dtype)):
         raise ValueError(f"{kind} kernel takes float32/bfloat16 q and "
-                         f"caches of one dtype, got {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}")
+                         f"caches of one dtype, q's (or int8 with scales), "
+                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if Dh not in _HEAD_DIMS:
         raise ValueError(f"{kind} kernel takes head dim in {_HEAD_DIMS}, "
                          f"got {Dh}")
-    for name, t in [("q", q), ("k", k), ("v", v)] + list(index.items()):
+    dense = [("q", q), ("k", k), ("v", v)] + list(index.items())
+    if quant:
+        dense += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in dense:
         if not t.is_contiguous():
             raise ValueError(f"{kind} kernel takes a contiguous {name}")
+    if quant and (k.data_ptr() % 4 or v.data_ptr() % 4):
+        raise ValueError(f"{kind} kernel reads int8 payloads in 4-byte "
+                         f"words: k/v must be 4-byte aligned")
     for name, t in index.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
+    return quant
 
 
-def _launch(source, entry, name, q, args, ints):
+def _launch(source, entry, name, q, kv, rest, ints):
     """Launch C entry ``entry`` of kernel library ``source`` as
-    ``entry(q, *args, out, *ints, dtype, stream)`` into a fresh output
-    like q, and count it under ``name``."""
+    ``entry(q, *kv, *rest, out, *ints, dtype, stream)`` into a fresh
+    output like q, and count it under ``name``.  ``kv`` is (k, v), or
+    (k, k_scale, v, v_scale) for an int8 cache, which launches the int8
+    twin: ``source``, ``entry`` and ``name`` with ``_int8`` appended."""
+    if len(kv) == 4:
+        source, entry, name = (f"{source}_int8", f"{entry}_int8",
+                               f"{name}_int8")
+    args = (*kv, *rest)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -137,6 +189,11 @@ def _launch(source, entry, name, q, args, ints):
     return out
 
 
+def _kv(k, v, k_scale, v_scale, quant):
+    """The cache operands of a launch (see :func:`_launch`)."""
+    return (k, k_scale, v, v_scale) if quant else (k, v)
+
+
 def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
                            block_tables, *, k_scale=None, v_scale=None):
     """One mixed wave over one layer of the paged pool.
@@ -146,24 +203,27 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
     per slot); block_tables: [B, T] int32 — entry (b, j) is the pool
     block holding slot b's positions [j*bs, (j+1)*bs); entries past a
     slot's length may hold any valid block (the engine points them at
-    scratch block 0).  Returns o [B, Q, H, Dh] in q's dtype.  CUDA
-    tensors launch the kernel (f32 or bf16 with q and the pools of one
-    dtype, head dim 32/64/128, all contiguous, int32 indices); CPU
-    tensors run :func:`ragged_paged_reference`."""
-    _refuse_int8(k_scale, v_scale)
-    _check_args("ragged_paged_attention", q, pool_k, pool_v, lengths,
-                q_lens, {"lengths": lengths, "q_lens": q_lens,
-                         "block_tables": block_tables})
+    scratch block 0).  An int8 pool passes ``k_scale``/``v_scale``
+    [N_blocks, bs, H] f32.  Returns o [B, Q, H, Dh] in q's dtype.  CUDA
+    tensors launch the kernel (f32 or bf16 q; pools of q's dtype, or
+    int8 with their scales; head dim 32/64/128, all contiguous, int32
+    indices); CPU tensors run :func:`ragged_paged_reference`."""
+    quant = _check_args("ragged_paged_attention", q, pool_k, pool_v,
+                        lengths, q_lens,
+                        {"lengths": lengths, "q_lens": q_lens,
+                         "block_tables": block_tables}, k_scale, v_scale)
     if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
         raise ValueError("ragged_paged_attention: block_tables must be "
                          "[B, T]")
     if q.device.type == "cpu":
         return ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
-                                      block_tables).to(q.dtype)
+                                      block_tables, k_scale,
+                                      v_scale).to(q.dtype)
     B, Q, H, Dh = q.shape
     return _launch("ragged_paged", "hetu_ragged_paged_attention",
                    "ragged_paged_attention", q,
-                   (pool_k, pool_v, lengths, q_lens, block_tables),
+                   _kv(pool_k, pool_v, k_scale, v_scale, quant),
+                   (lengths, q_lens, block_tables),
                    (B, Q, H, Dh, pool_k.shape[1], block_tables.shape[1]))
 
 
@@ -171,21 +231,22 @@ def ragged_attention(q, k, v, lengths, q_lens, *, k_scale=None,
                      v_scale=None):
     """One mixed wave over one layer of the slot-contiguous cache.
 
-    q: [B, Q, H, Dh]; k, v: [B, S_max, H, Dh] (one row per slot);
+    q: [B, Q, H, Dh]; k, v: [B, S_max, H, Dh] (one row per slot), int8
+    with ``k_scale``/``v_scale`` [B, S_max, H] f32 for an int8 cache;
     lengths / q_lens: [B] int32 as in :func:`ragged_paged_attention`.
     Returns o [B, Q, H, Dh] in q's dtype.  CUDA tensors launch the kernel
     (same terms as the paged one); CPU tensors run
     :func:`ragged_masked_reference`."""
-    _refuse_int8(k_scale, v_scale)
-    _check_args("ragged_attention", q, k, v, lengths, q_lens,
-                {"lengths": lengths, "q_lens": q_lens})
+    quant = _check_args("ragged_attention", q, k, v, lengths, q_lens,
+                        {"lengths": lengths, "q_lens": q_lens}, k_scale,
+                        v_scale)
     if k.shape[0] != q.shape[0]:
         raise ValueError("ragged_attention: k/v must hold one row per "
                          "slot of q")
     if q.device.type == "cpu":
-        return ragged_masked_reference(q, k, v, lengths,
-                                       q_lens).to(q.dtype)
+        return ragged_masked_reference(q, k, v, lengths, q_lens, k_scale,
+                                       v_scale).to(q.dtype)
     B, Q, H, Dh = q.shape
     return _launch("ragged_paged", "hetu_ragged_attention",
-                   "ragged_attention", q,
-                   (k, v, lengths, q_lens), (B, Q, H, Dh, k.shape[1]))
+                   "ragged_attention", q, _kv(k, v, k_scale, v_scale, quant),
+                   (lengths, q_lens), (B, Q, H, Dh, k.shape[1]))

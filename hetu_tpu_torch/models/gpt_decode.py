@@ -30,6 +30,10 @@ The cores, each attending through one kernel wrapper per layer:
   speculative ``generate_fast``; its draft proposes through
   ``_decode_step`` over its own contiguous cache (``_spec_propose``).
 
+A serving cache may be int8 (an ``(int8 payload, f32 scales)`` pair, see
+``_kv_write``): the cores then attend through the int8 twins of the same
+kernels.  ``teacher_forced_logits`` is the oracle of int8's margin gate.
+
 PyTorch idiom: plain functions on tensors and dicts of tensors, an
 explicit device (the one the params live on), explicit
 ``torch.Generator``s for sampling, and in-place index writes into the KV
@@ -52,9 +56,53 @@ from ..kernels.decode_attention import (paged_block_decode_attention,
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ragged_attention import (ragged_attention,
                                         ragged_paged_attention)
+from ..quant import kv_decode, kv_encode
 from ..weights import prep_param
 
 NEG_INF = -1e30
+
+
+# ----------------------- the int8 cache ----------------------- #
+#
+# An int8 KV cache (``kv_quant="int8"``, $HETU_KV_QUANT) travels as an
+# ``(int8 payload, f32 scales)`` pair wherever a float cache tensor
+# travels: the payload has the float cache's shape, the scales drop its
+# Dh axis.  These helpers are the only places where the two forks meet:
+# a write encodes through ``quant.kv_encode`` (one scale per position and
+# head), and each layer hands the payload and its scale planes to the
+# kernel wrapper, whose int8 twin dequantizes inside its loop.
+
+
+def _kv_q(cache):
+    """True when ``cache`` is the int8 (payload, scales) pair."""
+    return isinstance(cache, (tuple, list))
+
+
+def _kv_payload(cache):
+    """The cache tensor whose shape and device the cores read: the int8
+    payload, or the float cache itself."""
+    return cache[0] if _kv_q(cache) else cache
+
+
+def _kv_layer(cache, i):
+    """Layer ``i``'s (K or V, scales or None), as the wrappers take it."""
+    if _kv_q(cache):
+        return cache[0][i], cache[1][i]
+    return cache[i], None
+
+
+def _kv_write(cache, i, idx, val):
+    """``cache[i][idx] = val`` in place, ``i`` a layer or ``slice(None)``
+    for all of them and ``idx`` a tuple of index tensors (or slices and
+    ints) over the next axes; ``val`` is the float K or V slab.  An int8
+    cache encodes it and writes payload and scales through the SAME
+    index: the scale planes lack only the trailing Dh axis."""
+    if _kv_q(cache):
+        q, s = kv_encode(val)
+        cache[0][(i, *idx)] = q
+        cache[1][(i, *idx)] = s
+    else:
+        cache[(i, *idx)] = val.to(cache.dtype)
 
 
 def _pow2(n, floor=1):
@@ -154,7 +202,7 @@ def _kv_index(cache_k, block_tables, slots, posns):
     row and the offset in it for the block-table pool."""
     if block_tables is None:
         return slots, posns
-    bs = cache_k.shape[2]
+    bs = _kv_payload(cache_k).shape[2]
     return block_tables.long()[slots, posns // bs], posns % bs
 
 
@@ -173,6 +221,9 @@ def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
       slot rows, lengths ``pos[b] + 1``;
     - tensor ``pos`` with ``block_tables`` [B, T] int32 over the pool
       ``[L, N_blocks, bs, H, Dh]``: ``paged_block_decode_attention``.
+
+    Either cache may be the int8 (payload, scales) pair (``_kv_write``):
+    the same wrappers then launch their int8 twins.
 
     ``live_mask`` ([B] bool, tensor ``pos`` only; default all live)
     marks the slots decoding this wave: the others ride along inert,
@@ -200,13 +251,16 @@ def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
         q, k, v = _qkv(params, us, x, (B, H, Dh))
-        ks, vs = cache_k[i], cache_v[i]
-        ks[wa, wo] = k[rows].to(ks.dtype)
-        vs[wa, wo] = v[rows].to(vs.dtype)
+        _kv_write(cache_k, i, (wa, wo), k[rows])
+        _kv_write(cache_v, i, (wa, wo), v[rows])
+        ks, ksc = _kv_layer(cache_k, i)
+        vs, vsc = _kv_layer(cache_v, i)
         if block_tables is None:
-            o = paged_decode_attention(q, ks, vs, lens)
+            o = paged_decode_attention(q, ks, vs, lens, k_scale=ksc,
+                                       v_scale=vsc)
         else:
-            o = paged_block_decode_attention(q, ks, vs, lens, block_tables)
+            o = paged_block_decode_attention(q, ks, vs, lens, block_tables,
+                                             k_scale=ksc, v_scale=vsc)
         o = o.reshape(B, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
         h = _ffn_block(params, us, h + o)
@@ -328,8 +382,10 @@ def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
     live positions written into its slot's cache row, or through its
     table row into its blocks.  Host arrays: slots [N], prompts [N, P_b]
     (pad past prompt_lens), prompt_lens [N]; block_tables [B, T] int32 on
-    the device.  Returns the logits [N, V] f32 after each prompt."""
-    dev = cache_k.device
+    the device.  Attention runs on the fresh K/V (flash); an int8 cache
+    stores them encoded.  Returns the logits [N, V] f32 after each
+    prompt."""
+    dev = _kv_payload(cache_k).device
     N, P_b = prompts.shape
     lens = np.asarray(prompt_lens, np.int32)
     logits, ks, vs = _prefill_forward(
@@ -340,8 +396,8 @@ def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
     r, c = (torch.from_numpy(a).to(dev) for a in (rows, cols))
     wa, wo = _kv_index(cache_k, block_tables,
                        torch.from_numpy(np.asarray(slots)[rows]).to(dev), c)
-    cache_k[:, wa, wo] = ks[:, r, c].to(cache_k.dtype)
-    cache_v[:, wa, wo] = vs[:, r, c].to(cache_v.dtype)
+    _kv_write(cache_k, slice(None), (wa, wo), ks[:, r, c])
+    _kv_write(cache_v, slice(None), (wa, wo), vs[:, r, c])
     return logits
 
 
@@ -392,10 +448,13 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
     context plus the chunk's FRESH K/V.  Here each layer writes the
     chunk's K/V into its blocks first and attends through
     ``ragged_paged_attention`` as one slot (q_lens [C], lengths
-    [pos_off + C], the table row) — the same numbers, because the pool
-    holds the compute dtype (f32 or bf16), so the K/V read back equal
-    the fresh ones.  (An int8 pool would differ; it is ROADMAP's int8
-    slice.)  table_row: [T] int32 on the device.
+    [pos_off + C], the table row): the same numbers over a pool of the
+    compute dtype (f32 or bf16), whose K/V read back equal the fresh
+    ones.  An int8 pool reads the chunk's K/V back quantized, as the
+    JAX mixed step's kernel path does (``_mixed_step(attn="ragged")``):
+    a difference by design from the JAX chunk pass, within the
+    quantization error (ROADMAP Queue C).  table_row: [T] int32 on the
+    device.
 
     ``sample`` is ``(temperature, top_k, generator)`` on the FINAL chunk,
     None on a mid-prompt one, which draws nothing: a request's generator
@@ -415,10 +474,12 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
         q, k, v = _qkv(params, us, x, (1, C, H, Dh))
-        ks, vs = cache_k[i], cache_v[i]
-        ks[wa, wo] = k[0].to(ks.dtype)
-        vs[wa, wo] = v[0].to(vs.dtype)
-        o = ragged_paged_attention(q, ks, vs, lens, q_len, tables)
+        _kv_write(cache_k, i, (wa, wo), k[0])
+        _kv_write(cache_v, i, (wa, wo), v[0])
+        ks, ksc = _kv_layer(cache_k, i)
+        vs, vsc = _kv_layer(cache_v, i)
+        o = ragged_paged_attention(q, ks, vs, lens, q_len, tables,
+                                   k_scale=ksc, v_scale=vsc)
         o = o.reshape(C, H * Dh) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
         h = _ffn_block(params, us, h + o)
@@ -441,7 +502,8 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
 
     The cache is the contiguous ``[L, B, S_max, H, Dh]`` pair, or with
     ``block_tables`` [B, T] int32 the block-table pool ``[L, N_blocks,
-    bs, H, Dh]``.  Each layer writes the live (slot, row) pairs' K/V IN
+    bs, H, Dh]``, either of them possibly the int8 (payload, scales)
+    pair.  Each layer writes the live (slot, row) pairs' K/V IN
     PLACE (the JAX package donates the cache) and hands the wave to
     ``ragged_attention`` or ``ragged_paged_attention`` — with ``verify``
     the verify kernels ``paged_verify_attention`` or
@@ -468,18 +530,21 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
         q, k, v = _qkv(params, us, x, (B, Q, H, Dh))
-        ks, vs = cache_k[i], cache_v[i]
-        ks[wa, wo] = k[wb, wj].to(ks.dtype)
-        vs[wa, wo] = v[wb, wj].to(vs.dtype)
+        _kv_write(cache_k, i, (wa, wo), k[wb, wj])
+        _kv_write(cache_v, i, (wa, wo), v[wb, wj])
+        ks, ksc = _kv_layer(cache_k, i)
+        vs, vsc = _kv_layer(cache_v, i)
+        sc = dict(k_scale=ksc, v_scale=vsc)
         if verify and block_tables is None:
-            o = paged_verify_attention(q, ks, vs, lens, q_len)
+            o = paged_verify_attention(q, ks, vs, lens, q_len, **sc)
         elif verify:
             o = paged_block_verify_attention(q, ks, vs, lens, q_len,
-                                             block_tables)
+                                             block_tables, **sc)
         elif block_tables is None:
-            o = ragged_attention(q, ks, vs, lens, q_len)
+            o = ragged_attention(q, ks, vs, lens, q_len, **sc)
         else:
-            o = ragged_paged_attention(q, ks, vs, lens, q_len, block_tables)
+            o = ragged_paged_attention(q, ks, vs, lens, q_len, block_tables,
+                                       **sc)
         o = o.reshape(B, Q, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
         h = _ffn_block(params, us, h + o)
@@ -539,8 +604,10 @@ def _spec_propose(params, cfg_tuple, cache_k, cache_v, pos, token, k, live):
     history has no hole); its proposal is discarded.  pos [B] int32 /
     token [B] int64 device tensors; live [B] bool host array, the
     decoding slots: the others (free, mid-prefill, finished) write
-    nothing, nor does a step past the cache's last position.  Returns
-    draft tokens [B, k] int64 numpy."""
+    nothing, nor does a step past the cache's last position.  The draft's
+    cache is never quantized, whatever the target's (the JAX engine's
+    rule).  Returns draft tokens [B, k] int64 numpy."""
+    assert not _kv_q(cache_k), "the draft's cache is never quantized"
     S = cache_k.shape[2]
     dev = pos.device
     live = torch.from_numpy(np.asarray(live, bool)).to(dev)
@@ -598,6 +665,44 @@ def refuse_moe(config):
     if getattr(config, "num_experts", None):
         raise NotImplementedError(
             "MoE decoding is not ported yet (ROADMAP A6)")
+
+
+def teacher_forced_logits(params, config, seq, kv_fake_quant=False,
+                          name=None, dtype=None, device=None):
+    """Per-position next-token logits [P, V] f32 of ONE sequence ``seq``
+    under teacher forcing (the JAX package's ``teacher_forced_logits``),
+    attending through the flash kernel (its plain version on the CPU);
+    with ``kv_fake_quant`` every layer's K/V pass through
+    ``kv_decode(kv_encode(.))`` first.
+
+    Storing K/V as int8 and dequantizing inside the attention kernels is
+    arithmetically the fake-quantized K/V here, so this is the margin
+    gate's oracle for ``kv_quant="int8"``: with ``delta`` the largest
+    |fake-quant - exact| logit gap over a sequence, a position whose
+    exact top-2 margin exceeds ``2 * delta`` keeps its top-1 token under
+    int8 KV.  device: CUDA unless ``"cpu"`` is passed."""
+    dev = resolve_device(device)
+    refuse_moe(config)
+    name = _infer_name(params, name)
+    params = _model_params(params, name, dev, dtype)
+    c = config
+    L, H = c.num_hidden_layers, c.num_attention_heads
+    Dh = c.hidden_size // H
+    seq = torch.as_tensor(np.asarray(seq, np.int64), device=dev)
+    P = seq.shape[0]
+    h = params[f"{name}_wte_table"][seq] + params[f"{name}_wpe"][:P]
+    for i in range(L):
+        us = f"{name}_h{i}"
+        x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
+        q, k, v = _qkv(params, us, x, (1, P, H, Dh))
+        if kv_fake_quant:
+            k = kv_decode(*kv_encode(k)).to(k.dtype)
+            v = kv_decode(*kv_encode(v)).to(v.dtype)
+        o = flash_attention(q, k, v, causal=True)
+        o = o.reshape(P, H * Dh) @ params[f"{us}_attn_proj_weight"] \
+            + params[f"{us}_attn_proj_bias"]
+        h = _ffn_block(params, us, h + o)
+    return _logits(params, name, h)
 
 
 def _generate_spec(params, cfg_tuple, draft_layers, prompts, num_tokens,

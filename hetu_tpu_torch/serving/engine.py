@@ -29,10 +29,15 @@ equal offline ``generate_fast``.  A speculative wave puts a request's
 generator back at its state after the last EMITTED token's draw, so
 speculation changes no output, sampled ones included.
 
+- int8 KV (``kv_quant="int8"``, ``$HETU_KV_QUANT``): the target's cache
+  is an int8 payload with one f32 scale per (position, head) in every
+  layout and scheduler, with speculation, chunked prefill and prefix
+  sharing; each core's attention then runs the int8 twin of its kernel.
+  The draft's cache stays in the compute dtype.
+
 Not ported yet, and refused with NotImplementedError whether asked for
-by argument or environment variable: int8 KV (the int8 slice, with or
-without speculation), MoE configs (A6), weight swaps and tiered KV
-(A7).
+by argument or environment variable: MoE configs (A6), weight swaps and
+tiered KV (A7).
 """
 
 from __future__ import annotations
@@ -70,11 +75,7 @@ class QueueFull(RuntimeError):
 _STORM_REJECTS = 8
 
 
-def _refuse_unported(c, kv_quant, tier_store):
-    if kv_quant:
-        raise NotImplementedError(
-            "int8 KV (kv_quant=, HETU_KV_QUANT) is not ported yet "
-            "(ROADMAP, the int8 slice)")
+def _refuse_unported(c, tier_store):
     if tier_store is not None or envvars.get_int("HETU_KV_HOST_BYTES") \
             or envvars.get_bool("HETU_KV_PS_TIER"):
         raise NotImplementedError(
@@ -92,7 +93,10 @@ class ServingEngine:
     ``submit`` raises QueueFull beyond it; max_seq_len: cap on
     prompt+generation (default max_position_embeddings); dtype: e.g.
     ``torch.bfloat16`` casts weights AND the KV cache, default FOLLOWS
-    the params; device: CUDA unless ``"cpu"`` is passed.
+    the params; device: CUDA unless ``"cpu"`` is passed.  kv_quant
+    (``$HETU_KV_QUANT``, ``resolve_kv_quant``): "int8" stores the target's
+    KV cache as int8 payload plus per-(position, head) f32 scales
+    (``self.kv_quant``; None keeps the compute dtype).
 
     kv_block / paged / pool_blocks / prefix_share: the layout
     (``resolve_kv_block``: auto is the paged pool with block 16 when
@@ -133,7 +137,8 @@ class ServingEngine:
         c = config
         self.device = resolve_device(device)
         block = resolve_kv_block(paged, kv_block)
-        _refuse_unported(c, resolve_kv_quant(kv_quant), tier_store)
+        _refuse_unported(c, tier_store)
+        self.kv_quant = resolve_kv_quant(kv_quant)
         self.paged = block > 0
         self.ragged = resolve_serve_ragged(ragged)
         self._name = _infer_name(params, name)
@@ -144,7 +149,7 @@ class ServingEngine:
         shape = dict(layers=c.num_hidden_layers,
                      heads=c.num_attention_heads, head_dim=Dh, slots=slots,
                      max_seq_len=want, pos_cap=c.max_position_embeddings,
-                     dtype=cdtype, device=self.device)
+                     dtype=self.kv_quant or cdtype, device=self.device)
         if self.paged:
             self.kv = PagedKVManager(block=block, pool_blocks=pool_blocks,
                                      prefix_share=prefix_share, **shape)

@@ -12,10 +12,16 @@ prefix sharing keyed by the prompt prefix — N requests with the same
 system prompt reference its KV blocks once.  Block 0 is permanent
 scratch: dead table entries point at it and inert writes land in it.
 
+Either manager takes ``dtype="int8"`` (or ``torch.int8``): each cache
+of the pair is then an ``(int8 payload, f32 scales)`` pair, the payload
+of the float cache's shape and one scale per (position, head)
+(``quant.kv_encode``), both planes zero at allocation as in the JAX
+package.
+
 The host logic is the JAX package's ``serving/kv_manager.py`` as it is;
 where the JAX manager rebuilt a donated cache (``.at[].set``), these
-write the tensors in place.  The int8 caches and the fleet's block
-export/import are later slices (ROADMAP's int8 slice, A7).
+write the tensors in place.  The fleet's block export/import is a later
+slice (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -60,10 +66,32 @@ def _bucket_shape(slots, max_seq_len, pos_cap, bucket):
     return int(slots), int(s)
 
 
-def _refuse_int8(dtype):
-    if isinstance(dtype, str) or dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP, the int8 slice)")
+def _is_int8(dtype):
+    """True when ``dtype`` selects the int8 cache (the string "int8" or
+    ``torch.int8``)."""
+    if isinstance(dtype, str):
+        return dtype.strip().lower() == "int8"
+    return dtype == torch.int8
+
+
+def _alloc_cache(shape, dtype, quant, device):
+    """One cache: a float tensor of ``shape``, or for ``quant`` the
+    (int8 payload of ``shape``, f32 scales of ``shape[:-1]``) pair."""
+    if quant:
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _planes(cache):
+    """The tensors of one cache: (payload, scales) or (the cache,)."""
+    return tuple(cache) if isinstance(cache, (tuple, list)) else (cache,)
+
+
+def _nbytes(*caches):
+    """Device bytes of the caches, scale planes included."""
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in _planes(c))
 
 
 def assemble_mixed_wave(n_slots, entries, q_floor=1):
@@ -155,20 +183,22 @@ class KVCacheManager:
     prompt+generation to admit (bucketed, then capped at ``pos_cap`` —
     the model's max_position_embeddings, since the position table can't
     index past it); dtype: cache dtype — the engine passes its param
-    dtype, so bf16 params mean a bf16 cache.  The cache pair is
-    ``[L, B, S_max, H, Dh]`` tensors on ``device``.
+    dtype, so bf16 params mean a bf16 cache — or "int8" for the int8
+    cache (``quant`` is then "int8", else None).  The cache pair is
+    ``[L, B, S_max, H, Dh]`` tensors on ``device`` (int8: each an
+    (int8 payload, f32 [L, B, S_max, H] scales) pair).
     """
 
     def __init__(self, *, layers, heads, head_dim, slots, max_seq_len,
                  pos_cap=None, dtype=torch.float32, device="cpu",
                  bucket=True):
-        _refuse_int8(dtype)
         self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
                                                  pos_cap, bucket)
         self.pos_cap = int(pos_cap) if pos_cap is not None else self.s_max
+        self.quant = "int8" if _is_int8(dtype) else None
         shape = (layers, self.n_slots, self.s_max, heads, head_dim)
-        self.cache_k = torch.zeros(shape, dtype=dtype, device=device)
-        self.cache_v = torch.zeros(shape, dtype=dtype, device=device)
+        self.cache_k = _alloc_cache(shape, dtype, self.quant, device)
+        self.cache_v = _alloc_cache(shape, dtype, self.quant, device)
         self._free = list(range(self.n_slots))
         self.lengths = np.zeros(self.n_slots, np.int32)
         self.owner = [None] * self.n_slots
@@ -184,9 +214,8 @@ class KVCacheManager:
 
     @property
     def cache_bytes(self):
-        """Device bytes of the cache pair."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.cache_k, self.cache_v))
+        """Device bytes of the cache pair (scales included when int8)."""
+        return _nbytes(self.cache_k, self.cache_v)
 
     def live(self):
         """Slot indices currently holding a sequence (ascending)."""
@@ -292,7 +321,6 @@ class PagedKVManager:
                  pos_cap=None, dtype=torch.float32, device="cpu",
                  bucket=True, block=16, pool_blocks=None,
                  prefix_share=None):
-        _refuse_int8(dtype)
         self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
                                                  pos_cap, bucket)
         self.pos_cap = int(pos_cap) if pos_cap is not None else self.s_max
@@ -311,9 +339,10 @@ class PagedKVManager:
         if prefix_share is None:
             prefix_share = envvars.get_bool("HETU_KV_PREFIX_SHARE")
         self.prefix_share = bool(prefix_share)
+        self.quant = "int8" if _is_int8(dtype) else None
         shape = (layers, self.n_blocks, self.block, heads, head_dim)
-        self.cache_k = torch.zeros(shape, dtype=dtype, device=device)
-        self.cache_v = torch.zeros(shape, dtype=dtype, device=device)
+        self.cache_k = _alloc_cache(shape, dtype, self.quant, device)
+        self.cache_v = _alloc_cache(shape, dtype, self.quant, device)
         self._free = list(range(1, self.n_blocks))   # 0 = scratch
         self.ref = np.zeros(self.n_blocks, np.int32)
         self.tables = np.zeros((self.n_slots, self.table_width), np.int32)
@@ -352,9 +381,8 @@ class PagedKVManager:
 
     @property
     def cache_bytes(self):
-        """Device bytes of the pool pair."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.cache_k, self.cache_v))
+        """Device bytes of the pool pair (scales included when int8)."""
+        return _nbytes(self.cache_k, self.cache_v)
 
     @property
     def occupancy(self):
@@ -501,9 +529,11 @@ class PagedKVManager:
 
     def _block_copy(self, src, dst):
         """Copy pool block ``src`` onto ``dst`` in every layer, in place
-        (the JAX manager rebuilds the donated pool here)."""
-        self.cache_k[:, dst] = self.cache_k[:, src]
-        self.cache_v[:, dst] = self.cache_v[:, src]
+        (the JAX manager rebuilds the donated pool here); an int8 pool
+        copies payload and scales together, so a fork never mixes one
+        block's payload with another's scales."""
+        for t in _planes(self.cache_k) + _planes(self.cache_v):
+            t[:, dst] = t[:, src]
 
     def advance(self, slot, n=1):
         """Record ``n`` more filled positions (blocks were reserved at
@@ -579,6 +609,6 @@ class PagedKVManager:
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "cow_copies": self.cow_copies,
             "evictions": self.evictions,
-            "quant": "off",
+            "quant": self.quant or "off",
             "cache_bytes": self.cache_bytes,
         }

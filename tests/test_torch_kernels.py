@@ -29,7 +29,9 @@ from hetu_tpu.kernels import ragged_attention as jra
 from hetu_tpu_torch.kernels import decode_attention as tda
 from hetu_tpu_torch.kernels import flash_attention as tfa
 from hetu_tpu_torch.kernels import ragged_attention as tra
-from hetu_tpu_torch.kernels import launch_counts, reset_launches
+from hetu_tpu_torch.kernels import (KERNELS, QUANT_KERNELS, launch_counts,
+                                    reset_launches)
+from hetu_tpu_torch.quant import kv_encode
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -277,30 +279,45 @@ def test_decode_references_match_jax():
     np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
 
 
+def _six_wrappers(q, k, v, pk, pv, lens, tab):
+    """The six wrappers that take an int8 cache, each as ``call(k_or_pk,
+    v_or_pv, **scales)`` over the case of :func:`_decode_case`."""
+    L, T = _t(lens).int(), _t(tab).int()
+    q1, q4 = _t(q[:, 0]), _t(q)
+    return [
+        lambda a, b, **s: tda.paged_decode_attention(q1, a, b, L, **s),
+        lambda a, b, **s: tda.paged_block_decode_attention(q1, a, b, L, T,
+                                                           **s),
+        lambda a, b, **s: tra.ragged_attention(q4, a, b, L, L, **s),
+        lambda a, b, **s: tra.ragged_paged_attention(q4, a, b, L, L, T, **s),
+        lambda a, b, **s: tda.paged_verify_attention(q4, a, b, L, L, **s),
+        lambda a, b, **s: tda.paged_block_verify_attention(q4, a, b, L, L, T,
+                                                           **s)]
+
+
 def test_int8_scales_refused():
-    """The int8 twins are a later slice: a scale plane raises, naming
-    ROADMAP, on every wrapper."""
+    """Every wrapper checks an int8 cache's scale arguments: both planes
+    or neither, an int8 payload with them and only with them, f32 scales
+    of the payload's shape less Dh.  Well-formed int8 arguments run the
+    plain version (CPU tensors)."""
     q, k, v, pk, pv, lens, tab = _decode_case()
-    L, s = _t(lens).int(), torch.ones(1)
-    calls = [
-        lambda: tda.paged_decode_attention(_t(q[:, 0]), _t(k), _t(v), L,
-                                           k_scale=s, v_scale=s),
-        lambda: tda.paged_block_decode_attention(
-            _t(q[:, 0]), _t(pk), _t(pv), L, _t(tab).int(), k_scale=s,
-            v_scale=s),
-        lambda: tra.ragged_attention(_t(q), _t(k), _t(v), L, L, k_scale=s,
-                                     v_scale=s),
-        lambda: tra.ragged_paged_attention(_t(q), _t(pk), _t(pv), L, L,
-                                           _t(tab).int(), k_scale=s,
-                                           v_scale=s),
-        lambda: tda.paged_verify_attention(_t(q), _t(k), _t(v), L, L,
-                                           k_scale=s, v_scale=s),
-        lambda: tda.paged_block_verify_attention(
-            _t(q), _t(pk), _t(pv), L, L, _t(tab).int(), k_scale=s,
-            v_scale=s)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    calls = _six_wrappers(q, k, v, pk, pv, lens, tab)
+    for j, call in enumerate(calls):
+        paged = j in (1, 3, 5)
+        x, y = (pk, pv) if paged else (k, v)
+        xq, yq = _t(x, "int8"), _t(y, "int8")
+        s = torch.ones(x.shape[:-1])
+        bad = [
+            ((xq, yq), dict(k_scale=s), "both"),
+            ((_t(x), _t(y)), dict(k_scale=s, v_scale=s), "int8 cache"),
+            ((xq, yq), {}, "needs k_scale"),
+            ((xq, yq), dict(k_scale=s.double(), v_scale=s), "float32"),
+            ((xq, yq), dict(k_scale=s, v_scale=s[..., :1]), "less Dh"),
+            ((xq, _t(y)), dict(k_scale=s, v_scale=s), "int8 cache")]
+        for args, kw, msg in bad:
+            with pytest.raises(ValueError, match=msg):
+                call(*args, **kw)
+        assert call(xq, yq, k_scale=s, v_scale=s).isfinite().all()
 
 
 def test_cpu_calls_launch_no_kernel():
@@ -319,10 +336,10 @@ def test_cpu_calls_launch_no_kernel():
     tda.paged_verify_attention(_t(q), _t(k), _t(v), L, L)
     tda.paged_block_verify_attention(_t(q), _t(pk), _t(pv), L, L,
                                      _t(tab).int())
-    assert launch_counts() == {"flash_attention": 0,
-                               "ragged_paged_attention": 0,
-                               "ragged_attention": 0,
-                               "paged_decode_attention": 0,
-                               "paged_block_decode_attention": 0,
-                               "paged_verify_attention": 0,
-                               "paged_block_verify_attention": 0}
+    for j, call in enumerate(_six_wrappers(q, k, v, pk, pv, lens, tab)):
+        x, y = (pk, pv) if j % 2 else (k, v)
+        (xq, xs), (yq, ys) = (kv_encode(_t(a)) for a in (x, y))
+        call(xq, yq, k_scale=xs, v_scale=ys)
+    assert set(KERNELS) == {"flash_attention"} | {
+        f"{n}{sfx}" for n in QUANT_KERNELS for sfx in ("", "_int8")}
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)

@@ -8,7 +8,8 @@ with a card and without JAX it runs as
 Tolerances, element by element ``|got - want| <= atol + rtol*|want|``:
 f32 ``atol 1e-5`` (the kernels sum the softmax in another order than
 the plain versions); bf16 ``atol 2^-12, rtol 2^-7`` (both sides round
-an f32 result to bf16, at most one bf16 ulp apart).
+an f32 result to bf16, at most one bf16 ulp apart).  The int8 twins are
+held to the same: both sides form the same f32 product payload * scale.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from hetu_tpu_torch.kernels import decode_attention as tda
 from hetu_tpu_torch.kernels import flash_attention as tfa
 from hetu_tpu_torch.kernels import launch_counts, reset_launches
 from hetu_tpu_torch.kernels import ragged_attention as tra
+from hetu_tpu_torch.quant import kv_encode
 
 TOL = {"float32": dict(atol=1e-5, rtol=0.0),
        "bfloat16": dict(atol=2.0 ** -12, rtol=2.0 ** -7)}
@@ -221,3 +223,126 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     rows = torch.randn((6, 32, 6, 64), device=cuda)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tra.ragged_attention(args[0], rows, rows, args[3], args[4])
+
+
+# ------------------------------------------------------------------- #
+# the int8 twins
+# ------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_encode_on_the_card_equals_the_cpu(cuda, dtype):
+    """The card's encoding of a cache is the CPU's (and so JAX's), payload
+    and scales, bit for bit: all-zero rows, and rows over nine decades of
+    magnitude."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 96, 12, 64), generator=g) \
+        * 10.0 ** torch.randint(-6, 4, (4, 96, 12, 1), generator=g)
+    x[1, 5] = 0.0
+    x = x.to(getattr(torch, dtype))
+    q, s = kv_encode(x.to(cuda))
+    qc, sc = kv_encode(x)
+    assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+
+
+def _int8(x, cuda):
+    """``kv_encode`` of a float cache, (payload, scales) on the card."""
+    q, s = kv_encode(x)
+    return q.to(cuda), s.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh,bs,Q", [(64, 16, 64), (32, 8, 1),
+                                     (128, 16, 40)])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_ragged_int8_kernels_match_plain(cuda, dtype, Dh, bs, Q, layout):
+    """K8-int8 over slot rows and K1-int8 through the block tables, q f32
+    or bf16, on the mixed wave with a length-0 slot."""
+    q, pk, pv, lens, ql, tab = _wave(Dh, bs, Q, seed=6)
+    q = q.to(cuda, getattr(torch, dtype))
+    lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
+                           for a in (lens, ql, tab))
+    reset_launches()
+    if layout == "slots":
+        (k, ks), (v, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+        sc = dict(k_scale=ks, v_scale=vs)
+        got = tra.ragged_attention(q, k, v, lens_d, ql_d, **sc)
+        want = tra.ragged_masked_reference(q, k, v, lens_d, ql_d, ks, vs)
+        name = "ragged_attention_int8"
+    else:
+        (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+        sc = dict(k_scale=ks, v_scale=vs)
+        got = tra.ragged_paged_attention(q, k, v, lens_d, ql_d, tab_d, **sc)
+        want = tra.ragged_paged_reference(q, k, v, lens_d, ql_d, tab_d, ks,
+                                          vs)
+        name = "ragged_paged_attention_int8"
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == 1
+    assert launch_counts()[name[:-5]] == 0
+    assert got.dtype == q.dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.to(q.dtype).float().cpu().numpy(),
+                               **TOL[dtype])
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh,bs,Q", [(64, 16, 1), (32, 8, 1), (128, 16, 1),
+                                     (64, 16, 5), (32, 8, 2), (128, 16, 16),
+                                     (64, 8, 3)])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_decode_verify_int8_kernels_match_plain(cuda, dtype, Dh, bs, Q,
+                                                layout):
+    """K4-int8/K5-int8 (Q 1, decode) and K6-int8/K7-int8 (Q 2-16, NQ 2 to
+    16) over slot rows and through the block tables, q f32 or bf16, with
+    a q_len-0 slot, a length-0 slot and dead verify rows."""
+    q, pk, pv, lens, _, tab = _wave(Dh, bs, Q, seed=7)
+    ql = np.minimum(np.array([Q, Q - 1, 1, 0, Q, 0], np.int32), lens)
+    q = q.to(cuda, getattr(torch, dtype))
+    lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
+                           for a in (lens, ql, tab))
+    if layout == "slots":
+        (k, ks), (v, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+        ops = ((tda.paged_decode_attention, tda.masked_decode_reference)
+               if Q == 1 else
+               (tda.paged_verify_attention, tda.masked_verify_reference))
+        args = (k, v, lens_d) if Q == 1 else (k, v, lens_d, ql_d)
+    else:
+        (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+        ops = ((tda.paged_block_decode_attention,
+                tda.paged_block_decode_reference) if Q == 1 else
+               (tda.paged_block_verify_attention,
+                tda.paged_block_verify_reference))
+        args = (k, v, lens_d, tab_d) if Q == 1 else (k, v, lens_d, ql_d,
+                                                     tab_d)
+    qq = q[:, 0] if Q == 1 else q
+    reset_launches()
+    got = ops[0](qq, *args, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    name = ops[0].__name__
+    assert launch_counts()[f"{name}_int8"] == 1
+    assert launch_counts()[name] == 0
+    want = ops[1](qq, *args, k_scale=ks, v_scale=vs)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.to(q.dtype).float().cpu().numpy(),
+                               **TOL[dtype])
+    assert (got[3] == 0).all()
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
+    (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+    args = [q.to(cuda), k, v] + [torch.from_numpy(a).to(cuda)
+                                 for a in (lens, ql, tab)]
+    with pytest.raises(ValueError, match="contiguous"):
+        tra.ragged_paged_attention(*args, k_scale=ks.transpose(0, 1)
+                                   .contiguous().transpose(0, 1),
+                                   v_scale=vs)
+    with pytest.raises(ValueError, match="4-byte"):
+        off = torch.zeros(k.numel() + 1, dtype=torch.int8,
+                          device=cuda)[1:].view(k.shape)
+        tra.ragged_paged_attention(args[0], off, v, *args[3:], k_scale=ks,
+                                   v_scale=vs)
+    with pytest.raises(ValueError, match="int8 cache"):
+        tra.ragged_paged_attention(args[0], args[1].float(), v, *args[3:],
+                                   k_scale=ks, v_scale=vs)

@@ -167,8 +167,6 @@ def test_kv_cache_manager_matches_jax():
 
 def test_kv_cache_manager_refuses_what_is_not_ported():
     shape = dict(layers=1, heads=1, head_dim=4, slots=2, max_seq_len=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TKVCacheManager(dtype="int8", **shape)
     kv = TKVCacheManager(**shape)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kv.export_blocks(0)
@@ -239,18 +237,13 @@ PR = dict(paged=True, ragged=True)
 
 
 @pytest.mark.parametrize("kw,env", [
-    (dict(PR, spec=2, kv_quant="int8"), None),
-    (dict(PR, kv_quant="int8"), None),
     (dict(PR, tier_store=object()), None),
     (dict(PR, moe=True), None),
-    (dict(PR, kv_quant="int8"), ("HETU_SPEC_K", "2")),
-    (PR, ("HETU_KV_QUANT", "int8")),
     (PR, ("HETU_KV_HOST_BYTES", "4096")),
-], ids=["spec", "int8", "tiers", "moe", "env-spec", "env-int8",
-        "env-tiers"])
+], ids=["tiers", "moe", "env-tiers"])
 def test_unported_options_raise(model, monkeypatch, kw, env):
-    """Speculation is ported; with int8 KV it is refused, naming the int8
-    slice, like int8 alone."""
+    """Tiered KV and MoE configs are refused, by argument or environment
+    variable, naming ROADMAP (speculation and int8 KV are ported)."""
     p, _, tcfg = model
     if env is not None:
         monkeypatch.setenv(*env)
