@@ -67,9 +67,33 @@ non-zero and prints no result line):
    JAX package's gate).  Last ``spec=4`` with int8 in all four, whose
    f32 tokens, greedy and sampled, equal the non-speculative int8 run's.
 
-With ``--profile DIR`` each serving configuration is then run again
-under torch.profiler (without and with speculation, and with an int8
-cache) and its device time by kernel written into DIR.
+8. Training (``Executor`` over ``GPTForCausalLM``).  8a: K3, the flash
+   backward's dK/dV and dQ kernels, against their plain versions on the
+   card: f32 and bf16, head dims 32/64/128, causal and not, kv_lens with
+   a 0, Sk > S, S not a multiple of the tile; then at the training
+   shape (8 x 1024 tokens, 12 heads of 64, causal), timed beside their
+   bounds, their plain versions and the backward of
+   ``scaled_dot_product_attention(is_causal=True)`` as a yardstick (its
+   backend named), with K2 at the same shape.  8b: GPT-2-small at full
+   width and depth, B 8, S 1024, AdamW 3e-4 (weight decay 0.01, clip
+   1.0), the synthetic task.  First, in f32 from one set of weights on
+   one batch, the loss and every gradient through the flash path (K2
+   forward, K3 backward) against the unfused path, which runs no kernel:
+   the loss within 1e-5 relative, each gradient within 1e-4 of its
+   tensor's max |g|.  Then 8 steps, f32 then the bf16 policy: every
+   loss finite, the eval loss of the first step's batch lower after the
+   steps than before (the optimizer moves), launches exact (K2 12 per
+   step and per eval forward, each K3 kernel 12 per step); step ms,
+   tokens/s, peak memory.  8c: the
+   trained f32 weights through the serving ``teacher_forced_logits`` on
+   one 1024-token sequence equal the training model's eval logits of it
+   within 1e-4.
+
+With ``--profile DIR`` three more training steps of each dtype run under
+torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
+checks each serving configuration is run again under it (without and
+with speculation, and with an int8 cache); device time by kernel goes
+into DIR.
 
 The line before the last is one JSON object with every kernel's
 numbers; the last line is the device record.
@@ -80,6 +104,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import itertools
 import json
 import re
@@ -941,6 +966,347 @@ def phase7(torch, htt, params, cfg, spec, res32, card):
     return runs, spec_runs
 
 
+# ---------------------------------------------------------------- #
+# phase 8: training
+# ---------------------------------------------------------------- #
+
+# K3 vs its plain version.  f32: atol 1e-4 + rtol 1e-4, the sums over up
+# to 1024 rows run in another order.  bf16: both sides round P and dS to
+# bf16 before the sums, and a value one f32 ulp apart may round to the
+# neighbouring bf16 value, moving a sum by one bf16 ulp of one term; so
+# atol is one bf16 ulp (2^-7) of the tensor's largest |want| and rtol
+# one ulp.
+K3_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
+# the training shape: GPT-2-small at B 8, S 1024
+TB, TS = 8, 1024
+
+
+def k3_compare(got, want, dtype):
+    """(max abs error, True when every element is within K3_TOL)."""
+    atol, rtol = K3_TOL[dtype]
+    got, want = got.float(), want.float()
+    if dtype == "bfloat16":
+        atol = atol * float(want.abs().max())
+    diff = (got - want).abs()
+    ok = bool(got.isfinite().all()
+              and (diff <= atol + rtol * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def k3_inputs(torch, B, S, Sk, D, dtype, seed, Hn=H):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, S, Hn, D), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, Hn, D), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def check_k3_cases(torch, dtype, seed):
+    """K3's two kernels against their plain versions on small cases: head
+    dims 32/64/128; causal and not; kv_lens with a 0 and a full length;
+    Sk > S (causal and not); S not a multiple of the 64-row tile.  The
+    lse comes from the plain forward; sequence 1 (kv_lens 0) must get
+    zero gradients."""
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    cases = [(True, 100, 100, True), (False, 100, 100, True),
+             (False, 40, 72, True), (True, 40, 72, False),
+             (True, 128, 128, False)]
+    worst = 0.0
+    for D in (32, 64, 128):
+        for causal, S, Sk, with_lens in cases:
+            q, k, v, do = k3_inputs(torch, 3, S, Sk, D, dtype, seed + D, 4)
+            lens = (torch.tensor([Sk - 3, 0, Sk], dtype=torch.int32,
+                                 device="cuda") if with_lens else None)
+            o, lse = fa.flash_fwd_reference(q, k, v, causal=causal,
+                                            kv_lens=lens)
+            delta = fa.bwd_delta(o, do)
+            args = (q, k, v, lens, lse, delta, do)
+            dk, dv = fa.flash_bwd_dkv(*args, causal=causal)
+            dq = fa.flash_bwd_dq(*args, causal=causal)
+            torch.cuda.synchronize()
+            wk, wv = fa.flash_bwd_dkv_reference(*args, causal=causal)
+            wq = fa.flash_bwd_dq_reference(*args, causal=causal)
+            for name, got, want in (("dq", dq, wq), ("dk", dk, wk),
+                                    ("dv", dv, wv)):
+                err, ok = k3_compare(got, want, dtype)
+                worst = max(worst, err)
+                if not ok or (with_lens and got[1].abs().max() != 0):
+                    fail(f"K3 {name} {dtype} D {D} causal {causal} S {S} "
+                         f"Sk {Sk} kv_lens {with_lens}: max abs err {err} "
+                         f"((atol, rtol) {K3_TOL[dtype]}, bf16 atol "
+                         f"scaled by max |want|)")
+    log(f"  K3 {dtype}: {3 * len(cases)} cases (D 32/64/128; causal and "
+        f"not; kv_lens with 0; Sk > S; S 100/40) match the plain version, "
+        f"max abs err {worst:.3e}")
+
+
+def sdpa_backend(torch, q, k, v):
+    """The name of the backend SDPA picks for causal attention on these
+    inputs (torch._fused_sdp_choice)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+
+
+def check_k3(torch, F, dtype, seed):
+    """K3's kernels and K2 at the training shape (B 8, S 1024, H 12, D 64,
+    causal, no kv_lens): each against its plain version, timed beside
+    its bound; the yardsticks are SDPA's backward (autograd.grad through
+    ``scaled_dot_product_attention(is_causal=True)``, the backward alone
+    timed) and SDPA's forward.  Returns {"dkv", "dq", "fwd": result}."""
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do = k3_inputs(torch, TB, TS, TS, DH, dtype, seed + 21)
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    o_r, lse_r = fa.flash_fwd_reference(q, k, v, causal=True)
+    err_o, ok = compare(o, o_r, dtype)
+    lse_err = float((lse - lse_r).abs().max())
+    if not ok or lse_err > LSE_TOL:
+        fail(f"K2 at the training shape {dtype}: max abs err {err_o}, lse "
+             f"{lse_err}")
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, None, lse, delta, do)
+    es = q.element_size()
+    n = TB * TS * H * DH * es                    # one [B, S, H, D] tensor
+    stats = 2 * TB * H * TS * 4                  # lse and delta, f32
+    pairs = TB * H * TS * (TS + 1) // 2          # live (q, k) pairs
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    backend = sdpa_backend(torch, qt, kt, vt)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dot, retain_graph=True))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    res = {}
+    # (kernel, plain, products, bytes: inputs read once, outputs written)
+    for name, run, plain, prods, nbytes in (
+            ("dkv", lambda: fa.flash_bwd_dkv(*args, causal=True),
+             lambda: fa.flash_bwd_dkv_reference(*args, causal=True),
+             4, 6 * n + stats),
+            ("dq", lambda: fa.flash_bwd_dq(*args, causal=True),
+             lambda: fa.flash_bwd_dq_reference(*args, causal=True),
+             3, 5 * n + stats)):
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        errs = [k3_compare(g, w, dtype) for g, w in
+                zip(got if name == "dkv" else (got,),
+                    want if name == "dkv" else (want,))]
+        err = max(e for e, _ in errs)
+        if not all(ok for _, ok in errs):
+            fail(f"K3 {name} {dtype} at the training shape: max abs err "
+                 f"{err} ((atol, rtol) {K3_TOL[dtype]})")
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain, reps=5)
+        flops = prods * 2 * DH * pairs
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        res[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+        log(f"  K3 flash_attention_bwd_{name} {dtype} [{TB},{TS},{H},{DH}] "
+            f"causal: "
+            f"max_abs_err {err:.3e} (atol, rtol) {K3_TOL[dtype]}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by "
+            f"{b_by} ({nbytes} B, {flops} flop, {prods} products)")
+    # the whole backward: five products; q, k, v, o, dO, lse in, dq, dk,
+    # dv out
+    whole = time_ms(torch, lambda: fa.flash_bwd(q, k, v, None, o, lse, do,
+                                                causal=True))
+    b_ms, b_by = bound(8 * n + TB * H * TS * 4, 5 * 2 * DH * pairs, dtype)
+    log(f"  K3 flash_bwd {dtype} (delta + both kernels): {whole:.4f} ms; "
+        f"bound of the function {b_ms:.4f} ms by {b_by}; SDPA backward "
+        f"({backend}) {lib_bwd:.4f} ms")
+    ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True))
+    plain_ms = time_ms(torch, lambda: fa.flash_fwd_reference(
+        q, k, v, causal=True), reps=5)
+    b_ms, b_by = bound(4 * n + TB * H * TS * 4, 2 * 2 * DH * pairs, dtype)
+    res["fwd"] = dict(err=err_o, ms=ms, plain_ms=plain_ms,
+                      library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
+    log(f"  K2 flash_attention {dtype} at the training shape: max_abs_err "
+        f"{err_o:.3e}, lse {lse_err:.3e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA forward ({backend}) {lib_fwd:.4f} ms; "
+        f"bound {b_ms:.4f} ms by {b_by}")
+    return res
+
+
+def check_train_grads(torch, htt, cfg, seed, device="cuda"):
+    """The loss and every gradient of ``GPTForCausalLM`` in f32 on one
+    batch of the synthetic task, through the flash path (K2 forward, K3
+    backward, with the model's q/k/v layout and K2's lse) and through the
+    unfused path (no kernel), from the same weights: the loss within 1e-5
+    relative, each gradient within 1e-4 of its tensor's max |g| (the
+    paths sum softmax terms in another order).  k's bias gets an exact 0
+    (it shifts a row of scores by a constant, which softmax ignores), so
+    both paths' readings of it are held to 1e-5 of the largest |g|."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.train_gpt import synthetic
+    x, y = next(synthetic(cfg, np.random.RandomState(seed)))
+    feed = [torch.from_numpy(a).to(device) for a in (x, y)]
+    L = cfg.num_hidden_layers
+    res, values = {}, None
+    for flash in (True, False):
+        c = copy.copy(cfg)
+        c.use_flash = flash
+        model = htt.GPTForCausalLM(c, seed=seed).to(device)
+        if values is None:
+            values = {k: v.detach().clone()
+                      for k, v in model.named_vars().items()}
+        model.load_var_values(values)
+        model.train()
+        reset_launches()
+        loss = model(*feed)
+        names, params = zip(*model.named_vars().items())
+        grads = torch.autograd.grad(loss, params)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if flash and device == "cuda":
+            want.update(flash_attention=L, flash_attention_bwd_dkv=L,
+                        flash_attention_bwd_dq=L)
+        if counts != want:
+            fail(f"gradient check, flash={flash}: launches {counts}, want "
+                 f"{want}")
+        res[flash] = (float(loss.detach()), dict(zip(names, grads)))
+        del model, loss, params, grads
+    (lf, gf), (lu, gu) = res[True], res[False]
+    if not abs(lf - lu) <= 1e-5 * abs(lu):
+        fail(f"gradient check: flash loss {lf} vs unfused {lu} (rel 1e-5)")
+    g_max = max(float(g.abs().max()) for g in gu.values())
+    worst, worst_name = 0.0, None
+    for n, want in gu.items():
+        got = gf[n]
+        if n.endswith("_attn_k_bias"):
+            top = max(float(got.abs().max()), float(want.abs().max()))
+            if not top <= 1e-5 * g_max:
+                fail(f"gradient check: {n} should be 0, reads {top} "
+                     f"(largest |g| {g_max})")
+            continue
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not err <= 1e-4 * scale:
+            fail(f"gradient check: {n} flash vs unfused max abs err {err}, "
+                 f"tol 1e-4 x {scale}")
+        if err / scale > worst:
+            worst, worst_name = err / scale, n
+    log(f"  gradients f32, flash (K2 + K3) vs unfused, {len(gu)} tensors: "
+        f"loss {lf:.6f} vs {lu:.6f}; worst error {worst:.3e} of its "
+        f"tensor's max |g| ({worst_name}), tol 1e-4")
+    return worst
+
+
+def train(torch, htt, cfg, dtype, seed, steps=8, warm=2, prof_dir=None):
+    """GPT-2-small training through ``Executor``: an eval forward of the
+    first step's batch, ``steps`` AdamW + clip steps on the synthetic
+    task, the eval forward again; launches counted over that whole run and held to
+    the exact count.  Returns (executor, stats, launches)."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.optimizer import AdamWOptimizer
+    from hetu_tpu_torch.train_gpt import profile_steps, synthetic
+    t0 = time.perf_counter()
+    model = htt.GPTForCausalLM(cfg, seed=seed)
+    opt = AdamWOptimizer(learning_rate=3e-4, weight_decay=0.01)
+    opt.clip_grad_norm = 1.0
+    ex = htt.Executor(model, opt, seed=seed,
+                      mixed_precision="bf16" if dtype == "bfloat16" else None)
+    init_s = time.perf_counter() - t0
+    data = synthetic(cfg, np.random.RandomState(seed))
+    batches = [next(data) for _ in range(steps)]
+    # the fixed batch is the first step's: eight steps at lr 3e-4 cannot
+    # learn the 50257-token map (a token is seen ~1.3 times a batch), so
+    # a fresh batch's loss stays at ln(V) within noise; the check is that
+    # the model learns what it was shown
+    held = {"input_ids": batches[0][0], "labels": batches[0][1]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    before = float(ex.evaluate(held)[0])
+    losses, step_s = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        loss = ex.run({"input_ids": x, "labels": y})[0]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    after = float(ex.evaluate(held)[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_hidden_layers
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=L * (steps + 2),
+                flash_attention_bwd_dkv=L * steps,
+                flash_attention_bwd_dq=L * steps)
+    if counts != want:
+        fail(f"training {dtype}: launches {counts}, want {want} ({L} "
+             f"layers, {steps} steps, 2 eval forwards)")
+    if not all(np.isfinite(losses + [before, after])):
+        fail(f"training {dtype}: a loss is not finite: {losses}, eval "
+             f"{before} -> {after}")
+    if not after < before:
+        fail(f"training {dtype}: the first batch's eval loss did not fall: "
+             f"{before} -> {after}")
+    med = float(np.median(step_s[warm:]))
+    stats = dict(step_ms=med * 1e3, tokens_per_s=TB * TS / med,
+                 peak_bytes=peak, losses=losses, eval_before=before,
+                 eval_after=after, init_s=init_s)
+    log(f"  train {dtype}: losses {[round(v, 4) for v in losses]}; eval "
+        f"loss of the first step's batch {before:.4f} -> {after:.4f}; step "
+        f"{stats['step_ms']:.1f} ms (median of steps {warm + 1}-{steps}; "
+        f"first {step_s[0] * 1e3:.1f} ms), {stats['tokens_per_s']:.1f} "
+        f"tokens/s, peak memory {peak} B; model built in {init_s:.2f} s; "
+        f"launches {counts}")
+    if prof_dir is not None:
+        for line in profile_steps(ex, iter(batches), 3,
+                                  Path(prof_dir) / f"train_{dtype}"):
+            log(f"  {dtype} {line}")
+    return ex, stats, counts
+
+
+def phase8(torch, F, htt, seed, card, prof_dir=None):
+    """Training: 8a K3 (and K2 at the training shape), 8b GPT-2-small f32
+    and bf16, 8c trained weights through the serving forward.  Returns
+    ({kernel key: {dtype: result}}, {dtype: (stats, launches)})."""
+    from hetu_tpu_torch.models.gpt_decode import teacher_forced_logits
+    kres = {}
+    for dt in ("float32", "bfloat16"):
+        check_k3_cases(torch, dt, seed)
+        for key, r in check_k3(torch, F, dt, seed).items():
+            kres.setdefault(key, {})[dt] = r
+    cfg = htt.GPTConfig(batch_size=TB, seq_len=TS, dropout_rate=0.0)
+    if not cfg.use_flash:
+        fail("GPT-2-small at seq 1024 with dropout 0 should take the flash "
+             "path")
+    check_train_grads(torch, htt, cfg, seed)
+    runs = {}
+    ex, st, counts = train(torch, htt, cfg, "float32", seed,
+                           prof_dir=prof_dir)
+    runs["float32"] = (st, counts)
+    # 8c: the trained f32 weights through the serving forward
+    seq = np.random.RandomState(seed + 2).randint(0, cfg.vocab_size, TS)
+    want = ex.evaluate({"input_ids": seq[None].astype(np.int32)})[0]
+    got = teacher_forced_logits(htt.params_from_numpy(ex.model.var_values()),
+                                cfg, seq, dtype=torch.float32)
+    err = float((got - want).abs().max())
+    if got.shape != want.shape or not err <= 1e-4:
+        fail(f"serving logits of the trained weights differ from the "
+             f"training model's eval logits: max abs err {err} (tol 1e-4), "
+             f"shapes {tuple(got.shape)} / {tuple(want.shape)}")
+    log(f"  trained f32 weights -> teacher_forced_logits on one {TS}-token "
+        f"sequence == the training model's eval logits (max abs err "
+        f"{err:.3e}, tol 1e-4)")
+    del ex, want, got
+    ex, st, counts = train(torch, htt, cfg, "bfloat16", seed,
+                           prof_dir=prof_dir)
+    runs["bfloat16"] = (st, counts)
+    del ex
+    for dt, (st, _) in runs.items():
+        log(f"  training on {card}: GPT-2-small {dt} B {TB} S {TS}: step "
+            f"{st['step_ms']:.1f} ms, {st['tokens_per_s']:.1f} tokens/s, "
+            f"peak {st['peak_bytes'] / 2 ** 30:.2f} GiB")
+    return kres, runs
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -960,8 +1326,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="after the checks, profile the serving run and "
-                         "write device time by kernel into DIR")
+                    help="profile the serving runs (after the checks) and "
+                         "three training steps, and write device time by "
+                         "kernel into DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -1090,6 +1457,13 @@ def main(argv=None):
                  for k, fn in checks8.items()})
     runs8, spec_runs8 = phase7(torch, htt, params, cfg, spec, res32, card)
 
+    # ---- phase 8 ---- #
+    log("phase 8: training: K3 vs its plain version, GPT-2-small f32 and "
+        "bf16, trained weights through the serving forward")
+    del params
+    kres8, train_runs = phase8(torch, F, htt, args.seed, card,
+                               prof_dir=args.profile)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
@@ -1150,12 +1524,31 @@ def main(argv=None):
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"]))
+    # K2 at the training shape and K3's two kernels: launches from the
+    # phase-8 training run of their dtype
+    for key, name, file, replaces in (
+            ("fwd", "flash_attention", "flash_fwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:173"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:396"),
+            ("dq", "flash_attention_bwd_dq", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:428")):
+        for dt in ("float32", "bfloat16"):
+            r = kres8[key][dt]
+            kernels.append(dict(
+                name=f"{name}[{dt}, training shape]" if key == "fwd"
+                else f"{name}[{dt}]", route="cuda", source=src + file,
+                replaces=replaces, launches=train_runs[dt][1][name],
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"]))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")
     if args.profile:
         log("profile: the serving runs under torch.profiler")
-        profile_serve(torch, htt, params, cfg, spec, args.profile)
+        profile_serve(torch, htt, htt.params_from_numpy(
+            gpt2_small_params(cfg, args.seed)), cfg, spec, args.profile)
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,9 @@ tensor (see ``_build``).
 
 - ``flash_attention``: forward flash attention on [B, S, H, D]
   (csrc/flash_fwd.cu), the batched prefill of ``generate_fast`` and of
-  the phase-split schedulers.
+  the phase-split schedulers, and the training forward; its backward
+  (csrc/flash_bwd.cu, counted as ``flash_attention_bwd_dkv`` and
+  ``flash_attention_bwd_dq``) is the training backward.
 - ``ragged_attention.ragged_paged_attention`` /
   ``ragged_attention.ragged_attention``: the mixed wave over the
   block-table pool / the slot-contiguous cache (csrc/ragged_paged.cu);
@@ -35,7 +37,8 @@ from ._build import LAUNCHES, reset_launches  # noqa: F401
 QUANT_KERNELS = ("ragged_paged_attention", "ragged_attention",
                  "paged_decode_attention", "paged_block_decode_attention",
                  "paged_verify_attention", "paged_block_verify_attention")
-KERNELS = ("flash_attention",) + QUANT_KERNELS \
+KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq") + QUANT_KERNELS \
     + tuple(f"{n}_int8" for n in QUANT_KERNELS)
 
 

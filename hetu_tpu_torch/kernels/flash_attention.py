@@ -1,12 +1,17 @@
-"""Forward flash attention on [B, S, H, D], the port of the JAX package's
-Pallas ``flash_attention`` forward (``_flash_fwd`` / ``_fwd_kernel``).
+"""Flash attention on [B, S, H, D], the port of the JAX package's Pallas
+``flash_attention``: the forward (``_flash_fwd`` / ``_fwd_kernel``, K2)
+and the FlashAttention-2 backward (``_flash_bwd``: ``_bwd_dkv_kernel``
+and ``_bwd_dq_kernel``, K3).
 
-``flash_fwd`` launches ``csrc/flash_fwd.cu`` on CUDA tensors and runs
-the plain PyTorch version, :func:`flash_fwd_reference`, on CPU tensors;
+``flash_fwd`` launches ``csrc/flash_fwd.cu``; ``flash_bwd_dkv`` and
+``flash_bwd_dq`` launch the two kernels of ``csrc/flash_bwd.cu``; each
+runs its plain PyTorch version (``*_reference``) on CPU tensors, and
 nothing falls back from one to the other.  Causal or not, with an
 optional ``kv_lens [B]`` padding mask: a row with no live key outputs 0
-and its logsumexp is +1e30, as the Pallas forward emits it for its
-backward (the backward itself is ROADMAP B6).
+and its logsumexp is +1e30, as the Pallas forward emits it, so the
+backward recomputes P = 0 there.  ``flash_attention`` is differentiable
+in q, k and v through :class:`FlashAttention` (K2 forward, K3
+backward); called with no grad, it launches K2 alone.
 """
 
 from __future__ import annotations
@@ -119,7 +124,187 @@ def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
     return o, lse
 
 
+# ------------------------------------------------------------------ #
+# the backward (K3)
+# ------------------------------------------------------------------ #
+
+
+def bwd_delta(o, do, g_lse=None):
+    """delta [B, H, S] f32 = rowsum(dO * O), minus the lse cotangent
+    ``g_lse`` [B, H, S] when given (the JAX package's XLA reduction
+    beside its backward kernels: d lse / d s = P, so an lse cotangent
+    shifts dS = P * (dP - delta + g_lse))."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    return delta.contiguous()
+
+
+def _bwd_p_ds(q, k, v, kv_lens, lse, delta, do, causal):
+    """P and dS [B, H, S, Sk] in f32, as ``_recompute_p`` and the Pallas
+    bodies form them: P = exp(s * scale - lse) on live pairs, else 0;
+    dS = P * (dP - delta) * scale with dP = dO V^T."""
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    scale = D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    live = _live_mask(S, Sk, causal, kv_lens, q.device)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dkv_reference(q, k, v, kv_lens, lse, delta, do, *,
+                            causal=False):
+    """The plain version of the dK/dV kernel: (dk, dv) [B, Sk, H, D] in
+    q's dtype; P rounded to that dtype before P^T dO, dS before dS^T Q
+    (the Pallas body's rounding points), sums in f32."""
+    dt = q.dtype
+    p, ds = _bwd_p_ds(q, k, v, kv_lens, lse, delta, do, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(dt).float(), q.float())
+    return dk.to(dt), dv.to(dt)
+
+
+def flash_bwd_dq_reference(q, k, v, kv_lens, lse, delta, do, *,
+                           causal=False):
+    """The plain version of the dQ kernel: dq [B, S, H, D] in q's dtype,
+    dS rounded to that dtype before dS K."""
+    dt = q.dtype
+    _, ds = _bwd_p_ds(q, k, v, kv_lens, lse, delta, do, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(dt).float(),
+                        k.float()).to(dt)
+
+
+def flash_bwd_reference(q, k, v, kv_lens, o, lse, do, *, causal=False,
+                        g_lse=None):
+    """The plain version of :func:`flash_bwd`: (dq, dk, dv)."""
+    delta = bwd_delta(o, do, g_lse)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, kv_lens, lse, delta, do,
+                                     causal=causal)
+    dq = flash_bwd_dq_reference(q, k, v, kv_lens, lse, delta, do,
+                                causal=causal)
+    return dq, dk, dv
+
+
+def _check_bwd(q, k, v, kv_lens, lse, delta, do):
+    _check_args(q, k, v, kv_lens)
+    B, S, H, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} on {do.device} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, S) or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{name} must be float32 [B={B}, H={H}, "
+                             f"S={S}] on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash kernel takes float32/bfloat16, got "
+                         f"{q.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head dim in {_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    if not all(t.is_contiguous() for t in (q, k, v, do, lse, delta)):
+        raise ValueError("flash backward takes contiguous q, k, v, dO, "
+                         "lse and delta")
+    if kv_lens is not None and (kv_lens.dtype != torch.int32
+                                or not kv_lens.is_contiguous()):
+        raise ValueError("kv_lens must be a contiguous int32 tensor")
+    return True
+
+
+def _bwd_launch(entry, what, q, k, v, kv_lens, lse, delta, do, outs,
+                causal):
+    B, S, H, D = q.shape
+    lib = _build.library("flash_bwd")
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * (7 + len(outs)) \
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                kv_lens.data_ptr() if kv_lens is not None else None,
+                *(t.data_ptr() for t in outs), B, S, k.shape[1], H, D,
+                int(bool(causal)), _DTYPES[q.dtype], _build.stream_of(q))
+    _build.check(lib, rc, f"{what} launch")
+
+
+def flash_bwd_dkv(q, k, v, kv_lens, lse, delta, do, *, causal=False):
+    """(dk, dv) [B, Sk, H, D]: the dK/dV kernel on CUDA tensors (f32 or
+    bf16, head dim 32/64/128, contiguous, lse and delta f32 [B, H, S],
+    kv_lens int32 [B]); :func:`flash_bwd_dkv_reference` on CPU tensors."""
+    if not _check_bwd(q, k, v, kv_lens, lse, delta, do):
+        return flash_bwd_dkv_reference(q, k, v, kv_lens, lse, delta, do,
+                                       causal=causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.shape[0] == 0 or k.shape[1] == 0:
+        return dk, dv
+    if q.shape[1] == 0:
+        return dk.zero_(), dv.zero_()
+    _bwd_launch("hetu_flash_bwd_dkv", "flash_bwd dK/dV", q, k, v, kv_lens,
+                lse, delta, do, (dk, dv), causal)
+    _build.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, kv_lens, lse, delta, do, *, causal=False):
+    """dq [B, S, H, D]: the dQ kernel on CUDA tensors (as
+    :func:`flash_bwd_dkv`); :func:`flash_bwd_dq_reference` on CPU
+    tensors."""
+    if not _check_bwd(q, k, v, kv_lens, lse, delta, do):
+        return flash_bwd_dq_reference(q, k, v, kv_lens, lse, delta, do,
+                                      causal=causal)
+    dq = torch.empty_like(q)
+    if q.shape[0] == 0 or q.shape[1] == 0:
+        return dq
+    if k.shape[1] == 0:
+        return dq.zero_()
+    _bwd_launch("hetu_flash_bwd_dq", "flash_bwd dQ", q, k, v, kv_lens, lse,
+                delta, do, (dq,), causal)
+    _build.LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd(q, k, v, kv_lens, o, lse, do, *, causal=False, g_lse=None):
+    """(dq, dk, dv) of flash attention from the forward's (o, lse) and
+    the output cotangent ``do``, with an optional lse cotangent
+    ``g_lse`` [B, H, S]: delta by :func:`bwd_delta`, then the dK/dV and
+    the dQ kernel (their plain versions on CPU tensors)."""
+    delta = bwd_delta(o, do, g_lse)
+    dk, dv = flash_bwd_dkv(q, k, v, kv_lens, lse, delta, do, causal=causal)
+    dq = flash_bwd_dq(q, k, v, kv_lens, lse, delta, do, causal=causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = flash attention of (q, k, v): K2 forward, saving (q, k, v,
+    kv_lens, o, lse); K3 backward (the JAX package's ``_flash`` custom
+    VJP, ``_flash_fwd_rule`` / ``_flash_bwd_rule``).  kv_lens and causal
+    take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal):
+        o, lse = flash_fwd(q, k, v, causal=causal, kv_lens=kv_lens)
+        ctx.save_for_backward(q, k, v, kv_lens, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_lens, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, kv_lens, o, lse, do.contiguous(),
+                               causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=False, kv_lens=None):
     """Flash attention on [B, S, H, D] (the JAX package's layout); the
-    output has q's dtype.  See :func:`flash_fwd`."""
-    return flash_fwd(q, k, v, causal=causal, kv_lens=kv_lens)[0]
+    output has q's dtype.  Differentiable in q, k and v
+    (:class:`FlashAttention`); with no grad it runs the forward alone and
+    keeps nothing, as the serving cores call it."""
+    return FlashAttention.apply(q, k, v, kv_lens, causal)

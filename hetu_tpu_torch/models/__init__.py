@@ -1,6 +1,7 @@
-"""Model code of the PyTorch port: the GPT config and the dense GPT
-decode cores (``gpt_decode``)."""
+"""Model code of the PyTorch port: the GPT config, the dense GPT
+decode cores (``gpt_decode``) and the trainable GPT (``gpt``)."""
 
+from .gpt import GPTBlock, GPTForCausalLM, GPTModel  # noqa: F401
 from .gpt_config import GPTConfig  # noqa: F401
 
-__all__ = ["GPTConfig"]
+__all__ = ["GPTBlock", "GPTConfig", "GPTForCausalLM", "GPTModel"]

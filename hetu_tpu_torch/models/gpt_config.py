@@ -1,6 +1,6 @@
 """``GPTConfig``: the GPT-2 topology's shape, copied from the JAX
-package's ``models/gpt.py`` so the port needs nothing of it.  The graph
-model beside it there waits for the training slice (ROADMAP A8)."""
+package's ``models/gpt.py`` so the port needs nothing of it; the model
+that trains on it is ``models/gpt.py``."""
 
 from __future__ import annotations
 

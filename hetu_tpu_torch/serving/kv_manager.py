@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import envvars, telemetry
+from ..device import resolve_device
 
 
 def round_up_pow2(n, floor=1):
@@ -186,16 +187,18 @@ class KVCacheManager:
     dtype, so bf16 params mean a bf16 cache — or "int8" for the int8
     cache (``quant`` is then "int8", else None).  The cache pair is
     ``[L, B, S_max, H, Dh]`` tensors on ``device`` (int8: each an
-    (int8 payload, f32 [L, B, S_max, H] scales) pair).
+    (int8 payload, f32 [L, B, S_max, H] scales) pair): the card unless
+    the caller passes ``device="cpu"`` (``device.resolve_device``).
     """
 
     def __init__(self, *, layers, heads, head_dim, slots, max_seq_len,
-                 pos_cap=None, dtype=torch.float32, device="cpu",
+                 pos_cap=None, dtype=torch.float32, device=None,
                  bucket=True):
         self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
                                                  pos_cap, bucket)
         self.pos_cap = int(pos_cap) if pos_cap is not None else self.s_max
         self.quant = "int8" if _is_int8(dtype) else None
+        device = resolve_device(device)
         shape = (layers, self.n_slots, self.s_max, heads, head_dim)
         self.cache_k = _alloc_cache(shape, dtype, self.quant, device)
         self.cache_v = _alloc_cache(shape, dtype, self.quant, device)
@@ -299,7 +302,7 @@ class PagedKVManager:
     """Block-pool allocator with per-request block tables.
 
     The cache pair is ``[L, N_blocks, block, H, Dh]`` tensors on
-    ``device``; a request holds ``ceil(tokens / block)`` blocks listed
+    ``device`` (the card unless the caller passes ``device="cpu"``); a request holds ``ceil(tokens / block)`` blocks listed
     in its slot's block-table row, so pool bytes bound the TOKENS held,
     not slots * S_max.  Block id 0 is a permanent scratch block.
 
@@ -318,7 +321,7 @@ class PagedKVManager:
     """
 
     def __init__(self, *, layers, heads, head_dim, slots, max_seq_len,
-                 pos_cap=None, dtype=torch.float32, device="cpu",
+                 pos_cap=None, dtype=torch.float32, device=None,
                  bucket=True, block=16, pool_blocks=None,
                  prefix_share=None):
         self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
@@ -340,6 +343,7 @@ class PagedKVManager:
             prefix_share = envvars.get_bool("HETU_KV_PREFIX_SHARE")
         self.prefix_share = bool(prefix_share)
         self.quant = "int8" if _is_int8(dtype) else None
+        device = resolve_device(device)
         shape = (layers, self.n_blocks, self.block, heads, head_dim)
         self.cache_k = _alloc_cache(shape, dtype, self.quant, device)
         self.cache_v = _alloc_cache(shape, dtype, self.quant, device)

@@ -253,10 +253,10 @@ def _manager_ops(paged):
     if paged:
         jm = PagedKVManager(block=4, prefix_share=True, dtype="int8", **shape)
         tm = TPagedKVManager(block=4, prefix_share=True, dtype=torch.int8,
-                             **shape)
+                             device="cpu", **shape)
     else:
         jm = KVCacheManager(dtype="int8", **shape)
-        tm = TKVCacheManager(dtype="int8", **shape)
+        tm = TKVCacheManager(dtype="int8", device="cpu", **shape)
     rng = np.random.RandomState(9)
 
     def write(slot, positions):
@@ -334,8 +334,8 @@ def test_int8_footprint_from_the_shapes():
     for Dh_, ratio in ((8, 12 / 32), (64, 68 / 256)):
         shape = dict(layers=3, heads=2, head_dim=Dh_, slots=4,
                      max_seq_len=64, block=16)
-        q = TPagedKVManager(dtype="int8", **shape)
-        f = TPagedKVManager(dtype=torch.float32, **shape)
+        q = TPagedKVManager(dtype="int8", device="cpu", **shape)
+        f = TPagedKVManager(dtype=torch.float32, device="cpu", **shape)
         n = 2 * 3 * q.n_blocks * 16 * 2
         assert q.cache_bytes == n * (Dh_ + 4)
         assert f.cache_bytes == n * Dh_ * 4

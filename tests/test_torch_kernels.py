@@ -340,6 +340,7 @@ def test_cpu_calls_launch_no_kernel():
         x, y = (pk, pv) if j % 2 else (k, v)
         (xq, xs), (yq, ys) = (kv_encode(_t(a)) for a in (x, y))
         call(xq, yq, k_scale=xs, v_scale=ys)
-    assert set(KERNELS) == {"flash_attention"} | {
+    assert set(KERNELS) == {"flash_attention", "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dq"} | {
         f"{n}{sfx}" for n in QUANT_KERNELS for sfx in ("", "_int8")}
     assert launch_counts() == dict.fromkeys(KERNELS, 0)

@@ -10,6 +10,7 @@ f32 ``atol 1e-5`` (the kernels sum the softmax in another order than
 the plain versions); bf16 ``atol 2^-12, rtol 2^-7`` (both sides round
 an f32 result to bf16, at most one bf16 ulp apart).  The int8 twins are
 held to the same: both sides form the same f32 product payload * scale.
+The flash backward (K3) is held to its own, stated at ``k3_close``.
 """
 
 import numpy as np
@@ -199,6 +200,97 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, S, Sk):
                                lse_r[live].cpu().numpy(), atol=1e-4)
 
 
+def k3_close(got, want, dtype):
+    """K3 against its plain version, element by element.  f32: atol 1e-4
+    + rtol 1e-4, since the sums over up to S rows run in another order.
+    bf16: both sides round P and dS to bf16 before the sums; a pre-
+    rounding value one f32 ulp apart may round to the neighbouring bf16
+    value, moving a sum by one bf16 ulp of one term, so atol is one bf16
+    ulp (2^-7) of the tensor's largest |want| and rtol one ulp."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -7,
+                                   atol=2.0 ** -7 * np.abs(want).max())
+
+
+K3_CASES = [(True, 100, 100, True), (False, 100, 100, True),
+            (False, 40, 72, True), (True, 40, 72, False),
+            (True, 128, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,S,Sk,with_lens", K3_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, S, Sk,
+                                       with_lens):
+    """K3's dK/dV and dQ kernels on causal and full attention, kv_lens
+    with a 0, Sk > S, S not a multiple of the 64-row tile."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(D + S)
+    q, do = (torch.randn((3, S, 4, D), generator=g).to(cuda, dt)
+             for _ in range(2))
+    k, v = (torch.randn((3, Sk, 4, D), generator=g).to(cuda, dt)
+            for _ in range(2))
+    lens = (torch.tensor([Sk - 3, 0, 9], dtype=torch.int32, device=cuda)
+            if with_lens else None)
+    o, lse = tfa.flash_fwd_reference(q, k, v, causal=causal, kv_lens=lens)
+    delta = tfa.bwd_delta(o, do)
+    reset_launches()
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, lens, lse, delta, do, causal=causal)
+    dq = tfa.flash_bwd_dq(q, k, v, lens, lse, delta, do, causal=causal)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_bwd_dq"] == 1
+    want_k, want_v = tfa.flash_bwd_dkv_reference(q, k, v, lens, lse, delta,
+                                                 do, causal=causal)
+    want_q = tfa.flash_bwd_dq_reference(q, k, v, lens, lse, delta, do,
+                                        causal=causal)
+    for got, want in ((dq, want_q), (dk, want_k), (dv, want_v)):
+        assert got.dtype == dt
+        k3_close(got, want, dtype)
+    if with_lens:
+        assert (dq[1] == 0).all() and (dk[1] == 0).all() \
+            and (dv[1] == 0).all()
+        assert (dk[2, 9:] == 0).all() and (dv[2, 9:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_autograd_on_the_card(cuda, dtype):
+    """Autograd through flash_attention (K2 forward, K3 backward) against
+    autograd through the plain forward, on the card."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(9)
+    q, k, v, do = (torch.randn((2, 130, 3, 64), generator=g).to(cuda, dt)
+                   for _ in range(4))
+    lens = torch.tensor([130, 77], dtype=torch.int32, device=cuda)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launches()
+    o = tfa.flash_attention(*xs, causal=True, kv_lens=lens)
+    got = torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd_dkv"],
+            counts["flash_attention_bwd_dq"]) == (1, 1, 1)
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_r, lse_r = tfa.flash_fwd_reference(*ys, causal=True, kv_lens=lens)
+    want = tfa.flash_bwd_reference(*(y.detach() for y in ys), lens,
+                                   o_r.detach(), lse_r.detach(), do,
+                                   causal=True)
+    for a, b in zip(got, want):
+        k3_close(a, b, dtype)
+    if dtype == "float32":
+        auto = torch.autograd.grad(o_r, ys, do)
+        for a, b in zip(got, auto):
+            k3_close(a, b, dtype)
+    with torch.no_grad():
+        reset_launches()
+        tfa.flash_attention(q, k, v, causal=True)
+        assert launch_counts()["flash_attention_bwd_dq"] == 0
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
     args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + [
@@ -214,6 +306,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.randn((1, 8, 2, 48), device=cuda)   # head dim 48
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(x, x, x, causal=True)
+    y = torch.randn((1, 8, 2, 64), device=cuda)
+    stat = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_bwd_dq(y, y, y, None, stat.double(), stat, y)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_bwd_dkv(y, y, y, None, stat, stat, y.transpose(1, 2)
+                          .contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="head dim"):
         tda.paged_decode_attention(x[:, 0], x, x, args[3][:1])
     with pytest.raises(ValueError, match="at most 16"):

@@ -167,11 +167,23 @@ def test_kv_cache_manager_matches_jax():
 
 def test_kv_cache_manager_refuses_what_is_not_ported():
     shape = dict(layers=1, heads=1, head_dim=4, slots=2, max_seq_len=16)
-    kv = TKVCacheManager(**shape)
+    kv = TKVCacheManager(device="cpu", **shape)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kv.export_blocks(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kv.import_blocks({}, "a")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_kv_managers_default_to_the_card(paged, monkeypatch):
+    """A manager built without a device allocates on CUDA, like every
+    entry point of the port: without a card it raises instead of
+    running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    shape = dict(layers=1, heads=1, head_dim=4, slots=2, max_seq_len=16)
+    cls = TPagedKVManager if paged else TKVCacheManager
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(**shape)
 
 
 # ------------------------------------------------------------------- #
