@@ -49,8 +49,14 @@ non-zero and prints no result line):
    Then the high-acceptance arm: layers 3-11 output-zeroed, all requests
    greedy, paged phase-split and paged mixed in f32 — tokens equal a
    non-speculative run on those weights, acceptance >= 0.9, fewer waves
-   than generated tokens.  Last, offline ``generate_fast(spec=4)`` on
-   phase 3's prompts equals phase 3's f32 tokens.
+   than generated tokens.  Then offline ``generate_fast(spec=4)`` on
+   phase 3's prompts equals phase 3's f32 tokens.  Last, speculation
+   deeper than the verify kernels' 16 rows: K6/K7 at Q 17 (two 16-row
+   groups, two launches) against their plain versions, f32 and bf16;
+   GPT-2-small cut to 4 layers, f32, phase-split
+   ``ServingEngine(spec=16, spec_adapt=False)`` on the slot rows and on
+   the pool, and ``generate_fast(spec=16)``: greedy tokens equal
+   ``spec=0``'s, two verify launches per layer per wave.
 7. The int8 KV cache (``kv_quant="int8"``).  First the six int8 twins
    (K1-int8, K4-int8 ... K8-int8) at phase 2's shapes, over phase 2's
    f32 K/V encoded by ``quant.kv_encode`` on the card (equal to the CPU
@@ -88,6 +94,27 @@ non-zero and prints no result line):
    trained f32 weights through the serving ``teacher_forced_logits`` on
    one 1024-token sequence equal the training model's eval logits of it
    within 1e-4.
+
+9. Context parallelism (``hetu_tpu_torch.parallel``) on a virtual mesh
+   of the card.  9a: K2-carry (``flash_attention_carry``, the carried
+   flash forward) against its plain version: f32 and bf16, head dims
+   32/64/128, causal and not, a carry that is empty, live or mixed row
+   by row, S 100 and 40 (1e-5 + 1e-5 rel: the output is f32 for both
+   dtypes); then at the ring's block shape [1, 2048, 12, 64] with a live
+   carry, timed beside its bound and its plain version (no single
+   PyTorch call computes a carried forward).  9b: ``ring_attention``
+   (``impl=None``: the flash path) at cp 4 over B 1, S 8192, 12 heads of
+   64, f32 and bf16, causal and not: the forward equal to K2 over the
+   whole sequence (f32 2e-5 + 2e-4 rel, bf16 one ulp), the gradients of
+   sum(o * g) through K2-carry + K3 equal to autograd through K2 + K3
+   over the whole sequence (f32 1e-4 of each tensor's max, bf16 cp
+   ulps), exactly cp + cp(cp - 1)/2 = 10 (causal) or cp^2 = 16
+   K2-carry launches and as many of each K3 kernel (a rotation above
+   the diagonal launches nothing); the ring's forward and forward +
+   backward times beside whole-sequence K2 (+ K3) and SDPA, peak
+   memory.  9c: ``ulysses_attention`` at cp 4 with the port's
+   ``flash_attention`` as ``attn_fn``: within 1e-6 of K2 over the whole
+   sequence, with cp K2 launches.
 
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
@@ -591,14 +618,26 @@ LAYOUT = {"paged-mixed": (True, True), "contiguous-split": (False, False),
           "paged-split": (True, False), "contiguous-mixed": (False, True)}
 
 
+def verify_launches(eng):
+    """Launches of the verify kernel per layer per phase-split wave: one
+    per 16-row group of the k + 1 row block (k fixed when the engine does
+    not adapt it; an adaptive k stays within one group up to spec 15)."""
+    if not eng.spec_k:
+        return 1
+    if eng.spec_adapt and eng.spec_k >= 16:
+        fail("an adaptive k past 15 has no fixed count of verify groups")
+    return -(-(eng.spec_k + 1) // 16)
+
+
 def want_launches(eng, L):
     """The exact launches of one engine run: mixed, the ragged kernel of
     the layout per layer per step (verify rows ride the wave);
     phase-split, the flash kernel per layer per flash group, the ragged
     paged kernel per layer per chunk pass, and per layer per wave the
-    decode kernel of the layout, or with speculation its verify kernel.
-    With an int8 cache each of those but flash (which attends to the
-    fresh K/V) is the int8 twin, and its float twin launches never.  A
+    decode kernel of the layout, or with speculation its verify kernel
+    (once per 16-row group of the block, ``verify_launches``).  With an
+    int8 cache each of those but flash (which attends to the fresh K/V)
+    is the int8 twin, and its float twin launches never.  A
     speculative engine's draft (never quantized) adds the contiguous
     decode kernel per draft layer per draft step (k + 1 a wave) and the
     flash kernel per draft layer per admission."""
@@ -615,7 +654,8 @@ def want_launches(eng, L):
         wave = (("paged_block_verify_attention", "paged_verify_attention")
                 if eng.spec_k else
                 ("paged_block_decode_attention", "paged_decode_attention"))
-        want[(wave[0] if eng.paged else wave[1]) + q] = L * eng.steps
+        want[(wave[0] if eng.paged else wave[1]) + q] = \
+            L * eng.steps * verify_launches(eng)
     if eng.spec_k:
         Ld = eng.spec_draft_layers
         want["paged_decode_attention"] += Ld * (eng.spec_k_sum
@@ -878,7 +918,106 @@ def phase6(torch, htt, params, cfg, spec, runs, res32, prompts, off_f32,
     log(f"  generate_fast spec {K} f32: tokens == phase 3's; {waves} "
         f"verify waves for {out.shape[0]} x 32 tokens in {sec:.3f} s; "
         f"launches {counts}")
+    deep_spec(torch, htt, params, cfg, spec, prompts, seed)
     return spec_runs
+
+
+# the long verify wave: Q = spec 16 + 1 over phase 2's slots, q_lens of
+# a full block, one ending on the 16-row edge, shorter ones, an inert
+# slot and a length-0 one
+LONG_QLENS = np.minimum(np.array([17, 16, 9, 0, 1, 17, 2, 17], np.int32),
+                        LENGTHS)
+
+
+def check_long_verify(torch, dtype, seed, paged):
+    """K7 (``paged``) or K6 on a 17-row verify block: two launches (the
+    16-row groups), every live row within TOL of the plain version over
+    the whole block.  Returns the max abs error."""
+    from hetu_tpu_torch.kernels import decode_attention as da
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    B, Q = len(LENGTHS), 17
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    q = torch.randn((B, Q, H, DH), generator=g,
+                    device="cuda").to(getattr(torch, dtype))
+    lens, ql = (torch.from_numpy(a).cuda() for a in (LENGTHS, LONG_QLENS))
+    if paged:
+        pool_k, pool_v, tables, _ = pool_case(torch, dtype, seed + 32)
+        args = (q, pool_k, pool_v, lens, ql, torch.from_numpy(tables).cuda())
+        run, plain = (da.paged_block_verify_attention,
+                      da.paged_block_verify_reference)
+    else:
+        k, v = slot_rows_case(torch, dtype, seed + 33)
+        args = (q, k, v, lens, ql)
+        run, plain = da.paged_verify_attention, da.masked_verify_reference
+    reset_launches()
+    got = run(*args)
+    torch.cuda.synchronize()
+    n = launch_counts()[run.__name__]
+    want = plain(*args).to(q.dtype)
+    if n != 2:
+        fail(f"{run.__name__} {dtype} Q {Q}: {n} launches (want 2)")
+    worst = 0.0
+    for b, m in enumerate(LONG_QLENS):
+        if m == 0:
+            continue
+        err, ok = compare(got[b, :m], want[b, :m], dtype)
+        worst = max(worst, err)
+        if not ok:
+            fail(f"{run.__name__} {dtype} Q {Q}: slot {b} max abs err "
+                 f"{err} (TOL {TOL[dtype]})")
+    log(f"  {run.__name__} {dtype} at Q {Q} (two 16-row groups, 2 "
+        f"launches): live rows == plain version, max abs err {worst:.3e}")
+    return worst
+
+
+def deep_spec(torch, htt, params, cfg, spec, prompts, seed):
+    """Speculation deeper than the verify kernels' 16 rows: K6/K7 at Q 17
+    against their plain versions; then GPT-2-small cut to 4 layers, f32:
+    phase-split ``ServingEngine(spec=16, spec_adapt=False)`` on the slot
+    rows and on the pool, and ``generate_fast(spec=16)``, each with the
+    greedy tokens of its ``spec=0`` run and two verify launches per layer
+    per wave."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    for paged in (False, True):
+        for dt in ("float32", "bfloat16"):
+            check_long_verify(torch, dt, seed, paged)
+    L, K = 4, 16
+    cfg4 = htt.GPTConfig(num_hidden_layers=L)
+    layer = re.compile(r"gpt_h(\d+)_")
+    p4 = {k: v for k, v in params.items()
+          if not layer.match(k) or int(layer.match(k).group(1)) < L}
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    for config in ("contiguous-split", "paged-split"):
+        plain, _, _ = serve(torch, htt, p4, cfg4, spec, "float32", config)
+        res, _, st = serve(torch, htt, p4, cfg4, spec, "float32", config,
+                           spec=K, spec_adapt=False)
+        bad = [i for i in greedy
+               if list(res[f"r{i}"].tokens) != list(plain[f"r{i}"].tokens)]
+        if bad:
+            fail(f"spec {K} {config} ({L} layers): greedy tokens differ "
+                 f"from spec 0's for requests {bad}")
+        log(f"  spec {K} {config} f32, {L} layers: greedy tokens == spec "
+            f"0's ({len(greedy)} requests), {st['spec_waves']} waves")
+    want_tok = htt.generate_fast(p4, cfg4, prompts, 32, dtype=torch.float32)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = htt.generate_fast(p4, cfg4, prompts, 32, spec=K,
+                            dtype=torch.float32)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    Ld = L // 4
+    waves = counts["paged_verify_attention"] // (2 * L)
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=L + Ld,
+                paged_verify_attention=2 * L * waves,
+                paged_decode_attention=Ld * (K + 1) * waves)
+    if counts != want or not waves:
+        fail(f"offline spec {K}: launches {counts}, want {want}")
+    if out.tolist() != want_tok.tolist():
+        fail(f"offline generate_fast(spec={K}) f32 tokens differ from "
+             f"spec 0's ({L} layers)")
+    log(f"  generate_fast spec {K} f32, {L} layers: tokens == spec 0's; "
+        f"{waves} verify waves, launches {counts}")
 
 
 def margin_gate(torch, params, cfg, want, got, prompt_len, oracle):
@@ -1307,6 +1446,273 @@ def phase8(torch, F, htt, seed, card, prof_dir=None):
     return kres, runs
 
 
+# ---------------------------------------------------------------- #
+# phase 9: context parallelism
+# ---------------------------------------------------------------- #
+
+# K2-carry vs its plain version: the output is f32 for both input dtypes
+# and both sides accumulate in f32 over the same inputs
+CARRY_TOL = (1e-5, 1e-5)
+# the ring at full width: GPT-2-small's attention (12 heads of 64) over
+# twice the 4096 tokens of examples/nlp/train_long_context.py, cp 4
+RB, RS, CP = 1, 8192, 4
+# ring forward vs whole-sequence K2: f32 the JAX tests' bound; bf16 one
+# ulp (both round an f32 result to bf16 once)
+RING_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (2.0 ** -12, 2.0 ** -7)}
+
+
+def carry_inputs(torch, B, S, Sk, Hn, D, dtype, kind, seed):
+    """q, k, v of ``dtype`` and a carry (o_c f32, lse_c f32): ``empty``
+    (lse -1e30 everywhere), ``live``, or ``mixed`` (every third row
+    empty)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, Hn, D), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((B, Sk, Hn, D), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    o_c = torch.randn((B, S, Hn, D), generator=g, device="cuda")
+    lse_c = 2.0 * torch.randn((B, Hn, S), generator=g, device="cuda") + 3.0
+    if kind == "empty":
+        o_c.zero_()
+        lse_c.fill_(-1e30)
+    elif kind == "mixed":
+        lse_c[..., ::3] = -1e30
+    return q, k, v, o_c, lse_c
+
+
+def carry_compare(torch, fa, args, causal):
+    """(max abs error of o, of the live lse, True when o is within
+    CARRY_TOL, the lse within LSE_TOL and the dead rows agree)."""
+    o, lse = fa.flash_fwd_carry(*args, causal=causal)
+    o_r, lse_r = fa.flash_fwd_carry_reference(*args, causal=causal)
+    atol, rtol = CARRY_TOL
+    diff = (o - o_r).abs()
+    live = lse_r < 1e29
+    lse_err = float((lse - lse_r)[live].abs().max()) if live.any() else 0.0
+    ok = bool(o.dtype == torch.float32 and o.isfinite().all()
+              and (diff <= atol + rtol * o_r.abs()).all()
+              and lse_err <= LSE_TOL and (lse[~live] >= 1e29).all())
+    return float(diff.max()), lse_err, ok
+
+
+def check_carry(torch, dtype, seed):
+    """9a: K2-carry against its plain version in small cases (head dims
+    32/64/128; causal and not; an empty, live and mixed carry; S 100 and
+    40, not multiples of the 32-row tile), then at the ring's block shape
+    [1, 2048, 12, 64] with a live carry (a full rotation), timed beside
+    its bound and its plain version."""
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    worst = 0.0
+    n = 0
+    for D in (32, 64, 128):
+        for causal, S, Sk in ((True, 100, 100), (False, 40, 72)):
+            for kind in ("empty", "live", "mixed"):
+                args = carry_inputs(torch, 3, S, Sk, 4, D, dtype, kind,
+                                    seed + D + S)
+                err, lse_err, ok = carry_compare(torch, fa, args, causal)
+                torch.cuda.synchronize()
+                worst = max(worst, err)
+                n += 1
+                if not ok:
+                    fail(f"K2-carry {dtype} D {D} causal {causal} S {S} Sk "
+                         f"{Sk} carry {kind}: max abs err {err}, lse "
+                         f"{lse_err} ((atol, rtol) {CARRY_TOL}, lse "
+                         f"{LSE_TOL})")
+    log(f"  K2-carry {dtype}: {n} cases (D 32/64/128; causal and not; "
+        f"carry empty, live, mixed; S 100/40) match the plain version, "
+        f"max abs err {worst:.3e} ((atol, rtol) {CARRY_TOL})")
+    blk = RS // CP
+    args = carry_inputs(torch, RB, blk, blk, H, DH, dtype, "live",
+                        seed + 40)
+    err, lse_err, ok = carry_compare(torch, fa, args, False)
+    if not ok:
+        fail(f"K2-carry {dtype} at the ring's block shape: max abs err "
+             f"{err}, lse {lse_err}")
+    ms = time_ms(torch, lambda: fa.flash_fwd_carry(*args))
+    plain_ms = time_ms(torch, lambda: fa.flash_fwd_carry_reference(*args),
+                       reps=5)
+    # q, k, v read once, o_c and lse_c read once, o (f32) and lse
+    # written once; every (q, k) pair of the full block is live
+    es = args[0].element_size()
+    n_el = RB * blk * H * DH
+    nbytes = 3 * n_el * es + 2 * n_el * 4 + 2 * RB * H * blk * 4
+    flops = 4 * RB * H * blk * blk * DH
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    log(f"  K2-carry flash_attention_carry {dtype} [{RB},{blk},{H},{DH}] "
+        f"full rotation, live carry: max_abs_err {err:.3e}, lse "
+        f"{lse_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
+        f"single PyTorch call computes a carried forward; bound "
+        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
+    return dict(err=max(worst, err), ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def ring_close(got, want, atol, rtol):
+    got, want = got.detach(), want.detach()
+    diff = (got.float() - want.float()).abs()
+    ok = bool(got.isfinite().all()
+              and (diff <= atol + rtol * want.float().abs()).all())
+    return float(diff.max()), ok
+
+
+def check_ring(torch, F, htt, dtype, causal, seed):
+    """9b: the cp-4 ring (``impl=None``, so the flash path on the card) on
+    a virtual mesh of the card at B 1, S 8192, 12 heads of 64, against
+    K2 (forward) and K2 + K3 (gradients of sum(o * g)) over the whole
+    sequence, with exact launch counts; times of both and of SDPA, peak
+    memory.  Returns the forward's launch counts and the numbers."""
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.parallel import make_mesh, ring_attention
+    mesh = make_mesh({"cp": CP})
+    g = torch.Generator(device="cuda").manual_seed(seed + 50)
+    dt = getattr(torch, dtype)
+    q, k, v, go = (torch.randn((RB, RS, H, DH), generator=g,
+                               device="cuda").to(dt) for _ in range(4))
+    live = CP + CP * (CP - 1) // 2 if causal else CP * CP
+
+    def ring(*a):
+        return ring_attention(*a, mesh=mesh, causal=causal)
+
+    def whole(*a):
+        return fa.flash_attention(*a, causal=causal)
+
+    tag = f"ring {dtype} {'causal' if causal else 'full'}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launches()
+    o = ring(*xs)
+    torch.cuda.synchronize()
+    fwd_counts = launch_counts()
+    reset_launches()
+    grads = torch.autograd.grad(o, xs, go)
+    torch.cuda.synchronize()
+    bwd_counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want_f = dict.fromkeys(fwd_counts, 0)
+    want_f["flash_attention_carry"] = live
+    want_b = dict.fromkeys(bwd_counts, 0)
+    want_b.update(flash_attention_bwd_dkv=live, flash_attention_bwd_dq=live)
+    if fwd_counts != want_f or bwd_counts != want_b:
+        fail(f"{tag}: forward launches {fwd_counts} (want {want_f}), "
+             f"backward {bwd_counts} (want {want_b})")
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_w = whole(*ys)
+    want = torch.autograd.grad(o_w, ys, go)
+    err, ok = ring_close(o, o_w, *RING_TOL[dtype])
+    if not ok:
+        fail(f"{tag}: forward max abs err {err} vs whole-sequence K2 "
+             f"((atol, rtol) {RING_TOL[dtype]})")
+    g_errs = []
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        m = float(b.float().abs().max())
+        atol = (1e-4 if dtype == "float32" else CP * 2.0 ** -7) * m
+        e, ok = ring_close(a, b, atol, 0.0)
+        g_errs.append(e / m)
+        if not ok:
+            fail(f"{tag}: {name} max abs err {e} vs K2 + K3 over the "
+                 f"whole sequence (atol {atol}: "
+                 f"{'1e-4' if dtype == 'float32' else f'{CP} bf16 ulps'} "
+                 f"of the max {m})")
+
+    def ring_fb():
+        zs = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(ring(*zs), zs, go)
+
+    def whole_fb():
+        zs = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(whole(*zs), zs, go)
+
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, go))
+
+    def sdpa_fb():
+        zs = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            *zs, is_causal=causal), zs, gt)
+
+    with torch.no_grad():
+        t_ring = time_ms(torch, lambda: ring(q, k, v), reps=5, warm=1)
+        t_whole = time_ms(torch, lambda: whole(q, k, v), reps=5, warm=1)
+        t_sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=5, warm=1)
+    tb_ring = time_ms(torch, ring_fb, reps=3, warm=1)
+    tb_whole = time_ms(torch, whole_fb, reps=3, warm=1)
+    tb_sdpa = time_ms(torch, sdpa_fb, reps=3, warm=1)
+    log(f"  {tag} cp {CP} [{RB},{RS},{H},{DH}]: forward max abs err "
+        f"{err:.3e} vs whole-sequence K2 ((atol, rtol) "
+        f"{RING_TOL[dtype]}); gradients' max err / max |g| "
+        f"{max(g_errs):.3e}; launches forward {live} K2-carry, backward "
+        f"{live} of each K3 kernel; forward {t_ring:.4f} ms (whole K2 "
+        f"{t_whole:.4f}, SDPA {t_sdpa:.4f}); forward + backward "
+        f"{tb_ring:.4f} ms (whole K2 + K3 {tb_whole:.4f}, SDPA "
+        f"{tb_sdpa:.4f}); peak {peak / 2 ** 20:.1f} MiB")
+    return fwd_counts, dict(err=err, ring_ms=t_ring, whole_ms=t_whole,
+                            sdpa_ms=t_sdpa, ring_fb_ms=tb_ring,
+                            whole_fb_ms=tb_whole, sdpa_fb_ms=tb_sdpa,
+                            peak_bytes=peak)
+
+
+def check_ulysses(torch, dtype, seed):
+    """9c: Ulysses (cp 4) on a virtual mesh of the card with the port's
+    flash_attention as attn_fn: within 1e-6 of K2 over the whole
+    sequence (each head group runs the same per-head arithmetic), with
+    cp K2 launches; its forward and forward + backward times."""
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.parallel import make_mesh, ulysses_attention
+    mesh = make_mesh({"cp": CP})
+    g = torch.Generator(device="cuda").manual_seed(seed + 60)
+    q, k, v, go = (torch.randn((RB, RS, H, DH), generator=g,
+                               device="cuda").to(getattr(torch, dtype))
+                   for _ in range(4))
+
+    def uly(*a):
+        return ulysses_attention(*a, mesh=mesh, causal=True,
+                                 attn_fn=lambda q, k, v, c:
+                                 fa.flash_attention(q, k, v, causal=c))
+
+    reset_launches()
+    got = uly(q, k, v)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = fa.flash_attention(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    n = counts["flash_attention"]
+    if not err <= 1e-6 or n != CP or sum(counts.values()) != CP:
+        fail(f"ulysses {dtype}: max abs err {err} vs whole-sequence K2 "
+             f"(tol 1e-6), launches {counts} (want {CP} flash_attention)")
+
+    def uly_fb():
+        zs = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(uly(*zs), zs, go)
+
+    with torch.no_grad():
+        t_fwd = time_ms(torch, lambda: uly(q, k, v), reps=5, warm=1)
+    t_fb = time_ms(torch, uly_fb, reps=3, warm=1)
+    log(f"  ulysses {dtype} cp {CP} [{RB},{RS},{H},{DH}] causal, K2 as "
+        f"attn_fn: max abs err {err:.3e} vs whole-sequence K2 (tol 1e-6), "
+        f"{n} K2 launches; forward {t_fwd:.4f} ms, forward + backward "
+        f"{t_fb:.4f} ms")
+
+
+def phase9(torch, F, htt, seed):
+    """Context parallelism: 9a K2-carry, 9b the ring, 9c Ulysses.
+    Returns ({dtype: K2-carry result}, {dtype: the causal ring's forward
+    launches})."""
+    kres, counts = {}, {}
+    for dt in ("float32", "bfloat16"):
+        kres[dt] = check_carry(torch, dt, seed)
+    for dt in ("float32", "bfloat16"):
+        for causal in (True, False):
+            c, _ = check_ring(torch, F, htt, dt, causal, seed)
+            if causal:
+                counts[dt] = c
+    for dt in ("float32", "bfloat16"):
+        check_ulysses(torch, dt, seed)
+    return kres, counts
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -1464,6 +1870,11 @@ def main(argv=None):
     kres8, train_runs = phase8(torch, F, htt, args.seed, card,
                                prof_dir=args.profile)
 
+    # ---- phase 9 ---- #
+    log("phase 9: context parallelism: K2-carry vs its plain version, the "
+        "cp-4 ring and Ulysses at full width on a virtual mesh")
+    kres9, ring_counts = phase9(torch, F, htt, args.seed)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
@@ -1542,6 +1953,17 @@ def main(argv=None):
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"]))
+    # K2-carry: launches from phase 9's causal ring of its dtype
+    for dt in ("float32", "bfloat16"):
+        r = kres9[dt]
+        kernels.append(dict(
+            name=f"flash_attention_carry[{dt}]", route="cuda",
+            source=src + "flash_fwd.cu",
+            replaces="hetu_tpu/kernels/flash_attention.py:173",
+            launches=ring_counts[dt]["flash_attention_carry"],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -17,7 +17,11 @@ runs it:
   (ONE ragged wave per step) or the phase-split one (flash prefill
   groups, chunk passes, then one decode wave);
 - speculative decoding (``spec=``) in both: a truncated-layer draft
-  proposes, the target verifies in one step per wave.
+  proposes, the target verifies in one step per wave;
+- ``parallel``: context parallelism over a mesh of named axes
+  (``make_mesh``): ``ring_attention`` (the carried flash kernel on each
+  live rotation), ``ulysses_attention`` and ``blockwise_attention``,
+  on virtual ranks of one device or under ``torch.distributed``.
 
 Every TPU kernel on these paths is a CUDA C++ kernel for Hopper
 (``kernels/csrc``), built by ``nvcc`` at first use.  Entry points run on
@@ -25,6 +29,7 @@ the card unless the caller passes ``device="cpu"``, where the kernels'
 plain PyTorch versions run instead.
 """
 
+from . import parallel  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .models import GPTConfig, GPTForCausalLM  # noqa: F401
@@ -34,4 +39,4 @@ from .weights import params_from_numpy  # noqa: F401
 
 __all__ = ["Executor", "GPTConfig", "GPTForCausalLM", "Request",
            "ServingEngine", "generate_fast", "params_from_numpy",
-           "resolve_device"]
+           "parallel", "resolve_device"]

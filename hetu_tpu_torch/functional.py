@@ -34,8 +34,14 @@ def linear(x, w, bias=None, trans_b=False):
     """x @ w (+ bias), w ``[in, out]`` (``[out, in]`` with ``trans_b``),
     f32 accumulation rounded back to x's dtype (``graph/ops_matmul.py:18-35``
     ``_mm`` / ``linear_op``; a bf16 ``torch.matmul`` accumulates in
-    f32)."""
-    y = torch.matmul(x, w.t() if trans_b else w)
+    f32).  Operands of two dtypes are promoted first, as ``jnp.matmul``
+    promotes them, and the product keeps x's dtype."""
+    w = w.t() if trans_b else w
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(dt), w.to(dt)).to(x.dtype)
+    else:
+        y = torch.matmul(x, w)
     return y if bias is None else y + bias
 
 

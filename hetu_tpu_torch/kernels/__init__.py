@@ -5,9 +5,12 @@ tensor (see ``_build``).
 
 - ``flash_attention``: forward flash attention on [B, S, H, D]
   (csrc/flash_fwd.cu), the batched prefill of ``generate_fast`` and of
-  the phase-split schedulers, and the training forward; its backward
-  (csrc/flash_bwd.cu, counted as ``flash_attention_bwd_dkv`` and
-  ``flash_attention_bwd_dq``) is the training backward.
+  the phase-split schedulers, and the training forward; its carried
+  form (the same source, counted as ``flash_attention_carry``) is
+  every live rotation of ``parallel.ring_attention``'s flash path; its
+  backward (csrc/flash_bwd.cu, counted as ``flash_attention_bwd_dkv``
+  and ``flash_attention_bwd_dq``) is the training backward and the
+  ring's.
 - ``ragged_attention.ragged_paged_attention`` /
   ``ragged_attention.ragged_attention``: the mixed wave over the
   block-table pool / the slot-contiguous cache (csrc/ragged_paged.cu);
@@ -37,8 +40,8 @@ from ._build import LAUNCHES, reset_launches  # noqa: F401
 QUANT_KERNELS = ("ragged_paged_attention", "ragged_attention",
                  "paged_decode_attention", "paged_block_decode_attention",
                  "paged_verify_attention", "paged_block_verify_attention")
-KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dq") + QUANT_KERNELS \
+KERNELS = ("flash_attention", "flash_attention_carry",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq") + QUANT_KERNELS \
     + tuple(f"{n}_int8" for n in QUANT_KERNELS)
 
 

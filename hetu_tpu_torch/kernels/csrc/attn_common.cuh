@@ -75,6 +75,20 @@ template <int DH> struct RowState {
     l = 0.f;
   }
 
+  // Seed the state from a previous partial (ring attention's carry): a
+  // normalised output row oc_row and its logsumexp lse_c.  Any (m, l,
+  // acc) with acc / l == o_c and m + log l == lse_c continues the stream
+  // exactly; a live row (lse_c > NEG_INF / 2) takes m = lse_c, l = 1,
+  // acc = o_c, and a dead row stays empty as init left it.
+  __device__ __forceinline__ void seed(const float* oc_row, float lse_c,
+                                       int lane) {
+    if (!(lse_c > kNegInf / 2)) return;
+#pragma unroll
+    for (int i = 0; i < kDpt; ++i) acc[i] = oc_row[lane + kLanesPerRow * i];
+    m = lse_c;
+    l = 1.f;
+  }
+
   // Fold keys [t0 + c, t0 + c + CH) of the staged tile into the state;
   // tile rows at or past n are neither read nor scored.  A key at
   // absolute position p is live for this row iff p <= row_lim; the

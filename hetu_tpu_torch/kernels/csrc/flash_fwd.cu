@@ -1,19 +1,31 @@
 // Forward flash attention on the [B, S, H, D] layout, causal or not, with
-// an optional per-sequence kv_lens mask and the per-row logsumexp.
+// an optional per-sequence kv_lens mask and the per-row logsumexp, and
+// its carried form, ring attention's per-rotation step.
 //
 // Replaces: hetu_tpu/kernels/flash_attention.py::_flash_fwd (Pallas body
 // _fwd_kernel), as flash_attention(q, k, v, causal, kv_lens) reaches it
-// for batched prefill.  Keys at positions >= kv_lens[b] are masked, a
-// causal row i sees keys <= i, a row with no live key outputs 0 and an
-// lse of +1e30 (the value the backward pass expects), and the output has
-// q's dtype; lse is [B, H, S] f32.
+// for batched prefill and training (K2), and as
+// _flash_stats_carry / flash_attention_with_carry reach it with a carry
+// (K2-carry, the `carried` prologue of _fwd_kernel) on every live
+// rotation of parallel/context_parallel.py::_ring_attention_flash.
+// Keys at positions >= kv_lens[b] are masked, a causal row i sees keys
+// <= i, a row with no live key outputs 0 and an lse of +1e30 (the value
+// the backward pass expects), and the output has q's dtype; lse is
+// [B, H, S] f32.  With a carry (o_c [B, S, H, D] f32, normalised, and
+// lse_c [B, H, S] f32, NEG_INF where empty) the online softmax starts
+// from the previous partial instead of from nothing, so o (f32) and lse
+// are exact attention over the union of the carried keys and these; a
+// row with no live key in either part gets 0 and +1e30.  kv_lens and a
+// carry are not combined (the Pallas code asserts the same).
 //
 // What bounds it on an H100: a causal prompt of P tokens costs about
 // 2*P*P*H*D flops (QK^T and PV over the lower triangle) against
 // 4*P*H*D elements moved, i.e. P/4 flops per bf16 byte.  In f32 (run
 // without tensor cores, for parity) the 67 TFLOP/s f32 rate bounds it at
 // any prefill length; in bf16 the bytes bound it up to P ~ 1200 and the
-// 989 TFLOP/s tensor-core rate beyond.
+// 989 TFLOP/s tensor-core rate beyond.  The carry adds one f32 read of
+// o_c and lse_c per row and makes o f32: at the ring's block of 2048
+// rows, Dh 64, the flops still bound it.
 //
 // What this simple design does about it: one block per (32-row q tile,
 // head, sequence) streams only the live keys, [0, min(kv_len, causal
@@ -23,19 +35,30 @@
 // denominator and the output accumulate in f32 on the CUDA cores; the
 // products are not on the tensor cores yet (wgmma, TMA and warp
 // specialisation are later work), so this kernel runs far from its
-// bound.
+// bound.  The carry is a compile-time template flag: it only seeds
+// each row's registers from o_c and lse_c before the key loop (so the
+// ring's merge costs no pass of its own), and the carry-free instance
+// is the kernel K2 always was.
 #include <cmath>
+#include <type_traits>
 
 #include "attn_common.cuh"
 
 namespace hetu {
 
-template <typename T, int DH>
+// The output's element type: q's, or f32 with a carry.
+template <typename T, bool kCarry>
+using OutOf = std::conditional_t<kCarry, float, T>;
+
+template <typename T, int DH, bool kCarry>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_lens,
-                 T* __restrict__ out, float* __restrict__ lse, int S,
-                 int Sk, int H, int causal, float scale) {
+                 const float* __restrict__ o_c,
+                 const float* __restrict__ lse_c,
+                 OutOf<T, kCarry>* __restrict__ out,
+                 float* __restrict__ lse, int S, int Sk, int H, int causal,
+                 float scale) {
   constexpr int KT = TileKeys<DH>::value;
   __shared__ float ks[KT][DH];
   __shared__ float vs[KT][DH];
@@ -58,6 +81,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   RowState<DH> st;
   st.init(q + ((size_t)(b * S + ic) * H + h) * DH, lane);
+  if constexpr (kCarry)
+    st.seed(o_c + ((size_t)(b * S + ic) * H + h) * DH,
+            lse_c[((size_t)b * H + h) * S + ic], lane);
 
   for (int t0 = 0; t0 < kv_end; t0 += KT) {
     const int n = min(KT, kv_end - t0);
@@ -72,32 +98,51 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_lens, void* out, float* lse, int B, int S,
-                   int Sk, int H, int causal, cudaStream_t stream) {
-  const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  flash_fwd_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_lens, static_cast<T*>(out), lse, S, Sk,
-      H, causal, static_cast<float>(1.0 / sqrt(static_cast<double>(DH))));
+// The arguments of one launch; o_c and lse_c are read only with a carry.
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* kv_lens;
+  const float* o_c;
+  const float* lse_c;
+  void* out;
+  float* lse;
+  int B, S, Sk, H, causal;
+};
+
+template <typename T, int DH, bool kCarry>
+cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.S + kRowsPerBlock - 1) / kRowsPerBlock, a.H, a.B);
+  flash_fwd_kernel<T, DH, kCarry><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.kv_lens, a.o_c, a.lse_c,
+      static_cast<OutOf<T, kCarry>*>(a.out), a.lse, a.S, a.Sk, a.H,
+      a.causal, static_cast<float>(1.0 / sqrt(static_cast<double>(DH))));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
-                        const int* kv_lens, void* out, float* lse, int B,
-                        int S, int Sk, int H, int Dh, int causal,
-                        cudaStream_t stream) {
+template <typename T, bool kCarry>
+cudaError_t dispatch_dh(const FwdArgs& a, int Dh, cudaStream_t stream) {
   switch (Dh) {
-    case 32: return launch<T, 32>(q, k, v, kv_lens, out, lse, B, S, Sk, H,
-                                  causal, stream);
-    case 64: return launch<T, 64>(q, k, v, kv_lens, out, lse, B, S, Sk, H,
-                                  causal, stream);
-    case 128: return launch<T, 128>(q, k, v, kv_lens, out, lse, B, S, Sk,
-                                    H, causal, stream);
+    case 32: return launch<T, 32, kCarry>(a, stream);
+    case 64: return launch<T, 64, kCarry>(a, stream);
+    case 128: return launch<T, 128, kCarry>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool kCarry>
+int dispatch(const FwdArgs& a, int Dh, int dtype, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = dispatch_dh<float, kCarry>(a, Dh, st);
+  else if (dtype == 1)
+    err = dispatch_dh<__nv_bfloat16, kCarry>(a, Dh, st);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 }  // namespace hetu
@@ -109,17 +154,24 @@ extern "C" int hetu_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kv_lens, void* out, void* lse,
                               int B, int S, int Sk, int H, int Dh,
                               int causal, int dtype, void* stream) {
-  const auto* lens = static_cast<const int*>(kv_lens);
-  auto* lse_f = static_cast<float*>(lse);
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = hetu::dispatch_dh<float>(q, k, v, lens, out, lse_f, B, S, Sk, H,
-                                   Dh, causal, st);
-  else if (dtype == 1)
-    err = hetu::dispatch_dh<__nv_bfloat16>(q, k, v, lens, out, lse_f, B, S,
-                                           Sk, H, Dh, causal, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const hetu::FwdArgs a{q, k, v, static_cast<const int*>(kv_lens),
+                        nullptr, nullptr, out, static_cast<float*>(lse),
+                        B, S, Sk, H, causal};
+  return hetu::dispatch<false>(a, Dh, dtype, stream);
+}
+
+// The carried forward: o_c [B, S, H, Dh] and lse_c [B, H, S] f32 seed
+// each row; out is f32 [B, S, H, Dh] whatever q's dtype.  Returns as
+// hetu_flash_fwd.
+extern "C" int hetu_flash_fwd_carry(const void* q, const void* k,
+                                    const void* v, const void* o_c,
+                                    const void* lse_c, void* out,
+                                    void* lse, int B, int S, int Sk, int H,
+                                    int Dh, int causal, int dtype,
+                                    void* stream) {
+  const hetu::FwdArgs a{q, k, v, nullptr,
+                        static_cast<const float*>(o_c),
+                        static_cast<const float*>(lse_c), out,
+                        static_cast<float*>(lse), B, S, Sk, H, causal};
+  return hetu::dispatch<true>(a, Dh, dtype, stream);
 }

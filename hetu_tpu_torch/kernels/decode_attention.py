@@ -20,7 +20,10 @@ CPU tensors; nothing falls back from one to the other.  An int8 cache
 (``quant.kv_encode``'s payload) passes ``k_scale``/``v_scale``, one f32
 scale per (position, head), and launches the int8 twin of its kernel
 (``csrc/decode_attention_int8.cu``, K4-int8 to K7-int8), which
-dequantizes each tile as it stages it.
+dequantizes each tile as it stages it.  The verify kernels take
+q-blocks of at most 16 rows; the wrappers serve any Q on CUDA by cutting
+a longer block into groups of 16 rows, one launch each (see
+:func:`verify_groups`).
 """
 
 from __future__ import annotations
@@ -137,15 +140,30 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
 _MAX_Q = 16
 
 
-def _check_verify(kind, q, k, v, lengths, q_lens, index, k_scale,
-                  v_scale):
-    quant = _check_args(kind, q, k, v, lengths, q_lens, index, k_scale,
-                        v_scale)
-    if q.device.type == "cuda" and q.shape[1] > _MAX_Q:
-        raise ValueError(f"{kind} kernel takes q-blocks of at most "
-                         f"{_MAX_Q} rows (spec <= {_MAX_Q - 1}), got "
-                         f"{q.shape[1]}")
-    return quant
+def verify_groups(q, lengths, q_lens):
+    """A verify q-block [B, Q, H, Dh] cut into groups of at most 16 rows,
+    as (q_c, lengths_c, q_lens_c) per group: group c of slot b holds
+    rows [16c, 16c + n_c), n_c = clamp(q_len - 16c, 0, 16), over its
+    lengths - q_len + 16c + n_c filled positions, so each live row sees
+    exactly the positions it sees in the whole block.  A group with
+    n_c = 0 is inert (length 0, zeros out) and reads nothing; a dead row
+    of a live group clips to the slot's last live position as before."""
+    out = []
+    for c0 in range(0, q.shape[1], _MAX_Q):
+        n = (q_lens - c0).clamp(0, _MAX_Q)
+        lens = torch.where(n > 0, lengths - q_lens + c0 + n, 0)
+        out.append((q[:, c0:c0 + _MAX_Q].contiguous(),
+                    lens.to(lengths.dtype), n.to(q_lens.dtype)))
+    return out
+
+
+def _verify(q, lengths, q_lens, run):
+    """``run(q, lengths, q_lens)`` on the whole block when it fits the
+    kernel, else on each of :func:`verify_groups`, the outputs joined."""
+    if q.shape[1] <= _MAX_Q:
+        return run(q, lengths, q_lens)
+    return torch.cat([run(*g) for g in verify_groups(q, lengths, q_lens)],
+                     dim=1)
 
 
 def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
@@ -158,22 +176,24 @@ def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     an int8 cache; lengths: [B] int32, the filled count INCLUDING the
     q-block's live positions (0 = inert slot, zeros out); q_lens: [B]
     int32 live queries per slot.  Returns o [B, Q, H, Dh] in q's dtype.
-    CUDA tensors launch the kernel (the decode kernel's terms, and Q <=
-    16); CPU tensors run :func:`masked_verify_reference`."""
-    quant = _check_verify("paged_verify_attention", q, k, v, lengths,
-                          q_lens, {"lengths": lengths, "q_lens": q_lens},
-                          k_scale, v_scale)
+    CUDA tensors launch the kernel (the decode kernel's terms; a block of
+    more than 16 rows launches it once per group of :func:`verify_groups`,
+    whose dead groups give zeros); CPU tensors run
+    :func:`masked_verify_reference`."""
+    quant = _check_args("paged_verify_attention", q, k, v, lengths,
+                        q_lens, {"lengths": lengths, "q_lens": q_lens},
+                        k_scale, v_scale)
     if k.shape[0] != q.shape[0]:
         raise ValueError("paged_verify_attention: k/v must hold one row "
                          "per slot of q")
     if q.device.type == "cpu":
         return masked_verify_reference(q, k, v, lengths, q_lens, k_scale,
                                        v_scale).to(q.dtype)
-    B, Q, H, Dh = q.shape
-    return _launch("decode_attention", "hetu_paged_verify_attention",
-                   "paged_verify_attention", q,
-                   _kv(k, v, k_scale, v_scale, quant), (lengths, q_lens),
-                   (B, Q, H, Dh, k.shape[1]))
+    kv = _kv(k, v, k_scale, v_scale, quant)
+    return _verify(q, lengths, q_lens, lambda qc, lc, nc: _launch(
+        "decode_attention", "hetu_paged_verify_attention",
+        "paged_verify_attention", qc, kv, (lc, nc),
+        (*qc.shape, k.shape[1])))
 
 
 def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
@@ -186,12 +206,13 @@ def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
     pool; lengths / q_lens: [B] int32 as in
     :func:`paged_verify_attention`; block_tables: [B, T] int32 as in
     :func:`paged_block_decode_attention`.  Returns o [B, Q, H, Dh] in q's
-    dtype.  CUDA tensors launch the kernel; CPU tensors run
+    dtype.  CUDA tensors launch the kernel (per group of
+    :func:`verify_groups` past 16 rows); CPU tensors run
     :func:`paged_block_verify_reference`."""
-    quant = _check_verify("paged_block_verify_attention", q, pool_k,
-                          pool_v, lengths, q_lens,
-                          {"lengths": lengths, "q_lens": q_lens,
-                           "block_tables": block_tables}, k_scale, v_scale)
+    quant = _check_args("paged_block_verify_attention", q, pool_k, pool_v,
+                        lengths, q_lens,
+                        {"lengths": lengths, "q_lens": q_lens,
+                         "block_tables": block_tables}, k_scale, v_scale)
     if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
         raise ValueError("paged_block_verify_attention: block_tables must "
                          "be [B, T]")
@@ -199,9 +220,8 @@ def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
         return paged_block_verify_reference(q, pool_k, pool_v, lengths,
                                             q_lens, block_tables, k_scale,
                                             v_scale).to(q.dtype)
-    B, Q, H, Dh = q.shape
-    return _launch("decode_attention", "hetu_paged_block_verify_attention",
-                   "paged_block_verify_attention", q,
-                   _kv(pool_k, pool_v, k_scale, v_scale, quant),
-                   (lengths, q_lens, block_tables),
-                   (B, Q, H, Dh, pool_k.shape[1], block_tables.shape[1]))
+    kv = _kv(pool_k, pool_v, k_scale, v_scale, quant)
+    return _verify(q, lengths, q_lens, lambda qc, lc, nc: _launch(
+        "decode_attention", "hetu_paged_block_verify_attention",
+        "paged_block_verify_attention", qc, kv, (lc, nc, block_tables),
+        (*qc.shape, pool_k.shape[1], block_tables.shape[1])))

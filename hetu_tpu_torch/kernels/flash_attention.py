@@ -1,17 +1,22 @@
 """Flash attention on [B, S, H, D], the port of the JAX package's Pallas
-``flash_attention``: the forward (``_flash_fwd`` / ``_fwd_kernel``, K2)
-and the FlashAttention-2 backward (``_flash_bwd``: ``_bwd_dkv_kernel``
-and ``_bwd_dq_kernel``, K3).
+``flash_attention``: the forward (``_flash_fwd`` / ``_fwd_kernel``, K2),
+its carried form (``_flash_fwd(carry=...)``, K2-carry, ring attention's
+per-rotation step) and the FlashAttention-2 backward (``_flash_bwd``:
+``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``, K3).
 
-``flash_fwd`` launches ``csrc/flash_fwd.cu``; ``flash_bwd_dkv`` and
-``flash_bwd_dq`` launch the two kernels of ``csrc/flash_bwd.cu``; each
-runs its plain PyTorch version (``*_reference``) on CPU tensors, and
-nothing falls back from one to the other.  Causal or not, with an
-optional ``kv_lens [B]`` padding mask: a row with no live key outputs 0
-and its logsumexp is +1e30, as the Pallas forward emits it, so the
-backward recomputes P = 0 there.  ``flash_attention`` is differentiable
-in q, k and v through :class:`FlashAttention` (K2 forward, K3
-backward); called with no grad, it launches K2 alone.
+``flash_fwd`` and ``flash_fwd_carry`` launch ``csrc/flash_fwd.cu``;
+``flash_bwd_dkv`` and ``flash_bwd_dq`` launch the two kernels of
+``csrc/flash_bwd.cu``; each runs its plain PyTorch version
+(``*_reference``) on CPU tensors, and nothing falls back from one to
+the other.  Causal or not, with an optional ``kv_lens [B]`` padding
+mask: a row with no live key outputs 0 and its logsumexp is +1e30, as
+the Pallas forward emits it, so the backward recomputes P = 0 there.
+``flash_attention`` is differentiable in q, k and v through
+:class:`FlashAttention` (K2 forward, K3 backward); called with no grad,
+it launches K2 alone.  ``flash_attention_with_lse`` (K2 + K3 with an
+lse cotangent) and ``flash_attention_with_carry`` (K2-carry + K3 and
+the carry's elementwise terms) also return the logsumexp and are
+differentiable in every tensor argument.
 """
 
 from __future__ import annotations
@@ -81,6 +86,21 @@ def _check_args(q, k, v, kv_lens):
         raise ValueError(f"kv_lens must be [B={B}] on {q.device}")
 
 
+def _check_kernel(q, tensors, names):
+    """The flash kernels' terms for CUDA tensors: f32 or bf16, head dim
+    32/64/128, ``tensors`` contiguous.  Raises ValueError."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash kernel takes float32/bfloat16, got "
+                         f"{q.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head dim in {_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"flash kernel takes contiguous {names}")
+
+
 def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
     """(o [B, S, H, D], lse [B, H, S] f32).  CUDA tensors launch the
     kernel (f32 or bf16, head dim 32/64/128, contiguous, kv_lens int32);
@@ -88,18 +108,9 @@ def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
     _check_args(q, k, v, kv_lens)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, kv_lens=kv_lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash kernel takes float32/bfloat16, got "
-                         f"{q.dtype}")
+    _check_kernel(q, (q, k, v), "q, k, v")
     B, S, H, D = q.shape
     Sk = k.shape[1]
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dim in {_HEAD_DIMS}, "
-                         f"got {D}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash kernel takes contiguous q, k, v")
     if kv_lens is not None and (kv_lens.dtype != torch.int32
                                 or not kv_lens.is_contiguous()):
         raise ValueError("kv_lens must be a contiguous int32 tensor")
@@ -121,6 +132,83 @@ def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
                 int(bool(causal)), _DTYPES[q.dtype], _build.stream_of(q))
     _build.check(lib, rc, "flash_fwd launch")
     _build.LAUNCHES["flash_attention"] += 1
+    return o, lse
+
+
+def _carry_live(lse_c):
+    """[B, H, S] bool: the carried partial has a live key there."""
+    return lse_c > NEG_INF / 2
+
+
+def flash_fwd_carry_reference(q, k, v, o_c, lse_c, *, causal=False):
+    """The plain version of the carried forward kernel, in f32: exact
+    attention over the union of the carried keys (one virtual key per row
+    with score ``lse_c`` and value ``o_c``, present where lse_c >
+    NEG_INF / 2) and these (k, v).  Returns (o [B, S, H, D] f32, lse
+    [B, H, S] f32, +1e30 on rows with no live key in either part)."""
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    live = _live_mask(S, Sk, causal, None, q.device).expand_as(s)
+    c_live = _carry_live(lse_c)[..., None]                     # [B,H,S,1]
+    s = torch.cat([s, lse_c.float()[..., None]], dim=-1)
+    live = torch.cat([live, c_live], dim=-1)
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    row_live = live.any(dim=-1)                                # [B,H,S]
+    p = torch.softmax(s, dim=-1) * row_live[..., None]
+    o = torch.einsum("bhqk,bkhd->bqhd", p[..., :Sk], v.float()) \
+        + p[..., Sk].transpose(1, 2)[..., None] * o_c.float()
+    lse = torch.where(row_live, torch.logsumexp(s, dim=-1),
+                      torch.full_like(row_live, -NEG_INF, dtype=s.dtype))
+    return o, lse
+
+
+def _check_carry(q, o_c, lse_c):
+    B, S, H, D = q.shape
+    if o_c.shape != q.shape or o_c.dtype != torch.float32 \
+            or o_c.device != q.device:
+        raise ValueError(f"o_carry must be float32 {tuple(q.shape)} on "
+                         f"{q.device}, got {o_c.dtype} "
+                         f"{tuple(o_c.shape)} on {o_c.device}")
+    if lse_c.shape != (B, H, S) or lse_c.dtype != torch.float32 \
+            or lse_c.device != q.device:
+        raise ValueError(f"lse_carry must be float32 [B={B}, H={H}, "
+                         f"S={S}] on {q.device}, got {lse_c.dtype} "
+                         f"{tuple(lse_c.shape)} on {lse_c.device}")
+
+
+def flash_fwd_carry(q, k, v, o_c, lse_c, *, causal=False):
+    """(o [B, S, H, D] f32, lse [B, H, S] f32): flash attention over
+    (k, v) continuing the partial (o_c f32 [B, S, H, D], normalised;
+    lse_c f32 [B, H, S], NEG_INF where empty).  CUDA tensors launch the
+    carried kernel (q, k, v f32 or bf16, head dim 32/64/128, all
+    contiguous); CPU tensors run :func:`flash_fwd_carry_reference`.
+    It takes no ``kv_lens``: the Pallas kernel does not combine one with
+    a carry either."""
+    _check_args(q, k, v, None)
+    _check_carry(q, o_c, lse_c)
+    if q.device.type == "cpu":
+        return flash_fwd_carry_reference(q, k, v, o_c, lse_c,
+                                         causal=causal)
+    _check_kernel(q, (q, k, v, o_c, lse_c),
+                  "q, k, v, o_carry and lse_carry")
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if B == 0 or S == 0:
+        return o, lse
+    lib = _build.library("flash_fwd")
+    fn = lib.hetu_flash_fwd_carry
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_c.data_ptr(),
+                lse_c.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, Sk,
+                H, D, int(bool(causal)), _DTYPES[q.dtype],
+                _build.stream_of(q))
+    _build.check(lib, rc, "flash_fwd_carry launch")
+    _build.LAUNCHES["flash_attention_carry"] += 1
     return o, lse
 
 
@@ -200,17 +288,8 @@ def _check_bwd(q, k, v, kv_lens, lse, delta, do):
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if q.device.type == "cpu":
         return False
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash kernel takes float32/bfloat16, got "
-                         f"{q.dtype}")
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dim in {_HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
-    if not all(t.is_contiguous() for t in (q, k, v, do, lse, delta)):
-        raise ValueError("flash backward takes contiguous q, k, v, dO, "
-                         "lse and delta")
+    _check_kernel(q, (q, k, v, do, lse, delta),
+                  "q, k, v, dO, lse and delta")
     if kv_lens is not None and (kv_lens.dtype != torch.int32
                                 or not kv_lens.is_contiguous()):
         raise ValueError("kv_lens must be a contiguous int32 tensor")
@@ -282,23 +361,26 @@ def flash_bwd(q, k, v, kv_lens, o, lse, do, *, causal=False, g_lse=None):
 
 
 class FlashAttention(torch.autograd.Function):
-    """o = flash attention of (q, k, v): K2 forward, saving (q, k, v,
-    kv_lens, o, lse); K3 backward (the JAX package's ``_flash`` custom
-    VJP, ``_flash_fwd_rule`` / ``_flash_bwd_rule``).  kv_lens and causal
-    take no gradient."""
+    """(o, lse) of flash attention of (q, k, v): K2 forward, saving (q,
+    k, v, kv_lens, o, lse); K3 backward with the lse cotangent, when
+    there is one, folded into delta (the JAX package's ``_flash`` and
+    ``_flash_stats`` custom VJPs).  lse is K2's raw one (+1e30 on empty
+    rows).  kv_lens and causal take no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, causal):
+        ctx.set_materialize_grads(False)
         o, lse = flash_fwd(q, k, v, causal=causal, kv_lens=kv_lens)
         ctx.save_for_backward(q, k, v, kv_lens, o, lse)
         ctx.causal = causal
-        return o
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, g_lse):
         q, k, v, kv_lens, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.to(q.dtype)
         dq, dk, dv = flash_bwd(q, k, v, kv_lens, o, lse, do.contiguous(),
-                               causal=ctx.causal)
+                               causal=ctx.causal, g_lse=g_lse)
         return dq, dk, dv, None, None
 
 
@@ -307,4 +389,67 @@ def flash_attention(q, k, v, *, causal=False, kv_lens=None):
     output has q's dtype.  Differentiable in q, k and v
     (:class:`FlashAttention`); with no grad it runs the forward alone and
     keeps nothing, as the serving cores call it."""
-    return FlashAttention.apply(q, k, v, kv_lens, causal)
+    return FlashAttention.apply(q, k, v, kv_lens, causal)[0]
+
+
+def _empty_to_neg(lse):
+    """The kernels' +1e30 on a row with no live key, read as an empty
+    partial (-1e30) for the cross-block combine (the JAX wrappers'
+    ``jnp.where``, so the lse cotangent of such a row is 0)."""
+    return torch.where(lse >= -NEG_INF / 2,
+                       torch.full_like(lse, NEG_INF), lse)
+
+
+class FlashAttentionCarry(torch.autograd.Function):
+    """(o f32, lse) of flash attention continuing a carried partial
+    (o_c, lse_c): K2-carry forward; backward (the JAX package's
+    ``_flash_stats_carry_bwd_rule``) K3 on (q, k, v) with the total lse
+    and the lse cotangent, plus the carry's terms as one virtual key row
+    of value o_c and score lse_c:
+
+        w_c      = exp(lse_c - lse)   (0 where the carry is empty)
+        d o_c    = w_c * dO
+        d lse_c  = w_c * (dO . o_c - rowsum(dO * o) + g_lse)
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, o_c, lse_c, causal):
+        o, lse = flash_fwd_carry(q, k, v, o_c, lse_c, causal=causal)
+        ctx.save_for_backward(q, k, v, o_c, lse_c, o, lse)
+        ctx.causal = causal
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
+        q, k, v, o_c, lse_c, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, None, o, lse,
+                               do.to(q.dtype).contiguous(),
+                               causal=ctx.causal, g_lse=g_lse)
+        do32 = do.float()
+        w_c = torch.where(_carry_live(lse_c), torch.exp(lse_c - lse),
+                          torch.zeros_like(lse_c))             # [B, H, S]
+        d_o_c = w_c.transpose(1, 2)[..., None] * do32
+        delta = (do32 * o).sum(-1).transpose(1, 2)
+        dot_c = (do32 * o_c).sum(-1).transpose(1, 2)
+        d_lse_c = w_c * (dot_c - delta + g_lse.float())
+        return dq, dk, dv, d_o_c, d_lse_c, None
+
+
+def flash_attention_with_lse(q, k, v, *, causal=False):
+    """Flash attention on [B, S, H, D] returning (o in q's dtype, lse
+    [B, H, S] f32, -1e30 on rows with no live key).  Differentiable in
+    q, k and v through both outputs (:class:`FlashAttention`)."""
+    o, lse = FlashAttention.apply(q, k, v, None, causal)
+    return o, _empty_to_neg(lse)
+
+
+def flash_attention_with_carry(q, k, v, o_carry, lse_carry, *,
+                               causal=False):
+    """Flash attention on [B, S, H, D] continuing a previous partial:
+    ``o_carry`` [B, S, H, D] f32 (normalised) and ``lse_carry`` [B, H, S]
+    f32 (-1e30 where the carry is empty).  Returns (o [B, S, H, D] f32,
+    lse [B, H, S] f32, -1e30 on rows with no live key): attention over
+    the carried keys and this (k, v) together, exactly.
+    Differentiable in all five tensors (:class:`FlashAttentionCarry`)."""
+    o, lse = FlashAttentionCarry.apply(q, k, v, o_carry, lse_carry, causal)
+    return o, _empty_to_neg(lse)

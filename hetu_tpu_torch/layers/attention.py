@@ -6,8 +6,12 @@ the JAX layer's paths:
   layout [B, S, nh, hd] through ``kernels.flash_attention`` (K2 forward,
   K3 backward), causal and ``kv_lens`` masks inside the kernel;
 - the unfused path (:124-149): scaled scores, the causal triangle of
-  ``NEG_INF`` (``graph/ops_attention.py:23-46``), an additive mask,
-  softmax, probability dropout, the weighted sum.  It runs no kernel.
+  ``NEG_INF`` (``graph/ops_attention.py:23-46``) in the scores' dtype,
+  an additive mask, softmax, probability dropout, the weighted sum.  It
+  runs no kernel.  As in JAX, a ``kv_lens`` mask is built in f32 and it
+  or an ``attention_mask`` promotes the scores they are added to: under
+  the bf16 policy the softmax, the context and the layer's output are
+  then f32.
 
 The q/k/v projection is the JAX layer's fused one (:63-83): one product
 with the three weights concatenated at call time, so each keeps its own
@@ -30,12 +34,13 @@ from .base import BaseLayer
 NEG_INF = Fn.NEG_INF
 
 
-def lens_to_additive_mask(kv_lens, seq_len, dtype):
-    """[B] lengths -> additive [B, 1, 1, S] mask, 0 where live and
+def lens_to_additive_mask(kv_lens, seq_len):
+    """[B] lengths -> additive f32 [B, 1, 1, S] mask, 0 where live and
     ``NEG_INF`` where padded (``layers/reshape.py:16``)."""
     live = torch.arange(seq_len, device=kv_lens.device)[None, :] \
         < kv_lens[:, None]
-    return torch.where(live, 0.0, NEG_INF).to(dtype)[:, None, None, :]
+    return torch.where(live, 0.0, NEG_INF).to(torch.float32)[
+        :, None, None, :]
 
 
 def zero_empty_rows(ctxv, kv_lens, seq_len):
@@ -99,13 +104,13 @@ class MultiHeadAttention(BaseLayer):
             tri = torch.where(i[None, :] <= i[:, None], 0.0, NEG_INF)
             scores = scores + tri.to(scores.dtype)
         if kv_lens is not None:
-            attention_mask = lens_to_additive_mask(kv_lens, self.seq,
-                                                   scores.dtype)
+            attention_mask = lens_to_additive_mask(kv_lens, self.seq)
         if attention_mask is not None:
-            scores = scores + attention_mask.to(scores.dtype)
+            scores = scores + attention_mask      # promotes, as in JAX
         probs = torch.softmax(scores, dim=-1)
         probs = Fn.dropout(probs, self.keep_prob, generator, self.training)
-        ctxv = torch.matmul(probs, v).transpose(1, 2).reshape(-1, self.h)
+        ctxv = torch.matmul(probs, v.to(probs.dtype)).transpose(1, 2) \
+            .reshape(-1, self.h)
         if kv_lens is not None:
             ctxv = zero_empty_rows(ctxv, kv_lens, self.seq)
         return Fn.linear(ctxv, self.wproj, self.bproj)

@@ -11,7 +11,9 @@ attends through its kernel wrapper whatever the environment says, and
 importing the port loads neither JAX nor the JAX package.
 
 Tolerance for logits and K/V: f32 ``atol 1e-4`` (the same arithmetic,
-matmuls and softmax summed in another order).
+matmuls and softmax summed in another order).  With bf16 params and
+caches, ``_decode_step`` and ``_mixed_step`` logits are held to two bf16
+ulps of the largest |logit| (measured: at most 1.11).
 """
 
 import re
@@ -282,6 +284,86 @@ def test_mixed_step_contiguous_matches_jax(model, attn):
         np.testing.assert_allclose(got[:, written], want[:, written],
                                    atol=ATOL, rtol=0)
         np.testing.assert_array_equal(got[:, ~written], old[:, ~written])
+
+
+# bf16 params and caches: the cores' f32 logits within two bf16 ulps of
+# the largest |logit| (2^-6 of it); measured here at most 1.11 ulps
+# (1.17e-2 on logits up to 1.35, the contiguous mixed wave): the two
+# sides round the same bf16 products at other points (the port's plain
+# attention keeps P in f32).
+BF16_ULPS = 2
+
+
+def bf16_close(got, want, rows):
+    want = np.asarray(jnp.asarray(want, jnp.float32))[rows]
+    tol = BF16_ULPS * 2.0 ** -7 * float(np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy()[rows], want, atol=tol,
+                               rtol=0)
+
+
+def bf16_params(p):
+    """The numpy weights as bf16 on both sides."""
+    jp = {k: jnp.asarray(np.asarray(v, np.float32), jnp.bfloat16)
+          for k, v in p.items()}
+    tp = {k: v.to(torch.bfloat16)
+          for k, v in params_from_numpy(p, device="cpu").items()}
+    return jp, tp
+
+
+def _bf(a):
+    return (jnp.asarray(np.asarray(a, np.float32), jnp.bfloat16),
+            torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("core", ["decode-slots", "decode-paged",
+                                  "mixed-paged", "mixed-contiguous"])
+def test_bf16_cores_match_jax(model, core):
+    """``_decode_step`` and ``_mixed_step`` logits with bf16 params and
+    caches against the JAX cores' (their kernels in interpret mode)."""
+    p = model[0]
+    jp, tp = bf16_params(p)
+    rng = np.random.RandomState(5)
+    if core.startswith("decode"):
+        token = rng.randint(0, V, 4).astype(np.int32)
+        live = np.array([True, False, True, True])
+        if core == "decode-paged":
+            cache, tables = _pool_and_tables(rng)
+            pos = np.array([3, 0, 16, 31], np.int32)
+            kw = dict(attn="ragged", block_tables=jnp.asarray(tables),
+                      live_mask=jnp.asarray(live))
+            tkw = dict(block_tables=_t(tables))
+        else:
+            cache = rng.randn(2, L, 4, S, H, Dh).astype(np.float32)
+            pos = np.array([9, 0, 40, S - 1], np.int32)
+            kw, tkw = {}, {}
+        (jk, tk), (jv, tv) = _bf(cache[0]), _bf(cache[1])
+        jl, _, _ = _jit(jgd._decode_step)(jp, CFG, jk, jv, jnp.asarray(pos),
+                                          jnp.asarray(token), **kw)
+        tl = tgd._decode_step(tp, CFG, tk, tv, _t(pos), _t(token).long(),
+                              live_mask=_t(live), **tkw)
+        rows = live
+    else:
+        if core == "mixed-paged":
+            cache, tables, pos, q_len, tokens, _ = _mixed_wave()
+            kw = dict(block_tables=jnp.asarray(tables))
+            tkw = (_t(tables),)
+        else:
+            cache = rng.randn(2, L, 4, S, H, Dh).astype(np.float32)
+            pos = np.array([3, 10, 0, S - 1], np.int32)
+            q_len = np.array([5, 1, 0, 1], np.int32)
+            tokens = np.zeros((4, 8), np.int32)
+            for b in range(4):
+                tokens[b, :q_len[b]] = rng.randint(0, V, q_len[b])
+            kw, tkw = {}, ()
+        (jk, tk), (jv, tv) = _bf(cache[0]), _bf(cache[1])
+        jl, _, _ = _jit(jgd._mixed_step, "has_fresh")(
+            jp, CFG, jk, jv, jnp.asarray(pos), jnp.asarray(tokens),
+            jnp.asarray(q_len), jnp.zeros(4, bool), attn="ragged", **kw)
+        tl = tgd._mixed_step(tp, CFG, tk, tv, _t(pos), _t(tokens).long(),
+                             _t(q_len), *tkw)
+        rows = np.arange(8)[None, :] < q_len[:, None]
+    assert tl.dtype == torch.float32
+    bf16_close(tl, jl, rows)
 
 
 @pytest.mark.parametrize("prefill", ["flash", "scan"])

@@ -324,6 +324,9 @@ def test_cpu_calls_launch_no_kernel():
     reset_launches()
     q, k, v, kv = _flash_inputs()
     tfa.flash_attention(_t(q), _t(k), _t(v), causal=True)
+    B, S, H, _ = q.shape
+    tfa.flash_fwd_carry(_t(q), _t(k), _t(v), torch.zeros(q.shape),
+                        torch.full((B, H, S), tfa.NEG_INF), causal=True)
     q, pk, pv, lens, ql, tab = _ragged_wave()
     tra.ragged_paged_attention(_t(q), _t(pk), _t(pv), _t(lens).int(),
                                _t(ql).int(), _t(tab).int())
@@ -340,7 +343,8 @@ def test_cpu_calls_launch_no_kernel():
         x, y = (pk, pv) if j % 2 else (k, v)
         (xq, xs), (yq, ys) = (kv_encode(_t(a)) for a in (x, y))
         call(xq, yq, k_scale=xs, v_scale=ys)
-    assert set(KERNELS) == {"flash_attention", "flash_attention_bwd_dkv",
+    assert set(KERNELS) == {"flash_attention", "flash_attention_carry",
+                            "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dq"} | {
         f"{n}{sfx}" for n in QUANT_KERNELS for sfx in ("", "_int8")}
     assert launch_counts() == dict.fromkeys(KERNELS, 0)

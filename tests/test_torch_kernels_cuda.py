@@ -10,7 +10,11 @@ f32 ``atol 1e-5`` (the kernels sum the softmax in another order than
 the plain versions); bf16 ``atol 2^-12, rtol 2^-7`` (both sides round
 an f32 result to bf16, at most one bf16 ulp apart).  The int8 twins are
 held to the same: both sides form the same f32 product payload * scale.
-The flash backward (K3) is held to its own, stated at ``k3_close``.
+The flash backward (K3) is held to its own, stated at ``k3_close``; the
+carried forward (K2-carry), whose output is f32 for both input dtypes,
+to ``atol 1e-5, rtol 1e-5`` (``CARRY_TOL``).  The verify wrappers past 16
+rows launch once per 16-row group; the ring runs on a virtual mesh of
+the card.
 """
 
 import numpy as np
@@ -163,6 +167,44 @@ def test_verify_kernels_match_plain(cuda, dtype, Dh, bs, Q, layout):
     assert (got[3] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Q", [17, 33])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_verify_kernels_serve_long_blocks(cuda, dtype, Q, layout):
+    """K6/K7 past 16 rows: one launch per 16-row group, every live row
+    equal to the plain version over the whole block, and the whole output
+    equal to the plain version of each group (dead groups give zeros)."""
+    q, pk, pv, lens, _, tab = _wave(64, 16, Q, seed=6)
+    lens = np.array([70, 33, 50, 0, 17, 130], np.int32)
+    ql = np.array([Q, Q - 1, 16, 0, 1, 0], np.int32)
+    dt = getattr(torch, dtype)
+    q = q.to(cuda, dt)
+    lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
+                           for a in (lens, ql, tab))
+    if layout == "slots":
+        k, v = (_slot_rows(x, tab).to(cuda, dt) for x in (pk, pv))
+        run, plain = tda.paged_verify_attention, tda.masked_verify_reference
+        rest, name = (), "paged_verify_attention"
+    else:
+        k, v = pk.to(cuda, dt), pv.to(cuda, dt)
+        run, plain = (tda.paged_block_verify_attention,
+                      tda.paged_block_verify_reference)
+        rest, name = (tab_d,), "paged_block_verify_attention"
+    reset_launches()
+    got = run(q, k, v, lens_d, ql_d, *rest)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == -(-Q // 16)
+    want = plain(q, k, v, lens_d, ql_d, *rest).to(dt)
+    for b, n in enumerate(ql):
+        np.testing.assert_allclose(got[b, :n].float().cpu().numpy(),
+                                   want[b, :n].float().cpu().numpy(),
+                                   **TOL[dtype])
+    groups = torch.cat([plain(qc, k, v, lc, nc, *rest).to(dt) for qc, lc,
+                        nc in tda.verify_groups(q, lens_d, ql_d)], dim=1)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               groups.float().cpu().numpy(), **TOL[dtype])
+
+
 def test_verify_kernel_q1_equals_decode_kernel(cuda):
     """A one-row verify block scores what the decode kernel scores: both
     are the same body, at NQ = 1."""
@@ -198,6 +240,96 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, S, Sk):
     assert torch.equal(lse >= 1e29, ~live)
     np.testing.assert_allclose(lse[live].cpu().numpy(),
                                lse_r[live].cpu().numpy(), atol=1e-4)
+
+
+# K2-carry against its plain version: the output is f32 for both input
+# dtypes and both sides accumulate in f32 over the same inputs, so f32
+# and bf16 are held to 1e-5 + 1e-5 rel; lse as K2's.
+CARRY_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _carry_case(B, S, Sk, Hn, D, kind, dt, cuda, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, Hn, D), generator=g).to(cuda, dt)
+    k, v = (torch.randn((B, Sk, Hn, D), generator=g).to(cuda, dt)
+            for _ in range(2))
+    o_c = torch.randn((B, S, Hn, D), generator=g).to(cuda)
+    lse_c = (2.0 * torch.randn((B, Hn, S), generator=g) + 3.0).to(cuda)
+    if kind == "empty":
+        o_c.zero_()
+        lse_c.fill_(tfa.NEG_INF)
+    elif kind == "mixed":
+        lse_c[..., ::3] = tfa.NEG_INF
+    return q, k, v, o_c, lse_c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,S,Sk", [(True, 100, 100),
+                                         (False, 40, 72)])
+@pytest.mark.parametrize("kind", ["empty", "live", "mixed"])
+def test_flash_carry_kernel_matches_plain(cuda, dtype, D, causal, S, Sk,
+                                          kind):
+    """K2-carry over an empty, a live and a row-by-row mixed carry, causal
+    and not, S not a multiple of the 32-row tile."""
+    dt = getattr(torch, dtype)
+    args = _carry_case(3, S, Sk, 4, D, kind, dt, cuda, D + S)
+    reset_launches()
+    o, lse = tfa.flash_fwd_carry(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_carry"] == 1
+    assert launch_counts()["flash_attention"] == 0
+    assert o.dtype == torch.float32
+    o_r, lse_r = tfa.flash_fwd_carry_reference(*args, causal=causal)
+    np.testing.assert_allclose(o.cpu().numpy(), o_r.cpu().numpy(),
+                               **CARRY_TOL)
+    live = lse_r < 1e29
+    assert torch.equal(lse >= 1e29, ~live)
+    np.testing.assert_allclose(lse[live].cpu().numpy(),
+                               lse_r[live].cpu().numpy(), atol=1e-4)
+
+
+def test_flash_carry_autograd_on_the_card(cuda):
+    """Autograd through flash_attention_with_carry (K2-carry forward, K3
+    backward and the carry's terms) against autograd through the plain
+    forward, f32, in all five tensors."""
+    args = _carry_case(2, 130, 130, 3, 64, "mixed", torch.float32, cuda, 5)
+    g = torch.Generator().manual_seed(6)
+    go = torch.randn((2, 130, 3, 64), generator=g).to(cuda)
+    gl = torch.randn((2, 3, 130), generator=g).to(cuda)
+    xs = [t.clone().requires_grad_() for t in args]
+    reset_launches()
+    o, lse = tfa.flash_attention_with_carry(*xs, causal=True)
+    got = torch.autograd.grad((o * go).sum() + (lse * gl).sum(), xs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["flash_attention_carry"], counts["flash_attention_bwd_dkv"],
+            counts["flash_attention_bwd_dq"]) == (1, 1, 1)
+    ys = [t.clone().requires_grad_() for t in args]
+    o_r, lse_r = tfa.flash_fwd_carry_reference(*ys, causal=True)
+    lse_r = torch.where(lse_r >= 5e29, tfa.NEG_INF, lse_r)
+    want = torch.autograd.grad((o_r * go).sum() + (lse_r * gl).sum(), ys)
+    for a, b in zip(got, want):
+        k3_close(a, b, "float32")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_on_the_card_equals_whole_sequence_flash(cuda, causal):
+    """The cp-4 ring on a virtual mesh of the card: equal to K2 over the
+    whole sequence, with cp + cp(cp-1)/2 carried launches causal (the
+    rotations above the diagonal launch nothing) and cp^2 otherwise."""
+    from hetu_tpu_torch.parallel import make_mesh, ring_attention
+    g = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=g).to(cuda)
+               for _ in range(3))
+    mesh = make_mesh({"cp": 4})
+    reset_launches()
+    got = ring_attention(q, k, v, mesh=mesh, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_carry"] == (10 if causal else 16)
+    want = tfa.flash_attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=2e-4)
 
 
 def k3_close(got, want, dtype):
@@ -315,10 +447,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                           .contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="head dim"):
         tda.paged_decode_attention(x[:, 0], x, x, args[3][:1])
-    with pytest.raises(ValueError, match="at most 16"):
-        tda.paged_verify_attention(args[0][:, :8].repeat(1, 3, 1, 1),
-                                   args[1][:6], args[2][:6], args[3],
-                                   args[4])
+    o_c = torch.zeros_like(y)
+    with pytest.raises(TypeError, match="kv_lens"):
+        tfa.flash_fwd_carry(y, y, y, o_c, stat, kv_lens=args[3][:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_fwd_carry(y, y, y, o_c.transpose(1, 2).contiguous()
+                            .transpose(1, 2), stat)
     rows = torch.randn((6, 32, 6, 64), device=cuda)[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tra.ragged_attention(args[0], rows, rows, args[3], args[4])

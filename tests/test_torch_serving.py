@@ -15,6 +15,8 @@ package's, on the CPU.
   The port has one attention path, the ragged wrapper, for both.  The
   other layouts and schedulers are held to JAX in
   test_torch_phase_split.py.
+- With bf16 params on both sides, the engine's greedy tokens against the
+  JAX engine's under the teacher-forced margin gate.
 - Inside the port: engine greedy == offline ``generate_fast``; sampled
   outputs depend on the request alone (seed, prompt, settings), not on
   slot or arrival order; every option not ported yet raises
@@ -211,6 +213,39 @@ def test_engine_greedy_matches_jax_kernel_path(model):
     got, _ = _run(TServingEngine, TRequest, p, tcfg, trace=trace,
                   device="cpu", **KW)
     assert _greedy(trace, got) == _greedy(trace, want)
+
+
+def test_engine_bf16_greedy_within_the_margin_gate(model):
+    """bf16 params on both sides: each greedy request's tokens equal the
+    JAX engine's, or first differ at a generated position whose exact
+    (f32) top-2 margin is at most 2 delta, delta the largest |bf16 - f32|
+    teacher-forced logit gap over JAX's sequence (the int8 gate of
+    tests/test_quant.py with bf16 in the place of the fake-quantized
+    cache).  Free-running bf16 tokens need not agree past such a
+    position; on this trace all seven greedy requests are identical."""
+    p, jcfg, tcfg = model
+    pbf = {k: jnp.asarray(np.asarray(v, np.float32), jnp.bfloat16)
+           for k, v in p.items()}
+    want, _ = _run(ServingEngine, Request, pbf, jcfg, fast_path=True, **KW)
+    got, teng = _run(TServingEngine, TRequest, p, tcfg, device="cpu",
+                     dtype=torch.bfloat16, **KW)
+    assert teng.kv.cache_k.dtype == torch.bfloat16
+    same = 0
+    for rid, w in _greedy(TRACE, want).items():
+        g = got[rid]
+        if g == w:
+            same += 1
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(w, g)) if a != b)
+        seq = np.asarray(w[:-1], np.int64)
+        exact = tgd.teacher_forced_logits(p, tcfg, seq, device="cpu")
+        low = tgd.teacher_forced_logits(p, tcfg, seq, device="cpu",
+                                        dtype=torch.bfloat16)
+        delta = float((low - exact).abs().max())
+        top2 = torch.topk(exact[t - 1], 2).values
+        prompt = len(TRACE[int(rid[1:])][0])
+        assert t >= prompt and float(top2[0] - top2[1]) <= 2 * delta, rid
+    assert same >= 1
 
 
 # ------------------------------------------------------------------- #

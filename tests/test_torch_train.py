@@ -7,7 +7,9 @@ same numpy inputs and weights.
   ``_chunked_xent_fwd``/``_chunked_xent_bwd`` (ignored labels, N not a
   multiple of the 8 chunks).  f32 ``1e-5``, bf16 ``2e-2``.
 - ``MultiHeadAttention`` on its flash and unfused paths against the JAX
-  layer from the same weights (output and weight gradients, ``1e-5``).
+  layer from the same weights (output and weight gradients, ``1e-5``);
+  the unfused path with ``kv_lens`` under the bf16 policy, whose f32
+  mask promotes the output to f32 as in JAX (``2e-3``).
 - Each optimizer's ``update_one`` over three steps against the JAX
   optimizer's (``1e-6``), and the clip: three clipped steps of a small
   model through both executors.
@@ -196,6 +198,36 @@ def test_multihead_attention_matches_jax_layer(flash, kv_lens):
     _close(got, res[0], 1e-5, "output")
     for n, a, w in zip(names, tgrads, res[1:]):
         _close(a, w, 1e-5 * max(1.0, float(np.abs(w).max())), n)
+
+
+def test_multihead_attention_bf16_kv_lens_matches_jax_layer():
+    """The unfused path under the bf16 policy with kv_lens: the f32 lens
+    mask promotes the scores, so the softmax, the context and the output
+    are f32, as the JAX layer's are under ``mixed_precision="bf16"``
+    (the causal triangle stays in the scores' bf16).  Output within 2e-3
+    (measured 3.6e-7; each side is 1.3e-2 from the f32 layer, and the
+    port was 1.2e-2 from JAX while its mask stayed bf16)."""
+    B, S, Hd, nh = 2, 16, 32, 2
+    rng = np.random.RandomState(2)
+    x = rng.randn(B * S, Hd).astype(np.float32)
+    lens = np.array([11, 16], np.int32)
+    tm = tlayers.MultiHeadAttention(Hd, nh, S, use_flash=False, causal=True,
+                                    name="mha",
+                                    generator=torch.Generator().manual_seed(0))
+    values = {k: _np(p) + 0.01 * rng.randn(*p.shape).astype(np.float32)
+              for k, p in tm.named_vars().items()}
+    jm = jlayers.MultiHeadAttention(Hd, nh, S, B, use_flash=False,
+                                    causal=True, name="mha")
+    xs = ht.placeholder_op("x")
+    ls = ht.placeholder_op("lens", dtype=jnp.int32)
+    want = _run_jax_graph([jm(xs, kv_lens=ls)], {xs: x, ls: lens}, values,
+                          mp="bf16")[0]
+    attrs = {n: a for a, n in tm._jax_names.items()}
+    cast = {attrs[n]: _t(v, "bfloat16") for n, v in values.items()}
+    got = torch.func.functional_call(tm, cast, (_t(x, "bfloat16"),),
+                                     {"kv_lens": torch.from_numpy(lens)})
+    assert want.dtype == np.float32 and got.dtype == torch.float32
+    _close(got, want, 2e-3, "bf16 output")
 
 
 # ------------------------------------------------------------------- #
