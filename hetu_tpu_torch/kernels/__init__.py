@@ -4,13 +4,14 @@ compiled by ``nvcc`` the first time a wrapper launches it on a CUDA
 tensor (see ``_build``).
 
 - ``flash_attention``: forward flash attention on [B, S, H, D]
-  (csrc/flash_fwd.cu), the batched prefill of ``generate_fast`` and of
-  the phase-split schedulers, and the training forward; its carried
-  form (the same source, counted as ``flash_attention_carry``) is
-  every live rotation of ``parallel.ring_attention``'s flash path; its
-  backward (csrc/flash_bwd.cu, counted as ``flash_attention_bwd_dkv``
-  and ``flash_attention_bwd_dq``) is the training backward and the
-  ring's.
+  (csrc/flash_fwd.cu in f32, csrc/flash_fwd_bf16.cu on the tensor cores
+  in bf16), the batched prefill of ``generate_fast`` and of the
+  phase-split schedulers, and the training forward; its carried form
+  (the same sources, counted as ``flash_attention_carry``) is every
+  live rotation of ``parallel.ring_attention``'s flash path; its
+  backward (csrc/flash_bwd.cu, csrc/flash_bwd_bf16.cu in bf16, counted
+  as ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``) is the
+  training backward and the ring's.
 - ``ragged_attention.ragged_paged_attention`` /
   ``ragged_attention.ragged_attention``: the mixed wave over the
   block-table pool / the slot-contiguous cache (csrc/ragged_paged.cu);

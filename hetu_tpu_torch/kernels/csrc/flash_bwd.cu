@@ -1,6 +1,8 @@
-// Backward flash attention (FlashAttention-2) on the [B, S, H, D] layout,
-// causal or not, with an optional per-sequence kv_lens mask: two kernels,
-// dK/dV and dQ, no atomics, so every sum runs in one fixed order.
+// Backward flash attention (FlashAttention-2) in f32 on the [B, S, H, D]
+// layout, causal or not, with an optional per-sequence kv_lens mask: two
+// kernels, dK/dV and dQ, no atomics, so every sum runs in one fixed
+// order.  The bf16 instances run on the tensor cores in
+// flash_bwd_bf16.cu.
 //
 // Replaces: hetu_tpu/kernels/flash_attention.py::_flash_bwd, whose two
 // pallas_calls are _bwd_dkv_kernel (grid (BH, kv blocks, q blocks)) and
@@ -37,9 +39,9 @@
 // memory as f32 (rows padded by 4 floats, so the float4 reads of eight
 // consecutive rows hit distinct banks); each thread scores a 4x4 block
 // of (q, k) pairs and then owns 4 consecutive head dims of a few output
-// rows.  All products run as f32 FMAs on the CUDA cores in both dtypes
-// (bf16 operands are exact in f32); the tensor cores (wgmma), TMA and a
-// fused single pass are later work, so this runs far from its bf16 bound.
+// rows.  All products run as f32 FMAs on the CUDA cores (the tensor
+// cores take f32 only as TF32); register tiling and a fused single pass
+// are later work.
 #include <cmath>
 
 #include "attn_common.cuh"
@@ -385,36 +387,29 @@ cudaError_t dispatch_dh(const Args& a, int Dh, bool dkv) {
   }
 }
 
-int run(const Args& a, int Dh, int dtype, bool dkv) {
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dh<float>(a, Dh, dkv);
-  else if (dtype == 1)
-    err = dispatch_dh<__nv_bfloat16>(a, Dh, dkv);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+int run(const Args& a, int Dh, bool dkv) {
+  return static_cast<int>(dispatch_dh<float>(a, Dh, dkv));
 }
 
 }  // namespace
 }  // namespace hetu
 
 // q, dout [B, S, H, Dh], k, v [B, Sk, H, Dh] (Sk >= S when causal), lse
-// and delta [B, H, S] f32, kv_lens [B] int32 or null; dtype 0 = float32,
-// 1 = bfloat16.  dK/dV: dk, dv [B, Sk, H, Dh]; dQ: dq [B, S, H, Dh], in
-// the input dtype.  Each returns cudaGetLastError() after its launch
-// (cudaErrorInvalidValue for an unsupported dtype or Dh).
+// and delta [B, H, S] f32, kv_lens [B] int32 or null; f32 (bf16 runs in
+// flash_bwd_bf16.cu).  dK/dV: dk, dv [B, Sk, H, Dh]; dQ: dq [B, S, H,
+// Dh].  Each returns cudaGetLastError() after its launch
+// (cudaErrorInvalidValue for an unsupported Dh).
 extern "C" int hetu_flash_bwd_dkv(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   const void* kv_lens, void* dk, void* dv,
                                   int B, int S, int Sk, int H, int Dh,
-                                  int causal, int dtype, void* stream) {
+                                  int causal, void* stream) {
   const hetu::Args a{q, k, v, dout, static_cast<const float*>(lse),
                      static_cast<const float*>(delta),
                      static_cast<const int*>(kv_lens), dk, dv, B, S, Sk, H,
                      causal, static_cast<cudaStream_t>(stream)};
-  return hetu::run(a, Dh, dtype, true);
+  return hetu::run(a, Dh, true);
 }
 
 extern "C" int hetu_flash_bwd_dq(const void* q, const void* k,
@@ -422,10 +417,10 @@ extern "C" int hetu_flash_bwd_dq(const void* q, const void* k,
                                  const void* lse, const void* delta,
                                  const void* kv_lens, void* dq, int B,
                                  int S, int Sk, int H, int Dh, int causal,
-                                 int dtype, void* stream) {
+                                 void* stream) {
   const hetu::Args a{q, k, v, dout, static_cast<const float*>(lse),
                      static_cast<const float*>(delta),
                      static_cast<const int*>(kv_lens), dq, nullptr, B, S,
                      Sk, H, causal, static_cast<cudaStream_t>(stream)};
-  return hetu::run(a, Dh, dtype, false);
+  return hetu::run(a, Dh, false);
 }

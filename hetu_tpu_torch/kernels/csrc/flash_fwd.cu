@@ -1,6 +1,7 @@
-// Forward flash attention on the [B, S, H, D] layout, causal or not, with
-// an optional per-sequence kv_lens mask and the per-row logsumexp, and
-// its carried form, ring attention's per-rotation step.
+// Forward flash attention in f32 on the [B, S, H, D] layout, causal or
+// not, with an optional per-sequence kv_lens mask and the per-row
+// logsumexp, and its carried form, ring attention's per-rotation step.
+// The bf16 instances run on the tensor cores in flash_fwd_bf16.cu.
 //
 // Replaces: hetu_tpu/kernels/flash_attention.py::_flash_fwd (Pallas body
 // _fwd_kernel), as flash_attention(q, k, v, causal, kv_lens) reaches it
@@ -32,10 +33,9 @@
 // limit of the tile's last row)), through shared-memory tiles of 64
 // positions, so causally dead blocks and the padded tail past kv_len
 // cost neither bytes nor flops.  Scores, the running max, the
-// denominator and the output accumulate in f32 on the CUDA cores; the
-// products are not on the tensor cores yet (wgmma, TMA and warp
-// specialisation are later work), so this kernel runs far from its
-// bound.  The carry is a compile-time template flag: it only seeds
+// denominator and the output accumulate in f32 on the CUDA cores (the
+// tensor cores take f32 only as TF32, and this path exists for 1e-5
+// parity); register tiling of this body is later work.  The carry is a compile-time template flag: it only seeds
 // each row's registers from o_c and lse_c before the key loop (so the
 // ring's merge costs no pass of its own), and the carry-free instance
 // is the kernel K2 always was.
@@ -133,31 +133,24 @@ cudaError_t dispatch_dh(const FwdArgs& a, int Dh, cudaStream_t stream) {
 }
 
 template <bool kCarry>
-int dispatch(const FwdArgs& a, int Dh, int dtype, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dh<float, kCarry>(a, Dh, st);
-  else if (dtype == 1)
-    err = dispatch_dh<__nv_bfloat16, kCarry>(a, Dh, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+int dispatch(const FwdArgs& a, int Dh, void* stream) {
+  return static_cast<int>(
+      dispatch_dh<float, kCarry>(a, Dh, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace hetu
 
-// kv_lens may be null (no padding mask).  dtype: 0 = float32,
-// 1 = bfloat16.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported dtype or Dh).
+// f32 q, k, v (bf16 runs in flash_fwd_bf16.cu); kv_lens may be null (no
+// padding mask).  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported Dh).
 extern "C" int hetu_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kv_lens, void* out, void* lse,
                               int B, int S, int Sk, int H, int Dh,
-                              int causal, int dtype, void* stream) {
+                              int causal, void* stream) {
   const hetu::FwdArgs a{q, k, v, static_cast<const int*>(kv_lens),
                         nullptr, nullptr, out, static_cast<float*>(lse),
                         B, S, Sk, H, causal};
-  return hetu::dispatch<false>(a, Dh, dtype, stream);
+  return hetu::dispatch<false>(a, Dh, stream);
 }
 
 // The carried forward: o_c [B, S, H, Dh] and lse_c [B, H, S] f32 seed
@@ -167,11 +160,10 @@ extern "C" int hetu_flash_fwd_carry(const void* q, const void* k,
                                     const void* v, const void* o_c,
                                     const void* lse_c, void* out,
                                     void* lse, int B, int S, int Sk, int H,
-                                    int Dh, int causal, int dtype,
-                                    void* stream) {
+                                    int Dh, int causal, void* stream) {
   const hetu::FwdArgs a{q, k, v, nullptr,
                         static_cast<const float*>(o_c),
                         static_cast<const float*>(lse_c), out,
                         static_cast<float*>(lse), B, S, Sk, H, causal};
-  return hetu::dispatch<true>(a, Dh, dtype, stream);
+  return hetu::dispatch<true>(a, Dh, stream);
 }

@@ -1,0 +1,215 @@
+// Shared device code of the bf16 flash kernels, which run their products
+// on the tensor cores and bring K/V (and Q/dO in the backward) into
+// shared memory with cp.async, one tile ahead of the products: the
+// copies, the bf16 packing of accumulator fragments and the softmax's
+// helpers, for both; and the mma.sync.m16n8k16 path (bf16 operands, f32
+// accumulate, operands by ldmatrix) of the backward, flash_bwd_bf16.cu.
+// The forward's wgmma path is in flash_wgmma.cuh.
+//
+// The mma.sync tiles live in shared memory as [rows][D + 8] bf16: the
+// 16 bytes of padding per row put the eight 16-byte rows an ldmatrix
+// reads in eight different bank groups.  A warp owns 16 rows of the
+// 64-row output tile.  In the fragment layouts of mma.m16n8k16, lane =
+// 4 g + t holds (wgmma's accumulator and register A operand are the
+// same, per warp of the warpgroup):
+//   A (16 x 16, row major)  a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 8+2t..)
+//                           a3 (g+8, 8+2t..)
+//   B (16 x 8, k x n)       b0 (k 2t..2t+1, n g)  b1 (k 8+2t.., n g)
+//   C (16 x 8, f32)         c0, c1 (g, 2t..2t+1)  c2, c3 (g+8, 2t..2t+1)
+// so the accumulator of two neighbouring 8-column blocks, rounded to
+// bf16 in pairs, is the A operand of the next product with no data
+// movement: that is how P (forward) and P^T, dS (backward) feed the
+// second product of each step.
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace hetu {
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kNegInf = -1e30f;     // the JAX package's NEG_INF
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPad = 8;               // bf16 of padding per tile row
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (the source
+// is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, R) of one head of a [*, H, D] bf16 array into a [R][D + kPad]
+// tile, all threads of the block together; src points at row 0's head,
+// rows are `stride` elements apart, rows at or past n are zero-filled
+// (never read), so a masked score never multiplies a stale value.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
+                                          size_t stride, int n) {
+  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  for (int c = threadIdx.x; c < R * kChunks; c += kThreads) {
+    const int r = c / kChunks;
+    const int ch = c % kChunks;
+    const bool ok = r < n;
+    cp_async16(tile + r * (D + kPad) + ch * 8,
+               src + (ok ? r * stride : 0) + ch * 8, ok);
+  }
+}
+
+// ldmatrix: four 8x8 bf16 matrices, rows addressed by lanes 0-7, 8-15,
+// 16-23, 24-31; .trans hands each lane the transposed pairs.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a b on the tensor cores: a 16 x 16, b 16 x 8 bf16, d 16 x 8 f32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (round to nearest even), lo in the low
+// half: one register of an A fragment.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of columns [16c, 16c + 16) of a 16 x N accumulator held
+// as N/8 blocks of 8 columns, rounded to bf16.
+template <int NB>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&x)[NB][4], int c) {
+  a[0] = pack(x[2 * c][0], x[2 * c][1]);
+  a[1] = pack(x[2 * c][2], x[2 * c][3]);
+  a[2] = pack(x[2 * c + 1][0], x[2 * c + 1][1]);
+  a[3] = pack(x[2 * c + 1][2], x[2 * c + 1][3]);
+}
+
+// A fragment of rows [r0, r0 + 16) x columns [16c, 16c + 16) of a tile.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int r0, int c, int lane) {
+  ldsm_x4(a, tile + (r0 + (lane & 15)) * (D + kPad) + 16 * c
+                 + ((lane >> 4) << 3));
+}
+
+// acc[2j], acc[2j+1] (16 x 8 each, n = tile rows [n0 + 16j, +16)) +=
+// a (16 x 16) times the tile's rows as the n side, columns [16c, +16)
+// as k: the product with a row-major [n][k] tile, as S = Q K^T takes K.
+template <int D, int NB>
+__device__ __forceinline__ void mma_nk(float (&acc)[NB][4],
+                                       const uint32_t (&a)[4],
+                                       const bf16* tile, int n0, int c,
+                                       int lane) {
+#pragma unroll
+  for (int j = 0; j < NB / 2; ++j) {
+    uint32_t r[4];
+    ldsm_x4(r, tile + (n0 + 16 * j + (lane & 7) + ((lane >> 4) << 3))
+                          * (D + kPad)
+                   + 16 * c + (((lane >> 3) & 1) << 3));
+    mma(acc[2 * j], a, r[0], r[1]);
+    mma(acc[2 * j + 1], a, r[2], r[3]);
+  }
+}
+
+// acc (16 x D, D/8 blocks) += a (16 x 16) times tile rows [k0, k0 + 16)
+// as k and its D columns as n: the product with a row-major [k][n] tile,
+// as O = P V takes V (ldmatrix .trans).
+template <int D>
+__device__ __forceinline__ void mma_kn(float (&acc)[D / 8][4],
+                                       const uint32_t (&a)[4],
+                                       const bf16* tile, int k0, int lane) {
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    uint32_t r[4];
+    ldsm_x4_t(r, tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3))
+                            * (D + kPad)
+                     + 16 * j + ((lane >> 4) << 3));
+    mma(acc[2 * j], a, r[0], r[1]);
+    mma(acc[2 * j + 1], a, r[2], r[3]);
+  }
+}
+
+// 2^x by the special-function unit (denormal results flush to 0): the
+// kernels take exp(y) as 2^(y log2 e), with log2 e folded into the
+// score's scale, so a softmax term costs one FFMA and one MUFU.EX2.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Reduce over the four lanes (t = 0..3) that share an accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
+}
+
+// Store the two accumulator rows of this lane (rr = 0: g, 1: g + 8) of a
+// 16 x D block as bf16 pairs into rows of a [*, H, D] array.
+__device__ __forceinline__ void store_pair(bf16* dst, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store_pair(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+
+}  // namespace tc
+}  // namespace hetu
+
+extern "C" const char* hetu_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

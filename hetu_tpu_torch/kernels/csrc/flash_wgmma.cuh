@@ -1,0 +1,244 @@
+// Hopper's warpgroup matrix multiply (wgmma) for the bf16 flash forward
+// (flash_fwd_bf16.cu): the instruction wrappers, the shared-memory
+// descriptors of the no-swizzle canonical layout, and the fences.
+//
+// A tile of R rows x D bf16 is stored as a grid of 8 x 8 "core
+// matrices" (8 rows of 16 bytes, 128 contiguous bytes each): core matrix
+// (r / 8, c) of rows r and 16-byte column chunk c sits at byte
+// 128 ((r / 8) (D / 8) + c), its row r % 8 at 16 (r % 8) inside.  Read
+// through a descriptor, the same tile is
+// - a K-major operand (A = Q, or B = K of S = Q K^T: the contraction
+//   runs along D): leading byte offset (the next core matrix along K)
+//   128, stride byte offset (the next 8 rows) 16 D; k step c starts 256 c
+//   bytes in;
+// - an MN-major operand (B = V of O = P V: the contraction runs along
+//   the rows): leading byte offset (the next 8 rows, along K) 16 D, stride
+//   byte offset (the next 8 columns, along N) 128; k step c starts
+//   2 c (16 D) bytes in.
+// The accumulator of m64nNk16 is the mma.sync C layout per warp (warp w
+// holds rows 16 w .. 16 w + 15, its lane 4 g + t rows g and g + 8,
+// columns 8 j + 2 t, + 1 of every 8-column block j), and the register A
+// operand is the mma.sync A fragment of the warp's 16 rows, so the
+// softmax and the bf16 rounding of P in flash_mma.cuh carry over.
+#pragma once
+
+#include <cstdint>
+
+#include "flash_mma.cuh"
+
+namespace hetu {
+namespace tc {
+
+// Rows [0, R) of one head of a [*, H, D] bf16 array into the core-matrix
+// layout above, asynchronously, all threads together; rows at or past n
+// are zero-filled and not read.  Eight neighbouring threads fill one
+// core matrix (128 contiguous bytes); NT threads take part.
+template <int D, int R, int NT>
+__device__ __forceinline__ void load_blocked(bf16* tile, const bf16* src,
+                                             size_t stride, int n) {
+  constexpr int C = D / 8;
+  for (int i = threadIdx.x; i < R * C; i += NT) {
+    const int r = (i & 7) + 8 * (i / (8 * C));
+    const int c = (i >> 3) % C;
+    const bool ok = r < n;
+    cp_async16(tile + ((r >> 3) * C + c) * 64 + (r & 7) * 8,
+               src + (ok ? r * stride : 0) + c * 8, ok);
+  }
+}
+
+// A shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (all in 16-byte units), no swizzle (layout type 0).
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4)
+         | uint64_t((lbo >> 4) & 0x3FFF) << 16
+         | uint64_t((sbo >> 4) & 0x3FFF) << 32;
+}
+
+// cp.async wrote the tiles through the generic proxy; wgmma reads them
+// through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin the accumulator registers at this point of the program: no read
+// of them moves above a wgmma_wait(), no write below a wgmma issue.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+}
+
+// Keep register A operands alive until the wgmma that reads them has
+// completed (call after wgmma_wait()): wgmma reads them asynchronously.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// m64nNk16, bf16 in, f32 accumulate: ss (A and B from shared memory,
+// N = 64 or 128) and rs (A from registers, N = 32, 64 or 128); kTransB
+// 0: B is K-major, 1: MN-major.
+template <int N> struct Wgmma;
+
+template <> struct Wgmma<32> {
+  // d (64 x 32) += A B, A (64 x 16) in registers as the mma.sync A
+  // fragment of each warp's 16 rows, B from shared memory
+  template <int kTransB>
+  __device__ __forceinline__ static void rs(float (&d)[4][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15}"
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(kTransB));
+  }
+};
+
+template <> struct Wgmma<64> {
+  // d (64 x 64) = (scale_d ? d : 0) + A B, A and B from shared memory
+  template <int kTransB>
+  __device__ __forceinline__ static void ss(float (&d)[8][4],
+                                            uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}"
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+  // d (64 x 64) += A B, A (64 x 16) in registers as the mma.sync A
+  // fragment of each warp's 16 rows, B from shared memory
+  template <int kTransB>
+  __device__ __forceinline__ static void rs(float (&d)[8][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}"
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(kTransB));
+  }
+};
+
+template <> struct Wgmma<128> {
+  // d (64 x 128) = (scale_d ? d : 0) + A B, A and B from shared memory
+  template <int kTransB>
+  __device__ __forceinline__ static void ss(float (&d)[16][4],
+                                            uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+        "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63}"
+        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+  // d (64 x 128) += A B, A (64 x 16) in registers as the mma.sync A
+  // fragment of each warp's 16 rows, B from shared memory
+  template <int kTransB>
+  __device__ __forceinline__ static void rs(float (&d)[16][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+        "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63}"
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+          "n"(kTransB));
+  }
+};
+
+}  // namespace tc
+}  // namespace hetu

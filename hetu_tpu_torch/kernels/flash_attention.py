@@ -4,11 +4,15 @@ its carried form (``_flash_fwd(carry=...)``, K2-carry, ring attention's
 per-rotation step) and the FlashAttention-2 backward (``_flash_bwd``:
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``, K3).
 
-``flash_fwd`` and ``flash_fwd_carry`` launch ``csrc/flash_fwd.cu``;
+``flash_fwd`` and ``flash_fwd_carry`` launch ``csrc/flash_fwd.cu``
+(f32, CUDA cores) or ``csrc/flash_fwd_bf16.cu`` (bf16, tensor cores);
 ``flash_bwd_dkv`` and ``flash_bwd_dq`` launch the two kernels of
-``csrc/flash_bwd.cu``; each runs its plain PyTorch version
-(``*_reference``) on CPU tensors, and nothing falls back from one to
-the other.  Causal or not, with an optional ``kv_lens [B]`` padding
+``csrc/flash_bwd.cu`` (f32) or ``csrc/flash_bwd_bf16.cu`` (bf16); each
+runs its plain PyTorch version (``*_reference``) on CPU tensors, and
+nothing falls back from one to the other.  The plain versions round
+where the Pallas bodies round: P to the input dtype before P V (the
+denominator from the unrounded P), P and dS before the backward's
+products.  Causal or not, with an optional ``kv_lens [B]`` padding
 mask: a row with no live key outputs 0 and its logsumexp is +1e30, as
 the Pallas forward emits it, so the backward recomputes P = 0 there.
 ``flash_attention`` is differentiable in q, k and v through
@@ -28,7 +32,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -45,27 +49,46 @@ def _live_mask(S, Sk, causal, kv_lens, device):
 
 
 def mha_reference(q, k, v, *, causal=False, kv_lens=None):
-    """Exact attention on [B, S, H, D], in f32, output in q's dtype.
-    Rows of a sequence with ``kv_lens == 0`` output 0 (the kernels' value
-    there; a softmax over no live key is undefined)."""
-    return flash_fwd_reference(q, k, v, causal=causal, kv_lens=kv_lens)[0]
-
-
-def flash_fwd_reference(q, k, v, *, causal=False, kv_lens=None):
-    """The plain version of the forward kernel: (o [B, S, H, D] in q's
-    dtype, lse [B, H, S] f32 with +1e30 on rows with no live key)."""
+    """Exact attention on [B, S, H, D], in f32 with no rounding inside,
+    output in q's dtype.  Rows of a sequence with ``kv_lens == 0`` output
+    0 (the kernels' value there; a softmax over no live key is
+    undefined)."""
     S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
     live = _live_mask(S, Sk, causal, kv_lens, q.device)
     s = torch.where(live, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    row_live = live.any(dim=-1)                               # [B|1,1,S]
-    p = p * row_live[..., None]
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    lse = torch.logsumexp(s, dim=-1)
-    lse = torch.where(row_live.expand_as(lse), lse,
-                      torch.full_like(lse, -NEG_INF))
-    return o.to(q.dtype), lse
+    p = torch.softmax(s, dim=-1) * live.any(dim=-1)[..., None]
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _softmax_parts(s, live):
+    """The Pallas forward's softmax over a whole row at once: (p =
+    exp(s - m) on live scores, else 0, with m the row max clamped to 0
+    while nothing is live; l = sum of p; lse = m + log l, +1e30 where l
+    is 0)."""
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    safe_m = torch.where(m <= NEG_INF / 2, torch.zeros_like(m), m)
+    p = torch.where(live, torch.exp(s - safe_m), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l),
+                      torch.full_like(l, -NEG_INF))
+    return p, l, lse
+
+
+def flash_fwd_reference(q, k, v, *, causal=False, kv_lens=None):
+    """The plain version of the forward kernel: (o [B, S, H, D] in q's
+    dtype, lse [B, H, S] f32 with +1e30 on rows with no live key).  P is
+    rounded to v's dtype before P V, as ``_fwd_kernel`` rounds it, and
+    the denominator sums the unrounded P: o = sum(rnd(p) v) / sum(p)
+    (no rounding in f32)."""
+    S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    live = _live_mask(S, Sk, causal, kv_lens, q.device).expand_as(s)
+    p, l, lse = _softmax_parts(s, live)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    denom = torch.where(l == 0, torch.ones_like(l), l)
+    return (o / denom.transpose(1, 2)[..., None]).to(q.dtype), lse
 
 
 def _check_args(q, k, v, kv_lens):
@@ -101,10 +124,28 @@ def _check_kernel(q, tensors, names):
         raise ValueError(f"flash kernel takes contiguous {names}")
 
 
+def _library(q, name):
+    """(library, suffix of its C entries) of kernel ``name`` for q's
+    dtype: the f32 CUDA-core source ``name``.cu, or the bf16 tensor-core
+    one ``name``_bf16.cu, whose entries end in ``_bf16``."""
+    suffix = "_bf16" if q.dtype == torch.bfloat16 else ""
+    return _build.library(name + suffix), suffix
+
+
+def _check_aligned(tensors, names):
+    """The bf16 kernels copy 16-byte chunks: every tensor's data must
+    start on a 16-byte boundary (a fresh or contiguous-sliced tensor
+    does).  Raises ValueError."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the bf16 flash kernels take {names} starting "
+                         f"on 16-byte boundaries")
+
+
 def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
     """(o [B, S, H, D], lse [B, H, S] f32).  CUDA tensors launch the
-    kernel (f32 or bf16, head dim 32/64/128, contiguous, kv_lens int32);
-    CPU tensors run :func:`flash_fwd_reference`."""
+    kernel (f32 or bf16, head dim 32/64/128, contiguous, kv_lens int32;
+    bf16 data 16-byte aligned); CPU tensors run
+    :func:`flash_fwd_reference`."""
     _check_args(q, k, v, kv_lens)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal=causal, kv_lens=kv_lens)
@@ -120,16 +161,18 @@ def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
                             device=q.device))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_fwd")
-    fn = lib.hetu_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    if q.dtype == torch.bfloat16:
+        _check_aligned((q, k, v, o), "q, k, v")
+    lib, suffix = _library(q, "flash_fwd")
+    fn = getattr(lib, "hetu_flash_fwd" + suffix)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 kv_lens.data_ptr() if kv_lens is not None else None,
                 o.data_ptr(), lse.data_ptr(), B, S, Sk, H, D,
-                int(bool(causal)), _DTYPES[q.dtype], _build.stream_of(q))
+                int(bool(causal)), _build.stream_of(q))
     _build.check(lib, rc, "flash_fwd launch")
     _build.LAUNCHES["flash_attention"] += 1
     return o, lse
@@ -141,25 +184,52 @@ def _carry_live(lse_c):
 
 
 def flash_fwd_carry_reference(q, k, v, o_c, lse_c, *, causal=False):
-    """The plain version of the carried forward kernel, in f32: exact
-    attention over the union of the carried keys (one virtual key per row
-    with score ``lse_c`` and value ``o_c``, present where lse_c >
-    NEG_INF / 2) and these (k, v).  Returns (o [B, S, H, D] f32, lse
-    [B, H, S] f32, +1e30 on rows with no live key in either part)."""
+    """The plain version of the carried forward kernel, in f32: attention
+    over the union of the carried keys (one virtual key per row with
+    score ``lse_c`` and value ``o_c``, present where lse_c > NEG_INF / 2)
+    and these (k, v).  The P of these keys is rounded to v's dtype before
+    P V, as ``_fwd_kernel`` rounds it; the carry's term (the kernel's
+    seed of its f32 accumulator) and the denominator are not.  Returns
+    (o [B, S, H, D] f32, lse [B, H, S] f32, +1e30 on rows with no live
+    key in either part)."""
     S, Sk, D = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
     live = _live_mask(S, Sk, causal, None, q.device).expand_as(s)
     c_live = _carry_live(lse_c)[..., None]                     # [B,H,S,1]
     s = torch.cat([s, lse_c.float()[..., None]], dim=-1)
     live = torch.cat([live, c_live], dim=-1)
-    s = torch.where(live, s, torch.full_like(s, NEG_INF))
-    row_live = live.any(dim=-1)                                # [B,H,S]
-    p = torch.softmax(s, dim=-1) * row_live[..., None]
-    o = torch.einsum("bhqk,bkhd->bqhd", p[..., :Sk], v.float()) \
+    p, l, lse = _softmax_parts(s, live)
+    o = torch.einsum("bhqk,bkhd->bqhd", p[..., :Sk].to(v.dtype).float(),
+                     v.float()) \
         + p[..., Sk].transpose(1, 2)[..., None] * o_c.float()
-    lse = torch.where(row_live, torch.logsumexp(s, dim=-1),
-                      torch.full_like(row_live, -NEG_INF, dtype=s.dtype))
-    return o, lse
+    denom = torch.where(l == 0, torch.ones_like(l), l)
+    return o / denom.transpose(1, 2)[..., None], lse
+
+
+def bf16_rounding_bound(q, k, v, *, causal=False, kv_lens=None, lse_c=None):
+    """[B, S, H, D] f32: how far two bf16 forwards that round P = exp(s -
+    m) against different maxima may put each element of o apart, before
+    o's own rounding.  The kernels round against their running max at
+    each key tile, the plain versions against the row's final max: each
+    rounding is within 2^-8 of p, so the two P differ by at most 2^-7 p
+    and o_d by at most 2^-7 sum(p |v_d|) / l, which is 2^-7 times the f32
+    plain forward of (q, k, |v|).  With a carry (``lse_c``) the carry's
+    term is not rounded, so o_c is 0 there and only l counts it.  Runs
+    one head at a time, so the f32 scores of one head are the peak."""
+    q, k, va = q.float(), k.float(), v.float().abs()
+    heads = []
+    for h in range(q.shape[2]):
+        hs = slice(h, h + 1)
+        if lse_c is None:
+            w, _ = flash_fwd_reference(q[:, :, hs], k[:, :, hs],
+                                       va[:, :, hs], causal=causal,
+                                       kv_lens=kv_lens)
+        else:
+            w, _ = flash_fwd_carry_reference(
+                q[:, :, hs], k[:, :, hs], va[:, :, hs],
+                torch.zeros_like(q[:, :, hs]), lse_c[:, hs], causal=causal)
+        heads.append(w)
+    return 2.0 ** -7 * torch.cat(heads, dim=2)
 
 
 def _check_carry(q, o_c, lse_c):
@@ -181,7 +251,8 @@ def flash_fwd_carry(q, k, v, o_c, lse_c, *, causal=False):
     (k, v) continuing the partial (o_c f32 [B, S, H, D], normalised;
     lse_c f32 [B, H, S], NEG_INF where empty).  CUDA tensors launch the
     carried kernel (q, k, v f32 or bf16, head dim 32/64/128, all
-    contiguous); CPU tensors run :func:`flash_fwd_carry_reference`.
+    contiguous, bf16 data 16-byte aligned); CPU tensors run
+    :func:`flash_fwd_carry_reference`.
     It takes no ``kv_lens``: the Pallas kernel does not combine one with
     a carry either."""
     _check_args(q, k, v, None)
@@ -197,16 +268,17 @@ def flash_fwd_carry(q, k, v, o_c, lse_c, *, causal=False):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return o, lse
-    lib = _build.library("flash_fwd")
-    fn = lib.hetu_flash_fwd_carry
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 \
+    if q.dtype == torch.bfloat16:
+        _check_aligned((q, k, v, o_c, o), "q, k, v, o_carry")
+    lib, suffix = _library(q, "flash_fwd")
+    fn = getattr(lib, "hetu_flash_fwd_carry" + suffix)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_c.data_ptr(),
                 lse_c.data_ptr(), o.data_ptr(), lse.data_ptr(), B, S, Sk,
-                H, D, int(bool(causal)), _DTYPES[q.dtype],
-                _build.stream_of(q))
+                H, D, int(bool(causal)), _build.stream_of(q))
     _build.check(lib, rc, "flash_fwd_carry launch")
     _build.LAUNCHES["flash_attention_carry"] += 1
     return o, lse
@@ -299,24 +371,27 @@ def _check_bwd(q, k, v, kv_lens, lse, delta, do):
 def _bwd_launch(entry, what, q, k, v, kv_lens, lse, delta, do, outs,
                 causal):
     B, S, H, D = q.shape
-    lib = _build.library("flash_bwd")
-    fn = getattr(lib, entry)
+    if q.dtype == torch.bfloat16:
+        _check_aligned((q, k, v, do) + tuple(outs), "q, k, v, dO")
+    lib, suffix = _library(q, "flash_bwd")
+    fn = getattr(lib, entry + suffix)
     fn.argtypes = [ctypes.c_void_p] * (7 + len(outs)) \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(),
                 kv_lens.data_ptr() if kv_lens is not None else None,
                 *(t.data_ptr() for t in outs), B, S, k.shape[1], H, D,
-                int(bool(causal)), _DTYPES[q.dtype], _build.stream_of(q))
+                int(bool(causal)), _build.stream_of(q))
     _build.check(lib, rc, f"{what} launch")
 
 
 def flash_bwd_dkv(q, k, v, kv_lens, lse, delta, do, *, causal=False):
     """(dk, dv) [B, Sk, H, D]: the dK/dV kernel on CUDA tensors (f32 or
     bf16, head dim 32/64/128, contiguous, lse and delta f32 [B, H, S],
-    kv_lens int32 [B]); :func:`flash_bwd_dkv_reference` on CPU tensors."""
+    kv_lens int32 [B]; bf16 data 16-byte aligned);
+    :func:`flash_bwd_dkv_reference` on CPU tensors."""
     if not _check_bwd(q, k, v, kv_lens, lse, delta, do):
         return flash_bwd_dkv_reference(q, k, v, kv_lens, lse, delta, do,
                                        causal=causal)

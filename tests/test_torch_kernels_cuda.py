@@ -10,9 +10,12 @@ f32 ``atol 1e-5`` (the kernels sum the softmax in another order than
 the plain versions); bf16 ``atol 2^-12, rtol 2^-7`` (both sides round
 an f32 result to bf16, at most one bf16 ulp apart).  The int8 twins are
 held to the same: both sides form the same f32 product payload * scale.
-The flash backward (K3) is held to its own, stated at ``k3_close``; the
-carried forward (K2-carry), whose output is f32 for both input dtypes,
-to ``atol 1e-5, rtol 1e-5`` (``CARRY_TOL``).  The verify wrappers past 16
+The bf16 flash forward (K2, K2-carry) is held to the bound of its
+rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
+own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
+output is f32, to ``atol 1e-5, rtol 1e-5`` (``CARRY_TOL``).  The bf16
+flash kernels run on the tensor cores (csrc/flash_*_bf16.cu), the f32
+ones on the CUDA cores.  The verify wrappers past 16
 rows launch once per 16-row group; the ring runs on a virtual mesh of
 the card.
 """
@@ -218,34 +221,93 @@ def test_verify_kernel_q1_equals_decode_kernel(cuda):
     assert torch.equal(got[:, 0], want)
 
 
+def flash_tol(q, k, v, dtype, causal, kv_lens=None, lse_c=None, rtol=None):
+    """The flash forward (K2, K2-carry) against its plain version, as
+    dict(atol, rtol) for ``assert_flash_close``.  f32 as ``TOL`` (or the
+    caller's rtol).  bf16: the kernel rounds P = exp(s - m) to bf16
+    against its running max m at each key tile, the plain version
+    against the row's final max (the only max it has); each rounding is
+    within 2^-8 of p (bf16 keeps 8 significant bits), so the two P
+    differ by at most 2^-7 p and each element of o by at most 2^-7
+    sum(p |v_d|) / l of its row (``bf16_rounding_bound``), plus f32's
+    1e-5 for the sums and exp in another order, before its own rounding,
+    which adds one bf16 ulp (rtol 2^-7; the carry's f32 output adds
+    none, so its rtol stays 1e-5).  Masks show in the lse, held to
+    1e-4."""
+    if dtype == "float32":
+        return TOL[dtype] if rtol is None else dict(atol=1e-5, rtol=rtol)
+    bound = tfa.bf16_rounding_bound(q, k, v, causal=causal,
+                                    kv_lens=kv_lens, lse_c=lse_c)
+    return dict(atol=1e-5 + bound.cpu().numpy(),
+                rtol=2.0 ** -7 if rtol is None else rtol)
+
+
+def assert_flash_close(got, want, atol, rtol):
+    """|got - want| <= atol + rtol * |want| element by element, atol a
+    scalar or an array of want's shape."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    diff = np.abs(got - want)
+    lim = atol + rtol * np.abs(want)
+    bad = ~(diff <= lim)
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {bad.size} elements off; largest error / "
+        f"bound {float((diff / lim).max())}, max abs error "
+        f"{float(diff.max())}")
+
+
+# (causal, S, Sk): one row, the 64-row tile's edges, a ragged last tile,
+# the training length, Sk > S without the causal mask
+FLASH_CASES = [(True, 1, 1), (True, 63, 63), (True, 64, 64), (True, 65, 65),
+               (True, 100, 100), (True, 1024, 1024), (False, 40, 72),
+               (False, 65, 200), (False, 1, 130)]
+
+
+def _lens(Sk, cuda):
+    """kv_lens of the four sequences: partial, 0, 1, full."""
+    return torch.tensor([max(Sk // 2, 1), 0, 1, Sk], dtype=torch.int32,
+                        device=cuda)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,S,Sk", [(True, 100, 100),
-                                         (False, 40, 72)])
-def test_flash_kernel_matches_plain(cuda, dtype, causal, S, Sk):
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,S,Sk", FLASH_CASES)
+@pytest.mark.parametrize("with_lens", [True, False])
+def test_flash_kernel_matches_plain(cuda, dtype, D, causal, S, Sk,
+                                    with_lens):
     dt = getattr(torch, dtype)
-    g = torch.Generator().manual_seed(1)
-    q = torch.randn((3, S, 4, 64), generator=g).to(cuda, dt)
-    k, v = (torch.randn((3, Sk, 4, 64), generator=g).to(cuda, dt)
+    g = torch.Generator().manual_seed(D + S)
+    q = torch.randn((4, S, 4, D), generator=g).to(cuda, dt)
+    k, v = (torch.randn((4, Sk, 4, D), generator=g).to(cuda, dt)
             for _ in range(2))
-    lens = torch.tensor([Sk - 3, 0, 9], dtype=torch.int32, device=cuda)
+    lens = _lens(Sk, cuda) if with_lens else None
     reset_launches()
     o, lse = tfa.flash_fwd(q, k, v, causal=causal, kv_lens=lens)
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == 1
+    assert sum(launch_counts().values()) == 1
+    assert o.dtype == dt
     o_r, lse_r = tfa.flash_fwd_reference(q, k, v, causal=causal,
                                          kv_lens=lens)
-    np.testing.assert_allclose(o.float().cpu().numpy(),
-                               o_r.float().cpu().numpy(), **TOL[dtype])
+    assert_flash_close(o, o_r, **flash_tol(q, k, v, dtype, causal,
+                                           kv_lens=lens))
     live = lse_r < 1e29
     assert torch.equal(lse >= 1e29, ~live)
+    assert torch.equal(lse[~live], lse_r[~live])
     np.testing.assert_allclose(lse[live].cpu().numpy(),
                                lse_r[live].cpu().numpy(), atol=1e-4)
+    if with_lens:
+        assert (o[1] == 0).all()
 
 
 # K2-carry against its plain version: the output is f32 for both input
-# dtypes and both sides accumulate in f32 over the same inputs, so f32
-# and bf16 are held to 1e-5 + 1e-5 rel; lse as K2's.
+# dtypes and both sides accumulate in f32; f32 is held to 1e-5 + 1e-5
+# rel, bf16 to flash_tol's 1e-5 plus the bound of the rounding of P of
+# its rounded terms (the carry's f32 term is not rounded) with rtol
+# 1e-5; lse as K2's.
 CARRY_TOL = dict(atol=1e-5, rtol=1e-5)
+CARRY_CASES = [(True, 1, 1), (True, 64, 64), (True, 65, 65),
+               (True, 100, 100), (True, 1024, 1024), (False, 40, 72),
+               (False, 63, 130)]
 
 
 def _carry_case(B, S, Sk, Hn, D, kind, dt, cuda, seed):
@@ -265,13 +327,12 @@ def _carry_case(B, S, Sk, Hn, D, kind, dt, cuda, seed):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("causal,S,Sk", [(True, 100, 100),
-                                         (False, 40, 72)])
+@pytest.mark.parametrize("causal,S,Sk", CARRY_CASES)
 @pytest.mark.parametrize("kind", ["empty", "live", "mixed"])
 def test_flash_carry_kernel_matches_plain(cuda, dtype, D, causal, S, Sk,
                                           kind):
     """K2-carry over an empty, a live and a row-by-row mixed carry, causal
-    and not, S not a multiple of the 32-row tile."""
+    and not, S at and off the tiles' edges."""
     dt = getattr(torch, dtype)
     args = _carry_case(3, S, Sk, 4, D, kind, dt, cuda, D + S)
     reset_launches()
@@ -281,8 +342,10 @@ def test_flash_carry_kernel_matches_plain(cuda, dtype, D, causal, S, Sk,
     assert launch_counts()["flash_attention"] == 0
     assert o.dtype == torch.float32
     o_r, lse_r = tfa.flash_fwd_carry_reference(*args, causal=causal)
-    np.testing.assert_allclose(o.cpu().numpy(), o_r.cpu().numpy(),
-                               **CARRY_TOL)
+    q, k, v, _, lse_c = args
+    assert_flash_close(o, o_r, **flash_tol(q, k, v, dtype, causal,
+                                           lse_c=lse_c,
+                                           rtol=CARRY_TOL["rtol"]))
     live = lse_r < 1e29
     assert torch.equal(lse >= 1e29, ~live)
     np.testing.assert_allclose(lse[live].cpu().numpy(),
@@ -338,18 +401,25 @@ def k3_close(got, want, dtype):
     bf16: both sides round P and dS to bf16 before the sums; a pre-
     rounding value one f32 ulp apart may round to the neighbouring bf16
     value, moving a sum by one bf16 ulp of one term, so atol is one bf16
-    ulp (2^-7) of the tensor's largest |want| and rtol one ulp."""
+    ulp (2^-7) of the tensor's largest |want| and rtol one ulp; plus 2^-16
+    absolute, the f32 noise of dS = P (dP - delta) where dP and delta
+    (each ~|dO| |v|) cancel exactly, as they do when every live row has
+    one key (dQ and dK are then 0 up to that noise on both sides)."""
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     if dtype == "float32":
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
     else:
-        np.testing.assert_allclose(got, want, rtol=2.0 ** -7,
-                                   atol=2.0 ** -7 * np.abs(want).max())
+        np.testing.assert_allclose(
+            got, want, rtol=2.0 ** -7,
+            atol=2.0 ** -7 * np.abs(want).max() + 2.0 ** -16)
 
 
 K3_CASES = [(True, 100, 100, True), (False, 100, 100, True),
             (False, 40, 72, True), (True, 40, 72, False),
-            (True, 128, 128, False)]
+            (True, 128, 128, False), (True, 1, 1, True),
+            (True, 63, 63, False), (True, 64, 64, True),
+            (False, 65, 65, True), (True, 1024, 1024, False),
+            (False, 65, 200, True)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -358,15 +428,15 @@ K3_CASES = [(True, 100, 100, True), (False, 100, 100, True),
 def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, S, Sk,
                                        with_lens):
     """K3's dK/dV and dQ kernels on causal and full attention, kv_lens
-    with a 0, Sk > S, S not a multiple of the 64-row tile."""
+    partial, 0, 1 and full, Sk > S, S at and off the 64-row tile's
+    edges."""
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(D + S)
-    q, do = (torch.randn((3, S, 4, D), generator=g).to(cuda, dt)
+    q, do = (torch.randn((4, S, 4, D), generator=g).to(cuda, dt)
              for _ in range(2))
-    k, v = (torch.randn((3, Sk, 4, D), generator=g).to(cuda, dt)
+    k, v = (torch.randn((4, Sk, 4, D), generator=g).to(cuda, dt)
             for _ in range(2))
-    lens = (torch.tensor([Sk - 3, 0, 9], dtype=torch.int32, device=cuda)
-            if with_lens else None)
+    lens = _lens(Sk, cuda) if with_lens else None
     o, lse = tfa.flash_fwd_reference(q, k, v, causal=causal, kv_lens=lens)
     delta = tfa.bwd_delta(o, do)
     reset_launches()
@@ -386,7 +456,7 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, D, causal, S, Sk,
     if with_lens:
         assert (dq[1] == 0).all() and (dk[1] == 0).all() \
             and (dv[1] == 0).all()
-        assert (dk[2, 9:] == 0).all() and (dv[2, 9:] == 0).all()
+        assert (dk[2, 1:] == 0).all() and (dv[2, 1:] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -421,6 +491,53 @@ def test_flash_attention_autograd_on_the_card(cuda, dtype):
         reset_launches()
         tfa.flash_attention(q, k, v, causal=True)
         assert launch_counts()["flash_attention_bwd_dq"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_are_deterministic(cuda, dtype):
+    """Two launches of each flash kernel on the same inputs give the same
+    bits (no atomics, every sum in one fixed order), one launch each."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn((2, 300, 4, 64), generator=g).to(cuda, dt)
+                   for _ in range(4))
+    lens = torch.tensor([300, 171], dtype=torch.int32, device=cuda)
+    o_c, lse_c = _carry_case(2, 300, 300, 4, 64, "mixed", dt, cuda, 12)[3:]
+    outs = []
+    for _ in range(2):
+        reset_launches()
+        o, lse = tfa.flash_fwd(q, k, v, causal=True, kv_lens=lens)
+        oc, lc = tfa.flash_fwd_carry(q, k, v, o_c, lse_c, causal=True)
+        delta = tfa.bwd_delta(o, do)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, lens, lse, delta, do,
+                                   causal=True)
+        dq = tfa.flash_bwd_dq(q, k, v, lens, lse, delta, do, causal=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert {n: c for n, c in counts.items() if c} == {
+            "flash_attention": 1, "flash_attention_carry": 1,
+            "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1}
+        outs.append((o, lse, oc, lc, dk, dv, dq))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_bf16_flash_wrappers_refuse_misaligned_data(cuda):
+    """The bf16 flash kernels copy 16-byte chunks: data that does not
+    start on a 16-byte boundary is refused, not read."""
+    x = torch.randn((1, 8 * 64 + 4), device=cuda).bfloat16()
+    bad = x[:, 4:].reshape(1, 8, 1, 64)          # 8 bytes past the start
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    y = torch.randn((1, 8, 1, 64), device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_fwd(bad, y, y, causal=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_fwd_carry(y, bad, y,
+                            torch.zeros_like(y, dtype=torch.float32),
+                            torch.full((1, 1, 8), tfa.NEG_INF, device=cuda))
+    stat = torch.zeros((1, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_bwd_dq(y, y, y, None, stat, stat, bad)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
