@@ -10,8 +10,9 @@ non-zero and prints no result line):
 1. The card's name and power limit (``nvidia-smi``); every kernel
    library built by ``nvcc`` from ``hetu_tpu_torch/kernels/csrc``, all
    sources at once (seconds printed); one line per instance of the bf16
-   flash kernels on the tensor cores (K2 and K2-carry on wgmma, K3's two
-   on mma.sync): registers and spills (``ptxas -v``), dynamic shared
+   kernels on the tensor cores (K2 and K2-carry on wgmma, K3's two on
+   mma.sync, K1/K8's wide kernel on wgmma and split kernel on
+   mma.sync): registers and spills (``ptxas -v``), dynamic shared
    memory, and the HGMMA / HMMA instructions of its SASS where the
    toolkit has ``cuobjdump`` (an instance with none fails).
 2. Each kernel against its plain PyTorch version on the card at the main
@@ -21,10 +22,17 @@ non-zero and prints no result line):
    yardstick (never called by the port), beside the least time the
    card could take for the same work (the flash kernels also timed over
    ten back-to-back calls, the device time once the host runs ahead):
-   K1 ragged_paged_attention on a mixed pool wave, K2 flash_attention on 8 prompts, K4/K5 decode over
-   8 slot rows / pool slots, K6/K7 verify over the same slot rows /
-   pool slots (Q 5, q_lens {5, 5, 3, 0, 1, 5, 2, 5}), K8
-   ragged_attention on a contiguous wave with a 1024-row prompt q-block.
+   K1 ragged_paged_attention on a mixed pool wave (Q 256), K2
+   flash_attention on 8 prompts, K4/K5 decode over 8 slot rows / pool
+   slots, K6/K7 verify over the same slot rows / pool slots (Q 5, q_lens
+   {5, 5, 3, 0, 1, 5, 2, 5}), K8 ragged_attention on a contiguous wave
+   with a 1024-row prompt q-block; then K1 and K8 on a decode wave (Q 1)
+   and a verify wave (Q 8, K6's q_lens) over the same slots (K1 and K8
+   also timed ten back to back).  bf16 K1 and K8 (csrc/ragged_paged_bf16.cu)
+   round P to bf16 before P V as the Pallas body does and their plain
+   versions do not: they are held to TOL plus
+   ``ragged_attention.ragged_rounding_bound`` (2^-8 sum(p |v_d|) / l of
+   the row, one rounding of P), and the largest err / bound is logged.
    bf16 K2 (here, at phase 8's training shape and as K2-carry in phase
    9) is held element by element to 2^-7 sum(p |v_d|) / l of its row
    (``bf16_rounding_bound``) + 1e-5, and 2^-7 rel: it rounds P to bf16
@@ -237,6 +245,27 @@ def time_run_ms(torch, fn, n=10, reps=5, warm=2):
     return float(np.median(times))
 
 
+def device_ms(torch, fn, n=10):
+    """The device time of one call of ``fn()``: its kernels' own time
+    under torch.profiler over ``n`` calls, divided by ``n`` (host time
+    and the gaps between kernels excluded; a call of several kernels
+    sums them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if total <= 0:
+        fail("the profiler recorded no device time")
+    return total / 1e3 / n
+
+
 def compare(got, want, dtype):
     """(max abs error, True when every element is within TOL[dtype])."""
     err, _, ok = close(got, want, *TOL[dtype])
@@ -278,14 +307,18 @@ def bound(nbytes, flops, dtype):
 # phase 1: the tensor-core kernels' build report
 # ---------------------------------------------------------------- #
 
-# the bf16 flash libraries and their kernels (symbol substring, entry of
-# the dynamic shared memory query and its arguments after Dh)
+# the bf16 tensor-core libraries and their kernels (symbol substring,
+# entry of the dynamic shared memory query and its arguments after Dh)
 TC_KERNELS = (("flash_fwd_bf16", "flash_fwd_bf16_kernel",
                "hetu_flash_fwd_bf16_smem", ()),
               ("flash_bwd_bf16", "flash_bwd_dkv_bf16_kernel",
                "hetu_flash_bwd_bf16_smem", (1,)),
               ("flash_bwd_bf16", "flash_bwd_dq_bf16_kernel",
-               "hetu_flash_bwd_bf16_smem", (0,)))
+               "hetu_flash_bwd_bf16_smem", (0,)),
+              ("ragged_paged_bf16", "ragged_wide_kernel",
+               "hetu_ragged_bf16_smem", (0,)),
+              ("ragged_paged_bf16", "split_kv_kernel",
+               "hetu_ragged_bf16_smem", (1,)))
 
 
 def ptxas_entries(log):
@@ -338,10 +371,11 @@ def sass_mma_counts(lib_path):
 
 
 def tc_report(_build, paths):
-    """One line per bf16 flash kernel instance: registers and spills
-    (ptxas, from this process's build), dynamic shared memory, and the
-    HMMA / HGMMA instructions of its SASS; fails when an instance has
-    no tensor-core instruction."""
+    """One line per instance of a bf16 tensor-core kernel (K2 and
+    K2-carry, K3's two, the wide and split ragged kernels of K1/K8):
+    registers and spills (ptxas, from this process's build), dynamic
+    shared memory, and the HMMA / HGMMA instructions of its SASS; fails
+    when an instance has no tensor-core instruction."""
     sass = {}
     for lib_name, sym, smem_fn, extra in TC_KERNELS:
         if lib_name not in sass:
@@ -349,17 +383,20 @@ def tc_report(_build, paths):
         regs = ptxas_entries(_build.BUILD_LOG.get(lib_name, ""))
         lib = _build.library(lib_name)
         for name in sorted(n for n in (sass[lib_name] or regs) if sym in n):
-            m = re.search(sym + r"ILi(\d+)E(Lb([01])E)?", name)
+            m = re.search(sym + r"ILi(\d+)E(?:Lb([01])E)?", name)
             D = int(m.group(1))
-            carry = m.group(3) == "1"
+            carry = m.group(2) == "1"
             smem = getattr(lib, smem_fn)(D, *extra)
+            what = "".join((", carry" if carry else "",
+                            ", pool" if "TableRows" in name else "",
+                            ", slots" if "SlotRows" in name else ""))
             r = regs.get(name)
             ptx = (f"{r[0]} registers, spill stores {r[1]} B, loads {r[2]} B"
                    if r else "not rebuilt in this process")
             mma = sass[lib_name]
             count = (f"HMMA {mma[name][0]}, HGMMA {mma[name][1]}"
                      if mma is not None else "no cuobjdump")
-            log(f"  tensor cores: {sym}<D {D}{', carry' if carry else ''}>: "
+            log(f"  tensor cores: {sym}<D {D}{what}>: "
                 f"{ptx}, dynamic shared {smem} B; SASS {count}")
             if mma is not None and sum(mma[name]) == 0:
                 fail(f"{name} has no HMMA or HGMMA instruction")
@@ -466,45 +503,83 @@ def kv_operands(torch, k, v, dtype, int8):
 
 
 def measure(torch, label, dtype, run, plain, library, nbytes, flops,
-            dead=3):
+            dead=3, rounding=None, b2b=False):
     """Hold ``run()`` (the kernel) to ``plain()`` element by element,
     check that slot ``dead`` (length 0) is zero, and time the kernel,
     its plain version and the ``library()`` yardstick beside the
-    bound."""
+    bound.  ``rounding()`` (bf16 only) adds the per-element bound of a
+    rounding of P the plain version does not make to TOL's atol, and
+    the largest err / (atol + rtol*|want|) is logged; ``b2b`` also
+    times ten back-to-back kernel calls (``run_ms``) and the kernels'
+    device time per call (``dev_ms``, ``device_ms``)."""
     got = run()
     torch.cuda.synchronize()
     want = plain().to(got.dtype)
-    err, ok = compare(got, want, dtype)
+    atol, rtol = TOL[dtype]
+    with_bound = rounding is not None and dtype == "bfloat16"
+    if with_bound:
+        atol = atol + rounding()
+    err, ratio, ok = close(got, want, atol, rtol)
+    tol = (f"atol + rtol*|want|, (atol, rtol) = {TOL[dtype]}"
+           + (" + ragged_rounding_bound" if with_bound else ""))
     if not ok:
-        fail(f"{label} {dtype}: max abs err {err}, past atol + "
-             f"rtol*|want| with (atol, rtol) = {TOL[dtype]}")
+        fail(f"{label} {dtype}: max abs err {err}, largest err / bound "
+             f"{ratio}, past {tol}")
     if got[dead].abs().max() != 0:
         fail(f"{label}: zero-length slot not zero")
     ms = time_ms(torch, run)
+    run_ms = time_run_ms(torch, run) if b2b else None
+    dev = device_ms(torch, run) if b2b else None
     plain_ms = time_ms(torch, plain, reps=5)
     lib_ms = time_ms(torch, library)
     b_ms, b_by = bound(nbytes, flops, dtype)
-    log(f"  {label} {dtype}: max_abs_err {err:.3e} (within atol + "
-        f"rtol*|want|, (atol, rtol) = {TOL[dtype]}); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, SDPA yardstick {lib_ms:.4f} ms; bound "
-        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    log(f"  {label} {dtype}: max_abs_err {err:.3e}, largest err / bound "
+        f"{ratio:.4f} (within {tol}); kernel {ms:.4f} ms"
+        + (f" ({run_ms:.4f} back to back, {dev:.4f} on the device)"
+           if b2b else "")
+        + f", plain {plain_ms:.4f} ms, SDPA yardstick {lib_ms:.4f} ms; "
+        f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
+    return dict(err=err, ratio=ratio, ms=ms, run_ms=run_ms, dev_ms=dev,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
-def check_k1(torch, F, dtype, seed, int8=False):
-    """K1 on a mixed wave of the 8 pool slots: q_len in {0, 1, 5, 256},
-    Q 256; with ``int8`` K1-int8 over the f32 pool's encoding, q of
-    ``dtype``.  Yardstick: SDPA over the pre-gathered dense (with
-    ``int8``, dequantized) view with the equivalent mask (the gather
-    itself excluded)."""
+# the verify wave of phase 2: Q = spec 4 + 1, each slot's live rows
+VERIFY_QLENS = np.array([5, 5, 3, 0, 1, 5, 2, 5], np.int32)
+# K1's and K8's waves over the 8 slots of LENGTHS, (Q, q_lens): their
+# mixed waves (K1: prompt chunks of 256 beside decode and verify rows;
+# K8: a 600-token prompt at its pow2 bucket 1024), and for both a
+# decode wave (Q 1, q_len 1 on every slot with a length: most of a
+# serving run's waves) and a verify wave (Q 8, the pow2 bucket of
+# VERIFY_QLENS, spec 4)
+MIXED_WAVES = {"K1": (256, np.array([256, 1, 5, 0, 1, 256, 1, 5], np.int32)),
+               "K8": (1024, np.array([1, 600, 1, 0, 1, 300, 1, 1], np.int32))}
+NARROW_WAVES = {"decode": (1, (LENGTHS > 0).astype(np.int32)),
+                "verify": (8, VERIFY_QLENS)}
+
+
+def wave_of(kernel, wave):
+    """(Q, q_lens, label suffix) of ``kernel``'s wave ``wave``: "mixed",
+    or one of ``NARROW_WAVES``."""
+    if wave == "mixed":
+        return (*MIXED_WAVES[kernel], "")
+    Q, q_lens = NARROW_WAVES[wave]
+    return Q, q_lens, f" {wave} Q {Q}"
+
+
+def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
+    """K1 on a wave of the 8 pool slots (``wave_of``: the mixed
+    wave has q_len in {0, 1, 5, 256}, Q 256); with ``int8`` K1-int8 over
+    the f32 pool's encoding, q of ``dtype``.  Yardstick: SDPA over the
+    pre-gathered dense (with ``int8``, dequantized) view with the
+    equivalent mask (the gather itself excluded)."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
     pool_k, pool_v, tables, n_rows = pool_case(
         torch, "float32" if int8 else dtype, seed)
     (pool_k, pool_v), sc, sc_plain, dense, row_bytes = kv_operands(
         torch, pool_k, pool_v, dtype, int8)
-    q_lens = np.array([256, 1, 5, 0, 1, 256, 1, 5], np.int32)
-    B, Q = len(LENGTHS), 256
+    Q, q_lens, suffix = wave_of("K1", wave)
+    B = len(LENGTHS)
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     q = torch.randn((B, Q, H, DH), generator=g,
                     device="cuda").to(getattr(torch, dtype))
@@ -526,26 +601,28 @@ def check_k1(torch, F, dtype, seed, int8=False):
               + n_rows * H * row_bytes + 4 * n_tab + LENGTHS.nbytes
               + q_lens.nbytes)
     return measure(
-        torch, f"K1{'-int8' if int8 else ''} ragged_paged_attention", dtype,
-        lambda: ra.ragged_paged_attention(*args, **sc),
+        torch, f"K1{'-int8' if int8 else ''} ragged_paged_attention{suffix}",
+        dtype, lambda: ra.ragged_paged_attention(*args, **sc),
         lambda: ra.ragged_paged_reference(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
-        + (2 * n_rows * H * DH if int8 else 0))
+        + (2 * n_rows * H * DH if int8 else 0),
+        rounding=None if int8 else lambda: ra.ragged_rounding_bound(*args),
+        b2b=not int8)
 
 
-def check_k8(torch, F, dtype, seed, int8=False):
-    """K8 on a contiguous mixed wave with a wide prompt q-block: a
-    600-token prompt (Q 1024, its pow2 bucket), a 300-token prompt,
-    decode tokens, a length-0 slot; with ``int8`` K8-int8 over the f32
-    rows' encoding.  Yardstick: SDPA over the (dequantized) slot rows
-    with the equivalent mask."""
+def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
+    """K8 on a wave of the 8 slot rows (``wave_of``: the mixed wave
+    has a wide prompt q-block, a 600-token prompt at Q 1024, its pow2
+    bucket, a 300-token prompt, decode tokens, a length-0 slot); with
+    ``int8`` K8-int8 over the f32 rows' encoding.  Yardstick: SDPA over
+    the (dequantized) slot rows with the equivalent mask."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
     k, v = slot_rows_case(torch, "float32" if int8 else dtype, seed + 7)
     (k, v), sc, sc_plain, dense, row_bytes = kv_operands(torch, k, v,
                                                          dtype, int8)
-    q_lens = np.array([1, 600, 1, 0, 1, 300, 1, 1], np.int32)
-    B, Q = len(LENGTHS), 1024
+    Q, q_lens, suffix = wave_of("K8", wave)
+    B = len(LENGTHS)
     g = torch.Generator(device="cuda").manual_seed(seed + 8)
     q = torch.randn((B, Q, H, DH), generator=g,
                     device="cuda").to(getattr(torch, dtype))
@@ -558,13 +635,15 @@ def check_k8(torch, F, dtype, seed, int8=False):
               + int(LENGTHS.sum()) * H * row_bytes + LENGTHS.nbytes
               + q_lens.nbytes)
     r = measure(
-        torch, f"K8{'-int8' if int8 else ''} ragged_attention", dtype,
-        lambda: ra.ragged_attention(*args, **sc),
+        torch, f"K8{'-int8' if int8 else ''} ragged_attention{suffix}",
+        dtype, lambda: ra.ragged_attention(*args, **sc),
         lambda: ra.ragged_masked_reference(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
-        + (2 * int(LENGTHS.sum()) * H * DH if int8 else 0))
-    if int8:
+        + (2 * int(LENGTHS.sum()) * H * DH if int8 else 0),
+        rounding=None if int8 else lambda: ra.ragged_rounding_bound(*args),
+        b2b=not int8)
+    if int8 or wave != "mixed":
         return r
     # the dead-row cost: the same slots with no dead row, each prompt
     # slot launched at Q = its q_len and the decode slots at Q = 1
@@ -574,17 +653,13 @@ def check_k8(torch, F, dtype, seed, int8=False):
         waves.append((q[idx, :width].contiguous(), k[idx].contiguous(),
                       v[idx].contiguous(), args[3][idx].contiguous(),
                       args[4][idx].contiguous()))
-    live_ms = time_ms(torch, lambda: [ra.ragged_attention(*w)
-                                      for w in waves])
+    live_ms = device_ms(torch, lambda: [ra.ragged_attention(*w)
+                                        for w in waves])
     log(f"  K8 {dtype}: the same slots without dead rows (three launches "
-        f"at Q = 600, 300, 1) {live_ms:.4f} ms against {r['ms']:.4f} ms "
-        f"for the Q 1024 wave: dead rows take "
-        f"{1 - live_ms / r['ms']:.1%} of the wave")
+        f"at Q = 600, 300, 1) {live_ms:.4f} ms on the device against "
+        f"{r['dev_ms']:.4f} ms for the Q 1024 wave: dead rows take "
+        f"{1 - live_ms / r['dev_ms']:.1%} of the wave's device time")
     return r
-
-
-# the verify wave of phase 2: Q = spec 4 + 1, each slot's live rows
-VERIFY_QLENS = np.array([5, 5, 3, 0, 1, 5, 2, 5], np.int32)
 
 
 def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
@@ -705,8 +780,9 @@ def check_k2(torch, F, dtype, seed):
         f"plain {plain_ms:.4f} ms, SDPA is_causal on [8,12,512,64] "
         f"without the kv_lens mask {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
         f"by {b_by} ({nbytes} B, {flops} flop)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(err=err, ratio=ratio, ms=ms, run_ms=run_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 # ---------------------------------------------------------------- #
@@ -829,7 +905,8 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
     """One engine run of ``config`` (plus ``engine_kw``) over the request
     set, its launches held to ``want_launches``; ``prof`` (a
     torch.profiler.profile) wraps the run alone when given."""
-    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.kernels import (launch_counts, regime_counts,
+                                        reset_launches)
     from hetu_tpu_torch.serving import Request
     dt = getattr(torch, dtype)
     eng = htt.ServingEngine(params, cfg, slots=8, dtype=dt,
@@ -848,7 +925,7 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
         res = eng.run(reqs)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-    counts = launch_counts()
+    counts, regimes = launch_counts(), regime_counts()
     L = cfg.num_hidden_layers
     want = want_launches(eng, L)
     if counts != want or not eng.steps:
@@ -896,12 +973,15 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
         f"ms, {eng.steps} steps, {eng.prefill_dispatches} prefill "
         f"dispatches ({eng.prefill_chunks} chunk passes), prefix hits "
         f"{hits}, launches {counts}")
-    return res, counts, stats
+    return res, {**counts, **regimes}, stats
 
 
-# kernel kinds of the profile, by name, first match wins
-KINDS = (("K1 ragged_paged_attention", re.compile("ragged_kernel.*TableRows")),
-         ("K8 ragged_attention", re.compile("ragged_kernel.*SlotRows")),
+# kernel kinds of the profile, by name, first match wins; K1/K8 are the
+# CUDA-core ragged kernel (f32, int8) and the bf16 wide, split and merge
+# kernels, told apart by their layout
+RAGGED = "(ragged_kernel|ragged_wide_kernel|split_kv_kernel|split_merge_kernel)"
+KINDS = (("K1 ragged_paged_attention", re.compile(RAGGED + ".*TableRows")),
+         ("K8 ragged_attention", re.compile(RAGGED + ".*SlotRows")),
          ("K4 paged_decode_attention",
           re.compile(r"decode_kernel<[^,]+, [^,]+, \d+, 1, hetu::SlotRows")),
          ("K5 paged_block_decode_attention",
@@ -1406,7 +1486,7 @@ def check_k3(torch, F, dtype, seed):
         plain_ms = time_ms(torch, plain, reps=5)
         flops = prods * 2 * DH * pairs
         b_ms, b_by = bound(nbytes, flops, dtype)
-        res[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+        res[name] = dict(err=err, ms=ms, run_ms=run_ms, plain_ms=plain_ms,
                          library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
         log(f"  K3 flash_attention_bwd_{name} {dtype} [{TB},{TS},{H},{DH}] "
             f"causal: "
@@ -1430,7 +1510,8 @@ def check_k3(torch, F, dtype, seed):
     plain_ms = time_ms(torch, lambda: fa.flash_fwd_reference(
         q, k, v, causal=True), reps=5)
     b_ms, b_by = bound(4 * n + TB * H * TS * 4, 2 * 2 * DH * pairs, dtype)
-    res["fwd"] = dict(err=err_o, ms=ms, plain_ms=plain_ms,
+    res["fwd"] = dict(err=err_o, ratio=ratio_o, ms=ms, run_ms=run_ms,
+                      plain_ms=plain_ms,
                       library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
     log(f"  K2 flash_attention {dtype} at the training shape: max_abs_err "
         f"{err_o:.3e}, largest err / bound {ratio_o:.4f} (flash_compare), "
@@ -1735,7 +1816,8 @@ def check_carry(torch, dtype, seed):
         f"plain {plain_ms:.4f} ms, no "
         f"single PyTorch call computes a carried forward; bound "
         f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
-    return dict(err=max(worst, err), ms=ms, plain_ms=plain_ms,
+    return dict(err=max(worst, err), ratio=ratio, ms=ms, run_ms=run_ms,
+                plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1917,8 +1999,13 @@ def request_set(prompts, seed, V):
     return spec
 
 
+# the kernels of phase 2's table whose bf16 instances have their own
+# tensor-core source (``bf16_source``)
+BF16_SOURCES = ("K1", "K2", "K8")
+
+
 def bf16_source(file):
-    """The tensor-core source of a flash kernel's bf16 instances."""
+    """The tensor-core source of a kernel's bf16 instances."""
     return file.replace(".cu", "_bf16.cu")
 
 
@@ -1977,6 +2064,11 @@ def main(argv=None):
               "K7": lambda dt: check_decode(torch, F, dt, args.seed, True,
                                             verify=True),
               "K8": lambda dt: check_k8(torch, F, dt, args.seed)}
+    for wave in ("decode", "verify"):
+        checks[f"K1 {wave}"] = lambda dt, w=wave: check_k1(
+            torch, F, dt, args.seed, wave=w)
+        checks[f"K8 {wave}"] = lambda dt, w=wave: check_k8(
+            torch, F, dt, args.seed, wave=w)
     kres = {k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
             for k, fn in checks.items()}
 
@@ -2074,11 +2166,18 @@ def main(argv=None):
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
     # engine of their layout, phase-split; each int8 twin the phase-7
-    # engine of its float twin's path
+    # engine of its float twin's path.  K1/K8 count by regime: the
+    # Q 256 / Q 1024 rows their wide waves (Q > 16), the decode rows the
+    # narrow waves (Q <= 16) of the same engine, the verify rows the
+    # narrow waves of the phase-6 speculative engine of their layout
     src = "hetu_tpu_torch/kernels/csrc/"
     table = (
         ("K1", "ragged_paged_attention", "ragged_paged.cu",
          "hetu_tpu/kernels/ragged_attention.py:184", "paged-mixed"),
+        ("K1 decode", "ragged_paged_attention", "ragged_paged.cu",
+         "hetu_tpu/kernels/ragged_attention.py:184", "paged-mixed"),
+        ("K1 verify", "ragged_paged_attention", "ragged_paged.cu",
+         "hetu_tpu/kernels/ragged_attention.py:184", "spec paged-mixed"),
         ("K2", "flash_attention", "flash_fwd.cu",
          "hetu_tpu/kernels/flash_attention.py:173", None),
         ("K4", "paged_decode_attention", "decode_attention.cu",
@@ -2092,6 +2191,11 @@ def main(argv=None):
          "hetu_tpu/kernels/decode_attention.py:572", "spec paged-split"),
         ("K8", "ragged_attention", "ragged_paged.cu",
          "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"),
+        ("K8 decode", "ragged_attention", "ragged_paged.cu",
+         "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"),
+        ("K8 verify", "ragged_attention", "ragged_paged.cu",
+         "hetu_tpu/kernels/ragged_attention.py:133",
+         "spec contiguous-mixed"),
         ("K1-int8", "ragged_paged_attention_int8", "ragged_paged_int8.cu",
          "hetu_tpu/kernels/ragged_attention.py:96", "int8 paged-mixed"),
         ("K4-int8", "paged_decode_attention_int8", "decode_attention_int8.cu",
@@ -2124,11 +2228,17 @@ def main(argv=None):
             else:
                 counts = runs[config, dt][1]
             r = kres[k][dt]
+            wave = k.split(" ")[1] if " " in k else None
+            if k.split()[0] in ("K1", "K8"):
+                counter = f"{name}:{'narrow' if wave else 'wide'}"
+            else:
+                counter = name
             kernels.append(dict(
-                name=f"{name}[{dt}]", route="cuda",
-                source=src + (bf16_source(file) if k == "K2"
-                              and dt == "bfloat16" else file),
-                replaces=replaces, launches=counts[name],
+                name=(f"{name}[{dt}, {wave} Q {NARROW_WAVES[wave][0]}]"
+                      if wave else f"{name}[{dt}]"), route="cuda",
+                source=src + (bf16_source(file) if k.split()[0] in
+                              BF16_SOURCES and dt == "bfloat16" else file),
+                replaces=replaces, launches=counts[counter],
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"]))

@@ -124,6 +124,16 @@ def check(lib, rc, what):
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def check_aligned(tensors, names):
+    """The bf16 tensor-core kernels copy 16-byte chunks: every tensor's
+    data must start on a 16-byte boundary (a fresh or contiguous-sliced
+    tensor does).  ``names`` names them in the error.  Raises
+    ValueError."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the bf16 kernels take {names} starting on "
+                         f"16-byte boundaries")
+
+
 def stream_of(t):
     """The raw handle of the current CUDA stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

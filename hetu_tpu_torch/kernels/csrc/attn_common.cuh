@@ -20,6 +20,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "kv_rows.cuh"
+
 namespace hetu {
 
 constexpr float kNegInf = -1e30f;     // the JAX package's NEG_INF
@@ -165,29 +167,6 @@ template <int DH> struct RowState {
   __device__ __forceinline__ float lse() const {
     if (l == 0.f || m <= kNegInf / 2) return -kNegInf;
     return m + logf(l);
-  }
-};
-
-// Where position p of slot b lives, as a row index into a [rows, H, Dh]
-// array: the two KV layouts of the serving engine.  The kernels template
-// on these, so one body serves both.
-
-// The slot-contiguous cache [B, S_max, H, Dh]: slot b's row p.
-struct SlotRows {
-  int s_max;
-  __device__ __forceinline__ size_t operator()(int b, int p) const {
-    return (size_t)b * s_max + p;
-  }
-};
-
-// The block-table pool [N_blocks, bs, H, Dh]: entry p / bs of slot b's
-// table row names the block, p % bs the row in it.
-struct TableRows {
-  const int* tables;
-  int t_width;
-  int bs;
-  __device__ __forceinline__ size_t operator()(int b, int p) const {
-    return (size_t)tables[(size_t)b * t_width + p / bs] * bs + p % bs;
   }
 };
 

@@ -32,8 +32,11 @@
 // memory) into registers; scale, mask and the online softmax run on the
 // accumulator fragment there, each exp one FFMA and one EX2 in log2
 // units; P, rounded to bf16 in place, is the register A operand of
-// O += P V (m64nDk16, V read MN-major).  Not yet: TMA, a producer warp,
-// overlap of one tile's softmax with the next tile's products.
+// O += P V (m64nDk16, V read MN-major): that step over one tile, and
+// the block's shape, live in flash_wgmma.cuh (wg_tile_step), shared with
+// the wide ragged kernel (ragged_paged_bf16.cu).  Not yet: TMA, a
+// producer warp, overlap of one tile's softmax with the next tile's
+// products.
 #include <cmath>
 #include <type_traits>
 
@@ -42,27 +45,6 @@
 namespace hetu {
 namespace tc {
 namespace {
-
-// consumer warpgroups per block, each owning 64 q rows and sharing the
-// block's K/V tiles
-constexpr int kWG = 2;
-constexpr int kNT = 128 * kWG;   // threads per block
-constexpr int kBQ = 64 * kWG;    // q rows per block
-
-// keys per K/V tile: 64, and 128 at head dim 32 (faster there on the H100)
-template <int D> __host__ __device__ constexpr int fwd_bk() {
-  return D == 32 ? 128 : 64;
-}
-
-// shared-memory stages of K/V: the tile in use and the next one's copy
-// (three, or the next tile's QK^T issued under this tile's softmax, read
-// no faster in one H100 timing that is not reproducible from the repo;
-// PERF.md section 6)
-constexpr int kStages = 2;
-
-template <int D> constexpr size_t fwd_smem() {
-  return size_t(kBQ + 2 * kStages * fwd_bk<D>()) * D * sizeof(bf16);
-}
 
 template <bool kCarry>
 using OutOf = std::conditional_t<kCarry, float, bf16>;
@@ -78,9 +60,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float* __restrict__ lse, int S, int Sk, int H,
                       int causal, float scale) {
   constexpr int kBK = fwd_bk<D>();
-  constexpr int KD = D / 16;   // k steps of S = Q K^T
   constexpr int ND = D / 8;    // 8-column blocks of O
-  constexpr int NS = kBK / 8;  // 8-column blocks of S
   constexpr uint32_t kRow8 = 16 * D;   // bytes of 8 tile rows
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -149,6 +129,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
   }
+  // the last live key of each of this lane's rows
+  int lim[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    lim[rr] = causal ? min(kvlen - 1, row[rr]) : kvlen - 1;
   const uint64_t q_desc = gmma_desc(qs + 64 * (warp / 4) * D, 128, kRow8);
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -163,74 +148,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint64_t k_desc = gmma_desc(ks + cur * kBK * D, 128, kRow8);
     const uint64_t v_desc = gmma_desc(vs + cur * kBK * D, kRow8, 128);
     // a warpgroup past S, or a causal tile wholly past its last row:
-    // nothing to do
-    if (q_wg < S && (!causal || t0 <= q_wg + 63)) {
-      // S = Q K^T on the tensor cores, K-major A and B from shared memory
-      float s[NS][4];
-      zero(s);
-      fence_regs(s);
-      wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < KD; ++c)
-        Wgmma<kBK>::template ss<0>(s, q_desc + 16 * c, k_desc + 16 * c, c > 0);
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(s);
-
-      // dead keys at NEG_INF (only tiles that cross the causal diagonal or
-      // kv_len have any); the row max of the raw scores, then everything in
-      // log2 units: p = 2^(s scale log2 e - m), one FFMA and one EX2, and
-      // a dead score's p underflows to exactly 0
-      const bool masked = t0 + kBK > kvlen || (causal && t0 + kBK - 1 > q_wg);
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int lim = causal ? min(kvlen - 1, row[rr]) : kvlen - 1;
-        float mx = kNegInf;
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            if (masked && t0 + 8 * n + 2 * t + e > lim)
-              s[n][2 * rr + e] = kNegInf;
-            mx = fmaxf(mx, s[n][2 * rr + e]);
-          }
-        mx = quad_max(mx);
-        const float m_new =
-            fmaxf(m[rr], mx <= kNegInf / 2 ? kNegInf : mx * scale_log2);
-        const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
-        const float alpha = m[rr] <= kNegInf / 2 ? 0.f : ex2(m[rr] - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = ex2(fmaf(s[n][2 * rr + e], scale_log2, -safe_m));
-            s[n][2 * rr + e] = p;
-            psum += p;
-          }
-        l[rr] = l[rr] * alpha + psum;
-        m[rr] = m_new;
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          acc[n][2 * rr] *= alpha;
-          acc[n][2 * rr + 1] *= alpha;
-        }
-      }
-      // O += P V on the tensor cores: P rounded to bf16 in registers as the
-      // A operand, V MN-major from shared memory
-      uint32_t a[kBK / 16][4];
-#pragma unroll
-      for (int c = 0; c < kBK / 16; ++c) acc_to_a(a[c], s, c);
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < kBK / 16; ++c)
-        Wgmma<D>::template rs<1>(acc, a[c], v_desc + 2 * c * (kRow8 >> 4));
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(acc);
-      fence_regs(a);
-    }
+    // nothing to do; dead keys at NEG_INF only in tiles that cross the
+    // causal diagonal or kv_len
+    if (q_wg < S && (!causal || t0 <= q_wg + 63))
+      wg_tile_step<D, kBK>(
+          q_desc, k_desc, v_desc, t0,
+          t0 + kBK > kvlen || (causal && t0 + kBK - 1 > q_wg), lim,
+          scale_log2, m, l, acc);
     __syncthreads();   // every warp is done with this stage
   }
   cp_async_wait<0>();

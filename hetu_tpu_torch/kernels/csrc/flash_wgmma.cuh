@@ -1,6 +1,9 @@
-// Hopper's warpgroup matrix multiply (wgmma) for the bf16 flash forward
-// (flash_fwd_bf16.cu): the instruction wrappers, the shared-memory
-// descriptors of the no-swizzle canonical layout, and the fences.
+// Hopper's warpgroup matrix multiply (wgmma) for the bf16 forward bodies
+// (K2 and K2-carry in flash_fwd_bf16.cu, the wide ragged kernel of K1
+// and K8 in ragged_paged_bf16.cu): the instruction wrappers, the
+// shared-memory descriptors of the no-swizzle canonical layout, the
+// fences, and the body's shape and per-tile step that those kernels
+// share (wg_tile_step).
 //
 // A tile of R rows x D bf16 is stored as a grid of 8 x 8 "core
 // matrices" (8 rows of 16 bytes, 128 contiguous bytes each): core matrix
@@ -43,6 +46,28 @@ __device__ __forceinline__ void load_blocked(bf16* tile, const bf16* src,
     const bool ok = r < n;
     cp_async16(tile + ((r >> 3) * C + c) * 64 + (r & 7) * 8,
                src + (ok ? r * stride : 0) + c * 8, ok);
+  }
+}
+
+// K and V rows [0, R) of one head into two tiles of the layout above,
+// asynchronously, all NT threads together: row r is read at k + off(r)
+// and v + off(r) (elements), so the rows may come from anywhere (the
+// ragged kernels gather positions through a block table: one table read
+// per K/V chunk pair); rows at or past n are zero-filled, and off is not
+// called for them.
+template <int D, int R, int NT, typename Off>
+__device__ __forceinline__ void load_blocked_kv(bf16* kt, bf16* vt,
+                                                const bf16* k, const bf16* v,
+                                                const Off& off, int n) {
+  constexpr int C = D / 8;
+  for (int i = threadIdx.x; i < R * C; i += NT) {
+    const int r = (i & 7) + 8 * (i / (8 * C));
+    const int c = (i >> 3) % C;
+    const bool ok = r < n;
+    const size_t o = ok ? off(r) + c * 8 : 0;
+    const int dst = ((r >> 3) * C + c) * 64 + (r & 7) * 8;
+    cp_async16(kt + dst, k + o, ok);
+    cp_async16(vt + dst, v + o, ok);
   }
 }
 
@@ -239,6 +264,109 @@ template <> struct Wgmma<128> {
           "n"(kTransB));
   }
 };
+
+// ---- the bf16 forward body: its shape and its step over one K/V tile ----
+
+// consumer warpgroups per block, each owning 64 q rows and sharing the
+// block's K/V tiles
+constexpr int kWG = 2;
+constexpr int kNT = 128 * kWG;   // threads per block
+constexpr int kBQ = 64 * kWG;    // q rows per block
+
+// keys per K/V tile: 64, and 128 at head dim 32 (faster there on the H100)
+template <int D> __host__ __device__ constexpr int fwd_bk() {
+  return D == 32 ? 128 : 64;
+}
+
+// shared-memory stages of K/V: the tile in use and the next one's copy
+// (three, or the next tile's QK^T issued under this tile's softmax, read
+// no faster in one H100 timing that is not reproducible from the repo;
+// PERF.md section 6)
+constexpr int kStages = 2;
+
+// Q's tile and kStages stages of K and V tiles, bf16
+template <int D> constexpr size_t fwd_smem() {
+  return size_t(kBQ + 2 * kStages * fwd_bk<D>()) * D * sizeof(bf16);
+}
+
+// One K/V tile's step of a warpgroup's online softmax: S = Q K^T on the
+// tensor cores (m64n{kBK}k16, K-major A and B from shared memory) into
+// registers; when `masked`, the keys past this lane's row limits (lim[rr]
+// for rows g and g + 8 of the warp's 16; key t0 + j is live iff t0 + j
+// <= lim) at NEG_INF; the row max of the raw scores, then everything in
+// log2 units: p = 2^(s scale log2 e - m), one FFMA and one EX2, a dead
+// score's p underflowing to exactly 0, the max clamped to 0 while no key
+// is live; l sums the unrounded p, and P, rounded to bf16 in registers,
+// is the A operand of O += P V (m64nDk16, V MN-major from shared memory).
+// m is the running max in log2 units, l this lane's part of its row's
+// sum, acc the warp's 16 x D output fragment.
+template <int D, int kBK>
+__device__ __forceinline__ void wg_tile_step(
+    uint64_t q_desc, uint64_t k_desc, uint64_t v_desc, int t0, bool masked,
+    const int (&lim)[2], float scale_log2, float (&m)[2], float (&l)[2],
+    float (&acc)[D / 8][4]) {
+  constexpr int KD = D / 16;   // k steps of S = Q K^T
+  constexpr int ND = D / 8;    // 8-column blocks of O
+  constexpr int NS = kBK / 8;  // 8-column blocks of S
+  constexpr uint32_t kRow8 = 16 * D;   // bytes of 8 tile rows
+  const int t = threadIdx.x & 3;
+  float s[NS][4];
+  zero(s);
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < KD; ++c)
+    Wgmma<kBK>::template ss<0>(s, q_desc + 16 * c, k_desc + 16 * c, c > 0);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(s);
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (masked && t0 + 8 * n + 2 * t + e > lim[rr])
+          s[n][2 * rr + e] = kNegInf;
+        mx = fmaxf(mx, s[n][2 * rr + e]);
+      }
+    mx = quad_max(mx);
+    const float m_new =
+        fmaxf(m[rr], mx <= kNegInf / 2 ? kNegInf : mx * scale_log2);
+    const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
+    const float alpha = m[rr] <= kNegInf / 2 ? 0.f : ex2(m[rr] - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2(fmaf(s[n][2 * rr + e], scale_log2, -safe_m));
+        s[n][2 * rr + e] = p;
+        psum += p;
+      }
+    l[rr] = l[rr] * alpha + psum;
+    m[rr] = m_new;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][2 * rr] *= alpha;
+      acc[n][2 * rr + 1] *= alpha;
+    }
+  }
+  uint32_t a[kBK / 16][4];
+#pragma unroll
+  for (int c = 0; c < kBK / 16; ++c) acc_to_a(a[c], s, c);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < kBK / 16; ++c)
+    Wgmma<D>::template rs<1>(acc, a[c], v_desc + 2 * c * (kRow8 >> 4));
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(acc);
+  fence_regs(a);
+}
 
 }  // namespace tc
 }  // namespace hetu

@@ -132,15 +132,6 @@ def _library(q, name):
     return _build.library(name + suffix), suffix
 
 
-def _check_aligned(tensors, names):
-    """The bf16 kernels copy 16-byte chunks: every tensor's data must
-    start on a 16-byte boundary (a fresh or contiguous-sliced tensor
-    does).  Raises ValueError."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the bf16 flash kernels take {names} starting "
-                         f"on 16-byte boundaries")
-
-
 def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
     """(o [B, S, H, D], lse [B, H, S] f32).  CUDA tensors launch the
     kernel (f32 or bf16, head dim 32/64/128, contiguous, kv_lens int32;
@@ -162,7 +153,7 @@ def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.dtype == torch.bfloat16:
-        _check_aligned((q, k, v, o), "q, k, v")
+        _build.check_aligned((q, k, v, o), "q, k, v")
     lib, suffix = _library(q, "flash_fwd")
     fn = getattr(lib, "hetu_flash_fwd" + suffix)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
@@ -269,7 +260,7 @@ def flash_fwd_carry(q, k, v, o_c, lse_c, *, causal=False):
     if B == 0 or S == 0:
         return o, lse
     if q.dtype == torch.bfloat16:
-        _check_aligned((q, k, v, o_c, o), "q, k, v, o_carry")
+        _build.check_aligned((q, k, v, o_c, o), "q, k, v, o_carry")
     lib, suffix = _library(q, "flash_fwd")
     fn = getattr(lib, "hetu_flash_fwd_carry" + suffix)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
@@ -372,7 +363,7 @@ def _bwd_launch(entry, what, q, k, v, kv_lens, lse, delta, do, outs,
                 causal):
     B, S, H, D = q.shape
     if q.dtype == torch.bfloat16:
-        _check_aligned((q, k, v, do) + tuple(outs), "q, k, v, dO")
+        _build.check_aligned((q, k, v, do) + tuple(outs), "q, k, v, dO")
     lib, suffix = _library(q, "flash_bwd")
     fn = getattr(lib, entry + suffix)
     fn.argtypes = [ctypes.c_void_p] * (7 + len(outs)) \

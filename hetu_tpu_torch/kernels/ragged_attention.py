@@ -15,10 +15,16 @@ them before it attends.
 The cache is f32/bf16 of q's dtype, or int8 (``quant.kv_encode``'s
 payload) with ``k_scale``/``v_scale``, one f32 scale per (position,
 head), which the int8 twins (K1-int8, K8-int8) dequantize as they stage
-each tile.  Both launch ``csrc/ragged_paged.cu`` (``ragged_paged_int8.cu``
-for an int8 cache) on CUDA tensors and run their plain versions,
-:func:`ragged_paged_reference` and :func:`ragged_masked_reference`, on
-CPU tensors; nothing falls back from one to the other.
+each tile.  On CUDA tensors both launch ``csrc/ragged_paged.cu`` for an
+f32 cache, ``ragged_paged_int8.cu`` for an int8 one, and
+``ragged_paged_bf16.cu`` for bf16 q over a bf16 cache: the tensor cores,
+in two regimes chosen from Q (wgmma for Q > 16, split-K over positions
+and a merge for Q <= 16, one launch counted either way); on CPU tensors
+they run their plain versions, :func:`ragged_paged_reference` and
+:func:`ragged_masked_reference`; nothing falls back from one to the
+other.  The bf16 kernels round P to bf16 before P V, as the Pallas body
+does, and the plain versions do not: :func:`ragged_rounding_bound`
+bounds the difference.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from . import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+# K1/K8 waves at most this wide (Q) run the bf16 kernels' split-K regime
+NARROW_Q = 16
 
 
 def ragged_masked_reference(q, k, v, lengths, q_lens=None, k_scale=None,
@@ -84,6 +92,27 @@ def ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
         ks, vs = view(k_scale), view(v_scale)
     return ragged_masked_reference(q, view(pool_k), view(pool_v), lengths,
                                    q_lens, ks, vs)
+
+
+def ragged_rounding_bound(q, k, v, lengths, q_lens, block_tables=None,
+                          k_scale=None, v_scale=None):
+    """[B, Q, H, Dh] f32: how far a wave that rounds P = exp(s - m) to
+    bf16 before P V (the Pallas body, and the bf16 kernels) may put each
+    element of o from the plain versions, which do not round, before o's
+    own rounding.  One rounding is within 2^-8 of p whatever max it is
+    taken against, so o_d moves by at most 2^-8 sum(p |v_d|) / l: 2^-8
+    times the plain version run on (q, k, |v|), through ``block_tables``
+    when given (an int8 cache is dequantized first).  Zero on a length-0
+    slot."""
+    if k_scale is not None:
+        k = k.float() * k_scale[..., None]
+        v = v.float() * v_scale[..., None]
+    va = v.float().abs()
+    if block_tables is None:
+        w = ragged_masked_reference(q, k, va, lengths, q_lens)
+    else:
+        w = ragged_paged_reference(q, k, va, lengths, q_lens, block_tables)
+    return 2.0 ** -8 * w
 
 
 def _check_scales(kind, q, k, v, k_scale, v_scale):
@@ -163,29 +192,53 @@ def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
     return quant
 
 
-def _launch(source, entry, name, q, kv, rest, ints):
+def _launch(source, entry, name, q, kv, rest, ints, span=None):
     """Launch C entry ``entry`` of kernel library ``source`` as
     ``entry(q, *kv, *rest, out, *ints, dtype, stream)`` into a fresh
     output like q, and count it under ``name``.  ``kv`` is (k, v), or
     (k, k_scale, v, v_scale) for an int8 cache, which launches the int8
-    twin: ``source``, ``entry`` and ``name`` with ``_int8`` appended."""
+    twin: ``source``, ``entry`` and ``name`` with ``_int8`` appended.
+
+    ``span``, the cache's positions per slot, marks a K1/K8 call.  bf16
+    q over a bf16 cache then launches the tensor-core library,
+    ``source`` and ``entry`` with ``_bf16`` appended, as ``entry(q, *kv,
+    *rest, out, workspace, *ints, stream)`` on 16-byte aligned q, k and
+    v; the workspace holds the f32 partials of its narrow regime (Q <=
+    NARROW_Q), sized by the library from the shapes and ``span``, and
+    the wide regime takes none.  One call counts as one launch, though
+    a narrow wave runs two device kernels (the splits, then their
+    merge), and a float K1/K8 call also counts under ``name:narrow`` or
+    ``name:wide`` by its Q."""
+    tail = (_DTYPES[q.dtype],)
     if len(kv) == 4:
         source, entry, name = (f"{source}_int8", f"{entry}_int8",
                                f"{name}_int8")
-    args = (*kv, *rest)
+    elif span is not None and q.dtype == torch.bfloat16:
+        _build.check_aligned((q, *kv), "q, k and v")
+        source, entry, tail = f"{source}_bf16", f"{entry}_bf16", ()
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = _build.library(source)
+    ptrs = [t.data_ptr() for t in (q, *kv, *rest, out)]
+    if not tail:
+        size = lib.hetu_ragged_bf16_workspace
+        size.argtypes = [ctypes.c_int] * 5
+        size.restype = ctypes.c_longlong
+        n_ws = size(*q.shape, span)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
+        ptrs.append(ws.data_ptr() if n_ws else None)
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * (len(args) + 2) \
-        + [ctypes.c_int] * (len(ints) + 1) + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) \
+        + [ctypes.c_int] * (len(ints) + len(tail)) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
-                *ints, _DTYPES[q.dtype], _build.stream_of(q))
+        rc = fn(*ptrs, *ints, *tail, _build.stream_of(q))
     _build.check(lib, rc, f"{name} launch")
     _build.LAUNCHES[name] += 1
+    if span is not None and len(kv) == 2:
+        regime = "narrow" if q.shape[1] <= NARROW_Q else "wide"
+        _build.LAUNCHES[f"{name}:{regime}"] += 1
     return out
 
 
@@ -207,7 +260,8 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
     [N_blocks, bs, H] f32.  Returns o [B, Q, H, Dh] in q's dtype.  CUDA
     tensors launch the kernel (f32 or bf16 q; pools of q's dtype, or
     int8 with their scales; head dim 32/64/128, all contiguous, int32
-    indices); CPU tensors run :func:`ragged_paged_reference`."""
+    indices; bf16 q, k and v 16-byte aligned); CPU tensors run
+    :func:`ragged_paged_reference`."""
     quant = _check_args("ragged_paged_attention", q, pool_k, pool_v,
                         lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens,
@@ -219,12 +273,12 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
         return ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
                                       block_tables, k_scale,
                                       v_scale).to(q.dtype)
-    B, Q, H, Dh = q.shape
+    bs, T = pool_k.shape[1], block_tables.shape[1]
     return _launch("ragged_paged", "hetu_ragged_paged_attention",
                    "ragged_paged_attention", q,
                    _kv(pool_k, pool_v, k_scale, v_scale, quant),
-                   (lengths, q_lens, block_tables),
-                   (B, Q, H, Dh, pool_k.shape[1], block_tables.shape[1]))
+                   (lengths, q_lens, block_tables), (*q.shape, bs, T),
+                   span=T * bs)
 
 
 def ragged_attention(q, k, v, lengths, q_lens, *, k_scale=None,
@@ -246,7 +300,7 @@ def ragged_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     if q.device.type == "cpu":
         return ragged_masked_reference(q, k, v, lengths, q_lens, k_scale,
                                        v_scale).to(q.dtype)
-    B, Q, H, Dh = q.shape
     return _launch("ragged_paged", "hetu_ragged_attention",
                    "ragged_attention", q, _kv(k, v, k_scale, v_scale, quant),
-                   (lengths, q_lens), (B, Q, H, Dh, k.shape[1]))
+                   (lengths, q_lens), (*q.shape, k.shape[1]),
+                   span=k.shape[1])

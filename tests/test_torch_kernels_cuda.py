@@ -10,6 +10,10 @@ f32 ``atol 1e-5`` (the kernels sum the softmax in another order than
 the plain versions); bf16 ``atol 2^-12, rtol 2^-7`` (both sides round
 an f32 result to bf16, at most one bf16 ulp apart).  The int8 twins are
 held to the same: both sides form the same f32 product payload * scale.
+The bf16 ragged kernels (K1, K8: csrc/ragged_paged_bf16.cu, wgmma
+past 16 rows, split-K at most 16) round P to bf16 before P V as the
+Pallas body does, and their plain versions do not: they are held to
+the bf16 tolerance plus ``ragged_rounding_bound`` (``assert_ragged_close``).
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
@@ -26,7 +30,8 @@ import torch
 
 from hetu_tpu_torch.kernels import decode_attention as tda
 from hetu_tpu_torch.kernels import flash_attention as tfa
-from hetu_tpu_torch.kernels import launch_counts, reset_launches
+from hetu_tpu_torch.kernels import (launch_counts, regime_counts,
+                                    reset_launches)
 from hetu_tpu_torch.kernels import ragged_attention as tra
 from hetu_tpu_torch.quant import kv_encode
 
@@ -63,6 +68,23 @@ def _wave(Dh, bs, Q, seed=0, H=3):
     return q, pk, pv, lengths, q_lens, tables
 
 
+def assert_ragged_close(got, want, args, dtype):
+    """K1/K8 against their plain version, element by element: ``TOL``;
+    in bf16 plus ``ragged_rounding_bound`` of the call's arguments (the
+    kernel rounds P to bf16 before P V, as the Pallas body does; the
+    plain version does not; one rounding is within 2^-8 of p, so o_d
+    within 2^-8 sum(p |v_d|) / l)."""
+    atol, rtol = TOL[dtype]["atol"], TOL[dtype]["rtol"]
+    if dtype == "bfloat16":
+        atol = atol + tra.ragged_rounding_bound(*args).cpu().numpy()
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    lim = atol + rtol * np.abs(want)
+    diff = np.abs(got - want)
+    assert (diff <= lim).all(), (
+        f"largest err / bound {float((diff / lim).max())}, max abs error "
+        f"{float(diff.max())}")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Dh,bs,Q", [(64, 16, 64), (32, 8, 1),
                                      (128, 16, 40)])
@@ -76,8 +98,7 @@ def test_ragged_kernel_matches_plain(cuda, dtype, Dh, bs, Q):
     torch.cuda.synchronize()
     assert launch_counts()["ragged_paged_attention"] == 1
     want = tra.ragged_paged_reference(*args).to(dt)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **TOL[dtype])
+    assert_ragged_close(got, want, args, dtype)
     assert (got[3] == 0).all()
 
 
@@ -102,9 +123,107 @@ def test_ragged_contiguous_kernel_matches_plain(cuda, dtype, Dh, bs, Q):
     torch.cuda.synchronize()
     assert launch_counts()["ragged_attention"] == 1
     want = tra.ragged_masked_reference(*args).to(dt)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **TOL[dtype])
+    assert_ragged_close(got, want, args, dtype)
     assert (got[3] == 0).all()
+
+
+def _long_wave(Dh, Q, q_lens, seed, H=3, bs=16):
+    """Four slots of lengths 1000, 257, 1 and 0 (the first two cross
+    several 128-position key splits) over a permuted pool of 16-position
+    blocks, slot 2's block shared with slot 1's first; q_lens clipped to
+    the lengths.  Returns numpy (q, pool_k, pool_v, lengths, q_lens,
+    tables) as ``_wave``."""
+    lengths = np.array([1000, 257, 1, 0], np.int32)
+    q_lens = np.minimum(np.asarray(q_lens, np.int32), lengths)
+    B, T = len(lengths), 1024 // bs
+    rng = np.random.RandomState(seed)
+    need = [-(-int(n) // bs) for n in lengths]
+    free = list(rng.permutation(np.arange(1, 1 + sum(need))))
+    tables = np.zeros((B, T), np.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = free.pop()
+    tables[2, 0] = tables[1, 0]               # a shared block
+    g = torch.Generator().manual_seed(seed)
+    pk, pv = (torch.randn((1 + sum(need), bs, H, Dh), generator=g)
+              for _ in range(2))
+    q = torch.randn((B, Q, H, Dh), generator=g)
+    return q, pk, pv, lengths, q_lens, tables
+
+
+def _bf16_both_layouts(cuda, q, pk, pv, lens, ql, tab):
+    """One bf16 wave through K1 (the pool) and K8 (its slot rows): for
+    each, (kernel output, plain output, the call's arguments, the
+    kernel's name, the launch and regime counts the call made)."""
+    dt = torch.bfloat16
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    out = []
+    for run, plain, name, kv in (
+            (tra.ragged_paged_attention, tra.ragged_paged_reference,
+             "ragged_paged_attention", (pk, pv)),
+            (tra.ragged_attention, tra.ragged_masked_reference,
+             "ragged_attention",
+             tuple(_slot_rows(x, tab) for x in (pk, pv)))):
+        args = [q.to(cuda, dt)] + [x.to(cuda, dt) for x in kv] + idx[:2] \
+            + (idx[2:] if name == "ragged_paged_attention" else [])
+        reset_launches()
+        got = run(*args)
+        torch.cuda.synchronize()
+        out.append((got, plain(*args).to(dt), args, name,
+                    {**launch_counts(), **regime_counts()}))
+    return out
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 5, 8, 16])
+def test_bf16_ragged_narrow_waves(cuda, Dh, Q):
+    """Decode and verify waves (Q <= 16, split-K over positions, then the
+    merge): lengths 1000, 257, 1 and 0 cross several key splits, a slot
+    with fewer live rows than Q has dead rows, one slot shares a pool
+    block; one counted launch per call, the length-0 slot zero."""
+    wave = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 1, 0], seed=Q + Dh)
+    for got, want, args, name, counts in _bf16_both_layouts(cuda, *wave):
+        assert counts[name] == counts[f"{name}:narrow"] == 1
+        assert counts[f"{name}:wide"] == 0
+        assert_ragged_close(got, want, args, "bfloat16")
+        assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [17, 64, 256])
+def test_bf16_ragged_wide_waves(cuda, Dh, Q):
+    """Prompt-chunk waves (Q > 16, the wgmma body): a full q-block, a
+    shorter one (dead rows past it), an inert slot with a length (q_len
+    0: every row dead), the length-0 slot, one shared pool block; one
+    counted launch per call, the length-0 slot zero."""
+    wave = _long_wave(Dh, Q, [Q, Q // 2, 0, 0], seed=2 * Q + Dh)
+    for got, want, args, name, counts in _bf16_both_layouts(cuda, *wave):
+        assert counts[name] == counts[f"{name}:wide"] == 1
+        assert counts[f"{name}:narrow"] == 0
+        assert_ragged_close(got, want, args, "bfloat16")
+        assert (got[3] == 0).all()
+
+
+def test_bf16_ragged_wrappers_refuse_misaligned_data(cuda):
+    """The bf16 ragged kernels copy 16-byte chunks: a q, k or v that does
+    not start on a 16-byte boundary is refused, not read."""
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
+    dt = torch.bfloat16
+    lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
+                           for a in (lens, ql, tab))
+    x = torch.zeros(pk.numel() + 4, device=cuda, dtype=dt)
+    bad = x[4:].view(pk.shape)                  # 8 bytes past the start
+    bad.copy_(pk.to(cuda, dt))
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(q.to(cuda, dt), bad, pv.to(cuda, dt),
+                                   lens_d, ql_d, tab_d)
+    rows = _slot_rows(pk, tab).to(cuda, dt)
+    x = torch.zeros(q.numel() + 4, device=cuda, dtype=dt)
+    qbad = x[4:].view(q.shape)
+    assert qbad.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_attention(qbad, rows, rows, lens_d, ql_d)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
