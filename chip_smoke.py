@@ -12,9 +12,10 @@ non-zero and prints no result line):
    sources at once (seconds printed); one line per instance of the bf16
    kernels on the tensor cores (K2 and K2-carry on wgmma, K3's two on
    mma.sync, K1/K8's wide kernel on wgmma and split kernel on
-   mma.sync): registers and spills (``ptxas -v``), dynamic shared
-   memory, and the HGMMA / HMMA instructions of its SASS where the
-   toolkit has ``cuobjdump`` (an instance with none fails).
+   mma.sync, each over a bf16 and an int8 cache): registers and spills
+   (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA
+   instructions of its SASS where the toolkit has ``cuobjdump`` (an
+   instance with none, or with a spill, fails).
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes, f32 and bf16, with the max abs error beside a stated
    tolerance, and CUDA-event times (median of several warm runs) of the
@@ -80,16 +81,21 @@ non-zero and prints no result line):
    f32 K/V encoded by ``quant.kv_encode`` on the card (equal to the CPU
    encoding, payload and scales), q f32 and bf16, held to their plain
    versions with phase 2's tolerances (both sides form the same f32
-   product payload x scale), timed beside an SDPA yardstick over the
-   pre-dequantized K/V (the dequantization not timed) and a bound from
-   the int8 bytes.  Then the request set through all four engine
-   configurations with an int8 cache, f32 then bf16: each int8 twin
-   launched exactly where its float twin was, the float twin never; the
-   footprint what the shapes give; every f32 greedy request equal to
-   phase 4's or first differing where the exact top-2 logit margin is
-   at most twice the int8 logit error (``teacher_forced_logits``, the
-   JAX package's gate).  Last ``spec=4`` with int8 in all four, whose
-   f32 tokens, greedy and sampled, equal the non-speculative int8 run's.
+   product payload x scale; bf16 K1-int8 and K8-int8, on the tensor
+   cores, round p times the V scale to bf16 once before P V_int and are
+   held to TOL plus ``ragged_rounding_bound`` as bf16 K1/K8 are), timed
+   beside an SDPA yardstick over the pre-dequantized K/V (the
+   dequantization not timed) and a bound from the int8 bytes; K1-int8
+   and K8-int8 at their mixed, decode and verify waves, also timed ten
+   back to back and on the device.  Then the request set through all
+   four engine configurations with an int8 cache, f32 then bf16: each
+   int8 twin launched exactly where its float twin was, the float twin
+   never; the footprint what the shapes give; every f32 greedy request
+   equal to phase 4's or first differing where the exact top-2 logit
+   margin is at most twice the int8 logit error
+   (``teacher_forced_logits``, the JAX package's gate).  Last
+   ``spec=4`` with int8 in all four, whose f32 tokens, greedy and
+   sampled, equal the non-speculative int8 run's.
 
 8. Training (``Executor`` over ``GPTForCausalLM``).  8a: K3, the flash
    backward's dK/dV and dQ kernels, against their plain versions on the
@@ -246,10 +252,12 @@ def time_run_ms(torch, fn, n=10, reps=5, warm=2):
 
 
 def device_ms(torch, fn, n=10):
-    """The device time of one call of ``fn()``: its kernels' own time
-    under torch.profiler over ``n`` calls, divided by ``n`` (host time
-    and the gaps between kernels excluded; a call of several kernels
-    sums them)."""
+    """The device time of one call of ``fn()``: under torch.profiler over
+    ``n`` calls, each kernel's mean time times its launches per call
+    (its count over ``n``, at least one), summed over the kernels (host
+    time and the gaps between kernels excluded).  A kernel whose count
+    is not a multiple of ``n`` lost events in the profiler: the mean of
+    the events it kept stands for it, and the loss is logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -259,11 +267,18 @@ def device_ms(torch, fn, n=10):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not e.count:
+            continue
+        if e.count % n:
+            log(f"    (the profiler kept {e.count} events of {e.key[:60]} "
+                f"over {n} calls)")
+        total += (e.self_device_time_total / e.count
+                  * max(1, round(e.count / n)))
     if total <= 0:
         fail("the profiler recorded no device time")
-    return total / 1e3 / n
+    return total / 1e3
 
 
 def compare(got, want, dtype):
@@ -308,7 +323,8 @@ def bound(nbytes, flops, dtype):
 # ---------------------------------------------------------------- #
 
 # the bf16 tensor-core libraries and their kernels (symbol substring,
-# entry of the dynamic shared memory query and its arguments after Dh)
+# entry of the dynamic shared memory query and its arguments after Dh;
+# the ragged kernels' query also takes the cache, 1 for int8)
 TC_KERNELS = (("flash_fwd_bf16", "flash_fwd_bf16_kernel",
                "hetu_flash_fwd_bf16_smem", ()),
               ("flash_bwd_bf16", "flash_bwd_dkv_bf16_kernel",
@@ -372,10 +388,11 @@ def sass_mma_counts(lib_path):
 
 def tc_report(_build, paths):
     """One line per instance of a bf16 tensor-core kernel (K2 and
-    K2-carry, K3's two, the wide and split ragged kernels of K1/K8):
-    registers and spills (ptxas, from this process's build), dynamic
-    shared memory, and the HMMA / HGMMA instructions of its SASS; fails
-    when an instance has no tensor-core instruction."""
+    K2-carry, K3's two, the wide and split ragged kernels of K1/K8 and
+    of their int8 twins): registers and spills (ptxas, from this
+    process's build), dynamic shared memory, and the HMMA / HGMMA
+    instructions of its SASS; fails when an instance has no tensor-core
+    instruction or spills."""
     sass = {}
     for lib_name, sym, smem_fn, extra in TC_KERNELS:
         if lib_name not in sass:
@@ -386,8 +403,14 @@ def tc_report(_build, paths):
             m = re.search(sym + r"ILi(\d+)E(?:Lb([01])E)?", name)
             D = int(m.group(1))
             carry = m.group(2) == "1"
-            smem = getattr(lib, smem_fn)(D, *extra)
+            # the cache element type follows D in the ragged kernels'
+            # template arguments: signed char (mangled "a") for int8
+            int8 = bool(re.search(sym + r"ILi\d+Ea", name))
+            ragged = lib_name == "ragged_paged_bf16"
+            smem = getattr(lib, smem_fn)(D, *extra,
+                                         *((int(int8),) if ragged else ()))
             what = "".join((", carry" if carry else "",
+                            ", int8" if int8 else "",
                             ", pool" if "TableRows" in name else "",
                             ", slots" if "SlotRows" in name else ""))
             r = regs.get(name)
@@ -400,6 +423,8 @@ def tc_report(_build, paths):
                 f"{ptx}, dynamic shared {smem} B; SASS {count}")
             if mma is not None and sum(mma[name]) == 0:
                 fail(f"{name} has no HMMA or HGMMA instruction")
+            if r and (r[1] or r[2]):
+                fail(f"{name} spills: {r[1]} B stores, {r[2]} B loads")
 
 
 # ---------------------------------------------------------------- #
@@ -570,9 +595,11 @@ def wave_of(kernel, wave):
 def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
     """K1 on a wave of the 8 pool slots (``wave_of``: the mixed
     wave has q_len in {0, 1, 5, 256}, Q 256); with ``int8`` K1-int8 over
-    the f32 pool's encoding, q of ``dtype``.  Yardstick: SDPA over the
-    pre-gathered dense (with ``int8``, dequantized) view with the
-    equivalent mask (the gather itself excluded)."""
+    the f32 pool's encoding, q of ``dtype``.  bf16 adds
+    ``ragged_rounding_bound`` (of the dequantized cache with ``int8``)
+    to TOL.  Yardstick: SDPA over the pre-gathered dense (with ``int8``,
+    dequantized) view with the equivalent mask (the gather itself
+    excluded)."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
     pool_k, pool_v, tables, n_rows = pool_case(
         torch, "float32" if int8 else dtype, seed)
@@ -607,15 +634,15 @@ def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
         + (2 * n_rows * H * DH if int8 else 0),
-        rounding=None if int8 else lambda: ra.ragged_rounding_bound(*args),
-        b2b=not int8)
+        rounding=lambda: ra.ragged_rounding_bound(*args, **sc), b2b=True)
 
 
 def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
     """K8 on a wave of the 8 slot rows (``wave_of``: the mixed wave
     has a wide prompt q-block, a 600-token prompt at Q 1024, its pow2
     bucket, a 300-token prompt, decode tokens, a length-0 slot); with
-    ``int8`` K8-int8 over the f32 rows' encoding.  Yardstick: SDPA over
+    ``int8`` K8-int8 over the f32 rows' encoding; bf16 within TOL plus
+    ``ragged_rounding_bound``, as ``check_k1``.  Yardstick: SDPA over
     the (dequantized) slot rows with the equivalent mask."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
     k, v = slot_rows_case(torch, "float32" if int8 else dtype, seed + 7)
@@ -641,8 +668,7 @@ def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
         + (2 * int(LENGTHS.sum()) * H * DH if int8 else 0),
-        rounding=None if int8 else lambda: ra.ragged_rounding_bound(*args),
-        b2b=not int8)
+        rounding=lambda: ra.ragged_rounding_bound(*args, **sc), b2b=True)
     if int8 or wave != "mixed":
         return r
     # the dead-row cost: the same slots with no dead row, each prompt
@@ -977,8 +1003,8 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 
 
 # kernel kinds of the profile, by name, first match wins; K1/K8 are the
-# CUDA-core ragged kernel (f32, int8) and the bf16 wide, split and merge
-# kernels, told apart by their layout
+# CUDA-core ragged kernel (f32 q) and the bf16 wide, split and merge
+# kernels (bf16 q, either cache), told apart by their layout
 RAGGED = "(ragged_kernel|ragged_wide_kernel|split_kv_kernel|split_merge_kernel)"
 KINDS = (("K1 ragged_paged_attention", re.compile(RAGGED + ".*TableRows")),
          ("K8 ragged_attention", re.compile(RAGGED + ".*SlotRows")),
@@ -999,8 +1025,9 @@ KINDS = (("K1 ragged_paged_attention", re.compile(RAGGED + ".*TableRows")),
 
 def kind_of(name):
     """The kind of a profiled kernel; an attention kernel over an int8
-    cache (element type int8_t, which demangles as signed char) is its
-    int8 twin, K1-int8 ... K8-int8."""
+    cache (element type int8_t, which demangles as signed char, never
+    the last template argument: the bf16 ragged kernels and their merge
+    take it second, after D) is its int8 twin, K1-int8 ... K8-int8."""
     kind = next((k for k, rx in KINDS if rx.search(name)), "other")
     if re.match(r"K\d ", kind) and ", signed char," in name:
         kind = kind.replace(" ", "-int8 ", 1)
@@ -1999,16 +2026,6 @@ def request_set(prompts, seed, V):
     return spec
 
 
-# the kernels of phase 2's table whose bf16 instances have their own
-# tensor-core source (``bf16_source``)
-BF16_SOURCES = ("K1", "K2", "K8")
-
-
-def bf16_source(file):
-    """The tensor-core source of a kernel's bf16 instances."""
-    return file.replace(".cu", "_bf16.cu")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2146,6 +2163,11 @@ def main(argv=None):
         "K7-int8": lambda dt: check_decode(torch, F, dt, args.seed, True,
                                            verify=True, int8=True),
         "K8-int8": lambda dt: check_k8(torch, F, dt, args.seed, int8=True)}
+    for wave in ("decode", "verify"):
+        checks8[f"K1-int8 {wave}"] = lambda dt, w=wave: check_k1(
+            torch, F, dt, args.seed, int8=True, wave=w)
+        checks8[f"K8-int8 {wave}"] = lambda dt, w=wave: check_k8(
+            torch, F, dt, args.seed, int8=True, wave=w)
     kres.update({k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
                  for k, fn in checks8.items()})
     runs8, spec_runs8 = phase7(torch, htt, params, cfg, spec, res32, card)
@@ -2166,57 +2188,63 @@ def main(argv=None):
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
     # engine of their layout, phase-split; each int8 twin the phase-7
-    # engine of its float twin's path.  K1/K8 count by regime: the
-    # Q 256 / Q 1024 rows their wide waves (Q > 16), the decode rows the
-    # narrow waves (Q <= 16) of the same engine, the verify rows the
-    # narrow waves of the phase-6 speculative engine of their layout
+    # engine of its float twin's path.  K1/K8 and their int8 twins count
+    # by regime: the Q 256 / Q 1024 rows their wide waves (Q > 16), the
+    # decode rows the narrow waves (Q <= 16) of the same engine, the
+    # verify rows the narrow waves of the (phase-6 or phase-7)
+    # speculative engine of their layout.  Sources: f32, bf16.
     src = "hetu_tpu_torch/kernels/csrc/"
+    k1 = ("ragged_paged.cu", "ragged_paged_bf16.cu")
+    k18 = ("ragged_paged_int8.cu", "ragged_paged_bf16.cu")
+    dec = ("decode_attention.cu",) * 2
+    dec8 = ("decode_attention_int8.cu",) * 2
+    r1 = "hetu_tpu/kernels/ragged_attention.py:184"
+    r8 = "hetu_tpu/kernels/ragged_attention.py:133"
+    rq = "hetu_tpu/kernels/ragged_attention.py:96"
     table = (
-        ("K1", "ragged_paged_attention", "ragged_paged.cu",
-         "hetu_tpu/kernels/ragged_attention.py:184", "paged-mixed"),
-        ("K1 decode", "ragged_paged_attention", "ragged_paged.cu",
-         "hetu_tpu/kernels/ragged_attention.py:184", "paged-mixed"),
-        ("K1 verify", "ragged_paged_attention", "ragged_paged.cu",
-         "hetu_tpu/kernels/ragged_attention.py:184", "spec paged-mixed"),
-        ("K2", "flash_attention", "flash_fwd.cu",
+        ("K1", "ragged_paged_attention", k1, r1, "paged-mixed"),
+        ("K1 decode", "ragged_paged_attention", k1, r1, "paged-mixed"),
+        ("K1 verify", "ragged_paged_attention", k1, r1, "spec paged-mixed"),
+        ("K2", "flash_attention", ("flash_fwd.cu", "flash_fwd_bf16.cu"),
          "hetu_tpu/kernels/flash_attention.py:173", None),
-        ("K4", "paged_decode_attention", "decode_attention.cu",
+        ("K4", "paged_decode_attention", dec,
          "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split"),
-        ("K5", "paged_block_decode_attention", "decode_attention.cu",
+        ("K5", "paged_block_decode_attention", dec,
          "hetu_tpu/kernels/decode_attention.py:259", "paged-split"),
-        ("K6", "paged_verify_attention", "decode_attention.cu",
+        ("K6", "paged_verify_attention", dec,
          "hetu_tpu/kernels/decode_attention.py:478",
          "spec contiguous-split"),
-        ("K7", "paged_block_verify_attention", "decode_attention.cu",
+        ("K7", "paged_block_verify_attention", dec,
          "hetu_tpu/kernels/decode_attention.py:572", "spec paged-split"),
-        ("K8", "ragged_attention", "ragged_paged.cu",
-         "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"),
-        ("K8 decode", "ragged_attention", "ragged_paged.cu",
-         "hetu_tpu/kernels/ragged_attention.py:133", "contiguous-mixed"),
-        ("K8 verify", "ragged_attention", "ragged_paged.cu",
-         "hetu_tpu/kernels/ragged_attention.py:133",
-         "spec contiguous-mixed"),
-        ("K1-int8", "ragged_paged_attention_int8", "ragged_paged_int8.cu",
-         "hetu_tpu/kernels/ragged_attention.py:96", "int8 paged-mixed"),
-        ("K4-int8", "paged_decode_attention_int8", "decode_attention_int8.cu",
+        ("K8", "ragged_attention", k1, r8, "contiguous-mixed"),
+        ("K8 decode", "ragged_attention", k1, r8, "contiguous-mixed"),
+        ("K8 verify", "ragged_attention", k1, r8, "spec contiguous-mixed"),
+        ("K1-int8", "ragged_paged_attention_int8", k18, rq,
+         "int8 paged-mixed"),
+        ("K1-int8 decode", "ragged_paged_attention_int8", k18, rq,
+         "int8 paged-mixed"),
+        ("K1-int8 verify", "ragged_paged_attention_int8", k18, rq,
+         "int8 spec paged-mixed"),
+        ("K4-int8", "paged_decode_attention_int8", dec8,
          "hetu_tpu/kernels/decode_attention.py:120",
          "int8 contiguous-split"),
-        ("K5-int8", "paged_block_decode_attention_int8",
-         "decode_attention_int8.cu",
+        ("K5-int8", "paged_block_decode_attention_int8", dec8,
          "hetu_tpu/kernels/decode_attention.py:247", "int8 paged-split"),
-        ("K6-int8", "paged_verify_attention_int8", "decode_attention_int8.cu",
+        ("K6-int8", "paged_verify_attention_int8", dec8,
          "hetu_tpu/kernels/decode_attention.py:448",
          "int8 spec contiguous-split"),
-        ("K7-int8", "paged_block_verify_attention_int8",
-         "decode_attention_int8.cu",
+        ("K7-int8", "paged_block_verify_attention_int8", dec8,
          "hetu_tpu/kernels/decode_attention.py:562",
          "int8 spec paged-split"),
-        ("K8-int8", "ragged_attention_int8", "ragged_paged_int8.cu",
-         "hetu_tpu/kernels/ragged_attention.py:96",
-         "int8 contiguous-mixed"))
+        ("K8-int8", "ragged_attention_int8", k18, rq,
+         "int8 contiguous-mixed"),
+        ("K8-int8 decode", "ragged_attention_int8", k18, rq,
+         "int8 contiguous-mixed"),
+        ("K8-int8 verify", "ragged_attention_int8", k18, rq,
+         "int8 spec contiguous-mixed"))
     kernels = []
-    for k, name, file, replaces, config in table:
-        for dt in ("float32", "bfloat16"):
+    for k, name, files, replaces, config in table:
+        for dt, file in zip(("float32", "bfloat16"), files):
             if config is None:
                 counts = c_off32 if dt == "float32" else c_off16
             elif config.startswith("int8 spec "):
@@ -2229,35 +2257,34 @@ def main(argv=None):
                 counts = runs[config, dt][1]
             r = kres[k][dt]
             wave = k.split(" ")[1] if " " in k else None
-            if k.split()[0] in ("K1", "K8"):
+            if k.split()[0] in ("K1", "K8", "K1-int8", "K8-int8"):
                 counter = f"{name}:{'narrow' if wave else 'wide'}"
             else:
                 counter = name
             kernels.append(dict(
                 name=(f"{name}[{dt}, {wave} Q {NARROW_WAVES[wave][0]}]"
                       if wave else f"{name}[{dt}]"), route="cuda",
-                source=src + (bf16_source(file) if k.split()[0] in
-                              BF16_SOURCES and dt == "bfloat16" else file),
-                replaces=replaces, launches=counts[counter],
+                source=src + file, replaces=replaces,
+                launches=counts[counter],
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"]))
     # K2 at the training shape and K3's two kernels: launches from the
     # phase-8 training run of their dtype
     for key, name, file, replaces in (
-            ("fwd", "flash_attention", "flash_fwd.cu",
+            ("fwd", "flash_attention", "flash_fwd",
              "hetu_tpu/kernels/flash_attention.py:173"),
-            ("dkv", "flash_attention_bwd_dkv", "flash_bwd.cu",
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd",
              "hetu_tpu/kernels/flash_attention.py:396"),
-            ("dq", "flash_attention_bwd_dq", "flash_bwd.cu",
+            ("dq", "flash_attention_bwd_dq", "flash_bwd",
              "hetu_tpu/kernels/flash_attention.py:428")):
         for dt in ("float32", "bfloat16"):
             r = kres8[key][dt]
             kernels.append(dict(
                 name=f"{name}[{dt}, training shape]" if key == "fwd"
                 else f"{name}[{dt}]", route="cuda",
-                source=src + (bf16_source(file) if dt == "bfloat16"
-                              else file),
+                source=src + file + ("_bf16.cu" if dt == "bfloat16"
+                                     else ".cu"),
                 replaces=replaces, launches=train_runs[dt][1][name],
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],

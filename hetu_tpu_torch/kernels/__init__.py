@@ -15,10 +15,10 @@ tensor (see ``_build``).
 - ``ragged_attention.ragged_paged_attention`` /
   ``ragged_attention.ragged_attention``: the mixed wave over the
   block-table pool / the slot-contiguous cache (csrc/ragged_paged.cu in
-  f32, csrc/ragged_paged_bf16.cu on the tensor cores in bf16: wgmma for
-  waves wider than 16 rows, split-K over positions and a merge for
-  decode and verify waves); the paged one also runs the phase-split
-  chunk pass.
+  f32, csrc/ragged_paged_bf16.cu on the tensor cores in bf16, over a
+  bf16 or an int8 cache: wgmma for waves wider than 16 rows, split-K
+  over positions and a merge for decode and verify waves); the paged one
+  also runs the phase-split chunk pass.
 - ``decode_attention.paged_decode_attention`` /
   ``decode_attention.paged_block_decode_attention``: one decode query
   per slot over the slot-contiguous cache / the block-table pool
@@ -31,12 +31,14 @@ tensor (see ``_build``).
 
 Each of the six ragged, decode and verify wrappers also takes an int8
 cache with its scale planes (``quant.kv_encode``) and then launches its
-int8 twin (csrc/ragged_paged_int8.cu, csrc/decode_attention_int8.cu),
+int8 twin (csrc/ragged_paged_int8.cu for f32 q and
+csrc/ragged_paged_bf16.cu for bf16 q, csrc/decode_attention_int8.cu),
 counted under the wrapper's name plus ``_int8``.
 
 ``launch_counts()`` reads how often each kernel was launched since
-``reset_launches()``; ``regime_counts()`` splits the float K1/K8 calls
-by the wave's width, the two regimes of their bf16 kernels.
+``reset_launches()``; ``regime_counts()`` splits the K1/K8 calls and
+those of their int8 twins by the wave's width, the two regimes of their
+bf16 kernels.
 """
 
 from ._build import LAUNCHES, reset_launches  # noqa: F401
@@ -56,14 +58,16 @@ def launch_counts():
     return {name: int(LAUNCHES[name]) for name in KERNELS}
 
 
-# the wrappers whose float calls also count by regime (``name:regime``)
-REGIME_KERNELS = ("ragged_paged_attention", "ragged_attention")
+# the kernels whose calls also count by regime (``name:regime``): K1, K8
+# and their int8 twins
+REGIME_KERNELS = ("ragged_paged_attention", "ragged_attention",
+                  "ragged_paged_attention_int8", "ragged_attention_int8")
 
 
 def regime_counts():
     """{``name:narrow`` / ``name:wide``: launches since the last reset}
-    of the float K1/K8 calls, narrow where the wave's width Q is at most
-    ``ragged_attention.NARROW_Q`` (the bf16 kernels' split-K regime),
-    wide above it (their wgmma regime)."""
+    of the K1/K8 calls and their int8 twins', narrow where the wave's
+    width Q is at most ``ragged_attention.NARROW_Q`` (the bf16 kernels'
+    split-K regime), wide above it (their wgmma regime)."""
     return {f"{n}:{r}": int(LAUNCHES[f"{n}:{r}"])
             for n in REGIME_KERNELS for r in ("narrow", "wide")}

@@ -4,7 +4,10 @@
 // copies, the bf16 packing of accumulator fragments and the softmax's
 // helpers, for both; and the mma.sync.m16n8k16 path (bf16 operands, f32
 // accumulate, operands by ldmatrix) of the backward, flash_bwd_bf16.cu.
-// The forward's wgmma path is in flash_wgmma.cuh.
+// The forward's wgmma path is in flash_wgmma.cuh.  Last, what the int8
+// twins of the bf16 ragged kernels add: raw int8 rows and their f32
+// scales staged by cp.async, widened to bf16 exactly, and the scale
+// policy of a softmax step (NoScales / ColScales).
 //
 // The mma.sync tiles live in shared memory as [rows][D + 8] bf16: the
 // 16 bytes of padding per row put the eight 16-byte rows an ldmatrix
@@ -48,6 +51,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; zeros when !ok.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
 
@@ -197,6 +209,93 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
 }
+
+// ---- int8 caches: the payload staged raw, widened to bf16, scales in f32 ----
+
+// bytes of padding per row of a staged int8 tile ([rows][D + kRawPad]):
+// the widening pass's 8-byte reads of eight neighbouring rows then fall
+// in eight different bank pairs at D 32, 64 and 128
+constexpr int kRawPad = 16;
+
+// Rows [0, R) of an int8 payload [*, D] and its f32 scales [*] into a
+// [R][D + kRawPad] byte tile and R floats, asynchronously, NT threads
+// together: row r of the tile is row idx(r) of the payload and of the
+// scale plane.  Rows at or past n are zero-filled, payload and scale (a
+// stale scale could be NaN, and 0 * NaN is NaN), and idx is not called
+// for them.
+template <int D, int R, int NT, typename Idx>
+__device__ __forceinline__ void load_int8_rows(int8_t* tile, float* sc,
+                                               const int8_t* x,
+                                               const float* xs,
+                                               const Idx& idx, int n) {
+  constexpr int C = D / 16;   // 16-byte chunks per row
+  for (int i = threadIdx.x; i < R * (C + 1); i += NT) {
+    const int r = i / (C + 1);
+    const int c = i % (C + 1);
+    const bool ok = r < n;
+    const size_t row = ok ? idx(r) : 0;
+    if (c < C)
+      cp_async16(tile + r * (D + kRawPad) + 16 * c, x + row * D + 16 * c,
+                 ok);
+    else
+      cp_async4(sc + r, xs + row, ok);
+  }
+}
+
+// Eight int8 values (one 8-byte word, lowest byte first) as eight bf16,
+// exactly: |x| <= 127 needs 7 of bf16's 8 significant bits.
+__device__ __forceinline__ uint4 widen8(uint2 w) {
+  auto b = [](uint32_t x, int i) {
+    return static_cast<float>(static_cast<int8_t>(x >> (8 * i)));
+  };
+  return make_uint4(pack(b(w.x, 0), b(w.x, 1)), pack(b(w.x, 2), b(w.x, 3)),
+                    pack(b(w.y, 0), b(w.y, 1)), pack(b(w.y, 2), b(w.y, 3)));
+}
+
+// x[n][e], x[n][2 + e] (this lane's columns 8n + 2t + e of a 16 x 8NB
+// accumulator, t = lane % 4, rows g and g + 8) times the column's factor
+// c[8n + 2t + e].
+template <int NB>
+__device__ __forceinline__ void col_scale(float (&x)[NB][4], const float* c) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const float2 f = *reinterpret_cast<const float2*>(c + 8 * n + 2 * t);
+    x[n][0] *= f.x;
+    x[n][1] *= f.y;
+    x[n][2] *= f.x;
+    x[n][3] *= f.y;
+  }
+}
+
+// The scale policy of a softmax step over one key tile: scores(s) scales
+// S's columns before the mask and the max, probs(p) P's columns after l
+// has summed them and before they are rounded to the A operand of P V.
+// A float cache has none: both are empty, and the step compiles to what
+// it did without them.
+struct NoScales {
+  template <int NB>
+  __device__ __forceinline__ void scores(float (&)[NB][4]) const {}
+  template <int NB>
+  __device__ __forceinline__ void probs(float (&)[NB][4]) const {}
+};
+
+// An int8 cache: S = Q K_int^T times each key's K scale (f32), and P
+// times each key's V scale before P V_int, so A = bf16(p v_scale) is
+// the one rounding of each term; k and v point at the tile's (or the
+// warp's) first key's scales in shared memory.
+struct ColScales {
+  const float* k;
+  const float* v;
+  template <int NB>
+  __device__ __forceinline__ void scores(float (&s)[NB][4]) const {
+    col_scale(s, k);
+  }
+  template <int NB>
+  __device__ __forceinline__ void probs(float (&p)[NB][4]) const {
+    col_scale(p, v);
+  }
+};
 
 // Store the two accumulator rows of this lane (rr = 0: g, 1: g + 8) of a
 // 16 x D block as bf16 pairs into rows of a [*, H, D] array.

@@ -1,9 +1,9 @@
 // Hopper's warpgroup matrix multiply (wgmma) for the bf16 forward bodies
 // (K2 and K2-carry in flash_fwd_bf16.cu, the wide ragged kernel of K1
-// and K8 in ragged_paged_bf16.cu): the instruction wrappers, the
-// shared-memory descriptors of the no-swizzle canonical layout, the
-// fences, and the body's shape and per-tile step that those kernels
-// share (wg_tile_step).
+// and K8 and of their int8 twins in ragged_paged_bf16.cu): the
+// instruction wrappers, the shared-memory descriptors of the no-swizzle
+// canonical layout, the fences, and the body's shape and per-tile step
+// that those kernels share (wg_tile_step).
 //
 // A tile of R rows x D bf16 is stored as a grid of 8 x 8 "core
 // matrices" (8 rows of 16 bytes, 128 contiguous bytes each): core matrix
@@ -68,6 +68,23 @@ __device__ __forceinline__ void load_blocked_kv(bf16* kt, bf16* vt,
     const int dst = ((r >> 3) * C + c) * 64 + (r & 7) * 8;
     cp_async16(kt + dst, k + o, ok);
     cp_async16(vt + dst, v + o, ok);
+  }
+}
+
+// An int8 tile of R rows (load_int8_rows: [R][D + kRawPad] bytes) into
+// the core-matrix layout above as bf16, exactly, all NT threads
+// together; the tile's copy has landed and is visible to every thread.
+// Eight neighbouring threads fill one core matrix from eight rows.
+template <int D, int R, int NT>
+__device__ __forceinline__ void widen_blocked(bf16* tile,
+                                              const int8_t* raw) {
+  constexpr int C = D / 8;
+  for (int i = threadIdx.x; i < R * C; i += NT) {
+    const int r = (i & 7) + 8 * (i / (8 * C));
+    const int c = (i >> 3) % C;
+    *reinterpret_cast<uint4*>(tile + ((r >> 3) * C + c) * 64 + (r & 7) * 8) =
+        widen8(*reinterpret_cast<const uint2*>(raw + r * (D + kRawPad)
+                                               + 8 * c));
   }
 }
 
@@ -299,12 +316,15 @@ template <int D> constexpr size_t fwd_smem() {
 // is live; l sums the unrounded p, and P, rounded to bf16 in registers,
 // is the A operand of O += P V (m64nDk16, V MN-major from shared memory).
 // m is the running max in log2 units, l this lane's part of its row's
-// sum, acc the warp's 16 x D output fragment.
-template <int D, int kBK>
+// sum, acc the warp's 16 x D output fragment.  sc, the scale policy
+// (flash_mma.cuh), scales S's columns before the mask and P's after l
+// (an int8 cache's K and V scales); NoScales, the float caches', does
+// nothing.
+template <int D, int kBK, typename Scales = NoScales>
 __device__ __forceinline__ void wg_tile_step(
     uint64_t q_desc, uint64_t k_desc, uint64_t v_desc, int t0, bool masked,
     const int (&lim)[2], float scale_log2, float (&m)[2], float (&l)[2],
-    float (&acc)[D / 8][4]) {
+    float (&acc)[D / 8][4], const Scales& sc = Scales{}) {
   constexpr int KD = D / 16;   // k steps of S = Q K^T
   constexpr int ND = D / 8;    // 8-column blocks of O
   constexpr int NS = kBK / 8;  // 8-column blocks of S
@@ -320,6 +340,7 @@ __device__ __forceinline__ void wg_tile_step(
   wgmma_commit();
   wgmma_wait();
   fence_regs(s);
+  sc.scores(s);
 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
@@ -354,6 +375,7 @@ __device__ __forceinline__ void wg_tile_step(
       acc[n][2 * rr + 1] *= alpha;
     }
   }
+  sc.probs(s);
   uint32_t a[kBK / 16][4];
 #pragma unroll
   for (int c = 0; c < kBK / 16; ++c) acc_to_a(a[c], s, c);

@@ -1,9 +1,10 @@
 // Mixed-wave ragged attention over either KV layout of the serving
 // engine: the block-table paged pool (K1) and the slot-contiguous cache
-// (K8), over f32/bf16 caches (ragged_paged.cu) or int8 caches with
+// (K8), f32 q over f32 caches (ragged_paged.cu) or over int8 caches with
 // per-(position, head) f32 scales (ragged_paged_int8.cu).  One body,
 // templated on the q/out type T, the cache element type KV and the
-// layout, as the Pallas package has one body for all four.
+// layout, as the Pallas package has one body for all four.  bf16 q runs
+// on the tensor cores instead (ragged_paged_bf16.cu), over either cache.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention (one Pallas body _ragged_kernel, launcher
@@ -105,29 +106,6 @@ cudaError_t dispatch_dh(const void* q, KVPlanes<KV> kv, const int* lengths,
                                         B, Q, H, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// dtype (q's, and a float cache's): 0 = float32, 1 = bfloat16.
-template <bool kQuant, typename Rows>
-int dispatch(const void* q, const void* k, const void* k_scale,
-             const void* v, const void* v_scale, const void* lengths,
-             const void* q_lens, Rows rows, void* out, int B, int Q, int H,
-             int Dh, int dtype, void* stream) {
-  const auto* lens = static_cast<const int*>(lengths);
-  const auto* qls = static_cast<const int*>(q_lens);
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dh<float>(q, planes<kQuant, float>(k, k_scale, v,
-                                                      v_scale),
-                             lens, qls, rows, out, B, Q, H, Dh, st);
-  else if (dtype == 1)
-    err = dispatch_dh<__nv_bfloat16>(
-        q, planes<kQuant, __nv_bfloat16>(k, k_scale, v, v_scale), lens, qls,
-        rows, out, B, Q, H, Dh, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
 }
 
 }  // namespace hetu

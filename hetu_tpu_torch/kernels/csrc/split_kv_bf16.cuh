@@ -1,9 +1,9 @@
 // Split-K attention of a narrow q-block over a slot's KV positions, bf16
 // on the tensor cores (mma.sync.m16n8k16, the fragments of
 // flash_mma.cuh): the body of the narrow waves of K1 and K8
-// (ragged_paged_bf16.cu), written so that the decode and verify kernels
-// (K4-K7: one row, or a verify block of at most 16) and the int8 twins
-// (a loader that dequantizes to bf16 as it stages) can take it over.
+// and of their int8 twins over bf16 q (ragged_paged_bf16.cu), written
+// so that the decode and verify kernels (K4-K7: one row, or a verify
+// block of at most 16) can take it over.
 //
 // A narrow wave has at most 16 q rows per (slot, head), one m16 tile:
 // one row is never computed twice.  Its work is the slot's K/V bytes, so
@@ -21,6 +21,14 @@
 // (m, l, acc) per row, in f32, written to a workspace.  A second kernel
 // (split_merge_kernel) combines a row's splits in f32 and writes o.
 //
+// An int8 cache (KV = int8_t, one f32 scale per (position, head)) stages
+// its split's payload rows raw and their scales beside them, K's in the
+// first group and V's in the second, and widens each to the bf16 tile
+// once it has landed (exact: |x| <= 127); the scores are Q K_int^T times
+// each key's K scale, in f32, before the mask, and P times each key's V
+// scale is what is rounded to bf16 for P V_int (ColScales,
+// flash_mma.cuh): one rounding per term, as the float cache's P.
+//
 // The caller supplies what varies between the kernels that take this
 // body: where position p of slot b lives (a Rows functor, kv_rows.cuh)
 // and the last live position of row jq of slot b (a RowLim functor,
@@ -28,6 +36,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "flash_mma.cuh"
 #include "kv_rows.cuh"
@@ -39,12 +48,15 @@ constexpr int kSplitRows = 16;   // q rows of a narrow block: one m16 tile
 constexpr int kSplitKW = 32;     // keys of a warp in a split
 constexpr int kSplit = kWarps * kSplitKW;   // positions per split
 
-// the q tile and the split's K and V tiles, [rows][D + kPad] bf16; the
-// four warps' f32 partials reuse the K/V space once the products are
-// done
-template <int D> constexpr size_t split_smem() {
-  return size_t(kSplitRows + 2 * kSplit) * (D + kPad)
-         * sizeof(bf16);
+// the q tile and the split's K and V tiles, [rows][D + kPad] bf16, and
+// for an int8 cache the raw K and V rows ([kSplit][D + kRawPad] bytes)
+// and their scales; the four warps' f32 partials reuse the bf16 K/V
+// space once the products are done
+template <int D, typename KV> constexpr size_t split_smem() {
+  return size_t(kSplitRows + 2 * kSplit) * (D + kPad) * sizeof(bf16)
+         + (std::is_same_v<KV, int8_t>
+                ? size_t(2 * kSplit) * (D + kRawPad + sizeof(float))
+                : 0);
 }
 
 // Rows [0, R) of a [rows][D + kPad] tile from row addresses src(r),
@@ -59,6 +71,21 @@ __device__ __forceinline__ void load_tile_rows(bf16* tile, const Src& src,
     const int ch = c % kChunks;
     const bool ok = r < n;
     cp_async16(tile + r * (D + kPad) + ch * 8, src(ok ? r : 0) + ch * 8, ok);
+  }
+}
+
+// An int8 tile of R rows (load_int8_rows: [R][D + kRawPad] bytes) into a
+// [R][D + kPad] bf16 tile, exactly, all kThreads threads together; the
+// copy has landed and is visible to every thread.
+template <int D, int R>
+__device__ __forceinline__ void widen_rows(bf16* tile, const int8_t* raw) {
+  constexpr int C = D / 8;   // 8-value words per row
+  for (int i = threadIdx.x; i < R * C; i += kThreads) {
+    const int r = i / C;
+    const int c = i % C;
+    *reinterpret_cast<uint4*>(tile + r * (D + kPad) + 8 * c) =
+        widen8(*reinterpret_cast<const uint2*>(raw + r * (D + kRawPad)
+                                               + 8 * c));
   }
 }
 
@@ -77,14 +104,17 @@ struct SplitParts {
 };
 
 // One (key split, head, slot) block.  q [B, Q, H, D] bf16 (Q <= 16),
-// k/v rows [*, H, D] bf16 addressed through rows; lengths [B]; lim(b,
-// jq) the last live position of row jq of slot b.
-template <int D, typename Rows, typename RowLim>
+// k/v rows [*, H, D] of KV (bf16, or int8 with f32 scales k_scale /
+// v_scale [*, H]; null for bf16) addressed through rows; lengths [B];
+// lim(b, jq) the last live position of row jq of slot b.
+template <int D, typename KV, typename Rows, typename RowLim>
 __global__ void __launch_bounds__(kThreads)
-split_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const int* __restrict__ lengths,
-                Rows rows, RowLim lim_of, SplitParts parts, int Q, int H,
-                float scale) {
+split_kv_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+                const float* __restrict__ k_scale, const KV* __restrict__ v,
+                const float* __restrict__ v_scale,
+                const int* __restrict__ lengths, Rows rows, RowLim lim_of,
+                SplitParts parts, int Q, int H, float scale) {
+  constexpr bool kInt8 = std::is_same_v<KV, int8_t>;
   constexpr int LD = D + kPad;
   constexpr int NB = kSplitKW / 8;   // 8-key blocks of a warp's scores
   constexpr int ND = D / 8;    // 8-column blocks of o
@@ -92,6 +122,11 @@ split_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + kSplitRows * LD;
   bf16* vs = ks + kSplit * LD;
+  // int8 only: the raw rows and the scales of the split's keys
+  int8_t* kr = reinterpret_cast<int8_t*>(vs + kSplit * LD);
+  int8_t* vr = kr + kSplit * (D + kRawPad);
+  float* ksc = reinterpret_cast<float*>(vr + kSplit * (D + kRawPad));
+  float* vsc = ksc + kSplit;
 
   const int sp = blockIdx.x;
   const int h = blockIdx.y;
@@ -106,12 +141,22 @@ split_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile_rows<D, kSplitRows>(
       qs, [&](int r) { return q + (size_t(b) * Q + r) * rs + size_t(h) * D; },
       nq);
-  load_tile_rows<D, kSplit>(
-      ks, [&](int r) { return k + rows(b, t0 + r) * rs + size_t(h) * D; }, n);
-  cp_async_commit();
-  load_tile_rows<D, kSplit>(
-      vs, [&](int r) { return v + rows(b, t0 + r) * rs + size_t(h) * D; }, n);
-  cp_async_commit();
+  if constexpr (kInt8) {
+    auto idx = [&](int r) { return rows(b, t0 + r) * H + h; };
+    load_int8_rows<D, kSplit, kThreads>(kr, ksc, k, k_scale, idx, n);
+    cp_async_commit();
+    load_int8_rows<D, kSplit, kThreads>(vr, vsc, v, v_scale, idx, n);
+    cp_async_commit();
+  } else {
+    load_tile_rows<D, kSplit>(
+        ks, [&](int r) { return k + rows(b, t0 + r) * rs + size_t(h) * D; },
+        n);
+    cp_async_commit();
+    load_tile_rows<D, kSplit>(
+        vs, [&](int r) { return v + rows(b, t0 + r) * rs + size_t(h) * D; },
+        n);
+    cp_async_commit();
+  }
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -119,10 +164,19 @@ split_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t = lane & 3;
   const int kw0 = warp * kSplitKW;   // this warp's first key of the split
   const float scale_log2 = scale * kLog2e;
+  // the warp's keys' scales (an int8 cache), or none
+  const auto sc = [&] {
+    if constexpr (kInt8) return ColScales{ksc + kw0, vsc + kw0};
+    else return NoScales{};
+  }();
 
   // S = Q K^T over the warp's keys (zero-filled past n, masked below)
   cp_async_wait<1>();   // q and K have landed
   __syncthreads();
+  if constexpr (kInt8) {
+    widen_rows<D, kSplit>(ks, kr);
+    __syncthreads();
+  }
   float s[NB][4];
   zero(s);
 #pragma unroll
@@ -131,6 +185,7 @@ split_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_a<D>(a, qs, 0, c, lane);
     mma_nk<D, NB>(s, a, ks, kw0, c, lane);
   }
+  sc.scores(s);
 
   // this lane's rows g and g + 8: keys past the row's limit at NEG_INF,
   // the max of the raw scores, p = 2^(s scale log2 e - m) (a dead key's p
@@ -167,6 +222,11 @@ split_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   zero(acc);
   cp_async_wait<0>();   // V has landed
   __syncthreads();
+  if constexpr (kInt8) {
+    widen_rows<D, kSplit>(vs, vr);
+    __syncthreads();
+  }
+  sc.probs(s);
 #pragma unroll
   for (int c = 0; c < kSplitKW / 16; ++c) {
     uint32_t a[4];
@@ -221,8 +281,10 @@ split_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // - M) acc_i / sum_i 2^(m_i - M) l_i over the splits i that start below
 // the slot's length (M their largest m), in f32, written as bf16 to out
 // [B, Q, H, D]; 0 on a slot of length 0.  One block per (head, slot).
-// Tag is the caller's layout (unused: it names the kernel in a profile).
-template <int D, typename Tag>
+// KV and Tag, the caller's cache element type and layout, are unused:
+// they name the kernel in a profile (an int8 twin's merge demangles with
+// ", signed char," as its split kernel does).
+template <int D, typename KV, typename Tag>
 __global__ void __launch_bounds__(kThreads)
 split_merge_kernel(SplitParts parts, const int* __restrict__ lengths,
                    bf16* __restrict__ out, int Q, int H) {

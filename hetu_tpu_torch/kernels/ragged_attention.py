@@ -14,17 +14,21 @@ them before it attends.
 
 The cache is f32/bf16 of q's dtype, or int8 (``quant.kv_encode``'s
 payload) with ``k_scale``/``v_scale``, one f32 scale per (position,
-head), which the int8 twins (K1-int8, K8-int8) dequantize as they stage
-each tile.  On CUDA tensors both launch ``csrc/ragged_paged.cu`` for an
-f32 cache, ``ragged_paged_int8.cu`` for an int8 one, and
-``ragged_paged_bf16.cu`` for bf16 q over a bf16 cache: the tensor cores,
-in two regimes chosen from Q (wgmma for Q > 16, split-K over positions
-and a merge for Q <= 16, one launch counted either way); on CPU tensors
-they run their plain versions, :func:`ragged_paged_reference` and
+head): the int8 twins (K1-int8, K8-int8).  On CUDA tensors both launch
+``csrc/ragged_paged.cu`` for f32 q over an f32 cache and
+``ragged_paged_int8.cu`` for f32 q over an int8 one (the CUDA cores,
+the int8 tile dequantized to f32 as it is staged), and
+``ragged_paged_bf16.cu`` for bf16 q over a bf16 or an int8 cache: the
+tensor cores, in two regimes chosen from Q (wgmma for Q > 16, split-K
+over positions and a merge for Q <= 16, one launch counted either way;
+an int8 payload widened to bf16 as it is staged, exactly, its scales
+applied in f32 to the scores and to P).  On CPU tensors they run their
+plain versions, :func:`ragged_paged_reference` and
 :func:`ragged_masked_reference`; nothing falls back from one to the
-other.  The bf16 kernels round P to bf16 before P V, as the Pallas body
-does, and the plain versions do not: :func:`ragged_rounding_bound`
-bounds the difference.
+other.  The bf16 kernels round P to bf16 before P V (over an int8 cache
+P times the V scale), as the Pallas body does over a bf16 cache, and
+the plain versions do not: :func:`ragged_rounding_bound` bounds the
+difference.
 """
 
 from __future__ import annotations
@@ -102,8 +106,9 @@ def ragged_rounding_bound(q, k, v, lengths, q_lens, block_tables=None,
     own rounding.  One rounding is within 2^-8 of p whatever max it is
     taken against, so o_d moves by at most 2^-8 sum(p |v_d|) / l: 2^-8
     times the plain version run on (q, k, |v|), through ``block_tables``
-    when given (an int8 cache is dequantized first).  Zero on a length-0
-    slot."""
+    when given.  An int8 cache is dequantized first: the bf16 kernels
+    round p times the V scale once against the integer payload, within
+    2^-8 p |v_d| of the dequantized term.  Zero on a length-0 slot."""
     if k_scale is not None:
         k = k.float() * k_scale[..., None]
         v = v.float() * v_scale[..., None]
@@ -184,8 +189,9 @@ def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
         if not t.is_contiguous():
             raise ValueError(f"{kind} kernel takes a contiguous {name}")
     if quant and (k.data_ptr() % 4 or v.data_ptr() % 4):
-        raise ValueError(f"{kind} kernel reads int8 payloads in 4-byte "
-                         f"words: k/v must be 4-byte aligned")
+        raise ValueError(f"{kind} kernel reads int8 payloads in words of "
+                         f"4 bytes or more: k/v must be 4-byte aligned "
+                         f"(16-byte for the bf16 ragged kernels)")
     for name, t in index.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
@@ -200,22 +206,28 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     twin: ``source``, ``entry`` and ``name`` with ``_int8`` appended.
 
     ``span``, the cache's positions per slot, marks a K1/K8 call.  bf16
-    q over a bf16 cache then launches the tensor-core library,
-    ``source`` and ``entry`` with ``_bf16`` appended, as ``entry(q, *kv,
-    *rest, out, workspace, *ints, stream)`` on 16-byte aligned q, k and
-    v; the workspace holds the f32 partials of its narrow regime (Q <=
-    NARROW_Q), sized by the library from the shapes and ``span``, and
-    the wide regime takes none.  One call counts as one launch, though
-    a narrow wave runs two device kernels (the splits, then their
-    merge), and a float K1/K8 call also counts under ``name:narrow`` or
-    ``name:wide`` by its Q."""
+    q then launches the tensor-core library, ``source`` with ``_bf16``
+    appended, at ``entry`` + ``_bf16`` over a bf16 cache and ``entry`` +
+    ``_int8_bf16`` over an int8 one, as ``entry(q, *kv, *rest, out,
+    workspace, *ints, stream)`` on 16-byte aligned q and caches (and
+    scales); the workspace holds the f32 partials of its narrow regime
+    (Q <= NARROW_Q), sized by the library from the shapes and ``span``,
+    and the wide regime takes none.  One call counts as one launch,
+    though a narrow wave runs two device kernels (the splits, then their
+    merge), and every K1/K8 call also counts under ``name:narrow`` or
+    ``name:wide`` by its Q (``name`` with ``_int8`` for an int8
+    cache)."""
     tail = (_DTYPES[q.dtype],)
-    if len(kv) == 4:
-        source, entry, name = (f"{source}_int8", f"{entry}_int8",
-                               f"{name}_int8")
-    elif span is not None and q.dtype == torch.bfloat16:
-        _build.check_aligned((q, *kv), "q, k and v")
-        source, entry, tail = f"{source}_bf16", f"{entry}_bf16", ()
+    quant = len(kv) == 4
+    if quant:
+        name = f"{name}_int8"
+    if span is not None and q.dtype == torch.bfloat16:
+        _build.check_aligned((q, *kv), "q and the caches (int8: their "
+                             "scales too)")
+        source, tail = f"{source}_bf16", ()
+        entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
+    elif quant:
+        source, entry = f"{source}_int8", f"{entry}_int8"
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -236,7 +248,7 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
         rc = fn(*ptrs, *ints, *tail, _build.stream_of(q))
     _build.check(lib, rc, f"{name} launch")
     _build.LAUNCHES[name] += 1
-    if span is not None and len(kv) == 2:
+    if span is not None:
         regime = "narrow" if q.shape[1] <= NARROW_Q else "wide"
         _build.LAUNCHES[f"{name}:{regime}"] += 1
     return out
@@ -260,7 +272,8 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
     [N_blocks, bs, H] f32.  Returns o [B, Q, H, Dh] in q's dtype.  CUDA
     tensors launch the kernel (f32 or bf16 q; pools of q's dtype, or
     int8 with their scales; head dim 32/64/128, all contiguous, int32
-    indices; bf16 q, k and v 16-byte aligned); CPU tensors run
+    indices; with bf16 q, q and the caches and scales 16-byte aligned,
+    with f32 q an int8 payload 4-byte aligned); CPU tensors run
     :func:`ragged_paged_reference`."""
     quant = _check_args("ragged_paged_attention", q, pool_k, pool_v,
                         lengths, q_lens,

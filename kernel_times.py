@@ -13,26 +13,29 @@ archive`` into a git-ignored directory, e.g.
     python3 kernel_times.py --trees _archive/parent . . _archive/parent
 
 Every tree is driven by THIS checkout's ``chip_smoke.py`` phase-2
-functions, so all meet the same shapes, checks and timing: K1 and K8 at
-their mixed waves (Q 256 / 1024) and at the decode (Q 1) and verify
-(Q 8) waves, K2 at the serving and the training shape, K2-carry at the
-ring's block, K3's two kernels at the training shape.  Each result is
-held to its plain version as chip_smoke holds it (a tree that predates
-``ragged_rounding_bound`` gets this checkout's definition of it) and
-reports the one-call CUDA-event median (``ms``), ten calls back to
-back (``run_ms``) and, for K1 and K8, the kernels' device time per call
-under torch.profiler (``dev_ms``: a narrow wave's two kernels, without
-the wrapper's host time, which sets ``run_ms`` once the kernels are
-faster than the host).  Each tree builds its kernels into its own
-``hetu_tpu_torch/_build``.  Order the trees parent, change, change,
-parent to see the drift between runs.  Prints one JSON line per tree
-run (and writes them to ``--out``), then a table of the times.
+functions, so all meet the same shapes, checks and timing: K1 and K8
+and their int8 twins (K1-int8, K8-int8: phase 2's K/V encoded by
+``kv_encode``) at their mixed waves (Q 256 / 1024) and at the decode
+(Q 1) and verify (Q 8) waves, K2 at the serving and the training shape,
+K2-carry at the ring's block, K3's two kernels at the training shape.
+Each result is held to its plain version as chip_smoke holds it (a tree
+that predates ``ragged_rounding_bound`` gets this checkout's definition
+of it) and reports the one-call CUDA-event median (``ms``), ten calls
+back to back (``run_ms``) and, for K1, K8 and their int8 twins, the
+kernels' device time per call under torch.profiler (``dev_ms``: a
+narrow wave's two kernels, without the wrapper's host time, which sets
+``run_ms`` once the kernels are faster than the host).  Each tree
+builds its kernels into its own ``hetu_tpu_torch/_build``.  Order the
+trees parent, change, change, parent to see the drift between runs.
+Prints one JSON line per tree run (and writes them to ``--out``), then
+a table of the times.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import itertools
 import json
 import subprocess
 import sys
@@ -52,8 +55,13 @@ def _chip_smoke():
 
 def _bound_of(ra):
     """``ragged_rounding_bound`` for a tree that predates it: 2^-8 times
-    the tree's own plain version over (q, k, |v|)."""
-    def bound(q, k, v, lengths, q_lens, block_tables=None):
+    the tree's own plain version over (q, k, |v|), an int8 cache
+    dequantized first."""
+    def bound(q, k, v, lengths, q_lens, block_tables=None, k_scale=None,
+              v_scale=None):
+        if k_scale is not None:
+            k = k.float() * k_scale[..., None]
+            v = v.float() * v_scale[..., None]
         va = v.float().abs()
         if block_tables is None:
             w = ra.ragged_masked_reference(q, k, va, lengths, q_lens)
@@ -86,11 +94,13 @@ def worker(tree, seed, dtypes):
     _build.build_all()
     res = {}
     for dt in dtypes:
-        for wave in ("mixed", "decode", "verify"):
-            res.setdefault(f"K1 {wave}", {})[dt] = cs.check_k1(
-                torch, F, dt, seed, wave=wave)
-            res.setdefault(f"K8 {wave}", {})[dt] = cs.check_k8(
-                torch, F, dt, seed, wave=wave)
+        for int8, wave in itertools.product((False, True),
+                                            ("mixed", "decode", "verify")):
+            q = "-int8" if int8 else ""
+            res.setdefault(f"K1{q} {wave}", {})[dt] = cs.check_k1(
+                torch, F, dt, seed, int8=int8, wave=wave)
+            res.setdefault(f"K8{q} {wave}", {})[dt] = cs.check_k8(
+                torch, F, dt, seed, int8=int8, wave=wave)
         res.setdefault("K2 serving", {})[dt] = cs.check_k2(torch, F, dt,
                                                            seed)
         k3 = cs.check_k3(torch, F, dt, seed)
@@ -153,7 +163,7 @@ def main(argv=None):
                 if x.get("dev_ms") is not None:
                     cell += f" / {x['dev_ms']:.4f}"
                 cells.append(cell)
-            print(f"  {key:12s} {dt:8s}  " + "  |  ".join(cells)
+            print(f"  {key:17s} {dt:8s}  " + "  |  ".join(cells)
                   + f"  (bound {runs[0]['results'][key][dt]['bound_ms']:.4f})",
                   flush=True)
     return 0

@@ -14,6 +14,10 @@ The bf16 ragged kernels (K1, K8: csrc/ragged_paged_bf16.cu, wgmma
 past 16 rows, split-K at most 16) round P to bf16 before P V as the
 Pallas body does, and their plain versions do not: they are held to
 the bf16 tolerance plus ``ragged_rounding_bound`` (``assert_ragged_close``).
+So are their int8 twins for bf16 q (the same source: the payload widened
+to bf16 exactly, the K scale applied to the scores in f32, P times the V
+scale rounded to bf16 once before P V_int), with the bound of the
+dequantized cache.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
@@ -68,15 +72,18 @@ def _wave(Dh, bs, Q, seed=0, H=3):
     return q, pk, pv, lengths, q_lens, tables
 
 
-def assert_ragged_close(got, want, args, dtype):
+def assert_ragged_close(got, want, args, dtype, **scales):
     """K1/K8 against their plain version, element by element: ``TOL``;
     in bf16 plus ``ragged_rounding_bound`` of the call's arguments (the
     kernel rounds P to bf16 before P V, as the Pallas body does; the
     plain version does not; one rounding is within 2^-8 of p, so o_d
-    within 2^-8 sum(p |v_d|) / l)."""
+    within 2^-8 sum(p |v_d|) / l).  An int8 cache passes its
+    ``k_scale``/``v_scale``: the bound of the dequantized cache (the
+    kernel rounds p times the V scale once)."""
     atol, rtol = TOL[dtype]["atol"], TOL[dtype]["rtol"]
     if dtype == "bfloat16":
-        atol = atol + tra.ragged_rounding_bound(*args).cpu().numpy()
+        atol = atol + tra.ragged_rounding_bound(*args,
+                                                **scales).cpu().numpy()
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     lim = atol + rtol * np.abs(want)
     diff = np.abs(got - want)
@@ -151,10 +158,12 @@ def _long_wave(Dh, Q, q_lens, seed, H=3, bs=16):
     return q, pk, pv, lengths, q_lens, tables
 
 
-def _bf16_both_layouts(cuda, q, pk, pv, lens, ql, tab):
-    """One bf16 wave through K1 (the pool) and K8 (its slot rows): for
-    each, (kernel output, plain output, the call's arguments, the
-    kernel's name, the launch and regime counts the call made)."""
+def _bf16_both_layouts(cuda, q, pk, pv, lens, ql, tab, int8=False):
+    """One bf16 wave through K1 (the pool) and K8 (its slot rows), or
+    with ``int8`` through K1-int8 and K8-int8 over the caches'
+    ``kv_encode``: for each, (kernel output, plain output, the call's
+    arguments, its scale keywords, the kernel's name, the launch and
+    regime counts the call made)."""
     dt = torch.bfloat16
     idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
     out = []
@@ -164,12 +173,18 @@ def _bf16_both_layouts(cuda, q, pk, pv, lens, ql, tab):
             (tra.ragged_attention, tra.ragged_masked_reference,
              "ragged_attention",
              tuple(_slot_rows(x, tab) for x in (pk, pv)))):
-        args = [q.to(cuda, dt)] + [x.to(cuda, dt) for x in kv] + idx[:2] \
-            + (idx[2:] if name == "ragged_paged_attention" else [])
+        sc = {}
+        if int8:
+            (k, ks), (v, vs) = (_int8(x, cuda) for x in kv)
+            kv, sc, name = (k, v), dict(k_scale=ks, v_scale=vs), \
+                f"{name}_int8"
+        args = [q.to(cuda, dt)] + [x.to(cuda, x.dtype if int8 else dt)
+                                   for x in kv] + idx[:2] \
+            + (idx[2:] if run is tra.ragged_paged_attention else [])
         reset_launches()
-        got = run(*args)
+        got = run(*args, **sc)
         torch.cuda.synchronize()
-        out.append((got, plain(*args).to(dt), args, name,
+        out.append((got, plain(*args, *sc.values()).to(dt), args, sc, name,
                     {**launch_counts(), **regime_counts()}))
     return out
 
@@ -182,7 +197,8 @@ def test_bf16_ragged_narrow_waves(cuda, Dh, Q):
     with fewer live rows than Q has dead rows, one slot shares a pool
     block; one counted launch per call, the length-0 slot zero."""
     wave = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 1, 0], seed=Q + Dh)
-    for got, want, args, name, counts in _bf16_both_layouts(cuda, *wave):
+    for got, want, args, _, name, counts in _bf16_both_layouts(cuda,
+                                                                *wave):
         assert counts[name] == counts[f"{name}:narrow"] == 1
         assert counts[f"{name}:wide"] == 0
         assert_ragged_close(got, want, args, "bfloat16")
@@ -197,7 +213,8 @@ def test_bf16_ragged_wide_waves(cuda, Dh, Q):
     0: every row dead), the length-0 slot, one shared pool block; one
     counted launch per call, the length-0 slot zero."""
     wave = _long_wave(Dh, Q, [Q, Q // 2, 0, 0], seed=2 * Q + Dh)
-    for got, want, args, name, counts in _bf16_both_layouts(cuda, *wave):
+    for got, want, args, _, name, counts in _bf16_both_layouts(cuda,
+                                                                *wave):
         assert counts[name] == counts[f"{name}:wide"] == 1
         assert counts[f"{name}:narrow"] == 0
         assert_ragged_close(got, want, args, "bfloat16")
@@ -749,10 +766,92 @@ def test_ragged_int8_kernels_match_plain(cuda, dtype, Dh, bs, Q, layout):
     assert launch_counts()[name] == 1
     assert launch_counts()[name[:-5]] == 0
     assert got.dtype == q.dtype
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.to(q.dtype).float().cpu().numpy(),
-                               **TOL[dtype])
+    if dtype == "float32":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.to(q.dtype).float().cpu().numpy(),
+                                   **TOL[dtype])
+    else:
+        # the tensor cores round p times the V scale once (module doc)
+        args = [q, k, v, lens_d, ql_d] + ([tab_d] if layout == "pool"
+                                          else [])
+        assert_ragged_close(got, want.to(q.dtype), args, dtype, **sc)
     assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 5, 8, 16])
+def test_bf16_ragged_int8_narrow_waves(cuda, Dh, Q):
+    """K1-int8 and K8-int8 for bf16 q on decode and verify waves (Q <=
+    16: split-K on the tensor cores over the widened payload, then the
+    merge), the waves of ``test_bf16_ragged_narrow_waves`` over the
+    caches' int8 encoding: within TOL plus the rounding bound of the
+    dequantized cache, one counted launch of the int8 twin in the
+    narrow regime and none of its float twin, the length-0 slot zero."""
+    wave = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 1, 0], seed=Q + Dh + 1)
+    for got, want, args, sc, name, counts in _bf16_both_layouts(
+            cuda, *wave, int8=True):
+        assert counts[name] == counts[f"{name}:narrow"] == 1
+        assert counts[f"{name}:wide"] == counts[name[:-5]] == 0
+        assert_ragged_close(got, want, args, "bfloat16", **sc)
+        assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [17, 64, 256])
+def test_bf16_ragged_int8_wide_waves(cuda, Dh, Q):
+    """K1-int8 and K8-int8 for bf16 q on prompt-chunk waves (Q > 16: the
+    wgmma body over the widened payload), the waves of
+    ``test_bf16_ragged_wide_waves`` over the caches' int8 encoding:
+    within TOL plus the rounding bound of the dequantized cache, one
+    counted launch of the int8 twin in the wide regime and none of its
+    float twin, the length-0 slot zero."""
+    wave = _long_wave(Dh, Q, [Q, Q // 2, 0, 0], seed=2 * Q + Dh + 1)
+    for got, want, args, sc, name, counts in _bf16_both_layouts(
+            cuda, *wave, int8=True):
+        assert counts[name] == counts[f"{name}:wide"] == 1
+        assert counts[f"{name}:narrow"] == counts[name[:-5]] == 0
+        assert_ragged_close(got, want, args, "bfloat16", **sc)
+        assert (got[3] == 0).all()
+
+
+def _off16(t, nbytes):
+    """A copy of ``t`` whose data starts ``nbytes`` past a 16-byte
+    boundary (contiguous)."""
+    n = nbytes // t.element_size()
+    out = torch.zeros(t.numel() + n, device=t.device,
+                      dtype=t.dtype)[n:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == nbytes
+    return out
+
+
+def test_bf16_ragged_int8_wrappers_refuse_misaligned_data(cuda):
+    """bf16 q's int8 twins of K1/K8 copy 16-byte chunks of the payload: a
+    payload 8 bytes off a 16-byte boundary is refused, not read, and so
+    is a scale plane 4 bytes off; f32 q's twin reads 4-byte words and
+    takes the same payload."""
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
+    (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+    lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
+                           for a in (lens, ql, tab))
+    qb = q.to(cuda, torch.bfloat16)
+    bad = _off16(k, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(qb, bad, v, lens_d, ql_d, tab_d,
+                                   k_scale=ks, v_scale=vs)
+    rows = [_slot_rows(x.cpu(), tab).to(cuda) for x in (k, v, ks, vs)]
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_attention(qb, rows[0], rows[1], lens_d, ql_d,
+                             k_scale=rows[2], v_scale=_off16(rows[3], 4))
+    reset_launches()
+    got = tra.ragged_paged_attention(q.to(cuda), bad, v, lens_d, ql_d,
+                                     tab_d, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert launch_counts()["ragged_paged_attention_int8"] == 1
+    want = tra.ragged_paged_reference(q.to(cuda), k, v, lens_d, ql_d, tab_d,
+                                      ks, vs)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL["float32"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,0 +1,146 @@
+"""The arithmetic of the bf16 int8-cache ragged kernels (K1-int8
+``ragged_paged_attention`` and K8-int8 ``ragged_attention`` for bf16 q,
+csrc/ragged_paged_bf16.cu) against the JAX package's int8 Pallas
+kernels in interpret mode, and the bound that holds them:
+``ragged_rounding_bound`` of the dequantized cache.
+
+The Pallas int8 body dequantizes K and V to f32 (``k_int * k_scale``)
+and computes in f32: P is never rounded there.  The card's kernels put
+the integer payload on the tensor cores instead: they widen it to bf16
+exactly (``kv_encode`` clamps to +-127, which bf16's 8 significant bits
+hold), form the scores as Q K_int^T (each product exact in f32) times
+each key's K scale in f32, before the mask and the max, and round
+``p * v_scale`` to bf16 once as the A operand of P V_int, with l summed
+from the unrounded p.  Each term of o then moves by at most 2^-8 p
+|v_deq| against f32's, so o_d by 2^-8 sum(p |v_deq,d|) / l: the bound
+``ragged_rounding_bound(q, k, v, lengths, q_lens, tables, k_scale,
+v_scale)`` already states.  :func:`_emulate` is that arithmetic in
+PyTorch on the CPU; it is held to JAX within ``2^-12 + 2^-7 |want| +
+bound`` element by element (2^-12 for the f32 sums in another order,
+one bf16 ulp for the output's own rounding) over waves with several KV
+blocks: Q 1 (decode), 8 (verify) and 64 (a prompt chunk); head dims
+32, 64 and 128; an inert q_len-0 slot with a length, a length-0 slot,
+and two slots sharing pool blocks.  The same waves without the bound
+fall outside the bf16 ulp tolerance, so the bound is what lets them
+pass.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hetu_tpu.kernels import ragged_attention as jra
+from hetu_tpu_torch.kernels import ragged_attention as tra
+from hetu_tpu_torch.quant import kv_encode
+
+H, BS = 2, 16
+ATOL, RTOL = 2.0 ** -12, 2.0 ** -7
+
+
+def _wave(Q, Dh, seed):
+    """Six slots over a permuted pool of 16-position blocks: slot 0 a
+    q-block of Q rows at the end of 150 positions (10 pool blocks),
+    slot 1 a decode row over 131, slot 2 a short q-block, slot 3 length
+    0, slot 4 a decode row sharing slot 1's first two blocks, slot 5
+    inert (q_len 0) with a length of 70.  K/V are ``kv_encode``'d.
+    Returns torch (q bf16, k int8, k scales, v int8, v scales, lengths,
+    q_lens, tables)."""
+    lengths = np.array([150, 131, 5, 0, 33, 70], np.int32)
+    q_lens = np.minimum(np.array([Q, 1, 3, 0, 1, 0], np.int32), lengths)
+    B, T = len(lengths), 10
+    rng = np.random.RandomState(seed)
+    need = [-(-int(n) // BS) for n in lengths]
+    N = 1 + sum(need)
+    free = list(rng.permutation(np.arange(1, N)))
+    tables = np.zeros((B, T), np.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = free.pop()
+    tables[4, :2] = tables[1, :2]                  # a shared prefix
+    kq, ks = kv_encode(torch.from_numpy(
+        rng.randn(N, BS, H, Dh).astype(np.float32)))
+    vq, vs = kv_encode(torch.from_numpy(
+        (3.0 * rng.randn(N, BS, H, Dh)).astype(np.float32)))
+    q = torch.from_numpy(rng.randn(B, Q, H, Dh).astype(np.float32))
+    return (q.bfloat16(), kq, ks, vq, vs, torch.from_numpy(lengths),
+            torch.from_numpy(q_lens), torch.from_numpy(tables))
+
+
+def _slot_rows(pool, tables):
+    B, T = tables.shape
+    return pool[tables.long()].reshape(B, T * pool.shape[1],
+                                       *pool.shape[2:])
+
+
+def _emulate(q, kq, ks, vq, vs, lengths, q_lens):
+    """The kernels' arithmetic over slot rows (k/v [B, S, H, Dh] int8,
+    scales [B, S, H]), in f32: s = (q . k_int) k_scale Dh^-1/2, dead keys
+    at NEG_INF, p = exp(s - max), l = sum p, o = sum bf16(p v_scale)
+    v_int / l, rounded to bf16; zeros on a length-0 slot."""
+    B, Q, _, Dh = q.shape
+    S = kq.shape[1]
+    s = torch.einsum("bqhd,bshd->bqhs", q.float(), kq.float())
+    s = s * ks.permute(0, 2, 1)[:, None] * Dh ** -0.5
+    L, QL = lengths.long(), q_lens.long()
+    posq = torch.minimum(torch.clamp(
+        (L - QL)[:, None] + torch.arange(Q)[None], min=0),
+        torch.clamp(L - 1, min=0)[:, None])                  # [B, Q]
+    live = torch.arange(S)[None, None, None, :] <= posq[:, :, None, None]
+    s = torch.where(live, s, torch.full_like(s, tra.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * live
+    a = (p * vs.permute(0, 2, 1)[:, None]).bfloat16().float()
+    o = torch.einsum("bqhs,bshd->bqhd", a, vq.float()) \
+        / p.sum(-1)[..., None]
+    return (o * (L > 0)[:, None, None, None]).bfloat16()
+
+
+def _case(layout, Q, Dh, seed):
+    """(JAX's int8 o as f32 numpy, the emulated kernel's o, the bound),
+    one wave through either layout."""
+    q, kq, ks, vq, vs, lens, ql, tab = _wave(Q, Dh, seed)
+    kr, ksr, vr, vsr = (_slot_rows(x, tab) for x in (kq, ks, vq, vs))
+    jq = jnp.asarray(q.float().numpy(), jnp.bfloat16)
+    jl, jql = jnp.asarray(lens.numpy()), jnp.asarray(ql.numpy())
+    if layout == "slots":
+        want = jra.ragged_attention(
+            jq, jnp.asarray(kr.numpy()), jnp.asarray(vr.numpy()), jl, jql,
+            k_scale=jnp.asarray(ksr.numpy()),
+            v_scale=jnp.asarray(vsr.numpy()), interpret=True)
+        bound = tra.ragged_rounding_bound(q, kr, vr, lens, ql,
+                                          k_scale=ksr, v_scale=vsr)
+    else:
+        want = jra.ragged_paged_attention(
+            jq, jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()), jl, jql,
+            jnp.asarray(tab.numpy()), k_scale=jnp.asarray(ks.numpy()),
+            v_scale=jnp.asarray(vs.numpy()), interpret=True)
+        bound = tra.ragged_rounding_bound(q, kq, vq, lens, ql, tab, ks, vs)
+    got = _emulate(q, kr, ksr, vr, vsr, lens, ql)
+    assert want.dtype == jnp.bfloat16
+    return (np.asarray(jnp.asarray(want, jnp.float32)), got.float().numpy(),
+            bound.numpy())
+
+
+@pytest.mark.parametrize("layout", ["pool", "slots"])
+@pytest.mark.parametrize("Q", [1, 8, 64])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_int8_kernel_arithmetic_within_the_rounding_bound(layout, Q, Dh):
+    """The kernels' int8 arithmetic (integer K and V on the tensor cores,
+    scales in f32, p v_scale rounded to bf16 once) against JAX's int8
+    Pallas kernel (all f32): within 2^-12 + 2^-7 |want| + the bound of
+    the dequantized cache, element by element, the length-0 slot
+    exactly zero on both."""
+    want, got, bound = _case(layout, Q, Dh, seed=Q + Dh)
+    diff = np.abs(got - want)
+    lim = ATOL + RTOL * np.abs(want) + bound
+    assert (diff <= lim).all(), float((diff / lim).max())
+    assert (want[3] == 0).all() and (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("layout", ["pool", "slots"])
+def test_the_int8_bound_is_needed(layout):
+    """The waves above fall outside the bf16 ulp tolerance without the
+    bound: the rounding of p v_scale is what it covers."""
+    want, got, _ = _case(layout, 64, 64, seed=128)
+    assert (np.abs(got - want) > ATOL + RTOL * np.abs(want)).any()
