@@ -12,7 +12,8 @@ non-zero and prints no result line):
    sources at once (seconds printed); one line per instance of the bf16
    kernels on the tensor cores (K2 and K2-carry on wgmma, K3's two on
    mma.sync, K1/K8's wide kernel on wgmma and split kernel on
-   mma.sync, each over a bf16 and an int8 cache): registers and spills
+   mma.sync, each over a bf16 and an int8 cache, and K6/K7's split
+   kernel on mma.sync): registers and spills
    (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA
    instructions of its SASS where the toolkit has ``cuobjdump`` (an
    instance with none, or with a spill, fails).
@@ -33,7 +34,10 @@ non-zero and prints no result line):
    round P to bf16 before P V as the Pallas body does and their plain
    versions do not: they are held to TOL plus
    ``ragged_attention.ragged_rounding_bound`` (2^-8 sum(p |v_d|) / l of
-   the row, one rounding of P), and the largest err / bound is logged.
+   the row, one rounding of P), and the largest err / bound is logged;
+   so are bf16 K6 and K7 (csrc/decode_attention_bf16.cu, the split-K
+   body of K1/K8's narrow waves), here and at Q 17 in phase 6.  K4-K7
+   are also timed ten back to back and on the device.
    bf16 K2 (here, at phase 8's training shape and as K2-carry in phase
    9) is held element by element to 2^-7 sum(p |v_d|) / l of its row
    (``bf16_rounding_bound``) + 1e-5, and 2^-7 rel: it rounds P to bf16
@@ -334,7 +338,9 @@ TC_KERNELS = (("flash_fwd_bf16", "flash_fwd_bf16_kernel",
               ("ragged_paged_bf16", "ragged_wide_kernel",
                "hetu_ragged_bf16_smem", (0,)),
               ("ragged_paged_bf16", "split_kv_kernel",
-               "hetu_ragged_bf16_smem", (1,)))
+               "hetu_ragged_bf16_smem", (1,)),
+              ("decode_attention_bf16", "split_kv_kernel",
+               "hetu_verify_bf16_smem", ()))
 
 
 def ptxas_entries(log):
@@ -389,7 +395,7 @@ def sass_mma_counts(lib_path):
 def tc_report(_build, paths):
     """One line per instance of a bf16 tensor-core kernel (K2 and
     K2-carry, K3's two, the wide and split ragged kernels of K1/K8 and
-    of their int8 twins): registers and spills (ptxas, from this
+    of their int8 twins, the split kernel of K6/K7): registers and spills (ptxas, from this
     process's build), dynamic shared memory, and the HMMA / HGMMA
     instructions of its SASS; fails when an instance has no tensor-core
     instruction or spills."""
@@ -410,6 +416,7 @@ def tc_report(_build, paths):
             smem = getattr(lib, smem_fn)(D, *extra,
                                          *((int(int8),) if ragged else ()))
             what = "".join((", carry" if carry else "",
+                            ", verify" if "VerifyLim" in name else "",
                             ", int8" if int8 else "",
                             ", pool" if "TableRows" in name else "",
                             ", slots" if "SlotRows" in name else ""))
@@ -694,8 +701,11 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
     slot, or with ``verify`` a Q-5 verify block of q_lens
     ``VERIFY_QLENS`` (dead rows included in the comparison); with
     ``int8`` the int8 twin over the f32 K/V's encoding, q of ``dtype``.
-    Yardstick: SDPA with a per-query length mask over the pre-gathered
-    (dequantized) view (the gather excluded) or the slot rows."""
+    bf16 K6/K7 over a bf16 cache add ``ragged_rounding_bound`` to TOL
+    (they round P as bf16 K1/K8 do); every kernel is also timed back to
+    back and on the device.  Yardstick: SDPA with a per-query length
+    mask over the pre-gathered (dequantized) view (the gather excluded)
+    or the slot rows."""
     from hetu_tpu_torch.kernels import decode_attention as da
     B = len(LENGTHS)
     q_lens = VERIFY_QLENS if verify else np.ones(B, np.int32)
@@ -751,12 +761,15 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
               + kv_bytes + LENGTHS.nbytes + (q_lens.nbytes if verify else 0))
     if int8:
         label = label.replace(" ", "-int8 ", 1)
+    from hetu_tpu_torch.kernels import ragged_attention as ra
     return measure(
         torch, label, dtype, lambda: run(*args, **sc),
         lambda: plain(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kt, vt, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
-        + (2 * n_rows * H * DH if int8 else 0))
+        + (2 * n_rows * H * DH if int8 else 0),
+        rounding=(lambda: ra.ragged_rounding_bound(*args))
+        if verify and not int8 else None, b2b=True)
 
 
 def check_k2(torch, F, dtype, seed):
@@ -1002,11 +1015,18 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
     return res, {**counts, **regimes}, stats
 
 
-# kernel kinds of the profile, by name, first match wins; K1/K8 are the
-# CUDA-core ragged kernel (f32 q) and the bf16 wide, split and merge
-# kernels (bf16 q, either cache), told apart by their layout
+# kernel kinds of the profile, by name, first match wins.  K6/K7 in
+# bf16 are split and merge kernels of their own row-limit type
+# (VerifyLim<layout>), ahead of K1/K8's; K1/K8 are the CUDA-core ragged
+# kernel (f32 q) and the bf16 wide, split and merge kernels (bf16 q,
+# either cache), told apart by their layout; K4-K7 otherwise the
+# CUDA-core decode kernel, by NQ and layout
 RAGGED = "(ragged_kernel|ragged_wide_kernel|split_kv_kernel|split_merge_kernel)"
-KINDS = (("K1 ragged_paged_attention", re.compile(RAGGED + ".*TableRows")),
+KINDS = (("K6 paged_verify_attention",
+          re.compile("VerifyLim<hetu::SlotRows")),
+         ("K7 paged_block_verify_attention",
+          re.compile("VerifyLim<hetu::TableRows")),
+         ("K1 ragged_paged_attention", re.compile(RAGGED + ".*TableRows")),
          ("K8 ragged_attention", re.compile(RAGGED + ".*SlotRows")),
          ("K4 paged_decode_attention",
           re.compile(r"decode_kernel<[^,]+, [^,]+, \d+, 1, hetu::SlotRows")),
@@ -1034,21 +1054,30 @@ def kind_of(name):
     return kind
 
 
-def profile_serve(torch, htt, params, cfg, spec, out_dir):
+# every profiled serving run: (configuration, spec, kv_quant, dtype)
+PROFILE_RUNS = tuple((config, spec_k, quant, dtype)
+                     for config, (spec_k, quant), dtype in itertools.product(
+                         CONFIGS, ((0, None), (4, None), (0, "int8")),
+                         ("float32", "bfloat16")))
+
+
+def profile_serve(torch, htt, params, cfg, spec, out_dir,
+                  runs=PROFILE_RUNS):
     """Where each serving configuration's device time goes, without and
     with speculation (``spec=4``) and with an int8 cache (no
-    speculation): its engine run again, f32 and bf16, under
-    torch.profiler; device time by kind and by kernel (top 15, and
-    the table in ``out_dir``) and the device's busy share of the run's
-    wall time (host tracing overhead inflates the wall, so the busy
-    share is a lower bound)."""
+    speculation), or in the given ``runs``: its engine run again, f32
+    and bf16, under torch.profiler; device time by kind and by kernel
+    (top 15, and the table in ``out_dir``) and the device's busy share
+    of the run's wall time (host tracing overhead inflates the wall, so
+    the busy share is a lower bound).  Returns {(label, dtype): the
+    engine's stats plus ``busy_s`` and ``kinds``, {kind: [device ms,
+    launches]}}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for config, (spec_k, quant), dtype in itertools.product(
-            CONFIGS, ((0, None), (4, None), (0, "int8")),
-            ("float32", "bfloat16")):
+    out = {}
+    for config, spec_k, quant, dtype in runs:
         label = (f"{config}{'-spec' if spec_k else ''}"
                  f"{'-int8' if quant else ''}")
         t_prof = time.perf_counter()
@@ -1088,6 +1117,9 @@ def profile_serve(torch, htt, params, cfg, spec, out_dir):
         log("  top kernels:")
         for line in lines[:16]:
             log("    " + line)
+        out[label, dtype] = dict(st, busy_s=busy, kinds={
+            k: [ms, calls[k]] for k, ms in kinds.items()})
+    return out
 
 
 def zero_late_layers(torch, params, cfg, first, name="gpt"):
@@ -1199,9 +1231,11 @@ LONG_QLENS = np.minimum(np.array([17, 16, 9, 0, 1, 17, 2, 17], np.int32),
 def check_long_verify(torch, dtype, seed, paged):
     """K7 (``paged``) or K6 on a 17-row verify block: two launches (the
     16-row groups), every live row within TOL of the plain version over
-    the whole block.  Returns the max abs error."""
+    the whole block (bf16 plus ``ragged_rounding_bound``, whose largest
+    err / bound is logged).  Returns the max abs error."""
     from hetu_tpu_torch.kernels import decode_attention as da
     from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.kernels import ragged_attention as ra
     B, Q = len(LENGTHS), 17
     g = torch.Generator(device="cuda").manual_seed(seed + 31)
     q = torch.randn((B, Q, H, DH), generator=g,
@@ -1223,17 +1257,25 @@ def check_long_verify(torch, dtype, seed, paged):
     want = plain(*args).to(q.dtype)
     if n != 2:
         fail(f"{run.__name__} {dtype} Q {Q}: {n} launches (want 2)")
-    worst = 0.0
+    atol, rtol = TOL[dtype]
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        atol = atol + ra.ragged_rounding_bound(*args)
+    worst = ratio = 0.0
     for b, m in enumerate(LONG_QLENS):
         if m == 0:
             continue
-        err, ok = compare(got[b, :m], want[b, :m], dtype)
-        worst = max(worst, err)
+        err, r, ok = close(got[b, :m], want[b, :m],
+                           atol[b, :m] if bf16 else atol, rtol)
+        worst, ratio = max(worst, err), max(ratio, r)
         if not ok:
             fail(f"{run.__name__} {dtype} Q {Q}: slot {b} max abs err "
-                 f"{err} (TOL {TOL[dtype]})")
+                 f"{err}, largest err / bound {r} (TOL {TOL[dtype]}"
+                 f"{' + ragged_rounding_bound' if bf16 else ''})")
     log(f"  {run.__name__} {dtype} at Q {Q} (two 16-row groups, 2 "
-        f"launches): live rows == plain version, max abs err {worst:.3e}")
+        f"launches): live rows == plain version, max abs err {worst:.3e}, "
+        f"largest err / bound {ratio:.4f}"
+        f"{' (TOL + ragged_rounding_bound)' if bf16 else ''}")
     return worst
 
 
@@ -2197,6 +2239,7 @@ def main(argv=None):
     k1 = ("ragged_paged.cu", "ragged_paged_bf16.cu")
     k18 = ("ragged_paged_int8.cu", "ragged_paged_bf16.cu")
     dec = ("decode_attention.cu",) * 2
+    ver = ("decode_attention.cu", "decode_attention_bf16.cu")
     dec8 = ("decode_attention_int8.cu",) * 2
     r1 = "hetu_tpu/kernels/ragged_attention.py:184"
     r8 = "hetu_tpu/kernels/ragged_attention.py:133"
@@ -2211,10 +2254,10 @@ def main(argv=None):
          "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split"),
         ("K5", "paged_block_decode_attention", dec,
          "hetu_tpu/kernels/decode_attention.py:259", "paged-split"),
-        ("K6", "paged_verify_attention", dec,
+        ("K6", "paged_verify_attention", ver,
          "hetu_tpu/kernels/decode_attention.py:478",
          "spec contiguous-split"),
-        ("K7", "paged_block_verify_attention", dec,
+        ("K7", "paged_block_verify_attention", ver,
          "hetu_tpu/kernels/decode_attention.py:572", "spec paged-split"),
         ("K8", "ragged_attention", k1, r8, "contiguous-mixed"),
         ("K8 decode", "ragged_attention", k1, r8, "contiguous-mixed"),

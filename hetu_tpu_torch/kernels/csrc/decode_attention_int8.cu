@@ -19,9 +19,9 @@ extern "C" int hetu_paged_decode_attention_int8(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, const void* lengths, void* out, int B, int H,
     int Dh, int S_max, int dtype, void* stream) {
-  return hetu::dispatch<true>(q, k, k_scale, v, v_scale, lengths, nullptr,
-                              hetu::SlotRows{S_max}, out, B, 1, H, Dh,
-                              dtype, stream);
+  return hetu::dispatch<true, 1, true>(q, k, k_scale, v, v_scale, lengths,
+                                       nullptr, hetu::SlotRows{S_max}, out,
+                                       B, 1, H, Dh, dtype, stream);
 }
 
 // K5-int8: q [B, H, Dh], pools [N_blocks, bs, H, Dh], scales [N_blocks,
@@ -32,9 +32,9 @@ extern "C" int hetu_paged_block_decode_attention_int8(
     const void* tables, void* out, int B, int H, int Dh, int bs,
     int T_width, int dtype, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<true>(q, pool_k, k_scale, pool_v, v_scale, lengths,
-                              nullptr, rows, out, B, 1, H, Dh, dtype,
-                              stream);
+  return hetu::dispatch<true, 1, true>(q, pool_k, k_scale, pool_v, v_scale,
+                                       lengths, nullptr, rows, out, B, 1, H,
+                                       Dh, dtype, stream);
 }
 
 // K6-int8: q [B, Q, H, Dh] (Q <= 16), caches [B, S_max, H, Dh], scales
@@ -44,9 +44,9 @@ extern "C" int hetu_paged_verify_attention_int8(
     const void* v_scale, const void* lengths, const void* q_lens,
     void* out, int B, int Q, int H, int Dh, int S_max, int dtype,
     void* stream) {
-  return hetu::dispatch<true>(q, k, k_scale, v, v_scale, lengths, q_lens,
-                              hetu::SlotRows{S_max}, out, B, Q, H, Dh,
-                              dtype, stream);
+  return hetu::dispatch<true, 16, true>(q, k, k_scale, v, v_scale, lengths,
+                                        q_lens, hetu::SlotRows{S_max}, out,
+                                        B, Q, H, Dh, dtype, stream);
 }
 
 // K7-int8: q [B, Q, H, Dh] (Q <= 16), pools [N_blocks, bs, H, Dh],
@@ -57,7 +57,7 @@ extern "C" int hetu_paged_block_verify_attention_int8(
     const void* q_lens, const void* tables, void* out, int B, int Q, int H,
     int Dh, int bs, int T_width, int dtype, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<true>(q, pool_k, k_scale, pool_v, v_scale, lengths,
-                              q_lens, rows, out, B, Q, H, Dh, dtype,
-                              stream);
+  return hetu::dispatch<true, 16, true>(q, pool_k, k_scale, pool_v,
+                                        v_scale, lengths, q_lens, rows, out,
+                                        B, Q, H, Dh, dtype, stream);
 }

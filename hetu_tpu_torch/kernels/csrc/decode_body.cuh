@@ -2,9 +2,11 @@
 // serving engine: one decode query (Q = 1) over the slot-contiguous cache
 // (K4) and the block-table paged pool (K5), and the speculative verify
 // q-block (Q = k + 1) over the same two layouts (K6, K7), over f32/bf16
-// caches (decode_attention.cu) or int8 caches with per-(position, head)
-// f32 scales (decode_attention_int8.cu).  One body, templated on the
-// q/out type T, the cache element type KV, NQ and the layout.
+// caches (decode_attention.cu; K6/K7 f32 only: bf16 q over a bf16 cache
+// runs the split-K tensor-core body, decode_attention_bf16.cu) or int8
+// caches with per-(position, head) f32 scales (decode_attention_int8.cu).
+// One body, templated on the q/out type T, the cache element type KV, NQ
+// and the layout.
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_decode_attention
 // (Pallas bodies _decode_kernel, _decode_kernel_int8),
@@ -32,9 +34,9 @@
 // of the tile into its query's online-softmax state, up to that query's
 // causal position.  Each query's 32/NQ partial (m, l, acc) states then
 // merge in shared memory with the NEG_INF conventions.  With B*H blocks
-// (96 at 8 slots of GPT-2-small) the card is under one wave: a later PR
-// splits each slot's positions across blocks as well, and keeps more
-// loads in flight.
+// (96 at 8 slots of GPT-2-small) the card is under one wave; the bf16
+// verify kernels split each slot's positions across blocks instead
+// (split_kv_bf16.cuh), and the others are next.
 #pragma once
 
 #include <cmath>
@@ -128,46 +130,52 @@ cudaError_t launch(const void* q, KVPlanes<KV> kv, const int* lengths,
   return cudaGetLastError();
 }
 
-// NQ: the smallest power of two >= Q (Q <= 16)
-template <typename T, typename KV, int DH, typename Rows>
+// NQ: the smallest power of two >= Q (Q <= kMaxQ: 1 for the decode
+// kernels, 16 for the verify kernels)
+template <typename T, typename KV, int DH, int kMaxQ, typename Rows>
 cudaError_t dispatch_nq(const void* q, KVPlanes<KV> kv, const int* lengths,
                         const int* q_lens, Rows rows, void* out, int B,
                         int Q, int H, cudaStream_t stream) {
   if (Q == 1)
     return launch<T, KV, DH, 1>(q, kv, lengths, q_lens, rows, out, B, Q, H,
                                 stream);
-  if (Q == 2)
-    return launch<T, KV, DH, 2>(q, kv, lengths, q_lens, rows, out, B, Q, H,
-                                stream);
-  if (Q <= 4)
-    return launch<T, KV, DH, 4>(q, kv, lengths, q_lens, rows, out, B, Q, H,
-                                stream);
-  if (Q <= 8)
-    return launch<T, KV, DH, 8>(q, kv, lengths, q_lens, rows, out, B, Q, H,
-                                stream);
-  if (Q <= 16)
-    return launch<T, KV, DH, 16>(q, kv, lengths, q_lens, rows, out, B, Q,
-                                 H, stream);
+  if constexpr (kMaxQ > 1) {
+    if (Q == 2)
+      return launch<T, KV, DH, 2>(q, kv, lengths, q_lens, rows, out, B, Q,
+                                  H, stream);
+    if (Q <= 4)
+      return launch<T, KV, DH, 4>(q, kv, lengths, q_lens, rows, out, B, Q,
+                                  H, stream);
+    if (Q <= 8)
+      return launch<T, KV, DH, 8>(q, kv, lengths, q_lens, rows, out, B, Q,
+                                  H, stream);
+    if (Q <= 16)
+      return launch<T, KV, DH, 16>(q, kv, lengths, q_lens, rows, out, B, Q,
+                                   H, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
-template <typename T, typename KV, typename Rows>
+template <typename T, int kMaxQ, typename KV, typename Rows>
 cudaError_t dispatch_dh(const void* q, KVPlanes<KV> kv, const int* lengths,
                         const int* q_lens, Rows rows, void* out, int B,
                         int Q, int H, int Dh, cudaStream_t stream) {
   switch (Dh) {
-    case 32: return dispatch_nq<T, KV, 32>(q, kv, lengths, q_lens, rows,
-                                           out, B, Q, H, stream);
-    case 64: return dispatch_nq<T, KV, 64>(q, kv, lengths, q_lens, rows,
-                                           out, B, Q, H, stream);
-    case 128: return dispatch_nq<T, KV, 128>(q, kv, lengths, q_lens, rows,
-                                             out, B, Q, H, stream);
+    case 32: return dispatch_nq<T, KV, 32, kMaxQ>(q, kv, lengths, q_lens,
+                                                  rows, out, B, Q, H, stream);
+    case 64: return dispatch_nq<T, KV, 64, kMaxQ>(q, kv, lengths, q_lens,
+                                                  rows, out, B, Q, H, stream);
+    case 128: return dispatch_nq<T, KV, 128, kMaxQ>(q, kv, lengths, q_lens,
+                                                    rows, out, B, Q, H,
+                                                    stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// dtype (q's, and a float cache's): 0 = float32, 1 = bfloat16.
-template <bool kQuant, typename Rows>
+// dtype (q's, and a float cache's): 0 = float32, 1 = bfloat16 (only with
+// kBf16: bf16 q over a bf16 cache in the verify kernels runs
+// decode_attention_bf16.cu).  Q at most kMaxQ.
+template <bool kQuant, int kMaxQ, bool kBf16, typename Rows>
 int dispatch(const void* q, const void* k, const void* k_scale,
              const void* v, const void* v_scale, const void* lengths,
              const void* q_lens, Rows rows, void* out, int B, int Q, int H,
@@ -175,17 +183,17 @@ int dispatch(const void* q, const void* k, const void* k_scale,
   const auto* lens = static_cast<const int*>(lengths);
   const auto* qls = static_cast<const int*>(q_lens);
   const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dh<float>(q, planes<kQuant, float>(k, k_scale, v,
-                                                      v_scale),
-                             lens, qls, rows, out, B, Q, H, Dh, st);
-  else if (dtype == 1)
-    err = dispatch_dh<__nv_bfloat16>(
-        q, planes<kQuant, __nv_bfloat16>(k, k_scale, v, v_scale), lens, qls,
-        rows, out, B, Q, H, Dh, st);
-  else
-    err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = dispatch_dh<float, kMaxQ>(
+        q, planes<kQuant, float>(k, k_scale, v, v_scale), lens, qls, rows,
+        out, B, Q, H, Dh, st);
+  } else if constexpr (kBf16) {
+    if (dtype == 1)
+      err = dispatch_dh<__nv_bfloat16, kMaxQ>(
+          q, planes<kQuant, __nv_bfloat16>(k, k_scale, v, v_scale), lens,
+          qls, rows, out, B, Q, H, Dh, st);
+  }
   return static_cast<int>(err);
 }
 

@@ -230,8 +230,6 @@ ragged_wide_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
 
 // ---- narrow waves: split-K ----
 
-int n_splits(int span) { return (span + kSplit - 1) / kSplit; }
-
 // The operands of one call: q and out bf16, the caches of KV (bf16, or
 // int8 with their f32 scale planes; null over a bf16 cache).
 template <typename KV> struct Operands {

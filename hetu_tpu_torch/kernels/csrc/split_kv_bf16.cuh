@@ -1,9 +1,10 @@
 // Split-K attention of a narrow q-block over a slot's KV positions, bf16
 // on the tensor cores (mma.sync.m16n8k16, the fragments of
 // flash_mma.cuh): the body of the narrow waves of K1 and K8
-// and of their int8 twins over bf16 q (ragged_paged_bf16.cu), written
-// so that the decode and verify kernels (K4-K7: one row, or a verify
-// block of at most 16) can take it over.
+// and of their int8 twins over bf16 q (ragged_paged_bf16.cu), and of the
+// bf16 verify kernels K6/K7 (decode_attention_bf16.cu, a verify block of
+// at most 16 rows); written so that the decode kernels (K4/K5: one row)
+// can take it over.
 //
 // A narrow wave has at most 16 q rows per (slot, head), one m16 tile:
 // one row is never computed twice.  Its work is the slot's K/V bytes, so
@@ -47,6 +48,9 @@ namespace tc {
 constexpr int kSplitRows = 16;   // q rows of a narrow block: one m16 tile
 constexpr int kSplitKW = 32;     // keys of a warp in a split
 constexpr int kSplit = kWarps * kSplitKW;   // positions per split
+
+// splits of a cache of span positions per slot: the grid's first axis
+inline int n_splits(int span) { return (span + kSplit - 1) / kSplit; }
 
 // the q tile and the split's K and V tiles, [rows][D + kPad] bf16, and
 // for an int8 cache the raw K and V rows ([kSplit][D + kRawPad] bytes)

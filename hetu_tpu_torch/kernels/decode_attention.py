@@ -13,10 +13,17 @@ the position just written included.  Verify: query ``jq`` of slot b sits
 at ``lengths[b] - q_lens[b] + jq`` and attends to the positions up to
 itself; rows past ``q_lens[b]`` clip to the last live position (their
 output is defined and discarded by the caller).  A slot with length 0
-returns zeros; the output has q's dtype.  All four launch one templated
-body in ``csrc/decode_attention.cu`` on CUDA tensors and run their plain
-versions, the ragged references (the ``q_len = 1`` case for decode), on
-CPU tensors; nothing falls back from one to the other.  An int8 cache
+returns zeros; the output has q's dtype.  On CUDA tensors all four
+launch one templated body in ``csrc/decode_attention.cu``, except that
+the verify pair over bf16 q and a bf16 cache launches the tensor-core
+library ``csrc/decode_attention_bf16.cu`` (split-K over 128-position
+splits on mma.sync, then a merge: the narrow body of the bf16 K1/K8,
+16-byte aligned q and caches or a raise); on CPU tensors they run their
+plain versions, the ragged references (the ``q_len = 1`` case for
+decode).  Nothing falls back from one to the other.  The bf16 verify
+kernels round P to bf16 before P V, as the Pallas body does, and the
+plain versions do not: ``ragged_attention.ragged_rounding_bound`` bounds
+the difference, as for the bf16 K1/K8.  An int8 cache
 (``quant.kv_encode``'s payload) passes ``k_scale``/``v_scale``, one f32
 scale per (position, head), and launches the int8 twin of its kernel
 (``csrc/decode_attention_int8.cu``, K4-int8 to K7-int8), which
@@ -136,7 +143,8 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
                    (B, H, Dh, pool_k.shape[1], block_tables.shape[1]))
 
 
-# the kernel's q-block: NQ, the pow2 of Q, splits 32 row groups
+# the verify kernels' q-block: the CUDA-core body's NQ, the pow2 of Q,
+# splits 32 row groups; the bf16 body's is one m16 tile
 _MAX_Q = 16
 
 
@@ -176,9 +184,10 @@ def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     an int8 cache; lengths: [B] int32, the filled count INCLUDING the
     q-block's live positions (0 = inert slot, zeros out); q_lens: [B]
     int32 live queries per slot.  Returns o [B, Q, H, Dh] in q's dtype.
-    CUDA tensors launch the kernel (the decode kernel's terms; a block of
-    more than 16 rows launches it once per group of :func:`verify_groups`,
-    whose dead groups give zeros); CPU tensors run
+    CUDA tensors launch the kernel (the decode kernel's terms; bf16 q
+    over a bf16 cache the tensor-core kernel, on 16-byte aligned q and
+    caches; a block of more than 16 rows launches it once per group of
+    :func:`verify_groups`, whose dead groups give zeros); CPU tensors run
     :func:`masked_verify_reference`."""
     quant = _check_args("paged_verify_attention", q, k, v, lengths,
                         q_lens, {"lengths": lengths, "q_lens": q_lens},
@@ -193,7 +202,7 @@ def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     return _verify(q, lengths, q_lens, lambda qc, lc, nc: _launch(
         "decode_attention", "hetu_paged_verify_attention",
         "paged_verify_attention", qc, kv, (lc, nc),
-        (*qc.shape, k.shape[1])))
+        (*qc.shape, k.shape[1]), span=k.shape[1]))
 
 
 def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
@@ -206,9 +215,9 @@ def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
     pool; lengths / q_lens: [B] int32 as in
     :func:`paged_verify_attention`; block_tables: [B, T] int32 as in
     :func:`paged_block_decode_attention`.  Returns o [B, Q, H, Dh] in q's
-    dtype.  CUDA tensors launch the kernel (per group of
-    :func:`verify_groups` past 16 rows); CPU tensors run
-    :func:`paged_block_verify_reference`."""
+    dtype.  CUDA tensors launch the kernel (as
+    :func:`paged_verify_attention`'s, per group of :func:`verify_groups`
+    past 16 rows); CPU tensors run :func:`paged_block_verify_reference`."""
     quant = _check_args("paged_block_verify_attention", q, pool_k, pool_v,
                         lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens,
@@ -224,4 +233,5 @@ def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
     return _verify(q, lengths, q_lens, lambda qc, lc, nc: _launch(
         "decode_attention", "hetu_paged_block_verify_attention",
         "paged_block_verify_attention", qc, kv, (lc, nc, block_tables),
-        (*qc.shape, pool_k.shape[1], block_tables.shape[1])))
+        (*qc.shape, pool_k.shape[1], block_tables.shape[1]),
+        span=pool_k.shape[1] * block_tables.shape[1]))

@@ -198,6 +198,15 @@ def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
     return quant
 
 
+# the tensor-core library that takes bf16 q in place of a CUDA-core
+# source, for the calls that pass a span: (library, its workspace-size
+# entry, whether it takes an int8 cache too)
+_BF16_LIBRARIES = {
+    "ragged_paged": ("ragged_paged_bf16", "hetu_ragged_bf16_workspace", True),
+    "decode_attention": ("decode_attention_bf16",
+                         "hetu_verify_bf16_workspace", False)}
+
+
 def _launch(source, entry, name, q, kv, rest, ints, span=None):
     """Launch C entry ``entry`` of kernel library ``source`` as
     ``entry(q, *kv, *rest, out, *ints, dtype, stream)`` into a fresh
@@ -205,26 +214,31 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     (k, k_scale, v, v_scale) for an int8 cache, which launches the int8
     twin: ``source``, ``entry`` and ``name`` with ``_int8`` appended.
 
-    ``span``, the cache's positions per slot, marks a K1/K8 call.  bf16
-    q then launches the tensor-core library, ``source`` with ``_bf16``
-    appended, at ``entry`` + ``_bf16`` over a bf16 cache and ``entry`` +
-    ``_int8_bf16`` over an int8 one, as ``entry(q, *kv, *rest, out,
-    workspace, *ints, stream)`` on 16-byte aligned q and caches (and
-    scales); the workspace holds the f32 partials of its narrow regime
-    (Q <= NARROW_Q), sized by the library from the shapes and ``span``,
-    and the wide regime takes none.  One call counts as one launch,
-    though a narrow wave runs two device kernels (the splits, then their
-    merge), and every K1/K8 call also counts under ``name:narrow`` or
-    ``name:wide`` by its Q (``name`` with ``_int8`` for an int8
-    cache)."""
+    ``span``, the cache's positions per slot, marks a call with a
+    tensor-core library for bf16 q (``_BF16_LIBRARIES``): K1/K8
+    (``ragged_paged``, over a bf16 or an int8 cache) and K6/K7
+    (``decode_attention``, over a bf16 cache; an int8 cache launches the
+    int8 twin above).  bf16 q then launches that library at ``entry`` +
+    ``_bf16`` over a bf16 cache and ``entry`` + ``_int8_bf16`` over an
+    int8 one, as ``entry(q, *kv, *rest, out, workspace, *ints, stream)``
+    on 16-byte aligned q and caches (and scales), or raises; the
+    workspace holds the f32 partials of the split-K body (Q <=
+    NARROW_Q), sized by the library from the shapes and ``span``, and
+    K1/K8's wide regime takes none.  One call counts as one launch,
+    though a split-K call runs two device kernels (the splits, then
+    their merge), and every K1/K8 call also counts under
+    ``name:narrow`` or ``name:wide`` by its Q (``name`` with ``_int8``
+    for an int8 cache)."""
     tail = (_DTYPES[q.dtype],)
     quant = len(kv) == 4
     if quant:
         name = f"{name}_int8"
-    if span is not None and q.dtype == torch.bfloat16:
+    regimes = source == "ragged_paged"
+    tc = _BF16_LIBRARIES[source] if span is not None else None
+    if tc and q.dtype == torch.bfloat16 and (tc[2] or not quant):
         _build.check_aligned((q, *kv), "q and the caches (int8: their "
                              "scales too)")
-        source, tail = f"{source}_bf16", ()
+        source, tail = tc[0], ()
         entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
     elif quant:
         source, entry = f"{source}_int8", f"{entry}_int8"
@@ -234,7 +248,7 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     lib = _build.library(source)
     ptrs = [t.data_ptr() for t in (q, *kv, *rest, out)]
     if not tail:
-        size = lib.hetu_ragged_bf16_workspace
+        size = getattr(lib, tc[1])
         size.argtypes = [ctypes.c_int] * 5
         size.restype = ctypes.c_longlong
         n_ws = size(*q.shape, span)
@@ -248,7 +262,7 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
         rc = fn(*ptrs, *ints, *tail, _build.stream_of(q))
     _build.check(lib, rc, f"{name} launch")
     _build.LAUNCHES[name] += 1
-    if span is not None:
+    if regimes:
         regime = "narrow" if q.shape[1] <= NARROW_Q else "wide"
         _build.LAUNCHES[f"{name}:{regime}"] += 1
     return out

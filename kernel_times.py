@@ -4,6 +4,7 @@ NVIDIA card, each checkout in a process of its own, in the order given.
 
     python3 kernel_times.py [--trees DIR [DIR ...]] [--seed N]
                             [--dtypes float32 bfloat16] [--out FILE]
+                            [--engines DIR]
 
 A tree is the root of a checkout holding ``hetu_tpu_torch`` (the
 default is this one); an older commit is unpacked there with ``git
@@ -16,19 +17,24 @@ Every tree is driven by THIS checkout's ``chip_smoke.py`` phase-2
 functions, so all meet the same shapes, checks and timing: K1 and K8
 and their int8 twins (K1-int8, K8-int8: phase 2's K/V encoded by
 ``kv_encode``) at their mixed waves (Q 256 / 1024) and at the decode
-(Q 1) and verify (Q 8) waves, K2 at the serving and the training shape,
-K2-carry at the ring's block, K3's two kernels at the training shape.
-Each result is held to its plain version as chip_smoke holds it (a tree
-that predates ``ragged_rounding_bound`` gets this checkout's definition
-of it) and reports the one-call CUDA-event median (``ms``), ten calls
-back to back (``run_ms``) and, for K1, K8 and their int8 twins, the
-kernels' device time per call under torch.profiler (``dev_ms``: a
-narrow wave's two kernels, without the wrapper's host time, which sets
-``run_ms`` once the kernels are faster than the host).  Each tree
-builds its kernels into its own ``hetu_tpu_torch/_build``.  Order the
-trees parent, change, change, parent to see the drift between runs.
-Prints one JSON line per tree run (and writes them to ``--out``), then
-a table of the times.
+(Q 1) and verify (Q 8) waves, K4-K7 and their int8 twins at phase 2's
+decode (Q 1) and verify (Q 5) waves, K2 at the serving and the training
+shape, K2-carry at the ring's block, K3's two kernels at the training
+shape.  Each result is held to its plain version as chip_smoke holds it
+(a tree that predates ``ragged_rounding_bound`` gets this checkout's
+definition of it) and reports the one-call CUDA-event median (``ms``),
+ten calls back to back (``run_ms``) and, for K1, K8, K4-K7 and their
+int8 twins, the kernels' device time per call under torch.profiler
+(``dev_ms``: a split-K call's two kernels, without the wrapper's host
+time, which sets ``run_ms`` once the kernels are faster than the host).
+With ``--engines DIR`` each tree then also serves chip_smoke's request
+set on GPT-2-small (random weights from ``--seed``) through the bf16
+``spec=4`` phase-split engines (K6 on the slot rows, K7 on the pool):
+one run for tok/s, then one under torch.profiler (device ms by kind,
+tables into DIR/<run>/).  Each tree builds its kernels into its own
+``hetu_tpu_torch/_build``.  Order the trees parent, change, change,
+parent to see the drift between runs.  Prints one JSON line per tree
+run (and writes them to ``--out``), then a table of the times.
 """
 
 from __future__ import annotations
@@ -72,8 +78,36 @@ def _bound_of(ra):
     return bound
 
 
-def worker(tree, seed, dtypes):
-    """Time one tree's kernels; returns {kernel: {dtype: result}}."""
+# the engines of ``--engines``: bf16, spec 4, phase-split, whose verify
+# waves run K6 (slot rows) and K7 (the pool)
+ENGINES = ("contiguous-split", "paged-split")
+
+
+def engines(torch, cs, seed, out_dir):
+    """Serve chip_smoke's request set through ``ENGINES`` (bf16,
+    ``spec=4``): {config: {"tokens_per_s": an unprofiled run's,
+    "profiled": the profiled run's stats and device ms by kind}}."""
+    import numpy as np
+    import hetu_tpu_torch as htt
+    cfg = htt.GPTConfig()
+    params = htt.params_from_numpy(cs.gpt2_small_params(cfg, seed))
+    prompts = np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab_size, (4, 128))
+    spec = cs.request_set(prompts, seed, cfg.vocab_size)
+    out = {}
+    for config in ENGINES:
+        st = cs.serve(torch, htt, params, cfg, spec, "bfloat16", config,
+                      spec=4)[2]
+        prof = cs.profile_serve(torch, htt, params, cfg, spec, out_dir,
+                                runs=((config, 4, None, "bfloat16"),))
+        out[config] = dict(tokens_per_s=st["tokens_per_s"],
+                           profiled=next(iter(prof.values())))
+    return out
+
+
+def worker(tree, seed, dtypes, engines_dir=None):
+    """Time one tree's kernels; returns {kernel: {dtype: result}}, and
+    with ``engines_dir`` {config: engine result} (``engines``)."""
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -101,6 +135,12 @@ def worker(tree, seed, dtypes):
                 torch, F, dt, seed, int8=int8, wave=wave)
             res.setdefault(f"K8{q} {wave}", {})[dt] = cs.check_k8(
                 torch, F, dt, seed, int8=int8, wave=wave)
+        for int8, (k, paged, verify) in itertools.product(
+                (False, True), (("K4", False, False), ("K5", True, False),
+                                ("K6", False, True), ("K7", True, True))):
+            res.setdefault(f"{k}{'-int8' if int8 else ''}", {})[dt] = \
+                cs.check_decode(torch, F, dt, seed, paged, verify=verify,
+                                int8=int8)
         res.setdefault("K2 serving", {})[dt] = cs.check_k2(torch, F, dt,
                                                            seed)
         k3 = cs.check_k3(torch, F, dt, seed)
@@ -108,7 +148,9 @@ def worker(tree, seed, dtypes):
         res.setdefault("K3 dkv", {})[dt] = k3["dkv"]
         res.setdefault("K3 dq", {})[dt] = k3["dq"]
         res.setdefault("K2-carry", {})[dt] = cs.check_carry(torch, dt, seed)
-    return res
+    if engines_dir is None:
+        return res, None
+    return res, engines(torch, cs, seed, engines_dir)
 
 
 def main(argv=None):
@@ -117,12 +159,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--engines", default=None, metavar="DIR",
+                    help="also serve through the bf16 spec=4 phase-split "
+                         "engines, one profiled run each (tables into "
+                         "DIR)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        res = worker(args.worker, args.seed, args.dtypes)
-        print(TAG + json.dumps({"tree": args.worker, "results": res}),
-              flush=True)
+        res, eng = worker(args.worker, args.seed, args.dtypes, args.engines)
+        print(TAG + json.dumps({"tree": args.worker, "results": res,
+                                "engines": eng}), flush=True)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,10 +176,12 @@ def main(argv=None):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     runs = []
-    for tree in args.trees:
+    for i, tree in enumerate(args.trees):
+        eng = (["--engines", str(Path(args.engines) / f"run{i}")]
+               if args.engines else [])
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker", tree,
-             "--seed", str(args.seed), "--dtypes", *args.dtypes],
+             "--seed", str(args.seed), "--dtypes", *args.dtypes, *eng],
             stdout=subprocess.PIPE, text=True, timeout=1800)
         lines = [ln for ln in out.stdout.splitlines()]
         for ln in lines:
@@ -166,6 +214,20 @@ def main(argv=None):
             print(f"  {key:17s} {dt:8s}  " + "  |  ".join(cells)
                   + f"  (bound {runs[0]['results'][key][dt]['bound_ms']:.4f})",
                   flush=True)
+    if args.engines:
+        print("bf16 spec 4 engines: tok/s unprofiled / profiled, device ms "
+              "(launches) of the verify kernel under the profiler")
+        for config in ENGINES:
+            kind = ("K6 paged_verify_attention" if config.startswith("contig")
+                    else "K7 paged_block_verify_attention")
+            cells = []
+            for r in runs:
+                e = r["engines"][config]
+                ms, n = e["profiled"]["kinds"].get(kind, (0.0, 0))
+                cells.append(f"{e['tokens_per_s']:.1f} / "
+                             f"{e['profiled']['tokens_per_s']:.1f}, "
+                             f"{ms:.3f} ({n})")
+            print(f"  {config:17s} " + "  |  ".join(cells), flush=True)
     return 0
 
 

@@ -17,7 +17,9 @@ the bf16 tolerance plus ``ragged_rounding_bound`` (``assert_ragged_close``).
 So are their int8 twins for bf16 q (the same source: the payload widened
 to bf16 exactly, the K scale applied to the scores in f32, P times the V
 scale rounded to bf16 once before P V_int), with the bound of the
-dequantized cache.
+dequantized cache, and the bf16 verify kernels (K6, K7:
+csrc/decode_attention_bf16.cu, the split-K body of K1/K8's narrow
+waves), which round P where the Pallas verify body rounds it.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
@@ -80,10 +82,17 @@ def assert_ragged_close(got, want, args, dtype, **scales):
     within 2^-8 sum(p |v_d|) / l).  An int8 cache passes its
     ``k_scale``/``v_scale``: the bound of the dequantized cache (the
     kernel rounds p times the V scale once)."""
+    bound = (tra.ragged_rounding_bound(*args, **scales)
+             if dtype == "bfloat16" else None)
+    assert_within(got, want, dtype, bound)
+
+
+def assert_within(got, want, dtype, bound=None):
+    """``TOL[dtype]`` element by element, plus ``bound`` (a tensor of
+    want's shape: ``ragged_rounding_bound``) where given."""
     atol, rtol = TOL[dtype]["atol"], TOL[dtype]["rtol"]
-    if dtype == "bfloat16":
-        atol = atol + tra.ragged_rounding_bound(*args,
-                                                **scales).cpu().numpy()
+    if bound is not None:
+        atol = atol + bound.cpu().numpy()
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     lim = atol + rtol * np.abs(want)
     diff = np.abs(got - want)
@@ -289,20 +298,19 @@ def test_verify_kernels_match_plain(cuda, dtype, Dh, bs, Q, layout):
     reset_launches()
     if layout == "slots":
         k, v = (_slot_rows(x, tab).to(cuda, dt) for x in (pk, pv))
-        got = tda.paged_verify_attention(q, k, v, lens_d, ql_d)
-        want = tda.masked_verify_reference(q, k, v, lens_d, ql_d)
+        args = (q, k, v, lens_d, ql_d)
+        got = tda.paged_verify_attention(*args)
+        want = tda.masked_verify_reference(*args)
         name = "paged_verify_attention"
     else:
         k, v = pk.to(cuda, dt), pv.to(cuda, dt)
-        got = tda.paged_block_verify_attention(q, k, v, lens_d, ql_d, tab_d)
-        want = tda.paged_block_verify_reference(q, k, v, lens_d, ql_d,
-                                                tab_d)
+        args = (q, k, v, lens_d, ql_d, tab_d)
+        got = tda.paged_block_verify_attention(*args)
+        want = tda.paged_block_verify_reference(*args)
         name = "paged_block_verify_attention"
     torch.cuda.synchronize()
     assert launch_counts()[name] == 1
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.to(dt).float().cpu().numpy(),
-                               **TOL[dtype])
+    assert_ragged_close(got, want.to(dt), args, dtype)
     assert (got[3] == 0).all()
 
 
@@ -333,15 +341,85 @@ def test_verify_kernels_serve_long_blocks(cuda, dtype, Q, layout):
     got = run(q, k, v, lens_d, ql_d, *rest)
     torch.cuda.synchronize()
     assert launch_counts()[name] == -(-Q // 16)
+
+    def bound(*args):
+        return (tra.ragged_rounding_bound(*args)
+                if dtype == "bfloat16" else None)
     want = plain(q, k, v, lens_d, ql_d, *rest).to(dt)
+    whole = bound(q, k, v, lens_d, ql_d, *rest)
     for b, n in enumerate(ql):
-        np.testing.assert_allclose(got[b, :n].float().cpu().numpy(),
-                                   want[b, :n].float().cpu().numpy(),
-                                   **TOL[dtype])
-    groups = torch.cat([plain(qc, k, v, lc, nc, *rest).to(dt) for qc, lc,
-                        nc in tda.verify_groups(q, lens_d, ql_d)], dim=1)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               groups.float().cpu().numpy(), **TOL[dtype])
+        assert_within(got[b, :n], want[b, :n], dtype,
+                      None if whole is None else whole[b, :n])
+    groups = tda.verify_groups(q, lens_d, ql_d)
+    want = torch.cat([plain(qc, k, v, lc, nc, *rest).to(dt)
+                      for qc, lc, nc in groups], dim=1)
+    assert_within(got, want, dtype, None if whole is None else torch.cat(
+        [bound(qc, k, v, lc, nc, *rest) for qc, lc, nc in groups], dim=1))
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 2, 5, 8, 16])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_bf16_verify_kernels_cross_key_splits(cuda, monkeypatch, Dh, Q,
+                                              layout):
+    """bf16 K6/K7 on the tensor-core library: lengths 1000, 257, 1 and 0
+    cross several 128-position key splits, a q-block of Q rows, one of
+    fewer (dead rows), a one-row slot sharing a pool block, the length-0
+    slot zero; one launch counted under the wrapper's name (no regime
+    key) and the library loaded is ``decode_attention_bf16``."""
+    q, pk, pv, lens, ql, tab = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 1, 0],
+                                          seed=3 * Q + Dh)
+    dt = torch.bfloat16
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    if layout == "slots":
+        run, plain, name = (tda.paged_verify_attention,
+                            tda.masked_verify_reference,
+                            "paged_verify_attention")
+        args = [q.to(cuda, dt)] + [_slot_rows(x, tab).to(cuda, dt)
+                                   for x in (pk, pv)] + idx[:2]
+    else:
+        run, plain, name = (tda.paged_block_verify_attention,
+                            tda.paged_block_verify_reference,
+                            "paged_block_verify_attention")
+        args = [q.to(cuda, dt), pk.to(cuda, dt), pv.to(cuda, dt)] + idx
+    from hetu_tpu_torch.kernels import _build
+    loaded = []
+    library = _build.library
+    monkeypatch.setattr(_build, "library",
+                        lambda n: loaded.append(n) or library(n))
+    reset_launches()
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert loaded == ["decode_attention_bf16"]
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == {name: 1}
+    assert_ragged_close(got, plain(*args).to(dt), args, "bfloat16")
+    assert (got[3] == 0).all()
+
+
+def test_bf16_verify_wrappers_refuse_misaligned_data(cuda):
+    """The bf16 verify kernels copy 16-byte chunks: a q, k or v that does
+    not start on a 16-byte boundary is refused, not read, and nothing
+    launches (no other kernel takes the call)."""
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 5)
+    dt = torch.bfloat16
+    lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
+                           for a in (lens, ql, tab))
+    x = torch.zeros(pk.numel() + 4, device=cuda, dtype=dt)
+    bad = x[4:].view(pk.shape)                  # 8 bytes past the start
+    bad.copy_(pk.to(cuda, dt))
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_block_verify_attention(q.to(cuda, dt), bad,
+                                         pv.to(cuda, dt), lens_d, ql_d,
+                                         tab_d)
+    rows = _slot_rows(pk, tab).to(cuda, dt)
+    x = torch.zeros(q.numel() + 4, device=cuda, dtype=dt)
+    qbad = x[4:].view(q.shape)
+    assert qbad.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_verify_attention(qbad, rows, rows, lens_d, ql_d)
+    assert not any(launch_counts().values())
 
 
 def test_verify_kernel_q1_equals_decode_kernel(cuda):
