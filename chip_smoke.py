@@ -9,14 +9,16 @@ non-zero and prints no result line):
 
 1. The card's name and power limit (``nvidia-smi``); every kernel
    library built by ``nvcc`` from ``hetu_tpu_torch/kernels/csrc``, all
-   sources at once (seconds printed); one line per instance of the bf16
-   kernels on the tensor cores (K2 and K2-carry on wgmma, K3's two on
+   sources at once (seconds printed); one line per instance of the
+   kernels on the tensor cores (f32 K2 and K2-carry on mma.sync TF32,
+   three passes; bf16 K2 and K2-carry on wgmma, K3's two on
    mma.sync, K1/K8's wide kernel on wgmma and split kernel on
    mma.sync, each over a bf16 and an int8 cache, and K6/K7's split
-   kernel on mma.sync): registers and spills
-   (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA
-   instructions of its SASS where the toolkit has ``cuobjdump`` (an
-   instance with none, or with a spill, fails).
+   kernel on mma.sync, K7's also over an int8 pool): registers and
+   spills (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA
+   (TF32 among them) instructions of its SASS where the toolkit has
+   ``cuobjdump`` (an instance with none, the f32 forward with no TF32
+   one, or an instance with a spill, fails).
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes, f32 and bf16, with the max abs error beside a stated
    tolerance, and CUDA-event times (median of several warm runs) of the
@@ -37,7 +39,10 @@ non-zero and prints no result line):
    the row, one rounding of P), and the largest err / bound is logged;
    so are bf16 K6 and K7 (csrc/decode_attention_bf16.cu, the split-K
    body of K1/K8's narrow waves), here and at Q 17 in phase 6.  K4-K7
-   are also timed ten back to back and on the device.
+   are also timed ten back to back and on the device.  f32 K2 (here,
+   at phase 8's training shape and as K2-carry in phase 9) runs three
+   TF32 passes on the tensor cores and keeps f32's 1e-5; its bound
+   counts 3 x its flops at TF32's 495 TFLOP/s (``TF32X3``).
    bf16 K2 (here, at phase 8's training shape and as K2-carry in phase
    9) is held element by element to 2^-7 sum(p |v_d|) / l of its row
    (``bf16_rounding_bound``) + 1e-5, and 2^-7 rel: it rounds P to bf16
@@ -85,9 +90,10 @@ non-zero and prints no result line):
    f32 K/V encoded by ``quant.kv_encode`` on the card (equal to the CPU
    encoding, payload and scales), q f32 and bf16, held to their plain
    versions with phase 2's tolerances (both sides form the same f32
-   product payload x scale; bf16 K1-int8 and K8-int8, on the tensor
-   cores, round p times the V scale to bf16 once before P V_int and are
-   held to TOL plus ``ragged_rounding_bound`` as bf16 K1/K8 are), timed
+   product payload x scale; bf16 K1-int8, K8-int8 and K7-int8, on the
+   tensor cores, split p times the V scale into a bf16 pair before
+   P V_int, two products, and hold TOL alone as the Pallas int8 body,
+   which never rounds P, does), timed
    beside an SDPA yardstick over the pre-dequantized K/V (the
    dequantization not timed) and a bound from the int8 bytes; K1-int8
    and K8-int8 at their mixed, decode and verify waves, also timed ten
@@ -178,6 +184,10 @@ import numpy as np
 # flop/s by operand type (f32 on the CUDA cores, bf16 on tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the f32 flash forward (K2, K2-carry) runs each f32 product as three
+# TF32 products on the tensor cores (495 TFLOP/s): its least time for
+# the same work counts 3 x the flops at that rate
+TF32X3 = (3, 495e12)
 # kernel vs plain version, element by element: |got - want| <= atol +
 # rtol * |want|.  Both sides accumulate in f32; in bf16 both round their
 # f32 result to bf16, which may land one bf16 ulp (<= 2^-7 of the value)
@@ -261,28 +271,33 @@ def device_ms(torch, fn, n=10):
     (its count over ``n``, at least one), summed over the kernels (host
     time and the gaps between kernels excluded).  A kernel whose count
     is not a multiple of ``n`` lost events in the profiler: the mean of
-    the events it kept stands for it, and the loss is logged."""
+    the events it kept stands for it, and the loss is logged.  A window
+    in which the profiler recorded no device time at all is profiled
+    again, up to three windows, and logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or not e.count:
-            continue
-        if e.count % n:
-            log(f"    (the profiler kept {e.count} events of {e.key[:60]} "
-                f"over {n} calls)")
-        total += (e.self_device_time_total / e.count
-                  * max(1, round(e.count / n)))
-    if total <= 0:
-        fail("the profiler recorded no device time")
-    return total / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or not e.count:
+                continue
+            if e.count % n:
+                log(f"    (the profiler kept {e.count} events of "
+                    f"{e.key[:60]} over {n} calls)")
+            total += (e.self_device_time_total / e.count
+                      * max(1, round(e.count / n)))
+        if total > 0:
+            return total / 1e3
+        log("    (the profiler recorded no device time in this window; "
+            "profiling again)")
+    fail("the profiler recorded no device time")
 
 
 def compare(got, want, dtype):
@@ -316,20 +331,33 @@ def close(got, want, atol, rtol):
     return float(diff.max()), float((diff / lim).max()), ok
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, method=None):
+    """(least ms, "bytes" or "operations"): the larger of the bytes at
+    HBM_BYTES_S and the flops at the dtype's peak, or with ``method`` =
+    (passes, rate) passes x the flops at that rate (the f32 flash
+    forward: ``TF32X3``)."""
+    passes, rate = method or (1, PEAK_FLOPS[dtype])
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = passes * flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k2_method(dtype):
+    """The bound's method of the flash forward in ``dtype``."""
+    return TF32X3 if dtype == "float32" else None
 
 
 # ---------------------------------------------------------------- #
 # phase 1: the tensor-core kernels' build report
 # ---------------------------------------------------------------- #
 
-# the bf16 tensor-core libraries and their kernels (symbol substring,
-# entry of the dynamic shared memory query and its arguments after Dh;
-# the ragged kernels' query also takes the cache, 1 for int8)
-TC_KERNELS = (("flash_fwd_bf16", "flash_fwd_bf16_kernel",
+# the tensor-core libraries and their kernels (symbol substring, entry
+# of the dynamic shared memory query and its arguments after Dh; the
+# ragged and verify kernels' query also takes the cache, 1 for int8):
+# the f32 flash forward on TF32, then the bf16 kernels
+TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
+               "hetu_flash_fwd_smem", ()),
+              ("flash_fwd_bf16", "flash_fwd_bf16_kernel",
                "hetu_flash_fwd_bf16_smem", ()),
               ("flash_bwd_bf16", "flash_bwd_dkv_bf16_kernel",
                "hetu_flash_bwd_bf16_smem", (1,)),
@@ -365,8 +393,9 @@ def ptxas_entries(log):
 
 
 def sass_mma_counts(lib_path):
-    """{mangled kernel name: (HMMA, HGMMA instruction count)} from
-    ``cuobjdump -sass``, or None where the toolkit has no cuobjdump."""
+    """{mangled kernel name: (HMMA, HGMMA, TF32 HMMA instruction
+    count)} from ``cuobjdump -sass``, or None where the toolkit has no
+    cuobjdump."""
     import os
     import shutil
     cands = [shutil.which("cuobjdump")]
@@ -384,21 +413,24 @@ def sass_mma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = [0, 0]
+            out[name] = [0, 0, 0]
         elif name and re.search(r"\bHGMMA\b", line):
             out[name][1] += 1
         elif name and re.search(r"\bHMMA\b", line):
             out[name][0] += 1
+            out[name][2] += "TF32" in line
     return {k: tuple(v) for k, v in out.items()}
 
 
 def tc_report(_build, paths):
-    """One line per instance of a bf16 tensor-core kernel (K2 and
-    K2-carry, K3's two, the wide and split ragged kernels of K1/K8 and
-    of their int8 twins, the split kernel of K6/K7): registers and spills (ptxas, from this
-    process's build), dynamic shared memory, and the HMMA / HGMMA
-    instructions of its SASS; fails when an instance has no tensor-core
-    instruction or spills."""
+    """One line per instance of a tensor-core kernel (f32 K2 and
+    K2-carry on TF32, bf16 K2 and K2-carry, K3's two, the wide and split
+    ragged kernels of K1/K8 and of their int8 twins, the split kernel of
+    K6/K7 and of K7-int8): registers and spills (ptxas, from this
+    process's build), dynamic shared memory, and the HMMA (TF32 among
+    them) / HGMMA instructions of its SASS; fails when an instance has
+    no tensor-core instruction, when the f32 forward has no TF32 one, or
+    when it spills."""
     sass = {}
     for lib_name, sym, smem_fn, extra in TC_KERNELS:
         if lib_name not in sass:
@@ -412,9 +444,10 @@ def tc_report(_build, paths):
             # the cache element type follows D in the ragged kernels'
             # template arguments: signed char (mangled "a") for int8
             int8 = bool(re.search(sym + r"ILi\d+Ea", name))
-            ragged = lib_name == "ragged_paged_bf16"
+            by_cache = lib_name in ("ragged_paged_bf16",
+                                    "decode_attention_bf16")
             smem = getattr(lib, smem_fn)(D, *extra,
-                                         *((int(int8),) if ragged else ()))
+                                         *((int(int8),) if by_cache else ()))
             what = "".join((", carry" if carry else "",
                             ", verify" if "VerifyLim" in name else "",
                             ", int8" if int8 else "",
@@ -424,12 +457,15 @@ def tc_report(_build, paths):
             ptx = (f"{r[0]} registers, spill stores {r[1]} B, loads {r[2]} B"
                    if r else "not rebuilt in this process")
             mma = sass[lib_name]
-            count = (f"HMMA {mma[name][0]}, HGMMA {mma[name][1]}"
-                     if mma is not None else "no cuobjdump")
+            count = (f"HMMA {mma[name][0]} (TF32 {mma[name][2]}), HGMMA "
+                     f"{mma[name][1]}" if mma is not None else "no cuobjdump")
             log(f"  tensor cores: {sym}<D {D}{what}>: "
                 f"{ptx}, dynamic shared {smem} B; SASS {count}")
             if mma is not None and sum(mma[name]) == 0:
                 fail(f"{name} has no HMMA or HGMMA instruction")
+            if mma is not None and lib_name == "flash_fwd" \
+                    and mma[name][2] == 0:
+                fail(f"{name} has no TF32 HMMA instruction")
             if r and (r[1] or r[2]):
                 fail(f"{name} spills: {r[1]} B stores, {r[2]} B loads")
 
@@ -590,6 +626,21 @@ NARROW_WAVES = {"decode": (1, (LENGTHS > 0).astype(np.int32)),
                 "verify": (8, VERIFY_QLENS)}
 
 
+# bf16 q over an int8 cache rounds p times the V scale to bf16 once
+# (the kernels before the split of that product, as kernel_times.py
+# meets them in an older checkout): bf16 K1-int8/K8-int8 are then held
+# to TOL plus ragged_rounding_bound of the dequantized cache; this
+# checkout's kernels hold TOL alone
+INT8_ROUNDS_P = False
+
+
+def int8_rounding(int8, bound):
+    """The ``rounding`` of ``measure`` for bf16 K1/K8 and their int8
+    twins: ``bound`` over a bf16 cache, none over an int8 one (unless
+    ``INT8_ROUNDS_P``)."""
+    return bound if not int8 or INT8_ROUNDS_P else None
+
+
 def wave_of(kernel, wave):
     """(Q, q_lens, label suffix) of ``kernel``'s wave ``wave``: "mixed",
     or one of ``NARROW_WAVES``."""
@@ -602,9 +653,9 @@ def wave_of(kernel, wave):
 def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
     """K1 on a wave of the 8 pool slots (``wave_of``: the mixed
     wave has q_len in {0, 1, 5, 256}, Q 256); with ``int8`` K1-int8 over
-    the f32 pool's encoding, q of ``dtype``.  bf16 adds
-    ``ragged_rounding_bound`` (of the dequantized cache with ``int8``)
-    to TOL.  Yardstick: SDPA over the pre-gathered dense (with ``int8``,
+    the f32 pool's encoding, q of ``dtype``.  bf16 over a bf16 pool adds
+    ``ragged_rounding_bound`` to TOL (the kernel rounds P, as the Pallas
+    body does there); over an int8 pool TOL alone (neither rounds P).  Yardstick: SDPA over the pre-gathered dense (with ``int8``,
     dequantized) view with the equivalent mask (the gather itself
     excluded)."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
@@ -641,15 +692,18 @@ def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
         + (2 * n_rows * H * DH if int8 else 0),
-        rounding=lambda: ra.ragged_rounding_bound(*args, **sc), b2b=True)
+        rounding=int8_rounding(
+            int8, lambda: ra.ragged_rounding_bound(*args, **sc)),
+        b2b=True)
 
 
 def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
     """K8 on a wave of the 8 slot rows (``wave_of``: the mixed wave
     has a wide prompt q-block, a 600-token prompt at Q 1024, its pow2
     bucket, a 300-token prompt, decode tokens, a length-0 slot); with
-    ``int8`` K8-int8 over the f32 rows' encoding; bf16 within TOL plus
-    ``ragged_rounding_bound``, as ``check_k1``.  Yardstick: SDPA over
+    ``int8`` K8-int8 over the f32 rows' encoding; bf16 over bf16 rows
+    within TOL plus ``ragged_rounding_bound``, over int8 rows within TOL
+    alone, as ``check_k1``.  Yardstick: SDPA over
     the (dequantized) slot rows with the equivalent mask."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
     k, v = slot_rows_case(torch, "float32" if int8 else dtype, seed + 7)
@@ -675,7 +729,9 @@ def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
         + (2 * int(LENGTHS.sum()) * H * DH if int8 else 0),
-        rounding=lambda: ra.ragged_rounding_bound(*args, **sc), b2b=True)
+        rounding=int8_rounding(
+            int8, lambda: ra.ragged_rounding_bound(*args, **sc)),
+        b2b=True)
     if int8 or wave != "mixed":
         return r
     # the dead-row cost: the same slots with no dead row, each prompt
@@ -796,6 +852,8 @@ def check_k2(torch, F, dtype, seed):
                                             kv_lens=kv_d))
     run_ms = time_run_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True,
                                                      kv_lens=kv_d))
+    dev = device_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True,
+                                                kv_lens=kv_d))
     plain_ms = time_ms(torch, lambda: fa.flash_fwd_reference(
         q, k, v, causal=True, kv_lens=kv_d), reps=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -811,15 +869,16 @@ def check_k2(torch, F, dtype, seed):
     rows = np.arange(P)
     flops = int(sum(4 * np.minimum(rows + 1, n).sum() * H * D
                     for n in kv))
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    b_ms, b_by = bound(nbytes, flops, dtype, k2_method(dtype))
     log(f"  K2 flash_attention {dtype}: max_abs_err {err:.3e}, largest "
         f"err / bound {ratio:.4f} (flash_compare); lse {lse_err:.3e}, tol "
         f"{LSE_TOL:g}; kernel "
-        f"{ms:.4f} ms ({run_ms:.4f} back to back), "
-        f"plain {plain_ms:.4f} ms, SDPA is_causal on [8,12,512,64] "
-        f"without the kv_lens mask {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
-        f"by {b_by} ({nbytes} B, {flops} flop)")
-    return dict(err=err, ratio=ratio, ms=ms, run_ms=run_ms,
+        f"{ms:.4f} ms ({run_ms:.4f} back to back, {dev:.4f} on the "
+        f"device), plain {plain_ms:.4f} ms, SDPA is_causal on "
+        f"[8,12,512,64] without the kv_lens mask {lib_ms:.4f} ms; bound "
+        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop"
+        f"{', 3 TF32 passes' if dtype == 'float32' else ''})")
+    return dict(err=err, ratio=ratio, ms=ms, run_ms=run_ms, dev_ms=dev,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -1016,8 +1075,9 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 
 
 # kernel kinds of the profile, by name, first match wins.  K6/K7 in
-# bf16 are split and merge kernels of their own row-limit type
-# (VerifyLim<layout>), ahead of K1/K8's; K1/K8 are the CUDA-core ragged
+# bf16, and K7-int8 for bf16 q (its element type, signed char, makes it
+# the int8 twin in kind_of), are split and merge kernels of their own
+# row-limit type (VerifyLim<layout>), ahead of K1/K8's and their twins'; K1/K8 are the CUDA-core ragged
 # kernel (f32 q) and the bf16 wide, split and merge kernels (bf16 q,
 # either cache), told apart by their layout; K4-K7 otherwise the
 # CUDA-core decode kernel, by NQ and layout
@@ -1576,19 +1636,22 @@ def check_k3(torch, F, dtype, seed):
         f"({backend}) {lib_bwd:.4f} ms ({lib_bwd_run:.4f} back to back)")
     ms = time_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True))
     run_ms = time_run_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True))
+    dev = device_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True))
     plain_ms = time_ms(torch, lambda: fa.flash_fwd_reference(
         q, k, v, causal=True), reps=5)
-    b_ms, b_by = bound(4 * n + TB * H * TS * 4, 2 * 2 * DH * pairs, dtype)
+    b_ms, b_by = bound(4 * n + TB * H * TS * 4, 2 * 2 * DH * pairs, dtype,
+                       k2_method(dtype))
     res["fwd"] = dict(err=err_o, ratio=ratio_o, ms=ms, run_ms=run_ms,
-                      plain_ms=plain_ms,
+                      dev_ms=dev, plain_ms=plain_ms,
                       library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
     log(f"  K2 flash_attention {dtype} at the training shape: max_abs_err "
         f"{err_o:.3e}, largest err / bound {ratio_o:.4f} (flash_compare), "
         f"lse {lse_err:.3e}; kernel {ms:.4f} ms "
-        f"({run_ms:.4f} back to back), plain "
+        f"({run_ms:.4f} back to back, {dev:.4f} on the device), plain "
         f"{plain_ms:.4f} ms, SDPA forward ({backend}) {lib_fwd:.4f} ms "
         f"({lib_fwd_run:.4f} back to back); "
-        f"bound {b_ms:.4f} ms by {b_by}")
+        f"bound {b_ms:.4f} ms by {b_by}"
+        f"{' (3 TF32 passes)' if dtype == 'float32' else ''}")
     return res
 
 
@@ -1869,6 +1932,7 @@ def check_carry(torch, dtype, seed):
              f"{err}, largest err / bound {ratio}, lse {lse_err}")
     ms = time_ms(torch, lambda: fa.flash_fwd_carry(*args))
     run_ms = time_run_ms(torch, lambda: fa.flash_fwd_carry(*args))
+    dev = device_ms(torch, lambda: fa.flash_fwd_carry(*args))
     plain_ms = time_ms(torch, lambda: fa.flash_fwd_carry_reference(*args),
                        reps=5)
     # q, k, v read once, o_c and lse_c read once, o (f32) and lse
@@ -1877,16 +1941,17 @@ def check_carry(torch, dtype, seed):
     n_el = RB * blk * H * DH
     nbytes = 3 * n_el * es + 2 * n_el * 4 + 2 * RB * H * blk * 4
     flops = 4 * RB * H * blk * blk * DH
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    b_ms, b_by = bound(nbytes, flops, dtype, k2_method(dtype))
     log(f"  K2-carry flash_attention_carry {dtype} [{RB},{blk},{H},{DH}] "
         f"full rotation, live carry: max_abs_err {err:.3e}, largest err "
         f"/ bound {ratio:.4f}, lse "
-        f"{lse_err:.3e}; kernel {ms:.4f} ms ({run_ms:.4f} back to back), "
-        f"plain {plain_ms:.4f} ms, no "
+        f"{lse_err:.3e}; kernel {ms:.4f} ms ({run_ms:.4f} back to back, "
+        f"{dev:.4f} on the device), plain {plain_ms:.4f} ms, no "
         f"single PyTorch call computes a carried forward; bound "
-        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
+        f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop"
+        f"{', 3 TF32 passes' if dtype == 'float32' else ''})")
     return dict(err=max(worst, err), ratio=ratio, ms=ms, run_ms=run_ms,
-                plain_ms=plain_ms,
+                dev_ms=dev, plain_ms=plain_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -2241,6 +2306,7 @@ def main(argv=None):
     dec = ("decode_attention.cu",) * 2
     ver = ("decode_attention.cu", "decode_attention_bf16.cu")
     dec8 = ("decode_attention_int8.cu",) * 2
+    ver8 = ("decode_attention_int8.cu", "decode_attention_bf16.cu")
     r1 = "hetu_tpu/kernels/ragged_attention.py:184"
     r8 = "hetu_tpu/kernels/ragged_attention.py:133"
     rq = "hetu_tpu/kernels/ragged_attention.py:96"
@@ -2276,7 +2342,7 @@ def main(argv=None):
         ("K6-int8", "paged_verify_attention_int8", dec8,
          "hetu_tpu/kernels/decode_attention.py:448",
          "int8 spec contiguous-split"),
-        ("K7-int8", "paged_block_verify_attention_int8", dec8,
+        ("K7-int8", "paged_block_verify_attention_int8", ver8,
          "hetu_tpu/kernels/decode_attention.py:562",
          "int8 spec paged-split"),
         ("K8-int8", "ragged_attention_int8", k18, rq,

@@ -4,8 +4,8 @@ compiled by ``nvcc`` the first time a wrapper launches it on a CUDA
 tensor (see ``_build``).
 
 - ``flash_attention``: forward flash attention on [B, S, H, D]
-  (csrc/flash_fwd.cu in f32, csrc/flash_fwd_bf16.cu on the tensor cores
-  in bf16), the batched prefill of ``generate_fast`` and of the
+  (csrc/flash_fwd.cu in f32, three TF32 passes on the tensor cores;
+  csrc/flash_fwd_bf16.cu, wgmma, in bf16), the batched prefill of ``generate_fast`` and of the
   phase-split schedulers, and the training forward; its carried form
   (the same sources, counted as ``flash_attention_carry``) is every
   live rotation of ``parallel.ring_attention``'s flash path; its
@@ -34,8 +34,10 @@ tensor (see ``_build``).
 Each of the six ragged, decode and verify wrappers also takes an int8
 cache with its scale planes (``quant.kv_encode``) and then launches its
 int8 twin (csrc/ragged_paged_int8.cu for f32 q and
-csrc/ragged_paged_bf16.cu for bf16 q, csrc/decode_attention_int8.cu),
-counted under the wrapper's name plus ``_int8``.
+csrc/ragged_paged_bf16.cu for bf16 q, csrc/decode_attention_int8.cu,
+and for bf16 q through the pool's verify wrapper
+csrc/decode_attention_bf16.cu), counted under the wrapper's name plus
+``_int8``.
 
 ``launch_counts()`` reads how often each kernel was launched since
 ``reset_launches()``; ``regime_counts()`` splits the K1/K8 calls and

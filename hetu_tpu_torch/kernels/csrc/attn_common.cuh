@@ -1,7 +1,7 @@
-// Shared device code of the port's attention kernels (flash_fwd.cu and
-// the bodies ragged_body.cuh and decode_body.cuh, whose f32/bf16 and
-// int8 instances build as separate libraries).  The flash and ragged kernels
-// give one thread block a tile of 32 query rows of one (sequence, head);
+// Shared device code of the port's CUDA-core attention bodies
+// (ragged_body.cuh and decode_body.cuh, whose f32/bf16 and int8
+// instances build as separate libraries).  The ragged kernels give one
+// thread block a tile of 32 query rows of one (slot, head);
 // the decode kernels give one block one (slot, head) and its 32 rows the
 // slot's positions to share.  Eight consecutive lanes share a row, each
 // holding Dh/8 of its dimensions (strided by 8, so the eight lanes read
@@ -75,20 +75,6 @@ template <int DH> struct RowState {
     }
     m = kNegInf;
     l = 0.f;
-  }
-
-  // Seed the state from a previous partial (ring attention's carry): a
-  // normalised output row oc_row and its logsumexp lse_c.  Any (m, l,
-  // acc) with acc / l == o_c and m + log l == lse_c continues the stream
-  // exactly; a live row (lse_c > NEG_INF / 2) takes m = lse_c, l = 1,
-  // acc = o_c, and a dead row stays empty as init left it.
-  __device__ __forceinline__ void seed(const float* oc_row, float lse_c,
-                                       int lane) {
-    if (!(lse_c > kNegInf / 2)) return;
-#pragma unroll
-    for (int i = 0; i < kDpt; ++i) acc[i] = oc_row[lane + kLanesPerRow * i];
-    m = lse_c;
-    l = 1.f;
   }
 
   // Fold keys [t0 + c, t0 + c + CH) of the staged tile into the state;

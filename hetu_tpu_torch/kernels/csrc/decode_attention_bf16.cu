@@ -1,25 +1,35 @@
 // The speculative verify q-block in bf16 on the tensor cores, over either
 // KV layout of the serving engine: the slot-contiguous cache (K6) and the
-// block-table paged pool (K7), bf16 q over a bf16 cache.  The f32
-// instances, and every int8 cache, stay on the CUDA-core body
-// (decode_body.cuh: decode_attention.cu, decode_attention_int8.cu).
+// block-table paged pool (K7), bf16 q over a bf16 cache, and K7's int8
+// twin (K7-int8), bf16 q over an int8 pool with one f32 scale per
+// (position, head).  The f32 instances, K6-int8, and K7-int8 for f32 q
+// stay on the CUDA-core body (decode_body.cuh: decode_attention.cu,
+// decode_attention_int8.cu).
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_verify_attention
 // and ::paged_block_verify_attention over bf16 caches (Pallas bodies
-// _verify_kernel and _block_verify_kernel -> _online_softmax_multi).
-// Query jq of slot b sits at lengths[b] - q_lens[b] + jq and sees the
-// positions up to clip(that, 0, lengths[b] - 1) (_query_positions): the
+// _verify_kernel and _block_verify_kernel -> _online_softmax_multi), and
+// ::paged_block_verify_attention over an int8 pool (_block_verify_kernel_int8).
+// Query jq of slot b sits at lengths[b] - q_lens[b] + jq and sees
+// the positions up to clip(that, 0, lengths[b] - 1) (_query_positions): the
 // q-block is causal inside, a dead row (jq >= q_lens[b]) sees the whole
-// slot, a slot of length 0 outputs zeros.  It computes what that body
-// computes at its rounding points: scores in f32 from bf16 operands,
-// scaled after the dot; dead keys at NEG_INF and the max clamped to 0
-// while no key is live; P = exp(s - m) rounded to bf16 before P V
-// (decode_attention.py:407, p.astype(v.dtype)), l summed from the
-// unrounded P; acc in f32 and o = acc / l rounded to bf16.
+// slot, a slot of length 0 outputs zeros.  Over a bf16 cache it
+// computes what that body computes at its rounding points: scores in f32
+// from bf16 operands, scaled after the dot; dead keys at NEG_INF and the
+// max clamped to 0 while no key is live; P = exp(s - m) rounded to bf16
+// before P V (decode_attention.py:407, p.astype(v.dtype)), l summed from
+// the unrounded P; acc in f32 and o = acc / l rounded to bf16.  Over an
+// int8 pool the Pallas body dequantizes K and V to f32 and never rounds
+// P (decode_attention.py:466-468): here the payload is widened to bf16
+// exactly, the scores are Q K_int^T times each key's K scale in f32, and
+// P times each key's V scale is split into a bf16 pair for P V_int (two
+// products: split_kv_bf16.cuh's int8 path, shared with K1-int8), so the
+// kernel holds one bf16 ulp of the reference.
 //
 // What bounds it on an H100: bytes.  A verify wave reads each slot's live
-// K/V once (4 len H D bytes) for 4 Q len H D flops, Q <= 16: a few flops
-// per byte, far below the tensor cores' ~295 per byte.
+// K/V once (4 len H D bytes; 2 len H (D + 4) over an int8 pool) for
+// 4 Q len H D flops, Q <= 16: a few flops per byte, far below the tensor
+// cores' ~295 per byte.
 //
 // What the design does about it: the positions are cut, not the rows.
 // The body is split_kv_bf16.cuh's, shared with the narrow waves of K1/K8:
@@ -34,12 +44,13 @@
 // warp takes 32 keys of the split, the four warps' partials combine in
 // shared memory, and a second kernel (split_merge_kernel) merges the
 // splits of each row in f32 from a workspace the wrapper allocates
-// (hetu_verify_bf16_workspace floats).
+// (hetu_verify_bf16_workspace floats, either cache).
 //
 // The row limits are VerifyLim<Rows>, the clip of K1/K8's RaggedLim in a
 // type of its own, which is also the merge kernel's tag: a profile names
 // K6's and K7's split and merge kernels apart from K8's and K1's
-// (VerifyLim<hetu::SlotRows>, VerifyLim<hetu::TableRows>).
+// (VerifyLim<hetu::SlotRows>, VerifyLim<hetu::TableRows>), and K7-int8's
+// by the int8 element type beside them (", signed char,").
 #include <cmath>
 
 #include "split_kv_bf16.cuh"
@@ -60,56 +71,40 @@ template <typename Rows> struct VerifyLim {
   }
 };
 
-template <int D, typename Rows>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
-                   const int* lengths, const int* q_lens, Rows rows,
-                   bf16* out, float* ws, int B, int Q, int H, int span,
-                   cudaStream_t stream) {
+template <int D, typename KV, typename Rows>
+cudaError_t launch(const Operands<KV>& x, Rows rows, float* ws, int B,
+                   int Q, int H, int span, cudaStream_t stream) {
   using Lim = VerifyLim<Rows>;
-  auto* kern = split_kv_kernel<D, bf16, Rows, Lim>;
-  constexpr size_t smem = split_smem<D, bf16>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  const int ns = n_splits(span);
-  const SplitParts parts{ws, ws + size_t(B) * H * ns * Q * D, ns};
-  kern<<<dim3(ns, H, B), kThreads, smem, stream>>>(
-      q, k, nullptr, v, nullptr, lengths, rows, Lim{lengths, q_lens}, parts,
-      Q, H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  split_merge_kernel<D, bf16, Lim><<<dim3(H, B), kThreads, 0, stream>>>(
-      parts, lengths, out, Q, H);
-  return cudaGetLastError();
+  return launch_split<D, KV, Rows, Lim, Lim>(x, rows,
+                                             Lim{x.lengths, x.q_lens}, ws, B,
+                                             Q, H, span, scale, stream);
 }
 
-// One call from a C entry's pointers.
-template <typename Rows>
-int dispatch(const void* q, const void* k, const void* v,
-             const void* lengths, const void* q_lens, Rows rows, void* out,
-             void* ws, int B, int Q, int H, int Dh, int span, void* stream) {
+// One call from a C entry's pointers: q and out bf16, caches of KV (bf16,
+// k_scale and v_scale null; or int8 payloads with f32 scales).
+template <typename KV, typename Rows>
+int dispatch(const void* q, const void* k, const void* k_scale,
+             const void* v, const void* v_scale, const void* lengths,
+             const void* q_lens, Rows rows, void* out, void* ws, int B,
+             int Q, int H, int Dh, int span, void* stream) {
   if (Q < 1 || Q > kSplitRows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* lp = static_cast<const int*>(lengths);
-  const auto* qlp = static_cast<const int*>(q_lens);
-  auto* op = static_cast<bf16*>(out);
+  const Operands<KV> x{static_cast<const bf16*>(q),
+                       static_cast<const KV*>(k),
+                       static_cast<const float*>(k_scale),
+                       static_cast<const KV*>(v),
+                       static_cast<const float*>(v_scale),
+                       static_cast<const int*>(lengths),
+                       static_cast<const int*>(q_lens),
+                       static_cast<bf16*>(out)};
   auto* w = static_cast<float*>(ws);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (Dh) {
-    case 32:
-      err = launch<32>(qp, kp, vp, lp, qlp, rows, op, w, B, Q, H, span, st);
-      break;
-    case 64:
-      err = launch<64>(qp, kp, vp, lp, qlp, rows, op, w, B, Q, H, span, st);
-      break;
-    case 128:
-      err = launch<128>(qp, kp, vp, lp, qlp, rows, op, w, B, Q, H, span, st);
-      break;
+    case 32: err = launch<32>(x, rows, w, B, Q, H, span, st); break;
+    case 64: err = launch<64>(x, rows, w, B, Q, H, span, st); break;
+    case 128: err = launch<128>(x, rows, w, B, Q, H, span, st); break;
     default: break;
   }
   return static_cast<int>(err);
@@ -119,9 +114,9 @@ int dispatch(const void* q, const void* k, const void* v,
 }  // namespace tc
 }  // namespace hetu
 
-// Floats of the f32 workspace of one call: the partials of every (slot,
-// head, split, row); span is the cache's positions per slot (S_max, or
-// T_width * bs).
+// Floats of the f32 workspace of one call, over either cache: the
+// partials of every (slot, head, split, row); span is the cache's
+// positions per slot (S_max, or T_width * bs).
 extern "C" long long hetu_verify_bf16_workspace(int B, int Q, int H, int Dh,
                                                 int span) {
   using namespace hetu::tc;
@@ -140,8 +135,9 @@ extern "C" int hetu_paged_verify_attention_bf16(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* q_lens, void* out, void* ws, int B, int Q, int H, int Dh,
     int S_max, void* stream) {
-  return hetu::tc::dispatch(q, k, v, lengths, q_lens, hetu::SlotRows{S_max},
-                            out, ws, B, Q, H, Dh, S_max, stream);
+  return hetu::tc::dispatch<hetu::tc::bf16>(
+      q, k, nullptr, v, nullptr, lengths, q_lens, hetu::SlotRows{S_max},
+      out, ws, B, Q, H, Dh, S_max, stream);
 }
 
 // K7: q [B, Q, H, Dh], pools [N_blocks, bs, H, Dh], tables [B, T_width].
@@ -151,18 +147,38 @@ extern "C" int hetu_paged_block_verify_attention_bf16(
     void* ws, int B, int Q, int H, int Dh, int bs, int T_width,
     void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::tc::dispatch(q, pool_k, pool_v, lengths, q_lens, rows, out,
-                            ws, B, Q, H, Dh, T_width * bs, stream);
+  return hetu::tc::dispatch<hetu::tc::bf16>(
+      q, pool_k, nullptr, pool_v, nullptr, lengths, q_lens, rows, out, ws,
+      B, Q, H, Dh, T_width * bs, stream);
 }
 
-// Dynamic shared memory of one split block at head dim Dh, for the build
-// report.
-extern "C" int hetu_verify_bf16_smem(int Dh) {
+// K7-int8 for bf16 q: as hetu_paged_block_verify_attention_int8 in
+// decode_attention_int8.cu (which takes f32 q only), over int8 pools
+// [N_blocks, bs, H, Dh] with f32 scales [N_blocks, bs, H], the same
+// workspace; payloads and scales 16-byte aligned too.
+extern "C" int hetu_paged_block_verify_attention_int8_bf16(
+    const void* q, const void* pool_k, const void* k_scale,
+    const void* pool_v, const void* v_scale, const void* lengths,
+    const void* q_lens, const void* tables, void* out, void* ws, int B,
+    int Q, int H, int Dh, int bs, int T_width, void* stream) {
+  const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
+  return hetu::tc::dispatch<int8_t>(q, pool_k, k_scale, pool_v, v_scale,
+                                    lengths, q_lens, rows, out, ws, B, Q, H,
+                                    Dh, T_width * bs, stream);
+}
+
+// Dynamic shared memory of one split block at head dim Dh over a bf16
+// cache (int8 0) or an int8 one (int8 1), for the build report.
+extern "C" int hetu_verify_bf16_smem(int Dh, int int8) {
   using namespace hetu::tc;
+#define HETU_CASE(D)                                               \
+  case D:                                                          \
+    return int8 ? int(split_smem<D, int8_t>()) : int(split_smem<D, bf16>());
   switch (Dh) {
-    case 32: return int(split_smem<32, bf16>());
-    case 64: return int(split_smem<64, bf16>());
-    case 128: return int(split_smem<128, bf16>());
+    HETU_CASE(32)
+    HETU_CASE(64)
+    HETU_CASE(128)
     default: return -1;
   }
+#undef HETU_CASE
 }

@@ -173,8 +173,8 @@ cudaError_t dispatch_dh(const void* q, KVPlanes<KV> kv, const int* lengths,
 }
 
 // dtype (q's, and a float cache's): 0 = float32, 1 = bfloat16 (only with
-// kBf16: bf16 q over a bf16 cache in the verify kernels runs
-// decode_attention_bf16.cu).  Q at most kMaxQ.
+// kBf16: bf16 q in the verify kernels over a bf16 cache, and in K7-int8,
+// runs decode_attention_bf16.cu).  Q at most kMaxQ.
 template <bool kQuant, int kMaxQ, bool kBf16, typename Rows>
 int dispatch(const void* q, const void* k, const void* k_scale,
              const void* v, const void* v_scale, const void* lengths,

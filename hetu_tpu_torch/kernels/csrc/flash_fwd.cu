@@ -1,7 +1,8 @@
 // Forward flash attention in f32 on the [B, S, H, D] layout, causal or
 // not, with an optional per-sequence kv_lens mask and the per-row
-// logsumexp, and its carried form, ring attention's per-rotation step.
-// The bf16 instances run on the tensor cores in flash_fwd_bf16.cu.
+// logsumexp, and its carried form, ring attention's per-rotation step,
+// on the tensor cores in three TF32 passes (flash_tf32.cuh).  The bf16
+// instances run on wgmma in flash_fwd_bf16.cu.
 //
 // Replaces: hetu_tpu/kernels/flash_attention.py::_flash_fwd (Pallas body
 // _fwd_kernel), as flash_attention(q, k, v, causal, kv_lens) reaches it
@@ -11,159 +12,418 @@
 // rotation of parallel/context_parallel.py::_ring_attention_flash.
 // Keys at positions >= kv_lens[b] are masked, a causal row i sees keys
 // <= i, a row with no live key outputs 0 and an lse of +1e30 (the value
-// the backward pass expects), and the output has q's dtype; lse is
-// [B, H, S] f32.  With a carry (o_c [B, S, H, D] f32, normalised, and
-// lse_c [B, H, S] f32, NEG_INF where empty) the online softmax starts
-// from the previous partial instead of from nothing, so o (f32) and lse
-// are exact attention over the union of the carried keys and these; a
-// row with no live key in either part gets 0 and +1e30.  kv_lens and a
-// carry are not combined (the Pallas code asserts the same).
+// the backward pass expects), and the output is f32; lse is [B, H, S]
+// f32.  With a carry (o_c [B, S, H, D] f32, normalised, and lse_c
+// [B, H, S] f32, NEG_INF where empty) the online softmax starts from the
+// previous partial instead of from nothing, so o and lse are exact
+// attention over the union of the carried keys and these; a row with no
+// live key in either part gets 0 and +1e30.  kv_lens and a carry are not
+// combined (the Pallas code asserts the same).
 //
 // What bounds it on an H100: a causal prompt of P tokens costs about
-// 2*P*P*H*D flops (QK^T and PV over the lower triangle) against
-// 4*P*H*D elements moved, i.e. P/4 flops per bf16 byte.  In f32 (run
-// without tensor cores, for parity) the 67 TFLOP/s f32 rate bounds it at
-// any prefill length; in bf16 the bytes bound it up to P ~ 1200 and the
-// 989 TFLOP/s tensor-core rate beyond.  The carry adds one f32 read of
-// o_c and lse_c per row and makes o f32: at the ring's block of 2048
-// rows, Dh 64, the flops still bound it.
+// 2 P^2 H D flops (QK^T and PV over the lower triangle) against 4 P H D
+// f32 elements moved, P/8 flops per byte.  The Pallas body runs f32 at
+// Precision.HIGHEST, multi-pass products on the MXU; here each f32
+// product is three TF32 products on the tensor cores, a_hi b_hi + a_hi
+// b_lo + a_lo b_hi (flash_tf32.cuh), so the least time is the larger of
+// the bytes at 3.35 TB/s and 3 x the flops at TF32's 495 TFLOP/s: the
+// operations bound it from P ~ 150 on.
 //
-// What this simple design does about it: one block per (32-row q tile,
-// head, sequence) streams only the live keys, [0, min(kv_len, causal
-// limit of the tile's last row)), through shared-memory tiles of 64
-// positions, so causally dead blocks and the padded tail past kv_len
-// cost neither bytes nor flops.  Scores, the running max, the
-// denominator and the output accumulate in f32 on the CUDA cores (the
-// tensor cores take f32 only as TF32, and this path exists for 1e-5
-// parity); register tiling of this body is later work.  The carry is a compile-time template flag: it only seeds
-// each row's registers from o_c and lse_c before the key loop (so the
-// ring's merge costs no pass of its own), and the carry-free instance
-// is the kernel K2 always was.
+// What the design does about it: one block of four warps per (64-row q
+// tile, head, sequence), the heaviest causal tiles first, each warp 16
+// rows.  Q is read once, split into its TF32 hi and lo parts and kept in
+// shared memory; K and V tiles (64 keys; 32 at head dim 128) stream
+// through two shared-memory stages by cp.async, the next tile's copy in
+// flight while this one is folded.  Only the live keys [0, min(kv_len,
+// causal limit of the tile's last row)) are copied, and a warp skips a
+// tile wholly past its own last row.  S = Q K^T and O += P V run on
+// mma.sync.m16n8k8 TF32, three passes each, K, V and P split as their
+// fragments are loaded; the online softmax (running max in log2 units,
+// one FFMA and one EX2 per score, dead keys at NEG_INF, the max clamped
+// to 0 while nothing is live, alpha = 0 until the first live key) keeps
+// its state in the accumulator layout, and the C fragment of S is the
+// A fragment of P as it stands (the k order of each step permuted alike
+// in A and B).  Rows are padded in shared memory against bank conflicts:
+// Q and K rows by 8 floats (the 8-byte fragment loads of a half-warp hit
+// 32 different banks), V rows by 4 (the 4-byte loads of rows 2t, 2t + 1
+// do).  The carry is a compile-time flag: it seeds each row's (m, l,
+// acc) from o_c and lse_c before the key loop (so the ring's merge costs
+// no pass of its own).  No atomics: the results are deterministic.
 #include <cmath>
-#include <type_traits>
 
-#include "attn_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace hetu {
+namespace tc {
+namespace {
 
-// The output's element type: q's, or f32 with a carry.
-template <typename T, bool kCarry>
-using OutOf = std::conditional_t<kCarry, float, T>;
+constexpr int kRowsF32 = 16 * kWarps;   // q rows per block
+constexpr int kStagesF32 = 2;           // shared-memory stages of K/V
 
-template <typename T, int DH, bool kCarry>
+// keys per K/V tile: 64, and 32 at head dim 128, where Q's hi and lo
+// alone take 68 KB (f32_smem: 58 KB a block at D 32, 106 KB at D 64,
+// two blocks an SM, and 135 KB at D 128, one)
+template <int D> __host__ __device__ constexpr int f32_bk() {
+  return D == 128 ? 32 : 64;
+}
+template <int D> __host__ __device__ constexpr int ld_qk() {
+  return D + 8;   // Q, K rows
+}
+template <int D> __host__ __device__ constexpr int ld_v() {
+  return D + 4;   // V rows
+}
+
+// Q's hi and lo tiles and kStagesF32 stages of K and V, f32
+template <int D> constexpr size_t f32_smem() {
+  return (size_t(2 * kRowsF32 * ld_qk<D>())
+          + size_t(kStagesF32) * f32_bk<D>() * (ld_qk<D>() + ld_v<D>()))
+         * sizeof(float);
+}
+
+// One K/V tile's step of a warp's 16 rows: S = Q K^T (three TF32 passes
+// per product), the mask (when `masked`: key t0 + j is live for the row
+// iff t0 + j <= lim[rr], rr 0 for row g, 1 for g + 8), the online
+// softmax in log2 units (l sums p, this lane's columns), then the tile's
+// P V (three passes) from zero and acc = alpha acc + P V by FFMA.  The
+// tensor cores' f32 accumulation truncates: chaining every tile's
+// products into acc itself would cost acc, the carry's term included,
+// one truncation per mma (384 at 1024 keys, about 2e-5 of |o|), where the
+// tile's own chain costs its 24 (64 keys) relative to the tile's part
+// alone.  qh, ql: the warp's first Q row in the hi / lo tiles; kt, vt:
+// the stage's K and V tiles.
+template <int D, int BK>
+__device__ __forceinline__ void tf32_tile_step(
+    const float* qh, const float* ql, const float* kt, const float* vt,
+    int t0, bool masked, const int (&lim)[2], float scale_log2,
+    float (&m)[2], float (&l)[2], float (&acc)[D / 8][4]) {
+  constexpr int LK = ld_qk<D>();
+  constexpr int LV = ld_v<D>();
+  constexpr int NS = BK / 8;   // 8-key blocks of S
+  constexpr int ND = D / 8;    // 8-column blocks of O
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  float s[NS][4];
+  zero(s);
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    // A: rows g and g + 8, dims 8c + 2t (k = t) and 8c + 2t + 1 (k = t + 4)
+    const int o0 = g * LK + 8 * c + 2 * t;
+    const float2 h0 = *reinterpret_cast<const float2*>(qh + o0);
+    const float2 h1 = *reinterpret_cast<const float2*>(qh + o0 + 8 * LK);
+    const float2 l0 = *reinterpret_cast<const float2*>(ql + o0);
+    const float2 l1 = *reinterpret_cast<const float2*>(ql + o0 + 8 * LK);
+    const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                            __float_as_uint(h0.y), __float_as_uint(h1.y)};
+    const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                            __float_as_uint(l0.y), __float_as_uint(l1.y)};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      // B: key 8n + g, the same two dims
+      const float2 y = *reinterpret_cast<const float2*>(
+          kt + (8 * n + g) * LK + 8 * c + 2 * t);
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_split(y.x, bh0, bl0);
+      tf32_split(y.y, bh1, bl1);
+      mma_3pass(s[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+
+  float alpha[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (masked && t0 + 8 * n + 2 * t + e > lim[rr])
+          s[n][2 * rr + e] = kNegInf;
+        mx = fmaxf(mx, s[n][2 * rr + e]);
+      }
+    mx = quad_max(mx);
+    const float m_new =
+        fmaxf(m[rr], mx <= kNegInf / 2 ? kNegInf : mx * scale_log2);
+    const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
+    alpha[rr] = m[rr] <= kNegInf / 2 ? 0.f : ex2(m[rr] - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2(fmaf(s[n][2 * rr + e], scale_log2, -safe_m));
+        s[n][2 * rr + e] = p;
+        psum += p;
+      }
+    l[rr] = l[rr] * alpha[rr] + psum;
+    m[rr] = m_new;
+  }
+
+  // P V over keys 8n .. 8n + 7: A = P as S's C fragment (k = t is key
+  // 2t, k = t + 4 key 2t + 1), B = V rows 2t and 2t + 1, column 8j + g
+  float pv[ND][4];
+  zero(pv);
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    uint32_t ph[4], pl[4];
+    tf32_split(s[n][0], ph[0], pl[0]);
+    tf32_split(s[n][2], ph[1], pl[1]);
+    tf32_split(s[n][1], ph[2], pl[2]);
+    tf32_split(s[n][3], ph[3], pl[3]);
+    const float* v0 = vt + (8 * n + 2 * t) * LV + g;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_split(v0[8 * j], bh0, bl0);
+      tf32_split(v0[LV + 8 * j], bh1, bl1);
+      mma_3pass(pv[j], ph, pl, bh0, bh1, bl0, bl1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], pv[j][e]);
+}
+
+template <int D, bool kCarry>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_lens,
-                 const float* __restrict__ o_c,
-                 const float* __restrict__ lse_c,
-                 OutOf<T, kCarry>* __restrict__ out,
-                 float* __restrict__ lse, int S, int Sk, int H, int causal,
-                 float scale) {
-  constexpr int KT = TileKeys<DH>::value;
-  __shared__ float ks[KT][DH];
-  __shared__ float vs[KT][DH];
+flash_fwd_f32_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ kv_lens,
+                     const float* __restrict__ o_c,
+                     const float* __restrict__ lse_c,
+                     float* __restrict__ out, float* __restrict__ lse,
+                     int S, int Sk, int H, int causal, float scale) {
+  constexpr int BK = f32_bk<D>();
+  constexpr int LK = ld_qk<D>();
+  constexpr int LV = ld_v<D>();
+  constexpr int ND = D / 8;    // 8-column blocks of O
+  constexpr int C = D / 4;     // 16-byte chunks of a row
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qh = smem_f32;                      // [kRowsF32][LK]
+  float* ql = qh + kRowsF32 * LK;            // [kRowsF32][LK]
+  float* ks = ql + kRowsF32 * LK;            // kStagesF32 x [BK][LK]
+  float* vs = ks + kStagesF32 * BK * LK;     // kStagesF32 x [BK][LV]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kRowsPerBlock;
-  const int tid = threadIdx.x;
-  const int lane = tid % kLanesPerRow;
-  const int i = q0 + tid / kLanesPerRow;
-  const int ic = i < S ? i : S - 1;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRowsF32;
+  const int n_q = min(kRowsF32, S - q0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q_w = q0 + 16 * warp;   // this warp's first row
+  const size_t rs = size_t(H) * D;
+  const float scale_log2 = scale * kLog2e;
 
   const int kvlen = kv_lens != nullptr ? min(max(kv_lens[b], 0), Sk) : Sk;
-  int row_lim = kvlen - 1;
-  int kv_end = kvlen;
-  if (causal) {
-    row_lim = min(row_lim, ic);
-    kv_end = min(kv_end, min(q0 + kRowsPerBlock, S));
+  const int kv_end = causal ? min(kvlen, q0 + n_q) : kvlen;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const float* kg = k + size_t(b) * Sk * rs + size_t(h) * D;
+  const float* vg = v + size_t(b) * Sk * rs + size_t(h) * D;
+
+  // K/V tile j into stage j % kStagesF32; rows at or past the live keys
+  // zero-filled, not read
+  auto load_kv = [&](int j) {
+    const int st = j % kStagesF32;
+    const int n = min(BK, kv_end - j * BK);
+    float* kt = ks + st * BK * LK;
+    float* vt = vs + st * BK * LV;
+    for (int i = threadIdx.x; i < BK * C; i += kThreads) {
+      const int r = i / C;
+      const int c = i % C;
+      const bool ok = r < n;
+      const size_t off = ok ? (size_t(j) * BK + r) * rs + 4 * c : 0;
+      cp_async16(kt + r * LK + 4 * c, kg + off, ok);
+      cp_async16(vt + r * LV + 4 * c, vg + off, ok);
+    }
+  };
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
+  // Q, read once while the first tile lands, as its TF32 hi and lo parts
+  // (rows past S zero)
+  const float* qg = q + (size_t(b) * S + q0) * rs + size_t(h) * D;
+  for (int i = threadIdx.x; i < kRowsF32 * C; i += kThreads) {
+    const int r = i / C;
+    const int c = i % C;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_q)
+      x = __ldg(reinterpret_cast<const float4*>(qg + r * rs + 4 * c));
+    uint4 hi, lo;
+    tf32_split(x.x, hi.x, lo.x);
+    tf32_split(x.y, hi.y, lo.y);
+    tf32_split(x.z, hi.z, lo.z);
+    tf32_split(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(qh + r * LK + 4 * c) = hi;
+    *reinterpret_cast<uint4*>(ql + r * LK + 4 * c) = lo;
   }
 
-  RowState<DH> st;
-  st.init(q + ((size_t)(b * S + ic) * H + h) * DH, lane);
-  if constexpr (kCarry)
-    st.seed(o_c + ((size_t)(b * S + ic) * H + h) * DH,
-            lse_c[((size_t)b * H + h) * S + ic], lane);
-
-  for (int t0 = 0; t0 < kv_end; t0 += KT) {
-    const int n = min(KT, kv_end - t0);
-    __syncthreads();   // the previous tile is fully consumed
-    stage_kv(ks, vs, KVPlanes<T>{k, v}, SlotRows{Sk}, b, h, H, t0, n);
-    __syncthreads();
-    st.attend(ks, vs, t0, n, row_lim, lane, scale);
+  // this lane's two rows (rr = 0: g, 1: g + 8 of the warp's 16); m in
+  // log2 units, l this lane's part of the row sum
+  int row[2], lim[2];
+  float m[2], l[2];
+  float acc[ND][4];
+  zero(acc);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    row[rr] = q_w + g + 8 * rr;
+    lim[rr] = causal ? min(kvlen - 1, row[rr]) : kvlen - 1;
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+    if constexpr (kCarry) {
+      // a live carried row starts from m = lse_c, l = 1, acc = o_c
+      const int i = min(row[rr], S - 1);
+      const float lc = lse_c[(size_t(b) * H + h) * S + i];
+      if (lc > kNegInf / 2) {
+        m[rr] = lc * kLog2e;
+        l[rr] = t == 0 ? 1.f : 0.f;
+        const float* oc = o_c + (size_t(b) * S + i) * rs + size_t(h) * D;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(oc + 8 * n + 2 * t);
+          acc[n][2 * rr] = x.x;
+          acc[n][2 * rr + 1] = x.y;
+        }
+      }
+    }
   }
-  if (i < S) {
-    st.store(out + ((size_t)(b * S + i) * H + h) * DH, lane);
-    if (lane == 0) lse[((size_t)b * H + h) * S + i] = st.lse();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = it * BK;
+    const int cur = it % kStagesF32;
+    // into the stage the previous tile left (every warp is past it)
+    if (it + 1 < n_tiles) load_kv(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile has landed
+    __syncthreads();      // every thread's copies of it, and Q
+    // a warp past S, or a causal tile wholly past its last row: nothing
+    // to do; dead keys at NEG_INF only in tiles that cross the causal
+    // diagonal or kv_len
+    if (q_w < S && (!causal || t0 <= q_w + 15))
+      tf32_tile_step<D, BK>(
+          qh + 16 * warp * LK, ql + 16 * warp * LK, ks + cur * BK * LK,
+          vs + cur * BK * LV, t0,
+          t0 + BK > kvlen || (causal && t0 + BK - 1 > q_w), lim,
+          scale_log2, m, l, acc);
+    __syncthreads();   // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float lt = quad_sum(l[rr]);
+    const int i = row[rr];
+    if (i < S) {
+      const float denom = lt == 0.f ? 1.f : lt;
+      float* o = out + (size_t(b) * S + i) * rs + size_t(h) * D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        store_pair(o + 8 * n + 2 * t, acc[n][2 * rr] / denom,
+                   acc[n][2 * rr + 1] / denom);
+      if (t == 0)
+        lse[(size_t(b) * H + h) * S + i] =
+            lt == 0.f || m[rr] <= kNegInf / 2 ? -kNegInf
+                                              : m[rr] / kLog2e + logf(lt);
+    }
   }
 }
 
 // The arguments of one launch; o_c and lse_c are read only with a carry.
 struct FwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
+  const float* q;
+  const float* k;
+  const float* v;
   const int* kv_lens;
   const float* o_c;
   const float* lse_c;
-  void* out;
+  float* out;
   float* lse;
   int B, S, Sk, H, causal;
 };
 
-template <typename T, int DH, bool kCarry>
+template <int D, bool kCarry>
 cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.S + kRowsPerBlock - 1) / kRowsPerBlock, a.H, a.B);
-  flash_fwd_kernel<T, DH, kCarry><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.kv_lens, a.o_c, a.lse_c,
-      static_cast<OutOf<T, kCarry>*>(a.out), a.lse, a.S, a.Sk, a.H,
-      a.causal, static_cast<float>(1.0 / sqrt(static_cast<double>(DH))));
+  auto* kern = flash_fwd_f32_kernel<D, kCarry>;
+  constexpr size_t smem = f32_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + kRowsF32 - 1) / kRowsF32, a.H, a.B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      a.q, a.k, a.v, a.kv_lens, a.o_c, a.lse_c, a.out, a.lse, a.S, a.Sk,
+      a.H, a.causal, static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
-}
-
-template <typename T, bool kCarry>
-cudaError_t dispatch_dh(const FwdArgs& a, int Dh, cudaStream_t stream) {
-  switch (Dh) {
-    case 32: return launch<T, 32, kCarry>(a, stream);
-    case 64: return launch<T, 64, kCarry>(a, stream);
-    case 128: return launch<T, 128, kCarry>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <bool kCarry>
 int dispatch(const FwdArgs& a, int Dh, void* stream) {
-  return static_cast<int>(
-      dispatch_dh<float, kCarry>(a, Dh, static_cast<cudaStream_t>(stream)));
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (Dh) {
+    case 32: err = launch<32, kCarry>(a, st); break;
+    case 64: err = launch<64, kCarry>(a, st); break;
+    case 128: err = launch<128, kCarry>(a, st); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }
 
+}  // namespace
+}  // namespace tc
 }  // namespace hetu
 
-// f32 q, k, v (bf16 runs in flash_fwd_bf16.cu); kv_lens may be null (no
-// padding mask).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported Dh).
+// f32 q, k, v (bf16 runs in flash_fwd_bf16.cu), all pointers 16-byte
+// aligned; kv_lens may be null (no padding mask).  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported Dh).
 extern "C" int hetu_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kv_lens, void* out, void* lse,
                               int B, int S, int Sk, int H, int Dh,
                               int causal, void* stream) {
-  const hetu::FwdArgs a{q, k, v, static_cast<const int*>(kv_lens),
-                        nullptr, nullptr, out, static_cast<float*>(lse),
-                        B, S, Sk, H, causal};
-  return hetu::dispatch<false>(a, Dh, stream);
+  const hetu::tc::FwdArgs a{static_cast<const float*>(q),
+                            static_cast<const float*>(k),
+                            static_cast<const float*>(v),
+                            static_cast<const int*>(kv_lens),
+                            nullptr,
+                            nullptr,
+                            static_cast<float*>(out),
+                            static_cast<float*>(lse),
+                            B, S, Sk, H, causal};
+  return hetu::tc::dispatch<false>(a, Dh, stream);
 }
 
 // The carried forward: o_c [B, S, H, Dh] and lse_c [B, H, S] f32 seed
-// each row; out is f32 [B, S, H, Dh] whatever q's dtype.  Returns as
-// hetu_flash_fwd.
+// each row; out is f32 [B, S, H, Dh].  Returns as hetu_flash_fwd.
 extern "C" int hetu_flash_fwd_carry(const void* q, const void* k,
                                     const void* v, const void* o_c,
                                     const void* lse_c, void* out,
                                     void* lse, int B, int S, int Sk, int H,
                                     int Dh, int causal, void* stream) {
-  const hetu::FwdArgs a{q, k, v, nullptr,
-                        static_cast<const float*>(o_c),
-                        static_cast<const float*>(lse_c), out,
-                        static_cast<float*>(lse), B, S, Sk, H, causal};
-  return hetu::dispatch<true>(a, Dh, stream);
+  const hetu::tc::FwdArgs a{static_cast<const float*>(q),
+                            static_cast<const float*>(k),
+                            static_cast<const float*>(v),
+                            nullptr,
+                            static_cast<const float*>(o_c),
+                            static_cast<const float*>(lse_c),
+                            static_cast<float*>(out),
+                            static_cast<float*>(lse),
+                            B, S, Sk, H, causal};
+  return hetu::tc::dispatch<true>(a, Dh, stream);
+}
+
+// Dynamic shared memory of one block of the kernel at head dim Dh, for
+// the build report.
+extern "C" int hetu_flash_fwd_smem(int Dh) {
+  switch (Dh) {
+    case 32: return int(hetu::tc::f32_smem<32>());
+    case 64: return int(hetu::tc::f32_smem<64>());
+    case 128: return int(hetu::tc::f32_smem<128>());
+    default: return -1;
+  }
 }

@@ -7,7 +7,9 @@
 // The forward's wgmma path is in flash_wgmma.cuh.  Last, what the int8
 // twins of the bf16 ragged kernels add: raw int8 rows and their f32
 // scales staged by cp.async, widened to bf16 exactly, and the scale
-// policy of a softmax step (NoScales / ColScales).
+// policy of a softmax step (NoScales / ColScales), which over an int8
+// cache also splits P's A operand into a bf16 pair (acc_to_a_lo,
+// mma_kn2) so that P is not rounded.
 //
 // The mma.sync tiles live in shared memory as [rows][D + 8] bf16: the
 // 16 bytes of padding per row put the eight 16-byte rows an ldmatrix
@@ -137,6 +139,24 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack(x[2 * c + 1][2], x[2 * c + 1][3]);
 }
 
+// What the bf16 rounding of x leaves: x - bf16(x), exact in f32.
+__device__ __forceinline__ float bf16_rest(float x) {
+  return x - __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The second half of a split A operand: the A fragment (as acc_to_a) of
+// what rounding columns [16c, 16c + 16) to bf16 left, itself rounded to
+// bf16, so that acc_to_a's hi plus this lo is x within about 2^-16 |x|
+// (bf16 keeps 8 significant bits of x, then 8 of the rest).
+template <int NB>
+__device__ __forceinline__ void acc_to_a_lo(uint32_t (&a)[4],
+                                            const float (&x)[NB][4], int c) {
+  a[0] = pack(bf16_rest(x[2 * c][0]), bf16_rest(x[2 * c][1]));
+  a[1] = pack(bf16_rest(x[2 * c][2]), bf16_rest(x[2 * c][3]));
+  a[2] = pack(bf16_rest(x[2 * c + 1][0]), bf16_rest(x[2 * c + 1][1]));
+  a[3] = pack(bf16_rest(x[2 * c + 1][2]), bf16_rest(x[2 * c + 1][3]));
+}
+
 // A fragment of rows [r0, r0 + 16) x columns [16c, 16c + 16) of a tile.
 template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
@@ -164,6 +184,17 @@ __device__ __forceinline__ void mma_nk(float (&acc)[NB][4],
   }
 }
 
+// The B fragments (two 16 x 8 blocks, n = columns [16j, +8) and [16j + 8,
+// +8)) of rows [k0, k0 + 16) of a row-major [k][n] tile as k, by
+// ldmatrix.trans: the product with V in O = P V.
+template <int D>
+__device__ __forceinline__ void load_b_kn(uint32_t (&r)[4], const bf16* tile,
+                                          int k0, int j, int lane) {
+  ldsm_x4_t(r, tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3))
+                          * (D + kPad)
+                   + 16 * j + ((lane >> 4) << 3));
+}
+
 // acc (16 x D, D/8 blocks) += a (16 x 16) times tile rows [k0, k0 + 16)
 // as k and its D columns as n: the product with a row-major [k][n] tile,
 // as O = P V takes V (ldmatrix .trans).
@@ -174,11 +205,27 @@ __device__ __forceinline__ void mma_kn(float (&acc)[D / 8][4],
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
     uint32_t r[4];
-    ldsm_x4_t(r, tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3))
-                            * (D + kPad)
-                     + 16 * j + ((lane >> 4) << 3));
+    load_b_kn<D>(r, tile, k0, j, lane);
     mma(acc[2 * j], a, r[0], r[1]);
     mma(acc[2 * j + 1], a, r[2], r[3]);
+  }
+}
+
+// As mma_kn with A split in two bf16 parts (acc_to_a_lo): acc += lo V,
+// then hi V, into the same f32 accumulator, V's fragments loaded once.
+template <int D>
+__device__ __forceinline__ void mma_kn2(float (&acc)[D / 8][4],
+                                        const uint32_t (&lo)[4],
+                                        const uint32_t (&hi)[4],
+                                        const bf16* tile, int k0, int lane) {
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    uint32_t r[4];
+    load_b_kn<D>(r, tile, k0, j, lane);
+    mma(acc[2 * j], lo, r[0], r[1]);
+    mma(acc[2 * j + 1], lo, r[2], r[3]);
+    mma(acc[2 * j], hi, r[0], r[1]);
+    mma(acc[2 * j + 1], hi, r[2], r[3]);
   }
 }
 
@@ -270,21 +317,30 @@ __device__ __forceinline__ void col_scale(float (&x)[NB][4], const float* c) {
 
 // The scale policy of a softmax step over one key tile: scores(s) scales
 // S's columns before the mask and the max, probs(p) P's columns after l
-// has summed them and before they are rounded to the A operand of P V.
-// A float cache has none: both are empty, and the step compiles to what
-// it did without them.
+// has summed them and before they become the A operand of P V; kSplitP
+// says whether that operand is P rounded to bf16 once (acc_to_a, one
+// product) or split into a bf16 pair (acc_to_a + acc_to_a_lo, two
+// products into the same accumulator: mma_kn2, or two register-A
+// wgmmas).  A float cache has no scales and rounds P once, where the
+// Pallas bf16 body rounds it: both are empty, and the step compiles to
+// what it did without them.
 struct NoScales {
+  static constexpr bool kSplitP = false;
   template <int NB>
   __device__ __forceinline__ void scores(float (&)[NB][4]) const {}
   template <int NB>
   __device__ __forceinline__ void probs(float (&)[NB][4]) const {}
 };
 
-// An int8 cache: S = Q K_int^T times each key's K scale (f32), and P
-// times each key's V scale before P V_int, so A = bf16(p v_scale) is
-// the one rounding of each term; k and v point at the tile's (or the
-// warp's) first key's scales in shared memory.
+// An int8 cache: S = Q K_int^T times each key's K scale (f32), and a =
+// P times each key's V scale before P V_int.  The Pallas int8 bodies
+// dequantize to f32 and never round P, so a is split, not rounded:
+// a_hi = bf16(a), a_lo = bf16(a - a_hi), and a_hi V_int + a_lo V_int
+// (V_int exact in bf16) leaves each term within about 2^-16 a |v| of
+// f32's, far inside one bf16 ulp of o.  k and v point at the tile's (or
+// the warp's) first key's scales in shared memory.
 struct ColScales {
+  static constexpr bool kSplitP = true;
   const float* k;
   const float* v;
   template <int NB>

@@ -319,7 +319,9 @@ template <int D> constexpr size_t fwd_smem() {
 // sum, acc the warp's 16 x D output fragment.  sc, the scale policy
 // (flash_mma.cuh), scales S's columns before the mask and P's after l
 // (an int8 cache's K and V scales); NoScales, the float caches', does
-// nothing.
+// nothing, and P is rounded to bf16 once; ColScales splits P times the V
+// scale into a bf16 pair, two register-A wgmmas per k step
+// (Scales::kSplitP).
 template <int D, int kBK, typename Scales = NoScales>
 __device__ __forceinline__ void wg_tile_step(
     uint64_t q_desc, uint64_t k_desc, uint64_t v_desc, int t0, bool masked,
@@ -376,18 +378,27 @@ __device__ __forceinline__ void wg_tile_step(
     }
   }
   sc.probs(s);
+  constexpr bool kSplit = Scales::kSplitP;
   uint32_t a[kBK / 16][4];
+  uint32_t lo[kSplit ? kBK / 16 : 1][4];   // the split's second half
 #pragma unroll
-  for (int c = 0; c < kBK / 16; ++c) acc_to_a(a[c], s, c);
+  for (int c = 0; c < kBK / 16; ++c) {
+    acc_to_a(a[c], s, c);
+    if constexpr (kSplit) acc_to_a_lo(lo[c], s, c);
+  }
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int c = 0; c < kBK / 16; ++c)
-    Wgmma<D>::template rs<1>(acc, a[c], v_desc + 2 * c * (kRow8 >> 4));
+  for (int c = 0; c < kBK / 16; ++c) {
+    const uint64_t vd = v_desc + 2 * c * (kRow8 >> 4);
+    if constexpr (kSplit) Wgmma<D>::template rs<1>(acc, lo[c], vd);
+    Wgmma<D>::template rs<1>(acc, a[c], vd);
+  }
   wgmma_commit();
   wgmma_wait();
   fence_regs(acc);
   fence_regs(a);
+  if constexpr (kSplit) fence_regs(lo);
 }
 
 }  // namespace tc

@@ -18,9 +18,13 @@
 // f32 and rounds nothing before o; here the payload is widened to bf16
 // as it is staged (exact: kv_encode clamps to +-127), the scores are
 // Q K_int^T (each product exact in f32) times the key's K scale in f32,
-// before the mask and the max, and the A operand of P V_int is bf16(p
-// v_scale): one rounding of each term, within 2^-8 p |v_deq| (the bound
-// ragged_rounding_bound states).  Row jq of slot b sits at lengths[b] -
+// before the mask and the max, and a = p v_scale, the A operand of
+// P V_int, is split into a bf16 pair (a_hi = bf16(a), a_lo = bf16(a -
+// a_hi)), two products into one f32 accumulator: each term within about
+// 2^-16 a |v_int| of f32's, so the kernel holds one bf16 ulp of the
+// reference, which never rounds P there (the split is the cheapest way
+// to keep the integer payload on the tensor cores; V dequantized to f32
+// would leave them).  Row jq of slot b sits at lengths[b] -
 // q_lens[b] + jq and sees positions up to clip(that, 0, lengths[b] - 1):
 // rows past q_len see the whole slot; a slot of length 0 outputs zeros.
 //
@@ -47,7 +51,8 @@
 //   row, its K and V scales by 4-byte copies) into stages of its own,
 //   two deep, and widened once it has landed into the one bf16 tile the
 //   descriptors read (then fence.proxy.async: wgmma reads through the
-//   async proxy); the step scales S and P by column (ColScales).
+//   async proxy); the step scales S and P by column and splits P's A
+//   operand (ColScales).
 // - Narrow (Q <= 16: decode at Q 1, verify at Q 8): split-K over
 //   positions (split_kv_bf16.cuh), the slot's rows one m16 tile on
 //   mma.sync, a split of 128 positions per block, its f32 partials in a
@@ -228,48 +233,16 @@ ragged_wide_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
   }
 }
 
-// ---- narrow waves: split-K ----
-
-// The operands of one call: q and out bf16, the caches of KV (bf16, or
-// int8 with their f32 scale planes; null over a bf16 cache).
-template <typename KV> struct Operands {
-  const bf16* q;
-  const KV* k;
-  const float* k_scale;
-  const KV* v;
-  const float* v_scale;
-  const int* lengths;
-  const int* q_lens;
-  bf16* out;
-};
-
-template <int D, typename KV, typename Rows>
-cudaError_t launch_narrow(const Operands<KV>& x, Rows rows, float* ws,
-                          int B, int Q, int H, int span, float scale,
-                          cudaStream_t stream) {
-  auto* kern = split_kv_kernel<D, KV, Rows, RaggedLim>;
-  constexpr size_t smem = split_smem<D, KV>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const int ns = n_splits(span);
-  const SplitParts parts{ws, ws + size_t(B) * H * ns * Q * D, ns};
-  kern<<<dim3(ns, H, B), kThreads, smem, stream>>>(
-      x.q, x.k, x.k_scale, x.v, x.v_scale, x.lengths, rows,
-      RaggedLim{x.lengths, x.q_lens}, parts, Q, H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  split_merge_kernel<D, KV, Rows><<<dim3(H, B), kThreads, 0, stream>>>(
-      parts, x.lengths, x.out, Q, H);
-  return cudaGetLastError();
-}
+// ---- one call: split-K for a narrow wave (split_kv_bf16.cuh), else wide ----
 
 template <int D, typename KV, typename Rows>
 cudaError_t launch(const Operands<KV>& x, Rows rows, float* ws, int B,
                    int Q, int H, int span, cudaStream_t stream) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   if (Q <= kSplitRows)
-    return launch_narrow<D>(x, rows, ws, B, Q, H, span, scale, stream);
+    return launch_split<D, KV, Rows, RaggedLim, Rows>(
+        x, rows, RaggedLim{x.lengths, x.q_lens}, ws, B, Q, H, span, scale,
+        stream);
   auto* kern = ragged_wide_kernel<D, KV, Rows>;
   constexpr size_t smem = wide_smem<D, KV>();
   cudaError_t err = cudaFuncSetAttribute(

@@ -17,7 +17,8 @@
 // warp w scores keys [32 w, 32 (w + 1)) of the split against all 16 rows
 // (A = Q by ldmatrix, B = K as the row-major [n][k] tile), masks the
 // keys past each row's limit, takes its softmax there (log2 units, p
-// rounded to bf16 as the A operand of P V, l from the unrounded p), and
+// rounded to bf16 as the A operand of P V over a bf16 cache, l from the
+// unrounded p), and
 // the four warps' partials combine through shared memory into one
 // (m, l, acc) per row, in f32, written to a workspace.  A second kernel
 // (split_merge_kernel) combines a row's splits in f32 and writes o.
@@ -26,9 +27,10 @@
 // its split's payload rows raw and their scales beside them, K's in the
 // first group and V's in the second, and widens each to the bf16 tile
 // once it has landed (exact: |x| <= 127); the scores are Q K_int^T times
-// each key's K scale, in f32, before the mask, and P times each key's V
-// scale is what is rounded to bf16 for P V_int (ColScales,
-// flash_mma.cuh): one rounding per term, as the float cache's P.
+// each key's K scale, in f32, before the mask, and a = P times each
+// key's V scale is split into a bf16 pair for P V_int (ColScales,
+// flash_mma.cuh: two products, a_hi V_int + a_lo V_int), so P is not
+// rounded, as the Pallas int8 bodies do not round it.
 //
 // The caller supplies what varies between the kernels that take this
 // body: where position p of slot b lives (a Rows functor, kv_rows.cuh)
@@ -221,7 +223,8 @@ split_kv_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     l[rr] = quad_sum(psum);
   }
 
-  // O = P V: P rounded to bf16 as the A fragment, V by ldmatrix.trans
+  // O = P V: P rounded to bf16 as the A fragment (an int8 cache: P times
+  // the V scale as a bf16 pair, two products), V by ldmatrix.trans
   float acc[ND][4];
   zero(acc);
   cp_async_wait<0>();   // V has landed
@@ -235,7 +238,13 @@ split_kv_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
   for (int c = 0; c < kSplitKW / 16; ++c) {
     uint32_t a[4];
     acc_to_a(a, s, c);
-    mma_kn<D>(acc, a, vs, kw0 + 16 * c, lane);
+    if constexpr (std::remove_cv_t<decltype(sc)>::kSplitP) {
+      uint32_t lo[4];
+      acc_to_a_lo(lo, s, c);
+      mma_kn2<D>(acc, lo, a, vs, kw0 + 16 * c, lane);
+    } else {
+      mma_kn<D>(acc, a, vs, kw0 + 16 * c, lane);
+    }
   }
 
   // the four warps' partials through shared memory (the K/V space)
@@ -320,6 +329,43 @@ split_merge_kernel(SplitParts parts, const int* __restrict__ lengths,
     store_pair(out + ((size_t(b) * Q + jq) * H + h) * D + d, a0 / denom,
                a1 / denom);
   }
+}
+
+// The operands of one split-K call: q and out bf16, the caches of KV
+// (bf16, or int8 with their f32 scale planes; null over a bf16 cache).
+template <typename KV> struct Operands {
+  const bf16* q;
+  const KV* k;
+  const float* k_scale;
+  const KV* v;
+  const float* v_scale;
+  const int* lengths;
+  const int* q_lens;
+  bf16* out;
+};
+
+// One narrow call (Q <= 16): split_kv_kernel over (split, head, slot)
+// with the row limits lim, then split_merge_kernel tagged Tag, the f32
+// partials in ws (SplitParts::floats(B, H, n_splits(span), Q, D)).
+template <int D, typename KV, typename Rows, typename Lim, typename Tag>
+cudaError_t launch_split(const Operands<KV>& x, Rows rows, Lim lim,
+                         float* ws, int B, int Q, int H, int span,
+                         float scale, cudaStream_t stream) {
+  auto* kern = split_kv_kernel<D, KV, Rows, Lim>;
+  constexpr size_t smem = split_smem<D, KV>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const int ns = n_splits(span);
+  const SplitParts parts{ws, ws + size_t(B) * H * ns * Q * D, ns};
+  kern<<<dim3(ns, H, B), kThreads, smem, stream>>>(
+      x.q, x.k, x.k_scale, x.v, x.v_scale, x.lengths, rows, lim, parts, Q,
+      H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  split_merge_kernel<D, KV, Tag><<<dim3(H, B), kThreads, 0, stream>>>(
+      parts, x.lengths, x.out, Q, H);
+  return cudaGetLastError();
 }
 
 }  // namespace tc

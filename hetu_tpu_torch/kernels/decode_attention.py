@@ -27,7 +27,12 @@ the difference, as for the bf16 K1/K8.  An int8 cache
 (``quant.kv_encode``'s payload) passes ``k_scale``/``v_scale``, one f32
 scale per (position, head), and launches the int8 twin of its kernel
 (``csrc/decode_attention_int8.cu``, K4-int8 to K7-int8), which
-dequantizes each tile as it stages it.  The verify kernels take
+dequantizes each tile as it stages it; bf16 q over an int8 pool in the
+block verify runs on the tensor cores instead
+(``hetu_paged_block_verify_attention_int8_bf16`` of the bf16 library:
+the split-K body of the bf16-q K1-int8, the payload widened to bf16
+exactly, P not rounded, so it holds one bf16 ulp of the Pallas int8
+body, which computes in f32).  The verify kernels take
 q-blocks of at most 16 rows; the wrappers serve any Q on CUDA by cutting
 a longer block into groups of 16 rows, one launch each (see
 :func:`verify_groups`).
@@ -217,7 +222,9 @@ def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
     :func:`paged_block_decode_attention`.  Returns o [B, Q, H, Dh] in q's
     dtype.  CUDA tensors launch the kernel (as
     :func:`paged_verify_attention`'s, per group of :func:`verify_groups`
-    past 16 rows); CPU tensors run :func:`paged_block_verify_reference`."""
+    past 16 rows; bf16 q over an int8 pool the tensor-core library, on
+    16-byte aligned q, pools and scales); CPU tensors run
+    :func:`paged_block_verify_reference`."""
     quant = _check_args("paged_block_verify_attention", q, pool_k, pool_v,
                         lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens,

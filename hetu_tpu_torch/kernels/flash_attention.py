@@ -5,7 +5,10 @@ per-rotation step) and the FlashAttention-2 backward (``_flash_bwd``:
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``, K3).
 
 ``flash_fwd`` and ``flash_fwd_carry`` launch ``csrc/flash_fwd.cu``
-(f32, CUDA cores) or ``csrc/flash_fwd_bf16.cu`` (bf16, tensor cores);
+(f32, the tensor cores in three TF32 passes: each product a_hi b_hi +
+a_hi b_lo + a_lo b_hi of the operands' TF32 parts, f32-accurate as the
+Pallas body's Precision.HIGHEST) or ``csrc/flash_fwd_bf16.cu`` (bf16,
+wgmma);
 ``flash_bwd_dkv`` and ``flash_bwd_dq`` launch the two kernels of
 ``csrc/flash_bwd.cu`` (f32) or ``csrc/flash_bwd_bf16.cu`` (bf16); each
 runs its plain PyTorch version (``*_reference``) on CPU tensors, and
@@ -126,16 +129,16 @@ def _check_kernel(q, tensors, names):
 
 def _library(q, name):
     """(library, suffix of its C entries) of kernel ``name`` for q's
-    dtype: the f32 CUDA-core source ``name``.cu, or the bf16 tensor-core
-    one ``name``_bf16.cu, whose entries end in ``_bf16``."""
+    dtype: the f32 source ``name``.cu, or the bf16 tensor-core one
+    ``name``_bf16.cu, whose entries end in ``_bf16``."""
     suffix = "_bf16" if q.dtype == torch.bfloat16 else ""
     return _build.library(name + suffix), suffix
 
 
 def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
     """(o [B, S, H, D], lse [B, H, S] f32).  CUDA tensors launch the
-    kernel (f32 or bf16, head dim 32/64/128, contiguous, kv_lens int32;
-    bf16 data 16-byte aligned); CPU tensors run
+    kernel (f32 or bf16, head dim 32/64/128, contiguous and 16-byte
+    aligned, kv_lens int32); CPU tensors run
     :func:`flash_fwd_reference`."""
     _check_args(q, k, v, kv_lens)
     if q.device.type == "cpu":
@@ -152,8 +155,7 @@ def flash_fwd(q, k, v, *, causal=False, kv_lens=None):
                             device=q.device))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16:
-        _build.check_aligned((q, k, v, o), "q, k, v")
+    _build.check_aligned((q, k, v, o), "q, k, v")
     lib, suffix = _library(q, "flash_fwd")
     fn = getattr(lib, "hetu_flash_fwd" + suffix)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
@@ -242,7 +244,7 @@ def flash_fwd_carry(q, k, v, o_c, lse_c, *, causal=False):
     (k, v) continuing the partial (o_c f32 [B, S, H, D], normalised;
     lse_c f32 [B, H, S], NEG_INF where empty).  CUDA tensors launch the
     carried kernel (q, k, v f32 or bf16, head dim 32/64/128, all
-    contiguous, bf16 data 16-byte aligned); CPU tensors run
+    contiguous and 16-byte aligned); CPU tensors run
     :func:`flash_fwd_carry_reference`.
     It takes no ``kv_lens``: the Pallas kernel does not combine one with
     a carry either."""
@@ -259,8 +261,7 @@ def flash_fwd_carry(q, k, v, o_c, lse_c, *, causal=False):
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return o, lse
-    if q.dtype == torch.bfloat16:
-        _build.check_aligned((q, k, v, o_c, o), "q, k, v, o_carry")
+    _build.check_aligned((q, k, v, o_c, o), "q, k, v, o_carry")
     lib, suffix = _library(q, "flash_fwd")
     fn = getattr(lib, "hetu_flash_fwd_carry" + suffix)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \

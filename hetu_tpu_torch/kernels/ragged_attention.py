@@ -25,10 +25,12 @@ an int8 payload widened to bf16 as it is staged, exactly, its scales
 applied in f32 to the scores and to P).  On CPU tensors they run their
 plain versions, :func:`ragged_paged_reference` and
 :func:`ragged_masked_reference`; nothing falls back from one to the
-other.  The bf16 kernels round P to bf16 before P V (over an int8 cache
-P times the V scale), as the Pallas body does over a bf16 cache, and
-the plain versions do not: :func:`ragged_rounding_bound` bounds the
-difference.
+other.  Over a bf16 cache the bf16 kernels round P to bf16 before P V,
+as the Pallas body does, and the plain versions do not:
+:func:`ragged_rounding_bound` bounds the difference.  Over an int8 cache
+the Pallas body computes in f32 and never rounds P, and neither do the
+bf16-q kernels: P times the V scale goes into P V_int as a pair of bf16
+values (hi, and the rest of its rounding), within one bf16 ulp of o.
 """
 
 from __future__ import annotations
@@ -101,14 +103,16 @@ def ragged_paged_reference(q, pool_k, pool_v, lengths, q_lens,
 def ragged_rounding_bound(q, k, v, lengths, q_lens, block_tables=None,
                           k_scale=None, v_scale=None):
     """[B, Q, H, Dh] f32: how far a wave that rounds P = exp(s - m) to
-    bf16 before P V (the Pallas body, and the bf16 kernels) may put each
-    element of o from the plain versions, which do not round, before o's
-    own rounding.  One rounding is within 2^-8 of p whatever max it is
-    taken against, so o_d moves by at most 2^-8 sum(p |v_d|) / l: 2^-8
-    times the plain version run on (q, k, |v|), through ``block_tables``
-    when given.  An int8 cache is dequantized first: the bf16 kernels
-    round p times the V scale once against the integer payload, within
-    2^-8 p |v_d| of the dequantized term.  Zero on a length-0 slot."""
+    bf16 before P V (the Pallas body over a bf16 cache, and the bf16
+    kernels there) may put each element of o from the plain versions,
+    which do not round, before o's own rounding.  One rounding is within
+    2^-8 of p whatever max it is taken against, so o_d moves by at most
+    2^-8 sum(p |v_d|) / l: 2^-8 times the plain version run on (q, k,
+    |v|), through ``block_tables`` when given.  An int8 cache is
+    dequantized first (one rounding of p times the V scale against the
+    integer payload would be within 2^-8 p |v_d| of the dequantized
+    term; the kernels split that product instead and need no bound
+    there).  Zero on a length-0 slot."""
     if k_scale is not None:
         k = k.float() * k_scale[..., None]
         v = v.float() * v_scale[..., None]
@@ -200,11 +204,14 @@ def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
 
 # the tensor-core library that takes bf16 q in place of a CUDA-core
 # source, for the calls that pass a span: (library, its workspace-size
-# entry, whether it takes an int8 cache too)
+# entry, the entries it also takes over an int8 cache)
 _BF16_LIBRARIES = {
-    "ragged_paged": ("ragged_paged_bf16", "hetu_ragged_bf16_workspace", True),
+    "ragged_paged": ("ragged_paged_bf16", "hetu_ragged_bf16_workspace",
+                     ("hetu_ragged_paged_attention",
+                      "hetu_ragged_attention")),
     "decode_attention": ("decode_attention_bf16",
-                         "hetu_verify_bf16_workspace", False)}
+                         "hetu_verify_bf16_workspace",
+                         ("hetu_paged_block_verify_attention",))}
 
 
 def _launch(source, entry, name, q, kv, rest, ints, span=None):
@@ -217,8 +224,9 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     ``span``, the cache's positions per slot, marks a call with a
     tensor-core library for bf16 q (``_BF16_LIBRARIES``): K1/K8
     (``ragged_paged``, over a bf16 or an int8 cache) and K6/K7
-    (``decode_attention``, over a bf16 cache; an int8 cache launches the
-    int8 twin above).  bf16 q then launches that library at ``entry`` +
+    (``decode_attention``, over a bf16 cache, and K7 over an int8 pool;
+    K6 over an int8 cache launches the int8 twin above).  bf16 q then
+    launches that library at ``entry`` +
     ``_bf16`` over a bf16 cache and ``entry`` + ``_int8_bf16`` over an
     int8 one, as ``entry(q, *kv, *rest, out, workspace, *ints, stream)``
     on 16-byte aligned q and caches (and scales), or raises; the
@@ -235,7 +243,7 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
         name = f"{name}_int8"
     regimes = source == "ragged_paged"
     tc = _BF16_LIBRARIES[source] if span is not None else None
-    if tc and q.dtype == torch.bfloat16 and (tc[2] or not quant):
+    if tc and q.dtype == torch.bfloat16 and (entry in tc[2] or not quant):
         _build.check_aligned((q, *kv), "q and the caches (int8: their "
                              "scales too)")
         source, tail = tc[0], ()

@@ -4,7 +4,7 @@ NVIDIA card, each checkout in a process of its own, in the order given.
 
     python3 kernel_times.py [--trees DIR [DIR ...]] [--seed N]
                             [--dtypes float32 bfloat16] [--out FILE]
-                            [--engines DIR]
+                            [--engines DIR] [--train]
 
 A tree is the root of a checkout holding ``hetu_tpu_torch`` (the
 default is this one); an older commit is unpacked there with ``git
@@ -22,16 +22,21 @@ decode (Q 1) and verify (Q 5) waves, K2 at the serving and the training
 shape, K2-carry at the ring's block, K3's two kernels at the training
 shape.  Each result is held to its plain version as chip_smoke holds it
 (a tree that predates ``ragged_rounding_bound`` gets this checkout's
-definition of it) and reports the one-call CUDA-event median (``ms``),
-ten calls back to back (``run_ms``) and, for K1, K8, K4-K7 and their
-int8 twins, the kernels' device time per call under torch.profiler
-(``dev_ms``: a split-K call's two kernels, without the wrapper's host
-time, which sets ``run_ms`` once the kernels are faster than the host).
+definition of it, and a tree whose bf16-q int8 kernels round P once is
+held to that bound there: ``chip_smoke.INT8_ROUNDS_P``) and reports the
+one-call CUDA-event median (``ms``), ten calls back to back
+(``run_ms``) and, for K1, K8, K2, K2-carry, K4-K7 and the int8 twins,
+the kernels' device time per call under torch.profiler (``dev_ms``: a
+split-K call's two kernels, without the wrapper's host time, which sets
+``run_ms`` once the kernels are faster than the host).
 With ``--engines DIR`` each tree then also serves chip_smoke's request
 set on GPT-2-small (random weights from ``--seed``) through the bf16
-``spec=4`` phase-split engines (K6 on the slot rows, K7 on the pool):
-one run for tok/s, then one under torch.profiler (device ms by kind,
-tables into DIR/<run>/).  Each tree builds its kernels into its own
+``spec=4`` phase-split engines (K6 on the slot rows, K7 on the pool, and
+K7-int8 on an int8 pool): one run for tok/s, then one under
+torch.profiler (device ms by kind, tables into DIR/<run>/).  With
+``--train`` each tree also trains GPT-2-small in f32 at B 8, S 1024 for
+8 steps (chip_smoke phase 8's ``train``: step ms, tokens/s, K2's 12
+launches a step).  Each tree builds its kernels into its own
 ``hetu_tpu_torch/_build``.  Order the trees parent, change, change,
 parent to see the drift between runs.  Prints one JSON line per tree
 run (and writes them to ``--out``), then a table of the times.
@@ -79,13 +84,19 @@ def _bound_of(ra):
 
 
 # the engines of ``--engines``: bf16, spec 4, phase-split, whose verify
-# waves run K6 (slot rows) and K7 (the pool)
-ENGINES = ("contiguous-split", "paged-split")
+# waves run K6 (slot rows) and K7 (the pool), and K7-int8 (an int8
+# pool): (label, configuration, kv_quant, the verify kernel's kind)
+ENGINES = (("contiguous-split", "contiguous-split", None,
+            "K6 paged_verify_attention"),
+           ("paged-split", "paged-split", None,
+            "K7 paged_block_verify_attention"),
+           ("paged-split-int8", "paged-split", "int8",
+            "K7-int8 paged_block_verify_attention"))
 
 
 def engines(torch, cs, seed, out_dir):
     """Serve chip_smoke's request set through ``ENGINES`` (bf16,
-    ``spec=4``): {config: {"tokens_per_s": an unprofiled run's,
+    ``spec=4``): {label: {"tokens_per_s": an unprofiled run's,
     "profiled": the profiled run's stats and device ms by kind}}."""
     import numpy as np
     import hetu_tpu_torch as htt
@@ -95,19 +106,30 @@ def engines(torch, cs, seed, out_dir):
         0, cfg.vocab_size, (4, 128))
     spec = cs.request_set(prompts, seed, cfg.vocab_size)
     out = {}
-    for config in ENGINES:
+    for label, config, quant, _ in ENGINES:
         st = cs.serve(torch, htt, params, cfg, spec, "bfloat16", config,
-                      spec=4)[2]
+                      spec=4, kv_quant=quant)[2]
         prof = cs.profile_serve(torch, htt, params, cfg, spec, out_dir,
-                                runs=((config, 4, None, "bfloat16"),))
-        out[config] = dict(tokens_per_s=st["tokens_per_s"],
-                           profiled=next(iter(prof.values())))
+                                runs=((config, 4, quant, "bfloat16"),))
+        out[label] = dict(tokens_per_s=st["tokens_per_s"],
+                          profiled=next(iter(prof.values())))
     return out
 
 
-def worker(tree, seed, dtypes, engines_dir=None):
-    """Time one tree's kernels; returns {kernel: {dtype: result}}, and
-    with ``engines_dir`` {config: engine result} (``engines``)."""
+def train_f32(torch, cs, seed):
+    """chip_smoke's f32 training run (GPT-2-small, B 8, S 1024, 8
+    steps): its stats (step ms, tokens/s, peak bytes) and K2's launches
+    a step."""
+    import hetu_tpu_torch as htt
+    cfg = htt.GPTConfig(batch_size=cs.TB, seq_len=cs.TS, dropout_rate=0.0)
+    _, st, counts = cs.train(torch, htt, cfg, "float32", seed)
+    return dict(st, k2_launches=counts["flash_attention"])
+
+
+def worker(tree, seed, dtypes, engines_dir=None, train=False):
+    """Time one tree's kernels; returns {kernel: {dtype: result}}, with
+    ``engines_dir`` {label: engine result} (``engines``), with ``train``
+    the f32 training run (``train_f32``)."""
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -125,6 +147,10 @@ def worker(tree, seed, dtypes, engines_dir=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cs = _chip_smoke()
+    # the split of p times the V scale (flash_mma.cuh acc_to_a_lo): a
+    # tree without it rounds that product once
+    cs.INT8_ROUNDS_P = "acc_to_a_lo" not in (
+        root / "hetu_tpu_torch/kernels/csrc/flash_mma.cuh").read_text()
     _build.build_all()
     res = {}
     for dt in dtypes:
@@ -148,9 +174,8 @@ def worker(tree, seed, dtypes, engines_dir=None):
         res.setdefault("K3 dkv", {})[dt] = k3["dkv"]
         res.setdefault("K3 dq", {})[dt] = k3["dq"]
         res.setdefault("K2-carry", {})[dt] = cs.check_carry(torch, dt, seed)
-    if engines_dir is None:
-        return res, None
-    return res, engines(torch, cs, seed, engines_dir)
+    eng = engines(torch, cs, seed, engines_dir) if engines_dir else None
+    return res, eng, train_f32(torch, cs, seed) if train else None
 
 
 def main(argv=None):
@@ -163,12 +188,15 @@ def main(argv=None):
                     help="also serve through the bf16 spec=4 phase-split "
                          "engines, one profiled run each (tables into "
                          "DIR)")
+    ap.add_argument("--train", action="store_true",
+                    help="also train GPT-2-small in f32 (8 steps)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        res, eng = worker(args.worker, args.seed, args.dtypes, args.engines)
+        res, eng, tr = worker(args.worker, args.seed, args.dtypes,
+                              args.engines, args.train)
         print(TAG + json.dumps({"tree": args.worker, "results": res,
-                                "engines": eng}), flush=True)
+                                "engines": eng, "train": tr}), flush=True)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -179,6 +207,7 @@ def main(argv=None):
     for i, tree in enumerate(args.trees):
         eng = (["--engines", str(Path(args.engines) / f"run{i}")]
                if args.engines else [])
+        eng += ["--train"] if args.train else []
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker", tree,
              "--seed", str(args.seed), "--dtypes", *args.dtypes, *eng],
@@ -216,18 +245,22 @@ def main(argv=None):
                   flush=True)
     if args.engines:
         print("bf16 spec 4 engines: tok/s unprofiled / profiled, device ms "
-              "(launches) of the verify kernel under the profiler")
-        for config in ENGINES:
-            kind = ("K6 paged_verify_attention" if config.startswith("contig")
-                    else "K7 paged_block_verify_attention")
+              "(launches) of the verify kernel under the profiler, device "
+              "busy s")
+        for label, _, _, kind in ENGINES:
             cells = []
             for r in runs:
-                e = r["engines"][config]
+                e = r["engines"][label]
                 ms, n = e["profiled"]["kinds"].get(kind, (0.0, 0))
                 cells.append(f"{e['tokens_per_s']:.1f} / "
                              f"{e['profiled']['tokens_per_s']:.1f}, "
-                             f"{ms:.3f} ({n})")
-            print(f"  {config:17s} " + "  |  ".join(cells), flush=True)
+                             f"{ms:.3f} ({n}), {e['profiled']['busy_s']:.4f}")
+            print(f"  {label:17s} " + "  |  ".join(cells), flush=True)
+    if args.train:
+        print("f32 training, GPT-2-small B 8 S 1024: step ms, tokens/s")
+        print("  " + "  |  ".join(
+            f"{r['train']['step_ms']:.1f}, {r['train']['tokens_per_s']:.1f}"
+            for r in runs), flush=True)
     return 0
 
 

@@ -13,19 +13,22 @@ held to the same: both sides form the same f32 product payload * scale.
 The bf16 ragged kernels (K1, K8: csrc/ragged_paged_bf16.cu, wgmma
 past 16 rows, split-K at most 16) round P to bf16 before P V as the
 Pallas body does, and their plain versions do not: they are held to
-the bf16 tolerance plus ``ragged_rounding_bound`` (``assert_ragged_close``).
-So are their int8 twins for bf16 q (the same source: the payload widened
-to bf16 exactly, the K scale applied to the scores in f32, P times the V
-scale rounded to bf16 once before P V_int), with the bound of the
-dequantized cache, and the bf16 verify kernels (K6, K7:
-csrc/decode_attention_bf16.cu, the split-K body of K1/K8's narrow
-waves), which round P where the Pallas verify body rounds it.
+the bf16 tolerance plus ``ragged_rounding_bound`` (``assert_ragged_close``),
+and so are the bf16 verify kernels (K6, K7: csrc/decode_attention_bf16.cu,
+the split-K body of K1/K8's narrow waves), which round P where the
+Pallas verify body rounds it.  Their int8 twins for bf16 q (K1-int8,
+K8-int8 and K7-int8 on the same bodies: the payload widened to bf16
+exactly, the K scale applied to the scores in f32, P times the V scale
+split into a bf16 pair, two products) do not round P, as the Pallas int8
+bodies, which compute in f32, do not: they are held to the bf16
+tolerance alone.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
 output is f32, to ``atol 1e-5, rtol 1e-5`` (``CARRY_TOL``).  The bf16
-flash kernels run on the tensor cores (csrc/flash_*_bf16.cu), the f32
-ones on the CUDA cores.  The verify wrappers past 16
+flash kernels run on the tensor cores (csrc/flash_*_bf16.cu), and so
+does the f32 forward, in three TF32 passes (csrc/flash_fwd.cu), held to
+f32's tolerance; the f32 backward runs on the CUDA cores.  The verify wrappers past 16
 rows launch once per 16-row group; the ring runs on a virtual mesh of
 the card.
 """
@@ -74,15 +77,13 @@ def _wave(Dh, bs, Q, seed=0, H=3):
     return q, pk, pv, lengths, q_lens, tables
 
 
-def assert_ragged_close(got, want, args, dtype, **scales):
-    """K1/K8 against their plain version, element by element: ``TOL``;
-    in bf16 plus ``ragged_rounding_bound`` of the call's arguments (the
-    kernel rounds P to bf16 before P V, as the Pallas body does; the
-    plain version does not; one rounding is within 2^-8 of p, so o_d
-    within 2^-8 sum(p |v_d|) / l).  An int8 cache passes its
-    ``k_scale``/``v_scale``: the bound of the dequantized cache (the
-    kernel rounds p times the V scale once)."""
-    bound = (tra.ragged_rounding_bound(*args, **scales)
+def assert_ragged_close(got, want, args, dtype):
+    """K1/K8 (and K6/K7) over a float cache against their plain version,
+    element by element: ``TOL``; in bf16 plus ``ragged_rounding_bound``
+    of the call's arguments (the kernel rounds P to bf16 before P V, as
+    the Pallas body does; the plain version does not; one rounding is
+    within 2^-8 of p, so o_d within 2^-8 sum(p |v_d|) / l)."""
+    bound = (tra.ragged_rounding_bound(*args)
              if dtype == "bfloat16" else None)
     assert_within(got, want, dtype, bound)
 
@@ -566,6 +567,86 @@ def test_flash_carry_kernel_matches_plain(cuda, dtype, D, causal, S, Sk,
                                lse_r[live].cpu().numpy(), atol=1e-4)
 
 
+# (causal, S, Sk) for the f32 forward's tiles: 64-row q tiles, key tiles
+# of 64 (32 at D 128), each crossed just past and just short of an edge
+F32_TILE_CASES = [(True, 127, 127), (True, 129, 129), (False, 96, 161),
+                  (False, 200, 33), (False, 31, 95)]
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,S,Sk", F32_TILE_CASES)
+@pytest.mark.parametrize("with_lens", [True, False])
+def test_f32_flash_kernel_on_the_tensor_cores(cuda, monkeypatch, D, causal,
+                                              S, Sk, with_lens):
+    """f32 K2 on the tensor cores (three TF32 passes, csrc/flash_fwd.cu)
+    at q and key tile edges, kv_lens partial, 0, 1 and full: o within
+    f32's 1e-5, lse within 1e-4 (+1e30 exactly where no key is live),
+    the kv_lens-0 sequence zero, one launch from the f32 library."""
+    from hetu_tpu_torch.kernels import _build
+    loaded = []
+    library = _build.library
+    monkeypatch.setattr(_build, "library",
+                        lambda n: loaded.append(n) or library(n))
+    g = torch.Generator().manual_seed(3 * D + S + Sk)
+    q = torch.randn((4, S, 3, D), generator=g).to(cuda)
+    k, v = (torch.randn((4, Sk, 3, D), generator=g).to(cuda)
+            for _ in range(2))
+    lens = _lens(Sk, cuda) if with_lens else None
+    reset_launches()
+    o, lse = tfa.flash_fwd(q, k, v, causal=causal, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert loaded == ["flash_fwd"]
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == \
+        {"flash_attention": 1}
+    o_r, lse_r = tfa.flash_fwd_reference(q, k, v, causal=causal,
+                                         kv_lens=lens)
+    assert_flash_close(o, o_r, **TOL["float32"])
+    live = lse_r < 1e29
+    assert torch.equal(lse >= 1e29, ~live)
+    np.testing.assert_allclose(lse[live].cpu().numpy(),
+                               lse_r[live].cpu().numpy(), atol=1e-4)
+    if with_lens:
+        assert (o[1] == 0).all()
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,S,Sk", F32_TILE_CASES)
+@pytest.mark.parametrize("kind", ["live", "mixed"])
+def test_f32_flash_carry_kernel_on_the_tensor_cores(cuda, D, causal, S, Sk,
+                                                    kind):
+    """f32 K2-carry on the same tiles' edges, a live and a mixed carry:
+    o within 1e-5 + 1e-5 rel, lse within 1e-4."""
+    args = _carry_case(2, S, Sk, 3, D, kind, torch.float32, cuda,
+                       5 * D + S + Sk)
+    reset_launches()
+    o, lse = tfa.flash_fwd_carry(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_carry"] == 1
+    o_r, lse_r = tfa.flash_fwd_carry_reference(*args, causal=causal)
+    assert_flash_close(o, o_r, **CARRY_TOL)
+    live = lse_r < 1e29
+    assert torch.equal(lse >= 1e29, ~live)
+    np.testing.assert_allclose(lse[live].cpu().numpy(),
+                               lse_r[live].cpu().numpy(), atol=1e-4)
+
+
+def test_f32_flash_wrappers_refuse_misaligned_data(cuda):
+    """The f32 forward copies 16-byte chunks too: data that does not
+    start on a 16-byte boundary is refused, not read, and nothing
+    launches."""
+    x = torch.randn((1, 8 * 64 + 2), device=cuda)
+    bad = x[:, 2:].reshape(1, 8, 1, 64)          # 8 bytes past the start
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    y = torch.randn((1, 8, 1, 64), device=cuda)
+    reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_fwd(bad, y, y, causal=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_fwd_carry(y, y, y, bad,
+                            torch.full((1, 1, 8), tfa.NEG_INF, device=cuda))
+    assert not any(launch_counts().values())
+
+
 def test_flash_carry_autograd_on_the_card(cuda):
     """Autograd through flash_attention_with_carry (K2-carry forward, K3
     backward and the carry's terms) against autograd through the plain
@@ -844,15 +925,8 @@ def test_ragged_int8_kernels_match_plain(cuda, dtype, Dh, bs, Q, layout):
     assert launch_counts()[name] == 1
     assert launch_counts()[name[:-5]] == 0
     assert got.dtype == q.dtype
-    if dtype == "float32":
-        np.testing.assert_allclose(got.float().cpu().numpy(),
-                                   want.to(q.dtype).float().cpu().numpy(),
-                                   **TOL[dtype])
-    else:
-        # the tensor cores round p times the V scale once (module doc)
-        args = [q, k, v, lens_d, ql_d] + ([tab_d] if layout == "pool"
-                                          else [])
-        assert_ragged_close(got, want.to(q.dtype), args, dtype, **sc)
+    # bf16 q: the tensor cores split p times the V scale (module doc)
+    assert_within(got, want.to(q.dtype), dtype)
     assert (got[3] == 0).all()
 
 
@@ -862,15 +936,15 @@ def test_bf16_ragged_int8_narrow_waves(cuda, Dh, Q):
     """K1-int8 and K8-int8 for bf16 q on decode and verify waves (Q <=
     16: split-K on the tensor cores over the widened payload, then the
     merge), the waves of ``test_bf16_ragged_narrow_waves`` over the
-    caches' int8 encoding: within TOL plus the rounding bound of the
-    dequantized cache, one counted launch of the int8 twin in the
-    narrow regime and none of its float twin, the length-0 slot zero."""
+    caches' int8 encoding: within TOL alone (P not rounded), one counted
+    launch of the int8 twin in the narrow regime and none of its float
+    twin, the length-0 slot zero."""
     wave = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 1, 0], seed=Q + Dh + 1)
-    for got, want, args, sc, name, counts in _bf16_both_layouts(
+    for got, want, _, _, name, counts in _bf16_both_layouts(
             cuda, *wave, int8=True):
         assert counts[name] == counts[f"{name}:narrow"] == 1
         assert counts[f"{name}:wide"] == counts[name[:-5]] == 0
-        assert_ragged_close(got, want, args, "bfloat16", **sc)
+        assert_within(got, want, "bfloat16")
         assert (got[3] == 0).all()
 
 
@@ -880,15 +954,15 @@ def test_bf16_ragged_int8_wide_waves(cuda, Dh, Q):
     """K1-int8 and K8-int8 for bf16 q on prompt-chunk waves (Q > 16: the
     wgmma body over the widened payload), the waves of
     ``test_bf16_ragged_wide_waves`` over the caches' int8 encoding:
-    within TOL plus the rounding bound of the dequantized cache, one
-    counted launch of the int8 twin in the wide regime and none of its
-    float twin, the length-0 slot zero."""
+    within TOL alone (P not rounded), one counted launch of the int8
+    twin in the wide regime and none of its float twin, the length-0
+    slot zero."""
     wave = _long_wave(Dh, Q, [Q, Q // 2, 0, 0], seed=2 * Q + Dh + 1)
-    for got, want, args, sc, name, counts in _bf16_both_layouts(
+    for got, want, _, _, name, counts in _bf16_both_layouts(
             cuda, *wave, int8=True):
         assert counts[name] == counts[f"{name}:wide"] == 1
         assert counts[f"{name}:narrow"] == counts[name[:-5]] == 0
-        assert_ragged_close(got, want, args, "bfloat16", **sc)
+        assert_within(got, want, "bfloat16")
         assert (got[3] == 0).all()
 
 
@@ -973,6 +1047,77 @@ def test_decode_verify_int8_kernels_match_plain(cuda, dtype, Dh, bs, Q,
                                want.to(q.dtype).float().cpu().numpy(),
                                **TOL[dtype])
     assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 2, 5, 8, 16, 17])
+def test_bf16_verify_int8_kernel_on_the_tensor_cores(cuda, monkeypatch, Dh,
+                                                     Q):
+    """K7-int8 for bf16 q (csrc/decode_attention_bf16.cu, the split-K
+    body of K1-int8, P times the V scale split into a bf16 pair): over
+    the int8 encoding of a pool whose slots cross several 128-position
+    key splits, a q-block of Q rows, a shorter one (dead rows), a
+    one-row slot sharing a pool block and a length-0 slot, within TOL
+    alone; one launch per 16-row group under ``_int8``, the library
+    loaded only ``decode_attention_bf16``, the length-0 slot zero."""
+    q, pk, pv, lens, ql, tab = _long_wave(
+        Dh, Q, [Q, max(Q - 2, 1), 1, 0], seed=5 * Q + Dh)
+    (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+    args = [q.to(cuda, torch.bfloat16), k, v] + [
+        torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    sc = dict(k_scale=ks, v_scale=vs)
+    from hetu_tpu_torch.kernels import _build
+    loaded = []
+    library = _build.library
+    monkeypatch.setattr(_build, "library",
+                        lambda n: loaded.append(n) or library(n))
+    reset_launches()
+    got = tda.paged_block_verify_attention(*args, **sc)
+    torch.cuda.synchronize()
+    assert set(loaded) == {"decode_attention_bf16"}
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == \
+        {"paged_block_verify_attention_int8": -(-Q // 16)}
+    want = tda.paged_block_verify_reference(*args, ks, vs)
+    if Q <= 16:
+        assert_within(got, want.to(torch.bfloat16), "bfloat16")
+    else:
+        # past 16 rows: every live row as the whole block, every row as
+        # its group
+        for b, n in enumerate(ql):
+            assert_within(got[b, :n], want[b, :n].to(torch.bfloat16),
+                          "bfloat16")
+        want = torch.cat([tda.paged_block_verify_reference(
+            qc, k, v, lc, nc, args[5], ks, vs) for qc, lc, nc in
+            tda.verify_groups(args[0], args[3], args[4])], dim=1)
+        assert_within(got, want.to(torch.bfloat16), "bfloat16")
+    assert (got[3] == 0).all()
+
+
+def test_bf16_verify_int8_wrapper_refuses_misaligned_data(cuda):
+    """bf16 q's K7-int8 copies 16-byte chunks of the payload: a payload 8
+    bytes off a 16-byte boundary, or a scale plane 4 bytes off, is
+    refused, not read; f32 q's twin (the CUDA-core body) takes the same
+    payload."""
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 5)
+    ql = np.minimum(np.array([5, 4, 1, 0, 5, 0], np.int32), lens)
+    (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    qb = q.to(cuda, torch.bfloat16)
+    reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_block_verify_attention(qb, _off16(k, 8), v, *idx,
+                                         k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_block_verify_attention(qb, k, v, *idx, k_scale=ks,
+                                         v_scale=_off16(vs, 4))
+    assert not any(launch_counts().values())
+    got = tda.paged_block_verify_attention(q.to(cuda), _off16(k, 8), v,
+                                           *idx, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_block_verify_attention_int8"] == 1
+    want = tda.paged_block_verify_reference(q.to(cuda), k, v, *idx, ks, vs)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL["float32"])
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -1,28 +1,29 @@
-"""The arithmetic of the bf16 int8-cache ragged kernels (K1-int8
-``ragged_paged_attention`` and K8-int8 ``ragged_attention`` for bf16 q,
-csrc/ragged_paged_bf16.cu) against the JAX package's int8 Pallas
-kernels in interpret mode, and the bound that holds them:
-``ragged_rounding_bound`` of the dequantized cache.
+"""The arithmetic of the bf16-q int8-cache kernels on the tensor cores
+(K1-int8 ``ragged_paged_attention`` and K8-int8 ``ragged_attention``,
+csrc/ragged_paged_bf16.cu, and K7-int8 ``paged_block_verify_attention``,
+csrc/decode_attention_bf16.cu, all on the same bodies) against the JAX
+package's int8 Pallas kernels in interpret mode, within one bf16 ulp.
 
-The Pallas int8 body dequantizes K and V to f32 (``k_int * k_scale``)
-and computes in f32: P is never rounded there.  The card's kernels put
+The Pallas int8 bodies dequantize K and V to f32 (``k_int * k_scale``)
+and compute in f32: P is never rounded there.  The card's kernels put
 the integer payload on the tensor cores instead: they widen it to bf16
 exactly (``kv_encode`` clamps to +-127, which bf16's 8 significant bits
 hold), form the scores as Q K_int^T (each product exact in f32) times
-each key's K scale in f32, before the mask and the max, and round
-``p * v_scale`` to bf16 once as the A operand of P V_int, with l summed
-from the unrounded p.  Each term of o then moves by at most 2^-8 p
-|v_deq| against f32's, so o_d by 2^-8 sum(p |v_deq,d|) / l: the bound
-``ragged_rounding_bound(q, k, v, lengths, q_lens, tables, k_scale,
-v_scale)`` already states.  :func:`_emulate` is that arithmetic in
-PyTorch on the CPU; it is held to JAX within ``2^-12 + 2^-7 |want| +
-bound`` element by element (2^-12 for the f32 sums in another order,
-one bf16 ulp for the output's own rounding) over waves with several KV
-blocks: Q 1 (decode), 8 (verify) and 64 (a prompt chunk); head dims
+each key's K scale in f32, before the mask and the max, and split a =
+``p * v_scale`` into a bf16 pair, a_hi = bf16(a) and a_lo = bf16(a -
+a_hi), two products into one f32 accumulator with l summed from the
+unrounded p.  Each term of o then moves by about 2^-16 a |v_int|, far
+inside one bf16 ulp.  :func:`_emulate` is that arithmetic in PyTorch on
+the CPU; it is held to JAX within ``2^-12 + 2^-7 |want|`` element by
+element (2^-12 for the f32 sums in another order, one bf16 ulp for the
+output's own rounding), with no rounding bound, over waves with several
+KV blocks: Q 1 (decode), 8 (verify) and 64 (a prompt chunk); head dims
 32, 64 and 128; an inert q_len-0 slot with a length, a length-0 slot,
-and two slots sharing pool blocks.  The same waves without the bound
-fall outside the bf16 ulp tolerance, so the bound is what lets them
-pass.
+and two slots sharing pool blocks; and K7-int8's verify waves (Q 1, 5,
+16).  The arithmetic before the split (a rounded to bf16 once) falls
+outside that tolerance on the same waves: it needed
+``ragged_rounding_bound`` of the dequantized cache, and the reference
+needs none.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ import torch
 
 import jax.numpy as jnp
 
+from hetu_tpu.kernels import decode_attention as jda
 from hetu_tpu.kernels import ragged_attention as jra
 from hetu_tpu_torch.kernels import ragged_attention as tra
 from hetu_tpu_torch.quant import kv_encode
@@ -74,11 +76,13 @@ def _slot_rows(pool, tables):
                                        *pool.shape[2:])
 
 
-def _emulate(q, kq, ks, vq, vs, lengths, q_lens):
+def _emulate(q, kq, ks, vq, vs, lengths, q_lens, split=True):
     """The kernels' arithmetic over slot rows (k/v [B, S, H, Dh] int8,
     scales [B, S, H]), in f32: s = (q . k_int) k_scale Dh^-1/2, dead keys
-    at NEG_INF, p = exp(s - max), l = sum p, o = sum bf16(p v_scale)
-    v_int / l, rounded to bf16; zeros on a length-0 slot."""
+    at NEG_INF, p = exp(s - max), l = sum p, a = p v_scale split into
+    bf16(a) + bf16(a - bf16(a)) (``split=False``: bf16(a) alone, the
+    arithmetic before the split), o = sum a v_int / l, rounded to bf16;
+    zeros on a length-0 slot."""
     B, Q, _, Dh = q.shape
     S = kq.shape[1]
     s = torch.einsum("bqhd,bshd->bqhs", q.float(), kq.float())
@@ -90,15 +94,20 @@ def _emulate(q, kq, ks, vq, vs, lengths, q_lens):
     live = torch.arange(S)[None, None, None, :] <= posq[:, :, None, None]
     s = torch.where(live, s, torch.full_like(s, tra.NEG_INF))
     p = torch.exp(s - s.amax(-1, keepdim=True)) * live
-    a = (p * vs.permute(0, 2, 1)[:, None]).bfloat16().float()
-    o = torch.einsum("bqhs,bshd->bqhd", a, vq.float()) \
-        / p.sum(-1)[..., None]
+    a = p * vs.permute(0, 2, 1)[:, None]
+    hi = a.bfloat16().float()
+    o = torch.einsum("bqhs,bshd->bqhd", hi, vq.float())
+    if split:
+        lo = (a - hi).bfloat16().float()
+        o = torch.einsum("bqhs,bshd->bqhd", lo, vq.float()) + o
+    o = o / p.sum(-1)[..., None]
     return (o * (L > 0)[:, None, None, None]).bfloat16()
 
 
-def _case(layout, Q, Dh, seed):
-    """(JAX's int8 o as f32 numpy, the emulated kernel's o, the bound),
-    one wave through either layout."""
+def _case(layout, Q, Dh, seed, split=True):
+    """(JAX's int8 o as f32 numpy, the emulated kernel's o), one wave
+    through either layout ("verify": the pool through JAX's block verify
+    kernel, K7-int8's)."""
     q, kq, ks, vq, vs, lens, ql, tab = _wave(Q, Dh, seed)
     kr, ksr, vr, vsr = (_slot_rows(x, tab) for x in (kq, ks, vq, vs))
     jq = jnp.asarray(q.float().numpy(), jnp.bfloat16)
@@ -108,18 +117,21 @@ def _case(layout, Q, Dh, seed):
             jq, jnp.asarray(kr.numpy()), jnp.asarray(vr.numpy()), jl, jql,
             k_scale=jnp.asarray(ksr.numpy()),
             v_scale=jnp.asarray(vsr.numpy()), interpret=True)
-        bound = tra.ragged_rounding_bound(q, kr, vr, lens, ql,
-                                          k_scale=ksr, v_scale=vsr)
     else:
-        want = jra.ragged_paged_attention(
+        run = (jda.paged_block_verify_attention if layout == "verify"
+               else jra.ragged_paged_attention)
+        want = run(
             jq, jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()), jl, jql,
             jnp.asarray(tab.numpy()), k_scale=jnp.asarray(ks.numpy()),
             v_scale=jnp.asarray(vs.numpy()), interpret=True)
-        bound = tra.ragged_rounding_bound(q, kq, vq, lens, ql, tab, ks, vs)
-    got = _emulate(q, kr, ksr, vr, vsr, lens, ql)
+    got = _emulate(q, kr, ksr, vr, vsr, lens, ql, split=split)
     assert want.dtype == jnp.bfloat16
-    return (np.asarray(jnp.asarray(want, jnp.float32)), got.float().numpy(),
-            bound.numpy())
+    return np.asarray(jnp.asarray(want, jnp.float32)), got.float().numpy()
+
+
+def _ratio(want, got):
+    """The largest |got - want| / (2^-12 + 2^-7 |want|)."""
+    return float((np.abs(got - want) / (ATOL + RTOL * np.abs(want))).max())
 
 
 @pytest.mark.parametrize("layout", ["pool", "slots"])
@@ -127,20 +139,33 @@ def _case(layout, Q, Dh, seed):
 @pytest.mark.parametrize("Dh", [32, 64, 128])
 def test_int8_kernel_arithmetic_within_the_rounding_bound(layout, Q, Dh):
     """The kernels' int8 arithmetic (integer K and V on the tensor cores,
-    scales in f32, p v_scale rounded to bf16 once) against JAX's int8
-    Pallas kernel (all f32): within 2^-12 + 2^-7 |want| + the bound of
-    the dequantized cache, element by element, the length-0 slot
-    exactly zero on both."""
-    want, got, bound = _case(layout, Q, Dh, seed=Q + Dh)
-    diff = np.abs(got - want)
-    lim = ATOL + RTOL * np.abs(want) + bound
-    assert (diff <= lim).all(), float((diff / lim).max())
+    scales in f32, p v_scale split into a bf16 pair) against JAX's int8
+    Pallas kernel (all f32): within 2^-12 + 2^-7 |want| element by
+    element, with no rounding bound, the length-0 slot exactly zero on
+    both."""
+    want, got = _case(layout, Q, Dh, seed=Q + Dh)
+    assert _ratio(want, got) <= 1.0
     assert (want[3] == 0).all() and (got[3] == 0).all()
 
 
 @pytest.mark.parametrize("layout", ["pool", "slots"])
 def test_the_int8_bound_is_needed(layout):
-    """The waves above fall outside the bf16 ulp tolerance without the
-    bound: the rounding of p v_scale is what it covers."""
-    want, got, _ = _case(layout, 64, 64, seed=128)
-    assert (np.abs(got - want) > ATOL + RTOL * np.abs(want)).any()
+    """The bound was needed by the arithmetic before the split (p v_scale
+    rounded to bf16 once): on the same wave it falls outside the bf16
+    ulp tolerance, where the split holds it."""
+    want, single = _case(layout, 64, 64, seed=128, split=False)
+    _, split = _case(layout, 64, 64, seed=128)
+    assert _ratio(want, single) > 1.0
+    assert _ratio(want, split) <= 1.0
+
+
+@pytest.mark.parametrize("Q", [1, 5, 16])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_bf16_verify_int8_arithmetic_holds_one_ulp(Q, Dh):
+    """K7-int8 for bf16 q (the split body of K1-int8 with the verify
+    rows' limits, which are K1's) against JAX's int8 block verify kernel
+    in interpret mode: within 2^-12 + 2^-7 |want|, no bound, the
+    length-0 slot zero."""
+    want, got = _case("verify", Q, Dh, seed=3 * Q + Dh)
+    assert _ratio(want, got) <= 1.0
+    assert (want[3] == 0).all() and (got[3] == 0).all()
