@@ -13,7 +13,7 @@ non-zero and prints no result line):
    kernels on the tensor cores (f32 K2 and K2-carry on mma.sync TF32,
    three passes; bf16 K2 and K2-carry on wgmma, K3's two on
    mma.sync, K1/K8's wide kernel on wgmma and split kernel on
-   mma.sync, each over a bf16 and an int8 cache, and K6/K7's split
+   mma.sync, each over a bf16 and an int8 cache, and K4-K7's split
    kernel on mma.sync, K7's also over an int8 pool): registers and
    spills (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA
    (TF32 among them) instructions of its SASS where the toolkit has
@@ -37,8 +37,8 @@ non-zero and prints no result line):
    versions do not: they are held to TOL plus
    ``ragged_attention.ragged_rounding_bound`` (2^-8 sum(p |v_d|) / l of
    the row, one rounding of P), and the largest err / bound is logged;
-   so are bf16 K6 and K7 (csrc/decode_attention_bf16.cu, the split-K
-   body of K1/K8's narrow waves), here and at Q 17 in phase 6.  K4-K7
+   so are bf16 K4-K7 (csrc/decode_attention_bf16.cu, the split-K body
+   of K1/K8's narrow waves), here and K6/K7 at Q 17 in phase 6.  K4-K7
    are also timed ten back to back and on the device.  f32 K2 (here,
    at phase 8's training shape and as K2-carry in phase 9) runs three
    TF32 passes on the tensor cores and keeps f32's 1e-5; its bound
@@ -161,7 +161,8 @@ with speculation, and with an int8 cache); device time by kernel goes
 into DIR.
 
 The line before the last is one JSON object with every kernel's
-numbers; the last line is the device record.
+numbers (``dev_ms`` its device time per call under torch.profiler,
+without the wrapper's host time); the last line is the device record.
 """
 
 from __future__ import annotations
@@ -352,23 +353,28 @@ def k2_method(dtype):
 # ---------------------------------------------------------------- #
 
 # the tensor-core libraries and their kernels (symbol substring, entry
-# of the dynamic shared memory query and its arguments after Dh; the
-# ragged and verify kernels' query also takes the cache, 1 for int8):
-# the f32 flash forward on TF32, then the bf16 kernels
+# of the dynamic shared memory query and its arguments after Dh, and a
+# substring of the instances' names, which must match one; the ragged,
+# decode and verify kernels' query also takes the cache, 1 for int8):
+# the f32 flash forward on TF32, then the bf16 kernels; the split
+# kernel of decode_attention_bf16 once for K4/K5 (DecodeLim) and once
+# for K6/K7 and K7-int8 (VerifyLim)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
-               "hetu_flash_fwd_smem", ()),
+               "hetu_flash_fwd_smem", (), ""),
               ("flash_fwd_bf16", "flash_fwd_bf16_kernel",
-               "hetu_flash_fwd_bf16_smem", ()),
+               "hetu_flash_fwd_bf16_smem", (), ""),
               ("flash_bwd_bf16", "flash_bwd_dkv_bf16_kernel",
-               "hetu_flash_bwd_bf16_smem", (1,)),
+               "hetu_flash_bwd_bf16_smem", (1,), ""),
               ("flash_bwd_bf16", "flash_bwd_dq_bf16_kernel",
-               "hetu_flash_bwd_bf16_smem", (0,)),
+               "hetu_flash_bwd_bf16_smem", (0,), ""),
               ("ragged_paged_bf16", "ragged_wide_kernel",
-               "hetu_ragged_bf16_smem", (0,)),
+               "hetu_ragged_bf16_smem", (0,), ""),
               ("ragged_paged_bf16", "split_kv_kernel",
-               "hetu_ragged_bf16_smem", (1,)),
+               "hetu_ragged_bf16_smem", (1,), ""),
               ("decode_attention_bf16", "split_kv_kernel",
-               "hetu_verify_bf16_smem", ()))
+               "hetu_verify_bf16_smem", (), "DecodeLim"),
+              ("decode_attention_bf16", "split_kv_kernel",
+               "hetu_verify_bf16_smem", (), "VerifyLim"))
 
 
 def ptxas_entries(log):
@@ -426,18 +432,23 @@ def tc_report(_build, paths):
     """One line per instance of a tensor-core kernel (f32 K2 and
     K2-carry on TF32, bf16 K2 and K2-carry, K3's two, the wide and split
     ragged kernels of K1/K8 and of their int8 twins, the split kernel of
-    K6/K7 and of K7-int8): registers and spills (ptxas, from this
-    process's build), dynamic shared memory, and the HMMA (TF32 among
-    them) / HGMMA instructions of its SASS; fails when an instance has
-    no tensor-core instruction, when the f32 forward has no TF32 one, or
-    when it spills."""
+    K4/K5, and of K6/K7 and K7-int8): registers and spills (ptxas, from
+    this process's build), dynamic shared memory, and the HMMA (TF32
+    among them) / HGMMA instructions of its SASS; fails when an instance
+    has no tensor-core instruction, when the f32 forward has no TF32 one,
+    when it spills, or when a row of ``TC_KERNELS`` has no instance in
+    the SASS."""
     sass = {}
-    for lib_name, sym, smem_fn, extra in TC_KERNELS:
+    for lib_name, sym, smem_fn, extra, kind in TC_KERNELS:
         if lib_name not in sass:
             sass[lib_name] = sass_mma_counts(paths[lib_name])
         regs = ptxas_entries(_build.BUILD_LOG.get(lib_name, ""))
         lib = _build.library(lib_name)
-        for name in sorted(n for n in (sass[lib_name] or regs) if sym in n):
+        names = sorted(n for n in (sass[lib_name] or regs)
+                       if sym in n and kind in n)
+        if sass[lib_name] is not None and not names:
+            fail(f"{lib_name}: no {sym} instance {kind} in its SASS")
+        for name in names:
             m = re.search(sym + r"ILi(\d+)E(?:Lb([01])E)?", name)
             D = int(m.group(1))
             carry = m.group(2) == "1"
@@ -449,6 +460,7 @@ def tc_report(_build, paths):
             smem = getattr(lib, smem_fn)(D, *extra,
                                          *((int(int8),) if by_cache else ()))
             what = "".join((", carry" if carry else "",
+                            ", decode" if "DecodeLim" in name else "",
                             ", verify" if "VerifyLim" in name else "",
                             ", int8" if int8 else "",
                             ", pool" if "TableRows" in name else "",
@@ -757,7 +769,7 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
     slot, or with ``verify`` a Q-5 verify block of q_lens
     ``VERIFY_QLENS`` (dead rows included in the comparison); with
     ``int8`` the int8 twin over the f32 K/V's encoding, q of ``dtype``.
-    bf16 K6/K7 over a bf16 cache add ``ragged_rounding_bound`` to TOL
+    bf16 K4-K7 over a bf16 cache add ``ragged_rounding_bound`` to TOL
     (they round P as bf16 K1/K8 do); every kernel is also timed back to
     back and on the device.  Yardstick: SDPA with a per-query length
     mask over the pre-gathered (dequantized) view (the gather excluded)
@@ -818,14 +830,22 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
     if int8:
         label = label.replace(" ", "-int8 ", 1)
     from hetu_tpu_torch.kernels import ragged_attention as ra
+
+    def rounding():
+        """``ragged_rounding_bound`` of the call (a decode call as a
+        ragged wave of one row)."""
+        if verify:
+            return ra.ragged_rounding_bound(*args)
+        return ra.ragged_rounding_bound(q[:, None], *args[1:4],
+                                        torch.ones_like(lens),
+                                        *args[4:])[:, 0]
     return measure(
         torch, label, dtype, lambda: run(*args, **sc),
         lambda: plain(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kt, vt, attn_mask=mask),
         nbytes, ragged_flops(LENGTHS, q_lens, Q)
         + (2 * n_rows * H * DH if int8 else 0),
-        rounding=(lambda: ra.ragged_rounding_bound(*args))
-        if verify and not int8 else None, b2b=True)
+        rounding=None if int8 else rounding, b2b=True)
 
 
 def check_k2(torch, F, dtype, seed):
@@ -1074,15 +1094,20 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
     return res, {**counts, **regimes}, stats
 
 
-# kernel kinds of the profile, by name, first match wins.  K6/K7 in
+# kernel kinds of the profile, by name, first match wins.  K4-K7 in
 # bf16, and K7-int8 for bf16 q (its element type, signed char, makes it
 # the int8 twin in kind_of), are split and merge kernels of their own
-# row-limit type (VerifyLim<layout>), ahead of K1/K8's and their twins'; K1/K8 are the CUDA-core ragged
-# kernel (f32 q) and the bf16 wide, split and merge kernels (bf16 q,
-# either cache), told apart by their layout; K4-K7 otherwise the
-# CUDA-core decode kernel, by NQ and layout
+# row-limit types (DecodeLim<layout>, VerifyLim<layout>), ahead of
+# K1/K8's and their twins'; K1/K8 are the CUDA-core ragged kernel (f32
+# q) and the bf16 wide, split and merge kernels (bf16 q, either cache),
+# told apart by their layout; K4-K7 otherwise the CUDA-core decode
+# kernel, by NQ and layout
 RAGGED = "(ragged_kernel|ragged_wide_kernel|split_kv_kernel|split_merge_kernel)"
-KINDS = (("K6 paged_verify_attention",
+KINDS = (("K4 paged_decode_attention",
+          re.compile("DecodeLim<hetu::SlotRows")),
+         ("K5 paged_block_decode_attention",
+          re.compile("DecodeLim<hetu::TableRows")),
+         ("K6 paged_verify_attention",
           re.compile("VerifyLim<hetu::SlotRows")),
          ("K7 paged_block_verify_attention",
           re.compile("VerifyLim<hetu::TableRows")),
@@ -1612,15 +1637,18 @@ def check_k3(torch, F, dtype, seed):
                  f"{err} ((atol, rtol) {K3_TOL[dtype]})")
         ms = time_ms(torch, run)
         run_ms = time_run_ms(torch, run)
+        dev = device_ms(torch, run)
         plain_ms = time_ms(torch, plain, reps=5)
         flops = prods * 2 * DH * pairs
         b_ms, b_by = bound(nbytes, flops, dtype)
-        res[name] = dict(err=err, ms=ms, run_ms=run_ms, plain_ms=plain_ms,
-                         library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+        res[name] = dict(err=err, ms=ms, run_ms=run_ms, dev_ms=dev,
+                         plain_ms=plain_ms, library_ms=lib_bwd,
+                         bound_ms=b_ms, bound_by=b_by)
         log(f"  K3 flash_attention_bwd_{name} {dtype} [{TB},{TS},{H},{DH}] "
             f"causal: "
             f"max_abs_err {err:.3e} (atol, rtol) {K3_TOL[dtype]}; kernel "
-            f"{ms:.4f} ms ({run_ms:.4f} back to back), plain "
+            f"{ms:.4f} ms ({run_ms:.4f} back to back, {dev:.4f} on the "
+            f"device), plain "
             f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by "
             f"{b_by} ({nbytes} B, {flops} flop, {prods} products)")
     # the whole backward: five products; q, k, v, o, dO, lse in, dq, dk,
@@ -2303,7 +2331,6 @@ def main(argv=None):
     src = "hetu_tpu_torch/kernels/csrc/"
     k1 = ("ragged_paged.cu", "ragged_paged_bf16.cu")
     k18 = ("ragged_paged_int8.cu", "ragged_paged_bf16.cu")
-    dec = ("decode_attention.cu",) * 2
     ver = ("decode_attention.cu", "decode_attention_bf16.cu")
     dec8 = ("decode_attention_int8.cu",) * 2
     ver8 = ("decode_attention_int8.cu", "decode_attention_bf16.cu")
@@ -2316,9 +2343,9 @@ def main(argv=None):
         ("K1 verify", "ragged_paged_attention", k1, r1, "spec paged-mixed"),
         ("K2", "flash_attention", ("flash_fwd.cu", "flash_fwd_bf16.cu"),
          "hetu_tpu/kernels/flash_attention.py:173", None),
-        ("K4", "paged_decode_attention", dec,
+        ("K4", "paged_decode_attention", ver,
          "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split"),
-        ("K5", "paged_block_decode_attention", dec,
+        ("K5", "paged_block_decode_attention", ver,
          "hetu_tpu/kernels/decode_attention.py:259", "paged-split"),
         ("K6", "paged_verify_attention", ver,
          "hetu_tpu/kernels/decode_attention.py:478",
@@ -2377,7 +2404,7 @@ def main(argv=None):
                 launches=counts[counter],
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                library_ms=r["library_ms"]))
+                library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     # K2 at the training shape and K3's two kernels: launches from the
     # phase-8 training run of their dtype
     for key, name, file, replaces in (
@@ -2397,7 +2424,7 @@ def main(argv=None):
                 replaces=replaces, launches=train_runs[dt][1][name],
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                library_ms=r["library_ms"]))
+                library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     # K2-carry: launches from phase 9's causal ring of its dtype
     for dt in ("float32", "bfloat16"):
         r = kres9[dt]
@@ -2409,7 +2436,7 @@ def main(argv=None):
             launches=ring_counts[dt]["flash_attention_carry"],
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -14,21 +14,21 @@ at ``lengths[b] - q_lens[b] + jq`` and attends to the positions up to
 itself; rows past ``q_lens[b]`` clip to the last live position (their
 output is defined and discarded by the caller).  A slot with length 0
 returns zeros; the output has q's dtype.  On CUDA tensors all four
-launch one templated body in ``csrc/decode_attention.cu``, except that
-the verify pair over bf16 q and a bf16 cache launches the tensor-core
-library ``csrc/decode_attention_bf16.cu`` (split-K over 128-position
-splits on mma.sync, then a merge: the narrow body of the bf16 K1/K8,
-16-byte aligned q and caches or a raise); on CPU tensors they run their
-plain versions, the ragged references (the ``q_len = 1`` case for
-decode).  Nothing falls back from one to the other.  The bf16 verify
-kernels round P to bf16 before P V, as the Pallas body does, and the
-plain versions do not: ``ragged_attention.ragged_rounding_bound`` bounds
-the difference, as for the bf16 K1/K8.  An int8 cache
-(``quant.kv_encode``'s payload) passes ``k_scale``/``v_scale``, one f32
-scale per (position, head), and launches the int8 twin of its kernel
-(``csrc/decode_attention_int8.cu``, K4-int8 to K7-int8), which
-dequantizes each tile as it stages it; bf16 q over an int8 pool in the
-block verify runs on the tensor cores instead
+launch one templated body in ``csrc/decode_attention.cu`` over an f32
+cache, and over bf16 q and a bf16 cache the tensor-core library
+``csrc/decode_attention_bf16.cu`` (split-K over 128-position splits on
+mma.sync, then a merge: the narrow body of the bf16 K1/K8, a decode
+query as its one row; 16-byte aligned q and caches or a raise); on CPU
+tensors they run their plain versions, the ragged references (the
+``q_len = 1`` case for decode).  Nothing falls back from one to the
+other.  The bf16 kernels round P to bf16 before P V, as the Pallas
+bodies do, and the plain versions do not:
+``ragged_attention.ragged_rounding_bound`` bounds the difference, as for
+the bf16 K1/K8.  An int8 cache (``quant.kv_encode``'s payload) passes
+``k_scale``/``v_scale``, one f32 scale per (position, head), and
+launches the int8 twin of its kernel (``csrc/decode_attention_int8.cu``,
+K4-int8 to K7-int8), which dequantizes each tile as it stages it; bf16
+q over an int8 pool in the block verify runs on the tensor cores instead
 (``hetu_paged_block_verify_attention_int8_bf16`` of the bf16 library:
 the split-K body of the bf16-q K1-int8, the payload widened to bf16
 exactly, P not rounded, so it holds one bf16 ulp of the Pallas int8
@@ -100,8 +100,9 @@ def paged_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None):
     lengths: [B] int32, the slot's filled count including the position
     just written.  Returns o [B, H, Dh] in q's dtype.  CUDA tensors
     launch the kernel (f32 or bf16 q; caches of q's dtype, or int8 with
-    their scales; head dim 32/64/128, contiguous, int32 lengths); CPU
-    tensors run :func:`masked_decode_reference`."""
+    their scales; head dim 32/64/128, contiguous, int32 lengths; bf16 q
+    over a bf16 cache the tensor-core kernel, on 16-byte aligned q and
+    caches); CPU tensors run :func:`masked_decode_reference`."""
     quant = _check("paged_decode_attention", q, k, v, lengths,
                    {"lengths": lengths}, k_scale, v_scale)
     if k.shape[0] != q.shape[0]:
@@ -111,10 +112,11 @@ def paged_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None):
         return masked_decode_reference(q, k, v, lengths, k_scale,
                                        v_scale).to(q.dtype)
     B, H, Dh = q.shape
+    S = k.shape[1]
     return _launch("decode_attention", "hetu_paged_decode_attention",
-                   "paged_decode_attention", q,
+                   "paged_decode_attention", q[:, None],
                    _kv(k, v, k_scale, v_scale, quant), (lengths,),
-                   (B, H, Dh, k.shape[1]))
+                   (B, H, Dh, S), span=S)[:, 0]
 
 
 def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
@@ -127,8 +129,9 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
     block_tables: [B, T] int32, entry (b, j) the pool block of slot b's
     positions [j*bs, (j+1)*bs); entries past a slot's length may hold any
     valid block (the engine points them at scratch block 0).  Returns o
-    [B, H, Dh] in q's dtype.  CUDA tensors launch the kernel; CPU tensors
-    run :func:`paged_block_decode_reference`."""
+    [B, H, Dh] in q's dtype.  CUDA tensors launch the kernel (as
+    :func:`paged_decode_attention`'s); CPU tensors run
+    :func:`paged_block_decode_reference`."""
     quant = _check("paged_block_decode_attention", q, pool_k, pool_v,
                    lengths, {"lengths": lengths,
                              "block_tables": block_tables},
@@ -141,11 +144,12 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
                                             block_tables, k_scale,
                                             v_scale).to(q.dtype)
     B, H, Dh = q.shape
+    bs, T = pool_k.shape[1], block_tables.shape[1]
     return _launch("decode_attention", "hetu_paged_block_decode_attention",
-                   "paged_block_decode_attention", q,
+                   "paged_block_decode_attention", q[:, None],
                    _kv(pool_k, pool_v, k_scale, v_scale, quant),
-                   (lengths, block_tables),
-                   (B, H, Dh, pool_k.shape[1], block_tables.shape[1]))
+                   (lengths, block_tables), (B, H, Dh, bs, T),
+                   span=T * bs)[:, 0]
 
 
 # the verify kernels' q-block: the CUDA-core body's NQ, the pow2 of Q,
@@ -189,9 +193,8 @@ def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     an int8 cache; lengths: [B] int32, the filled count INCLUDING the
     q-block's live positions (0 = inert slot, zeros out); q_lens: [B]
     int32 live queries per slot.  Returns o [B, Q, H, Dh] in q's dtype.
-    CUDA tensors launch the kernel (the decode kernel's terms; bf16 q
-    over a bf16 cache the tensor-core kernel, on 16-byte aligned q and
-    caches; a block of more than 16 rows launches it once per group of
+    CUDA tensors launch the kernel (the decode kernel's terms; a block
+    of more than 16 rows launches it once per group of
     :func:`verify_groups`, whose dead groups give zeros); CPU tensors run
     :func:`masked_verify_reference`."""
     quant = _check_args("paged_verify_attention", q, k, v, lengths,

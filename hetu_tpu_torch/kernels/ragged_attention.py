@@ -223,9 +223,10 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
 
     ``span``, the cache's positions per slot, marks a call with a
     tensor-core library for bf16 q (``_BF16_LIBRARIES``): K1/K8
-    (``ragged_paged``, over a bf16 or an int8 cache) and K6/K7
+    (``ragged_paged``, over a bf16 or an int8 cache) and K4-K7
     (``decode_attention``, over a bf16 cache, and K7 over an int8 pool;
-    K6 over an int8 cache launches the int8 twin above).  bf16 q then
+    K4-K6 over an int8 cache launch the int8 twin above; the decode
+    wrappers pass q as [B, 1, H, Dh]).  bf16 q then
     launches that library at ``entry`` +
     ``_bf16`` over a bf16 cache and ``entry`` + ``_int8_bf16`` over an
     int8 one, as ``entry(q, *kv, *rest, out, workspace, *ints, stream)``

@@ -25,15 +25,17 @@ shape.  Each result is held to its plain version as chip_smoke holds it
 definition of it, and a tree whose bf16-q int8 kernels round P once is
 held to that bound there: ``chip_smoke.INT8_ROUNDS_P``) and reports the
 one-call CUDA-event median (``ms``), ten calls back to back
-(``run_ms``) and, for K1, K8, K2, K2-carry, K4-K7 and the int8 twins,
-the kernels' device time per call under torch.profiler (``dev_ms``: a
-split-K call's two kernels, without the wrapper's host time, which sets
-``run_ms`` once the kernels are faster than the host).
+(``run_ms``) and the kernels' device time per call under
+torch.profiler (``dev_ms``: a split-K call's two kernels, without the
+wrapper's host time, which sets ``run_ms`` once the kernels are faster
+than the host).
 With ``--engines DIR`` each tree then also serves chip_smoke's request
 set on GPT-2-small (random weights from ``--seed``) through the bf16
-``spec=4`` phase-split engines (K6 on the slot rows, K7 on the pool, and
-K7-int8 on an int8 pool): one run for tok/s, then one under
-torch.profiler (device ms by kind, tables into DIR/<run>/).  With
+phase-split engines of ``ENGINES``: ``spec=4`` on the slot rows (K6 and
+the draft's K4), on the pool (K7 and K4) and on an int8 pool (K7-int8
+and K4), and the pool without spec (K5, whose only engine path this
+is): one run for tok/s, then one under torch.profiler (device ms by
+kind, tables into DIR/<run>/).  With
 ``--train`` each tree also trains GPT-2-small in f32 at B 8, S 1024 for
 8 steps (chip_smoke phase 8's ``train``: step ms, tokens/s, K2's 12
 launches a step).  Each tree builds its kernels into its own
@@ -83,21 +85,28 @@ def _bound_of(ra):
     return bound
 
 
-# the engines of ``--engines``: bf16, spec 4, phase-split, whose verify
-# waves run K6 (slot rows) and K7 (the pool), and K7-int8 (an int8
-# pool): (label, configuration, kv_quant, the verify kernel's kind)
-ENGINES = (("contiguous-split", "contiguous-split", None,
-            "K6 paged_verify_attention"),
-           ("paged-split", "paged-split", None,
-            "K7 paged_block_verify_attention"),
-           ("paged-split-int8", "paged-split", "int8",
-            "K7-int8 paged_block_verify_attention"))
+# the engines of ``--engines``, bf16 and phase-split: (label,
+# configuration, spec, kv_quant, the kinds whose device ms the table
+# prints).  The spec 4 engines' verify waves run K6 (slot rows), K7 (the
+# pool) or K7-int8 (an int8 pool) and their drafts K4 (the draft's own
+# cache is a float one); the pool without spec runs K5 in its decode
+# waves
+ENGINES = (("contiguous-split", "contiguous-split", 4, None,
+            ("K6 paged_verify_attention", "K4 paged_decode_attention")),
+           ("paged-split", "paged-split", 4, None,
+            ("K7 paged_block_verify_attention",
+             "K4 paged_decode_attention")),
+           ("paged-split-int8", "paged-split", 4, "int8",
+            ("K7-int8 paged_block_verify_attention",
+             "K4 paged_decode_attention")),
+           ("paged-split-nospec", "paged-split", 0, None,
+            ("K5 paged_block_decode_attention",)))
 
 
 def engines(torch, cs, seed, out_dir):
-    """Serve chip_smoke's request set through ``ENGINES`` (bf16,
-    ``spec=4``): {label: {"tokens_per_s": an unprofiled run's,
-    "profiled": the profiled run's stats and device ms by kind}}."""
+    """Serve chip_smoke's request set through ``ENGINES`` (bf16):
+    {label: {"tokens_per_s": an unprofiled run's, "profiled": the
+    profiled run's stats and device ms by kind}}."""
     import numpy as np
     import hetu_tpu_torch as htt
     cfg = htt.GPTConfig()
@@ -106,11 +115,11 @@ def engines(torch, cs, seed, out_dir):
         0, cfg.vocab_size, (4, 128))
     spec = cs.request_set(prompts, seed, cfg.vocab_size)
     out = {}
-    for label, config, quant, _ in ENGINES:
+    for label, config, spec_k, quant, _ in ENGINES:
         st = cs.serve(torch, htt, params, cfg, spec, "bfloat16", config,
-                      spec=4, kv_quant=quant)[2]
+                      spec=spec_k, kv_quant=quant)[2]
         prof = cs.profile_serve(torch, htt, params, cfg, spec, out_dir,
-                                runs=((config, 4, quant, "bfloat16"),))
+                                runs=((config, spec_k, quant, "bfloat16"),))
         out[label] = dict(tokens_per_s=st["tokens_per_s"],
                           profiled=next(iter(prof.values())))
     return out
@@ -185,7 +194,7 @@ def main(argv=None):
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--out", default=None)
     ap.add_argument("--engines", default=None, metavar="DIR",
-                    help="also serve through the bf16 spec=4 phase-split "
+                    help="also serve through the bf16 phase-split "
                          "engines, one profiled run each (tables into "
                          "DIR)")
     ap.add_argument("--train", action="store_true",
@@ -244,18 +253,23 @@ def main(argv=None):
                   + f"  (bound {runs[0]['results'][key][dt]['bound_ms']:.4f})",
                   flush=True)
     if args.engines:
-        print("bf16 spec 4 engines: tok/s unprofiled / profiled, device ms "
-              "(launches) of the verify kernel under the profiler, device "
-              "busy s")
-        for label, _, _, kind in ENGINES:
+        print("bf16 phase-split engines: tok/s unprofiled / profiled, "
+              "device ms (launches) of each listed kind under the "
+              "profiler, device busy s")
+        for label, _, spec_k, _, kinds in ENGINES:
             cells = []
             for r in runs:
                 e = r["engines"][label]
-                ms, n = e["profiled"]["kinds"].get(kind, (0.0, 0))
+                ks = ", ".join(
+                    "{:.3f} ({})".format(
+                        *e["profiled"]["kinds"].get(kind, (0.0, 0)))
+                    for kind in kinds)
                 cells.append(f"{e['tokens_per_s']:.1f} / "
-                             f"{e['profiled']['tokens_per_s']:.1f}, "
-                             f"{ms:.3f} ({n}), {e['profiled']['busy_s']:.4f}")
-            print(f"  {label:17s} " + "  |  ".join(cells), flush=True)
+                             f"{e['profiled']['tokens_per_s']:.1f}, {ks}, "
+                             f"{e['profiled']['busy_s']:.4f}")
+            print(f"  {label:18s} [spec {spec_k}: "
+                  + ", ".join(k.split()[0] for k in kinds) + "] "
+                  + "  |  ".join(cells), flush=True)
     if args.train:
         print("f32 training, GPT-2-small B 8 S 1024: step ms, tokens/s")
         print("  " + "  |  ".join(

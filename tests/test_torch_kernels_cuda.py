@@ -14,9 +14,10 @@ The bf16 ragged kernels (K1, K8: csrc/ragged_paged_bf16.cu, wgmma
 past 16 rows, split-K at most 16) round P to bf16 before P V as the
 Pallas body does, and their plain versions do not: they are held to
 the bf16 tolerance plus ``ragged_rounding_bound`` (``assert_ragged_close``),
-and so are the bf16 verify kernels (K6, K7: csrc/decode_attention_bf16.cu,
-the split-K body of K1/K8's narrow waves), which round P where the
-Pallas verify body rounds it.  Their int8 twins for bf16 q (K1-int8,
+and so are the bf16 decode and verify kernels (K4-K7:
+csrc/decode_attention_bf16.cu, the split-K body of K1/K8's narrow
+waves), which round P where the Pallas decode and verify bodies round
+it.  Their int8 twins for bf16 q (K1-int8,
 K8-int8 and K7-int8 on the same bodies: the payload widened to bf16
 exactly, the K scale applied to the scores in f32, P times the V scale
 split into a bf16 pair, two products) do not round P, as the Pallas int8
@@ -258,7 +259,9 @@ def test_bf16_ragged_wrappers_refuse_misaligned_data(cuda):
 @pytest.mark.parametrize("layout", ["slots", "pool"])
 def test_decode_kernels_match_plain(cuda, dtype, Dh, bs, layout):
     """K4 over slot rows and K5 through the block tables, on one wave
-    with a length-0 slot and lengths off and on block edges."""
+    with a length-0 slot and lengths off and on block edges; bf16 plus
+    ``ragged_rounding_bound`` (the kernel rounds P to bf16 before P V,
+    as the Pallas decode body does)."""
     q, pk, pv, lens, _, tab = _wave(Dh, bs, 1, seed=3)
     dt = getattr(torch, dtype)
     q = q[:, 0].to(cuda, dt)
@@ -268,17 +271,17 @@ def test_decode_kernels_match_plain(cuda, dtype, Dh, bs, layout):
         k, v = (_slot_rows(x, tab).to(cuda, dt) for x in (pk, pv))
         got = tda.paged_decode_attention(q, k, v, lens_d)
         want = tda.masked_decode_reference(q, k, v, lens_d)
-        name = "paged_decode_attention"
+        name, rest = "paged_decode_attention", ()
     else:
         k, v = pk.to(cuda, dt), pv.to(cuda, dt)
         got = tda.paged_block_decode_attention(q, k, v, lens_d, tab_d)
         want = tda.paged_block_decode_reference(q, k, v, lens_d, tab_d)
-        name = "paged_block_decode_attention"
+        name, rest = "paged_block_decode_attention", (tab_d,)
     torch.cuda.synchronize()
     assert launch_counts()[name] == 1
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.to(dt).float().cpu().numpy(),
-                               **TOL[dtype])
+    assert_ragged_close(got[:, None], want.to(dt)[:, None],
+                        (q[:, None], k, v, lens_d, torch.ones_like(lens_d))
+                        + rest, dtype)
     assert (got[3] == 0).all()
 
 
@@ -434,6 +437,107 @@ def test_verify_kernel_q1_equals_decode_kernel(cuda):
     want = tda.paged_decode_attention(q[:, 0].to(cuda), k, v, lens_d)
     torch.cuda.synchronize()
     assert torch.equal(got[:, 0], want)
+
+
+def _bf16_decode_case(cuda, layout, Dh, seed):
+    """bf16 decode over ``_long_wave``'s slots (lengths 1000, 257, 1, 0,
+    several key splits, one shared pool block) through K4 (``slots``)
+    or K5 (``pool``): (the wrapper, its plain version, its name, its
+    arguments, the ragged kernel of the same layout and its arguments at
+    Q 1 with q_lens 1, the verify kernel's and its arguments at Q 1)."""
+    q, pk, pv, lens, _, tab = _long_wave(Dh, 1, [1, 1, 1, 0], seed=seed)
+    dt = torch.bfloat16
+    q = q[:, 0].to(cuda, dt)
+    lens_d, tab_d = (torch.from_numpy(a).to(cuda) for a in (lens, tab))
+    ones = torch.ones_like(lens_d)
+    if layout == "slots":
+        k, v = (_slot_rows(x, tab).to(cuda, dt) for x in (pk, pv))
+        return (tda.paged_decode_attention, tda.masked_decode_reference,
+                "paged_decode_attention", (q, k, v, lens_d),
+                tra.ragged_attention, (q[:, None], k, v, lens_d, ones),
+                tda.paged_verify_attention,
+                (q[:, None], k, v, lens_d, ones))
+    k, v = pk.to(cuda, dt), pv.to(cuda, dt)
+    return (tda.paged_block_decode_attention,
+            tda.paged_block_decode_reference,
+            "paged_block_decode_attention", (q, k, v, lens_d, tab_d),
+            tra.ragged_paged_attention,
+            (q[:, None], k, v, lens_d, ones, tab_d),
+            tda.paged_block_verify_attention,
+            (q[:, None], k, v, lens_d, ones, tab_d))
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_bf16_decode_kernels_cross_key_splits(cuda, monkeypatch, Dh,
+                                              layout):
+    """bf16 K4/K5 on the tensor-core library: lengths 1000, 257, 1 and 0
+    cross several 128-position key splits, a one-position slot shares a
+    pool block, the length-0 slot is zero; one launch counted under the
+    wrapper's name (no regime key), and the only library loaded is
+    ``decode_attention_bf16``; held to TOL + ``ragged_rounding_bound``."""
+    run, plain, name, args, *_ = _bf16_decode_case(cuda, layout, Dh,
+                                                   seed=5 * Dh)
+    from hetu_tpu_torch.kernels import _build
+    loaded = []
+    library = _build.library
+    monkeypatch.setattr(_build, "library",
+                        lambda n: loaded.append(n) or library(n))
+    reset_launches()
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert loaded == ["decode_attention_bf16"]
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == {name: 1}
+    q, k, v, lens = args[:4]
+    assert_ragged_close(got[:, None], plain(*args).to(q.dtype)[:, None],
+                        (q[:, None], k, v, lens, torch.ones_like(lens))
+                        + tuple(args[4:]), "bfloat16")
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_bf16_decode_kernels_equal_the_ragged_kernels_at_q1(cuda, Dh,
+                                                            layout):
+    """bf16 K4 is bf16 K8's decode wave (Q 1, q_lens 1), and bf16 K5 is
+    K1's: the same split-K body with the same row limits, bit for
+    bit."""
+    run, _, _, args, ragged, rargs, _, _ = _bf16_decode_case(
+        cuda, layout, Dh, seed=7 * Dh)
+    got = run(*args)
+    want = ragged(*rargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[:, 0])
+
+
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_bf16_verify_kernel_q1_equals_decode_kernel(cuda, layout):
+    """A one-row bf16 verify block (K6/K7) scores what bf16 K4/K5 score:
+    the same split-K body, bit for bit (the f32 pair is
+    ``test_verify_kernel_q1_equals_decode_kernel``)."""
+    run, _, _, args, _, _, verify, vargs = _bf16_decode_case(
+        cuda, layout, 64, seed=11)
+    got = verify(*vargs)
+    want = run(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], want)
+
+
+def test_bf16_decode_wrappers_refuse_misaligned_data(cuda):
+    """bf16 K4/K5 copy 16-byte chunks: a q that does not start on a
+    16-byte boundary is refused, not read or copied, and nothing
+    launches."""
+    for layout in ("slots", "pool"):
+        run, _, _, args, *_ = _bf16_decode_case(cuda, layout, 64, seed=13)
+        q = args[0]
+        x = torch.zeros(q.numel() + 4, device=cuda, dtype=q.dtype)
+        qbad = x[4:].view(q.shape)              # 8 bytes past the start
+        qbad.copy_(q)
+        assert qbad.is_contiguous() and qbad.data_ptr() % 16
+        reset_launches()
+        with pytest.raises(ValueError, match="16-byte"):
+            run(qbad, *args[1:])
+        assert not any(launch_counts().values())
 
 
 def flash_tol(q, k, v, dtype, causal, kv_lens=None, lse_c=None, rtol=None):
