@@ -14,11 +14,13 @@ non-zero and prints no result line):
    three passes; bf16 K2 and K2-carry on wgmma, K3's two on
    mma.sync, K1/K8's wide kernel on wgmma and split kernel on
    mma.sync, each over a bf16 and an int8 cache, and K4-K7's split
-   kernel on mma.sync, K7's also over an int8 pool): registers and
-   spills (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA
-   (TF32 among them) instructions of its SASS where the toolkit has
-   ``cuobjdump`` (an instance with none, the f32 forward with no TF32
-   one, or an instance with a spill, fails).
+   kernel on mma.sync, K6's and K7's also over an int8 cache), and of
+   f32 K1's split kernel on the CUDA cores: registers and spills
+   (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA (TF32
+   among them) / FFMA instructions of its SASS where the toolkit has
+   ``cuobjdump`` (a tensor-core instance with no HGMMA or HMMA, the f32
+   forward with no TF32 one, the f32 split kernel with any of them or
+   no FFMA, or an instance with a spill, fails).
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes, f32 and bf16, with the max abs error beside a stated
    tolerance, and CUDA-event times (median of several warm runs) of the
@@ -32,7 +34,10 @@ non-zero and prints no result line):
    {5, 5, 3, 0, 1, 5, 2, 5}), K8 ragged_attention on a contiguous wave
    with a 1024-row prompt q-block; then K1 and K8 on a decode wave (Q 1)
    and a verify wave (Q 8, K6's q_lens) over the same slots (K1 and K8
-   also timed ten back to back).  bf16 K1 and K8 (csrc/ragged_paged_bf16.cu)
+   also timed ten back to back; f32 K1's narrow waves run the split-K
+   CUDA-core body, csrc/split_kv_f32.cuh, held to 1e-5); last bf16-q
+   K6-int8 equal to bf16-q K8-int8 bit for bit on the same Q 5 verify
+   wave over the same int8 slot rows.  bf16 K1 and K8 (csrc/ragged_paged_bf16.cu)
    round P to bf16 before P V as the Pallas body does and their plain
    versions do not: they are held to TOL plus
    ``ragged_attention.ragged_rounding_bound`` (2^-8 sum(p |v_d|) / l of
@@ -90,8 +95,9 @@ non-zero and prints no result line):
    f32 K/V encoded by ``quant.kv_encode`` on the card (equal to the CPU
    encoding, payload and scales), q f32 and bf16, held to their plain
    versions with phase 2's tolerances (both sides form the same f32
-   product payload x scale; bf16 K1-int8, K8-int8 and K7-int8, on the
-   tensor cores, split p times the V scale into a bf16 pair before
+   product payload x scale; bf16 K1-int8, K8-int8, K6-int8 and
+   K7-int8, on the tensor cores, split p times the V scale into a bf16
+   pair before
    P V_int, two products, and hold TOL alone as the Pallas int8 body,
    which never rounds P, does), timed
    beside an SDPA yardstick over the pre-dequantized K/V (the
@@ -354,11 +360,14 @@ def k2_method(dtype):
 
 # the tensor-core libraries and their kernels (symbol substring, entry
 # of the dynamic shared memory query and its arguments after Dh, and a
-# substring of the instances' names, which must match one; the ragged,
-# decode and verify kernels' query also takes the cache, 1 for int8):
-# the f32 flash forward on TF32, then the bf16 kernels; the split
-# kernel of decode_attention_bf16 once for K4/K5 (DecodeLim) and once
-# for K6/K7 and K7-int8 (VerifyLim)
+# regular expression the instances' mangled names must match, one at
+# least; the bf16 ragged, decode and verify kernels' query also takes
+# the cache, 1 for int8): the f32 flash forward on TF32, then the bf16
+# kernels; the split kernel of decode_attention_bf16 once for K4/K5
+# (DecodeLim), once for K6/K7, K6-int8 and K7-int8 (VerifyLim) and once
+# more for K6-int8 alone (int8, "a", over SlotRows); last the f32 split
+# kernel of K1's narrow waves, which runs on the CUDA cores: its SASS
+# must show FFMA and no HMMA or HGMMA (``FFMA_KERNELS``)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_flash_fwd_smem", (), ""),
               ("flash_fwd_bf16", "flash_fwd_bf16_kernel",
@@ -374,7 +383,14 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
               ("decode_attention_bf16", "split_kv_kernel",
                "hetu_verify_bf16_smem", (), "DecodeLim"),
               ("decode_attention_bf16", "split_kv_kernel",
-               "hetu_verify_bf16_smem", (), "VerifyLim"))
+               "hetu_verify_bf16_smem", (), "VerifyLim"),
+              ("decode_attention_bf16", "split_kv_kernel",
+               "hetu_verify_bf16_smem", (),
+               r"ILi\d+EaNS_8SlotRows.*VerifyLim"),
+              ("ragged_paged", "split_kv_f32_kernel",
+               "hetu_ragged_f32_smem", (), ""))
+# the kernels of TC_KERNELS that run on the CUDA cores, by symbol
+FFMA_KERNELS = ("split_kv_f32_kernel",)
 
 
 def ptxas_entries(log):
@@ -399,7 +415,7 @@ def ptxas_entries(log):
 
 
 def sass_mma_counts(lib_path):
-    """{mangled kernel name: (HMMA, HGMMA, TF32 HMMA instruction
+    """{mangled kernel name: (HMMA, HGMMA, TF32 HMMA, FFMA instruction
     count)} from ``cuobjdump -sass``, or None where the toolkit has no
     cuobjdump."""
     import os
@@ -419,12 +435,14 @@ def sass_mma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = [0, 0, 0]
+            out[name] = [0, 0, 0, 0]
         elif name and re.search(r"\bHGMMA\b", line):
             out[name][1] += 1
         elif name and re.search(r"\bHMMA\b", line):
             out[name][0] += 1
             out[name][2] += "TF32" in line
+        elif name and re.search(r"\bFFMA\b", line):
+            out[name][3] += 1
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -432,12 +450,14 @@ def tc_report(_build, paths):
     """One line per instance of a tensor-core kernel (f32 K2 and
     K2-carry on TF32, bf16 K2 and K2-carry, K3's two, the wide and split
     ragged kernels of K1/K8 and of their int8 twins, the split kernel of
-    K4/K5, and of K6/K7 and K7-int8): registers and spills (ptxas, from
-    this process's build), dynamic shared memory, and the HMMA (TF32
-    among them) / HGMMA instructions of its SASS; fails when an instance
-    has no tensor-core instruction, when the f32 forward has no TF32 one,
-    when it spills, or when a row of ``TC_KERNELS`` has no instance in
-    the SASS."""
+    K4/K5, and of K6/K7, K6-int8 and K7-int8) and of f32 K1's split
+    kernel on the CUDA cores: registers and spills (ptxas, from this
+    process's build), dynamic shared memory, and the HMMA (TF32 among
+    them) / HGMMA / FFMA instructions of its SASS; fails when a
+    tensor-core instance has no tensor-core instruction, when the f32
+    forward has no TF32 one, when a CUDA-core instance (``FFMA_KERNELS``)
+    has one or has no FFMA, when it spills, or when a row of
+    ``TC_KERNELS`` has no instance in the SASS."""
     sass = {}
     for lib_name, sym, smem_fn, extra, kind in TC_KERNELS:
         if lib_name not in sass:
@@ -445,7 +465,7 @@ def tc_report(_build, paths):
         regs = ptxas_entries(_build.BUILD_LOG.get(lib_name, ""))
         lib = _build.library(lib_name)
         names = sorted(n for n in (sass[lib_name] or regs)
-                       if sym in n and kind in n)
+                       if sym in n and re.search(kind, n))
         if sass[lib_name] is not None and not names:
             fail(f"{lib_name}: no {sym} instance {kind} in its SASS")
         for name in names:
@@ -470,10 +490,16 @@ def tc_report(_build, paths):
                    if r else "not rebuilt in this process")
             mma = sass[lib_name]
             count = (f"HMMA {mma[name][0]} (TF32 {mma[name][2]}), HGMMA "
-                     f"{mma[name][1]}" if mma is not None else "no cuobjdump")
-            log(f"  tensor cores: {sym}<D {D}{what}>: "
-                f"{ptx}, dynamic shared {smem} B; SASS {count}")
-            if mma is not None and sum(mma[name]) == 0:
+                     f"{mma[name][1]}, FFMA {mma[name][3]}"
+                     if mma is not None else "no cuobjdump")
+            ffma = sym in FFMA_KERNELS
+            log(f"  {'CUDA' if ffma else 'tensor'} cores: {sym}<D {D}"
+                f"{what}>: {ptx}, dynamic shared {smem} B; SASS {count}")
+            if mma is not None and ffma and (mma[name][0] + mma[name][1]
+                                             or not mma[name][3]):
+                fail(f"{name} is not FFMA-only: {count}")
+            if mma is not None and not ffma and mma[name][0] + mma[name][1] \
+                    == 0:
                 fail(f"{name} has no HMMA or HGMMA instruction")
             if mma is not None and lib_name == "flash_fwd" \
                     and mma[name][2] == 0:
@@ -848,6 +874,33 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
         rounding=None if int8 else rounding, b2b=True)
 
 
+def check_k6_int8_equals_k8_int8(torch, seed):
+    """bf16-q K6-int8 (``paged_verify_attention`` over an int8 cache) and
+    bf16-q K8-int8 (``ragged_attention``) on phase 2's verify wave (Q 5,
+    ``VERIFY_QLENS``) over the same int8 slot rows (phase 2's K/V
+    encoded on the card): one split body, one layout, the same row
+    limits, so the two outputs are equal bit for bit."""
+    from hetu_tpu_torch.kernels import decode_attention as da
+    from hetu_tpu_torch.kernels import ragged_attention as ra
+    k, v = slot_rows_case(torch, "float32", seed + 11)
+    (kq, ks), (vq, vs) = int8_kv(torch, k, v)
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    q = torch.randn((len(LENGTHS), int(VERIFY_QLENS.max()), H, DH),
+                    generator=g, device="cuda").bfloat16()
+    args = (q, kq, vq, torch.from_numpy(LENGTHS).cuda(),
+            torch.from_numpy(VERIFY_QLENS).cuda())
+    k6 = da.paged_verify_attention(*args, k_scale=ks, v_scale=vs)
+    k8 = ra.ragged_attention(*args, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    if not torch.equal(k6, k8):
+        fail(f"bf16-q K6-int8 differs from bf16-q K8-int8 on the same "
+             f"verify wave: max abs diff "
+             f"{float((k6.float() - k8.float()).abs().max())}")
+    log("  K6-int8 paged_verify_attention bfloat16 == K8-int8 "
+        "ragged_attention bfloat16 on the Q 5 verify wave over the same "
+        "int8 slot rows, bit for bit")
+
+
 def check_k2(torch, F, dtype, seed):
     from hetu_tpu_torch.kernels import flash_attention as fa
     N, P, H, D = 8, 512, 12, 64
@@ -1095,14 +1148,16 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 
 
 # kernel kinds of the profile, by name, first match wins.  K4-K7 in
-# bf16, and K7-int8 for bf16 q (its element type, signed char, makes it
-# the int8 twin in kind_of), are split and merge kernels of their own
-# row-limit types (DecodeLim<layout>, VerifyLim<layout>), ahead of
+# bf16, and K6-int8/K7-int8 for bf16 q (their element type, signed char,
+# makes them the int8 twins in kind_of), are split and merge kernels of
+# their own row-limit types (DecodeLim<layout>, VerifyLim<layout>), ahead of
 # K1/K8's and their twins'; K1/K8 are the CUDA-core ragged kernel (f32
-# q) and the bf16 wide, split and merge kernels (bf16 q, either cache),
-# told apart by their layout; K4-K7 otherwise the CUDA-core decode
-# kernel, by NQ and layout
-RAGGED = "(ragged_kernel|ragged_wide_kernel|split_kv_kernel|split_merge_kernel)"
+# q), f32 K1's split kernel and its merge (f32 q, Q <= 16) and the bf16
+# wide, split and merge kernels (bf16 q, either cache), told apart by
+# their layout; K4-K7 otherwise the CUDA-core decode kernel, by NQ and
+# layout
+RAGGED = ("(ragged_kernel|ragged_wide_kernel|split_kv_kernel|"
+          "split_kv_f32_kernel|split_merge_kernel)")
 KINDS = (("K4 paged_decode_attention",
           re.compile("DecodeLim<hetu::SlotRows")),
          ("K5 paged_block_decode_attention",
@@ -2223,6 +2278,7 @@ def main(argv=None):
             torch, F, dt, args.seed, wave=w)
     kres = {k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
             for k, fn in checks.items()}
+    check_k6_int8_equals_k8_int8(torch, args.seed)
 
     # ---- phase 3 ---- #
     log("phase 3: offline generate_fast, GPT-2-small")
@@ -2366,7 +2422,7 @@ def main(argv=None):
          "int8 contiguous-split"),
         ("K5-int8", "paged_block_decode_attention_int8", dec8,
          "hetu_tpu/kernels/decode_attention.py:247", "int8 paged-split"),
-        ("K6-int8", "paged_verify_attention_int8", dec8,
+        ("K6-int8", "paged_verify_attention_int8", ver8,
          "hetu_tpu/kernels/decode_attention.py:448",
          "int8 spec contiguous-split"),
         ("K7-int8", "paged_block_verify_attention_int8", ver8,

@@ -15,10 +15,11 @@ tensor (see ``_build``).
 - ``ragged_attention.ragged_paged_attention`` /
   ``ragged_attention.ragged_attention``: the mixed wave over the
   block-table pool / the slot-contiguous cache (csrc/ragged_paged.cu in
-  f32, csrc/ragged_paged_bf16.cu on the tensor cores in bf16, over a
-  bf16 or an int8 cache: wgmma for waves wider than 16 rows, split-K
-  over positions and a merge for decode and verify waves); the paged one
-  also runs the phase-split chunk pass.
+  f32, the pool's decode and verify waves on the split-K CUDA-core body
+  csrc/split_kv_f32.cuh; csrc/ragged_paged_bf16.cu on the tensor cores
+  in bf16, over a bf16 or an int8 cache: wgmma for waves wider than 16
+  rows, split-K over positions and a merge for decode and verify
+  waves); the paged one also runs the phase-split chunk pass.
 - ``decode_attention.paged_decode_attention`` /
   ``decode_attention.paged_block_decode_attention``: one decode query
   per slot over the slot-contiguous cache / the block-table pool
@@ -38,7 +39,7 @@ Each of the six ragged, decode and verify wrappers also takes an int8
 cache with its scale planes (``quant.kv_encode``) and then launches its
 int8 twin (csrc/ragged_paged_int8.cu for f32 q and
 csrc/ragged_paged_bf16.cu for bf16 q, csrc/decode_attention_int8.cu,
-and for bf16 q through the pool's verify wrapper
+and for bf16 q through either verify wrapper
 csrc/decode_attention_bf16.cu), counted under the wrapper's name plus
 ``_int8``.
 

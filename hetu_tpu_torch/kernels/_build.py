@@ -125,13 +125,13 @@ def check(lib, rc, what):
 
 
 def check_aligned(tensors, names):
-    """The tensor-core kernels copy 16-byte chunks: every tensor's
-    data must start on a 16-byte boundary (a fresh or contiguous-sliced
-    tensor does).  ``names`` names them in the error.  Raises
-    ValueError."""
+    """The tensor-core and split-K kernels copy 16-byte chunks: every
+    tensor's data must start on a 16-byte boundary (a fresh or
+    contiguous-sliced tensor does).  ``names`` names them in the error.
+    Raises ValueError."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the tensor-core kernels take {names} starting on "
-                         f"16-byte boundaries")
+        raise ValueError(f"the tensor-core and split-K kernels take {names} "
+                         f"starting on 16-byte boundaries")
 
 
 def stream_of(t):

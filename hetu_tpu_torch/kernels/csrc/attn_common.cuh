@@ -236,6 +236,10 @@ __device__ __forceinline__ void stage_kv(float (*ks)[DH], float (*vs)[DH],
 
 }  // namespace hetu
 
+// once per library, whichever of the shared headers it includes
+#ifndef HETU_ERROR_STRING
+#define HETU_ERROR_STRING
 extern "C" const char* hetu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

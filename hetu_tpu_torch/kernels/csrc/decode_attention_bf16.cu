@@ -1,19 +1,20 @@
 // One decode query, or a speculative verify q-block, per slot in bf16 on
 // the tensor cores, over either KV layout of the serving engine: the
 // slot-contiguous cache (K4, K6) and the block-table paged pool (K5,
-// K7), bf16 q over a bf16 cache, and K7's int8 twin (K7-int8), bf16 q
-// over an int8 pool with one f32 scale per (position, head).  The f32
-// instances, K4-int8 to K6-int8, and K7-int8 for f32 q stay on the
-// CUDA-core body (decode_body.cuh: decode_attention.cu,
-// decode_attention_int8.cu).
+// K7), bf16 q over a bf16 cache, and the verify kernels' int8 twins
+// (K6-int8, K7-int8), bf16 q over an int8 cache with one f32 scale per
+// (position, head).  The f32 instances, K4-int8 and K5-int8, and
+// K6-int8/K7-int8 for f32 q stay on the CUDA-core body (decode_body.cuh:
+// decode_attention.cu, decode_attention_int8.cu).
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_decode_attention
 // and ::paged_block_decode_attention over bf16 caches (Pallas bodies
 // _decode_kernel and _block_decode_kernel -> _online_softmax_update),
 // ::paged_verify_attention and ::paged_block_verify_attention over bf16
 // caches (_verify_kernel and _block_verify_kernel ->
-// _online_softmax_multi), and ::paged_block_verify_attention over an
-// int8 pool (_block_verify_kernel_int8).  A decode query sees its slot's
+// _online_softmax_multi), and ::paged_verify_attention and
+// ::paged_block_verify_attention over an int8 cache (_verify_kernel_int8,
+// _block_verify_kernel_int8).  A decode query sees its slot's
 // positions [0, lengths[b]).  Verify query jq of slot b sits at
 // lengths[b] - q_lens[b] + jq and sees the positions up to clip(that, 0,
 // lengths[b] - 1) (_query_positions): the q-block is causal inside, a
@@ -24,7 +25,7 @@
 // while no key is live; P = exp(s - m) rounded to bf16 before P V
 // (decode_attention.py:85 and :407, p.astype(v.dtype)), l summed from
 // the unrounded P; acc in f32 and o = acc / l rounded to bf16.  Over an
-// int8 pool the Pallas body dequantizes K and V to f32 and never rounds
+// int8 cache the Pallas bodies dequantize K and V to f32 and never round
 // P (decode_attention.py:466-468): here the payload is widened to bf16
 // exactly, the scores are Q K_int^T times each key's K scale in f32, and
 // P times each key's V scale is split into a bf16 pair for P V_int (two
@@ -58,7 +59,10 @@
 // also the merge kernel's tag: a profile names K4's and K5's split and
 // merge kernels (DecodeLim<hetu::SlotRows>, DecodeLim<hetu::TableRows>)
 // apart from K6's and K7's (VerifyLim<...>) and from K8's and K1's, and
-// K7-int8's by the int8 element type beside them (", signed char,").
+// K6-int8's and K7-int8's by the int8 element type beside them (", signed
+// char,").  bf16-q K6-int8 is bf16-q K8-int8's split body with the same
+// SlotRows and limits, so on the same verify wave the two agree bit for
+// bit.
 #include <cmath>
 
 #include "split_kv_bf16.cuh"
@@ -205,6 +209,22 @@ extern "C" int hetu_paged_block_verify_attention_bf16(
   return dispatch<bf16>(q, pool_k, nullptr, pool_v, nullptr, lengths, rows,
                         verify_lim<hetu::TableRows>(lengths, q_lens), out,
                         ws, B, Q, H, Dh, T_width * bs, stream);
+}
+
+// K6-int8 for bf16 q: as hetu_paged_verify_attention_int8 in
+// decode_attention_int8.cu (which takes f32 q only), over int8 caches
+// [B, S_max, H, Dh] with f32 scales [B, S_max, H], the same workspace;
+// payloads and scales 16-byte aligned too.
+extern "C" int hetu_paged_verify_attention_int8_bf16(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, const void* lengths, const void* q_lens,
+    void* out, void* ws, int B, int Q, int H, int Dh, int S_max,
+    void* stream) {
+  using namespace hetu::tc;
+  const hetu::SlotRows rows{S_max};
+  return dispatch<int8_t>(q, k, k_scale, v, v_scale, lengths, rows,
+                          verify_lim<hetu::SlotRows>(lengths, q_lens), out,
+                          ws, B, Q, H, Dh, S_max, stream);
 }
 
 // K7-int8 for bf16 q: as hetu_paged_block_verify_attention_int8 in

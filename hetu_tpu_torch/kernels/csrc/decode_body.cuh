@@ -5,7 +5,7 @@
 // caches (decode_attention.cu; bf16 q over a bf16 cache runs the split-K
 // tensor-core body, decode_attention_bf16.cu, for all four) or int8
 // caches with per-(position, head) f32 scales (decode_attention_int8.cu,
-// f32 or bf16 q; K7-int8 f32 q only).
+// f32 or bf16 q; K6-int8 and K7-int8 f32 q only).
 // One body, templated on the q/out type T, the cache element type KV, NQ
 // and the layout.
 //
@@ -36,8 +36,8 @@
 // causal position.  Each query's 32/NQ partial (m, l, acc) states then
 // merge in shared memory with the NEG_INF conventions.  With B*H blocks
 // (96 at 8 slots of GPT-2-small) the card is under one wave; the bf16
-// decode and verify kernels, and K7-int8 for bf16 q, split each slot's
-// positions across blocks instead (split_kv_bf16.cuh).
+// decode and verify kernels, and K6-int8/K7-int8 for bf16 q, split each
+// slot's positions across blocks instead (split_kv_bf16.cuh).
 #pragma once
 
 #include <cmath>
@@ -174,8 +174,8 @@ cudaError_t dispatch_dh(const void* q, KVPlanes<KV> kv, const int* lengths,
 }
 
 // dtype (q's, and a float cache's): 0 = float32, 1 = bfloat16 (only with
-// kBf16: K4-int8 to K6-int8 for bf16 q; bf16 q over a bf16 cache, and in
-// K7-int8, runs decode_attention_bf16.cu).  Q at most kMaxQ.
+// kBf16: K4-int8 and K5-int8 for bf16 q; bf16 q over a bf16 cache, and in
+// K6-int8/K7-int8, runs decode_attention_bf16.cu).  Q at most kMaxQ.
 template <bool kQuant, int kMaxQ, bool kBf16, typename Rows>
 int dispatch(const void* q, const void* k, const void* k_scale,
              const void* v, const void* v_scale, const void* lengths,

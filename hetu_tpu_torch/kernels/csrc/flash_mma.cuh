@@ -365,6 +365,10 @@ __device__ __forceinline__ void store_pair(float* dst, float x, float y) {
 }  // namespace tc
 }  // namespace hetu
 
+// once per library, whichever of the shared headers it includes
+#ifndef HETU_ERROR_STRING
+#define HETU_ERROR_STRING
 extern "C" const char* hetu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

@@ -1,10 +1,14 @@
 // K1 and K8 over f32 caches: the f32 instances of ragged_body.cuh (the
 // int8 ones build apart, ragged_paged_int8.cu, so the two compile in
-// parallel; bf16 caches run on the tensor cores, ragged_paged_bf16.cu).
+// parallel; bf16 caches run on the tensor cores, ragged_paged_bf16.cu),
+// and f32 K1's narrow waves (Q <= 16) on the split-K CUDA-core body of
+// split_kv_f32.cuh.  f32 K1's wide waves (Q > 16) and f32 K8 at every Q
+// launch ragged_body.cuh.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention, f32 caches.
 #include "ragged_body.cuh"
+#include "split_kv_f32.cuh"
 
 // dtype: 0 = float32 (q, out and the caches), the only one taken here.
 // Each returns cudaGetLastError() after the launch (cudaErrorInvalidValue
@@ -22,6 +26,46 @@ extern "C" int hetu_ragged_paged_attention(
       q, hetu::planes<false, float>(pool_k, nullptr, pool_v, nullptr),
       static_cast<const int*>(lengths), static_cast<const int*>(q_lens),
       rows, out, B, Q, H, Dh, static_cast<cudaStream_t>(stream)));
+}
+
+// Floats of the f32 workspace of a narrow K1 call (Q <= 16; 0 past it):
+// the split partials of every (slot, head, split, row); span is the
+// pool's positions per slot, T_width * bs.
+extern "C" long long hetu_ragged_f32_workspace(int B, int Q, int H, int Dh,
+                                               int span) {
+  using hetu::tc::kSplitRows;
+  if (Q > kSplitRows) return 0;
+  return (long long)hetu::tc::SplitParts::floats(
+      B, H, hetu::tc::n_splits(span), Q, Dh);
+}
+
+// K1 at Q in [1, 16] on the split-K body: as hetu_ragged_paged_attention
+// with no dtype argument (f32 only), all pointers 16-byte aligned, and
+// the workspace ws of hetu_ragged_f32_workspace floats
+// (cudaErrorInvalidValue for Q outside [1, 16] or an unsupported Dh).
+extern "C" int hetu_ragged_paged_attention_narrow(
+    const void* q, const void* pool_k, const void* pool_v,
+    const void* lengths, const void* q_lens, const void* tables, void* out,
+    void* ws, int B, int Q, int H, int Dh, int bs, int T_width,
+    void* stream) {
+  const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
+  const hetu::RaggedLim lim{static_cast<const int*>(lengths),
+                            static_cast<const int*>(q_lens)};
+  return hetu::tc::dispatch_split_f32(q, pool_k, pool_v, lengths, rows, lim,
+                                      out, ws, B, Q, H, Dh, T_width * bs,
+                                      stream);
+}
+
+// Dynamic shared memory of one split block at head dim Dh, for the build
+// report.
+extern "C" int hetu_ragged_f32_smem(int Dh) {
+  using namespace hetu::tc;
+  switch (Dh) {
+    case 32: return int(split_f32_smem<32>());
+    case 64: return int(split_f32_smem<64>());
+    case 128: return int(split_f32_smem<128>());
+    default: return -1;
+  }
 }
 
 // K8: caches [B, S_max, H, Dh].

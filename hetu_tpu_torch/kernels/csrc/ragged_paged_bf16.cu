@@ -2,9 +2,10 @@
 // layout of the serving engine: the block-table paged pool (K1) and the
 // slot-contiguous cache (K8), bf16 q over a bf16 cache, and their int8
 // twins (K1-int8, K8-int8), bf16 q over an int8 cache with one f32 scale
-// per (position, head).  The f32 instances stay on the CUDA-core body
-// (ragged_body.cuh: ragged_paged.cu, and ragged_paged_int8.cu for f32 q
-// over an int8 cache).
+// per (position, head).  The f32 instances stay on the CUDA cores
+// (ragged_paged.cu: ragged_body.cuh, and for f32 K1's narrow waves the
+// split-K body of split_kv_f32.cuh; ragged_paged_int8.cu for f32 q over
+// an int8 cache).
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention over bf16 caches and, with k_scale/v_scale,
@@ -67,17 +68,6 @@
 namespace hetu {
 namespace tc {
 namespace {
-
-// the last live position of row jq of slot b: clip(len - q_len + jq, 0,
-// len - 1); -1 in a slot of length 0
-struct RaggedLim {
-  const int* lengths;
-  const int* q_lens;
-  __device__ __forceinline__ int operator()(int b, int jq) const {
-    const int len = lengths[b];
-    return min(max(len - q_lens[b] + jq, 0), len - 1);
-  }
-};
 
 // ---- wide waves: the wgmma body ----
 

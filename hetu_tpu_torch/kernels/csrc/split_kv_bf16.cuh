@@ -22,6 +22,8 @@
 // the four warps' partials combine through shared memory into one
 // (m, l, acc) per row, in f32, written to a workspace.  A second kernel
 // (split_merge_kernel) combines a row's splits in f32 and writes o.
+// split_kv_f32.cuh takes the same grid, partials and merge for f32 q
+// over an f32 cache on the CUDA cores.
 //
 // An int8 cache (KV = int8_t, one f32 scale per (position, head)) stages
 // its split's payload rows raw and their scales beside them, K's in the
@@ -108,6 +110,43 @@ struct SplitParts {
     return size_t(B) * H * n_split * Q * (D + 2);
   }
 };
+
+// The four warps' partials of a split block, in shared memory: wacc
+// [4][16][D] (warp w's acc of row jq at (16 w + jq) D) and wml [4][16][2]
+// (its m in log2 units, NEG_INF where the warp saw no live key, and l),
+// combined for each row jq < nq by 2^(m_w - max m) into split sp's
+// partials of (slot b, head h), in f32, all kThreads threads together.
+template <int D>
+__device__ __forceinline__ void write_split(const float* wacc,
+                                            const float* wml,
+                                            const SplitParts& parts, int b,
+                                            int h, int H, int sp, int Q,
+                                            int nq) {
+  const size_t row0 = ((size_t(b) * H + h) * parts.n_split + sp) * Q;
+  for (int i = threadIdx.x; i < nq * D; i += kThreads) {
+    const int jq = i / D;
+    const int d = i % D;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mx = fmaxf(mx, wml[2 * (w * kSplitRows + jq)]);
+    float a = 0.f, lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = wml[2 * (w * kSplitRows + jq)];
+      if (mw > kNegInf / 2) {
+        const float c = ex2(mw - mx);
+        a += c * wacc[(w * kSplitRows + jq) * D + d];
+        lt += c * wml[2 * (w * kSplitRows + jq) + 1];
+      }
+    }
+    parts.acc[(row0 + jq) * D + d] = a;
+    if (d == 0) {
+      parts.ml[2 * (row0 + jq)] = mx;
+      parts.ml[2 * (row0 + jq) + 1] = lt;
+    }
+  }
+}
 
 // One (key split, head, slot) block.  q [B, Q, H, D] bf16 (Q <= 16),
 // k/v rows [*, H, D] of KV (bf16, or int8 with f32 scales k_scale /
@@ -264,43 +303,21 @@ split_kv_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     }
   }
   __syncthreads();
-  const size_t row0 = ((size_t(b) * H + h) * parts.n_split + sp) * Q;
-  for (int i = threadIdx.x; i < nq * D; i += kThreads) {
-    const int jq = i / D;
-    const int d = i % D;
-    float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      mx = fmaxf(mx, wml[2 * (w * kSplitRows + jq)]);
-    float a = 0.f, lt = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = wml[2 * (w * kSplitRows + jq)];
-      if (mw > kNegInf / 2) {
-        const float c = ex2(mw - mx);
-        a += c * wacc[(w * kSplitRows + jq) * D + d];
-        lt += c * wml[2 * (w * kSplitRows + jq) + 1];
-      }
-    }
-    parts.acc[(row0 + jq) * D + d] = a;
-    if (d == 0) {
-      parts.ml[2 * (row0 + jq)] = mx;
-      parts.ml[2 * (row0 + jq) + 1] = lt;
-    }
-  }
+  write_split<D>(wacc, wml, parts, b, h, H, sp, Q, nq);
 }
 
 // Combine the splits of each (slot b, head h, row jq < Q): o = sum_i 2^(m_i
 // - M) acc_i / sum_i 2^(m_i - M) l_i over the splits i that start below
-// the slot's length (M their largest m), in f32, written as bf16 to out
-// [B, Q, H, D]; 0 on a slot of length 0.  One block per (head, slot).
-// KV and Tag, the caller's cache element type and layout, are unused:
-// they name the kernel in a profile (an int8 twin's merge demangles with
-// ", signed char," as its split kernel does).
-template <int D, typename KV, typename Tag>
+// the slot's length (M their largest m), in f32, written as T (bf16, or
+// f32 for split_kv_f32.cuh) to out [B, Q, H, D]; 0 on a slot of length
+// 0.  One block per (head, slot).  KV and Tag, the caller's cache element
+// type and layout, are unused: they name the kernel in a profile (an
+// int8 twin's merge demangles with ", signed char," as its split kernel
+// does).
+template <int D, typename KV, typename Tag, typename T>
 __global__ void __launch_bounds__(kThreads)
 split_merge_kernel(SplitParts parts, const int* __restrict__ lengths,
-                   bf16* __restrict__ out, int Q, int H) {
+                   T* __restrict__ out, int Q, int H) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int len = lengths[b];
@@ -363,8 +380,8 @@ cudaError_t launch_split(const Operands<KV>& x, Rows rows, Lim lim,
       H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  split_merge_kernel<D, KV, Tag><<<dim3(H, B), kThreads, 0, stream>>>(
-      parts, x.lengths, x.out, Q, H);
+  split_merge_kernel<D, KV, Tag, bf16>
+      <<<dim3(H, B), kThreads, 0, stream>>>(parts, x.lengths, x.out, Q, H);
   return cudaGetLastError();
 }
 

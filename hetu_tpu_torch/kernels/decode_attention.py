@@ -28,11 +28,13 @@ the bf16 K1/K8.  An int8 cache (``quant.kv_encode``'s payload) passes
 ``k_scale``/``v_scale``, one f32 scale per (position, head), and
 launches the int8 twin of its kernel (``csrc/decode_attention_int8.cu``,
 K4-int8 to K7-int8), which dequantizes each tile as it stages it; bf16
-q over an int8 pool in the block verify runs on the tensor cores instead
-(``hetu_paged_block_verify_attention_int8_bf16`` of the bf16 library:
-the split-K body of the bf16-q K1-int8, the payload widened to bf16
-exactly, P not rounded, so it holds one bf16 ulp of the Pallas int8
-body, which computes in f32).  The verify kernels take
+q over an int8 cache in either verify wrapper runs on the tensor cores
+instead (``hetu_paged_verify_attention_int8_bf16`` and
+``hetu_paged_block_verify_attention_int8_bf16`` of the bf16 library:
+the split-K body of the bf16-q K8-int8/K1-int8, the payload widened to
+bf16 exactly, P not rounded, so it holds one bf16 ulp of the Pallas int8
+body, which computes in f32; K6-int8 and K7-int8 of
+``decode_attention_int8.cu`` take f32 q only).  The verify kernels take
 q-blocks of at most 16 rows; the wrappers serve any Q on CUDA by cutting
 a longer block into groups of 16 rows, one launch each (see
 :func:`verify_groups`).
@@ -195,8 +197,9 @@ def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     int32 live queries per slot.  Returns o [B, Q, H, Dh] in q's dtype.
     CUDA tensors launch the kernel (the decode kernel's terms; a block
     of more than 16 rows launches it once per group of
-    :func:`verify_groups`, whose dead groups give zeros); CPU tensors run
-    :func:`masked_verify_reference`."""
+    :func:`verify_groups`, whose dead groups give zeros; bf16 q over an
+    int8 cache the tensor-core library, on 16-byte aligned q, caches and
+    scales); CPU tensors run :func:`masked_verify_reference`."""
     quant = _check_args("paged_verify_attention", q, k, v, lengths,
                         q_lens, {"lengths": lengths, "q_lens": q_lens},
                         k_scale, v_scale)

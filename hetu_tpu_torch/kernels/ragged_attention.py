@@ -17,7 +17,11 @@ payload) with ``k_scale``/``v_scale``, one f32 scale per (position,
 head): the int8 twins (K1-int8, K8-int8).  On CUDA tensors both launch
 ``csrc/ragged_paged.cu`` for f32 q over an f32 cache and
 ``ragged_paged_int8.cu`` for f32 q over an int8 one (the CUDA cores,
-the int8 tile dequantized to f32 as it is staged), and
+``ragged_body.cuh``: one block per 32-row q tile, the int8 tile
+dequantized to f32 as it is staged), except f32 K1's narrow waves (Q <=
+``NARROW_Q``, f32 q over an f32 pool), which run the split-K CUDA-core
+body of ``split_kv_f32.cuh`` in ``ragged_paged.cu`` (128-position splits
+in parallel, then a merge; 16-byte aligned q and pools or a raise); and
 ``ragged_paged_bf16.cu`` for bf16 q over a bf16 or an int8 cache: the
 tensor cores, in two regimes chosen from Q (wgmma for Q > 16, split-K
 over positions and a merge for Q <= 16, one launch counted either way;
@@ -44,7 +48,8 @@ from . import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-# K1/K8 waves at most this wide (Q) run the bf16 kernels' split-K regime
+# K1/K8 waves at most this wide (Q) run the bf16 kernels' split-K regime,
+# and f32 K1's split-K body
 NARROW_Q = 16
 
 
@@ -211,7 +216,13 @@ _BF16_LIBRARIES = {
                       "hetu_ragged_attention")),
     "decode_attention": ("decode_attention_bf16",
                          "hetu_verify_bf16_workspace",
-                         ("hetu_paged_block_verify_attention",))}
+                         ("hetu_paged_verify_attention",
+                          "hetu_paged_block_verify_attention"))}
+# the entries whose f32 calls over an f32 cache at Q <= NARROW_Q run the
+# split-K CUDA-core body of their own library instead: entry -> (the
+# narrow entry, its workspace-size entry)
+_F32_NARROW = {"hetu_ragged_paged_attention": (
+    "hetu_ragged_paged_attention_narrow", "hetu_ragged_f32_workspace")}
 
 
 def _launch(source, entry, name, q, kv, rest, ints, span=None):
@@ -224,8 +235,8 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     ``span``, the cache's positions per slot, marks a call with a
     tensor-core library for bf16 q (``_BF16_LIBRARIES``): K1/K8
     (``ragged_paged``, over a bf16 or an int8 cache) and K4-K7
-    (``decode_attention``, over a bf16 cache, and K7 over an int8 pool;
-    K4-K6 over an int8 cache launch the int8 twin above; the decode
+    (``decode_attention``, over a bf16 cache, and K6/K7 over an int8
+    one; K4/K5 over an int8 cache launch the int8 twin above; the decode
     wrappers pass q as [B, 1, H, Dh]).  bf16 q then
     launches that library at ``entry`` +
     ``_bf16`` over a bf16 cache and ``entry`` + ``_int8_bf16`` over an
@@ -233,7 +244,11 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     on 16-byte aligned q and caches (and scales), or raises; the
     workspace holds the f32 partials of the split-K body (Q <=
     NARROW_Q), sized by the library from the shapes and ``span``, and
-    K1/K8's wide regime takes none.  One call counts as one launch,
+    K1/K8's wide regime takes none.  f32 q over an f32 cache at Q <=
+    NARROW_Q on an entry of ``_F32_NARROW`` (K1) launches that table's
+    narrow entry of the same library the same way (the split-K
+    CUDA-core body, f32 only, no dtype argument), on 16-byte aligned q
+    and caches or a raise.  One call counts as one launch,
     though a split-K call runs two device kernels (the splits, then
     their merge), and every K1/K8 call also counts under
     ``name:narrow`` or ``name:wide`` by its Q (``name`` with ``_int8``
@@ -243,21 +258,26 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     if quant:
         name = f"{name}_int8"
     regimes = source == "ragged_paged"
+    narrow = q.shape[1] <= NARROW_Q
     tc = _BF16_LIBRARIES[source] if span is not None else None
+    ws_entry = None
     if tc and q.dtype == torch.bfloat16 and (entry in tc[2] or not quant):
         _build.check_aligned((q, *kv), "q and the caches (int8: their "
                              "scales too)")
-        source, tail = tc[0], ()
+        source, tail, ws_entry = tc[0], (), tc[1]
         entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
     elif quant:
         source, entry = f"{source}_int8", f"{entry}_int8"
+    elif q.dtype == torch.float32 and narrow and entry in _F32_NARROW:
+        _build.check_aligned((q, *kv), "f32 q and the caches")
+        (entry, ws_entry), tail = _F32_NARROW[entry], ()
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = _build.library(source)
     ptrs = [t.data_ptr() for t in (q, *kv, *rest, out)]
-    if not tail:
-        size = getattr(lib, tc[1])
+    if ws_entry is not None:
+        size = getattr(lib, ws_entry)
         size.argtypes = [ctypes.c_int] * 5
         size.restype = ctypes.c_longlong
         n_ws = size(*q.shape, span)
@@ -272,8 +292,7 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     _build.check(lib, rc, f"{name} launch")
     _build.LAUNCHES[name] += 1
     if regimes:
-        regime = "narrow" if q.shape[1] <= NARROW_Q else "wide"
-        _build.LAUNCHES[f"{name}:{regime}"] += 1
+        _build.LAUNCHES[f"{name}:{'narrow' if narrow else 'wide'}"] += 1
     return out
 
 
@@ -296,7 +315,8 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
     tensors launch the kernel (f32 or bf16 q; pools of q's dtype, or
     int8 with their scales; head dim 32/64/128, all contiguous, int32
     indices; with bf16 q, q and the caches and scales 16-byte aligned,
-    with f32 q an int8 payload 4-byte aligned); CPU tensors run
+    with f32 q an int8 payload 4-byte aligned, and q and f32 pools
+    16-byte aligned at Q <= 16); CPU tensors run
     :func:`ragged_paged_reference`."""
     quant = _check_args("ragged_paged_attention", q, pool_k, pool_v,
                         lengths, q_lens,

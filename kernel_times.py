@@ -4,7 +4,8 @@ NVIDIA card, each checkout in a process of its own, in the order given.
 
     python3 kernel_times.py [--trees DIR [DIR ...]] [--seed N]
                             [--dtypes float32 bfloat16] [--out FILE]
-                            [--engines DIR] [--train]
+                            [--engines DIR [--engine-labels L ...]]
+                            [--train]
 
 A tree is the root of a checkout holding ``hetu_tpu_torch`` (the
 default is this one); an older commit is unpacked there with ``git
@@ -30,12 +31,14 @@ torch.profiler (``dev_ms``: a split-K call's two kernels, without the
 wrapper's host time, which sets ``run_ms`` once the kernels are faster
 than the host).
 With ``--engines DIR`` each tree then also serves chip_smoke's request
-set on GPT-2-small (random weights from ``--seed``) through the bf16
-phase-split engines of ``ENGINES``: ``spec=4`` on the slot rows (K6 and
-the draft's K4), on the pool (K7 and K4) and on an int8 pool (K7-int8
-and K4), and the pool without spec (K5, whose only engine path this
-is): one run for tok/s, then one under torch.profiler (device ms by
-kind, tables into DIR/<run>/).  With
+set on GPT-2-small (random weights from ``--seed``) through the engines
+of ``ENGINES``: in bf16 the phase-split engines with ``spec=4`` on the
+slot rows (K6 and the draft's K4), on an int8 copy of them (K6-int8 and
+K4), on the pool (K7 and K4) and on an int8 pool (K7-int8 and K4), and
+the pool without spec (K5, whose only engine path this is); in f32 the
+auto paged mixed engine (K1 on every wave): one run for tok/s, then one
+under torch.profiler (device ms by kind, tables into DIR/<run>/);
+``--engine-labels`` runs only the engines of those labels.  With
 ``--train`` each tree also trains GPT-2-small in f32 at B 8, S 1024 for
 8 steps (chip_smoke phase 8's ``train``: step ms, tokens/s, K2's 12
 launches a step).  Each tree builds its kernels into its own
@@ -85,28 +88,34 @@ def _bound_of(ra):
     return bound
 
 
-# the engines of ``--engines``, bf16 and phase-split: (label,
-# configuration, spec, kv_quant, the kinds whose device ms the table
-# prints).  The spec 4 engines' verify waves run K6 (slot rows), K7 (the
-# pool) or K7-int8 (an int8 pool) and their drafts K4 (the draft's own
-# cache is a float one); the pool without spec runs K5 in its decode
-# waves
-ENGINES = (("contiguous-split", "contiguous-split", 4, None,
+# the engines of ``--engines``: (label, configuration, spec, kv_quant,
+# dtype, the kinds whose device ms the table prints).  The bf16
+# phase-split spec 4 engines' verify waves run K6 (slot rows), K6-int8
+# (int8 slot rows), K7 (the pool) or K7-int8 (an int8 pool) and their
+# drafts K4 (the draft's own cache is a float one); the pool without spec
+# runs K5 in its decode waves; the f32 paged mixed engine runs K1 on
+# every wave (narrow decode waves, wide prompt chunks)
+ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
             ("K6 paged_verify_attention", "K4 paged_decode_attention")),
-           ("paged-split", "paged-split", 4, None,
+           ("contiguous-split-int8", "contiguous-split", 4, "int8",
+            "bfloat16", ("K6-int8 paged_verify_attention",
+                         "K4 paged_decode_attention")),
+           ("paged-split", "paged-split", 4, None, "bfloat16",
             ("K7 paged_block_verify_attention",
              "K4 paged_decode_attention")),
-           ("paged-split-int8", "paged-split", 4, "int8",
+           ("paged-split-int8", "paged-split", 4, "int8", "bfloat16",
             ("K7-int8 paged_block_verify_attention",
              "K4 paged_decode_attention")),
-           ("paged-split-nospec", "paged-split", 0, None,
-            ("K5 paged_block_decode_attention",)))
+           ("paged-split-nospec", "paged-split", 0, None, "bfloat16",
+            ("K5 paged_block_decode_attention",)),
+           ("paged-mixed-f32", "paged-mixed", 0, None, "float32",
+            ("K1 ragged_paged_attention",)))
 
 
-def engines(torch, cs, seed, out_dir):
-    """Serve chip_smoke's request set through ``ENGINES`` (bf16):
-    {label: {"tokens_per_s": an unprofiled run's, "profiled": the
-    profiled run's stats and device ms by kind}}."""
+def engines(torch, cs, seed, out_dir, labels):
+    """Serve chip_smoke's request set through the ``ENGINES`` of
+    ``labels``: {label: {"tokens_per_s": an unprofiled run's,
+    "profiled": the profiled run's stats and device ms by kind}}."""
     import numpy as np
     import hetu_tpu_torch as htt
     cfg = htt.GPTConfig()
@@ -115,11 +124,13 @@ def engines(torch, cs, seed, out_dir):
         0, cfg.vocab_size, (4, 128))
     spec = cs.request_set(prompts, seed, cfg.vocab_size)
     out = {}
-    for label, config, spec_k, quant, _ in ENGINES:
-        st = cs.serve(torch, htt, params, cfg, spec, "bfloat16", config,
+    for label, config, spec_k, quant, dtype, _ in ENGINES:
+        if label not in labels:
+            continue
+        st = cs.serve(torch, htt, params, cfg, spec, dtype, config,
                       spec=spec_k, kv_quant=quant)[2]
         prof = cs.profile_serve(torch, htt, params, cfg, spec, out_dir,
-                                runs=((config, spec_k, quant, "bfloat16"),))
+                                runs=((config, spec_k, quant, dtype),))
         out[label] = dict(tokens_per_s=st["tokens_per_s"],
                           profiled=next(iter(prof.values())))
     return out
@@ -135,10 +146,12 @@ def train_f32(torch, cs, seed):
     return dict(st, k2_launches=counts["flash_attention"])
 
 
-def worker(tree, seed, dtypes, engines_dir=None, train=False):
+def worker(tree, seed, dtypes, engines_dir=None, train=False,
+           labels=()):
     """Time one tree's kernels; returns {kernel: {dtype: result}}, with
-    ``engines_dir`` {label: engine result} (``engines``), with ``train``
-    the f32 training run (``train_f32``)."""
+    ``engines_dir`` {label: engine result} of the engines of ``labels``
+    (``engines``), with ``train`` the f32 training run
+    (``train_f32``)."""
     root = Path(tree).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -183,7 +196,8 @@ def worker(tree, seed, dtypes, engines_dir=None, train=False):
         res.setdefault("K3 dkv", {})[dt] = k3["dkv"]
         res.setdefault("K3 dq", {})[dt] = k3["dq"]
         res.setdefault("K2-carry", {})[dt] = cs.check_carry(torch, dt, seed)
-    eng = engines(torch, cs, seed, engines_dir) if engines_dir else None
+    eng = (engines(torch, cs, seed, engines_dir, labels) if engines_dir
+           else None)
     return res, eng, train_f32(torch, cs, seed) if train else None
 
 
@@ -194,16 +208,18 @@ def main(argv=None):
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     ap.add_argument("--out", default=None)
     ap.add_argument("--engines", default=None, metavar="DIR",
-                    help="also serve through the bf16 phase-split "
-                         "engines, one profiled run each (tables into "
-                         "DIR)")
+                    help="also serve through the engines of ENGINES, "
+                         "one profiled run each (tables into DIR)")
+    ap.add_argument("--engine-labels", nargs="+",
+                    default=[e[0] for e in ENGINES],
+                    help="the labels of ENGINES to run with --engines")
     ap.add_argument("--train", action="store_true",
                     help="also train GPT-2-small in f32 (8 steps)")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         res, eng, tr = worker(args.worker, args.seed, args.dtypes,
-                              args.engines, args.train)
+                              args.engines, args.train, args.engine_labels)
         print(TAG + json.dumps({"tree": args.worker, "results": res,
                                 "engines": eng, "train": tr}), flush=True)
         return 0
@@ -214,7 +230,8 @@ def main(argv=None):
     print(f"card: {card}", flush=True)
     runs = []
     for i, tree in enumerate(args.trees):
-        eng = (["--engines", str(Path(args.engines) / f"run{i}")]
+        eng = (["--engines", str(Path(args.engines) / f"run{i}"),
+                "--engine-labels", *args.engine_labels]
                if args.engines else [])
         eng += ["--train"] if args.train else []
         out = subprocess.run(
@@ -253,10 +270,12 @@ def main(argv=None):
                   + f"  (bound {runs[0]['results'][key][dt]['bound_ms']:.4f})",
                   flush=True)
     if args.engines:
-        print("bf16 phase-split engines: tok/s unprofiled / profiled, "
-              "device ms (launches) of each listed kind under the "
-              "profiler, device busy s")
-        for label, _, spec_k, _, kinds in ENGINES:
+        print("engines: tok/s unprofiled / profiled, device ms "
+              "(launches) of each listed kind under the profiler, device "
+              "busy s")
+        for label, _, spec_k, _, dtype, kinds in ENGINES:
+            if label not in args.engine_labels:
+                continue
             cells = []
             for r in runs:
                 e = r["engines"][label]
@@ -267,7 +286,7 @@ def main(argv=None):
                 cells.append(f"{e['tokens_per_s']:.1f} / "
                              f"{e['profiled']['tokens_per_s']:.1f}, {ks}, "
                              f"{e['profiled']['busy_s']:.4f}")
-            print(f"  {label:18s} [spec {spec_k}: "
+            print(f"  {label:21s} {dtype:8s} [spec {spec_k}: "
                   + ", ".join(k.split()[0] for k in kinds) + "] "
                   + "  |  ".join(cells), flush=True)
     if args.train:

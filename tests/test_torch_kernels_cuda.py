@@ -23,6 +23,9 @@ exactly, the K scale applied to the scores in f32, P times the V scale
 split into a bf16 pair, two products) do not round P, as the Pallas int8
 bodies, which compute in f32, do not: they are held to the bf16
 tolerance alone.
+f32 K1's narrow waves (Q <= 16) run the split-K CUDA-core body
+(csrc/split_kv_f32.cuh) and are held to f32's tolerance; bf16 q's
+K6-int8 runs K8-int8's split body and equals it bit for bit.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
@@ -252,6 +255,109 @@ def test_bf16_ragged_wrappers_refuse_misaligned_data(cuda):
     assert qbad.data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte"):
         tra.ragged_attention(qbad, rows, rows, lens_d, ql_d)
+
+
+def _record_loads(monkeypatch):
+    """Record the kernel libraries the wrappers load and the C entries
+    they look up in them, in order: returns (libraries, entries)."""
+    from hetu_tpu_torch.kernels import _build
+    libs, entries = [], []
+    library = _build.library
+
+    class Seen:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            entries.append(name)
+            return getattr(self._lib, name)
+
+    def load(name):
+        libs.append(name)
+        return Seen(library(name))
+    monkeypatch.setattr(_build, "library", load)
+    return libs, entries
+
+
+def _nonzero_launches():
+    from hetu_tpu_torch.kernels import _build
+    return {k: n for k, n in _build.LAUNCHES.items() if n}
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 2, 5, 8, 16])
+def test_f32_ragged_narrow_waves_on_the_split_body(cuda, monkeypatch, Dh,
+                                                   Q):
+    """f32 K1 on decode and verify waves (Q <= 16: the split-K CUDA-core
+    body of split_kv_f32.cuh, then the merge): lengths 1000, 257, 1 and
+    0 cross several 128-position key splits, a q-block of Q rows, a
+    shorter one (dead rows), an inert q_len-0 slot with a length sharing
+    a pool block, the length-0 slot; within 1e-5 of the plain version,
+    the library ``ragged_paged`` loaded and its narrow entry called, one
+    launch counted under ``ragged_paged_attention`` and ``:narrow``, the
+    length-0 slot zero."""
+    q, pk, pv, lens, ql, tab = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 0, 0],
+                                          seed=7 * Q + Dh)
+    args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + [
+        torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    libs, entries = _record_loads(monkeypatch)
+    reset_launches()
+    got = tra.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert libs == ["ragged_paged"]
+    assert entries == ["hetu_ragged_f32_workspace",
+                       "hetu_ragged_paged_attention_narrow"]
+    assert _nonzero_launches() == {"ragged_paged_attention": 1,
+                                   "ragged_paged_attention:narrow": 1}
+    assert_within(got, tra.ragged_paged_reference(*args), "float32")
+    assert (got[3] == 0).all()
+
+
+def test_f32_ragged_wide_waves_keep_the_cuda_core_body(cuda, monkeypatch):
+    """f32 K1 at Q 17 (the wide regime) and f32 K8 at Q 8 still launch
+    ragged_body.cuh's entries, within 1e-5 of their plain versions."""
+    q, pk, pv, lens, ql, tab = _long_wave(64, 17, [17, 9, 0, 0], seed=17)
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + idx
+    libs, entries = _record_loads(monkeypatch)
+    reset_launches()
+    got = tra.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert entries == ["hetu_ragged_paged_attention"]
+    assert _nonzero_launches() == {"ragged_paged_attention": 1,
+                                   "ragged_paged_attention:wide": 1}
+    assert_within(got, tra.ragged_paged_reference(*args), "float32")
+    q8 = q[:, :8].contiguous().to(cuda)
+    ql8 = torch.clamp(idx[1], max=8)
+    k, v = (_slot_rows(x, tab).to(cuda) for x in (pk, pv))
+    got = tra.ragged_attention(q8, k, v, idx[0], ql8)
+    torch.cuda.synchronize()
+    assert libs == ["ragged_paged"] * 2
+    assert entries[1:] == ["hetu_ragged_attention"]
+    assert_within(got, tra.ragged_masked_reference(q8, k, v, idx[0], ql8),
+                  "float32")
+
+
+def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
+    """f32 K1's split body copies 16-byte chunks: at Q <= 16 a q or a
+    pool 8 bytes off a 16-byte boundary is refused, not read, and
+    nothing launches; at Q 17 (ragged_body.cuh, 4-byte reads) the same
+    pool is taken."""
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    qd, kd, vd = q.to(cuda), pk.to(cuda), pv.to(cuda)
+    reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(qd, _off16(kd, 8), vd, *idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(_off16(qd, 8), kd, vd, *idx)
+    assert not any(launch_counts().values())
+    q17, *_ = _wave(64, 16, 17)
+    args = [q17.to(cuda), _off16(kd, 8), vd] + idx
+    got = tra.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert regime_counts()["ragged_paged_attention:wide"] == 1
+    assert_within(got, tra.ragged_paged_reference(*args), "float32")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1220,6 +1326,87 @@ def test_bf16_verify_int8_wrapper_refuses_misaligned_data(cuda):
     torch.cuda.synchronize()
     assert launch_counts()["paged_block_verify_attention_int8"] == 1
     want = tda.paged_block_verify_reference(q.to(cuda), k, v, *idx, ks, vs)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL["float32"])
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 2, 5, 8, 16, 17])
+def test_bf16_slot_verify_int8_kernel_on_the_tensor_cores(cuda, monkeypatch,
+                                                          Dh, Q):
+    """K6-int8 for bf16 q (csrc/decode_attention_bf16.cu, the split-K
+    body of K8-int8 with the verify rows' limits): over the int8 encoding
+    of slot rows crossing several 128-position key splits, a q-block of
+    Q rows, a shorter one (dead rows), a one-row slot and a length-0
+    slot, within TOL alone; one launch per 16-row group under
+    ``_int8``, the library loaded only ``decode_attention_bf16``, the
+    length-0 slot zero; at Q <= 16 equal to bf16-q K8-int8 on the same
+    wave bit for bit."""
+    q, pk, pv, lens, ql, tab = _long_wave(
+        Dh, Q, [Q, max(Q - 2, 1), 1, 0], seed=11 * Q + Dh)
+    (k, ks), (v, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+    args = [q.to(cuda, torch.bfloat16), k, v] + [
+        torch.from_numpy(a).to(cuda) for a in (lens, ql)]
+    sc = dict(k_scale=ks, v_scale=vs)
+    from hetu_tpu_torch.kernels import _build
+    loaded = []
+    library = _build.library
+    monkeypatch.setattr(_build, "library",
+                        lambda n: loaded.append(n) or library(n))
+    reset_launches()
+    got = tda.paged_verify_attention(*args, **sc)
+    torch.cuda.synchronize()
+    assert set(loaded) == {"decode_attention_bf16"}
+    assert _nonzero_launches() == {"paged_verify_attention_int8":
+                                   -(-Q // 16)}
+    want = tda.masked_verify_reference(*args, ks, vs)
+    if Q <= 16:
+        assert_within(got, want.to(torch.bfloat16), "bfloat16")
+        assert torch.equal(got, tra.ragged_attention(*args, **sc))
+    else:
+        # past 16 rows: every live row as the whole block, every row as
+        # its group
+        for b, n in enumerate(ql):
+            assert_within(got[b, :n], want[b, :n].to(torch.bfloat16),
+                          "bfloat16")
+        want = torch.cat([tda.masked_verify_reference(
+            qc, k, v, lc, nc, ks, vs) for qc, lc, nc in
+            tda.verify_groups(args[0], args[3], args[4])], dim=1)
+        assert_within(got, want.to(torch.bfloat16), "bfloat16")
+    assert (got[3] == 0).all()
+
+
+def test_bf16_slot_verify_int8_wrapper_refuses_misaligned_data(
+        cuda, monkeypatch):
+    """bf16 q's K6-int8 copies 16-byte chunks of the payload: a payload 8
+    bytes off a 16-byte boundary, or a scale plane 4 bytes off, is
+    refused, not read, and nothing launches; f32 q's K6-int8 (the
+    CUDA-core body of decode_attention_int8.cu, the only library it
+    loads) takes the same payload."""
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 5)
+    ql = np.minimum(np.array([5, 4, 1, 0, 5, 0], np.int32), lens)
+    (k, ks), (v, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql)]
+    qb = q.to(cuda, torch.bfloat16)
+    reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_verify_attention(qb, _off16(k, 8), v, *idx, k_scale=ks,
+                                   v_scale=vs)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_verify_attention(qb, k, v, *idx, k_scale=ks,
+                                   v_scale=_off16(vs, 4))
+    assert not any(launch_counts().values())
+    from hetu_tpu_torch.kernels import _build
+    loaded = []
+    library = _build.library
+    monkeypatch.setattr(_build, "library",
+                        lambda n: loaded.append(n) or library(n))
+    got = tda.paged_verify_attention(q.to(cuda), _off16(k, 8), v, *idx,
+                                     k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert loaded == ["decode_attention_int8"]
+    assert launch_counts()["paged_verify_attention_int8"] == 1
+    want = tda.masked_verify_reference(q.to(cuda), k, v, *idx, ks, vs)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **TOL["float32"])
 

@@ -1,0 +1,156 @@
+"""The arithmetic of f32 K1's narrow waves on the card (``ragged_paged_
+attention``, f32 q over an f32 pool at Q <= 16: the split-K CUDA-core
+body of csrc/split_kv_f32.cuh) against the JAX package's Pallas kernel in
+interpret mode, and against the port's plain version, within f32's
+tolerance.
+
+The body cuts each slot's positions into splits of 128; in a split, warp
+w takes 32 keys, forms s = q . k in f32, masks the keys past each row's
+limit, and takes its softmax in log2 units: m_w = max(s) Dh^-1/2 log2 e,
+p = 2^(s Dh^-1/2 log2 e - m_w), l_w = sum p, acc_w = p . v, nothing
+rounded.  The four warps of a split, then the splits, merge by 2^(m_i -
+M) in f32, skipping those with no live key, and o = acc / l.
+:func:`_emulate` is that arithmetic in PyTorch on the CPU.  It is held
+to JAX's f32 ``ragged_paged_attention`` (interpret mode) and to
+``ragged_paged_reference`` within 1e-5 + 1e-5 |want| element by element
+(the sums taken in another order, and 2^x in place of e^x), over waves
+of 16-position pool blocks: Q 1 (decode), 8 (verify) and 16 (the widest
+narrow wave); head dims 32, 64 and 128; lengths on and off split and
+block edges (300, 256, 131, 128, 16, 5, 0, 33), an inert q_len-0 slot
+with a length, dead rows, and two slots sharing pool blocks; the
+length-0 slot is zero.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hetu_tpu.kernels import ragged_attention as jra
+from hetu_tpu_torch.kernels import ragged_attention as tra
+
+H, BS, T = 2, 16, 20
+ATOL, RTOL = 1e-5, 1e-5
+SPLIT, WARP_KEYS = 128, 32        # split_kv_bf16.cuh's kSplit, kSplitKW
+
+
+def _wave(Q, Dh, seed):
+    """Eight slots over a permuted pool of 16-position blocks (tables of
+    20 entries, 320 positions): lengths 300 (three key splits), 256 (on
+    a split edge), 131, 128 (inert: q_len 0), 16, 5, 0, and 33, whose
+    first two blocks are slot 2's; q_lens Q, Q - 1 (a dead row), 1, 0,
+    Q, 3, 0, 1, clipped to the lengths.  Returns torch f32 (q [B, Q, H,
+    Dh], pool_k, pool_v) and int32 (lengths, q_lens, tables)."""
+    lengths = np.array([300, 256, 131, 128, 16, 5, 0, 33], np.int32)
+    q_lens = np.minimum(np.array([Q, max(Q - 1, 1), 1, 0, Q, 3, 0, 1],
+                                 np.int32), lengths)
+    B = len(lengths)
+    rng = np.random.RandomState(seed)
+    need = [-(-int(n) // BS) for n in lengths]
+    N = 1 + sum(need)
+    free = list(rng.permutation(np.arange(1, N)))
+    tables = np.zeros((B, T), np.int32)
+    for b in range(B):
+        for j in range(need[b]):
+            tables[b, j] = free.pop()
+    tables[7, :2] = tables[2, :2]                  # a shared prefix
+    pk = rng.randn(N, BS, H, Dh).astype(np.float32)
+    pv = rng.randn(N, BS, H, Dh).astype(np.float32)
+    q = rng.randn(B, Q, H, Dh).astype(np.float32)
+    return tuple(map(torch.from_numpy, (q, pk, pv, lengths, q_lens,
+                                        tables)))
+
+
+def _emulate(q, k, v, lengths, q_lens):
+    """The split body's arithmetic over slot rows (q [B, Q, H, Dh], k/v
+    [B, S, H, Dh] f32), in f32: row jq of slot b sees positions up to
+    clip(len - q_len + jq, 0, len - 1); per warp of 32 keys its raw max
+    m_w (log2 units, NEG_INF where no key is live), p = 2^(s scale log2 e
+    - m_w) (a max of 0 while no key is live), l_w = sum p, acc_w = p . v;
+    the four warps of a split, then the splits, merged by 2^(m_i - M);
+    o = acc / l (l = 0 gives 0); zeros on a length-0 slot."""
+    B, Q, Hn, Dh = q.shape
+    S = k.shape[1]
+    n = -(-S // SPLIT)
+    pad = n * SPLIT - S
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    neg = tra.NEG_INF
+    L, QL = lengths.long(), q_lens.long()
+    lim = torch.minimum(torch.clamp(
+        (L - QL)[:, None] + torch.arange(Q)[None], min=0),
+        (L - 1)[:, None])                                  # [B, Q]
+    s = torch.einsum("bqhd,bshd->bhqs", q, k)
+    live = torch.arange(n * SPLIT)[None, None, None] \
+        <= lim[:, None, :, None]
+    s = torch.where(live, s, torch.full_like(s, neg))
+    s = s.reshape(B, Hn, Q, -1, WARP_KEYS)          # [B, H, Q, warps, 32]
+    c = Dh ** -0.5 * math.log2(math.e)
+    mx = s.amax(-1)
+    m = torch.where(mx <= neg / 2, torch.full_like(mx, neg), mx * c)
+    safe = torch.where(m <= neg / 2, torch.zeros_like(m), m)
+    p = torch.exp2(s * c - safe[..., None])
+    vw = v.reshape(B, -1, WARP_KEYS, Hn, Dh)
+    acc = torch.einsum("bhqwk,bwkhd->bhqwd", p, vw)
+    l = p.sum(-1)
+
+    def merge(m, l, acc, group):
+        """Combine groups of ``group`` consecutive partials."""
+        m = m.reshape(B, Hn, Q, -1, group)
+        l = l.reshape(B, Hn, Q, -1, group)
+        acc = acc.reshape(B, Hn, Q, -1, group, Dh)
+        top = m.amax(-1, keepdim=True)
+        w = torch.where(m > neg / 2, torch.exp2(m - top),
+                        torch.zeros_like(m))
+        return (top[..., 0], (w * l).sum(-1),
+                (w[..., None] * acc).sum(-2))
+
+    m, l, acc = merge(m, l, acc, SPLIT // WARP_KEYS)   # a split's warps
+    _, l, acc = merge(m, l, acc, n)                    # the splits
+    o = acc[..., 0, :] / torch.where(l == 0, torch.ones_like(l),
+                                     l)[..., 0, None]
+    return o.permute(0, 2, 1, 3)                        # [B, Q, H, Dh]
+
+
+def _case(Q, Dh, seed):
+    """(JAX's f32 o, the port's plain o, the emulated body's o), numpy,
+    one wave through the pool."""
+    q, pk, pv, lens, ql, tab = _wave(Q, Dh, seed)
+    want = jra.ragged_paged_attention(
+        *(jnp.asarray(x.numpy()) for x in (q, pk, pv, lens, ql, tab)),
+        interpret=True)
+    plain = tra.ragged_paged_reference(q, pk, pv, lens, ql, tab)
+    rows_k, rows_v = (x[tab.long()].reshape(len(lens), T * BS, H, Dh)
+                      for x in (pk, pv))
+    emu = _emulate(q, rows_k, rows_v, lens, ql)
+    assert want.dtype == jnp.float32 and emu.dtype == torch.float32
+    return np.asarray(want), plain.numpy(), emu.numpy()
+
+
+def _ratio(want, got):
+    """The largest |got - want| / (1e-5 + 1e-5 |want|)."""
+    return float((np.abs(got - want) / (ATOL + RTOL * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("Q", [1, 8, 16])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_f32_split_arithmetic_holds_the_jax_kernel(Q, Dh):
+    """The split body's f32 arithmetic against JAX's Pallas K1 in f32
+    (interpret mode): within 1e-5 + 1e-5 |want|, the length-0 slot
+    exactly zero on both."""
+    want, _, emu = _case(Q, Dh, seed=Q + Dh)
+    assert _ratio(want, emu) <= 1.0
+    assert (want[6] == 0).all() and (emu[6] == 0).all()
+
+
+@pytest.mark.parametrize("Q", [1, 8, 16])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_f32_split_arithmetic_holds_the_plain_version(Q, Dh):
+    """The same arithmetic against ``ragged_paged_reference``, which the
+    kernel is held to on the card, within the same tolerance."""
+    _, plain, emu = _case(Q, Dh, seed=2 * Q + Dh)
+    assert _ratio(plain, emu) <= 1.0
+    assert (plain[6] == 0).all()

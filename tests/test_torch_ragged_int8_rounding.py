@@ -1,7 +1,8 @@
 """The arithmetic of the bf16-q int8-cache kernels on the tensor cores
 (K1-int8 ``ragged_paged_attention`` and K8-int8 ``ragged_attention``,
-csrc/ragged_paged_bf16.cu, and K7-int8 ``paged_block_verify_attention``,
-csrc/decode_attention_bf16.cu, all on the same bodies) against the JAX
+csrc/ragged_paged_bf16.cu, and K6-int8 ``paged_verify_attention`` and
+K7-int8 ``paged_block_verify_attention``, csrc/decode_attention_bf16.cu,
+all on the same bodies) against the JAX
 package's int8 Pallas kernels in interpret mode, within one bf16 ulp.
 
 The Pallas int8 bodies dequantize K and V to f32 (``k_int * k_scale``)
@@ -19,8 +20,8 @@ element (2^-12 for the f32 sums in another order, one bf16 ulp for the
 output's own rounding), with no rounding bound, over waves with several
 KV blocks: Q 1 (decode), 8 (verify) and 64 (a prompt chunk); head dims
 32, 64 and 128; an inert q_len-0 slot with a length, a length-0 slot,
-and two slots sharing pool blocks; and K7-int8's verify waves (Q 1, 5,
-16).  The arithmetic before the split (a rounded to bf16 once) falls
+and two slots sharing pool blocks; and the verify waves (Q 1, 5, 16) of
+K7-int8 through the pool and of K6-int8 over slot rows.  The arithmetic before the split (a rounded to bf16 once) falls
 outside that tolerance on the same waves: it needed
 ``ragged_rounding_bound`` of the dequantized cache, and the reference
 needs none.
@@ -107,13 +108,16 @@ def _emulate(q, kq, ks, vq, vs, lengths, q_lens, split=True):
 def _case(layout, Q, Dh, seed, split=True):
     """(JAX's int8 o as f32 numpy, the emulated kernel's o), one wave
     through either layout ("verify": the pool through JAX's block verify
-    kernel, K7-int8's)."""
+    kernel, K7-int8's; "verify-slots": the slot rows through its verify
+    kernel, K6-int8's)."""
     q, kq, ks, vq, vs, lens, ql, tab = _wave(Q, Dh, seed)
     kr, ksr, vr, vsr = (_slot_rows(x, tab) for x in (kq, ks, vq, vs))
     jq = jnp.asarray(q.float().numpy(), jnp.bfloat16)
     jl, jql = jnp.asarray(lens.numpy()), jnp.asarray(ql.numpy())
-    if layout == "slots":
-        want = jra.ragged_attention(
+    if layout in ("slots", "verify-slots"):
+        run = (jda.paged_verify_attention if layout == "verify-slots"
+               else jra.ragged_attention)
+        want = run(
             jq, jnp.asarray(kr.numpy()), jnp.asarray(vr.numpy()), jl, jql,
             k_scale=jnp.asarray(ksr.numpy()),
             v_scale=jnp.asarray(vsr.numpy()), interpret=True)
@@ -159,13 +163,17 @@ def test_the_int8_bound_is_needed(layout):
     assert _ratio(want, split) <= 1.0
 
 
+@pytest.mark.parametrize("layout", ["pool", "slots"])
 @pytest.mark.parametrize("Q", [1, 5, 16])
 @pytest.mark.parametrize("Dh", [32, 64, 128])
-def test_bf16_verify_int8_arithmetic_holds_one_ulp(Q, Dh):
-    """K7-int8 for bf16 q (the split body of K1-int8 with the verify
-    rows' limits, which are K1's) against JAX's int8 block verify kernel
-    in interpret mode: within 2^-12 + 2^-7 |want|, no bound, the
-    length-0 slot zero."""
-    want, got = _case("verify", Q, Dh, seed=3 * Q + Dh)
+def test_bf16_verify_int8_arithmetic_holds_one_ulp(layout, Q, Dh):
+    """K7-int8 (``pool``) and K6-int8 (``slots``) for bf16 q (the split
+    body of K1-int8 / K8-int8 with the verify rows' limits, which are
+    K1's and K8's) against JAX's int8 block verify and verify kernels
+    (``_block_verify_kernel_int8``, ``_verify_kernel_int8``) in interpret
+    mode: within 2^-12 + 2^-7 |want|, no bound, the length-0 slot
+    zero."""
+    want, got = _case("verify" if layout == "pool" else "verify-slots", Q,
+                      Dh, seed=3 * Q + Dh)
     assert _ratio(want, got) <= 1.0
     assert (want[3] == 0).all() and (got[3] == 0).all()
