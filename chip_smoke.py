@@ -15,7 +15,8 @@ non-zero and prints no result line):
    mma.sync, K1/K8's wide kernel on wgmma and split kernel on
    mma.sync, each over a bf16 and an int8 cache, and K4-K7's split
    kernel on mma.sync, K6's and K7's also over an int8 cache), and of
-   f32 K1's split kernel on the CUDA cores: registers and spills
+   the f32 split kernel on the CUDA cores (f32 K1 over the pool, f32 K8
+   over slot rows, f32-q K1-int8 over an int8 pool): registers and spills
    (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA (TF32
    among them) / FFMA instructions of its SASS where the toolkit has
    ``cuobjdump`` (a tensor-core instance with no HGMMA or HMMA, the f32
@@ -34,11 +35,14 @@ non-zero and prints no result line):
    {5, 5, 3, 0, 1, 5, 2, 5}), K8 ragged_attention on a contiguous wave
    with a 1024-row prompt q-block; then K1 and K8 on a decode wave (Q 1)
    and a verify wave (Q 8, K6's q_lens) over the same slots (K1 and K8
-   also timed ten back to back; f32 K1's narrow waves run the split-K
-   CUDA-core body, csrc/split_kv_f32.cuh, held to 1e-5); last bf16-q
-   K6-int8 equal to bf16-q K8-int8 bit for bit on the same Q 5 verify
-   wave over the same int8 slot rows.  bf16 K1 and K8 (csrc/ragged_paged_bf16.cu)
-   round P to bf16 before P V as the Pallas body does and their plain
+   also timed ten back to back; the narrow waves of f32 K1, f32 K8 and,
+   in phase 7, f32-q K1-int8 run the split-K CUDA-core body,
+   csrc/split_kv_f32.cuh, held to 1e-5); then f32 K8 equal to f32 K1
+   bit for bit on the same decode wave (Q 1) over the pool's slot rows
+   and the pool; last bf16-q K6-int8 equal to bf16-q K8-int8 bit for
+   bit on the same Q 5 verify wave over the same int8 slot rows.  bf16
+   K1 and K8 (csrc/ragged_paged_bf16.cu) round P to bf16 before P V as
+   the Pallas body does and their plain
    versions do not: they are held to TOL plus
    ``ragged_attention.ragged_rounding_bound`` (2^-8 sum(p |v_d|) / l of
    the row, one rounding of P), and the largest err / bound is logged;
@@ -280,7 +284,10 @@ def device_ms(torch, fn, n=10):
     is not a multiple of ``n`` lost events in the profiler: the mean of
     the events it kept stands for it, and the loss is logged.  A window
     in which the profiler recorded no device time at all is profiled
-    again, up to three windows, and logged."""
+    again, up to three windows, and logged; after three such windows
+    the device time is not measured: None, logged, and printed as "not
+    measured" (the profiler loses events in long runs on this card; the
+    kernel's other times and its checks stand)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -304,7 +311,14 @@ def device_ms(torch, fn, n=10):
             return total / 1e3
         log("    (the profiler recorded no device time in this window; "
             "profiling again)")
-    fail("the profiler recorded no device time")
+    log("    (the profiler recorded no device time in three windows: the "
+        "device time is not measured)")
+    return None
+
+
+def ms_text(x):
+    """A time in ms as the logs print it, or "not measured" (None)."""
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def compare(got, want, dtype):
@@ -366,8 +380,10 @@ def k2_method(dtype):
 # kernels; the split kernel of decode_attention_bf16 once for K4/K5
 # (DecodeLim), once for K6/K7, K6-int8 and K7-int8 (VerifyLim) and once
 # more for K6-int8 alone (int8, "a", over SlotRows); last the f32 split
-# kernel of K1's narrow waves, which runs on the CUDA cores: its SASS
-# must show FFMA and no HMMA or HGMMA (``FFMA_KERNELS``)
+# kernel of the narrow waves, which runs on the CUDA cores, once for f32
+# K1 (TableRows), once for f32 K8 (SlotRows) and once for f32-q K1-int8
+# (its own library): its SASS must show FFMA and no HMMA or HGMMA
+# (``FFMA_KERNELS``)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_flash_fwd_smem", (), ""),
               ("flash_fwd_bf16", "flash_fwd_bf16_kernel",
@@ -388,7 +404,11 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_verify_bf16_smem", (),
                r"ILi\d+EaNS_8SlotRows.*VerifyLim"),
               ("ragged_paged", "split_kv_f32_kernel",
-               "hetu_ragged_f32_smem", (), ""))
+               "hetu_ragged_f32_smem", (), "TableRows"),
+              ("ragged_paged", "split_kv_f32_kernel",
+               "hetu_ragged_f32_smem", (), "SlotRows"),
+              ("ragged_paged_int8", "split_kv_f32_kernel",
+               "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*TableRows"))
 # the kernels of TC_KERNELS that run on the CUDA cores, by symbol
 FFMA_KERNELS = ("split_kv_f32_kernel",)
 
@@ -450,9 +470,10 @@ def tc_report(_build, paths):
     """One line per instance of a tensor-core kernel (f32 K2 and
     K2-carry on TF32, bf16 K2 and K2-carry, K3's two, the wide and split
     ragged kernels of K1/K8 and of their int8 twins, the split kernel of
-    K4/K5, and of K6/K7, K6-int8 and K7-int8) and of f32 K1's split
-    kernel on the CUDA cores: registers and spills (ptxas, from this
-    process's build), dynamic shared memory, and the HMMA (TF32 among
+    K4/K5, and of K6/K7, K6-int8 and K7-int8) and of the f32 split
+    kernel of f32 K1, f32 K8 and f32-q K1-int8 on the CUDA cores:
+    registers and spills (ptxas, from this process's build), dynamic
+    shared memory, and the HMMA (TF32 among
     them) / HGMMA / FFMA instructions of its SASS; fails when a
     tensor-core instance has no tensor-core instruction, when the f32
     forward has no TF32 one, when a CUDA-core instance (``FFMA_KERNELS``)
@@ -641,7 +662,7 @@ def measure(torch, label, dtype, run, plain, library, nbytes, flops,
     b_ms, b_by = bound(nbytes, flops, dtype)
     log(f"  {label} {dtype}: max_abs_err {err:.3e}, largest err / bound "
         f"{ratio:.4f} (within {tol}); kernel {ms:.4f} ms"
-        + (f" ({run_ms:.4f} back to back, {dev:.4f} on the device)"
+        + (f" ({run_ms:.4f} back to back, {ms_text(dev)} on the device)"
            if b2b else "")
         + f", plain {plain_ms:.4f} ms, SDPA yardstick {lib_ms:.4f} ms; "
         f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
@@ -782,10 +803,12 @@ def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
                       args[4][idx].contiguous()))
     live_ms = device_ms(torch, lambda: [ra.ragged_attention(*w)
                                         for w in waves])
-    log(f"  K8 {dtype}: the same slots without dead rows (three launches "
-        f"at Q = 600, 300, 1) {live_ms:.4f} ms on the device against "
-        f"{r['dev_ms']:.4f} ms for the Q 1024 wave: dead rows take "
-        f"{1 - live_ms / r['dev_ms']:.1%} of the wave's device time")
+    if live_ms is not None and r["dev_ms"] is not None:
+        log(f"  K8 {dtype}: the same slots without dead rows (three "
+            f"launches at Q = 600, 300, 1) {live_ms:.4f} ms on the device "
+            f"against {r['dev_ms']:.4f} ms for the Q 1024 wave: dead rows "
+            f"take {1 - live_ms / r['dev_ms']:.1%} of the wave's device "
+            f"time")
     return r
 
 
@@ -874,6 +897,34 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
         rounding=None if int8 else rounding, b2b=True)
 
 
+def check_k8_equals_k1(torch, seed):
+    """f32 K8 (``ragged_attention`` over slot rows) and f32 K1
+    (``ragged_paged_attention`` through the tables) on phase 2's decode
+    wave (Q 1) over the same K/V: the pool of ``pool_case`` and its slot
+    rows gathered through the tables.  One split body, one row limit,
+    one split order (the span of both is 1024 positions), only the row
+    addresses differ, so the outputs are equal bit for bit."""
+    from hetu_tpu_torch.kernels import ragged_attention as ra
+    pool_k, pool_v, tables, _ = pool_case(torch, "float32", seed + 13)
+    Q, q_lens = NARROW_WAVES["decode"]
+    B, span = len(LENGTHS), T_WIDTH * BS
+    lens, ql, tab = (torch.from_numpy(x).cuda()
+                     for x in (LENGTHS, q_lens, tables))
+    k, v = (x[tab.long()].reshape(B, span, H, DH).contiguous()
+            for x in (pool_k, pool_v))
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    q = torch.randn((B, Q, H, DH), generator=g, device="cuda")
+    k1 = ra.ragged_paged_attention(q, pool_k, pool_v, lens, ql, tab)
+    k8 = ra.ragged_attention(q, k, v, lens, ql)
+    torch.cuda.synchronize()
+    if not torch.equal(k1, k8):
+        fail(f"f32 K8 differs from f32 K1 on the same decode wave: max abs "
+             f"diff {float((k1 - k8).abs().max())}")
+    log("  K8 ragged_attention float32 == K1 ragged_paged_attention "
+        "float32 on the Q 1 decode wave over the same K/V (slot rows, "
+        "pool), bit for bit")
+
+
 def check_k6_int8_equals_k8_int8(torch, seed):
     """bf16-q K6-int8 (``paged_verify_attention`` over an int8 cache) and
     bf16-q K8-int8 (``ragged_attention``) on phase 2's verify wave (Q 5,
@@ -946,7 +997,7 @@ def check_k2(torch, F, dtype, seed):
     log(f"  K2 flash_attention {dtype}: max_abs_err {err:.3e}, largest "
         f"err / bound {ratio:.4f} (flash_compare); lse {lse_err:.3e}, tol "
         f"{LSE_TOL:g}; kernel "
-        f"{ms:.4f} ms ({run_ms:.4f} back to back, {dev:.4f} on the "
+        f"{ms:.4f} ms ({run_ms:.4f} back to back, {ms_text(dev)} on the "
         f"device), plain {plain_ms:.4f} ms, SDPA is_causal on "
         f"[8,12,512,64] without the kv_lens mask {lib_ms:.4f} ms; bound "
         f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop"
@@ -1152,7 +1203,8 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 # makes them the int8 twins in kind_of), are split and merge kernels of
 # their own row-limit types (DecodeLim<layout>, VerifyLim<layout>), ahead of
 # K1/K8's and their twins'; K1/K8 are the CUDA-core ragged kernel (f32
-# q), f32 K1's split kernel and its merge (f32 q, Q <= 16) and the bf16
+# q), the f32 split kernel and its merge (f32 q, Q <= 16: f32 K1 and K8,
+# and f32-q K1-int8, whose signed char makes it the twin) and the bf16
 # wide, split and merge kernels (bf16 q, either cache), told apart by
 # their layout; K4-K7 otherwise the CUDA-core decode kernel, by NQ and
 # layout
@@ -1702,7 +1754,7 @@ def check_k3(torch, F, dtype, seed):
         log(f"  K3 flash_attention_bwd_{name} {dtype} [{TB},{TS},{H},{DH}] "
             f"causal: "
             f"max_abs_err {err:.3e} (atol, rtol) {K3_TOL[dtype]}; kernel "
-            f"{ms:.4f} ms ({run_ms:.4f} back to back, {dev:.4f} on the "
+            f"{ms:.4f} ms ({run_ms:.4f} back to back, {ms_text(dev)} on the "
             f"device), plain "
             f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by "
             f"{b_by} ({nbytes} B, {flops} flop, {prods} products)")
@@ -1730,7 +1782,7 @@ def check_k3(torch, F, dtype, seed):
     log(f"  K2 flash_attention {dtype} at the training shape: max_abs_err "
         f"{err_o:.3e}, largest err / bound {ratio_o:.4f} (flash_compare), "
         f"lse {lse_err:.3e}; kernel {ms:.4f} ms "
-        f"({run_ms:.4f} back to back, {dev:.4f} on the device), plain "
+        f"({run_ms:.4f} back to back, {ms_text(dev)} on the device), plain "
         f"{plain_ms:.4f} ms, SDPA forward ({backend}) {lib_fwd:.4f} ms "
         f"({lib_fwd_run:.4f} back to back); "
         f"bound {b_ms:.4f} ms by {b_by}"
@@ -2029,7 +2081,7 @@ def check_carry(torch, dtype, seed):
         f"full rotation, live carry: max_abs_err {err:.3e}, largest err "
         f"/ bound {ratio:.4f}, lse "
         f"{lse_err:.3e}; kernel {ms:.4f} ms ({run_ms:.4f} back to back, "
-        f"{dev:.4f} on the device), plain {plain_ms:.4f} ms, no "
+        f"{ms_text(dev)} on the device), plain {plain_ms:.4f} ms, no "
         f"single PyTorch call computes a carried forward; bound "
         f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop"
         f"{', 3 TF32 passes' if dtype == 'float32' else ''})")
@@ -2278,6 +2330,7 @@ def main(argv=None):
             torch, F, dt, args.seed, wave=w)
     kres = {k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
             for k, fn in checks.items()}
+    check_k8_equals_k1(torch, args.seed)
     check_k6_int8_equals_k8_int8(torch, args.seed)
 
     # ---- phase 3 ---- #

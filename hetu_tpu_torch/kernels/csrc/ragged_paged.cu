@@ -1,9 +1,9 @@
 // K1 and K8 over f32 caches: the f32 instances of ragged_body.cuh (the
 // int8 ones build apart, ragged_paged_int8.cu, so the two compile in
 // parallel; bf16 caches run on the tensor cores, ragged_paged_bf16.cu),
-// and f32 K1's narrow waves (Q <= 16) on the split-K CUDA-core body of
-// split_kv_f32.cuh.  f32 K1's wide waves (Q > 16) and f32 K8 at every Q
-// launch ragged_body.cuh.
+// and the narrow waves (Q <= 16) of both on the split-K CUDA-core body
+// of split_kv_f32.cuh.  Their wide waves (Q > 16) launch
+// ragged_body.cuh.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention, f32 caches.
@@ -28,15 +28,12 @@ extern "C" int hetu_ragged_paged_attention(
       rows, out, B, Q, H, Dh, static_cast<cudaStream_t>(stream)));
 }
 
-// Floats of the f32 workspace of a narrow K1 call (Q <= 16; 0 past it):
-// the split partials of every (slot, head, split, row); span is the
-// pool's positions per slot, T_width * bs.
+// Floats of the f32 workspace of a narrow K1 or K8 call (Q <= 16; 0 past
+// it): the split partials of every (slot, head, split, row); span is the
+// cache's positions per slot, T_width * bs for K1, S_max for K8.
 extern "C" long long hetu_ragged_f32_workspace(int B, int Q, int H, int Dh,
                                                int span) {
-  using hetu::tc::kSplitRows;
-  if (Q > kSplitRows) return 0;
-  return (long long)hetu::tc::SplitParts::floats(
-      B, H, hetu::tc::n_splits(span), Q, Dh);
+  return hetu::tc::split_f32_workspace(B, Q, H, Dh, span);
 }
 
 // K1 at Q in [1, 16] on the split-K body: as hetu_ragged_paged_attention
@@ -51,21 +48,30 @@ extern "C" int hetu_ragged_paged_attention_narrow(
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
   const hetu::RaggedLim lim{static_cast<const int*>(lengths),
                             static_cast<const int*>(q_lens)};
-  return hetu::tc::dispatch_split_f32(q, pool_k, pool_v, lengths, rows, lim,
-                                      out, ws, B, Q, H, Dh, T_width * bs,
-                                      stream);
+  return hetu::tc::dispatch_split_f32<float>(
+      q, pool_k, nullptr, pool_v, nullptr, lengths, rows, lim, out, ws, B,
+      Q, H, Dh, T_width * bs, stream);
+}
+
+// K8 at Q in [1, 16] on the split-K body: as hetu_ragged_attention with
+// no dtype argument and the workspace, on the same terms as K1's narrow
+// entry.  The same body, limits and split order over the same rows: f32
+// K8 equals f32 K1 bit for bit on one wave laid out either way.
+extern "C" int hetu_ragged_attention_narrow(
+    const void* q, const void* k, const void* v, const void* lengths,
+    const void* q_lens, void* out, void* ws, int B, int Q, int H, int Dh,
+    int S_max, void* stream) {
+  const hetu::RaggedLim lim{static_cast<const int*>(lengths),
+                            static_cast<const int*>(q_lens)};
+  return hetu::tc::dispatch_split_f32<float>(
+      q, k, nullptr, v, nullptr, lengths, hetu::SlotRows{S_max}, lim, out,
+      ws, B, Q, H, Dh, S_max, stream);
 }
 
 // Dynamic shared memory of one split block at head dim Dh, for the build
 // report.
 extern "C" int hetu_ragged_f32_smem(int Dh) {
-  using namespace hetu::tc;
-  switch (Dh) {
-    case 32: return int(split_f32_smem<32>());
-    case 64: return int(split_f32_smem<64>());
-    case 128: return int(split_f32_smem<128>());
-    default: return -1;
-  }
+  return hetu::tc::split_f32_smem_of<float>(Dh);
 }
 
 // K8: caches [B, S_max, H, Dh].

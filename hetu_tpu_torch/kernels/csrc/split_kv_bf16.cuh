@@ -23,7 +23,7 @@
 // (m, l, acc) per row, in f32, written to a workspace.  A second kernel
 // (split_merge_kernel) combines a row's splits in f32 and writes o.
 // split_kv_f32.cuh takes the same grid, partials and merge for f32 q
-// over an f32 cache on the CUDA cores.
+// over an f32 or an int8 cache on the CUDA cores.
 //
 // An int8 cache (KV = int8_t, one f32 scale per (position, head)) stages
 // its split's payload rows raw and their scales beside them, K's in the
@@ -348,17 +348,18 @@ split_merge_kernel(SplitParts parts, const int* __restrict__ lengths,
   }
 }
 
-// The operands of one split-K call: q and out bf16, the caches of KV
-// (bf16, or int8 with their f32 scale planes; null over a bf16 cache).
-template <typename KV> struct Operands {
-  const bf16* q;
+// The operands of one split-K call: q and out of T (bf16 here, f32 for
+// split_kv_f32.cuh), the caches of KV (bf16 or f32, or int8 with their
+// f32 scale planes; null over a float cache).
+template <typename KV, typename T = bf16> struct Operands {
+  const T* q;
   const KV* k;
   const float* k_scale;
   const KV* v;
   const float* v_scale;
   const int* lengths;
   const int* q_lens;
-  bf16* out;
+  T* out;
 };
 
 // One narrow call (Q <= 16): split_kv_kernel over (split, head, slot)

@@ -16,21 +16,23 @@ The cache is f32/bf16 of q's dtype, or int8 (``quant.kv_encode``'s
 payload) with ``k_scale``/``v_scale``, one f32 scale per (position,
 head): the int8 twins (K1-int8, K8-int8).  On CUDA tensors both launch
 ``csrc/ragged_paged.cu`` for f32 q over an f32 cache and
-``ragged_paged_int8.cu`` for f32 q over an int8 one (the CUDA cores,
-``ragged_body.cuh``: one block per 32-row q tile, the int8 tile
-dequantized to f32 as it is staged), except f32 K1's narrow waves (Q <=
-``NARROW_Q``, f32 q over an f32 pool), which run the split-K CUDA-core
-body of ``split_kv_f32.cuh`` in ``ragged_paged.cu`` (128-position splits
-in parallel, then a merge; 16-byte aligned q and pools or a raise); and
-``ragged_paged_bf16.cu`` for bf16 q over a bf16 or an int8 cache: the
-tensor cores, in two regimes chosen from Q (wgmma for Q > 16, split-K
-over positions and a merge for Q <= 16, one launch counted either way;
-an int8 payload widened to bf16 as it is staged, exactly, its scales
-applied in f32 to the scores and to P).  On CPU tensors they run their
-plain versions, :func:`ragged_paged_reference` and
+``ragged_paged_int8.cu`` for f32 q over an int8 one, on the CUDA cores
+in two regimes chosen from Q: the narrow waves (Q <= ``NARROW_Q``) of
+f32 K1, f32 K8 and f32-q K1-int8 run the split-K body of
+``split_kv_f32.cuh`` (128-position splits in parallel, then a merge; an
+int8 payload staged raw and dequantized as payload * scale as it is
+read; 16-byte aligned q, caches and scales or a raise), and their wide
+waves (Q > 16) and f32-q K8-int8 at every Q run ``ragged_body.cuh`` (one
+block per 32-row q tile, the int8 tile dequantized to f32 as it is
+staged); and ``ragged_paged_bf16.cu`` for bf16 q over a bf16 or an int8
+cache: the tensor cores, in two regimes chosen from Q (wgmma for Q > 16,
+split-K over positions and a merge for Q <= 16, one launch counted
+either way; an int8 payload widened to bf16 as it is staged, exactly,
+its scales applied in f32 to the scores and to P).  On CPU tensors they
+run their plain versions, :func:`ragged_paged_reference` and
 :func:`ragged_masked_reference`; nothing falls back from one to the
-other.  Over a bf16 cache the bf16 kernels round P to bf16 before P V,
-as the Pallas body does, and the plain versions do not:
+other.  Over a bf16 cache the bf16 kernels round P to bf16 before P V, as
+the Pallas body does, and the plain versions do not:
 :func:`ragged_rounding_bound` bounds the difference.  Over an int8 cache
 the Pallas body computes in f32 and never rounds P, and neither do the
 bf16-q kernels: P times the V scale goes into P V_int as a pair of bf16
@@ -49,7 +51,7 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 # K1/K8 waves at most this wide (Q) run the bf16 kernels' split-K regime,
-# and f32 K1's split-K body
+# and f32 K1/K8's and f32-q K1-int8's split-K body
 NARROW_Q = 16
 
 
@@ -200,7 +202,8 @@ def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
     if quant and (k.data_ptr() % 4 or v.data_ptr() % 4):
         raise ValueError(f"{kind} kernel reads int8 payloads in words of "
                          f"4 bytes or more: k/v must be 4-byte aligned "
-                         f"(16-byte for the bf16 ragged kernels)")
+                         f"(16-byte for the split-K and tensor-core "
+                         f"kernels)")
     for name, t in index.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
@@ -218,11 +221,20 @@ _BF16_LIBRARIES = {
                          "hetu_verify_bf16_workspace",
                          ("hetu_paged_verify_attention",
                           "hetu_paged_block_verify_attention"))}
-# the entries whose f32 calls over an f32 cache at Q <= NARROW_Q run the
-# split-K CUDA-core body of their own library instead: entry -> (the
-# narrow entry, its workspace-size entry)
-_F32_NARROW = {"hetu_ragged_paged_attention": (
-    "hetu_ragged_paged_attention_narrow", "hetu_ragged_f32_workspace")}
+# the calls whose f32 q at Q <= NARROW_Q runs the split-K CUDA-core body
+# (split_kv_f32.cuh): (entry, over an int8 cache) -> (library, narrow
+# entry, its workspace-size entry).  f32-q K8-int8 is not here: it runs
+# ragged_body.cuh at every Q
+_F32_NARROW = {
+    ("hetu_ragged_paged_attention", False): (
+        "ragged_paged", "hetu_ragged_paged_attention_narrow",
+        "hetu_ragged_f32_workspace"),
+    ("hetu_ragged_attention", False): (
+        "ragged_paged", "hetu_ragged_attention_narrow",
+        "hetu_ragged_f32_workspace"),
+    ("hetu_ragged_paged_attention", True): (
+        "ragged_paged_int8", "hetu_ragged_paged_attention_int8_narrow",
+        "hetu_ragged_f32_workspace")}
 
 
 def _launch(source, entry, name, q, kv, rest, ints, span=None):
@@ -244,11 +256,12 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     on 16-byte aligned q and caches (and scales), or raises; the
     workspace holds the f32 partials of the split-K body (Q <=
     NARROW_Q), sized by the library from the shapes and ``span``, and
-    K1/K8's wide regime takes none.  f32 q over an f32 cache at Q <=
-    NARROW_Q on an entry of ``_F32_NARROW`` (K1) launches that table's
-    narrow entry of the same library the same way (the split-K
-    CUDA-core body, f32 only, no dtype argument), on 16-byte aligned q
-    and caches or a raise.  One call counts as one launch,
+    K1/K8's wide regime takes none.  f32 q at Q <= NARROW_Q on an
+    (entry, cache) of ``_F32_NARROW`` (f32 K1 and K8 over an f32 cache,
+    f32-q K1-int8) launches that table's library and narrow entry the
+    same way (the split-K CUDA-core body, no dtype argument), on 16-byte
+    aligned q and caches (int8: payloads and scales) or a raise.  One
+    call counts as one launch,
     though a split-K call runs two device kernels (the splits, then
     their merge), and every K1/K8 call also counts under
     ``name:narrow`` or ``name:wide`` by its Q (``name`` with ``_int8``
@@ -266,11 +279,13 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
                              "scales too)")
         source, tail, ws_entry = tc[0], (), tc[1]
         entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
+    elif q.dtype == torch.float32 and narrow \
+            and (entry, quant) in _F32_NARROW:
+        _build.check_aligned((q, *kv), "f32 q and the caches (int8: "
+                             "their scales too)")
+        (source, entry, ws_entry), tail = _F32_NARROW[entry, quant], ()
     elif quant:
         source, entry = f"{source}_int8", f"{entry}_int8"
-    elif q.dtype == torch.float32 and narrow and entry in _F32_NARROW:
-        _build.check_aligned((q, *kv), "f32 q and the caches")
-        (entry, ws_entry), tail = _F32_NARROW[entry], ()
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -314,10 +329,9 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
     [N_blocks, bs, H] f32.  Returns o [B, Q, H, Dh] in q's dtype.  CUDA
     tensors launch the kernel (f32 or bf16 q; pools of q's dtype, or
     int8 with their scales; head dim 32/64/128, all contiguous, int32
-    indices; with bf16 q, q and the caches and scales 16-byte aligned,
-    with f32 q an int8 payload 4-byte aligned, and q and f32 pools
-    16-byte aligned at Q <= 16); CPU tensors run
-    :func:`ragged_paged_reference`."""
+    indices; with bf16 q, and with f32 q at Q <= 16, q and the caches
+    and scales 16-byte aligned, with f32 q at Q > 16 an int8 payload
+    4-byte aligned); CPU tensors run :func:`ragged_paged_reference`."""
     quant = _check_args("ragged_paged_attention", q, pool_k, pool_v,
                         lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens,
@@ -345,8 +359,9 @@ def ragged_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     with ``k_scale``/``v_scale`` [B, S_max, H] f32 for an int8 cache;
     lengths / q_lens: [B] int32 as in :func:`ragged_paged_attention`.
     Returns o [B, Q, H, Dh] in q's dtype.  CUDA tensors launch the kernel
-    (same terms as the paged one); CPU tensors run
-    :func:`ragged_masked_reference`."""
+    (same terms as the paged one, except that f32-q K8-int8 runs
+    ``ragged_body.cuh`` at every Q and needs only a 4-byte aligned
+    payload); CPU tensors run :func:`ragged_masked_reference`."""
     quant = _check_args("ragged_attention", q, k, v, lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens}, k_scale,
                         v_scale)

@@ -36,7 +36,9 @@ of ``ENGINES``: in bf16 the phase-split engines with ``spec=4`` on the
 slot rows (K6 and the draft's K4), on an int8 copy of them (K6-int8 and
 K4), on the pool (K7 and K4) and on an int8 pool (K7-int8 and K4), and
 the pool without spec (K5, whose only engine path this is); in f32 the
-auto paged mixed engine (K1 on every wave): one run for tok/s, then one
+auto paged mixed engine (K1 on every wave), the contiguous mixed engine
+(K8 on every wave) and the paged mixed engine over an int8 pool
+(K1-int8 on every wave): one run for tok/s, then one
 under torch.profiler (device ms by kind, tables into DIR/<run>/);
 ``--engine-labels`` runs only the engines of those labels.  With
 ``--train`` each tree also trains GPT-2-small in f32 at B 8, S 1024 for
@@ -94,7 +96,9 @@ def _bound_of(ra):
 # (int8 slot rows), K7 (the pool) or K7-int8 (an int8 pool) and their
 # drafts K4 (the draft's own cache is a float one); the pool without spec
 # runs K5 in its decode waves; the f32 paged mixed engine runs K1 on
-# every wave (narrow decode waves, wide prompt chunks)
+# every wave (narrow decode waves, wide prompt chunks), the f32
+# contiguous mixed engine K8 and the f32 paged mixed engine over an int8
+# pool K1-int8, the same way
 ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
             ("K6 paged_verify_attention", "K4 paged_decode_attention")),
            ("contiguous-split-int8", "contiguous-split", 4, "int8",
@@ -109,7 +113,11 @@ ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
            ("paged-split-nospec", "paged-split", 0, None, "bfloat16",
             ("K5 paged_block_decode_attention",)),
            ("paged-mixed-f32", "paged-mixed", 0, None, "float32",
-            ("K1 ragged_paged_attention",)))
+            ("K1 ragged_paged_attention",)),
+           ("contiguous-mixed-f32", "contiguous-mixed", 0, None, "float32",
+            ("K8 ragged_attention",)),
+           ("paged-mixed-int8-f32", "paged-mixed", 0, "int8", "float32",
+            ("K1-int8 ragged_paged_attention",)))
 
 
 def engines(torch, cs, seed, out_dir, labels):

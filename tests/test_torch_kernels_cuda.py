@@ -23,9 +23,11 @@ exactly, the K scale applied to the scores in f32, P times the V scale
 split into a bf16 pair, two products) do not round P, as the Pallas int8
 bodies, which compute in f32, do not: they are held to the bf16
 tolerance alone.
-f32 K1's narrow waves (Q <= 16) run the split-K CUDA-core body
-(csrc/split_kv_f32.cuh) and are held to f32's tolerance; bf16 q's
-K6-int8 runs K8-int8's split body and equals it bit for bit.
+The narrow waves (Q <= 16) of f32 K1, f32 K8 and f32-q K1-int8 run the
+split-K CUDA-core body (csrc/split_kv_f32.cuh) and are held to f32's
+tolerance; f32 K8 equals f32 K1 bit for bit on one wave, and f32-q
+K1-int8 equals f32 K1 over the decoded cache; bf16 q's K6-int8 runs
+K8-int8's split body and equals it bit for bit.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
@@ -46,7 +48,7 @@ from hetu_tpu_torch.kernels import flash_attention as tfa
 from hetu_tpu_torch.kernels import (launch_counts, regime_counts,
                                     reset_launches)
 from hetu_tpu_torch.kernels import ragged_attention as tra
-from hetu_tpu_torch.quant import kv_encode
+from hetu_tpu_torch.quant import kv_decode, kv_encode
 
 TOL = {"float32": dict(atol=1e-5, rtol=0.0),
        "bfloat16": dict(atol=2.0 ** -12, rtol=2.0 ** -7)}
@@ -288,18 +290,23 @@ def _nonzero_launches():
 @pytest.mark.parametrize("Q", [1, 2, 5, 8, 16])
 def test_f32_ragged_narrow_waves_on_the_split_body(cuda, monkeypatch, Dh,
                                                    Q):
-    """f32 K1 on decode and verify waves (Q <= 16: the split-K CUDA-core
-    body of split_kv_f32.cuh, then the merge): lengths 1000, 257, 1 and
-    0 cross several 128-position key splits, a q-block of Q rows, a
-    shorter one (dead rows), an inert q_len-0 slot with a length sharing
-    a pool block, the length-0 slot; within 1e-5 of the plain version,
-    the library ``ragged_paged`` loaded and its narrow entry called, one
-    launch counted under ``ragged_paged_attention`` and ``:narrow``, the
-    length-0 slot zero."""
+    """f32 K1, f32 K8 and f32-q K1-int8 on decode and verify waves (Q <=
+    16: the split-K CUDA-core body of split_kv_f32.cuh, then the merge):
+    lengths 1000, 257, 1 and 0 cross several 128-position key splits, a
+    q-block of Q rows, a shorter one (dead rows), an inert q_len-0 slot
+    with a length sharing a pool block, the length-0 slot.  Each within
+    1e-5 of its plain version, its library loaded and its narrow entry
+    called, one launch counted under the wrapper's name and ``:narrow``,
+    the length-0 slot zero: K1 (``ragged_paged``) over the pool, K8 (the
+    same library) over the pool's slot rows, equal to K1 bit for bit
+    (one body, one row limit, one split order), and K1-int8
+    (``ragged_paged_int8``) over the pool's ``kv_encode``, equal bit for
+    bit to K1 over its ``kv_decode`` (the body dequantizes the payload to
+    exactly those values)."""
     q, pk, pv, lens, ql, tab = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 0, 0],
                                           seed=7 * Q + Dh)
-    args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + [
-        torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + idx
     libs, entries = _record_loads(monkeypatch)
     reset_launches()
     got = tra.ragged_paged_attention(*args)
@@ -312,10 +319,44 @@ def test_f32_ragged_narrow_waves_on_the_split_body(cuda, monkeypatch, Dh,
     assert_within(got, tra.ragged_paged_reference(*args), "float32")
     assert (got[3] == 0).all()
 
+    k, v = (_slot_rows(x, tab).to(cuda) for x in (pk, pv))
+    slot_args = [args[0], k, v] + idx[:2]
+    del libs[:], entries[:]
+    reset_launches()
+    got8 = tra.ragged_attention(*slot_args)
+    torch.cuda.synchronize()
+    assert libs == ["ragged_paged"]
+    assert entries == ["hetu_ragged_f32_workspace",
+                       "hetu_ragged_attention_narrow"]
+    assert _nonzero_launches() == {"ragged_attention": 1,
+                                   "ragged_attention:narrow": 1}
+    assert_within(got8, tra.ragged_masked_reference(*slot_args), "float32")
+    assert torch.equal(got8, got)
+
+    (k8, ks), (v8, vs) = (_int8(x, cuda) for x in (pk, pv))
+    sc = dict(k_scale=ks, v_scale=vs)
+    del libs[:], entries[:]
+    reset_launches()
+    got_q = tra.ragged_paged_attention(args[0], k8, v8, *idx, **sc)
+    torch.cuda.synchronize()
+    assert libs == ["ragged_paged_int8"]
+    assert entries == ["hetu_ragged_f32_workspace",
+                       "hetu_ragged_paged_attention_int8_narrow"]
+    assert _nonzero_launches() == {"ragged_paged_attention_int8": 1,
+                                   "ragged_paged_attention_int8:narrow": 1}
+    assert_within(got_q, tra.ragged_paged_reference(args[0], k8, v8, *idx,
+                                                    ks, vs), "float32")
+    assert (got_q[3] == 0).all()
+    deq = tra.ragged_paged_attention(args[0], kv_decode(k8, ks),
+                                     kv_decode(v8, vs), *idx)
+    assert torch.equal(got_q, deq)
+
 
 def test_f32_ragged_wide_waves_keep_the_cuda_core_body(cuda, monkeypatch):
-    """f32 K1 at Q 17 (the wide regime) and f32 K8 at Q 8 still launch
-    ragged_body.cuh's entries, within 1e-5 of their plain versions."""
+    """f32 K1 and f32 K8 at Q 17 (the wide regime) and f32-q K1-int8 at Q
+    17 still launch ragged_body.cuh's entries, and so does f32-q K8-int8
+    at Q 1 (its narrow waves are not on the split body); each within
+    1e-5 of its plain version."""
     q, pk, pv, lens, ql, tab = _long_wave(64, 17, [17, 9, 0, 0], seed=17)
     idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
     args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + idx
@@ -327,30 +368,63 @@ def test_f32_ragged_wide_waves_keep_the_cuda_core_body(cuda, monkeypatch):
     assert _nonzero_launches() == {"ragged_paged_attention": 1,
                                    "ragged_paged_attention:wide": 1}
     assert_within(got, tra.ragged_paged_reference(*args), "float32")
-    q8 = q[:, :8].contiguous().to(cuda)
-    ql8 = torch.clamp(idx[1], max=8)
     k, v = (_slot_rows(x, tab).to(cuda) for x in (pk, pv))
-    got = tra.ragged_attention(q8, k, v, idx[0], ql8)
+    got = tra.ragged_attention(args[0], k, v, *idx[:2])
     torch.cuda.synchronize()
     assert libs == ["ragged_paged"] * 2
     assert entries[1:] == ["hetu_ragged_attention"]
-    assert_within(got, tra.ragged_masked_reference(q8, k, v, idx[0], ql8),
-                  "float32")
+    assert regime_counts()["ragged_attention:wide"] == 1
+    assert_within(got, tra.ragged_masked_reference(args[0], k, v,
+                                                   *idx[:2]), "float32")
+    (k8, ks), (v8, vs) = (_int8(x, cuda) for x in (pk, pv))
+    got = tra.ragged_paged_attention(args[0], k8, v8, *idx, k_scale=ks,
+                                     v_scale=vs)
+    torch.cuda.synchronize()
+    assert libs[2:] == ["ragged_paged_int8"]
+    assert entries[2:] == ["hetu_ragged_paged_attention_int8"]
+    assert regime_counts()["ragged_paged_attention_int8:wide"] == 1
+    assert_within(got, tra.ragged_paged_reference(args[0], k8, v8, *idx,
+                                                  ks, vs), "float32")
+    q1 = q[:, :1].contiguous().to(cuda)
+    ql1 = torch.clamp(idx[1], max=1)
+    (k8, ks), (v8, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+    got = tra.ragged_attention(q1, k8, v8, idx[0], ql1, k_scale=ks,
+                               v_scale=vs)
+    torch.cuda.synchronize()
+    assert libs[3:] == ["ragged_paged_int8"]
+    assert entries[3:] == ["hetu_ragged_attention_int8"]
+    assert regime_counts()["ragged_attention_int8:narrow"] == 1
+    assert_within(got, tra.ragged_masked_reference(q1, k8, v8, idx[0], ql1,
+                                                   ks, vs), "float32")
 
 
 def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
-    """f32 K1's split body copies 16-byte chunks: at Q <= 16 a q or a
-    pool 8 bytes off a 16-byte boundary is refused, not read, and
-    nothing launches; at Q 17 (ragged_body.cuh, 4-byte reads) the same
-    pool is taken."""
+    """The f32 split body copies 16-byte chunks: at Q <= 16 a q or a pool
+    8 bytes off a 16-byte boundary is refused by f32 K1, so are such
+    slot rows by f32 K8, and an int8 payload 8 bytes off (or a scale
+    plane 4 bytes off) by f32-q K1-int8; nothing launches.  At Q 17
+    (ragged_body.cuh, 4-byte reads) the same pool and payload are taken,
+    and so is the payload by f32-q K8-int8 at Q 8."""
     q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
     idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
     qd, kd, vd = q.to(cuda), pk.to(cuda), pv.to(cuda)
+    rows = _slot_rows(pk, tab).to(cuda)
+    (k8, ks), (v8, vs) = (_int8(x, cuda) for x in (pk, pv))
     reset_launches()
     with pytest.raises(ValueError, match="16-byte"):
         tra.ragged_paged_attention(qd, _off16(kd, 8), vd, *idx)
     with pytest.raises(ValueError, match="16-byte"):
         tra.ragged_paged_attention(_off16(qd, 8), kd, vd, *idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_attention(qd, rows, _off16(rows, 8), *idx[:2])
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_attention(_off16(qd, 8), rows, rows, *idx[:2])
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(qd, _off16(k8, 8), v8, *idx, k_scale=ks,
+                                   v_scale=vs)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(qd, k8, v8, *idx, k_scale=ks,
+                                   v_scale=_off16(vs, 4))
     assert not any(launch_counts().values())
     q17, *_ = _wave(64, 16, 17)
     args = [q17.to(cuda), _off16(kd, 8), vd] + idx
@@ -358,6 +432,18 @@ def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
     torch.cuda.synchronize()
     assert regime_counts()["ragged_paged_attention:wide"] == 1
     assert_within(got, tra.ragged_paged_reference(*args), "float32")
+    args = [q17.to(cuda), _off16(k8, 8), v8] + idx
+    got = tra.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert regime_counts()["ragged_paged_attention_int8:wide"] == 1
+    assert_within(got, tra.ragged_paged_reference(*args, ks, vs), "float32")
+    (r8, rs), (w8, ws) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+    args = [qd, _off16(r8, 8), w8] + idx[:2]
+    got = tra.ragged_attention(*args, k_scale=rs, v_scale=ws)
+    torch.cuda.synchronize()
+    assert regime_counts()["ragged_attention_int8:narrow"] == 1
+    assert_within(got, tra.ragged_masked_reference(*args, rs, ws),
+                  "float32")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1190,8 +1276,8 @@ def _off16(t, nbytes):
 def test_bf16_ragged_int8_wrappers_refuse_misaligned_data(cuda):
     """bf16 q's int8 twins of K1/K8 copy 16-byte chunks of the payload: a
     payload 8 bytes off a 16-byte boundary is refused, not read, and so
-    is a scale plane 4 bytes off; f32 q's twin reads 4-byte words and
-    takes the same payload."""
+    is a scale plane 4 bytes off; f32 q's twin past 16 rows
+    (ragged_body.cuh) reads 4-byte words and takes the same payload."""
     q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
     (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
     lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
@@ -1206,12 +1292,13 @@ def test_bf16_ragged_int8_wrappers_refuse_misaligned_data(cuda):
         tra.ragged_attention(qb, rows[0], rows[1], lens_d, ql_d,
                              k_scale=rows[2], v_scale=_off16(rows[3], 4))
     reset_launches()
-    got = tra.ragged_paged_attention(q.to(cuda), bad, v, lens_d, ql_d,
-                                     tab_d, k_scale=ks, v_scale=vs)
+    q17 = _wave(64, 16, 17)[0].to(cuda)
+    got = tra.ragged_paged_attention(q17, bad, v, lens_d, ql_d, tab_d,
+                                     k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     assert launch_counts()["ragged_paged_attention_int8"] == 1
-    want = tra.ragged_paged_reference(q.to(cuda), k, v, lens_d, ql_d, tab_d,
-                                      ks, vs)
+    want = tra.ragged_paged_reference(q17, k, v, lens_d, ql_d, tab_d, ks,
+                                      vs)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **TOL["float32"])
 

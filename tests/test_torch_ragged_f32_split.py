@@ -1,7 +1,9 @@
-"""The arithmetic of f32 K1's narrow waves on the card (``ragged_paged_
-attention``, f32 q over an f32 pool at Q <= 16: the split-K CUDA-core
-body of csrc/split_kv_f32.cuh) against the JAX package's Pallas kernel in
-interpret mode, and against the port's plain version, within f32's
+"""The arithmetic of the narrow waves on the card of f32 K1 and f32 K8
+(``ragged_paged_attention`` / ``ragged_attention``, f32 q over an f32
+pool or slot rows at Q <= 16) and of f32-q K1-int8 (f32 q over an int8
+pool with f32 scales): the split-K CUDA-core body of
+csrc/split_kv_f32.cuh, against the JAX package's Pallas kernels in
+interpret mode, and against the port's plain versions, within f32's
 tolerance.
 
 The body cuts each slot's positions into splits of 128; in a split, warp
@@ -9,16 +11,20 @@ w takes 32 keys, forms s = q . k in f32, masks the keys past each row's
 limit, and takes its softmax in log2 units: m_w = max(s) Dh^-1/2 log2 e,
 p = 2^(s Dh^-1/2 log2 e - m_w), l_w = sum p, acc_w = p . v, nothing
 rounded.  The four warps of a split, then the splits, merge by 2^(m_i -
-M) in f32, skipping those with no live key, and o = acc / l.
+M) in f32, skipping those with no live key, and o = acc / l.  An int8
+cache is dequantized as payload * scale as the products read it (the
+plain version's dequantized values), and the same arithmetic follows.
 :func:`_emulate` is that arithmetic in PyTorch on the CPU.  It is held
-to JAX's f32 ``ragged_paged_attention`` (interpret mode) and to
-``ragged_paged_reference`` within 1e-5 + 1e-5 |want| element by element
-(the sums taken in another order, and 2^x in place of e^x), over waves
-of 16-position pool blocks: Q 1 (decode), 8 (verify) and 16 (the widest
-narrow wave); head dims 32, 64 and 128; lengths on and off split and
-block edges (300, 256, 131, 128, 16, 5, 0, 33), an inert q_len-0 slot
-with a length, dead rows, and two slots sharing pool blocks; the
-length-0 slot is zero.
+to JAX's f32 ``ragged_paged_attention`` (the pool) and
+``ragged_attention`` (the pool's slot rows), over the f32 cache and
+over its ``kv_encode`` with ``k_scale``/``v_scale`` (interpret mode), and
+to ``ragged_paged_reference`` / ``ragged_masked_reference`` within 1e-5
++ 1e-5 |want| element by element (the sums taken in another order, and
+2^x in place of e^x), over waves of 16-position pool blocks: Q 1
+(decode), 8 (verify) and 16 (the widest narrow wave); head dims 32, 64
+and 128; lengths on and off split and block edges (300, 256, 131, 128,
+16, 5, 0, 33), an inert q_len-0 slot with a length, dead rows, and two
+slots sharing pool blocks; the length-0 slot is zero.
 """
 
 import math
@@ -31,6 +37,7 @@ import jax.numpy as jnp
 
 from hetu_tpu.kernels import ragged_attention as jra
 from hetu_tpu_torch.kernels import ragged_attention as tra
+from hetu_tpu_torch.quant import kv_decode, kv_encode
 
 H, BS, T = 2, 16, 20
 ATOL, RTOL = 1e-5, 1e-5
@@ -115,19 +122,51 @@ def _emulate(q, k, v, lengths, q_lens):
     return o.permute(0, 2, 1, 3)                        # [B, Q, H, Dh]
 
 
-def _case(Q, Dh, seed):
+def _case(Q, Dh, seed, layout, cache):
     """(JAX's f32 o, the port's plain o, the emulated body's o), numpy,
-    one wave through the pool."""
+    one wave through the pool (K1) or its slot rows (K8), over the f32
+    cache or (``cache`` "int8") its ``kv_encode``, which the body
+    dequantizes to ``kv_decode``'s values."""
     q, pk, pv, lens, ql, tab = _wave(Q, Dh, seed)
-    want = jra.ragged_paged_attention(
-        *(jnp.asarray(x.numpy()) for x in (q, pk, pv, lens, ql, tab)),
-        interpret=True)
-    plain = tra.ragged_paged_reference(q, pk, pv, lens, ql, tab)
-    rows_k, rows_v = (x[tab.long()].reshape(len(lens), T * BS, H, Dh)
-                      for x in (pk, pv))
-    emu = _emulate(q, rows_k, rows_v, lens, ql)
+    B = len(lens)
+
+    def rows(x):
+        """The pool's slot rows [B, T*BS, ...] (a scale plane too)."""
+        return x[tab.long()].reshape(B, T * BS, *x.shape[2:])
+    kv = (pk, pv) if layout == "pool" else (rows(pk), rows(pv))
+    sc = ()
+    if cache == "int8":
+        (k8, ks), (v8, vs) = kv_encode(pk), kv_encode(pv)
+        kv, sc = (k8, v8), (ks, vs)
+        if layout == "slots":
+            kv, sc = tuple(map(rows, kv)), tuple(map(rows, sc))
+    idx = (lens, ql, tab) if layout == "pool" else (lens, ql)
+    jax_fn = (jra.ragged_paged_attention if layout == "pool"
+              else jra.ragged_attention)
+    want = jax_fn(*(jnp.asarray(x.numpy()) for x in (q, *kv, *idx)),
+                  **dict(zip(("k_scale", "v_scale"),
+                             (jnp.asarray(x.numpy()) for x in sc))),
+                  interpret=True)
+    if layout == "pool":
+        plain = tra.ragged_paged_reference(q, *kv, *idx, *sc)
+    else:
+        plain = tra.ragged_masked_reference(q, *kv, *idx, *sc)
+    if cache == "int8":
+        pk, pv = kv_decode(k8, ks), kv_decode(v8, vs)
+    emu = _emulate(q, rows(pk), rows(pv), lens, ql)
     assert want.dtype == jnp.float32 and emu.dtype == torch.float32
     return np.asarray(want), plain.numpy(), emu.numpy()
+
+
+# (Dh, Q, layout, cache): f32 K1 (the f32 pool) keeps its ids
+# "Dh-Q", the slot rows (K8) and the int8 caches (K1-int8, and the same
+# arithmetic over slot rows) add theirs
+CASES = [pytest.param(Dh, Q, layout, cache,
+                      id=f"{Dh}-{Q}" + ("" if (layout, cache) == ("pool",
+                                                                  "f32")
+                                        else f"-{layout}-{cache}"))
+         for layout in ("pool", "slots") for cache in ("f32", "int8")
+         for Dh in (32, 64, 128) for Q in (1, 8, 16)]
 
 
 def _ratio(want, got):
@@ -135,22 +174,23 @@ def _ratio(want, got):
     return float((np.abs(got - want) / (ATOL + RTOL * np.abs(want))).max())
 
 
-@pytest.mark.parametrize("Q", [1, 8, 16])
-@pytest.mark.parametrize("Dh", [32, 64, 128])
-def test_f32_split_arithmetic_holds_the_jax_kernel(Q, Dh):
-    """The split body's f32 arithmetic against JAX's Pallas K1 in f32
+@pytest.mark.parametrize("Dh,Q,layout,cache", CASES)
+def test_f32_split_arithmetic_holds_the_jax_kernel(Q, Dh, layout, cache):
+    """The split body's f32 arithmetic against JAX's Pallas K1 (the pool)
+    or K8 (slot rows) in f32, over an f32 cache or its int8 encoding
     (interpret mode): within 1e-5 + 1e-5 |want|, the length-0 slot
     exactly zero on both."""
-    want, _, emu = _case(Q, Dh, seed=Q + Dh)
+    want, _, emu = _case(Q, Dh, Q + Dh, layout, cache)
     assert _ratio(want, emu) <= 1.0
     assert (want[6] == 0).all() and (emu[6] == 0).all()
 
 
-@pytest.mark.parametrize("Q", [1, 8, 16])
-@pytest.mark.parametrize("Dh", [32, 64, 128])
-def test_f32_split_arithmetic_holds_the_plain_version(Q, Dh):
-    """The same arithmetic against ``ragged_paged_reference``, which the
-    kernel is held to on the card, within the same tolerance."""
-    _, plain, emu = _case(Q, Dh, seed=2 * Q + Dh)
+@pytest.mark.parametrize("Dh,Q,layout,cache", CASES)
+def test_f32_split_arithmetic_holds_the_plain_version(Q, Dh, layout,
+                                                      cache):
+    """The same arithmetic against ``ragged_paged_reference`` (the pool)
+    or ``ragged_masked_reference`` (slot rows), which the kernels are
+    held to on the card, within the same tolerance."""
+    _, plain, emu = _case(Q, Dh, 2 * Q + Dh, layout, cache)
     assert _ratio(plain, emu) <= 1.0
     assert (plain[6] == 0).all()
