@@ -10,18 +10,19 @@ non-zero and prints no result line):
 1. The card's name and power limit (``nvidia-smi``); every kernel
    library built by ``nvcc`` from ``hetu_tpu_torch/kernels/csrc``, all
    sources at once (seconds printed); one line per instance of the
-   kernels on the tensor cores (f32 K2 and K2-carry on mma.sync TF32,
-   three passes; bf16 K2 and K2-carry on wgmma, K3's two on
-   mma.sync, K1/K8's wide kernel on wgmma and split kernel on
-   mma.sync, each over a bf16 and an int8 cache, and K4-K7's split
+   kernels on the tensor cores (f32 K2 and K2-carry and f32 K3's two
+   on mma.sync TF32, three passes; bf16 K2 and K2-carry on wgmma, bf16
+   K3's two on mma.sync, K1/K8's wide kernel on wgmma and split kernel
+   on mma.sync, each over a bf16 and an int8 cache, and K4-K7's split
    kernel on mma.sync, K6's and K7's also over an int8 cache), and of
    the f32 split kernel on the CUDA cores (f32 K1 over the pool, f32 K8
-   over slot rows, f32-q K1-int8 over an int8 pool): registers and spills
-   (``ptxas -v``), dynamic shared memory, and the HGMMA / HMMA (TF32
-   among them) / FFMA instructions of its SASS where the toolkit has
-   ``cuobjdump`` (a tensor-core instance with no HGMMA or HMMA, the f32
-   forward with no TF32 one, the f32 split kernel with any of them or
-   no FFMA, or an instance with a spill, fails).
+   over slot rows, f32-q K1-int8 over an int8 pool, f32-q K8-int8 over
+   int8 slot rows): registers and spills (``ptxas -v``), dynamic shared
+   memory, and the HGMMA / HMMA (TF32 among them) / FFMA instructions of
+   its SASS where the toolkit has ``cuobjdump`` (a tensor-core instance
+   with no HGMMA or HMMA, an f32 flash kernel with no TF32 one, the f32
+   split kernel with any of them or no FFMA, or an instance with a
+   spill, fails).
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes, f32 and bf16, with the max abs error beside a stated
    tolerance, and CUDA-event times (median of several warm runs) of the
@@ -36,10 +37,12 @@ non-zero and prints no result line):
    with a 1024-row prompt q-block; then K1 and K8 on a decode wave (Q 1)
    and a verify wave (Q 8, K6's q_lens) over the same slots (K1 and K8
    also timed ten back to back; the narrow waves of f32 K1, f32 K8 and,
-   in phase 7, f32-q K1-int8 run the split-K CUDA-core body,
-   csrc/split_kv_f32.cuh, held to 1e-5); then f32 K8 equal to f32 K1
-   bit for bit on the same decode wave (Q 1) over the pool's slot rows
-   and the pool; last bf16-q K6-int8 equal to bf16-q K8-int8 bit for
+   in phase 7, f32-q K1-int8 and K8-int8 run the split-K CUDA-core
+   body, csrc/split_kv_f32.cuh, held to 1e-5); then f32 K8 equal to f32
+   K1 bit for bit on the same decode wave (Q 1) over the pool's slot
+   rows and the pool, and f32-q K8-int8 equal to f32-q K1-int8 the same
+   way over the pool's int8 encoding; last bf16-q K6-int8 equal to
+   bf16-q K8-int8 bit for
    bit on the same Q 5 verify wave over the same int8 slot rows.  bf16
    K1 and K8 (csrc/ragged_paged_bf16.cu) round P to bf16 before P V as
    the Pallas body does and their plain
@@ -51,7 +54,8 @@ non-zero and prints no result line):
    are also timed ten back to back and on the device.  f32 K2 (here,
    at phase 8's training shape and as K2-carry in phase 9) runs three
    TF32 passes on the tensor cores and keeps f32's 1e-5; its bound
-   counts 3 x its flops at TF32's 495 TFLOP/s (``TF32X3``).
+   counts 3 x its flops at TF32's 495 TFLOP/s (``TF32X3``), and so do
+   f32 K3's (phase 8), which runs the same way.
    bf16 K2 (here, at phase 8's training shape and as K2-carry in phase
    9) is held element by element to 2^-7 sum(p |v_d|) / l of its row
    (``bf16_rounding_bound``) + 1e-5, and 2^-7 rel: it rounds P to bf16
@@ -195,9 +199,9 @@ import numpy as np
 # flop/s by operand type (f32 on the CUDA cores, bf16 on tensor cores)
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the f32 flash forward (K2, K2-carry) runs each f32 product as three
-# TF32 products on the tensor cores (495 TFLOP/s): its least time for
-# the same work counts 3 x the flops at that rate
+# the f32 flash kernels (K2, K2-carry and K3's two) run each f32 product
+# as three TF32 products on the tensor cores (495 TFLOP/s): their least
+# time for the same work counts 3 x the flops at that rate
 TF32X3 = (3, 495e12)
 # kernel vs plain version, element by element: |got - want| <= atol +
 # rtol * |want|.  Both sides accumulate in f32; in bf16 both round their
@@ -356,15 +360,16 @@ def bound(nbytes, flops, dtype, method=None):
     """(least ms, "bytes" or "operations"): the larger of the bytes at
     HBM_BYTES_S and the flops at the dtype's peak, or with ``method`` =
     (passes, rate) passes x the flops at that rate (the f32 flash
-    forward: ``TF32X3``)."""
+    kernels: ``TF32X3``)."""
     passes, rate = method or (1, PEAK_FLOPS[dtype])
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = passes * flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k2_method(dtype):
-    """The bound's method of the flash forward in ``dtype``."""
+def tf32_method(dtype):
+    """The bound's method of the flash kernels (K2, K2-carry, K3) in
+    ``dtype``: f32 runs each product as three TF32 products."""
     return TF32X3 if dtype == "float32" else None
 
 
@@ -376,16 +381,21 @@ def k2_method(dtype):
 # of the dynamic shared memory query and its arguments after Dh, and a
 # regular expression the instances' mangled names must match, one at
 # least; the bf16 ragged, decode and verify kernels' query also takes
-# the cache, 1 for int8): the f32 flash forward on TF32, then the bf16
-# kernels; the split kernel of decode_attention_bf16 once for K4/K5
+# the cache, 1 for int8): the f32 flash forward and K3's two f32
+# kernels on TF32, then the bf16 kernels; the split kernel of
+# decode_attention_bf16 once for K4/K5
 # (DecodeLim), once for K6/K7, K6-int8 and K7-int8 (VerifyLim) and once
 # more for K6-int8 alone (int8, "a", over SlotRows); last the f32 split
 # kernel of the narrow waves, which runs on the CUDA cores, once for f32
-# K1 (TableRows), once for f32 K8 (SlotRows) and once for f32-q K1-int8
-# (its own library): its SASS must show FFMA and no HMMA or HGMMA
-# (``FFMA_KERNELS``)
+# K1 (TableRows), once for f32 K8 (SlotRows) and once each for f32-q
+# K1-int8 and K8-int8 (its own library): its SASS must show FFMA and no
+# HMMA or HGMMA (``FFMA_KERNELS``)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_flash_fwd_smem", (), ""),
+              ("flash_bwd", "flash_bwd_dkv_kernel",
+               "hetu_flash_bwd_smem", (1,), ""),
+              ("flash_bwd", "flash_bwd_dq_kernel",
+               "hetu_flash_bwd_smem", (0,), ""),
               ("flash_fwd_bf16", "flash_fwd_bf16_kernel",
                "hetu_flash_fwd_bf16_smem", (), ""),
               ("flash_bwd_bf16", "flash_bwd_dkv_bf16_kernel",
@@ -408,9 +418,14 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
               ("ragged_paged", "split_kv_f32_kernel",
                "hetu_ragged_f32_smem", (), "SlotRows"),
               ("ragged_paged_int8", "split_kv_f32_kernel",
-               "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*TableRows"))
+               "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*TableRows"),
+              ("ragged_paged_int8", "split_kv_f32_kernel",
+               "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*SlotRows"))
 # the kernels of TC_KERNELS that run on the CUDA cores, by symbol
 FFMA_KERNELS = ("split_kv_f32_kernel",)
+# the libraries whose tensor-core kernels must show TF32 HMMA: the f32
+# flash forward and backward
+TF32_LIBRARIES = ("flash_fwd", "flash_bwd")
 
 
 def ptxas_entries(log):
@@ -468,17 +483,17 @@ def sass_mma_counts(lib_path):
 
 def tc_report(_build, paths):
     """One line per instance of a tensor-core kernel (f32 K2 and
-    K2-carry on TF32, bf16 K2 and K2-carry, K3's two, the wide and split
-    ragged kernels of K1/K8 and of their int8 twins, the split kernel of
-    K4/K5, and of K6/K7, K6-int8 and K7-int8) and of the f32 split
-    kernel of f32 K1, f32 K8 and f32-q K1-int8 on the CUDA cores:
-    registers and spills (ptxas, from this process's build), dynamic
-    shared memory, and the HMMA (TF32 among
-    them) / HGMMA / FFMA instructions of its SASS; fails when a
-    tensor-core instance has no tensor-core instruction, when the f32
-    forward has no TF32 one, when a CUDA-core instance (``FFMA_KERNELS``)
-    has one or has no FFMA, when it spills, or when a row of
-    ``TC_KERNELS`` has no instance in the SASS."""
+    K2-carry and f32 K3's two on TF32, bf16 K2 and K2-carry, bf16 K3's
+    two, the wide and split ragged kernels of K1/K8 and of their int8
+    twins, the split kernel of K4/K5, and of K6/K7, K6-int8 and K7-int8)
+    and of the f32 split kernel of f32 K1, f32 K8, f32-q K1-int8 and
+    f32-q K8-int8 on the CUDA cores: registers and spills (ptxas, from
+    this process's build), dynamic shared memory, and the HMMA (TF32
+    among them) / HGMMA / FFMA instructions of its SASS; fails when a
+    tensor-core instance has no tensor-core instruction, when an f32
+    flash kernel (``TF32_LIBRARIES``) has no TF32 one, when a CUDA-core
+    instance (``FFMA_KERNELS``) has one or has no FFMA, when it spills,
+    or when a row of ``TC_KERNELS`` has no instance in the SASS."""
     sass = {}
     for lib_name, sym, smem_fn, extra, kind in TC_KERNELS:
         if lib_name not in sass:
@@ -522,7 +537,7 @@ def tc_report(_build, paths):
             if mma is not None and not ffma and mma[name][0] + mma[name][1] \
                     == 0:
                 fail(f"{name} has no HMMA or HGMMA instruction")
-            if mma is not None and lib_name == "flash_fwd" \
+            if mma is not None and lib_name in TF32_LIBRARIES \
                     and mma[name][2] == 0:
                 fail(f"{name} has no TF32 HMMA instruction")
             if r and (r[1] or r[2]):
@@ -897,32 +912,42 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
         rounding=None if int8 else rounding, b2b=True)
 
 
-def check_k8_equals_k1(torch, seed):
+def check_k8_equals_k1(torch, seed, int8=False):
     """f32 K8 (``ragged_attention`` over slot rows) and f32 K1
     (``ragged_paged_attention`` through the tables) on phase 2's decode
     wave (Q 1) over the same K/V: the pool of ``pool_case`` and its slot
-    rows gathered through the tables.  One split body, one row limit,
-    one split order (the span of both is 1024 positions), only the row
-    addresses differ, so the outputs are equal bit for bit."""
+    rows gathered through the tables; with ``int8`` f32-q K8-int8 and
+    f32-q K1-int8 over the pool's encoding on the card (payload and
+    scales gathered alike).  One split body, one row limit, one split
+    order (the span of both is 1024 positions), only the row addresses
+    differ, so the outputs are equal bit for bit."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
     pool_k, pool_v, tables, _ = pool_case(torch, "float32", seed + 13)
     Q, q_lens = NARROW_WAVES["decode"]
     B, span = len(LENGTHS), T_WIDTH * BS
     lens, ql, tab = (torch.from_numpy(x).cuda()
                      for x in (LENGTHS, q_lens, tables))
-    k, v = (x[tab.long()].reshape(B, span, H, DH).contiguous()
-            for x in (pool_k, pool_v))
+    pools, sc = (pool_k, pool_v), {}
+    if int8:
+        (kq, ks), (vq, vs) = int8_kv(torch, pool_k, pool_v)
+        pools, sc = (kq, vq), dict(k_scale=ks, v_scale=vs)
+
+    def rows(x):
+        """The slot rows of pool ``x`` (or of its scale plane)."""
+        return x[tab.long()].reshape(B, span, *x.shape[2:]).contiguous()
     g = torch.Generator(device="cuda").manual_seed(seed + 14)
     q = torch.randn((B, Q, H, DH), generator=g, device="cuda")
-    k1 = ra.ragged_paged_attention(q, pool_k, pool_v, lens, ql, tab)
-    k8 = ra.ragged_attention(q, k, v, lens, ql)
+    k1 = ra.ragged_paged_attention(q, *pools, lens, ql, tab, **sc)
+    k8 = ra.ragged_attention(q, *(rows(x) for x in pools), lens, ql,
+                             **{n: rows(x) for n, x in sc.items()})
     torch.cuda.synchronize()
+    what = "-int8" if int8 else ""
     if not torch.equal(k1, k8):
-        fail(f"f32 K8 differs from f32 K1 on the same decode wave: max abs "
-             f"diff {float((k1 - k8).abs().max())}")
-    log("  K8 ragged_attention float32 == K1 ragged_paged_attention "
-        "float32 on the Q 1 decode wave over the same K/V (slot rows, "
-        "pool), bit for bit")
+        fail(f"f32 K8{what} differs from f32 K1{what} on the same decode "
+             f"wave: max abs diff {float((k1 - k8).abs().max())}")
+    log(f"  K8{what} ragged_attention float32 == K1{what} "
+        f"ragged_paged_attention float32 on the Q 1 decode wave over the "
+        f"same {'int8 ' if int8 else ''}K/V (slot rows, pool), bit for bit")
 
 
 def check_k6_int8_equals_k8_int8(torch, seed):
@@ -993,7 +1018,7 @@ def check_k2(torch, F, dtype, seed):
     rows = np.arange(P)
     flops = int(sum(4 * np.minimum(rows + 1, n).sum() * H * D
                     for n in kv))
-    b_ms, b_by = bound(nbytes, flops, dtype, k2_method(dtype))
+    b_ms, b_by = bound(nbytes, flops, dtype, tf32_method(dtype))
     log(f"  K2 flash_attention {dtype}: max_abs_err {err:.3e}, largest "
         f"err / bound {ratio:.4f} (flash_compare); lse {lse_err:.3e}, tol "
         f"{LSE_TOL:g}; kernel "
@@ -1204,7 +1229,8 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 # their own row-limit types (DecodeLim<layout>, VerifyLim<layout>), ahead of
 # K1/K8's and their twins'; K1/K8 are the CUDA-core ragged kernel (f32
 # q), the f32 split kernel and its merge (f32 q, Q <= 16: f32 K1 and K8,
-# and f32-q K1-int8, whose signed char makes it the twin) and the bf16
+# and f32-q K1-int8 and K8-int8, whose signed char makes them the twins;
+# the merge's template names the cache type and layout too) and the bf16
 # wide, split and merge kernels (bf16 q, either cache), told apart by
 # their layout; K4-K7 otherwise the CUDA-core decode kernel, by NQ and
 # layout
@@ -1747,7 +1773,7 @@ def check_k3(torch, F, dtype, seed):
         dev = device_ms(torch, run)
         plain_ms = time_ms(torch, plain, reps=5)
         flops = prods * 2 * DH * pairs
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        b_ms, b_by = bound(nbytes, flops, dtype, tf32_method(dtype))
         res[name] = dict(err=err, ms=ms, run_ms=run_ms, dev_ms=dev,
                          plain_ms=plain_ms, library_ms=lib_bwd,
                          bound_ms=b_ms, bound_by=b_by)
@@ -1757,14 +1783,16 @@ def check_k3(torch, F, dtype, seed):
             f"{ms:.4f} ms ({run_ms:.4f} back to back, {ms_text(dev)} on the "
             f"device), plain "
             f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by "
-            f"{b_by} ({nbytes} B, {flops} flop, {prods} products)")
+            f"{b_by} ({nbytes} B, {flops} flop, {prods} products"
+            f"{', 3 TF32 passes' if dtype == 'float32' else ''})")
     # the whole backward: five products; q, k, v, o, dO, lse in, dq, dk,
     # dv out
     whole = time_ms(torch, lambda: fa.flash_bwd(q, k, v, None, o, lse, do,
                                                 causal=True))
     whole_run = time_run_ms(torch, lambda: fa.flash_bwd(
         q, k, v, None, o, lse, do, causal=True))
-    b_ms, b_by = bound(8 * n + TB * H * TS * 4, 5 * 2 * DH * pairs, dtype)
+    b_ms, b_by = bound(8 * n + TB * H * TS * 4, 5 * 2 * DH * pairs, dtype,
+                       tf32_method(dtype))
     log(f"  K3 flash_bwd {dtype} (delta + both kernels): {whole:.4f} ms "
         f"({whole_run:.4f} back to back); "
         f"bound of the function {b_ms:.4f} ms by {b_by}; SDPA backward "
@@ -1775,7 +1803,7 @@ def check_k3(torch, F, dtype, seed):
     plain_ms = time_ms(torch, lambda: fa.flash_fwd_reference(
         q, k, v, causal=True), reps=5)
     b_ms, b_by = bound(4 * n + TB * H * TS * 4, 2 * 2 * DH * pairs, dtype,
-                       k2_method(dtype))
+                       tf32_method(dtype))
     res["fwd"] = dict(err=err_o, ratio=ratio_o, ms=ms, run_ms=run_ms,
                       dev_ms=dev, plain_ms=plain_ms,
                       library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
@@ -2076,7 +2104,7 @@ def check_carry(torch, dtype, seed):
     n_el = RB * blk * H * DH
     nbytes = 3 * n_el * es + 2 * n_el * 4 + 2 * RB * H * blk * 4
     flops = 4 * RB * H * blk * blk * DH
-    b_ms, b_by = bound(nbytes, flops, dtype, k2_method(dtype))
+    b_ms, b_by = bound(nbytes, flops, dtype, tf32_method(dtype))
     log(f"  K2-carry flash_attention_carry {dtype} [{RB},{blk},{H},{DH}] "
         f"full rotation, live carry: max_abs_err {err:.3e}, largest err "
         f"/ bound {ratio:.4f}, lse "
@@ -2331,6 +2359,7 @@ def main(argv=None):
     kres = {k: {dt: fn(dt) for dt in ("float32", "bfloat16")}
             for k, fn in checks.items()}
     check_k8_equals_k1(torch, args.seed)
+    check_k8_equals_k1(torch, args.seed, int8=True)
     check_k6_int8_equals_k8_int8(torch, args.seed)
 
     # ---- phase 3 ---- #

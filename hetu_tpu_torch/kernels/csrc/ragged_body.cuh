@@ -4,10 +4,10 @@
 // per-(position, head) f32 scales (ragged_paged_int8.cu).  One body,
 // templated on the q/out type T, the cache element type KV and the
 // layout, as the Pallas package has one body for all four.  It runs the
-// wide waves (Q > 16) of f32 K1, f32 K8 and f32-q K1-int8, and f32-q
-// K8-int8 at every Q; the narrow waves (Q <= 16) of the first three run
-// the split-K body of split_kv_f32.cuh, and bf16 q runs on the tensor
-// cores (ragged_paged_bf16.cu), over either cache.
+// wide waves (Q > 16) of f32 K1, f32 K8, f32-q K1-int8 and f32-q
+// K8-int8; their narrow waves (Q <= 16) run the split-K body of
+// split_kv_f32.cuh, and bf16 q runs on the tensor cores
+// (ragged_paged_bf16.cu), over either cache.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention (one Pallas body _ragged_kernel, launcher

@@ -3,9 +3,9 @@
 // narrow waves (Q <= 16: decode at Q 1, verify at Q 8) of f32 K1 and f32
 // K8 (the C entries hetu_ragged_paged_attention_narrow and
 // hetu_ragged_attention_narrow of ragged_paged.cu) and of f32-q K1-int8
-// (hetu_ragged_paged_attention_int8_narrow of ragged_paged_int8.cu).
-// Their wide waves (Q > 16) and f32-q K8-int8 at every Q stay on
-// ragged_body.cuh.
+// and K8-int8 (hetu_ragged_paged_attention_int8_narrow and
+// hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu).  Their
+// wide waves (Q > 16) stay on ragged_body.cuh.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention at Q <= 16, f32 q (Pallas body _ragged_kernel,

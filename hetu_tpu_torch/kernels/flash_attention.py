@@ -10,7 +10,8 @@ a_hi b_lo + a_lo b_hi of the operands' TF32 parts, f32-accurate as the
 Pallas body's Precision.HIGHEST) or ``csrc/flash_fwd_bf16.cu`` (bf16,
 wgmma);
 ``flash_bwd_dkv`` and ``flash_bwd_dq`` launch the two kernels of
-``csrc/flash_bwd.cu`` (f32) or ``csrc/flash_bwd_bf16.cu`` (bf16); each
+``csrc/flash_bwd.cu`` (f32, the tensor cores in three TF32 passes, as
+the forward) or ``csrc/flash_bwd_bf16.cu`` (bf16, mma.sync); each
 runs its plain PyTorch version (``*_reference``) on CPU tensors, and
 nothing falls back from one to the other.  The plain versions round
 where the Pallas bodies round: P to the input dtype before P V (the
@@ -363,8 +364,7 @@ def _check_bwd(q, k, v, kv_lens, lse, delta, do):
 def _bwd_launch(entry, what, q, k, v, kv_lens, lse, delta, do, outs,
                 causal):
     B, S, H, D = q.shape
-    if q.dtype == torch.bfloat16:
-        _build.check_aligned((q, k, v, do) + tuple(outs), "q, k, v, dO")
+    _build.check_aligned((q, k, v, do) + tuple(outs), "q, k, v, dO")
     lib, suffix = _library(q, "flash_bwd")
     fn = getattr(lib, entry + suffix)
     fn.argtypes = [ctypes.c_void_p] * (7 + len(outs)) \
@@ -382,7 +382,7 @@ def _bwd_launch(entry, what, q, k, v, kv_lens, lse, delta, do, outs,
 def flash_bwd_dkv(q, k, v, kv_lens, lse, delta, do, *, causal=False):
     """(dk, dv) [B, Sk, H, D]: the dK/dV kernel on CUDA tensors (f32 or
     bf16, head dim 32/64/128, contiguous, lse and delta f32 [B, H, S],
-    kv_lens int32 [B]; bf16 data 16-byte aligned);
+    kv_lens int32 [B]; q, k, v and dO 16-byte aligned, or a raise);
     :func:`flash_bwd_dkv_reference` on CPU tensors."""
     if not _check_bwd(q, k, v, kv_lens, lse, delta, do):
         return flash_bwd_dkv_reference(q, k, v, kv_lens, lse, delta, do,
@@ -399,9 +399,9 @@ def flash_bwd_dkv(q, k, v, kv_lens, lse, delta, do, *, causal=False):
 
 
 def flash_bwd_dq(q, k, v, kv_lens, lse, delta, do, *, causal=False):
-    """dq [B, S, H, D]: the dQ kernel on CUDA tensors (as
-    :func:`flash_bwd_dkv`); :func:`flash_bwd_dq_reference` on CPU
-    tensors."""
+    """dq [B, S, H, D]: the dQ kernel on CUDA tensors (on the terms of
+    :func:`flash_bwd_dkv`, 16-byte aligned data or a raise);
+    :func:`flash_bwd_dq_reference` on CPU tensors."""
     if not _check_bwd(q, k, v, kv_lens, lse, delta, do):
         return flash_bwd_dq_reference(q, k, v, kv_lens, lse, delta, do,
                                       causal=causal)

@@ -18,11 +18,11 @@ head): the int8 twins (K1-int8, K8-int8).  On CUDA tensors both launch
 ``csrc/ragged_paged.cu`` for f32 q over an f32 cache and
 ``ragged_paged_int8.cu`` for f32 q over an int8 one, on the CUDA cores
 in two regimes chosen from Q: the narrow waves (Q <= ``NARROW_Q``) of
-f32 K1, f32 K8 and f32-q K1-int8 run the split-K body of
+f32 K1, f32 K8, f32-q K1-int8 and f32-q K8-int8 run the split-K body of
 ``split_kv_f32.cuh`` (128-position splits in parallel, then a merge; an
 int8 payload staged raw and dequantized as payload * scale as it is
 read; 16-byte aligned q, caches and scales or a raise), and their wide
-waves (Q > 16) and f32-q K8-int8 at every Q run ``ragged_body.cuh`` (one
+waves (Q > 16) run ``ragged_body.cuh`` (one
 block per 32-row q tile, the int8 tile dequantized to f32 as it is
 staged); and ``ragged_paged_bf16.cu`` for bf16 q over a bf16 or an int8
 cache: the tensor cores, in two regimes chosen from Q (wgmma for Q > 16,
@@ -223,8 +223,7 @@ _BF16_LIBRARIES = {
                           "hetu_paged_block_verify_attention"))}
 # the calls whose f32 q at Q <= NARROW_Q runs the split-K CUDA-core body
 # (split_kv_f32.cuh): (entry, over an int8 cache) -> (library, narrow
-# entry, its workspace-size entry).  f32-q K8-int8 is not here: it runs
-# ragged_body.cuh at every Q
+# entry, its workspace-size entry)
 _F32_NARROW = {
     ("hetu_ragged_paged_attention", False): (
         "ragged_paged", "hetu_ragged_paged_attention_narrow",
@@ -234,6 +233,9 @@ _F32_NARROW = {
         "hetu_ragged_f32_workspace"),
     ("hetu_ragged_paged_attention", True): (
         "ragged_paged_int8", "hetu_ragged_paged_attention_int8_narrow",
+        "hetu_ragged_f32_workspace"),
+    ("hetu_ragged_attention", True): (
+        "ragged_paged_int8", "hetu_ragged_attention_int8_narrow",
         "hetu_ragged_f32_workspace")}
 
 
@@ -258,12 +260,12 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     NARROW_Q), sized by the library from the shapes and ``span``, and
     K1/K8's wide regime takes none.  f32 q at Q <= NARROW_Q on an
     (entry, cache) of ``_F32_NARROW`` (f32 K1 and K8 over an f32 cache,
-    f32-q K1-int8) launches that table's library and narrow entry the
-    same way (the split-K CUDA-core body, no dtype argument), on 16-byte
-    aligned q and caches (int8: payloads and scales) or a raise.  One
-    call counts as one launch,
-    though a split-K call runs two device kernels (the splits, then
-    their merge), and every K1/K8 call also counts under
+    f32-q K1-int8 and K8-int8) launches that table's library and narrow
+    entry the same way (the split-K CUDA-core body, no dtype argument),
+    on 16-byte aligned q and caches (int8: payloads and scales) or a
+    raise.  One call counts as one launch, though a split-K call runs
+    two device kernels (the splits, then their merge), and every K1/K8
+    call also counts under
     ``name:narrow`` or ``name:wide`` by its Q (``name`` with ``_int8``
     for an int8 cache)."""
     tail = (_DTYPES[q.dtype],)
@@ -359,9 +361,8 @@ def ragged_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     with ``k_scale``/``v_scale`` [B, S_max, H] f32 for an int8 cache;
     lengths / q_lens: [B] int32 as in :func:`ragged_paged_attention`.
     Returns o [B, Q, H, Dh] in q's dtype.  CUDA tensors launch the kernel
-    (same terms as the paged one, except that f32-q K8-int8 runs
-    ``ragged_body.cuh`` at every Q and needs only a 4-byte aligned
-    payload); CPU tensors run :func:`ragged_masked_reference`."""
+    (same terms as the paged one); CPU tensors run
+    :func:`ragged_masked_reference`."""
     quant = _check_args("ragged_attention", q, k, v, lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens}, k_scale,
                         v_scale)

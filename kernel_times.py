@@ -38,12 +38,15 @@ K4), on the pool (K7 and K4) and on an int8 pool (K7-int8 and K4), and
 the pool without spec (K5, whose only engine path this is); in f32 the
 auto paged mixed engine (K1 on every wave), the contiguous mixed engine
 (K8 on every wave) and the paged mixed engine over an int8 pool
-(K1-int8 on every wave): one run for tok/s, then one
+(K1-int8 on every wave) and the contiguous mixed engine over int8
+slot rows (K8-int8 on every wave): one run for tok/s, then one
 under torch.profiler (device ms by kind, tables into DIR/<run>/);
 ``--engine-labels`` runs only the engines of those labels.  With
 ``--train`` each tree also trains GPT-2-small in f32 at B 8, S 1024 for
 8 steps (chip_smoke phase 8's ``train``: step ms, tokens/s, K2's 12
-launches a step).  Each tree builds its kernels into its own
+launches a step), and with ``--engines DIR`` three more steps under
+torch.profiler (device ms a step by kind, K3's two kernels among
+them).  Each tree builds its kernels into its own
 ``hetu_tpu_torch/_build``.  Order the trees parent, change, change,
 parent to see the drift between runs.  Prints one JSON line per tree
 run (and writes them to ``--out``), then a table of the times.
@@ -97,8 +100,9 @@ def _bound_of(ra):
 # drafts K4 (the draft's own cache is a float one); the pool without spec
 # runs K5 in its decode waves; the f32 paged mixed engine runs K1 on
 # every wave (narrow decode waves, wide prompt chunks), the f32
-# contiguous mixed engine K8 and the f32 paged mixed engine over an int8
-# pool K1-int8, the same way
+# contiguous mixed engine K8, the f32 paged mixed engine over an int8
+# pool K1-int8 and the f32 contiguous mixed engine over int8 slot rows
+# K8-int8, the same way
 ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
             ("K6 paged_verify_attention", "K4 paged_decode_attention")),
            ("contiguous-split-int8", "contiguous-split", 4, "int8",
@@ -117,7 +121,9 @@ ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
            ("contiguous-mixed-f32", "contiguous-mixed", 0, None, "float32",
             ("K8 ragged_attention",)),
            ("paged-mixed-int8-f32", "paged-mixed", 0, "int8", "float32",
-            ("K1-int8 ragged_paged_attention",)))
+            ("K1-int8 ragged_paged_attention",)),
+           ("contiguous-mixed-int8-f32", "contiguous-mixed", 0, "int8",
+            "float32", ("K8-int8 ragged_attention",)))
 
 
 def engines(torch, cs, seed, out_dir, labels):
@@ -144,14 +150,23 @@ def engines(torch, cs, seed, out_dir, labels):
     return out
 
 
-def train_f32(torch, cs, seed):
+def train_f32(torch, cs, seed, out_dir=None):
     """chip_smoke's f32 training run (GPT-2-small, B 8, S 1024, 8
     steps): its stats (step ms, tokens/s, peak bytes) and K2's launches
-    a step."""
+    a step; with ``out_dir`` also three more steps under torch.profiler
+    (``train_gpt.profile_steps``: device ms a step by kind, K2 and K3's
+    two kernels among them, the table into ``out_dir``)."""
+    import numpy as np
     import hetu_tpu_torch as htt
+    from hetu_tpu_torch.train_gpt import profile_steps, synthetic
     cfg = htt.GPTConfig(batch_size=cs.TB, seq_len=cs.TS, dropout_rate=0.0)
-    _, st, counts = cs.train(torch, htt, cfg, "float32", seed)
-    return dict(st, k2_launches=counts["flash_attention"])
+    ex, st, counts = cs.train(torch, htt, cfg, "float32", seed)
+    res = dict(st, k2_launches=counts["flash_attention"])
+    if out_dir is not None:
+        res["profile"] = profile_steps(
+            ex, synthetic(cfg, np.random.RandomState(seed + 1)), 3,
+            Path(out_dir) / "train_float32")
+    return res
 
 
 def worker(tree, seed, dtypes, engines_dir=None, train=False,
@@ -206,7 +221,8 @@ def worker(tree, seed, dtypes, engines_dir=None, train=False,
         res.setdefault("K2-carry", {})[dt] = cs.check_carry(torch, dt, seed)
     eng = (engines(torch, cs, seed, engines_dir, labels) if engines_dir
            else None)
-    return res, eng, train_f32(torch, cs, seed) if train else None
+    return res, eng, (train_f32(torch, cs, seed, engines_dir) if train
+                      else None)
 
 
 def main(argv=None):
@@ -302,6 +318,9 @@ def main(argv=None):
         print("  " + "  |  ".join(
             f"{r['train']['step_ms']:.1f}, {r['train']['tokens_per_s']:.1f}"
             for r in runs), flush=True)
+        for r in runs:
+            for line in r["train"].get("profile", ()):
+                print(f"  [{r['tree']}] {line}", flush=True)
     return 0
 
 

@@ -23,18 +23,20 @@ exactly, the K scale applied to the scores in f32, P times the V scale
 split into a bf16 pair, two products) do not round P, as the Pallas int8
 bodies, which compute in f32, do not: they are held to the bf16
 tolerance alone.
-The narrow waves (Q <= 16) of f32 K1, f32 K8 and f32-q K1-int8 run the
-split-K CUDA-core body (csrc/split_kv_f32.cuh) and are held to f32's
-tolerance; f32 K8 equals f32 K1 bit for bit on one wave, and f32-q
-K1-int8 equals f32 K1 over the decoded cache; bf16 q's K6-int8 runs
+The narrow waves (Q <= 16) of f32 K1, f32 K8, f32-q K1-int8 and f32-q
+K8-int8 run the split-K CUDA-core body (csrc/split_kv_f32.cuh) and are
+held to f32's tolerance; f32 K8 equals f32 K1 bit for bit on one wave,
+and so does f32-q K8-int8 f32-q K1-int8; f32-q K1-int8 equals f32 K1
+over the decoded cache; bf16 q's K6-int8 runs
 K8-int8's split body and equals it bit for bit.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
 output is f32, to ``atol 1e-5, rtol 1e-5`` (``CARRY_TOL``).  The bf16
 flash kernels run on the tensor cores (csrc/flash_*_bf16.cu), and so
-does the f32 forward, in three TF32 passes (csrc/flash_fwd.cu), held to
-f32's tolerance; the f32 backward runs on the CUDA cores.  The verify wrappers past 16
+do the f32 forward and backward, in three TF32 passes
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu), the forward held to f32's
+tolerance and the backward to ``k3_close``.  The verify wrappers past 16
 rows launch once per 16-row group; the ring runs on a virtual mesh of
 the card.
 """
@@ -351,12 +353,57 @@ def test_f32_ragged_narrow_waves_on_the_split_body(cuda, monkeypatch, Dh,
                                      kv_decode(v8, vs), *idx)
     assert torch.equal(got_q, deq)
 
+    (r8, rs), (w8, ws) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+    slot_args = [args[0], r8, w8] + idx[:2]
+    del libs[:], entries[:]
+    reset_launches()
+    got_q8 = tra.ragged_attention(*slot_args, k_scale=rs, v_scale=ws)
+    torch.cuda.synchronize()
+    assert libs == ["ragged_paged_int8"]
+    assert entries == ["hetu_ragged_f32_workspace",
+                       "hetu_ragged_attention_int8_narrow"]
+    assert _nonzero_launches() == {"ragged_attention_int8": 1,
+                                   "ragged_attention_int8:narrow": 1}
+    assert_within(got_q8, tra.ragged_masked_reference(*slot_args, rs, ws),
+                  "float32")
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 8, 16])
+def test_f32_q_k8_int8_equals_k1_int8_bit_for_bit(cuda, Dh, Q):
+    """f32-q K8-int8 over int8 slot rows and f32-q K1-int8 over the int8
+    pool they were gathered from, on one narrow wave: one split body,
+    one row limit, one split order, only the row addresses differ, so
+    the outputs are equal bit for bit (and within 1e-5 of the plain
+    version)."""
+    q, pk, pv, lens, ql, tab = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 1, 0],
+                                          seed=5 * Q + Dh)
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    qd = q.to(cuda)
+    (k8, ks), (v8, vs) = (_int8(x, cuda) for x in (pk, pv))
+    reset_launches()
+    k1 = tra.ragged_paged_attention(qd, k8, v8, *idx, k_scale=ks,
+                                    v_scale=vs)
+    tab_d = idx[2].long()
+
+    def rows(x):
+        B, T = tab_d.shape
+        return x[tab_d].reshape(B, T * x.shape[1], *x.shape[2:]) \
+            .contiguous()
+    k8_out = tra.ragged_attention(qd, rows(k8), rows(v8), *idx[:2],
+                                  k_scale=rows(ks), v_scale=rows(vs))
+    torch.cuda.synchronize()
+    assert regime_counts()["ragged_attention_int8:narrow"] == 1
+    assert regime_counts()["ragged_paged_attention_int8:narrow"] == 1
+    assert torch.equal(k8_out, k1)
+    assert_within(k8_out, tra.ragged_masked_reference(
+        qd, rows(k8), rows(v8), *idx[:2], rows(ks), rows(vs)), "float32")
+
 
 def test_f32_ragged_wide_waves_keep_the_cuda_core_body(cuda, monkeypatch):
-    """f32 K1 and f32 K8 at Q 17 (the wide regime) and f32-q K1-int8 at Q
-    17 still launch ragged_body.cuh's entries, and so does f32-q K8-int8
-    at Q 1 (its narrow waves are not on the split body); each within
-    1e-5 of its plain version."""
+    """f32 K1, f32 K8, f32-q K1-int8 and f32-q K8-int8 at Q 17 (the wide
+    regime) still launch ragged_body.cuh's entries, each within 1e-5 of
+    its plain version."""
     q, pk, pv, lens, ql, tab = _long_wave(64, 17, [17, 9, 0, 0], seed=17)
     idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
     args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + idx
@@ -385,26 +432,25 @@ def test_f32_ragged_wide_waves_keep_the_cuda_core_body(cuda, monkeypatch):
     assert regime_counts()["ragged_paged_attention_int8:wide"] == 1
     assert_within(got, tra.ragged_paged_reference(args[0], k8, v8, *idx,
                                                   ks, vs), "float32")
-    q1 = q[:, :1].contiguous().to(cuda)
-    ql1 = torch.clamp(idx[1], max=1)
     (k8, ks), (v8, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
-    got = tra.ragged_attention(q1, k8, v8, idx[0], ql1, k_scale=ks,
+    got = tra.ragged_attention(args[0], k8, v8, *idx[:2], k_scale=ks,
                                v_scale=vs)
     torch.cuda.synchronize()
     assert libs[3:] == ["ragged_paged_int8"]
     assert entries[3:] == ["hetu_ragged_attention_int8"]
-    assert regime_counts()["ragged_attention_int8:narrow"] == 1
-    assert_within(got, tra.ragged_masked_reference(q1, k8, v8, idx[0], ql1,
-                                                   ks, vs), "float32")
+    assert regime_counts()["ragged_attention_int8:wide"] == 1
+    assert_within(got, tra.ragged_masked_reference(args[0], k8, v8,
+                                                   *idx[:2], ks, vs),
+                  "float32")
 
 
 def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
     """The f32 split body copies 16-byte chunks: at Q <= 16 a q or a pool
     8 bytes off a 16-byte boundary is refused by f32 K1, so are such
     slot rows by f32 K8, and an int8 payload 8 bytes off (or a scale
-    plane 4 bytes off) by f32-q K1-int8; nothing launches.  At Q 17
-    (ragged_body.cuh, 4-byte reads) the same pool and payload are taken,
-    and so is the payload by f32-q K8-int8 at Q 8."""
+    plane 4 bytes off) by f32-q K1-int8 and by f32-q K8-int8; nothing
+    launches.  At Q 17 (ragged_body.cuh, 4-byte reads) the same pool and
+    payloads are taken."""
     q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
     idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
     qd, kd, vd = q.to(cuda), pk.to(cuda), pv.to(cuda)
@@ -425,6 +471,13 @@ def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         tra.ragged_paged_attention(qd, k8, v8, *idx, k_scale=ks,
                                    v_scale=_off16(vs, 4))
+    (r8, rs), (w8, ws) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_attention(qd, _off16(r8, 8), w8, *idx[:2], k_scale=rs,
+                             v_scale=ws)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_attention(qd, r8, w8, *idx[:2], k_scale=_off16(rs, 4),
+                             v_scale=ws)
     assert not any(launch_counts().values())
     q17, *_ = _wave(64, 16, 17)
     args = [q17.to(cuda), _off16(kd, 8), vd] + idx
@@ -437,11 +490,10 @@ def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
     torch.cuda.synchronize()
     assert regime_counts()["ragged_paged_attention_int8:wide"] == 1
     assert_within(got, tra.ragged_paged_reference(*args, ks, vs), "float32")
-    (r8, rs), (w8, ws) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
-    args = [qd, _off16(r8, 8), w8] + idx[:2]
+    args = [q17.to(cuda), _off16(r8, 8), w8] + idx[:2]
     got = tra.ragged_attention(*args, k_scale=rs, v_scale=ws)
     torch.cuda.synchronize()
-    assert regime_counts()["ragged_attention_int8:narrow"] == 1
+    assert regime_counts()["ragged_attention_int8:wide"] == 1
     assert_within(got, tra.ragged_masked_reference(*args, rs, ws),
                   "float32")
 
@@ -927,9 +979,9 @@ def test_f32_flash_carry_kernel_on_the_tensor_cores(cuda, D, causal, S, Sk,
 
 
 def test_f32_flash_wrappers_refuse_misaligned_data(cuda):
-    """The f32 forward copies 16-byte chunks too: data that does not
-    start on a 16-byte boundary is refused, not read, and nothing
-    launches."""
+    """The f32 forward and backward copy 16-byte chunks too: data that
+    does not start on a 16-byte boundary is refused, not read, and
+    nothing launches."""
     x = torch.randn((1, 8 * 64 + 2), device=cuda)
     bad = x[:, 2:].reshape(1, 8, 1, 64)          # 8 bytes past the start
     assert bad.is_contiguous() and bad.data_ptr() % 16
@@ -940,6 +992,11 @@ def test_f32_flash_wrappers_refuse_misaligned_data(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         tfa.flash_fwd_carry(y, y, y, bad,
                             torch.full((1, 1, 8), tfa.NEG_INF, device=cuda))
+    stat = torch.zeros((1, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_bwd_dkv(y, bad, y, None, stat, stat, y, causal=True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_bwd_dq(y, y, y, None, stat, stat, bad, causal=True)
     assert not any(launch_counts().values())
 
 
