@@ -10,19 +10,23 @@ non-zero and prints no result line):
 1. The card's name and power limit (``nvidia-smi``); every kernel
    library built by ``nvcc`` from ``hetu_tpu_torch/kernels/csrc``, all
    sources at once (seconds printed); one line per instance of the
-   kernels on the tensor cores (f32 K2 and K2-carry and f32 K3's two
-   on mma.sync TF32, three passes; bf16 K2 and K2-carry on wgmma, bf16
+   kernels on the tensor cores (f32 K2 and K2-carry, f32 K3's two and
+   the f32 wide ragged kernel of f32 K1/K8 and of their f32-q int8
+   twins (Q > 16, csrc/ragged_tf32.cuh) on mma.sync TF32, three passes;
+   bf16 K2 and K2-carry on wgmma fed by TMA from a producer warp, bf16
    K3's two on mma.sync, K1/K8's wide kernel on wgmma and split kernel
    on mma.sync, each over a bf16 and an int8 cache, and K4-K7's split
    kernel on mma.sync, K6's and K7's also over an int8 cache), and of
    the f32 split kernel on the CUDA cores (f32 K1 over the pool, f32 K8
    over slot rows, f32-q K1-int8 over an int8 pool, f32-q K8-int8 over
    int8 slot rows): registers and spills (``ptxas -v``), dynamic shared
-   memory, and the HGMMA / HMMA (TF32 among them) / FFMA instructions of
-   its SASS where the toolkit has ``cuobjdump`` (a tensor-core instance
-   with no HGMMA or HMMA, an f32 flash kernel with no TF32 one, the f32
-   split kernel with any of them or no FFMA, or an instance with a
-   spill, fails).
+   memory, and the HGMMA / HMMA (TF32 among them) / FFMA / UTMALDG
+   instructions of its SASS where the toolkit has ``cuobjdump`` (a
+   tensor-core instance with no HGMMA or HMMA, an f32 flash or f32 wide
+   ragged kernel with no TF32 one, bf16 K2 with no TMA load, the f32
+   split kernel with any tensor-core instruction or no FFMA, or an
+   instance with a spill, fails); the host time of bf16 K2's three TMA
+   tensor maps, encoded on each call.
 2. Each kernel against its plain PyTorch version on the card at the main
    path's shapes, f32 and bf16, with the max abs error beside a stated
    tolerance, and CUDA-event times (median of several warm runs) of the
@@ -38,7 +42,9 @@ non-zero and prints no result line):
    and a verify wave (Q 8, K6's q_lens) over the same slots (K1 and K8
    also timed ten back to back; the narrow waves of f32 K1, f32 K8 and,
    in phase 7, f32-q K1-int8 and K8-int8 run the split-K CUDA-core
-   body, csrc/split_kv_f32.cuh, held to 1e-5); then f32 K8 equal to f32
+   body, csrc/split_kv_f32.cuh, their mixed waves the TF32 body,
+   csrc/ragged_tf32.cuh, whose bound counts 3 x the flops at TF32's
+   rate, all held to 1e-5); then f32 K8 equal to f32
    K1 bit for bit on the same decode wave (Q 1) over the pool's slot
    rows and the pool, and f32-q K8-int8 equal to f32-q K1-int8 the same
    way over the pool's int8 encoding; last bf16-q K6-int8 equal to
@@ -176,7 +182,9 @@ into DIR.
 
 The line before the last is one JSON object with every kernel's
 numbers (``dev_ms`` its device time per call under torch.profiler,
-without the wrapper's host time); the last line is the device record.
+without the wrapper's host time, held to half the CUDA-event time of
+the call queued behind a sleep kernel at least, or "not measured"); the
+last line is the device record.
 """
 
 from __future__ import annotations
@@ -280,43 +288,69 @@ def time_run_ms(torch, fn, n=10, reps=5, warm=2):
     return float(np.median(times))
 
 
+def queued_ms(torch, fn, n=10):
+    """The CUDA-event time of one call of ``fn()`` with the host ahead of
+    the card: a sleep kernel holds the stream while ``n`` calls are
+    queued, each between two events, so each pair times the call's
+    kernels and the gaps between them, not the host's launch work;
+    the median over the calls."""
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(int(2e7))
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
 def device_ms(torch, fn, n=10):
     """The device time of one call of ``fn()``: under torch.profiler over
     ``n`` calls, each kernel's mean time times its launches per call
     (its count over ``n``, at least one), summed over the kernels (host
     time and the gaps between kernels excluded).  A kernel whose count
     is not a multiple of ``n`` lost events in the profiler: the mean of
-    the events it kept stands for it, and the loss is logged.  A window
-    in which the profiler recorded no device time at all is profiled
-    again, up to three windows, and logged; after three such windows
-    the device time is not measured: None, logged, and printed as "not
+    the events it kept stands for it, and the loss is logged.  The sum is
+    held to the call's CUDA-event time with the host ahead (``queued_ms``,
+    the kernels plus their gaps): a window that reads under half of it
+    lost events (or recorded no device time at all), is logged with each
+    kernel's profiled time per call beside the event time, and is
+    profiled again, up to three windows; after three such windows the
+    device time is not measured: None, logged, and printed as "not
     measured" (the profiler loses events in long runs on this card; the
     kernel's other times and its checks stand)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    event_ms = queued_ms(torch, fn, n)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
+        kinds = {}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or not e.count:
                 continue
             if e.count % n:
                 log(f"    (the profiler kept {e.count} events of "
                     f"{e.key[:60]} over {n} calls)")
-            total += (e.self_device_time_total / e.count
-                      * max(1, round(e.count / n)))
-        if total > 0:
-            return total / 1e3
-        log("    (the profiler recorded no device time in this window; "
-            "profiling again)")
-    log("    (the profiler recorded no device time in three windows: the "
-        "device time is not measured)")
+            kinds[e.key] = (e.self_device_time_total / e.count
+                            * max(1, round(e.count / n)) / 1e3)
+        total = sum(kinds.values())
+        if total >= 0.5 * event_ms:
+            return total
+        log(f"    (the profiler read {total:.4f} ms a call, under half the "
+            f"call's CUDA-event time {event_ms:.4f} ms: "
+            + ("; ".join(f"{k[:60]} {v:.4f} ms" for k, v in kinds.items())
+               or "no device time")
+            + "; profiling again)")
+    log(f"    (the profiler read under half the CUDA-event time "
+        f"{event_ms:.4f} ms in three windows: the device time is not "
+        f"measured)")
     return None
 
 
@@ -381,8 +415,10 @@ def tf32_method(dtype):
 # of the dynamic shared memory query and its arguments after Dh, and a
 # regular expression the instances' mangled names must match, one at
 # least; the bf16 ragged, decode and verify kernels' query also takes
-# the cache, 1 for int8): the f32 flash forward and K3's two f32
-# kernels on TF32, then the bf16 kernels; the split kernel of
+# the cache, 1 for int8): the f32 flash forward, the f32 wide ragged
+# kernel (f32 K1 over the pool, f32 K8 over slot rows, and the f32-q
+# int8 twins of both, its own library) and K3's two f32 kernels on TF32,
+# then the bf16 kernels (K2 and K2-carry fed by TMA); the split kernel of
 # decode_attention_bf16 once for K4/K5
 # (DecodeLim), once for K6/K7, K6-int8 and K7-int8 (VerifyLim) and once
 # more for K6-int8 alone (int8, "a", over SlotRows); last the f32 split
@@ -392,6 +428,14 @@ def tf32_method(dtype):
 # HMMA or HGMMA (``FFMA_KERNELS``)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_flash_fwd_smem", (), ""),
+              ("ragged_paged", "ragged_tf32_kernel",
+               "hetu_ragged_tf32_smem", (), "TableRows"),
+              ("ragged_paged", "ragged_tf32_kernel",
+               "hetu_ragged_tf32_smem", (), "SlotRows"),
+              ("ragged_paged_int8", "ragged_tf32_kernel",
+               "hetu_ragged_tf32_smem", (), r"ILi\d+Ea.*TableRows"),
+              ("ragged_paged_int8", "ragged_tf32_kernel",
+               "hetu_ragged_tf32_smem", (), r"ILi\d+Ea.*SlotRows"),
               ("flash_bwd", "flash_bwd_dkv_kernel",
                "hetu_flash_bwd_smem", (1,), ""),
               ("flash_bwd", "flash_bwd_dq_kernel",
@@ -423,9 +467,13 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*SlotRows"))
 # the kernels of TC_KERNELS that run on the CUDA cores, by symbol
 FFMA_KERNELS = ("split_kv_f32_kernel",)
-# the libraries whose tensor-core kernels must show TF32 HMMA: the f32
-# flash forward and backward
-TF32_LIBRARIES = ("flash_fwd", "flash_bwd")
+# the kernels that must show TF32 HMMA: the f32 flash forward and
+# backward, and the f32 wide ragged kernel (f32 K1/K8 and their f32-q
+# int8 twins at Q > 16)
+TF32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_kernel",
+                "flash_bwd_dq_kernel", "ragged_tf32_kernel")
+# the kernels that must load by TMA (UTMALDG): bf16 K2 and K2-carry
+TMA_KERNELS = ("flash_fwd_bf16_kernel",)
 
 
 def ptxas_entries(log):
@@ -450,9 +498,9 @@ def ptxas_entries(log):
 
 
 def sass_mma_counts(lib_path):
-    """{mangled kernel name: (HMMA, HGMMA, TF32 HMMA, FFMA instruction
-    count)} from ``cuobjdump -sass``, or None where the toolkit has no
-    cuobjdump."""
+    """{mangled kernel name: (HMMA, HGMMA, TF32 HMMA, FFMA, UTMALDG
+    instruction count)} from ``cuobjdump -sass``, or None where the
+    toolkit has no cuobjdump."""
     import os
     import shutil
     cands = [shutil.which("cuobjdump")]
@@ -470,7 +518,9 @@ def sass_mma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            out[name] = [0, 0, 0, 0]
+            out[name] = [0, 0, 0, 0, 0]
+        elif name and re.search(r"\bUTMALDG\b", line):
+            out[name][4] += 1
         elif name and re.search(r"\bHGMMA\b", line):
             out[name][1] += 1
         elif name and re.search(r"\bHMMA\b", line):
@@ -483,17 +533,20 @@ def sass_mma_counts(lib_path):
 
 def tc_report(_build, paths):
     """One line per instance of a tensor-core kernel (f32 K2 and
-    K2-carry and f32 K3's two on TF32, bf16 K2 and K2-carry, bf16 K3's
+    K2-carry, the f32 wide ragged kernel of f32 K1/K8 and of their f32-q
+    int8 twins and f32 K3's two on TF32, bf16 K2 and K2-carry, bf16 K3's
     two, the wide and split ragged kernels of K1/K8 and of their int8
     twins, the split kernel of K4/K5, and of K6/K7, K6-int8 and K7-int8)
     and of the f32 split kernel of f32 K1, f32 K8, f32-q K1-int8 and
     f32-q K8-int8 on the CUDA cores: registers and spills (ptxas, from
     this process's build), dynamic shared memory, and the HMMA (TF32
-    among them) / HGMMA / FFMA instructions of its SASS; fails when a
-    tensor-core instance has no tensor-core instruction, when an f32
-    flash kernel (``TF32_LIBRARIES``) has no TF32 one, when a CUDA-core
-    instance (``FFMA_KERNELS``) has one or has no FFMA, when it spills,
-    or when a row of ``TC_KERNELS`` has no instance in the SASS."""
+    among them) / HGMMA / FFMA / UTMALDG instructions of its SASS; fails
+    when a tensor-core instance has no tensor-core instruction, when a
+    ``TF32_KERNELS`` instance has no TF32 one, when a ``TMA_KERNELS``
+    instance has no TMA load, when a CUDA-core instance
+    (``FFMA_KERNELS``) has a tensor-core instruction or no FFMA, when it
+    spills, or when a row of ``TC_KERNELS`` has no instance in the
+    SASS."""
     sass = {}
     for lib_name, sym, smem_fn, extra, kind in TC_KERNELS:
         if lib_name not in sass:
@@ -526,7 +579,8 @@ def tc_report(_build, paths):
                    if r else "not rebuilt in this process")
             mma = sass[lib_name]
             count = (f"HMMA {mma[name][0]} (TF32 {mma[name][2]}), HGMMA "
-                     f"{mma[name][1]}, FFMA {mma[name][3]}"
+                     f"{mma[name][1]}, FFMA {mma[name][3]}, UTMALDG "
+                     f"{mma[name][4]}"
                      if mma is not None else "no cuobjdump")
             ffma = sym in FFMA_KERNELS
             log(f"  {'CUDA' if ffma else 'tensor'} cores: {sym}<D {D}"
@@ -537,11 +591,31 @@ def tc_report(_build, paths):
             if mma is not None and not ffma and mma[name][0] + mma[name][1] \
                     == 0:
                 fail(f"{name} has no HMMA or HGMMA instruction")
-            if mma is not None and lib_name in TF32_LIBRARIES \
+            if mma is not None and sym in TF32_KERNELS \
                     and mma[name][2] == 0:
                 fail(f"{name} has no TF32 HMMA instruction")
+            if mma is not None and sym in TMA_KERNELS and mma[name][4] == 0:
+                fail(f"{name} has no TMA load (UTMALDG)")
             if r and (r[1] or r[2]):
                 fail(f"{name} spills: {r[1]} B stores, {r[2]} B loads")
+
+
+def tma_map_us(_build, n=1000):
+    """The host time of the three tensor maps bf16 K2 and K2-carry build
+    on each call (``hetu_flash_fwd_bf16_map_us``: cuTensorMapEncodeTiled
+    at the training shape over a device buffer, which it does not read;
+    mean of ``n``), in microseconds; fails if the driver refuses them."""
+    import ctypes
+
+    import torch
+    fn = _build.library("flash_fwd_bf16").hetu_flash_fwd_bf16_map_us
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_double
+    buf = torch.empty(16, dtype=torch.bfloat16, device="cuda")
+    us = fn(buf.data_ptr(), n)
+    if us < 0:
+        fail("cuTensorMapEncodeTiled refused bf16 K2's tensor maps")
+    return us
 
 
 # ---------------------------------------------------------------- #
@@ -645,7 +719,7 @@ def kv_operands(torch, k, v, dtype, int8):
 
 
 def measure(torch, label, dtype, run, plain, library, nbytes, flops,
-            dead=3, rounding=None, b2b=False):
+            dead=3, rounding=None, b2b=False, method=None):
     """Hold ``run()`` (the kernel) to ``plain()`` element by element,
     check that slot ``dead`` (length 0) is zero, and time the kernel,
     its plain version and the ``library()`` yardstick beside the
@@ -653,7 +727,8 @@ def measure(torch, label, dtype, run, plain, library, nbytes, flops,
     rounding of P the plain version does not make to TOL's atol, and
     the largest err / (atol + rtol*|want|) is logged; ``b2b`` also
     times ten back-to-back kernel calls (``run_ms``) and the kernels'
-    device time per call (``dev_ms``, ``device_ms``)."""
+    device time per call (``dev_ms``, ``device_ms``); ``method`` is the
+    bound's (``bound``: ``TF32X3`` for a kernel on three TF32 passes)."""
     got = run()
     torch.cuda.synchronize()
     want = plain().to(got.dtype)
@@ -674,13 +749,14 @@ def measure(torch, label, dtype, run, plain, library, nbytes, flops,
     dev = device_ms(torch, run) if b2b else None
     plain_ms = time_ms(torch, plain, reps=5)
     lib_ms = time_ms(torch, library)
-    b_ms, b_by = bound(nbytes, flops, dtype)
+    b_ms, b_by = bound(nbytes, flops, dtype, method)
     log(f"  {label} {dtype}: max_abs_err {err:.3e}, largest err / bound "
         f"{ratio:.4f} (within {tol}); kernel {ms:.4f} ms"
         + (f" ({run_ms:.4f} back to back, {ms_text(dev)} on the device)"
            if b2b else "")
         + f", plain {plain_ms:.4f} ms, SDPA yardstick {lib_ms:.4f} ms; "
-        f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop)")
+        f"bound {b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop"
+        f"{', 3 TF32 passes' if method == TF32X3 else ''})")
     return dict(err=err, ratio=ratio, ms=ms, run_ms=run_ms, dev_ms=dev,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by)
@@ -713,6 +789,13 @@ def int8_rounding(int8, bound):
     twins: ``bound`` over a bf16 cache, none over an int8 one (unless
     ``INT8_ROUNDS_P``)."""
     return bound if not int8 or INT8_ROUNDS_P else None
+
+
+def ragged_method(dtype, wave):
+    """The bound's method of K1/K8 and their int8 twins on ``wave``: f32
+    q's mixed waves (Q > 16) run three TF32 passes (``TF32X3``), the
+    narrow ones and bf16 q one pass."""
+    return TF32X3 if dtype == "float32" and wave == "mixed" else None
 
 
 def wave_of(kernel, wave):
@@ -768,7 +851,7 @@ def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
         + (2 * n_rows * H * DH if int8 else 0),
         rounding=int8_rounding(
             int8, lambda: ra.ragged_rounding_bound(*args, **sc)),
-        b2b=True)
+        b2b=True, method=ragged_method(dtype, wave))
 
 
 def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
@@ -805,7 +888,7 @@ def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
         + (2 * int(LENGTHS.sum()) * H * DH if int8 else 0),
         rounding=int8_rounding(
             int8, lambda: ra.ragged_rounding_bound(*args, **sc)),
-        b2b=True)
+        b2b=True, method=ragged_method(dtype, wave))
     if int8 or wave != "mixed":
         return r
     # the dead-row cost: the same slots with no dead row, each prompt
@@ -1227,15 +1310,16 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 # bf16, and K6-int8/K7-int8 for bf16 q (their element type, signed char,
 # makes them the int8 twins in kind_of), are split and merge kernels of
 # their own row-limit types (DecodeLim<layout>, VerifyLim<layout>), ahead of
-# K1/K8's and their twins'; K1/K8 are the CUDA-core ragged kernel (f32
-# q), the f32 split kernel and its merge (f32 q, Q <= 16: f32 K1 and K8,
+# K1/K8's and their twins'; K1/K8 are the f32 TF32 ragged kernel (f32
+# q, Q > 16; the CUDA-core ragged_kernel of a tree before it), the f32
+# split kernel and its merge (f32 q, Q <= 16: f32 K1 and K8,
 # and f32-q K1-int8 and K8-int8, whose signed char makes them the twins;
 # the merge's template names the cache type and layout too) and the bf16
 # wide, split and merge kernels (bf16 q, either cache), told apart by
 # their layout; K4-K7 otherwise the CUDA-core decode kernel, by NQ and
 # layout
-RAGGED = ("(ragged_kernel|ragged_wide_kernel|split_kv_kernel|"
-          "split_kv_f32_kernel|split_merge_kernel)")
+RAGGED = ("(ragged_kernel|ragged_tf32_kernel|ragged_wide_kernel|"
+          "split_kv_kernel|split_kv_f32_kernel|split_merge_kernel)")
 KINDS = (("K4 paged_decode_attention",
           re.compile("DecodeLim<hetu::SlotRows")),
          ("K5 paged_block_decode_attention",
@@ -2339,6 +2423,9 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     tc_report(_build, paths)
+    map_us = tma_map_us(_build)
+    log(f"  bf16 K2's three TMA tensor maps, encoded on the host on each "
+        f"call: {map_us:.3f} us a call")
 
     # ---- phase 2 ---- #
     log("phase 2: kernels vs plain versions on the card")
@@ -2467,8 +2554,10 @@ def main(argv=None):
     # verify rows the narrow waves of the (phase-6 or phase-7)
     # speculative engine of their layout.  Sources: f32, bf16.
     src = "hetu_tpu_torch/kernels/csrc/"
-    k1 = ("ragged_paged.cu", "ragged_paged_bf16.cu")
-    k18 = ("ragged_paged_int8.cu", "ragged_paged_bf16.cu")
+    # K1/K8 and their int8 twins: f32 q's wide waves on the TF32 body,
+    # its narrow waves on the split body; bf16 q's both in one source
+    k1 = ("ragged_tf32.cuh", "ragged_paged_bf16.cu")
+    k1n = ("split_kv_f32.cuh", "ragged_paged_bf16.cu")
     ver = ("decode_attention.cu", "decode_attention_bf16.cu")
     dec8 = ("decode_attention_int8.cu",) * 2
     ver8 = ("decode_attention_int8.cu", "decode_attention_bf16.cu")
@@ -2477,8 +2566,9 @@ def main(argv=None):
     rq = "hetu_tpu/kernels/ragged_attention.py:96"
     table = (
         ("K1", "ragged_paged_attention", k1, r1, "paged-mixed"),
-        ("K1 decode", "ragged_paged_attention", k1, r1, "paged-mixed"),
-        ("K1 verify", "ragged_paged_attention", k1, r1, "spec paged-mixed"),
+        ("K1 decode", "ragged_paged_attention", k1n, r1, "paged-mixed"),
+        ("K1 verify", "ragged_paged_attention", k1n, r1,
+         "spec paged-mixed"),
         ("K2", "flash_attention", ("flash_fwd.cu", "flash_fwd_bf16.cu"),
          "hetu_tpu/kernels/flash_attention.py:173", None),
         ("K4", "paged_decode_attention", ver,
@@ -2491,13 +2581,14 @@ def main(argv=None):
         ("K7", "paged_block_verify_attention", ver,
          "hetu_tpu/kernels/decode_attention.py:572", "spec paged-split"),
         ("K8", "ragged_attention", k1, r8, "contiguous-mixed"),
-        ("K8 decode", "ragged_attention", k1, r8, "contiguous-mixed"),
-        ("K8 verify", "ragged_attention", k1, r8, "spec contiguous-mixed"),
-        ("K1-int8", "ragged_paged_attention_int8", k18, rq,
+        ("K8 decode", "ragged_attention", k1n, r8, "contiguous-mixed"),
+        ("K8 verify", "ragged_attention", k1n, r8,
+         "spec contiguous-mixed"),
+        ("K1-int8", "ragged_paged_attention_int8", k1, rq,
          "int8 paged-mixed"),
-        ("K1-int8 decode", "ragged_paged_attention_int8", k18, rq,
+        ("K1-int8 decode", "ragged_paged_attention_int8", k1n, rq,
          "int8 paged-mixed"),
-        ("K1-int8 verify", "ragged_paged_attention_int8", k18, rq,
+        ("K1-int8 verify", "ragged_paged_attention_int8", k1n, rq,
          "int8 spec paged-mixed"),
         ("K4-int8", "paged_decode_attention_int8", dec8,
          "hetu_tpu/kernels/decode_attention.py:120",
@@ -2510,11 +2601,11 @@ def main(argv=None):
         ("K7-int8", "paged_block_verify_attention_int8", ver8,
          "hetu_tpu/kernels/decode_attention.py:562",
          "int8 spec paged-split"),
-        ("K8-int8", "ragged_attention_int8", k18, rq,
+        ("K8-int8", "ragged_attention_int8", k1, rq,
          "int8 contiguous-mixed"),
-        ("K8-int8 decode", "ragged_attention_int8", k18, rq,
+        ("K8-int8 decode", "ragged_attention_int8", k1n, rq,
          "int8 contiguous-mixed"),
-        ("K8-int8 verify", "ragged_attention_int8", k18, rq,
+        ("K8-int8 verify", "ragged_attention_int8", k1n, rq,
          "int8 spec contiguous-mixed"))
     kernels = []
     for k, name, files, replaces, config in table:

@@ -5,7 +5,8 @@ tensor (see ``_build``).
 
 - ``flash_attention``: forward flash attention on [B, S, H, D]
   (csrc/flash_fwd.cu in f32, three TF32 passes on the tensor cores;
-  csrc/flash_fwd_bf16.cu, wgmma, in bf16), the batched prefill of ``generate_fast`` and of the
+  csrc/flash_fwd_bf16.cu, wgmma fed by TMA from a producer warp, in
+  bf16), the batched prefill of ``generate_fast`` and of the
   phase-split schedulers, and the training forward; its carried form
   (the same sources, counted as ``flash_attention_carry``) is every
   live rotation of ``parallel.ring_attention``'s flash path; its
@@ -15,11 +16,13 @@ tensor (see ``_build``).
 - ``ragged_attention.ragged_paged_attention`` /
   ``ragged_attention.ragged_attention``: the mixed wave over the
   block-table pool / the slot-contiguous cache (csrc/ragged_paged.cu in
-  f32, the pool's decode and verify waves on the split-K CUDA-core body
-  csrc/split_kv_f32.cuh; csrc/ragged_paged_bf16.cu on the tensor cores
-  in bf16, over a bf16 or an int8 cache: wgmma for waves wider than 16
-  rows, split-K over positions and a merge for decode and verify
-  waves); the paged one also runs the phase-split chunk pass.
+  f32: waves wider than 16 rows on the tensor cores in three TF32
+  passes, csrc/ragged_tf32.cuh, decode and verify waves on the split-K
+  CUDA-core body csrc/split_kv_f32.cuh; csrc/ragged_paged_bf16.cu on
+  the tensor cores in bf16, over a bf16 or an int8 cache: wgmma for
+  waves wider than 16 rows, split-K over positions and a merge for
+  decode and verify waves); the paged one also runs the phase-split
+  chunk pass.
 - ``decode_attention.paged_decode_attention`` /
   ``decode_attention.paged_block_decode_attention``: one decode query
   per slot over the slot-contiguous cache / the block-table pool

@@ -1,9 +1,7 @@
-// Shared device code of the port's CUDA-core attention bodies
-// (ragged_body.cuh and decode_body.cuh, whose f32/bf16 and int8
-// instances build as separate libraries).  The ragged kernels give one
-// thread block a tile of 32 query rows of one (slot, head);
-// the decode kernels give one block one (slot, head) and its 32 rows the
-// slot's positions to share.  Eight consecutive lanes share a row, each
+// Shared device code of the port's one-block-per-slot CUDA-core attention
+// body (decode_body.cuh, whose f32/bf16 and int8 instances build as
+// separate libraries): the decode kernels give one block one (slot,
+// head) and its 32 rows the slot's positions to share.  Eight consecutive lanes share a row, each
 // holding Dh/8 of its dimensions (strided by 8, so the eight lanes read
 // eight consecutive floats of a shared-memory key row: no bank
 // conflicts).  The kernels stage K/V tiles of KT positions in shared

@@ -48,7 +48,10 @@
 // 32 different banks), V rows by 4 (the 4-byte loads of rows 2t, 2t + 1
 // do).  The carry is a compile-time flag: it seeds each row's (m, l,
 // acc) from o_c and lse_c before the key loop (so the ring's merge costs
-// no pass of its own).  No atomics: the results are deterministic.
+// no pass of its own).  Q's split, the block's shape and the per-tile
+// step live in flash_tf32.cuh (stage_q_tf32, tf32_tile_step), shared with
+// the f32 wide ragged kernel (ragged_tf32.cuh).  No atomics: the results
+// are deterministic.
 #include <cmath>
 
 #include "flash_tf32.cuh"
@@ -57,134 +60,11 @@ namespace hetu {
 namespace tc {
 namespace {
 
-constexpr int kRowsF32 = 16 * kWarps;   // q rows per block
-constexpr int kStagesF32 = 2;           // shared-memory stages of K/V
-
-// keys per K/V tile: 64, and 32 at head dim 128, where Q's hi and lo
-// alone take 68 KB (f32_smem: 58 KB a block at D 32, 106 KB at D 64,
-// two blocks an SM, and 135 KB at D 128, one)
-template <int D> __host__ __device__ constexpr int f32_bk() {
-  return D == 128 ? 32 : 64;
-}
-template <int D> __host__ __device__ constexpr int ld_qk() {
-  return D + 8;   // Q, K rows
-}
-template <int D> __host__ __device__ constexpr int ld_v() {
-  return D + 4;   // V rows
-}
-
 // Q's hi and lo tiles and kStagesF32 stages of K and V, f32
 template <int D> constexpr size_t f32_smem() {
   return (size_t(2 * kRowsF32 * ld_qk<D>())
           + size_t(kStagesF32) * f32_bk<D>() * (ld_qk<D>() + ld_v<D>()))
          * sizeof(float);
-}
-
-// One K/V tile's step of a warp's 16 rows: S = Q K^T (three TF32 passes
-// per product), the mask (when `masked`: key t0 + j is live for the row
-// iff t0 + j <= lim[rr], rr 0 for row g, 1 for g + 8), the online
-// softmax in log2 units (l sums p, this lane's columns), then the tile's
-// P V (three passes) from zero and acc = alpha acc + P V by FFMA.  The
-// tensor cores' f32 accumulation truncates: chaining every tile's
-// products into acc itself would cost acc, the carry's term included,
-// one truncation per mma (384 at 1024 keys, about 2e-5 of |o|), where the
-// tile's own chain costs its 24 (64 keys) relative to the tile's part
-// alone.  qh, ql: the warp's first Q row in the hi / lo tiles; kt, vt:
-// the stage's K and V tiles.
-template <int D, int BK>
-__device__ __forceinline__ void tf32_tile_step(
-    const float* qh, const float* ql, const float* kt, const float* vt,
-    int t0, bool masked, const int (&lim)[2], float scale_log2,
-    float (&m)[2], float (&l)[2], float (&acc)[D / 8][4]) {
-  constexpr int LK = ld_qk<D>();
-  constexpr int LV = ld_v<D>();
-  constexpr int NS = BK / 8;   // 8-key blocks of S
-  constexpr int ND = D / 8;    // 8-column blocks of O
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  float s[NS][4];
-  zero(s);
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    // A: rows g and g + 8, dims 8c + 2t (k = t) and 8c + 2t + 1 (k = t + 4)
-    const int o0 = g * LK + 8 * c + 2 * t;
-    const float2 h0 = *reinterpret_cast<const float2*>(qh + o0);
-    const float2 h1 = *reinterpret_cast<const float2*>(qh + o0 + 8 * LK);
-    const float2 l0 = *reinterpret_cast<const float2*>(ql + o0);
-    const float2 l1 = *reinterpret_cast<const float2*>(ql + o0 + 8 * LK);
-    const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
-                            __float_as_uint(h0.y), __float_as_uint(h1.y)};
-    const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
-                            __float_as_uint(l0.y), __float_as_uint(l1.y)};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      // B: key 8n + g, the same two dims
-      const float2 y = *reinterpret_cast<const float2*>(
-          kt + (8 * n + g) * LK + 8 * c + 2 * t);
-      uint32_t bh0, bl0, bh1, bl1;
-      tf32_split(y.x, bh0, bl0);
-      tf32_split(y.y, bh1, bl1);
-      mma_3pass(s[n], ah, al, bh0, bh1, bl0, bl1);
-    }
-  }
-
-  float alpha[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float mx = kNegInf;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (masked && t0 + 8 * n + 2 * t + e > lim[rr])
-          s[n][2 * rr + e] = kNegInf;
-        mx = fmaxf(mx, s[n][2 * rr + e]);
-      }
-    mx = quad_max(mx);
-    const float m_new =
-        fmaxf(m[rr], mx <= kNegInf / 2 ? kNegInf : mx * scale_log2);
-    const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
-    alpha[rr] = m[rr] <= kNegInf / 2 ? 0.f : ex2(m[rr] - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = ex2(fmaf(s[n][2 * rr + e], scale_log2, -safe_m));
-        s[n][2 * rr + e] = p;
-        psum += p;
-      }
-    l[rr] = l[rr] * alpha[rr] + psum;
-    m[rr] = m_new;
-  }
-
-  // P V over keys 8n .. 8n + 7: A = P as S's C fragment (k = t is key
-  // 2t, k = t + 4 key 2t + 1), B = V rows 2t and 2t + 1, column 8j + g
-  float pv[ND][4];
-  zero(pv);
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-    uint32_t ph[4], pl[4];
-    tf32_split(s[n][0], ph[0], pl[0]);
-    tf32_split(s[n][2], ph[1], pl[1]);
-    tf32_split(s[n][1], ph[2], pl[2]);
-    tf32_split(s[n][3], ph[3], pl[3]);
-    const float* v0 = vt + (8 * n + 2 * t) * LV + g;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      uint32_t bh0, bl0, bh1, bl1;
-      tf32_split(v0[8 * j], bh0, bl0);
-      tf32_split(v0[LV + 8 * j], bh1, bl1);
-      mma_3pass(pv[j], ph, pl, bh0, bh1, bl0, bl1);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], pv[j][e]);
 }
 
 template <int D, bool kCarry>
@@ -246,22 +126,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
   cp_async_commit();
 
   // Q, read once while the first tile lands, as its TF32 hi and lo parts
-  // (rows past S zero)
-  const float* qg = q + (size_t(b) * S + q0) * rs + size_t(h) * D;
-  for (int i = threadIdx.x; i < kRowsF32 * C; i += kThreads) {
-    const int r = i / C;
-    const int c = i % C;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_q)
-      x = __ldg(reinterpret_cast<const float4*>(qg + r * rs + 4 * c));
-    uint4 hi, lo;
-    tf32_split(x.x, hi.x, lo.x);
-    tf32_split(x.y, hi.y, lo.y);
-    tf32_split(x.z, hi.z, lo.z);
-    tf32_split(x.w, hi.w, lo.w);
-    *reinterpret_cast<uint4*>(qh + r * LK + 4 * c) = hi;
-    *reinterpret_cast<uint4*>(ql + r * LK + 4 * c) = lo;
-  }
+  stage_q_tf32<D>(qh, ql, q + (size_t(b) * S + q0) * rs + size_t(h) * D,
+                  rs, n_q);
 
   // this lane's two rows (rr = 0: g, 1: g + 8 of the warp's 16); m in
   // log2 units, l this lane's part of the row sum

@@ -257,6 +257,56 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
   for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.f;
 }
 
+// The online-softmax update of one K/V tile's scores in a warp's 16
+// rows, for every forward body on the tensor cores (the bf16 ones of
+// flash_wgmma.cuh and flash_fwd_bf16.cu, the TF32 one of flash_tf32.cuh):
+// s holds this lane's part of the 16 x 8NS raw scores (columns
+// 8n + 2t + e of rows g and g + 8); when `masked`, the keys past this
+// lane's row limits (lim[rr] for rows g and g + 8; key t0 + j is live iff
+// t0 + j <= lim) at NEG_INF; the row max of the raw scores, then
+// everything in log2 units: p = 2^(s scale log2 e - m) in place of s, one
+// FFMA and one EX2, a dead score's p underflowing to exactly 0, the max
+// clamped to 0 while no key is live; l (this lane's part of its row's
+// sum) sums the unrounded p.  m is the running max in log2 units; alpha
+// is what the output accumulated so far must be scaled by.
+template <int NS>
+__device__ __forceinline__ void tile_softmax(float (&s)[NS][4], int t0,
+                                             bool masked,
+                                             const int (&lim)[2],
+                                             float scale_log2, float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (masked && t0 + 8 * n + 2 * t + e > lim[rr])
+          s[n][2 * rr + e] = kNegInf;
+        mx = fmaxf(mx, s[n][2 * rr + e]);
+      }
+    mx = quad_max(mx);
+    const float m_new =
+        fmaxf(m[rr], mx <= kNegInf / 2 ? kNegInf : mx * scale_log2);
+    const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
+    alpha[rr] = m[rr] <= kNegInf / 2 ? 0.f : ex2(m[rr] - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = ex2(fmaf(s[n][2 * rr + e], scale_log2, -safe_m));
+        s[n][2 * rr + e] = p;
+        psum += p;
+      }
+    l[rr] = l[rr] * alpha[rr] + psum;
+    m[rr] = m_new;
+  }
+}
+
 // ---- int8 caches: the payload staged raw, widened to bf16, scales in f32 ----
 
 // bytes of padding per row of a staged int8 tile ([rows][D + kRawPad]):
@@ -297,6 +347,16 @@ __device__ __forceinline__ uint4 widen8(uint2 w) {
   };
   return make_uint4(pack(b(w.x, 0), b(w.x, 1)), pack(b(w.x, 2), b(w.x, 3)),
                     pack(b(w.y, 0), b(w.y, 1)), pack(b(w.y, 2), b(w.y, 3)));
+}
+
+// Four int8 values (one 4-byte word, lowest byte first) as f32 times
+// the row's scale sc: float(x) * sc, the plain version's dequantized
+// values (kv_decode's).
+__device__ __forceinline__ float4 dequant4(uint32_t w, float sc) {
+  auto f = [&](int i) {
+    return static_cast<float>(static_cast<int8_t>(w >> (8 * i))) * sc;
+  };
+  return make_float4(f(0), f(1), f(2), f(3));
 }
 
 // x[n][e], x[n][2 + e] (this lane's columns 8n + 2t + e of a 16 x 8NB

@@ -2,10 +2,14 @@
 // (K2 and K2-carry in flash_fwd_bf16.cu, the wide ragged kernel of K1
 // and K8 and of their int8 twins in ragged_paged_bf16.cu): the
 // instruction wrappers, the shared-memory descriptors of the no-swizzle
-// canonical layout, the fences, and the body's shape and per-tile step
-// that those kernels share (wg_tile_step).
+// canonical layout (the ragged kernel's tiles, gathered by cp.async
+// through a block table, which TMA cannot do) and of the swizzled layout
+// TMA writes (K2's tiles, gmma_desc_sw), the fences, and the ragged
+// kernel's block shape and per-tile step (wg_tile_step; K2 pipelines its
+// own).  Both run the online-softmax update of flash_mma.cuh
+// (tile_softmax).
 //
-// A tile of R rows x D bf16 is stored as a grid of 8 x 8 "core
+// A no-swizzle tile of R rows x D bf16 is stored as a grid of 8 x 8 "core
 // matrices" (8 rows of 16 bytes, 128 contiguous bytes each): core matrix
 // (r / 8, c) of rows r and 16-byte column chunk c sits at byte
 // 128 ((r / 8) (D / 8) + c), its row r % 8 at 16 (r % 8) inside.  Read
@@ -95,6 +99,19 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
   return uint64_t((smem_addr(p) & 0x3FFFF) >> 4)
          | uint64_t((lbo >> 4) & 0x3FFF) << 16
          | uint64_t((sbo >> 4) & 0x3FFF) << 32;
+}
+
+// The same for a tile in the swizzled layout that TMA writes with a
+// 128-byte (layout type 1) or 64-byte (2) swizzle: rows of 128 or 64
+// bytes, each 8-row atom of 1024 or 512 bytes starting on a multiple of
+// its size.  A K-major operand takes lbo 16 (unused) and sbo one atom; a
+// k step inside a row moves the start address by its bytes (the
+// hardware swizzles the address it computes, as TMA swizzled the
+// store).  An MN-major operand (V of O = P V) takes sbo one atom (the
+// next 8 keys) and lbo the distance to the next box of columns.
+__device__ __forceinline__ uint64_t gmma_desc_sw(const void* p, uint32_t lbo,
+                                                 uint32_t sbo, int layout) {
+  return gmma_desc(p, lbo, sbo) | uint64_t(layout) << 62;
 }
 
 // cp.async wrote the tiles through the generic proxy; wgmma reads them
@@ -282,39 +299,34 @@ template <> struct Wgmma<128> {
   }
 };
 
-// ---- the bf16 forward body: its shape and its step over one K/V tile ----
+// ---- the bf16 forward bodies: their shape, the softmax, the ragged step ----
 
 // consumer warpgroups per block, each owning 64 q rows and sharing the
-// block's K/V tiles
+// block's K/V tiles (both kernels)
 constexpr int kWG = 2;
 constexpr int kNT = 128 * kWG;   // threads per block
 constexpr int kBQ = 64 * kWG;    // q rows per block
 
-// keys per K/V tile: 64, and 128 at head dim 32 (faster there on the H100)
+// the wide ragged kernel's keys per K/V tile: 64, and 128 at head dim 32
+// (K2 sets its own, flash_fwd_bf16.cu)
 template <int D> __host__ __device__ constexpr int fwd_bk() {
   return D == 32 ? 128 : 64;
 }
 
-// shared-memory stages of K/V: the tile in use and the next one's copy
-// (three, or the next tile's QK^T issued under this tile's softmax, read
-// no faster in one H100 timing that is not reproducible from the repo;
-// PERF.md section 6)
+// the wide ragged kernel's shared-memory stages of K/V: the tile in use
+// and the next one's copy
 constexpr int kStages = 2;
 
-// Q's tile and kStages stages of K and V tiles, bf16
+// the wide ragged kernel's Q tile and kStages stages of K and V tiles
 template <int D> constexpr size_t fwd_smem() {
   return size_t(kBQ + 2 * kStages * fwd_bk<D>()) * D * sizeof(bf16);
 }
 
 // One K/V tile's step of a warpgroup's online softmax: S = Q K^T on the
 // tensor cores (m64n{kBK}k16, K-major A and B from shared memory) into
-// registers; when `masked`, the keys past this lane's row limits (lim[rr]
-// for rows g and g + 8 of the warp's 16; key t0 + j is live iff t0 + j
-// <= lim) at NEG_INF; the row max of the raw scores, then everything in
-// log2 units: p = 2^(s scale log2 e - m), one FFMA and one EX2, a dead
-// score's p underflowing to exactly 0, the max clamped to 0 while no key
-// is live; l sums the unrounded p, and P, rounded to bf16 in registers,
-// is the A operand of O += P V (m64nDk16, V MN-major from shared memory).
+// registers; the softmax update (tile_softmax) and the output's rescale;
+// then P, rounded to bf16 in registers, is the A operand of O += P V
+// (m64nDk16, V MN-major from shared memory).
 // m is the running max in log2 units, l this lane's part of its row's
 // sum, acc the warp's 16 x D output fragment.  sc, the scale policy
 // (flash_mma.cuh), scales S's columns before the mask and P's after l
@@ -331,7 +343,6 @@ __device__ __forceinline__ void wg_tile_step(
   constexpr int ND = D / 8;    // 8-column blocks of O
   constexpr int NS = kBK / 8;  // 8-column blocks of S
   constexpr uint32_t kRow8 = 16 * D;   // bytes of 8 tile rows
-  const int t = threadIdx.x & 3;
   float s[NS][4];
   zero(s);
   fence_regs(s);
@@ -344,39 +355,15 @@ __device__ __forceinline__ void wg_tile_step(
   fence_regs(s);
   sc.scores(s);
 
+  float alpha[2];
+  tile_softmax(s, t0, masked, lim, scale_log2, m, l, alpha);
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float mx = kNegInf;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (masked && t0 + 8 * n + 2 * t + e > lim[rr])
-          s[n][2 * rr + e] = kNegInf;
-        mx = fmaxf(mx, s[n][2 * rr + e]);
-      }
-    mx = quad_max(mx);
-    const float m_new =
-        fmaxf(m[rr], mx <= kNegInf / 2 ? kNegInf : mx * scale_log2);
-    const float safe_m = m_new <= kNegInf / 2 ? 0.f : m_new;
-    const float alpha = m[rr] <= kNegInf / 2 ? 0.f : ex2(m[rr] - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = ex2(fmaf(s[n][2 * rr + e], scale_log2, -safe_m));
-        s[n][2 * rr + e] = p;
-        psum += p;
-      }
-    l[rr] = l[rr] * alpha + psum;
-    m[rr] = m_new;
+  for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      acc[n][2 * rr] *= alpha;
-      acc[n][2 * rr + 1] *= alpha;
+      acc[n][2 * rr] *= alpha[rr];
+      acc[n][2 * rr + 1] *= alpha[rr];
     }
-  }
   sc.probs(s);
   constexpr bool kSplit = Scales::kSplitP;
   uint32_t a[kBK / 16][4];

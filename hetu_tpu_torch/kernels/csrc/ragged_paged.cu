@@ -1,20 +1,30 @@
-// K1 and K8 over f32 caches: the f32 instances of ragged_body.cuh (the
-// int8 ones build apart, ragged_paged_int8.cu, so the two compile in
-// parallel; bf16 caches run on the tensor cores, ragged_paged_bf16.cu),
-// and the narrow waves (Q <= 16) of both on the split-K CUDA-core body
-// of split_kv_f32.cuh.  Their wide waves (Q > 16) launch
-// ragged_body.cuh.
+// K1 and K8 over f32 caches, f32 q (the int8 caches build apart,
+// ragged_paged_int8.cu, so the two compile in parallel; bf16 q runs on
+// the tensor cores in ragged_paged_bf16.cu).
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
-// and ::ragged_attention, f32 caches.
-#include "ragged_body.cuh"
+// and ::ragged_attention, f32 caches (Pallas body _ragged_kernel).
+//
+// What bounds it on an H100: a wave reads each slot's live K/V once (8
+// len H D bytes) for 4 Q len H D flops: bytes at a decode or verify wave
+// (Q <= 16: at most 8 flops a byte), the tensor cores' TF32 rate, three
+// passes a product, for prompt chunks (Q 256: 128 flops a byte).
+//
+// What the design does about it: two bodies, chosen by the wrapper from
+// Q, the wave's padded width.  The wide waves (Q > 16) launch the TF32
+// tensor-core body of ragged_tf32.cuh through hetu_ragged_paged_attention
+// / hetu_ragged_attention; the narrow waves (Q <= 16) the split-K
+// CUDA-core body of split_kv_f32.cuh through their _narrow entries,
+// which cuts the positions, not the rows, across the card.
+#include "ragged_tf32.cuh"
 #include "split_kv_f32.cuh"
 
-// dtype: 0 = float32 (q, out and the caches), the only one taken here.
-// Each returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for another dtype or an unsupported Dh).
+// dtype: 0 = float32 (q, out and the caches), the only one taken here;
+// every pointer 16-byte aligned.  Each returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for another dtype or an unsupported
+// Dh).
 
-// K1: pools [N_blocks, bs, H, Dh], tables [B, T_width].
+// K1 on the TF32 body: pools [N_blocks, bs, H, Dh], tables [B, T_width].
 extern "C" int hetu_ragged_paged_attention(
     const void* q, const void* pool_k, const void* pool_v,
     const void* lengths, const void* q_lens, const void* tables, void* out,
@@ -22,10 +32,9 @@ extern "C" int hetu_ragged_paged_attention(
     void* stream) {
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return static_cast<int>(hetu::dispatch_dh<float>(
-      q, hetu::planes<false, float>(pool_k, nullptr, pool_v, nullptr),
-      static_cast<const int*>(lengths), static_cast<const int*>(q_lens),
-      rows, out, B, Q, H, Dh, static_cast<cudaStream_t>(stream)));
+  return hetu::tc::dispatch_ragged_tf32<float>(
+      q, pool_k, nullptr, pool_v, nullptr, lengths, q_lens, rows, out, B, Q,
+      H, Dh, stream);
 }
 
 // Floats of the f32 workspace of a narrow K1 or K8 call (Q <= 16; 0 past
@@ -74,15 +83,19 @@ extern "C" int hetu_ragged_f32_smem(int Dh) {
   return hetu::tc::split_f32_smem_of<float>(Dh);
 }
 
-// K8: caches [B, S_max, H, Dh].
+// K8 on the TF32 body: caches [B, S_max, H, Dh].
 extern "C" int hetu_ragged_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* q_lens, void* out, int B, int Q, int H, int Dh, int S_max,
     int dtype, void* stream) {
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(hetu::dispatch_dh<float>(
-      q, hetu::planes<false, float>(k, nullptr, v, nullptr),
-      static_cast<const int*>(lengths), static_cast<const int*>(q_lens),
-      hetu::SlotRows{S_max}, out, B, Q, H, Dh,
-      static_cast<cudaStream_t>(stream)));
+  return hetu::tc::dispatch_ragged_tf32<float>(
+      q, k, nullptr, v, nullptr, lengths, q_lens, hetu::SlotRows{S_max}, out,
+      B, Q, H, Dh, stream);
+}
+
+// Dynamic shared memory of one block of the TF32 body at head dim Dh,
+// for the build report.
+extern "C" int hetu_ragged_tf32_smem(int Dh) {
+  return hetu::tc::ragged_tf32_smem_of<float>(Dh);
 }

@@ -2,10 +2,11 @@
 // layout of the serving engine: the block-table paged pool (K1) and the
 // slot-contiguous cache (K8), bf16 q over a bf16 cache, and their int8
 // twins (K1-int8, K8-int8), bf16 q over an int8 cache with one f32 scale
-// per (position, head).  The f32 instances stay on the CUDA cores
-// (ragged_paged.cu: ragged_body.cuh, and for f32 K1's narrow waves the
-// split-K body of split_kv_f32.cuh; ragged_paged_int8.cu for f32 q over
-// an int8 cache).
+// per (position, head).  The f32 instances build apart
+// (ragged_paged.cu, and ragged_paged_int8.cu for f32 q over an int8
+// cache: the TF32 tensor-core body of ragged_tf32.cuh for their wide
+// waves, the split-K CUDA-core body of split_kv_f32.cuh for their narrow
+// ones).
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention over bf16 caches and, with k_scale/v_scale,

@@ -5,7 +5,7 @@
 // hetu_ragged_attention_narrow of ragged_paged.cu) and of f32-q K1-int8
 // and K8-int8 (hetu_ragged_paged_attention_int8_narrow and
 // hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu).  Their
-// wide waves (Q > 16) stay on ragged_body.cuh.
+// wide waves (Q > 16) run the TF32 tensor-core body of ragged_tf32.cuh.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention at Q <= 16, f32 q (Pallas body _ragged_kernel,
@@ -90,16 +90,6 @@ __device__ __forceinline__ void load_rows_f32(float* tile, const Src& src,
     const bool ok = r < n;
     cp_async16(tile + r * LD + ch * 4, src(ok ? r : 0) + ch * 4, ok);
   }
-}
-
-// Four int8 values (one 4-byte word, lowest byte first) as f32 times
-// the row's scale sc: float(x) * sc, the plain version's dequantized
-// values.
-__device__ __forceinline__ float4 dequant4(uint32_t w, float sc) {
-  auto f = [&](int i) {
-    return static_cast<float>(static_cast<int8_t>(w >> (8 * i))) * sc;
-  };
-  return make_float4(f(0), f(1), f(2), f(3));
 }
 
 __device__ __forceinline__ float warp_max(float x) {

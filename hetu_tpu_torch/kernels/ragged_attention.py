@@ -16,15 +16,16 @@ The cache is f32/bf16 of q's dtype, or int8 (``quant.kv_encode``'s
 payload) with ``k_scale``/``v_scale``, one f32 scale per (position,
 head): the int8 twins (K1-int8, K8-int8).  On CUDA tensors both launch
 ``csrc/ragged_paged.cu`` for f32 q over an f32 cache and
-``ragged_paged_int8.cu`` for f32 q over an int8 one, on the CUDA cores
-in two regimes chosen from Q: the narrow waves (Q <= ``NARROW_Q``) of
-f32 K1, f32 K8, f32-q K1-int8 and f32-q K8-int8 run the split-K body of
+``ragged_paged_int8.cu`` for f32 q over an int8 one, in two regimes
+chosen from Q: the narrow waves (Q <= ``NARROW_Q``) of f32 K1, f32 K8,
+f32-q K1-int8 and f32-q K8-int8 run the split-K CUDA-core body of
 ``split_kv_f32.cuh`` (128-position splits in parallel, then a merge; an
 int8 payload staged raw and dequantized as payload * scale as it is
-read; 16-byte aligned q, caches and scales or a raise), and their wide
-waves (Q > 16) run ``ragged_body.cuh`` (one
-block per 32-row q tile, the int8 tile dequantized to f32 as it is
-staged); and ``ragged_paged_bf16.cu`` for bf16 q over a bf16 or an int8
+read), and their wide waves (Q > 16) the tensor cores in three TF32
+passes, ``ragged_tf32.cuh`` (f32 K2's body: one block per 64-row q
+tile, an int8 tile dequantized to f32 once it has landed); either way
+16-byte aligned q, caches and scales or a raise; and
+``ragged_paged_bf16.cu`` for bf16 q over a bf16 or an int8
 cache: the tensor cores, in two regimes chosen from Q (wgmma for Q > 16,
 split-K over positions and a merge for Q <= 16, one launch counted
 either way; an int8 payload widened to bf16 as it is staged, exactly,
@@ -50,8 +51,8 @@ from . import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-# K1/K8 waves at most this wide (Q) run the bf16 kernels' split-K regime,
-# and f32 K1/K8's and f32-q K1-int8's split-K body
+# K1/K8 waves at most this wide (Q) run the split-K regime of the bf16
+# kernels and of f32 K1/K8 and their f32-q int8 twins
 NARROW_Q = 16
 
 
@@ -164,7 +165,10 @@ def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
                 v_scale=None):
     """q [B, Q, H, Dh], k/v [*, *, H, Dh] (and the scale planes of an int8
     cache, :func:`_check_scales`); on CUDA also the kernel's dtypes, head
-    dims, contiguity and int32 indices.  ``index`` names the int32 index
+    dims, contiguity, int32 indices and an int8 payload's 4-byte
+    alignment (the 16 bytes of the tensor-core and split-K kernels, K1/K8
+    in every dtype and regime among them, are checked by :func:`_launch`,
+    which picks the kernel).  ``index`` names the int32 index
     tensors.  Returns True for an int8 cache."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{kind}: q must be [B, Q, H, Dh] and k/v "
@@ -221,9 +225,9 @@ _BF16_LIBRARIES = {
                          "hetu_verify_bf16_workspace",
                          ("hetu_paged_verify_attention",
                           "hetu_paged_block_verify_attention"))}
-# the calls whose f32 q at Q <= NARROW_Q runs the split-K CUDA-core body
-# (split_kv_f32.cuh): (entry, over an int8 cache) -> (library, narrow
-# entry, its workspace-size entry)
+# f32 q's K1/K8 calls at Q <= NARROW_Q, which run the split-K CUDA-core
+# body (split_kv_f32.cuh): (entry, over an int8 cache) -> (library,
+# narrow entry, its workspace-size entry)
 _F32_NARROW = {
     ("hetu_ragged_paged_attention", False): (
         "ragged_paged", "hetu_ragged_paged_attention_narrow",
@@ -258,12 +262,12 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
     on 16-byte aligned q and caches (and scales), or raises; the
     workspace holds the f32 partials of the split-K body (Q <=
     NARROW_Q), sized by the library from the shapes and ``span``, and
-    K1/K8's wide regime takes none.  f32 q at Q <= NARROW_Q on an
-    (entry, cache) of ``_F32_NARROW`` (f32 K1 and K8 over an f32 cache,
-    f32-q K1-int8 and K8-int8) launches that table's library and narrow
-    entry the same way (the split-K CUDA-core body, no dtype argument),
-    on 16-byte aligned q and caches (int8: payloads and scales) or a
-    raise.  One call counts as one launch, though a split-K call runs
+    K1/K8's wide regime takes none.  f32 q's K1/K8 calls (over an f32 or
+    an int8 cache) take 16-byte aligned q and caches (int8: payloads and
+    scales) or raise, and at Q <= NARROW_Q launch ``_F32_NARROW``'s
+    library and narrow entry the same way (the split-K CUDA-core body,
+    no dtype argument); past it ``entry`` (the TF32 body).  One call
+    counts as one launch, though a split-K call runs
     two device kernels (the splits, then their merge), and every K1/K8
     call also counts under
     ``name:narrow`` or ``name:wide`` by its Q (``name`` with ``_int8``
@@ -281,13 +285,14 @@ def _launch(source, entry, name, q, kv, rest, ints, span=None):
                              "scales too)")
         source, tail, ws_entry = tc[0], (), tc[1]
         entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
-    elif q.dtype == torch.float32 and narrow \
-            and (entry, quant) in _F32_NARROW:
-        _build.check_aligned((q, *kv), "f32 q and the caches (int8: "
-                             "their scales too)")
-        (source, entry, ws_entry), tail = _F32_NARROW[entry, quant], ()
-    elif quant:
-        source, entry = f"{source}_int8", f"{entry}_int8"
+    else:
+        if regimes:   # f32 q: both bodies copy 16-byte chunks
+            _build.check_aligned((q, *kv), "f32 q and the caches (int8: "
+                                 "their scales too)")
+        if regimes and narrow:
+            (source, entry, ws_entry), tail = _F32_NARROW[entry, quant], ()
+        elif quant:
+            source, entry = f"{source}_int8", f"{entry}_int8"
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -331,9 +336,8 @@ def ragged_paged_attention(q, pool_k, pool_v, lengths, q_lens,
     [N_blocks, bs, H] f32.  Returns o [B, Q, H, Dh] in q's dtype.  CUDA
     tensors launch the kernel (f32 or bf16 q; pools of q's dtype, or
     int8 with their scales; head dim 32/64/128, all contiguous, int32
-    indices; with bf16 q, and with f32 q at Q <= 16, q and the caches
-    and scales 16-byte aligned, with f32 q at Q > 16 an int8 payload
-    4-byte aligned); CPU tensors run :func:`ragged_paged_reference`."""
+    indices; q and the caches and scales 16-byte aligned); CPU tensors
+    run :func:`ragged_paged_reference`."""
     quant = _check_args("ragged_paged_attention", q, pool_k, pool_v,
                         lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens,

@@ -4,6 +4,7 @@ NVIDIA card, each checkout in a process of its own, in the order given.
 
     python3 kernel_times.py [--trees DIR [DIR ...]] [--seed N]
                             [--dtypes float32 bfloat16] [--out FILE]
+                            [--kernels PREFIX ...]
                             [--engines DIR [--engine-labels L ...]]
                             [--train]
 
@@ -13,6 +14,10 @@ archive`` into a git-ignored directory, e.g.
 
     git archive <commit> | tar -x -C _archive/parent
     python3 kernel_times.py --trees _archive/parent . . _archive/parent
+
+``--kernels`` keeps the rows whose name starts with one of the given
+prefixes (``--kernels K2`` times K2 at both shapes and K2-carry; K2 at
+the training shape comes with K3's two kernels).
 
 Every tree is driven by THIS checkout's ``chip_smoke.py`` phase-2
 functions, so all meet the same shapes, checks and timing: K1 and K8
@@ -170,8 +175,9 @@ def train_f32(torch, cs, seed, out_dir=None):
 
 
 def worker(tree, seed, dtypes, engines_dir=None, train=False,
-           labels=()):
-    """Time one tree's kernels; returns {kernel: {dtype: result}}, with
+           labels=(), kernels=None):
+    """Time one tree's kernels (those whose row name starts with one of
+    ``kernels``, or all); returns {kernel: {dtype: result}}, with
     ``engines_dir`` {label: engine result} of the engines of ``labels``
     (``engines``), with ``train`` the f32 training run
     (``train_f32``)."""
@@ -198,27 +204,36 @@ def worker(tree, seed, dtypes, engines_dir=None, train=False,
         root / "hetu_tpu_torch/kernels/csrc/flash_mma.cuh").read_text()
     _build.build_all()
     res = {}
+
+    def want(*keys):
+        return kernels is None or any(k.startswith(p) for k in keys
+                                      for p in kernels)
     for dt in dtypes:
         for int8, wave in itertools.product((False, True),
                                             ("mixed", "decode", "verify")):
             q = "-int8" if int8 else ""
-            res.setdefault(f"K1{q} {wave}", {})[dt] = cs.check_k1(
-                torch, F, dt, seed, int8=int8, wave=wave)
-            res.setdefault(f"K8{q} {wave}", {})[dt] = cs.check_k8(
-                torch, F, dt, seed, int8=int8, wave=wave)
+            for k, check in (("K1", cs.check_k1), ("K8", cs.check_k8)):
+                if want(f"{k}{q} {wave}"):
+                    res.setdefault(f"{k}{q} {wave}", {})[dt] = check(
+                        torch, F, dt, seed, int8=int8, wave=wave)
         for int8, (k, paged, verify) in itertools.product(
                 (False, True), (("K4", False, False), ("K5", True, False),
                                 ("K6", False, True), ("K7", True, True))):
-            res.setdefault(f"{k}{'-int8' if int8 else ''}", {})[dt] = \
-                cs.check_decode(torch, F, dt, seed, paged, verify=verify,
-                                int8=int8)
-        res.setdefault("K2 serving", {})[dt] = cs.check_k2(torch, F, dt,
-                                                           seed)
-        k3 = cs.check_k3(torch, F, dt, seed)
-        res.setdefault("K2 training", {})[dt] = k3["fwd"]
-        res.setdefault("K3 dkv", {})[dt] = k3["dkv"]
-        res.setdefault("K3 dq", {})[dt] = k3["dq"]
-        res.setdefault("K2-carry", {})[dt] = cs.check_carry(torch, dt, seed)
+            if want(f"{k}{'-int8' if int8 else ''}"):
+                res.setdefault(f"{k}{'-int8' if int8 else ''}", {})[dt] = \
+                    cs.check_decode(torch, F, dt, seed, paged,
+                                    verify=verify, int8=int8)
+        if want("K2 serving"):
+            res.setdefault("K2 serving", {})[dt] = cs.check_k2(torch, F, dt,
+                                                               seed)
+        if want("K2 training", "K3 dkv", "K3 dq"):
+            k3 = cs.check_k3(torch, F, dt, seed)
+            res.setdefault("K2 training", {})[dt] = k3["fwd"]
+            res.setdefault("K3 dkv", {})[dt] = k3["dkv"]
+            res.setdefault("K3 dq", {})[dt] = k3["dq"]
+        if want("K2-carry"):
+            res.setdefault("K2-carry", {})[dt] = cs.check_carry(torch, dt,
+                                                               seed)
     eng = (engines(torch, cs, seed, engines_dir, labels) if engines_dir
            else None)
     return res, eng, (train_f32(torch, cs, seed, engines_dir) if train
@@ -239,11 +254,15 @@ def main(argv=None):
                     help="the labels of ENGINES to run with --engines")
     ap.add_argument("--train", action="store_true",
                     help="also train GPT-2-small in f32 (8 steps)")
+    ap.add_argument("--kernels", nargs="+", default=None, metavar="PREFIX",
+                    help="time only the rows whose name starts with one "
+                         "of these")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         res, eng, tr = worker(args.worker, args.seed, args.dtypes,
-                              args.engines, args.train, args.engine_labels)
+                              args.engines, args.train, args.engine_labels,
+                              args.kernels)
         print(TAG + json.dumps({"tree": args.worker, "results": res,
                                 "engines": eng, "train": tr}), flush=True)
         return 0
@@ -258,6 +277,7 @@ def main(argv=None):
                 "--engine-labels", *args.engine_labels]
                if args.engines else [])
         eng += ["--train"] if args.train else []
+        eng += ["--kernels", *args.kernels] if args.kernels else []
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker", tree,
              "--seed", str(args.seed), "--dtypes", *args.dtypes, *eng],
@@ -278,7 +298,8 @@ def main(argv=None):
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("".join(json.dumps(r) + "\n"
                                           for r in runs))
-    print(f"one call / ten back to back [/ device], ms, on {card}; trees "
+    print(f"one call / ten back to back [/ device], ms (max abs err), on "
+          f"{card}; trees "
           f"in order: "
           + ", ".join(r["tree"] for r in runs))
     for key in runs[0]["results"]:
@@ -289,7 +310,7 @@ def main(argv=None):
                 cell = f"{x['ms']:.4f} / {x['run_ms']:.4f}"
                 if x.get("dev_ms") is not None:
                     cell += f" / {x['dev_ms']:.4f}"
-                cells.append(cell)
+                cells.append(f"{cell} (err {x['err']:.3g})")
             print(f"  {key:17s} {dt:8s}  " + "  |  ".join(cells)
                   + f"  (bound {runs[0]['results'][key][dt]['bound_ms']:.4f})",
                   flush=True)

@@ -402,8 +402,9 @@ def test_f32_q_k8_int8_equals_k1_int8_bit_for_bit(cuda, Dh, Q):
 
 def test_f32_ragged_wide_waves_keep_the_cuda_core_body(cuda, monkeypatch):
     """f32 K1, f32 K8, f32-q K1-int8 and f32-q K8-int8 at Q 17 (the wide
-    regime) still launch ragged_body.cuh's entries, each within 1e-5 of
-    its plain version."""
+    regime) launch their wide entries (the TF32 tensor-core body of
+    ragged_tf32.cuh since it replaced the CUDA-core one), not the narrow
+    ones, each within 1e-5 of its plain version."""
     q, pk, pv, lens, ql, tab = _long_wave(64, 17, [17, 9, 0, 0], seed=17)
     idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
     args = [q.to(cuda), pk.to(cuda), pv.to(cuda)] + idx
@@ -444,13 +445,69 @@ def test_f32_ragged_wide_waves_keep_the_cuda_core_body(cuda, monkeypatch):
                   "float32")
 
 
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [17, 64, 256, 1024])
+def test_f32_ragged_wide_waves_on_the_tensor_cores(cuda, monkeypatch, Dh,
+                                                   Q):
+    """f32 K1, f32 K8, f32-q K1-int8 and f32-q K8-int8 on prompt-chunk
+    waves (Q > 16: the TF32 body of ragged_tf32.cuh): lengths 1000, 257,
+    1 and 0 cross many key tiles, a full q-block, a shorter one (dead
+    rows past it), an inert q_len-0 slot with a length sharing a pool
+    block, the length-0 slot.  Each within 1e-5 of its plain version,
+    its wide entry called, one launch counted under the wrapper's name
+    and ``:wide``, the length-0 slot zero; K8 equal to K1 bit for bit
+    (one body, one row limit, one tile order), K1-int8 equal bit for bit
+    to K1 over ``kv_decode`` (the body dequantizes the payload to those
+    values) and K8-int8 to K1-int8."""
+    q, pk, pv, lens, ql, tab = _long_wave(Dh, Q, [Q, Q // 2, 0, 0],
+                                          seed=3 * Q + Dh)
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    qd = q.to(cuda)
+    (k8, ks), (v8, vs) = (_int8(x, cuda) for x in (pk, pv))
+    rows = [_slot_rows(x.cpu(), tab).to(cuda) for x in (pk, pv)]
+    rows8 = [_slot_rows(x.cpu(), tab).to(cuda) for x in (k8, ks, v8, vs)]
+    calls = (
+        ("ragged_paged", "hetu_ragged_paged_attention",
+         "ragged_paged_attention", tra.ragged_paged_attention,
+         tra.ragged_paged_reference, [qd, pk.to(cuda), pv.to(cuda)] + idx,
+         ()),
+        ("ragged_paged", "hetu_ragged_attention", "ragged_attention",
+         tra.ragged_attention, tra.ragged_masked_reference,
+         [qd] + rows + idx[:2], ()),
+        ("ragged_paged_int8", "hetu_ragged_paged_attention_int8",
+         "ragged_paged_attention_int8", tra.ragged_paged_attention,
+         tra.ragged_paged_reference, [qd, k8, v8] + idx, (ks, vs)),
+        ("ragged_paged_int8", "hetu_ragged_attention_int8",
+         "ragged_attention_int8", tra.ragged_attention,
+         tra.ragged_masked_reference,
+         [qd, rows8[0], rows8[2]] + idx[:2], (rows8[1], rows8[3])))
+    libs, entries = _record_loads(monkeypatch)
+    outs = []
+    for lib, entry, name, run, plain, args, sc in calls:
+        del libs[:], entries[:]
+        reset_launches()
+        kw = dict(zip(("k_scale", "v_scale"), sc))
+        got = run(*args, **kw)
+        torch.cuda.synchronize()
+        assert libs == [lib] and entries == [entry]
+        assert _nonzero_launches() == {name: 1, f"{name}:wide": 1}
+        assert_within(got, plain(*args, *sc), "float32")
+        assert (got[3] == 0).all()
+        outs.append(got)
+    assert torch.equal(outs[1], outs[0])
+    assert torch.equal(outs[3], outs[2])
+    deq = tra.ragged_paged_attention(qd, kv_decode(k8, ks),
+                                     kv_decode(v8, vs), *idx)
+    assert torch.equal(outs[2], deq)
+
+
 def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
     """The f32 split body copies 16-byte chunks: at Q <= 16 a q or a pool
     8 bytes off a 16-byte boundary is refused by f32 K1, so are such
     slot rows by f32 K8, and an int8 payload 8 bytes off (or a scale
     plane 4 bytes off) by f32-q K1-int8 and by f32-q K8-int8; nothing
-    launches.  At Q 17 (ragged_body.cuh, 4-byte reads) the same pool and
-    payloads are taken."""
+    launches.  At Q 17 the TF32 body (ragged_tf32.cuh) copies 16-byte
+    chunks too: the same pool and payloads are refused there."""
     q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
     idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
     qd, kd, vd = q.to(cuda), pk.to(cuda), pv.to(cuda)
@@ -479,23 +536,18 @@ def test_f32_ragged_narrow_wrapper_refuses_misaligned_data(cuda):
         tra.ragged_attention(qd, r8, w8, *idx[:2], k_scale=_off16(rs, 4),
                              v_scale=ws)
     assert not any(launch_counts().values())
-    q17, *_ = _wave(64, 16, 17)
-    args = [q17.to(cuda), _off16(kd, 8), vd] + idx
-    got = tra.ragged_paged_attention(*args)
-    torch.cuda.synchronize()
-    assert regime_counts()["ragged_paged_attention:wide"] == 1
-    assert_within(got, tra.ragged_paged_reference(*args), "float32")
-    args = [q17.to(cuda), _off16(k8, 8), v8] + idx
-    got = tra.ragged_paged_attention(*args, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    assert regime_counts()["ragged_paged_attention_int8:wide"] == 1
-    assert_within(got, tra.ragged_paged_reference(*args, ks, vs), "float32")
-    args = [q17.to(cuda), _off16(r8, 8), w8] + idx[:2]
-    got = tra.ragged_attention(*args, k_scale=rs, v_scale=ws)
-    torch.cuda.synchronize()
-    assert regime_counts()["ragged_attention_int8:wide"] == 1
-    assert_within(got, tra.ragged_masked_reference(*args, rs, ws),
-                  "float32")
+    q17 = _wave(64, 16, 17)[0].to(cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(q17, _off16(kd, 8), vd, *idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(_off16(q17, 8), kd, vd, *idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(q17, _off16(k8, 8), v8, *idx, k_scale=ks,
+                                   v_scale=vs)
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_attention(q17, _off16(r8, 8), w8, *idx[:2], k_scale=rs,
+                             v_scale=ws)
+    assert not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -913,6 +965,52 @@ def test_flash_carry_kernel_matches_plain(cuda, dtype, D, causal, S, Sk,
     assert torch.equal(lse >= 1e29, ~live)
     np.testing.assert_allclose(lse[live].cpu().numpy(),
                                lse_r[live].cpu().numpy(), atol=1e-4)
+
+
+# (causal, S, Sk) for bf16 K2's TMA ring: 128-row q tiles and key tiles
+# of 64 (128 at D 32) off their edges, the ring of stages wrapping many
+# times (Sk 1000), a q tile shorter than a key tile
+BF16_RING_CASES = [(True, 333, 333), (False, 200, 1000), (False, 129, 65)]
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,S,Sk", BF16_RING_CASES)
+@pytest.mark.parametrize("carry", [False, True])
+def test_bf16_flash_kernels_through_the_tma_ring(cuda, D, causal, S, Sk,
+                                                 carry):
+    """bf16 K2 (kv_lens partial, 0, 1 and full) and K2-carry (a mixed
+    carry) on 4 sequences x 40 heads: 480 to 1280 blocks, several waves
+    of the card's SMs, each loading through TMA into its ring of stages
+    and freeing them by mbarrier; held to ``flash_tol`` as
+    ``test_flash_kernel_matches_plain``, the lse within 1e-4 and +1e30
+    exactly where no key is live."""
+    dt = torch.bfloat16
+    if carry:
+        q, k, v, o_c, lse_c = _carry_case(4, S, Sk, 40, D, "mixed", dt,
+                                          cuda, D + Sk)
+        args, lens = (q, k, v, o_c, lse_c), None
+        o, lse = tfa.flash_fwd_carry(*args, causal=causal)
+        o_r, lse_r = tfa.flash_fwd_carry_reference(*args, causal=causal)
+        tol = flash_tol(q, k, v, "bfloat16", causal, lse_c=lse_c,
+                        rtol=CARRY_TOL["rtol"])
+    else:
+        g = torch.Generator().manual_seed(D + Sk)
+        q = torch.randn((4, S, 40, D), generator=g).to(cuda, dt)
+        k, v = (torch.randn((4, Sk, 40, D), generator=g).to(cuda, dt)
+                for _ in range(2))
+        lens = _lens(Sk, cuda)
+        o, lse = tfa.flash_fwd(q, k, v, causal=causal, kv_lens=lens)
+        o_r, lse_r = tfa.flash_fwd_reference(q, k, v, causal=causal,
+                                             kv_lens=lens)
+        tol = flash_tol(q, k, v, "bfloat16", causal, kv_lens=lens)
+    torch.cuda.synchronize()
+    assert_flash_close(o, o_r, **tol)
+    live = lse_r < 1e29
+    assert torch.equal(lse >= 1e29, ~live)
+    np.testing.assert_allclose(lse[live].cpu().numpy(),
+                               lse_r[live].cpu().numpy(), atol=1e-4)
+    if lens is not None:
+        assert (o[1] == 0).all()
 
 
 # (causal, S, Sk) for the f32 forward's tiles: 64-row q tiles, key tiles
@@ -1333,8 +1431,8 @@ def _off16(t, nbytes):
 def test_bf16_ragged_int8_wrappers_refuse_misaligned_data(cuda):
     """bf16 q's int8 twins of K1/K8 copy 16-byte chunks of the payload: a
     payload 8 bytes off a 16-byte boundary is refused, not read, and so
-    is a scale plane 4 bytes off; f32 q's twin past 16 rows
-    (ragged_body.cuh) reads 4-byte words and takes the same payload."""
+    is a scale plane 4 bytes off; so does f32 q's twin past 16 rows
+    (ragged_tf32.cuh, 16-byte chunks too)."""
     q, pk, pv, lens, ql, tab = _wave(64, 16, 8)
     (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
     lens_d, ql_d, tab_d = (torch.from_numpy(a).to(cuda)
@@ -1350,14 +1448,10 @@ def test_bf16_ragged_int8_wrappers_refuse_misaligned_data(cuda):
                              k_scale=rows[2], v_scale=_off16(rows[3], 4))
     reset_launches()
     q17 = _wave(64, 16, 17)[0].to(cuda)
-    got = tra.ragged_paged_attention(q17, bad, v, lens_d, ql_d, tab_d,
-                                     k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    assert launch_counts()["ragged_paged_attention_int8"] == 1
-    want = tra.ragged_paged_reference(q17, k, v, lens_d, ql_d, tab_d, ks,
-                                      vs)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               **TOL["float32"])
+    with pytest.raises(ValueError, match="16-byte"):
+        tra.ragged_paged_attention(q17, bad, v, lens_d, ql_d, tab_d,
+                                   k_scale=ks, v_scale=vs)
+    assert not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
