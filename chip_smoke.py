@@ -16,10 +16,11 @@ non-zero and prints no result line):
    bf16 K2 and K2-carry on wgmma fed by TMA from a producer warp, bf16
    K3's two on mma.sync, K1/K8's wide kernel on wgmma and split kernel
    on mma.sync, each over a bf16 and an int8 cache, and K4-K7's split
-   kernel on mma.sync, K6's and K7's also over an int8 cache), and of
-   the f32 split kernel on the CUDA cores (f32 K1 over the pool, f32 K8
-   over slot rows, f32-q K1-int8 over an int8 pool, f32-q K8-int8 over
-   int8 slot rows): registers and spills (``ptxas -v``), dynamic shared
+   kernel on mma.sync, also over an int8 cache), and of the f32 split
+   kernel on the CUDA cores (f32 K1 over the pool, f32 K8 over slot
+   rows, f32-q K1-int8 over an int8 pool, f32-q K8-int8 over int8 slot
+   rows, f32-q K4-int8/K5-int8 over either): registers and spills
+   (``ptxas -v``), dynamic shared
    memory, and the HGMMA / HMMA (TF32 among them) / FFMA / UTMALDG
    instructions of its SASS where the toolkit has ``cuobjdump`` (a
    tensor-core instance with no HGMMA or HMMA, an f32 flash or f32 wide
@@ -47,9 +48,13 @@ non-zero and prints no result line):
    rate, all held to 1e-5); then f32 K8 equal to f32
    K1 bit for bit on the same decode wave (Q 1) over the pool's slot
    rows and the pool, and f32-q K8-int8 equal to f32-q K1-int8 the same
-   way over the pool's int8 encoding; last bf16-q K6-int8 equal to
+   way over the pool's int8 encoding; bf16-q K6-int8 equal to
    bf16-q K8-int8 bit for
-   bit on the same Q 5 verify wave over the same int8 slot rows.  bf16
+   bit on the same Q 5 verify wave over the same int8 slot rows; last,
+   in both q dtypes at head dims 32, 64 and 128, K5-int8 equal to
+   K1-int8 over an int8 pool and K4-int8 to K8-int8 over its slot rows
+   on the Q 1 decode wave, bit for bit, each on its split body, and a
+   misaligned int8 payload refused with nothing launched.  bf16
    K1 and K8 (csrc/ragged_paged_bf16.cu) round P to bf16 before P V as
    the Pallas body does and their plain
    versions do not: they are held to TOL plus
@@ -109,9 +114,8 @@ non-zero and prints no result line):
    f32 K/V encoded by ``quant.kv_encode`` on the card (equal to the CPU
    encoding, payload and scales), q f32 and bf16, held to their plain
    versions with phase 2's tolerances (both sides form the same f32
-   product payload x scale; bf16 K1-int8, K8-int8, K6-int8 and
-   K7-int8, on the tensor cores, split p times the V scale into a bf16
-   pair before
+   product payload x scale; every bf16-q twin, on the tensor cores,
+   splits p times the V scale into a bf16 pair before
    P V_int, two products, and hold TOL alone as the Pallas int8 body,
    which never rounds P, does), timed
    beside an SDPA yardstick over the pre-dequantized K/V (the
@@ -419,13 +423,14 @@ def tf32_method(dtype):
 # kernel (f32 K1 over the pool, f32 K8 over slot rows, and the f32-q
 # int8 twins of both, its own library) and K3's two f32 kernels on TF32,
 # then the bf16 kernels (K2 and K2-carry fed by TMA); the split kernel of
-# decode_attention_bf16 once for K4/K5
-# (DecodeLim), once for K6/K7, K6-int8 and K7-int8 (VerifyLim) and once
-# more for K6-int8 alone (int8, "a", over SlotRows); last the f32 split
-# kernel of the narrow waves, which runs on the CUDA cores, once for f32
-# K1 (TableRows), once for f32 K8 (SlotRows) and once each for f32-q
-# K1-int8 and K8-int8 (its own library): its SASS must show FFMA and no
-# HMMA or HGMMA (``FFMA_KERNELS``)
+# decode_attention_bf16 once for K4/K5 and K4-int8/K5-int8 (DecodeLim),
+# once more for K4-int8/K5-int8 alone (int8, "a"), once for K6/K7,
+# K6-int8 and K7-int8 (VerifyLim) and once more for K6-int8 alone (int8
+# over SlotRows); last the f32 split kernel of the narrow waves, which
+# runs on the CUDA cores, once for f32 K1 (TableRows), once for f32 K8
+# (SlotRows), once each for f32-q K1-int8 and K8-int8 (its own library)
+# and once for f32-q K4-int8/K5-int8 (DecodeLim, decode_attention_int8):
+# its SASS must show FFMA and no HMMA or HGMMA (``FFMA_KERNELS``)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_flash_fwd_smem", (), ""),
               ("ragged_paged", "ragged_tf32_kernel",
@@ -453,6 +458,8 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
               ("decode_attention_bf16", "split_kv_kernel",
                "hetu_verify_bf16_smem", (), "DecodeLim"),
               ("decode_attention_bf16", "split_kv_kernel",
+               "hetu_verify_bf16_smem", (), r"ILi\d+Ea.*DecodeLim"),
+              ("decode_attention_bf16", "split_kv_kernel",
                "hetu_verify_bf16_smem", (), "VerifyLim"),
               ("decode_attention_bf16", "split_kv_kernel",
                "hetu_verify_bf16_smem", (),
@@ -464,7 +471,9 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
               ("ragged_paged_int8", "split_kv_f32_kernel",
                "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*TableRows"),
               ("ragged_paged_int8", "split_kv_f32_kernel",
-               "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*SlotRows"))
+               "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*SlotRows"),
+              ("decode_attention_int8", "split_kv_f32_kernel",
+               "hetu_decode_f32_smem", (), "DecodeLim"))
 # the kernels of TC_KERNELS that run on the CUDA cores, by symbol
 FFMA_KERNELS = ("split_kv_f32_kernel",)
 # the kernels that must show TF32 HMMA: the f32 flash forward and
@@ -536,9 +545,9 @@ def tc_report(_build, paths):
     K2-carry, the f32 wide ragged kernel of f32 K1/K8 and of their f32-q
     int8 twins and f32 K3's two on TF32, bf16 K2 and K2-carry, bf16 K3's
     two, the wide and split ragged kernels of K1/K8 and of their int8
-    twins, the split kernel of K4/K5, and of K6/K7, K6-int8 and K7-int8)
-    and of the f32 split kernel of f32 K1, f32 K8, f32-q K1-int8 and
-    f32-q K8-int8 on the CUDA cores: registers and spills (ptxas, from
+    twins, the split kernel of K4-K7 and of their int8 twins) and of the
+    f32 split kernel of f32 K1, f32 K8, f32-q K1-int8, K8-int8, K4-int8
+    and K5-int8 on the CUDA cores: registers and spills (ptxas, from
     this process's build), dynamic shared memory, and the HMMA (TF32
     among them) / HGMMA / FFMA / UTMALDG instructions of its SASS; fails
     when a tensor-core instance has no tensor-core instruction, when a
@@ -629,9 +638,9 @@ H, DH, BS, T_WIDTH = 12, 64, 16, 64
 LENGTHS = np.array([1024, 600, 37, 0, 1, 300, 512, 129], np.int32)
 
 
-def pool_case(torch, dtype, seed):
+def pool_case(torch, dtype, seed, Dh=DH):
     """The 8 slots of ``LENGTHS`` in a permuted block pool [N, 16, 12,
-    64], slots 1 and 6 sharing their first 8 blocks (a 128-position
+    Dh], slots 1 and 6 sharing their first 8 blocks (a 128-position
     prefix); dead table entries at scratch block 0.  Returns the pools,
     the host tables and the count of distinct pool rows some slot's
     length reaches (each read once: a shared row once)."""
@@ -646,7 +655,7 @@ def pool_case(torch, dtype, seed):
     tables[6, :8] = tables[1, :8]              # a shared prefix
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    pool_k, pool_v = (torch.randn((n_blocks, BS, H, DH), generator=g,
+    pool_k, pool_v = (torch.randn((n_blocks, BS, H, Dh), generator=g,
                                   device="cuda").to(dt) for _ in range(2))
     rows = {(int(tables[b, p // BS]), p % BS) for b in range(B)
             for p in range(int(LENGTHS[b]))}
@@ -1033,6 +1042,83 @@ def check_k8_equals_k1(torch, seed, int8=False):
         f"same {'int8 ' if int8 else ''}K/V (slot rows, pool), bit for bit")
 
 
+def check_decode_int8_equals_ragged_int8(torch, seed):
+    """K4-int8 and K5-int8 on their split bodies, q f32 and bf16, head dim
+    32, 64 and 128: the 8 slots of ``LENGTHS`` in an int8 pool (the f32
+    pool of ``pool_case`` encoded on the card) and its slot rows gathered
+    through the tables.  K5-int8 (``paged_block_decode_attention``)
+    equals K1-int8 (``ragged_paged_attention``) on phase 2's decode wave
+    (Q 1) over the pool, and K4-int8 (``paged_decode_attention``) equals
+    K8-int8 (``ragged_attention``) over the slot rows, bit for bit: one
+    split body, row limits that agree at q_len 1 (DecodeLim is RaggedLim
+    there), one split order.  Each decode call counts one launch under
+    ``_int8``; a payload 8 bytes off a 16-byte boundary is refused with
+    nothing launched."""
+    from hetu_tpu_torch.kernels import decode_attention as da
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.kernels import ragged_attention as ra
+    Q, q_lens = NARROW_WAVES["decode"]
+    B, span = len(LENGTHS), T_WIDTH * BS
+    lens, ql = (torch.from_numpy(x).cuda() for x in (LENGTHS, q_lens))
+    for dtype in ("float32", "bfloat16"):
+        for Dh in (32, 64, 128):
+            pool_k, pool_v, tables, _ = pool_case(torch, "float32",
+                                                  seed + 15 + Dh, Dh=Dh)
+            tab = torch.from_numpy(tables).cuda()
+            (kq, ks), (vq, vs) = int8_kv(torch, pool_k, pool_v)
+
+            def rows(x):
+                """The slot rows of pool ``x`` (or of its scale plane)."""
+                return x[tab.long()].reshape(B, span, *x.shape[2:]) \
+                    .contiguous()
+            g = torch.Generator(device="cuda").manual_seed(seed + 16 + Dh)
+            q = torch.randn((B, Q, H, Dh), generator=g, device="cuda").to(
+                getattr(torch, dtype))
+            sc = dict(k_scale=ks, v_scale=vs)
+            rsc = {n: rows(x) for n, x in sc.items()}
+            reset_launches()
+            k5 = da.paged_block_decode_attention(q[:, 0], kq, vq, lens, tab,
+                                                 **sc)
+            k4 = da.paged_decode_attention(q[:, 0], rows(kq), rows(vq),
+                                           lens, **rsc)
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in launch_counts().items() if n}
+            want = {"paged_block_decode_attention_int8": 1,
+                    "paged_decode_attention_int8": 1}
+            if counts != want:
+                fail(f"{dtype} K4-int8/K5-int8 launches {counts}, not "
+                     f"{want}")
+            k1 = ra.ragged_paged_attention(q, kq, vq, lens, ql, tab, **sc)
+            k8 = ra.ragged_attention(q, rows(kq), rows(vq), lens, ql, **rsc)
+            torch.cuda.synchronize()
+            for got, ref, what in ((k5, k1[:, 0], "K5-int8 vs K1-int8"),
+                                   (k4, k8[:, 0], "K4-int8 vs K8-int8")):
+                if not torch.equal(got, ref):
+                    diff = float((got.float() - ref.float()).abs().max())
+                    fail(f"{dtype} {what} at Dh {Dh} on the Q 1 decode "
+                         f"wave: max abs diff {diff}")
+            bad = torch.zeros(kq.numel() + 8, dtype=torch.int8,
+                              device="cuda")[8:].view(kq.shape)
+            bad.copy_(kq)
+            reset_launches()
+            try:
+                da.paged_block_decode_attention(q[:, 0], bad, vq, lens, tab,
+                                                **sc)
+            except ValueError as e:
+                if "16-byte" not in str(e):
+                    raise
+            else:
+                fail(f"{dtype} K5-int8 took a payload 8 bytes off a "
+                     f"16-byte boundary")
+            if any(launch_counts().values()):
+                fail(f"{dtype} K5-int8 launched on a refused payload")
+        log(f"  K5-int8 paged_block_decode_attention {dtype} == K1-int8 "
+            f"ragged_paged_attention, K4-int8 paged_decode_attention == "
+            f"K8-int8 ragged_attention, on the Q 1 decode wave over the "
+            f"same int8 pool / slot rows at Dh 32, 64 and 128, bit for "
+            f"bit; a misaligned payload refused")
+
+
 def check_k6_int8_equals_k8_int8(torch, seed):
     """bf16-q K6-int8 (``paged_verify_attention`` over an int8 cache) and
     bf16-q K8-int8 (``ragged_attention``) on phase 2's verify wave (Q 5,
@@ -1307,9 +1393,10 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 
 
 # kernel kinds of the profile, by name, first match wins.  K4-K7 in
-# bf16, and K6-int8/K7-int8 for bf16 q (their element type, signed char,
-# makes them the int8 twins in kind_of), are split and merge kernels of
-# their own row-limit types (DecodeLim<layout>, VerifyLim<layout>), ahead of
+# bf16, their int8 twins for bf16 q and f32-q K4-int8/K5-int8 (their
+# element type, signed char, makes them the int8 twins in kind_of), are
+# split and merge kernels of their own row-limit types
+# (DecodeLim<layout>, VerifyLim<layout>), ahead of
 # K1/K8's and their twins'; K1/K8 are the f32 TF32 ragged kernel (f32
 # q, Q > 16; the CUDA-core ragged_kernel of a tree before it), the f32
 # split kernel and its merge (f32 q, Q <= 16: f32 K1 and K8,
@@ -2448,6 +2535,7 @@ def main(argv=None):
     check_k8_equals_k1(torch, args.seed)
     check_k8_equals_k1(torch, args.seed, int8=True)
     check_k6_int8_equals_k8_int8(torch, args.seed)
+    check_decode_int8_equals_ragged_int8(torch, args.seed)
 
     # ---- phase 3 ---- #
     log("phase 3: offline generate_fast, GPT-2-small")
@@ -2559,7 +2647,7 @@ def main(argv=None):
     k1 = ("ragged_tf32.cuh", "ragged_paged_bf16.cu")
     k1n = ("split_kv_f32.cuh", "ragged_paged_bf16.cu")
     ver = ("decode_attention.cu", "decode_attention_bf16.cu")
-    dec8 = ("decode_attention_int8.cu",) * 2
+    dec8 = ("split_kv_f32.cuh", "decode_attention_bf16.cu")
     ver8 = ("decode_attention_int8.cu", "decode_attention_bf16.cu")
     r1 = "hetu_tpu/kernels/ragged_attention.py:184"
     r8 = "hetu_tpu/kernels/ragged_attention.py:133"

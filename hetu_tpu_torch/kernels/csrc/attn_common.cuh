@@ -1,13 +1,13 @@
 // Shared device code of the port's one-block-per-slot CUDA-core attention
-// body (decode_body.cuh, whose f32/bf16 and int8 instances build as
-// separate libraries): the decode kernels give one block one (slot,
+// body (decode_body.cuh, whose f32 and int8 instances build as separate
+// libraries): the decode kernels give one block one (slot,
 // head) and its 32 rows the slot's positions to share.  Eight consecutive lanes share a row, each
 // holding Dh/8 of its dimensions (strided by 8, so the eight lanes read
 // eight consecutive floats of a shared-memory key row: no bank
 // conflicts).  The kernels stage K/V tiles of KT positions in shared
 // memory as f32 and fold them into an online softmax whose running max,
 // denominator and output accumulator stay in registers, in f32, over f32
-// or bf16 inputs.  Every thread runs every loop iteration (rows past the
+// or int8 caches.  Every thread runs every loop iteration (rows past the
 // end of the q tile compute on a clamped row and skip the store), so the
 // row-group shuffles and __syncthreads() always see converged lanes.
 #pragma once
@@ -15,7 +15,6 @@
 #include <cstdint>
 #include <type_traits>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "kv_rows.cuh"
@@ -29,17 +28,10 @@ constexpr int kThreads = kLanesPerRow * kRowsPerBlock;   // 256
 constexpr int kChunk = 16;            // keys scored per softmax update
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Sum over the eight lanes of one row (consecutive lanes of a warp).
@@ -155,7 +147,7 @@ template <int DH> struct RowState {
 };
 
 // One layer's K/V as the kernels read them, by element type: a float
-// cache [rows, H, Dh] of f32 or bf16, or an int8 cache, whose payload
+// cache [rows, H, Dh] of f32, or an int8 cache, whose payload
 // [rows, H, Dh] comes with one f32 scale per (row, head) in [rows, H].
 template <typename KV> struct KVPlanes {
   const KV* __restrict__ k;
@@ -168,7 +160,7 @@ template <> struct KVPlanes<int8_t> {
   const float* __restrict__ v_scale;
 };
 
-// The caches of one call from its C entry's pointers: f32/bf16 caches of
+// The caches of one call from its C entry's pointers: f32 caches of
 // q's type T (the scale pointers unused), or with kQuant int8 payloads
 // and their f32 scale planes.
 template <bool kQuant, typename T>

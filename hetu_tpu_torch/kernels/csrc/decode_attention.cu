@@ -16,10 +16,9 @@
 extern "C" int hetu_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int B, int H, int Dh, int S_max, int dtype, void* stream) {
-  return hetu::dispatch<false, 1, false>(q, k, nullptr, v, nullptr,
-                                         lengths, nullptr,
-                                         hetu::SlotRows{S_max}, out, B, 1,
-                                         H, Dh, dtype, stream);
+  return hetu::dispatch<false, 1>(q, k, nullptr, v, nullptr, lengths,
+                                  nullptr, hetu::SlotRows{S_max}, out, B, 1,
+                                  H, Dh, dtype, stream);
 }
 
 // K5: q [B, H, Dh], pools [N_blocks, bs, H, Dh], tables [B, T_width];
@@ -29,9 +28,9 @@ extern "C" int hetu_paged_block_decode_attention(
     const void* lengths, const void* tables, void* out, int B, int H,
     int Dh, int bs, int T_width, int dtype, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<false, 1, false>(q, pool_k, nullptr, pool_v,
-                                         nullptr, lengths, nullptr, rows,
-                                         out, B, 1, H, Dh, dtype, stream);
+  return hetu::dispatch<false, 1>(q, pool_k, nullptr, pool_v, nullptr,
+                                  lengths, nullptr, rows, out, B, 1, H, Dh,
+                                  dtype, stream);
 }
 
 // K6: q [B, Q, H, Dh] (Q <= 16), caches [B, S_max, H, Dh]; f32 only.
@@ -39,10 +38,9 @@ extern "C" int hetu_paged_verify_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     const void* q_lens, void* out, int B, int Q, int H, int Dh, int S_max,
     int dtype, void* stream) {
-  return hetu::dispatch<false, 16, false>(q, k, nullptr, v, nullptr,
-                                          lengths, q_lens,
-                                          hetu::SlotRows{S_max}, out, B, Q,
-                                          H, Dh, dtype, stream);
+  return hetu::dispatch<false, 16>(q, k, nullptr, v, nullptr, lengths,
+                                   q_lens, hetu::SlotRows{S_max}, out, B, Q,
+                                   H, Dh, dtype, stream);
 }
 
 // K7: q [B, Q, H, Dh] (Q <= 16), pools [N_blocks, bs, H, Dh], tables
@@ -53,7 +51,7 @@ extern "C" int hetu_paged_block_verify_attention(
     int B, int Q, int H, int Dh, int bs, int T_width, int dtype,
     void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<false, 16, false>(q, pool_k, nullptr, pool_v,
-                                          nullptr, lengths, q_lens, rows,
-                                          out, B, Q, H, Dh, dtype, stream);
+  return hetu::dispatch<false, 16>(q, pool_k, nullptr, pool_v, nullptr,
+                                   lengths, q_lens, rows, out, B, Q, H, Dh,
+                                   dtype, stream);
 }

@@ -1,19 +1,20 @@
 // One decode query, or a speculative verify q-block, per slot in bf16 on
 // the tensor cores, over either KV layout of the serving engine: the
 // slot-contiguous cache (K4, K6) and the block-table paged pool (K5,
-// K7), bf16 q over a bf16 cache, and the verify kernels' int8 twins
-// (K6-int8, K7-int8), bf16 q over an int8 cache with one f32 scale per
-// (position, head).  The f32 instances, K4-int8 and K5-int8, and
-// K6-int8/K7-int8 for f32 q stay on the CUDA-core body (decode_body.cuh:
-// decode_attention.cu, decode_attention_int8.cu).
+// K7), bf16 q over a bf16 cache, and the int8 twins of all four (K4-int8
+// to K7-int8), bf16 q over an int8 cache with one f32 scale per
+// (position, head).  f32 q runs on the CUDA cores: f32-q K4-int8 and
+// K5-int8 on split_kv_f32.cuh (decode_attention_int8.cu), f32 K4-K7 and
+// f32-q K6-int8/K7-int8 on decode_body.cuh (decode_attention.cu,
+// decode_attention_int8.cu).
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_decode_attention
 // and ::paged_block_decode_attention over bf16 caches (Pallas bodies
 // _decode_kernel and _block_decode_kernel -> _online_softmax_update),
 // ::paged_verify_attention and ::paged_block_verify_attention over bf16
 // caches (_verify_kernel and _block_verify_kernel ->
-// _online_softmax_multi), and ::paged_verify_attention and
-// ::paged_block_verify_attention over an int8 cache (_verify_kernel_int8,
+// _online_softmax_multi), and all four over an int8 cache
+// (_decode_kernel_int8, _block_decode_kernel_int8, _verify_kernel_int8,
 // _block_verify_kernel_int8).  A decode query sees its slot's
 // positions [0, lengths[b]).  Verify query jq of slot b sits at
 // lengths[b] - q_lens[b] + jq and sees the positions up to clip(that, 0,
@@ -29,8 +30,8 @@
 // P (decode_attention.py:466-468): here the payload is widened to bf16
 // exactly, the scores are Q K_int^T times each key's K scale in f32, and
 // P times each key's V scale is split into a bf16 pair for P V_int (two
-// products: split_kv_bf16.cuh's int8 path, shared with K1-int8), so the
-// kernel holds one bf16 ulp of the reference.
+// products: split_kv_bf16.cuh's int8 path, shared with K1-int8/K8-int8),
+// so the kernels hold one bf16 ulp of the reference.
 //
 // What bounds it on an H100: bytes.  A decode or verify wave reads each
 // slot's live K/V once (4 len H D bytes; 2 len H (D + 4) over an int8
@@ -54,15 +55,16 @@
 // each row in f32 from a workspace the wrapper allocates
 // (hetu_verify_bf16_workspace floats, either cache, Q = 1 for decode).
 //
-// The row limits are DecodeLim<Rows> (decode) and VerifyLim<Rows>
-// (verify, the clip of K1/K8's RaggedLim), types of their own, which are
-// also the merge kernel's tag: a profile names K4's and K5's split and
-// merge kernels (DecodeLim<hetu::SlotRows>, DecodeLim<hetu::TableRows>)
-// apart from K6's and K7's (VerifyLim<...>) and from K8's and K1's, and
-// K6-int8's and K7-int8's by the int8 element type beside them (", signed
-// char,").  bf16-q K6-int8 is bf16-q K8-int8's split body with the same
-// SlotRows and limits, so on the same verify wave the two agree bit for
-// bit.
+// The row limits are DecodeLim<Rows> (decode: len - 1, RaggedLim at
+// q_len 1) and VerifyLim<Rows> (verify, the clip of K1/K8's RaggedLim),
+// types of their own (kv_rows.cuh), which are also the merge kernel's
+// tag: a profile names K4's and K5's split and merge kernels
+// (DecodeLim<hetu::SlotRows>, DecodeLim<hetu::TableRows>) apart from
+// K6's and K7's (VerifyLim<...>) and from K8's and K1's, and the int8
+// twins by the int8 element type beside them (", signed char,").
+// bf16-q K4-int8 and K6-int8 are bf16-q K8-int8's split body with the
+// same SlotRows and limits, and K5-int8 is K1-int8's over TableRows, so
+// on the same wave each pair agrees bit for bit.
 #include <cmath>
 
 #include "split_kv_bf16.cuh"
@@ -70,27 +72,6 @@
 namespace hetu {
 namespace tc {
 namespace {
-
-// the last live position of row jq of slot b: clip(len - q_len + jq, 0,
-// len - 1); -1 in a slot of length 0.  Rows, the cache layout, only names
-// the kernels that take it.
-template <typename Rows> struct VerifyLim {
-  const int* lengths;
-  const int* q_lens;
-  __device__ __forceinline__ int operator()(int b, int jq) const {
-    const int len = lengths[b];
-    return min(max(len - q_lens[b] + jq, 0), len - 1);
-  }
-};
-
-// the last live position of slot b's decode row: len - 1; -1 in a slot
-// of length 0.  Rows as in VerifyLim.
-template <typename Rows> struct DecodeLim {
-  const int* lengths;
-  __device__ __forceinline__ int operator()(int b, int) const {
-    return lengths[b] - 1;
-  }
-};
 
 template <int D, typename KV, typename Rows, typename Lim>
 cudaError_t launch(const Operands<KV>& x, Rows rows, Lim lim, float* ws,
@@ -209,6 +190,37 @@ extern "C" int hetu_paged_block_verify_attention_bf16(
   return dispatch<bf16>(q, pool_k, nullptr, pool_v, nullptr, lengths, rows,
                         verify_lim<hetu::TableRows>(lengths, q_lens), out,
                         ws, B, Q, H, Dh, T_width * bs, stream);
+}
+
+// K4-int8 for bf16 q: as hetu_paged_decode_attention_int8 in
+// decode_attention_int8.cu (which takes f32 q only), over int8 caches
+// [B, S_max, H, Dh] with f32 scales [B, S_max, H], the same workspace at
+// Q = 1; payloads and scales 16-byte aligned too.
+extern "C" int hetu_paged_decode_attention_int8_bf16(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, const void* lengths, void* out, void* ws, int B,
+    int H, int Dh, int S_max, void* stream) {
+  using namespace hetu::tc;
+  const hetu::SlotRows rows{S_max};
+  return dispatch<int8_t>(q, k, k_scale, v, v_scale, lengths, rows,
+                          decode_lim<hetu::SlotRows>(lengths), out, ws, B,
+                          1, H, Dh, S_max, stream);
+}
+
+// K5-int8 for bf16 q: as hetu_paged_block_decode_attention_int8 in
+// decode_attention_int8.cu (which takes f32 q only), over int8 pools
+// [N_blocks, bs, H, Dh] with f32 scales [N_blocks, bs, H], the same
+// workspace at Q = 1; payloads and scales 16-byte aligned too.
+extern "C" int hetu_paged_block_decode_attention_int8_bf16(
+    const void* q, const void* pool_k, const void* k_scale,
+    const void* pool_v, const void* v_scale, const void* lengths,
+    const void* tables, void* out, void* ws, int B, int H, int Dh, int bs,
+    int T_width, void* stream) {
+  using namespace hetu::tc;
+  const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
+  return dispatch<int8_t>(q, pool_k, k_scale, pool_v, v_scale, lengths,
+                          rows, decode_lim<hetu::TableRows>(lengths), out,
+                          ws, B, 1, H, Dh, T_width * bs, stream);
 }
 
 // K6-int8 for bf16 q: as hetu_paged_verify_attention_int8 in

@@ -1,68 +1,98 @@
-// K4-int8 to K7-int8: the int8 instances of decode_body.cuh, an int8
-// payload with one f32 scale per (position, head), dequantized as each
-// tile is staged (attn_common.cuh); q and out are f32 or bf16 in K4-int8
-// and K5-int8, f32 only in K6-int8 and K7-int8 (bf16 q over an int8
-// cache in the verify kernels runs on the tensor cores,
-// decode_attention_bf16.cu).
+// The int8 decode and verify twins for f32 q: an int8 payload with one
+// f32 scale per (position, head).  bf16 q over an int8 cache runs all
+// four on the tensor cores (decode_attention_bf16.cu).
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py's int8 bodies
 // _decode_kernel_int8 (paged_decode_attention), _block_decode_kernel_int8
 // (paged_block_decode_attention), _verify_kernel_int8
 // (paged_verify_attention) and _block_verify_kernel_int8
-// (paged_block_verify_attention).
+// (paged_block_verify_attention), f32 q.
+//
+// What bounds it on an H100: bytes.  A decode or verify wave reads each
+// slot's live payload and scales once, 2 len H (D + 4) bytes, for 4 Q len
+// H D flops.
+//
+// What the design does about it: K4-int8 and K5-int8 (one decode row a
+// slot) run the int8 instance of split_kv_f32.cuh, the body of f32-q
+// K8-int8/K1-int8's narrow waves, with the row limits DecodeLim<Rows>
+// (kv_rows.cuh; the merge's tag too, so a profile names them): one block
+// per (128-position split, head, slot), the payload staged raw by
+// cp.async and dequantized as float(x) * scale as the FFMA loops read it.
+// At Q 1 DecodeLim is RaggedLim, so f32-q K4-int8 equals f32-q K8-int8
+// over the same slot rows, and K5-int8 equals K1-int8 over the same pool,
+// bit for bit.  K6-int8 and K7-int8 stay on the one-block-per-(slot,
+// head) body of decode_body.cuh, each tile dequantized as it is staged
+// (attn_common.cuh).
 #include "decode_body.cuh"
+#include "split_kv_f32.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out; K6-int8 and K7-int8
-// float32 only).
-// Payloads are int8,
-// scales f32 with the payload's shape less its Dh axis.  Each returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported dtype, Dh or Q).
+// Payloads are int8, scales f32 with the payload's shape less its Dh
+// axis.  Each returns cudaGetLastError() after its launches
+// (cudaErrorInvalidValue for an unsupported dtype, Dh or Q).
 
-// K4-int8: q [B, H, Dh], caches [B, S_max, H, Dh], scales [B, S_max, H].
-extern "C" int hetu_paged_decode_attention_int8(
-    const void* q, const void* k, const void* k_scale, const void* v,
-    const void* v_scale, const void* lengths, void* out, int B, int H,
-    int Dh, int S_max, int dtype, void* stream) {
-  return hetu::dispatch<true, 1, true>(q, k, k_scale, v, v_scale, lengths,
-                                       nullptr, hetu::SlotRows{S_max}, out,
-                                       B, 1, H, Dh, dtype, stream);
+// Floats of the f32 workspace of a K4-int8 or K5-int8 call (Q = 1): the
+// split partials of every (slot, head, split); span is the cache's
+// positions per slot (S_max, or T_width * bs).
+extern "C" long long hetu_decode_f32_workspace(int B, int Q, int H, int Dh,
+                                               int span) {
+  return hetu::tc::split_f32_workspace(B, Q, H, Dh, span);
 }
 
-// K5-int8: q [B, H, Dh], pools [N_blocks, bs, H, Dh], scales [N_blocks,
-// bs, H], tables [B, T_width].
+// K4-int8: q [B, H, Dh] f32, caches [B, S_max, H, Dh], scales [B, S_max,
+// H]; no dtype argument, every pointer (payloads and scales too) 16-byte
+// aligned, the workspace ws of hetu_decode_f32_workspace floats.
+extern "C" int hetu_paged_decode_attention_int8(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, const void* lengths, void* out, void* ws, int B,
+    int H, int Dh, int S_max, void* stream) {
+  const hetu::DecodeLim<hetu::SlotRows> lim{static_cast<const int*>(lengths)};
+  return hetu::tc::dispatch_split_f32<int8_t>(
+      q, k, k_scale, v, v_scale, lengths, hetu::SlotRows{S_max}, lim, out,
+      ws, B, 1, H, Dh, S_max, stream);
+}
+
+// K5-int8: q [B, H, Dh] f32, pools [N_blocks, bs, H, Dh], scales
+// [N_blocks, bs, H], tables [B, T_width]; as K4-int8's entry.
 extern "C" int hetu_paged_block_decode_attention_int8(
     const void* q, const void* pool_k, const void* k_scale,
     const void* pool_v, const void* v_scale, const void* lengths,
-    const void* tables, void* out, int B, int H, int Dh, int bs,
-    int T_width, int dtype, void* stream) {
+    const void* tables, void* out, void* ws, int B, int H, int Dh, int bs,
+    int T_width, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<true, 1, true>(q, pool_k, k_scale, pool_v, v_scale,
-                                       lengths, nullptr, rows, out, B, 1, H,
-                                       Dh, dtype, stream);
+  const hetu::DecodeLim<hetu::TableRows> lim{
+      static_cast<const int*>(lengths)};
+  return hetu::tc::dispatch_split_f32<int8_t>(
+      q, pool_k, k_scale, pool_v, v_scale, lengths, rows, lim, out, ws, B,
+      1, H, Dh, T_width * bs, stream);
+}
+
+// Dynamic shared memory of one K4-int8/K5-int8 split block at head dim
+// Dh, for the build report.
+extern "C" int hetu_decode_f32_smem(int Dh) {
+  return hetu::tc::split_f32_smem_of<int8_t>(Dh);
 }
 
 // K6-int8: q [B, Q, H, Dh] (Q <= 16), caches [B, S_max, H, Dh], scales
-// [B, S_max, H]; f32 only.
+// [B, S_max, H]; dtype 0 (float32) only.
 extern "C" int hetu_paged_verify_attention_int8(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, const void* lengths, const void* q_lens,
     void* out, int B, int Q, int H, int Dh, int S_max, int dtype,
     void* stream) {
-  return hetu::dispatch<true, 16, false>(q, k, k_scale, v, v_scale, lengths,
-                                         q_lens, hetu::SlotRows{S_max}, out,
-                                         B, Q, H, Dh, dtype, stream);
+  return hetu::dispatch<true, 16>(q, k, k_scale, v, v_scale, lengths,
+                                  q_lens, hetu::SlotRows{S_max}, out, B, Q,
+                                  H, Dh, dtype, stream);
 }
 
 // K7-int8: q [B, Q, H, Dh] (Q <= 16), pools [N_blocks, bs, H, Dh],
-// scales [N_blocks, bs, H], tables [B, T_width]; f32 only.
+// scales [N_blocks, bs, H], tables [B, T_width]; dtype 0 (float32) only.
 extern "C" int hetu_paged_block_verify_attention_int8(
     const void* q, const void* pool_k, const void* k_scale,
     const void* pool_v, const void* v_scale, const void* lengths,
     const void* q_lens, const void* tables, void* out, int B, int Q, int H,
     int Dh, int bs, int T_width, int dtype, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<true, 16, false>(q, pool_k, k_scale, pool_v,
-                                         v_scale, lengths, q_lens, rows,
-                                         out, B, Q, H, Dh, dtype, stream);
+  return hetu::dispatch<true, 16>(q, pool_k, k_scale, pool_v, v_scale,
+                                  lengths, q_lens, rows, out, B, Q, H, Dh,
+                                  dtype, stream);
 }

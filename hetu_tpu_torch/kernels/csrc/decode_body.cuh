@@ -1,19 +1,20 @@
 // A q-block of NQ >= Q queries per slot over either KV layout of the
-// serving engine: one decode query (Q = 1) over the slot-contiguous cache
-// (K4) and the block-table paged pool (K5), and the speculative verify
-// q-block (Q = k + 1) over the same two layouts (K6, K7), over f32
-// caches (decode_attention.cu; bf16 q over a bf16 cache runs the split-K
-// tensor-core body, decode_attention_bf16.cu, for all four) or int8
-// caches with per-(position, head) f32 scales (decode_attention_int8.cu,
-// f32 or bf16 q; K6-int8 and K7-int8 f32 q only).
-// One body, templated on the q/out type T, the cache element type KV, NQ
-// and the layout.
+// serving engine, f32 q on the CUDA cores: one decode query (Q = 1) over
+// the slot-contiguous cache (K4) and the block-table paged pool (K5), and
+// the speculative verify q-block (Q = k + 1) over the same two layouts
+// (K6, K7), over f32 caches (decode_attention.cu), and the verify
+// kernels over int8 caches with per-(position, head) f32 scales (K6-int8
+// and K7-int8, decode_attention_int8.cu).  bf16 q runs all of them on the
+// tensor cores (decode_attention_bf16.cu), and f32-q K4-int8/K5-int8 run
+// split_kv_f32.cuh (decode_attention_int8.cu).  One body, templated on
+// the q/out type T (f32 in every instance), the cache element type KV,
+// NQ and the layout.
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_decode_attention
-// (Pallas bodies _decode_kernel, _decode_kernel_int8),
-// ::paged_block_decode_attention (_block_decode_kernel[_int8]),
-// ::paged_verify_attention (_verify_kernel[_int8]) and
-// ::paged_block_verify_attention (_block_verify_kernel[_int8]).  Query jq
+// (Pallas body _decode_kernel), ::paged_block_decode_attention
+// (_block_decode_kernel), ::paged_verify_attention
+// (_verify_kernel[_int8]) and ::paged_block_verify_attention
+// (_block_verify_kernel[_int8]), f32 q.  Query jq
 // of slot b sits at lengths[b] - q_lens[b] + jq and attends to the
 // positions up to itself (causal inside the q-block); a dead query (jq >=
 // q_lens[b]) clips to the last live position; a slot with length 0
@@ -35,9 +36,9 @@
 // of the tile into its query's online-softmax state, up to that query's
 // causal position.  Each query's 32/NQ partial (m, l, acc) states then
 // merge in shared memory with the NEG_INF conventions.  With B*H blocks
-// (96 at 8 slots of GPT-2-small) the card is under one wave; the bf16
-// decode and verify kernels, and K6-int8/K7-int8 for bf16 q, split each
-// slot's positions across blocks instead (split_kv_bf16.cuh).
+// (96 at 8 slots of GPT-2-small) the card is under one wave; the bf16-q
+// decode and verify kernels and f32-q K4-int8/K5-int8 split each slot's
+// positions across blocks instead (split_kv_bf16.cuh, split_kv_f32.cuh).
 #pragma once
 
 #include <cmath>
@@ -173,29 +174,18 @@ cudaError_t dispatch_dh(const void* q, KVPlanes<KV> kv, const int* lengths,
   }
 }
 
-// dtype (q's, and a float cache's): 0 = float32, 1 = bfloat16 (only with
-// kBf16: K4-int8 and K5-int8 for bf16 q; bf16 q over a bf16 cache, and in
-// K6-int8/K7-int8, runs decode_attention_bf16.cu).  Q at most kMaxQ.
-template <bool kQuant, int kMaxQ, bool kBf16, typename Rows>
+// dtype (q's, and a float cache's): 0 = float32, the only one taken (bf16
+// q runs decode_attention_bf16.cu).  Q at most kMaxQ.
+template <bool kQuant, int kMaxQ, typename Rows>
 int dispatch(const void* q, const void* k, const void* k_scale,
              const void* v, const void* v_scale, const void* lengths,
              const void* q_lens, Rows rows, void* out, int B, int Q, int H,
              int Dh, int dtype, void* stream) {
-  const auto* lens = static_cast<const int*>(lengths);
-  const auto* qls = static_cast<const int*>(q_lens);
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = dispatch_dh<float, kMaxQ>(
-        q, planes<kQuant, float>(k, k_scale, v, v_scale), lens, qls, rows,
-        out, B, Q, H, Dh, st);
-  } else if constexpr (kBf16) {
-    if (dtype == 1)
-      err = dispatch_dh<__nv_bfloat16, kMaxQ>(
-          q, planes<kQuant, __nv_bfloat16>(k, k_scale, v, v_scale), lens,
-          qls, rows, out, B, Q, H, Dh, st);
-  }
-  return static_cast<int>(err);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_dh<float, kMaxQ>(
+      q, planes<kQuant, float>(k, k_scale, v, v_scale),
+      static_cast<const int*>(lengths), static_cast<const int*>(q_lens),
+      rows, out, B, Q, H, Dh, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace hetu

@@ -3,8 +3,9 @@
 // decode kernels template on these, so one body serves both: the
 // CUDA-core bodies (attn_common.cuh) and the split-K and tensor-core
 // ones (split_kv_bf16.cuh, split_kv_f32.cuh, ragged_paged_bf16.cu).
-// RaggedLim is the row limit of a ragged wave (K1/K8) for the bodies
-// that take one.
+// RaggedLim, VerifyLim and DecodeLim are the row limits of a ragged
+// wave (K1/K8), a verify block (K6/K7) and a decode query (K4/K5) for
+// the bodies that take one.
 #pragma once
 
 #include <cstddef>
@@ -38,6 +39,29 @@ struct RaggedLim {
   __device__ __forceinline__ int operator()(int b, int jq) const {
     const int len = lengths[b];
     return min(max(len - q_lens[b] + jq, 0), len - 1);
+  }
+};
+
+// The last live position of row jq of slot b in a verify block:
+// RaggedLim's clip.  Rows, the cache layout, only names the kernels that
+// take it (and the split bodies' merge kernel, whose tag it is), so a
+// profile tells K6/K7 from K8/K1.
+template <typename Rows> struct VerifyLim {
+  const int* lengths;
+  const int* q_lens;
+  __device__ __forceinline__ int operator()(int b, int jq) const {
+    const int len = lengths[b];
+    return min(max(len - q_lens[b] + jq, 0), len - 1);
+  }
+};
+
+// The last live position of slot b's decode row: len - 1; -1 in a slot
+// of length 0.  Rows as in VerifyLim: a profile names K4 and K5
+// (DecodeLim<hetu::SlotRows>, DecodeLim<hetu::TableRows>).
+template <typename Rows> struct DecodeLim {
+  const int* lengths;
+  __device__ __forceinline__ int operator()(int b, int) const {
+    return lengths[b] - 1;
   }
 };
 

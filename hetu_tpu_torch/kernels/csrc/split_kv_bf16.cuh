@@ -2,9 +2,9 @@
 // on the tensor cores (mma.sync.m16n8k16, the fragments of
 // flash_mma.cuh): the body of the narrow waves of K1 and K8
 // and of their int8 twins over bf16 q (ragged_paged_bf16.cu), and of the
-// bf16 decode and verify kernels K4-K7 and of K7-int8 for bf16 q
-// (decode_attention_bf16.cu: one decode row, or a verify block of at
-// most 16 rows).
+// bf16 decode and verify kernels K4-K7 and of their int8 twins K4-int8
+// to K7-int8 for bf16 q (decode_attention_bf16.cu: one decode row, or a
+// verify block of at most 16 rows).
 //
 // A narrow wave has at most 16 q rows per (slot, head), one m16 tile:
 // one row is never computed twice.  Its work is the slot's K/V bytes, so

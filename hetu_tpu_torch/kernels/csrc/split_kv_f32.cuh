@@ -4,14 +4,22 @@
 // K8 (the C entries hetu_ragged_paged_attention_narrow and
 // hetu_ragged_attention_narrow of ragged_paged.cu) and of f32-q K1-int8
 // and K8-int8 (hetu_ragged_paged_attention_int8_narrow and
-// hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu).  Their
-// wide waves (Q > 16) run the TF32 tensor-core body of ragged_tf32.cuh.
+// hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu), and of
+// f32-q K4-int8 and K5-int8, one decode row a slot
+// (hetu_paged_decode_attention_int8 and
+// hetu_paged_block_decode_attention_int8 of decode_attention_int8.cu).
+// K1/K8's wide waves (Q > 16) run the TF32 tensor-core body of
+// ragged_tf32.cuh.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention at Q <= 16, f32 q (Pallas body _ragged_kernel,
-// over an int8 cache with quant).  Row jq of slot b sees the positions
-// up to lim(b, jq) (RaggedLim, kv_rows.cuh: rows past q_len see the
-// whole slot); a slot of length 0 outputs zeros.
+// over an int8 cache with quant), and
+// hetu_tpu/kernels/decode_attention.py::paged_decode_attention and
+// ::paged_block_decode_attention over an int8 cache, f32 q
+// (_decode_kernel_int8, _block_decode_kernel_int8).  Row jq of slot b
+// sees the positions up to lim(b, jq) (RaggedLim, kv_rows.cuh: rows past
+// q_len see the whole slot; DecodeLim for a decode row, len - 1, which
+// is RaggedLim at q_len 1); a slot of length 0 outputs zeros.
 //
 // What bounds it on an H100: bytes.  A narrow wave reads each slot's
 // live K/V once, 8 len H D bytes in f32 (2 len H (D + 4) in int8), for 4
@@ -341,9 +349,12 @@ split_kv_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 
 // One narrow call (1 <= Q <= 16) at head dim D: split_kv_f32_kernel over
 // (split, head, slot) with the row limits lim, then split_merge_kernel
-// (tagged with the cache element type and the layout, as the bf16 ragged
-// kernels' merge is) writing f32 out [B, Q, H, D], the partials in ws
-// (SplitParts::floats(B, H, n_splits(span), Q, D)).
+// writing f32 out [B, Q, H, D], the partials in ws
+// (SplitParts::floats(B, H, n_splits(span), Q, D)).  The merge is tagged
+// with the cache element type and, for a ragged call, the layout (as the
+// bf16 ragged kernels' merge is; RaggedLim names no layout), else the
+// row-limit type, which names it (DecodeLim<Rows>, as the bf16 decode
+// kernels' merge is): a profile tells K4-int8's merge from K8-int8's.
 template <int D, typename KV, typename Rows, typename Lim>
 cudaError_t launch_split_f32(const Operands<KV, float>& x, Rows rows,
                              Lim lim, float* ws, int B, int Q, int H,
@@ -361,7 +372,8 @@ cudaError_t launch_split_f32(const Operands<KV, float>& x, Rows rows,
       H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  split_merge_kernel<D, KV, Rows, float>
+  using Tag = std::conditional_t<std::is_same_v<Lim, RaggedLim>, Rows, Lim>;
+  split_merge_kernel<D, KV, Tag, float>
       <<<dim3(H, B), kThreads, 0, stream>>>(parts, x.lengths, x.out, Q, H);
   return cudaGetLastError();
 }

@@ -13,31 +13,38 @@ the position just written included.  Verify: query ``jq`` of slot b sits
 at ``lengths[b] - q_lens[b] + jq`` and attends to the positions up to
 itself; rows past ``q_lens[b]`` clip to the last live position (their
 output is defined and discarded by the caller).  A slot with length 0
-returns zeros; the output has q's dtype.  On CUDA tensors all four
-launch one templated body in ``csrc/decode_attention.cu`` over an f32
-cache, and over bf16 q and a bf16 cache the tensor-core library
-``csrc/decode_attention_bf16.cu`` (split-K over 128-position splits on
-mma.sync, then a merge: the narrow body of the bf16 K1/K8, a decode
-query as its one row; 16-byte aligned q and caches or a raise); on CPU
-tensors they run their plain versions, the ragged references (the
-``q_len = 1`` case for decode).  Nothing falls back from one to the
-other.  The bf16 kernels round P to bf16 before P V, as the Pallas
-bodies do, and the plain versions do not:
-``ragged_attention.ragged_rounding_bound`` bounds the difference, as for
-the bf16 K1/K8.  An int8 cache (``quant.kv_encode``'s payload) passes
-``k_scale``/``v_scale``, one f32 scale per (position, head), and
-launches the int8 twin of its kernel (``csrc/decode_attention_int8.cu``,
-K4-int8 to K7-int8), which dequantizes each tile as it stages it; bf16
-q over an int8 cache in either verify wrapper runs on the tensor cores
-instead (``hetu_paged_verify_attention_int8_bf16`` and
-``hetu_paged_block_verify_attention_int8_bf16`` of the bf16 library:
-the split-K body of the bf16-q K8-int8/K1-int8, the payload widened to
-bf16 exactly, P not rounded, so it holds one bf16 ulp of the Pallas int8
-body, which computes in f32; K6-int8 and K7-int8 of
-``decode_attention_int8.cu`` take f32 q only).  The verify kernels take
-q-blocks of at most 16 rows; the wrappers serve any Q on CUDA by cutting
-a longer block into groups of 16 rows, one launch each (see
-:func:`verify_groups`).
+returns zeros; the output has q's dtype.  An int8 cache
+(``quant.kv_encode``'s payload) passes ``k_scale``/``v_scale``, one f32
+scale per (position, head), and launches the int8 twin of its kernel
+(K4-int8 to K7-int8, counted under the wrapper's name with ``_int8``).
+On CPU tensors the wrappers run their plain versions, the ragged
+references (the ``q_len = 1`` case for decode); on CUDA tensors they
+launch a kernel, and nothing falls back from one to the other:
+
+- bf16 q, over a bf16 or an int8 cache, all four kernels: the
+  tensor-core library ``csrc/decode_attention_bf16.cu``, split-K over
+  128-position splits on mma.sync, then a merge (the narrow body of the
+  bf16 K1/K8 and their int8 twins, a decode query as its one row);
+  16-byte aligned q, caches and scales or a raise.  Over a bf16 cache
+  the kernels round P to bf16 before P V, as the Pallas bodies do, and
+  the plain versions do not: ``ragged_attention.ragged_rounding_bound``
+  bounds the difference, as for the bf16 K1/K8.  Over an int8 cache the
+  payload is widened to bf16 exactly and P is not rounded, so they hold
+  one bf16 ulp of the Pallas int8 bodies, which compute in f32.
+- f32 q over an int8 cache, decode (K4-int8, K5-int8): the split-K
+  CUDA-core body of the f32-q K8-int8/K1-int8 narrow waves
+  (``csrc/split_kv_f32.cuh`` in ``decode_attention_int8.cu``), the
+  payload dequantized as it is read; 16-byte aligned q, payloads and
+  scales or a raise.
+- f32 q otherwise (f32 K4-K7 over an f32 cache,
+  ``csrc/decode_attention.cu``; K6-int8/K7-int8,
+  ``decode_attention_int8.cu``): one block per (slot, head) on the CUDA
+  cores (``decode_body.cuh``), each int8 tile dequantized as it is
+  staged.
+
+The verify kernels take q-blocks of at most 16 rows; the wrappers serve
+any Q on CUDA by cutting a longer block into groups of 16 rows, one
+launch each (see :func:`verify_groups`).
 """
 
 from __future__ import annotations
@@ -102,9 +109,10 @@ def paged_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None):
     lengths: [B] int32, the slot's filled count including the position
     just written.  Returns o [B, H, Dh] in q's dtype.  CUDA tensors
     launch the kernel (f32 or bf16 q; caches of q's dtype, or int8 with
-    their scales; head dim 32/64/128, contiguous, int32 lengths; bf16 q
-    over a bf16 cache the tensor-core kernel, on 16-byte aligned q and
-    caches); CPU tensors run :func:`masked_decode_reference`."""
+    their scales; head dim 32/64/128, contiguous, int32 lengths; bf16 q,
+    and f32 q over an int8 cache, the split-K kernels, on 16-byte aligned
+    q, caches and scales); CPU tensors run
+    :func:`masked_decode_reference`."""
     quant = _check("paged_decode_attention", q, k, v, lengths,
                    {"lengths": lengths}, k_scale, v_scale)
     if k.shape[0] != q.shape[0]:

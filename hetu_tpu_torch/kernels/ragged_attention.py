@@ -214,20 +214,17 @@ def _check_args(kind, q, k, v, lengths, q_lens, index, k_scale=None,
     return quant
 
 
-# the tensor-core library that takes bf16 q in place of a CUDA-core
-# source, for the calls that pass a span: (library, its workspace-size
-# entry, the entries it also takes over an int8 cache)
+# the tensor-core library that takes bf16 q, over a bf16 or an int8
+# cache, in place of each CUDA-core source: (library, its workspace-size
+# entry)
 _BF16_LIBRARIES = {
-    "ragged_paged": ("ragged_paged_bf16", "hetu_ragged_bf16_workspace",
-                     ("hetu_ragged_paged_attention",
-                      "hetu_ragged_attention")),
+    "ragged_paged": ("ragged_paged_bf16", "hetu_ragged_bf16_workspace"),
     "decode_attention": ("decode_attention_bf16",
-                         "hetu_verify_bf16_workspace",
-                         ("hetu_paged_verify_attention",
-                          "hetu_paged_block_verify_attention"))}
-# f32 q's K1/K8 calls at Q <= NARROW_Q, which run the split-K CUDA-core
-# body (split_kv_f32.cuh): (entry, over an int8 cache) -> (library,
-# narrow entry, its workspace-size entry)
+                         "hetu_verify_bf16_workspace")}
+# f32 q's calls at Q <= NARROW_Q that run the split-K CUDA-core body
+# (split_kv_f32.cuh): K1/K8 and their int8 twins, and the decode twins
+# K4-int8/K5-int8 (always Q 1).  (entry, over an int8 cache) ->
+# (library, split entry, its workspace-size entry)
 _F32_NARROW = {
     ("hetu_ragged_paged_attention", False): (
         "ragged_paged", "hetu_ragged_paged_attention_narrow",
@@ -240,57 +237,62 @@ _F32_NARROW = {
         "hetu_ragged_f32_workspace"),
     ("hetu_ragged_attention", True): (
         "ragged_paged_int8", "hetu_ragged_attention_int8_narrow",
-        "hetu_ragged_f32_workspace")}
+        "hetu_ragged_f32_workspace"),
+    ("hetu_paged_decode_attention", True): (
+        "decode_attention_int8", "hetu_paged_decode_attention_int8",
+        "hetu_decode_f32_workspace"),
+    ("hetu_paged_block_decode_attention", True): (
+        "decode_attention_int8", "hetu_paged_block_decode_attention_int8",
+        "hetu_decode_f32_workspace")}
 
 
-def _launch(source, entry, name, q, kv, rest, ints, span=None):
+def _launch(source, entry, name, q, kv, rest, ints, span):
     """Launch C entry ``entry`` of kernel library ``source`` as
     ``entry(q, *kv, *rest, out, *ints, dtype, stream)`` into a fresh
     output like q, and count it under ``name``.  ``kv`` is (k, v), or
     (k, k_scale, v, v_scale) for an int8 cache, which launches the int8
     twin: ``source``, ``entry`` and ``name`` with ``_int8`` appended.
+    ``source`` is ``ragged_paged`` (K1/K8) or ``decode_attention``
+    (K4-K7; the decode wrappers pass q as [B, 1, H, Dh]); ``span`` is the
+    cache's positions per slot.
 
-    ``span``, the cache's positions per slot, marks a call with a
-    tensor-core library for bf16 q (``_BF16_LIBRARIES``): K1/K8
-    (``ragged_paged``, over a bf16 or an int8 cache) and K4-K7
-    (``decode_attention``, over a bf16 cache, and K6/K7 over an int8
-    one; K4/K5 over an int8 cache launch the int8 twin above; the decode
-    wrappers pass q as [B, 1, H, Dh]).  bf16 q then
-    launches that library at ``entry`` +
-    ``_bf16`` over a bf16 cache and ``entry`` + ``_int8_bf16`` over an
-    int8 one, as ``entry(q, *kv, *rest, out, workspace, *ints, stream)``
-    on 16-byte aligned q and caches (and scales), or raises; the
-    workspace holds the f32 partials of the split-K body (Q <=
-    NARROW_Q), sized by the library from the shapes and ``span``, and
-    K1/K8's wide regime takes none.  f32 q's K1/K8 calls (over an f32 or
-    an int8 cache) take 16-byte aligned q and caches (int8: payloads and
-    scales) or raise, and at Q <= NARROW_Q launch ``_F32_NARROW``'s
-    library and narrow entry the same way (the split-K CUDA-core body,
-    no dtype argument); past it ``entry`` (the TF32 body).  One call
-    counts as one launch, though a split-K call runs
+    bf16 q launches the tensor-core library of ``_BF16_LIBRARIES`` at
+    ``entry`` + ``_bf16`` over a bf16 cache and ``entry`` +
+    ``_int8_bf16`` over an int8 one, as ``entry(q, *kv, *rest, out,
+    workspace, *ints, stream)`` on 16-byte aligned q and caches (and
+    scales), or raises; the workspace holds the f32 partials of the
+    split-K body (Q <= NARROW_Q), sized by the library from the shapes
+    and ``span``, and K1/K8's wide regime takes none.  f32 q's K1/K8
+    calls (over an f32 or an int8 cache) and K4-int8/K5-int8 calls take
+    16-byte aligned q and caches (int8: payloads and scales) or raise,
+    and at Q <= NARROW_Q launch ``_F32_NARROW``'s library and split
+    entry the same way (the split-K CUDA-core body, no dtype argument);
+    K1/K8 past it ``entry`` (the TF32 body).  f32 K4-K7 and f32-q
+    K6-int8/K7-int8 launch ``entry`` (the one-block-per-slot CUDA-core
+    body).  One call counts as one launch, though a split-K call runs
     two device kernels (the splits, then their merge), and every K1/K8
-    call also counts under
-    ``name:narrow`` or ``name:wide`` by its Q (``name`` with ``_int8``
-    for an int8 cache)."""
+    call also counts under ``name:narrow`` or ``name:wide`` by its Q
+    (``name`` with ``_int8`` for an int8 cache)."""
     tail = (_DTYPES[q.dtype],)
     quant = len(kv) == 4
     if quant:
         name = f"{name}_int8"
     regimes = source == "ragged_paged"
     narrow = q.shape[1] <= NARROW_Q
-    tc = _BF16_LIBRARIES[source] if span is not None else None
     ws_entry = None
-    if tc and q.dtype == torch.bfloat16 and (entry in tc[2] or not quant):
+    if q.dtype == torch.bfloat16:
         _build.check_aligned((q, *kv), "q and the caches (int8: their "
                              "scales too)")
-        source, tail, ws_entry = tc[0], (), tc[1]
+        source, ws_entry = _BF16_LIBRARIES[source]
         entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
+        tail = ()
     else:
-        if regimes:   # f32 q: both bodies copy 16-byte chunks
+        split = _F32_NARROW.get((entry, quant)) if narrow else None
+        if regimes or split:   # f32 q: these bodies copy 16-byte chunks
             _build.check_aligned((q, *kv), "f32 q and the caches (int8: "
                                  "their scales too)")
-        if regimes and narrow:
-            (source, entry, ws_entry), tail = _F32_NARROW[entry, quant], ()
+        if split:
+            (source, entry, ws_entry), tail = split, ()
         elif quant:
             source, entry = f"{source}_int8", f"{entry}_int8"
     out = torch.empty_like(q)

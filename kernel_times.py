@@ -40,7 +40,9 @@ set on GPT-2-small (random weights from ``--seed``) through the engines
 of ``ENGINES``: in bf16 the phase-split engines with ``spec=4`` on the
 slot rows (K6 and the draft's K4), on an int8 copy of them (K6-int8 and
 K4), on the pool (K7 and K4) and on an int8 pool (K7-int8 and K4), and
-the pool without spec (K5, whose only engine path this is); in f32 the
+the pool without spec (K5, whose only engine path this is); in bf16 and
+in f32 the phase-split engines over an int8 cache without spec, on
+slot rows (K4-int8) and on the pool (K5-int8); in f32 the
 auto paged mixed engine (K1 on every wave), the contiguous mixed engine
 (K8 on every wave) and the paged mixed engine over an int8 pool
 (K1-int8 on every wave) and the contiguous mixed engine over int8
@@ -103,7 +105,9 @@ def _bound_of(ra):
 # phase-split spec 4 engines' verify waves run K6 (slot rows), K6-int8
 # (int8 slot rows), K7 (the pool) or K7-int8 (an int8 pool) and their
 # drafts K4 (the draft's own cache is a float one); the pool without spec
-# runs K5 in its decode waves; the f32 paged mixed engine runs K1 on
+# runs K5 in its decode waves, and over an int8 cache, in bf16 and in
+# f32, the slot rows without spec run K4-int8 and the pool K5-int8 (and
+# K1-int8 for its chunk passes); the f32 paged mixed engine runs K1 on
 # every wave (narrow decode waves, wide prompt chunks), the f32
 # contiguous mixed engine K8, the f32 paged mixed engine over an int8
 # pool K1-int8 and the f32 contiguous mixed engine over int8 slot rows
@@ -121,6 +125,16 @@ ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
              "K4 paged_decode_attention")),
            ("paged-split-nospec", "paged-split", 0, None, "bfloat16",
             ("K5 paged_block_decode_attention",)),
+           ("contiguous-split-int8-nospec", "contiguous-split", 0, "int8",
+            "bfloat16", ("K4-int8 paged_decode_attention",)),
+           ("paged-split-int8-nospec", "paged-split", 0, "int8",
+            "bfloat16", ("K5-int8 paged_block_decode_attention",
+                         "K1-int8 ragged_paged_attention")),
+           ("contiguous-split-int8-nospec-f32", "contiguous-split", 0,
+            "int8", "float32", ("K4-int8 paged_decode_attention",)),
+           ("paged-split-int8-nospec-f32", "paged-split", 0, "int8",
+            "float32", ("K5-int8 paged_block_decode_attention",
+                        "K1-int8 ragged_paged_attention")),
            ("paged-mixed-f32", "paged-mixed", 0, None, "float32",
             ("K1 ragged_paged_attention",)),
            ("contiguous-mixed-f32", "contiguous-mixed", 0, None, "float32",

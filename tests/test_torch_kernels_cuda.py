@@ -18,17 +18,18 @@ and so are the bf16 decode and verify kernels (K4-K7:
 csrc/decode_attention_bf16.cu, the split-K body of K1/K8's narrow
 waves), which round P where the Pallas decode and verify bodies round
 it.  Their int8 twins for bf16 q (K1-int8,
-K8-int8 and K7-int8 on the same bodies: the payload widened to bf16
-exactly, the K scale applied to the scores in f32, P times the V scale
-split into a bf16 pair, two products) do not round P, as the Pallas int8
-bodies, which compute in f32, do not: they are held to the bf16
-tolerance alone.
+K8-int8 and K4-int8 to K7-int8 on the same bodies: the payload widened
+to bf16 exactly, the K scale applied to the scores in f32, P times the V
+scale split into a bf16 pair, two products) do not round P, as the
+Pallas int8 bodies, which compute in f32, do not: they are held to the
+bf16 tolerance alone.
 The narrow waves (Q <= 16) of f32 K1, f32 K8, f32-q K1-int8 and f32-q
-K8-int8 run the split-K CUDA-core body (csrc/split_kv_f32.cuh) and are
-held to f32's tolerance; f32 K8 equals f32 K1 bit for bit on one wave,
-and so does f32-q K8-int8 f32-q K1-int8; f32-q K1-int8 equals f32 K1
-over the decoded cache; bf16 q's K6-int8 runs
-K8-int8's split body and equals it bit for bit.
+K8-int8, and f32-q K4-int8/K5-int8, run the split-K CUDA-core body
+(csrc/split_kv_f32.cuh) and are held to f32's tolerance; f32 K8 equals
+f32 K1 bit for bit on one wave, and so does f32-q K8-int8 f32-q
+K1-int8; f32-q K1-int8 equals f32 K1 over the decoded cache; in either
+q dtype K6-int8 and K4-int8 run K8-int8's split body, and K5-int8
+K1-int8's, and equal it bit for bit.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
@@ -1666,3 +1667,83 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int8 cache"):
         tra.ragged_paged_attention(args[0], args[1].float(), v, *args[3:],
                                    k_scale=ks, v_scale=vs)
+
+
+def _int8_decode_case(cuda, layout, Dh, dtype, seed):
+    """K4-int8 (``slots``) or K5-int8 (``pool``) over the int8 encoding
+    of ``_long_wave``'s slots (lengths 1000, 257, 1, 0: several key
+    splits, a shared pool block, a length-0 slot), q of ``dtype``: (the
+    wrapper, its plain version, its arguments, its scale keywords, the
+    ragged kernel of the same layout and its arguments at Q 1, q_lens
+    1 on every slot)."""
+    q, pk, pv, lens, _, tab = _long_wave(Dh, 1, [1, 1, 1, 0], seed=seed)
+    q = q.to(cuda, getattr(torch, dtype))
+    lens_d, tab_d = (torch.from_numpy(a).to(cuda) for a in (lens, tab))
+    ones = torch.ones_like(lens_d)
+    if layout == "slots":
+        (k, ks), (v, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+        return (tda.paged_decode_attention, tda.masked_decode_reference,
+                (q[:, 0], k, v, lens_d), dict(k_scale=ks, v_scale=vs),
+                tra.ragged_attention, (q, k, v, lens_d, ones))
+    (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+    return (tda.paged_block_decode_attention,
+            tda.paged_block_decode_reference,
+            (q[:, 0], k, v, lens_d, tab_d), dict(k_scale=ks, v_scale=vs),
+            tra.ragged_paged_attention, (q, k, v, lens_d, ones, tab_d))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_int8_decode_kernels_on_the_split_bodies(cuda, monkeypatch, dtype,
+                                                 Dh, layout):
+    """K4-int8 (``slots``) and K5-int8 (``pool``) run the split-K bodies
+    of the ragged int8 twins, one decode row a slot: bf16 q the tensor
+    cores (``decode_attention_bf16``'s ``_int8_bf16`` entries, within TOL
+    alone: P is not rounded), f32 q the CUDA cores (split_kv_f32.cuh in
+    ``decode_attention_int8``, within 1e-5).  Each call loads only that
+    library, looks up its workspace entry and its decode entry, counts
+    one launch under ``_int8``, and zeroes the length-0 slot; its output
+    equals, bit for bit, K8-int8's (slot rows) or K1-int8's (the pool)
+    on the same cache at Q 1 with q_len 1: the same body, row limits and
+    split order."""
+    run, plain, args, sc, ragged, rargs = _int8_decode_case(
+        cuda, layout, Dh, dtype, seed=3 * Dh + (layout == "pool"))
+    libs, entries = _record_loads(monkeypatch)
+    reset_launches()
+    got = run(*args, **sc)
+    torch.cuda.synchronize()
+    name = run.__name__
+    entry = f"hetu_{name}_int8"
+    if dtype == "bfloat16":
+        assert libs == ["decode_attention_bf16"]
+        assert entries == ["hetu_verify_bf16_workspace", f"{entry}_bf16"]
+    else:
+        assert libs == ["decode_attention_int8"]
+        assert entries == ["hetu_decode_f32_workspace", entry]
+    assert _nonzero_launches() == {f"{name}_int8": 1}
+    assert_within(got, plain(*args, *sc.values()).to(got.dtype), dtype)
+    assert (got[3] == 0).all()
+    want = ragged(*rargs, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[:, 0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_decode_wrappers_refuse_misaligned_data(cuda, dtype):
+    """K4-int8 and K5-int8 copy 16-byte chunks in either q dtype: a
+    payload 8 bytes off a 16-byte boundary, a scale plane 4 bytes off or
+    a q 8 bytes off is refused, not read, and nothing launches."""
+    for layout in ("slots", "pool"):
+        run, _, args, sc, _, _ = _int8_decode_case(cuda, layout, 64, dtype,
+                                                   seed=19)
+        q, k = args[:2]
+        reset_launches()
+        with pytest.raises(ValueError, match="16-byte"):
+            run(q, _off16(k, 8), *args[2:], **sc)
+        with pytest.raises(ValueError, match="16-byte"):
+            run(*args, k_scale=sc["k_scale"],
+                v_scale=_off16(sc["v_scale"], 4))
+        with pytest.raises(ValueError, match="16-byte"):
+            run(_off16(q, 8), *args[1:], **sc)
+        assert not any(launch_counts().values())

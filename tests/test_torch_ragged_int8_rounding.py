@@ -1,8 +1,9 @@
 """The arithmetic of the bf16-q int8-cache kernels on the tensor cores
 (K1-int8 ``ragged_paged_attention`` and K8-int8 ``ragged_attention``,
-csrc/ragged_paged_bf16.cu, and K6-int8 ``paged_verify_attention`` and
-K7-int8 ``paged_block_verify_attention``, csrc/decode_attention_bf16.cu,
-all on the same bodies) against the JAX
+csrc/ragged_paged_bf16.cu, and K4-int8 ``paged_decode_attention``,
+K5-int8 ``paged_block_decode_attention``, K6-int8
+``paged_verify_attention`` and K7-int8 ``paged_block_verify_attention``,
+csrc/decode_attention_bf16.cu, all on the same bodies) against the JAX
 package's int8 Pallas kernels in interpret mode, within one bf16 ulp.
 
 The Pallas int8 bodies dequantize K and V to f32 (``k_int * k_scale``)
@@ -20,8 +21,10 @@ element (2^-12 for the f32 sums in another order, one bf16 ulp for the
 output's own rounding), with no rounding bound, over waves with several
 KV blocks: Q 1 (decode), 8 (verify) and 64 (a prompt chunk); head dims
 32, 64 and 128; an inert q_len-0 slot with a length, a length-0 slot,
-and two slots sharing pool blocks; and the verify waves (Q 1, 5, 16) of
-K7-int8 through the pool and of K6-int8 over slot rows.  The arithmetic before the split (a rounded to bf16 once) falls
+and two slots sharing pool blocks; the verify waves (Q 1, 5, 16) of
+K7-int8 through the pool and of K6-int8 over slot rows; and one decode
+row a slot (q_len 1 everywhere, the inert slot's length included) for
+K5-int8 through the pool and K4-int8 over slot rows.  The arithmetic before the split (a rounded to bf16 once) falls
 outside that tolerance on the same waves: it needed
 ``ragged_rounding_bound`` of the dequantized cache, and the reference
 needs none.
@@ -109,12 +112,28 @@ def _case(layout, Q, Dh, seed, split=True):
     """(JAX's int8 o as f32 numpy, the emulated kernel's o), one wave
     through either layout ("verify": the pool through JAX's block verify
     kernel, K7-int8's; "verify-slots": the slot rows through its verify
-    kernel, K6-int8's)."""
+    kernel, K6-int8's; "decode" and "decode-slots": one decode row a slot,
+    q_len 1 on every slot, through JAX's block decode and decode kernels,
+    K5-int8's and K4-int8's, as [B, 1, H, Dh])."""
     q, kq, ks, vq, vs, lens, ql, tab = _wave(Q, Dh, seed)
     kr, ksr, vr, vsr = (_slot_rows(x, tab) for x in (kq, ks, vq, vs))
     jq = jnp.asarray(q.float().numpy(), jnp.bfloat16)
     jl, jql = jnp.asarray(lens.numpy()), jnp.asarray(ql.numpy())
-    if layout in ("slots", "verify-slots"):
+    if layout.startswith("decode"):
+        assert Q == 1
+        ql = torch.ones_like(lens)
+        sc = (ksr, vsr) if layout == "decode-slots" else (ks, vs)
+        kw = dict(k_scale=jnp.asarray(sc[0].numpy()),
+                  v_scale=jnp.asarray(sc[1].numpy()), interpret=True)
+        if layout == "decode-slots":
+            want = jda.paged_decode_attention(
+                jq[:, 0], jnp.asarray(kr.numpy()), jnp.asarray(vr.numpy()),
+                jl, **kw)[:, None]
+        else:
+            want = jda.paged_block_decode_attention(
+                jq[:, 0], jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()),
+                jl, jnp.asarray(tab.numpy()), **kw)[:, None]
+    elif layout in ("slots", "verify-slots"):
         run = (jda.paged_verify_attention if layout == "verify-slots"
                else jra.ragged_attention)
         want = run(
@@ -161,6 +180,21 @@ def test_the_int8_bound_is_needed(layout):
     _, split = _case(layout, 64, 64, seed=128)
     assert _ratio(want, single) > 1.0
     assert _ratio(want, split) <= 1.0
+
+
+@pytest.mark.parametrize("layout", ["pool", "slots"])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_bf16_decode_int8_arithmetic_holds_one_ulp(layout, Dh):
+    """K5-int8 (``pool``) and K4-int8 (``slots``) for bf16 q (the split
+    body of K1-int8 / K8-int8, one decode row a slot with the decode row
+    limit len - 1, which is theirs at q_len 1) against JAX's int8 block
+    decode and decode kernels (``_block_decode_kernel_int8``,
+    ``_decode_kernel_int8``) in interpret mode: within 2^-12 + 2^-7
+    |want|, no bound, the length-0 slot zero."""
+    want, got = _case("decode" if layout == "pool" else "decode-slots", 1,
+                      Dh, seed=5 * Dh + 1)
+    assert _ratio(want, got) <= 1.0
+    assert (want[3] == 0).all() and (got[3] == 0).all()
 
 
 @pytest.mark.parametrize("layout", ["pool", "slots"])
