@@ -428,9 +428,11 @@ def tf32_method(dtype):
 # K6-int8 and K7-int8 (VerifyLim) and once more for K6-int8 alone (int8
 # over SlotRows); last the f32 split kernel of the narrow waves, which
 # runs on the CUDA cores, once for f32 K1 (TableRows), once for f32 K8
-# (SlotRows), once each for f32-q K1-int8 and K8-int8 (its own library)
-# and once for f32-q K4-int8/K5-int8 (DecodeLim, decode_attention_int8):
-# its SASS must show FFMA and no HMMA or HGMMA (``FFMA_KERNELS``)
+# (SlotRows), once each for f32-q K1-int8 and K8-int8 (its own library),
+# once for f32 K6/K7 (VerifyLim, decode_attention) and once each for
+# f32-q K4-int8/K5-int8 (DecodeLim) and K6-int8/K7-int8 (VerifyLim,
+# decode_attention_int8): its SASS must show FFMA and no HMMA or HGMMA
+# (``FFMA_KERNELS``)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_flash_fwd_smem", (), ""),
               ("ragged_paged", "ragged_tf32_kernel",
@@ -472,8 +474,17 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*TableRows"),
               ("ragged_paged_int8", "split_kv_f32_kernel",
                "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*SlotRows"),
+              ("decode_attention", "split_kv_f32_kernel",
+               "hetu_decode_f32_smem", (), "VerifyLim"),
               ("decode_attention_int8", "split_kv_f32_kernel",
-               "hetu_decode_f32_smem", (), "DecodeLim"))
+               "hetu_decode_f32_smem", (), "DecodeLim"),
+              ("decode_attention_int8", "split_kv_f32_kernel",
+               "hetu_decode_f32_smem", (), "VerifyLim"))
+# the one-block-per-slot body's instances (decode_body.cuh): f32 K4/K5
+# alone, decode_kernel<D, layout> in decode_attention, no other library
+# and no other form (no q-block width, no int8 cache)
+DECODE_BODY = re.compile(
+    r"decode_kernelILi(\d+)ENS_\d+(SlotRows|TableRows)EE")
 # the kernels of TC_KERNELS that run on the CUDA cores, by symbol
 FFMA_KERNELS = ("split_kv_f32_kernel",)
 # the kernels that must show TF32 HMMA: the f32 flash forward and
@@ -546,16 +557,17 @@ def tc_report(_build, paths):
     int8 twins and f32 K3's two on TF32, bf16 K2 and K2-carry, bf16 K3's
     two, the wide and split ragged kernels of K1/K8 and of their int8
     twins, the split kernel of K4-K7 and of their int8 twins) and of the
-    f32 split kernel of f32 K1, f32 K8, f32-q K1-int8, K8-int8, K4-int8
-    and K5-int8 on the CUDA cores: registers and spills (ptxas, from
-    this process's build), dynamic shared memory, and the HMMA (TF32
+    f32 split kernel of f32 K1, f32 K8, f32 K6/K7 and f32-q K1-int8,
+    K8-int8 and K4-int8 to K7-int8 on the CUDA cores: registers and
+    spills (ptxas, from this process's build), dynamic shared memory,
+    and the HMMA (TF32
     among them) / HGMMA / FFMA / UTMALDG instructions of its SASS; fails
     when a tensor-core instance has no tensor-core instruction, when a
     ``TF32_KERNELS`` instance has no TF32 one, when a ``TMA_KERNELS``
     instance has no TMA load, when a CUDA-core instance
     (``FFMA_KERNELS``) has a tensor-core instruction or no FFMA, when it
     spills, or when a row of ``TC_KERNELS`` has no instance in the
-    SASS."""
+    SASS; then ``decode_body_report`` over the same SASS."""
     sass = {}
     for lib_name, sym, smem_fn, extra, kind in TC_KERNELS:
         if lib_name not in sass:
@@ -607,6 +619,36 @@ def tc_report(_build, paths):
                 fail(f"{name} has no TMA load (UTMALDG)")
             if r and (r[1] or r[2]):
                 fail(f"{name} spills: {r[1]} B stores, {r[2]} B loads")
+    for lib_name in paths:
+        if lib_name not in sass:
+            sass[lib_name] = sass_mma_counts(paths[lib_name])
+    decode_body_report(sass)
+
+
+def decode_body_report(sass):
+    """The instances of the one-block-per-slot body (``decode_kernel``,
+    decode_body.cuh) in the SASS of every library (``sass``: library ->
+    ``sass_mma_counts``): one line listing them; fails unless they are
+    f32 K4/K5 alone, ``DECODE_BODY`` in ``decode_attention`` at D 32, 64
+    and 128 over both layouts (no q-block width, no int8 cache, no other
+    library)."""
+    if any(v is None for v in sass.values()):
+        log("  decode_body.cuh instances: no cuobjdump")
+        return
+    found = sorted((lib, n) for lib, names in sass.items() for n in names
+                   if "decode_kernel" in n)
+    shown = []
+    for lib, name in found:
+        m = DECODE_BODY.search(name)
+        if lib != "decode_attention" or not m:
+            fail(f"{lib}: decode_kernel instance {name} is not f32 K4/K5's")
+        shown.append(f"<D {m.group(1)}, {m.group(2)}>")
+    want = {f"<D {d}, {r}>" for d in (32, 64, 128)
+            for r in ("SlotRows", "TableRows")}
+    if set(shown) != want or len(shown) != len(want):
+        fail(f"decode_kernel instances {shown}, not {sorted(want)}")
+    log(f"  decode_body.cuh instances (f32 K4/K5 only, in "
+        f"decode_attention): decode_kernel{', '.join(shown)}")
 
 
 def tma_map_us(_build, n=1000):
@@ -1042,6 +1084,16 @@ def check_k8_equals_k1(torch, seed, int8=False):
         f"same {'int8 ' if int8 else ''}K/V (slot rows, pool), bit for bit")
 
 
+def off16(torch, t, nbytes=8):
+    """A copy of ``t`` on the card whose data starts ``nbytes`` past a
+    16-byte boundary (contiguous)."""
+    n = nbytes // t.element_size()
+    out = torch.zeros(t.numel() + n, dtype=t.dtype,
+                      device="cuda")[n:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_decode_int8_equals_ragged_int8(torch, seed):
     """K4-int8 and K5-int8 on their split bodies, q f32 and bf16, head dim
     32, 64 and 128: the 8 slots of ``LENGTHS`` in an int8 pool (the f32
@@ -1097,9 +1149,7 @@ def check_decode_int8_equals_ragged_int8(torch, seed):
                     diff = float((got.float() - ref.float()).abs().max())
                     fail(f"{dtype} {what} at Dh {Dh} on the Q 1 decode "
                          f"wave: max abs diff {diff}")
-            bad = torch.zeros(kq.numel() + 8, dtype=torch.int8,
-                              device="cuda")[8:].view(kq.shape)
-            bad.copy_(kq)
+            bad = off16(torch, kq)
             reset_launches()
             try:
                 da.paged_block_decode_attention(q[:, 0], bad, vq, lens, tab,
@@ -1117,6 +1167,87 @@ def check_decode_int8_equals_ragged_int8(torch, seed):
             f"K8-int8 ragged_attention, on the Q 1 decode wave over the "
             f"same int8 pool / slot rows at Dh 32, 64 and 128, bit for "
             f"bit; a misaligned payload refused")
+
+
+def check_f32_verify_equals_ragged(torch, seed):
+    """f32 K6/K7 and f32-q K6-int8/K7-int8 on the split-K CUDA-core body,
+    on phase 2's verify wave (Q 5, ``VERIFY_QLENS``): the 8 slots of
+    ``LENGTHS`` in the f32 pool of ``pool_case`` and its slot rows
+    gathered through the tables, then in the pool's encoding on the card
+    (payload and scales gathered alike).  K7
+    (``paged_block_verify_attention``) equals K1
+    (``ragged_paged_attention``) over the pool and K6
+    (``paged_verify_attention``) equals K8 (``ragged_attention``) over
+    the slot rows, bit for bit, and so do their f32-q int8 twins:
+    one split body, row limits that agree (VerifyLim is RaggedLim's
+    clip), one split order.  Each verify call counts one launch under
+    its name (``_int8``); an f32 pool, f32 slot rows or an int8 payload
+    8 bytes off a 16-byte boundary is refused with nothing launched."""
+    from hetu_tpu_torch.kernels import decode_attention as da
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.kernels import ragged_attention as ra
+    pool_k, pool_v, tables, _ = pool_case(torch, "float32", seed + 17)
+    B, span, Q = len(LENGTHS), T_WIDTH * BS, int(VERIFY_QLENS.max())
+    lens, ql, tab = (torch.from_numpy(x).cuda()
+                     for x in (LENGTHS, VERIFY_QLENS, tables))
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    q = torch.randn((B, Q, H, DH), generator=g, device="cuda")
+
+    def rows(x):
+        """The slot rows of pool ``x`` (or of its scale plane)."""
+        return x[tab.long()].reshape(B, span, *x.shape[2:]).contiguous()
+    (kq, ks), (vq, vs) = int8_kv(torch, pool_k, pool_v)
+    for what, pools, sc in (("", (pool_k, pool_v), {}),
+                            ("-int8", (kq, vq), dict(k_scale=ks,
+                                                     v_scale=vs))):
+        slots = tuple(rows(x) for x in pools)
+        rsc = {n: rows(x) for n, x in sc.items()}
+        sfx = what.replace("-", "_")
+        reset_launches()
+        k7 = da.paged_block_verify_attention(q, *pools, lens, ql, tab, **sc)
+        k6 = da.paged_verify_attention(q, *slots, lens, ql, **rsc)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in launch_counts().items() if n}
+        want = {f"paged_block_verify_attention{sfx}": 1,
+                f"paged_verify_attention{sfx}": 1}
+        if counts != want:
+            fail(f"f32 K6{what}/K7{what} launches {counts}, not {want}")
+        k1 = ra.ragged_paged_attention(q, *pools, lens, ql, tab, **sc)
+        k8 = ra.ragged_attention(q, *slots, lens, ql, **rsc)
+        torch.cuda.synchronize()
+        for got, ref, pair in ((k7, k1, f"K7{what} vs K1{what}"),
+                               (k6, k8, f"K6{what} vs K8{what}")):
+            if not torch.equal(got, ref):
+                fail(f"f32 {pair} on the Q {Q} verify wave: max abs diff "
+                     f"{float((got - ref).abs().max())}")
+    slots8 = dict(k_scale=rows(ks), v_scale=rows(vs))
+    refused = (
+        ("f32 K7: a pool", lambda: da.paged_block_verify_attention(
+            q, off16(torch, pool_k), pool_v, lens, ql, tab)),
+        ("f32 K6: slot rows", lambda: da.paged_verify_attention(
+            q, rows(pool_k), off16(torch, rows(pool_v)), lens, ql)),
+        ("f32-q K7-int8: a payload", lambda: da.paged_block_verify_attention(
+            q, off16(torch, kq), vq, lens, ql, tab, k_scale=ks,
+            v_scale=vs)),
+        ("f32-q K6-int8: a payload", lambda: da.paged_verify_attention(
+            q, rows(kq), off16(torch, rows(vq)), lens, ql, **slots8)))
+    reset_launches()
+    for label, call in refused:
+        try:
+            call()
+        except ValueError as e:
+            if "16-byte" not in str(e):
+                raise
+        else:
+            fail(f"{label} 8 bytes off a 16-byte boundary was taken")
+    if any(launch_counts().values()):
+        fail(f"f32 K6/K7 launched on refused data: {launch_counts()}")
+    log(f"  K7 paged_block_verify_attention float32 == K1 "
+        f"ragged_paged_attention, K6 paged_verify_attention == K8 "
+        f"ragged_attention, and their f32-q int8 twins alike, on the Q {Q} "
+        f"verify wave over the same pool / slot rows, bit for bit; an f32 "
+        f"cache and an int8 payload 8 bytes off 16 refused, nothing "
+        f"launched")
 
 
 def check_k6_int8_equals_k8_int8(torch, seed):
@@ -1393,18 +1524,21 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 
 
 # kernel kinds of the profile, by name, first match wins.  K4-K7 in
-# bf16, their int8 twins for bf16 q and f32-q K4-int8/K5-int8 (their
-# element type, signed char, makes them the int8 twins in kind_of), are
-# split and merge kernels of their own row-limit types
-# (DecodeLim<layout>, VerifyLim<layout>), ahead of
-# K1/K8's and their twins'; K1/K8 are the f32 TF32 ragged kernel (f32
-# q, Q > 16; the CUDA-core ragged_kernel of a tree before it), the f32
-# split kernel and its merge (f32 q, Q <= 16: f32 K1 and K8,
-# and f32-q K1-int8 and K8-int8, whose signed char makes them the twins;
-# the merge's template names the cache type and layout too) and the bf16
-# wide, split and merge kernels (bf16 q, either cache), told apart by
-# their layout; K4-K7 otherwise the CUDA-core decode kernel, by NQ and
-# layout
+# bf16, their int8 twins in either q dtype and f32 K6/K7 (an int8 twin's
+# element type, signed char, makes it the twin in kind_of) are split and
+# merge kernels of their own row-limit types (DecodeLim<layout>,
+# VerifyLim<layout>), ahead of K1/K8's and their twins'; K1/K8 are the
+# f32 TF32 ragged kernel (f32 q, Q > 16; the CUDA-core ragged_kernel of a
+# tree before it), the f32 split kernel and its merge (f32 q, Q <= 16:
+# f32 K1 and K8, and f32-q K1-int8 and K8-int8, whose signed char makes
+# them the twins; the merge's template names the cache type and layout
+# too) and the bf16 wide, split and merge kernels (bf16 q, either
+# cache), told apart by their layout; f32 K4/K5 the one-block-per-slot
+# decode kernel, decode_kernel<D, layout>.  The decode_kernel rows after
+# it name the same body in a tree before this one, whose template also
+# carried q's and the cache's types and the q-block width NQ (K4/K5 at
+# NQ 1, K6/K7 and f32-q K6-int8/K7-int8 otherwise), for
+# ``kernel_times.py --trees``
 RAGGED = ("(ragged_kernel|ragged_tf32_kernel|ragged_wide_kernel|"
           "split_kv_kernel|split_kv_f32_kernel|split_merge_kernel)")
 KINDS = (("K4 paged_decode_attention",
@@ -1417,6 +1551,10 @@ KINDS = (("K4 paged_decode_attention",
           re.compile("VerifyLim<hetu::TableRows")),
          ("K1 ragged_paged_attention", re.compile(RAGGED + ".*TableRows")),
          ("K8 ragged_attention", re.compile(RAGGED + ".*SlotRows")),
+         ("K4 paged_decode_attention",
+          re.compile(r"decode_kernel<\d+, hetu::SlotRows")),
+         ("K5 paged_block_decode_attention",
+          re.compile(r"decode_kernel<\d+, hetu::TableRows")),
          ("K4 paged_decode_attention",
           re.compile(r"decode_kernel<[^,]+, [^,]+, \d+, 1, hetu::SlotRows")),
          ("K5 paged_block_decode_attention",
@@ -2535,6 +2673,7 @@ def main(argv=None):
     check_k8_equals_k1(torch, args.seed)
     check_k8_equals_k1(torch, args.seed, int8=True)
     check_k6_int8_equals_k8_int8(torch, args.seed)
+    check_f32_verify_equals_ragged(torch, args.seed)
     check_decode_int8_equals_ragged_int8(torch, args.seed)
 
     # ---- phase 3 ---- #
@@ -2646,9 +2785,11 @@ def main(argv=None):
     # its narrow waves on the split body; bf16 q's both in one source
     k1 = ("ragged_tf32.cuh", "ragged_paged_bf16.cu")
     k1n = ("split_kv_f32.cuh", "ragged_paged_bf16.cu")
-    ver = ("decode_attention.cu", "decode_attention_bf16.cu")
-    dec8 = ("split_kv_f32.cuh", "decode_attention_bf16.cu")
-    ver8 = ("decode_attention_int8.cu", "decode_attention_bf16.cu")
+    # K4-K7 and their int8 twins: f32 K4/K5 on the one-block-per-slot
+    # body of decode_attention.cu, f32 K6/K7 and every f32-q int8 twin on
+    # the f32 split body; bf16 q all in one source
+    dec = ("decode_attention.cu", "decode_attention_bf16.cu")
+    split = ("split_kv_f32.cuh", "decode_attention_bf16.cu")
     r1 = "hetu_tpu/kernels/ragged_attention.py:184"
     r8 = "hetu_tpu/kernels/ragged_attention.py:133"
     rq = "hetu_tpu/kernels/ragged_attention.py:96"
@@ -2659,14 +2800,14 @@ def main(argv=None):
          "spec paged-mixed"),
         ("K2", "flash_attention", ("flash_fwd.cu", "flash_fwd_bf16.cu"),
          "hetu_tpu/kernels/flash_attention.py:173", None),
-        ("K4", "paged_decode_attention", ver,
+        ("K4", "paged_decode_attention", dec,
          "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split"),
-        ("K5", "paged_block_decode_attention", ver,
+        ("K5", "paged_block_decode_attention", dec,
          "hetu_tpu/kernels/decode_attention.py:259", "paged-split"),
-        ("K6", "paged_verify_attention", ver,
+        ("K6", "paged_verify_attention", split,
          "hetu_tpu/kernels/decode_attention.py:478",
          "spec contiguous-split"),
-        ("K7", "paged_block_verify_attention", ver,
+        ("K7", "paged_block_verify_attention", split,
          "hetu_tpu/kernels/decode_attention.py:572", "spec paged-split"),
         ("K8", "ragged_attention", k1, r8, "contiguous-mixed"),
         ("K8 decode", "ragged_attention", k1n, r8, "contiguous-mixed"),
@@ -2678,15 +2819,15 @@ def main(argv=None):
          "int8 paged-mixed"),
         ("K1-int8 verify", "ragged_paged_attention_int8", k1n, rq,
          "int8 spec paged-mixed"),
-        ("K4-int8", "paged_decode_attention_int8", dec8,
+        ("K4-int8", "paged_decode_attention_int8", split,
          "hetu_tpu/kernels/decode_attention.py:120",
          "int8 contiguous-split"),
-        ("K5-int8", "paged_block_decode_attention_int8", dec8,
+        ("K5-int8", "paged_block_decode_attention_int8", split,
          "hetu_tpu/kernels/decode_attention.py:247", "int8 paged-split"),
-        ("K6-int8", "paged_verify_attention_int8", ver8,
+        ("K6-int8", "paged_verify_attention_int8", split,
          "hetu_tpu/kernels/decode_attention.py:448",
          "int8 spec contiguous-split"),
-        ("K7-int8", "paged_block_verify_attention_int8", ver8,
+        ("K7-int8", "paged_block_verify_attention_int8", split,
          "hetu_tpu/kernels/decode_attention.py:562",
          "int8 spec paged-split"),
         ("K8-int8", "ragged_attention_int8", k1, rq,

@@ -34,9 +34,11 @@ tensor (see ``_build``).
 - ``decode_attention.paged_verify_attention`` /
   ``decode_attention.paged_block_verify_attention``: the speculative
   verify q-block per slot over the same two layouts (the same source
-  in f32; csrc/decode_attention_bf16.cu on the tensor cores in bf16,
-  split-K over positions and a merge, the narrow body of K1/K8), the
-  phase-split verify waves and speculative ``generate_fast``.
+  in f32, on the split-K CUDA-core body of K1/K8's narrow waves,
+  csrc/split_kv_f32.cuh; csrc/decode_attention_bf16.cu on the tensor
+  cores in bf16, split-K over positions and a merge, the narrow body of
+  K1/K8), the phase-split verify waves and speculative
+  ``generate_fast``.
 
 Each of the six ragged, decode and verify wrappers also takes an int8
 cache with its scale planes (``quant.kv_encode``) and then launches its

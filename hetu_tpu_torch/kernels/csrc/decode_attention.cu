@@ -1,57 +1,89 @@
-// K4-K7 over f32 caches: the float instances of decode_body.cuh (the
-// int8 ones build apart, decode_attention_int8.cu, so the two compile in
-// parallel).  bf16 q over a bf16 cache runs on the tensor cores for all
-// four (decode_attention_bf16.cu).
+// K4-K7 over f32 caches, f32 q (the int8 caches build apart,
+// decode_attention_int8.cu, so the two compile in parallel).  bf16 q over
+// a bf16 cache runs all four on the tensor cores
+// (decode_attention_bf16.cu).
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_decode_attention,
 // ::paged_block_decode_attention, ::paged_verify_attention and
-// ::paged_block_verify_attention over f32 caches.
+// ::paged_block_verify_attention over f32 caches (Pallas bodies
+// _decode_kernel, _block_decode_kernel, _verify_kernel and
+// _block_verify_kernel).
+//
+// What bounds it on an H100: bytes.  A decode or verify wave reads each
+// slot's live K/V once, 8 len H D bytes, for 4 Q len H D flops.
+//
+// What the design does about it: K6 and K7 (a verify block of at most 16
+// rows) run split_kv_f32.cuh, the body of f32 K8's and K1's narrow waves,
+// with the row limits VerifyLim<Rows> (kv_rows.cuh; the merge's tag too,
+// so a profile names them): one block per (128-position split, head,
+// slot).  VerifyLim clips as RaggedLim does, so f32 K6 equals f32 K8 over
+// the same slot rows and q_lens, and K7 equals K1 over the same pool, bit
+// for bit.  K4 and K5 stay on the one-block-per-(slot, head) body of
+// decode_body.cuh.
 #include "decode_body.cuh"
+#include "split_kv_f32.cuh"
 
-// dtype: 0 = float32 (q, out and the caches; 1, bfloat16, is refused).
-// Each returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for an unsupported dtype, Dh or Q).
+// K4 and K5 take dtype 0 (float32; 1, bfloat16, is refused); K6 and K7
+// take no dtype, f32 only, every pointer 16-byte aligned and the
+// workspace ws of hetu_decode_f32_workspace floats.  Each returns
+// cudaGetLastError() after its launches (cudaErrorInvalidValue for an
+// unsupported dtype, Dh or Q).
 
-// K4: q [B, H, Dh], caches [B, S_max, H, Dh]; f32 only.
+// K4: q [B, H, Dh], caches [B, S_max, H, Dh].
 extern "C" int hetu_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, int B, int H, int Dh, int S_max, int dtype, void* stream) {
-  return hetu::dispatch<false, 1>(q, k, nullptr, v, nullptr, lengths,
-                                  nullptr, hetu::SlotRows{S_max}, out, B, 1,
-                                  H, Dh, dtype, stream);
+  return hetu::dispatch(q, k, v, lengths, hetu::SlotRows{S_max}, out, B, H,
+                        Dh, dtype, stream);
 }
 
-// K5: q [B, H, Dh], pools [N_blocks, bs, H, Dh], tables [B, T_width];
-// f32 only.
+// K5: q [B, H, Dh], pools [N_blocks, bs, H, Dh], tables [B, T_width].
 extern "C" int hetu_paged_block_decode_attention(
     const void* q, const void* pool_k, const void* pool_v,
     const void* lengths, const void* tables, void* out, int B, int H,
     int Dh, int bs, int T_width, int dtype, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<false, 1>(q, pool_k, nullptr, pool_v, nullptr,
-                                  lengths, nullptr, rows, out, B, 1, H, Dh,
-                                  dtype, stream);
+  return hetu::dispatch(q, pool_k, pool_v, lengths, rows, out, B, H, Dh,
+                        dtype, stream);
 }
 
-// K6: q [B, Q, H, Dh] (Q <= 16), caches [B, S_max, H, Dh]; f32 only.
+// Floats of the f32 workspace of a K6 or K7 call (Q <= 16; 0 past it):
+// the split partials of every (slot, head, split, row); span is the
+// cache's positions per slot (S_max, or T_width * bs).
+extern "C" long long hetu_decode_f32_workspace(int B, int Q, int H, int Dh,
+                                               int span) {
+  return hetu::tc::split_f32_workspace(B, Q, H, Dh, span);
+}
+
+// K6: q [B, Q, H, Dh] (1 <= Q <= 16), caches [B, S_max, H, Dh].
 extern "C" int hetu_paged_verify_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    const void* q_lens, void* out, int B, int Q, int H, int Dh, int S_max,
-    int dtype, void* stream) {
-  return hetu::dispatch<false, 16>(q, k, nullptr, v, nullptr, lengths,
-                                   q_lens, hetu::SlotRows{S_max}, out, B, Q,
-                                   H, Dh, dtype, stream);
+    const void* q_lens, void* out, void* ws, int B, int Q, int H, int Dh,
+    int S_max, void* stream) {
+  const hetu::VerifyLim<hetu::SlotRows> lim{
+      static_cast<const int*>(lengths), static_cast<const int*>(q_lens)};
+  return hetu::tc::dispatch_split_f32<float>(
+      q, k, nullptr, v, nullptr, lengths, hetu::SlotRows{S_max}, lim, out,
+      ws, B, Q, H, Dh, S_max, stream);
 }
 
-// K7: q [B, Q, H, Dh] (Q <= 16), pools [N_blocks, bs, H, Dh], tables
-// [B, T_width]; f32 only.
+// K7: q [B, Q, H, Dh] (1 <= Q <= 16), pools [N_blocks, bs, H, Dh],
+// tables [B, T_width].
 extern "C" int hetu_paged_block_verify_attention(
     const void* q, const void* pool_k, const void* pool_v,
     const void* lengths, const void* q_lens, const void* tables, void* out,
-    int B, int Q, int H, int Dh, int bs, int T_width, int dtype,
+    void* ws, int B, int Q, int H, int Dh, int bs, int T_width,
     void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<false, 16>(q, pool_k, nullptr, pool_v, nullptr,
-                                   lengths, q_lens, rows, out, B, Q, H, Dh,
-                                   dtype, stream);
+  const hetu::VerifyLim<hetu::TableRows> lim{
+      static_cast<const int*>(lengths), static_cast<const int*>(q_lens)};
+  return hetu::tc::dispatch_split_f32<float>(
+      q, pool_k, nullptr, pool_v, nullptr, lengths, rows, lim, out, ws, B,
+      Q, H, Dh, T_width * bs, stream);
+}
+
+// Dynamic shared memory of one K6/K7 split block at head dim Dh, for the
+// build report.
+extern "C" int hetu_decode_f32_smem(int Dh) {
+  return hetu::tc::split_f32_smem_of<float>(Dh);
 }

@@ -12,35 +12,35 @@
 // slot's live payload and scales once, 2 len H (D + 4) bytes, for 4 Q len
 // H D flops.
 //
-// What the design does about it: K4-int8 and K5-int8 (one decode row a
-// slot) run the int8 instance of split_kv_f32.cuh, the body of f32-q
-// K8-int8/K1-int8's narrow waves, with the row limits DecodeLim<Rows>
-// (kv_rows.cuh; the merge's tag too, so a profile names them): one block
-// per (128-position split, head, slot), the payload staged raw by
-// cp.async and dequantized as float(x) * scale as the FFMA loops read it.
-// At Q 1 DecodeLim is RaggedLim, so f32-q K4-int8 equals f32-q K8-int8
-// over the same slot rows, and K5-int8 equals K1-int8 over the same pool,
-// bit for bit.  K6-int8 and K7-int8 stay on the one-block-per-(slot,
-// head) body of decode_body.cuh, each tile dequantized as it is staged
-// (attn_common.cuh).
-#include "decode_body.cuh"
+// What the design does about it: all four run the int8 instance of
+// split_kv_f32.cuh, the body of f32-q K8-int8/K1-int8's narrow waves,
+// with the row limits DecodeLim<Rows> (K4-int8/K5-int8, one decode row a
+// slot) or VerifyLim<Rows> (K6-int8/K7-int8, a verify block of at most 16
+// rows), kv_rows.cuh, each the merge's tag too, so a profile names them:
+// one block per (128-position split, head, slot), the payload staged raw
+// by cp.async and dequantized as float(x) * scale as the FFMA loops read
+// it.  At Q 1 DecodeLim is RaggedLim, and VerifyLim always is, so f32-q
+// K4-int8 and K6-int8 equal f32-q K8-int8 over the same slot rows, and
+// K5-int8 and K7-int8 equal K1-int8 over the same pool, bit for bit.
 #include "split_kv_f32.cuh"
 
 // Payloads are int8, scales f32 with the payload's shape less its Dh
-// axis.  Each returns cudaGetLastError() after its launches
-// (cudaErrorInvalidValue for an unsupported dtype, Dh or Q).
+// axis; q and out f32.  No entry takes a dtype argument; every pointer
+// (payloads and scales too) is 16-byte aligned, and the workspace ws
+// holds hetu_decode_f32_workspace floats.  Each returns
+// cudaGetLastError() after its launches (cudaErrorInvalidValue for an
+// unsupported Dh or Q).
 
-// Floats of the f32 workspace of a K4-int8 or K5-int8 call (Q = 1): the
-// split partials of every (slot, head, split); span is the cache's
-// positions per slot (S_max, or T_width * bs).
+// Floats of the f32 workspace of a call (Q <= 16; 0 past it; Q 1 for
+// K4-int8/K5-int8): the split partials of every (slot, head, split,
+// row); span is the cache's positions per slot (S_max, or T_width * bs).
 extern "C" long long hetu_decode_f32_workspace(int B, int Q, int H, int Dh,
                                                int span) {
   return hetu::tc::split_f32_workspace(B, Q, H, Dh, span);
 }
 
-// K4-int8: q [B, H, Dh] f32, caches [B, S_max, H, Dh], scales [B, S_max,
-// H]; no dtype argument, every pointer (payloads and scales too) 16-byte
-// aligned, the workspace ws of hetu_decode_f32_workspace floats.
+// K4-int8: q [B, H, Dh], caches [B, S_max, H, Dh], scales [B, S_max,
+// H].
 extern "C" int hetu_paged_decode_attention_int8(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, const void* lengths, void* out, void* ws, int B,
@@ -51,8 +51,8 @@ extern "C" int hetu_paged_decode_attention_int8(
       ws, B, 1, H, Dh, S_max, stream);
 }
 
-// K5-int8: q [B, H, Dh] f32, pools [N_blocks, bs, H, Dh], scales
-// [N_blocks, bs, H], tables [B, T_width]; as K4-int8's entry.
+// K5-int8: q [B, H, Dh], pools [N_blocks, bs, H, Dh], scales [N_blocks,
+// bs, H], tables [B, T_width].
 extern "C" int hetu_paged_block_decode_attention_int8(
     const void* q, const void* pool_k, const void* k_scale,
     const void* pool_v, const void* v_scale, const void* lengths,
@@ -66,33 +66,37 @@ extern "C" int hetu_paged_block_decode_attention_int8(
       1, H, Dh, T_width * bs, stream);
 }
 
-// Dynamic shared memory of one K4-int8/K5-int8 split block at head dim
-// Dh, for the build report.
-extern "C" int hetu_decode_f32_smem(int Dh) {
-  return hetu::tc::split_f32_smem_of<int8_t>(Dh);
-}
-
-// K6-int8: q [B, Q, H, Dh] (Q <= 16), caches [B, S_max, H, Dh], scales
-// [B, S_max, H]; dtype 0 (float32) only.
+// K6-int8: q [B, Q, H, Dh] (1 <= Q <= 16), caches [B, S_max, H, Dh],
+// scales [B, S_max, H].
 extern "C" int hetu_paged_verify_attention_int8(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, const void* lengths, const void* q_lens,
-    void* out, int B, int Q, int H, int Dh, int S_max, int dtype,
+    void* out, void* ws, int B, int Q, int H, int Dh, int S_max,
     void* stream) {
-  return hetu::dispatch<true, 16>(q, k, k_scale, v, v_scale, lengths,
-                                  q_lens, hetu::SlotRows{S_max}, out, B, Q,
-                                  H, Dh, dtype, stream);
+  const hetu::VerifyLim<hetu::SlotRows> lim{
+      static_cast<const int*>(lengths), static_cast<const int*>(q_lens)};
+  return hetu::tc::dispatch_split_f32<int8_t>(
+      q, k, k_scale, v, v_scale, lengths, hetu::SlotRows{S_max}, lim, out,
+      ws, B, Q, H, Dh, S_max, stream);
 }
 
-// K7-int8: q [B, Q, H, Dh] (Q <= 16), pools [N_blocks, bs, H, Dh],
-// scales [N_blocks, bs, H], tables [B, T_width]; dtype 0 (float32) only.
+// K7-int8: q [B, Q, H, Dh] (1 <= Q <= 16), pools [N_blocks, bs, H, Dh],
+// scales [N_blocks, bs, H], tables [B, T_width].
 extern "C" int hetu_paged_block_verify_attention_int8(
     const void* q, const void* pool_k, const void* k_scale,
     const void* pool_v, const void* v_scale, const void* lengths,
-    const void* q_lens, const void* tables, void* out, int B, int Q, int H,
-    int Dh, int bs, int T_width, int dtype, void* stream) {
+    const void* q_lens, const void* tables, void* out, void* ws, int B,
+    int Q, int H, int Dh, int bs, int T_width, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch<true, 16>(q, pool_k, k_scale, pool_v, v_scale,
-                                  lengths, q_lens, rows, out, B, Q, H, Dh,
-                                  dtype, stream);
+  const hetu::VerifyLim<hetu::TableRows> lim{
+      static_cast<const int*>(lengths), static_cast<const int*>(q_lens)};
+  return hetu::tc::dispatch_split_f32<int8_t>(
+      q, pool_k, k_scale, pool_v, v_scale, lengths, rows, lim, out, ws, B,
+      Q, H, Dh, T_width * bs, stream);
+}
+
+// Dynamic shared memory of one split block at head dim Dh, for the build
+// report.
+extern "C" int hetu_decode_f32_smem(int Dh) {
+  return hetu::tc::split_f32_smem_of<int8_t>(Dh);
 }

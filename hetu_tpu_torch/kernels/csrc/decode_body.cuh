@@ -1,44 +1,31 @@
-// A q-block of NQ >= Q queries per slot over either KV layout of the
-// serving engine, f32 q on the CUDA cores: one decode query (Q = 1) over
-// the slot-contiguous cache (K4) and the block-table paged pool (K5), and
-// the speculative verify q-block (Q = k + 1) over the same two layouts
-// (K6, K7), over f32 caches (decode_attention.cu), and the verify
-// kernels over int8 caches with per-(position, head) f32 scales (K6-int8
-// and K7-int8, decode_attention_int8.cu).  bf16 q runs all of them on the
-// tensor cores (decode_attention_bf16.cu), and f32-q K4-int8/K5-int8 run
-// split_kv_f32.cuh (decode_attention_int8.cu).  One body, templated on
-// the q/out type T (f32 in every instance), the cache element type KV,
-// NQ and the layout.
+// One decode query per slot over either KV layout of the serving engine,
+// f32 q over an f32 cache on the CUDA cores: the slot-contiguous cache
+// (K4) and the block-table paged pool (K5), decode_attention.cu.  Every
+// other decode and verify instance runs a split-K body: bf16 q all of
+// them on the tensor cores (decode_attention_bf16.cu), f32 K6/K7 and
+// f32-q K4-int8 to K7-int8 split_kv_f32.cuh (decode_attention.cu,
+// decode_attention_int8.cu).  One body, templated on the head dim and
+// the layout.
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_decode_attention
-// (Pallas body _decode_kernel), ::paged_block_decode_attention
-// (_block_decode_kernel), ::paged_verify_attention
-// (_verify_kernel[_int8]) and ::paged_block_verify_attention
-// (_block_verify_kernel[_int8]), f32 q.  Query jq
-// of slot b sits at lengths[b] - q_lens[b] + jq and attends to the
-// positions up to itself (causal inside the q-block); a dead query (jq >=
-// q_lens[b]) clips to the last live position; a slot with length 0
-// outputs zeros.  The decode kernels are the Q = 1 case.
+// (Pallas body _decode_kernel) and ::paged_block_decode_attention
+// (_block_decode_kernel), f32.  Slot b's query attends to its positions
+// [0, lengths[b]); a slot with length 0 outputs zeros.
 //
 // What bounds it on an H100: bytes.  Each slot must read its len live
-// positions of K and of V once (Dh values each, plus one f32 scale per
-// position and head in int8); the scores are 4*Q*len*H*Dh flops, a few
-// flops per byte read at Q <= 16.
+// positions of K and of V once (Dh values each); the scores are
+// 4*len*H*Dh flops, half a flop per f32 byte read.
 //
-// What this simple design does about it: the ragged kernel's 32-row q
-// tiling would compute a 5-row verify block as 32 rows, so instead one
-// block owns one (slot, head) and its 32 eight-lane row groups are split
-// across (query, share of the tile): 32/NQ groups per query.  The block
-// stages tiles of KT positions ONCE for all NQ queries (only [0, len),
-// gathered through the table row for the pool, so dead table entries,
-// which point at scratch block 0, are never read; an int8 tile is
-// dequantized as it is staged, attn_common.cuh); group g folds its share
-// of the tile into its query's online-softmax state, up to that query's
-// causal position.  Each query's 32/NQ partial (m, l, acc) states then
+// What this simple design does about it: one block owns one (slot, head)
+// and its 32 eight-lane row groups split the slot's positions: the block
+// stages tiles of KT positions (only [0, len), gathered through the
+// table row for the pool, so dead table entries, which point at scratch
+// block 0, are never read) and group g folds its share of each tile into
+// its own online-softmax state.  The 32 partial (m, l, acc) states then
 // merge in shared memory with the NEG_INF conventions.  With B*H blocks
-// (96 at 8 slots of GPT-2-small) the card is under one wave; the bf16-q
-// decode and verify kernels and f32-q K4-int8/K5-int8 split each slot's
-// positions across blocks instead (split_kv_bf16.cuh, split_kv_f32.cuh).
+// (96 at 8 slots of GPT-2-small) the card is under one wave; the split-K
+// bodies split each slot's positions across blocks instead
+// (split_kv_bf16.cuh, split_kv_f32.cuh).
 #pragma once
 
 #include <cmath>
@@ -47,17 +34,16 @@
 
 namespace hetu {
 
-template <typename T, typename KV, int DH, int NQ, typename Rows>
+template <int DH, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, KVPlanes<KV> kv,
-              const int* __restrict__ lengths,
-              const int* __restrict__ q_lens, Rows rows,
-              T* __restrict__ out, int H, int Q, float scale) {
+decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v,
+              const int* __restrict__ lengths, Rows rows,
+              float* __restrict__ out, int H, float scale) {
   constexpr int KT = TileKeys<DH>::value;
-  constexpr int kGroups = kRowsPerBlock / NQ;   // row groups per query
-  constexpr int kPer = KT / kGroups;            // tile rows per row group
-  static_assert(kRowsPerBlock % NQ == 0 && KT % kGroups == 0,
-                "queries and tile rows split evenly over the row groups");
+  constexpr int kPer = KT / kRowsPerBlock;   // tile rows per row group
+  static_assert(KT % kRowsPerBlock == 0,
+                "tile rows split evenly over the row groups");
   __shared__ __align__(16) float ks[KT][DH];
   __shared__ __align__(16) float vs[KT][DH];
   __shared__ float ms[kRowsPerBlock];
@@ -68,20 +54,16 @@ decode_kernel(const T* __restrict__ q, KVPlanes<KV> kv,
   const int tid = threadIdx.x;
   const int lane = tid % kLanesPerRow;
   const int g = tid / kLanesPerRow;
-  const int jq = g / kGroups;        // this group's query
-  const int r0 = (g % kGroups) * kPer;   // its share of each tile
+  const int r0 = g * kPer;   // this group's share of each tile
   const int len = lengths[b];
-  const int ql = q_lens == nullptr ? 1 : q_lens[b];
-  // the query's position; a dead query clips to the last live one
-  const int row_lim = min(max(len - ql + jq, 0), max(len - 1, 0));
+  const int row_lim = max(len - 1, 0);
 
   RowState<DH> st;
-  // queries past Q (NQ is Q's pow2) compute on row Q-1 and store nothing
-  st.init(q + (((size_t)b * Q + min(jq, Q - 1)) * H + h) * DH, lane);
+  st.init(q + ((size_t)b * H + h) * DH, lane);
   for (int t0 = 0; t0 < len; t0 += KT) {
     const int n = min(KT, len - t0);
     __syncthreads();   // the previous tile is fully consumed
-    stage_kv(ks, vs, kv, rows, b, h, H, t0, n);
+    stage_kv(ks, vs, k, v, rows, b, h, H, t0, n);
     __syncthreads();
     // every lane folds (the shuffles need the whole warp); a group past
     // n folds nothing
@@ -90,7 +72,7 @@ decode_kernel(const T* __restrict__ q, KVPlanes<KV> kv,
                            scale);
   }
 
-  // merge each query's partial states: acc_g rides in the K tile's space
+  // merge the 32 partial states: acc_g rides in the K tile's space
   __syncthreads();
   float* accs = &ks[0][0];   // [32][DH], KT >= 32
   if (lane == 0) {
@@ -101,91 +83,53 @@ decode_kernel(const T* __restrict__ q, KVPlanes<KV> kv,
   for (int i = 0; i < RowState<DH>::kDpt; ++i)
     accs[g * DH + lane + kLanesPerRow * i] = st.acc[i];
   __syncthreads();
-  for (int idx = tid; idx < Q * DH; idx += kThreads) {
-    const int j = idx / DH;
-    const int d = idx % DH;
-    const int g0 = j * kGroups;
+  for (int d = tid; d < DH; d += kThreads) {
     float m = kNegInf;
-    for (int s = 0; s < kGroups; ++s) m = fmaxf(m, ms[g0 + s]);
+    for (int s = 0; s < kRowsPerBlock; ++s) m = fmaxf(m, ms[s]);
     float l = 0.f;
     float o = 0.f;
-    for (int s = 0; s < kGroups; ++s) {
-      if (ms[g0 + s] <= kNegInf / 2) continue;   // a group with no live key
-      const float w = expf(ms[g0 + s] - m);
-      l = fmaf(ls[g0 + s], w, l);
-      o = fmaf(accs[(g0 + s) * DH + d], w, o);
+    for (int s = 0; s < kRowsPerBlock; ++s) {
+      if (ms[s] <= kNegInf / 2) continue;   // a group with no live key
+      const float w = expf(ms[s] - m);
+      l = fmaf(ls[s], w, l);
+      o = fmaf(accs[s * DH + d], w, o);
     }
-    out[(((size_t)b * Q + j) * H + h) * DH + d] =
-        from_f32<T>(l == 0.f ? 0.f : o / l);
+    out[((size_t)b * H + h) * DH + d] = l == 0.f ? 0.f : o / l;
   }
 }
 
-template <typename T, typename KV, int DH, int NQ, typename Rows>
-cudaError_t launch(const void* q, KVPlanes<KV> kv, const int* lengths,
-                   const int* q_lens, Rows rows, void* out, int B, int Q,
-                   int H, cudaStream_t stream) {
-  const dim3 grid(H, B);
-  decode_kernel<T, KV, DH, NQ, Rows><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), kv, lengths, q_lens, rows,
-      static_cast<T*>(out), H, Q,
+template <int DH, typename Rows>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const int* lengths, Rows rows, float* out, int B, int H,
+                   cudaStream_t stream) {
+  decode_kernel<DH, Rows><<<dim3(H, B), kThreads, 0, stream>>>(
+      q, k, v, lengths, rows, out, H,
       static_cast<float>(1.0 / sqrt(static_cast<double>(DH))));
   return cudaGetLastError();
 }
 
-// NQ: the smallest power of two >= Q (Q <= kMaxQ: 1 for the decode
-// kernels, 16 for the verify kernels)
-template <typename T, typename KV, int DH, int kMaxQ, typename Rows>
-cudaError_t dispatch_nq(const void* q, KVPlanes<KV> kv, const int* lengths,
-                        const int* q_lens, Rows rows, void* out, int B,
-                        int Q, int H, cudaStream_t stream) {
-  if (Q == 1)
-    return launch<T, KV, DH, 1>(q, kv, lengths, q_lens, rows, out, B, Q, H,
-                                stream);
-  if constexpr (kMaxQ > 1) {
-    if (Q == 2)
-      return launch<T, KV, DH, 2>(q, kv, lengths, q_lens, rows, out, B, Q,
-                                  H, stream);
-    if (Q <= 4)
-      return launch<T, KV, DH, 4>(q, kv, lengths, q_lens, rows, out, B, Q,
-                                  H, stream);
-    if (Q <= 8)
-      return launch<T, KV, DH, 8>(q, kv, lengths, q_lens, rows, out, B, Q,
-                                  H, stream);
-    if (Q <= 16)
-      return launch<T, KV, DH, 16>(q, kv, lengths, q_lens, rows, out, B, Q,
-                                   H, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, int kMaxQ, typename KV, typename Rows>
-cudaError_t dispatch_dh(const void* q, KVPlanes<KV> kv, const int* lengths,
-                        const int* q_lens, Rows rows, void* out, int B,
-                        int Q, int H, int Dh, cudaStream_t stream) {
-  switch (Dh) {
-    case 32: return dispatch_nq<T, KV, 32, kMaxQ>(q, kv, lengths, q_lens,
-                                                  rows, out, B, Q, H, stream);
-    case 64: return dispatch_nq<T, KV, 64, kMaxQ>(q, kv, lengths, q_lens,
-                                                  rows, out, B, Q, H, stream);
-    case 128: return dispatch_nq<T, KV, 128, kMaxQ>(q, kv, lengths, q_lens,
-                                                    rows, out, B, Q, H,
-                                                    stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// dtype (q's, and a float cache's): 0 = float32, the only one taken (bf16
-// q runs decode_attention_bf16.cu).  Q at most kMaxQ.
-template <bool kQuant, int kMaxQ, typename Rows>
-int dispatch(const void* q, const void* k, const void* k_scale,
-             const void* v, const void* v_scale, const void* lengths,
-             const void* q_lens, Rows rows, void* out, int B, int Q, int H,
+// dtype: 0 = float32 (q, out and the caches), the only one taken (bf16
+// q runs decode_attention_bf16.cu).  Dh 32, 64 or 128, else
+// cudaErrorInvalidValue.
+template <typename Rows>
+int dispatch(const void* q, const void* k, const void* v,
+             const void* lengths, Rows rows, void* out, int B, int H,
              int Dh, int dtype, void* stream) {
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch_dh<float, kMaxQ>(
-      q, planes<kQuant, float>(k, k_scale, v, v_scale),
-      static_cast<const int*>(lengths), static_cast<const int*>(q_lens),
-      rows, out, B, Q, H, Dh, static_cast<cudaStream_t>(stream)));
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* lens = static_cast<const int*>(lengths);
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (Dh) {
+    case 32: err = launch<32>(qf, kf, vf, lens, rows, o, B, H, st); break;
+    case 64: err = launch<64>(qf, kf, vf, lens, rows, o, B, H, st); break;
+    case 128: err = launch<128>(qf, kf, vf, lens, rows, o, B, H, st); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace hetu

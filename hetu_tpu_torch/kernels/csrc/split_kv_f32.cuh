@@ -4,21 +4,26 @@
 // K8 (the C entries hetu_ragged_paged_attention_narrow and
 // hetu_ragged_attention_narrow of ragged_paged.cu) and of f32-q K1-int8
 // and K8-int8 (hetu_ragged_paged_attention_int8_narrow and
-// hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu), and of
-// f32-q K4-int8 and K5-int8, one decode row a slot
-// (hetu_paged_decode_attention_int8 and
-// hetu_paged_block_decode_attention_int8 of decode_attention_int8.cu).
+// hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu); of f32 K6
+// and K7, a verify block of at most 16 rows
+// (hetu_paged_verify_attention and hetu_paged_block_verify_attention of
+// decode_attention.cu); and of f32-q K4-int8 to K7-int8
+// (decode_attention_int8.cu: one decode row a slot, or a verify block).
 // K1/K8's wide waves (Q > 16) run the TF32 tensor-core body of
-// ragged_tf32.cuh.
+// ragged_tf32.cuh; f32 K4/K5 the one-block-per-slot body of
+// decode_body.cuh.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention at Q <= 16, f32 q (Pallas body _ragged_kernel,
-// over an int8 cache with quant), and
-// hetu_tpu/kernels/decode_attention.py::paged_decode_attention and
-// ::paged_block_decode_attention over an int8 cache, f32 q
-// (_decode_kernel_int8, _block_decode_kernel_int8).  Row jq of slot b
-// sees the positions up to lim(b, jq) (RaggedLim, kv_rows.cuh: rows past
-// q_len see the whole slot; DecodeLim for a decode row, len - 1, which
+// over an int8 cache with quant);
+// hetu_tpu/kernels/decode_attention.py::paged_verify_attention and
+// ::paged_block_verify_attention, f32 q over an f32 or an int8 cache
+// (_verify_kernel[_int8], _block_verify_kernel[_int8]); and
+// ::paged_decode_attention and ::paged_block_decode_attention over an
+// int8 cache, f32 q (_decode_kernel_int8, _block_decode_kernel_int8).
+// Row jq of slot b sees the positions up to lim(b, jq) (RaggedLim,
+// kv_rows.cuh: rows past q_len see the whole slot; VerifyLim, the same
+// clip, for a verify block; DecodeLim for a decode row, len - 1, which
 // is RaggedLim at q_len 1); a slot of length 0 outputs zeros.
 //
 // What bounds it on an H100: bytes.  A narrow wave reads each slot's
@@ -353,8 +358,9 @@ split_kv_f32_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 // (SplitParts::floats(B, H, n_splits(span), Q, D)).  The merge is tagged
 // with the cache element type and, for a ragged call, the layout (as the
 // bf16 ragged kernels' merge is; RaggedLim names no layout), else the
-// row-limit type, which names it (DecodeLim<Rows>, as the bf16 decode
-// kernels' merge is): a profile tells K4-int8's merge from K8-int8's.
+// row-limit type, which names it (DecodeLim<Rows> or VerifyLim<Rows>, as
+// the bf16 decode and verify kernels' merge is): a profile tells K6's
+// merge from K8's and K4-int8's from K8-int8's.
 template <int D, typename KV, typename Rows, typename Lim>
 cudaError_t launch_split_f32(const Operands<KV, float>& x, Rows rows,
                              Lim lim, float* ws, int B, int Q, int H,

@@ -31,16 +31,17 @@ launch a kernel, and nothing falls back from one to the other:
   bounds the difference, as for the bf16 K1/K8.  Over an int8 cache the
   payload is widened to bf16 exactly and P is not rounded, so they hold
   one bf16 ulp of the Pallas int8 bodies, which compute in f32.
-- f32 q over an int8 cache, decode (K4-int8, K5-int8): the split-K
-  CUDA-core body of the f32-q K8-int8/K1-int8 narrow waves
-  (``csrc/split_kv_f32.cuh`` in ``decode_attention_int8.cu``), the
-  payload dequantized as it is read; 16-byte aligned q, payloads and
-  scales or a raise.
-- f32 q otherwise (f32 K4-K7 over an f32 cache,
-  ``csrc/decode_attention.cu``; K6-int8/K7-int8,
-  ``decode_attention_int8.cu``): one block per (slot, head) on the CUDA
-  cores (``decode_body.cuh``), each int8 tile dequantized as it is
-  staged.
+- f32 q, verify over an f32 or an int8 cache (K6, K7, K6-int8,
+  K7-int8) and decode over an int8 cache (K4-int8, K5-int8): the
+  split-K CUDA-core body of f32 K8/K1's narrow waves
+  (``csrc/split_kv_f32.cuh``: ``decode_attention.cu`` for an f32
+  cache, ``decode_attention_int8.cu`` for an int8 one, an int8 payload
+  dequantized as it is read); 16-byte aligned q, caches and scales or a
+  raise.  It clips a verify row as K1/K8 do, so f32 K6 equals f32 K8
+  over the same slot rows, and K7 equals K1 over the same pool, bit for
+  bit.
+- f32 q over an f32 cache, decode (K4, K5): one block per (slot, head)
+  on the CUDA cores (``decode_body.cuh`` in ``decode_attention.cu``).
 
 The verify kernels take q-blocks of at most 16 rows; the wrappers serve
 any Q on CUDA by cutting a longer block into groups of 16 rows, one
@@ -162,8 +163,8 @@ def paged_block_decode_attention(q, pool_k, pool_v, lengths, block_tables,
                    span=T * bs)[:, 0]
 
 
-# the verify kernels' q-block: the CUDA-core body's NQ, the pow2 of Q,
-# splits 32 row groups; the bf16 body's is one m16 tile
+# the verify kernels' q-block: the split-K bodies' rows, one m16 tile in
+# bf16, at most 16 rows in f32 (split_kv_f32.cuh)
 _MAX_Q = 16
 
 
@@ -203,11 +204,12 @@ def paged_verify_attention(q, k, v, lengths, q_lens, *, k_scale=None,
     an int8 cache; lengths: [B] int32, the filled count INCLUDING the
     q-block's live positions (0 = inert slot, zeros out); q_lens: [B]
     int32 live queries per slot.  Returns o [B, Q, H, Dh] in q's dtype.
-    CUDA tensors launch the kernel (the decode kernel's terms; a block
-    of more than 16 rows launches it once per group of
-    :func:`verify_groups`, whose dead groups give zeros; bf16 q over an
-    int8 cache the tensor-core library, on 16-byte aligned q, caches and
-    scales); CPU tensors run :func:`masked_verify_reference`."""
+    CUDA tensors launch the kernel (f32 or bf16 q; caches of q's dtype,
+    or int8 with their scales; head dim 32/64/128, contiguous, int32
+    lengths; the split-K kernels in every dtype, on 16-byte aligned q,
+    caches and scales; a block of more than 16 rows launches it once per
+    group of :func:`verify_groups`, whose dead groups give zeros); CPU
+    tensors run :func:`masked_verify_reference`."""
     quant = _check_args("paged_verify_attention", q, k, v, lengths,
                         q_lens, {"lengths": lengths, "q_lens": q_lens},
                         k_scale, v_scale)
@@ -236,9 +238,8 @@ def paged_block_verify_attention(q, pool_k, pool_v, lengths, q_lens,
     :func:`paged_block_decode_attention`.  Returns o [B, Q, H, Dh] in q's
     dtype.  CUDA tensors launch the kernel (as
     :func:`paged_verify_attention`'s, per group of :func:`verify_groups`
-    past 16 rows; bf16 q over an int8 pool the tensor-core library, on
-    16-byte aligned q, pools and scales); CPU tensors run
-    :func:`paged_block_verify_reference`."""
+    past 16 rows, on 16-byte aligned q, pools and scales); CPU tensors
+    run :func:`paged_block_verify_reference`."""
     quant = _check_args("paged_block_verify_attention", q, pool_k, pool_v,
                         lengths, q_lens,
                         {"lengths": lengths, "q_lens": q_lens,

@@ -43,6 +43,7 @@ values (hi, and the rest of its rounding), within one bf16 ulp of o.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -222,9 +223,10 @@ _BF16_LIBRARIES = {
     "decode_attention": ("decode_attention_bf16",
                          "hetu_verify_bf16_workspace")}
 # f32 q's calls at Q <= NARROW_Q that run the split-K CUDA-core body
-# (split_kv_f32.cuh): K1/K8 and their int8 twins, and the decode twins
-# K4-int8/K5-int8 (always Q 1).  (entry, over an int8 cache) ->
-# (library, split entry, its workspace-size entry)
+# (split_kv_f32.cuh): K1/K8 and their int8 twins, K6/K7 and their int8
+# twins (the verify wrappers cut a longer block into 16-row groups), and
+# the decode twins K4-int8/K5-int8 (always Q 1).  (entry, over an int8
+# cache) -> (library, split entry, its workspace-size entry)
 _F32_NARROW = {
     ("hetu_ragged_paged_attention", False): (
         "ragged_paged", "hetu_ragged_paged_attention_narrow",
@@ -238,85 +240,135 @@ _F32_NARROW = {
     ("hetu_ragged_attention", True): (
         "ragged_paged_int8", "hetu_ragged_attention_int8_narrow",
         "hetu_ragged_f32_workspace"),
+    ("hetu_paged_verify_attention", False): (
+        "decode_attention", "hetu_paged_verify_attention",
+        "hetu_decode_f32_workspace"),
+    ("hetu_paged_block_verify_attention", False): (
+        "decode_attention", "hetu_paged_block_verify_attention",
+        "hetu_decode_f32_workspace"),
+    ("hetu_paged_verify_attention", True): (
+        "decode_attention_int8", "hetu_paged_verify_attention_int8",
+        "hetu_decode_f32_workspace"),
+    ("hetu_paged_block_verify_attention", True): (
+        "decode_attention_int8", "hetu_paged_block_verify_attention_int8",
+        "hetu_decode_f32_workspace"),
     ("hetu_paged_decode_attention", True): (
         "decode_attention_int8", "hetu_paged_decode_attention_int8",
         "hetu_decode_f32_workspace"),
     ("hetu_paged_block_decode_attention", True): (
         "decode_attention_int8", "hetu_paged_block_decode_attention_int8",
         "hetu_decode_f32_workspace")}
+# the ctypes signature of every workspace-size entry: (B, Q, H, Dh, span)
+_WS_ARGTYPES = (ctypes.c_int,) * 5
 
 
-def _launch(source, entry, name, q, kv, rest, ints, span):
-    """Launch C entry ``entry`` of kernel library ``source`` as
-    ``entry(q, *kv, *rest, out, *ints, dtype, stream)`` into a fresh
-    output like q, and count it under ``name``.  ``kv`` is (k, v), or
-    (k, k_scale, v, v_scale) for an int8 cache, which launches the int8
-    twin: ``source``, ``entry`` and ``name`` with ``_int8`` appended.
-    ``source`` is ``ragged_paged`` (K1/K8) or ``decode_attention``
-    (K4-K7; the decode wrappers pass q as [B, 1, H, Dh]); ``span`` is the
-    cache's positions per slot.
+class Route(NamedTuple):
+    """What one call of :func:`_launch` calls: the C entry ``entry`` of
+    kernel library ``library`` with ``argtypes``, after the
+    workspace-size entry ``ws_entry`` (None: no workspace), passing
+    ``tail`` after the shapes (the dtype code, for an entry that takes
+    one); ``aligned``: the entry's body copies 16-byte chunks, so q and
+    the caches (int8: their scales too) must start on 16-byte
+    boundaries; the call counts under ``name`` and, for K1/K8 and their
+    int8 twins, under ``regime`` too."""
+    library: str
+    entry: str
+    ws_entry: Optional[str]
+    tail: tuple
+    aligned: bool
+    name: str
+    regime: Optional[str]
+    argtypes: tuple
 
-    bf16 q launches the tensor-core library of ``_BF16_LIBRARIES`` at
-    ``entry`` + ``_bf16`` over a bf16 cache and ``entry`` +
-    ``_int8_bf16`` over an int8 one, as ``entry(q, *kv, *rest, out,
-    workspace, *ints, stream)`` on 16-byte aligned q and caches (and
-    scales), or raises; the workspace holds the f32 partials of the
-    split-K body (Q <= NARROW_Q), sized by the library from the shapes
-    and ``span``, and K1/K8's wide regime takes none.  f32 q's K1/K8
-    calls (over an f32 or an int8 cache) and K4-int8/K5-int8 calls take
-    16-byte aligned q and caches (int8: payloads and scales) or raise,
-    and at Q <= NARROW_Q launch ``_F32_NARROW``'s library and split
-    entry the same way (the split-K CUDA-core body, no dtype argument);
-    K1/K8 past it ``entry`` (the TF32 body).  f32 K4-K7 and f32-q
-    K6-int8/K7-int8 launch ``entry`` (the one-block-per-slot CUDA-core
-    body).  One call counts as one launch, though a split-K call runs
-    two device kernels (the splits, then their merge), and every K1/K8
-    call also counts under ``name:narrow`` or ``name:wide`` by its Q
-    (``name`` with ``_int8`` for an int8 cache)."""
-    tail = (_DTYPES[q.dtype],)
+
+def route(source, entry, name, q, kv, rest, ints):
+    """The :class:`Route` of ``_launch(source, entry, name, q, kv, rest,
+    ints, span)``, from the shapes, dtypes and argument counts alone
+    (nothing is read, built or launched).
+
+    ``kv`` is (k, v), or (k, k_scale, v, v_scale) for an int8 cache,
+    which takes the int8 twin: ``name`` + ``_int8``.  bf16 q launches the
+    tensor-core library of ``_BF16_LIBRARIES`` at ``entry`` + ``_bf16``
+    over a bf16 cache and ``entry`` + ``_int8_bf16`` over an int8 one,
+    with the library's workspace (the f32 partials of the split-K body,
+    Q <= NARROW_Q; none for K1/K8's wide regime) and no dtype.  f32 q at
+    Q <= NARROW_Q launches ``_F32_NARROW``'s library and entry, where the
+    call has one (K1/K8, K6/K7 and all the int8 twins: the split-K
+    CUDA-core body), the same way; otherwise ``source`` (``_int8`` for
+    an int8 cache) at ``entry`` (``_int8``) with the dtype code and no
+    workspace: K1/K8 and their int8 twins past it (the TF32 body, on
+    16-byte aligned data), and f32 K4/K5 (the one-block-per-slot
+    CUDA-core body).  The C entry takes ``(q, *kv, *rest, out,
+    [workspace], *ints, *tail, stream)``."""
     quant = len(kv) == 4
     if quant:
         name = f"{name}_int8"
-    regimes = source == "ragged_paged"
     narrow = q.shape[1] <= NARROW_Q
-    ws_entry = None
+    regime = (f"{name}:{'narrow' if narrow else 'wide'}"
+              if source == "ragged_paged" else None)
     if q.dtype == torch.bfloat16:
+        library, ws_entry = _BF16_LIBRARIES[source]
+        entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
+        tail, aligned = (), True
+    elif narrow and (entry, quant) in _F32_NARROW:
+        library, entry, ws_entry = _F32_NARROW[entry, quant]
+        tail, aligned = (), True
+    else:
+        library = f"{source}_int8" if quant else source
+        entry = f"{entry}_int8" if quant else entry
+        ws_entry, tail = None, (_DTYPES[q.dtype],)
+        # the TF32 body of K1/K8's wide waves copies 16-byte chunks; f32
+        # K4/K5's one-block-per-slot body reads single floats
+        aligned = regime is not None
+    n_ptrs = 2 + len(kv) + len(rest) + (ws_entry is not None)
+    argtypes = ((ctypes.c_void_p,) * n_ptrs
+                + (ctypes.c_int,) * (len(ints) + len(tail))
+                + (ctypes.c_void_p,))
+    return Route(library, entry, ws_entry, tail, aligned, name, regime,
+                 argtypes)
+
+
+def _typed(lib, entry, argtypes, restype):
+    """C entry ``entry`` of ``lib``, its ctypes signature set on its first
+    lookup (ctypes keeps one function object per library and entry)."""
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = list(argtypes), restype
+    return fn
+
+
+def _launch(source, entry, name, q, kv, rest, ints, span):
+    """Launch the C entry :func:`route` picks for C entry ``entry`` of
+    kernel library ``source`` into a fresh output like q, and count it.
+    ``kv`` is (k, v), or (k, k_scale, v, v_scale) for an int8 cache.
+    ``source`` is ``ragged_paged`` (K1/K8) or ``decode_attention``
+    (K4-K7; the decode wrappers pass q as [B, 1, H, Dh]); ``span`` is the
+    cache's positions per slot, from which the library sizes the
+    workspace.  Raises ValueError on data a 16-byte body cannot take,
+    before anything is built or launched.  One call counts as one
+    launch, though a split-K call runs two device kernels (the splits,
+    then their merge)."""
+    r = route(source, entry, name, q, kv, rest, ints)
+    if r.aligned:
         _build.check_aligned((q, *kv), "q and the caches (int8: their "
                              "scales too)")
-        source, ws_entry = _BF16_LIBRARIES[source]
-        entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
-        tail = ()
-    else:
-        split = _F32_NARROW.get((entry, quant)) if narrow else None
-        if regimes or split:   # f32 q: these bodies copy 16-byte chunks
-            _build.check_aligned((q, *kv), "f32 q and the caches (int8: "
-                                 "their scales too)")
-        if split:
-            (source, entry, ws_entry), tail = split, ()
-        elif quant:
-            source, entry = f"{source}_int8", f"{entry}_int8"
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    lib = _build.library(source)
+    lib = _build.library(r.library)
     ptrs = [t.data_ptr() for t in (q, *kv, *rest, out)]
-    if ws_entry is not None:
-        size = getattr(lib, ws_entry)
-        size.argtypes = [ctypes.c_int] * 5
-        size.restype = ctypes.c_longlong
-        n_ws = size(*q.shape, span)
+    if r.ws_entry is not None:
+        n_ws = _typed(lib, r.ws_entry, _WS_ARGTYPES,
+                      ctypes.c_longlong)(*q.shape, span)
         ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
         ptrs.append(ws.data_ptr() if n_ws else None)
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) \
-        + [ctypes.c_int] * (len(ints) + len(tail)) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _typed(lib, r.entry, r.argtypes, ctypes.c_int)
     with torch.cuda.device(q.device):
-        rc = fn(*ptrs, *ints, *tail, _build.stream_of(q))
-    _build.check(lib, rc, f"{name} launch")
-    _build.LAUNCHES[name] += 1
-    if regimes:
-        _build.LAUNCHES[f"{name}:{'narrow' if narrow else 'wide'}"] += 1
+        rc = fn(*ptrs, *ints, *r.tail, _build.stream_of(q))
+    _build.check(lib, rc, f"{r.name} launch")
+    _build.LAUNCHES[r.name] += 1
+    if r.regime:
+        _build.LAUNCHES[r.regime] += 1
     return out
 
 

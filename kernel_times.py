@@ -37,10 +37,11 @@ wrapper's host time, which sets ``run_ms`` once the kernels are faster
 than the host).
 With ``--engines DIR`` each tree then also serves chip_smoke's request
 set on GPT-2-small (random weights from ``--seed``) through the engines
-of ``ENGINES``: in bf16 the phase-split engines with ``spec=4`` on the
-slot rows (K6 and the draft's K4), on an int8 copy of them (K6-int8 and
-K4), on the pool (K7 and K4) and on an int8 pool (K7-int8 and K4), and
-the pool without spec (K5, whose only engine path this is); in bf16 and
+of ``ENGINES``: in bf16 and in f32 the phase-split engines with
+``spec=4`` on the slot rows (K6 and the draft's K4), on an int8 copy of
+them (K6-int8 and K4), on the pool (K7 and K4) and on an int8 pool
+(K7-int8 and K4); in bf16 the pool without spec (K5, whose only engine
+path this is); in bf16 and
 in f32 the phase-split engines over an int8 cache without spec, on
 slot rows (K4-int8) and on the pool (K5-int8); in f32 the
 auto paged mixed engine (K1 on every wave), the contiguous mixed engine
@@ -101,8 +102,8 @@ def _bound_of(ra):
 
 
 # the engines of ``--engines``: (label, configuration, spec, kv_quant,
-# dtype, the kinds whose device ms the table prints).  The bf16
-# phase-split spec 4 engines' verify waves run K6 (slot rows), K6-int8
+# dtype, the kinds whose device ms the table prints).  The phase-split
+# spec 4 engines' verify waves, bf16 and f32, run K6 (slot rows), K6-int8
 # (int8 slot rows), K7 (the pool) or K7-int8 (an int8 pool) and their
 # drafts K4 (the draft's own cache is a float one); the pool without spec
 # runs K5 in its decode waves, and over an int8 cache, in bf16 and in
@@ -121,6 +122,17 @@ ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
             ("K7 paged_block_verify_attention",
              "K4 paged_decode_attention")),
            ("paged-split-int8", "paged-split", 4, "int8", "bfloat16",
+            ("K7-int8 paged_block_verify_attention",
+             "K4 paged_decode_attention")),
+           ("contiguous-split-f32", "contiguous-split", 4, None, "float32",
+            ("K6 paged_verify_attention", "K4 paged_decode_attention")),
+           ("contiguous-split-int8-f32", "contiguous-split", 4, "int8",
+            "float32", ("K6-int8 paged_verify_attention",
+                        "K4 paged_decode_attention")),
+           ("paged-split-f32", "paged-split", 4, None, "float32",
+            ("K7 paged_block_verify_attention",
+             "K4 paged_decode_attention")),
+           ("paged-split-int8-f32", "paged-split", 4, "int8", "float32",
             ("K7-int8 paged_block_verify_attention",
              "K4 paged_decode_attention")),
            ("paged-split-nospec", "paged-split", 0, None, "bfloat16",

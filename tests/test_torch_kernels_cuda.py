@@ -24,12 +24,13 @@ scale split into a bf16 pair, two products) do not round P, as the
 Pallas int8 bodies, which compute in f32, do not: they are held to the
 bf16 tolerance alone.
 The narrow waves (Q <= 16) of f32 K1, f32 K8, f32-q K1-int8 and f32-q
-K8-int8, and f32-q K4-int8/K5-int8, run the split-K CUDA-core body
-(csrc/split_kv_f32.cuh) and are held to f32's tolerance; f32 K8 equals
-f32 K1 bit for bit on one wave, and so does f32-q K8-int8 f32-q
-K1-int8; f32-q K1-int8 equals f32 K1 over the decoded cache; in either
-q dtype K6-int8 and K4-int8 run K8-int8's split body, and K5-int8
-K1-int8's, and equal it bit for bit.
+K8-int8, f32 K6/K7, and f32-q K4-int8 to K7-int8, run the split-K
+CUDA-core body (csrc/split_kv_f32.cuh) and are held to f32's tolerance;
+f32 K8 equals f32 K1 bit for bit on one wave, and so does f32-q K8-int8
+f32-q K1-int8; f32-q K1-int8 equals f32 K1 over the decoded cache; f32
+K6 equals f32 K8 and f32 K7 equals f32 K1 on the same wave, bit for bit;
+in either q dtype K6-int8 and K4-int8 run K8-int8's split body, and
+K5-int8 and K7-int8 K1-int8's, and equal it bit for bit.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
 rounding of P, stated at ``flash_tol``; the flash backward (K3) to its
 own, stated at ``k3_close``; the f32 carried forward (K2-carry), whose
@@ -724,16 +725,128 @@ def test_bf16_verify_wrappers_refuse_misaligned_data(cuda):
 
 
 def test_verify_kernel_q1_equals_decode_kernel(cuda):
-    """A one-row verify block scores what the decode kernel scores: both
-    are the same body, at NQ = 1."""
+    """A one-row verify block scores what the decode kernel scores.  Over
+    an int8 cache f32-q K6-int8 and K4-int8 are one split body with row
+    limits that agree at q_len 1: equal bit for bit.  Over an f32 cache
+    f32 K6 runs the split body and f32 K4 the one-block-per-slot body of
+    decode_body.cuh, which sums in another order: within f32's
+    tolerance, and f32 K6 equals f32 K8 at Q 1 bit for bit."""
     q, pk, pv, lens, _, tab = _wave(64, 16, 1, seed=5)
     k, v = (_slot_rows(x, tab).to(cuda) for x in (pk, pv))
     lens_d = torch.from_numpy(lens).to(cuda)
     ones = torch.ones_like(lens_d)
-    got = tda.paged_verify_attention(q.to(cuda), k, v, lens_d, ones)
-    want = tda.paged_decode_attention(q[:, 0].to(cuda), k, v, lens_d)
+    qd = q.to(cuda)
+    got = tda.paged_verify_attention(qd, k, v, lens_d, ones)
+    want = tda.paged_decode_attention(qd[:, 0], k, v, lens_d)
+    k8 = tra.ragged_attention(qd, k, v, lens_d, ones)
+    torch.cuda.synchronize()
+    assert_within(got[:, 0], want, "float32")
+    assert torch.equal(got, k8)
+    (kq, ks), (vq, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
+    sc = dict(k_scale=ks, v_scale=vs)
+    got = tda.paged_verify_attention(qd, kq, vq, lens_d, ones, **sc)
+    want = tda.paged_decode_attention(qd[:, 0], kq, vq, lens_d, **sc)
     torch.cuda.synchronize()
     assert torch.equal(got[:, 0], want)
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("Q", [1, 2, 5, 8, 16, 17])
+@pytest.mark.parametrize("cache", ["f32", "int8"])
+def test_f32_verify_kernels_equal_the_ragged_kernels(cuda, monkeypatch, Dh,
+                                                     Q, cache):
+    """f32 K7 (the pool) and f32 K6 (its slot rows), and over an int8
+    cache f32-q K7-int8 and K6-int8, run the split-K CUDA-core body of
+    split_kv_f32.cuh with VerifyLim, RaggedLim's clip: lengths 1000 and
+    257 cross several 128-position key splits, a q-block of Q rows, a
+    shorter one (dead rows), an inert q_len-0 slot with a length, the
+    length-0 slot zero.  Each call loads only ``decode_attention`` (int8:
+    ``decode_attention_int8``), looks up ``hetu_decode_f32_workspace``
+    and its verify entry once per 16-row group, and counts one launch a
+    group under the wrapper's name (``_int8``); its output equals, bit
+    for bit, f32 K1's (K7) or f32 K8's (K6), or their f32-q int8 twins',
+    on the same groups, and is within 1e-5 of the plain version on every
+    row of each group (past 16 rows, on every live row of the whole
+    block too)."""
+    q, pk, pv, lens, ql, tab = _long_wave(Dh, Q, [Q, max(Q - 2, 1), 0, 0],
+                                          seed=13 * Q + Dh)
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    qd = q.to(cuda)
+    int8 = cache == "int8"
+    if int8:
+        (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v, sc = pk.to(cuda), pv.to(cuda), {}
+    tab_d = idx[2].long()
+
+    def rows(x):
+        B, T = tab_d.shape
+        return x[tab_d].reshape(B, T * x.shape[1], *x.shape[2:]) \
+            .contiguous()
+    rk, rv = rows(k), rows(v)
+    rsc = {n: rows(x) for n, x in sc.items()}
+    suffix = "_int8" if int8 else ""
+    libs, entries = _record_loads(monkeypatch)
+    reset_launches()
+    k7 = tda.paged_block_verify_attention(qd, k, v, *idx, **sc)
+    k6 = tda.paged_verify_attention(qd, rk, rv, *idx[:2], **rsc)
+    torch.cuda.synchronize()
+    n = -(-Q // 16)
+    assert set(libs) == {"decode_attention" + suffix}
+    assert entries == (
+        ["hetu_decode_f32_workspace",
+         f"hetu_paged_block_verify_attention{suffix}"] * n
+        + ["hetu_decode_f32_workspace",
+           f"hetu_paged_verify_attention{suffix}"] * n)
+    assert _nonzero_launches() == {
+        f"paged_block_verify_attention{suffix}": n,
+        f"paged_verify_attention{suffix}": n}
+    groups = (tda.verify_groups(qd, *idx[:2]) if Q > 16
+              else [(qd, *idx[:2])])
+    k1 = torch.cat([tra.ragged_paged_attention(qc, k, v, lc, nc, idx[2],
+                                               **sc)
+                    for qc, lc, nc in groups], dim=1)
+    k8 = torch.cat([tra.ragged_attention(qc, rk, rv, lc, nc, **rsc)
+                    for qc, lc, nc in groups], dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(k7, k1)
+    assert torch.equal(k6, k8)
+    scales = tuple(sc.values())
+    plain7 = torch.cat([tda.paged_block_verify_reference(
+        qc, k, v, lc, nc, idx[2], *scales) for qc, lc, nc in groups], dim=1)
+    plain6 = torch.cat([tda.masked_verify_reference(
+        qc, rk, rv, lc, nc, *(rows(x) for x in scales))
+        for qc, lc, nc in groups], dim=1)
+    assert_within(k7, plain7, "float32")
+    assert_within(k6, plain6, "float32")
+    whole = tda.paged_block_verify_reference(qd, k, v, *idx, *scales)
+    for b, m in enumerate(ql):
+        assert_within(k7[b, :m], whole[b, :m], "float32")
+    assert (k7[3] == 0).all() and (k6[3] == 0).all()
+
+
+def test_f32_verify_wrappers_refuse_misaligned_data(cuda, monkeypatch):
+    """f32 K6 and K7 copy 16-byte chunks (the split-K body): a q, a cache
+    or a pool 8 bytes off a 16-byte boundary is refused, not read; no
+    library is loaded and nothing launches."""
+    q, pk, pv, lens, ql, tab = _wave(64, 16, 5)
+    ql = np.minimum(np.array([5, 4, 1, 0, 5, 0], np.int32), lens)
+    idx = [torch.from_numpy(a).to(cuda) for a in (lens, ql, tab)]
+    qd, kd, vd = q.to(cuda), pk.to(cuda), pv.to(cuda)
+    rows = _slot_rows(pk, tab).to(cuda)
+    libs, _ = _record_loads(monkeypatch)
+    reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_block_verify_attention(qd, _off16(kd, 8), vd, *idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_block_verify_attention(_off16(qd, 8), kd, vd, *idx)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_verify_attention(qd, rows, _off16(rows, 8), *idx[:2])
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_verify_attention(_off16(qd, 8), rows, rows, *idx[:2])
+    assert libs == []
+    assert not any(launch_counts().values())
 
 
 def _bf16_decode_case(cuda, layout, Dh, seed):
@@ -1462,9 +1575,9 @@ def test_bf16_ragged_int8_wrappers_refuse_misaligned_data(cuda):
 @pytest.mark.parametrize("layout", ["slots", "pool"])
 def test_decode_verify_int8_kernels_match_plain(cuda, dtype, Dh, bs, Q,
                                                 layout):
-    """K4-int8/K5-int8 (Q 1, decode) and K6-int8/K7-int8 (Q 2-16, NQ 2 to
-    16) over slot rows and through the block tables, q f32 or bf16, with
-    a q_len-0 slot, a length-0 slot and dead verify rows."""
+    """K4-int8/K5-int8 (Q 1, decode) and K6-int8/K7-int8 (Q 2-16) over
+    slot rows and through the block tables, q f32 or bf16, with a
+    q_len-0 slot, a length-0 slot and dead verify rows."""
     q, pk, pv, lens, _, tab = _wave(Dh, bs, Q, seed=7)
     ql = np.minimum(np.array([Q, Q - 1, 1, 0, Q, 0], np.int32), lens)
     q = q.to(cuda, getattr(torch, dtype))
@@ -1543,10 +1656,10 @@ def test_bf16_verify_int8_kernel_on_the_tensor_cores(cuda, monkeypatch, Dh,
 
 
 def test_bf16_verify_int8_wrapper_refuses_misaligned_data(cuda):
-    """bf16 q's K7-int8 copies 16-byte chunks of the payload: a payload 8
-    bytes off a 16-byte boundary, or a scale plane 4 bytes off, is
-    refused, not read; f32 q's twin (the CUDA-core body) takes the same
-    payload."""
+    """K7-int8 copies 16-byte chunks of the payload in either q dtype:
+    for bf16 q a payload 8 bytes off a 16-byte boundary, or a scale
+    plane 4 bytes off, is refused, not read; so is the payload for f32 q
+    (the split-K CUDA-core body), and nothing launches."""
     q, pk, pv, lens, ql, tab = _wave(64, 16, 5)
     ql = np.minimum(np.array([5, 4, 1, 0, 5, 0], np.int32), lens)
     (k, ks), (v, vs) = (_int8(x, cuda) for x in (pk, pv))
@@ -1560,13 +1673,10 @@ def test_bf16_verify_int8_wrapper_refuses_misaligned_data(cuda):
         tda.paged_block_verify_attention(qb, k, v, *idx, k_scale=ks,
                                          v_scale=_off16(vs, 4))
     assert not any(launch_counts().values())
-    got = tda.paged_block_verify_attention(q.to(cuda), _off16(k, 8), v,
-                                           *idx, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    assert launch_counts()["paged_block_verify_attention_int8"] == 1
-    want = tda.paged_block_verify_reference(q.to(cuda), k, v, *idx, ks, vs)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               **TOL["float32"])
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_block_verify_attention(q.to(cuda), _off16(k, 8), v, *idx,
+                                         k_scale=ks, v_scale=vs)
+    assert not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("Dh", [32, 64, 128])
@@ -1617,11 +1727,11 @@ def test_bf16_slot_verify_int8_kernel_on_the_tensor_cores(cuda, monkeypatch,
 
 def test_bf16_slot_verify_int8_wrapper_refuses_misaligned_data(
         cuda, monkeypatch):
-    """bf16 q's K6-int8 copies 16-byte chunks of the payload: a payload 8
-    bytes off a 16-byte boundary, or a scale plane 4 bytes off, is
-    refused, not read, and nothing launches; f32 q's K6-int8 (the
-    CUDA-core body of decode_attention_int8.cu, the only library it
-    loads) takes the same payload."""
+    """K6-int8 copies 16-byte chunks of the payload in either q dtype: a
+    payload 8 bytes off a 16-byte boundary, or a scale plane 4 bytes off,
+    is refused, not read, and nothing launches; for f32 q (the split-K
+    CUDA-core body of decode_attention_int8.cu) no library is even
+    loaded."""
     q, pk, pv, lens, ql, tab = _wave(64, 16, 5)
     ql = np.minimum(np.array([5, 4, 1, 0, 5, 0], np.int32), lens)
     (k, ks), (v, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
@@ -1640,14 +1750,14 @@ def test_bf16_slot_verify_int8_wrapper_refuses_misaligned_data(
     library = _build.library
     monkeypatch.setattr(_build, "library",
                         lambda n: loaded.append(n) or library(n))
-    got = tda.paged_verify_attention(q.to(cuda), _off16(k, 8), v, *idx,
-                                     k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    assert loaded == ["decode_attention_int8"]
-    assert launch_counts()["paged_verify_attention_int8"] == 1
-    want = tda.masked_verify_reference(q.to(cuda), k, v, *idx, ks, vs)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               **TOL["float32"])
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_verify_attention(q.to(cuda), _off16(k, 8), v, *idx,
+                                   k_scale=ks, v_scale=vs)
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.paged_verify_attention(q.to(cuda), k, v, *idx, k_scale=ks,
+                                   v_scale=_off16(vs, 4))
+    assert loaded == []
+    assert not any(launch_counts().values())
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):

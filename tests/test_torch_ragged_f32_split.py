@@ -1,7 +1,9 @@
 """The arithmetic of the narrow waves on the card of f32 K1 and f32 K8
 (``ragged_paged_attention`` / ``ragged_attention``, f32 q over an f32
-pool or slot rows at Q <= 16) and of f32-q K1-int8 (f32 q over an int8
-pool with f32 scales): the split-K CUDA-core body of
+pool or slot rows at Q <= 16), of f32-q K1-int8 (f32 q over an int8
+pool with f32 scales), and of f32 K6/K7 and their f32-q int8 twins
+(``paged_verify_attention`` / ``paged_block_verify_attention``, a verify
+block of at most 16 rows): the split-K CUDA-core body of
 csrc/split_kv_f32.cuh, against the JAX package's Pallas kernels in
 interpret mode, and against the port's plain versions, within f32's
 tolerance.
@@ -14,17 +16,24 @@ rounded.  The four warps of a split, then the splits, merge by 2^(m_i -
 M) in f32, skipping those with no live key, and o = acc / l.  An int8
 cache is dequantized as payload * scale as the products read it (the
 plain version's dequantized values), and the same arithmetic follows.
+A verify row's limit is a ragged row's (VerifyLim is RaggedLim's clip).
 :func:`_emulate` is that arithmetic in PyTorch on the CPU.  It is held
 to JAX's f32 ``ragged_paged_attention`` (the pool) and
-``ragged_attention`` (the pool's slot rows), over the f32 cache and
-over its ``kv_encode`` with ``k_scale``/``v_scale`` (interpret mode), and
-to ``ragged_paged_reference`` / ``ragged_masked_reference`` within 1e-5
-+ 1e-5 |want| element by element (the sums taken in another order, and
-2^x in place of e^x), over waves of 16-position pool blocks: Q 1
-(decode), 8 (verify) and 16 (the widest narrow wave); head dims 32, 64
-and 128; lengths on and off split and block edges (300, 256, 131, 128,
-16, 5, 0, 33), an inert q_len-0 slot with a length, dead rows, and two
-slots sharing pool blocks; the length-0 slot is zero.
+``ragged_attention`` (the pool's slot rows), and to its
+``paged_block_verify_attention`` (the pool) and
+``paged_verify_attention`` (slot rows) on their live rows (JAX's dead
+verify rows are finite garbage), over the f32 cache and over its
+``kv_encode`` with ``k_scale``/``v_scale`` (interpret mode), and on
+every row to ``ragged_paged_reference`` / ``ragged_masked_reference``
+(``paged_block_verify_reference`` / ``masked_verify_reference`` for the
+verify kernels) within 1e-5 + 1e-5 |want| element by element (the sums
+taken in another order, and 2^x in place of e^x), over waves of
+16-position pool blocks: the ragged kernels at Q 1 (decode), 8 (verify)
+and 16 (the widest narrow wave), the verify kernels at Q 2, 5, 8 and 16;
+head dims 32, 64 and 128; lengths on and off split and block edges
+(300, 256, 131, 128, 16, 5, 0, 33), an inert q_len-0 slot with a
+length, dead rows, and two slots sharing pool blocks; the length-0 slot
+is zero.
 """
 
 import math
@@ -35,7 +44,9 @@ import torch
 
 import jax.numpy as jnp
 
+from hetu_tpu.kernels import decode_attention as jda
 from hetu_tpu.kernels import ragged_attention as jra
+from hetu_tpu_torch.kernels import decode_attention as tda
 from hetu_tpu_torch.kernels import ragged_attention as tra
 from hetu_tpu_torch.quant import kv_decode, kv_encode
 
@@ -122,11 +133,24 @@ def _emulate(q, k, v, lengths, q_lens):
     return o.permute(0, 2, 1, 3)                        # [B, Q, H, Dh]
 
 
-def _case(Q, Dh, seed, layout, cache):
-    """(JAX's f32 o, the port's plain o, the emulated body's o), numpy,
-    one wave through the pool (K1) or its slot rows (K8), over the f32
-    cache or (``cache`` "int8") its ``kv_encode``, which the body
-    dequantizes to ``kv_decode``'s values."""
+# (JAX kernel, the port's plain version) of each (kernel, layout)
+KERNELS = {("ragged", "pool"): (jra.ragged_paged_attention,
+                                tra.ragged_paged_reference),
+           ("ragged", "slots"): (jra.ragged_attention,
+                                 tra.ragged_masked_reference),
+           ("verify", "pool"): (jda.paged_block_verify_attention,
+                                tda.paged_block_verify_reference),
+           ("verify", "slots"): (jda.paged_verify_attention,
+                                 tda.masked_verify_reference)}
+
+
+def _case(Q, Dh, seed, layout, cache, kernel, with_jax):
+    """(JAX's f32 o or, without ``with_jax``, None; the port's plain o;
+    the emulated body's o; q_lens), numpy, one wave through the pool (K1
+    or K7) or its slot rows (K8 or K6) of ``kernel`` ("ragged" or
+    "verify"), over the f32 cache or (``cache`` "int8") its
+    ``kv_encode``, which the body dequantizes to ``kv_decode``'s
+    values."""
     q, pk, pv, lens, ql, tab = _wave(Q, Dh, seed)
     B = len(lens)
 
@@ -141,32 +165,41 @@ def _case(Q, Dh, seed, layout, cache):
         if layout == "slots":
             kv, sc = tuple(map(rows, kv)), tuple(map(rows, sc))
     idx = (lens, ql, tab) if layout == "pool" else (lens, ql)
-    jax_fn = (jra.ragged_paged_attention if layout == "pool"
-              else jra.ragged_attention)
-    want = jax_fn(*(jnp.asarray(x.numpy()) for x in (q, *kv, *idx)),
-                  **dict(zip(("k_scale", "v_scale"),
-                             (jnp.asarray(x.numpy()) for x in sc))),
-                  interpret=True)
-    if layout == "pool":
-        plain = tra.ragged_paged_reference(q, *kv, *idx, *sc)
-    else:
-        plain = tra.ragged_masked_reference(q, *kv, *idx, *sc)
+    jax_fn, plain_fn = KERNELS[kernel, layout]
+    want = None
+    if with_jax:
+        want = jax_fn(*(jnp.asarray(x.numpy()) for x in (q, *kv, *idx)),
+                      **dict(zip(("k_scale", "v_scale"),
+                                 (jnp.asarray(x.numpy()) for x in sc))),
+                      interpret=True)
+        assert want.dtype == jnp.float32
+        want = np.asarray(want)
+    plain = plain_fn(q, *kv, *idx, *sc)
     if cache == "int8":
         pk, pv = kv_decode(k8, ks), kv_decode(v8, vs)
     emu = _emulate(q, rows(pk), rows(pv), lens, ql)
-    assert want.dtype == jnp.float32 and emu.dtype == torch.float32
-    return np.asarray(want), plain.numpy(), emu.numpy()
+    assert emu.dtype == torch.float32
+    return want, plain.numpy(), emu.numpy(), ql.numpy()
 
 
-# (Dh, Q, layout, cache): f32 K1 (the f32 pool) keeps its ids
+# (Dh, Q, layout, cache, kernel): f32 K1 (the f32 pool) keeps its ids
 # "Dh-Q", the slot rows (K8) and the int8 caches (K1-int8, and the same
-# arithmetic over slot rows) add theirs
-CASES = [pytest.param(Dh, Q, layout, cache,
+# arithmetic over slot rows) add theirs, and the verify kernels (K7 over
+# the pool, K6 over slot rows, and their int8 twins) "-verify"
+CASES = [pytest.param(Dh, Q, layout, cache, kernel,
                       id=f"{Dh}-{Q}" + ("" if (layout, cache) == ("pool",
                                                                   "f32")
-                                        else f"-{layout}-{cache}"))
+                                        and kernel == "ragged"
+                                        else f"-{layout}-{cache}")
+                      + ("-verify" if kernel == "verify" else ""))
+         for kernel, qs in (("ragged", (1, 8, 16)), ("verify", (2, 5, 8, 16)))
          for layout in ("pool", "slots") for cache in ("f32", "int8")
-         for Dh in (32, 64, 128) for Q in (1, 8, 16)]
+         for Dh in (32, 64, 128) for Q in qs]
+
+
+def _live(x, q_lens):
+    """The rows of ``x`` [B, Q, ...] below each slot's q_len."""
+    return np.concatenate([x[b, :n] for b, n in enumerate(q_lens)])
 
 
 def _ratio(want, got):
@@ -174,23 +207,31 @@ def _ratio(want, got):
     return float((np.abs(got - want) / (ATOL + RTOL * np.abs(want))).max())
 
 
-@pytest.mark.parametrize("Dh,Q,layout,cache", CASES)
-def test_f32_split_arithmetic_holds_the_jax_kernel(Q, Dh, layout, cache):
+@pytest.mark.parametrize("Dh,Q,layout,cache,kernel", CASES)
+def test_f32_split_arithmetic_holds_the_jax_kernel(Q, Dh, layout, cache,
+                                                   kernel):
     """The split body's f32 arithmetic against JAX's Pallas K1 (the pool)
-    or K8 (slot rows) in f32, over an f32 cache or its int8 encoding
-    (interpret mode): within 1e-5 + 1e-5 |want|, the length-0 slot
-    exactly zero on both."""
-    want, _, emu = _case(Q, Dh, Q + Dh, layout, cache)
-    assert _ratio(want, emu) <= 1.0
+    or K8 (slot rows), or its K7 / K6 on their live rows, in f32, over an
+    f32 cache or its int8 encoding (interpret mode): within 1e-5 + 1e-5
+    |want|, the length-0 slot exactly zero on both."""
+    want, _, emu, q_lens = _case(Q, Dh, Q + Dh, layout, cache, kernel,
+                                 with_jax=True)
+    if kernel == "verify":
+        assert _ratio(_live(want, q_lens), _live(emu, q_lens)) <= 1.0
+    else:
+        assert _ratio(want, emu) <= 1.0
     assert (want[6] == 0).all() and (emu[6] == 0).all()
 
 
-@pytest.mark.parametrize("Dh,Q,layout,cache", CASES)
+@pytest.mark.parametrize("Dh,Q,layout,cache,kernel", CASES)
 def test_f32_split_arithmetic_holds_the_plain_version(Q, Dh, layout,
-                                                      cache):
+                                                      cache, kernel):
     """The same arithmetic against ``ragged_paged_reference`` (the pool)
-    or ``ragged_masked_reference`` (slot rows), which the kernels are
-    held to on the card, within the same tolerance."""
-    _, plain, emu = _case(Q, Dh, 2 * Q + Dh, layout, cache)
+    or ``ragged_masked_reference`` (slot rows), or the verify kernels'
+    ``paged_block_verify_reference`` / ``masked_verify_reference``,
+    which the kernels are held to on the card, within the same
+    tolerance on every row, dead rows and the inert slot's included."""
+    _, plain, emu, _ = _case(Q, Dh, 2 * Q + Dh, layout, cache, kernel,
+                             with_jax=False)
     assert _ratio(plain, emu) <= 1.0
     assert (plain[6] == 0).all()
