@@ -429,10 +429,10 @@ def tf32_method(dtype):
 # over SlotRows); last the f32 split kernel of the narrow waves, which
 # runs on the CUDA cores, once for f32 K1 (TableRows), once for f32 K8
 # (SlotRows), once each for f32-q K1-int8 and K8-int8 (its own library),
-# once for f32 K6/K7 (VerifyLim, decode_attention) and once each for
-# f32-q K4-int8/K5-int8 (DecodeLim) and K6-int8/K7-int8 (VerifyLim,
-# decode_attention_int8): its SASS must show FFMA and no HMMA or HGMMA
-# (``FFMA_KERNELS``)
+# once each for f32 K4/K5 (DecodeLim) and K6/K7 (VerifyLim,
+# decode_attention) and once each for f32-q K4-int8/K5-int8 (DecodeLim)
+# and K6-int8/K7-int8 (VerifyLim, decode_attention_int8): its SASS must
+# show FFMA and no HMMA or HGMMA (``FFMA_KERNELS``)
 TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
                "hetu_flash_fwd_smem", (), ""),
               ("ragged_paged", "ragged_tf32_kernel",
@@ -475,16 +475,13 @@ TC_KERNELS = (("flash_fwd", "flash_fwd_f32_kernel",
               ("ragged_paged_int8", "split_kv_f32_kernel",
                "hetu_ragged_f32_smem", (), r"ILi\d+Ea.*SlotRows"),
               ("decode_attention", "split_kv_f32_kernel",
+               "hetu_decode_f32_smem", (), "DecodeLim"),
+              ("decode_attention", "split_kv_f32_kernel",
                "hetu_decode_f32_smem", (), "VerifyLim"),
               ("decode_attention_int8", "split_kv_f32_kernel",
                "hetu_decode_f32_smem", (), "DecodeLim"),
               ("decode_attention_int8", "split_kv_f32_kernel",
                "hetu_decode_f32_smem", (), "VerifyLim"))
-# the one-block-per-slot body's instances (decode_body.cuh): f32 K4/K5
-# alone, decode_kernel<D, layout> in decode_attention, no other library
-# and no other form (no q-block width, no int8 cache)
-DECODE_BODY = re.compile(
-    r"decode_kernelILi(\d+)ENS_\d+(SlotRows|TableRows)EE")
 # the kernels of TC_KERNELS that run on the CUDA cores, by symbol
 FFMA_KERNELS = ("split_kv_f32_kernel",)
 # the kernels that must show TF32 HMMA: the f32 flash forward and
@@ -557,7 +554,7 @@ def tc_report(_build, paths):
     int8 twins and f32 K3's two on TF32, bf16 K2 and K2-carry, bf16 K3's
     two, the wide and split ragged kernels of K1/K8 and of their int8
     twins, the split kernel of K4-K7 and of their int8 twins) and of the
-    f32 split kernel of f32 K1, f32 K8, f32 K6/K7 and f32-q K1-int8,
+    f32 split kernel of f32 K1, f32 K8, f32 K4-K7 and f32-q K1-int8,
     K8-int8 and K4-int8 to K7-int8 on the CUDA cores: registers and
     spills (ptxas, from this process's build), dynamic shared memory,
     and the HMMA (TF32
@@ -567,7 +564,7 @@ def tc_report(_build, paths):
     instance has no TMA load, when a CUDA-core instance
     (``FFMA_KERNELS``) has a tensor-core instruction or no FFMA, when it
     spills, or when a row of ``TC_KERNELS`` has no instance in the
-    SASS; then ``decode_body_report`` over the same SASS."""
+    SASS; then ``no_decode_body`` over every library's SASS."""
     sass = {}
     for lib_name, sym, smem_fn, extra, kind in TC_KERNELS:
         if lib_name not in sass:
@@ -622,33 +619,22 @@ def tc_report(_build, paths):
     for lib_name in paths:
         if lib_name not in sass:
             sass[lib_name] = sass_mma_counts(paths[lib_name])
-    decode_body_report(sass)
+    no_decode_body(sass)
 
 
-def decode_body_report(sass):
-    """The instances of the one-block-per-slot body (``decode_kernel``,
-    decode_body.cuh) in the SASS of every library (``sass``: library ->
-    ``sass_mma_counts``): one line listing them; fails unless they are
-    f32 K4/K5 alone, ``DECODE_BODY`` in ``decode_attention`` at D 32, 64
-    and 128 over both layouts (no q-block width, no int8 cache, no other
-    library)."""
+def no_decode_body(sass):
+    """Every decode and verify kernel runs a split-K body: fails if the
+    SASS of any library (``sass``: library -> ``sass_mma_counts``) holds
+    an instance of the retired one-block-per-slot body,
+    ``decode_kernel``."""
     if any(v is None for v in sass.values()):
-        log("  decode_body.cuh instances: no cuobjdump")
+        log("  decode_kernel instances: no cuobjdump")
         return
-    found = sorted((lib, n) for lib, names in sass.items() for n in names
-                   if "decode_kernel" in n)
-    shown = []
-    for lib, name in found:
-        m = DECODE_BODY.search(name)
-        if lib != "decode_attention" or not m:
-            fail(f"{lib}: decode_kernel instance {name} is not f32 K4/K5's")
-        shown.append(f"<D {m.group(1)}, {m.group(2)}>")
-    want = {f"<D {d}, {r}>" for d in (32, 64, 128)
-            for r in ("SlotRows", "TableRows")}
-    if set(shown) != want or len(shown) != len(want):
-        fail(f"decode_kernel instances {shown}, not {sorted(want)}")
-    log(f"  decode_body.cuh instances (f32 K4/K5 only, in "
-        f"decode_attention): decode_kernel{', '.join(shown)}")
+    found = sorted(f"{lib}: {n}" for lib, names in sass.items()
+                   for n in names if "decode_kernel" in n)
+    if found:
+        fail(f"decode_kernel instances in the SASS: {found}")
+    log(f"  decode_kernel instances: none in the {len(sass)} libraries")
 
 
 def tma_map_us(_build, n=1000):
@@ -678,29 +664,36 @@ def tma_map_us(_build, n=1000):
 # short ones, a length-0 slot and a single position
 H, DH, BS, T_WIDTH = 12, 64, 16, 64
 LENGTHS = np.array([1024, 600, 37, 0, 1, 300, 512, 129], np.int32)
+# the 8 slots of a decode wave at short lengths, each within one
+# 128-position split (the split body's fixed cost and its merge's
+# launch weigh most there), slot 3 again of length 0
+SHORT_LENGTHS = np.array([127, 64, 37, 0, 1, 100, 128, 16], np.int32)
 
 
-def pool_case(torch, dtype, seed, Dh=DH):
-    """The 8 slots of ``LENGTHS`` in a permuted block pool [N, 16, 12,
-    Dh], slots 1 and 6 sharing their first 8 blocks (a 128-position
-    prefix); dead table entries at scratch block 0.  Returns the pools,
-    the host tables and the count of distinct pool rows some slot's
-    length reaches (each read once: a shared row once)."""
-    B = len(LENGTHS)
+def pool_case(torch, dtype, seed, Dh=DH, lengths=LENGTHS):
+    """The 8 slots of ``lengths`` in a permuted block pool [N, 16, 12,
+    Dh], slots 1 and 6 sharing their first blocks, up to 8 (a prefix of
+    up to 128 positions); dead table entries at scratch block 0.
+    Returns the pools, the host tables and the count of distinct pool
+    rows some slot's length reaches (each read once: a shared row
+    once)."""
+    B = len(lengths)
     rng = np.random.default_rng(seed)
-    n_blocks = 1 + int(sum(-(-int(n) // BS) for n in LENGTHS))
+    need = [-(-int(n) // BS) for n in lengths]
+    n_blocks = 1 + sum(need)
     free = list(rng.permutation(np.arange(1, n_blocks)))
     tables = np.zeros((B, T_WIDTH), np.int32)
     for b in range(B):
-        for j in range(-(-int(LENGTHS[b]) // BS)):
+        for j in range(need[b]):
             tables[b, j] = free.pop()
-    tables[6, :8] = tables[1, :8]              # a shared prefix
+    shared = min(8, need[1], need[6])
+    tables[6, :shared] = tables[1, :shared]    # a shared prefix
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     pool_k, pool_v = (torch.randn((n_blocks, BS, H, Dh), generator=g,
                                   device="cuda").to(dt) for _ in range(2))
     rows = {(int(tables[b, p // BS]), p % BS) for b in range(B)
-            for p in range(int(LENGTHS[b]))}
+            for p in range(int(lengths[b]))}
     return pool_k, pool_v, tables, len(rows)
 
 
@@ -961,19 +954,23 @@ def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
     return r
 
 
-def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
-    """The 8 slots of ``LENGTHS`` through the tables of the pool (K5, or
-    with ``verify`` K7), else over slot rows (K4, or K6): one query per
-    slot, or with ``verify`` a Q-5 verify block of q_lens
-    ``VERIFY_QLENS`` (dead rows included in the comparison); with
-    ``int8`` the int8 twin over the f32 K/V's encoding, q of ``dtype``.
+def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False,
+                 lengths=None):
+    """The 8 slots of ``LENGTHS`` (or ``lengths``, a decode wave's:
+    ``SHORT_LENGTHS``) through the tables of the pool (K5, or with
+    ``verify`` K7), else over slot rows (K4, or K6): one query per slot,
+    or with ``verify`` a Q-5 verify block of q_lens ``VERIFY_QLENS``
+    (dead rows included in the comparison); with ``int8`` the int8 twin
+    over the f32 K/V's encoding, q of ``dtype``.
     bf16 K4-K7 over a bf16 cache add ``ragged_rounding_bound`` to TOL
     (they round P as bf16 K1/K8 do); every kernel is also timed back to
     back and on the device.  Yardstick: SDPA with a per-query length
     mask over the pre-gathered (dequantized) view (the gather excluded)
     or the slot rows."""
     from hetu_tpu_torch.kernels import decode_attention as da
-    B = len(LENGTHS)
+    short = lengths is not None
+    L = lengths if short else LENGTHS
+    B = len(L)
     q_lens = VERIFY_QLENS if verify else np.ones(B, np.int32)
     Q = int(q_lens.max())
     seed += 3 if verify else 0
@@ -982,20 +979,20 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
     q = torch.randn((B, Q, H, DH), generator=g, device="cuda").to(dt)
     if not verify:
         q = q[:, 0]
-    lens = torch.from_numpy(LENGTHS).cuda()
+    lens = torch.from_numpy(L).cuda()
     extra = (torch.from_numpy(q_lens).cuda(),) if verify else ()
     es = q.element_size()
     kv_dtype = "float32" if int8 else dtype
     if paged:
         pool_k, pool_v, tables, n_rows = pool_case(torch, kv_dtype,
-                                                   seed + 10)
+                                                   seed + 10, lengths=L)
         (pool_k, pool_v), sc, sc_plain, dense, row_bytes = kv_operands(
             torch, pool_k, pool_v, dtype, int8)
         tab = torch.from_numpy(tables).cuda()
         args = (q, pool_k, pool_v, lens) + extra + (tab,)
         kd, vd = (x[tab.long()].reshape(B, T_WIDTH * BS, H, DH)
                   for x in dense)
-        n_tab = int(sum(-(-int(n) // BS) for n in LENGTHS))
+        n_tab = int(sum(-(-int(n) // BS) for n in L))
         kv_bytes = n_rows * H * row_bytes + 4 * n_tab
         label, run, plain = (
             ("K7 paged_block_verify_attention",
@@ -1005,7 +1002,7 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
              da.paged_block_decode_attention,
              da.paged_block_decode_reference))
     else:
-        n_rows = int(LENGTHS.sum())
+        n_rows = int(L.sum())
         k, v = slot_rows_case(torch, kv_dtype, seed + 11)
         (k, v), sc, sc_plain, (kd, vd), row_bytes = kv_operands(
             torch, k, v, dtype, int8)
@@ -1018,15 +1015,17 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
              da.masked_decode_reference))
     qd = (q if verify else q[:, None]).transpose(1, 2)
     kt, vt = kd.transpose(1, 2), vd.transpose(1, 2)
-    mask = length_mask(torch, LENGTHS, q_lens, Q, kd.shape[1])
+    mask = length_mask(torch, L, q_lens, Q, kd.shape[1])
     # q of the slots with a length (a length-0 slot outputs zeros
     # unread), o in full, the K/V rows up to each slot's length once (a
     # shared pool row once, plus the table entries of those blocks),
     # lengths and the verify block's q_lens
-    nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
-              + kv_bytes + LENGTHS.nbytes + (q_lens.nbytes if verify else 0))
+    nbytes = (int((L > 0).sum()) * Q * H * DH * es + q.numel() * es
+              + kv_bytes + L.nbytes + (q_lens.nbytes if verify else 0))
     if int8:
         label = label.replace(" ", "-int8 ", 1)
+    if short:
+        label += " short"
     from hetu_tpu_torch.kernels import ragged_attention as ra
 
     def rounding():
@@ -1041,7 +1040,7 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False):
         torch, label, dtype, lambda: run(*args, **sc),
         lambda: plain(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kt, vt, attn_mask=mask),
-        nbytes, ragged_flops(LENGTHS, q_lens, Q)
+        nbytes, ragged_flops(L, q_lens, Q)
         + (2 * n_rows * H * DH if int8 else 0),
         rounding=None if int8 else rounding, b2b=True)
 
@@ -1094,79 +1093,92 @@ def off16(torch, t, nbytes=8):
     return out
 
 
-def check_decode_int8_equals_ragged_int8(torch, seed):
-    """K4-int8 and K5-int8 on their split bodies, q f32 and bf16, head dim
-    32, 64 and 128: the 8 slots of ``LENGTHS`` in an int8 pool (the f32
-    pool of ``pool_case`` encoded on the card) and its slot rows gathered
-    through the tables.  K5-int8 (``paged_block_decode_attention``)
-    equals K1-int8 (``ragged_paged_attention``) on phase 2's decode wave
-    (Q 1) over the pool, and K4-int8 (``paged_decode_attention``) equals
-    K8-int8 (``ragged_attention``) over the slot rows, bit for bit: one
-    split body, row limits that agree at q_len 1 (DecodeLim is RaggedLim
-    there), one split order.  Each decode call counts one launch under
-    ``_int8``; a payload 8 bytes off a 16-byte boundary is refused with
-    nothing launched."""
+def check_decode_equals_ragged(torch, seed):
+    """K4/K5 on their split bodies wherever they take f32 q or an int8
+    cache, head dim 32, 64 and 128: f32 K4/K5 (f32 q over an f32 cache)
+    and K4-int8/K5-int8 (f32 and bf16 q over an int8 cache), over the 8
+    slots of ``LENGTHS`` in the f32 pool of ``pool_case`` (or its
+    encoding on the card) and its slot rows gathered through the tables.
+    K5 (``paged_block_decode_attention``) equals K1
+    (``ragged_paged_attention``) on phase 2's decode wave (Q 1) over the
+    pool, and K4 (``paged_decode_attention``) equals K8
+    (``ragged_attention``) over the slot rows, bit for bit, and so do
+    their int8 twins: one split body, row limits that agree at q_len 1
+    (DecodeLim is RaggedLim there), one split order.  Each decode call
+    counts one launch under its name (``_int8``); a cache or payload 8
+    bytes off a 16-byte boundary is refused with nothing launched."""
     from hetu_tpu_torch.kernels import decode_attention as da
     from hetu_tpu_torch.kernels import launch_counts, reset_launches
     from hetu_tpu_torch.kernels import ragged_attention as ra
     Q, q_lens = NARROW_WAVES["decode"]
     B, span = len(LENGTHS), T_WIDTH * BS
     lens, ql = (torch.from_numpy(x).cuda() for x in (LENGTHS, q_lens))
-    for dtype in ("float32", "bfloat16"):
+    for dtype, cache in (("float32", "float"), ("float32", "int8"),
+                         ("bfloat16", "int8")):
+        what = "-int8" if cache == "int8" else ""
+        sfx = what.replace("-", "_")
         for Dh in (32, 64, 128):
             pool_k, pool_v, tables, _ = pool_case(torch, "float32",
                                                   seed + 15 + Dh, Dh=Dh)
             tab = torch.from_numpy(tables).cuda()
-            (kq, ks), (vq, vs) = int8_kv(torch, pool_k, pool_v)
+            pools, sc = (pool_k, pool_v), {}
+            if cache == "int8":
+                (kq, ks), (vq, vs) = int8_kv(torch, pool_k, pool_v)
+                pools, sc = (kq, vq), dict(k_scale=ks, v_scale=vs)
 
             def rows(x):
                 """The slot rows of pool ``x`` (or of its scale plane)."""
                 return x[tab.long()].reshape(B, span, *x.shape[2:]) \
                     .contiguous()
+            slots = tuple(rows(x) for x in pools)
             g = torch.Generator(device="cuda").manual_seed(seed + 16 + Dh)
             q = torch.randn((B, Q, H, Dh), generator=g, device="cuda").to(
                 getattr(torch, dtype))
-            sc = dict(k_scale=ks, v_scale=vs)
             rsc = {n: rows(x) for n, x in sc.items()}
             reset_launches()
-            k5 = da.paged_block_decode_attention(q[:, 0], kq, vq, lens, tab,
+            k5 = da.paged_block_decode_attention(q[:, 0], *pools, lens, tab,
                                                  **sc)
-            k4 = da.paged_decode_attention(q[:, 0], rows(kq), rows(vq),
-                                           lens, **rsc)
+            k4 = da.paged_decode_attention(q[:, 0], *slots, lens, **rsc)
             torch.cuda.synchronize()
             counts = {k: n for k, n in launch_counts().items() if n}
-            want = {"paged_block_decode_attention_int8": 1,
-                    "paged_decode_attention_int8": 1}
+            want = {f"paged_block_decode_attention{sfx}": 1,
+                    f"paged_decode_attention{sfx}": 1}
             if counts != want:
-                fail(f"{dtype} K4-int8/K5-int8 launches {counts}, not "
+                fail(f"{dtype} K4{what}/K5{what} launches {counts}, not "
                      f"{want}")
-            k1 = ra.ragged_paged_attention(q, kq, vq, lens, ql, tab, **sc)
-            k8 = ra.ragged_attention(q, rows(kq), rows(vq), lens, ql, **rsc)
+            k1 = ra.ragged_paged_attention(q, *pools, lens, ql, tab, **sc)
+            k8 = ra.ragged_attention(q, *slots, lens, ql, **rsc)
             torch.cuda.synchronize()
-            for got, ref, what in ((k5, k1[:, 0], "K5-int8 vs K1-int8"),
-                                   (k4, k8[:, 0], "K4-int8 vs K8-int8")):
+            for got, ref, pair in ((k5, k1[:, 0], f"K5{what} vs K1{what}"),
+                                   (k4, k8[:, 0], f"K4{what} vs K8{what}")):
                 if not torch.equal(got, ref):
                     diff = float((got.float() - ref.float()).abs().max())
-                    fail(f"{dtype} {what} at Dh {Dh} on the Q 1 decode "
+                    fail(f"{dtype} {pair} at Dh {Dh} on the Q 1 decode "
                          f"wave: max abs diff {diff}")
-            bad = off16(torch, kq)
             reset_launches()
-            try:
-                da.paged_block_decode_attention(q[:, 0], bad, vq, lens, tab,
-                                                **sc)
-            except ValueError as e:
-                if "16-byte" not in str(e):
-                    raise
-            else:
-                fail(f"{dtype} K5-int8 took a payload 8 bytes off a "
-                     f"16-byte boundary")
+            for label, call in (
+                    (f"K5{what}", lambda: da.paged_block_decode_attention(
+                        q[:, 0], off16(torch, pools[0]), pools[1], lens,
+                        tab, **sc)),
+                    (f"K4{what}", lambda: da.paged_decode_attention(
+                        q[:, 0], slots[0], off16(torch, slots[1]), lens,
+                        **rsc))):
+                try:
+                    call()
+                except ValueError as e:
+                    if "16-byte" not in str(e):
+                        raise
+                else:
+                    fail(f"{dtype} {label} took a cache 8 bytes off a "
+                         f"16-byte boundary")
             if any(launch_counts().values()):
-                fail(f"{dtype} K5-int8 launched on a refused payload")
-        log(f"  K5-int8 paged_block_decode_attention {dtype} == K1-int8 "
-            f"ragged_paged_attention, K4-int8 paged_decode_attention == "
-            f"K8-int8 ragged_attention, on the Q 1 decode wave over the "
-            f"same int8 pool / slot rows at Dh 32, 64 and 128, bit for "
-            f"bit; a misaligned payload refused")
+                fail(f"{dtype} K4{what}/K5{what} launched on a refused "
+                     f"cache")
+        log(f"  K5{what} paged_block_decode_attention {dtype} == "
+            f"K1{what} ragged_paged_attention, K4{what} "
+            f"paged_decode_attention == K8{what} ragged_attention, on the "
+            f"Q 1 decode wave over the same {cache} pool / slot rows at "
+            f"Dh 32, 64 and 128, bit for bit; a misaligned cache refused")
 
 
 def check_f32_verify_equals_ragged(torch, seed):
@@ -1524,21 +1536,24 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
 
 
 # kernel kinds of the profile, by name, first match wins.  K4-K7 in
-# bf16, their int8 twins in either q dtype and f32 K6/K7 (an int8 twin's
-# element type, signed char, makes it the twin in kind_of) are split and
-# merge kernels of their own row-limit types (DecodeLim<layout>,
-# VerifyLim<layout>), ahead of K1/K8's and their twins'; K1/K8 are the
+# either q dtype and their int8 twins (an int8 twin's element type,
+# signed char, makes it the twin in kind_of) are split and merge kernels
+# of their own row-limit types (DecodeLim<layout>, VerifyLim<layout>),
+# ahead of K1/K8's and their twins'; K1/K8 are the
 # f32 TF32 ragged kernel (f32 q, Q > 16; the CUDA-core ragged_kernel of a
 # tree before it), the f32 split kernel and its merge (f32 q, Q <= 16:
 # f32 K1 and K8, and f32-q K1-int8 and K8-int8, whose signed char makes
 # them the twins; the merge's template names the cache type and layout
 # too) and the bf16 wide, split and merge kernels (bf16 q, either
-# cache), told apart by their layout; f32 K4/K5 the one-block-per-slot
-# decode kernel, decode_kernel<D, layout>.  The decode_kernel rows after
-# it name the same body in a tree before this one, whose template also
+# cache), told apart by their layout.  The decode_kernel rows after
+# them name the retired one-block-per-slot body (decode_body.cuh) of an
+# older tree for ``kernel_times.py --trees``: decode_kernel<D, layout>
+# (f32 K4/K5, its last form), and before that a template that also
 # carried q's and the cache's types and the q-block width NQ (K4/K5 at
-# NQ 1, K6/K7 and f32-q K6-int8/K7-int8 otherwise), for
-# ``kernel_times.py --trees``
+# NQ 1, K6/K7 and f32-q K6-int8/K7-int8 otherwise).  They can go once no
+# parent tree that ``kernel_times.py --trees`` reads holds
+# decode_body.cuh (the parent of the commit that deleted it is the last
+# one)
 RAGGED = ("(ragged_kernel|ragged_tf32_kernel|ragged_wide_kernel|"
           "split_kv_kernel|split_kv_f32_kernel|split_merge_kernel)")
 KINDS = (("K4 paged_decode_attention",
@@ -2674,7 +2689,7 @@ def main(argv=None):
     check_k8_equals_k1(torch, args.seed, int8=True)
     check_k6_int8_equals_k8_int8(torch, args.seed)
     check_f32_verify_equals_ragged(torch, args.seed)
-    check_decode_int8_equals_ragged_int8(torch, args.seed)
+    check_decode_equals_ragged(torch, args.seed)
 
     # ---- phase 3 ---- #
     log("phase 3: offline generate_fast, GPT-2-small")
@@ -2785,10 +2800,8 @@ def main(argv=None):
     # its narrow waves on the split body; bf16 q's both in one source
     k1 = ("ragged_tf32.cuh", "ragged_paged_bf16.cu")
     k1n = ("split_kv_f32.cuh", "ragged_paged_bf16.cu")
-    # K4-K7 and their int8 twins: f32 K4/K5 on the one-block-per-slot
-    # body of decode_attention.cu, f32 K6/K7 and every f32-q int8 twin on
-    # the f32 split body; bf16 q all in one source
-    dec = ("decode_attention.cu", "decode_attention_bf16.cu")
+    # K4-K7 and their int8 twins: f32 q on the f32 split body, bf16 q
+    # all in one source
     split = ("split_kv_f32.cuh", "decode_attention_bf16.cu")
     r1 = "hetu_tpu/kernels/ragged_attention.py:184"
     r8 = "hetu_tpu/kernels/ragged_attention.py:133"
@@ -2800,9 +2813,9 @@ def main(argv=None):
          "spec paged-mixed"),
         ("K2", "flash_attention", ("flash_fwd.cu", "flash_fwd_bf16.cu"),
          "hetu_tpu/kernels/flash_attention.py:173", None),
-        ("K4", "paged_decode_attention", dec,
+        ("K4", "paged_decode_attention", split,
          "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split"),
-        ("K5", "paged_block_decode_attention", dec,
+        ("K5", "paged_block_decode_attention", split,
          "hetu_tpu/kernels/decode_attention.py:259", "paged-split"),
         ("K6", "paged_verify_attention", split,
          "hetu_tpu/kernels/decode_attention.py:478",

@@ -26,11 +26,12 @@ tensor (see ``_build``).
 - ``decode_attention.paged_decode_attention`` /
   ``decode_attention.paged_block_decode_attention``: one decode query
   per slot over the slot-contiguous cache / the block-table pool
-  (csrc/decode_attention.cu in f32; csrc/decode_attention_bf16.cu on
-  the tensor cores in bf16, split-K over positions and a merge, the
-  narrow body of K1/K8 with the query as its one row), the phase-split
-  decode waves, ``generate_fast``'s decode and every speculative draft
-  step.
+  (csrc/decode_attention.cu in f32, on the split-K CUDA-core body of
+  K1/K8's narrow waves, csrc/split_kv_f32.cuh;
+  csrc/decode_attention_bf16.cu on the tensor cores in bf16, split-K
+  over positions and a merge, the narrow body of K1/K8; the query as
+  its one row either way), the phase-split decode waves,
+  ``generate_fast``'s decode and every speculative draft step.
 - ``decode_attention.paged_verify_attention`` /
   ``decode_attention.paged_block_verify_attention``: the speculative
   verify q-block per slot over the same two layouts (the same source

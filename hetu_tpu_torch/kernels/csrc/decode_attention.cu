@@ -12,44 +12,47 @@
 // What bounds it on an H100: bytes.  A decode or verify wave reads each
 // slot's live K/V once, 8 len H D bytes, for 4 Q len H D flops.
 //
-// What the design does about it: K6 and K7 (a verify block of at most 16
-// rows) run split_kv_f32.cuh, the body of f32 K8's and K1's narrow waves,
-// with the row limits VerifyLim<Rows> (kv_rows.cuh; the merge's tag too,
-// so a profile names them): one block per (128-position split, head,
-// slot).  VerifyLim clips as RaggedLim does, so f32 K6 equals f32 K8 over
-// the same slot rows and q_lens, and K7 equals K1 over the same pool, bit
-// for bit.  K4 and K5 stay on the one-block-per-(slot, head) body of
-// decode_body.cuh.
-#include "decode_body.cuh"
+// What the design does about it: all four run split_kv_f32.cuh, the body
+// of f32 K8's and K1's narrow waves, with the row limits DecodeLim<Rows>
+// (K4/K5, one decode row a slot) or VerifyLim<Rows> (K6/K7, a verify
+// block of at most 16 rows), kv_rows.cuh, each the merge's tag too, so a
+// profile names them: one block per (128-position split, head, slot).
+// At Q 1 DecodeLim is RaggedLim, and VerifyLim always is, so f32 K4 and
+// K6 equal f32 K8 over the same slot rows, and K5 and K7 equal K1 over
+// the same pool, bit for bit.
 #include "split_kv_f32.cuh"
 
-// K4 and K5 take dtype 0 (float32; 1, bfloat16, is refused); K6 and K7
-// take no dtype, f32 only, every pointer 16-byte aligned and the
-// workspace ws of hetu_decode_f32_workspace floats.  Each returns
-// cudaGetLastError() after its launches (cudaErrorInvalidValue for an
-// unsupported dtype, Dh or Q).
+// No entry takes a dtype argument: f32 only, every pointer 16-byte
+// aligned and the workspace ws of hetu_decode_f32_workspace floats.  Each
+// returns cudaGetLastError() after its launches (cudaErrorInvalidValue
+// for an unsupported Dh or Q).
 
 // K4: q [B, H, Dh], caches [B, S_max, H, Dh].
 extern "C" int hetu_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, int B, int H, int Dh, int S_max, int dtype, void* stream) {
-  return hetu::dispatch(q, k, v, lengths, hetu::SlotRows{S_max}, out, B, H,
-                        Dh, dtype, stream);
+    void* out, void* ws, int B, int H, int Dh, int S_max, void* stream) {
+  const hetu::DecodeLim<hetu::SlotRows> lim{static_cast<const int*>(lengths)};
+  return hetu::tc::dispatch_split_f32<float>(
+      q, k, nullptr, v, nullptr, lengths, hetu::SlotRows{S_max}, lim, out,
+      ws, B, 1, H, Dh, S_max, stream);
 }
 
 // K5: q [B, H, Dh], pools [N_blocks, bs, H, Dh], tables [B, T_width].
 extern "C" int hetu_paged_block_decode_attention(
     const void* q, const void* pool_k, const void* pool_v,
-    const void* lengths, const void* tables, void* out, int B, int H,
-    int Dh, int bs, int T_width, int dtype, void* stream) {
+    const void* lengths, const void* tables, void* out, void* ws, int B,
+    int H, int Dh, int bs, int T_width, void* stream) {
   const hetu::TableRows rows{static_cast<const int*>(tables), T_width, bs};
-  return hetu::dispatch(q, pool_k, pool_v, lengths, rows, out, B, H, Dh,
-                        dtype, stream);
+  const hetu::DecodeLim<hetu::TableRows> lim{
+      static_cast<const int*>(lengths)};
+  return hetu::tc::dispatch_split_f32<float>(
+      q, pool_k, nullptr, pool_v, nullptr, lengths, rows, lim, out, ws, B,
+      1, H, Dh, T_width * bs, stream);
 }
 
-// Floats of the f32 workspace of a K6 or K7 call (Q <= 16; 0 past it):
-// the split partials of every (slot, head, split, row); span is the
-// cache's positions per slot (S_max, or T_width * bs).
+// Floats of the f32 workspace of a call (Q <= 16; 0 past it; Q 1 for
+// K4/K5): the split partials of every (slot, head, split, row); span is
+// the cache's positions per slot (S_max, or T_width * bs).
 extern "C" long long hetu_decode_f32_workspace(int B, int Q, int H, int Dh,
                                                int span) {
   return hetu::tc::split_f32_workspace(B, Q, H, Dh, span);
@@ -82,8 +85,8 @@ extern "C" int hetu_paged_block_verify_attention(
       Q, H, Dh, T_width * bs, stream);
 }
 
-// Dynamic shared memory of one K6/K7 split block at head dim Dh, for the
-// build report.
+// Dynamic shared memory of one split block at head dim Dh, for the build
+// report.
 extern "C" int hetu_decode_f32_smem(int Dh) {
   return hetu::tc::split_f32_smem_of<float>(Dh);
 }

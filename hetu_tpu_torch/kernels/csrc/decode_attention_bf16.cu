@@ -3,10 +3,9 @@
 // slot-contiguous cache (K4, K6) and the block-table paged pool (K5,
 // K7), bf16 q over a bf16 cache, and the int8 twins of all four (K4-int8
 // to K7-int8), bf16 q over an int8 cache with one f32 scale per
-// (position, head).  f32 q runs on the CUDA cores: f32-q K4-int8 and
-// K5-int8 on split_kv_f32.cuh (decode_attention_int8.cu), f32 K4-K7 and
-// f32-q K6-int8/K7-int8 on decode_body.cuh (decode_attention.cu,
-// decode_attention_int8.cu).
+// (position, head).  f32 q runs all eight on the CUDA cores, on
+// split_kv_f32.cuh (decode_attention.cu for an f32 cache,
+// decode_attention_int8.cu for an int8 one).
 //
 // Replaces: hetu_tpu/kernels/decode_attention.py::paged_decode_attention
 // and ::paged_block_decode_attention over bf16 caches (Pallas bodies

@@ -1,8 +1,8 @@
 // Where position p of slot b lives, as a row index into a [rows, H, Dh]
-// array: the two KV layouts of the serving engine.  The ragged and
-// decode kernels template on these, so one body serves both: the
-// CUDA-core bodies (attn_common.cuh) and the split-K and tensor-core
-// ones (split_kv_bf16.cuh, split_kv_f32.cuh, ragged_paged_bf16.cu).
+// array: the two KV layouts of the serving engine.  The ragged, decode
+// and verify kernels template on these, so one body serves both: the
+// split-K bodies (split_kv_bf16.cuh, split_kv_f32.cuh) and the wide
+// tensor-core ones (ragged_tf32.cuh, ragged_paged_bf16.cu).
 // RaggedLim, VerifyLim and DecodeLim are the row limits of a ragged
 // wave (K1/K8), a verify block (K6/K7) and a decode query (K4/K5) for
 // the bodies that take one.

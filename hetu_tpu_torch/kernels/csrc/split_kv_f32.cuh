@@ -4,23 +4,22 @@
 // K8 (the C entries hetu_ragged_paged_attention_narrow and
 // hetu_ragged_attention_narrow of ragged_paged.cu) and of f32-q K1-int8
 // and K8-int8 (hetu_ragged_paged_attention_int8_narrow and
-// hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu); of f32 K6
-// and K7, a verify block of at most 16 rows
-// (hetu_paged_verify_attention and hetu_paged_block_verify_attention of
+// hetu_ragged_attention_int8_narrow of ragged_paged_int8.cu); of f32 K4
+// to K7, one decode row a slot or a verify block of at most 16 rows
+// (hetu_paged_decode_attention, hetu_paged_block_decode_attention,
+// hetu_paged_verify_attention and hetu_paged_block_verify_attention of
 // decode_attention.cu); and of f32-q K4-int8 to K7-int8
-// (decode_attention_int8.cu: one decode row a slot, or a verify block).
-// K1/K8's wide waves (Q > 16) run the TF32 tensor-core body of
-// ragged_tf32.cuh; f32 K4/K5 the one-block-per-slot body of
-// decode_body.cuh.
+// (decode_attention_int8.cu, the same).  K1/K8's wide waves (Q > 16) run
+// the TF32 tensor-core body of ragged_tf32.cuh.
 //
 // Replaces: hetu_tpu/kernels/ragged_attention.py::ragged_paged_attention
 // and ::ragged_attention at Q <= 16, f32 q (Pallas body _ragged_kernel,
-// over an int8 cache with quant);
-// hetu_tpu/kernels/decode_attention.py::paged_verify_attention and
+// over an int8 cache with quant); and
+// hetu_tpu/kernels/decode_attention.py::paged_decode_attention,
+// ::paged_block_decode_attention, ::paged_verify_attention and
 // ::paged_block_verify_attention, f32 q over an f32 or an int8 cache
-// (_verify_kernel[_int8], _block_verify_kernel[_int8]); and
-// ::paged_decode_attention and ::paged_block_decode_attention over an
-// int8 cache, f32 q (_decode_kernel_int8, _block_decode_kernel_int8).
+// (_decode_kernel[_int8], _block_decode_kernel[_int8],
+// _verify_kernel[_int8], _block_verify_kernel[_int8]).
 // Row jq of slot b sees the positions up to lim(b, jq) (RaggedLim,
 // kv_rows.cuh: rows past q_len see the whole slot; VerifyLim, the same
 // clip, for a verify block; DecodeLim for a decode row, len - 1, which

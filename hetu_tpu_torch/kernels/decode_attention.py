@@ -31,17 +31,15 @@ launch a kernel, and nothing falls back from one to the other:
   bounds the difference, as for the bf16 K1/K8.  Over an int8 cache the
   payload is widened to bf16 exactly and P is not rounded, so they hold
   one bf16 ulp of the Pallas int8 bodies, which compute in f32.
-- f32 q, verify over an f32 or an int8 cache (K6, K7, K6-int8,
-  K7-int8) and decode over an int8 cache (K4-int8, K5-int8): the
-  split-K CUDA-core body of f32 K8/K1's narrow waves
+- f32 q, all four over an f32 or an int8 cache (K4-K7, K4-int8 to
+  K7-int8): the split-K CUDA-core body of f32 K8/K1's narrow waves
   (``csrc/split_kv_f32.cuh``: ``decode_attention.cu`` for an f32
   cache, ``decode_attention_int8.cu`` for an int8 one, an int8 payload
   dequantized as it is read); 16-byte aligned q, caches and scales or a
-  raise.  It clips a verify row as K1/K8 do, so f32 K6 equals f32 K8
-  over the same slot rows, and K7 equals K1 over the same pool, bit for
-  bit.
-- f32 q over an f32 cache, decode (K4, K5): one block per (slot, head)
-  on the CUDA cores (``decode_body.cuh`` in ``decode_attention.cu``).
+  raise.  It limits a decode row and clips a verify row as K1/K8 do, so
+  f32 K4 and K6 equal f32 K8 over the same slot rows, and K5 and K7
+  equal K1 over the same pool, bit for bit (a decode call as a wave of
+  one row, q_len 1).
 
 The verify kernels take q-blocks of at most 16 rows; the wrappers serve
 any Q on CUDA by cutting a longer block into groups of 16 rows, one
@@ -110,10 +108,9 @@ def paged_decode_attention(q, k, v, lengths, *, k_scale=None, v_scale=None):
     lengths: [B] int32, the slot's filled count including the position
     just written.  Returns o [B, H, Dh] in q's dtype.  CUDA tensors
     launch the kernel (f32 or bf16 q; caches of q's dtype, or int8 with
-    their scales; head dim 32/64/128, contiguous, int32 lengths; bf16 q,
-    and f32 q over an int8 cache, the split-K kernels, on 16-byte aligned
-    q, caches and scales); CPU tensors run
-    :func:`masked_decode_reference`."""
+    their scales; head dim 32/64/128, contiguous, int32 lengths; the
+    split-K kernels in every dtype, on 16-byte aligned q, caches and
+    scales); CPU tensors run :func:`masked_decode_reference`."""
     quant = _check("paged_decode_attention", q, k, v, lengths,
                    {"lengths": lengths}, k_scale, v_scale)
     if k.shape[0] != q.shape[0]:

@@ -225,8 +225,8 @@ _BF16_LIBRARIES = {
 # f32 q's calls at Q <= NARROW_Q that run the split-K CUDA-core body
 # (split_kv_f32.cuh): K1/K8 and their int8 twins, K6/K7 and their int8
 # twins (the verify wrappers cut a longer block into 16-row groups), and
-# the decode twins K4-int8/K5-int8 (always Q 1).  (entry, over an int8
-# cache) -> (library, split entry, its workspace-size entry)
+# K4/K5 and their int8 twins (always Q 1).  (entry, over an int8 cache)
+# -> (library, split entry, its workspace-size entry)
 _F32_NARROW = {
     ("hetu_ragged_paged_attention", False): (
         "ragged_paged", "hetu_ragged_paged_attention_narrow",
@@ -252,6 +252,12 @@ _F32_NARROW = {
     ("hetu_paged_block_verify_attention", True): (
         "decode_attention_int8", "hetu_paged_block_verify_attention_int8",
         "hetu_decode_f32_workspace"),
+    ("hetu_paged_decode_attention", False): (
+        "decode_attention", "hetu_paged_decode_attention",
+        "hetu_decode_f32_workspace"),
+    ("hetu_paged_block_decode_attention", False): (
+        "decode_attention", "hetu_paged_block_decode_attention",
+        "hetu_decode_f32_workspace"),
     ("hetu_paged_decode_attention", True): (
         "decode_attention_int8", "hetu_paged_decode_attention_int8",
         "hetu_decode_f32_workspace"),
@@ -267,15 +273,12 @@ class Route(NamedTuple):
     kernel library ``library`` with ``argtypes``, after the
     workspace-size entry ``ws_entry`` (None: no workspace), passing
     ``tail`` after the shapes (the dtype code, for an entry that takes
-    one); ``aligned``: the entry's body copies 16-byte chunks, so q and
-    the caches (int8: their scales too) must start on 16-byte
-    boundaries; the call counts under ``name`` and, for K1/K8 and their
-    int8 twins, under ``regime`` too."""
+    one); the call counts under ``name`` and, for K1/K8 and their int8
+    twins, under ``regime`` too."""
     library: str
     entry: str
     ws_entry: Optional[str]
     tail: tuple
-    aligned: bool
     name: str
     regime: Optional[str]
     argtypes: tuple
@@ -292,14 +295,13 @@ def route(source, entry, name, q, kv, rest, ints):
     over a bf16 cache and ``entry`` + ``_int8_bf16`` over an int8 one,
     with the library's workspace (the f32 partials of the split-K body,
     Q <= NARROW_Q; none for K1/K8's wide regime) and no dtype.  f32 q at
-    Q <= NARROW_Q launches ``_F32_NARROW``'s library and entry, where the
-    call has one (K1/K8, K6/K7 and all the int8 twins: the split-K
-    CUDA-core body), the same way; otherwise ``source`` (``_int8`` for
-    an int8 cache) at ``entry`` (``_int8``) with the dtype code and no
-    workspace: K1/K8 and their int8 twins past it (the TF32 body, on
-    16-byte aligned data), and f32 K4/K5 (the one-block-per-slot
-    CUDA-core body).  The C entry takes ``(q, *kv, *rest, out,
-    [workspace], *ints, *tail, stream)``."""
+    Q <= NARROW_Q launches ``_F32_NARROW``'s library and entry (every
+    decode and verify call, and K1/K8 and their int8 twins: the split-K
+    CUDA-core body), the same way; past it, K1/K8 and their int8 twins
+    launch ``source`` (``_int8`` for an int8 cache) at ``entry``
+    (``_int8``) with the dtype code and no workspace (the TF32 body).
+    The C entry takes ``(q, *kv, *rest, out, [workspace], *ints, *tail,
+    stream)``."""
     quant = len(kv) == 4
     if quant:
         name = f"{name}_int8"
@@ -309,23 +311,19 @@ def route(source, entry, name, q, kv, rest, ints):
     if q.dtype == torch.bfloat16:
         library, ws_entry = _BF16_LIBRARIES[source]
         entry = f"{entry}_int8_bf16" if quant else f"{entry}_bf16"
-        tail, aligned = (), True
+        tail = ()
     elif narrow and (entry, quant) in _F32_NARROW:
         library, entry, ws_entry = _F32_NARROW[entry, quant]
-        tail, aligned = (), True
+        tail = ()
     else:
         library = f"{source}_int8" if quant else source
         entry = f"{entry}_int8" if quant else entry
         ws_entry, tail = None, (_DTYPES[q.dtype],)
-        # the TF32 body of K1/K8's wide waves copies 16-byte chunks; f32
-        # K4/K5's one-block-per-slot body reads single floats
-        aligned = regime is not None
     n_ptrs = 2 + len(kv) + len(rest) + (ws_entry is not None)
     argtypes = ((ctypes.c_void_p,) * n_ptrs
                 + (ctypes.c_int,) * (len(ints) + len(tail))
                 + (ctypes.c_void_p,))
-    return Route(library, entry, ws_entry, tail, aligned, name, regime,
-                 argtypes)
+    return Route(library, entry, ws_entry, tail, name, regime, argtypes)
 
 
 def _typed(lib, entry, argtypes, restype):
@@ -344,14 +342,14 @@ def _launch(source, entry, name, q, kv, rest, ints, span):
     ``source`` is ``ragged_paged`` (K1/K8) or ``decode_attention``
     (K4-K7; the decode wrappers pass q as [B, 1, H, Dh]); ``span`` is the
     cache's positions per slot, from which the library sizes the
-    workspace.  Raises ValueError on data a 16-byte body cannot take,
+    workspace.  Every body copies 16-byte chunks: q and the caches
+    (int8: their scales too) not on 16-byte boundaries raise ValueError,
     before anything is built or launched.  One call counts as one
     launch, though a split-K call runs two device kernels (the splits,
     then their merge)."""
     r = route(source, entry, name, q, kv, rest, ints)
-    if r.aligned:
-        _build.check_aligned((q, *kv), "q and the caches (int8: their "
-                             "scales too)")
+    _build.check_aligned((q, *kv), "q and the caches (int8: their scales "
+                         "too)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

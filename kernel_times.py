@@ -24,7 +24,9 @@ functions, so all meet the same shapes, checks and timing: K1 and K8
 and their int8 twins (K1-int8, K8-int8: phase 2's K/V encoded by
 ``kv_encode``) at their mixed waves (Q 256 / 1024) and at the decode
 (Q 1) and verify (Q 8) waves, K4-K7 and their int8 twins at phase 2's
-decode (Q 1) and verify (Q 5) waves, K2 at the serving and the training
+decode (Q 1) and verify (Q 5) waves, K4 and K5 also at a decode wave of
+short slots (``K4 short``, ``K5 short``: ``SHORT_LENGTHS``, each slot
+within one 128-position split), K2 at the serving and the training
 shape, K2-carry at the ring's block, K3's two kernels at the training
 shape.  Each result is held to its plain version as chip_smoke holds it
 (a tree that predates ``ragged_rounding_bound`` gets this checkout's
@@ -40,8 +42,9 @@ set on GPT-2-small (random weights from ``--seed``) through the engines
 of ``ENGINES``: in bf16 and in f32 the phase-split engines with
 ``spec=4`` on the slot rows (K6 and the draft's K4), on an int8 copy of
 them (K6-int8 and K4), on the pool (K7 and K4) and on an int8 pool
-(K7-int8 and K4); in bf16 the pool without spec (K5, whose only engine
-path this is); in bf16 and
+(K7-int8 and K4); the pool without spec in bf16 and in f32 (K5, whose
+only engine path this is) and the slot rows without spec in f32 (K4);
+in bf16 and
 in f32 the phase-split engines over an int8 cache without spec, on
 slot rows (K4-int8) and on the pool (K5-int8); in f32 the
 auto paged mixed engine (K1 on every wave), the contiguous mixed engine
@@ -105,8 +108,9 @@ def _bound_of(ra):
 # dtype, the kinds whose device ms the table prints).  The phase-split
 # spec 4 engines' verify waves, bf16 and f32, run K6 (slot rows), K6-int8
 # (int8 slot rows), K7 (the pool) or K7-int8 (an int8 pool) and their
-# drafts K4 (the draft's own cache is a float one); the pool without spec
-# runs K5 in its decode waves, and over an int8 cache, in bf16 and in
+# drafts K4 (the draft's own cache is a float one); without spec the
+# slot rows run K4 in their decode waves (f32) and the pool K5 (bf16 and
+# f32), and over an int8 cache, in bf16 and in
 # f32, the slot rows without spec run K4-int8 and the pool K5-int8 (and
 # K1-int8 for its chunk passes); the f32 paged mixed engine runs K1 on
 # every wave (narrow decode waves, wide prompt chunks), the f32
@@ -136,6 +140,10 @@ ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
             ("K7-int8 paged_block_verify_attention",
              "K4 paged_decode_attention")),
            ("paged-split-nospec", "paged-split", 0, None, "bfloat16",
+            ("K5 paged_block_decode_attention",)),
+           ("contiguous-split-nospec-f32", "contiguous-split", 0, None,
+            "float32", ("K4 paged_decode_attention",)),
+           ("paged-split-nospec-f32", "paged-split", 0, None, "float32",
             ("K5 paged_block_decode_attention",)),
            ("contiguous-split-int8-nospec", "contiguous-split", 0, "int8",
             "bfloat16", ("K4-int8 paged_decode_attention",)),
@@ -249,6 +257,10 @@ def worker(tree, seed, dtypes, engines_dir=None, train=False,
                 res.setdefault(f"{k}{'-int8' if int8 else ''}", {})[dt] = \
                     cs.check_decode(torch, F, dt, seed, paged,
                                     verify=verify, int8=int8)
+        for k, paged in (("K4", False), ("K5", True)):
+            if want(f"{k} short"):
+                res.setdefault(f"{k} short", {})[dt] = cs.check_decode(
+                    torch, F, dt, seed, paged, lengths=cs.SHORT_LENGTHS)
         if want("K2 serving"):
             res.setdefault("K2 serving", {})[dt] = cs.check_k2(torch, F, dt,
                                                                seed)

@@ -52,11 +52,11 @@ def _c_entries(library):
     return out
 
 
-def _call(wrapper, dtype, cache, Q):
+def _call(wrapper, dtype, cache, Q, k_off=0):
     """Call ``wrapper`` on CUDA-reporting tensors: q of ``dtype`` (Q rows
     a slot; a decode wrapper one), a pool or slot rows of q's dtype or
     (``cache`` "int8") their ``kv_encode``, three slots of which the last
-    has length 0."""
+    has length 0; k's data ``k_off`` bytes past a 16-byte boundary."""
     g = torch.Generator().manual_seed(Q)
     dt = getattr(torch, dtype)
     paged = ("block" in wrapper.__name__
@@ -71,6 +71,10 @@ def _call(wrapper, dtype, cache, Q):
         sc = dict(k_scale=_card(ks), v_scale=_card(vs))
     else:
         k, v = k.to(dt), v.to(dt)
+    n = k_off // k.element_size()
+    k = torch.zeros(k.numel() + 16, dtype=k.dtype)[n:n + k.numel()] \
+        .view(k.shape).copy_(k)
+    assert k.data_ptr() % 16 == k_off
     q = torch.randn((B, Q, H, DH), generator=g).to(dt)
     lengths = torch.tensor([40, Q, 0], dtype=torch.int32)
     args = [_card(q[:, 0] if decode else q), _card(k), _card(v),
@@ -138,6 +142,16 @@ def test_every_route_matches_its_c_entry(routes, wrapper, dtype, cache, Q):
                                              else "")
 
 
+def _split_route(wrapper, cache):
+    """(library, entry, workspace entry, tail) of an f32-q decode or
+    verify call on the split-K entries of ``decode_attention`` /
+    ``decode_attention_int8``."""
+    int8 = cache == "int8"
+    return (("decode_attention_int8" if int8 else "decode_attention"),
+            "hetu_" + wrapper.__name__ + ("_int8" if int8 else ""),
+            "hetu_decode_f32_workspace", ())
+
+
 @pytest.mark.parametrize("wrapper", [tda.paged_verify_attention,
                                      tda.paged_block_verify_attention])
 @pytest.mark.parametrize("cache", ["float", "int8"])
@@ -146,13 +160,48 @@ def test_f32_verify_runs_the_split_body(routes, wrapper, cache, Q):
     """f32 K6/K7 and their f32-q int8 twins run the split-K entries of
     ``decode_attention`` / ``decode_attention_int8`` at every Q (a block
     past 16 rows in 16-row groups): a workspace from the library's
-    ``hetu_decode_f32_workspace``, no dtype argument, and 16-byte
-    aligned data required."""
+    ``hetu_decode_f32_workspace`` and no dtype argument (16-byte aligned
+    data, as every route: ``test_every_route_refuses_misaligned_data``)."""
     _call(wrapper, "float32", cache, Q)
-    int8 = cache == "int8"
-    want = (("decode_attention_int8" if int8 else "decode_attention"),
-            "hetu_" + wrapper.__name__ + ("_int8" if int8 else ""),
-            "hetu_decode_f32_workspace", (), True)
     assert len(routes) == -(-Q // 16)
     for r in routes:
-        assert (r.library, r.entry, r.ws_entry, r.tail, r.aligned) == want
+        assert (r.library, r.entry, r.ws_entry, r.tail) == \
+            _split_route(wrapper, cache)
+
+
+@pytest.mark.parametrize("wrapper", [tda.paged_decode_attention,
+                                     tda.paged_block_decode_attention])
+@pytest.mark.parametrize("cache", ["float", "int8"])
+def test_f32_decode_runs_the_split_body(routes, wrapper, cache):
+    """f32 K4/K5 and their f32-q int8 twins run the split-K entries of
+    ``decode_attention`` / ``decode_attention_int8``, one launch a call:
+    a workspace from the library's ``hetu_decode_f32_workspace`` and no
+    dtype argument; the wrapper passes q as one row, [B, 1, H, Dh]."""
+    _call(wrapper, "float32", cache, 1)
+    assert [(r.library, r.entry, r.ws_entry, r.tail) for r in routes] == \
+        [_split_route(wrapper, cache)]
+
+
+@pytest.mark.parametrize("wrapper,dtype,cache,Q", CASES)
+def test_every_route_refuses_misaligned_data(monkeypatch, wrapper, dtype,
+                                             cache, Q):
+    """Every body copies 16-byte chunks: a K cache 8 bytes off a 16-byte
+    boundary raises ValueError in ``_launch`` before any library is
+    loaded; the same cache on a boundary goes on to load the library of
+    its route."""
+    loaded = []
+
+    class Loaded(Exception):
+        pass
+
+    def load(name):
+        loaded.append(name)
+        raise Loaded(name)
+    monkeypatch.setattr(_build, "library", load)
+    with pytest.raises(Loaded):
+        _call(wrapper, dtype, cache, Q)
+    assert len(loaded) == 1 and loaded[0] in _build.SOURCES
+    loaded.clear()
+    with pytest.raises(ValueError, match="16-byte"):
+        _call(wrapper, dtype, cache, Q, k_off=8)
+    assert loaded == []

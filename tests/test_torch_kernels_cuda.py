@@ -24,11 +24,12 @@ scale split into a bf16 pair, two products) do not round P, as the
 Pallas int8 bodies, which compute in f32, do not: they are held to the
 bf16 tolerance alone.
 The narrow waves (Q <= 16) of f32 K1, f32 K8, f32-q K1-int8 and f32-q
-K8-int8, f32 K6/K7, and f32-q K4-int8 to K7-int8, run the split-K
+K8-int8, f32 K4-K7, and f32-q K4-int8 to K7-int8, run the split-K
 CUDA-core body (csrc/split_kv_f32.cuh) and are held to f32's tolerance;
 f32 K8 equals f32 K1 bit for bit on one wave, and so does f32-q K8-int8
 f32-q K1-int8; f32-q K1-int8 equals f32 K1 over the decoded cache; f32
-K6 equals f32 K8 and f32 K7 equals f32 K1 on the same wave, bit for bit;
+K4 and K6 equal f32 K8 and f32 K5 and K7 equal f32 K1 on the same wave
+(a decode call at Q 1), bit for bit;
 in either q dtype K6-int8 and K4-int8 run K8-int8's split body, and
 K5-int8 and K7-int8 K1-int8's, and equal it bit for bit.
 The bf16 flash forward (K2, K2-carry) is held to the bound of its
@@ -154,13 +155,14 @@ def test_ragged_contiguous_kernel_matches_plain(cuda, dtype, Dh, bs, Q):
     assert (got[3] == 0).all()
 
 
-def _long_wave(Dh, Q, q_lens, seed, H=3, bs=16):
-    """Four slots of lengths 1000, 257, 1 and 0 (the first two cross
-    several 128-position key splits) over a permuted pool of 16-position
-    blocks, slot 2's block shared with slot 1's first; q_lens clipped to
-    the lengths.  Returns numpy (q, pool_k, pool_v, lengths, q_lens,
-    tables) as ``_wave``."""
-    lengths = np.array([1000, 257, 1, 0], np.int32)
+def _long_wave(Dh, Q, q_lens, seed, H=3, bs=16,
+               lengths=(1000, 257, 1, 0)):
+    """Slots of ``lengths`` (by default four, 1000, 257, 1 and 0: the
+    first two cross several 128-position key splits) over a permuted
+    pool of 16-position blocks, slot 2's block shared with slot 1's
+    first; q_lens (one per slot) clipped to the lengths.  Returns numpy
+    (q, pool_k, pool_v, lengths, q_lens, tables) as ``_wave``."""
+    lengths = np.array(lengths, np.int32)
     q_lens = np.minimum(np.asarray(q_lens, np.int32), lengths)
     B, T = len(lengths), 1024 // bs
     rng = np.random.RandomState(seed)
@@ -725,12 +727,12 @@ def test_bf16_verify_wrappers_refuse_misaligned_data(cuda):
 
 
 def test_verify_kernel_q1_equals_decode_kernel(cuda):
-    """A one-row verify block scores what the decode kernel scores.  Over
-    an int8 cache f32-q K6-int8 and K4-int8 are one split body with row
-    limits that agree at q_len 1: equal bit for bit.  Over an f32 cache
-    f32 K6 runs the split body and f32 K4 the one-block-per-slot body of
-    decode_body.cuh, which sums in another order: within f32's
-    tolerance, and f32 K6 equals f32 K8 at Q 1 bit for bit."""
+    """A one-row verify block scores what the decode kernel scores, bit
+    for bit, over an f32 cache and over an int8 one: f32 K6 and f32 K4
+    (and f32-q K6-int8 and K4-int8) are one split body, split_kv_f32.cuh,
+    with row limits that agree at q_len 1 (VerifyLim clips as RaggedLim
+    does, DecodeLim is RaggedLim there) and one split order, so the sums
+    run in the same order; and f32 K6 equals f32 K8 at Q 1."""
     q, pk, pv, lens, _, tab = _wave(64, 16, 1, seed=5)
     k, v = (_slot_rows(x, tab).to(cuda) for x in (pk, pv))
     lens_d = torch.from_numpy(lens).to(cuda)
@@ -740,7 +742,7 @@ def test_verify_kernel_q1_equals_decode_kernel(cuda):
     want = tda.paged_decode_attention(qd[:, 0], k, v, lens_d)
     k8 = tra.ragged_attention(qd, k, v, lens_d, ones)
     torch.cuda.synchronize()
-    assert_within(got[:, 0], want, "float32")
+    assert torch.equal(got[:, 0], want)
     assert torch.equal(got, k8)
     (kq, ks), (vq, vs) = (_int8(_slot_rows(x, tab), cuda) for x in (pk, pv))
     sc = dict(k_scale=ks, v_scale=vs)
@@ -845,6 +847,81 @@ def test_f32_verify_wrappers_refuse_misaligned_data(cuda, monkeypatch):
         tda.paged_verify_attention(qd, rows, _off16(rows, 8), *idx[:2])
     with pytest.raises(ValueError, match="16-byte"):
         tda.paged_verify_attention(_off16(qd, 8), rows, rows, *idx[:2])
+    assert libs == []
+    assert not any(launch_counts().values())
+
+
+# f32 K4/K5's slots: a long slot, one and two splits' edges (127, 128,
+# 129 positions), a single position and a length-0 slot (index 3)
+F32_DECODE_LENGTHS = (1000, 129, 1, 0, 127, 128)
+
+
+def _f32_decode_case(cuda, layout, Dh, seed):
+    """f32 decode over the slots of ``F32_DECODE_LENGTHS`` through K4
+    (``slots``) or K5 (``pool``): (the wrapper, its plain version, its
+    arguments, the ragged kernel of the same layout and its arguments at
+    Q 1 with q_lens 1)."""
+    q, pk, pv, lens, _, tab = _long_wave(Dh, 1, [1] * 6, seed=seed,
+                                         lengths=F32_DECODE_LENGTHS)
+    qd = q.to(cuda)
+    lens_d, tab_d = (torch.from_numpy(a).to(cuda) for a in (lens, tab))
+    ones = torch.ones_like(lens_d)
+    if layout == "slots":
+        k, v = (_slot_rows(x, tab).to(cuda) for x in (pk, pv))
+        return (tda.paged_decode_attention, tda.masked_decode_reference,
+                (qd[:, 0], k, v, lens_d), tra.ragged_attention,
+                (qd, k, v, lens_d, ones))
+    k, v = pk.to(cuda), pv.to(cuda)
+    return (tda.paged_block_decode_attention,
+            tda.paged_block_decode_reference, (qd[:, 0], k, v, lens_d,
+                                               tab_d),
+            tra.ragged_paged_attention, (qd, k, v, lens_d, ones, tab_d))
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("layout", ["slots", "pool"])
+def test_f32_decode_kernels_equal_the_ragged_kernels(cuda, monkeypatch, Dh,
+                                                     layout):
+    """f32 K4 (``slots``) and f32 K5 (``pool``) run the split-K CUDA-core
+    body of split_kv_f32.cuh with DecodeLim, one decode row a slot:
+    lengths 1000, 129, 128, 127, 1 and 0 (several splits, one split and
+    two, a single position).  Each call loads only ``decode_attention``,
+    looks up ``hetu_decode_f32_workspace`` and then its decode entry,
+    counts one launch under the wrapper's name and zeroes the length-0
+    slot; its output equals, bit for bit, f32 K8's (slot rows) or f32
+    K1's (the pool) at Q 1 with q_len 1 on the same cache (DecodeLim is
+    RaggedLim there, and the split order is one), and is within 1e-5 of
+    the plain version."""
+    run, plain, args, ragged, rargs = _f32_decode_case(
+        cuda, layout, Dh, seed=17 * Dh + (layout == "pool"))
+    libs, entries = _record_loads(monkeypatch)
+    reset_launches()
+    got = run(*args)
+    torch.cuda.synchronize()
+    name = run.__name__
+    assert libs == ["decode_attention"]
+    assert entries == ["hetu_decode_f32_workspace", f"hetu_{name}"]
+    assert _nonzero_launches() == {name: 1}
+    assert (got[3] == 0).all()
+    assert_within(got, plain(*args), "float32")
+    want = ragged(*rargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[:, 0])
+
+
+def test_f32_decode_wrappers_refuse_misaligned_data(cuda, monkeypatch):
+    """f32 K4 and K5 copy 16-byte chunks (the split-K body): a q, a K or
+    a V cache 8 bytes off a 16-byte boundary is refused, not read; no
+    library is loaded and nothing launches."""
+    libs, _ = _record_loads(monkeypatch)
+    reset_launches()
+    for layout in ("slots", "pool"):
+        run, _, args, _, _ = _f32_decode_case(cuda, layout, 64, seed=23)
+        for i in range(3):
+            bad = list(args)
+            bad[i] = _off16(args[i], 8)
+            with pytest.raises(ValueError, match="16-byte"):
+                run(*bad)
     assert libs == []
     assert not any(launch_counts().values())
 
