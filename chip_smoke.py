@@ -178,6 +178,28 @@ non-zero and prints no result line):
    ``flash_attention`` as ``attn_fn``: within 1e-6 of K2 over the whole
    sequence, with cp K2 launches.
 
+10. MoE serving: the MoE GPT at GPT-2-small width (``MOE``: the
+   dense widths, 4 experts of 1536, top-2, capacity factor 2.0, every
+   second block routed; random weights from ``--seed`` through
+   ``moe_decode.init_moe_params``), on phase 4's request set.
+   Offline ``generate_fast`` (f32, launches as phase 3's); the four
+   engine configurations in f32 (launches as phases 4-5, every greedy
+   request equal to paged-mixed's, phase 3's prompts to
+   ``generate_fast``'s); paged-mixed in bf16 under the bf16 margin
+   gate (``margin_gate(low="bf16")``: the bf16 teacher-forced pass in
+   the place of int8's); ``spec=4`` on paged phase-split (all tokens
+   equal the non-speculative run's, ``moe_ffn`` called MoE blocks x
+   target calls times: the draft routes nothing); an int8 cache on
+   paged-mixed under phase 7's gate through the MoE
+   ``teacher_forced_logits``; capacity factor 0.25 (drops > 0); every
+   engine's load + drop == routed positions x top_k x MoE blocks on
+   every step record; the dense oracle (phase 3's weights through
+   ``convert_dense_to_moe``, k = E = 4: teacher-forced logits of 1024
+   tokens within 1e-4 of the dense model's).  Then two windows of the
+   paged mixed engine, f32 and bf16, under torch.profiler: the device
+   ms of the kernels ``moe_ffn`` launches against attention's, and the
+   host share; tok/s and TTFT beside phase 4-5's dense runs.
+
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
 checks each serving configuration is run again under it (without and
@@ -1515,6 +1537,13 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
                  cache_rows=(eng.kv.n_blocks * eng.kv.block if eng.paged
                              else eng.kv.n_slots * eng.kv.s_max))
     tag = " int8 KV;" if eng.kv_quant else ""
+    if eng.moe is not None:
+        stats.update(moe_accounting(eng, L))
+        tag += (f" MoE load {stats['expert_load']} drops "
+                f"{stats['expert_drops']} over {stats['moe_tokens']} "
+                f"routed positions, imbalance "
+                f"{stats['expert_imbalance']:.4f}, drop rate "
+                f"{stats['expert_drop_rate']:.4f};")
     if eng.spec_k:
         stats.update(spec_waves=eng.spec_waves,
                      acceptance=eng.spec_acceptance,
@@ -1533,6 +1562,26 @@ def serve(torch, htt, params, cfg, reqs_spec, dtype, config, prof=None,
         f"dispatches ({eng.prefill_chunks} chunk passes), prefix hits "
         f"{hits}, launches {counts}")
     return res, {**counts, **regimes}, stats
+
+
+def moe_accounting(eng, L):
+    """An MoE engine's routing record after a run, each step's and the
+    lifetime's load + drop == routed positions x top_k x MoE layers (or
+    a failure)."""
+    n = eng.moe.top_k * eng.moe.moe_layers(L)
+    recs = [e for e in eng.metrics.events if "moe_tokens" in e]
+    bad = [e.get("step") for e in recs
+           if e["moe_routed"] + e["moe_dropped"] != e["moe_tokens"] * n]
+    total = int(eng.expert_load.sum() + eng.expert_drops.sum())
+    if bad or not recs or total != eng.moe_tokens * n \
+            or sum(e["moe_tokens"] for e in recs) != eng.moe_tokens:
+        fail(f"MoE accounting: load + drop {total} over "
+             f"{eng.moe_tokens} positions x {n}; steps breaking it {bad}")
+    return dict(expert_load=eng.expert_load.tolist(),
+                expert_drops=eng.expert_drops.tolist(),
+                moe_tokens=eng.moe_tokens, moe_steps=len(recs),
+                expert_imbalance=eng.expert_imbalance,
+                expert_drop_rate=eng.expert_drop_rate)
 
 
 # kernel kinds of the profile, by name, first match wins.  K4-K7 in
@@ -1871,14 +1920,17 @@ def deep_spec(torch, htt, params, cfg, spec, prompts, seed):
         f"{waves} verify waves, launches {counts}")
 
 
-def margin_gate(torch, params, cfg, want, got, prompt_len, oracle):
+def margin_gate(torch, params, cfg, want, got, prompt_len, oracle,
+                low="int8"):
     """The JAX package's int8 criterion (``teacher_forced_logits``): the
     int8 run's greedy tokens ``got`` equal the f32 run's ``want``, or
     they first differ at a position whose exact top-2 margin is at most
     2 delta, delta the largest |fake-quant - exact| logit gap over the
-    f32 sequence.  ``oracle`` caches the two teacher-forced passes per
-    sequence.  Returns None when identical, else (position, margin,
-    delta); fails past the gate."""
+    f32 sequence.  ``low="bf16"`` is the same gate for a bf16 run, with
+    the bf16 teacher-forced pass in the place of the fake-quantized one.
+    ``oracle`` caches the two teacher-forced passes per sequence.
+    Returns None when identical, else (position, margin, delta); fails
+    past the gate."""
     from hetu_tpu_torch.models.gpt_decode import teacher_forced_logits
     want, got = list(want), list(got)
     if want == got:
@@ -1888,14 +1940,15 @@ def margin_gate(torch, params, cfg, want, got, prompt_len, oracle):
     if key not in oracle:
         seq = np.asarray(want[:-1], np.int64)
         exact = teacher_forced_logits(params, cfg, seq, dtype=torch.float32)
-        fake = teacher_forced_logits(params, cfg, seq, kv_fake_quant=True,
-                                     dtype=torch.float32)
+        fake = teacher_forced_logits(
+            params, cfg, seq, kv_fake_quant=low == "int8",
+            dtype=torch.float32 if low == "int8" else torch.bfloat16)
         oracle[key] = (exact, float((fake - exact).abs().max()))
     exact, delta = oracle[key]
     top2 = torch.topk(exact[t - 1], 2).values
     margin = float(top2[0] - top2[1])
     if t < prompt_len or margin > 2 * delta:
-        fail(f"int8 greedy tokens first differ from f32 at position {t} "
+        fail(f"{low} greedy tokens first differ from f32 at position {t} "
              f"(prompt {prompt_len}), exact top-2 margin {margin:.4e} > "
              f"2 delta = {2 * delta:.4e}")
     return t, margin, delta
@@ -2604,6 +2657,250 @@ def phase9(torch, F, htt, seed):
         check_ulysses(torch, dt, seed)
     return kres, counts
 
+# ---------------------------------------------------------------- #
+# phase 10: MoE serving
+# ---------------------------------------------------------------- #
+
+# the flagship MoE GPT at GPT-2-small width (the JAX package's
+# bench.py MoE cell): 4 experts, top-2, capacity factor 2.0, every
+# second block routed (six MoE blocks), experts of ffn_size / top_k =
+# 1536 wide, so that the active FFN parameters equal the dense model's
+MOE = dict(num_experts=4, top_k=2, capacity_factor=2.0, moe_every=2,
+           expert_size=1536)
+
+
+@contextlib.contextmanager
+def moe_calls(torch, annotate=False):
+    """Count the serving cores' ``moe_ffn`` calls while the block runs;
+    with ``annotate`` each call also runs under
+    ``torch.profiler.record_function("moe_ffn")``, so that a profile
+    gives the device time of its kernels (gate, dispatch, the two bmm,
+    combine)."""
+    from hetu_tpu_torch.models import gpt_decode as gd
+    inner = gd.moe_ffn
+    seen = collections.Counter()
+
+    def counted(*a, **kw):
+        seen["calls"] += 1
+        if not annotate:
+            return inner(*a, **kw)
+        with torch.profiler.record_function("moe_ffn"):
+            return inner(*a, **kw)
+
+    gd.moe_ffn = counted
+    try:
+        yield seen
+    finally:
+        gd.moe_ffn = inner
+
+
+def moe_profile(torch, htt, params, cfg, spec, dtype, windows=((0, 6),
+                                                                (40, 46))):
+    """The paged mixed MoE engine on the request set, ``windows`` of its
+    steps (the prompt-chunk waves first, then decode waves) under
+    torch.profiler: device ms of the MoE FFN (the kernels launched
+    inside ``moe_ffn``) and of attention (K1), the device's busy ms and
+    the window's wall.  Returns [{window, wall_ms, busy_ms, moe_ms,
+    attn_ms, matmul_ms, moe_calls}]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hetu_tpu_torch.serving import Request
+    eng = htt.ServingEngine(params, cfg, slots=8, dtype=getattr(torch, dtype),
+                            **CONFIGS["paged-mixed"])
+    for i, (pr, t, k) in enumerate(spec):
+        eng.submit(Request(prompt=pr, max_new_tokens=64, temperature=t,
+                           top_k=k, seed=i, request_id=f"r{i}"))
+    out = []
+    for a, b in windows:
+        while eng.steps < a:
+            eng.step()
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        with prof, moe_calls(torch, annotate=True) as seen:
+            t0 = time.perf_counter()
+            while eng.steps < b:
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = prof.key_averages()
+        kern = [e for e in rows if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0 and e.key != "moe_ffn"]
+        if not kern:
+            fail("the profiler recorded no device time")
+        ms = {"busy": 0.0, "attn": 0.0, "matmul": 0.0}
+        for e in kern:
+            t_ms = e.self_device_time_total / 1e3
+            ms["busy"] += t_ms
+            kind = kind_of(e.key)
+            if re.match(r"K\d", kind):
+                ms["attn"] += t_ms
+            elif kind == "matmul":
+                ms["matmul"] += t_ms
+        # the kernels launched under the annotation, and the span the
+        # annotation covers on the device's timeline (gaps included)
+        moe = [e for e in rows if e.key == "moe_ffn"]
+        moe_ms = sum(e.device_time_total for e in moe
+                     if e.device_type == DeviceType.CPU) / 1e3
+        span_ms = sum(e.self_device_time_total for e in moe
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        if moe_ms <= 0 and span_ms <= 0:
+            fail("the profiler attributed no device time to moe_ffn")
+        out.append(dict(window=(a, b), wall_ms=wall * 1e3,
+                        busy_ms=ms["busy"], moe_ms=moe_ms,
+                        moe_span_ms=span_ms, attn_ms=ms["attn"],
+                        matmul_ms=ms["matmul"], moe_calls=seen["calls"]))
+    eng.run()
+    return out
+
+
+def phase10(torch, htt, seed, spec, prompts, dense, card):
+    """MoE serving at GPT-2-small width (``MOE``): offline
+    ``generate_fast``, the four engine configurations, speculation, an
+    int8 cache, a binding capacity and the dense oracle, each held to
+    the checks the docstring lists.  ``dense``: phases 4-5's
+    {(config, dtype): (results, launches, stats)} of the dense model on
+    the same requests."""
+    from hetu_tpu_torch.models import moe_decode as md
+    from hetu_tpu_torch.models.gpt_decode import teacher_forced_logits
+    t10 = time.perf_counter()
+    cfg = md.MoEDecodeConfig(**MOE)
+    L, E, k = cfg.num_hidden_layers, cfg.num_experts, cfg.top_k
+    n_moe = md.moe_spec_of(cfg).moe_layers(L)
+    t0 = time.perf_counter()
+    npp = md.init_moe_params(cfg, name="gpt", seed=seed)
+    n_par = sum(v.size for v in npp.values())
+    per_expert = sum(v[0].size for n, v in npp.items()
+                     if "_moe_expert_stack_" in n) // n_moe
+    params = htt.params_from_numpy(npp)
+    del npp
+    log(f"  MoE GPT-2-small ({E} experts, top-{k}, capacity factor "
+        f"{cfg.capacity_factor}, {n_moe} MoE blocks, experts "
+        f"{cfg.expert_size} wide): {n_par} parameters, "
+        f"{n_par - n_moe * (E - k) * per_expert} active per token; "
+        f"weights from seed {seed} in {time.perf_counter() - t0:.2f} s")
+
+    # offline, then the four configurations in f32
+    off, _ = offline(torch, htt, params, cfg, prompts, "float32")
+    runs = {}
+    for config in CONFIGS:
+        runs[config, "float32"] = serve(torch, htt, params, cfg, spec,
+                                        "float32", config)
+    res32 = runs["paged-mixed", "float32"][0]
+    for i in range(len(prompts)):
+        got = res32[f"r{i}"].tokens[128:128 + 32]
+        if list(got) != list(off[i, 128:]):
+            fail(f"MoE f32 engine greedy tokens of r{i} differ from "
+                 f"generate_fast")
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    for config in CONFIGS:
+        res = runs[config, "float32"][0]
+        bad = [i for i in greedy
+               if list(res[f"r{i}"].tokens) != list(res32[f"r{i}"].tokens)]
+        if bad:
+            fail(f"MoE {config} f32 greedy tokens differ from paged-mixed "
+                 f"for requests {bad}")
+    log(f"  MoE f32: paged-mixed greedy == generate_fast ({len(prompts)} "
+        f"prompts); every layout's greedy tokens == paged-mixed's "
+        f"({len(greedy)} requests)")
+
+    # bf16 under the dense bf16 engine's margin gate
+    runs["paged-mixed", "bfloat16"] = serve(torch, htt, params, cfg, spec,
+                                            "bfloat16", "paged-mixed")
+    res16 = runs["paged-mixed", "bfloat16"][0]
+    oracle = {}
+    gates = [margin_gate(torch, params, cfg, res32[f"r{i}"].tokens,
+                         res16[f"r{i}"].tokens, len(spec[i][0]), oracle,
+                         low="bf16") for i in greedy]
+    log(f"  MoE bf16 paged-mixed: greedy tokens == f32's for "
+        f"{sum(g is None for g in gates)} of {len(greedy)} requests, the "
+        f"rest first differ within the bf16 margin gate (position, exact "
+        f"top-2 margin, delta): {[g for g in gates if g is not None]}")
+
+    # speculation: the draft routes nothing
+    with moe_calls(torch) as seen:
+        sres, _, sst = serve(torch, htt, params, cfg, spec, "float32",
+                             "paged-split", spec=4)
+    plain = runs["paged-split", "float32"][0]
+    bad = [i for i in range(len(spec))
+           if list(sres[f"r{i}"].tokens) != list(plain[f"r{i}"].tokens)]
+    if bad:
+        fail(f"MoE spec 4 paged-split f32 tokens differ from the "
+             f"non-speculative run for requests {bad}")
+    target_calls = sst["prefill_dispatches"] + sst["steps"]
+    if seen["calls"] != n_moe * target_calls:
+        fail(f"MoE spec: {seen['calls']} moe_ffn calls, want {n_moe} x "
+             f"{target_calls} target calls (the draft routes nothing)")
+    log(f"  MoE spec 4 paged-split f32: all {len(spec)} requests' tokens "
+        f"== non-speculative; moe_ffn calls {seen['calls']} = {n_moe} x "
+        f"{target_calls} target calls, none from the draft "
+        f"({sst['draft_prefills']} draft prefills, {sst['spec_waves']} "
+        f"waves)")
+
+    # int8 cache under phase 7's margin gate
+    ires = serve(torch, htt, params, cfg, spec, "float32", "paged-mixed",
+                 kv_quant="int8")[0]
+    oracle = {}
+    gates = [margin_gate(torch, params, cfg, res32[f"r{i}"].tokens,
+                         ires[f"r{i}"].tokens, len(spec[i][0]), oracle)
+             for i in greedy]
+    log(f"  MoE int8 paged-mixed f32: greedy tokens == f32's for "
+        f"{sum(g is None for g in gates)} of {len(greedy)} requests, the "
+        f"rest first differ within the int8 margin gate: "
+        f"{[g for g in gates if g is not None]}")
+
+    # a capacity that binds
+    bcfg = md.MoEDecodeConfig(**dict(MOE, capacity_factor=0.25))
+    _, _, bst = serve(torch, htt, params, bcfg, spec, "float32",
+                      "paged-mixed")
+    if not sum(bst["expert_drops"]):
+        fail("MoE capacity factor 0.25: no token was dropped")
+    log(f"  MoE capacity factor 0.25 paged-mixed f32: drops "
+        f"{bst['expert_drops']} (rate {bst['expert_drop_rate']:.4f}), "
+        f"load + drop == positions x {k} x {n_moe} on all "
+        f"{bst['moe_steps']} step records")
+
+    # the dense oracle: phase 3's weights, experts replicated, k = E
+    dcfg = htt.GPTConfig()
+    dnp = gpt2_small_params(dcfg, seed)
+    ocfg = md.MoEDecodeConfig(num_experts=4, top_k=4, capacity_factor=2.0,
+                              moe_every=2)
+    mp = md.convert_dense_to_moe(dnp, dcfg, ocfg, name="gpt")
+    seq = np.random.default_rng(seed + 10).integers(0, dcfg.vocab_size,
+                                                    1024)
+    want = teacher_forced_logits(dnp, dcfg, seq, dtype=torch.float32)
+    got = teacher_forced_logits(mp, ocfg, seq, dtype=torch.float32)
+    err = float((got - want).abs().max())
+    if not err <= 1e-4:
+        fail(f"dense oracle: max |MoE - dense| logit {err:.3e} > 1e-4")
+    log(f"  dense oracle (phase 3's weights, 4 replicated experts, top-4, "
+        f"1024 tokens): max |MoE - dense| teacher-forced logit {err:.3e} "
+        f"<= 1e-4 (logits up to {float(want.abs().max()):.3f})")
+    del dnp, mp
+
+    # device time of the MoE FFN against attention, and the host share
+    for dt in ("float32", "bfloat16"):
+        for w in moe_profile(torch, htt, params, cfg, spec, dt):
+            a, b = w["window"]
+            log(f"  MoE profile paged-mixed {dt} steps {a}-{b - 1} on "
+                f"{card}: MoE FFN {w['moe_ms']:.3f} ms of kernels "
+                f"({w['moe_span_ms']:.3f} ms annotated span, "
+                f"{w['moe_calls']} calls) vs attention (K1) "
+                f"{w['attn_ms']:.3f} ms; all "
+                f"matmuls {w['matmul_ms']:.3f} ms; device busy "
+                f"{w['busy_ms']:.3f} of {w['wall_ms']:.3f} ms wall, host "
+                f"share {1 - w['busy_ms'] / w['wall_ms']:.1%}")
+    for (config, dt), (_, _, st) in runs.items():
+        d = dense[config, dt][2]
+        log(f"  MoE serving on {card}: {config} {dt} "
+            f"{st['tokens_per_s']:.1f} tok/s (dense {d['tokens_per_s']:.1f}),"
+            f" TTFT p50 {st['ttft_p50_ms']:.1f} (dense "
+            f"{d['ttft_p50_ms']:.1f}) p99 {st['ttft_p99_ms']:.1f} (dense "
+            f"{d['ttft_p99_ms']:.1f}) ms; expert load {st['expert_load']}, "
+            f"imbalance {st['expert_imbalance']:.4f}, drop rate "
+            f"{st['expert_drop_rate']:.4f}")
+    log(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
+
 
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
@@ -2785,6 +3082,11 @@ def main(argv=None):
     log("phase 9: context parallelism: K2-carry vs its plain version, the "
         "cp-4 ring and Ulysses at full width on a virtual mesh")
     kres9, ring_counts = phase9(torch, F, htt, args.seed)
+
+    # ---- phase 10 ---- #
+    log("phase 10: MoE serving: the MoE GPT at GPT-2-small width through "
+        "generate_fast and the engines")
+    phase10(torch, htt, args.seed, spec, prompts, runs, card)
 
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5

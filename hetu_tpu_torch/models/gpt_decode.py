@@ -1,5 +1,5 @@
 """KV-cached GPT decoding in PyTorch: the port of the JAX package's
-``models/gpt_decode.py`` for dense GPT models.
+``models/gpt_decode.py`` for dense GPT models and their MoE variant.
 
 Weights come as the named-parameter dict of the JAX package (the
 executor / HF-importer contract, ``<name>_wte_table``,
@@ -34,6 +34,13 @@ A serving cache may be int8 (an ``(int8 payload, f32 scales)`` pair, see
 ``_kv_write``): the cores then attend through the int8 twins of the same
 kernels.  ``teacher_forced_logits`` is the oracle of int8's margin gate.
 
+An MoE model (``moe_decode.MoEDecodeConfig``) runs through the same
+cores: its ``MoESpec`` rides ``cfg_tuple`` as a sixth element, and
+``_ffn_block`` routes every position of a call through
+``moe_decode.moe_ffn`` on the MoE blocks.  Each core takes ``stats``, a
+dict in which the MoE layers accumulate their per-expert load and drop
+counts as device tensors.
+
 PyTorch idiom: plain functions on tensors and dicts of tensors, an
 explicit device (the one the params live on), explicit
 ``torch.Generator``s for sampling, and in-place index writes into the KV
@@ -58,6 +65,7 @@ from ..kernels.ragged_attention import (ragged_attention,
                                         ragged_paged_attention)
 from ..quant import kv_decode, kv_encode
 from ..weights import prep_param
+from .moe_decode import moe_ffn, moe_spec_of
 
 NEG_INF = -1e30
 
@@ -165,9 +173,38 @@ def _gelu_tanh(x):
         0.7978845608028654 * (x + 0.044715 * x ** 3)))
 
 
-def _ffn_block(params, us, h):
-    """LN2 then the dense wi -> gelu -> wo FFN, residual added.  The MoE
-    branch is ROADMAP A6."""
+def _moe_of(cfg_tuple):
+    """The cfg_tuple's optional sixth element: a ``MoESpec``, or None for
+    a dense GPT."""
+    return cfg_tuple[5] if len(cfg_tuple) > 5 else None
+
+
+def _draft_cfg(cfg_tuple, draft_layers):
+    """The truncated-layer draft's cfg_tuple: ``draft_layers`` of the
+    target's blocks, and an MoE target's spec with ``draft=True``, so
+    that the draft's MoE blocks route nothing."""
+    cfg_d = (cfg_tuple[0], draft_layers) + tuple(cfg_tuple[2:5])
+    moe = _moe_of(cfg_tuple)
+    return cfg_d if moe is None else cfg_d + (moe._replace(draft=True),)
+
+
+def _ffn_block(params, us, h, i, moe=None, valid=None, stats=None):
+    """LN2 then the FFN of block ``i``, residual added: the dense wi ->
+    gelu -> wo, or on an MoE block (``moe`` set and block ``i`` routed)
+    ``moe_ffn`` over every position of the call flattened into one
+    routing block (capacity counts them all).  A draft spec returns
+    ``h`` untouched.  ``valid`` (bool, h's leading shape, or None for
+    all) keeps pad and inert positions out of routing; ``stats``
+    accumulates the per-expert load and drop counts."""
+    if moe is not None and moe.is_moe_layer(i):
+        if moe.draft:
+            return h
+        x = _ln(h, params[f"{us}_ln2_scale"], params[f"{us}_ln2_bias"])
+        shp = x.shape
+        vf = None if valid is None else valid.expand(shp[:-1]).reshape(-1)
+        y = moe_ffn(params, us, x.reshape(-1, shp[-1]), moe, valid=vf,
+                    stats=stats)
+        return h + y.reshape(shp)
     x = _ln(h, params[f"{us}_ln2_scale"], params[f"{us}_ln2_bias"])
     f = _gelu_tanh(x @ params[f"{us}_ffn_wi_weight"]
                    + params[f"{us}_ffn_wi_bias"])
@@ -207,7 +244,7 @@ def _kv_index(cache_k, block_tables, slots, posns):
 
 
 def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
-                 block_tables=None, live_mask=None):
+                 block_tables=None, live_mask=None, stats=None):
     """One position per slot: ``token`` [B] int64 consumed at ``pos`` —
     a Python int (offline: the whole batch at one position) or a [B]
     tensor (serving: every slot at its own filled length).  Returns
@@ -228,10 +265,12 @@ def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
     ``live_mask`` ([B] bool, tensor ``pos`` only; default all live)
     marks the slots decoding this wave: the others ride along inert,
     with length 0 (zeros attended, logits discarded by the caller) and
-    no cache write, so a slot mid-prefill keeps the prompt K/V it holds.
-    Each layer writes the live slots' K/V in place (the JAX package
-    donates the cache here) before it attends."""
+    no cache write, so a slot mid-prefill keeps the prompt K/V it holds,
+    and routes nothing through an MoE block (an int ``pos`` routes every
+    row).  Each layer writes the live slots' K/V in place (the JAX
+    package donates the cache here) before it attends."""
     name, L, H, Dh = cfg_tuple[:4]
+    moe = _moe_of(cfg_tuple)
     B = token.shape[0]
     hdim = H * Dh
     dev = token.device
@@ -263,7 +302,7 @@ def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
                                              k_scale=ksc, v_scale=vsc)
         o = o.reshape(B, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
-        h = _ffn_block(params, us, h + o)
+        h = _ffn_block(params, us, h + o, i, moe, live_mask, stats)
     return _logits(params, name, h)
 
 
@@ -348,16 +387,20 @@ def _sample_slots(logits, temperature, top_k, generators, live=None):
                         np.zeros(B, np.int32), q_len)[0][:, 0]
 
 
-def _prefill_forward(params, cfg_tuple, tokens, kv_lens):
+def _prefill_forward(params, cfg_tuple, tokens, kv_lens, stats=None):
     """ONE full-prompt forward over a bucket-padded token block: every
     layer's K/V for all positions in one batched pass, attention through
     the flash kernel (causal + kv_lens).  tokens [N, P_b] (positions >=
-    kv_lens[n] are pad); kv_lens [N] int32.  Returns (logits [N, V] f32
-    at each row's kv_lens-1, ks, vs [L, N, P_b, H, Dh])."""
+    kv_lens[n] are pad, kept out of MoE routing); kv_lens [N] int32.
+    Returns (logits [N, V] f32 at each row's kv_lens-1, ks, vs [L, N,
+    P_b, H, Dh])."""
     name, L, H, Dh = cfg_tuple[:4]
+    moe = _moe_of(cfg_tuple)
     N, P_b = tokens.shape
     hdim = H * Dh
     dev = tokens.device
+    valid = (None if moe is None else
+             torch.arange(P_b, device=dev)[None, :] < kv_lens[:, None])
     h = params[f"{name}_wte_table"][tokens] \
         + params[f"{name}_wpe"][:P_b][None]
     ks, vs = [], []
@@ -368,7 +411,7 @@ def _prefill_forward(params, cfg_tuple, tokens, kv_lens):
         o = flash_attention(q, k, v, causal=True, kv_lens=kv_lens)
         o = o.reshape(N, P_b, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
-        h = _ffn_block(params, us, h + o)
+        h = _ffn_block(params, us, h + o, i, moe, valid, stats)
         ks.append(k)
         vs.append(v)
     last = h[torch.arange(N, device=dev),
@@ -377,7 +420,7 @@ def _prefill_forward(params, cfg_tuple, tokens, kv_lens):
 
 
 def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
-                  prompt_lens, block_tables=None):
+                  prompt_lens, block_tables=None, stats=None):
     """ONE ``_prefill_forward`` over a group of prompts, each prompt's
     live positions written into its slot's cache row, or through its
     table row into its blocks.  Host arrays: slots [N], prompts [N, P_b]
@@ -391,7 +434,7 @@ def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
     logits, ks, vs = _prefill_forward(
         params, cfg_tuple,
         torch.from_numpy(np.asarray(prompts, np.int64)).to(dev),
-        torch.from_numpy(lens).to(dev))
+        torch.from_numpy(lens).to(dev), stats)
     rows, cols = np.nonzero(np.arange(P_b)[None, :] < lens[:, None])
     r, c = (torch.from_numpy(a).to(dev) for a in (rows, cols))
     wa, wo = _kv_index(cache_k, block_tables,
@@ -403,23 +446,24 @@ def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
 
 def _serve_prefill_batch(params, cfg_tuple, cache_k, cache_v, slots,
                          prompts, prompt_lens, temperature, top_k,
-                         generators, block_tables=None):
+                         generators, block_tables=None, stats=None):
     """Flash prefill of a group of same-bucket admissions
     (``_prefill_into``; the JAX package's ``_serve_prefill_batch`` and,
     with ``block_tables``, ``_serve_prefill_batch_paged``), then each row
     samples its first token from its own generator.  Host arrays as for
     ``_prefill_into``, plus temperature / top_k [N] and generators (None
     for greedy).  The group needs no pad rows: torch compiles no shape
-    ladder, so nothing writes a position twice.  Returns first tokens [N]
-    int64 numpy."""
+    ladder, so nothing writes a position twice (nor routes one: MoE
+    capacity counts N x P_b positions, where the JAX package's pad rows
+    count too).  Returns first tokens [N] int64 numpy."""
     logits = _prefill_into(params, cfg_tuple, cache_k, cache_v, slots,
-                           prompts, prompt_lens, block_tables)
+                           prompts, prompt_lens, block_tables, stats)
     return _sample_slots(logits, temperature, top_k, generators)
 
 
 def _serve_decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
                        live, temperature, top_k, generators,
-                       block_tables=None):
+                       block_tables=None, stats=None):
     """One decode wave over all slots plus per-slot sampling (the JAX
     package's ``_serve_decode_step`` and, with ``block_tables``,
     ``_serve_decode_paged``): slot b consumes ``token[b]`` at ``pos[b]``
@@ -431,12 +475,13 @@ def _serve_decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
     logits = _decode_step(
         params, cfg_tuple, cache_k, cache_v, pos, token,
         block_tables=block_tables,
-        live_mask=torch.from_numpy(np.asarray(live, bool)).to(pos.device))
+        live_mask=torch.from_numpy(np.asarray(live, bool)).to(pos.device),
+        stats=stats)
     return _sample_slots(logits, temperature, top_k, generators, live)
 
 
 def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
-                         tokens, pos_off, sample=None):
+                         tokens, pos_off, sample=None, stats=None):
     """One CHUNK of one slot's prompt into its blocks: ``tokens`` [C]
     int64 at positions ``pos_off .. pos_off+C-1``, attending to the
     slot's earlier positions and causally to itself.  This is both the
@@ -462,6 +507,7 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
     (first token int or None, logits [V] f32 after the chunk's last
     position)."""
     name, L, H, Dh = cfg_tuple[:4]
+    moe = _moe_of(cfg_tuple)
     C = tokens.shape[0]
     dev = tokens.device
     posns = int(pos_off) + torch.arange(C, device=dev)
@@ -482,7 +528,7 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
                                    k_scale=ksc, v_scale=vsc)
         o = o.reshape(C, H * Dh) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
-        h = _ffn_block(params, us, h + o)
+        h = _ffn_block(params, us, h + o, i, moe, stats=stats)
     logits = _logits(params, name, h[C - 1])
     if sample is None:
         return None, logits
@@ -492,7 +538,7 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
 
 
 def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
-                block_tables=None, verify=False):
+                block_tables=None, verify=False, stats=None):
     """One MIXED wave: slot b consumes ``tokens[b, :q_len[b]]`` at
     positions ``pos[b] .. pos[b]+q_len[b]-1`` — a prompt, a prompt chunk,
     one decode token or a verify block, all in one call.  Returns logits
@@ -511,9 +557,11 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     everything back.  Only live rows write: the JAX package also
     scatters dead rows, at clipped positions in an order that lets the
     live row win, or into scratch block 0; an unordered CUDA scatter
-    has no such order, and nothing reads those writes.  pos/q_len [B]
-    int32, tokens [B, Q] int64, all on the params' device."""
+    has no such order, and nothing reads those writes.  Only live rows
+    route through an MoE block.  pos/q_len [B] int32, tokens [B, Q]
+    int64, all on the params' device."""
     name, L, H, Dh = cfg_tuple[:4]
+    moe = _moe_of(cfg_tuple)
     B, Q = tokens.shape
     hdim = H * Dh
     dev = tokens.device
@@ -547,12 +595,12 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
                                        **sc)
         o = o.reshape(B, Q, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
-        h = _ffn_block(params, us, h + o)
+        h = _ffn_block(params, us, h + o, i, moe, valid, stats)
     return _logits(params, name, h)
 
 
 def _verify_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
-                 block_tables=None):
+                 block_tables=None, stats=None):
     """Multi-position verify (the JAX package's ``_verify_step``): slot b
     consumes ``tokens[b, :q_len[b]]`` at ``pos[b] ..`` in ONE step, row
     ``[b, j]`` of the logits [B, Q, V] f32 being what ``j + 1``
@@ -561,12 +609,12 @@ def _verify_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     kernels: a slot with q_len 0 (free, mid-prefill, or a finished
     offline row) writes nothing and attends nothing."""
     return _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens,
-                       q_len, block_tables, verify=True)
+                       q_len, block_tables, verify=True, stats=stats)
 
 
 def _serve_mixed(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
                  first_row, temperature, top_k, generators,
-                 block_tables=None):
+                 block_tables=None, stats=None):
     """One fused MIXED wave plus each slot's sampling window (the JAX
     package's ``_serve_mixed`` and, with ``block_tables``,
     ``_serve_mixed_paged``).  Device tensors: pos, tokens, q_len,
@@ -575,13 +623,14 @@ def _serve_mixed(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     ``_spec_sample``'s (sampled [B, Q] int64 numpy, generator states);
     the host reads each slot's window and discards the rest."""
     logits = _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens,
-                         q_len, block_tables)
+                         q_len, block_tables, stats=stats)
     return _spec_sample(logits, temperature, top_k, generators,
                         first_row, q_len.cpu().numpy())
 
 
 def _serve_verify(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
-                  temperature, top_k, generators, block_tables=None):
+                  temperature, top_k, generators, block_tables=None,
+                  stats=None):
     """One VERIFY wave over all slots plus sampling at every live row (the
     JAX package's ``_serve_verify`` and, with ``block_tables``,
     ``_serve_verify_paged``).  Device tensors: pos [B] int32, tokens [B,
@@ -590,7 +639,7 @@ def _serve_verify(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     q_len = np.asarray(q_len, np.int32)
     logits = _verify_step(params, cfg_tuple, cache_k, cache_v, pos, tokens,
                           torch.from_numpy(q_len).to(pos.device),
-                          block_tables)
+                          block_tables, stats)
     return _spec_sample(logits, temperature, top_k, generators,
                         np.zeros_like(q_len), q_len)
 
@@ -659,14 +708,6 @@ def _model_params(params, name, device, dtype):
             if k.startswith(name + "_")}
 
 
-def refuse_moe(config):
-    """MoE configs ride the dense cores only in the JAX package so far
-    (ROADMAP A6)."""
-    if getattr(config, "num_experts", None):
-        raise NotImplementedError(
-            "MoE decoding is not ported yet (ROADMAP A6)")
-
-
 def teacher_forced_logits(params, config, seq, kv_fake_quant=False,
                           name=None, dtype=None, device=None):
     """Per-position next-token logits [P, V] f32 of ONE sequence ``seq``
@@ -680,9 +721,10 @@ def teacher_forced_logits(params, config, seq, kv_fake_quant=False,
     gate's oracle for ``kv_quant="int8"``: with ``delta`` the largest
     |fake-quant - exact| logit gap over a sequence, a position whose
     exact top-2 margin exceeds ``2 * delta`` keeps its top-1 token under
-    int8 KV.  device: CUDA unless ``"cpu"`` is passed."""
+    int8 KV.  An MoE config routes every position of ``seq`` as one
+    block.  device: CUDA unless ``"cpu"`` is passed."""
     dev = resolve_device(device)
-    refuse_moe(config)
+    moe = moe_spec_of(config)
     name = _infer_name(params, name)
     params = _model_params(params, name, dev, dtype)
     c = config
@@ -701,7 +743,7 @@ def teacher_forced_logits(params, config, seq, kv_fake_quant=False,
         o = flash_attention(q, k, v, causal=True)
         o = o.reshape(P, H * Dh) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
-        h = _ffn_block(params, us, h + o)
+        h = _ffn_block(params, us, h + o, i, moe)
     return _logits(params, name, h)
 
 
@@ -715,9 +757,10 @@ def _generate_spec(params, cfg_tuple, draft_layers, prompts, num_tokens,
     along with q_len 0.  Greedy outputs equal the non-speculative
     ``generate_fast``'s; sampling draws one generator per row seeded
     ``seed + row``, so sampled rows equal the serving engine's requests
-    seeded alike, not the batch-seeded offline path."""
+    seeded alike, not the batch-seeded offline path.  An MoE draft routes
+    nothing (``_draft_cfg``)."""
     name, L, H, Dh, S_max = cfg_tuple[:5]
-    cfg_d = (name, draft_layers, H, Dh, S_max)
+    cfg_d = _draft_cfg(cfg_tuple, draft_layers)
     B, P = prompts.shape
     Q = spec_k + 1
     cdtype = params[f"{name}_wte_table"].dtype
@@ -786,7 +829,7 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
     its greedy tokens are the same.
 
     params: {name: array or tensor} (the JAX package's named params);
-    config: GPTConfig; prompts: a [B, P] array or list of equal-length
+    config: GPTConfig or ``MoEDecodeConfig``; prompts: a [B, P] array or list of equal-length
     token lists; dtype: e.g. ``torch.bfloat16`` casts weights AND cache,
     default FOLLOWS the params; eos_id: a row that samples it past its
     prompt emits it, then ``pad_id``.  Sampling draws from one
@@ -799,7 +842,6 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
     ones draw one generator per row (``seed + row``), as the engine's
     requests do.  Returns [B, P + num_tokens] numpy int32."""
     dev = resolve_device(device)
-    refuse_moe(config)
     prompts = np.asarray(prompts, np.int64)
     if prompts.ndim == 1:
         prompts = prompts[None]
@@ -818,6 +860,9 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
     L, H = c.num_hidden_layers, c.num_attention_heads
     Dh = c.hidden_size // H
     cfg_tuple = (name, L, H, Dh, S_max)
+    moe = moe_spec_of(c)
+    if moe is not None:
+        cfg_tuple += (moe,)
     params = _model_params(params, name, dev, dtype)
     spec_k = resolve_spec_k(spec)
     if spec_k:

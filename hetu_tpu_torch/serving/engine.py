@@ -34,10 +34,16 @@ speculation changes no output, sampled ones included.
   layout and scheduler, with speculation, chunked prefill and prefix
   sharing; each core's attention then runs the int8 twin of its kernel.
   The draft's cache stays in the compute dtype.
+- MoE models (``models.moe_decode.MoEDecodeConfig``) run through the
+  same cores in every configuration, each call routing its live
+  positions through the top-k expert FFN of the MoE blocks (the draft
+  routes nothing).  The engine keeps the lifetime per-expert load and
+  drops (``expert_load``, ``expert_drops``, ``moe_tokens``), reading
+  each call's device counts once, and stamps every step record with
+  its routing (``serve.expert_*`` counters and gauges).
 
 Not ported yet, and refused with NotImplementedError whether asked for
-by argument or environment variable: MoE configs (A6), weight swaps and
-tiered KV (A7).
+by argument or environment variable: weight swaps and tiered KV (A7).
 """
 
 from __future__ import annotations
@@ -51,11 +57,12 @@ import torch
 from .. import envvars, telemetry
 from ..device import resolve_device
 from ..models.gpt_decode import (
-    _accept_span, _infer_name, _model_params, _pow2, _prefill_into,
-    _serve_decode_step, _serve_mixed, _serve_prefill_batch,
-    _serve_prefill_chunk, _serve_verify, _spec_propose, refuse_moe,
+    _accept_span, _draft_cfg, _infer_name, _model_params, _pow2,
+    _prefill_into, _serve_decode_step, _serve_mixed, _serve_prefill_batch,
+    _serve_prefill_chunk, _serve_verify, _spec_propose,
     resolve_draft_layers, resolve_serve_ragged, resolve_spec_k,
 )
+from ..models.moe_decode import moe_spec_of
 from ..telemetry import flight
 from ..telemetry import slo as slo_mod
 from .kv_manager import (KVCacheManager, PagedKVManager,
@@ -75,20 +82,30 @@ class QueueFull(RuntimeError):
 _STORM_REJECTS = 8
 
 
-def _refuse_unported(c, tier_store):
+def _refuse_unported(tier_store):
     if tier_store is not None or envvars.get_int("HETU_KV_HOST_BYTES") \
             or envvars.get_bool("HETU_KV_PS_TIER"):
         raise NotImplementedError(
             "tiered KV (tier_store=, HETU_KV_HOST_BYTES, HETU_KV_PS_TIER) "
             "is not ported yet (ROADMAP A7)")
-    refuse_moe(c)
+
+
+def _moe_rates(load, drop):
+    """(imbalance, drop rate) of per-expert load and drop counts: max /
+    mean load (0.0 before any kept pair) and dropped / (kept +
+    dropped)."""
+    mean = float(load.mean())
+    imb = float(load.max()) / mean if mean > 0 else 0.0
+    total = int(load.sum() + drop.sum())
+    return imb, (int(drop.sum()) / total if total else 0.0)
 
 
 class ServingEngine:
     """Continuous-batching engine over one model's weights.
 
     params: {name: array or tensor} (the JAX package's named params, as
-    for ``generate_fast``); config: GPTConfig; slots: concurrent
+    for ``generate_fast``); config: GPTConfig or ``MoEDecodeConfig``
+    (``$HETU_MOE_CAPACITY`` overrides its capacity factor); slots: concurrent
     sequences (pow2-bucketed); queue_limit: bounded admission queue —
     ``submit`` raises QueueFull beyond it; max_seq_len: cap on
     prompt+generation (default max_position_embeddings); dtype: e.g.
@@ -137,7 +154,7 @@ class ServingEngine:
         c = config
         self.device = resolve_device(device)
         block = resolve_kv_block(paged, kv_block)
-        _refuse_unported(c, tier_store)
+        _refuse_unported(tier_store)
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.paged = block > 0
         self.ragged = resolve_serve_ragged(ragged)
@@ -159,8 +176,19 @@ class ServingEngine:
         else:
             self.kv = KVCacheManager(**shape)
             self.chunk = 0
+        # ---- an MoE config's spec rides the cfg_tuple ---- #
+        self.moe = moe_spec_of(c)
         self.cfg_tuple = (self._name, c.num_hidden_layers,
                           c.num_attention_heads, Dh, self.kv.s_max)
+        if self.moe is not None:
+            self.cfg_tuple += (self.moe,)
+            E = self.moe.num_experts
+            # lifetime (token, rank) pairs kept / dropped per expert
+            self.expert_load = np.zeros(E, np.int64)
+            self.expert_drops = np.zeros(E, np.int64)
+            self.moe_tokens = 0       # routed positions of target calls
+            self._moe_layers = self.moe.moe_layers(c.num_hidden_layers)
+            self._moe_step = None     # this step's [load, drop, tokens]
         self.prefill_dispatches = 0   # prefill calls (a flash group, a
         # chunk pass, or a mixed wave that carried prompt rows)
         self.prefill_chunks = 0       # paged prompt chunks scored
@@ -201,8 +229,8 @@ class ServingEngine:
             dl = resolve_draft_layers(spec_draft_layers,
                                       c.num_hidden_layers)
             self.spec_draft_layers = dl
-            self.cfg_tuple_draft = (self._name, dl, c.num_attention_heads,
-                                    Dh, self.kv.s_max)
+            # an MoE draft's spec routes nothing (draft=True)
+            self.cfg_tuple_draft = _draft_cfg(self.cfg_tuple, dl)
             adapt = (spec_adapt if spec_adapt is not None
                      else envvars.get_bool("HETU_SPEC_ADAPT"))
             self.spec_adapt = bool(adapt) and self.spec_k > 1
@@ -229,6 +257,69 @@ class ServingEngine:
     def swap_params(self, params, *, version=None):
         raise NotImplementedError(
             "live weight swaps are not ported yet (ROADMAP A7)")
+
+    # ------------------------------------------------------------- #
+    # MoE accounting
+    # ------------------------------------------------------------- #
+
+    def _moe_stats(self):
+        """A fresh ``stats`` dict for one target call (None when dense)."""
+        return {} if self.moe is not None else None
+
+    def _moe_take(self, stats, tokens):
+        """Account one target call's routing of ``tokens`` positions from
+        its ``stats`` (one device-to-host copy of the load and drop sums)
+        into the lifetime and the step's totals.  No-op when dense."""
+        if stats is None:
+            return
+        load, drop = torch.stack([stats["load"], stats["drop"]]).cpu() \
+            .numpy().astype(np.int64)
+        tokens = int(tokens)
+        self.expert_load += load
+        self.expert_drops += drop
+        self.moe_tokens += tokens
+        if self._moe_step is None:
+            self._moe_step = [load, drop, tokens]
+        else:
+            self._moe_step[0] = self._moe_step[0] + load
+            self._moe_step[1] = self._moe_step[1] + drop
+            self._moe_step[2] += tokens
+        telemetry.inc("serve.expert_load", int(load.sum()))
+        telemetry.inc("serve.expert_drops", int(drop.sum()))
+
+    def _moe_record(self):
+        """Drain the step's routing totals into a ``record_step`` payload
+        (None when dense or when nothing routed since the last record):
+        ``routed + dropped == tokens * k * layers``; ``imb`` is max/mean
+        expert load, ``drop_rate`` dropped / (routed + dropped)."""
+        if self.moe is None or self._moe_step is None:
+            return None
+        load, drop, tokens = self._moe_step
+        self._moe_step = None
+        imb, rate = _moe_rates(load, drop)
+        telemetry.set_gauge("serve.expert_imbalance", imb)
+        telemetry.set_gauge("serve.expert_drop_rate", rate)
+        return {"tokens": tokens, "routed": int(load.sum()),
+                "dropped": int(drop.sum()),
+                "k": self.moe.top_k, "layers": self._moe_layers,
+                "imb": imb, "drop_rate": rate,
+                "load": [int(x) for x in load],
+                "drop": [int(x) for x in drop]}
+
+    @property
+    def expert_imbalance(self):
+        """Lifetime max/mean expert load (None when dense, 0.0 before any
+        routed pair)."""
+        if self.moe is None:
+            return None
+        return _moe_rates(self.expert_load, self.expert_drops)[0]
+
+    @property
+    def expert_drop_rate(self):
+        """Lifetime dropped / (routed + dropped) (None when dense)."""
+        if self.moe is None:
+            return None
+        return _moe_rates(self.expert_load, self.expert_drops)[1]
 
     # ------------------------------------------------------------- #
 
@@ -540,11 +631,13 @@ class ServingEngine:
             P = len(self._prompt_arr[slot])
             prompts[row, :P] = self._prompt_arr[slot]
             lens[row] = P
+        st = self._moe_stats()
         firsts = _serve_prefill_batch(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             np.asarray(group), prompts, lens, self._temp[group],
             self._topk[group], [self._gens[s] for s in group],
-            block_tables=self._tables())
+            block_tables=self._tables(), stats=st)
+        self._moe_take(st, lens.sum())
         self.prefill_dispatches += 1
         dt = time.perf_counter() - t0
         self.metrics.record_prefill(n, pb, dt, batched=True)
@@ -558,12 +651,14 @@ class ServingEngine:
         req = self._reqs[slot]
         off, take, final = self._chunk_take(slot)
         t0 = time.perf_counter()
+        st = self._moe_stats()
         tok0, _ = _serve_prefill_chunk(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             self._put(self.kv.tables[slot], torch.int32),
             self._put(self._prompt_arr[slot][off:off + take], torch.int64),
             off, sample=((req.temperature, req.top_k, self._gens[slot])
-                         if final else None))
+                         if final else None), stats=st)
+        self._moe_take(st, take)
         self.prefill_dispatches += 1
         self.prefill_chunks += 1
         telemetry.inc("serve.prefill_chunks")
@@ -584,11 +679,13 @@ class ServingEngine:
         live = np.zeros(B, bool)
         live[decoding] = True
         t0 = time.perf_counter()
+        st = self._moe_stats()
         sampled = _serve_decode_step(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             self._put(self._pos, torch.int32),
             self._put(self._tok, torch.int64), live, self._temp,
-            self._topk, self._gens, block_tables=self._tables())
+            self._topk, self._gens, block_tables=self._tables(), stats=st)
+        self._moe_take(st, len(decoding))
         dt = time.perf_counter() - t0
         for slot in decoding:
             req = self._reqs[slot]
@@ -606,7 +703,8 @@ class ServingEngine:
         self.metrics.record_step(
             live=len(decoding), slots=B, queue_depth=len(self._queue),
             dt_s=dt, new_tokens=len(decoding), prefill_s=prefill_s,
-            step=self.steps, requests=wave_reqs, end_perf=t0 + dt)
+            step=self.steps, requests=wave_reqs, end_perf=t0 + dt,
+            moe=self._moe_record())
         return done
 
     # ------------------------------------------------------------- #
@@ -657,13 +755,15 @@ class ServingEngine:
                 toks += [int(t) for t in draft[s, :qlen_v[s] - 1]]
             entries[s] = (toks, int(self._pos[s]), 0)
         wave = assemble_mixed_wave(B, entries)
+        st = self._moe_stats()
         sampled, after = _serve_mixed(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             self._put(wave["pos"], torch.int32),
             self._put(wave["tokens"], torch.int64),
             self._put(wave["q_len"], torch.int32), wave["first_row"],
             self._temp, self._topk, self._gens,
-            block_tables=self._tables())
+            block_tables=self._tables(), stats=st)
+        self._moe_take(st, wave["q_len"].sum())
         dt = time.perf_counter() - t0
         # ---- prefill q-blocks ---- #
         q_pre = 0
@@ -732,7 +832,8 @@ class ServingEngine:
             dt_s=dt, new_tokens=wave_emit if k_cur else n_dec,
             prefill_s=dt * q_pre / q_tot, step=self.steps,
             requests=wave_reqs, end_perf=t0 + dt, spec=spec,
-            mix={"q_prefill": q_pre, "q_verify": q_ver, "q_decode": n_dec})
+            mix={"q_prefill": q_pre, "q_verify": q_ver, "q_decode": n_dec},
+            moe=self._moe_record())
         return done
 
     # ------------------------------------------------------------- #
@@ -846,11 +947,13 @@ class ServingEngine:
         qlen = np.zeros(B, np.int32)
         for s in decoding:
             qlen[s] = self._verify_len(s, k_cur)
+        st = self._moe_stats()
         sampled, after = _serve_verify(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             self._put(self._pos, torch.int32),
             self._put(tokens, torch.int64), qlen, self._temp, self._topk,
-            self._gens, block_tables=self._tables())
+            self._gens, block_tables=self._tables(), stats=st)
+        self._moe_take(st, qlen.sum())
         dt = time.perf_counter() - t0
         done = []
         wave_emit = wave_acc = wave_prop = 0
@@ -868,7 +971,7 @@ class ServingEngine:
             live=len(decoding), slots=B, queue_depth=len(self._queue),
             dt_s=dt, new_tokens=wave_emit, prefill_s=prefill_s,
             step=self.steps, requests=wave_reqs, end_perf=t0 + dt,
-            spec=spec)
+            spec=spec, moe=self._moe_record())
         return done
 
     @property

@@ -23,8 +23,6 @@ package's, on the CPU.
   NotImplementedError, whether asked for by argument or environment.
 """
 
-import copy
-
 import numpy as np
 import pytest
 import torch
@@ -285,34 +283,26 @@ PR = dict(paged=True, ragged=True)
 
 @pytest.mark.parametrize("kw,env", [
     (dict(PR, tier_store=object()), None),
-    (dict(PR, moe=True), None),
     (PR, ("HETU_KV_HOST_BYTES", "4096")),
-], ids=["tiers", "moe", "env-tiers"])
+], ids=["tiers", "env-tiers"])
 def test_unported_options_raise(model, monkeypatch, kw, env):
-    """Tiered KV and MoE configs are refused, by argument or environment
-    variable, naming ROADMAP (speculation and int8 KV are ported)."""
+    """Tiered KV is refused, by argument or environment variable, naming
+    ROADMAP (speculation, int8 KV and MoE configs are ported:
+    test_torch_moe_serving.py)."""
     p, _, tcfg = model
     if env is not None:
         monkeypatch.setenv(*env)
-    kw = dict(kw)
-    if kw.pop("moe", False):
-        tcfg = copy.copy(tcfg)
-        tcfg.num_experts = 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TServingEngine(p, tcfg, device="cpu", **kw)
 
 
 def test_swap_params_and_spec_offline_raise(model):
-    """Weight swaps are not ported; offline speculation is, but not for
-    a MoE config."""
+    """Weight swaps are not ported (offline speculation is, MoE configs
+    too: test_torch_moe_serving.py)."""
     p, _, tcfg = model
     eng = TServingEngine(p, tcfg, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.swap_params(p)
-    moe = copy.copy(tcfg)
-    moe.num_experts = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgd.generate_fast(p, moe, [[1, 2]], 2, spec=2, device="cpu")
 
 
 def test_queue_limit_backpressure(model):
