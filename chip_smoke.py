@@ -200,6 +200,32 @@ non-zero and prints no result line):
    ms of the kernels ``moe_ffn`` launches against attention's, and the
    host share; tok/s and TTFT beside phase 4-5's dense runs.
 
+11. The serving fleet (``ServingRouter``): two replicas of phase 4's
+   f32 engine (paged 16, mixed waves, 8 slots each, phase 3's weights
+   copied onto the card per replica), phase 4's 16 requests.  First a
+   plain fleet run: every token equal to phase 4's, each replica's
+   launches exactly layers x steps of K1, ``trace --check`` clean; fleet
+   tok/s and TTFT p50/p99 beside phase 4's one engine.  11a: a seeded
+   ``HETU_CHAOS`` kill of replica 0 mid-run (``FLEET_CHAOS``): every
+   request retires exactly once, its tokens (greedy and sampled) equal
+   phase 4's, the peer logs ``router_hop`` records, replica 0 restarts,
+   ``trace --check`` passes on the run's log.  11b: roles prefill,decode:
+   each request prefills on A, its blocks leave at retirement
+   (``export_blocks``) and land on B (``import_blocks``), which decodes;
+   the exact wire's tokens equal phase 4's, the int8 wire's
+   (``HETU_HANDOFF_QUANT=int8``) pass phase 7's margin gate; B's own
+   launches (K1, layers x steps) run over the imported blocks; export
+   and import ms and bytes for each wire.  11c: ``WeightSyncCoordinator``
+   rolls v2 (the weights of ``--seed`` + 1) over both replicas under
+   live traffic: each result equals its stamped version's engine, after
+   the commit every replica is at v2 and its tokens equal a fresh v2
+   engine's, no resident tensor's ``data_ptr()`` changed, swap ms; a
+   push with one wrong shape is refused and leaves every replica's
+   params' checksum as it was.  11d: pools of ``TIER_POOL_BLOCKS``
+   blocks and ``HETU_KV_HOST_BYTES``: the shared 128-token prefix is
+   evicted into the host ring (spills >= 1) and fetched back at a later
+   admission (a counted fetch), the tokens equal phase 4's.
+
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
 checks each serving configuration is run again under it (without and
@@ -219,6 +245,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import io
 import itertools
 import json
 import re
@@ -1589,21 +1616,12 @@ def moe_accounting(eng, L):
 # signed char, makes it the twin in kind_of) are split and merge kernels
 # of their own row-limit types (DecodeLim<layout>, VerifyLim<layout>),
 # ahead of K1/K8's and their twins'; K1/K8 are the
-# f32 TF32 ragged kernel (f32 q, Q > 16; the CUDA-core ragged_kernel of a
-# tree before it), the f32 split kernel and its merge (f32 q, Q <= 16:
-# f32 K1 and K8, and f32-q K1-int8 and K8-int8, whose signed char makes
-# them the twins; the merge's template names the cache type and layout
-# too) and the bf16 wide, split and merge kernels (bf16 q, either
-# cache), told apart by their layout.  The decode_kernel rows after
-# them name the retired one-block-per-slot body (decode_body.cuh) of an
-# older tree for ``kernel_times.py --trees``: decode_kernel<D, layout>
-# (f32 K4/K5, its last form), and before that a template that also
-# carried q's and the cache's types and the q-block width NQ (K4/K5 at
-# NQ 1, K6/K7 and f32-q K6-int8/K7-int8 otherwise).  They can go once no
-# parent tree that ``kernel_times.py --trees`` reads holds
-# decode_body.cuh (the parent of the commit that deleted it is the last
-# one)
-RAGGED = ("(ragged_kernel|ragged_tf32_kernel|ragged_wide_kernel|"
+# f32 TF32 ragged kernel (f32 q, Q > 16), the f32 split kernel and its
+# merge (f32 q, Q <= 16: f32 K1 and K8, and f32-q K1-int8 and K8-int8,
+# whose signed char makes them the twins; the merge's template names the
+# cache type and layout too) and the bf16 wide, split and merge kernels
+# (bf16 q, either cache), told apart by their layout
+RAGGED = ("(ragged_tf32_kernel|ragged_wide_kernel|"
           "split_kv_kernel|split_kv_f32_kernel|split_merge_kernel)")
 KINDS = (("K4 paged_decode_attention",
           re.compile("DecodeLim<hetu::SlotRows")),
@@ -1615,18 +1633,6 @@ KINDS = (("K4 paged_decode_attention",
           re.compile("VerifyLim<hetu::TableRows")),
          ("K1 ragged_paged_attention", re.compile(RAGGED + ".*TableRows")),
          ("K8 ragged_attention", re.compile(RAGGED + ".*SlotRows")),
-         ("K4 paged_decode_attention",
-          re.compile(r"decode_kernel<\d+, hetu::SlotRows")),
-         ("K5 paged_block_decode_attention",
-          re.compile(r"decode_kernel<\d+, hetu::TableRows")),
-         ("K4 paged_decode_attention",
-          re.compile(r"decode_kernel<[^,]+, [^,]+, \d+, 1, hetu::SlotRows")),
-         ("K5 paged_block_decode_attention",
-          re.compile(r"decode_kernel<[^,]+, [^,]+, \d+, 1, hetu::TableRows")),
-         ("K6 paged_verify_attention",
-          re.compile("decode_kernel.*SlotRows")),
-         ("K7 paged_block_verify_attention",
-          re.compile("decode_kernel.*TableRows")),
          ("K2 flash_attention", re.compile("flash_fwd")),
          ("matmul", re.compile("gemm|nvjet|splitK")),
          ("KV writes (index_put)", re.compile("index_elementwise")),
@@ -2902,6 +2908,397 @@ def phase10(torch, htt, seed, spec, prompts, dense, card):
     log(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
 
 
+# ---------------------------------------------------------------- #
+# phase 11: the serving fleet
+# ---------------------------------------------------------------- #
+
+# replica 0 dies at its 12th step of the fleet's run (mid-run: its
+# slots full, its queue not empty)
+FLEET_CHAOS = "seed=11,kill=12,role=replica0"
+# the host tier's fleet: a pool of 44 blocks (43 usable), which the
+# longest request (600 + 64 positions, 42 blocks) fits, but not beside
+# the 11 blocks the shared prefix's registration holds
+TIER_POOL_BLOCKS = 44
+# the host ring: large enough to hold every prefix the 11d run evicts
+# (~2.6 GB of f32 payloads: each cut of each evicted prompt spills), so
+# the shared prefix is still there when its second user arrives
+TIER_HOST_BYTES = 4 << 30
+
+
+def fleet_requests(Request, spec, ids=None):
+    """Phase 4's requests (ids r0..r15, seeds 0..15), all or ``ids``."""
+    return [Request(prompt=pr, max_new_tokens=64, temperature=t, top_k=k,
+                    seed=i, request_id=f"r{i}")
+            for i, (pr, t, k) in enumerate(spec)
+            if ids is None or i in ids]
+
+
+def fleet_engine(torch, htt, params, cfg, **kw):
+    """One replica: phase 4's engine (paged 16, mixed waves: the auto
+    settings on CUDA), f32, 8 slots, its own copy of ``params`` (host
+    numpy: each replica copies them onto the card, so a rolling swap
+    reaches one replica at a time).  ``eng.launches`` counts the
+    launches of its own steps (``launch_counts`` deltas)."""
+    from hetu_tpu_torch.kernels import launch_counts
+    eng = htt.ServingEngine(params, cfg, slots=8, dtype=torch.float32,
+                            **CONFIGS["paged-mixed"], **kw)
+    if (eng.paged, eng.ragged, eng.kv.block) != (True, True, 16):
+        fail(f"fleet replica: paged={eng.paged} ragged={eng.ragged} "
+             f"block {eng.kv.block}, want the auto paged mixed engine")
+    eng.launches = collections.Counter()
+    step = eng.step
+
+    def counted_step():
+        before = launch_counts()
+        out = step()
+        for k, v in launch_counts().items():
+            eng.launches[k] += v - before[k]
+        return out
+
+    eng.step = counted_step
+    return eng
+
+
+def timed(torch, obj, name, log_to):
+    """Wrap ``obj.name`` so each call appends (ms, result) to ``log_to``,
+    the card synchronised before and after."""
+    fn = getattr(obj, name)
+
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        log_to.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
+
+    setattr(obj, name, call)
+
+
+def fleet_tokens_equal(res, ref, ids, what):
+    bad = [i for i in ids
+           if list(res[f"r{i}"].tokens) != list(ref[f"r{i}"].tokens)]
+    if bad:
+        fail(f"{what}: tokens of requests {bad} differ")
+
+
+def exact_engine_launches(eng, L, what):
+    want = {k: v for k, v in want_launches(eng, L).items() if v}
+    got = {k: v for k, v in eng.launches.items() if v}
+    if got != want:
+        fail(f"{what}: launches {got}, want {want}")
+    return got
+
+
+def fleet_stats(res, sec, snap):
+    gen = sum(r.n_generated for r in res.values())
+    return dict(tokens_per_s=gen / sec, seconds=sec, generated=gen,
+                ttft_p50_ms=snap["ttft_p50_s"] * 1e3,
+                ttft_p99_ms=snap["ttft_p99_s"] * 1e3)
+
+
+def checksum(torch, params):
+    return torch.stack([t.double().sum() for t in params.values()]).cpu()
+
+
+def phase11(torch, htt, cfg, seed, spec, res32, st4, card):
+    """The serving fleet: two replicas of phase 4's engine behind
+    ``ServingRouter``; phase 4's requests; every gate below fails the
+    run."""
+    import os
+    import tempfile
+
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.ps import faults
+    from hetu_tpu_torch.serving import (Request, ServingRouter,
+                                        WeightSyncCoordinator)
+    from hetu_tpu_torch.telemetry import trace
+    L = cfg.num_hidden_layers
+    t_phase = time.perf_counter()
+    p1 = gpt2_small_params(cfg, seed)
+    n = len(spec)
+    everyone = range(n)
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    env0 = {k: os.environ.get(k) for k in (
+        "HETU_CHAOS", "HETU_SERVE_LOG", "HETU_HANDOFF_QUANT",
+        "HETU_KV_HOST_BYTES", "HETU_TELEMETRY")}
+
+    def setenv(**kw):
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset_plans()
+        telemetry.reset()
+
+    try:
+        setenv(HETU_TELEMETRY="1")
+        # ---- the fleet, then 11a: a seeded chaos kill ---- #
+        for label, chaos in (("fleet", None), ("11a chaos kill",
+                                                FLEET_CHAOS)):
+            slog = os.path.join(tmp, f"{label.split()[0]}.jsonl")
+            setenv(HETU_CHAOS=chaos, HETU_SERVE_LOG=slog)
+            router = ServingRouter(
+                lambda i: fleet_engine(torch, htt, p1, cfg), replicas=2,
+                restart_backoff=0.0)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res = router.run(fleet_requests(Request, spec))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            # supervision goes on past the run: a killed replica's
+            # respawn lands within a few router steps
+            deadline = time.perf_counter() + 60
+            while any(r.state != "up" for r in router.replicas) \
+                    and time.perf_counter() < deadline:
+                router.step()
+            snap = router.snapshot()
+            if len(res) != n or snap["finished"] != n or snap["lost"] \
+                    or snap["duplicates"]:
+                fail(f"{label}: {len(res)} results, finished "
+                     f"{snap['finished']}, lost {snap['lost']}, duplicates "
+                     f"{snap['duplicates']} of {n} requests")
+            fleet_tokens_equal(res, res32, everyone,
+                               f"{label} vs phase 4 (f32, greedy and "
+                               f"sampled)")
+            events, bad = trace.read_events([slog])
+            finishes = collections.Counter(
+                e["request"] for e in events
+                if e["event"] == "serve_finish")
+            hops = [e for e in events if e["event"] == "router_hop"]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = trace.main([slog, "--check"])
+            if bad or rc:
+                fail(f"{label}: trace --check rc {rc} ({bad} bad "
+                     f"records): {buf.getvalue()[-800:]}")
+            st = fleet_stats(res, sec, snap)
+            routed = [row["routed"] for row in snap["replicas"]]
+            if chaos is None:
+                counts = launch_counts()
+                per = [exact_engine_launches(r.engine, L,
+                                             f"fleet replica {r.index}")
+                       for r in router.replicas]
+                k1 = sum(p.get("ragged_paged_attention", 0) for p in per)
+                if counts["ragged_paged_attention"] != k1 or min(routed) < 1:
+                    fail(f"fleet: K1 launches {counts}, the replicas' "
+                         f"{per}; routed {routed}")
+                st_fleet = st
+                log(f"  fleet of 2 on {card}: {n} requests routed {routed}, "
+                    f"all tokens == phase 4's; K1 launched {k1} times "
+                    f"(layers x steps of each replica); "
+                    f"{st['generated']} tokens in {st['seconds']:.3f} s = "
+                    f"{st['tokens_per_s']:.1f} tok/s, fleet TTFT p50 "
+                    f"{st['ttft_p50_ms']:.1f} ms p99 "
+                    f"{st['ttft_p99_ms']:.1f} ms (phase 4's one engine "
+                    f"{st4['tokens_per_s']:.1f} tok/s, TTFT p50 "
+                    f"{st4['ttft_p50_ms']:.1f} p99 {st4['ttft_p99_ms']:.1f} "
+                    f"ms); trace --check clean")
+            else:
+                peer = [e for e in hops if e.get("from_replica") == 0
+                        and e.get("to_replica") == 1]
+                if not peer or snap["requeued"] < 1 \
+                        or snap["replicas"][0]["restarts"] != 1 \
+                        or any(v != 1 for v in finishes.values()) \
+                        or len(finishes) != n:
+                    fail(f"11a: hops {len(hops)} (to the peer "
+                         f"{len(peer)}), requeued {snap['requeued']}, "
+                         f"restarts {snap['replicas'][0]['restarts']}, "
+                         f"serve_finish per request {dict(finishes)}")
+                log(f"  11a: {FLEET_CHAOS} killed replica 0; "
+                    f"{snap['requeued']} requests requeued, "
+                    f"{len(peer)} router_hop events to replica 1, replica 0 "
+                    f"restarted once; every request retired once, routed "
+                    f"{routed}; all tokens == phase 4's; trace --check "
+                    f"clean; {st['tokens_per_s']:.1f} tok/s, TTFT p50 "
+                    f"{st['ttft_p50_ms']:.1f} ms p99 "
+                    f"{st['ttft_p99_ms']:.1f} ms")
+            del router
+            torch.cuda.empty_cache()
+        setenv(HETU_CHAOS=None, HETU_SERVE_LOG=None)
+
+        # ---- 11b: prefill on A, decode on B, over both wires ---- #
+        oracle, wires = {}, {}
+        for wire in ("auto", "int8"):
+            setenv(HETU_HANDOFF_QUANT=wire)
+            exports, imports = [], []
+            router = ServingRouter(
+                lambda i: fleet_engine(torch, htt, p1, cfg), replicas=2,
+                roles="prefill,decode")
+            a, b = (r.engine for r in router.replicas)
+            timed(torch, a.kv, "export_blocks", exports)
+            timed(torch, b.kv, "import_blocks", imports)
+            reset_launches()
+            res = router.run(fleet_requests(Request, spec))
+            torch.cuda.synchronize()
+            snap = router.snapshot()
+            # a handoff B's pool cannot take yet (no free slot to write
+            # through) degrades to a cold prefill there, as in the JAX
+            # package: counted, never lost
+            moved = snap["handoffs"]
+            if len(res) != n or snap["lost"] or moved < 1 or moved \
+                    + snap["handoff_failed"] + snap["handoffs_skipped"] != n:
+                fail(f"11b {wire}: {len(res)} results, lost "
+                     f"{snap['lost']}, {moved} handoffs, "
+                     f"{snap['handoff_failed']} failed, "
+                     f"{snap['handoffs_skipped']} skipped of {n}")
+            la = exact_engine_launches(a, L, "11b replica A")
+            lb = exact_engine_launches(b, L, "11b replica B")
+            if lb.get("ragged_paged_attention", 0) < L or \
+                    b.kv.imports < moved or b.kv.prefix_hits < moved:
+                fail(f"11b {wire}: replica B launched {lb}, imported "
+                     f"{b.kv.imports} spans, {b.kv.prefix_hits} prefix "
+                     f"hits on them")
+            if wire == "auto":
+                fleet_tokens_equal(res, res32, everyone,
+                                   "11b exact wire vs phase 4")
+                gates = []
+            else:
+                gates = [margin_gate(torch, p1, cfg, res32[f"r{i}"].tokens,
+                                     res[f"r{i}"].tokens, len(spec[i][0]),
+                                     oracle) for i in greedy]
+            ex_ms = [ms for ms, _ in exports]
+            im_ms = [ms for ms, slot in imports if slot is not None]
+            nbytes = [p["nbytes"] for _, p in exports]
+            raw = [p["raw_nbytes"] for _, p in exports]
+            wires[wire] = dict(
+                exports=len(exports), export_ms=float(np.median(ex_ms)),
+                import_ms=float(np.median(im_ms)), bytes=int(sum(nbytes)),
+                raw_bytes=int(sum(raw)), quant=exports[0][1]["quant"])
+            w = wires[wire]
+            log(f"  11b {wire} wire on {card}: {moved} of {n} requests' "
+                f"KV moved A -> B, {snap['handoff_failed']} admitted cold "
+                f"on B (no free slot to import through) "
+                f"({w['quant'] or 'exact'} payloads), {w['bytes']} B "
+                f"on the wire for {w['raw_bytes']} f32-equivalent B "
+                f"({w['bytes'] / w['raw_bytes']:.4f}); export median "
+                f"{w['export_ms']:.3f} ms (max {max(ex_ms):.3f}), import "
+                f"median {w['import_ms']:.3f} ms (max {max(im_ms):.3f}) a "
+                f"request; B launched {lb} over {b.kv.imports} imported "
+                f"spans, A {la}; "
+                + ("all tokens == phase 4's" if wire == "auto" else
+                   f"f32 greedy tokens identical to phase 4's for "
+                   f"{sum(g is None for g in gates)} of {len(greedy)}, "
+                   f"the rest within the margin gate: "
+                   f"{[g for g in gates if g is not None]}"))
+            del router, a, b
+            torch.cuda.empty_cache()
+        setenv(HETU_HANDOFF_QUANT=None)
+
+        # ---- 11c: a rolling swap to v2 ---- #
+        p2 = gpt2_small_params(cfg, seed + 1)
+        swaps = []
+
+        def swap_engine(i):
+            eng = fleet_engine(torch, htt, p1, cfg)
+            timed(torch, eng, "swap_params", swaps)
+            return eng
+
+        router = ServingRouter(swap_engine, replicas=2)
+        coord = WeightSyncCoordinator(router, p1, version=1)
+        engines = [r.engine for r in router.replicas]
+        ptrs = [{k: t.data_ptr() for k, t in e.params.items()}
+                for e in engines]
+        if not coord.begin(p2, 2):
+            fail("11c: the coordinator refused the v2 push")
+        live = router.run(fleet_requests(Request, spec))
+        coord.drain()
+        if coord.state != "done" or coord.committed_version != 2 \
+                or coord.fleet_versions() != {0: 2, 1: 2} \
+                or [r.engine for r in router.replicas] != engines:
+            fail(f"11c: rollout {coord.state}, committed "
+                 f"{coord.committed_version}, versions "
+                 f"{coord.fleet_versions()}: {coord.last}")
+        fresh = fleet_engine(torch, htt, p2, cfg)
+        want2 = fresh.run(fleet_requests(Request, spec))
+        del fresh
+        v1 = [i for i in everyone if live[f"r{i}"].weight_version == 1]
+        v2 = [i for i in everyone if live[f"r{i}"].weight_version == 2]
+        if len(v1) + len(v2) != n:
+            fail("11c: results stamped neither v1 nor v2")
+        fleet_tokens_equal(live, res32, v1, "11c v1-stamped vs phase 4")
+        fleet_tokens_equal(live, want2, v2, "11c v2-stamped vs a fresh v2 "
+                           "engine")
+        after = router.run([Request(prompt=r.prompt,
+                                    max_new_tokens=64,
+                                    temperature=r.temperature,
+                                    top_k=r.top_k, seed=r.seed,
+                                    request_id=r.request_id + "v2")
+                            for r in fleet_requests(Request, spec)])
+        if any(r.weight_version != 2 for r in after.values()):
+            fail("11c: a request after the commit is not stamped v2")
+        fleet_tokens_equal({k[:-2]: v for k, v in after.items()}, want2,
+                           everyone, "11c after the commit vs a fresh v2 "
+                           "engine")
+        if [{k: t.data_ptr() for k, t in e.params.items()}
+                for e in engines] != ptrs:
+            fail("11c: a resident tensor moved during the swap")
+        sums = [checksum(torch, e.params) for e in engines]
+        bad = dict(p2)
+        key = f"gpt_h{L - 1}_ffn_wo_weight"
+        bad[key] = np.zeros((3, 3), np.float32)
+        coord.begin(bad, 3)
+        coord.drain()
+        if coord.committed_version != 2 or coord.last["state"] == "done" \
+                or any(not torch.equal(s, checksum(torch, e.params))
+                       for s, e in zip(sums, engines)):
+            fail(f"11c: a push with a wrong shape ({key}) was not refused "
+                 f"cleanly: {coord.last}, committed "
+                 f"{coord.committed_version}")
+        swap_ms = [ms for ms, _ in swaps]
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in engines[0].params.values())
+        log(f"  11c on {card}: v1 -> v2 rolled over both replicas under "
+            f"live traffic ({len(v1)} requests retired on v1, {len(v2)} on "
+            f"v2, each equal to its version's engine); after the commit "
+            f"every replica at v2 and all {n} requests stamped v2 == a "
+            f"fresh v2 engine's tokens; no resident tensor moved; "
+            f"swap_params median {np.median(swap_ms):.1f} ms (max "
+            f"{max(swap_ms):.1f}, {len(swap_ms)} swaps of {param_bytes} "
+            f"B); a push with {key} of shape (3, 3) refused "
+            f"({coord.last['state']}), params unchanged")
+        del router, coord, engines
+        torch.cuda.empty_cache()
+
+        # ---- 11d: the host tier ---- #
+        setenv(HETU_KV_HOST_BYTES=str(TIER_HOST_BYTES))
+        router = ServingRouter(
+            lambda i: fleet_engine(torch, htt, p1, cfg,
+                                   pool_blocks=TIER_POOL_BLOCKS),
+            replicas=2)
+        if router.kv_tiers is None:
+            fail("11d: HETU_KV_HOST_BYTES built no tier store")
+        waves = ([4], list(range(8, n)), [5, 6, 7])
+        res = {}
+        for ids in waves:
+            res.update(router.run(fleet_requests(Request, spec, ids)))
+        spills = sum(r.engine.kv.spills for r in router.replicas)
+        st = router.kv_tiers.stats()
+        fetched = router.kv_tiers.fetches["host"]
+        if spills < 1 or fetched < 1:
+            fail(f"11d: {spills} spills, {fetched} host fetches: {st}")
+        ids = [i for w in waves for i in w]
+        fleet_tokens_equal(res, res32, ids, "11d vs phase 4")
+        log(f"  11d on {card}: pools of {TIER_POOL_BLOCKS} blocks, "
+            f"HETU_KV_HOST_BYTES {TIER_HOST_BYTES}: {spills} prefix spills "
+            f"into the host ring, {fetched} fetched back at admission "
+            f"({router.kv_tiers.fetch_bytes} B), "
+            f"{sum(r.engine.kv.prefix_hits for r in router.replicas)} "
+            f"prefix hits; the {len(ids)} requests' tokens == phase 4's")
+        del router
+        torch.cuda.empty_cache()
+    finally:
+        setenv(**env0)
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return st_fleet, wires, swap_ms
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -3087,6 +3484,13 @@ def main(argv=None):
     log("phase 10: MoE serving: the MoE GPT at GPT-2-small width through "
         "generate_fast and the engines")
     phase10(torch, htt, args.seed, spec, prompts, runs, card)
+
+    # ---- phase 11 ---- #
+    log("phase 11: the serving fleet: two replicas of phase 4's engine "
+        "behind the router (chaos kill, KV handoff over both wires, a "
+        "rolling weight swap, the host KV tier)")
+    phase11(torch, htt, cfg, args.seed, spec, res32,
+            runs["paged-mixed", "float32"][2], card)
 
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5

@@ -188,11 +188,13 @@ def _draft_cfg(cfg_tuple, draft_layers):
     return cfg_d if moe is None else cfg_d + (moe._replace(draft=True),)
 
 
-def _ffn_block(params, us, h, i, moe=None, valid=None, stats=None):
+def _ffn_block(params, us, h, i, moe=None, valid=None, stats=None,
+               moe_rows=None):
     """LN2 then the FFN of block ``i``, residual added: the dense wi ->
     gelu -> wo, or on an MoE block (``moe`` set and block ``i`` routed)
     ``moe_ffn`` over every position of the call flattened into one
-    routing block (capacity counts them all).  A draft spec returns
+    routing block (capacity counts them all, or ``moe_rows`` when the
+    caller passes the reference's padded count).  A draft spec returns
     ``h`` untouched.  ``valid`` (bool, h's leading shape, or None for
     all) keeps pad and inert positions out of routing; ``stats``
     accumulates the per-expert load and drop counts."""
@@ -203,7 +205,7 @@ def _ffn_block(params, us, h, i, moe=None, valid=None, stats=None):
         shp = x.shape
         vf = None if valid is None else valid.expand(shp[:-1]).reshape(-1)
         y = moe_ffn(params, us, x.reshape(-1, shp[-1]), moe, valid=vf,
-                    stats=stats)
+                    stats=stats, rows=moe_rows)
         return h + y.reshape(shp)
     x = _ln(h, params[f"{us}_ln2_scale"], params[f"{us}_ln2_bias"])
     f = _gelu_tanh(x @ params[f"{us}_ffn_wi_weight"]
@@ -387,11 +389,14 @@ def _sample_slots(logits, temperature, top_k, generators, live=None):
                         np.zeros(B, np.int32), q_len)[0][:, 0]
 
 
-def _prefill_forward(params, cfg_tuple, tokens, kv_lens, stats=None):
+def _prefill_forward(params, cfg_tuple, tokens, kv_lens, stats=None,
+                     moe_rows=None):
     """ONE full-prompt forward over a bucket-padded token block: every
     layer's K/V for all positions in one batched pass, attention through
     the flash kernel (causal + kv_lens).  tokens [N, P_b] (positions >=
-    kv_lens[n] are pad, kept out of MoE routing); kv_lens [N] int32.
+    kv_lens[n] are pad, kept out of MoE routing); kv_lens [N] int32;
+    moe_rows: the position count that sets MoE capacity (default
+    N x P_b; ``_ffn_block``).
     Returns (logits [N, V] f32 at each row's kv_lens-1, ks, vs [L, N,
     P_b, H, Dh])."""
     name, L, H, Dh = cfg_tuple[:4]
@@ -411,7 +416,7 @@ def _prefill_forward(params, cfg_tuple, tokens, kv_lens, stats=None):
         o = flash_attention(q, k, v, causal=True, kv_lens=kv_lens)
         o = o.reshape(N, P_b, hdim) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
-        h = _ffn_block(params, us, h + o, i, moe, valid, stats)
+        h = _ffn_block(params, us, h + o, i, moe, valid, stats, moe_rows)
         ks.append(k)
         vs.append(v)
     last = h[torch.arange(N, device=dev),
@@ -420,7 +425,7 @@ def _prefill_forward(params, cfg_tuple, tokens, kv_lens, stats=None):
 
 
 def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
-                  prompt_lens, block_tables=None, stats=None):
+                  prompt_lens, block_tables=None, stats=None, moe_rows=None):
     """ONE ``_prefill_forward`` over a group of prompts, each prompt's
     live positions written into its slot's cache row, or through its
     table row into its blocks.  Host arrays: slots [N], prompts [N, P_b]
@@ -434,7 +439,7 @@ def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
     logits, ks, vs = _prefill_forward(
         params, cfg_tuple,
         torch.from_numpy(np.asarray(prompts, np.int64)).to(dev),
-        torch.from_numpy(lens).to(dev), stats)
+        torch.from_numpy(lens).to(dev), stats, moe_rows)
     rows, cols = np.nonzero(np.arange(P_b)[None, :] < lens[:, None])
     r, c = (torch.from_numpy(a).to(dev) for a in (rows, cols))
     wa, wo = _kv_index(cache_k, block_tables,
@@ -446,18 +451,21 @@ def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
 
 def _serve_prefill_batch(params, cfg_tuple, cache_k, cache_v, slots,
                          prompts, prompt_lens, temperature, top_k,
-                         generators, block_tables=None, stats=None):
+                         generators, block_tables=None, stats=None,
+                         moe_rows=None):
     """Flash prefill of a group of same-bucket admissions
     (``_prefill_into``; the JAX package's ``_serve_prefill_batch`` and,
     with ``block_tables``, ``_serve_prefill_batch_paged``), then each row
     samples its first token from its own generator.  Host arrays as for
     ``_prefill_into``, plus temperature / top_k [N] and generators (None
     for greedy).  The group needs no pad rows: torch compiles no shape
-    ladder, so nothing writes a position twice (nor routes one: MoE
-    capacity counts N x P_b positions, where the JAX package's pad rows
-    count too).  Returns first tokens [N] int64 numpy."""
+    ladder, so nothing writes a position twice nor routes one.  The
+    JAX package's pad rows do count in its MoE capacity: the engine
+    passes that padded count as ``moe_rows`` (nb x P_b).  Returns first
+    tokens [N] int64 numpy."""
     logits = _prefill_into(params, cfg_tuple, cache_k, cache_v, slots,
-                           prompts, prompt_lens, block_tables, stats)
+                           prompts, prompt_lens, block_tables, stats,
+                           moe_rows)
     return _sample_slots(logits, temperature, top_k, generators)
 
 
@@ -481,7 +489,8 @@ def _serve_decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
 
 
 def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
-                         tokens, pos_off, sample=None, stats=None):
+                         tokens, pos_off, sample=None, stats=None,
+                         moe_rows=None):
     """One CHUNK of one slot's prompt into its blocks: ``tokens`` [C]
     int64 at positions ``pos_off .. pos_off+C-1``, attending to the
     slot's earlier positions and causally to itself.  This is both the
@@ -505,7 +514,9 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
     None on a mid-prompt one, which draws nothing: a request's generator
     is drawn once for its first token, as in the other paths.  Returns
     (first token int or None, logits [V] f32 after the chunk's last
-    position)."""
+    position).  ``moe_rows``: the position count that sets MoE capacity
+    (default C; the engine passes the JAX package's chunk bucket C_b,
+    since that engine pads the chunk to it)."""
     name, L, H, Dh = cfg_tuple[:4]
     moe = _moe_of(cfg_tuple)
     C = tokens.shape[0]
@@ -528,7 +539,8 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
                                    k_scale=ksc, v_scale=vsc)
         o = o.reshape(C, H * Dh) @ params[f"{us}_attn_proj_weight"] \
             + params[f"{us}_attn_proj_bias"]
-        h = _ffn_block(params, us, h + o, i, moe, stats=stats)
+        h = _ffn_block(params, us, h + o, i, moe, stats=stats,
+                       moe_rows=moe_rows)
     logits = _logits(params, name, h[C - 1])
     if sample is None:
         return None, logits

@@ -128,16 +128,22 @@ def moe_capacity(spec, num_tokens):
     return max(int(cap), spec.top_k)
 
 
-def moe_ffn(params, us, x, spec, valid=None, stats=None):
+def moe_ffn(params, us, x, spec, valid=None, stats=None, rows=None):
     """Top-k routed expert FFN over a flat token block.
 
     x: [T, D], the post-LN FFN input in the compute dtype; valid: [T]
     bool or None.  A False row (a pad position, an inert slot) neither
     routes nor claims capacity, so it never changes another row's
-    output.  Returns y [T, D]: each kept (token, rank) pair adds its
-    expert's output times the raw softmax gate (not renormalized, so
-    with ``top_k == num_experts`` the weights sum to 1); a dropped pair
-    and an invalid row add exactly 0.
+    output.  ``rows`` (default T) is the position count that sets the
+    capacity (``moe_capacity``): a caller whose JAX counterpart pads its
+    block (a prefill group to a pow2 row count, a chunk to its bucket)
+    passes the padded count, so that capacity, and with it every kept
+    and dropped pair, is the reference's without pad rows here.
+
+    Returns y [T, D]: each kept (token, rank) pair adds its expert's
+    output times the raw softmax gate (not renormalized, so with
+    ``top_k == num_experts`` the weights sum to 1); a dropped pair and
+    an invalid row add exactly 0.
 
     Routing runs in f32 on the compute-dtype gate weight; the expert
     products run in the compute dtype, and the gate-weighted sum of a
@@ -151,7 +157,7 @@ def moe_ffn(params, us, x, spec, valid=None, stats=None):
     layer."""
     E, k = spec.num_experts, spec.top_k
     T, D = x.shape
-    cap = moe_capacity(spec, T)
+    cap = moe_capacity(spec, T if rows is None else int(rows))
     dev = x.device
     gw = params[f"{us}_moe_gate_weight"].float()
     gates = torch.softmax(x.float() @ gw, dim=-1)              # [T, E]

@@ -42,8 +42,17 @@ speculation changes no output, sampled ones included.
   each call's device counts once, and stamps every step record with
   its routing (``serve.expert_*`` counters and gauges).
 
+- The serving fleet's seams (``router.py``, ``weight_sync.py``,
+  ``kv_tiers.py``): ``swap_params`` copies new weights into the resident
+  tensors between steps (addresses fixed; the draft shares them) and
+  ``set_weight_version`` stamps each admission and its ``Result``; a
+  paged engine with a ``tier_store`` fetches a prefix the tier ladder
+  holds at admission (``_tier_admit``); ``retire_hook`` sees a retiring
+  slot while it is live (the KV handoff's export).
+
 Not ported yet, and refused with NotImplementedError whether asked for
-by argument or environment variable: weight swaps and tiered KV (A7).
+by argument or environment variable: the parameter-server cold tier of
+tiered KV (``HETU_KV_PS_TIER``, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 
 from .. import envvars, telemetry
+from ..analysis import validate_serving
 from ..device import resolve_device
 from ..models.gpt_decode import (
     _accept_span, _draft_cfg, _infer_name, _model_params, _pow2,
@@ -65,6 +75,7 @@ from ..models.gpt_decode import (
 from ..models.moe_decode import moe_spec_of
 from ..telemetry import flight
 from ..telemetry import slo as slo_mod
+from ..weights import prep_param
 from .kv_manager import (KVCacheManager, PagedKVManager,
                          assemble_mixed_wave, resolve_kv_block,
                          resolve_kv_quant)
@@ -82,12 +93,22 @@ class QueueFull(RuntimeError):
 _STORM_REJECTS = 8
 
 
-def _refuse_unported(tier_store):
-    if tier_store is not None or envvars.get_int("HETU_KV_HOST_BYTES") \
-            or envvars.get_bool("HETU_KV_PS_TIER"):
+def _refuse_ps_tier():
+    if envvars.get_bool("HETU_KV_PS_TIER"):
         raise NotImplementedError(
-            "tiered KV (tier_store=, HETU_KV_HOST_BYTES, HETU_KV_PS_TIER) "
-            "is not ported yet (ROADMAP A7)")
+            "the parameter-server cold tier of tiered KV "
+            "(HETU_KV_PS_TIER) waits for the port's PS (ROADMAP A10)")
+
+
+def _shares_memory(t, src):
+    """True when tensor ``t`` lies in the memory of ``src`` (a tensor, or
+    a numpy array, which only a CPU tensor can share)."""
+    if isinstance(src, torch.Tensor):
+        return t.untyped_storage().data_ptr() == \
+            src.untyped_storage().data_ptr()
+    if t.device.type != "cpu" or t.dtype == torch.bfloat16:
+        return False    # numpy holds no bf16: such a tensor was converted
+    return np.may_share_memory(t.numpy(), np.asarray(src))
 
 
 def _moe_rates(load, drop):
@@ -129,6 +150,10 @@ class ServingEngine:
     ``steps``, ``peak_live``, prefix hits) count as the JAX engine's do
     with ``fast_path=True``.
 
+    tier_store: a ``kv_tiers.TieredKVStore`` wired into a paged pool
+    (``attach``): prefix evictions spill into it and admission fetches
+    from it.  A fleet's router wires its own store into every replica.
+
     spec (``$HETU_SPEC_K``): > 0 decodes speculatively — a draft of
     ``spec_draft_layers`` of the target's own blocks (default
     ``$HETU_SPEC_DRAFT_LAYERS`` or max(1, L // 4)) proposes up to
@@ -154,12 +179,22 @@ class ServingEngine:
         c = config
         self.device = resolve_device(device)
         block = resolve_kv_block(paged, kv_block)
-        _refuse_unported(tier_store)
+        _refuse_ps_tier()
         self.kv_quant = resolve_kv_quant(kv_quant)
         self.paged = block > 0
         self.ragged = resolve_serve_ragged(ragged)
         self._name = _infer_name(params, name)
         self.params = _model_params(params, self._name, self.device, dtype)
+        # the engine owns its resident tensors, since swap_params writes
+        # them in place: a tensor that shares memory with the caller's
+        # value (a CUDA tensor passed as is, an f32 numpy array on the
+        # CPU) is copied once here
+        for k, t in self.params.items():
+            if _shares_memory(t, params[k]):
+                self.params[k] = t.clone()
+        # static checks (HETU_VALIDATE=1): params against config before
+        # the cache is allocated (no-op when validation is off)
+        validate_serving(self.params, c, self._name)
         Dh = c.hidden_size // c.num_attention_heads
         want = int(max_seq_len or c.max_position_embeddings)
         cdtype = self.params[f"{self._name}_wte_table"].dtype
@@ -176,6 +211,8 @@ class ServingEngine:
         else:
             self.kv = KVCacheManager(**shape)
             self.chunk = 0
+        if tier_store is not None:
+            tier_store.attach(None, self.kv)
         # ---- an MoE config's spec rides the cfg_tuple ---- #
         self.moe = moe_spec_of(c)
         self.cfg_tuple = (self._name, c.num_hidden_layers,
@@ -211,6 +248,7 @@ class ServingEngine:
             self.slo = slo_mod.SLOMonitor.from_env(
                 emit_fn=self.metrics.event)
         self._reject_streak = 0
+        self._step_end = None     # mixed mode: when the last step ended
         B = self.kv.n_slots
         self._pos = np.zeros(B, np.int32)     # input position per slot
         self._tok = np.zeros(B, np.int32)     # next input token per slot
@@ -221,6 +259,12 @@ class ServingEngine:
         self._gen = [None] * B                # generated ids per slot
         self._prefill_off = np.zeros(B, np.int32)  # next prompt position
         self._prompt_arr = [None] * B              # to prefill
+        # live weight sync: the version the resident params are stamped
+        # with (None = unversioned) and each slot's ADMISSION version,
+        # which its Result reports
+        self.weight_version = None
+        self.last_swap_at = None
+        self._slot_version = [None] * B
         self.steps = 0
         # ---- speculative decoding (spec=/$HETU_SPEC_K) ---- #
         self.spec_k = resolve_spec_k(spec)
@@ -254,9 +298,59 @@ class ServingEngine:
             self._spec_prop = np.zeros(B, np.int64)
             self._spec_bonus = np.zeros(B, np.int64)
 
+    # ------------------------------------------------------------- #
+    # live weight sync (serving/weight_sync.py)
+    # ------------------------------------------------------------- #
+
+    def set_weight_version(self, version):
+        """Stamp the CURRENT params with ``version``: rides
+        ``metrics.tags`` so every later serve event carries
+        ``weight_version``."""
+        self.weight_version = int(version)
+        self.metrics.tags["weight_version"] = self.weight_version
+
     def swap_params(self, params, *, version=None):
-        raise NotImplementedError(
-            "live weight swaps are not ported yet (ROADMAP A7)")
+        """Replace the weights under the engine between steps, IN PLACE:
+        every new value is copied into its resident tensor (``copy_``,
+        in the resident dtype, through ``prep_param``'s conversion, so
+        the result equals a fresh engine's on the new params), so no
+        address changes and the draft, which shares the dict, swaps with
+        it.  The new dict must match the resident one key for key and
+        shape for shape; a corrupt push fails HERE, before any tensor
+        moves.  Call only on a drained engine (the coordinator's job):
+        live slots would mix versions mid-request.  A paged pool drops
+        its registered prefixes after the copy (``clear_prefixes``):
+        their KV came from the old weights, and a request attaching them
+        would decode the new weights over the old keys and values (the
+        JAX engine keeps them: ROADMAP Queue C, C5)."""
+        name = self._name
+        new = {}
+        for k, v in params.items():
+            if not k.startswith(name + "_"):
+                continue
+            old = self.params.get(k)
+            shape = tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
+            if old is not None and tuple(shape) != tuple(old.shape):
+                raise ValueError(
+                    f"swap_params: {k} has shape {tuple(shape)}, "
+                    f"resident is {tuple(old.shape)}")
+            new[k] = v
+        if set(new) != set(self.params):
+            missing = sorted(set(self.params) - set(new))
+            extra = sorted(set(new) - set(self.params))
+            raise ValueError(
+                f"swap_params key mismatch: missing {missing[:4]}, "
+                f"unexpected {extra[:4]}")
+        with torch.no_grad():
+            for k, v in new.items():
+                old = self.params[k]
+                old.copy_(prep_param(v, old.device, old.dtype))
+        if self.paged:
+            self.kv.clear_prefixes()
+        self.last_swap_at = time.perf_counter()
+        if version is not None:
+            self.set_weight_version(version)
+        self.metrics.event("weight_swap", version=self.weight_version)
 
     # ------------------------------------------------------------- #
     # MoE accounting
@@ -372,7 +466,11 @@ class ServingEngine:
         the scheduler dumps the flight recorder before propagating."""
         try:
             if self.ragged:
-                return self._step_mixed()
+                self._credit_away()
+                try:
+                    return self._step_mixed()
+                finally:
+                    self._step_end = time.perf_counter()
             if self.paged:
                 return self._step_paged()
             return self._step_contiguous()
@@ -385,6 +483,18 @@ class ServingEngine:
                 step=self.steps, live=len(self.kv.live()),
                 queue_depth=len(self._queue))
             raise
+
+    def _credit_away(self):
+        """Mixed mode: credit the wall time since the last step ended to
+        every request mid-prefill (``ServingMetrics.lc_away``) — time in
+        which the engine did not step at all (a fleet's router stepping
+        the peers), so no wave of this engine carries it."""
+        if self._step_end is None:
+            return
+        gap = time.perf_counter() - self._step_end
+        for s in self.kv.live():
+            if self._gen[s] is None:
+                self.metrics.lc_away(self._reqs[s].request_id, gap)
 
     def _put(self, a, dtype):
         """A host array as a tensor on the engine's device."""
@@ -399,6 +509,7 @@ class ServingEngine:
         """Slot state for a freshly admitted request whose prompt is
         written from position ``cached`` on."""
         self._reqs[slot] = req
+        self._slot_version[slot] = self.weight_version
         self._gen[slot] = None
         self._prompt_arr[slot] = np.asarray(req.prompt, np.int32)
         self._prefill_off[slot] = cached
@@ -441,6 +552,10 @@ class ServingEngine:
                 if self._defer_for_prefix(req):
                     self.metrics.lc_blocked(req.request_id)
                     break
+                # tiered KV: a prompt no local prefix covers may be
+                # warm in the tier ladder — fetch and import it now so
+                # the alloc below attaches the blocks
+                self._tier_admit(req)
                 t_a = time.perf_counter()
                 slot, cached = self.kv.alloc(
                     req.request_id, req.prompt,
@@ -456,6 +571,42 @@ class ServingEngine:
         if admitted:
             telemetry.inc("serve.admission_waves")
         return admitted
+
+    def _tier_admit(self, req):
+        """Tier miss-escalation at admission (serving/kv_tiers.py): when
+        the tier ladder holds a longer prefix of this prompt than the
+        pool does, fetch it and import it (``import_blocks``, prompt
+        re-registered), so the ``kv.alloc`` that follows attaches the
+        blocks refcounted — token-identical to the original prefill.
+        Local warmth always wins, and every failure (tier miss, chaos
+        corruption, a pool too full for the import) degrades to a cold
+        prefill, never an error.  Returns True when a span landed."""
+        store = getattr(self.kv, "tier_store", None)
+        if store is None or not self.kv.prefix_share:
+            return False
+        hit = store.lookup(req.prompt, self.kv.block)
+        if hit is None:
+            return False
+        toks, length, _tier = hit
+        _, cached = self.kv.match_prefix(req.prompt)
+        if cached >= length:
+            return False   # the pool already covers at least as much
+        payload = store.fetch(toks)
+        if payload is None:
+            return False
+        try:
+            slot = self.kv.import_blocks(
+                payload, f"{req.request_id}~tierfetch",
+                prompt=list(toks))
+        except ValueError:
+            slot = None
+        if slot is None:
+            store.note_import_failed()
+            return False
+        # the slot was only a write vehicle: the re-registered prefix
+        # keeps the blocks alive (refcounted) for this admission
+        self.kv.release(slot)
+        return True
 
     def _defer_for_prefix(self, req):
         """True when ``req`` should WAIT one step rather than duplicate
@@ -632,11 +783,13 @@ class ServingEngine:
             prompts[row, :P] = self._prompt_arr[slot]
             lens[row] = P
         st = self._moe_stats()
+        # MoE capacity counts the JAX engine's pow2-padded group
+        nb = min(_pow2(n), self.kv.n_slots)
         firsts = _serve_prefill_batch(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             np.asarray(group), prompts, lens, self._temp[group],
             self._topk[group], [self._gens[s] for s in group],
-            block_tables=self._tables(), stats=st)
+            block_tables=self._tables(), stats=st, moe_rows=nb * pb)
         self._moe_take(st, lens.sum())
         self.prefill_dispatches += 1
         dt = time.perf_counter() - t0
@@ -652,12 +805,16 @@ class ServingEngine:
         off, take, final = self._chunk_take(slot)
         t0 = time.perf_counter()
         st = self._moe_stats()
+        # MoE capacity counts the JAX engine's chunk bucket C_b
+        C_b = (min(_pow2(self.chunk, floor=8), self.kv.s_max)
+               if self.chunk > 0 else
+               self.kv.bucket_prompt(len(self._prompt_arr[slot]) - off))
         tok0, _ = _serve_prefill_chunk(
             self.params, self.cfg_tuple, self.kv.cache_k, self.kv.cache_v,
             self._put(self.kv.tables[slot], torch.int32),
             self._put(self._prompt_arr[slot][off:off + take], torch.int64),
             off, sample=((req.temperature, req.top_k, self._gens[slot])
-                         if final else None), stats=st)
+                         if final else None), stats=st, moe_rows=C_b)
         self._moe_take(st, take)
         self.prefill_dispatches += 1
         self.prefill_chunks += 1
@@ -1027,7 +1184,8 @@ class ServingEngine:
             n_generated=n, ttft_s=req.first_token_at - req.submitted_at,
             latency_s=now - req.submitted_at, slot=slot,
             spec_accepted=spec["accepted"] if spec else 0,
-            spec_proposed=spec["proposed"] if spec else 0)
+            spec_proposed=spec["proposed"] if spec else 0,
+            weight_version=self._slot_version[slot])
         self.metrics.record_finish(req.request_id, reason, n,
                                    res.latency_s, spec=spec)
         decode_s = now - req.first_token_at
@@ -1040,6 +1198,7 @@ class ServingEngine:
         self._reqs[slot] = None
         self._gen[slot] = None
         self._gens[slot] = None
+        self._slot_version[slot] = None
         self.kv.release(slot)
         return res
 

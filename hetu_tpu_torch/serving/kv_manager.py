@@ -20,8 +20,18 @@ package.
 
 The host logic is the JAX package's ``serving/kv_manager.py`` as it is;
 where the JAX manager rebuilt a donated cache (``.at[].set``), these
-write the tensors in place.  The fleet's block export/import is a later
-slice (ROADMAP A7).
+write the tensors in place.
+
+Replica-to-replica handoff (the serving fleet): ``export_blocks`` /
+``export_prefix`` gather a span of the cache on the device through a
+device index tensor and copy it to the host once per cache plane, as
+the wire payload dict of the JAX package (``layout``, ``block``,
+``length``, ``quant``, ``k``, ``v``, ``nbytes``, ``raw_nbytes``);
+``import_blocks`` writes a payload into the resident tensors with one
+indexed copy per plane, never a new pool.  An f32 wire is numpy f32, an
+int8 wire an (int8, f32 scales) numpy pair, byte for byte the JAX
+package's; a bf16 wire is a host ``torch.bfloat16`` tensor (numpy has no
+bf16; the JAX package ships ``ml_dtypes`` arrays of the same bytes).
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import envvars, telemetry
+from .. import envvars, quant, telemetry
 from ..device import resolve_device
 
 
@@ -89,10 +99,109 @@ def _planes(cache):
     return tuple(cache) if isinstance(cache, (tuple, list)) else (cache,)
 
 
-def _nbytes(*caches):
-    """Device bytes of the caches, scale planes included."""
-    return sum(t.numel() * t.element_size() for c in caches
-               for t in _planes(c))
+def cache_nbytes(cache):
+    """Bytes of a cache or wire value (a tensor or numpy array, or an
+    (int8 payload, scales) pair of them), scale planes included."""
+    if isinstance(cache, (tuple, list)):
+        return sum(cache_nbytes(a) for a in cache)
+    if isinstance(cache, torch.Tensor):
+        return cache.numel() * cache.element_size()
+    return int(cache.nbytes)
+
+
+def resolve_handoff_quant(mode=None):
+    """Replica-to-replica KV handoff WIRE selection.  "auto" (default,
+    ``$HETU_HANDOFF_QUANT``) ships the pool's native bytes — an int8
+    pool's (payload, scales) pair already IS the cheap wire, an exact
+    pool ships exact; "int8" forces an exact (f32/bf16) pool's export
+    through the per-head codec (:func:`quant.kv_encode`, ~4x fewer
+    bytes, small quantization error); "0"/"off" pins the exact wire.
+    Returns "auto", "int8", or None."""
+    if mode is None:
+        mode = envvars.get_str("HETU_HANDOFF_QUANT")
+    s = str(mode).strip().lower() if mode is not None else "auto"
+    if s in ("", "auto"):
+        return "auto"
+    if s in ("0", "off", "none", "false"):
+        return None
+    if s == "int8":
+        return "int8"
+    raise ValueError(f"unknown handoff quant mode {mode!r} "
+                     "(expected 'auto', 'int8', or 'off')")
+
+
+def _to_host(t):
+    """One device-to-host copy of a gathered plane: numpy for f32 and
+    int8, a host tensor for bf16 (numpy has no bf16)."""
+    t = t.cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _wire_repr(gathered, pool_quant, mode):
+    """Resolve one cache value gathered ON THE DEVICE to its host wire
+    form.  Returns (value, wire_quant) where ``value`` is an exact host
+    array (a host bf16 tensor for a bf16 pool) or an (int8, scales)
+    numpy pair and ``wire_quant`` is "int8" or None.  The int8 wire of
+    an exact pool is encoded on the device (``quant.kv_encode``, the
+    JAX codec bit for bit), so only the encoded bytes cross to the
+    host."""
+    if pool_quant:                      # native pair is already int8
+        return tuple(_to_host(a) for a in gathered), "int8"
+    if mode == "int8":
+        q, s = quant.kv_encode(gathered.float())
+        return (_to_host(q), _to_host(s)), "int8"
+    return _to_host(gathered), None
+
+
+def _to_device(a, device, dtype=None):
+    """A wire array (numpy or host tensor) as a tensor on ``device``."""
+    # a read-only array (a payload another process or package built)
+    # is copied once on the host; torch cannot share its memory
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.require(a, requirements=["C", "W"]))
+    return t.to(device=device, dtype=dtype)
+
+
+def _wire_to_pool(wire, wire_quant, pool_cache):
+    """Convert a wire value into the destination pool's representation
+    on its device: (q, scales) for an int8 pool, a tensor of the pool
+    dtype otherwise — requantizing an exact wire (on the device, so the
+    bytes are JAX's) or dequantizing an int8 wire as needed, so
+    handoffs compose across mixed-precision fleets."""
+    if isinstance(pool_cache, (tuple, list)):           # int8 pool
+        dev = pool_cache[0].device
+        if wire_quant:
+            return (_to_device(wire[0], dev, torch.int8),
+                    _to_device(wire[1], dev, torch.float32))
+        return quant.kv_encode(_to_device(wire, dev, torch.float32))
+    dev = pool_cache.device
+    if wire_quant:
+        vals = quant.kv_decode(_to_device(wire[0], dev),
+                               _to_device(wire[1], dev, torch.float32))
+    else:
+        vals = _to_device(wire, dev)
+    return vals.to(pool_cache.dtype)
+
+
+def _gather(cache, index):
+    """Every plane of one cache indexed on axis 1 by the device tensor
+    ``index`` (blocks or, for a slot row, (slot, positions)): a tensor
+    or an (int8, scales) pair, still on the device."""
+    if isinstance(cache, (tuple, list)):
+        return tuple(a[index] for a in cache)
+    return cache[index]
+
+
+def _host_payload(cache_k, cache_v, index, pool_quant, quant_mode):
+    """(k wire, v wire, wire quant, nbytes, raw_nbytes) of the span
+    ``index`` selects in both caches."""
+    mode = resolve_handoff_quant(quant_mode)
+    k, kq = _wire_repr(_gather(cache_k, index), pool_quant, mode)
+    v, _ = _wire_repr(_gather(cache_v, index), pool_quant, mode)
+    nbytes = cache_nbytes(k) + cache_nbytes(v)
+    shape = (k[0] if isinstance(k, tuple) else k).shape
+    raw = 2 * 4 * int(np.prod(tuple(shape)))     # f32-equivalent bytes
+    return k, v, kq, nbytes, raw
 
 
 def assemble_mixed_wave(n_slots, entries, q_floor=1):
@@ -218,7 +327,7 @@ class KVCacheManager:
     @property
     def cache_bytes(self):
         """Device bytes of the cache pair (scales included when int8)."""
-        return _nbytes(self.cache_k, self.cache_v)
+        return cache_nbytes(self.cache_k) + cache_nbytes(self.cache_v)
 
     def live(self):
         """Slot indices currently holding a sequence (ascending)."""
@@ -274,13 +383,50 @@ class KVCacheManager:
         self._free.append(slot)
         self._gauges()
 
+    # ------------------------------------------------------------- #
+    # replica-to-replica handoff (span export — paged parity)
+    # ------------------------------------------------------------- #
+
     def export_blocks(self, slot, quant_mode=None):
-        raise NotImplementedError(
-            "KV span export is not ported yet (ROADMAP A7)")
+        """Serialize ``slot``'s filled KV span to a host-side payload
+        (the contiguous parity of ``PagedKVManager.export_blocks``: one
+        dense ``[L, length, H, Dh]`` span per cache instead of a block
+        list).  A pure read."""
+        if self.owner[slot] is None:
+            raise ValueError(f"slot {slot} is free")
+        length = int(self.lengths[slot])
+        index = (slice(None), slot, slice(0, length))
+        k, v, kq, nbytes, raw = _host_payload(
+            self.cache_k, self.cache_v, index, self.quant, quant_mode)
+        return {"layout": "contiguous", "length": length,
+                "quant": kq, "k": k, "v": v,
+                "nbytes": nbytes, "raw_nbytes": raw}
 
     def import_blocks(self, payload, owner, *, reserve=None):
-        raise NotImplementedError(
-            "KV span import is not ported yet (ROADMAP A7)")
+        """Materialize an exported contiguous span into a fresh slot
+        (dequantizing/requantizing the wire into this cache's layout as
+        needed), written in place.  Returns the slot, or None when slots
+        are short."""
+        if payload.get("layout") != "contiguous":
+            raise ValueError(
+                f"cannot import a {payload.get('layout')!r} payload "
+                "into a contiguous manager")
+        length = int(payload["length"])
+        reserve = length if reserve is None else int(reserve)
+        if reserve < length:
+            raise ValueError(
+                f"reserve {reserve} below payload length {length}")
+        slot = self.alloc(owner, reserve)
+        if slot is None:
+            return None
+        self.lengths[slot] = length
+        wq = payload["quant"]
+        for name, key in (("cache_k", "k"), ("cache_v", "v")):
+            cache = getattr(self, name)
+            vals = _wire_to_pool(payload[key], wq, cache)
+            for t, val in zip(_planes(cache), _planes(vals)):
+                t[:, slot, :length] = val
+        return slot
 
 
 class _PrefixEntry:
@@ -360,7 +506,25 @@ class PagedKVManager:
         self.cow_copies = 0
         self.prefix_hits = 0
         self.evictions = 0
+        # fleet directory feed: the router's PrefixDirectory wires
+        # these so registrations/evictions on THIS replica become
+        # fleet-visible hints (None = standalone engine, no directory)
+        self.on_prefix_register = None   # fn(tokens, entry)
+        self.on_prefix_evict = None      # fn(tokens)
+        # tiered KV (serving/kv_tiers.py): eviction-to-tier instead of
+        # eviction-to-drop.  The spill hook gets the doomed prefix's
+        # wire payload BEFORE its blocks are freed; tier_store is the
+        # engine admission path's fetch handle.  Both None = drop on
+        # evict
+        self.on_prefix_spill = None      # fn(tokens, payload) -> bool
+        self.tier_store = None
+        self.spills = 0
         self.prefix_hit_tokens = 0       # recompute tokens saved
+        # replica-to-replica handoff accounting
+        self.exports = 0
+        self.imports = 0
+        self.export_bytes = 0
+        self.import_bytes = 0
 
     # ------------------------------------------------------------- #
 
@@ -386,7 +550,7 @@ class PagedKVManager:
     @property
     def cache_bytes(self):
         """Device bytes of the pool pair (scales included when int8)."""
-        return _nbytes(self.cache_k, self.cache_v)
+        return cache_nbytes(self.cache_k) + cache_nbytes(self.cache_v)
 
     @property
     def occupancy(self):
@@ -447,13 +611,20 @@ class PagedKVManager:
             if key in self._prefix:
                 self._clock += 1
                 self._prefix[key].used = self._clock
+                if self.on_prefix_register is not None:
+                    # re-registration refreshes the directory's
+                    # last-use stamp (TTL staleness tracks real use)
+                    self.on_prefix_register(key, self._prefix[key])
                 continue
             blocks = [int(b)
                       for b in self.tables[slot, :self.blocks_needed(n)]]
             for b in blocks:
                 self.ref[b] += 1
             self._clock += 1
-            self._prefix[key] = _PrefixEntry(key, blocks, n, self._clock)
+            e = _PrefixEntry(key, blocks, n, self._clock)
+            self._prefix[key] = e
+            if self.on_prefix_register is not None:
+                self.on_prefix_register(key, e)
         self._gauges()
 
     def _evict_for(self, need, keep=None):
@@ -465,6 +636,19 @@ class PagedKVManager:
             if not candidates:
                 break
             _, key = min(candidates)
+            if self.on_prefix_spill is not None:
+                # eviction-to-tier: serialize the doomed prefix while
+                # its blocks are still resident (export_prefix is a
+                # pure read) and offer it to the tier ladder; a
+                # declined spill proceeds as a plain drop
+                try:
+                    payload = self.export_prefix(key, count=False)
+                except ValueError:
+                    payload = None
+                if payload is not None \
+                        and self.on_prefix_spill(key, payload):
+                    self.spills += 1
+                    telemetry.inc("serve.prefix_spills")
             e = self._prefix.pop(key)
             for b in e.blocks:
                 self.ref[b] -= 1
@@ -472,6 +656,26 @@ class PagedKVManager:
                     self._free.append(b)
             self.evictions += 1
             telemetry.inc("serve.prefix_evictions")
+            if self.on_prefix_evict is not None:
+                self.on_prefix_evict(key)
+
+    def clear_prefixes(self):
+        """Drop every registered prefix, freeing the blocks only the
+        prefix cache held (no spill: the caller says the KV is stale).
+        The engine calls it on a weight swap, since a prefix's KV holds
+        the keys and values of the weights that computed it.  Returns
+        the count dropped."""
+        keys = list(self._prefix)
+        for key in keys:
+            e = self._prefix.pop(key)
+            for b in e.blocks:
+                self.ref[b] -= 1
+                if self.ref[b] == 0:
+                    self._free.append(b)
+            if self.on_prefix_evict is not None:
+                self.on_prefix_evict(key)
+        self._gauges()
+        return len(keys)
 
     # ------------------------------------------------------------- #
     # alloc / fork / release
@@ -600,9 +804,125 @@ class PagedKVManager:
         self._gauges()
 
     # ------------------------------------------------------------- #
+    # replica-to-replica handoff (block export / import)
+    # ------------------------------------------------------------- #
+
+    def export_blocks(self, slot, quant_mode=None):
+        """Serialize ``slot``'s FILLED blocks to a host-side payload a
+        peer replica can :meth:`import_blocks`.  Ships exactly
+        ``blocks_needed(length)`` blocks (the filled span, not the whole
+        reservation), as ``[L, n, block, H, Dh]`` host arrays — or the
+        (int8, scales) pair when the pool is int8 or the wire mode
+        forces int8 (:func:`resolve_handoff_quant`), ~4x fewer bytes
+        with scale planes moving in lockstep.  A pure read: refcounts,
+        tables and the prefix cache are untouched."""
+        if self.owner[slot] is None:
+            raise ValueError(f"slot {slot} is free")
+        length = int(self.lengths[slot])
+        n = self.blocks_needed(length)
+        return self._export_span(self.tables[slot, :n], length, quant_mode)
+
+    def export_prefix(self, tokens, quant_mode=None, *, count=True):
+        """Serialize a REGISTERED prefix's blocks to the same wire payload
+        as :meth:`export_blocks` — no live slot required (the prefix
+        cache holds its own refcounts), which is how a fleet moves warmth
+        without a resident request.  Returns None when the prefix is not
+        registered here (or sharing is off).  A pure read."""
+        if not self.prefix_share:
+            return None
+        e = self._prefix.get(tuple(int(t) for t in tokens))
+        if e is None:
+            return None
+        return self._export_span(e.blocks, int(e.length), quant_mode,
+                                 count=count)
+
+    def _export_span(self, blocks, length, quant_mode, *, count=True):
+        """Gather pool ``blocks`` into the wire payload: the block ids go
+        to the device as ONE index tensor, each cache plane is gathered
+        there and copied to the host once.  ``count=False`` keeps the
+        gather out of the handoff ledger (the tier-spill path: the tier
+        store keeps its own byte counters)."""
+        dev = _planes(self.cache_k)[0].device
+        idx = torch.as_tensor(np.asarray(blocks, np.int64), device=dev)
+        k, v, kq, nbytes, raw = _host_payload(
+            self.cache_k, self.cache_v, (slice(None), idx), self.quant,
+            quant_mode)
+        if count:
+            self.exports += 1
+            self.export_bytes += nbytes
+            telemetry.inc("serve.kv_export_bytes", nbytes)
+        return {"layout": "paged", "block": self.block, "length": length,
+                "quant": kq, "k": k, "v": v,
+                "nbytes": nbytes, "raw_nbytes": raw}
+
+    def import_blocks(self, payload, owner, *, reserve=None, prompt=None):
+        """Materialize an exported span into THIS pool: claims a slot
+        plus fresh blocks for ``reserve`` positions (default: the
+        payload's filled length), writes the wire blocks into the
+        resident pool tensors with one ``index_copy_`` per plane
+        (requantizing an exact wire into an int8 pool / dequantizing an
+        int8 wire into an exact pool as needed), and — given ``prompt``
+        — re-registers the prompt's prefix over the imported blocks so
+        later admissions here attach them refcounted.  Returns the slot,
+        or None when slots or blocks are short (backpressure, as
+        ``alloc``).  Block size and layout must match; a mismatch
+        raises."""
+        if payload.get("layout") != "paged":
+            raise ValueError(
+                f"cannot import a {payload.get('layout')!r} payload "
+                "into a paged manager")
+        if int(payload["block"]) != self.block:
+            raise ValueError(
+                f"payload block size {payload['block']} != pool block "
+                f"size {self.block}")
+        length = int(payload["length"])
+        reserve = length if reserve is None else int(reserve)
+        if reserve < length:
+            raise ValueError(
+                f"reserve {reserve} below payload length {length}")
+        if reserve > self.s_max:
+            raise ValueError(
+                f"sequence length {reserve} exceeds S_max {self.s_max}")
+        if not self._free_slots:
+            return None
+        n_pay = self.blocks_needed(length)
+        total = self.blocks_needed(reserve)
+        if len(self._free) < total:
+            self._evict_for(total)
+            if len(self._free) < total:
+                return None
+        slot = self._free_slots.pop()
+        row = []
+        for _ in range(total):
+            b = self._free.pop()
+            self.ref[b] = 1
+            row.append(b)
+        wq = payload["quant"]
+        dev = _planes(self.cache_k)[0].device
+        dst = torch.as_tensor(np.asarray(row[:n_pay], np.int64), device=dev)
+        for name, key in (("cache_k", "k"), ("cache_v", "v")):
+            cache = getattr(self, name)
+            vals = _wire_to_pool(payload[key], wq, cache)
+            for t, val in zip(_planes(cache), _planes(vals)):
+                t.index_copy_(1, dst, val)
+        self.tables[slot, :] = 0
+        self.tables[slot, :len(row)] = row
+        self.n_table[slot] = len(row)
+        self.owner[slot] = owner
+        self.lengths[slot] = length
+        self.total_allocs += 1
+        self.imports += 1
+        self.import_bytes += int(payload["nbytes"])
+        telemetry.inc("serve.kv_import_bytes", int(payload["nbytes"]))
+        if prompt is not None and len(prompt) <= length:
+            self.register_prefix(prompt, slot)
+        self._gauges()
+        return slot
+
+    # ------------------------------------------------------------- #
 
     def stats(self):
-        """JSON-able pool view."""
+        """JSON-able pool view (bench/telemetry surface)."""
         return {
             "block": self.block,
             "n_blocks": self.n_blocks,
@@ -613,6 +933,11 @@ class PagedKVManager:
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "cow_copies": self.cow_copies,
             "evictions": self.evictions,
+            "spills": self.spills,
+            "exports": self.exports,
+            "imports": self.imports,
+            "export_bytes": self.export_bytes,
+            "import_bytes": self.import_bytes,
             "quant": self.quant or "off",
             "cache_bytes": self.cache_bytes,
         }

@@ -70,7 +70,7 @@ class _Lifecycle:
 
     __slots__ = ("t_submit", "t_blocked", "t_claim", "kv_alloc_ms",
                  "prefill_ms", "t_first", "n_prefills", "hop_ms",
-                 "handoff_ms")
+                 "handoff_ms", "away_ms")
 
     def __init__(self, t_submit):
         self.t_submit = t_submit
@@ -82,6 +82,7 @@ class _Lifecycle:
         self.t_first = None       # first token landed
         self.hop_ms = 0.0         # router requeue hops before us
         self.handoff_ms = 0.0     # prefill->decode handoff detour
+        self.away_ms = 0.0        # mid-prefill, between engine steps
 
 
 class MetricsCore:
@@ -236,6 +237,15 @@ class ServingMetrics(MetricsCore):
             if count:
                 lc.n_prefills += 1
 
+    def lc_away(self, request_id, dt_s):
+        """Credit wall time that passed between two steps of the engine
+        while this request was mid-prefill: time the engine was not
+        stepping at all (a fleet router stepping its peers, a weight
+        swap's probe), which no wave can be credited with."""
+        lc = self._lc.get(request_id)
+        if lc is not None:
+            lc.away_ms += dt_s * 1e3
+
     def lc_handoff(self, request_id, handoff_ms):
         """Credit the prefill->decode disaggregation detour: wall time
         between the router flipping this request into its prefill
@@ -375,15 +385,18 @@ class ServingMetrics(MetricsCore):
         chunk_stall_ms = max(prefill_wall_ms - prefill_ms, 0.0)
         if self.mixed_mode:
             # unified wave: the whole ragged dispatch IS this request's
-            # prefill compute — any residue is host bookkeeping between
-            # claim and dispatch, noise-scale by construction.  Assert
-            # that (an accounting regression shows up HERE, not as a
-            # quietly wrong dashboard) and fold the component to 0.
-            assert chunk_stall_ms <= max(50.0, 0.5 * prefill_wall_ms), (
-                f"mixed-mode chunk_stall residue {chunk_stall_ms:.1f}ms "
+            # prefill compute — any residue past the time the engine
+            # spent between steps (``away_ms``: a fleet's router
+            # stepping the peers) is host bookkeeping between claim and
+            # dispatch, noise-scale by construction.  Assert that (an
+            # accounting regression shows up HERE, not as a quietly
+            # wrong dashboard); the stall that remains is the away time.
+            residue = chunk_stall_ms - lc.away_ms
+            assert residue <= max(50.0, 0.5 * prefill_wall_ms), (
+                f"mixed-mode chunk_stall residue {residue:.1f}ms "
                 f"of {prefill_wall_ms:.1f}ms prefill wall for "
                 f"{request_id}: wave attribution is broken")
-            chunk_stall_ms = 0.0
+            chunk_stall_ms = min(chunk_stall_ms, lc.away_ms)
         decode_ms = max(now - lc.t_first, 0.0) * 1e3 \
             if n_generated > 1 else 0.0
         ttft_ms = max(lc.t_first - lc.t_submit, 0.0) * 1e3

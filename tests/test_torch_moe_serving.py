@@ -290,9 +290,10 @@ def test_teacher_forced_logits_matches_jax(jx, model, fake_quant):
                                rtol=0)
 
 
-def _mk(Req):
+def _mk(Req, prompts=None):
     return [Req(request_id=str(i), prompt=pr, max_new_tokens=MAX_NEW,
-                temperature=0.0, seed=0) for i, pr in enumerate(PROMPTS)]
+                temperature=0.0, seed=0)
+            for i, pr in enumerate(PROMPTS if prompts is None else prompts)]
 
 
 def _tokens(res):
@@ -339,28 +340,40 @@ def test_engine_matches_jax(jx, model, offline_ref, config):
     _hold_invariant(teng, tcfg)
 
 
-@pytest.mark.parametrize("config", ["paged-mixed", "paged-split"])
-def test_binding_capacity(jx, model, monkeypatch, config):
+# prompts of 9-12 tokens: a group of three pads to four rows of 16 in
+# the JAX engine, which sets a larger capacity than the 3 x 16 live rows
+LONG_PROMPTS = [[5, 9, 2, 4, 6, 1, 3, 8, 7, 10],
+                [7, 1, 4, 3, 8, 2, 2, 9, 11, 5, 6, 3],
+                [11, 6, 1, 2, 3, 4, 5, 6, 7]]
+
+
+@pytest.mark.parametrize("prompts", ["short", "long"])
+@pytest.mark.parametrize("config",
+                         ["paged-mixed", "paged-split", "contiguous-split"])
+def test_binding_capacity(jx, model, monkeypatch, config, prompts):
     """capacity factor 0.25 ($HETU_MOE_CAPACITY) binds: tokens past
-    capacity are dropped, and the invariant holds on every step.  A
-    mixed wave flattens as many positions as the JAX engine's, so there
-    the counters and tokens equal JAX's as well; a phase-split prefill
-    group carries no pad rows here (it does in JAX: ROADMAP Queue C)."""
+    capacity are dropped, the invariant holds on every step, and the
+    counters and tokens equal the JAX engine's.  A phase-split prefill
+    group or chunk carries no pad rows here; it passes the JAX engine's
+    padded count (nb x P_b, or the chunk bucket) as the capacity count,
+    so the phase-split engines are held to JAX's flash-prefill
+    configuration (``fast_path=True``), whose padding that is."""
     monkeypatch.setenv("HETU_MOE_CAPACITY", "0.25")
     p, _, _, jcfg, tcfg = model
+    pr = PROMPTS if prompts == "short" else LONG_PROMPTS
     kw = ENGINES[config]
     teng = TServingEngine(p, tcfg, slots=4, name="moe", device="cpu", **kw)
     assert teng.moe.capacity_factor == 0.25
-    got = _tokens(teng.run(_mk(TRequest)))
+    got = _tokens(teng.run(_mk(TRequest, pr)))
     assert int(teng.expert_drops.sum()) > 0 and teng.expert_drop_rate > 0
     _hold_invariant(teng, tcfg)
-    if config == "paged-mixed":
-        jeng = jx.Engine(p, jcfg, slots=4, name="moe", fast_path=False,
-                         **kw)
-        want = _tokens(jeng.run(_mk(jx.Request)))
-        assert got == want
-        assert teng.expert_load.tolist() == jeng.expert_load.tolist()
-        assert teng.expert_drops.tolist() == jeng.expert_drops.tolist()
+    jeng = jx.Engine(p, jcfg, slots=4, name="moe",
+                     fast_path=config != "paged-mixed", **kw)
+    want = _tokens(jeng.run(_mk(jx.Request, pr)))
+    assert got == want
+    assert teng.expert_load.tolist() == jeng.expert_load.tolist()
+    assert teng.expert_drops.tolist() == jeng.expert_drops.tolist()
+    assert teng.moe_tokens == jeng.moe_tokens
 
 
 def test_draft_routes_nothing(model):

@@ -19,8 +19,10 @@ package's, on the CPU.
   JAX engine's under the teacher-forced margin gate.
 - Inside the port: engine greedy == offline ``generate_fast``; sampled
   outputs depend on the request alone (seed, prompt, settings), not on
-  slot or arrival order; every option not ported yet raises
-  NotImplementedError, whether asked for by argument or environment.
+  slot or arrival order; the one option not ported yet (the PS cold
+  tier of tiered KV, ROADMAP A10) raises NotImplementedError, whether
+  asked for by argument or environment, and the fleet seams refuse bad
+  input (test_torch_fleet_*.py, test_torch_weight_sync.py hold them).
 """
 
 import numpy as np
@@ -166,12 +168,21 @@ def test_kv_cache_manager_matches_jax():
 
 
 def test_kv_cache_manager_refuses_what_is_not_ported():
+    """Span export and import are ported (test_torch_fleet_wire.py);
+    what they refuse, they refuse as the JAX manager does: a free slot,
+    a paged payload, a reserve below the payload."""
     shape = dict(layers=1, heads=1, head_dim=4, slots=2, max_seq_len=16)
     kv = TKVCacheManager(device="cpu", **shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kv.export_blocks(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kv.import_blocks({}, "a")
+    jkv = KVCacheManager(**shape)
+    for m in (kv, jkv):
+        with pytest.raises(ValueError, match="free"):
+            m.export_blocks(0)
+        with pytest.raises(ValueError, match="paged"):
+            m.import_blocks({"layout": "paged"}, "a")
+        slot = m.alloc("a", 5)
+        pay = m.export_blocks(slot)
+        with pytest.raises(ValueError, match="reserve"):
+            m.import_blocks(pay, "b", reserve=2)
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -282,27 +293,38 @@ PR = dict(paged=True, ragged=True)
 
 
 @pytest.mark.parametrize("kw,env", [
-    (dict(PR, tier_store=object()), None),
-    (PR, ("HETU_KV_HOST_BYTES", "4096")),
+    (dict(PR, tier_store="ps"), None),
+    (PR, ("HETU_KV_PS_TIER", "1")),
 ], ids=["tiers", "env-tiers"])
 def test_unported_options_raise(model, monkeypatch, kw, env):
-    """Tiered KV is refused, by argument or environment variable, naming
-    ROADMAP (speculation, int8 KV and MoE configs are ported:
-    test_torch_moe_serving.py)."""
+    """The PS cold tier of tiered KV is refused, by argument (a store
+    asked for it) or environment variable, naming ROADMAP A10; the host
+    tier runs (test_torch_kv_tiers.py), as do speculation, int8 KV and
+    MoE configs (test_torch_moe_serving.py)."""
+    from hetu_tpu_torch.serving import TieredKVStore
     p, _, tcfg = model
     if env is not None:
         monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        if kw.get("tier_store") == "ps":
+            kw = dict(kw, tier_store=TieredKVStore(host_bytes=4096,
+                                                   ps_tier=True))
         TServingEngine(p, tcfg, device="cpu", **kw)
 
 
 def test_swap_params_and_spec_offline_raise(model):
-    """Weight swaps are not ported (offline speculation is, MoE configs
-    too: test_torch_moe_serving.py)."""
+    """Weight swaps are ported (test_torch_weight_sync.py): a push whose
+    keys do not match the resident params raises before any tensor
+    moves, and a matching push lands in place."""
     p, _, tcfg = model
     eng = TServingEngine(p, tcfg, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.swap_params(p)
+    with pytest.raises(ValueError, match="key mismatch"):
+        eng.swap_params({k: v for k, v in p.items()
+                         if not k.endswith("_wpe")})
+    ptr = eng.params["rg_wpe"].data_ptr()
+    eng.swap_params(p, version=3)
+    assert eng.weight_version == 3
+    assert eng.params["rg_wpe"].data_ptr() == ptr
 
 
 def test_queue_limit_backpressure(model):
