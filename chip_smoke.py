@@ -226,6 +226,27 @@ non-zero and prints no result line):
    evicted into the host ring (spills >= 1) and fetched back at a later
    admission (a counted fetch), the tokens equal phase 4's.
 
+12. The graph surface (``hetu_tpu_torch.graph``): the causal LM of
+   ``hetu_tpu_torch.train_long_context`` (``build_causal_lm``, the JAX
+   example's graph) at the example's full width: S 4096, B 1, hidden
+   768, 12 heads of 64, 4 layers, vocab 32000 (~81 M parameters), random
+   weights from ``--seed``, the example's fixed token stream.  12a: the
+   bf16 policy, flash attention, Adam 3e-4: one warm-up step and
+   ``LC_STEPS`` timed steps (step ms, tokens/s, peak memory, the first
+   and last loss: finite, the last below the first); every training
+   step launches K2, K3 dK/dV and K3 dQ exactly once a layer (the
+   executor runs each forward node once and answers its VJPOps from one
+   autograd call); three more steps under torch.profiler give the
+   device's busy share and its time by kernel kind.  12c: the subgraph ``[loss]`` without the optimizer
+   on the same executor: ``training`` off, K2 once a layer, no K3,
+   ``step`` unchanged.  12b: f32, one SGD step from 12a's weights
+   through the flash graph (K2 + K3) and through the same graph built
+   with ``--no-flash`` (the unfused chain, no kernel): the loss within
+   1e-5 relative, each variable's update (lr 1: its gradient) within
+   1e-4 of its largest, plus one f32 rounding of the new weight
+   (phase 8's gradient bounds, from K2's 1e-5 and K3's 1e-4 + 1e-4 rel;
+   k's bias, whose gradient is 0, to 1e-5 of the largest update).
+
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
 checks each serving configuration is run again under it (without and
@@ -251,6 +272,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3299,6 +3321,166 @@ def phase11(torch, htt, cfg, seed, spec, res32, st4, card):
     return st_fleet, wires, swap_ms
 
 
+# ---------------------------------------------------------------- #
+# phase 12: the graph surface
+# ---------------------------------------------------------------- #
+
+# the JAX example's width (examples/nlp/train_long_context.py defaults)
+LC = dict(batch=1, seq=4096, hidden=768, heads=12, layers_n=4, vocab=32000)
+LC_STEPS = 10
+LC_SGD_LR = 1.0
+
+
+class GraphTrainSteps:
+    """``train_gpt.profile_steps``' view of a graph executor's "train"
+    subgraph on one fixed feed: ``run`` ignores the batch it is given."""
+
+    def __init__(self, ex, feed):
+        self.ex, self.feed, self.device = ex, feed, ex.device
+
+    def run(self, _batch):
+        return self.ex.run("train", feed_dict=self.feed)
+
+
+def lc_executor(torch, ht, flash, mp, opt, seed):
+    """(executor, ids, labels) over ``build_causal_lm`` at LC with the
+    subgraphs "train" ([loss, opt.minimize(loss)]) and "eval" ([loss])."""
+    from hetu_tpu_torch.train_long_context import build_causal_lm
+    ids, labels, loss = build_causal_lm(use_flash=flash, **LC)
+    ex = ht.Executor({"train": [loss, opt.minimize(loss)], "eval": [loss]},
+                     mixed_precision=mp, seed=seed)
+    return ex, ids, labels
+
+
+def phase12(torch, htt, seed, card):
+    """12a bf16 Adam steps with exact launches, 12c the eval subgraph,
+    12b the f32 flash graph against the unfused one.  Returns the 12a
+    stats."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.train_long_context import fixed_stream
+    t_phase = time.perf_counter()
+    L = LC["layers_n"]
+    x, y = fixed_stream(LC["batch"], LC["seq"], LC["vocab"])
+    want_train = dict.fromkeys(launch_counts(), 0)
+    want_train.update(flash_attention=L, flash_attention_bwd_dkv=L,
+                      flash_attention_bwd_dq=L)
+    want_eval = dict.fromkeys(launch_counts(), 0)
+    want_eval.update(flash_attention=L)
+
+    # ---- 12a ---- #
+    t0 = time.perf_counter()
+    ex, ids, labels = lc_executor(
+        torch, ht, True, "bf16", ht.optim.AdamOptimizer(learning_rate=3e-4),
+        seed)
+    n_params = sum(v.numel() for v in ex.var_values.values())
+    log(f"  12a: causal LM S {LC['seq']} B {LC['batch']} hidden "
+        f"{LC['hidden']} {LC['heads']} heads {L} layers vocab "
+        f"{LC['vocab']}: {n_params} parameters, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    feed = {ids: x, labels: y}
+    losses, step_s = [], []
+    for i in range(LC_STEPS + 1):
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = ex.run("train", feed_dict=feed)[0]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        counts = launch_counts()
+        if counts != want_train:
+            fail(f"12a step {i}: launches {counts}, want {want_train}")
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        fail(f"12a: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"12a: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    step_ms = float(np.mean(step_s[1:])) * 1e3
+    toks = LC["batch"] * LC["seq"] / (step_ms / 1e3)
+    log(f"  12a on {card}: bf16 flash Adam, step {step_ms:.2f} ms (mean of "
+        f"{LC_STEPS} after a warm-up step of {step_s[0] * 1e3:.1f} ms; "
+        f"min {min(step_s[1:]) * 1e3:.2f}, max {max(step_s[1:]) * 1e3:.2f}), "
+        f"{toks:.1f} tokens/s, peak memory {peak} B "
+        f"({peak / 2 ** 30:.2f} GiB); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches a step {want_train['flash_attention']} "
+        f"K2, {L} K3 dK/dV, {L} K3 dQ")
+    # three more steps under torch.profiler: the device's busy share and
+    # its time by kernel kind
+    from hetu_tpu_torch.train_gpt import profile_steps
+    with tempfile.TemporaryDirectory() as prof_dir:
+        for line in profile_steps(GraphTrainSteps(ex, feed),
+                                  itertools.repeat((None, None)), 3,
+                                  prof_dir):
+            log(f"  12a {line}")
+
+    # ---- 12c ---- #
+    step_before = ex.step
+    reset_launches()
+    ev = float(ex.run("eval", feed_dict=feed)[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != want_eval:
+        fail(f"12c: eval launches {counts}, want {want_eval}")
+    if ex.step != step_before or not np.isfinite(ev):
+        fail(f"12c: step {step_before} -> {ex.step}, eval loss {ev}")
+    log(f"  12c: eval subgraph loss {ev:.4f}, launches {L} K2 and no K3, "
+        f"step stays {ex.step}")
+    weights = ex.return_tensor_values()
+    del ex
+    torch.cuda.empty_cache()
+
+    # ---- 12b ---- #
+    res = {}
+    for flash in (True, False):
+        reset_launches()
+        ex, ids, labels = lc_executor(
+            torch, ht, flash, None,
+            ht.optim.SGDOptimizer(learning_rate=LC_SGD_LR), seed)
+        ex.load_dict(weights)
+        loss = float(ex.run("train", feed_dict={ids: x, labels: y})[0])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = want_train if flash else dict.fromkeys(counts, 0)
+        if counts != want:
+            fail(f"12b flash={flash}: launches {counts}, want {want}")
+        res[flash] = (loss, {k: v.double() for k, v in ex.var_values.items()})
+        del ex
+        torch.cuda.empty_cache()
+    (lf, vf), (lu, vu) = res[True], res[False]
+    if not abs(lf - lu) <= 1e-5 * abs(lu):
+        fail(f"12b: flash loss {lf} vs unfused {lu} (rel 1e-5)")
+    upd = {k: (torch.from_numpy(weights[k]).to(v.device).double() - v)
+           / LC_SGD_LR for k, v in vu.items()}
+    g_max = max(float(u.abs().max()) for u in upd.values())
+    worst, worst_name = 0.0, None
+    for k, u in upd.items():
+        err = float((vf[k] - vu[k]).abs().max()) / LC_SGD_LR
+        # each side rounds w - lr g to f32 once: half an ulp of the
+        # largest |w| each
+        ulp = 2.0 ** -23 * float(vu[k].abs().max()) / LC_SGD_LR
+        if k.endswith("_attn_k_bias"):
+            if not err <= 1e-5 * g_max + ulp:
+                fail(f"12b: {k} flash vs unfused {err} (its gradient is "
+                     f"0; tol 1e-5 x {g_max} + {ulp})")
+            continue
+        scale = float(u.abs().max())
+        if not err <= 1e-4 * scale + ulp:
+            fail(f"12b: {k} flash vs unfused max abs err {err}, tol 1e-4 "
+                 f"x {scale} + {ulp}")
+        if err / (1e-4 * scale + ulp) > worst:
+            worst, worst_name = err / (1e-4 * scale + ulp), k
+    log(f"  12b: f32 one SGD step, flash (K2 + K3) vs unfused, {len(upd)} "
+        f"variables: loss {lf:.6f} vs {lu:.6f}; largest update error "
+        f"{worst:.3f} of its tolerance ({worst_name}; 1e-4 of the "
+        f"variable's largest update + one f32 rounding)")
+    log(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(step_ms=step_ms, tokens_per_s=toks, peak_bytes=peak,
+                losses=losses, params=n_params)
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -3491,6 +3673,12 @@ def main(argv=None):
         "rolling weight swap, the host KV tier)")
     phase11(torch, htt, cfg, args.seed, spec, res32,
             runs["paged-mixed", "float32"][2], card)
+
+    # ---- phase 12 ---- #
+    log("phase 12: the graph surface: train_long_context's causal LM at "
+        "the JAX example's full width (S 4096), bf16 flash steps, the eval "
+        "subgraph, f32 flash vs unfused")
+    phase12(torch, htt, args.seed, card)
 
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5

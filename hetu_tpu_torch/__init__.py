@@ -21,7 +21,15 @@ runs it:
 - ``parallel``: context parallelism over a mesh of named axes
   (``make_mesh``): ``ring_attention`` (the carried flash kernel on each
   live rotation), ``ulysses_attention`` and ``blockwise_attention``,
-  on virtual ranks of one device or under ``torch.distributed``.
+  on virtual ranks of one device or under ``torch.distributed``;
+- ``graph``: the dataflow-graph user surface of the JAX package
+  (``import hetu_tpu_torch.graph as ht``): op nodes and the dense op
+  factories, ``gradients``, ``ht.layers``, ``ht.init``,
+  ``ht.optim.*.minimize`` (with lazy row-sparse updates of embedding
+  tables) and ``ht.Executor`` over named subgraphs with node-keyed
+  feeds; ``flash_attention_op`` is K2 forward and K3 backward there.
+  ``python -m hetu_tpu_torch.train_long_context`` trains the JAX
+  example's long-context causal LM on it.
 
 Every TPU kernel on these paths is a CUDA C++ kernel for Hopper
 (``kernels/csrc``), built by ``nvcc`` at first use.  Entry points run on
@@ -29,7 +37,7 @@ the card unless the caller passes ``device="cpu"``, where the kernels'
 plain PyTorch versions run instead.
 """
 
-from . import parallel  # noqa: F401
+from . import graph, parallel  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .executor import Executor  # noqa: F401
 from .models import GPTConfig, GPTForCausalLM  # noqa: F401
@@ -38,5 +46,5 @@ from .serving import Request, ServingEngine  # noqa: F401
 from .weights import params_from_numpy  # noqa: F401
 
 __all__ = ["Executor", "GPTConfig", "GPTForCausalLM", "Request",
-           "ServingEngine", "generate_fast", "params_from_numpy",
+           "ServingEngine", "generate_fast", "graph", "params_from_numpy",
            "parallel", "resolve_device"]

@@ -12,13 +12,52 @@ package names them, ``m``/``v``/``acc``), and ``lr``/``step`` are 0-dim
 tensors on p's device, so the f32 arithmetic (``beta ** t`` included)
 is the JAX package's.  :meth:`Optimizer.apply` steps every parameter and
 writes the new values into the parameters in place, which spares a
-second copy of the model.  Row-sparse updates are not on this path
-(ROADMAP A10): the tied token table's gradient is dense.
+second copy of the model (the ``nn.Module`` trainer's path).
+
+The graph surface (``hetu_tpu_torch.graph``, which exports this module as
+``optim``): ``minimize(loss)`` builds the gradient nodes and an
+``OptimizerOp`` (``optimizer.py:343``), whose ``apply`` (:374) folds the
+global-norm clip into ``grad_scale`` and updates an embedding table
+from its IndexedSlices adjoint row-sparsely: duplicate ids merged
+(``merge_duplicate_rows``), then each optimizer's lazy
+``sparse_update_one`` (SGD :126, Momentum :158, AdaGrad :197, Adam :243,
+AdamW and Lamb), which leaves untouched rows and their slots as they
+were.  Parameter-server routing waits for A10.
 """
 
 from __future__ import annotations
 
+import hashlib
+
 import torch
+
+from .graph.autodiff import find_topo_sort, gradients
+from .graph.node import Op, TraceContext
+from .graph.ops_embed import IndexedSlicesOp
+from .graph.ops_misc import PlaceholderOp
+
+
+def merge_duplicate_rows(ids, rows):
+    """Sum the rows sharing an id so every duplicate carries the same
+    total (static shapes: duplicate positions stay, each with the merged
+    value), as ``optimizer.py:28`` does."""
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    totals = torch.zeros((uniq.numel(),) + tuple(rows.shape[1:]),
+                         dtype=rows.dtype, device=rows.device)
+    totals.index_add_(0, inv, rows)
+    return ids, totals[inv]
+
+
+def _scaled(g, scale):
+    """g * scale with the JAX promotion of an f32 0-dim array: a bf16 g
+    comes out f32."""
+    return g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+
+
+def _set_rows(t, ids, rows):
+    """A copy of t with ``rows`` written at ``ids`` (duplicate ids carry
+    equal rows)."""
+    return t.index_put((ids,), rows.to(t.dtype))
 
 
 class Optimizer:
@@ -29,12 +68,42 @@ class Optimizer:
         # in the JAX package: ``opt.clip_grad_norm = 1.0``
         self.clip_grad_norm = None
 
+    # ------------------------------------------------------------------ #
+    # graph-side API
+    # ------------------------------------------------------------------ #
+
+    def get_var_list(self, loss):
+        topo = find_topo_sort(loss if isinstance(loss, list) else [loss])
+        return [n for n in topo
+                if isinstance(n, PlaceholderOp) and n.trainable]
+
+    def minimize(self, loss, var_list=None):
+        if var_list is None:
+            var_list = self.get_var_list(loss)
+        grads = gradients(loss, var_list)
+        return OptimizerOp(grads, var_list, self)
+
+    # ------------------------------------------------------------------ #
+    # pure update functions
+    # ------------------------------------------------------------------ #
+
     def init_state_one(self, p):
         """Slot state of one parameter (None: stateless)."""
         return None
 
     def update_one(self, p, g, s, lr, step):
         raise NotImplementedError
+
+    def sparse_update_one(self, p, ids, rows, s, lr, step):
+        """Row-sparse update: the default densifies; the subclasses
+        update the touched rows only (lazy).  ``rows`` are merged per id
+        (duplicates carry the same summed row), so set-style writes are
+        safe."""
+        dense = _set_rows(torch.zeros_like(p), ids, rows)
+        return self.update_one(p, dense, s, lr, step)
+
+    def _sparse_l2(self, p, ids, rows):
+        return rows + self.l2reg * p[ids] if self.l2reg > 0 else rows
 
     def _apply_l2(self, p, g):
         return g + self.l2reg * p if self.l2reg > 0 else g
@@ -78,6 +147,10 @@ class SGDOptimizer(Optimizer):
     def update_one(self, p, g, s, lr, step):
         return p - lr * self._apply_l2(p, g), s
 
+    def sparse_update_one(self, p, ids, rows, s, lr, step):
+        rows = self._sparse_l2(p, ids, rows)
+        return _set_rows(p, ids, p[ids] - lr * rows), s
+
 
 class MomentumOptimizer(Optimizer):
     def __init__(self, learning_rate, momentum=0.9, nesterov=False,
@@ -96,6 +169,14 @@ class MomentumOptimizer(Optimizer):
             return p + self.momentum * v - lr * g, {"v": v}
         return p + v, {"v": v}
 
+    def sparse_update_one(self, p, ids, rows, s, lr, step):
+        """Lazy momentum: the velocity advances on the touched rows only."""
+        rows = self._sparse_l2(p, ids, rows)
+        v_rows = self.momentum * s["v"][ids] - lr * rows
+        v = _set_rows(s["v"], ids, v_rows)
+        upd = self.momentum * v_rows - lr * rows if self.nesterov else v_rows
+        return _set_rows(p, ids, p[ids] + upd), {"v": v}
+
 
 class AdaGradOptimizer(Optimizer):
     def __init__(self, learning_rate, initial_accumulator_value=0.0,
@@ -111,6 +192,12 @@ class AdaGradOptimizer(Optimizer):
         g = self._apply_l2(p, g)
         acc = s["acc"] + g * g
         return p - lr * g / (torch.sqrt(acc) + self.eps), {"acc": acc}
+
+    def sparse_update_one(self, p, ids, rows, s, lr, step):
+        rows = self._sparse_l2(p, ids, rows)
+        acc = _set_rows(s["acc"], ids, s["acc"][ids] + rows * rows)
+        denom = torch.sqrt(acc[ids]) + self.eps
+        return _set_rows(p, ids, p[ids] - lr * rows / denom), {"acc": acc}
 
 
 class AdamOptimizer(Optimizer):
@@ -144,6 +231,27 @@ class AdamOptimizer(Optimizer):
             vhat = v / (1 - self.beta2 ** t)
         return p - lr * mhat / (torch.sqrt(vhat) + self.epsilon), ns
 
+    def _sparse_moments(self, ids, rows, s):
+        m_rows = self.beta1 * s["m"][ids] + (1 - self.beta1) * rows
+        v_rows = self.beta2 * s["v"][ids] + (1 - self.beta2) * rows * rows
+        return m_rows, v_rows, {"m": _set_rows(s["m"], ids, m_rows),
+                                "v": _set_rows(s["v"], ids, v_rows)}
+
+    def sparse_update_one(self, p, ids, rows, s, lr, step):
+        """Lazy Adam: only the touched rows update their moments."""
+        rows = self._sparse_l2(p, ids, rows)
+        t = step + 1.0
+        m_rows, v_rows, ns = self._sparse_moments(ids, rows, s)
+        mhat = m_rows / (1 - self.beta1 ** t)
+        if self.amsgrad:
+            vmax_rows = torch.maximum(s["vmax"][ids], v_rows)
+            ns["vmax"] = _set_rows(s["vmax"], ids, vmax_rows)
+            vhat = vmax_rows / (1 - self.beta2 ** t)
+        else:
+            vhat = v_rows / (1 - self.beta2 ** t)
+        upd = -lr * mhat / (torch.sqrt(vhat) + self.epsilon)
+        return _set_rows(p, ids, p[ids] + upd), ns
+
 
 class AdamWOptimizer(AdamOptimizer):
     """Adam with decoupled weight decay."""
@@ -161,6 +269,16 @@ class AdamWOptimizer(AdamOptimizer):
         p = p - lr * (mhat / (torch.sqrt(vhat) + self.epsilon)
                       + self.weight_decay * p)
         return p, {"m": m, "v": v}
+
+    def sparse_update_one(self, p, ids, rows, s, lr, step):
+        """Lazy AdamW: the decoupled decay on the touched rows only."""
+        t = step + 1.0
+        m_rows, v_rows, ns = self._sparse_moments(ids, rows, s)
+        mhat = m_rows / (1 - self.beta1 ** t)
+        vhat = v_rows / (1 - self.beta2 ** t)
+        upd = -lr * (mhat / (torch.sqrt(vhat) + self.epsilon)
+                     + self.weight_decay * p[ids])
+        return _set_rows(p, ids, p[ids] + upd), ns
 
 
 class LambOptimizer(AdamOptimizer):
@@ -180,3 +298,95 @@ class LambOptimizer(AdamOptimizer):
         ratio = torch.where(wnorm > 0,
                             torch.where(unorm > 0, wnorm / unorm, one), one)
         return p - lr * ratio * update, {"m": m, "v": v}
+
+    def sparse_update_one(self, p, ids, rows, s, lr, step):
+        """Row-sparse Lamb: a trust ratio per touched row."""
+        m_rows, v_rows, ns = self._sparse_moments(ids, rows, s)
+        p_rows = p[ids]
+        upd = m_rows / (torch.sqrt(v_rows) + self.epsilon) \
+            + self.weight_decay * p_rows
+        wnorm = torch.linalg.vector_norm(p_rows, dim=-1, keepdim=True)
+        unorm = torch.linalg.vector_norm(upd, dim=-1, keepdim=True)
+        ratio = torch.where((wnorm > 0) & (unorm > 0), wnorm / unorm,
+                            torch.ones_like(wnorm))
+        return _set_rows(p, ids, p_rows - lr * ratio * upd), ns
+
+
+class OptimizerOp(Op):
+    """Terminal graph node applying the parameter updates.  The graph
+    executor hands it the evaluated gradients (an IndexedSlices adjoint
+    as its (ids, rows)); ``apply`` writes the new parameters into
+    ``tc.extra_outputs`` and returns the new slot states."""
+
+    def __init__(self, grads, var_list, optimizer):
+        super().__init__(*grads, name="Optimizer")
+        # checkpoint-stable name: the optimizer class and a digest of the
+        # variable names, not the global node-id counter
+        digest = hashlib.sha1(
+            "|".join(sorted(v.name for v in var_list)).encode()
+        ).hexdigest()[:10]
+        self.name = f"opt_{type(optimizer).__name__}_{digest}"
+        self.var_list = var_list
+        self.optimizer = optimizer
+        # sparse adjoints are consumed structurally, not evaluated densely
+        self.sparse_inputs = {i for i, g in enumerate(grads)
+                              if isinstance(g, IndexedSlicesOp)}
+
+    def compute(self, input_vals, tc: TraceContext):
+        raise AssertionError("OptimizerOp is handled by the executor")
+
+    @torch.no_grad()
+    def apply(self, grad_vals, tc: TraceContext, opt_state, grad_scale=None):
+        """grad_vals[i] is a dense tensor, or (ids, rows) for a sparse
+        input.  The global-norm clip (``clip_grad_norm``) folds into
+        ``grad_scale``; for sparse adjoints the norm sums the rows before
+        the duplicate ids merge (an upper bound when ids repeat).
+        Returns the new {var name: slot state}."""
+        opt = self.optimizer
+        dev = tc.params[self.var_list[0]].device
+        lr = torch.tensor(float(opt.learning_rate), dtype=torch.float32,
+                          device=dev)
+        step = torch.tensor(int(tc.step), dtype=torch.float32, device=dev)
+        clip = opt.clip_grad_norm
+        if clip is not None and clip <= 0:
+            raise ValueError(f"clip_grad_norm must be positive, got {clip}")
+        if grad_scale is not None:
+            grad_scale = torch.as_tensor(grad_scale, dtype=torch.float32,
+                                         device=dev)
+        if clip is not None:
+            sq = torch.zeros((), dtype=torch.float32, device=dev)
+            for i, g in enumerate(grad_vals):
+                rows = g[1] if i in self.sparse_inputs else g
+                sq = sq + torch.sum(rows.float() ** 2)
+            if grad_scale is not None:
+                sq = sq * grad_scale ** 2
+            factor = torch.clamp(clip / (torch.sqrt(sq) + 1e-6), max=1.0)
+            grad_scale = factor if grad_scale is None \
+                else grad_scale * factor
+        new_state = dict(opt_state)
+        for i, var in enumerate(self.var_list):
+            p = tc.params[var]
+            s = opt_state.get(var.name)
+            if i in self.sparse_inputs:
+                ids, rows = grad_vals[i]
+                ids = ids.long().reshape(-1)
+                rows = rows.reshape(-1, rows.shape[-1])
+                if grad_scale is not None:
+                    rows = _scaled(rows, grad_scale)
+                ids, rows = merge_duplicate_rows(ids, rows)
+                new_p, ns = opt.sparse_update_one(p, ids, rows, s, lr, step)
+            else:
+                g = grad_vals[i]
+                if grad_scale is not None:
+                    g = _scaled(g, grad_scale)
+                new_p, ns = opt.update_one(p, g.to(p.dtype), s, lr, step)
+            tc.extra_outputs[var] = new_p
+            new_state[var.name] = ns
+        return new_state
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def init_state(self, params):
+        return {var.name: self.optimizer.init_state_one(params[var])
+                for var in self.var_list}
