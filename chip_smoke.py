@@ -230,9 +230,13 @@ non-zero and prints no result line):
    ``hetu_tpu_torch.train_long_context`` (``build_causal_lm``, the JAX
    example's graph) at the example's full width: S 4096, B 1, hidden
    768, 12 heads of 64, 4 layers, vocab 32000 (~81 M parameters), random
-   weights from ``--seed``, the example's fixed token stream.  12a: the
+   weights from ``--seed``, the example's fixed token stream.  First,
+   bf16 K2 and K3 at the shape the graph gives them ([1, 4096, 12, 64],
+   causal), through ``FlashAttention`` as the graph calls it, against
+   their plain versions (phase 8's bounds).  12a: the
    bf16 policy, flash attention, Adam 3e-4: one warm-up step and
-   ``LC_STEPS`` timed steps (step ms, tokens/s, peak memory, the first
+   ``LC_STEPS`` timed steps (step ms, tokens/s, the graph's peak memory
+   above what was live before its executor, the first
    and last loss: finite, the last below the first); every training
    step launches K2, K3 dK/dV and K3 dQ exactly once a layer (the
    executor runs each forward node once and answers its VJPOps from one
@@ -3352,9 +3356,54 @@ def lc_executor(torch, ht, flash, mp, opt, seed):
     return ex, ids, labels
 
 
+def check_lc_kernels(torch, seed):
+    """bf16 K2 and K3's two kernels at the shape phase 12a gives them
+    ([1, 4096, 12, 64], causal, no kv_lens), through the call the graph
+    makes (``flash_attention``'s autograd Function: (o, lse) forward,
+    ``torch.autograd.grad`` of o), each against its plain version on the
+    same inputs: o by flash_compare and the lse within LSE_TOL, dq, dk
+    and dv by k3_compare from the kernel's (lse, delta), as phase 8's
+    training-shape check holds them.  Returns the log line's fields."""
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    dtype = "bfloat16"
+    B, S, Hn = LC["batch"], LC["seq"], LC["heads"]
+    D = LC["hidden"] // Hn
+    q, k, v, do = k3_inputs(torch, B, S, S, D, dtype, seed + 22, Hn)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    o, lse = fa.FlashAttention.apply(qg, kg, vg, None, True)
+    dq, dk, dv = torch.autograd.grad(o, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    o, lse = o.detach(), lse.detach()
+    o_r, lse_r = fa.flash_fwd_reference(q, k, v, causal=True)
+    err_o, ratio_o, ok = flash_compare(o, o_r, q, k, v, dtype, causal=True)
+    lse_err = float((lse - lse_r).abs().max())
+    if not ok or lse_err > LSE_TOL:
+        fail(f"K2 {dtype} at phase 12's shape [{B},{S},{Hn},{D}]: max abs "
+             f"err {err_o}, largest err / bound {ratio_o}, lse {lse_err} "
+             f"(lse {LSE_TOL})")
+    args = (q, k, v, None, lse, fa.bwd_delta(o, do), do)
+    wk, wv = fa.flash_bwd_dkv_reference(*args, causal=True)
+    wq = fa.flash_bwd_dq_reference(*args, causal=True)
+    errs = {}
+    for name, got, want in (("dq", dq, wq), ("dk", dk, wk), ("dv", dv, wv)):
+        errs[name], ok = k3_compare(got, want, dtype)
+        if not ok:
+            fail(f"K3 {name} {dtype} at phase 12's shape [{B},{S},{Hn},"
+                 f"{D}]: max abs err {errs[name]} ((atol, rtol) "
+                 f"{K3_TOL[dtype]}, atol scaled by max |want|)")
+    log(f"  12: K2 and K3 {dtype} at the graph's shape [{B},{S},{Hn},{D}] "
+        f"causal, through flash_attention's autograd Function, match "
+        f"their plain versions: o max abs err {err_o:.3e} (largest err / "
+        f"bound {ratio_o:.4f}, flash_compare), lse {lse_err:.3e}; dq "
+        f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} "
+        f"((atol, rtol) {K3_TOL[dtype]}, atol scaled by max |want|)")
+    return dict(o=err_o, ratio_o=ratio_o, lse=lse_err, **errs)
+
+
 def phase12(torch, htt, seed, card):
-    """12a bf16 Adam steps with exact launches, 12c the eval subgraph,
-    12b the f32 flash graph against the unfused one.  Returns the 12a
+    """bf16 K2 and K3 at the graph's shape against their plain versions,
+    12a bf16 Adam steps with exact launches, 12c the eval subgraph, 12b
+    the f32 flash graph against the unfused one.  Returns the 12a
     stats."""
     from hetu_tpu_torch import graph as ht
     from hetu_tpu_torch.kernels import launch_counts, reset_launches
@@ -3368,7 +3417,11 @@ def phase12(torch, htt, seed, card):
     want_eval = dict.fromkeys(launch_counts(), 0)
     want_eval.update(flash_attention=L)
 
+    check_lc_kernels(torch, seed)
+    torch.cuda.empty_cache()
+
     # ---- 12a ---- #
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     ex, ids, labels = lc_executor(
         torch, ht, True, "bf16", ht.optim.AdamOptimizer(learning_rate=3e-4),
@@ -3392,7 +3445,12 @@ def phase12(torch, htt, seed, card):
             fail(f"12a step {i}: launches {counts}, want {want_train}")
         if i == 0:
             torch.cuda.reset_peak_memory_stats()
-    peak = torch.cuda.max_memory_allocated()
+            at_reset = torch.cuda.memory_allocated()
+    # the graph's own memory: what the steps held at their peak above
+    # the allocation before the executor was built (weights, Adam's
+    # state and the step's transients), and the steps' transients alone
+    peak = torch.cuda.max_memory_allocated() - base
+    transient = torch.cuda.max_memory_allocated() - at_reset
     if not all(np.isfinite(losses)):
         fail(f"12a: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -3403,8 +3461,10 @@ def phase12(torch, htt, seed, card):
     log(f"  12a on {card}: bf16 flash Adam, step {step_ms:.2f} ms (mean of "
         f"{LC_STEPS} after a warm-up step of {step_s[0] * 1e3:.1f} ms; "
         f"min {min(step_s[1:]) * 1e3:.2f}, max {max(step_s[1:]) * 1e3:.2f}), "
-        f"{toks:.1f} tokens/s, peak memory {peak} B "
-        f"({peak / 2 ** 30:.2f} GiB); loss {losses[0]:.4f} -> "
+        f"{toks:.1f} tokens/s, peak memory of the graph {peak} B "
+        f"({peak / 2 ** 30:.2f} GiB above the {base} B allocated before "
+        f"the executor was built; the steps' transients {transient} B, "
+        f"{transient / 2 ** 30:.2f} GiB); loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; launches a step {want_train['flash_attention']} "
         f"K2, {L} K3 dK/dV, {L} K3 dQ")
     # three more steps under torch.profiler: the device's busy share and
@@ -3478,7 +3538,7 @@ def phase12(torch, htt, seed, card):
         f"variable's largest update + one f32 rounding)")
     log(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s")
     return dict(step_ms=step_ms, tokens_per_s=toks, peak_bytes=peak,
-                losses=losses, params=n_params)
+                transient_bytes=transient, losses=losses, params=n_params)
 
 
 def request_set(prompts, seed, V):

@@ -71,8 +71,7 @@ from .ops_embed import (
     unique_indices_op,
 )
 from .ops_attention import flash_attention_op, ring_attention_op
-from . import init, layers
-from .. import optimizer as optim
+from . import init, layers, optim
 from .executor import Executor, HetuConfig, SubExecutor, dataloader_op
 
 __all__ = [n for n in dir() if not n.startswith("_")

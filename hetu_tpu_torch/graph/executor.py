@@ -32,7 +32,10 @@ unless ``device="cpu"`` is passed:
 
 Parameter-server modes, meshes, pipelines, dataloader feeds,
 checkpoints, profiling and ``HETU_VALIDATE`` raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+naming the ROADMAP item that brings them, as does every other key of the
+JAX config set to other than its default; the JAX config's keys that
+change nothing there (``dtype``, ``enable_lazy``, ``train_name``,
+``val_name``, ``my_eval_nodes``, ``eval_node_list``) are not taken.
 """
 
 from __future__ import annotations
@@ -41,15 +44,12 @@ import numpy as np
 import torch
 
 from .. import envvars
-from .. import optimizer as _opt
 from ..device import resolve_device
+from . import optim as _opt
 from .autodiff import find_topo_sort
 from .node import Op, TraceContext, mix_seed
 from .ops_embed import IndexedSlicesOp
 from .ops_misc import PlaceholderOp, VJPOp, forward_with_leaves, vjp_of
-
-_POLICIES = {None: None, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-             torch.bfloat16: torch.bfloat16}
 
 
 def _numpy(t):
@@ -64,49 +64,52 @@ def _later(item, what):
         f"(ROADMAP {item})")
 
 
-class HetuConfig:
-    """The runtime config of the JAX package's ``HetuConfig``, for the
-    keys the single-device executor runs: ``seed``, ``mixed_precision``
-    (None or "bf16") and ``dtype``; ``comm_mode`` None/'AllReduce' (one
-    device: no reduction).  The knobs of the parameter server, meshes
-    and pipelines raise ``NotImplementedError`` when set."""
+# the JAX ``HetuConfig`` keys the single-device executor does not honour:
+# (default, the ROADMAP item that brings them).  Each may be passed at its
+# default; any other value raises NotImplementedError.
+_LATER_KEYS = {
+    "comm_mode": (None, "A10"), "cstable_policy": (None, "A10"),
+    "ps_comm": (None, "A10"), "use_sparse_pull": (True, "A10"),
+    "bsp": (-1, "A10"), "async_push": (False, "A10"),
+    "cache_bound": (100, "A10"),
+    "prefetch": (True, "A8 item 3"),
+    "dist_strategy": (None, "A9b"), "mesh": (None, "A9b"),
+    "pipeline": (None, "A9b"), "num_microbatches": (None, "A9b"),
+    "num_stages": (None, "A9b"), "sync_every": (None, "A9b"),
+    "non_batch_feeds": ((), "A9b"), "shard_pipeline_ends": (True, "A9b"),
+    "overlap": (True, "A9b"), "use_nccl_collectives": (True, "A9b"),
+    "use_preduce": (False, "A9b"),
+    "log_path": (None, "A11"),
+}
 
-    def __init__(self, eval_node_list=None, train_name=None, val_name=None,
-                 comm_mode=None, use_sparse_pull=True, cstable_policy=None,
-                 bsp=-1, prefetch=True, async_push=False, enable_lazy=False,
-                 cache_bound=100, log_path=None, my_eval_nodes=None,
-                 dist_strategy=None, pipeline=None, overlap=True,
-                 use_preduce=False, use_nccl_collectives=True, seed=0,
-                 mesh=None, num_microbatches=None, num_stages=None,
-                 sync_every=None, non_batch_feeds=(), dtype=torch.float32,
-                 mixed_precision=None, ps_comm=None,
-                 shard_pipeline_ends=True):
+
+class HetuConfig:
+    """The runtime config of the JAX package's ``HetuConfig`` for the
+    keys the single-device executor runs: ``seed`` and
+    ``mixed_precision`` (None or "bf16"); ``comm_mode`` "AllReduce" is
+    accepted (one device: no reduction).  Every other key of the JAX
+    config raises ``NotImplementedError`` naming its ROADMAP item unless
+    it is passed at its default."""
+
+    def __init__(self, seed=0, mixed_precision=None, **later):
+        comm_mode = later.get("comm_mode")
         if comm_mode not in (None, "AllReduce", "PS", "Hybrid"):
             raise ValueError(f"comm_mode must be None/'AllReduce'/'PS'/"
                              f"'Hybrid', got {comm_mode!r}")
-        if comm_mode in ("PS", "Hybrid"):
-            raise _later("A10", f"comm_mode={comm_mode!r}")
-        if cstable_policy is not None:
-            raise _later("A10", "cstable_policy")
-        if ps_comm is not None:
-            raise _later("A10", "ps_comm")
-        if dist_strategy is not None:
-            raise _later("A9b", "dist_strategy")
-        if mesh is not None:
-            raise _later("A9b", "mesh")
-        if pipeline is not None:
-            raise _later("A9b", f"pipeline={pipeline!r}")
-        if use_preduce:
-            raise NotImplementedError(
-                "use_preduce: drive parallel.preduce.PartialReduce "
-                "directly (host-coordinated subgroup mean over the PS)")
-        if mixed_precision not in _POLICIES:
+        for key, value in later.items():
+            if key not in _LATER_KEYS:
+                raise TypeError(f"HetuConfig got an unexpected key {key!r}")
+            default, item = _LATER_KEYS[key]
+            if key == "comm_mode" and value == "AllReduce":
+                continue
+            if value is not default and value != default:
+                raise _later(item, f"{key}={value!r}")
+        if mixed_precision not in (None, "bf16"):
             raise ValueError(f"mixed_precision {mixed_precision!r}: None or "
                              f"'bf16'")
-        self.comm_mode = comm_mode
         self.seed = seed
-        self.dtype = dtype
-        self.mixed_precision = _POLICIES[mixed_precision]
+        self.mixed_precision = None if mixed_precision is None \
+            else torch.bfloat16
 
 
 class _ParamView:

@@ -14,44 +14,17 @@ is the JAX package's.  :meth:`Optimizer.apply` steps every parameter and
 writes the new values into the parameters in place, which spares a
 second copy of the model (the ``nn.Module`` trainer's path).
 
-The graph surface (``hetu_tpu_torch.graph``, which exports this module as
-``optim``): ``minimize(loss)`` builds the gradient nodes and an
-``OptimizerOp`` (``optimizer.py:343``), whose ``apply`` (:374) folds the
-global-norm clip into ``grad_scale`` and updates an embedding table
-from its IndexedSlices adjoint row-sparsely: duplicate ids merged
-(``merge_duplicate_rows``), then each optimizer's lazy
-``sparse_update_one`` (SGD :126, Momentum :158, AdaGrad :197, Adam :243,
-AdamW and Lamb), which leaves untouched rows and their slots as they
-were.  Parameter-server routing waits for A10.
+Each ``sparse_update_one(p, ids, rows, s, lr, step)`` is the lazy
+row-sparse update of an embedding table from its IndexedSlices adjoint
+(SGD :126, Momentum :158, AdaGrad :197, Adam :243, AdamW and Lamb): the
+rows arrive merged per id, and untouched rows and their slots stay as
+they were.  The graph surface's ``minimize`` and ``OptimizerOp`` live in
+``hetu_tpu_torch.graph.optim``; this module knows nothing of the graph.
 """
 
 from __future__ import annotations
 
-import hashlib
-
 import torch
-
-from .graph.autodiff import find_topo_sort, gradients
-from .graph.node import Op, TraceContext
-from .graph.ops_embed import IndexedSlicesOp
-from .graph.ops_misc import PlaceholderOp
-
-
-def merge_duplicate_rows(ids, rows):
-    """Sum the rows sharing an id so every duplicate carries the same
-    total (static shapes: duplicate positions stay, each with the merged
-    value), as ``optimizer.py:28`` does."""
-    uniq, inv = torch.unique(ids, return_inverse=True)
-    totals = torch.zeros((uniq.numel(),) + tuple(rows.shape[1:]),
-                         dtype=rows.dtype, device=rows.device)
-    totals.index_add_(0, inv, rows)
-    return ids, totals[inv]
-
-
-def _scaled(g, scale):
-    """g * scale with the JAX promotion of an f32 0-dim array: a bf16 g
-    comes out f32."""
-    return g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
 
 
 def _set_rows(t, ids, rows):
@@ -67,21 +40,6 @@ class Optimizer:
         # max global gradient norm (None = off), set as an attribute as
         # in the JAX package: ``opt.clip_grad_norm = 1.0``
         self.clip_grad_norm = None
-
-    # ------------------------------------------------------------------ #
-    # graph-side API
-    # ------------------------------------------------------------------ #
-
-    def get_var_list(self, loss):
-        topo = find_topo_sort(loss if isinstance(loss, list) else [loss])
-        return [n for n in topo
-                if isinstance(n, PlaceholderOp) and n.trainable]
-
-    def minimize(self, loss, var_list=None):
-        if var_list is None:
-            var_list = self.get_var_list(loss)
-        grads = gradients(loss, var_list)
-        return OptimizerOp(grads, var_list, self)
 
     # ------------------------------------------------------------------ #
     # pure update functions
@@ -310,83 +268,3 @@ class LambOptimizer(AdamOptimizer):
         ratio = torch.where((wnorm > 0) & (unorm > 0), wnorm / unorm,
                             torch.ones_like(wnorm))
         return _set_rows(p, ids, p_rows - lr * ratio * upd), ns
-
-
-class OptimizerOp(Op):
-    """Terminal graph node applying the parameter updates.  The graph
-    executor hands it the evaluated gradients (an IndexedSlices adjoint
-    as its (ids, rows)); ``apply`` writes the new parameters into
-    ``tc.extra_outputs`` and returns the new slot states."""
-
-    def __init__(self, grads, var_list, optimizer):
-        super().__init__(*grads, name="Optimizer")
-        # checkpoint-stable name: the optimizer class and a digest of the
-        # variable names, not the global node-id counter
-        digest = hashlib.sha1(
-            "|".join(sorted(v.name for v in var_list)).encode()
-        ).hexdigest()[:10]
-        self.name = f"opt_{type(optimizer).__name__}_{digest}"
-        self.var_list = var_list
-        self.optimizer = optimizer
-        # sparse adjoints are consumed structurally, not evaluated densely
-        self.sparse_inputs = {i for i, g in enumerate(grads)
-                              if isinstance(g, IndexedSlicesOp)}
-
-    def compute(self, input_vals, tc: TraceContext):
-        raise AssertionError("OptimizerOp is handled by the executor")
-
-    @torch.no_grad()
-    def apply(self, grad_vals, tc: TraceContext, opt_state, grad_scale=None):
-        """grad_vals[i] is a dense tensor, or (ids, rows) for a sparse
-        input.  The global-norm clip (``clip_grad_norm``) folds into
-        ``grad_scale``; for sparse adjoints the norm sums the rows before
-        the duplicate ids merge (an upper bound when ids repeat).
-        Returns the new {var name: slot state}."""
-        opt = self.optimizer
-        dev = tc.params[self.var_list[0]].device
-        lr = torch.tensor(float(opt.learning_rate), dtype=torch.float32,
-                          device=dev)
-        step = torch.tensor(int(tc.step), dtype=torch.float32, device=dev)
-        clip = opt.clip_grad_norm
-        if clip is not None and clip <= 0:
-            raise ValueError(f"clip_grad_norm must be positive, got {clip}")
-        if grad_scale is not None:
-            grad_scale = torch.as_tensor(grad_scale, dtype=torch.float32,
-                                         device=dev)
-        if clip is not None:
-            sq = torch.zeros((), dtype=torch.float32, device=dev)
-            for i, g in enumerate(grad_vals):
-                rows = g[1] if i in self.sparse_inputs else g
-                sq = sq + torch.sum(rows.float() ** 2)
-            if grad_scale is not None:
-                sq = sq * grad_scale ** 2
-            factor = torch.clamp(clip / (torch.sqrt(sq) + 1e-6), max=1.0)
-            grad_scale = factor if grad_scale is None \
-                else grad_scale * factor
-        new_state = dict(opt_state)
-        for i, var in enumerate(self.var_list):
-            p = tc.params[var]
-            s = opt_state.get(var.name)
-            if i in self.sparse_inputs:
-                ids, rows = grad_vals[i]
-                ids = ids.long().reshape(-1)
-                rows = rows.reshape(-1, rows.shape[-1])
-                if grad_scale is not None:
-                    rows = _scaled(rows, grad_scale)
-                ids, rows = merge_duplicate_rows(ids, rows)
-                new_p, ns = opt.sparse_update_one(p, ids, rows, s, lr, step)
-            else:
-                g = grad_vals[i]
-                if grad_scale is not None:
-                    g = _scaled(g, grad_scale)
-                new_p, ns = opt.update_one(p, g.to(p.dtype), s, lr, step)
-            tc.extra_outputs[var] = new_p
-            new_state[var.name] = ns
-        return new_state
-
-    def gradient(self, output_grad):
-        raise NotImplementedError
-
-    def init_state(self, params):
-        return {var.name: self.optimizer.init_state_one(params[var])
-                for var in self.var_list}

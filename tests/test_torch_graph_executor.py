@@ -14,7 +14,9 @@ package's, on the CPU, from the same weights (the JAX executor's
   touched rows of the table and of its slots within 1e-5 (AdamW/Lamb
   1e-5 + 1e-5 rel), the untouched rows bit-equal;
 - duplicate variable names refused; the config keys of later ROADMAP
-  items raising ``NotImplementedError``;
+  items raising ``NotImplementedError`` unless at their defaults, the
+  JAX config's dropped keys and other policies than None and "bf16"
+  refused;
 - a node read by three VJPOps computes once per training step, and a
   flash attention node launches its forward and each backward kernel
   (their plain versions here) once per step.
@@ -262,14 +264,49 @@ def test_duplicate_variable_names_refused():
     ("comm_mode", "PS", "A10"),
     ("comm_mode", "Hybrid", "A10"),
     ("cstable_policy", "LRU", "A10"),
+    ("ps_comm", object(), "A10"),
+    ("use_sparse_pull", False, "A10"),
+    ("bsp", 0, "A10"),
+    ("async_push", True, "A10"),
+    ("cache_bound", 10, "A10"),
+    ("prefetch", False, "A8 item 3"),
     ("dist_strategy", object(), "A9b"),
     ("mesh", object(), "A9b"),
     ("pipeline", "gpipe", "A9b"),
+    ("num_microbatches", 4, "A9b"),
+    ("num_stages", 2, "A9b"),
+    ("sync_every", 2, "A9b"),
+    ("non_batch_feeds", ("mask",), "A9b"),
+    ("shard_pipeline_ends", False, "A9b"),
+    ("overlap", False, "A9b"),
+    ("use_nccl_collectives", False, "A9b"),
+    ("use_preduce", True, "A9b"),
+    ("log_path", "run.log", "A11"),
 ])
 def test_later_config_keys_raise(key, value, item):
     w = tm.init.zeros((2,), name="w")
     with pytest.raises(NotImplementedError, match=item):
         tm.Executor([w], device="cpu", **{key: value})
+
+
+def test_config_keys_at_their_defaults_are_accepted():
+    """The JAX config's keys at their defaults (and ``comm_mode``
+    "AllReduce") change nothing; keys the port drops, and policies
+    other than None and "bf16", are refused."""
+    cfg = tm.HetuConfig(comm_mode="AllReduce", use_sparse_pull=True, bsp=-1,
+                        prefetch=True, async_push=False, cache_bound=100,
+                        mesh=None, pipeline=None, non_batch_feeds=(),
+                        overlap=True, use_nccl_collectives=True,
+                        shard_pipeline_ends=True, log_path=None, seed=3)
+    assert cfg.seed == 3 and cfg.mixed_precision is None
+    assert tm.HetuConfig(mixed_precision="bf16").mixed_precision \
+        == torch.bfloat16
+    for key in ("dtype", "enable_lazy", "train_name", "my_eval_nodes"):
+        with pytest.raises(TypeError, match=key):
+            tm.HetuConfig(**{key: None})
+    for policy in ("bfloat16", torch.bfloat16, "fp16"):
+        with pytest.raises(ValueError, match="None or 'bf16'"):
+            tm.HetuConfig(mixed_precision=policy)
 
 
 @pytest.mark.parametrize("method,item", [

@@ -4,11 +4,10 @@ size (hidden 64, 2 heads of 32, 2 layers, vocab 200, B 2, S 16), f32,
 flash and unfused, from the JAX executor's initial values:
 
 - the losses of three Adam steps within 1e-5 relative;
-- every variable after them within 1e-5, except that Adam's eps 1e-7
-  turns a rounding-level gradient (k's bias has an exact 0 gradient:
-  softmax ignores a constant shift of a row of scores) into a +-lr
-  update a step, so elements within 3 lr count as agreeing when they are
-  at most 0.1% of all;
+- every variable after them within 1e-5, except k's bias: its exact
+  gradient is 0 (softmax ignores a constant shift of a row of scores),
+  and Adam's eps 1e-7 turns the rounding-level gradient each side
+  computes into a +-lr update a step, so it is held within 3 lr;
 - the embedding rows no token touched, and their Adam moments,
   bit-equal (the lazy row-sparse update leaves them alone).
 
@@ -74,13 +73,11 @@ def test_causal_lm_three_adam_steps_match_jax(use_flash):
     assert tex.step == 3
     jv, tv = jex.return_tensor_values(), tex.return_tensor_values()
     assert set(jv) == set(tv)
-    n_loose = n_all = 0
     for k in jv:
-        d = np.abs(tv[k] - jv[k])
-        assert d.max() <= 3 * LR, k
-        n_loose += int((d > 1e-5).sum())
-        n_all += d.size
-    assert n_loose <= 1e-3 * n_all, (n_loose, n_all)
+        d = float(np.abs(tv[k] - jv[k]).max())
+        # k's bias: Adam turns its rounding-level gradient into +-lr a step
+        tol = 3 * LR if k.endswith("_attn_k_bias") else 1e-5
+        assert d <= tol, (k, d, tol)
     untouched = np.setdiff1d(np.arange(VOCAB), x.ravel())
     assert len(untouched) > 100
     name = "lc_tok_emb_table"
