@@ -251,6 +251,35 @@ non-zero and prints no result line):
    (phase 8's gradient bounds, from K2's 1e-5 and K3's 1e-4 + 1e-4 rel;
    k's bias, whose gradient is 0, to 1e-5 of the largest update).
 
+13. BERT and the model zoo on the graph surface (``hetu_tpu_torch.models``).
+   13-pre: f32 and bf16 K2, K3 dK/dV and K3 dQ at BERT-base's shape
+   [8, 512, 12, 64], non-causal, kv_lens ``BERT_LENS`` (no tile divides
+   them but the full one; a sequence of one live key), through
+   ``FlashAttention`` and ``torch.autograd.grad`` as the graph calls
+   them, against their plain versions (phase 12's bounds), dk and dv
+   zero past kv_lens; each timed beside its bound over the live (q, k)
+   pairs and SDPA with the boolean key-padding mask.  13a:
+   ``BertForPreTraining`` at ``BertConfig.base`` (12 layers, hidden 768,
+   12 heads, FFN 3072, vocab 30522, ~110 M parameters), B 8, S 512,
+   hidden dropout 0.1, attention dropout 0, flash with kv_lens from the
+   seed (S/4 to S, one full), the bf16 policy, AdamW 1e-4 (weight decay
+   0.01): a warm-up step and ``BERT_STEPS`` timed ones on one synthetic
+   MLM/NSP batch (step ms, tokens/s, the graph's peak memory, launches
+   exactly 12 K2, 12 K3 dK/dV, 12 K3 dQ a step, the loss falling), then
+   three profiled.  13b: f32, 4 layers, dropout 0, one SGD step from
+   13a's weights, flash with kv_lens against the unfused graph under
+   the additive attention mask (12b's bounds).  13c:
+   ``BertMoEForPreTraining`` at ``examples/nlp/train_bert_moe.py``'s
+   defaults (8 experts, top-1, capacity 1.0, MoE every 2nd of 12 blocks,
+   B 8, S 128), flash with kv_lens, bf16 AdamW, ``MOE_STEPS`` steps:
+   step ms, the summed balance loss, every MoE block's expert load
+   summing to its tokens x k (kept min(load, capacity)), the loss
+   falling.  13d: three f32 steps of ResNet-18 (B 128, 32 x 32),
+   ``wdl_criteo`` (100000 features, embedding 128, B 128),
+   ``neural_mf``, ``transformer_mt`` and ``moe_mlp`` with the top-k and
+   the balanced-assignment gates, each at its example's defaults
+   (``ZOO``): the loss finite and falling, the wall of each step.
+
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
 checks each serving configuration is run again under it (without and
@@ -3356,48 +3385,152 @@ def lc_executor(torch, ht, flash, mp, opt, seed):
     return ex, ids, labels
 
 
-def check_lc_kernels(torch, seed):
-    """bf16 K2 and K3's two kernels at the shape phase 12a gives them
-    ([1, 4096, 12, 64], causal, no kv_lens), through the call the graph
-    makes (``flash_attention``'s autograd Function: (o, lse) forward,
+def check_flash_autograd(torch, dtype, seed, shape, causal, lens, what):
+    """K2 and K3's two kernels at ``shape`` [B, S, H, D] (``lens``: a
+    kv_lens int32 tensor or None), through the call the graph makes
+    (``flash_attention``'s autograd Function: (o, lse) forward,
     ``torch.autograd.grad`` of o), each against its plain version on the
-    same inputs: o by flash_compare and the lse within LSE_TOL, dq, dk
-    and dv by k3_compare from the kernel's (lse, delta), as phase 8's
-    training-shape check holds them.  Returns the log line's fields."""
+    same inputs: o by flash_compare and the lse of every row within
+    LSE_TOL, dq, dk and dv by k3_compare from the kernel's (lse, delta),
+    as phase 8's training-shape check holds them; with ``lens``, dk and
+    dv zero past each sequence's length.  Returns (the log line's
+    fields, (q, k, v, do), the K3 arguments (q, k, v, lens, lse, delta,
+    do))."""
     from hetu_tpu_torch.kernels import flash_attention as fa
-    dtype = "bfloat16"
-    B, S, Hn = LC["batch"], LC["seq"], LC["heads"]
-    D = LC["hidden"] // Hn
-    q, k, v, do = k3_inputs(torch, B, S, S, D, dtype, seed + 22, Hn)
+    B, S, Hn, D = shape
+    q, k, v, do = k3_inputs(torch, B, S, S, D, dtype, seed, Hn)
+    if lens is not None:
+        lens = lens.to(q.device)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    o, lse = fa.FlashAttention.apply(qg, kg, vg, None, True)
+    o, lse = fa.FlashAttention.apply(qg, kg, vg, lens, causal)
     dq, dk, dv = torch.autograd.grad(o, (qg, kg, vg), do)
     torch.cuda.synchronize()
     o, lse = o.detach(), lse.detach()
-    o_r, lse_r = fa.flash_fwd_reference(q, k, v, causal=True)
-    err_o, ratio_o, ok = flash_compare(o, o_r, q, k, v, dtype, causal=True)
+    o_r, lse_r = fa.flash_fwd_reference(q, k, v, causal=causal,
+                                        kv_lens=lens)
+    err_o, ratio_o, ok = flash_compare(o, o_r, q, k, v, dtype, causal=causal,
+                                       kv_lens=lens)
     lse_err = float((lse - lse_r).abs().max())
+    where = f"{what} [{B},{S},{Hn},{D}]"
     if not ok or lse_err > LSE_TOL:
-        fail(f"K2 {dtype} at phase 12's shape [{B},{S},{Hn},{D}]: max abs "
-             f"err {err_o}, largest err / bound {ratio_o}, lse {lse_err} "
-             f"(lse {LSE_TOL})")
-    args = (q, k, v, None, lse, fa.bwd_delta(o, do), do)
-    wk, wv = fa.flash_bwd_dkv_reference(*args, causal=True)
-    wq = fa.flash_bwd_dq_reference(*args, causal=True)
+        fail(f"K2 {dtype} at {where}: max abs err {err_o}, largest err / "
+             f"bound {ratio_o}, lse {lse_err} (lse {LSE_TOL})")
+    args = (q, k, v, lens, lse, fa.bwd_delta(o, do), do)
+    wk, wv = fa.flash_bwd_dkv_reference(*args, causal=causal)
+    wq = fa.flash_bwd_dq_reference(*args, causal=causal)
     errs = {}
     for name, got, want in (("dq", dq, wq), ("dk", dk, wk), ("dv", dv, wv)):
         errs[name], ok = k3_compare(got, want, dtype)
         if not ok:
-            fail(f"K3 {name} {dtype} at phase 12's shape [{B},{S},{Hn},"
-                 f"{D}]: max abs err {errs[name]} ((atol, rtol) "
-                 f"{K3_TOL[dtype]}, atol scaled by max |want|)")
-    log(f"  12: K2 and K3 {dtype} at the graph's shape [{B},{S},{Hn},{D}] "
-        f"causal, through flash_attention's autograd Function, match "
-        f"their plain versions: o max abs err {err_o:.3e} (largest err / "
-        f"bound {ratio_o:.4f}, flash_compare), lse {lse_err:.3e}; dq "
+            fail(f"K3 {name} {dtype} at {where}: max abs err {errs[name]} "
+                 f"((atol, rtol) {K3_TOL[dtype]}, atol scaled by max "
+                 f"|want|)")
+    for b, n in enumerate([] if lens is None else lens.tolist()):
+        if (dk[b, n:] != 0).any() or (dv[b, n:] != 0).any():
+            fail(f"K3 {dtype} at {where}: dk/dv of sequence {b} nonzero "
+                 f"past its kv_lens {n}")
+    log(f"  K2 and K3 {dtype} at {where}, "
+        f"{'causal' if causal else 'non-causal'}"
+        + ("" if lens is None else f", kv_lens {lens.tolist()}")
+        + f", through flash_attention's autograd Function, match their "
+        f"plain versions: o max abs err {err_o:.3e} (largest err / bound "
+        f"{ratio_o:.4f}, flash_compare), lse {lse_err:.3e}; dq "
         f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} "
-        f"((atol, rtol) {K3_TOL[dtype]}, atol scaled by max |want|)")
-    return dict(o=err_o, ratio_o=ratio_o, lse=lse_err, **errs)
+        f"((atol, rtol) {K3_TOL[dtype]}, atol scaled by max |want|)"
+        + ("" if lens is None else "; dk, dv zero past kv_lens"))
+    return dict(o=err_o, ratio_o=ratio_o, lse=lse_err, **errs), \
+        (q, k, v, do), args
+
+
+def check_lc_kernels(torch, seed):
+    """bf16 K2 and K3's two kernels at the shape phase 12a gives them
+    ([1, 4096, 12, 64], causal, no kv_lens) against their plain versions
+    (``check_flash_autograd``).  Returns the log line's fields."""
+    Hn = LC["heads"]
+    shape = (LC["batch"], LC["seq"], Hn, LC["hidden"] // Hn)
+    return check_flash_autograd(torch, "bfloat16", seed + 22, shape, True,
+                                None, "phase 12's shape")[0]
+
+
+def flash_launches(counts, layers, steps=1):
+    """``counts`` (launch_counts' keys) all 0 but K2, K3 dK/dV and K3 dQ,
+    ``layers`` x ``steps`` each."""
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=layers * steps,
+                flash_attention_bwd_dkv=layers * steps,
+                flash_attention_bwd_dq=layers * steps)
+    return want
+
+
+def graph_steps(torch, ex, feed, steps, want, tag):
+    """A warm-up run and ``steps`` more of the executor's "train"
+    subgraph on one feed, each launching exactly ``want``; the peak
+    memory counter is reset after the warm-up.  The loss (output 0) must
+    stay finite and end below where it started.  Returns (outputs of
+    each run, seconds of each run, bytes allocated at the reset, the
+    launches of all the runs)."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    outs, secs = [], []
+    total = collections.Counter()
+    for i in range(steps + 1):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = ex.run("train", feed_dict=feed)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+        counts = launch_counts()
+        if counts != want:
+            fail(f"{tag} step {i}: launches {counts}, want {want}")
+        total.update(counts)
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            at_reset = torch.cuda.memory_allocated()
+    losses = [float(o[0]) for o in outs]
+    if not all(np.isfinite(losses)):
+        fail(f"{tag}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    return outs, secs, at_reset, total
+
+def compare_sgd_updates(torch, weights, res, lr, tag):
+    """Hold the flash graph's one SGD step to the unfused graph's:
+    ``res`` {True: flash, False: unfused} of (loss, {name: f64 variable
+    after the step}), both from ``weights``.  The losses within 1e-5
+    relative; each variable's update (weights - after) / lr within 1e-4
+    of that variable's largest update plus one f32 rounding of its
+    largest |w| (each side rounds w - lr g once); the attention k bias,
+    whose gradient is 0, within 1e-5 of the largest update of any
+    variable.  Logs the worst error over its tolerance."""
+    (lf, vf), (lu, vu) = res[True], res[False]
+    if not abs(lf - lu) <= 1e-5 * abs(lu):
+        fail(f"{tag}: flash loss {lf} vs unfused {lu} (rel 1e-5)")
+    upd = {k: (torch.from_numpy(weights[k]).to(v.device).double() - v)
+           / lr for k, v in vu.items()}
+    g_max = max(float(u.abs().max()) for u in upd.values())
+    worst, worst_name = 0.0, None
+    for k, u in upd.items():
+        err = float((vf[k] - vu[k]).abs().max()) / lr
+        # each side rounds w - lr g to f32 once: half an ulp of the
+        # largest |w| each
+        ulp = 2.0 ** -23 * float(vu[k].abs().max()) / lr
+        if k.endswith("_attn_k_bias"):
+            if not err <= 1e-5 * g_max + ulp:
+                fail(f"{tag}: {k} flash vs unfused {err} (its gradient is "
+                     f"0; tol 1e-5 x {g_max} + {ulp})")
+            continue
+        scale = float(u.abs().max())
+        if not err <= 1e-4 * scale + ulp:
+            fail(f"{tag}: {k} flash vs unfused max abs err {err}, tol 1e-4 "
+                 f"x {scale} + {ulp}")
+        if err / (1e-4 * scale + ulp) > worst:
+            worst, worst_name = err / (1e-4 * scale + ulp), k
+    log(f"  {tag}: f32 one SGD step, flash (K2 + K3) vs unfused, {len(upd)} "
+        f"variables: loss {lf:.6f} vs {lu:.6f}; largest update error "
+        f"{worst:.3f} of its tolerance ({worst_name}; 1e-4 of the "
+        f"variable's largest update + one f32 rounding)")
+    return worst
 
 
 def phase12(torch, htt, seed, card):
@@ -3411,9 +3544,7 @@ def phase12(torch, htt, seed, card):
     t_phase = time.perf_counter()
     L = LC["layers_n"]
     x, y = fixed_stream(LC["batch"], LC["seq"], LC["vocab"])
-    want_train = dict.fromkeys(launch_counts(), 0)
-    want_train.update(flash_attention=L, flash_attention_bwd_dkv=L,
-                      flash_attention_bwd_dq=L)
+    want_train = flash_launches(launch_counts(), L)
     want_eval = dict.fromkeys(launch_counts(), 0)
     want_eval.update(flash_attention=L)
 
@@ -3432,30 +3563,14 @@ def phase12(torch, htt, seed, card):
         f"{LC['vocab']}: {n_params} parameters, built in "
         f"{time.perf_counter() - t0:.2f} s")
     feed = {ids: x, labels: y}
-    losses, step_s = [], []
-    for i in range(LC_STEPS + 1):
-        reset_launches()
-        t0 = time.perf_counter()
-        loss = ex.run("train", feed_dict=feed)[0]
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-        counts = launch_counts()
-        if counts != want_train:
-            fail(f"12a step {i}: launches {counts}, want {want_train}")
-        if i == 0:
-            torch.cuda.reset_peak_memory_stats()
-            at_reset = torch.cuda.memory_allocated()
+    outs, step_s, at_reset, _ = graph_steps(torch, ex, feed, LC_STEPS,
+                                            want_train, "12a")
+    losses = [float(o[0]) for o in outs]
     # the graph's own memory: what the steps held at their peak above
     # the allocation before the executor was built (weights, Adam's
     # state and the step's transients), and the steps' transients alone
     peak = torch.cuda.max_memory_allocated() - base
     transient = torch.cuda.max_memory_allocated() - at_reset
-    if not all(np.isfinite(losses)):
-        fail(f"12a: a loss is not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"12a: the last loss {losses[-1]} is not below the first "
-             f"{losses[0]}")
     step_ms = float(np.mean(step_s[1:])) * 1e3
     toks = LC["batch"] * LC["seq"] / (step_ms / 1e3)
     log(f"  12a on {card}: bf16 flash Adam, step {step_ms:.2f} ms (mean of "
@@ -3509,36 +3624,431 @@ def phase12(torch, htt, seed, card):
         res[flash] = (loss, {k: v.double() for k, v in ex.var_values.items()})
         del ex
         torch.cuda.empty_cache()
-    (lf, vf), (lu, vu) = res[True], res[False]
-    if not abs(lf - lu) <= 1e-5 * abs(lu):
-        fail(f"12b: flash loss {lf} vs unfused {lu} (rel 1e-5)")
-    upd = {k: (torch.from_numpy(weights[k]).to(v.device).double() - v)
-           / LC_SGD_LR for k, v in vu.items()}
-    g_max = max(float(u.abs().max()) for u in upd.values())
-    worst, worst_name = 0.0, None
-    for k, u in upd.items():
-        err = float((vf[k] - vu[k]).abs().max()) / LC_SGD_LR
-        # each side rounds w - lr g to f32 once: half an ulp of the
-        # largest |w| each
-        ulp = 2.0 ** -23 * float(vu[k].abs().max()) / LC_SGD_LR
-        if k.endswith("_attn_k_bias"):
-            if not err <= 1e-5 * g_max + ulp:
-                fail(f"12b: {k} flash vs unfused {err} (its gradient is "
-                     f"0; tol 1e-5 x {g_max} + {ulp})")
-            continue
-        scale = float(u.abs().max())
-        if not err <= 1e-4 * scale + ulp:
-            fail(f"12b: {k} flash vs unfused max abs err {err}, tol 1e-4 "
-                 f"x {scale} + {ulp}")
-        if err / (1e-4 * scale + ulp) > worst:
-            worst, worst_name = err / (1e-4 * scale + ulp), k
-    log(f"  12b: f32 one SGD step, flash (K2 + K3) vs unfused, {len(upd)} "
-        f"variables: loss {lf:.6f} vs {lu:.6f}; largest update error "
-        f"{worst:.3f} of its tolerance ({worst_name}; 1e-4 of the "
-        f"variable's largest update + one f32 rounding)")
+    compare_sgd_updates(torch, weights, res, LC_SGD_LR, "12b")
     log(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s")
     return dict(step_ms=step_ms, tokens_per_s=toks, peak_bytes=peak,
                 transient_bytes=transient, losses=losses, params=n_params)
+
+
+# ---------------------------------------------------------------- #
+# phase 13: BERT and the model zoo on the graph surface
+# ---------------------------------------------------------------- #
+
+# BERT-base pretraining at its 512 positions (BertConfig.base: 12 layers,
+# hidden 768, 12 heads of 64, FFN 3072, vocab 30522)
+BERT = dict(batch_size=8, seq_len=512)
+BERT_STEPS = 10
+BERT_SGD_LR = 1.0
+BERT_SGD_LAYERS = 4
+# 13-pre: K2/K3 at BERT's [8, 512, 12, 64], non-causal, kv_lens that no
+# tile divides but the full one, down to a single live key (CLS alone)
+BERT_SHAPE = (8, 512, 12, 64)
+BERT_LENS = np.array([512, 384, 257, 130, 64, 17, 2, 1], np.int32)
+# BertMoE-base: examples/nlp/train_bert_moe.py's defaults
+BERT_MOE = dict(num_experts=8, top_k=1, capacity_factor=1.0, moe_every=2,
+                num_hidden_layers=12, hidden_size=768, num_attention_heads=12,
+                intermediate_size=3072, vocab_size=30522, batch_size=8,
+                seq_len=128)
+MOE_STEPS = 3
+# 13d: each family at its example's defaults (examples/cnn/main.py,
+# examples/ctr/run_hetu.py, examples/rec/run_hetu.py,
+# examples/nlp/train_transformer.py, examples/moe/train_moe.py), but
+# NCF's learning rate
+ZOO = dict(
+    resnet=dict(batch=128, lr=0.1),
+    ctr=dict(batch=128, feature_dimension=100000, embedding_size=128),
+    # NCF at the JAX test's lr (tests/test_models.py): at the example's
+    # 0.01 its f32 loss stays 0.6931467652320862 for three steps
+    ncf=dict(batch=1024, num_users=6040, num_items=3706, lr=0.5),
+    mt=dict(vocab=64, hidden=64, layers=2, heads=4, ffn=128, batch=32,
+            seq=12, lr=1e-3),
+    moe=dict(batch_size=16, num_tokens=1024, model_dim=2048,
+             hidden_size=2048, num_local_experts=2, top_k=2, lr=0.01))
+ZOO_STEPS = 3
+
+
+def check_bert_kernels(torch, F, dtype, seed):
+    """K2 and K3's two kernels at BERT-base's shape (``BERT_SHAPE``),
+    non-causal with ``BERT_LENS``, against their plain versions
+    (``check_flash_autograd``: rows past kv_lens attend to the live keys
+    too; dk and dv zero past it).  Then each kernel timed beside its
+    plain version, its bound over the live (q, k) pairs (live K and V
+    rows read, every output written) and SDPA with the boolean
+    key-padding mask (its forward for K2, its backward for K3).
+    Returns {"fwd", "dkv", "dq": result}."""
+    from hetu_tpu_torch.kernels import flash_attention as fa
+    B, S, Hn, D = BERT_SHAPE
+    errs, (q, k, v, do), args = check_flash_autograd(
+        torch, dtype, seed + 23, BERT_SHAPE, False,
+        torch.from_numpy(BERT_LENS), "13-pre, BERT's shape")
+    lens = args[3]
+    shape = f"[{B},{S},{Hn},{D}]"
+    es = q.element_size()
+    nq = B * S * Hn * D * es                # one [B, S, H, D] tensor
+    nkv = int(BERT_LENS.sum()) * Hn * D * es   # the live K (or V) rows
+    stats = B * Hn * S * 4                  # lse or delta, f32
+    pairs = S * int(BERT_LENS.sum()) * Hn   # every row sees its live keys
+    key_live = (torch.arange(S, device=q.device)[None, :]
+                < lens[:, None])[:, None, None, :]
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=key_live))
+    qs, ks, vs = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_live)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dot, retain_graph=True))
+    res = {}
+    # (kernel, plain, products, bytes: inputs read once, outputs
+    # written once, error)
+    for key, run, plain, prods, nbytes, err in (
+            ("fwd", lambda: fa.flash_fwd(q, k, v, causal=False, kv_lens=lens),
+             lambda: fa.flash_fwd_reference(q, k, v, causal=False,
+                                            kv_lens=lens),
+             2, 2 * nq + 2 * nkv + stats + lens.numel() * 4, errs["o"]),
+            ("dkv", lambda: fa.flash_bwd_dkv(*args, causal=False),
+             lambda: fa.flash_bwd_dkv_reference(*args, causal=False),
+             4, 4 * nq + 2 * nkv + 2 * stats, max(errs["dk"], errs["dv"])),
+            ("dq", lambda: fa.flash_bwd_dq(*args, causal=False),
+             lambda: fa.flash_bwd_dq_reference(*args, causal=False),
+             3, 3 * nq + 2 * nkv + 2 * stats, errs["dq"])):
+        ms = time_ms(torch, run)
+        run_ms = time_run_ms(torch, run)
+        dev = device_ms(torch, run)
+        plain_ms = time_ms(torch, plain, reps=5)
+        flops = prods * 2 * D * pairs
+        b_ms, b_by = bound(nbytes, flops, dtype, tf32_method(dtype))
+        lib = lib_fwd if key == "fwd" else lib_bwd
+        res[key] = dict(err=err, ms=ms, run_ms=run_ms, dev_ms=dev,
+                        plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                        bound_by=b_by)
+        log(f"  13-pre: {'K2' if key == 'fwd' else 'K3 ' + key} {dtype} "
+            f"{shape} kv_lens: kernel {ms:.4f} ms ({run_ms:.4f} back to "
+            f"back, {ms_text(dev)} on the device), plain {plain_ms:.4f} ms, "
+            f"SDPA {'forward' if key == 'fwd' else 'backward'} with the "
+            f"key-padding mask {lib:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+            f"({nbytes} B, {flops} flop over {pairs} live pairs"
+            f"{', 3 TF32 passes' if dtype == 'float32' else ''})")
+    return res
+
+
+def bert_batch(cfg, seed):
+    """One synthetic MLM/NSP batch in ``train_bert.synthetic_mlm_batch``'s
+    form, with kv_lens from the seed between S/4 and S (sequence 0 full)
+    and no MLM label past a sequence's length; ``mask`` is the same
+    padding as the (B, S) 0/1 attention mask."""
+    from hetu_tpu_torch.train_bert import synthetic_mlm_batch
+    rng = np.random.RandomState(seed)
+    ids, tok, _, mlm, nsp = synthetic_mlm_batch(rng, cfg)
+    S = cfg.seq_len
+    lens = rng.randint(S // 4, S + 1, cfg.batch_size).astype(np.int32)
+    lens[0] = S
+    live = np.arange(S)[None, :] < lens[:, None]
+    mlm[~live] = -1
+    return dict(ids=ids, tok=tok, mlm=mlm, nsp=nsp, lens=lens,
+                mask=live.astype(np.float32))
+
+
+def bert_graph(ht, model, flash):
+    """(placeholders by name, loss) of a BERT pretraining model fed
+    ``kv_lens`` (``flash``) or the (B, S) attention mask."""
+    phs = {n: ht.placeholder_op(n) for n in ("ids", "tok", "mlm", "nsp")}
+    if flash:
+        phs["lens"] = ht.placeholder_op("lens")
+        loss, _, _ = model(phs["ids"], phs["tok"], None, phs["mlm"],
+                           phs["nsp"], kv_lens=phs["lens"])
+    else:
+        phs["mask"] = ht.placeholder_op("mask")
+        loss, _, _ = model(phs["ids"], phs["tok"], phs["mask"], phs["mlm"],
+                           phs["nsp"])
+    return phs, loss
+
+
+class RecordedGate:
+    """An MoE gate that keeps what it returns (l_aux, indices_s,
+    location_s, gates_s, capacity) in ``log``."""
+
+    def __init__(self, gate, log):
+        self.gate, self.log = gate, log
+
+    def __call__(self, x):
+        out = self.gate(x)
+        self.log.append(out)
+        return out
+
+
+def phase13_bert(torch, seed, card):
+    """13a: BERT-base bf16 AdamW steps on K2/K3 with kv_lens, exact
+    launches, the graph's peak memory and a profile; 13b: f32 flash +
+    kv_lens vs unfused + attention mask after one SGD step.  Returns
+    ({dtype: K2/K3 launches of its main-path run}, 13a's stats)."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.train_gpt import profile_steps
+    cfg = models.BertConfig.base(attention_probs_dropout_prob=0.0,
+                                 use_flash_attention=True, **BERT)
+    L, B, S = cfg.num_hidden_layers, cfg.batch_size, cfg.seq_len
+    batch = bert_batch(cfg, seed + 13)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    phs, loss = bert_graph(ht, models.BertForPreTraining(cfg), True)
+    opt = ht.optim.AdamWOptimizer(learning_rate=1e-4, weight_decay=0.01)
+    ex = ht.Executor({"train": [loss, opt.minimize(loss)]},
+                     mixed_precision="bf16", seed=seed)
+    n_params = sum(v.numel() for v in ex.var_values.values())
+    log(f"  13a: BERT-base pretraining (MLM + NSP), {L} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, vocab "
+        f"{cfg.vocab_size}, B {B} S {S}, kv_lens {batch['lens'].tolist()}: "
+        f"{n_params} parameters, built in {time.perf_counter() - t0:.2f} s")
+    feed = {p: batch[n] for n, p in phs.items()}
+    want = flash_launches(launch_counts(), L)
+    outs, secs, at_reset, launched = graph_steps(torch, ex, feed,
+                                                 BERT_STEPS, want, "13a")
+    peak = torch.cuda.max_memory_allocated() - base
+    transient = torch.cuda.max_memory_allocated() - at_reset
+    losses = [float(o[0]) for o in outs]
+    step_ms = float(np.mean(secs[1:])) * 1e3
+    toks = B * S / (step_ms / 1e3)
+    live_toks = int(batch["lens"].sum()) / (step_ms / 1e3)
+    log(f"  13a on {card}: bf16 flash AdamW, hidden dropout "
+        f"{cfg.hidden_dropout_prob}, attention dropout 0; step "
+        f"{step_ms:.2f} ms (mean of {BERT_STEPS} after a warm-up step of "
+        f"{secs[0] * 1e3:.1f} ms; min {min(secs[1:]) * 1e3:.2f}, max "
+        f"{max(secs[1:]) * 1e3:.2f}), {toks:.1f} tokens/s ({live_toks:.1f} "
+        f"live), peak memory of the graph {peak} B ({peak / 2 ** 30:.2f} "
+        f"GiB above the {base} B allocated before it was built; the steps' "
+        f"transients {transient} B, {transient / 2 ** 30:.2f} GiB); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches a step {L} K2, {L} "
+        f"K3 dK/dV, {L} K3 dQ")
+    counts = {"bfloat16": launched}
+    with tempfile.TemporaryDirectory() as prof_dir:
+        for line in profile_steps(GraphTrainSteps(ex, feed),
+                                  itertools.repeat((None, None)), 3,
+                                  prof_dir):
+            log(f"  13a {line}")
+    weights = ex.return_tensor_values()
+    del ex, outs
+    torch.cuda.empty_cache()
+
+    # ---- 13b ---- #
+    res = {}
+    for flash in (True, False):
+        cfg_b = models.BertConfig.base(
+            num_hidden_layers=BERT_SGD_LAYERS, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0, use_flash_attention=flash,
+            **BERT)
+        phs, loss = bert_graph(ht, models.BertForPreTraining(cfg_b), flash)
+        ex = ht.Executor({"train": [
+            loss, ht.optim.SGDOptimizer(learning_rate=BERT_SGD_LR)
+            .minimize(loss)]}, seed=seed)
+        ex.load_dict(weights)
+        reset_launches()
+        lv = float(ex.run("train", feed_dict={p: batch[n]
+                                              for n, p in phs.items()})[0])
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = flash_launches(got, BERT_SGD_LAYERS if flash else 0)
+        if got != want:
+            fail(f"13b flash={flash}: launches {got}, want {want}")
+        if flash:
+            counts["float32"] = got
+        res[flash] = (lv, {k: v.double() for k, v in ex.var_values.items()})
+        del ex
+        torch.cuda.empty_cache()
+    log(f"  13b: BERT-base widths, {BERT_SGD_LAYERS} layers, f32, dropout "
+        f"0, from 13a's weights: flash with kv_lens vs unfused with the "
+        f"additive attention mask")
+    worst = compare_sgd_updates(torch, weights, res, BERT_SGD_LR, "13b")
+    return counts, dict(step_ms=step_ms, tokens_per_s=toks, peak_bytes=peak,
+                        transient_bytes=transient, losses=losses,
+                        params=n_params, worst_13b=worst)
+
+
+def phase13_bert_moe(torch, seed, card):
+    """13c: BertMoE-base bf16 AdamW steps with kv_lens on K2/K3: step
+    time, the summed balance loss, and each MoE block's expert load,
+    which sums to its routed tokens (B S k), kept rows min(load,
+    capacity)."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    from hetu_tpu_torch.kernels import launch_counts
+    cfg = models.BertMoEConfig(attention_probs_dropout_prob=0.0,
+                               use_flash_attention=True, **BERT_MOE)
+    model = models.BertMoEForPreTraining(cfg)
+    routes = []
+    for layer in model.bert.encoder_layers:
+        if hasattr(layer, "moe"):
+            layer.moe.gate = RecordedGate(layer.moe.gate, routes)
+    phs, loss = bert_graph(ht, model, True)
+    opt = ht.optim.AdamWOptimizer(learning_rate=1e-4, weight_decay=0.01)
+    extra = [r[0] for r in routes] + [r[1][0] for r in routes] \
+        + [r[2][0] for r in routes]
+    ex = ht.Executor({"train": [loss, opt.minimize(loss)] + extra},
+                     mixed_precision="bf16", seed=seed)
+    batch = bert_batch(cfg, seed + 14)
+    feed = {p: batch[n] for n, p in phs.items()}
+    L, n_moe = cfg.num_hidden_layers, len(routes)
+    outs, secs, _, _ = graph_steps(torch, ex, feed, MOE_STEPS,
+                                   flash_launches(launch_counts(), L), "13c")
+    tokens = cfg.batch_size * cfg.seq_len
+    cap = routes[0][4]
+    loads = []
+    for out in outs:
+        aux = sum(float(a) for a in out[2:2 + n_moe])
+        step_loads = []
+        for j in range(n_moe):
+            idx = out[2 + n_moe + j].reshape(-1).long()
+            loc = out[2 + 2 * n_moe + j].reshape(-1)
+            load = torch.bincount(idx, minlength=cfg.num_experts)
+            kept = torch.bincount(idx[loc < cap], minlength=cfg.num_experts)
+            if int(load.sum()) != tokens * cfg.top_k or not torch.equal(
+                    kept, load.clamp(max=cap)):
+                fail(f"13c block {j}: expert load {load.tolist()} (sum, "
+                     f"want {tokens * cfg.top_k}), kept {kept.tolist()} "
+                     f"(want min(load, {cap}))")
+            step_loads.append(load.tolist())
+        loads.append((aux, step_loads))
+    losses = [float(o[0]) for o in outs]
+    step_ms = float(np.mean(secs[1:])) * 1e3
+    log(f"  13c on {card}: BertMoE-base ({cfg.num_experts} experts top-"
+        f"{cfg.top_k}, capacity {cap} rows, MoE every {cfg.moe_every} "
+        f"blocks: {n_moe} of {L}), B {cfg.batch_size} S {cfg.seq_len}, "
+        f"bf16 flash AdamW: step {step_ms:.2f} ms (mean of {MOE_STEPS} "
+        f"after a warm-up step of {secs[0] * 1e3:.1f} ms); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; balance loss (summed over "
+        f"the MoE blocks) {loads[0][0]:.4f} -> {loads[-1][0]:.4f}; launches "
+        f"a step {L} K2, {L} K3 dK/dV, {L} K3 dQ")
+    for j, load in enumerate(loads[-1][1]):
+        log(f"  13c: MoE block {j} expert load {load} (sum "
+            f"{sum(load)} = {tokens} tokens x top-{cfg.top_k}; "
+            f"{sum(max(0, n - cap) for n in load)} dropped)")
+    return dict(step_ms=step_ms, losses=losses, aux=[a for a, _ in loads])
+
+
+def zoo_steps(torch, ht, tag, loss, train, feed, card, steps=ZOO_STEPS):
+    """``steps`` f32 steps of [loss, train] on one feed: the loss finite
+    and falling; logs each step's wall time."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train]})
+    build_s = time.perf_counter() - t0
+    losses, secs = [], []
+    reset_launches()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lv = float(ex.run("train", feed_dict=feed)[0])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(lv)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"13d {tag}: losses {losses} not finite and falling")
+    launched = {k: v for k, v in launch_counts().items() if v}
+    log(f"  13d {tag} on {card}: {steps} f32 steps, loss {losses[0]:.6f} "
+        f"-> {losses[-1]:.6f}; wall a step "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in secs)} ms (executor built in "
+        f"{build_s:.2f} s); kernel launches {launched or 'none'}")
+    del ex
+    torch.cuda.empty_cache()
+    return secs
+
+
+def phase13_zoo(torch, seed, card):
+    """13d: three steps of each remaining zoo family at its example's
+    defaults, on one fixed batch drawn from the seed."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    rng = np.random.RandomState(seed + 15)
+    out = {}
+
+    c = ZOO["resnet"]
+    x, y = ht.placeholder_op("x"), ht.placeholder_op("y_")
+    loss, _ = models.resnet18(x, y)
+    train = ht.optim.SGDOptimizer(learning_rate=c["lr"]).minimize(loss)
+    feed = {x: rng.randn(c["batch"], 3, 32, 32).astype(np.float32),
+            y: np.eye(10, dtype=np.float32)[rng.randint(0, 10, c["batch"])]}
+    out["resnet18"] = zoo_steps(torch, ht, f"ResNet-18 B {c['batch']} "
+                                f"3x32x32, SGD {c['lr']}", loss, train, feed,
+                                card)
+
+    c = ZOO["ctr"]
+    dense, sparse, y = (ht.placeholder_op(n) for n in ("dense", "sparse",
+                                                       "y_"))
+    loss, _, _, train = models.wdl_criteo(
+        dense, sparse, y, feature_dimension=c["feature_dimension"],
+        embedding_size=c["embedding_size"])
+    feed = {dense: rng.randn(c["batch"], 13).astype(np.float32),
+            sparse: rng.randint(0, c["feature_dimension"],
+                                (c["batch"], 26)).astype(np.int32),
+            y: rng.randint(0, 2, (c["batch"], 1)).astype(np.float32)}
+    out["wdl_criteo"] = zoo_steps(
+        torch, ht, f"wdl_criteo features {c['feature_dimension']} embedding "
+        f"{c['embedding_size']} B {c['batch']}", loss, train, feed, card)
+
+    c = ZOO["ncf"]
+    user, item, y = (ht.placeholder_op(n) for n in ("user", "item", "y_"))
+    loss, _, train = models.neural_mf(user, item, y,
+                                      num_users=c["num_users"],
+                                      num_items=c["num_items"], lr=c["lr"])
+    feed = {user: rng.randint(0, c["num_users"], c["batch"]).astype(np.int32),
+            item: rng.randint(0, c["num_items"], c["batch"]).astype(np.int32),
+            y: (rng.rand(c["batch"], 1) < 0.2).astype(np.float32)}
+    out["neural_mf"] = zoo_steps(
+        torch, ht, f"neural_mf users {c['num_users']} items "
+        f"{c['num_items']} B {c['batch']}", loss, train, feed, card)
+
+    c = ZOO["mt"]
+    cfg = models.TransformerConfig(
+        src_vocab_size=c["vocab"], tgt_vocab_size=c["vocab"],
+        hidden_size=c["hidden"], num_layers=c["layers"],
+        num_heads=c["heads"], ffn_size=c["ffn"], dropout_rate=0.0,
+        batch_size=c["batch"], src_len=c["seq"], tgt_len=c["seq"])
+    src, tgt, lbl = (ht.placeholder_op(n) for n in ("src", "tgt", "labels"))
+    loss, _ = models.transformer_mt(src, tgt, lbl, config=cfg)
+    train = ht.optim.AdamOptimizer(learning_rate=c["lr"]).minimize(loss)
+    toks = rng.randint(1, c["vocab"], (3, c["batch"], c["seq"])).astype(
+        np.int32)
+    toks[2, :, -2:] = 0                      # padded labels: ignored
+    feed = {src: toks[0], tgt: toks[1], lbl: toks[2]}
+    out["transformer_mt"] = zoo_steps(
+        torch, ht, f"transformer_mt hidden {c['hidden']} {c['layers']} "
+        f"layers B {c['batch']} len {c['seq']}, Adam {c['lr']}", loss, train,
+        feed, card)
+
+    c = ZOO["moe"]
+    X = rng.randn(c["batch_size"], c["num_tokens"], c["model_dim"]).astype(
+        np.float32)
+    Y = rng.randint(0, c["model_dim"], c["batch_size"] * c["num_tokens"]
+                    ).astype(np.int32)
+    for gate in ("top", "balance"):
+        x, y = ht.placeholder_op("x"), ht.placeholder_op("y_")
+        kw = {k: v for k, v in c.items() if k != "lr"}
+        loss, _ = models.moe_mlp(x, y, gate_type=gate, sparse_labels=True,
+                                 **kw)
+        train = ht.optim.SGDOptimizer(learning_rate=c["lr"]).minimize(loss)
+        out[f"moe_mlp {gate}"] = zoo_steps(
+            torch, ht, f"moe_mlp --gate {gate}: {c['batch_size']} x "
+            f"{c['num_tokens']} tokens of {c['model_dim']}, "
+            f"{c['num_local_experts']} experts of {c['hidden_size']}"
+            f"{', top-' + str(c['top_k']) if gate == 'top' else ''}", loss,
+            train, {x: X, y: Y}, card)
+    return out
+
+
+def phase13(torch, F, seed, card):
+    """Phase 13: 13-pre (K2/K3 at BERT's shape with kv_lens, both dtypes),
+    13a/13b BERT-base, 13c BertMoE-base, 13d the rest of the zoo.
+    Returns ({"fwd", "dkv", "dq": {dtype: result}}, {dtype: launches})."""
+    t_phase = time.perf_counter()
+    kres = collections.defaultdict(dict)
+    for dt in ("float32", "bfloat16"):
+        for key, r in check_bert_kernels(torch, F, dt, seed).items():
+            kres[key][dt] = r
+    torch.cuda.empty_cache()
+    counts, _ = phase13_bert(torch, seed, card)
+    phase13_bert_moe(torch, seed, card)
+    phase13_zoo(torch, seed, card)
+    log(f"  phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return kres, counts
 
 
 def request_set(prompts, seed, V):
@@ -3740,6 +4250,12 @@ def main(argv=None):
         "subgraph, f32 flash vs unfused")
     phase12(torch, htt, args.seed, card)
 
+    # ---- phase 13 ---- #
+    log("phase 13: BERT and the model zoo on the graph surface: K2/K3 at "
+        "BERT's shape with kv_lens, BERT-base bf16 pretraining (S 512, "
+        "kv_lens), f32 flash vs unfused, BertMoE-base, the other families")
+    kres13, counts13 = phase13(torch, F, args.seed, card)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
@@ -3862,6 +4378,25 @@ def main(argv=None):
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    # K2 and K3 at BERT's shape with kv_lens: launches from phase 13's
+    # BERT-base runs, bf16 13a's steps, f32 13b's flash step
+    for key, name, file, replaces in (
+            ("fwd", "flash_attention", "flash_fwd",
+             "hetu_tpu/kernels/flash_attention.py:173"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd",
+             "hetu_tpu/kernels/flash_attention.py:396"),
+            ("dq", "flash_attention_bwd_dq", "flash_bwd",
+             "hetu_tpu/kernels/flash_attention.py:428")):
+        for dt in ("float32", "bfloat16"):
+            r = kres13[key][dt]
+            kernels.append(dict(
+                name=f"{name}[{dt}, BERT kv_lens]", route="cuda",
+                source=src + file + ("_bf16.cu" if dt == "bfloat16"
+                                     else ".cu"),
+                replaces=replaces, launches=counts13[dt][name],
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

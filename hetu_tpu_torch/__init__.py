@@ -29,7 +29,11 @@ runs it:
   tables) and ``ht.Executor`` over named subgraphs with node-keyed
   feeds; ``flash_attention_op`` is K2 forward and K3 backward there.
   ``python -m hetu_tpu_torch.train_long_context`` trains the JAX
-  example's long-context causal LM on it.
+  example's long-context causal LM on it;
+- ``models``: the JAX package's model zoo on the graph surface (BERT
+  with ``kv_lens`` on the flash kernels, BertMoE over the training MoE
+  layer, the CNN, Transformer, CTR and NCF models);
+  ``python -m hetu_tpu_torch.train_bert`` is the JAX BERT example.
 
 Every TPU kernel on these paths is a CUDA C++ kernel for Hopper
 (``kernels/csrc``), built by ``nvcc`` at first use.  Entry points run on

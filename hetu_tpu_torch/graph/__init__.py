@@ -71,10 +71,19 @@ from .ops_embed import (
     unique_indices_op,
 )
 from .ops_attention import flash_attention_op, ring_attention_op
+from .ops_moe import (
+    layout_transform_op, layout_transform_gradient_op,
+    reverse_layout_transform_op, reverse_layout_transform_gradient_data_op,
+    reverse_layout_transform_gradient_gate_op,
+    reverse_layout_transform_no_gate_op, alltoall_op, halltoall_op,
+    balance_assignment_op, group_topk_idx_op, sam_group_sum_op, sam_max_op,
+    dispatch,
+)
 from . import init, layers, optim
 from .executor import Executor, HetuConfig, SubExecutor, dataloader_op
 
 __all__ = [n for n in dir() if not n.startswith("_")
            and n not in ("node", "autodiff", "executor", "ops_misc",
                          "ops_math", "ops_matmul", "ops_conv", "ops_shape",
-                         "ops_loss", "ops_embed", "ops_attention")]
+                         "ops_loss", "ops_embed", "ops_attention",
+                         "ops_moe")]

@@ -304,3 +304,26 @@ def convert_dense_to_moe(params, config, moe_config, name=None):
         out[f"{us}_moe_expert_stack_b2"] = np.broadcast_to(
             bo, (E,) + bo.shape).copy()
     return out
+
+
+def _ep_later(what):
+    return NotImplementedError(
+        f"{what} (expert parallelism) is not in hetu_tpu_torch yet "
+        f"(ROADMAP A9b)")
+
+
+def ep_shard_params(params, mesh, config, axis="ep", name=None):
+    """Expert-parallel placement of a MoE-GPT parameter dict: waits for
+    the mesh of A9b."""
+    raise _ep_later("ep_shard_params")
+
+
+def moe_ffn_ep_reference(params, us, x, spec, mesh, quant=None):
+    """The explicit expert-parallel MoE FFN over a mesh: waits for
+    A9b."""
+    raise _ep_later("moe_ffn_ep_reference")
+
+
+def resolve_moe_quant(mode=None):
+    """The int8 wire of the expert-parallel all-to-all: waits for A9b."""
+    raise _ep_later("resolve_moe_quant")

@@ -1,0 +1,234 @@
+"""BERT on the port's graph surface (``hetu_tpu_torch.models.bert``)
+against the JAX package's, on the CPU, at a tiny size (hidden 64, 2
+heads, 2 layers, FFN 128, vocab 128, B 2, S 16, dropout 0), f32, from
+the JAX executor's initial values (``Executor.load_dict``):
+
+- ``BertForPreTraining``, three AdamW steps: the losses within 1e-5
+  relative, every variable within 1e-5 except k's bias, whose exact
+  gradient is 0 (Adam's eps turns the rounding-level gradient each side
+  computes into a +-lr update a step; held within 3 lr), once under an
+  additive ``attention_mask`` (the unfused chain) and once with
+  ``kv_lens`` [16, 5] on the flash path (JAX's Pallas kernels in
+  interpret mode, the port's K2/K3 plain versions);
+- the port's version of JAX's ``test_kv_lens_flash_matches_additive_mask``
+  at its tolerances: flash + ``kv_lens``, the unfused path fed the same
+  ``kv_lens`` and the additive (B, S) mask train alike;
+- the forward outputs of the sequence-classification, masked-LM and
+  question-answering heads within 1e-5;
+- the port's dropout identities (the same seed gives the same loss; an
+  eval subgraph runs without dropout);
+- ``python -m hetu_tpu_torch.train_bert --device cpu`` for two steps.
+"""
+
+import numpy as np
+import pytest
+
+import hetu_tpu as jm
+from hetu_tpu import models as jmodels
+import hetu_tpu_torch.graph as tm
+from hetu_tpu_torch import models as tmodels
+from hetu_tpu_torch.train_bert import main as bert_main
+from hetu_tpu_torch.train_bert import synthetic_mlm_batch
+
+B, S, HID, HEADS, LAYERS, FFN, V = 2, 16, 64, 2, 2, 128, 128
+LR = 1e-4
+LENS = np.array([16, 5], np.int32)
+PKG = {"jax": (jm, jmodels), "torch": (tm, tmodels)}
+
+
+@pytest.fixture(autouse=True)
+def _no_validate(monkeypatch):
+    # the graph verifier (HETU_VALIDATE) is not in the port yet (A11)
+    monkeypatch.setenv("HETU_VALIDATE", "0")
+
+
+def _cfg(models, **kw):
+    base = dict(vocab_size=V, hidden_size=HID, num_hidden_layers=LAYERS,
+                num_attention_heads=HEADS, intermediate_size=FFN,
+                max_position_embeddings=32, batch_size=B, seq_len=S,
+                hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    base.update(kw)
+    return models.BertConfig(**base)
+
+
+def _batch():
+    rng = np.random.RandomState(0)
+    ids, tok, mask, mlm, nsp = synthetic_mlm_batch(rng, _cfg(tmodels))
+    mlm[1, LENS[1]:] = -1                    # no label on padding
+    mask = (np.arange(S)[None, :] < LENS[:, None]).astype(np.float32)
+    return dict(ids=ids, tok=tok, mask=mask, mlm=mlm, nsp=nsp, lens=LENS)
+
+
+def _pretraining(key, flash):
+    m, models = PKG[key]
+    model = models.BertForPreTraining(_cfg(models, use_flash_attention=flash))
+    phs = {n: m.placeholder_op(n) for n in ("ids", "tok", "mlm", "nsp")}
+    if flash:
+        phs["lens"] = m.placeholder_op("lens")
+        loss, _, _ = model(phs["ids"], phs["tok"], None, phs["mlm"],
+                           phs["nsp"], kv_lens=phs["lens"])
+    else:
+        phs["mask"] = m.placeholder_op("mask")
+        loss, _, _ = model(phs["ids"], phs["tok"], phs["mask"], phs["mlm"],
+                           phs["nsp"])
+    return phs, loss
+
+
+@pytest.mark.parametrize("flash", [False, True],
+                         ids=["attention_mask", "kv_lens-flash"])
+def test_pretraining_three_adamw_steps_match_jax(flash):
+    arrays = _batch()
+    res, init = {}, None
+    for key in ("jax", "torch"):
+        m = PKG[key][0]
+        phs, loss = _pretraining(key, flash)
+        train = m.optim.AdamWOptimizer(learning_rate=LR,
+                                       weight_decay=0.01).minimize(loss)
+        if key == "jax":
+            ex = jm.Executor({"train": [loss, train]})
+            init = ex.return_tensor_values()
+        else:
+            ex = tm.Executor({"train": [loss, train]}, device="cpu")
+            ex.load_dict(init)
+        feeds = {p: arrays[n] for n, p in phs.items()}
+        losses = [float(np.asarray(ex.run("train", feed_dict=feeds)[0]))
+                  for _ in range(3)]
+        res[key] = (losses, ex.return_tensor_values())
+    (tl, tv), (jl, jv) = res["torch"], res["jax"]
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl[-1] < tl[0]
+    assert set(tv) == set(jv)
+    for k in jv:
+        tol = 3 * LR if k.endswith("_attn_k_bias") else 1e-5
+        d = float(np.abs(tv[k] - jv[k]).max())
+        assert d <= tol, (k, d, tol)
+
+
+def test_kv_lens_flash_matches_additive_mask():
+    """Padded BERT: the flash kernel's kv_lens path, the unfused
+    lens -> mask path and the additive (B, S) 0/1 mask give the same
+    trajectory (the JAX package's test of the same name, its sizes and
+    tolerances, on the port)."""
+    Bk, Sk = 4, 32
+    rng = np.random.RandomState(0)
+    IDS = rng.randint(0, 100, (Bk, Sk)).astype(np.int32)
+    lens_v = np.array([32, 20, 7, 1], np.int32)
+    PREFIX = (np.arange(Sk)[None, :] < lens_v[:, None]).astype(np.float32)
+    LBL = rng.randint(0, 2, (Bk,)).astype(np.int32)
+
+    def run(flash, use_lens):
+        cfg = tmodels.BertConfig(
+            vocab_size=100, hidden_size=32, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=64,
+            seq_len=Sk, batch_size=Bk, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0, use_flash_attention=flash)
+        ids = tm.placeholder_op("ids")
+        lbl = tm.placeholder_op("lbl")
+        model = tmodels.BertForSequenceClassification(cfg, num_labels=2)
+        feeds = {ids: IDS, lbl: LBL}
+        if use_lens:
+            lens = tm.placeholder_op("lens")
+            loss, _ = model(ids, labels=lbl, kv_lens=lens)
+            feeds[lens] = lens_v
+        else:
+            mask = tm.placeholder_op("mask")
+            loss, _ = model(ids, labels=lbl, attention_mask=mask)
+            feeds[mask] = PREFIX
+        train = tm.optim.SGDOptimizer(learning_rate=0.1).minimize(loss)
+        ex = tm.Executor({"train": [loss, train]}, seed=1, device="cpu")
+        return [float(ex.run("train", feed_dict=feeds)[0])
+                for _ in range(4)]
+
+    flash_lens = run(True, True)
+    unfused_lens = run(False, True)
+    additive = run(False, False)
+    np.testing.assert_allclose(flash_lens, unfused_lens,
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(flash_lens, additive,
+                               rtol=1e-3, atol=1e-4)
+
+
+def _heads(key):
+    """The three task heads' forward outputs, each on a BERT of its own
+    name, in one graph: [classifier logits, MLM logits, QA start, QA
+    end]."""
+    m, models = PKG[key]
+    cfg = _cfg(models, num_hidden_layers=1)
+    ids, tok, mask = (m.placeholder_op(n) for n in ("ids", "tok", "mask"))
+    cls = models.BertForSequenceClassification(cfg, num_labels=3,
+                                               name="bcls")
+    mlm = models.BertForMaskedLM(cfg, name="bmlm")
+    qa = models.BertForQuestionAnswering(cfg, name="bqa")
+    outs = [cls(ids, tok, mask), mlm(ids, tok, mask)]
+    outs += list(qa(ids, tok, mask))
+    return (ids, tok, mask), outs
+
+
+def test_task_heads_forward_match_jax():
+    a = _batch()
+    res, init = {}, None
+    for key in ("jax", "torch"):
+        (ids, tok, mask), outs = _heads(key)
+        feeds = {ids: a["ids"], tok: a["tok"], mask: a["mask"]}
+        if key == "jax":
+            ex = jm.Executor({"fwd": outs})
+            init = ex.return_tensor_values()
+            res[key] = [np.asarray(o) for o in ex.run("fwd", feed_dict=feeds)]
+        else:
+            ex = tm.Executor({"fwd": outs}, device="cpu")
+            ex.load_dict(init)
+            res[key] = [o.numpy() for o in ex.run("fwd", feed_dict=feeds)]
+    shapes = [(B, 3), (B * S, V), (B, S), (B, S)]
+    for got, want, shape, what in zip(res["torch"], res["jax"], shapes,
+                                      ("classifier", "masked LM",
+                                       "QA start", "QA end")):
+        assert got.shape == shape, what
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5,
+                                   err_msg=what)
+
+
+def test_dropout_identities():
+    """Dropout draws from the port's own generators (not threefry): the
+    same seed gives the same losses, another seed others, and the eval
+    subgraph (no optimizer) runs without dropout."""
+    a = _batch()
+
+    def build(seed):
+        cfg = _cfg(tmodels, hidden_dropout_prob=0.1,
+                   attention_probs_dropout_prob=0.1)
+        model = tmodels.BertForPreTraining(cfg)
+        phs = {n: tm.placeholder_op(n)
+               for n in ("ids", "tok", "mask", "mlm", "nsp")}
+        loss, _, _ = model(phs["ids"], phs["tok"], phs["mask"], phs["mlm"],
+                           phs["nsp"])
+        train = tm.optim.AdamWOptimizer(learning_rate=LR).minimize(loss)
+        ex = tm.Executor({"train": [loss, train], "eval": [loss]},
+                         seed=seed, device="cpu")
+        return ex, {p: a[n] for n, p in phs.items()}
+
+    runs = {}
+    for tag, seed in (("a", 3), ("b", 3), ("c", 4)):
+        ex, feeds = build(seed)
+        ev = [float(ex.run("eval", feed_dict=feeds)[0]) for _ in range(2)]
+        tr = [float(ex.run("train", feed_dict=feeds)[0]) for _ in range(2)]
+        runs[tag] = (ev, tr)
+    (ev_a, tr_a), (ev_b, tr_b), (_, tr_c) = runs["a"], runs["b"], runs["c"]
+    assert ev_a[0] == ev_a[1], "eval runs without dropout"
+    assert tr_a == tr_b, "the same seed gives the same losses"
+    assert tr_a[0] != tr_c[0], "another seed draws other masks"
+    assert tr_a[0] != ev_a[0], "training applies dropout"
+
+
+def test_train_bert_cli_runs_on_the_cpu():
+    last = bert_main(["--device", "cpu", "--num-layers", "1",
+                      "--batch-size", "2", "--seq-len", "16",
+                      "--num-steps", "2"])
+    assert np.isfinite(last)
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--data-path", "corpus.txt"], "A8 item 3"),
+    (["--comm-mode", "AllReduce"], "A9b")])
+def test_train_bert_cli_refuses_what_waits(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        bert_main(["--device", "cpu", "--num-layers", "1"] + argv)

@@ -1430,6 +1430,51 @@ def test_flash_attention_autograd_on_the_card(cuda, dtype):
         assert launch_counts()["flash_attention_bwd_dq"] == 0
 
 
+# BERT-base's attention shape and padded lengths: none a multiple of a
+# tile but the full one, down to a single live key (CLS alone)
+BERT_SHAPE = (8, 512, 12, 64)
+BERT_LENS = (512, 384, 257, 130, 64, 17, 2, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bert_shape_kv_lens_matches_plain(cuda, dtype):
+    """K2 and K3's two kernels at BERT-base's [8, 512, 12, 64], non-causal,
+    with a kv_lens padding mask, called as the graph calls them
+    (``FlashAttention`` then ``torch.autograd.grad``): o against the plain
+    forward within flash_tol, the lse of every row within 1e-4 (rows past
+    kv_lens attend to the live keys too), dq, dk and dv against the plain
+    backward from the kernel's own (lse, delta) within k3_close; keys
+    past kv_lens get zero dk and dv."""
+    dt = getattr(torch, dtype)
+    B, S, H, D = BERT_SHAPE
+    g = torch.Generator().manual_seed(23)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g).to(cuda, dt)
+                   for _ in range(4))
+    lens = torch.tensor(BERT_LENS, dtype=torch.int32, device=cuda)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launches()
+    o, lse = tfa.FlashAttention.apply(*xs, lens, False)
+    dq, dk, dv = torch.autograd.grad(o, xs, do)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd_dkv"],
+            counts["flash_attention_bwd_dq"]) == (1, 1, 1)
+    o, lse = o.detach(), lse.detach()
+    o_r, lse_r = tfa.flash_fwd_reference(q, k, v, causal=False,
+                                         kv_lens=lens)
+    assert_flash_close(o, o_r, **flash_tol(q, k, v, dtype, False,
+                                           kv_lens=lens))
+    assert float((lse - lse_r).abs().max()) <= 1e-4
+    args = (q, k, v, lens, lse, tfa.bwd_delta(o, do), do)
+    want_k, want_v = tfa.flash_bwd_dkv_reference(*args, causal=False)
+    want_q = tfa.flash_bwd_dq_reference(*args, causal=False)
+    for got, want in ((dq, want_q), (dk, want_k), (dv, want_v)):
+        assert got.dtype == dt
+        k3_close(got, want, dtype)
+    for b, n in enumerate(BERT_LENS):
+        assert (dk[b, n:] == 0).all() and (dv[b, n:] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernels_are_deterministic(cuda, dtype):
     """Two launches of each flash kernel on the same inputs give the same
