@@ -280,6 +280,37 @@ non-zero and prints no result line):
    the balanced-assignment gates, each at its example's defaults
    (``ZOO``): the loss finite and falling, the wall of each step.
 
+14. Data, schedules, metrics and checkpoints.  14a: GPT-2-small at its
+   published widths (12 x 768, 12 heads, vocab 50257), B 8, S 1024, f32,
+   AdamW 3e-4 (weight decay 0.01, clip 1.0) under
+   ``CosineScheduler(3e-4, total_steps=8, warmup_steps=2)`` set through
+   the API, trained through ``train_gpt``'s ``--data-path`` route on a
+   nanoGPT uint16 stream of 2^20 tokens written from ``--seed`` (runs of
+   next = (3 t + 7) % 1009 from seeded starts): 8 steps uninterrupted
+   (exactly 12 K2, 12 K3 dK/dV, 12 K3 dQ a step; the lr each step
+   applied bit-equal to the scheduler's value; step ms, tokens/s, peak
+   memory), then 4 steps, ``save``, a fresh executor, ``load``, 4 more:
+   steps 5-8's losses and the final weights equal the uninterrupted
+   run's bit for bit (a difference within 1e-6 relative is logged and
+   passes; more fails); then ``--demo-generate 16``: greedy full
+   forwards equal ``generate_fast``'s tokens (K2 for the prefill, K4 a
+   layer a decode step, counted exactly).  14b: ``train_bert`` on
+   ``tests/fixtures/tiny_corpus.txt`` with the GLUE fixtures' vocab at
+   BERT-base widths, S 128, B 8, 10 steps, ``save``; then
+   ``finetune_bert_glue`` on SST-2 at the same widths from that
+   checkpoint (every backbone tensor loaded, counted against the
+   backbone's variables; the loss falling; dev metrics from
+   ``compute_metrics``) and ``finetune_bert_squad`` on
+   ``train-tiny.json`` at S 384, doc stride 128 (the loss falling;
+   exact match and F1 from ``squad_evaluate``), both at BERT's
+   published fine-tuning rate ``BERT14["finetune_lr"]``.  14c:
+   ``wdl_criteo`` at phase 13d's cell fed by three ``dataloader_op`` s
+   over ``data.load_criteo`` of a Criteo-format ``train.txt`` written
+   from ``--seed``: with ``prefetch`` on the batches arrive on the card
+   through the ring; the losses with prefetch on and off are equal bit
+   for bit; a mid-epoch save, a fresh build and ``load`` continue the
+   batch stream exactly; step ms with prefetch on and off.
+
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
 checks each serving configuration is run again under it (without and
@@ -302,7 +333,9 @@ import copy
 import io
 import itertools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4051,6 +4084,377 @@ def phase13(torch, F, seed, card):
     return kres, counts
 
 
+# ---------------------------------------------------------------- #
+# phase 14: data, schedules, metrics and checkpoints
+# ---------------------------------------------------------------- #
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+# 14a: GPT-2-small from a token file; 2^20 tokens in runs of ``run``
+# over the first ``data_vocab`` ids (eight steps cannot learn a map over
+# all 50257: the loss stays at ln V, as phase 8 found; over 1009 ids the
+# model learns which ids occur)
+GPT14 = dict(tokens=1 << 20, run=256, vocab=50257, data_vocab=1009,
+             batch=8, seq=1024, steps=8, save_at=4, warmup=2, lr=3e-4,
+             generate=16)
+RESUME_RTOL = 1e-6
+# 14b: the fine-tunes at BERT's published fine-tuning rate (the scripts'
+# defaults, 5e-4 and 2e-3, are sized for their tiny default models)
+BERT14 = dict(pretrain_steps=10, finetune_lr=5e-5, layers=12, hidden=768,
+              heads=12, seq=128, squad_seq=384, doc_stride=128)
+# 14c: wdl_criteo at 13d's cell (``ZOO["ctr"]``) over a Criteo file of
+# ``rows`` rows, each categorical column drawing from ``cardinality``
+# values (26 x 2000 ids < the table's 100000 rows)
+CRITEO14 = dict(rows=8192, cardinality=2000, steps=12, save_at=6)
+
+
+def token_file(path, seed, n, run, V):
+    """A nanoGPT-format uint16 stream of ``n`` tokens: runs of ``run``
+    tokens following next = (3 t + 7) % V from seeded starts."""
+    rng = np.random.RandomState(seed)
+    x = np.empty((n // run, run), np.int64)
+    x[:, 0] = rng.randint(0, V, n // run)
+    for k in range(1, run):
+        x[:, k] = (3 * x[:, k - 1] + 7) % V
+    x.astype(np.uint16).tofile(path)
+
+
+def falling(losses, n=10):
+    """The mean of the last ``n`` losses below the mean of the first."""
+    n = min(n, len(losses) // 2)
+    return float(np.mean(losses[-n:])) < float(np.mean(losses[:n]))
+
+
+def gpt14_executor(torch, args, c):
+    """``train_gpt.build`` with the warmup-cosine schedule set on its
+    optimizer, and a record of the lr each optimizer step applied."""
+    from hetu_tpu_torch import train_gpt
+    from hetu_tpu_torch.lr_scheduler import CosineScheduler
+    cfg, ex, stream = train_gpt.build(args)
+    sched = CosineScheduler(c["lr"], total_steps=c["steps"],
+                            warmup_steps=c["warmup"])
+    opt = ex.optimizer
+    opt.learning_rate = sched
+    applied = []
+    lr_value = opt.lr_value
+
+    def recorded(step, device=None):
+        lr = lr_value(step, device)
+        applied.append((int(step), lr))
+        return lr
+
+    opt.lr_value = recorded
+    return cfg, ex, stream, sched, applied
+
+
+def check_applied(sched, applied, steps, tag):
+    got = [(s, lr.cpu().numpy().tobytes()) for s, lr in applied]
+    want = [(s, sched.value(s).tobytes()) for s in steps]
+    if got != want:
+        fail(f"{tag}: the lr applied at steps {[s for s, _ in applied]} "
+             f"is not the scheduler's value")
+
+
+def phase14_gpt(torch, seed, card, tmp):
+    """14a.  Returns (the uninterrupted run's launches, the demo's)."""
+    from hetu_tpu_torch import train_gpt
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    c = GPT14
+    path = os.path.join(tmp, "train.bin")
+    t0 = time.perf_counter()
+    token_file(path, seed + 14, c["tokens"], c["run"], c["data_vocab"])
+    args = train_gpt.parse_args([
+        "--data-path", path, "--vocab-size", str(c["vocab"]), "--seq-len",
+        str(c["seq"]), "--batch-size", str(c["batch"]), "--num-steps",
+        str(c["steps"]), "--learning-rate", str(c["lr"])])
+    cfg, ex, stream, sched, applied = gpt14_executor(torch, args, c)
+    batches = [next(stream) for _ in range(c["steps"])]
+    L, S = cfg.num_hidden_layers, cfg.seq_len
+    log(f"  14a: {c['tokens']} tokens written and read through "
+        f"--data-path in {time.perf_counter() - t0:.2f} s; GPT-2-small "
+        f"{L} x {cfg.hidden_size}, vocab {cfg.vocab_size}, B "
+        f"{cfg.batch_size} S {S}, flash {cfg.use_flash}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, secs = [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        loss = ex.run({"input_ids": x, "labels": y})[0]
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = c["steps"]
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=L * steps, flash_attention_bwd_dkv=L * steps,
+                flash_attention_bwd_dq=L * steps)
+    if counts != want:
+        fail(f"14a: launches {counts}, want {want}")
+    check_applied(sched, applied, range(steps), "14a")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"14a: losses {losses} not finite and falling")
+    med = float(np.median(secs[2:]))
+    log(f"  14a on {card}: losses {[round(v, 4) for v in losses]}; lr "
+        f"applied {[float(lr) for _, lr in applied]}; step {med * 1e3:.1f} "
+        f"ms (median of steps 3-{steps}; first {secs[0] * 1e3:.1f} ms), "
+        f"{cfg.batch_size * S / med:.1f} tokens/s, peak memory {peak} B; "
+        f"launches a step {L} K2, {L} K3 dK/dV, {L} K3 dQ")
+    final = {k: v.clone() for k, v in ex.var_values.items()}
+    del ex
+    torch.cuda.empty_cache()
+
+    # save after save_at steps, a fresh executor, load, the rest
+    k = c["save_at"]
+    _, ex, _, _, _ = gpt14_executor(torch, args, c)
+    first = [float(ex.run({"input_ids": x, "labels": y})[0])
+             for x, y in batches[:k]]
+    ckpt = os.path.join(tmp, "gpt")
+    t0 = time.perf_counter()
+    ex.save(ckpt)
+    save_s = time.perf_counter() - t0
+    del ex
+    torch.cuda.empty_cache()
+    _, ex, _, sched, applied = gpt14_executor(torch, args, c)
+    t0 = time.perf_counter()
+    ex.load(ckpt)
+    load_s = time.perf_counter() - t0
+    if ex.step != k:
+        fail(f"14a: the loaded executor is at step {ex.step}, want {k}")
+    rest = [float(ex.run({"input_ids": x, "labels": y})[0])
+            for x, y in batches[k:]]
+    check_applied(sched, applied, range(k, steps), "14a resumed")
+    resumed = first + rest
+    w_rel = max(float((ex.var_values[n] - v).abs().max()
+                      / v.abs().max().clamp_min(1e-30))
+                for n, v in final.items())
+    l_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses))
+    exact = resumed == losses and all(
+        torch.equal(ex.var_values[n], v) for n, v in final.items())
+    size = os.path.getsize(os.path.join(ckpt, "checkpoint.pkl"))
+    if exact:
+        log(f"  14a resume: steps {k + 1}-{steps} and the final weights "
+            f"equal the uninterrupted run's bit for bit; checkpoint "
+            f"{size} B, saved in {save_s:.2f} s, loaded in {load_s:.2f} s")
+    elif max(l_rel, w_rel) <= RESUME_RTOL:
+        log(f"  14a resume: NOT bit-equal, within {RESUME_RTOL} relative: "
+            f"losses {resumed} vs {losses} (largest {l_rel:.3e}), weights "
+            f"largest {w_rel:.3e}; checkpoint {size} B, saved in "
+            f"{save_s:.2f} s, loaded in {load_s:.2f} s")
+    else:
+        fail(f"14a resume: losses {resumed} vs {losses} (largest relative "
+             f"{l_rel:.3e}), weights largest relative {w_rel:.3e}")
+    del final
+    shutil.rmtree(ckpt)
+
+    # --demo-generate: greedy full forwards vs generate_fast
+    reset_launches()
+    t0 = time.perf_counter()
+    seq, fast = train_gpt.demo_generate(ex, cfg, c["generate"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    demo = launch_counts()
+    P, n = 3, c["generate"]
+    want = dict.fromkeys(demo, 0)
+    want.update(flash_attention=L * (n + 1),
+                paged_decode_attention=L * (n - 1))
+    if demo != want:
+        fail(f"14a demo-generate: launches {demo}, want {want}")
+    if seq != fast:
+        fail(f"14a demo-generate: greedy {seq} != generate_fast {fast}")
+    log(f"  14a demo-generate {n}: greedy continuation of {seq[:P]} "
+        f"{seq[P:]} == generate_fast's (match=True) in {gen_s:.2f} s; "
+        f"launches {L} K2 a forward ({n} greedy forwards + the prefill), "
+        f"{L} K4 a decode step ({n - 1} steps)")
+    del ex
+    torch.cuda.empty_cache()
+    return counts, demo
+
+
+def phase14_bert(torch, seed, card, tmp):
+    """14b."""
+    from hetu_tpu_torch import finetune_bert_glue, finetune_bert_squad
+    from hetu_tpu_torch import train_bert
+    corpus = str(FIXTURES / "tiny_corpus.txt")
+    vocab = str(FIXTURES / "glue" / "vocab.txt")
+    b = BERT14
+    run = train_bert.build(train_bert.parse_args([
+        "--data-path", corpus, "--vocab-path", vocab, "--seq-len",
+        str(b["seq"]), "--batch-size", "8", "--num-steps",
+        str(b["pretrain_steps"])]))
+    cfg = run.cfg
+    losses, secs = [], []
+    for _ in range(BERT14["pretrain_steps"]):
+        feed = dict(zip(run.feeds, run.next_batch()))
+        t0 = time.perf_counter()
+        losses.append(float(run.executor.run("train", feed_dict=feed)[0]))
+        secs.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        fail(f"14b pretraining: losses {losses} not finite")
+    ckpt = os.path.join(tmp, "bert")
+    run.executor.save(ckpt)
+    n_vars = len(run.executor.variables)
+    log(f"  14b pretraining on {card}: BERT-base {cfg.num_hidden_layers} x "
+        f"{cfg.hidden_size}, FFN {cfg.intermediate_size}, vocab "
+        f"{cfg.vocab_size} (the GLUE fixtures' wordpieces), B "
+        f"{cfg.batch_size} S {cfg.seq_len} on the tiny corpus: losses "
+        f"{[round(v, 4) for v in losses]}; step "
+        f"{float(np.median(secs[1:])) * 1e3:.1f} ms (median after the "
+        f"first, {secs[0] * 1e3:.1f} ms); saved {n_vars} variables")
+    del run
+    torch.cuda.empty_cache()
+    widths = ["--num-layers", str(b["layers"]), "--hidden", str(b["hidden"]),
+              "--heads", str(b["heads"]), "--learning-rate",
+              str(b["finetune_lr"])]
+    glue = finetune_bert_glue.main([
+        "--task", "sst-2", "--data-dir", str(FIXTURES / "glue" / "SST-2"),
+        "--vocab-path", vocab, "--seq-len", str(b["seq"]), "--batch-size",
+        "8", "--init-checkpoint", ckpt] + widths)
+    if not glue["loaded"] == glue["backbone"] > 0:
+        fail(f"14b GLUE: loaded {glue['loaded']} backbone tensors of "
+             f"{glue['backbone']}")
+    if not (all(np.isfinite(glue["losses"])) and falling(glue["losses"])):
+        fail(f"14b GLUE: losses {glue['losses']} not finite and falling")
+    if "accuracy" not in glue["metrics"]:
+        fail(f"14b GLUE: no dev metrics ({glue['metrics']})")
+    log(f"  14b GLUE SST-2 on {card}: {glue['loaded']} backbone tensors "
+        f"loaded of {glue['backbone']} (the classifier fresh); losses "
+        f"{[round(v, 4) for v in glue['losses']]}; dev metrics "
+        f"{glue['metrics']}; step {glue['step_ms']:.1f} ms (mean)")
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+    squad = finetune_bert_squad.main([
+        "--data", str(FIXTURES / "squad" / "train-tiny.json"),
+        "--seq-len", str(b["squad_seq"]), "--doc-stride",
+        str(b["doc_stride"])] + widths)
+    if not (all(np.isfinite(squad["losses"])) and falling(squad["losses"])):
+        fail(f"14b SQuAD: losses {squad['losses']} not finite and falling")
+    if not all(np.isfinite([squad["exact_match"], squad["f1"]])):
+        fail(f"14b SQuAD: exact match {squad['exact_match']}, F1 "
+             f"{squad['f1']}")
+    log(f"  14b SQuAD train-tiny on {card}: S {b['squad_seq']}, doc stride "
+        f"{b['doc_stride']}; losses "
+        f"{[round(v, 4) for v in squad['losses']]}; exact match "
+        f"{squad['exact_match']:.2f}, F1 {squad['f1']:.2f}; step "
+        f"{squad['step_ms']:.1f} ms (mean)")
+    torch.cuda.empty_cache()
+
+
+def criteo_file(path, seed, rows, cardinality):
+    """Criteo's raw ``train.txt``: label, 13 integer and 26 hex
+    categorical fields a row, tab-separated, a few left blank."""
+    rng = np.random.RandomState(seed)
+    label = rng.randint(0, 2, rows)
+    dense = rng.randint(-1, 1000, (rows, 13)).astype(str)
+    dense[rng.rand(rows, 13) < 0.05] = ""
+    cats = np.char.mod("%08x", rng.randint(0, cardinality, (rows, 26)))
+    cats[rng.rand(rows, 26) < 0.05] = ""
+    with open(os.path.join(path, "train.txt"), "w") as f:
+        for i in range(rows):
+            f.write("\t".join([str(label[i])] + list(dense[i])
+                              + list(cats[i])) + "\n")
+
+
+def phase14_criteo(torch, seed, card, tmp):
+    """14c."""
+    from hetu_tpu_torch import data, models
+    from hetu_tpu_torch import graph as ht
+    c, z = CRITEO14, ZOO["ctr"]
+    t0 = time.perf_counter()
+    criteo_file(tmp, seed + 140, c["rows"], c["cardinality"])
+    arrays = data.load_criteo(tmp)
+    if int(arrays[1].max()) >= z["feature_dimension"]:
+        fail(f"14c: {int(arrays[1].max()) + 1} ids exceed the table")
+    log(f"  14c: Criteo train.txt of {c['rows']} rows written and loaded "
+        f"by data.load_criteo in {time.perf_counter() - t0:.2f} s "
+        f"({int(arrays[1].max()) + 1} categorical ids)")
+    built = []
+
+    def build(prefetch):
+        ops = [ht.dataloader_op([ht.Dataloader(a, z["batch"], "train",
+                                               shuffle=True, seed=seed)])
+               for a in arrays]
+        loss, _, _, train = models.wdl_criteo(
+            *ops, feature_dimension=z["feature_dimension"],
+            embedding_size=z["embedding_size"])
+        ex = ht.Executor({"train": [loss, train]}, prefetch=prefetch,
+                         seed=seed)
+        built.append(ops)
+        return ex, ops
+
+    def steps(ex, n):
+        losses, secs = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses.append(float(ex.run("train")[0]))
+            secs.append(time.perf_counter() - t0)
+        return losses, secs
+
+    runs = {}
+    try:
+        for prefetch in (True, False):
+            ex, ops = build(prefetch)
+            device = ex.device
+            runs[prefetch] = steps(ex, c["steps"])
+            if prefetch:
+                peeked = [op.peek_arr("train") for op in ops]
+                if not all(isinstance(t, torch.Tensor)
+                           and t.device == ex.device for t in peeked):
+                    fail(f"14c: the prefetch ring's batches are not on "
+                         f"{ex.device}")
+            del ex
+        if runs[True][0] != runs[False][0]:
+            fail(f"14c: prefetch on {runs[True][0]} != off "
+                 f"{runs[False][0]}")
+        k = c["save_at"]
+        ex, _ = build(True)
+        first, _ = steps(ex, k)
+        ckpt = os.path.join(tmp, "wdl")
+        ex.save(ckpt)
+        del ex
+        ex, ops = build(True)
+        ex.load(ckpt)
+        rest, _ = steps(ex, c["steps"] - k)
+        if first + rest != runs[True][0]:
+            fail(f"14c resume: {first + rest} != {runs[True][0]}")
+        consumed = {k2: v["consumed"] for k2, v in
+                    ex._loader_states().items()}
+        if set(consumed.values()) != {c["steps"]}:
+            fail(f"14c resume: loader positions {consumed}")
+        del ex
+    finally:
+        for ops in built:
+            for op in ops:
+                for ld in op.dataloaders.values():
+                    ld.stop_prefetch()
+    on, off = (float(np.median(runs[p][1][1:])) * 1e3 for p in (True, False))
+    log(f"  14c on {card}: wdl_criteo features {z['feature_dimension']} "
+        f"embedding {z['embedding_size']} B {z['batch']}, {c['steps']} SGD "
+        f"steps: losses {[round(v, 6) for v in runs[True][0]]} equal with "
+        f"prefetch on and off; the ring's batches on {device}; saved after "
+        f"{k} steps, rebuilt, loaded: the batch stream and losses continue "
+        f"exactly; step {on:.2f} ms with prefetch, {off:.2f} ms without "
+        f"(medians after the first)")
+    torch.cuda.empty_cache()
+
+
+def phase14(torch, seed, card):
+    """Phase 14: 14a GPT-2-small from a token file (schedule, save and
+    resume, --demo-generate), 14b BERT-base from text to GLUE and SQuAD,
+    14c dataloader feeds on the card.  Returns 14a's (training launches,
+    demo launches)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke14_")
+    try:
+        counts = phase14_gpt(torch, seed, card, tmp)
+        phase14_bert(torch, seed, card, tmp)
+        phase14_criteo(torch, seed, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -4256,6 +4660,13 @@ def main(argv=None):
         "kv_lens), f32 flash vs unfused, BertMoE-base, the other families")
     kres13, counts13 = phase13(torch, F, args.seed, card)
 
+    # ---- phase 14 ---- #
+    log("phase 14: data, schedules, metrics and checkpoints: GPT-2-small "
+        "from a token file under a warmup-cosine schedule, saved and "
+        "resumed, --demo-generate; BERT-base from text to GLUE and SQuAD; "
+        "wdl_criteo on dataloader feeds")
+    counts14, demo14 = phase14(torch, args.seed, card)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
@@ -4397,6 +4808,33 @@ def main(argv=None):
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    # K2 and K3 at the training shape, f32: launches from phase 14a's
+    # uninterrupted run on the token file; K4 (f32): from its
+    # --demo-generate's generate_fast (the numbers: phase 8's and phase
+    # 2's measurements of the same kernels)
+    for key, name, file, replaces in (
+            ("fwd", "flash_attention", "flash_fwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:173"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:396"),
+            ("dq", "flash_attention_bwd_dq", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:428")):
+        r = kres8[key]["float32"]
+        kernels.append(dict(
+            name=f"{name}[float32, 14a token file]", route="cuda",
+            source=src + file, replaces=replaces, launches=counts14[name],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    r = kres["K4"]["float32"]
+    kernels.append(dict(
+        name="paged_decode_attention[float32, 14a demo-generate]",
+        route="cuda", source=src + split[0],
+        replaces="hetu_tpu/kernels/decode_attention.py:159",
+        launches=demo14["paged_decode_attention"], max_abs_err=r["err"],
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        dev_ms=r.get("dev_ms")))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -10,7 +10,12 @@ optimizer:
 
 ``var_values`` (JAX variable names -> tensors), ``opt_states`` (name ->
 slot state) and ``step`` (optimizer steps taken; an evaluation does not
-advance it, ``executor.py:451-453``) mirror the JAX executor's.
+advance it, ``executor.py:451-453``) mirror the JAX executor's.  Dropout
+draws from a generator seeded from (seed, step) at each step, so
+``save``/``load`` (the JAX package's pickle, ``hetu_tpu_torch.checkpoint``,
+the optimizer slots under the key the graph's ``OptimizerOp`` over the
+same variables would have) resume a run exactly: a checkpoint of the JAX
+``train_gpt`` loads here, and this one there.
 
 ``mixed_precision="bf16"`` is the JAX policy (``HetuConfig`` :145-152,
 ``_cast_in`` :358-364): float parameters and feeds enter the forward
@@ -29,7 +34,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from . import checkpoint as _ckpt
 from .device import resolve_device
+from .graph.node import mix_seed
 
 _POLICIES = {None: None, "bf16": torch.bfloat16}
 
@@ -45,9 +52,9 @@ class Executor:
         self.optimizer = optimizer
         self.mixed_precision = _POLICIES[mixed_precision]
         self.step = 0
-        # dropout's generator: every training step draws fresh masks
+        self.seed = int(seed)
+        # dropout's generator, seeded from (seed, step) at every step
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
         self._vars = model.named_vars()
         self.opt_states = {n: optimizer.init_state_one(p.detach())
                            for n, p in self._vars.items()}
@@ -88,6 +95,7 @@ class Executor:
         gradients of every parameter, one optimizer step.  Returns
         [loss] (a 0-dim f32 tensor)."""
         self.model.train()
+        self.generator.manual_seed(mix_seed(self.seed, self.step))
         feeds = self._feeds(feed_dict)
         loss = self._forward(feeds)
         names = list(self._vars)
@@ -103,3 +111,33 @@ class Executor:
         [loss] for a feed with labels, [logits] without."""
         self.model.eval()
         return [self._forward(self._feeds(feed_dict))]
+
+    # ---- checkpoints ---- #
+
+    def _opt_key(self):
+        return _ckpt.optimizer_key(self.optimizer, self._vars)
+
+    def save(self, path, file=None):
+        """Write ``<path>/checkpoint.pkl``: the variables, the optimizer
+        slots, the step and the dropout stream's (seed, step)."""
+        _ckpt.write(path, file, params=self.var_values,
+                    opt_states={self._opt_key(): self.opt_states},
+                    step=self.step, rng=_ckpt.rng_pair(self.seed, self.step),
+                    dataloaders={})
+
+    @torch.no_grad()
+    def load(self, path, file=None):
+        """Restore what :meth:`save`, or the JAX package's
+        ``Executor.save`` over the same variables, wrote."""
+        ckpt = _ckpt.read(path, file)
+        for name, value in ckpt["params"].items():
+            if name in self._vars:
+                p = self._vars[name]
+                p.copy_(torch.from_numpy(np.asarray(value)).to(p))
+        states = _ckpt.match_opt_states({self._opt_key(): self.opt_states},
+                                        ckpt.get("opt_states") or {})
+        self.opt_states = _ckpt.to_tensors(states[self._opt_key()],
+                                           self.device)
+        self.step = int(ckpt.get("step", self.step))
+        if "rng" in ckpt:
+            self.seed = int(np.asarray(ckpt["rng"])[0])

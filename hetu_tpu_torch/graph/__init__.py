@@ -5,7 +5,8 @@ named-subgraph ``Executor``.
 ``import hetu_tpu_torch.graph as ht`` gives a script the names the JAX
 package (``hetu_tpu``) gives it as ``ht`` for this surface: the
 factories of its ``graph/__init__.py`` (all but the mesh-bound GNN
-ones), ``gradients``, ``layers``, ``init``, ``optim``, ``Executor``,
+ones), ``gradients``, ``layers``, ``init``, ``optim``, ``lr`` (the
+schedulers), ``Executor``, ``dataloader_op``/``Dataloader``,
 ``flash_attention_op`` and ``ring_attention_op``:
 
     x, y = ht.placeholder_op("x"), ht.placeholder_op("y")
@@ -80,7 +81,10 @@ from .ops_moe import (
     dispatch,
 )
 from . import init, layers, optim
-from .executor import Executor, HetuConfig, SubExecutor, dataloader_op
+from .. import lr_scheduler as lr
+from ..dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
+                          dataloader_op)
+from .executor import Executor, HetuConfig, SubExecutor
 
 __all__ = [n for n in dir() if not n.startswith("_")
            and n not in ("node", "autodiff", "executor", "ops_misc",

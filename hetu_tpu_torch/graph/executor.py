@@ -29,33 +29,40 @@ unless ``device="cpu"`` is passed:
 - Random streams (dropout, ``rand_op``): a ``torch.Generator`` per node
   and run, seeded from (seed, the executor's run counter, the node's
   topo position); ``load_seeds`` restarts the counter.
+- Dataloader feeds (``dataloader_op``): each run pulls the next batch of
+  every ``DataloaderOp`` of the subgraph from its loader for the
+  subgraph's name; with ``prefetch`` (the default) each loader runs a
+  background ring that stages its batches on the executor's device
+  (``dataloader.device_transform``).
+- Checkpoints (``save``/``load``): the JAX package's pickle
+  (``hetu_tpu_torch.checkpoint``): variables, optimizer slots, step, the
+  random streams' (seed, run counter) and every loader's position.
 
-Parameter-server modes, meshes, pipelines, dataloader feeds,
-checkpoints, profiling and ``HETU_VALIDATE`` raise ``NotImplementedError``
-naming the ROADMAP item that brings them, as does every other key of the
-JAX config set to other than its default; the JAX config's keys that
-change nothing there (``dtype``, ``enable_lazy``, ``train_name``,
-``val_name``, ``my_eval_nodes``, ``eval_node_list``) are not taken.
+Parameter-server modes, meshes, pipelines, sharded or asynchronous
+checkpoints, profiling and ``HETU_VALIDATE`` raise
+``NotImplementedError`` naming the ROADMAP item that brings them, as does
+every other key of the JAX config set to other than its default; the
+JAX config's keys that change nothing there (``dtype``, ``enable_lazy``,
+``train_name``, ``val_name``, ``my_eval_nodes``, ``eval_node_list``)
+are not taken.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
+from .. import checkpoint as _ckpt
 from .. import envvars
+from ..dataloader import DataloaderOp, device_transform
 from ..device import resolve_device
 from . import optim as _opt
 from .autodiff import find_topo_sort
 from .node import Op, TraceContext, mix_seed
 from .ops_embed import IndexedSlicesOp
 from .ops_misc import PlaceholderOp, VJPOp, forward_with_leaves, vjp_of
-
-
-def _numpy(t):
-    """A numpy copy of a tensor (bf16, which numpy lacks, as f32)."""
-    t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
 def _later(item, what):
@@ -72,7 +79,6 @@ _LATER_KEYS = {
     "ps_comm": (None, "A10"), "use_sparse_pull": (True, "A10"),
     "bsp": (-1, "A10"), "async_push": (False, "A10"),
     "cache_bound": (100, "A10"),
-    "prefetch": (True, "A8 item 3"),
     "dist_strategy": (None, "A9b"), "mesh": (None, "A9b"),
     "pipeline": (None, "A9b"), "num_microbatches": (None, "A9b"),
     "num_stages": (None, "A9b"), "sync_every": (None, "A9b"),
@@ -85,13 +91,14 @@ _LATER_KEYS = {
 
 class HetuConfig:
     """The runtime config of the JAX package's ``HetuConfig`` for the
-    keys the single-device executor runs: ``seed`` and
-    ``mixed_precision`` (None or "bf16"); ``comm_mode`` "AllReduce" is
+    keys the single-device executor runs: ``seed``, ``mixed_precision``
+    (None or "bf16") and ``prefetch``; ``comm_mode`` "AllReduce" is
     accepted (one device: no reduction).  Every other key of the JAX
     config raises ``NotImplementedError`` naming its ROADMAP item unless
     it is passed at its default."""
 
-    def __init__(self, seed=0, mixed_precision=None, **later):
+    def __init__(self, seed=0, mixed_precision=None, prefetch=True,
+                 **later):
         comm_mode = later.get("comm_mode")
         if comm_mode not in (None, "AllReduce", "PS", "Hybrid"):
             raise ValueError(f"comm_mode must be None/'AllReduce'/'PS'/"
@@ -108,6 +115,7 @@ class HetuConfig:
             raise ValueError(f"mixed_precision {mixed_precision!r}: None or "
                              f"'bf16'")
         self.seed = seed
+        self.prefetch = prefetch
         self.mixed_precision = None if mixed_precision is None \
             else torch.bfloat16
 
@@ -166,6 +174,9 @@ class SubExecutor:
         self.optimizer_ops = [n for n in self.topo
                               if isinstance(n, _opt.OptimizerOp)]
         self.training = len(self.optimizer_ops) > 0
+        self.dataloader_ops = [n for n in self.topo
+                               if isinstance(n, DataloaderOp)]
+        self._prefetch_wired = False
         # IndexedSlices nodes consumed only by optimizers are never
         # densified
         consumers = {}
@@ -213,13 +224,39 @@ class SubExecutor:
             return []
         return list(n.inputs)
 
+    @property
+    def batch_num(self):
+        """Batches an epoch of this subgraph's loaders (the smallest),
+        None without loaders."""
+        nums = [dl.get_batch_num(self.name) for dl in self.dataloader_ops]
+        return min(nums) if nums else None
+
+    def _wire_prefetch(self):
+        """Start each loader's ring (``config.prefetch``); its transform
+        stages the batches on the executor's device."""
+        ex = self.executor
+        if not ex.config.prefetch:
+            return
+        for dl_op in self.dataloader_ops:
+            loader = dl_op.dataloaders.get(self.name)
+            if loader is None or loader._ring is not None:
+                continue
+            loader.start_prefetch(transform=device_transform(ex.device))
+
     def _feed_values(self, feed_dict):
-        """name -> tensor on the executor's device: float64 as f32, int64
-        as int32, as the JAX executor coerces feeds."""
+        """name -> tensor on the executor's device: the dataloaders' next
+        batches, then ``feed_dict``; float64 as f32, int64 as int32, as
+        the JAX executor coerces feeds."""
+        if not self._prefetch_wired:
+            self._prefetch_wired = True
+            self._wire_prefetch()
         dev = self.executor.device
         out = {}
-        for node, value in feed_dict.items():
-            name = node.name if isinstance(node, Op) else node
+        items = [(dl.name, dl.get_arr(self.name))
+                 for dl in self.dataloader_ops]
+        items += [(node.name if isinstance(node, Op) else node, value)
+                  for node, value in feed_dict.items()]
+        for name, value in items:
             t = value if isinstance(value, torch.Tensor) \
                 else torch.from_numpy(np.ascontiguousarray(value))
             if t.dtype == torch.float64:
@@ -254,7 +291,9 @@ class SubExecutor:
         with torch.no_grad():
             for pos, node in enumerate(self.topo):
                 nid = id(node)
-                if isinstance(node, PlaceholderOp):
+                if isinstance(node, DataloaderOp):
+                    vals[nid] = cast_in(feeds[node.name])
+                elif isinstance(node, PlaceholderOp):
                     if node.name in ex.var_values:
                         vals[nid] = cast_in(ex.var_values[node.name])
                     elif node.name in feeds:
@@ -302,7 +341,7 @@ class SubExecutor:
         if self.training:
             ex.step += 1
         if convert_to_numpy_ret_vals:
-            outputs = [_numpy(o) if isinstance(o, torch.Tensor) else o
+            outputs = [_ckpt.to_numpy(o) if isinstance(o, torch.Tensor) else o
                        for o in outputs]
         return outputs
 
@@ -391,6 +430,75 @@ class Executor:
         return self.subexecutor[name].run(feed_dict,
                                           convert_to_numpy_ret_vals)
 
+    @property
+    def batch_num(self):
+        """Batches an epoch of the first subgraph's loaders (None without
+        loaders)."""
+        subs = list(self.subexecutor.values())
+        return subs[0].batch_num if subs else None
+
+    # ---- checkpoints (``executor.py:1159-1230``, :1493-1600) ---- #
+
+    def save(self, path, file=None, varlist=None, sharded=False,
+             async_=False):
+        """Write ``<path>/checkpoint.pkl`` (``file`` names another): the
+        variables (those of ``varlist`` when given), the optimizer slots,
+        the step, the random streams and every loader's position."""
+        if sharded or async_:
+            raise _ckpt.unsupported(
+                f"Executor.save(sharded={sharded}, async_={async_})")
+        params = {k: v for k, v in self.var_values.items()
+                  if varlist is None or k in varlist}
+        _ckpt.write(path, file, params=params, opt_states=self.opt_states,
+                    step=self.step,
+                    rng=_ckpt.rng_pair(self._rng_seed, self._runs),
+                    dataloaders=self._loader_states())
+
+    def _loaders(self):
+        """{"<subgraph>:<position>:<loader>": loader}: keys stable across
+        builds (node names embed the global id counter)."""
+        seen = {}
+        for sub_name in sorted(self.subexecutor):
+            sub = self.subexecutor[sub_name]
+            for i, dl_op in enumerate(sub.dataloader_ops):
+                for key, loader in dl_op.dataloaders.items():
+                    seen[f"{sub_name}:{i}:{key}"] = loader
+        return seen
+
+    def _loader_states(self):
+        return {k: ld.state_dict() for k, ld in self._loaders().items()}
+
+    def _restore_loaders(self, states):
+        loaders = self._loaders()
+        missing = [k for k in (states or {}) if k not in loaders]
+        for k, st in (states or {}).items():
+            if k in loaders:
+                loaders[k].load_state_dict(st)
+        if missing:
+            warnings.warn(
+                f"checkpoint dataloader state {missing} has no match in "
+                f"this build (graph structure changed?); those data "
+                f"streams restart from batch 0 while params resume at "
+                f"step {self.step}", stacklevel=3)
+
+    def load(self, path, file=None, consider_splits=False):
+        """Restore what :meth:`save` wrote, or what the JAX package's
+        ``Executor.save`` wrote."""
+        ckpt = _ckpt.read(path, file)
+        self.load_dict(ckpt["params"])
+        if ckpt.get("opt_states"):
+            self.opt_states = {
+                k: _ckpt.to_tensors(v, self.device)
+                for k, v in _ckpt.match_opt_states(
+                    self.opt_states, ckpt["opt_states"]).items()}
+        if "step" in ckpt:
+            self.step = int(ckpt["step"])
+        if "rng" in ckpt:
+            seed, runs = (int(x) for x in np.asarray(ckpt["rng"]))
+            self._rng_seed, self._runs = seed, runs
+        if ckpt.get("dataloaders"):
+            self._restore_loaders(ckpt["dataloaders"])
+
     def load_dict(self, state_dict):
         """Set variables from {name: array}, e.g. the JAX executor's
         ``return_tensor_values()``; unknown names are ignored."""
@@ -407,21 +515,10 @@ class Executor:
 
     def return_tensor_values(self):
         """{name: numpy copy} of every variable."""
-        return {k: _numpy(v) for k, v in self.var_values.items()}
-
-    def save(self, *args, **kwargs):
-        raise _later("A8 item 4", "Executor.save")
-
-    def load(self, *args, **kwargs):
-        raise _later("A8 item 4", "Executor.load")
+        return _ckpt.to_numpy(self.var_values)
 
     def load_sharded(self, *args, **kwargs):
-        raise _later("A8 item 4", "Executor.load_sharded")
+        raise _ckpt.unsupported("Executor.load_sharded")
 
     def profile(self, *args, **kwargs):
         raise _later("A11", "Executor.profile")
-
-
-def dataloader_op(*args, **kwargs):
-    """Dataloader feeds are not in the port yet."""
-    raise _later("A8 item 3", "dataloader_op (DataloaderOp feeds)")

@@ -11,10 +11,9 @@ Parameter-server routing waits for A10.
 
 from __future__ import annotations
 
-import hashlib
-
 import torch
 
+from .. import checkpoint as _ckpt
 from .. import optimizer as _rules
 from .autodiff import find_topo_sort, gradients
 from .node import Op, TraceContext
@@ -25,11 +24,14 @@ from .ops_misc import PlaceholderOp
 def merge_duplicate_rows(ids, rows):
     """Sum the rows sharing an id so every duplicate carries the same
     total (static shapes: duplicate positions stay, each with the merged
-    value), as ``optimizer.py:28`` does."""
+    value), as ``optimizer.py:28`` does.  The sums run in position order
+    on every device (``index_put_`` with ``accumulate``, sort-based on
+    CUDA, where ``index_add_`` would add in atomics' order), so a step
+    is reproducible bit for bit."""
     uniq, inv = torch.unique(ids, return_inverse=True)
     totals = torch.zeros((uniq.numel(),) + tuple(rows.shape[1:]),
                          dtype=rows.dtype, device=rows.device)
-    totals.index_add_(0, inv, rows)
+    totals.index_put_((inv,), rows, accumulate=True)
     return ids, totals[inv]
 
 
@@ -86,10 +88,8 @@ class OptimizerOp(Op):
         super().__init__(*grads, name="Optimizer")
         # checkpoint-stable name: the optimizer class and a digest of the
         # variable names, not the global node-id counter
-        digest = hashlib.sha1(
-            "|".join(sorted(v.name for v in var_list)).encode()
-        ).hexdigest()[:10]
-        self.name = f"opt_{type(optimizer).__name__}_{digest}"
+        self.name = _ckpt.optimizer_key(optimizer,
+                                        [v.name for v in var_list])
         self.var_list = var_list
         self.optimizer = optimizer
         # sparse adjoints are consumed structurally, not evaluated densely
@@ -108,8 +108,7 @@ class OptimizerOp(Op):
         Returns the new {var name: slot state}."""
         opt = self.optimizer
         dev = tc.params[self.var_list[0]].device
-        lr = torch.tensor(float(opt.learning_rate), dtype=torch.float32,
-                          device=dev)
+        lr = opt.lr_value(tc.step, dev)
         step = torch.tensor(int(tc.step), dtype=torch.float32, device=dev)
         clip = opt.clip_grad_norm
         if clip is not None and clip <= 0:

@@ -126,3 +126,29 @@ class GPTForCausalLM(layers.BaseLayer):
                                  f"has {tuple(p.shape)}")
             p.copy_(t.to(p.device, p.dtype))
         return self
+
+
+def greedy_generate(executor, prompt, num_tokens, seq_len, pad_id=0):
+    """Greedy decoding through the fixed-shape forward (the JAX package's
+    ``models/gpt.py:172`` over this port's ``Executor.evaluate``): the
+    same [1, seq_len] forward runs once per generated token and position
+    t-1's logits pick token t; causal masking makes the padded tail past
+    t irrelevant to that row.  No KV cache (``generate_fast`` has one).
+    Returns the prompt and its continuation as a list."""
+    prompt = list(prompt)
+    if not 0 < len(prompt) < seq_len:
+        raise ValueError(
+            f"prompt length {len(prompt)} must be in (0, {seq_len})")
+    if num_tokens < 1:
+        raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
+    if len(prompt) + num_tokens > seq_len:
+        raise ValueError(
+            f"prompt ({len(prompt)}) + num_tokens ({num_tokens}) exceeds "
+            f"the model's fixed seq_len ({seq_len}); request fewer tokens")
+    ids = np.full((1, seq_len), pad_id, np.int32)
+    ids[0, :len(prompt)] = prompt
+    end = len(prompt) + num_tokens
+    for t in range(len(prompt), end):
+        logits = executor.evaluate({"input_ids": ids})[0]
+        ids[0, t] = int(logits.reshape(seq_len, -1)[t - 1].argmax())
+    return ids[0, :end].tolist()

@@ -24,6 +24,7 @@ they were.  The graph surface's ``minimize`` and ``OptimizerOp`` live in
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -44,6 +45,16 @@ class Optimizer:
     # ------------------------------------------------------------------ #
     # pure update functions
     # ------------------------------------------------------------------ #
+
+    def lr_value(self, step, device=None):
+        """The learning rate of the step after ``step`` optimizer steps
+        (``optimizer.py:81-85``): a scheduler's f32 value
+        (``hetu_tpu_torch.lr_scheduler``) or the constant, as a 0-d f32
+        tensor on ``device`` (one host-to-device copy a step)."""
+        lr = self.learning_rate
+        value = lr.value(int(step)) if hasattr(lr, "value") \
+            else np.float32(lr)
+        return torch.tensor(value, dtype=torch.float32, device=device)
 
     def init_state_one(self, p):
         """Slot state of one parameter (None: stateless)."""
@@ -87,8 +98,7 @@ class Optimizer:
         names = list(params)
         dev = params[names[0]].device
         factor = self.clip_factor([grads[n] for n in names])
-        lr = torch.tensor(float(self.learning_rate), dtype=torch.float32,
-                          device=dev)
+        lr = self.lr_value(step, dev)
         t = torch.tensor(int(step), dtype=torch.float32, device=dev)
         new_states = {}
         for n in names:

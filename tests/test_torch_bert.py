@@ -227,7 +227,7 @@ def test_train_bert_cli_runs_on_the_cpu():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--data-path", "corpus.txt"], "A8 item 3"),
+    (["--comm-mode", "PS"], "A10"),
     (["--comm-mode", "AllReduce"], "A9b")])
 def test_train_bert_cli_refuses_what_waits(argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,0 +1,220 @@
+"""Checkpoints of both executors (``hetu_tpu_torch.checkpoint``, the JAX
+package's pickle), on the CPU:
+
+- tiny GPT (one layer) under a warmup-cosine AdamW: three steps of the
+  ``nn.Module`` ``Executor`` against JAX's graph GPT (losses within 1e-5
+  relative, variables within 1e-5); the port's save -> load resumes
+  exactly (losses and variables bit-equal to the uninterrupted run, the
+  step and the dropout stream restored); JAX's ``Executor.save`` loads
+  into the port and the next three losses are within 1e-5 of JAX
+  continuing; the port's checkpoint loads into JAX's executor the same
+  way; the pickle holds no torch object, under the optimizer key the
+  graph's ``OptimizerOp`` gives the same variables;
+- ``graph.Executor``, a dropout MLP fed by shuffled ``dataloader_op``s:
+  four steps, save, a fresh build, load, five more equal nine
+  uninterrupted steps bit for bit (losses, variables, the loaders'
+  position and the dropout streams);
+- the same graph without dropout across packages: JAX's checkpoint, its
+  loader positions included, continues in the port within 1e-5, and the
+  port's in JAX;
+- orbax-style ``save(sharded=True)``, ``save(async_=True)`` and
+  ``load_sharded`` raise NotImplementedError naming A9b.
+"""
+
+import pickle
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import hetu_tpu as jm
+from hetu_tpu import lr_scheduler as jlr
+import hetu_tpu_torch.graph as tm
+from hetu_tpu_torch import checkpoint as tck
+from hetu_tpu_torch import lr_scheduler as tlr
+from hetu_tpu_torch import optimizer as topt
+from hetu_tpu_torch.executor import Executor as TExecutor
+from hetu_tpu_torch.models.gpt import GPTForCausalLM as TGPT
+
+sys.path.insert(0, str(Path(__file__).parent))
+from test_torch_train import _batch, _jax_gpt, _tiny_cfg  # noqa: E402
+
+LR = 3e-4
+WARM = dict(total_steps=12, warmup_steps=2)
+
+
+@pytest.fixture(autouse=True)
+def _no_validate(monkeypatch):
+    # the graph verifier (HETU_VALIDATE) is not in the port yet (A11)
+    monkeypatch.setenv("HETU_VALIDATE", "0")
+
+
+def _leaf_types(tree):
+    if isinstance(tree, dict):
+        return set().union(*(_leaf_types(v) for v in tree.values())) \
+            if tree else set()
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(_leaf_types(v) for v in tree)) if tree else set()
+    return {type(tree)}
+
+
+def _assert_numpy_only(path):
+    with open(Path(path) / "checkpoint.pkl", "rb") as f:
+        ckpt = pickle.load(f)
+    types = _leaf_types(ckpt)
+    assert not any(t.__module__.startswith("torch") for t in types), types
+    assert types <= {np.ndarray, int, float, bool, str, type(None)}, types
+    return ckpt
+
+
+def _port_gpt(cfg, values):
+    opt = topt.AdamWOptimizer(learning_rate=tlr.CosineScheduler(LR, **WARM),
+                              weight_decay=0.01)
+    opt.clip_grad_norm = 1.0
+    model = TGPT(cfg, seed=7)
+    if values is not None:
+        model.load_var_values(values)
+    return TExecutor(model, opt, device="cpu", seed=3)
+
+
+def _vars(ex):
+    return {k: np.asarray(v) for k, v in ex.var_values.items()}
+
+
+def _close(a, b, tol=1e-5):
+    assert set(a) == set(b)
+    for k in a:
+        d = float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+        assert d <= tol, (k, d)
+
+
+def test_gpt_checkpoints_resume_and_cross_packages(tmp_path):
+    jcfg, tcfg = _tiny_cfg(False)
+    jcfg.num_hidden_layers = tcfg.num_hidden_layers = 1
+    tcfg.dropout_rate = 0.0
+    jex, ids, labels, names = _jax_gpt(jcfg, jlr.CosineScheduler(LR, **WARM))
+    tex = _port_gpt(tcfg, _vars(jex))
+    feed = [_batch(10 + s, tcfg) for s in range(9)]
+
+    def jrun(s):
+        x, y = feed[s]
+        return float(np.asarray(jex.run("train", feed_dict={
+            ids: x, labels: y})[0]))
+
+    def trun(ex, s):
+        x, y = feed[s]
+        return float(ex.run({"input_ids": x, "labels": y})[0])
+
+    for s in range(3):
+        assert trun(tex, s) == pytest.approx(jrun(s), rel=1e-5), s
+    _close(_vars(tex), _vars(jex))
+
+    # the port's save -> load resumes exactly
+    tex.save(tmp_path / "port")
+    ckpt = _assert_numpy_only(tmp_path / "port")
+    assert list(ckpt["opt_states"]) == [
+        tck.optimizer_key(topt.AdamWOptimizer(), names)]
+    assert ckpt["step"] == 3 and ckpt["rng"].tolist() == [3, 3]
+    resumed = _port_gpt(tcfg, None)
+    resumed.load(tmp_path / "port")
+    assert resumed.step == 3 and resumed.seed == 3
+    for s in range(3, 6):
+        assert trun(resumed, s) == trun(tex, s), s
+    for k, v in tex.var_values.items():
+        assert torch.equal(v, resumed.var_values[k]), k
+
+    # JAX -> port: JAX's checkpoint continues in the port
+    jex.save(str(tmp_path / "jax"), None)
+    port = _port_gpt(tcfg, None)
+    port.load(tmp_path / "jax")
+    assert port.step == 3
+    for s in range(3, 6):
+        assert trun(port, s) == pytest.approx(jrun(s), rel=1e-5), s
+    _close(_vars(port), _vars(jex))
+
+    # port -> JAX: the port's checkpoint continues in JAX's executor
+    port.save(tmp_path / "back")
+    _assert_numpy_only(tmp_path / "back")
+    jex.load(str(tmp_path / "back"))
+    assert int(jex.step) == 6
+    for s in range(6, 9):
+        assert jrun(s) == pytest.approx(trun(port, s), rel=1e-5), s
+    _close(_vars(port), _vars(jex))
+
+
+DATA = np.random.RandomState(1).randn(26, 4).astype(np.float32)
+LABELS = np.eye(3, dtype=np.float32)[np.random.RandomState(2).randint(0, 3,
+                                                                      26)]
+
+
+def _mlp(m, keep_prob):
+    x = m.dataloader_op([m.Dataloader(DATA, 4, "train", shuffle=True,
+                                      seed=9)])
+    y = m.dataloader_op([m.Dataloader(LABELS, 4, "train", shuffle=True,
+                                      seed=9)])
+    w1 = m.init.random_normal((4, 8), stddev=0.5, name="w1")
+    w2 = m.init.random_normal((8, 3), stddev=0.5, name="w2")
+    h = m.relu_op(m.matmul_op(x, w1))
+    if keep_prob < 1:
+        h = m.dropout_op(h, keep_prob)
+    loss = m.reduce_mean_op(m.softmaxcrossentropy_op(m.matmul_op(h, w2), y),
+                            axes=0)
+    train = m.optim.AdamOptimizer(learning_rate=0.05).minimize(loss)
+    if m is jm:
+        return jm.Executor({"train": [loss, train]}, seed=4)
+    return tm.Executor({"train": [loss, train]}, seed=4, device="cpu")
+
+
+def _steps(ex, n):
+    return [float(np.asarray(ex.run("train")[0])) for _ in range(n)]
+
+
+def test_graph_resume_is_exact_with_loaders_and_dropout(tmp_path):
+    ref = _mlp(tm, 0.7)
+    init = ref.return_tensor_values()
+    want = _steps(ref, 9)
+    half = _mlp(tm, 0.7)
+    half.load_dict(init)
+    got = _steps(half, 4)
+    half.save(tmp_path)
+    ckpt = _assert_numpy_only(tmp_path)
+    assert ckpt["dataloaders"] == {
+        "train:0:train": {"consumed": 4, "seed": 9, "shuffle": True},
+        "train:1:train": {"consumed": 4, "seed": 9, "shuffle": True}}
+    fresh = _mlp(tm, 0.7)
+    fresh.load(tmp_path)
+    assert fresh.step == 4
+    got += _steps(fresh, 5)
+    assert got == want
+    for k, v in ref.return_tensor_values().items():
+        assert np.array_equal(v, fresh.return_tensor_values()[k]), k
+
+
+def test_graph_checkpoints_cross_packages(tmp_path):
+    jex = _mlp(jm, 1.0)
+    tex = _mlp(tm, 1.0)
+    tex.load_dict(jex.return_tensor_values())
+    np.testing.assert_allclose(_steps(tex, 3), _steps(jex, 3), rtol=1e-5)
+    jex.save(str(tmp_path / "jax"))
+    port = _mlp(tm, 1.0)
+    port.load(tmp_path / "jax")
+    np.testing.assert_allclose(_steps(port, 4), _steps(jex, 4), rtol=1e-5)
+    port.save(tmp_path / "port")
+    _assert_numpy_only(tmp_path / "port")
+    back = _mlp(jm, 1.0)
+    back.load(str(tmp_path / "port"))
+    np.testing.assert_allclose(_steps(back, 4), _steps(port, 4), rtol=1e-5)
+    _close(port.return_tensor_values(), back.return_tensor_values())
+
+
+@pytest.mark.parametrize("call", ["save_sharded", "save_async",
+                                  "load_sharded"])
+def test_orbax_checkpoints_wait_for_a9b(call, tmp_path):
+    ex = tm.Executor([tm.init.zeros((2,), name="w")], device="cpu")
+    fn = {"save_sharded": lambda: ex.save(tmp_path, sharded=True),
+          "save_async": lambda: ex.save(tmp_path, async_=True),
+          "load_sharded": lambda: ex.load_sharded(tmp_path)}[call]
+    with pytest.raises(NotImplementedError, match="A9b"):
+        fn()

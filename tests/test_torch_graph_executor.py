@@ -14,7 +14,8 @@ package's, on the CPU, from the same weights (the JAX executor's
   touched rows of the table and of its slots within 1e-5 (AdamW/Lamb
   1e-5 + 1e-5 rel), the untouched rows bit-equal;
 - duplicate variable names refused; the config keys of later ROADMAP
-  items raising ``NotImplementedError`` unless at their defaults, the
+  items raising ``NotImplementedError`` unless at their defaults
+  (``prefetch`` is honoured either way), the
   JAX config's dropped keys and other policies than None and "bf16"
   refused;
 - a node read by three VJPOps computes once per training step, and a
@@ -269,7 +270,7 @@ def test_duplicate_variable_names_refused():
     ("bsp", 0, "A10"),
     ("async_push", True, "A10"),
     ("cache_bound", 10, "A10"),
-    ("prefetch", False, "A8 item 3"),
+    ("pipeline", "pipedream", "A9b"),
     ("dist_strategy", object(), "A9b"),
     ("mesh", object(), "A9b"),
     ("pipeline", "gpipe", "A9b"),
@@ -299,6 +300,7 @@ def test_config_keys_at_their_defaults_are_accepted():
                         overlap=True, use_nccl_collectives=True,
                         shard_pipeline_ends=True, log_path=None, seed=3)
     assert cfg.seed == 3 and cfg.mixed_precision is None
+    assert cfg.prefetch and not tm.HetuConfig(prefetch=False).prefetch
     assert tm.HetuConfig(mixed_precision="bf16").mixed_precision \
         == torch.bfloat16
     for key in ("dtype", "enable_lazy", "train_name", "my_eval_nodes"):
@@ -309,18 +311,18 @@ def test_config_keys_at_their_defaults_are_accepted():
             tm.HetuConfig(mixed_precision=policy)
 
 
-@pytest.mark.parametrize("method,item", [
-    ("save", "A8 item 4"), ("load", "A8 item 4"),
-    ("load_sharded", "A8 item 4"), ("profile", "A11")])
-def test_later_methods_raise(method, item):
+@pytest.mark.parametrize("method,kwargs,item", [
+    ("save", {"sharded": True}, "A9b"), ("save", {"async_": True}, "A9b"),
+    ("load_sharded", {}, "A9b"), ("profile", {}, "A11")])
+def test_later_methods_raise(method, kwargs, item, tmp_path):
     ex = tm.Executor([tm.init.zeros((2,), name="w")], device="cpu")
     with pytest.raises(NotImplementedError, match=item):
-        getattr(ex, method)("somewhere")
+        getattr(ex, method)(str(tmp_path), **kwargs)
 
 
 def test_validate_and_dataloader_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A8 item 3"):
-        tm.dataloader_op([])
+    with pytest.raises(NotImplementedError, match="A11"):
+        tm.GNNDataLoaderOp(lambda graph: graph)
     monkeypatch.setenv("HETU_VALIDATE", "1")
     with pytest.raises(NotImplementedError, match="A11"):
         tm.Executor([tm.init.zeros((2,), name="w")], device="cpu")

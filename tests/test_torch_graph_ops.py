@@ -413,7 +413,8 @@ GNN_NAMES = {"DistGCN15dOp", "distgcn_15d_op", "gcn_layer_shard_specs"}
 # that the port's graph package exports
 EXTRA_NAMES = {"ShapeInferenceError", "flash_attention_op",
                "ring_attention_op", "init", "layers", "optim", "Executor",
-               "HetuConfig", "SubExecutor", "dataloader_op",
+               "HetuConfig", "SubExecutor", "dataloader_op", "lr",
+               "Dataloader", "DataloaderOp", "GNNDataLoaderOp",
                "layout_transform_op", "layout_transform_gradient_op",
                "reverse_layout_transform_op",
                "reverse_layout_transform_gradient_data_op",
