@@ -3700,9 +3700,12 @@ ZOO = dict(
 ZOO_STEPS = 3
 
 
-def check_bert_kernels(torch, F, dtype, seed):
+def check_bert_kernels(torch, F, dtype, seed, shape=BERT_SHAPE,
+                       lens_np=BERT_LENS, tag="13-pre",
+                       what="13-pre, BERT's shape"):
     """K2 and K3's two kernels at BERT-base's shape (``BERT_SHAPE``),
-    non-causal with ``BERT_LENS``, against their plain versions
+    non-causal with ``BERT_LENS`` (or ``shape`` with ``lens_np``, None
+    for no kv_lens), against their plain versions
     (``check_flash_autograd``: rows past kv_lens attend to the live keys
     too; dk and dv zero past it).  Then each kernel timed beside its
     plain version, its bound over the live (q, k) pairs (live K and V
@@ -3710,19 +3713,21 @@ def check_bert_kernels(torch, F, dtype, seed):
     key-padding mask (its forward for K2, its backward for K3).
     Returns {"fwd", "dkv", "dq": result}."""
     from hetu_tpu_torch.kernels import flash_attention as fa
-    B, S, Hn, D = BERT_SHAPE
+    B, S, Hn, D = shape
     errs, (q, k, v, do), args = check_flash_autograd(
-        torch, dtype, seed + 23, BERT_SHAPE, False,
-        torch.from_numpy(BERT_LENS), "13-pre, BERT's shape")
+        torch, dtype, seed + 23, shape, False,
+        None if lens_np is None else torch.from_numpy(lens_np), what)
     lens = args[3]
+    live = np.full(B, S) if lens_np is None else lens_np
     shape = f"[{B},{S},{Hn},{D}]"
     es = q.element_size()
     nq = B * S * Hn * D * es                # one [B, S, H, D] tensor
-    nkv = int(BERT_LENS.sum()) * Hn * D * es   # the live K (or V) rows
+    nkv = int(live.sum()) * Hn * D * es     # the live K (or V) rows
     stats = B * Hn * S * 4                  # lse or delta, f32
-    pairs = S * int(BERT_LENS.sum()) * Hn   # every row sees its live keys
-    key_live = (torch.arange(S, device=q.device)[None, :]
-                < lens[:, None])[:, None, None, :]
+    pairs = S * int(live.sum()) * Hn        # every row sees its live keys
+    key_live = None if lens is None else \
+        (torch.arange(S, device=q.device)[None, :]
+         < lens[:, None])[:, None, None, :]
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=key_live))
@@ -3737,7 +3742,8 @@ def check_bert_kernels(torch, F, dtype, seed):
             ("fwd", lambda: fa.flash_fwd(q, k, v, causal=False, kv_lens=lens),
              lambda: fa.flash_fwd_reference(q, k, v, causal=False,
                                             kv_lens=lens),
-             2, 2 * nq + 2 * nkv + stats + lens.numel() * 4, errs["o"]),
+             2, 2 * nq + 2 * nkv + stats
+             + (0 if lens is None else lens.numel() * 4), errs["o"]),
             ("dkv", lambda: fa.flash_bwd_dkv(*args, causal=False),
              lambda: fa.flash_bwd_dkv_reference(*args, causal=False),
              4, 4 * nq + 2 * nkv + 2 * stats, max(errs["dk"], errs["dv"])),
@@ -3754,11 +3760,13 @@ def check_bert_kernels(torch, F, dtype, seed):
         res[key] = dict(err=err, ms=ms, run_ms=run_ms, dev_ms=dev,
                         plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
                         bound_by=b_by)
-        log(f"  13-pre: {'K2' if key == 'fwd' else 'K3 ' + key} {dtype} "
-            f"{shape} kv_lens: kernel {ms:.4f} ms ({run_ms:.4f} back to "
+        log(f"  {tag}: {'K2' if key == 'fwd' else 'K3 ' + key} {dtype} "
+            f"{shape}{'' if lens is None else ' kv_lens'}: kernel "
+            f"{ms:.4f} ms ({run_ms:.4f} back to "
             f"back, {ms_text(dev)} on the device), plain {plain_ms:.4f} ms, "
-            f"SDPA {'forward' if key == 'fwd' else 'backward'} with the "
-            f"key-padding mask {lib:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+            f"SDPA {'forward' if key == 'fwd' else 'backward'}"
+            f"{'' if lens is None else ' with the key-padding mask'} "
+            f"{lib:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
             f"({nbytes} B, {flops} flop over {pairs} live pairs"
             f"{', 3 TF32 passes' if dtype == 'float32' else ''})")
     return res
@@ -4455,6 +4463,276 @@ def phase14(torch, seed, card):
     return counts
 
 
+# ---------------------------------------------------------------- #
+# phase 15: pipeline and sharded training on the graph surface
+# ---------------------------------------------------------------- #
+
+PP15 = dict(batch=16, seq=512, microbatches=8, stages=4, steps=3, lr=0.005)
+DP15_STEPS = 2
+PP15_RTOL = 2e-4        # JAX's own tolerance for the pipelined BERT test
+PP15_ATOL = 1e-6        # final tensors: 1e-6 + 2e-4 |plain|
+
+
+def bert15(ht, models, batch):
+    """BertForSequenceClassification(num_labels=3) at BERT-base's widths,
+    S 512, flash attention, dropout 0, built at ``batch`` rows, with an
+    SGD step: (ids, labels, loss, train)."""
+    cfg = models.BertConfig.base(
+        batch_size=batch, seq_len=PP15["seq"], hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, use_flash_attention=True)
+    ids, labels = ht.placeholder_op("input_ids"), ht.placeholder_op("labels")
+    loss, _ = models.BertForSequenceClassification(cfg, num_labels=3)(
+        ids, labels=labels)
+    train = ht.optim.SGDOptimizer(learning_rate=PP15["lr"]).minimize(loss)
+    return ids, labels, loss, train
+
+
+def bert15_batches(seed, n):
+    rng = np.random.RandomState(seed)
+    B, S = PP15["batch"], PP15["seq"]
+    return [(rng.randint(0, 30522, (B, S)).astype(np.int32),
+             rng.randint(0, 3, (B,)).astype(np.int32)) for _ in range(n)]
+
+
+def steps15(torch, ex, ids, labels, batches, want, tag):
+    """One run of ``ex``'s "train" per batch, each launching exactly
+    ``want``: (losses, seconds, peak bytes above the allocation before
+    each step, launches of all the steps)."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    losses, secs, peaks = [], [], []
+    total = collections.Counter()
+    for i, (a, b) in enumerate(batches):
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = ex.run("train", feed_dict={ids: a, labels: b})
+        losses.append(float(out[0]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - before)
+        counts = launch_counts()
+        if counts != want:
+            fail(f"{tag} step {i}: launches {counts}, want {want}")
+        total.update(counts)
+    if not all(np.isfinite(losses)):
+        fail(f"{tag}: a loss is not finite: {losses}")
+    return losses, secs, peaks, total
+
+
+def close15(got, want, tag):
+    """Losses within PP15_RTOL of the plain executor's, and every final
+    tensor within PP15_ATOL + PP15_RTOL |want| of it (the atol covers
+    tensors the loss does not move, such as the key biases, which only
+    rounding drifts).  Returns the worst err / that bound."""
+    got_l, got_w = got
+    want_l, want_w = want
+    if not np.allclose(got_l, want_l, rtol=PP15_RTOL, atol=0):
+        fail(f"{tag}: losses {got_l} vs the plain executor's {want_l} "
+             f"(rtol {PP15_RTOL})")
+    worst, where = 0.0, None
+    for k, w in want_w.items():
+        w = w.astype(np.float64)
+        ratio = float((np.abs(got_w[k] - w)
+                       / (PP15_ATOL + PP15_RTOL * np.abs(w))).max())
+        if ratio > worst:
+            worst, where = ratio, k
+    if worst > 1:
+        fail(f"{tag}: {where} differs from the plain executor's by "
+             f"{worst:.3f} x (atol {PP15_ATOL}, rtol {PP15_RTOL})")
+    return worst
+
+
+def phase15a(torch, seed, card):
+    """15a: BERT-base pipelined over four stages of a virtual mesh, gpipe
+    and 1f1b against the plain executor.  Returns 1f1b's launches."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    from hetu_tpu_torch.kernels import launch_counts
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.pipeline import HIGH_WATER
+    B, S, M, St = (PP15[k] for k in ("batch", "seq", "microbatches",
+                                      "stages"))
+    batches = bert15_batches(seed + 15, PP15["steps"])
+    ids, labels, loss, train = bert15(ht, models, B)
+    ex = ht.Executor({"train": [loss, train]}, seed=seed)
+    w0 = ex.return_tensor_values()
+    L = 12
+    want = flash_launches(launch_counts(), L)
+    plain_l, plain_s, plain_p, _ = steps15(torch, ex, ids, labels,
+                                           batches[:DP15_STEPS], want,
+                                           "15a plain")
+    after2 = ex.return_tensor_values()
+    more = steps15(torch, ex, ids, labels, batches[DP15_STEPS:], want,
+                   "15a plain")
+    plain_l += more[0]
+    plain_s += more[1]
+    plain_p += more[2]
+    plain = (plain_l, ex.return_tensor_values())
+    del ex
+    torch.cuda.empty_cache()
+    rps = L // St
+    stats = {"plain": (plain_l, plain_s, plain_p)}
+    counts = {}
+    for mode in ("gpipe", "1f1b"):
+        ids, labels, loss, train = bert15(ht, models, B // M)
+        ex = ht.Executor({"train": [loss, train]}, seed=seed, pipeline=mode,
+                         mesh=make_mesh({"pp": St}), num_microbatches=M)
+        sub = ex.subexecutor["train"]
+        if not (sub.spmd and sub.plan.uniform
+                and sub.plan.num_body_blocks() == L):
+            fail(f"15a {mode}: the stage path was not taken (plan uniform "
+                 f"{sub.plan.uniform}, {sub.plan.num_body_blocks()} body "
+                 f"blocks)")
+        emb = ex.local_shards("bert_embeddings_word_embeddings")
+        ex.load_dict(w0)
+        # gpipe: each layer once forward and once backward a microbatch;
+        # 1f1b's backward adds a re-forward on the first S - 1 stages and
+        # the recompute under each VJP
+        k2 = L * M + ((St - 1) * rps * M + L * M) * (mode == "1f1b")
+        want = flash_launches(launch_counts(), L * M)
+        want["flash_attention"] = k2
+        got = steps15(torch, ex, ids, labels, batches, want, f"15a {mode}")
+        worst = close15((got[0], ex.return_tensor_values()), plain,
+                        f"15a {mode}")
+        stats[mode] = got[:3]
+        counts[mode] = got[3]
+        log(f"  15a {mode}: stage path, {St} stages x {rps} layers, M {M} "
+            f"microbatches of {B // M}; the word embeddings' shards "
+            f"{len(emb)} x {list(emb[0].shape)} (the ends split over pp); "
+            f"launches a step {k2} K2, {L * M} K3 dK/dV, {L * M} K3 dQ; "
+            f"boundary-slot high-water {HIGH_WATER[mode]}; losses {got[0]} "
+            f"(plain {plain_l}), worst final tensor err / bound "
+            f"{worst:.4f}")
+        del ex
+        torch.cuda.empty_cache()
+    peak = {k: max(v[2]) for k, v in stats.items()}
+    if not peak["1f1b"] < min(stats["gpipe"][2]):
+        fail(f"15a: 1f1b's activation high-water {stats['1f1b'][2]} is not "
+             f"below gpipe's {stats['gpipe'][2]}")
+    for k, (l_, s_, p_) in stats.items():
+        ms = float(np.mean(s_[1:])) * 1e3
+        log(f"  15a on {card}: {k} f32 SGD step {ms:.2f} ms (mean after "
+            f"the first; steps {[round(x * 1e3, 2) for x in s_]}), "
+            f"{B * S / (ms / 1e3):.1f} "
+            f"tokens/s, peak memory above the step's start {p_} B "
+            f"(max {max(p_) / 2 ** 30:.3f} GiB)")
+    return counts["1f1b"], w0, batches, (plain_l[:DP15_STEPS], after2)
+
+
+def phase15b(torch, seed, card, w0, batches, plain2):
+    """15b: FSDP over a virtual dp 4 and ShardingPlan over dp 2 x tp 2,
+    each two SGD steps against the plain executor's."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    from hetu_tpu_torch.kernels import launch_counts
+    B = PP15["batch"]
+    tp = {}
+    for i in range(12):
+        pre = f"bert_layer{i}_"
+        for n in ("attn_q_weight", "attn_k_weight", "attn_v_weight",
+                  "intermediate_weight"):
+            tp[pre + n] = (None, "tp")
+        tp[pre + "attn_q_bias"] = ("tp",)
+        tp[pre + "attn_k_bias"] = ("tp",)
+        tp[pre + "attn_v_bias"] = ("tp",)
+        tp[pre + "intermediate_bias"] = ("tp",)
+        for n in ("attn_proj_weight", "output_weight"):
+            tp[pre + n] = ("tp", None)
+    for tag, dp, strategy in (
+            ("FSDP dp 4", 4, ht.dist.FSDP(dp=4)),
+            ("ShardingPlan dp 2 x tp 2", 2,
+             ht.dist.ShardingPlan(tp, mesh_axes={"dp": 2, "tp": 2}))):
+        ids, labels, loss, train = bert15(ht, models, B // dp)
+        ex = ht.Executor({"train": [loss, train]}, seed=seed,
+                         dist_strategy=strategy)
+        ex.load_dict(w0)
+        want = flash_launches(launch_counts(), 12 * dp)
+        got = steps15(torch, ex, ids, labels, batches[:DP15_STEPS], want,
+                      f"15b {tag}")
+        worst = close15((got[0], ex.return_tensor_values()), plain2,
+                        f"15b {tag}")
+        emb = ex.local_shards("bert_embeddings_word_embeddings")
+        q0 = ex.local_shards("bert_layer0_attn_q_weight")
+        if tag.startswith("FSDP") and [list(e.shape) for e in emb] != \
+                [[30522, 192]] * 4:
+            fail(f"15b {tag}: the ranks' shards of the word embeddings "
+                 f"are {[list(e.shape) for e in emb]}, want 4 x "
+                 f"[30522, 192]")
+        ms = float(np.mean(got[1])) * 1e3
+        log(f"  15b {tag} on {card}: {len(emb)} virtual ranks, a rank's "
+            f"shard of the word embeddings {list(emb[0].shape)}, of layer "
+            f"0's q weight {list(q0[0].shape)}; losses {got[0]} (plain "
+            f"{plain2[0]}), worst final tensor err / bound {worst:.4f}; step "
+            f"{ms:.2f} ms, peak above the step's start {got[2]} B")
+        del ex
+        torch.cuda.empty_cache()
+
+
+def phase15c(torch, seed, card, w0, batches, plain2):
+    """15c: DataParallel over a one-rank NCCL world (a DeviceMesh), two
+    steps bit-equal to the plain executor's."""
+    import torch.distributed as dist
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    from hetu_tpu_torch.kernels import launch_counts
+    from hetu_tpu_torch.parallel import make_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke15_")
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh({"dp": 1})
+            if type(mesh).__name__ != "DeviceMesh":
+                fail(f"15c: make_mesh under torch.distributed gave "
+                     f"{type(mesh).__name__}, not a DeviceMesh")
+            ids, labels, loss, train = bert15(ht, models, PP15["batch"])
+            ex = ht.Executor({"train": [loss, train]}, seed=seed, mesh=mesh,
+                             dist_strategy=ht.dist.DataParallel())
+            ex.load_dict(w0)
+            want = flash_launches(launch_counts(), 12)
+            got = steps15(torch, ex, ids, labels, batches[:DP15_STEPS],
+                          want, "15c")
+            final = ex.return_tensor_values()
+            if got[0] != plain2[0]:
+                fail(f"15c: losses {got[0]} differ from the plain "
+                     f"executor's {plain2[0]}")
+            bad = [k for k, w in plain2[1].items()
+                   if not np.array_equal(final[k], w)]
+            if bad:
+                fail(f"15c: {len(bad)} tensors differ from the plain "
+                     f"executor's, e.g. {bad[:3]}")
+            ms = float(np.mean(got[1])) * 1e3
+            log(f"  15c on {card}: DataParallel over a one-rank NCCL world "
+                f"(NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+                f"DeviceMesh {mesh.mesh_dim_names}), two steps bit-equal to "
+                f"the plain executor's (losses {got[0]}, "
+                f"{len(final)} tensors); step {ms:.2f} ms")
+            del ex
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase15(torch, F, seed, card):
+    """Phase 15: 15-pre (f32 K2/K3 at 15a's microbatch shape), 15a, 15b,
+    15c.  Returns (15-pre's {"fwd", "dkv", "dq": result}, 15a 1f1b's
+    launches)."""
+    t_phase = time.perf_counter()
+    shape = (PP15["batch"] // PP15["microbatches"], PP15["seq"], H, DH)
+    kres = check_bert_kernels(torch, F, "float32", seed + 15, shape, None,
+                              "15-pre", "15-pre, 15a's microbatch")
+    counts, w0, batches, plain2 = phase15a(torch, seed, card)
+    phase15b(torch, seed, card, w0, batches, plain2)
+    phase15c(torch, seed, card, w0, batches, plain2)
+    log(f"  phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return kres, counts
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -4667,6 +4945,13 @@ def main(argv=None):
         "wdl_criteo on dataloader feeds")
     counts14, demo14 = phase14(torch, args.seed, card)
 
+    # ---- phase 15 ---- #
+    log("phase 15: pipeline and sharded training on the graph surface: "
+        "BERT-base pipelined over four stages of a virtual mesh (gpipe, "
+        "1f1b), FSDP and a dp x tp ShardingPlan on virtual ranks, "
+        "DataParallel over a one-rank NCCL world")
+    kres15, counts15 = phase15(torch, F, args.seed, card)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
@@ -4835,6 +5120,22 @@ def main(argv=None):
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         dev_ms=r.get("dev_ms")))
+    # K2 and K3 at 15a's microbatch shape, f32: launches from 15a's 1f1b
+    # run (three steps), the numbers 15-pre's
+    for key, name, file, replaces in (
+            ("fwd", "flash_attention", "flash_fwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:173"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:396"),
+            ("dq", "flash_attention_bwd_dq", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:428")):
+        r = kres15[key]
+        kernels.append(dict(
+            name=f"{name}[float32, 15a 1f1b]", route="cuda",
+            source=src + file, replaces=replaces, launches=counts15[name],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -105,4 +105,4 @@ def match_opt_states(current, loaded):
 def unsupported(what):
     return NotImplementedError(
         f"{what} (orbax: sharded and asynchronous checkpoints) is not in "
-        f"hetu_tpu_torch yet (ROADMAP A9b)")
+        f"hetu_tpu_torch yet (ROADMAP A9b item 2)")

@@ -13,7 +13,9 @@ comes from ``--vocab-path`` or is built from the contexts and questions.
 doc-stride windows (``squad.py``), then every window runs through the
 trained heads and ``squad_evaluate`` scores the extracted answers
 (exact match and F1, the official normalization).  ``--comm-mode
-AllReduce`` on one card runs unsharded.  Runs on the card unless
+AllReduce`` adds ``dist_strategy=DataParallel()``, as the JAX example
+does: a data-parallel mesh over the world under torch.distributed, else
+over this host's cards (one: unsharded).  Runs on the card unless
 ``--device cpu`` is given.
 """
 
@@ -93,9 +95,13 @@ def main(argv=None):
         start_positions=sp, end_positions=ep)
     opt = ht.optim.AdamOptimizer(learning_rate=args.learning_rate)
     train = opt.minimize(loss)
+    kw = {}
+    if args.comm_mode:
+        kw.update(comm_mode=args.comm_mode,
+                  dist_strategy=ht.dist.DataParallel())
     ex = ht.Executor({"train": [loss, train],
                       "eval": [start_logits, end_logits]},
-                     comm_mode=args.comm_mode, device=args.device)
+                     device=args.device, **kw)
 
     def feed(take):
         return {ids: arrays["input_ids"][take],

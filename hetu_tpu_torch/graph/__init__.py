@@ -6,7 +6,8 @@ named-subgraph ``Executor``.
 package (``hetu_tpu``) gives it as ``ht`` for this surface: the
 factories of its ``graph/__init__.py`` (all but the mesh-bound GNN
 ones), ``gradients``, ``layers``, ``init``, ``optim``, ``lr`` (the
-schedulers), ``Executor``, ``dataloader_op``/``Dataloader``,
+schedulers), ``dist`` (the distribution strategies), the comm ops,
+``Executor``, ``dataloader_op``/``Dataloader``,
 ``flash_attention_op`` and ``ring_attention_op``:
 
     x, y = ht.placeholder_op("x"), ht.placeholder_op("y")
@@ -80,14 +81,23 @@ from .ops_moe import (
     balance_assignment_op, group_topk_idx_op, sam_group_sum_op, sam_max_op,
     dispatch,
 )
+from .ops_comm import (
+    allreduceCommunicate_op, allreduceCommunicatep2p_op,
+    groupallreduceCommunicate_op, allgatherCommunicate_op,
+    reducescatterCommunicate_op, broadcastCommunicate_op,
+    reduceCommunicate_op, pipeline_send_op, pipeline_receive_op,
+    parameterServerCommunicate_op, parameterServerSparsePull_op,
+    datah2d_op, datad2h_op,
+)
 from . import init, layers, optim
 from .. import lr_scheduler as lr
 from ..dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
                           dataloader_op)
 from .executor import Executor, HetuConfig, SubExecutor
+from ..parallel import distributed_strategies as dist
 
 __all__ = [n for n in dir() if not n.startswith("_")
            and n not in ("node", "autodiff", "executor", "ops_misc",
                          "ops_math", "ops_matmul", "ops_conv", "ops_shape",
                          "ops_loss", "ops_embed", "ops_attention",
-                         "ops_moe")]
+                         "ops_moe", "ops_comm")]

@@ -38,11 +38,31 @@ unless ``device="cpu"`` is passed:
   (``hetu_tpu_torch.checkpoint``): variables, optimizer slots, step, the
   random streams' (seed, run counter) and every loader's position.
 
-Parameter-server modes, meshes, pipelines, sharded or asynchronous
-checkpoints, profiling and ``HETU_VALIDATE`` raise
-``NotImplementedError`` naming the ROADMAP item that brings them, as does
-every other key of the JAX config set to other than its default; the
-JAX config's keys that change nothing there (``dtype``, ``enable_lazy``,
+Meshes (the mesh half of the JAX executor, ``executor.py:684-760``,
+``:1015-1082``): ``mesh`` is either kind of ``parallel.make_mesh``;
+``dist_strategy`` (``parallel.distributed_strategies``) configures the
+mesh and the variables' ``sharding_spec`` before they are initialised.
+On a ``DeviceMesh`` each rank stores its shard of every master and
+optimizer slot; a ``VirtualMesh``, whose ranks share one device, stores
+the whole values and reads each rank's shard as a view
+(``parallel.sharding``).  A step gathers the whole values, runs each data
+rank on its rows of the batch (feeds split over ``'dp'``, or ``'ep'`` on
+a pure expert mesh, where dim 0 divides), reduces the gradients over the
+data axis with an explicit all-reduce (the process group's on a
+``DeviceMesh``, a sum over the virtual ranks on a ``VirtualMesh``),
+divides by its size, updates the whole values and keeps each rank's
+shard.  So the numbers are the replicated step's for losses that are
+means over the batch; an output of the batch's rows is gathered, any
+other averaged over the data ranks, and a state write (BatchNorm's
+running statistics) is the mean of the ranks'.  ``pipeline`` runs the
+training subgraphs through ``pipeline_executor.PipelineSubExecutor``.
+
+Parameter-server modes, sharded or asynchronous checkpoints, profiling
+and ``HETU_VALIDATE`` raise ``NotImplementedError`` naming the ROADMAP
+item that brings them, as does every other key of the JAX config set to
+other than its default; ``overlap`` and ``use_nccl_collectives`` are
+taken and change nothing (no-ops by design in JAX too); the JAX config's
+keys that change nothing there (``dtype``, ``enable_lazy``,
 ``train_name``, ``val_name``, ``my_eval_nodes``, ``eval_node_list``)
 are not taken.
 """
@@ -58,6 +78,9 @@ from .. import checkpoint as _ckpt
 from .. import envvars
 from ..dataloader import DataloaderOp, device_transform
 from ..device import resolve_device
+from ..parallel import sharding as _sh
+from ..parallel.collectives import ProcessComm
+from ..parallel.mesh import VirtualMesh, axis_names, mesh_shape
 from . import optim as _opt
 from .autodiff import find_topo_sort
 from .node import Op, TraceContext, mix_seed
@@ -76,29 +99,33 @@ def _later(item, what):
 # default; any other value raises NotImplementedError.
 _LATER_KEYS = {
     "comm_mode": (None, "A10"), "cstable_policy": (None, "A10"),
-    "ps_comm": (None, "A10"), "use_sparse_pull": (True, "A10"),
+    "use_sparse_pull": (True, "A10"),
     "bsp": (-1, "A10"), "async_push": (False, "A10"),
-    "cache_bound": (100, "A10"),
-    "dist_strategy": (None, "A9b"), "mesh": (None, "A9b"),
-    "pipeline": (None, "A9b"), "num_microbatches": (None, "A9b"),
-    "num_stages": (None, "A9b"), "sync_every": (None, "A9b"),
-    "non_batch_feeds": ((), "A9b"), "shard_pipeline_ends": (True, "A9b"),
-    "overlap": (True, "A9b"), "use_nccl_collectives": (True, "A9b"),
-    "use_preduce": (False, "A9b"),
+    "cache_bound": (100, "A10"), "ps_comm": (None, "A10"),
+    "use_preduce": (False, "A10"),
     "log_path": (None, "A11"),
 }
+
+_PIPELINES = (None, "gpipe", "1f1b", "pipedream", "hetpipe")
 
 
 class HetuConfig:
     """The runtime config of the JAX package's ``HetuConfig`` for the
-    keys the single-device executor runs: ``seed``, ``mixed_precision``
-    (None or "bf16") and ``prefetch``; ``comm_mode`` "AllReduce" is
-    accepted (one device: no reduction).  Every other key of the JAX
-    config raises ``NotImplementedError`` naming its ROADMAP item unless
-    it is passed at its default."""
+    keys the executor runs: ``seed``, ``mixed_precision`` (None or
+    "bf16"), ``prefetch``, ``comm_mode`` "AllReduce" (the plain path, as
+    in JAX), and the mesh keys ``mesh``, ``dist_strategy``, ``pipeline``
+    ('gpipe'/'1f1b'/'pipedream'/'hetpipe'), ``num_microbatches``,
+    ``num_stages``, ``sync_every``, ``non_batch_feeds`` (feeds passed
+    whole to every microbatch and data rank), ``shard_pipeline_ends``,
+    ``overlap`` and ``use_nccl_collectives`` (no-ops by design).  Every
+    other key of the JAX config raises ``NotImplementedError`` naming its
+    ROADMAP item unless it is passed at its default."""
 
     def __init__(self, seed=0, mixed_precision=None, prefetch=True,
-                 **later):
+                 mesh=None, dist_strategy=None, pipeline=None,
+                 num_microbatches=None, num_stages=None, sync_every=None,
+                 non_batch_feeds=(), shard_pipeline_ends=True,
+                 overlap=True, use_nccl_collectives=True, **later):
         comm_mode = later.get("comm_mode")
         if comm_mode not in (None, "AllReduce", "PS", "Hybrid"):
             raise ValueError(f"comm_mode must be None/'AllReduce'/'PS'/"
@@ -114,10 +141,23 @@ class HetuConfig:
         if mixed_precision not in (None, "bf16"):
             raise ValueError(f"mixed_precision {mixed_precision!r}: None or "
                              f"'bf16'")
+        if pipeline not in _PIPELINES:
+            raise ValueError(f"unknown pipeline mode {pipeline!r}")
         self.seed = seed
         self.prefetch = prefetch
         self.mixed_precision = None if mixed_precision is None \
             else torch.bfloat16
+        self.comm_mode = comm_mode
+        self.mesh = mesh
+        self.dist_strategy = dist_strategy
+        self.pipeline = pipeline
+        self.num_microbatches = num_microbatches
+        self.num_stages = num_stages
+        self.sync_every = sync_every
+        self.non_batch_feeds = tuple(non_batch_feeds)
+        self.shard_pipeline_ends = shard_pipeline_ends
+        self.overlap = overlap
+        self.use_nccl_collectives = use_nccl_collectives
 
 
 class _ParamView:
@@ -159,6 +199,113 @@ def _exec_order(eval_nodes):
     for n in eval_nodes:
         dfs(n)
     return topo
+
+
+def feed_values(sub, feed_dict):
+    """name -> tensor on the executor's device: the dataloaders' next
+    batches of ``sub``, then ``feed_dict``; float64 as f32, int64 as
+    int32, as the JAX executor coerces feeds."""
+    dev = sub.executor.device
+    out = {}
+    items = [(dl.name, dl.get_arr(sub.name)) for dl in sub.dataloader_ops]
+    items += [(node.name if isinstance(node, Op) else node, value)
+              for node, value in feed_dict.items()]
+    for name, value in items:
+        t = value if isinstance(value, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(value))
+        if t.dtype == torch.float64:
+            t = t.to(torch.float32)
+        elif t.dtype == torch.int64:
+            t = t.to(torch.int32)
+        out[name] = t.to(dev)
+    return out
+
+
+class DataRanks:
+    """The data-parallel ranks of one run on a mesh: the data axis
+    (``'dp'``, or ``'ep'`` on a mesh without ``'dp'``: tokens are data
+    parallel over the expert group), its size ``n``, the ranks this
+    process runs, and the reductions over the axis."""
+
+    def __init__(self, ex, feeds):
+        mesh = ex.mesh
+        shape = mesh_shape(mesh)
+        names = axis_names(mesh)
+        self.axis = "dp" if "dp" in names else \
+            ("ep" if "ep" in names else None)
+        self.n = shape.get(self.axis, 1) if self.axis else 1
+        self.comm = None if isinstance(mesh, VirtualMesh) \
+            else ProcessComm(mesh)
+        self.ranks = list(range(self.n)) if self.comm is None \
+            else [self.comm.index(self.axis)] if self.axis else [0]
+        skip = set(ex.config.non_batch_feeds)
+        self.split = {k for k, v in feeds.items()
+                      if k not in skip and v.dim() >= 1
+                      and v.shape[0] % self.n == 0}
+        self.rows = {k: feeds[k].shape[0] // self.n for k in self.split}
+        self._feeds = feeds
+
+    def rows_of(self, feeds, r):
+        return {k: v.chunk(self.n)[r] if k in self.split else v
+                for k, v in feeds.items()}
+
+    def feeds(self):
+        return [(r, self.rows_of(self._feeds, r)) for r in self.ranks]
+
+    def _sum(self, vals):
+        total = vals[0]
+        for v in vals[1:]:
+            total = total + v
+        if self.comm is not None and self.axis:
+            total = self.comm.all_reduce(total, self.axis)
+        return total
+
+    def _cat(self, vals):
+        if self.comm is not None and self.axis:
+            return self.comm.all_gather(vals[0], self.axis)
+        return torch.cat(vals)
+
+    def mean(self, vals):
+        total = self._sum(vals)
+        return total / self.n if self.n > 1 else total
+
+    def reduce_grads(self, per_rank, sparse=()):
+        """The mean over the data ranks of each gradient: dense summed,
+        an IndexedSlices adjoint's (ids, rows) joined."""
+        out = []
+        for i, gs in enumerate(zip(*per_rank)):
+            if i in sparse:
+                ids = self._cat([g[0].reshape(-1) for g in gs])
+                rows = self._cat([g[1].reshape(-1, g[1].shape[-1])
+                                  for g in gs])
+                out.append((ids, rows / self.n if self.n > 1 else rows))
+            else:
+                out.append(self.mean(list(gs)))
+        return out
+
+    def combine_outputs(self, per_rank):
+        """Each output: the ranks' rows gathered where it is the batch's
+        rows, else their mean."""
+        rows = set(self.rows.values())
+        out = []
+        for os_ in zip(*per_rank):
+            o = os_[0]
+            if not isinstance(o, torch.Tensor):
+                out.append(o)
+            elif self.n > 1 and o.dim() >= 1 and o.shape[0] in rows:
+                out.append(self._cat(list(os_)))
+            elif o.is_floating_point():
+                out.append(self.mean(list(os_)))
+            else:
+                out.append(o)
+        return out
+
+    def mean_values(self, per_rank):
+        """{name: mean over the ranks} of per-rank {name: tensor} dicts
+        (the ranks' state writes)."""
+        if not per_rank or not per_rank[0]:
+            return {}
+        return {k: self.mean([d[k] for d in per_rank]) for k in per_rank[0]}
 
 
 class SubExecutor:
@@ -244,31 +391,68 @@ class SubExecutor:
             loader.start_prefetch(transform=device_transform(ex.device))
 
     def _feed_values(self, feed_dict):
-        """name -> tensor on the executor's device: the dataloaders' next
-        batches, then ``feed_dict``; float64 as f32, int64 as int32, as
-        the JAX executor coerces feeds."""
         if not self._prefetch_wired:
             self._prefetch_wired = True
             self._wire_prefetch()
-        dev = self.executor.device
-        out = {}
-        items = [(dl.name, dl.get_arr(self.name))
-                 for dl in self.dataloader_ops]
-        items += [(node.name if isinstance(node, Op) else node, value)
-                  for node, value in feed_dict.items()]
-        for name, value in items:
-            t = value if isinstance(value, torch.Tensor) \
-                else torch.from_numpy(np.ascontiguousarray(value))
-            if t.dtype == torch.float64:
-                t = t.to(torch.float32)
-            elif t.dtype == torch.int64:
-                t = t.to(torch.int32)
-            out[name] = t.to(dev)
-        return out
+        return feed_values(self, feed_dict)
 
     def run(self, feed_dict, convert_to_numpy_ret_vals=False):
         ex = self.executor
         feeds = self._feed_values(feed_dict)
+        if ex.mesh is not None:
+            outputs = self._run_on_mesh(feeds)
+        else:
+            outputs, extras, new_opt_states = self._walk(
+                feeds, ex.var_values, ex.run_seed(), ex.opt_states)
+            ex.write_state(extras)
+            ex.opt_states = new_opt_states
+        ex._runs += 1
+        if self.training:
+            ex.step += 1
+        if convert_to_numpy_ret_vals:
+            outputs = [_ckpt.to_numpy(o) if isinstance(o, torch.Tensor) else o
+                       for o in outputs]
+        return outputs
+
+    def _run_on_mesh(self, feeds):
+        """One run over the executor's mesh: the whole values gathered,
+        each data rank on its rows, the gradients all-reduced over the
+        data axis, the updates applied once and stored as shards."""
+        ex = self.executor
+        full = ex.full_values()
+        dr = ex.data_ranks(feeds)
+        runs = []
+        for r, f in dr.feeds():
+            grads = {}
+            outs, extras, _ = self._walk(
+                f, full, ex.run_seed(r if dr.n > 1 else None),
+                grads_out=grads)
+            runs.append((outs, extras, grads))
+        outputs = dr.combine_outputs([o for o, _, _ in runs])
+        ex.write_state(dr.mean_values([e for _, e, _ in runs]), full)
+        if self.training:
+            grads = {n.name: dr.reduce_grads([g[n.name] for _, _, g in runs],
+                                             n.sparse_inputs)
+                     for n in self.optimizer_ops}
+            states = ex.full_opt_states()
+            tc = TraceContext(params=_ParamView(full), training=True,
+                              config=ex.config, step=ex.step,
+                              device=ex.device)
+            tc.extra_outputs = _ExtraOutputs()
+            for node in self.optimizer_ops:
+                states[node.name] = node.apply(grads[node.name], tc,
+                                               states[node.name])
+            ex.write_state(tc.extra_outputs, full)
+            ex.store_opt_states(states)
+        ex.store_values(full)
+        return outputs
+
+    def _walk(self, feeds, values, rng, opt_states=None, grads_out=None):
+        """Evaluate the subgraph once over ``values`` (name -> tensor):
+        (outputs, the state writes, the new optimizer states).  With
+        ``grads_out`` (a dict) each optimizer's gradients are put there,
+        by its name, instead of applied."""
+        ex = self.executor
         mp = ex.config.mixed_precision
 
         def cast_in(v):
@@ -276,26 +460,23 @@ class SubExecutor:
                 return v.to(mp)
             return v
 
-        tc = TraceContext(params=_ParamView(ex.var_values),
-                          rng=mix_seed(ex.config.seed, ex._rng_seed,
-                                       ex._runs),
+        tc = TraceContext(params=_ParamView(values), rng=rng,
                           training=self.training, config=ex.config,
                           step=ex.step, device=ex.device)
-        ex._runs += 1
         tc.rng_ids = self.rng_ids
         tc.extra_outputs = _ExtraOutputs()
         vals = {}
         records = {}        # id(forward) -> [leaves, inputs, out, groups left]
         answers = {}        # (id(forward), id(grad)) -> {idx: cotangent}
-        new_opt_states = dict(ex.opt_states)
+        new_opt_states = dict(opt_states or {})
         with torch.no_grad():
             for pos, node in enumerate(self.topo):
                 nid = id(node)
                 if isinstance(node, DataloaderOp):
                     vals[nid] = cast_in(feeds[node.name])
                 elif isinstance(node, PlaceholderOp):
-                    if node.name in ex.var_values:
-                        vals[nid] = cast_in(ex.var_values[node.name])
+                    if node.name in values:
+                        vals[nid] = cast_in(values[node.name])
                     elif node.name in feeds:
                         vals[nid] = cast_in(feeds[node.name])
                     else:
@@ -307,8 +488,11 @@ class SubExecutor:
                         (vals[id(g.ids_node)], vals[id(g.values_node)])
                         if i in node.sparse_inputs else vals[id(g)]
                         for i, g in enumerate(node.inputs)]
-                    new_opt_states[node.name] = node.apply(
-                        grad_vals, tc, ex.opt_states[node.name])
+                    if grads_out is not None:
+                        grads_out[node.name] = grad_vals
+                    else:
+                        new_opt_states[node.name] = node.apply(
+                            grad_vals, tc, opt_states[node.name])
                     vals[nid] = None
                 elif nid in self.skip_dense:
                     vals[nid] = None
@@ -332,18 +516,7 @@ class SubExecutor:
             # report losses and metrics in f32
             outputs = [o.float() if isinstance(o, torch.Tensor)
                        and o.is_floating_point() else o for o in outputs]
-        for k, v in tc.extra_outputs.items():
-            if k in ex.var_values and v.dtype != ex.var_values[k].dtype:
-                # state written from a bf16 run keeps the master's dtype
-                v = v.to(ex.var_values[k].dtype)
-            ex.var_values[k] = v.detach()
-        ex.opt_states = new_opt_states
-        if self.training:
-            ex.step += 1
-        if convert_to_numpy_ret_vals:
-            outputs = [_ckpt.to_numpy(o) if isinstance(o, torch.Tensor) else o
-                       for o in outputs]
-        return outputs
+        return outputs, tc.extra_outputs, new_opt_states
 
     def _vjp(self, node, vals, records, answers, tc):
         """The cotangent of ``node``: from its group's one autograd call
@@ -382,7 +555,10 @@ class Executor:
             eval_node_dict = {"default": eval_node_dict}
         self.eval_node_dict = eval_node_dict
         self.config = config if config is not None else HetuConfig(**kargs)
-        self.device = resolve_device(device)
+        self.mesh = self.config.mesh
+        self.device = resolve_device(device) \
+            if device is not None or not isinstance(self.mesh, VirtualMesh) \
+            else self.mesh.device
         self.step = 0
         self._rng_seed = self.config.seed
         self._runs = 0
@@ -400,13 +576,25 @@ class Executor:
                     raise ValueError(f"duplicate variable name {n.name}")
                 self.variables[n.name] = n
 
-        self.var_values = {name: n.init_value(self.config.seed, self.device)
-                           for name, n in self.variables.items()}
+        # strategy hook: the mesh and the sharding specs, before init
+        if self.config.dist_strategy is not None:
+            self.config.dist_strategy.configure(self)
+            self.mesh = self.config.mesh
+            if isinstance(self.mesh, VirtualMesh) and device is None:
+                self.device = self.mesh.device
+        values = {name: n.init_value(self.config.seed, self.device)
+                  for name, n in self.variables.items()}
+        self.var_values = values
         self.subexecutor = {}
         self.opt_states = {}
         self._opt_ops = {}
         for name, nodes in eval_node_dict.items():
-            sub = SubExecutor(name, nodes, self)
+            has_opt = any(isinstance(n, _opt.OptimizerOp) for n in nodes)
+            if self.config.pipeline is not None and has_opt:
+                from ..pipeline_executor import PipelineSubExecutor
+                sub = PipelineSubExecutor(name, nodes, self)
+            else:
+                sub = SubExecutor(name, nodes, self)
             self.subexecutor[name] = sub
             for opt_op in sub.optimizer_ops:
                 prev = self._opt_ops.get(opt_op.name)
@@ -419,7 +607,88 @@ class Executor:
                 self._opt_ops[opt_op.name] = opt_op
                 if opt_op.name not in self.opt_states:
                     self.opt_states[opt_op.name] = opt_op.init_state(
-                        _ParamView(self.var_values))
+                        _ParamView(values))
+        if self.mesh is not None:
+            self.store_values(values)
+            self.store_opt_states(self.opt_states)
+
+    # ---- the mesh: placement and the per-run views ---- #
+
+    def param_sharding(self, name):
+        """The stored spec of variable ``name`` (None: replicated)."""
+        if self.mesh is None:
+            return None
+        return _sh.norm_spec(self.variables[name].sharding_spec)
+
+    def feed_sharding(self, name, shape):
+        """The mesh axis a feed's batch dim splits over (JAX's
+        ``feed_sharding``): ``'dp'``, or ``'ep'`` on a mesh without
+        ``'dp'``, where it divides dim 0; None: whole on every rank."""
+        if self.mesh is None:
+            return None
+        shape_of = mesh_shape(self.mesh)
+        axes = ["dp"] + (["ep"] if "dp" not in shape_of else [])
+        for ax in axes:
+            if ax in shape_of and len(shape) >= 1 \
+                    and shape[0] % shape_of[ax] == 0:
+                return ax
+        return None
+
+    def data_ranks(self, feeds):
+        return DataRanks(self, feeds)
+
+    def run_seed(self, rank=None):
+        """The random streams' seed of this run (of data rank ``rank``)."""
+        parts = (self.config.seed, self._rng_seed, self._runs)
+        return mix_seed(*parts) if rank is None else mix_seed(*parts, rank)
+
+    def full_values(self):
+        """{name: whole value} of every variable (gathered on a mesh)."""
+        if self.mesh is None:
+            return dict(self.var_values)
+        return {k: _sh.gather(v, self.mesh)
+                for k, v in self.var_values.items()}
+
+    def store_values(self, values):
+        """Store whole values: each rank keeps its shard."""
+        for k, v in values.items():
+            self.var_values[k] = v if self.mesh is None \
+                else _sh.place(v, self.param_sharding(k), self.mesh)
+
+    def full_opt_states(self):
+        if self.mesh is None:
+            return dict(self.opt_states)
+        return {k: _sh.gather_tree(v, self.mesh)
+                for k, v in self.opt_states.items()}
+
+    def store_opt_states(self, states):
+        if self.mesh is None:
+            self.opt_states = dict(states)
+            return
+        self.opt_states = {
+            k: {name: _sh.place_tree(s, tuple(self.variables[name].shape
+                                              or ()),
+                                     self.param_sharding(name), self.mesh)
+                for name, s in v.items()}
+            for k, v in states.items()}
+
+    def local_shards(self, name):
+        """What each rank this process runs stores of variable ``name``
+        (``parallel.mesh.rank_coords`` order; one entry without a mesh)."""
+        v = self.var_values[name]
+        if self.mesh is None:
+            return [v]
+        return _sh.rank_pieces(v, self.param_sharding(name), self.mesh)
+
+    def write_state(self, extras, values=None):
+        """Writes of a run (new parameters, BatchNorm statistics) into
+        ``values`` (the stored values when None): a write from a bf16 run
+        keeps the master's dtype."""
+        target = self.var_values if values is None else values
+        for k, v in extras.items():
+            if k in target and v.dtype != target[k].dtype:
+                v = v.to(target[k].dtype)
+            target[k] = v.detach()
 
     def run(self, name="default", eval_node_list=None, feed_dict=None,
             convert_to_numpy_ret_vals=False, **kwargs):
@@ -447,9 +716,10 @@ class Executor:
         if sharded or async_:
             raise _ckpt.unsupported(
                 f"Executor.save(sharded={sharded}, async_={async_})")
-        params = {k: v for k, v in self.var_values.items()
+        params = {k: v for k, v in self.full_values().items()
                   if varlist is None or k in varlist}
-        _ckpt.write(path, file, params=params, opt_states=self.opt_states,
+        _ckpt.write(path, file, params=params,
+                    opt_states=self.full_opt_states(),
                     step=self.step,
                     rng=_ckpt.rng_pair(self._rng_seed, self._runs),
                     dataloaders=self._loader_states())
@@ -487,10 +757,10 @@ class Executor:
         ckpt = _ckpt.read(path, file)
         self.load_dict(ckpt["params"])
         if ckpt.get("opt_states"):
-            self.opt_states = {
+            self.store_opt_states({
                 k: _ckpt.to_tensors(v, self.device)
                 for k, v in _ckpt.match_opt_states(
-                    self.opt_states, ckpt["opt_states"]).items()}
+                    self.full_opt_states(), ckpt["opt_states"]).items()})
         if "step" in ckpt:
             self.step = int(ckpt["step"])
         if "rng" in ckpt:
@@ -502,11 +772,13 @@ class Executor:
     def load_dict(self, state_dict):
         """Set variables from {name: array}, e.g. the JAX executor's
         ``return_tensor_values()``; unknown names are ignored."""
+        values = {}
         for k, v in state_dict.items():
             if k in self.var_values:
                 t = v if isinstance(v, torch.Tensor) \
                     else torch.from_numpy(np.array(v))
-                self.var_values[k] = t.to(self.device)
+                values[k] = t.to(self.device)
+        self.store_values(values)
 
     def load_seeds(self, seed):
         """Restart the random streams from ``seed``."""
@@ -514,8 +786,8 @@ class Executor:
         self._runs = 0
 
     def return_tensor_values(self):
-        """{name: numpy copy} of every variable."""
-        return _ckpt.to_numpy(self.var_values)
+        """{name: numpy copy} of every variable (whole on a mesh)."""
+        return _ckpt.to_numpy(self.full_values())
 
     def load_sharded(self, *args, **kwargs):
         raise _ckpt.unsupported("Executor.load_sharded")

@@ -50,12 +50,15 @@ class ShapeInferenceError(ValueError):
 
 class TraceContext:
     """Per-run state threaded through ``Op.compute`` calls: the variable
-    values, the run's RNG seed, the training flag, the config, the step
-    and the device."""
+    values, the run's RNG seed, the training flag, the config, the step,
+    the device and, in the per-rank view, the rank's communicator."""
 
     def __init__(self, params=None, rng=None, training=True, config=None,
-                 step=None, device=None):
+                 step=None, device=None, comm=None):
         self.params = params or {}
+        # the per-rank view's communicator (parallel.collectives): the
+        # collective ops run over its axes; None in the whole-value view
+        self.comm = comm
         # an integer seed of this run's random streams (None: no RNG)
         self._rng = rng
         self.training = training
@@ -68,6 +71,9 @@ class TraceContext:
         # executor so dropout/rand streams do not depend on the global id
         # counter (which differs between two builds of the same graph)
         self.rng_ids = {}
+
+    def has_axis(self, name) -> bool:
+        return self.comm is not None and self.comm.has_axis(name)
 
     def rng_for(self, node) -> torch.Generator:
         """A generator on the run's device seeded from (run seed, the

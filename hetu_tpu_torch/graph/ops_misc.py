@@ -22,6 +22,9 @@ class PlaceholderOp(Op):
         self.name = name  # placeholders keep their exact user name
         self.dtype = as_dtype(dtype)
         self.is_embed = is_embed
+        # per-dimension mesh axis names or None (JAX's PartitionSpec as a
+        # tuple), set by a distribution strategy; None: replicated
+        self.sharding_spec = None
         if value is None and initializer is None:
             trainable = False
             self.shape = None

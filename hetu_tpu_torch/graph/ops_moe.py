@@ -7,8 +7,9 @@ scatter token rows into ``E * capacity`` expert slots with one
 tokens (JAX picks between a one-hot matmul and a row scatter, a TPU
 lowering choice; the sums are the same).  Combine and the layout
 gradient are gathers.  The all-to-all ops are the identity without a
-mesh, as in JAX; the port's executor has none yet (ROADMAP A9b), and
-``dispatch`` (a sharding annotation) waits for it too.
+mesh, as in JAX, and in the executor's whole-value view; their mesh
+exchange and ``dispatch`` (a sharding annotation) wait for ROADMAP A9b
+item 2.
 """
 
 from __future__ import annotations
@@ -251,8 +252,8 @@ def reverse_layout_transform_no_gate_op(inp, indices_s, location_s, capacity,
 
 class AllToAllOp(Op):
     """Expert-parallel all-to-all over the ``axis`` mesh axis.  Without a
-    mesh it is the identity, as in JAX; the port's executor refuses a
-    mesh (A9b), so that is the only case here."""
+    mesh it is the identity, as in JAX, and so it is in the executor's
+    whole-value view; the exchange over a mesh waits for A9b item 2."""
 
     def __init__(self, node, axis="ep", ctx=None):
         super().__init__(node, name="AllToAll", ctx=ctx)
@@ -394,7 +395,7 @@ def sam_max_op(a, top1_group, topk_indice, num_local_gpus, ctx=None):
 
 
 def dispatch(node, parts, ctx=None):
-    """A model-parallel sharding annotation: it needs a mesh (A9b)."""
+    """A model-parallel sharding annotation: waits for A9b item 2."""
     raise NotImplementedError(
         "dispatch (a model-parallel annotation) is not in hetu_tpu_torch's "
-        "graph surface yet (ROADMAP A9b)")
+        "graph surface yet (ROADMAP A9b item 2)")

@@ -26,7 +26,7 @@ class BertMoEConfig(BertConfig):
                      reference placement; 2 = GShard alternation)
     aux_loss_weight  weight of the summed balance losses in the total
     hierarchical_a2a the two-stage all-to-all (the identity without a
-                     mesh: ROADMAP A9b)
+                     mesh: ROADMAP A9b item 2)
     """
 
     def __init__(self, num_experts=8, top_k=1, capacity_factor=1.0,

@@ -70,7 +70,7 @@ class MoEDecodeConfig(GPTConfig):
         if ep_axis is not None:
             raise NotImplementedError(
                 "expert-parallel MoE serving (ep_axis) is not ported yet "
-                "(ROADMAP A9b)")
+                "(ROADMAP A9b item 2)")
         super().__init__(**kw)
         if num_experts < 2:
             raise ValueError(
@@ -309,21 +309,21 @@ def convert_dense_to_moe(params, config, moe_config, name=None):
 def _ep_later(what):
     return NotImplementedError(
         f"{what} (expert parallelism) is not in hetu_tpu_torch yet "
-        f"(ROADMAP A9b)")
+        f"(ROADMAP A9b item 2)")
 
 
 def ep_shard_params(params, mesh, config, axis="ep", name=None):
     """Expert-parallel placement of a MoE-GPT parameter dict: waits for
-    the mesh of A9b."""
+    A9b item 2."""
     raise _ep_later("ep_shard_params")
 
 
 def moe_ffn_ep_reference(params, us, x, spec, mesh, quant=None):
     """The explicit expert-parallel MoE FFN over a mesh: waits for
-    A9b."""
+    A9b item 2."""
     raise _ep_later("moe_ffn_ep_reference")
 
 
 def resolve_moe_quant(mode=None):
-    """The int8 wire of the expert-parallel all-to-all: waits for A9b."""
+    """The int8 wire of the expert-parallel all-to-all: waits for A9b item 2."""
     raise _ep_later("resolve_moe_quant")

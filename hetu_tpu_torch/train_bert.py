@@ -15,8 +15,10 @@ built from the corpus, the model's vocab max(its size, 128)); without it
 the batches are synthetic.  ``--save DIR`` writes the executor's
 checkpoint after the steps.  The batches carry an additive
 ``attention_mask``, so, as in JAX, ``--use-flash`` does not reach the
-flash kernel (the masked attention runs the unfused chain).  A
-``--comm-mode`` waits for A9b/A10.
+flash kernel (the masked attention runs the unfused chain).
+``--comm-mode AllReduce`` is passed to the executor, which runs it as the
+plain path (as JAX's does); ``PS``/``Hybrid`` wait for the parameter
+server (ROADMAP A10).
 """
 
 import argparse
@@ -65,10 +67,10 @@ def build(args):
     """The model, its executor and its batches for the parsed arguments:
     a namespace of ``cfg``, ``executor``, ``feeds`` (the five
     placeholders) and ``next_batch()``."""
-    if args.comm_mode is not None:
+    if args.comm_mode not in (None, "AllReduce"):
         raise NotImplementedError(
-            f"--comm-mode {args.comm_mode!r} is not in hetu_tpu_torch yet "
-            f"(ROADMAP A9b for AllReduce, A10 for PS/Hybrid)")
+            f"--comm-mode {args.comm_mode!r} needs the parameter server, "
+            f"which is not in hetu_tpu_torch yet (ROADMAP A10)")
     make = BertConfig.large if args.config == "large" else BertConfig.base
     kw = dict(batch_size=args.batch_size, seq_len=args.seq_len,
               use_flash_attention=args.use_flash)
@@ -94,7 +96,7 @@ def build(args):
     train_op = opt.minimize(loss)
     executor = ht.Executor({"train": [loss, train_op]},
                            mixed_precision=args.mixed_precision,
-                           device=args.device)
+                           comm_mode=args.comm_mode, device=args.device)
     rng = np.random.RandomState(0)
 
     def next_batch():

@@ -306,10 +306,27 @@ def test_make_mesh_axes_match_jax(axes, want):
 
 
 def test_make_mesh_refusals_and_local_devices():
-    with pytest.raises(ValueError, match="not among"):
-        make_mesh({"ici": 2}, device="cpu")
-    with pytest.raises(ValueError, match=">= 1"):
+    """make_mesh follows JAX's rules: axes outside the canonical six go
+    innermost in the caller's order, keyword sizes, ``default_mesh`` (one
+    virtual rank without a world); a -1 needs a device count, which a
+    VirtualMesh has not."""
+    from hetu_tpu.parallel.mesh import MeshAxes as JMeshAxes
+    from hetu_tpu_torch.parallel import default_mesh
+    for axes, jaxes in ((({"ici": 2, "dp": 2},) * 2),
+                        (({"tp": 2, "ici": 2, "pp": 2},) * 2),
+                        (MeshAxes(dp=2, cp=2), JMeshAxes(dp=2, cp=2))):
+        want = jmake_mesh(jaxes)
+        got = make_mesh(axes, device="cpu")
+        assert got.axis_names == tuple(want.axis_names)
+        assert got.shape == dict(want.shape)
+    assert make_mesh(pp=4, device="cpu").shape == dict(jmake_mesh(pp=4).shape)
+    assert default_mesh(device="cpu").shape == {"dp": 1}
+    assert default_mesh(3, device="cpu").shape == {"dp": 3}
+    assert jmake_mesh({"dp": -1, "tp": 2}).shape["dp"] == 4
+    with pytest.raises(ValueError, match="no device count"):
         make_mesh({"cp": -1}, device="cpu")
+    with pytest.raises(ValueError, match=">= 1"):
+        make_mesh({"cp": 0}, device="cpu")
     assert local_device_count() == (torch.cuda.device_count()
                                     if torch.cuda.is_available() else 1)
 

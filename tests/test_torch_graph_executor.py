@@ -286,6 +286,14 @@ def test_duplicate_variable_names_refused():
 ])
 def test_later_config_keys_raise(key, value, item):
     w = tm.init.zeros((2,), name="w")
+    if item == "A9b" and key != "use_preduce":
+        # A9b item 1 brought the mesh and pipeline keys: the config takes
+        # them (the executor's mesh tests are test_torch_strategies.py and
+        # test_torch_pipeline_executor.py)
+        assert getattr(tm.HetuConfig(**{key: value}), key) == value
+        return
+    if key == "use_preduce":
+        item = "A10"        # preduce needs the parameter server
     with pytest.raises(NotImplementedError, match=item):
         tm.Executor([w], device="cpu", **{key: value})
 

@@ -427,6 +427,17 @@ MOE_FACTORIES = {n for n in EXTRA_NAMES
                  if n.endswith("_op") and "attention" not in n
                  and n != "dataloader_op"}
 
+# the comm factories and the strategies (``ht.dist``), which the JAX
+# package's top-level ``ht`` exports, held to JAX in
+# tests/test_torch_ops_comm.py and tests/test_torch_strategies.py
+COMM_NAMES = {"allreduceCommunicate_op", "allreduceCommunicatep2p_op",
+              "groupallreduceCommunicate_op", "allgatherCommunicate_op",
+              "reducescatterCommunicate_op", "broadcastCommunicate_op",
+              "reduceCommunicate_op", "pipeline_send_op",
+              "pipeline_receive_op", "parameterServerCommunicate_op",
+              "parameterServerSparsePull_op", "datah2d_op", "datad2h_op"}
+EXTRA_NAMES |= COMM_NAMES | {"dist"}
+
 
 def test_export_list_is_jax_minus_gnn():
     jax_names = {n for n in dir(jgraph) if not n.startswith("_")} - {
@@ -446,7 +457,7 @@ def test_every_factory_has_a_case():
                for c in CASES}
     covered |= {"rand_op", "dropout_op", "dropout2d_op",
                 "batch_normalization_op", "placeholder_op",
-                "ring_attention_op"} | MOE_FACTORIES
+                "ring_attention_op"} | MOE_FACTORIES | COMM_NAMES
     factories = {n for n in tm.__all__ if n.endswith("_op")
                  or n == "softmax_func"} - {"dataloader_op"}
     assert factories - covered == set()

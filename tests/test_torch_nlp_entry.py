@@ -124,3 +124,28 @@ def test_squad_learns_spans():
     losses = res["losses"]
     assert np.mean(losses[-10:]) < np.mean(losses[:10])
     assert 0.0 <= res["exact_match"] <= 100.0 and res["f1"] > 0.0
+
+
+def test_train_bert_comm_mode_allreduce(caplog):
+    """--comm-mode AllReduce runs the plain path, as JAX's executor does;
+    PS and Hybrid wait for the parameter server (A10)."""
+    args = CPU + ["--num-layers", "1", "--seq-len", "16", "--batch-size",
+                  "2", "--num-steps", "2"]
+    with caplog.at_level(logging.INFO):
+        train_bert.main(args + ["--comm-mode", "AllReduce"])
+    for mode in ("PS", "Hybrid"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            train_bert.main(args + ["--comm-mode", mode])
+
+
+def test_squad_data_parallel_matches_plain():
+    """--comm-mode AllReduce adds DataParallel() (a one-rank dp mesh on
+    one process): the same losses as the plain run."""
+    argv = CPU + ["--data", os.path.join(FIX, "squad", "train-tiny.json"),
+                  "--vocab-path", VOCAB, "--num-layers", "1", "--hidden",
+                  "32", "--heads", "2", "--batch-size", "8", "--seq-len",
+                  "48", "--doc-stride", "16", "--num-steps", "3"]
+    plain = finetune_bert_squad.main(argv)
+    dp = finetune_bert_squad.main(argv + ["--comm-mode", "AllReduce"])
+    assert dp["losses"] == plain["losses"]
+    assert dp["exact_match"] == plain["exact_match"]
