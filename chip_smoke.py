@@ -131,7 +131,7 @@ non-zero and prints no result line):
    ``spec=4`` with int8 in all four, whose f32 tokens, greedy and
    sampled, equal the non-speculative int8 run's.
 
-8. Training (``Executor`` over ``GPTForCausalLM``).  8a: K3, the flash
+8. Training (``Executor`` over ``GPTForCausalLMModule``).  8a: K3, the flash
    backward's dK/dV and dQ kernels, against their plain versions on the
    card: f32 and bf16, head dims 32/64/128, causal and not, kv_lens with
    a 0, Sk > S, S not a multiple of the tile; then at the training
@@ -310,6 +310,34 @@ non-zero and prints no result line):
    through the ring; the losses with prefetch on and off are equal bit
    for bit; a mid-epoch save, a fresh build and ``load`` continue the
    batch stream exactly; step ms with prefetch on and off.
+
+15. Pipeline and sharded training on the graph surface, BERT-base
+   classifier (f32, S 512, B 16, SGD).  15-pre: f32 K2/K3 at 15a's
+   microbatch shape against their plain versions.  15a: the plain
+   executor against ``pipeline="gpipe"`` and ``"1f1b"`` over four stages
+   of a virtual mesh (exact launches, losses and final tensors within
+   rtol 2e-4, 1f1b's peak memory below gpipe's).  15b: ``FSDP`` dp 4 and
+   a dp 2 x tp 2 ``ShardingPlan`` on virtual ranks, the graph built at
+   the global batch (one evaluation a step), against plain.  15c:
+   ``DataParallel`` over a one-rank NCCL world bit-equal to plain; the
+   int8 trio's all-gather through NCCL (int8 in its recorded collective
+   sequence, bit-equal to the whole-value round trip).  15d: a BatchNorm
+   MLP under a virtual ``DataParallel(2)`` equal to plain (1e-6), and
+   BERT-base's SGD step under ``DataParallel(aggregate="int8")`` equal
+   to plain within the codec's bound.  Step ms: medians after a warm-up
+   step.
+
+16. GPT on the graph surface: ``models.GPTForCausalLM`` at GPT-2-small's
+   widths, B 8, S 1024, flash, phase 8's weights and first three
+   batches: three AdamW steps in f32 (losses within 1e-5 relative of
+   phase 8's ``nn.Module`` trainer's) and under ``mixed_precision=
+   "bf16"``, each launching exactly 12 K2, 12 K3 dK/dV and 12 K3 dQ;
+   step ms (median after the first) beside phase 8's; ``greedy_generate``
+   on the graph equal to ``generate_fast`` (K2 + K4) on the trained
+   weights; ``ServingEngine(ex.var_values, cfg)`` equal to
+   ``generate_fast`` on four requests; ``serve_gpt``'s tiny model trained
+   on the graph and served with and without ``spec=3``, the tokens
+   equal.
 
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
@@ -2290,8 +2318,8 @@ def check_k3(torch, F, dtype, seed):
 
 
 def check_train_grads(torch, htt, cfg, seed, device="cuda"):
-    """The loss and every gradient of ``GPTForCausalLM`` in f32 on one
-    batch of the synthetic task, through the flash path (K2 forward, K3
+    """The loss and every gradient of ``GPTForCausalLMModule`` in f32 on
+    one batch of the synthetic task, through the flash path (K2 forward, K3
     backward, with the model's q/k/v layout and K2's lse) and through the
     unfused path (no kernel), from the same weights: the loss within 1e-5
     relative, each gradient within 1e-4 of its tensor's max |g| (the
@@ -2307,7 +2335,7 @@ def check_train_grads(torch, htt, cfg, seed, device="cuda"):
     for flash in (True, False):
         c = copy.copy(cfg)
         c.use_flash = flash
-        model = htt.GPTForCausalLM(c, seed=seed).to(device)
+        model = htt.GPTForCausalLMModule(c, seed=seed).to(device)
         if values is None:
             values = {k: v.detach().clone()
                       for k, v in model.named_vars().items()}
@@ -2364,7 +2392,7 @@ def train(torch, htt, cfg, dtype, seed, steps=8, warm=2, prof_dir=None):
     from hetu_tpu_torch.optimizer import AdamWOptimizer
     from hetu_tpu_torch.train_gpt import profile_steps, synthetic
     t0 = time.perf_counter()
-    model = htt.GPTForCausalLM(cfg, seed=seed)
+    model = htt.GPTForCausalLMModule(cfg, seed=seed)
     opt = AdamWOptimizer(learning_rate=3e-4, weight_decay=0.01)
     opt.clip_grad_norm = 1.0
     ex = htt.Executor(model, opt, seed=seed,
@@ -4468,7 +4496,6 @@ def phase14(torch, seed, card):
 # ---------------------------------------------------------------- #
 
 PP15 = dict(batch=16, seq=512, microbatches=8, stages=4, steps=3, lr=0.005)
-DP15_STEPS = 2
 PP15_RTOL = 2e-4        # JAX's own tolerance for the pipelined BERT test
 PP15_ATOL = 1e-6        # final tensors: 1e-6 + 2e-4 |plain|
 
@@ -4521,6 +4548,11 @@ def steps15(torch, ex, ids, labels, batches, want, tag):
     return losses, secs, peaks, total
 
 
+def step_ms15(secs):
+    """The median step ms after the first (warm-up) step."""
+    return float(np.median(secs[1:])) * 1e3
+
+
 def close15(got, want, tag):
     """Losses within PP15_RTOL of the plain executor's, and every final
     tensor within PP15_ATOL + PP15_RTOL |want| of it (the atol covers
@@ -4560,15 +4592,8 @@ def phase15a(torch, seed, card):
     w0 = ex.return_tensor_values()
     L = 12
     want = flash_launches(launch_counts(), L)
-    plain_l, plain_s, plain_p, _ = steps15(torch, ex, ids, labels,
-                                           batches[:DP15_STEPS], want,
-                                           "15a plain")
-    after2 = ex.return_tensor_values()
-    more = steps15(torch, ex, ids, labels, batches[DP15_STEPS:], want,
-                   "15a plain")
-    plain_l += more[0]
-    plain_s += more[1]
-    plain_p += more[2]
+    plain_l, plain_s, plain_p, _ = steps15(torch, ex, ids, labels, batches,
+                                           want, "15a plain")
     plain = (plain_l, ex.return_tensor_values())
     del ex
     torch.cuda.empty_cache()
@@ -4612,18 +4637,19 @@ def phase15a(torch, seed, card):
         fail(f"15a: 1f1b's activation high-water {stats['1f1b'][2]} is not "
              f"below gpipe's {stats['gpipe'][2]}")
     for k, (l_, s_, p_) in stats.items():
-        ms = float(np.mean(s_[1:])) * 1e3
-        log(f"  15a on {card}: {k} f32 SGD step {ms:.2f} ms (mean after "
+        ms = step_ms15(s_)
+        log(f"  15a on {card}: {k} f32 SGD step {ms:.2f} ms (median after "
             f"the first; steps {[round(x * 1e3, 2) for x in s_]}), "
             f"{B * S / (ms / 1e3):.1f} "
             f"tokens/s, peak memory above the step's start {p_} B "
             f"(max {max(p_) / 2 ** 30:.3f} GiB)")
-    return counts["1f1b"], w0, batches, (plain_l[:DP15_STEPS], after2)
+    return counts["1f1b"], w0, batches, plain, plain_s
 
 
-def phase15b(torch, seed, card, w0, batches, plain2):
+def phase15b(torch, seed, card, w0, batches, plain, plain_s):
     """15b: FSDP over a virtual dp 4 and ShardingPlan over dp 2 x tp 2,
-    each two SGD steps against the plain executor's."""
+    the graph built at the global batch, each three SGD steps against
+    the plain executor's (one evaluation of the batch a step)."""
     from hetu_tpu_torch import graph as ht
     from hetu_tpu_torch import models
     from hetu_tpu_torch.kernels import launch_counts
@@ -4640,18 +4666,17 @@ def phase15b(torch, seed, card, w0, batches, plain2):
         tp[pre + "intermediate_bias"] = ("tp",)
         for n in ("attn_proj_weight", "output_weight"):
             tp[pre + n] = ("tp", None)
-    for tag, dp, strategy in (
-            ("FSDP dp 4", 4, ht.dist.FSDP(dp=4)),
-            ("ShardingPlan dp 2 x tp 2", 2,
+    for tag, strategy in (
+            ("FSDP dp 4", ht.dist.FSDP(dp=4)),
+            ("ShardingPlan dp 2 x tp 2",
              ht.dist.ShardingPlan(tp, mesh_axes={"dp": 2, "tp": 2}))):
-        ids, labels, loss, train = bert15(ht, models, B // dp)
+        ids, labels, loss, train = bert15(ht, models, B)
         ex = ht.Executor({"train": [loss, train]}, seed=seed,
                          dist_strategy=strategy)
         ex.load_dict(w0)
-        want = flash_launches(launch_counts(), 12 * dp)
-        got = steps15(torch, ex, ids, labels, batches[:DP15_STEPS], want,
-                      f"15b {tag}")
-        worst = close15((got[0], ex.return_tensor_values()), plain2,
+        want = flash_launches(launch_counts(), 12)
+        got = steps15(torch, ex, ids, labels, batches, want, f"15b {tag}")
+        worst = close15((got[0], ex.return_tensor_values()), plain,
                         f"15b {tag}")
         emb = ex.local_shards("bert_embeddings_word_embeddings")
         q0 = ex.local_shards("bert_layer0_attn_q_weight")
@@ -4660,19 +4685,64 @@ def phase15b(torch, seed, card, w0, batches, plain2):
             fail(f"15b {tag}: the ranks' shards of the word embeddings "
                  f"are {[list(e.shape) for e in emb]}, want 4 x "
                  f"[30522, 192]")
-        ms = float(np.mean(got[1])) * 1e3
         log(f"  15b {tag} on {card}: {len(emb)} virtual ranks, a rank's "
             f"shard of the word embeddings {list(emb[0].shape)}, of layer "
-            f"0's q weight {list(q0[0].shape)}; losses {got[0]} (plain "
-            f"{plain2[0]}), worst final tensor err / bound {worst:.4f}; step "
-            f"{ms:.2f} ms, peak above the step's start {got[2]} B")
+            f"0's q weight {list(q0[0].shape)}; built at the global batch "
+            f"{B}, one evaluation a step (12 K2, 12 K3 dK/dV, 12 K3 dQ); "
+            f"losses {got[0]} (plain {plain[0]}), worst final tensor err / "
+            f"bound {worst:.4f}; step {step_ms15(got[1]):.2f} ms (median "
+            f"after the first; steps {[round(x * 1e3, 2) for x in got[1]]}; "
+            f"plain {step_ms15(plain_s):.2f}), peak above the step's start "
+            f"{got[2]} B")
         del ex
         torch.cuda.empty_cache()
 
 
-def phase15c(torch, seed, card, w0, batches, plain2):
-    """15c: DataParallel over a one-rank NCCL world (a DeviceMesh), two
-    steps bit-equal to the plain executor's."""
+def trio_on_the_wire(torch, ht, mesh, seed):
+    """The int8 trio in the per-rank view over ``mesh``'s one-rank NCCL
+    world: its recorded collectives carry int8, the real run goes through
+    NCCL's all-gather and equals the whole-value view's round trip bit
+    for bit.  Returns (int8 bytes + scale bytes on the wire, f32 bytes)."""
+    from hetu_tpu_torch.graph.node import TraceContext
+    from hetu_tpu_torch.parallel import (check_collective_order,
+                                         quantized_collectives)
+    from hetu_tpu_torch.parallel.collectives import run_per_rank
+    shape = (768, 3072)          # a BERT-base intermediate weight
+    device = mesh.device_type
+    g = torch.randn(shape, device=device,
+                    generator=torch.Generator(device).manual_seed(seed))
+    trio = ht.quantized_allreduce_op(ht.placeholder_op("g15"), shape=shape)
+    gather, quant = trio.inputs[0], trio.inputs[0].inputs[0]
+
+    def body(comm, x):
+        tc = TraceContext(comm=comm, device=device)
+        pair = gather.compute([quant.compute([x], tc)], tc)
+        body.wire = pair
+        return trio.compute([pair], tc)
+
+    seq = check_collective_order(body, mesh, [(g,)])
+    legs = quantized_collectives(seq)
+    if not legs or legs[0][3] != ("int8",):
+        fail(f"15c trio: no int8 collective in its recorded sequence {seq}")
+    got = run_per_rank(body, mesh, (g,))
+    q, scales = body.wire
+    if q.dtype != torch.int8 or q.device != g.device:
+        fail(f"15c trio: the gathered payload is {q.dtype} on "
+             f"{q.device}, not int8 on the card")
+    whole = trio.compute([gather.compute([quant.compute(
+        [g], TraceContext(device=device))], TraceContext())],
+        TraceContext())
+    if not torch.equal(got, whole):
+        fail("15c trio: the NCCL per-rank result differs from the "
+             "whole-value round trip")
+    return (q.numel() * q.element_size()
+            + scales.numel() * scales.element_size()), g.numel() * 4, seq
+
+
+def phase15c(torch, seed, card, w0, batches, plain, plain_s):
+    """15c: DataParallel over a one-rank NCCL world (a DeviceMesh), three
+    steps bit-equal to the plain executor's; the int8 trio's wire leg
+    through NCCL's all-gather."""
     import torch.distributed as dist
     from hetu_tpu_torch import graph as ht
     from hetu_tpu_torch import models
@@ -4693,24 +4763,30 @@ def phase15c(torch, seed, card, w0, batches, plain2):
                              dist_strategy=ht.dist.DataParallel())
             ex.load_dict(w0)
             want = flash_launches(launch_counts(), 12)
-            got = steps15(torch, ex, ids, labels, batches[:DP15_STEPS],
-                          want, "15c")
+            got = steps15(torch, ex, ids, labels, batches, want, "15c")
             final = ex.return_tensor_values()
-            if got[0] != plain2[0]:
+            if got[0] != plain[0]:
                 fail(f"15c: losses {got[0]} differ from the plain "
-                     f"executor's {plain2[0]}")
-            bad = [k for k, w in plain2[1].items()
+                     f"executor's {plain[0]}")
+            bad = [k for k, w in plain[1].items()
                    if not np.array_equal(final[k], w)]
             if bad:
                 fail(f"15c: {len(bad)} tensors differ from the plain "
                      f"executor's, e.g. {bad[:3]}")
-            ms = float(np.mean(got[1])) * 1e3
             log(f"  15c on {card}: DataParallel over a one-rank NCCL world "
                 f"(NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
-                f"DeviceMesh {mesh.mesh_dim_names}), two steps bit-equal to "
-                f"the plain executor's (losses {got[0]}, "
-                f"{len(final)} tensors); step {ms:.2f} ms")
+                f"DeviceMesh {mesh.mesh_dim_names}), three steps bit-equal "
+                f"to the plain executor's (losses {got[0]}, "
+                f"{len(final)} tensors); step {step_ms15(got[1]):.2f} ms "
+                f"(median after the first; steps "
+                f"{[round(x * 1e3, 2) for x in got[1]]}; plain "
+                f"{step_ms15(plain_s):.2f})")
             del ex
+            wire, f32, seq = trio_on_the_wire(torch, ht, mesh, seed)
+            log(f"  15c int8 trio over NCCL: recorded {seq}; the all-gather "
+                f"moved {wire} B (int8 payload + f32 scales) for a gradient "
+                f"of {f32} B in f32 ({f32 / wire:.2f}x fewer bytes); the "
+                f"result == the whole-value round trip bit for bit")
         finally:
             dist.destroy_process_group()
     finally:
@@ -4718,19 +4794,284 @@ def phase15c(torch, seed, card, w0, batches, plain2):
     torch.cuda.empty_cache()
 
 
+# the BatchNorm MLP of tests/test_torch_data_parallel.py (IN 8, HID 32,
+# OUT 4, B 16, rows 8-15 scaled x3 + 2, SGD 0.1), two steps
+BN15 = dict(inp=8, hid=32, out=4, batch=16, steps=2)
+
+
+def bn15(ht):
+    c = BN15
+    x, y = ht.placeholder_op("x"), ht.placeholder_op("y")
+    h = ht.linear_op(x, ht.init.xavier_uniform((c["inp"], c["hid"]),
+                                               name="bn_in_w"),
+                     ht.init.zeros((c["hid"],), name="bn_in_b"))
+    h = ht.layers.BatchNorm(c["hid"], name="bn0")(h)
+    logits = ht.matmul_op(h, ht.init.xavier_uniform((c["hid"], c["out"]),
+                                                    name="bn_head"))
+    loss = ht.reduce_mean_op(ht.softmaxcrossentropy_op(logits, y), axes=0)
+    return x, y, loss, ht.optim.SGDOptimizer(learning_rate=0.1).minimize(loss)
+
+
+def phase15d(torch, seed, card, w0, batches):
+    """15d: the global-batch step on the card: the BatchNorm MLP under a
+    virtual DataParallel(2) equal to the plain executor's (losses, weights
+    and running statistics within 1e-6); BERT-base's SGD step under
+    DataParallel(aggregate="int8") (the trio spliced onto every dense
+    gradient) equal to the plain step within the codec's bound."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    from hetu_tpu_torch.graph.ops_comm import DequantizeCommOp
+    from hetu_tpu_torch.kernels import launch_counts
+    c = BN15
+    rng = np.random.RandomState(7)
+    xb = rng.randn(c["batch"], c["inp"]).astype(np.float32)
+    xb[8:] = xb[8:] * 3 + 2
+    yb = np.eye(c["out"], dtype=np.float32)[rng.randint(0, c["out"],
+                                                       c["batch"])]
+    res = {}
+    for tag, kw in (("plain", {}),
+                    ("dp 2", dict(dist_strategy=ht.dist.DataParallel(
+                        num_devices=2)))):
+        x, y, loss, train = bn15(ht)
+        ex = ht.Executor({"train": [loss, train]}, seed=seed, **kw)
+        if tag == "plain":
+            bn_w0 = ex.return_tensor_values()
+        ex.load_dict(bn_w0)
+        res[tag] = ([float(ex.run("train", feed_dict={x: xb, y: yb})[0])
+                     for _ in range(c["steps"])], ex.return_tensor_values())
+    (pl, pw), (dl, dw) = res["plain"], res["dp 2"]
+    worst = max(float(np.abs(dw[k] - v).max()) for k, v in pw.items())
+    if not np.allclose(dl, pl, rtol=0, atol=1e-6) or worst > 1e-6:
+        fail(f"15d BatchNorm dp 2: losses {dl} vs plain {pl}, worst tensor "
+             f"{worst:.3e} (tol 1e-6)")
+    log(f"  15d BatchNorm MLP, virtual DataParallel(2) on {card}: losses "
+        f"{dl} (plain {pl}), worst tensor diff {worst:.3e} over "
+        f"{len(pw)} tensors (running statistics included; tol 1e-6)")
+    # BERT-base, one SGD step with the int8 trio against the plain step
+    lr = PP15["lr"]
+    one = {}
+    for tag, kw in (("plain", {}),
+                    ("int8", dict(dist_strategy=ht.dist.DataParallel(
+                        aggregate="int8")))):
+        ids, labels, loss, train = bert15(ht, models, PP15["batch"])
+        ex = ht.Executor({"train": [loss, train]}, seed=seed, **kw)
+        ex.load_dict(w0)
+        dense = [g for i, g in enumerate(train.inputs)
+                 if i not in train.sparse_inputs]
+        if tag == "int8" and not all(isinstance(g, DequantizeCommOp)
+                                     for g in dense):
+            fail("15d int8: the trio is not on every dense gradient")
+        want = flash_launches(launch_counts(), 12)
+        got = steps15(torch, ex, ids, labels, batches[:1], want,
+                      f"15d {tag}")
+        one[tag] = (got[0], ex.return_tensor_values(), got[1])
+        del ex
+        torch.cuda.empty_cache()
+    (pl, pw, ps), (ql, qw, qs) = one["plain"], one["int8"]
+    if ql != pl:
+        fail(f"15d int8: the first loss {ql} differs from plain's {pl}")
+    worst, where = 0.0, None
+    g_max = {k: float(np.abs(w0[k].astype(np.float64) - v).max()) / lr
+             for k, v in pw.items()}
+    g_all = max(g_max.values())
+    for k, v in pw.items():
+        w = w0[k].astype(np.float64)
+        # each gradient element within half a step of its chunk (amax /
+        # 254 <= max |g| / 254), 1e-5 more of its tensor's and of the
+        # largest gradient's (the summation order; the attention k bias,
+        # whose exact gradient is 0, is rounding alone), and one f32
+        # rounding of w - lr g on each side
+        tol = lr * (g_max[k] * (1 / 254 + 1e-5) + 1e-5 * g_all) \
+            + 2.0 ** -22 * np.abs(w).max()
+        err = float(np.abs(qw[k] - v).max())
+        if tol > 0 and err / tol > worst:
+            worst, where = err / tol, k
+    if worst > 1:
+        fail(f"15d int8: {where} differs from the plain step by {worst:.3f} "
+             f"x the codec's bound")
+    log(f"  15d BERT-base DataParallel(aggregate='int8') on {card}: one SGD "
+        f"step, loss {ql} (plain {pl}); worst tensor err / the codec's "
+        f"bound {worst:.4f} ({where}); the trio on all {len(dense)} dense "
+        f"gradients ({len(train.sparse_inputs)} sparse ones keep their "
+        f"path); step {qs[0] * 1e3:.2f} ms (plain {ps[0] * 1e3:.2f}, "
+        f"one step each, with its first-step costs)")
+
+
 def phase15(torch, F, seed, card):
     """Phase 15: 15-pre (f32 K2/K3 at 15a's microbatch shape), 15a, 15b,
-    15c.  Returns (15-pre's {"fwd", "dkv", "dq": result}, 15a 1f1b's
-    launches)."""
+    15c, 15d.  Returns (15-pre's {"fwd", "dkv", "dq": result}, 15a
+    1f1b's launches)."""
     t_phase = time.perf_counter()
     shape = (PP15["batch"] // PP15["microbatches"], PP15["seq"], H, DH)
     kres = check_bert_kernels(torch, F, "float32", seed + 15, shape, None,
                               "15-pre", "15-pre, 15a's microbatch")
-    counts, w0, batches, plain2 = phase15a(torch, seed, card)
-    phase15b(torch, seed, card, w0, batches, plain2)
-    phase15c(torch, seed, card, w0, batches, plain2)
+    counts, w0, batches, plain, plain_s = phase15a(torch, seed, card)
+    phase15b(torch, seed, card, w0, batches, plain, plain_s)
+    phase15c(torch, seed, card, w0, batches, plain, plain_s)
+    phase15d(torch, seed, card, w0, batches)
     log(f"  phase 15 in {time.perf_counter() - t_phase:.1f} s")
     return kres, counts
+
+
+# ---------------------------------------------------------------- #
+# phase 16: GPT on the graph surface
+# ---------------------------------------------------------------- #
+
+# three AdamW steps (phase 8's rate, decay and clip) on phase 8's first
+# three batches, the first a warm-up; greedy decoding of a 16-token
+# prompt for 8 tokens; four requests through the engine; serve_gpt's
+# tiny model trained for its default 250 steps
+GPT16 = dict(steps=3, warm=1, prompt=16, new=8, requests=4, tiny_steps=250)
+# the graph's f32 losses against phase 8's nn.Module trainer from the same
+# weights on the same batches: phase 8's loss tolerance (flash vs
+# unfused, relative)
+GPT16_RTOL = 1e-5
+
+
+def gpt16_executor(ht, models, cfg, seed, weights, mp=None):
+    """The graph GPT (``models.GPTForCausalLM``) with an AdamW step and a
+    logits subgraph, loaded with ``weights``: (ids, labels, executor)."""
+    model = models.GPTForCausalLM(cfg, name="gpt")
+    ids, labels = ht.placeholder_op("input_ids"), ht.placeholder_op("labels")
+    loss, _ = model(ids, labels=labels)
+    opt = ht.optim.AdamWOptimizer(learning_rate=3e-4, weight_decay=0.01)
+    opt.clip_grad_norm = 1.0
+    ex = ht.Executor({"train": [loss, opt.minimize(loss)],
+                      "logits": [model(ids)]}, seed=seed, mixed_precision=mp)
+    ex.load_dict(weights)
+    return ids, labels, ex
+
+
+def gpt16_steps(torch, ex, ids, labels, batches, L, tag):
+    """One "train" run per batch, each launching exactly phase 8's K2, K3
+    dK/dV and K3 dQ (one of each a layer): (losses, seconds, launches of
+    all)."""
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    losses, secs = [], []
+    total = collections.Counter()
+    for i, (x, y) in enumerate(batches):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ex.run("train", feed_dict={ids: x, labels: y})
+        losses.append(float(out[0]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        want = flash_launches(counts, L)
+        if counts != want:
+            fail(f"16 {tag} step {i}: launches {counts}, want {want}")
+        total.update(counts)
+    if not all(np.isfinite(losses)):
+        fail(f"16 {tag}: a loss is not finite: {losses}")
+    return losses, secs, total
+
+
+def phase16(torch, seed, card, train_runs):
+    """Phase 16: GPT-2-small on the graph surface.  ``train_runs``:
+    phase 8's {dtype: (stats, launches)}.  Returns {dtype: the launches
+    of the three training steps}."""
+    import hetu_tpu_torch as htt
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models, serve_gpt
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    from hetu_tpu_torch.models.gpt_decode import generate_fast
+    from hetu_tpu_torch.train_gpt import synthetic
+    t_phase = time.perf_counter()
+    cfg = htt.GPTConfig(batch_size=TB, seq_len=TS, dropout_rate=0.0)
+    if not cfg.use_flash:
+        fail("16: GPT-2-small at seq 1024 with dropout 0 should take the "
+             "flash path")
+    n, L = GPT16["steps"], cfg.num_hidden_layers
+    data = synthetic(cfg, np.random.RandomState(seed))
+    batches = [next(data) for _ in range(n)]
+    weights = htt.GPTForCausalLMModule(cfg, seed=seed).var_values()
+    counts, res = {}, {}
+    for dt, mp in (("float32", None), ("bfloat16", "bf16")):
+        ids, labels, ex = gpt16_executor(ht, models, cfg, seed, weights, mp)
+        losses, secs, counts[dt] = gpt16_steps(torch, ex, ids, labels,
+                                               batches, L, dt)
+        want = train_runs[dt][0]["losses"][:n]
+        ms = float(np.median(secs[GPT16["warm"]:])) * 1e3
+        res[dt] = (losses, ms)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        if dt == "float32" and not rel <= GPT16_RTOL:
+            fail(f"16 f32: the graph's losses {losses} differ from phase "
+                 f"8's nn.Module trainer's {want} by {rel:.3e} relative "
+                 f"(tol {GPT16_RTOL})")
+        log(f"  16 {dt}: graph GPT-2-small B {TB} S {TS}, losses {losses} "
+            f"(phase 8's module {want}: {rel:.3e} relative"
+            + (f", tol {GPT16_RTOL}" if dt == "float32" else ", logged")
+            + f"); launches a step {L} K2, {L} K3 dK/dV, {L} K3 dQ; step "
+            f"{ms:.2f} ms (median of steps {GPT16['warm'] + 1}-{n}; steps "
+            f"{[round(x * 1e3, 2) for x in secs]}) on {card}, phase 8's "
+            f"module {train_runs[dt][0]['step_ms']:.2f} ms")
+        if dt == "float32":
+            trained = ex
+        else:
+            del ex
+    # greedy decoding on the graph against generate_fast's KV cache
+    ex = trained
+    prompt = batches[0][0][0, :GPT16["prompt"]].tolist()
+    reset_launches()
+    greedy = models.greedy_generate(ex, "logits", ids, 0, prompt,
+                                    GPT16["new"], cfg.seq_len)
+    g_counts = launch_counts()
+    if g_counts["flash_attention"] != L * GPT16["new"]:
+        fail(f"16 greedy: {g_counts['flash_attention']} K2 launches, want "
+             f"{L * GPT16['new']} ({L} a forward)")
+    reset_launches()
+    fast = generate_fast(ex.var_values, cfg, prompt,
+                         num_tokens=GPT16["new"])[0].tolist()
+    f_counts = launch_counts()
+    if greedy != fast:
+        fail(f"16: graph greedy tokens {greedy[len(prompt):]} differ from "
+             f"generate_fast's {fast[len(prompt):]}")
+    log(f"  16 greedy_generate on the graph == generate_fast: "
+        f"{greedy[len(prompt):]} ({g_counts['flash_attention']} K2 for "
+        f"{GPT16['new']} full forwards; generate_fast "
+        f"{f_counts['flash_attention']} K2, "
+        f"{f_counts['paged_decode_attention']} K4)")
+    # the engine over the graph-trained weights
+    prompts = np.random.RandomState(seed + 16).randint(
+        0, cfg.vocab_size, (GPT16["requests"], GPT16["prompt"])).tolist()
+    want = generate_fast(ex.var_values, cfg, prompts,
+                         num_tokens=GPT16["new"])
+    eng = htt.ServingEngine(ex.var_values, cfg, slots=GPT16["requests"])
+    reqs = [htt.Request(prompt=p, max_new_tokens=GPT16["new"])
+            for p in prompts]
+    reset_launches()
+    out = eng.run(reqs)
+    e_counts = launch_counts()
+    bad = [i for i, r in enumerate(reqs)
+           if list(out[r.request_id].tokens) != want[i].tolist()]
+    if bad:
+        fail(f"16: the engine's tokens over the graph-trained weights "
+             f"differ from generate_fast's for requests {bad}")
+    log(f"  16 ServingEngine(ex.var_values, cfg) over the graph-trained "
+        f"weights: {len(reqs)} greedy requests == generate_fast "
+        f"(ragged_paged_attention {e_counts['ragged_paged_attention']} "
+        f"launches)")
+    del eng, ex, trained
+    torch.cuda.empty_cache()
+    # serve_gpt: the tiny graph model trained on the +1 chain, served
+    # with and without speculation
+    t0 = time.perf_counter()
+    tiny = serve_gpt.config(serve_gpt.parse_args([]))
+    ex = serve_gpt.train_tiny(tiny, GPT16["tiny_steps"], 3e-3)
+    train_s = time.perf_counter() - t0
+    frac0, tok0, _ = serve_gpt.serve(ex, tiny)
+    frac3, tok3, eng3 = serve_gpt.serve(ex, tiny, spec=3)
+    if tok3 != tok0:
+        fail(f"16 serve_gpt: spec 3 tokens {tok3} differ from spec 0's "
+             f"{tok0}")
+    log(f"  16 serve_gpt: {GPT16['tiny_steps']} graph Adam steps in "
+        f"{train_s:.1f} s; {len(tok0)} requests, {frac0:.3f} of them on "
+        f"the +1 chain; spec 3 tokens == spec 0's ({eng3.spec_waves} "
+        f"waves, {eng3.spec_accepted}/{eng3.spec_proposed} drafts "
+        f"accepted)")
+    log(f"  phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def request_set(prompts, seed, V):
@@ -4952,6 +5293,13 @@ def main(argv=None):
         "DataParallel over a one-rank NCCL world")
     kres15, counts15 = phase15(torch, F, args.seed, card)
 
+    # ---- phase 16 ---- #
+    log("phase 16: GPT on the graph surface: GPT-2-small (B 8, S 1024) "
+        "three AdamW steps in f32 and bf16 against phase 8's nn.Module "
+        "trainer, greedy_generate vs generate_fast, the engine over the "
+        "graph-trained weights, serve_gpt")
+    counts16 = phase16(torch, args.seed, card, train_runs)
+
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
     # engine of their layout and scheduler, K6/K7 the phase-6 speculative
@@ -5136,6 +5484,25 @@ def main(argv=None):
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    # K2 and K3 at the training shape: launches from phase 16's three
+    # graph steps of their dtype (the numbers phase 8's)
+    for key, name, file, replaces in (
+            ("fwd", "flash_attention", "flash_fwd",
+             "hetu_tpu/kernels/flash_attention.py:173"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd",
+             "hetu_tpu/kernels/flash_attention.py:396"),
+            ("dq", "flash_attention_bwd_dq", "flash_bwd",
+             "hetu_tpu/kernels/flash_attention.py:428")):
+        for dt in ("float32", "bfloat16"):
+            r = kres8[key][dt]
+            kernels.append(dict(
+                name=f"{name}[{dt}, 16 graph GPT]", route="cuda",
+                source=src + file + ("_bf16.cu" if dt == "bfloat16"
+                                     else ".cu"),
+                replaces=replaces, launches=counts16[dt][name],
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

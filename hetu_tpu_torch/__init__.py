@@ -4,7 +4,8 @@ The port lives beside the JAX package and imports nothing of it (nor of
 JAX).  It covers GPT training and GPT inference as the serving engine
 runs it:
 
-- ``Executor`` over ``models.GPTForCausalLM``: training steps (AdamW and
+- ``Executor`` over ``GPTForCausalLMModule`` (``models/gpt_module.py``,
+  the ``nn.Module`` GPT): training steps (AdamW and
   the other dense optimizers of ``optimizer``, a global-norm clip, the
   fused chunked tied head, f32 or the bf16 policy), attention through
   the flash forward and backward kernels; ``python -m
@@ -44,11 +45,12 @@ plain PyTorch versions run instead.
 from . import graph, parallel  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .executor import Executor  # noqa: F401
-from .models import GPTConfig, GPTForCausalLM  # noqa: F401
+from .models import GPTConfig  # noqa: F401
+from .models.gpt_module import GPTForCausalLMModule  # noqa: F401
 from .models.gpt_decode import generate_fast  # noqa: F401
 from .serving import Request, ServingEngine  # noqa: F401
 from .weights import params_from_numpy  # noqa: F401
 
-__all__ = ["Executor", "GPTConfig", "GPTForCausalLM", "Request",
+__all__ = ["Executor", "GPTConfig", "GPTForCausalLMModule", "Request",
            "ServingEngine", "generate_fast", "graph", "params_from_numpy",
            "parallel", "resolve_device"]

@@ -14,19 +14,21 @@ device work, the port of the JAX package's ``analysis/shard_check.py``.
   agree.
 - :func:`check_expert_mesh` / :func:`check_expert_alltoall`: MoE
   expert-parallel placement and dispatch/combine all-to-all pairing.
+- :func:`check_quantized_collectives`: every quantized collective is a
+  complete, axis-consistent quantize -> collective -> dequantize trio.
 
 :func:`check_parallelism` runs every check that applies.  Hard
 violations raise :class:`ShardCheckError` (``analysis.integration``'s);
 advisory ones come back as findings dicts.  The verdicts, ``kind`` s and
-messages are JAX's.  ``check_quantized_collectives`` comes with the int8
-comm trio (ROADMAP A9b item 2).
+messages are JAX's.
 """
 
 from __future__ import annotations
 
 from ..graph.node import Op
-from ..graph.ops_comm import (CollectiveOp, PipelineReceiveOp,
-                              PipelineSendOp)
+from ..graph.ops_comm import (CollectiveOp, DequantizeCommOp,
+                              PipelineReceiveOp, PipelineSendOp,
+                              QuantAllReduceCommunicateOp, QuantizeCommOp)
 from ..graph.ops_misc import PlaceholderOp
 from ..parallel.mesh import axis_names, mesh_shape
 from .integration import ShardCheckError
@@ -137,6 +139,87 @@ def check_expert_alltoall(eval_nodes):
                 f"its indices/locations never routed these rows",
                 node=c, kind="a2a_pair")
     return spans
+
+
+# --------------------------------------------------------------------- #
+# quantized-collective pairing ($HETU_COMM_QUANT trios)
+# --------------------------------------------------------------------- #
+
+def check_quantized_collectives(eval_nodes):
+    """Every quantized collective must be a complete, axis-consistent
+    quantize -> collective -> dequantize trio (``graph/ops_comm``):
+
+    - a ``QuantizeCommOp``'s output feeds ONLY quantized collectives (its
+      (int8, scales) pair means nothing to any other consumer, and a
+      quantize whose pair never crosses a collective and a dequantize
+      would hand int8 payloads downstream);
+    - a ``QuantAllReduceCommunicateOp`` takes exactly a quantize and
+      feeds only dequantizes;
+    - a ``DequantizeCommOp`` decodes exactly a quantized collective;
+    - all three agree on the mesh axis.
+
+    Raises ShardCheckError(kind='quant_pair'); returns the trios found
+    as [(quantize, collective, dequantize), ...]."""
+    topo = _topo_of(eval_nodes)
+    consumers = {}
+    for n in topo:
+        for i in n.inputs:
+            consumers.setdefault(id(i), []).append(n)
+    trios = []
+    for n in topo:
+        if isinstance(n, QuantizeCommOp):
+            cons = consumers.get(id(n), [])
+            bad = [c for c in cons
+                   if not isinstance(c, QuantAllReduceCommunicateOp)]
+            if bad or not cons:
+                raise ShardCheckError(
+                    f"quantize {n.name} has no paired dequantize across "
+                    f"a quantized collective: consumed by "
+                    f"{[c.name for c in bad] or 'nothing'} — emit the "
+                    f"trio via quantized_allreduce_op (the (int8, "
+                    f"scales) pair must cross a "
+                    f"QuantAllReduceCommunicateOp into a "
+                    f"DequantizeCommOp)", node=n, kind="quant_pair")
+        elif isinstance(n, QuantAllReduceCommunicateOp):
+            src = n.inputs[0]
+            if not isinstance(src, QuantizeCommOp):
+                raise ShardCheckError(
+                    f"quantized collective {n.name} consumes "
+                    f"{src.name} ({type(src).__name__}), not a "
+                    f"QuantizeCommOp — all_gathering raw f32 through "
+                    f"the quantized pair moves full-width bytes and "
+                    f"breaks the dequantize contract", node=n,
+                    kind="quant_pair")
+            cons = consumers.get(id(n), [])
+            deqs = [c for c in cons if isinstance(c, DequantizeCommOp)]
+            if not deqs or len(deqs) != len(cons):
+                others = [c.name for c in cons
+                          if not isinstance(c, DequantizeCommOp)]
+                raise ShardCheckError(
+                    f"quantized collective {n.name} (axis {n.axis!r}) "
+                    f"has no paired DequantizeCommOp"
+                    + (f"; consumed by {others}" if others else "")
+                    + " — a quantize without its dequantize across the "
+                    "collective leaves int8 payloads in the graph",
+                    node=n, kind="quant_pair")
+            for d in deqs + [src]:
+                if getattr(d, "axis", n.axis) != n.axis:
+                    raise ShardCheckError(
+                        f"quantized trio disagrees on the mesh axis: "
+                        f"{src.name}/{n.name}/{[x.name for x in deqs]} "
+                        f"mix {d.axis!r} and {n.axis!r}", node=n,
+                        kind="quant_pair")
+            for d in deqs:
+                trios.append((src, n, d))
+        elif isinstance(n, DequantizeCommOp):
+            src = n.inputs[0]
+            if not isinstance(src, QuantAllReduceCommunicateOp):
+                raise ShardCheckError(
+                    f"dequantize {n.name} consumes {src.name} "
+                    f"({type(src).__name__}), not a quantized "
+                    f"collective — the pair must cross the collective",
+                    node=n, kind="quant_pair")
+    return trios
 
 
 def _comm_nodes(topo):
@@ -398,6 +481,7 @@ def check_parallelism(eval_nodes, mesh, config=None, feed_shapes=None):
     eval_nodes = [n for n in eval_nodes if n is not None]
     findings = []
     check_mesh_axes(eval_nodes, mesh)
+    check_quantized_collectives(eval_nodes)
     if mesh is not None:
         # the dispatch/combine pairing rule only bites under a parallel
         # mesh — a mesh-less executor may legitimately evaluate a bare

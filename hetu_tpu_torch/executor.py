@@ -4,7 +4,8 @@ declarative op graph into one jitted step, this one runs an
 ``nn.Module`` eagerly, takes the gradients by autograd and applies the
 optimizer:
 
-    ex = Executor(GPTForCausalLM(cfg, seed=0), opt, mixed_precision="bf16")
+    ex = Executor(GPTForCausalLMModule(cfg, seed=0), opt,
+                  mixed_precision="bf16")
     loss, = ex.run({"input_ids": x, "labels": y})     # one training step
     loss, = ex.evaluate({"input_ids": x, "labels": y})  # dropout off
 

@@ -87,7 +87,7 @@ from .ops_comm import (
     reducescatterCommunicate_op, broadcastCommunicate_op,
     reduceCommunicate_op, pipeline_send_op, pipeline_receive_op,
     parameterServerCommunicate_op, parameterServerSparsePull_op,
-    datah2d_op, datad2h_op,
+    datah2d_op, datad2h_op, quantized_allreduce_op,
 )
 from . import init, layers, optim
 from .. import lr_scheduler as lr

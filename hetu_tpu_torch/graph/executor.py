@@ -45,17 +45,17 @@ mesh and the variables' ``sharding_spec`` before they are initialised.
 On a ``DeviceMesh`` each rank stores its shard of every master and
 optimizer slot; a ``VirtualMesh``, whose ranks share one device, stores
 the whole values and reads each rank's shard as a view
-(``parallel.sharding``).  A step gathers the whole values, runs each data
-rank on its rows of the batch (feeds split over ``'dp'``, or ``'ep'`` on
-a pure expert mesh, where dim 0 divides), reduces the gradients over the
-data axis with an explicit all-reduce (the process group's on a
-``DeviceMesh``, a sum over the virtual ranks on a ``VirtualMesh``),
-divides by its size, updates the whole values and keeps each rank's
-shard.  So the numbers are the replicated step's for losses that are
-means over the batch; an output of the batch's rows is gathered, any
-other averaged over the data ranks, and a state write (BatchNorm's
-running statistics) is the mean of the ranks'.  ``pipeline`` runs the
-training subgraphs through ``pipeline_executor.PipelineSubExecutor``.
+(``parallel.sharding``).  The graph is built at the global batch, as in
+JAX, and a step is the single-device step of that batch, as JAX's is
+under GSPMD: it gathers the whole values, evaluates the whole batch once
+(one dropout stream), updates the whole values and keeps each rank's
+shard.  So BatchNorm's moments, summed and ratio losses and MoE gate
+capacities see every row.  Data parallelism replicates the compute: on
+a ``DeviceMesh`` every process is fed the global batch and evaluates it
+whole, with no all-reduce over ``'dp'``; splitting the compute over the
+data axis waits for the tensor-parallel compute split (ROADMAP A9b item
+2).  ``pipeline`` runs the training subgraphs through
+``pipeline_executor.PipelineSubExecutor``.
 
 Parameter-server modes, sharded or asynchronous checkpoints, profiling
 and ``HETU_VALIDATE`` raise ``NotImplementedError`` naming the ROADMAP
@@ -79,8 +79,7 @@ from .. import envvars
 from ..dataloader import DataloaderOp, device_transform
 from ..device import resolve_device
 from ..parallel import sharding as _sh
-from ..parallel.collectives import ProcessComm
-from ..parallel.mesh import VirtualMesh, axis_names, mesh_shape
+from ..parallel.mesh import VirtualMesh
 from . import optim as _opt
 from .autodiff import find_topo_sort
 from .node import Op, TraceContext, mix_seed
@@ -116,7 +115,7 @@ class HetuConfig:
     in JAX), and the mesh keys ``mesh``, ``dist_strategy``, ``pipeline``
     ('gpipe'/'1f1b'/'pipedream'/'hetpipe'), ``num_microbatches``,
     ``num_stages``, ``sync_every``, ``non_batch_feeds`` (feeds passed
-    whole to every microbatch and data rank), ``shard_pipeline_ends``,
+    whole to every microbatch), ``shard_pipeline_ends``,
     ``overlap`` and ``use_nccl_collectives`` (no-ops by design).  Every
     other key of the JAX config raises ``NotImplementedError`` naming its
     ROADMAP item unless it is passed at its default."""
@@ -221,93 +220,6 @@ def feed_values(sub, feed_dict):
     return out
 
 
-class DataRanks:
-    """The data-parallel ranks of one run on a mesh: the data axis
-    (``'dp'``, or ``'ep'`` on a mesh without ``'dp'``: tokens are data
-    parallel over the expert group), its size ``n``, the ranks this
-    process runs, and the reductions over the axis."""
-
-    def __init__(self, ex, feeds):
-        mesh = ex.mesh
-        shape = mesh_shape(mesh)
-        names = axis_names(mesh)
-        self.axis = "dp" if "dp" in names else \
-            ("ep" if "ep" in names else None)
-        self.n = shape.get(self.axis, 1) if self.axis else 1
-        self.comm = None if isinstance(mesh, VirtualMesh) \
-            else ProcessComm(mesh)
-        self.ranks = list(range(self.n)) if self.comm is None \
-            else [self.comm.index(self.axis)] if self.axis else [0]
-        skip = set(ex.config.non_batch_feeds)
-        self.split = {k for k, v in feeds.items()
-                      if k not in skip and v.dim() >= 1
-                      and v.shape[0] % self.n == 0}
-        self.rows = {k: feeds[k].shape[0] // self.n for k in self.split}
-        self._feeds = feeds
-
-    def rows_of(self, feeds, r):
-        return {k: v.chunk(self.n)[r] if k in self.split else v
-                for k, v in feeds.items()}
-
-    def feeds(self):
-        return [(r, self.rows_of(self._feeds, r)) for r in self.ranks]
-
-    def _sum(self, vals):
-        total = vals[0]
-        for v in vals[1:]:
-            total = total + v
-        if self.comm is not None and self.axis:
-            total = self.comm.all_reduce(total, self.axis)
-        return total
-
-    def _cat(self, vals):
-        if self.comm is not None and self.axis:
-            return self.comm.all_gather(vals[0], self.axis)
-        return torch.cat(vals)
-
-    def mean(self, vals):
-        total = self._sum(vals)
-        return total / self.n if self.n > 1 else total
-
-    def reduce_grads(self, per_rank, sparse=()):
-        """The mean over the data ranks of each gradient: dense summed,
-        an IndexedSlices adjoint's (ids, rows) joined."""
-        out = []
-        for i, gs in enumerate(zip(*per_rank)):
-            if i in sparse:
-                ids = self._cat([g[0].reshape(-1) for g in gs])
-                rows = self._cat([g[1].reshape(-1, g[1].shape[-1])
-                                  for g in gs])
-                out.append((ids, rows / self.n if self.n > 1 else rows))
-            else:
-                out.append(self.mean(list(gs)))
-        return out
-
-    def combine_outputs(self, per_rank):
-        """Each output: the ranks' rows gathered where it is the batch's
-        rows, else their mean."""
-        rows = set(self.rows.values())
-        out = []
-        for os_ in zip(*per_rank):
-            o = os_[0]
-            if not isinstance(o, torch.Tensor):
-                out.append(o)
-            elif self.n > 1 and o.dim() >= 1 and o.shape[0] in rows:
-                out.append(self._cat(list(os_)))
-            elif o.is_floating_point():
-                out.append(self.mean(list(os_)))
-            else:
-                out.append(o)
-        return out
-
-    def mean_values(self, per_rank):
-        """{name: mean over the ranks} of per-rank {name: tensor} dicts
-        (the ranks' state writes)."""
-        if not per_rank or not per_rank[0]:
-            return {}
-        return {k: self.mean([d[k] for d in per_rank]) for k in per_rank[0]}
-
-
 class SubExecutor:
     """One named subgraph: its evaluation order, feeds, the forward nodes
     whose VJPOps it answers from one autograd call, and when each value
@@ -397,15 +309,18 @@ class SubExecutor:
         return feed_values(self, feed_dict)
 
     def run(self, feed_dict, convert_to_numpy_ret_vals=False):
+        """One run: the whole values (gathered on a mesh) evaluated over
+        the whole batch, the writes and updates stored (as each rank's
+        shards on a mesh)."""
         ex = self.executor
         feeds = self._feed_values(feed_dict)
-        if ex.mesh is not None:
-            outputs = self._run_on_mesh(feeds)
-        else:
-            outputs, extras, new_opt_states = self._walk(
-                feeds, ex.var_values, ex.run_seed(), ex.opt_states)
-            ex.write_state(extras)
-            ex.opt_states = new_opt_states
+        full = ex.full_values()
+        outputs, extras, new_opt_states = self._walk(
+            feeds, full, ex.run_seed(), ex.full_opt_states())
+        ex.write_state(extras, full)
+        if self.training:
+            ex.store_opt_states(new_opt_states)
+        ex.store_values(full)
         ex._runs += 1
         if self.training:
             ex.step += 1
@@ -414,44 +329,9 @@ class SubExecutor:
                        for o in outputs]
         return outputs
 
-    def _run_on_mesh(self, feeds):
-        """One run over the executor's mesh: the whole values gathered,
-        each data rank on its rows, the gradients all-reduced over the
-        data axis, the updates applied once and stored as shards."""
-        ex = self.executor
-        full = ex.full_values()
-        dr = ex.data_ranks(feeds)
-        runs = []
-        for r, f in dr.feeds():
-            grads = {}
-            outs, extras, _ = self._walk(
-                f, full, ex.run_seed(r if dr.n > 1 else None),
-                grads_out=grads)
-            runs.append((outs, extras, grads))
-        outputs = dr.combine_outputs([o for o, _, _ in runs])
-        ex.write_state(dr.mean_values([e for _, e, _ in runs]), full)
-        if self.training:
-            grads = {n.name: dr.reduce_grads([g[n.name] for _, _, g in runs],
-                                             n.sparse_inputs)
-                     for n in self.optimizer_ops}
-            states = ex.full_opt_states()
-            tc = TraceContext(params=_ParamView(full), training=True,
-                              config=ex.config, step=ex.step,
-                              device=ex.device)
-            tc.extra_outputs = _ExtraOutputs()
-            for node in self.optimizer_ops:
-                states[node.name] = node.apply(grads[node.name], tc,
-                                               states[node.name])
-            ex.write_state(tc.extra_outputs, full)
-            ex.store_opt_states(states)
-        ex.store_values(full)
-        return outputs
-
-    def _walk(self, feeds, values, rng, opt_states=None, grads_out=None):
+    def _walk(self, feeds, values, rng, opt_states):
         """Evaluate the subgraph once over ``values`` (name -> tensor):
-        (outputs, the state writes, the new optimizer states).  With
-        ``grads_out`` (a dict) each optimizer's gradients are put there,
-        by its name, instead of applied."""
+        (outputs, the state writes, the new optimizer states)."""
         ex = self.executor
         mp = ex.config.mixed_precision
 
@@ -468,7 +348,7 @@ class SubExecutor:
         vals = {}
         records = {}        # id(forward) -> [leaves, inputs, out, groups left]
         answers = {}        # (id(forward), id(grad)) -> {idx: cotangent}
-        new_opt_states = dict(opt_states or {})
+        new_opt_states = dict(opt_states)
         with torch.no_grad():
             for pos, node in enumerate(self.topo):
                 nid = id(node)
@@ -488,11 +368,8 @@ class SubExecutor:
                         (vals[id(g.ids_node)], vals[id(g.values_node)])
                         if i in node.sparse_inputs else vals[id(g)]
                         for i, g in enumerate(node.inputs)]
-                    if grads_out is not None:
-                        grads_out[node.name] = grad_vals
-                    else:
-                        new_opt_states[node.name] = node.apply(
-                            grad_vals, tc, opt_states[node.name])
+                    new_opt_states[node.name] = node.apply(
+                        grad_vals, tc, opt_states[node.name])
                     vals[nid] = None
                 elif nid in self.skip_dense:
                     vals[nid] = None
@@ -620,27 +497,9 @@ class Executor:
             return None
         return _sh.norm_spec(self.variables[name].sharding_spec)
 
-    def feed_sharding(self, name, shape):
-        """The mesh axis a feed's batch dim splits over (JAX's
-        ``feed_sharding``): ``'dp'``, or ``'ep'`` on a mesh without
-        ``'dp'``, where it divides dim 0; None: whole on every rank."""
-        if self.mesh is None:
-            return None
-        shape_of = mesh_shape(self.mesh)
-        axes = ["dp"] + (["ep"] if "dp" not in shape_of else [])
-        for ax in axes:
-            if ax in shape_of and len(shape) >= 1 \
-                    and shape[0] % shape_of[ax] == 0:
-                return ax
-        return None
-
-    def data_ranks(self, feeds):
-        return DataRanks(self, feeds)
-
-    def run_seed(self, rank=None):
-        """The random streams' seed of this run (of data rank ``rank``)."""
-        parts = (self.config.seed, self._rng_seed, self._runs)
-        return mix_seed(*parts) if rank is None else mix_seed(*parts, rank)
+    def run_seed(self):
+        """The random streams' seed of this run."""
+        return mix_seed(self.config.seed, self._rng_seed, self._runs)
 
     def full_values(self):
         """{name: whole value} of every variable (gathered on a mesh)."""
@@ -680,15 +539,14 @@ class Executor:
             return [v]
         return _sh.rank_pieces(v, self.param_sharding(name), self.mesh)
 
-    def write_state(self, extras, values=None):
+    @staticmethod
+    def write_state(extras, values):
         """Writes of a run (new parameters, BatchNorm statistics) into
-        ``values`` (the stored values when None): a write from a bf16 run
-        keeps the master's dtype."""
-        target = self.var_values if values is None else values
+        ``values``: a write from a bf16 run keeps the master's dtype."""
         for k, v in extras.items():
-            if k in target and v.dtype != target[k].dtype:
-                v = v.to(target[k].dtype)
-            target[k] = v.detach()
+            if k in values and v.dtype != values[k].dtype:
+                v = v.to(values[k].dtype)
+            values[k] = v.detach()
 
     def run(self, name="default", eval_node_list=None, feed_dict=None,
             convert_to_numpy_ret_vals=False, **kwargs):

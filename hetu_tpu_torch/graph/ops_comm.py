@@ -12,12 +12,17 @@ Each collective keeps the JAX op's two behaviours:
   ``comm`` has the op's axis, as ``parallel.collectives.run_per_rank``
   gives) it runs the collective over the mesh axis.
 
-The int8 all-reduce trio waits for ROADMAP A9b item 2 and the PS ops
-for A10.
+The int8 gradient all-reduce is three nodes (``quantized_allreduce_op``):
+quantize to (int8, scales), all-gather the pair, dequantize and sum, so
+that ``analysis.shard_check.check_quantized_collectives`` can refuse a
+broken pairing.  The PS ops wait for ROADMAP A10.
 """
 
 from __future__ import annotations
 
+import torch
+
+from .. import quant as _quant
 from .node import Op, TraceContext
 
 
@@ -120,8 +125,86 @@ def reduceCommunicate_op(node, comm=None, root=0, axis="dp", ctx=None):
     return ReduceCommunicateOp(node, root=root, axis=axis, ctx=ctx)
 
 
-def quantized_allreduce_op(*args, **kwargs):
-    raise _later("A9b item 2", "the int8 all-reduce trio")
+class QuantizeCommOp(Op):
+    """Encode a float tensor, flattened and zero-padded to a whole number
+    of chunks, into (int8 payload, f32 scales) for a quantized collective
+    (``quant.quantize``).  Its only legal consumer is a quantized
+    collective (``shard_check`` enforces it)."""
+
+    def __init__(self, node, axis=None, chunk=None, ctx=None):
+        super().__init__(node, name="QuantizeComm", ctx=ctx)
+        self.axis = axis or "dp"
+        self.chunk = int(chunk or _quant.wire_chunk())
+
+    def compute(self, input_vals, tc: TraceContext):
+        (x,) = input_vals
+        flat = x.float().reshape(-1)
+        pad = (-flat.shape[0]) % self.chunk
+        if pad:
+            flat = torch.nn.functional.pad(flat, (0, pad))
+        return _quant.quantize(flat, self.chunk)
+
+    def gradient(self, output_grad):
+        return [output_grad]
+
+
+class QuantAllReduceCommunicateOp(CollectiveOp):
+    """The collective leg: all-gather the (int8, scales) pair over
+    ``axis``, so the wire moves int8.  It always adds a leading
+    participant dim: the axis's size in the per-rank view, 1 in the
+    whole-value view (as JAX's under pjit), where the trio is a round
+    trip through the codec."""
+
+    def compute(self, input_vals, tc: TraceContext):
+        (pair,) = input_vals
+        pair = tuple(a[None] for a in pair)
+        if tc.has_axis(self.axis):
+            return tuple(tc.comm.all_gather(a, self.axis) for a in pair)
+        return pair
+
+
+class DequantizeCommOp(Op):
+    """Decode each participant's (int8, scales) and sum them in f32: the
+    quantized all-reduce's result, in the gradient's shape."""
+
+    def __init__(self, node, shape, axis=None, chunk=None, ctx=None):
+        super().__init__(node, name="DequantizeComm", ctx=ctx)
+        self.axis = axis or "dp"
+        self.shape = tuple(int(d) for d in shape)
+        self.chunk = int(chunk or _quant.wire_chunk())
+
+    def compute(self, input_vals, tc: TraceContext):
+        (pair,) = input_vals
+        q, scales = pair                       # [n, padded], [n, chunks]
+        out = _quant.dequantize(
+            q.reshape(-1, q.shape[-1]), scales.reshape(-1, scales.shape[-1]),
+            self.chunk).sum(dim=0)
+        n = 1
+        for d in self.shape:
+            n *= d
+        return out[:n].reshape(self.shape)
+
+    def infer_shape(self, input_shapes, input_dtypes=None):
+        return self.shape
+
+    def gradient(self, output_grad):
+        return [output_grad]
+
+
+def quantized_allreduce_op(node, axis="dp", chunk=None, shape=None,
+                           ctx=None):
+    """The quantize -> all-gather -> dequantize trio for one gradient
+    (``shape``: the gradient's, from ``node.shape`` when the node carries
+    one).  Returns the ``DequantizeCommOp`` at its head."""
+    if shape is None:
+        shape = getattr(node, "shape", None)
+    if shape is None:
+        raise ValueError(
+            f"quantized_allreduce_op needs the gradient shape for "
+            f"{node!r}: pass shape= (the node carries none)")
+    q = QuantizeCommOp(node, axis=axis, chunk=chunk, ctx=ctx)
+    g = QuantAllReduceCommunicateOp(q, axis=axis, ctx=ctx)
+    return DequantizeCommOp(g, shape, axis=axis, chunk=q.chunk, ctx=ctx)
 
 
 class PipelineSendOp(Op):

@@ -1,7 +1,8 @@
 """Model code of the PyTorch port: the GPT config, the GPT decode cores
 (``gpt_decode``) with their MoE variant (``moe_decode``), the trainable
-``nn.Module`` GPT (``gpt``), and the JAX package's model zoo on the graph
-surface under its names: the CNN family (``cnn``), BERT (``bert``) and
+``nn.Module`` GPT (``gpt_module``), and the JAX package's model zoo on
+the graph surface under its names: GPT (``gpt``), the CNN family
+(``cnn``), BERT (``bert``) and
 BERT-MoE (``bert_moe``), the MT Transformer (``transformer``), the CTR
 models (``ctr``), NCF (``ncf``) and the MoE models (``moe_models``).
 The zoo's functions and classes build graph nodes
@@ -22,7 +23,10 @@ from .bert_moe import (  # noqa: F401
 )
 from .transformer import TransformerConfig, Transformer, \
     transformer_mt  # noqa: F401
-from .gpt import GPTBlock, GPTForCausalLM, GPTModel  # noqa: F401
+from .gpt import (GPTBlock, GPTForCausalLM, GPTModel,  # noqa: F401
+                  greedy_generate)
+from .gpt_module import (GPTBlockModule, GPTForCausalLMModule,  # noqa: F401
+                         GPTModelModule, greedy_generate_module)
 from .gpt_config import GPTConfig  # noqa: F401
 from .ctr import (  # noqa: F401
     wdl_adult, wdl_criteo, dcn_criteo, deepfm_criteo, dc_criteo,
@@ -37,5 +41,5 @@ from .moe_decode import (  # noqa: F401
 
 __all__ = [n for n in dir() if not n.startswith("_")
            and n not in ("cnn", "bert", "bert_moe", "transformer", "gpt",
-                         "gpt_config", "gpt_decode", "ctr", "ncf",
+                         "gpt_config", "gpt_decode", "gpt_module", "ctr", "ncf",
                          "moe_models", "moe_decode")]

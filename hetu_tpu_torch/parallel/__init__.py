@@ -1,10 +1,11 @@
 """Parallelism in the port: meshes, distribution strategies, the pipeline
 schedules and pipelines, context parallelism (ring attention on the
 carried flash kernel, Ulysses, blockwise attention), the per-rank
-collectives and the sharded storage of variables.
+collectives with their order check (``collective_check``) and the
+sharded storage of variables.
 
-Not here yet: ``collective_check`` and the int8 comm trio (ROADMAP A9b
-item 2) and ``preduce`` (A10, it needs the parameter server)."""
+Not here yet: ``preduce`` (ROADMAP A10, it needs the parameter
+server)."""
 
 from .mesh import (MeshAxes, VirtualMesh, default_mesh, local_device_count,
                    make_mesh)
@@ -18,6 +19,9 @@ from . import context_parallel
 from .context_parallel import (blockwise_attention, ring_attention,
                                ulysses_attention)
 from . import distributed_strategies
+from .collective_check import (CollectiveOrderError,  # noqa: F401
+                               check_collective_order,
+                               quantized_collectives)
 from .distributed_strategies import (
     DataParallel, ModelParallel4LM, ExpertParallel, PipelineParallel4LM,
     FSDP, BaseSearchingStrategy, ShardingPlan,
@@ -31,4 +35,5 @@ __all__ = ["MeshAxes", "VirtualMesh", "blockwise_attention",
            "PipelineStage", "PipelineTrainer", "distributed_strategies",
            "DataParallel", "ModelParallel4LM", "ExpertParallel",
            "PipelineParallel4LM", "FSDP", "BaseSearchingStrategy",
-           "ShardingPlan"]
+           "ShardingPlan", "CollectiveOrderError", "check_collective_order",
+           "quantized_collectives"]

@@ -116,8 +116,8 @@ class ProcessComm(_Comm):
         return dist.get_global_rank(self.group(axis), index % self.size(axis))
 
     def _group_values(self, x, axis):
-        if self.size(axis) == 1:
-            return [x]
+        # a group of one gathers too: a one-rank world still goes through
+        # the backend
         x = x.contiguous()
         out = [torch.empty_like(x) for _ in range(self.size(axis))]
         dist.all_gather(out, x, group=self.group(axis))

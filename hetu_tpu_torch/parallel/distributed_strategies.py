@@ -5,11 +5,14 @@ the port of the JAX package's ``parallel/distributed_strategies.py``
 A strategy configures the Executor with a mesh (``make_mesh`` on the
 executor's device when none is given) and per-variable specs (JAX's
 ``PartitionSpec`` as a tuple: per dimension a mesh axis or None).  The
-executor (``graph/executor.py``) stores each rank's shard, gathers on
-use, and all-reduces the gradients over ``'dp'``.
+executor (``graph/executor.py``) stores each rank's shard, gathers the
+whole values on use and runs the global batch's step, as JAX's GSPMD
+step is.
 
-``DataParallel(aggregate="int8")`` (or ``$HETU_COMM_QUANT=int8``) needs
-the quantized comm-op trio, which waits for ROADMAP A9b item 2.
+``DataParallel(aggregate="int8")`` (or ``$HETU_COMM_QUANT=int8``)
+splices the quantize -> all-gather -> dequantize trio
+(``graph/ops_comm.quantized_allreduce_op``) onto every dense gradient
+that enters an optimizer.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch.distributed as dist
 
-from .. import envvars
+from .. import quant
 from .mesh import make_mesh, mesh_shape
 
 
@@ -42,12 +45,19 @@ class Strategy:
 
 
 class DataParallel(Strategy):
-    """Batch split over 'dp'; params replicated; gradients all-reduced.
+    """A 'dp' mesh; params replicated.  Every data rank evaluates the
+    global batch (the compute is replicated over 'dp' until the compute
+    split lands, ROADMAP A9b item 2), so the step is JAX's GSPMD step.
 
     ``aggregate``: None/'allreduce' (and the PS parity names) keep the
-    plain all-reduce; 'int8'/'quant'/'quant_allreduce' (or
-    ``$HETU_COMM_QUANT=int8`` when ``aggregate`` is None) raise
-    ``NotImplementedError`` until the quantized trio lands."""
+    plain aggregation; 'int8'/'quant'/'quant_allreduce' (or
+    ``$HETU_COMM_QUANT=int8`` when ``aggregate`` is None) splice the
+    quantized trio onto every dense gradient entering each optimizer (the
+    reference's OptimizerOp backward hook, quantized); sparse
+    (IndexedSlices) adjoints keep their path.  In the whole-value view
+    the trio's collective has one participant, so the gradient is the
+    global gradient round-tripped through the int8 codec, as JAX's under
+    pjit."""
 
     _QUANT_MODES = ("quant", "int8", "quant_allreduce")
 
@@ -58,17 +68,31 @@ class DataParallel(Strategy):
     def _quantized(self):
         if self.aggregate is not None:
             return str(self.aggregate).lower() in self._QUANT_MODES
-        mode = envvars.get_str("HETU_COMM_QUANT", None)
-        return mode is not None and str(mode).lower() in self._QUANT_MODES
+        return quant.comm_quant() == "int8"
 
     def configure(self, executor):
-        if self._quantized():
-            raise NotImplementedError(
-                "DataParallel's int8 gradient aggregation (the quantize -> "
-                "all_gather -> dequantize comm-op trio) is not in "
-                "hetu_tpu_torch yet (ROADMAP A9b item 2)")
         if executor.config.mesh is None:
             self._mesh(executor, {"dp": self.num_devices or _device_count()})
+        if self._quantized():
+            self._splice_quantized_aggregation(executor)
+
+    @staticmethod
+    def _splice_quantized_aggregation(executor, axis="dp"):
+        """Rewire every OptimizerOp's dense gradients through the trio,
+        before the subexecutors sort their graphs."""
+        from ..graph.ops_comm import quantized_allreduce_op
+        from ..graph.optim import OptimizerOp
+        done = set()
+        for nodes in executor.eval_node_dict.values():
+            for n in nodes:
+                if not isinstance(n, OptimizerOp) or id(n) in done:
+                    continue
+                done.add(id(n))
+                for i, g in enumerate(n.inputs):
+                    if i in n.sparse_inputs:
+                        continue
+                    n.inputs[i] = quantized_allreduce_op(
+                        g, axis=axis, shape=n.var_list[i].shape)
 
 
 class ShardingPlan(Strategy):

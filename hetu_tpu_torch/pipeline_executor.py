@@ -23,14 +23,15 @@ Gradients come from ``torch.autograd`` over the forward (JAX's
 ``jax.value_and_grad`` over ``_forward_loss``), not from the graph's
 ``VJPOp`` s; inside a stage every node still runs one forward per
 evaluation.  The update is the optimizer's ``update_one`` over the
-whole values (no global-norm clip, as JAX's pipeline path).  With a data
-axis each microbatch is split over the data ranks and the gradients are
-averaged over them (``graph.executor.DataRanks``).
+whole values (no global-norm clip, as JAX's pipeline path).  A data
+axis splits no microbatch: each is the global batch's microbatch,
+evaluated whole, as in the graph executor (``graph/executor.py``), so
+the step is the one without the data axis.
 
 Random streams: a microbatch's nodes draw from a seed of (the executor's
-seed, its run counter, the microbatch index[, the data rank]) and the
-node's topo position in the loss graph, on both paths; 1F1B's
-re-forward and recompute of a microbatch draw its forward's mask.
+seed, its run counter, the microbatch index) and the node's topo
+position in the loss graph, on both paths; 1F1B's re-forward and
+recompute of a microbatch draw its forward's mask.
 
 ``pipeline='hetpipe'`` needs the parameter server (ROADMAP A10); eval
 subgraphs stay on the plain ``SubExecutor``.
@@ -44,8 +45,8 @@ import torch
 
 from . import checkpoint as _ckpt
 from .graph.autodiff import find_topo_sort
-from .graph.executor import (DataRanks, SubExecutor, _ExtraOutputs,
-                             _ParamView, feed_values)
+from .graph.executor import (SubExecutor, _ExtraOutputs, _ParamView,
+                             feed_values)
 from .graph.node import TraceContext, mix_seed
 from .graph.optim import OptimizerOp
 from .graph.ops_misc import PlaceholderOp
@@ -274,19 +275,9 @@ class PipelineSubExecutor:
         full = ex.full_values()
         opt_name = self.opt_op.name
         ostate = ex.full_opt_states()[opt_name]
-        dr = DataRanks(ex, mbs[0]) if ex.mesh is not None else None
-        ranks = dr.ranks if dr is not None else [0]
-        n = dr.n if dr is not None else 1
 
-        def seed(m, r):
-            parts = (ex.config.seed, ex._rng_seed, ex._runs, m)
-            return mix_seed(*parts) if n == 1 else mix_seed(*parts, r)
-
-        def rows(m, r):
-            return mbs[m] if dr is None else dr.rows_of(mbs[m], r)
-
-        def mean(vals):
-            return vals[0] if dr is None else dr.mean(vals)
+        def seed(m):
+            return mix_seed(ex.config.seed, ex._rng_seed, ex._runs, m)
 
         state = {k: full[k] for k in self.state_var_names}
 
@@ -297,22 +288,18 @@ class PipelineSubExecutor:
 
         if self.mode in ("gpipe", "1f1b"):
             if self.spmd:
-                loss, grads = self._stage_step(full, mbs, ranks, seed, rows,
-                                               mean)
+                loss, grads = self._stage_step(full, mbs, seed)
             else:
-                acc = {r: None for r in ranks}
+                acc = None
                 losses = []
                 for m in range(M):
-                    per = [self._loss_and_grads({**full, **state},
-                                                rows(m, r), seed(m, r))
-                           for r in ranks]
-                    losses.append(mean([p[0] for p in per]))
-                    for r, (_, g, _) in zip(ranks, per):
-                        acc[r] = g if acc[r] is None else \
-                            {k: acc[r][k] + g[k] for k in g}
-                    advance(mean_dicts(dr, [p[2] for p in per]))
-                grads = {k: mean([acc[r][k] for r in ranks]) / M
-                         for k in self.train_names}
+                    lm, g, extras = self._loss_and_grads(
+                        {**full, **state}, mbs[m], seed(m))
+                    losses.append(lm)
+                    acc = g if acc is None else \
+                        {k: acc[k] + g[k] for k in g}
+                    advance(extras)
+                grads = {k: acc[k] / M for k in self.train_names}
                 loss = torch.stack(losses).mean()
             tp, ostate = self._apply_opt(
                 {k: full[k] for k in self.train_names}, grads, ostate)
@@ -320,14 +307,11 @@ class PipelineSubExecutor:
             tp = {k: full[k] for k in self.train_names}
             losses = []
             for m in range(M):
-                per = [self._loss_and_grads({**full, **state, **tp},
-                                            rows(m, r), seed(m, r))
-                       for r in ranks]
-                losses.append(mean([p[0] for p in per]))
-                g = {k: mean([p[1][k] for p in per])
-                     for k in self.train_names}
+                lm, g, extras = self._loss_and_grads(
+                    {**full, **state, **tp}, mbs[m], seed(m))
+                losses.append(lm)
                 tp, ostate = self._apply_opt(tp, g, ostate)
-                advance(mean_dicts(dr, [p[2] for p in per]))
+                advance(extras)
             loss = torch.stack(losses).mean()
         full.update(state)
         full.update(tp)
@@ -347,7 +331,7 @@ class PipelineSubExecutor:
                 results.append(loss)
         return results
 
-    def _stage_step(self, full, mbs, ranks, seed, rows, mean):
+    def _stage_step(self, full, mbs, seed):
         """(mean loss, {name: gradient}) of the batch through the stage
         pipeline; on a DeviceMesh each rank's body gradients are its own
         stage's, summed over ``'pp'``."""
@@ -355,55 +339,41 @@ class PipelineSubExecutor:
         plan, M, S = self.plan, self.num_microbatches, self.num_stages
         virtual = isinstance(ex.mesh, VirtualMesh)
         local = range(S) if virtual else [ProcessComm(ex.mesh).index("pp")]
-        per_rank = []
-        for r in ranks:
-            leaves = {k: full[k].detach().requires_grad_(True)
-                      for k in self.train_names}
-            vals = {**full, **leaves}
+        leaves = {k: full[k].detach().requires_grad_(True)
+                  for k in self.train_names}
+        vals = {**full, **leaves}
 
-            def stage_fn(d, params, x, m, r=r):
-                tc = self._tc(params, seed(m, r))
-                out = self._trace_nodes(self.stage_nodes[d], params, {}, tc,
-                                        {id(self.stage_entry[d]): x})
-                return out[id(self.stage_exit[d])]
+        def stage_fn(d, params, x, m):
+            tc = self._tc(params, seed(m))
+            out = self._trace_nodes(self.stage_nodes[d], params, {}, tc,
+                                    {id(self.stage_entry[d]): x})
+            return out[id(self.stage_exit[d])]
 
-            per_stage = [{k: vals[k] for k in self.stage_params[d]}
-                         if d in local else None for d in range(S)]
-            with torch.enable_grad():
-                xs = []
-                for m in range(M):
-                    tc = self._tc(vals, seed(m, r))
-                    out = self._trace_nodes(plan.pre_nodes, vals, rows(m, r),
-                                            tc)
-                    xs.append(out[id(plan.body_entry)])
-                ys = run_stages(stage_fn, per_stage, torch.stack(xs),
-                                mesh=ex.mesh, axis="pp", schedule=self.mode)
-                losses = []
-                last = plan.body_blocks[-1].boundary_out
-                for m in range(M):
-                    tc = self._tc(vals, seed(m, r))
-                    out = self._trace_nodes(plan.post_nodes, vals,
-                                            rows(m, r), tc,
-                                            {id(last): ys[m]})
-                    losses.append(out[id(self.loss_node)].float())
-                loss = torch.stack(losses).mean()
-                got = torch.autograd.grad(loss, list(leaves.values()),
-                                          allow_unused=True)
-            grads = {k: torch.zeros_like(leaves[k]) if g is None else g
-                     for k, g in zip(leaves, got)}
-            if not virtual and S > 1:
-                comm = ProcessComm(ex.mesh)
-                for k in self.train_names:       # one order on every rank
-                    if k in self.body_names:
-                        grads[k] = comm.all_reduce(grads[k], "pp")
-            per_rank.append((loss.detach(), grads))
-        loss = mean([p[0] for p in per_rank])
-        return loss, {k: mean([p[1][k] for p in per_rank])
-                      for k in self.train_names}
-
-
-def mean_dicts(dr, per_rank):
-    """{name: mean over the data ranks} of per-rank state writes."""
-    if dr is None:
-        return per_rank[0]
-    return dr.mean_values(per_rank)
+        per_stage = [{k: vals[k] for k in self.stage_params[d]}
+                     if d in local else None for d in range(S)]
+        with torch.enable_grad():
+            xs = []
+            for m in range(M):
+                tc = self._tc(vals, seed(m))
+                out = self._trace_nodes(plan.pre_nodes, vals, mbs[m], tc)
+                xs.append(out[id(plan.body_entry)])
+            ys = run_stages(stage_fn, per_stage, torch.stack(xs),
+                            mesh=ex.mesh, axis="pp", schedule=self.mode)
+            losses = []
+            last = plan.body_blocks[-1].boundary_out
+            for m in range(M):
+                tc = self._tc(vals, seed(m))
+                out = self._trace_nodes(plan.post_nodes, vals, mbs[m], tc,
+                                        {id(last): ys[m]})
+                losses.append(out[id(self.loss_node)].float())
+            loss = torch.stack(losses).mean()
+            got = torch.autograd.grad(loss, list(leaves.values()),
+                                      allow_unused=True)
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                 for k, g in zip(leaves, got)}
+        if not virtual and S > 1:
+            comm = ProcessComm(ex.mesh)
+            for k in self.train_names:       # one order on every rank
+                if k in self.body_names:
+                    grads[k] = comm.all_reduce(grads[k], "pp")
+        return loss.detach(), grads

@@ -771,6 +771,10 @@ class PagedKVManager:
             partial = j == first_w and n % self.block != 0
             if not self._free:
                 self._evict_for(1)
+                if self.ref[b] <= 1:
+                    # the eviction dropped the prefix that shared it: the
+                    # slot owns the block alone and rewrites it in place
+                    continue
             if not self._free:
                 raise RuntimeError(
                     f"pool exhausted un-COWing rollback of slot {slot} "

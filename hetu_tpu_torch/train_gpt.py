@@ -21,7 +21,7 @@ becomes max(its size, 128)); random windows of it are the batches.
 Without it the task is the synthetic ``next = (3 * token + 7) % vocab``;
 batches and weights are drawn from seed 0.  ``--demo-generate N``
 continues a 3-token prompt greedily through full forwards
-(:func:`models.gpt.greedy_generate`) and through ``generate_fast``'s KV
+(:func:`models.gpt_module.greedy_generate_module`) and through ``generate_fast``'s KV
 cache, and logs whether they agree (``match=``).  Flash
 attention (K2 forward, K3 backward) runs from ``--seq-len`` 1024, as the
 JAX package's auto rule has it, or with ``--use-flash``.  Runs on the card unless ``--device
@@ -93,7 +93,7 @@ def build(args):
     stream reads ``--data-path`` when it names a file."""
     from .executor import Executor
     from .models import GPTConfig
-    from .models.gpt import GPTForCausalLM
+    from .models.gpt_module import GPTForCausalLMModule
     from .optimizer import AdamWOptimizer
 
     make = GPTConfig.medium if args.config == "medium" else GPTConfig.small
@@ -114,7 +114,7 @@ def build(args):
     opt = AdamWOptimizer(learning_rate=args.learning_rate, weight_decay=0.01)
     if args.clip_grad_norm > 0:
         opt.clip_grad_norm = args.clip_grad_norm
-    ex = Executor(GPTForCausalLM(cfg, seed=0), opt,
+    ex = Executor(GPTForCausalLMModule(cfg, seed=0), opt,
                   mixed_precision=args.mixed_precision, device=args.device)
     rng = np.random.RandomState(0)
     if corpus is not None:
@@ -134,11 +134,11 @@ def demo_generate(ex, cfg, num_tokens):
     """Greedy continuations of the prompt [1, 2, 3] through full
     forwards and through ``generate_fast``: (greedy, fast) token lists,
     prompt included."""
-    from .models.gpt import greedy_generate
+    from .models.gpt_module import greedy_generate_module
     from .models.gpt_decode import generate_fast
     prompt = [int(t) % cfg.vocab_size for t in (1, 2, 3)]
     n = min(num_tokens, cfg.seq_len - len(prompt))
-    seq = greedy_generate(ex, prompt, n, cfg.seq_len)
+    seq = greedy_generate_module(ex, prompt, n, cfg.seq_len)
     fast = generate_fast(ex.var_values, cfg, prompt, num_tokens=n,
                          device=ex.device)
     return seq, fast[0].tolist()

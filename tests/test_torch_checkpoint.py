@@ -36,7 +36,7 @@ from hetu_tpu_torch import checkpoint as tck
 from hetu_tpu_torch import lr_scheduler as tlr
 from hetu_tpu_torch import optimizer as topt
 from hetu_tpu_torch.executor import Executor as TExecutor
-from hetu_tpu_torch.models.gpt import GPTForCausalLM as TGPT
+from hetu_tpu_torch.models.gpt_module import GPTForCausalLMModule as TGPT
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_train import _batch, _jax_gpt, _tiny_cfg  # noqa: E402

@@ -435,7 +435,8 @@ COMM_NAMES = {"allreduceCommunicate_op", "allreduceCommunicatep2p_op",
               "reducescatterCommunicate_op", "broadcastCommunicate_op",
               "reduceCommunicate_op", "pipeline_send_op",
               "pipeline_receive_op", "parameterServerCommunicate_op",
-              "parameterServerSparsePull_op", "datah2d_op", "datad2h_op"}
+              "parameterServerSparsePull_op", "datah2d_op", "datad2h_op",
+              "quantized_allreduce_op"}
 EXTRA_NAMES |= COMM_NAMES | {"dist"}
 
 

@@ -42,13 +42,16 @@ def test_no_jax_or_hetu_tpu_import_in_the_port():
 
 
 def test_the_parallel_modules_are_scanned():
-    """The pipeline, strategy, collective and shard-check modules are
-    among the sources the scan above reads."""
+    """The pipeline, strategy, collective, collective-check and
+    shard-check modules, the graph GPT, the ``nn.Module`` GPT and
+    ``serve_gpt`` are among the sources the scan above reads."""
     scanned = {p.relative_to(ROOT).as_posix() for p in _sources()}
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/partition.py", "parallel/pipeline.py",
                 "parallel/distributed_strategies.py",
                 "parallel/collectives.py", "parallel/sharding.py",
                 "pipeline_executor.py", "graph/ops_comm.py",
-                "analysis/shard_check.py"):
+                "analysis/shard_check.py", "parallel/collective_check.py",
+                "models/gpt.py", "models/gpt_module.py", "serve_gpt.py",
+                "quant.py"):
         assert f"hetu_tpu_torch/{rel}" in scanned, rel

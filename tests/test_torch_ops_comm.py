@@ -130,8 +130,11 @@ def test_ps_ops_raise_a10():
         tht.parameterServerCommunicate_op(x)
     with pytest.raises(NotImplementedError, match="A10"):
         tht.parameterServerSparsePull_op(x, x)
-    with pytest.raises(NotImplementedError, match="A9b item 2"):
+    # the int8 trio is no longer refused: it needs the gradient's shape
+    with pytest.raises(ValueError, match="needs the gradient shape"):
         tops.quantized_allreduce_op(x)
+    assert isinstance(tops.quantized_allreduce_op(x, shape=(4, 4)),
+                      tops.DequantizeCommOp)
 
 
 # ------------------------------------------------------------------- #

@@ -9,15 +9,18 @@ fixed-weight MLP of tests/test_all_layouts.py:
   name; each virtual rank's stored shard has the spec's shape; Adam on
   the composed layout; the eval subgraph on the same layout;
 - ``ShardingPlan``'s typo ``KeyError`` and no-mesh ``ValueError``;
-  ``DataParallel(aggregate="int8")`` and ``$HETU_COMM_QUANT=int8`` raise
-  (A9b item 2);
+  ``DataParallel(aggregate="int8")`` splices the int8 trio, and an
+  unknown ``$HETU_COMM_QUANT`` mode raises;
 - one gloo world of four processes (a ``DeviceMesh``; its own gloo
   timeout and join timeout, killed past it) running DataParallel dp 4,
   FSDP dp 4, ShardingPlan dp 2 x tp 2 and ``Executor(pipeline=
   "gpipe"/"1f1b")`` over ``{"pp": 4}`` with the stage boundaries sent
   between the processes, each held to JAX's single-device trajectory,
-  and every comm op in the per-rank view over the process groups, held
-  rank by rank to JAX's under ``shard_map``.
+  DataParallel dp 4 on a BatchNorm MLP and on tiny BERT pretraining,
+  every process evaluating the global batch (JAX's single-device step,
+  running statistics included), and every comm op in the per-rank view
+  over the process groups, held rank by rank to JAX's under
+  ``shard_map``.
 """
 
 import os
@@ -33,8 +36,11 @@ from jax.sharding import PartitionSpec as P
 
 import hetu_tpu as jht
 import hetu_tpu_torch.graph as tht
+from hetu_tpu import models as jmodels
 from hetu_tpu_torch.parallel import mesh as tmesh
 from hetu_tpu_torch.parallel.sharding import rank_pieces
+from test_torch_data_parallel import (BERT_CFG, BERT_FEEDS, bert_batch,
+                                      build_bert, mlp, mlp_batch)
 
 REPO = Path(__file__).resolve().parent.parent
 BATCH, IN, HID, OUT = 16, 8, 32, 4
@@ -200,11 +206,15 @@ def test_refusals(monkeypatch):
     with pytest.raises(ValueError, match="needs a mesh"):
         tht.Executor({"train": [loss, train]}, device="cpu",
                      dist_strategy=tht.dist.ShardingPlan(TP))
-    with pytest.raises(NotImplementedError, match="A9b item 2"):
-        tht.Executor({"train": [loss, train]}, device="cpu",
-                     dist_strategy=tht.dist.DataParallel(aggregate="int8"))
-    monkeypatch.setenv("HETU_COMM_QUANT", "int8")
-    with pytest.raises(NotImplementedError, match="A9b item 2"):
+    # the int8 aggregation is no longer refused: it splices the trio
+    ex = tht.Executor({"train": [loss, train]}, device="cpu",
+                      dist_strategy=tht.dist.DataParallel(aggregate="int8"))
+    assert all(type(g).__name__ == "DequantizeCommOp" for g in train.inputs)
+    assert ex.mesh.shape == {"dp": 1}
+    # an unknown mode of the knob is
+    monkeypatch.setenv("HETU_COMM_QUANT", "int4")
+    x, y, loss, train = build_mlp(tht)
+    with pytest.raises(ValueError, match="unknown quantization mode"):
         tht.Executor({"train": [loss, train]}, device="cpu",
                      dist_strategy=tht.dist.DataParallel())
 
@@ -314,15 +324,52 @@ _WORKER = textwrap.dedent('''
             lambda comm, b: node.compute([b], TraceContext(comm=comm)),
             mesh, (torch.from_numpy(x),)).numpy()
         res["ops/" + name + "/at"] = np.array(list(c.values()))
+    # the global-batch step: BatchNorm's moments over the whole batch,
+    # and BERT pretraining's masked mean over every row's labels
+    def bnmlp():
+        x, y = ht.placeholder_op("x"), ht.placeholder_op("y")
+        h = ht.linear_op(x, ht.init.xavier_uniform((IN, 32), name="bn_in_w"),
+                         ht.init.zeros((32,), name="bn_in_b"))
+        h = ht.layers.BatchNorm(32, name="bn0")(h)
+        logits = ht.matmul_op(h, ht.init.xavier_uniform((32, OUT),
+                                                        name="bn_head"))
+        loss = ht.reduce_mean_op(ht.softmaxcrossentropy_op(logits, y),
+                                 axes=0)
+        return x, y, loss, ht.optim.SGDOptimizer(
+            learning_rate=0.1).minimize(loss)
+
+    ex = run("bn", bnmlp, "bn/", dist_strategy=ht.dist.DataParallel())
+    res["bn/final"] = ex.return_tensor_values()
+    from hetu_tpu_torch import models
+    bcfg = {bert_cfg}
+    phs = [ht.placeholder_op(n) for n in {bert_feeds}]
+    loss, _, _ = models.BertForPreTraining(models.BertConfig(
+        batch_size=d["bert/ids"].shape[0], **bcfg))(*phs)
+    train = ht.optim.SGDOptimizer(learning_rate=0.05).minimize(loss)
+    ex = ht.Executor({{"train": [loss, train]}}, device="cpu",
+                     dist_strategy=ht.dist.DataParallel())
+    ex.load_dict({{k[5:]: v for k, v in d.items()
+                  if k.startswith("bert/") and k[5:] not in {bert_feeds}}})
+    feeds = {{p: d["bert/" + n] for p, n in zip(phs, {bert_feeds})}}
+    res["bert"] = np.array([float(ex.run("train", feed_dict=feeds)[0])
+                            for _ in range(2)])
+    res["bert/final"] = ex.return_tensor_values()
     for mode in ("gpipe", "1f1b"):
         ex = run(mode, resmlp, "res/", pipeline=mode,
                  mesh=make_mesh({{"pp": world}}), num_microbatches=4)
         assert ex.subexecutor["train"].spmd
         res[mode + "/final"] = ex.return_tensor_values()["l3_w2"]
-    np.savez(out, **res)
+    flat = {{}}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            flat.update({{k + "/" + n: a for n, a in v.items()}})
+        else:
+            flat[k] = v
+    np.savez(out, **flat)
     dist.barrier()
     dist.destroy_process_group()
-''').format(gloo_timeout=GLOO_TIMEOUT_S)
+''').format(gloo_timeout=GLOO_TIMEOUT_S, bert_cfg=repr(BERT_CFG),
+           bert_feeds=repr(BERT_FEEDS))
 
 
 OPS_X = np.random.RandomState(1).randn(2, 2, 4, 3).astype(np.float32)
@@ -343,8 +390,27 @@ def gloo_world(tmp_path_factory, baseline):
     rb = res_batches(4)
     rbase = traj(jex, x, y, rb)
     rfinal = jex.return_tensor_values()["l3_w2"]
+    global_batch = {}
+    x, y, loss, train = mlp(jht)
+    jex = jht.Executor({"train": [loss, train]})
+    data = {f"bn/{k}": v for k, v in jex.return_tensor_values().items()}
+    xb, yb = mlp_batch()
+    data.update({"bn/x": np.stack([xb, xb]), "bn/y": np.stack([yb, yb]),
+                 "bn_n": np.array(2)})
+    global_batch["bn"] = (traj(jex, x, y, [(xb, yb)] * 2),
+                          jex.return_tensor_values())
+    arrays = bert_batch(4)
+    phs, loss, train = build_bert(jht, jmodels, 4)
+    jex = jht.Executor({"train": [loss, train]})
+    data.update({f"bert/{k}": v for k, v in
+                 jex.return_tensor_values().items()})
+    data.update({f"bert/{n}": a for n, a in zip(BERT_FEEDS, arrays)})
+    feeds = dict(zip(phs, arrays))
+    global_batch["bert"] = (
+        [float(np.asarray(jex.run("train", feed_dict=feeds)[0]))
+         for _ in range(2)], jex.return_tensor_values())
     tmp = tmp_path_factory.mktemp("gloo")
-    data = {f"mlp/{k}": v for k, v in w0.items()}
+    data.update({f"mlp/{k}": v for k, v in w0.items()})
     data.update({f"res/{k}": v for k, v in rw0.items()})
     data.update({"mlp/x": np.stack([a for a, _ in batches]),
                  "mlp/y": np.stack([b for _, b in batches]),
@@ -376,7 +442,7 @@ def gloo_world(tmp_path_factory, baseline):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
     ranks = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
     return dict(ranks=ranks, base=base, rbase=rbase, rfinal=rfinal,
-                w0=w0, batches=batches)
+                w0=w0, batches=batches, global_batch=global_batch)
 
 
 @pytest.mark.parametrize("tag", ["dp4", "fsdp4", "dp2tp2"])
@@ -396,6 +462,19 @@ def test_distributed_layouts_match_jax(gloo_world, tag):
     if tag == "dp2tp2":
         assert all(tuple(r["dp2tp2/fc1"]) == (IN, HID // 2)
                    for r in gloo_world["ranks"])
+
+
+@pytest.mark.parametrize("case", ["bn", "bert"])
+def test_distributed_global_batch_matches_jax(gloo_world, case):
+    """DataParallel dp 4 over the gloo world: every process evaluates the
+    global batch, so the BatchNorm MLP (running statistics included) and
+    tiny BERT pretraining (B 4) equal JAX's single-device step."""
+    losses, final = gloo_world["global_batch"][case]
+    for r in gloo_world["ranks"]:
+        np.testing.assert_allclose(r[case], losses, rtol=1e-5, atol=TOL)
+        for k, v in final.items():
+            np.testing.assert_allclose(r[f"{case}/final/{k}"], v, atol=TOL,
+                                       err_msg=k)
 
 
 @pytest.mark.parametrize("mode", ["gpipe", "1f1b"])

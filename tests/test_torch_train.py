@@ -50,7 +50,7 @@ from hetu_tpu_torch import optimizer as topt
 from hetu_tpu_torch import train_gpt
 from hetu_tpu_torch.executor import Executor as TExecutor
 from hetu_tpu_torch.models import GPTConfig as TGPTConfig
-from hetu_tpu_torch.models.gpt import GPTForCausalLM as TGPT
+from hetu_tpu_torch.models.gpt_module import GPTForCausalLMModule as TGPT
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
