@@ -338,6 +338,29 @@ non-zero and prints no result line):
    ``generate_fast`` on four requests; ``serve_gpt``'s tiny model trained
    on the graph and served with and without ``spec=3``, the tokens
    equal.
+17. Expert parallelism.  17a: phase 10's MoE GPT placed by
+   ``ep_shard_params`` over ``make_mesh({"ep": 4})`` (a virtual mesh on
+   the card; each rank's view holds a quarter of every expert stack)
+   through the paged mixed engine on phase 4's requests, f32: exactly
+   layers x steps K1 launches, every expert product run on one expert
+   of four; greedy tokens equal phase 10's unsharded engine's, or first
+   differ where the exact top-2 margin is at most 2 delta (delta the
+   largest |placed - whole| teacher-forced logit over the sequence);
+   expert load and drop equal phase 10's when the tokens are; the
+   placed ``moe_ffn`` within 1e-6 relative of the whole on the run's
+   first prompt wave; tok/s.  Then a one-rank NCCL ``DeviceMesh``:
+   ``ProcessComm.all_to_all`` (f32 and int8), the placed ``moe_ffn`` and
+   ``moe_ffn_ep_reference`` bit-equal to the virtual mesh's.  17b:
+   ``moe_ffn_ep_reference`` at phase 10's widths, T 1024 tokens, virtual
+   ep 4, capacity 8.0: f32 within 1e-4 of ``moe_ffn`` (JAX's bound); the
+   int8 wire's bytes beside f32's, its error within ``EP_INT8_BOUND``
+   of the output's largest |y|.  17c: ``train_gcn`` at Cora's published
+   widths (2708 nodes, 1433 features, hidden 16, 7 classes) on an
+   ``sbm_graph`` from the seed: 60 Adam epochs, the loss falling; the
+   per-rank 1.5-D layer over a virtual dp 2 x tp 2 (on the trained
+   first-layer weight) within 1e-5 + 1e-5 |z| of the whole-value
+   executor's; three SGD steps over the mesh equal to the plain
+   executor's.
 
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
@@ -2882,7 +2905,8 @@ def phase10(torch, htt, seed, spec, prompts, dense, card):
     int8 cache, a binding capacity and the dense oracle, each held to
     the checks the docstring lists.  ``dense``: phases 4-5's
     {(config, dtype): (results, launches, stats)} of the dense model on
-    the same requests."""
+    the same requests.  Returns (params, config, the paged mixed f32
+    run) for phase 17."""
     from hetu_tpu_torch.models import moe_decode as md
     from hetu_tpu_torch.models.gpt_decode import teacher_forced_logits
     t10 = time.perf_counter()
@@ -3022,6 +3046,7 @@ def phase10(torch, htt, seed, spec, prompts, dense, card):
             f"imbalance {st['expert_imbalance']:.4f}, drop rate "
             f"{st['expert_drop_rate']:.4f}")
     log(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
+    return params, cfg, runs["paged-mixed", "float32"]
 
 
 # ---------------------------------------------------------------- #
@@ -5074,6 +5099,352 @@ def phase16(torch, seed, card, train_runs):
     return counts
 
 
+# ---------------------------------------------------------------- #
+# phase 17: expert parallelism
+# ---------------------------------------------------------------- #
+
+EP17 = dict(ep=4, tokens=1024, cf=8.0)
+# 17a: the placed moe_ffn against the whole on one prompt wave, relative
+# to the wave's largest |y|: the same kernels on the same values, but
+# cuBLAS may pick another algorithm for a batch of one expert than for
+# four, so the card is held to this bound, not to bit equality
+EP_WAVE_RTOL = 1e-6
+# 17b: the int8 wire against f32, relative to max |y|: each of the two
+# hops decodes an element within its row's amax / 254, so one step of
+# the codec a hop at the scale of the output (2 / 127) bounds it
+EP_INT8_BOUND = 2 / 127
+# 17c: Cora's published widths (Kipf & Welling, ICLR 2017)
+GCN17 = dict(nodes=2708, feat=1433, hidden=16, classes=7, epochs=60,
+             sgd_steps=3, lr=0.1)
+# the per-rank layer against the whole-value one: the same f32 products
+# summed in another order (A @ H in two column blocks, then the sum)
+GCN17_TOL = (1e-5, 1e-5)
+
+
+@contextlib.contextmanager
+def expert_batches(md):
+    """Record the expert count of every ``_experts`` product (each
+    rank's batch of experts) while the block runs."""
+    inner = md._experts
+    seen = collections.Counter()
+
+    def counted(xe, w1, *a):
+        seen[int(w1.shape[0])] += 1
+        return inner(xe, w1, *a)
+
+    md._experts = counted
+    try:
+        yield seen
+    finally:
+        md._experts = inner
+
+
+@contextlib.contextmanager
+def first_moe_call(gd):
+    """Keep the arguments of the serving cores' first ``moe_ffn`` call."""
+    inner = gd.moe_ffn
+    kept = []
+
+    def keep(*a, **kw):
+        if not kept:
+            kept.append((a, dict(kw, stats=None)))
+        return inner(*a, **kw)
+
+    gd.moe_ffn = keep
+    try:
+        yield kept
+    finally:
+        gd.moe_ffn = inner
+
+
+def ep_gate(torch, params, placed, cfg, want, got, prompt_len):
+    """17a's token gate: identical greedy tokens, or a first difference
+    at a position whose exact top-2 margin is at most 2 delta, delta the
+    largest |placed - whole| teacher-forced logit over the sequence.
+    Returns None or (position, margin, delta)."""
+    from hetu_tpu_torch.models.gpt_decode import teacher_forced_logits
+    want, got = list(want), list(got)
+    if want == got:
+        return None
+    t = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    seq = np.asarray(want[:-1], np.int64)
+    exact = teacher_forced_logits(params, cfg, seq, dtype=torch.float32)
+    ep = teacher_forced_logits(placed, cfg, seq, dtype=torch.float32)
+    delta = float((ep - exact).abs().max())
+    top2 = torch.topk(exact[t - 1], 2).values
+    margin = float(top2[0] - top2[1])
+    if t < prompt_len or margin > 2 * delta:
+        fail(f"17a: ep-placed greedy tokens first differ at position {t} "
+             f"(prompt {prompt_len}), exact top-2 margin {margin:.4e} > "
+             f"2 delta = {2 * delta:.4e}")
+    return t, margin, delta
+
+
+def phase17a(torch, htt, spec, moe10, card):
+    """17a: phase 10's MoE GPT over a virtual ep 4 through the paged
+    mixed engine, then a one-rank NCCL DeviceMesh.  Returns the engine's
+    launches."""
+    from hetu_tpu_torch.models import gpt_decode as gd
+    from hetu_tpu_torch.models import moe_decode as md
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.sharding import rank_pieces
+    params, cfg, (res10, _, st10) = moe10
+    n, E = EP17["ep"], cfg.num_experts
+    mesh = make_mesh({"ep": n}, device=params["gpt_wte_table"].device)
+    placed = md.ep_shard_params(params, mesh, cfg, name="gpt")
+    stacks = [k for k in placed if "_moe_expert_stack_" in k]
+    for k in stacks:
+        v = placed[k]
+        views = rank_pieces(v, ("ep",) + (None,) * (v.dim() - 1), mesh)
+        if md.expert_placement(v) != (mesh, "ep") or len(views) != n or any(
+                q.shape[0] * n != v.shape[0] for q in views):
+            fail(f"17a: {k} is not split over ep {n}")
+    if any(md.expert_placement(v) is not None
+           for k, v in placed.items() if k not in stacks):
+        fail("17a: a parameter other than the expert stacks is placed")
+    with expert_batches(md) as seen, first_moe_call(gd) as kept:
+        res, counts, st = serve(torch, htt, placed, cfg, spec, "float32",
+                                "paged-mixed")
+    if set(seen) != {E // n}:
+        fail(f"17a: expert products ran on {dict(seen)} experts, want "
+             f"{E // n} each")
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    gates = [ep_gate(torch, params, placed, cfg, res10[f"r{i}"].tokens,
+                     res[f"r{i}"].tokens, len(spec[i][0])) for i in greedy]
+    same = all(g is None for g in gates)
+    if same and (st["expert_load"] != st10["expert_load"]
+                 or st["expert_drops"] != st10["expert_drops"]):
+        fail(f"17a: load {st['expert_load']} drops {st['expert_drops']} "
+             f"differ from phase 10's {st10['expert_load']} "
+             f"{st10['expert_drops']} on the same tokens")
+    (a, kw), = kept
+    x, us = a[2], a[1]
+    y_ep = md.moe_ffn(placed, us, x, *a[3:], **kw)
+    y = md.moe_ffn(params, us, x, *a[3:], **kw)
+    wave_err = float((y_ep - y).abs().max() / y.abs().max())
+    if not wave_err <= EP_WAVE_RTOL:
+        fail(f"17a: placed moe_ffn on the first prompt wave {wave_err:.3e} "
+             f"of max |y| from the whole > {EP_WAVE_RTOL}")
+    log(f"  17a on {card}: ep {n} (VirtualMesh on the card), each rank's "
+        f"view a quarter of {len(stacks)} stacks; {seen[E // n]} expert "
+        f"products of {E // n} expert(s); greedy tokens == phase 10's for "
+        f"{sum(g is None for g in gates)} of {len(greedy)} requests, the "
+        f"rest within the gate (position, margin, delta): "
+        f"{[g for g in gates if g is not None]}; load {st['expert_load']} "
+        f"drops {st['expert_drops']} ({'==' if same else 'vs'} phase 10's "
+        f"{st10['expert_load']} {st10['expert_drops']}); first prompt wave "
+        f"({x.shape[0]} positions, {us}) placed vs whole {wave_err:.3e} of "
+        f"max |y|; {st['tokens_per_s']:.1f} tok/s (unsharded "
+        f"{st10['tokens_per_s']:.1f}), TTFT p50 {st['ttft_p50_ms']:.1f} "
+        f"ms; K1 launches {counts['ragged_paged_attention']}")
+    del placed
+    nccl17(torch, params, cfg, card)
+    return counts
+
+
+def nccl17(torch, params, cfg, card):
+    """17a's one-rank NCCL world: ProcessComm.all_to_all (f32, int8), the
+    placed moe_ffn and moe_ffn_ep_reference equal the virtual mesh's."""
+    import torch.distributed as dist
+    from hetu_tpu_torch.models import moe_decode as md
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.collectives import (ProcessComm,
+                                                     run_per_rank)
+    spec = md.moe_spec_of(cfg)._replace(capacity_factor=EP17["cf"])
+    dev = params["gpt_wte_table"].device
+    g = torch.Generator(dev).manual_seed(17)
+    x = torch.randn(256, cfg.hidden_size, device=dev, generator=g)
+    us = "gpt_h1"
+    virtual = make_mesh({"ep": 1}, device=dev)
+    want = {"moe_ffn": md.moe_ffn(params, us, x, spec)}
+    for q in (None, "int8"):
+        want[f"ref {q}"] = md.moe_ffn_ep_reference(params, us, x, spec,
+                                                   virtual, quant=q)
+    blocks = torch.randn(4, 6, cfg.hidden_size, device=dev, generator=g)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke17_")
+    try:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh({"ep": 1})
+            if type(mesh).__name__ != "DeviceMesh":
+                fail(f"17a: make_mesh under torch.distributed gave "
+                     f"{type(mesh).__name__}")
+            comm = ProcessComm(mesh)
+            for t in (blocks, blocks.to(torch.int8)):
+                got = comm.all_to_all(t, "ep", 0, 1)
+                ref = run_per_rank(lambda c, b: c.all_to_all(b, "ep", 0, 1),
+                                   virtual, [(t,)])[0]
+                if got.dtype != t.dtype or not torch.equal(got, ref):
+                    fail(f"17a: NCCL all_to_all of {t.dtype} differs from "
+                         f"the virtual one")
+            placed = md.ep_shard_params(params, mesh, cfg, name="gpt")
+            got = {"moe_ffn": md.moe_ffn(placed, us, x, spec)}
+            for q in (None, "int8"):
+                got[f"ref {q}"] = md.moe_ffn_ep_reference(
+                    placed, us, x, spec, mesh, quant=q)
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            if bad:
+                fail(f"17a: over the one-rank NCCL mesh {bad} differ from "
+                     f"the virtual mesh's")
+            del placed
+            log(f"  17a on {card}: one-rank NCCL DeviceMesh "
+                f"{mesh.mesh_dim_names}: all_to_all f32 and int8, the "
+                f"placed moe_ffn and moe_ffn_ep_reference (f32, int8 wire) "
+                f"on {x.shape[0]} tokens bit-equal to the virtual mesh's")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase17b(torch, params, cfg, card):
+    """17b: moe_ffn_ep_reference at phase 10's widths over a virtual ep
+    4, f32 against moe_ffn, and the int8 wire's bytes and error."""
+    from hetu_tpu_torch.models import moe_decode as md
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.collectives import VirtualComm
+    spec = md.moe_spec_of(cfg)._replace(capacity_factor=EP17["cf"],
+                                        ep_axis="ep")
+    dev = params["gpt_wte_table"].device
+    mesh = make_mesh({"ep": EP17["ep"]}, device=dev)
+    placed = md.ep_shard_params(params, mesh, cfg, name="gpt")
+    g = torch.Generator(dev).manual_seed(171)
+    x = torch.randn(EP17["tokens"], cfg.hidden_size, device=dev,
+                    generator=g)
+    us = "gpt_h1"
+    inner = VirtualComm.all_to_all
+    wire = collections.Counter()
+
+    def counted(self, t, *a):
+        wire[str(t.dtype).replace("torch.", "")] += t.numel() * \
+            t.element_size()
+        return inner(self, t, *a)
+
+    y = md.moe_ffn(params, us, x, spec)
+    out, ms = {}, {}
+    VirtualComm.all_to_all = counted
+    try:
+        for q in (None, "int8"):
+            wire.clear()
+            out[q] = md.moe_ffn_ep_reference(placed, us, x, spec, mesh,
+                                             quant=q)
+            out[q, "wire"] = dict(wire)
+            ms[q] = time_ms(torch, lambda q=q: md.moe_ffn_ep_reference(
+                placed, us, x, spec, mesh, quant=q), reps=5, warm=1)
+    finally:
+        VirtualComm.all_to_all = inner
+    ms["moe_ffn"] = time_ms(torch, lambda: md.moe_ffn(placed, us, x, spec),
+                            reps=5, warm=1)
+    ymax = float(y.abs().max())
+    err32 = float((out[None] - y).abs().max())
+    err8 = float((out["int8"] - y).abs().max())
+    if not err32 <= 1e-4:
+        fail(f"17b: f32 moe_ffn_ep_reference {err32:.3e} from moe_ffn "
+             f"> 1e-4")
+    if not err8 <= EP_INT8_BOUND * ymax or not err8 < 0.2:
+        fail(f"17b: int8 wire {err8:.3e} from moe_ffn > "
+             f"{EP_INT8_BOUND:.4f} x max |y| {ymax:.4f}")
+    b32, b8 = sum(out[None, "wire"].values()), sum(out["int8", "wire"]
+                                                    .values())
+    if set(out["int8", "wire"]) != {"int8", "float32"}:
+        fail(f"17b: the int8 wire carried {out['int8', 'wire']}")
+    log(f"  17b on {card}: moe_ffn_ep_reference, {EP17['tokens']} tokens "
+        f"x {cfg.hidden_size}, ep {EP17['ep']}, capacity {EP17['cf']}: f32 "
+        f"{err32:.3e} from moe_ffn (<= 1e-4); int8 wire {err8:.3e} = "
+        f"{err8 / ymax:.4e} of max |y| {ymax:.4f} (bound "
+        f"{EP_INT8_BOUND:.4e}); bytes into the two all-to-all hops of all "
+        f"ranks: f32 {b32}, int8 {out['int8', 'wire']} = {b8} "
+        f"({b32 / b8:.2f}x fewer); {ms[None]:.3f} ms f32, "
+        f"{ms['int8']:.3f} ms int8, the placed moe_ffn {ms['moe_ffn']:.3f} "
+        f"ms (CUDA-event medians, host time included)")
+
+
+def phase17c(torch, seed, card):
+    """17c: train_gcn at Cora's widths, the per-rank 1.5-D layer, three
+    SGD steps over a mesh."""
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import train_gcn
+    from hetu_tpu_torch.graph.node import TraceContext
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.collectives import run_per_rank
+    c = GCN17
+    t0 = time.perf_counter()
+    run = train_gcn.run(["--nodes", str(c["nodes"]), "--feat-dim",
+                         str(c["feat"]), "--hidden", str(c["hidden"]),
+                         "--classes", str(c["classes"]), "--epochs",
+                         str(c["epochs"])])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    losses = run["losses"]
+    if not (np.isfinite(losses).all() and falling(losses, 10)):
+        fail(f"17c: train_gcn's loss does not fall: {losses[:3]} .. "
+             f"{losses[-3:]}")
+    ex, data = run["executor"], run["data"]
+    adj, feat = data["adj"], data["feat"]
+    w1 = ex.return_tensor_values()["gcn_w1"]
+    a, h = ht.placeholder_op("adj"), ht.placeholder_op("feat")
+    z = ht.distgcn_15d_op(a, h, ht.Variable("gcn17_w", value=w1))
+    mesh = make_mesh({"dp": 2, "tp": 2})
+    (whole,) = ht.Executor([z], mesh=mesh).run(feed_dict={a: adj, h: feat})
+    dev = whole.device
+    A = torch.from_numpy(adj).to(dev)
+    H = torch.from_numpy(feat).to(dev)
+    W = torch.from_numpy(w1).to(dev)
+    blocks = [(A.chunk(2)[i].chunk(2, dim=1)[j], H.chunk(2)[j])
+              for i in range(2) for j in range(2)]
+    outs = run_per_rank(lambda comm, ab, hb: z.compute(
+        [ab, hb, W], TraceContext(device=dev, comm=comm)), mesh, blocks)
+    per_rank = torch.cat([outs[0], outs[2]])
+    err = float((per_rank - whole).abs().max())
+    atol, rtol = GCN17_TOL
+    if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[2], outs[3])
+            and bool(((per_rank - whole).abs()
+                      <= atol + rtol * whole.abs()).all())):
+        fail(f"17c: the per-rank 1.5-D layer is {err:.3e} from the "
+             f"whole-value executor's (or a row's tp ranks differ)")
+    traj = {}
+    for key, m in (("plain", None), ("mesh", mesh)):
+        phs, _, loss, train = train_gcn.build_gcn(
+            c["feat"], c["hidden"], c["classes"],
+            ht.optim.SGDOptimizer(learning_rate=c["lr"]))
+        sex = ht.Executor({"train": [loss, train]}, seed=seed, mesh=m)
+        if key == "plain":
+            w0 = sex.return_tensor_values()
+        else:
+            sex.load_dict(w0)
+        fd = dict(zip(phs, data.values()))
+        traj[key] = [float(sex.run("train", feed_dict=fd)[0])
+                     for _ in range(c["sgd_steps"])]
+    if traj["mesh"] != traj["plain"]:
+        fail(f"17c: SGD over dp 2 x tp 2 {traj['mesh']} != plain "
+             f"{traj['plain']}")
+    log(f"  17c on {card}: train_gcn at Cora's widths ({c['nodes']} nodes, "
+        f"{c['feat']} features, hidden {c['hidden']}, {c['classes']} "
+        f"classes), {c['epochs']} Adam epochs in {sec:.2f} s "
+        f"({sec / c['epochs'] * 1e3:.2f} ms an epoch, evaluations "
+        f"included): loss {losses[0]:.4f} -> {losses[-1]:.4f}, held-out "
+        f"accuracy {run['accuracy']:.3f}; the per-rank 1.5-D layer over a "
+        f"virtual dp 2 x tp 2 {err:.3e} from the whole-value executor's "
+        f"(max |z| {float(whole.abs().max()):.4f}; 1e-5 + 1e-5 |z|); "
+        f"{c['sgd_steps']} SGD steps over the mesh == plain "
+        f"({traj['plain']})")
+
+
+def phase17(torch, htt, seed, spec, moe10, card):
+    """Phase 17: 17a, 17b, 17c.  ``moe10``: phase 10's (params, config,
+    paged-mixed f32 run).  Returns 17a's launches."""
+    t17 = time.perf_counter()
+    counts = phase17a(torch, htt, spec, moe10, card)
+    phase17b(torch, moe10[0], moe10[1], card)
+    phase17c(torch, seed, card)
+    torch.cuda.empty_cache()
+    log(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
+    return counts
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -5258,7 +5629,7 @@ def main(argv=None):
     # ---- phase 10 ---- #
     log("phase 10: MoE serving: the MoE GPT at GPT-2-small width through "
         "generate_fast and the engines")
-    phase10(torch, htt, args.seed, spec, prompts, runs, card)
+    moe10 = phase10(torch, htt, args.seed, spec, prompts, runs, card)
 
     # ---- phase 11 ---- #
     log("phase 11: the serving fleet: two replicas of phase 4's engine "
@@ -5299,6 +5670,14 @@ def main(argv=None):
         "trainer, greedy_generate vs generate_fast, the engine over the "
         "graph-trained weights, serve_gpt")
     counts16 = phase16(torch, args.seed, card, train_runs)
+
+    # ---- phase 17 ---- #
+    log("phase 17: expert parallelism: phase 10's MoE GPT over a virtual "
+        "ep 4 through the paged mixed engine and a one-rank NCCL mesh, "
+        "moe_ffn_ep_reference with the int8 wire, train_gcn at Cora's "
+        "widths with the 1.5-D layer")
+    counts17 = phase17(torch, htt, args.seed, spec, moe10, card)
+    del moe10
 
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
@@ -5503,6 +5882,19 @@ def main(argv=None):
                 max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                 library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    # K1 on its mixed (Q 256) and decode (Q 1) waves: launches from 17a's
+    # ep-placed engine (f32), the numbers phase 2's
+    for k, wave in (("K1", None), ("K1 decode", "decode")):
+        r = kres[k]["float32"]
+        kernels.append(dict(
+            name=(f"ragged_paged_attention[float32, 17a ep 4"
+                  f"{', decode Q 1' if wave else ''}]"), route="cuda",
+            source=src + (k1n if wave else k1)[0], replaces=r1,
+            launches=counts17["ragged_paged_attention:"
+                              + ("narrow" if wave else "wide")],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -96,7 +96,7 @@ def validate_serving(params, config, name, mesh=None):
         # count the config declares — a per-expert leaf with the wrong
         # leading dim is exactly the corrupt rolling-swap payload that
         # swap_params' shape check refuses, so catch it at build too
-        from ..models.moe_decode import moe_spec_of
+        from ..models.moe_decode import expert_stack_shape, moe_spec_of
         spec = moe_spec_of(config)
         if spec is not None:
             E = spec.num_experts
@@ -121,17 +121,19 @@ def validate_serving(params, config, name, mesh=None):
                         f"serving params: {us}_moe_gate_weight has "
                         f"shape {tuple(gate.shape)}, config wants "
                         f"({H}, {E})", kind="shape")
+                # an expert-parallel rank's piece counts as its whole
+                # stack
                 for leaf, v, dim, want in (
                         ("moe_expert_stack_w1", w1, 0, E),
                         ("moe_expert_stack_w2", w2, 0, E),
                         ("moe_expert_stack_w1", w1, 1, H),
                         ("moe_expert_stack_w2", w2, 2, H)):
-                    if tuple(v.shape)[dim] != want:
+                    shape = expert_stack_shape(v)
+                    if shape[dim] != want:
                         raise GraphVerifyError(
                             f"serving params: {us}_{leaf} dim {dim} is "
-                            f"{tuple(v.shape)[dim]}, config wants "
-                            f"{want} (shape {tuple(v.shape)})",
-                            kind="shape")
+                            f"{shape[dim]}, config wants {want} (shape "
+                            f"{shape})", kind="shape")
         dtypes = sorted({str(v.dtype) for v in params.values()
                          if hasattr(v, "dtype")})
         records.append(make_record(

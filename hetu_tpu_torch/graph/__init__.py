@@ -4,8 +4,7 @@ named-subgraph ``Executor``.
 
 ``import hetu_tpu_torch.graph as ht`` gives a script the names the JAX
 package (``hetu_tpu``) gives it as ``ht`` for this surface: the
-factories of its ``graph/__init__.py`` (all but the mesh-bound GNN
-ones), ``gradients``, ``layers``, ``init``, ``optim``, ``lr`` (the
+factories of its ``graph/__init__.py``, ``gradients``, ``layers``, ``init``, ``optim``, ``lr`` (the
 schedulers), ``dist`` (the distribution strategies), the comm ops,
 ``Executor``, ``dataloader_op``/``Dataloader``,
 ``flash_attention_op`` and ``ring_attention_op``:
@@ -72,6 +71,7 @@ from .ops_embed import (
     EmbeddingLookupOp, embedding_lookup_op, IndexedSlicesOp,
     unique_indices_op,
 )
+from .ops_gnn import DistGCN15dOp, distgcn_15d_op, gcn_layer_shard_specs
 from .ops_attention import flash_attention_op, ring_attention_op
 from .ops_moe import (
     layout_transform_op, layout_transform_gradient_op,
@@ -99,5 +99,5 @@ from ..parallel import distributed_strategies as dist
 __all__ = [n for n in dir() if not n.startswith("_")
            and n not in ("node", "autodiff", "executor", "ops_misc",
                          "ops_math", "ops_matmul", "ops_conv", "ops_shape",
-                         "ops_loss", "ops_embed", "ops_attention",
-                         "ops_moe", "ops_comm")]
+                         "ops_loss", "ops_embed", "ops_gnn",
+                         "ops_attention", "ops_moe", "ops_comm")]

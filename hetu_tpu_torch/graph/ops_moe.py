@@ -6,17 +6,19 @@ scatter token rows into ``E * capacity`` expert slots with one
 ``index_add_`` into a buffer with one spare row that takes the dropped
 tokens (JAX picks between a one-hot matmul and a row scatter, a TPU
 lowering choice; the sums are the same).  Combine and the layout
-gradient are gathers.  The all-to-all ops are the identity without a
-mesh, as in JAX, and in the executor's whole-value view; their mesh
-exchange and ``dispatch`` (a sharding annotation) wait for ROADMAP A9b
-item 2.
+gradient are gathers.  The all-to-all ops exchange rows over their mesh
+axes in the per-rank view (a trace context whose ``comm`` has the axis,
+JAX's ``shard_map``), and are the identity in the executor's whole-value
+view (JAX's pjit mode, where the op only constrains a sharding) and
+without a mesh.  ``dispatch`` is a sharding annotation: the identity in
+both views.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .node import Op, vjp_gradient
+from .node import Op, TraceContext, vjp_gradient
 from .ops_math import _simple
 
 
@@ -251,15 +253,20 @@ def reverse_layout_transform_no_gate_op(inp, indices_s, location_s, capacity,
 
 
 class AllToAllOp(Op):
-    """Expert-parallel all-to-all over the ``axis`` mesh axis.  Without a
-    mesh it is the identity, as in JAX, and so it is in the executor's
-    whole-value view; the exchange over a mesh waits for A9b item 2."""
+    """Expert-parallel all-to-all over the ``axis`` mesh axis of n ranks:
+    in the per-rank view the rows (E*cap, D), grouped by destination,
+    split into n blocks and block j goes to rank j, so each rank ends
+    with the rows of its experts from every peer.  Its own adjoint.  The
+    identity in the whole-value view and without a mesh, as in JAX."""
 
     def __init__(self, node, axis="ep", ctx=None):
         super().__init__(node, name="AllToAll", ctx=ctx)
         self.axis = axis
 
-    def torch_fn(self, x):
+    def compute(self, input_vals, tc: TraceContext):
+        (x,) = input_vals
+        if tc.has_axis(self.axis):
+            return tc.comm.all_to_all(x, self.axis, 0, 0)
         return x
 
     def gradient(self, output_grad):
@@ -271,14 +278,34 @@ def alltoall_op(node, comm=None, axis="ep", ctx=None):
 
 
 class HAllToAllOp(Op):
-    """Hierarchical all-to-all over the ``axes`` mesh axes: the identity
-    without a mesh, as ``AllToAllOp``."""
+    """Hierarchical all-to-all over ``axes`` = (inner, outer), e.g.
+    ``("ici", "dcn")``: in the per-rank view with both axes present,
+    one flat all-to-all over the (outer, inner) superaxis made of two
+    exchanges, first over the inner axis, then over the outer one; with
+    one present, the flat exchange over it.  Its own adjoint; the
+    identity in the whole-value view, as ``AllToAllOp``."""
 
     def __init__(self, node, axes=("ici", "dcn"), ctx=None):
         super().__init__(node, name="HAllToAll", ctx=ctx)
         self.axes = tuple(axes)
 
-    def torch_fn(self, x):
+    def compute(self, input_vals, tc: TraceContext):
+        (x,) = input_vals
+        present = [ax for ax in self.axes if tc.has_axis(ax)]
+        comm = tc.comm
+        if len(present) == 2:
+            # view the rows as [outer_dest, inner_dest, r, ...] and
+            # exchange each stage over its own destination dim:
+            # splitting dim 0 twice would interleave the blocks wrongly
+            a_inner, a_outer = self.axes
+            n_in, n_out = comm.size(a_inner), comm.size(a_outer)
+            parts = x.reshape(n_out, n_in, x.shape[0] // (n_in * n_out),
+                              *x.shape[1:])
+            parts = comm.all_to_all(parts, a_inner, 1, 1)
+            parts = comm.all_to_all(parts, a_outer, 0, 0)
+            return parts.reshape(x.shape)
+        for ax in present:
+            x = comm.all_to_all(x, ax, 0, 0)
         return x
 
     def gradient(self, output_grad):
@@ -394,8 +421,22 @@ def sam_max_op(a, top1_group, topk_indice, num_local_gpus, ctx=None):
     return SamMaxOp(a, top1_group, topk_indice, num_local_gpus, ctx=ctx)
 
 
+class DispatchOp(Op):
+    """A model-parallel annotation: ``parts`` ({dim: axis name}) is kept
+    on the node, and the value passes unchanged in both views (JAX's
+    pins a sharding under pjit, and ignores an axis absent from the
+    mesh)."""
+
+    def __init__(self, node, parts, ctx=None):
+        super().__init__(node, name="Dispatch", ctx=ctx)
+        self.parts = parts
+
+    def torch_fn(self, x):
+        return x
+
+    def gradient(self, output_grad):
+        return [output_grad]
+
+
 def dispatch(node, parts, ctx=None):
-    """A model-parallel sharding annotation: waits for A9b item 2."""
-    raise NotImplementedError(
-        "dispatch (a model-parallel annotation) is not in hetu_tpu_torch's "
-        "graph surface yet (ROADMAP A9b item 2)")
+    return DispatchOp(node, parts, ctx=ctx)

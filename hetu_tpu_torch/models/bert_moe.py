@@ -25,8 +25,8 @@ class BertMoEConfig(BertConfig):
                      from block moe_every-1 (1 = all blocks, the
                      reference placement; 2 = GShard alternation)
     aux_loss_weight  weight of the summed balance losses in the total
-    hierarchical_a2a the two-stage all-to-all (the identity without a
-                     mesh: ROADMAP A9b item 2)
+    hierarchical_a2a the two-stage all-to-all over ("ici", "dcn") in
+                     the per-rank view (the identity in the executor)
     """
 
     def __init__(self, num_experts=8, top_k=1, capacity_factor=1.0,

@@ -21,17 +21,32 @@ products as ``torch.bmm`` and gathers each token's k rows back.  Shapes
 stay static and nothing reads a device value on the host.  The per-
 expert load and drop counts accumulate as device tensors in a ``stats``
 dict; the engine reads them once a step.
+
+Expert parallelism: :func:`ep_shard_params` places the expert stacks
+over an ``ep`` mesh axis (:class:`ExpertStack`, the placement carried
+by the tensor), and ``moe_ffn`` on such stacks runs each rank's E/n
+experts on its E/n rows of the dispatch and all-gathers the outputs
+over the axis, where JAX's GSPMD derives the same exchange from the
+stacks' sharding; the engine and ``generate_fast`` take a placed dict
+unchanged.  :func:`moe_ffn_ep_reference` is the explicit per-rank
+formulation (tokens split over the axis, per-shard routing, the
+dispatch and combine all-to-all, optionally int8 on the wire,
+``$HETU_MOE_QUANT``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import envvars
+from ..parallel.collectives import ProcessComm, run_per_rank
+from ..parallel.mesh import VirtualMesh, axis_size, rank_coords
+from ..quant import dequantize, quantize, resolve_quant
+from ..weights import prep_param
 from .gpt_config import GPTConfig
 
 
@@ -46,6 +61,7 @@ class MoESpec(NamedTuple):
     capacity_factor: float
     moe_every: int
     draft: bool = False
+    ep_axis: Optional[str] = None
 
     def is_moe_layer(self, i):
         """Block i carries the MoE FFN when ``i % moe_every ==
@@ -62,15 +78,13 @@ class MoEDecodeConfig(GPTConfig):
     keeps GPTConfig's meaning for the dense interleaved blocks;
     ``expert_size`` (default ``ffn_size``) is each expert's hidden
     width: ``top_k * expert_size == ffn_size`` gives as many active
-    parameters as the dense model.  Expert parallelism (``ep_axis``) is
-    not ported: a config that asks for it is refused."""
+    parameters as the dense model.  ``ep_axis`` names the mesh axis of
+    :func:`moe_ffn_ep_reference`'s exchange (default ``"ep"``); the
+    serving cores read the expert placement from the parameters that
+    :func:`ep_shard_params` places."""
 
     def __init__(self, num_experts=4, top_k=2, capacity_factor=1.0,
                  moe_every=1, expert_size=None, ep_axis=None, **kw):
-        if ep_axis is not None:
-            raise NotImplementedError(
-                "expert-parallel MoE serving (ep_axis) is not ported yet "
-                "(ROADMAP A9b item 2)")
         super().__init__(**kw)
         if num_experts < 2:
             raise ValueError(
@@ -90,6 +104,7 @@ class MoEDecodeConfig(GPTConfig):
         self.capacity_factor = float(capacity_factor)
         self.moe_every = int(moe_every)
         self.expert_size = int(expert_size or self.ffn_size)
+        self.ep_axis = ep_axis
 
 
 def resolve_moe_capacity():
@@ -116,7 +131,8 @@ def moe_spec_of(config, draft=False):
         top_k=int(getattr(config, "top_k", 1)),
         capacity_factor=cf,
         moe_every=int(getattr(config, "moe_every", 1)),
-        draft=bool(draft))
+        draft=bool(draft),
+        ep_axis=getattr(config, "ep_axis", None))
 
 
 def moe_capacity(spec, num_tokens):
@@ -151,16 +167,39 @@ def moe_ffn(params, us, x, spec, valid=None, stats=None, rows=None):
     go to the lowest expert index (``jax.lax.top_k``'s order): a stable
     descending sort on either device.
 
+    Expert stacks placed by :func:`ep_shard_params` split the expert
+    products over their mesh axis (``_expert_outputs``); routing, the
+    load and drop counts and the combine stay whole on every rank, so
+    the result is this function's on whole stacks.
+
     ``stats`` (a dict or None) accumulates ``load`` / ``drop``, int64
     [E] device tensors: the (token, rank) pairs kept / past capacity in
     this call, so load + drop sums to valid tokens x top_k per MoE
     layer."""
-    E, k = spec.num_experts, spec.top_k
-    T, D = x.shape
+    E = spec.num_experts
+    T = x.shape[0]
     cap = moe_capacity(spec, T if rows is None else int(rows))
+    slot, topv, load, drop = _route(
+        x, params[f"{us}_moe_gate_weight"], spec, cap, valid)
+    xe = _dispatch(x, slot, E, cap)
+    h = _expert_outputs(params, us, xe)
+    y = _combine(h, slot, topv.to(x.dtype).float())
+    if stats is not None:
+        stats["load"] = stats.get("load", 0) + load
+        stats["drop"] = stats.get("drop", 0) + drop
+    return y.to(x.dtype)
+
+
+def _route(x, gate_weight, spec, cap, valid=None):
+    """Top-k routing of ``x`` [T, D] with ``cap`` slots an expert.
+    Returns (slot [k*T]: each (rank, token) pair's row of the flat
+    [E*cap] buffer, or E*cap, the dump row, for a dropped or invalid
+    pair; topv [T, k] f32, the raw softmax gates; load, drop int64
+    [E])."""
+    E, k = spec.num_experts, spec.top_k
+    T = x.shape[0]
     dev = x.device
-    gw = params[f"{us}_moe_gate_weight"].float()
-    gates = torch.softmax(x.float() @ gw, dim=-1)              # [T, E]
+    gates = torch.softmax(x.float() @ gate_weight.float(), dim=-1)  # [T, E]
     topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :k], topi[:, :k]
     # the (rank, token) pairs in arrival order, rank-major: a pair's slot
@@ -176,31 +215,68 @@ def moe_ffn(params, us, x, spec, valid=None, stats=None, rows=None):
     kept = pos < cap if live is None else live & (pos < cap)
     load = (mask * kept[:, None]).sum(dim=0)
     drop = mask.sum(dim=0) - load
-    dump = E * cap                      # the slot of a dropped pair
-    slot = torch.where(kept, rt * cap + pos, dump)              # [k*T]
-    # dispatch: each kept pair's row into its slot, every dropped pair
-    # into the dump row (never read back into y)
-    xe = torch.zeros((dump + 1, D), dtype=x.dtype, device=dev)
+    slot = torch.where(kept, rt * cap + pos, E * cap)           # [k*T]
+    return slot, topv, load, drop
+
+
+def _dispatch(x, slot, E, cap):
+    """[E, cap, D]: each kept pair's row of ``x`` in its slot, zeros in
+    the empty slots (every dropped pair lands in a dump row, cut off)."""
+    k = slot.shape[0] // x.shape[0]
+    xe = torch.zeros((E * cap + 1, x.shape[1]), dtype=x.dtype,
+                     device=x.device)
     xe[slot] = x.repeat(k, 1)
-    w1 = params[f"{us}_moe_expert_stack_w1"]                    # [E, D, F]
-    w2 = params[f"{us}_moe_expert_stack_w2"]                    # [E, F, D]
-    h = torch.bmm(xe[:dump].view(E, cap, D), w1)
-    b1 = params.get(f"{us}_moe_expert_stack_b1")
+    return xe[:E * cap].view(E, cap, x.shape[1])
+
+
+def _combine(h, slot, w):
+    """y [T, D] f32: each token's k expert rows of ``h`` [E, cap, D]
+    times its gates ``w`` [T, k] (f32), summed; a dropped pair reads a
+    zero row past the buffer and adds 0."""
+    T, k = w.shape
+    D = h.shape[-1]
+    he = torch.cat([h.reshape(-1, D),
+                    torch.zeros((1, D), dtype=h.dtype, device=h.device)])
+    return (w.t()[:, :, None] * he[slot].view(k, T, D).float()).sum(dim=0)
+
+
+def _experts(xe, w1, b1, w2, b2):
+    """GELU(xe @ w1 + b1) @ w2 + b2 with one expert a batch row: two
+    ``torch.bmm`` over [e, c, D] (either bias may be None)."""
+    h = torch.bmm(xe, w1)
     if b1 is not None:
         h = h + b1[:, None, :]
     h = torch.bmm(_gelu_tanh(h), w2)
-    b2 = params.get(f"{us}_moe_expert_stack_b2")
-    if b2 is not None:
-        h = h + b2[:, None, :]
-    # combine: a zero row at the dump slot makes a dropped pair add 0
-    he = torch.cat([h.reshape(dump, D),
-                    torch.zeros((1, D), dtype=h.dtype, device=dev)])
-    w = topv.t().to(x.dtype).float()                            # [k, T]
-    y = (w[:, :, None] * he[slot].view(k, T, D).float()).sum(dim=0)
-    if stats is not None:
-        stats["load"] = stats.get("load", 0) + load
-        stats["drop"] = stats.get("drop", 0) + drop
-    return y.to(x.dtype)
+    return h if b2 is None else h + b2[:, None, :]
+
+
+def _stacks(params, us):
+    """The block's expert stacks (w1, b1, w2, b2); a missing bias is None."""
+    return [params.get(f"{us}_moe_expert_stack_{s}")
+            for s in ("w1", "b1", "w2", "b2")]
+
+
+def _expert_outputs(params, us, xe):
+    """The experts' outputs [E, cap, D] on the dispatch ``xe``.  Stacks
+    placed over a mesh axis of n ranks (:func:`ep_shard_params`) split
+    the products: each rank runs its E/n experts on its E/n rows of
+    ``xe``, and the outputs are all-gathered over the axis: the virtual
+    ranks of a ``VirtualMesh`` in turn, this process's rank of a
+    ``DeviceMesh`` over the axis group."""
+    stacks = _stacks(params, us)
+    place = expert_placement(stacks[0])
+    if place is None:
+        return _experts(xe, *stacks)
+    mesh, axis = place
+    if isinstance(mesh, VirtualMesh):
+        n = axis_size(mesh, axis)
+        return torch.cat([
+            _experts(xb, *(_rank_piece(s, n, r) for s in stacks))
+            for r, xb in enumerate(xe.chunk(n))])
+    comm = ProcessComm(mesh)
+    n, r = comm.size(axis), comm.index(axis)
+    h = _experts(xe.chunk(n)[r], *(_rank_piece(s, n, r) for s in stacks))
+    return comm.all_gather(h, axis, dim=0)
 
 
 def _gelu_tanh(x):
@@ -306,24 +382,192 @@ def convert_dense_to_moe(params, config, moe_config, name=None):
     return out
 
 
-def _ep_later(what):
-    return NotImplementedError(
-        f"{what} (expert parallelism) is not in hetu_tpu_torch yet "
-        f"(ROADMAP A9b item 2)")
+# ------------------- expert-parallel placement ------------------- #
+
+
+class ExpertStack(torch.Tensor):
+    """An expert stack placed by :func:`ep_shard_params`: its leading
+    (expert) dim split over ``ep_axis`` of ``ep_mesh``.  On a
+    ``VirtualMesh`` the tensor is the whole stack (each virtual rank's
+    E/n experts are a view of it, as ``parallel/sharding.py`` stores
+    graph variables); on a ``DeviceMesh`` it is this rank's E/n experts.
+
+    The placement rides the tensor, as a JAX array's ``NamedSharding``
+    does, so that ``moe_ffn`` learns it from the parameter dict alone:
+    what the engine does to a parameter (``to``, ``contiguous``,
+    ``clone``, an in-place ``copy_``) keeps it; every other operation
+    returns a plain tensor."""
+
+    _KEEP = frozenset((torch.Tensor.to, torch.Tensor.contiguous,
+                       torch.Tensor.clone, torch.Tensor.copy_))
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*args, **(kwargs or {}))
+        if func in cls._KEEP and type(out) is torch.Tensor:
+            return _place_stack(out, args[0].ep_mesh, args[0].ep_axis)
+        return out
+
+
+def _place_stack(t, mesh, axis):
+    s = t.as_subclass(ExpertStack)
+    s.ep_mesh, s.ep_axis = mesh, axis
+    return s
+
+
+def expert_placement(t):
+    """(mesh, axis) of an :class:`ExpertStack`, else None."""
+    if isinstance(t, ExpertStack):
+        return t.ep_mesh, t.ep_axis
+    return None
+
+
+def _stores_piece(t):
+    """True when ``t`` holds one ``DeviceMesh`` rank's experts only."""
+    place = expert_placement(t)
+    return place is not None and not isinstance(place[0], VirtualMesh)
+
+
+def _rank_piece(t, n, r):
+    """Rank r's E/n experts of a stack (None stays None), as a plain
+    tensor: a view of a whole stack, or the piece a rank stores."""
+    if t is None:
+        return None
+    if not _stores_piece(t):
+        t = t.chunk(n)[r]
+    return t.as_subclass(torch.Tensor)
+
+
+def expert_stack_shape(t):
+    """The whole stack's shape of a parameter (its own shape unless it
+    is one ``DeviceMesh`` rank's piece)."""
+    shape = tuple(t.shape)
+    if _stores_piece(t):
+        shape = (shape[0] * axis_size(t.ep_mesh, t.ep_axis),) + shape[1:]
+    return shape
+
+
+def local_value(resident, value):
+    """What ``resident`` stores of a whole new ``value`` (a numpy array
+    or a tensor): the rank's E/n experts of a ``DeviceMesh`` piece, else
+    the value itself."""
+    if not _stores_piece(resident):
+        return value
+    e = resident.shape[0]
+    r = ProcessComm(resident.ep_mesh).index(resident.ep_axis)
+    return value[r * e:(r + 1) * e]
+
+
+def _mesh_device(mesh):
+    if isinstance(mesh, VirtualMesh):
+        return mesh.device
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def ep_shard_params(params, mesh, config, axis="ep", name=None):
-    """Expert-parallel placement of a MoE-GPT parameter dict: waits for
-    A9b item 2."""
-    raise _ep_later("ep_shard_params")
+    """Place a MoE-GPT parameter dict for expert-parallel serving: the
+    ``*_moe_expert_stack_*`` leaves split their leading expert dim over
+    ``axis`` (:class:`ExpertStack`); everything else (gate, attention,
+    embeddings, dense FFN blocks) is replicated.  The engine and
+    ``generate_fast`` take the result as they take any dict: ``moe_ffn``
+    splits the expert products over the axis and gathers them, and
+    every other computation is the unsharded one.
 
-
-def moe_ffn_ep_reference(params, us, x, spec, mesh, quant=None):
-    """The explicit expert-parallel MoE FFN over a mesh: waits for
-    A9b item 2."""
-    raise _ep_later("moe_ffn_ep_reference")
+    Validated first by ``analysis.shard_check.check_expert_mesh`` (the
+    axis exists, ``num_experts`` divides over it), so a bad mesh is
+    refused before any tensor is placed.  The values go to the mesh's
+    device: a ``VirtualMesh``'s, or this rank's card of a
+    ``DeviceMesh``, where each process stores only its E/n experts."""
+    from ..analysis.shard_check import check_expert_mesh
+    from .gpt_decode import _infer_name
+    n = check_expert_mesh(mesh, int(config.num_experts), axis=axis)
+    name = _infer_name(params, name)
+    dev = _mesh_device(mesh)
+    r = None if isinstance(mesh, VirtualMesh) \
+        else ProcessComm(mesh).index(axis)
+    out = {}
+    for k, v in params.items():
+        if not k.startswith(name + "_"):
+            continue
+        if "_moe_expert_stack_" not in k:
+            out[k] = prep_param(v, dev)
+            continue
+        if r is not None:
+            e = v.shape[0] // n
+            v = v[r * e:(r + 1) * e]
+        out[k] = _place_stack(prep_param(v, dev), mesh, axis)
+    return out
 
 
 def resolve_moe_quant(mode=None):
-    """The int8 wire of the expert-parallel all-to-all: waits for A9b item 2."""
-    raise _ep_later("resolve_moe_quant")
+    """The int8 dispatch/combine all-to-all wire: an explicit ``mode``
+    wins, else ``$HETU_MOE_QUANT`` (``quant.resolve_quant``'s grammar).
+    Returns "int8" or None."""
+    return resolve_quant(mode, "HETU_MOE_QUANT")
+
+
+def _a2a_wire(comm, x, axis, split_dim, concat_dim, quant):
+    """One all-to-all hop, optionally int8 on the wire: the flat codec
+    with one scale per row (``chunk`` = the last dim), the payload and
+    the scales each exchanged, then decoded.  An element's error is at
+    most its row's amax / 254 (``quant.py``)."""
+    if not quant:
+        return comm.all_to_all(x, axis, split_dim, concat_dim)
+    d = x.shape[-1]
+    q, scales = quantize(x.float(), chunk=d)
+    q = comm.all_to_all(q, axis, split_dim, concat_dim)
+    scales = comm.all_to_all(scales, axis, split_dim, concat_dim)
+    return dequantize(q, scales, chunk=d).to(x.dtype)
+
+
+def moe_ffn_ep_reference(params, us, x, spec, mesh, quant=None):
+    """The explicit expert-parallel MoE FFN, in the per-rank view
+    (``parallel.collectives.run_per_rank``): the tokens split over the
+    ``spec.ep_axis`` axis (default ``"ep"``) of n ranks; each rank
+    routes its T/n tokens through the gate with a per-shard capacity
+    ``moe_capacity(spec, T // n)``, builds its dispatch [E, cap, D],
+    exchanges it expert-major (split dim 0, concat dim 1: [E/n, n*cap,
+    D]), runs its E/n experts (GELU-tanh), exchanges the outputs back
+    (split 1, concat 0) and combines.  ``quant`` / ``$HETU_MOE_QUANT``
+    carries both hops in int8 (payload and per-row scales).
+
+    All in f32, as JAX's.  The per-shard capacity equals
+    :func:`moe_ffn`'s only while capacity does not bind.  The stacks
+    may be whole or placed by :func:`ep_shard_params`.  x: [T, D], T
+    divisible by n; returns y [T, D] (x's dtype), gathered over the
+    axis on every rank."""
+    axis = spec.ep_axis or "ep"
+    n = axis_size(mesh, axis)
+    E = spec.num_experts
+    if E % n:
+        raise ValueError(f"num_experts={E} not divisible by {axis}={n}")
+    T = x.shape[0]
+    if T % n:
+        raise ValueError(f"token count {T} not divisible by {axis}={n}")
+    quant = resolve_moe_quant(quant)
+    gw = params[f"{us}_moe_gate_weight"]
+    stacks = _stacks(params, us)
+    cap = moe_capacity(spec, T // n)
+
+    def local(comm, xs, *pieces):
+        w1, b1, w2, b2 = (None if p is None else p.float() for p in pieces)
+        slot, topv, _, _ = _route(xs, gw, spec, cap)
+        xe = _dispatch(xs.float(), slot, E, cap)
+        # dispatch: each rank keeps its E/n experts' slots from every
+        # peer, [E/n, n*cap, D]
+        xe = _a2a_wire(comm, xe, axis, 0, 1, quant)
+        h = _experts(xe, w1, b1, w2, b2)
+        # combine: the inverse hop, back to this rank's [E, cap, D]
+        h = _a2a_wire(comm, h, axis, 1, 0, quant)
+        y = _combine(h, slot, topv).to(xs.dtype)
+        return comm.all_gather(y, axis, dim=0)
+
+    args = [(x.chunk(n)[c.get(axis, 0)],
+             *(_rank_piece(s, n, c.get(axis, 0)) for s in stacks))
+            for c in rank_coords(mesh)]
+    if isinstance(mesh, VirtualMesh):
+        return run_per_rank(local, mesh, args)[0]
+    return run_per_rank(local, mesh, args[0])

@@ -10,6 +10,9 @@
   this process, in lockstep at each collective (a barrier), so that a
   collective sees every rank's value, as the devices of a JAX mesh do.
 
+The collectives: ``all_reduce``, ``all_gather``, ``reduce_scatter``,
+``broadcast``, ``ppermute`` and ``all_to_all`` (``lax.all_to_all``
+tiled; ``all_to_all_single`` over the axis group on a ``DeviceMesh``).
 Every rank must call the same collectives in the same order, as under
 SPMD.
 """
@@ -66,6 +69,20 @@ class _Comm:
         ``axis`` (a rotation: +1 sends to the successor)."""
         n = self.size(axis)
         return self._group_values(x, axis)[(self.index(axis) - shift) % n]
+
+    def all_to_all(self, x, axis, split_dim, concat_dim):
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+        ``x`` cut into n equal blocks along ``split_dim``, block j sent to
+        the rank of index j on ``axis``, and the blocks received joined
+        along ``concat_dim`` in their senders' order.  (The JAX call sites'
+        untiled form splits a dim of size n into blocks of one, which is
+        this on the same tensor.)"""
+        n = self.size(axis)
+        _check_split(x, axis, split_dim, n)
+        me = self.index(axis)
+        return torch.cat([v.chunk(n, dim=split_dim)[me]
+                          for v in self._group_values(x, axis)],
+                         dim=concat_dim)
 
     @staticmethod
     def _sum(vals):
@@ -137,6 +154,19 @@ class ProcessComm(_Comm):
         dist.broadcast(y, src=self.peer(axis, root), group=self.group(axis))
         return y
 
+    def all_to_all(self, x, axis, split_dim, concat_dim):
+        # one all_to_all_single over the axis group: the split dim moved
+        # to the front, so that block j of it goes to rank j; a group of
+        # one exchanges too (a one-rank world still goes through the
+        # backend)
+        n = self.size(axis)
+        _check_split(x, axis, split_dim, n)
+        send = x.movedim(split_dim, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group(axis))
+        return torch.cat([b.movedim(0, split_dim)
+                          for b in recv.chunk(n, dim=0)], dim=concat_dim)
+
     def ppermute(self, x, axis, shift):
         n = self.size(axis)
         if n == 1:
@@ -146,6 +176,13 @@ class ProcessComm(_Comm):
         send_recv(x.contiguous(), self.peer(axis, me + shift), out,
                   self.peer(axis, me - shift), self.group(axis))
         return out
+
+
+def _check_split(x, axis, split_dim, n):
+    if x.shape[split_dim] % n:
+        raise ValueError(
+            f"all_to_all over {axis!r} (size {n}): dim {split_dim} of shape "
+            f"{tuple(x.shape)} does not split into {n} equal blocks")
 
 
 def send_recv(send, dst, recv, src, group):

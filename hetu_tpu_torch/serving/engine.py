@@ -72,7 +72,7 @@ from ..models.gpt_decode import (
     _serve_prefill_chunk, _serve_verify, _spec_propose,
     resolve_draft_layers, resolve_serve_ragged, resolve_spec_k,
 )
-from ..models.moe_decode import moe_spec_of
+from ..models.moe_decode import expert_stack_shape, local_value, moe_spec_of
 from ..telemetry import flight
 from ..telemetry import slo as slo_mod
 from ..weights import prep_param
@@ -316,9 +316,11 @@ class ServingEngine:
         the result equals a fresh engine's on the new params), so no
         address changes and the draft, which shares the dict, swaps with
         it.  The new dict must match the resident one key for key and
-        shape for shape; a corrupt push fails HERE, before any tensor
-        moves.  Call only on a drained engine (the coordinator's job):
-        live slots would mix versions mid-request.  A paged pool drops
+        shape for shape (an expert-parallel rank's piece of a stack
+        takes its experts of the whole new value); a corrupt push fails
+        HERE, before any tensor moves.  Call only on a drained engine
+        (the coordinator's job): live slots would mix versions
+        mid-request.  A paged pool drops
         its registered prefixes after the copy (``clear_prefixes``):
         their KV came from the old weights, and a request attaching them
         would decode the new weights over the old keys and values (the
@@ -330,10 +332,10 @@ class ServingEngine:
                 continue
             old = self.params.get(k)
             shape = tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
-            if old is not None and tuple(shape) != tuple(old.shape):
+            if old is not None and tuple(shape) != expert_stack_shape(old):
                 raise ValueError(
                     f"swap_params: {k} has shape {tuple(shape)}, "
-                    f"resident is {tuple(old.shape)}")
+                    f"resident is {expert_stack_shape(old)}")
             new[k] = v
         if set(new) != set(self.params):
             missing = sorted(set(self.params) - set(new))
@@ -344,7 +346,8 @@ class ServingEngine:
         with torch.no_grad():
             for k, v in new.items():
                 old = self.params[k]
-                old.copy_(prep_param(v, old.device, old.dtype))
+                old.copy_(prep_param(local_value(old, v), old.device,
+                                     old.dtype))
         if self.paged:
             self.kv.clear_prefixes()
         self.last_swap_at = time.perf_counter()

@@ -407,8 +407,6 @@ def test_factory_matches_jax(case):
         _check(outs[tm][1 + k], outs[jm][1 + k], f"{name} d/d in{i}", False)
 
 
-# JAX graph/__init__.py names the port leaves to A9b (they need a mesh)
-GNN_NAMES = {"DistGCN15dOp", "distgcn_15d_op", "gcn_layer_shard_specs"}
 # the names of ``import hetu_tpu as ht`` beyond JAX's graph/__init__.py
 # that the port's graph package exports
 EXTRA_NAMES = {"ShapeInferenceError", "flash_attention_op",
@@ -440,13 +438,13 @@ COMM_NAMES = {"allreduceCommunicate_op", "allreduceCommunicatep2p_op",
 EXTRA_NAMES |= COMM_NAMES | {"dist"}
 
 
-def test_export_list_is_jax_minus_gnn():
+def test_export_list_is_jax():
     jax_names = {n for n in dir(jgraph) if not n.startswith("_")} - {
         "node", "autodiff", "ops_misc", "ops_math", "ops_matmul",
         "ops_conv", "ops_shape", "ops_loss", "ops_embed", "ops_gnn",
         "ops_attention", "ops_comm", "ops_moe", "annotations"}
     port = set(tm.__all__)
-    assert port - EXTRA_NAMES == jax_names - GNN_NAMES
+    assert port - EXTRA_NAMES == jax_names
     for n in port:
         assert hasattr(tm, n), n
 
@@ -459,6 +457,8 @@ def test_every_factory_has_a_case():
     covered |= {"rand_op", "dropout_op", "dropout2d_op",
                 "batch_normalization_op", "placeholder_op",
                 "ring_attention_op"} | MOE_FACTORIES | COMM_NAMES
+    # the 1.5-D GCN factory: tests/test_torch_gnn.py
+    covered.add("distgcn_15d_op")
     factories = {n for n in tm.__all__ if n.endswith("_op")
                  or n == "softmax_func"} - {"dataloader_op"}
     assert factories - covered == set()

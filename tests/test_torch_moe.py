@@ -15,7 +15,8 @@ CPU, same numpy inputs on both sides:
   with a constant output expose the combine weights, bit for bit; with
   random experts y within 2 bf16 ulps of the largest |y|; load and drop
   equal exactly, ties and a binding capacity included;
-- an ``ep_axis`` config is refused (expert parallelism is not ported);
+- an ``ep_axis`` config carries its axis into the spec as JAX's does
+  (expert parallelism itself: tests/test_torch_expert_parallel.py);
 - replicated experts with k = E (``convert_dense_to_moe``'s oracle):
   the dense FFN within 2e-5.
 """
@@ -81,14 +82,14 @@ def test_config_refusals_match_jax(bad):
         _cfgs(**bad)
 
 
-def test_expert_parallel_refused():
-    """Expert parallelism is not ported: a config that asks for it is
-    refused rather than served with replicated experts."""
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tmd.MoEDecodeConfig(vocab_size=97, hidden_size=32,
-                            num_hidden_layers=2, num_attention_heads=2,
-                            max_position_embeddings=48, seq_len=48,
-                            ep_axis="ep")
+def test_expert_parallel_config_matches_jax():
+    """An ``ep_axis`` config is served: its spec carries the axis, as
+    JAX's does, and a config without one has none."""
+    jc, tc = _cfgs(ep_axis="ep")
+    assert tc.ep_axis == jc.ep_axis == "ep"
+    assert tuple(tmd.moe_spec_of(tc)) == tuple(jmd.moe_spec_of(jc))
+    assert tmd.moe_spec_of(tc).ep_axis == "ep"
+    assert tmd.moe_spec_of(_cfgs()[1]).ep_axis is None
 
 
 @pytest.mark.parametrize("kw,seed", [(dict(), 0),

@@ -244,10 +244,26 @@ def test_group_topk_idx_op_is_jaxs(topk, ties):
     np.testing.assert_array_equal(outs["torch"], outs["jax"])
 
 
-def test_dispatch_and_mesh_wait_for_a9b():
-    x = tm.placeholder_op("x")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tm.dispatch(x, {0: "tp"})
+def test_dispatch_is_identity_keeping_parts():
+    """``dispatch`` is a sharding annotation: the identity forward and
+    backward in the executor, with or without a mesh (an axis the mesh
+    lacks is ignored, as JAX's), ``parts`` kept on the node."""
+    from hetu_tpu_torch.parallel import make_mesh
+    x = np.random.RandomState(3).randn(4, 6).astype(np.float32)
+    for parts, mesh in (({0: "tp"}, None),
+                        ({1: "zz"}, make_mesh({"dp": 2}, device="cpu"))):
+        xp = tm.placeholder_op("x")
+        d = tm.dispatch(xp, parts)
+        assert isinstance(d, tmoe.DispatchOp) and d.parts == parts
+        loss = tm.reduce_sum_op(tm.mul_op(d, d), axes=[0, 1])
+        (gx,) = tm.gradients(loss, [xp])
+        ex = tm.Executor([d, gx], device="cpu", mesh=mesh)
+        y, g = ex.run(feed_dict={xp: x}, convert_to_numpy_ret_vals=True)
+        np.testing.assert_array_equal(y, x)
+        np.testing.assert_allclose(g, 2 * x, rtol=1e-6)
+        jd = jm.dispatch(jm.placeholder_op("x"), parts)
+        np.testing.assert_array_equal(np.asarray(jd.compute(
+            [jnp.asarray(x)], JTraceContext())), y)
 
 
 # ----------------------------------------------------------------------- #

@@ -43,8 +43,9 @@ def test_no_jax_or_hetu_tpu_import_in_the_port():
 
 def test_the_parallel_modules_are_scanned():
     """The pipeline, strategy, collective, collective-check and
-    shard-check modules, the graph GPT, the ``nn.Module`` GPT and
-    ``serve_gpt`` are among the sources the scan above reads."""
+    shard-check modules, the graph GPT, the ``nn.Module`` GPT,
+    ``serve_gpt``, expert parallelism, the GCN and ``train_gcn`` are
+    among the sources the scan above reads."""
     scanned = {p.relative_to(ROOT).as_posix() for p in _sources()}
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/partition.py", "parallel/pipeline.py",
@@ -53,5 +54,6 @@ def test_the_parallel_modules_are_scanned():
                 "pipeline_executor.py", "graph/ops_comm.py",
                 "analysis/shard_check.py", "parallel/collective_check.py",
                 "models/gpt.py", "models/gpt_module.py", "serve_gpt.py",
-                "quant.py"):
+                "quant.py", "models/moe_decode.py", "graph/ops_moe.py",
+                "graph/ops_gnn.py", "train_gcn.py", "gnn_common.py"):
         assert f"hetu_tpu_torch/{rel}" in scanned, rel

@@ -241,8 +241,11 @@ def test_models_export_every_jax_name():
     assert len(names) > 40
     missing = [n for n in names if not hasattr(tmodels, n)]
     assert not missing, missing
-    # expert parallelism waits for the mesh (A9b)
-    for n, nargs in (("ep_shard_params", 3), ("moe_ffn_ep_reference", 5),
-                     ("resolve_moe_quant", 0)):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            getattr(tmodels, n)(*([None] * nargs))
+    # expert parallelism is ported (held to JAX in
+    # tests/test_torch_expert_parallel.py): a call with no mesh is
+    # refused by the shard check, not as a missing module
+    assert tmodels.resolve_moe_quant("int8") == "int8"
+    from hetu_tpu_torch.analysis.integration import ShardCheckError
+    with pytest.raises(ShardCheckError, match="needs a mesh"):
+        tmodels.ep_shard_params({}, None,
+                                tmodels.MoEDecodeConfig(num_hidden_layers=2))
