@@ -318,7 +318,10 @@ non-zero and prints no result line):
    of a virtual mesh (exact launches, losses and final tensors within
    rtol 2e-4, 1f1b's peak memory below gpipe's).  15b: ``FSDP`` dp 4 and
    a dp 2 x tp 2 ``ShardingPlan`` on virtual ranks, the graph built at
-   the global batch (one evaluation a step), against plain.  15c:
+   the global batch (one evaluation a step; the plan's Megatron segments
+   per tp rank, K2 and K3 launched on each rank's 6 heads, no gather),
+   against plain; then f32 K2/K3 at the plan's per-rank shape [16, 512,
+   6, 64] against their plain versions.  15c:
    ``DataParallel`` over a one-rank NCCL world bit-equal to plain; the
    int8 trio's all-gather through NCCL (int8 in its recorded collective
    sequence, bit-equal to the whole-value round trip).  15d: a BatchNorm
@@ -361,6 +364,30 @@ non-zero and prints no result line):
    first-layer weight) within 1e-5 + 1e-5 |z| of the whole-value
    executor's; three SGD steps over the mesh equal to the plain
    executor's.
+18. Tensor parallelism.  18a: GPT-2-small placed by ``tp_shard_params``
+   over ``make_mesh({"tp": 4})`` (a virtual mesh on the card, 3 heads of
+   64 a rank) through the four engine configurations, paged mixed with
+   ``spec=4`` and with an int8 cache, f32, on phase 4's requests: exact
+   launches (each layer's kernel once per rank, every launch on [.., 3,
+   64] heads), greedy tokens equal to the unplaced engine's of the same
+   configuration (int8: phase 7's margin gate against phase 4), a
+   rank's ``cache_bytes`` a quarter of the unplaced, tok/s and TTFT
+   beside the unplaced; the placed and whole teacher-forced logits of
+   the first prompt within 1e-5 relative; then a one-rank NCCL
+   ``DeviceMesh``: the paged mixed engine and the logits bit-equal to
+   the unplaced (or the reason printed and 1e-6).  18b: phase 16's graph
+   GPT-2-small (B 8, S 1024, three AdamW steps, f32 and bf16) under
+   ``ModelParallel4LM(tp=4)`` with JAX's GPT_TP_SPECS pattern over all
+   12 layers: 48 K2, 48 K3 dK/dV and 48 K3 dQ a step, each K2 on [.., 3,
+   64] heads, no gather of a split value; f32 losses within 2e-4
+   relative of phase 16's plain executor and final tensors within 1e-6
+   + 2e-4 |plain|; bf16's largest relative loss difference logged; step
+   ms beside plain.  Each kernel 18a's engines launch (K1 on its mixed,
+   decode and verify waves, K8 on its mixed and decode waves, K4, K5,
+   K2, K1-int8 on its mixed and decode waves; f32 q) and 18b's K2/K3
+   (f32 and bf16, [8, 1024, 3, 64]) against their plain versions at a
+   rank's 3 heads, as phases 2, 7 and 8 hold them at 12; the kernels
+   line's 18a, 18b and 15b rows carry these numbers.
 
 With ``--profile DIR`` three more training steps of each dtype run under
 torch.profiler in phase 8 (``train_gpt.profile_steps``), and after the
@@ -858,9 +885,9 @@ LENGTHS = np.array([1024, 600, 37, 0, 1, 300, 512, 129], np.int32)
 SHORT_LENGTHS = np.array([127, 64, 37, 0, 1, 100, 128, 16], np.int32)
 
 
-def pool_case(torch, dtype, seed, Dh=DH, lengths=LENGTHS):
-    """The 8 slots of ``lengths`` in a permuted block pool [N, 16, 12,
-    Dh], slots 1 and 6 sharing their first blocks, up to 8 (a prefix of
+def pool_case(torch, dtype, seed, Dh=DH, lengths=LENGTHS, heads=H):
+    """The 8 slots of ``lengths`` in a permuted block pool [N, 16,
+    heads, Dh], slots 1 and 6 sharing their first blocks, up to 8 (a prefix of
     up to 128 positions); dead table entries at scratch block 0.
     Returns the pools, the host tables and the count of distinct pool
     rows some slot's length reaches (each read once: a shared row
@@ -878,22 +905,22 @@ def pool_case(torch, dtype, seed, Dh=DH, lengths=LENGTHS):
     tables[6, :shared] = tables[1, :shared]    # a shared prefix
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    pool_k, pool_v = (torch.randn((n_blocks, BS, H, Dh), generator=g,
+    pool_k, pool_v = (torch.randn((n_blocks, BS, heads, Dh), generator=g,
                                   device="cuda").to(dt) for _ in range(2))
     rows = {(int(tables[b, p // BS]), p % BS) for b in range(B)
             for p in range(int(lengths[b]))}
     return pool_k, pool_v, tables, len(rows)
 
 
-def slot_rows_case(torch, dtype, seed):
-    """Slot-contiguous caches [8, 1024, 12, 64] of random K/V."""
+def slot_rows_case(torch, dtype, seed, heads=H):
+    """Slot-contiguous caches [8, 1024, heads, 64] of random K/V."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
-    return tuple(torch.randn((len(LENGTHS), 1024, H, DH), generator=g,
+    return tuple(torch.randn((len(LENGTHS), 1024, heads, DH), generator=g,
                              device="cuda").to(dt) for _ in range(2))
 
 
-def ragged_flops(lengths, q_lens, Q):
+def ragged_flops(lengths, q_lens, Q, heads=H):
     """Score and PV flops of a ragged wave: every row of every slot with
     a length, dead rows at their clipped positions."""
     flops = 0
@@ -901,7 +928,7 @@ def ragged_flops(lengths, q_lens, Q):
         if n == 0:
             continue
         posq = np.clip(n - ql + np.arange(Q), 0, n - 1)
-        flops += int(4 * (posq + 1).sum() * H * DH)
+        flops += int(4 * (posq + 1).sum() * heads * DH)
     return flops
 
 
@@ -948,6 +975,12 @@ def kv_operands(torch, k, v, dtype, int8):
     dense = (kv_decode(kq, ks).to(dt), kv_decode(vq, vs).to(dt))
     return ((kq, vq), dict(k_scale=ks, v_scale=vs), (ks, vs), dense,
             2 * (DH + 4))
+
+
+def heads_label(heads):
+    """A check's label suffix for a head count other than the model's
+    (a tensor-parallel rank's)."""
+    return "" if heads == H else f" [{heads} heads]"
 
 
 def measure(torch, label, dtype, run, plain, library, nbytes, flops,
@@ -1039,29 +1072,30 @@ def wave_of(kernel, wave):
     return Q, q_lens, f" {wave} Q {Q}"
 
 
-def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
+def check_k1(torch, F, dtype, seed, int8=False, wave="mixed", heads=H):
     """K1 on a wave of the 8 pool slots (``wave_of``: the mixed
     wave has q_len in {0, 1, 5, 256}, Q 256); with ``int8`` K1-int8 over
-    the f32 pool's encoding, q of ``dtype``.  bf16 over a bf16 pool adds
+    the f32 pool's encoding, q of ``dtype``; ``heads`` per position (a
+    tensor-parallel rank's H/tp).  bf16 over a bf16 pool adds
     ``ragged_rounding_bound`` to TOL (the kernel rounds P, as the Pallas
     body does there); over an int8 pool TOL alone (neither rounds P).  Yardstick: SDPA over the pre-gathered dense (with ``int8``,
     dequantized) view with the equivalent mask (the gather itself
     excluded)."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
     pool_k, pool_v, tables, n_rows = pool_case(
-        torch, "float32" if int8 else dtype, seed)
+        torch, "float32" if int8 else dtype, seed, heads=heads)
     (pool_k, pool_v), sc, sc_plain, dense, row_bytes = kv_operands(
         torch, pool_k, pool_v, dtype, int8)
     Q, q_lens, suffix = wave_of("K1", wave)
     B = len(LENGTHS)
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
-    q = torch.randn((B, Q, H, DH), generator=g,
+    q = torch.randn((B, Q, heads, DH), generator=g,
                     device="cuda").to(getattr(torch, dtype))
     args = (q, pool_k, pool_v, torch.from_numpy(LENGTHS).cuda(),
             torch.from_numpy(q_lens).cuda(), torch.from_numpy(tables).cuda())
     idx = args[5].long()
     span = T_WIDTH * BS
-    kd, vd = (x[idx].reshape(B, span, H, DH).transpose(1, 2)
+    kd, vd = (x[idx].reshape(B, span, heads, DH).transpose(1, 2)
               for x in dense)
     qd = q.transpose(1, 2)
     mask = length_mask(torch, LENGTHS, q_lens, Q, span)
@@ -1071,57 +1105,62 @@ def check_k1(torch, F, dtype, seed, int8=False, wave="mixed"):
     # entries of those blocks, lengths and q_lens
     es = q.element_size()
     n_tab = int(sum(-(-int(n) // BS) for n in LENGTHS))
-    nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
-              + n_rows * H * row_bytes + 4 * n_tab + LENGTHS.nbytes
+    nbytes = (int((LENGTHS > 0).sum()) * Q * heads * DH * es
+              + q.numel() * es + n_rows * heads * row_bytes + 4 * n_tab
+              + LENGTHS.nbytes
               + q_lens.nbytes)
     return measure(
-        torch, f"K1{'-int8' if int8 else ''} ragged_paged_attention{suffix}",
+        torch, f"K1{'-int8' if int8 else ''} ragged_paged_attention{suffix}"
+        + heads_label(heads),
         dtype, lambda: ra.ragged_paged_attention(*args, **sc),
         lambda: ra.ragged_paged_reference(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-        nbytes, ragged_flops(LENGTHS, q_lens, Q)
-        + (2 * n_rows * H * DH if int8 else 0),
+        nbytes, ragged_flops(LENGTHS, q_lens, Q, heads)
+        + (2 * n_rows * heads * DH if int8 else 0),
         rounding=int8_rounding(
             int8, lambda: ra.ragged_rounding_bound(*args, **sc)),
         b2b=True, method=ragged_method(dtype, wave))
 
 
-def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
+def check_k8(torch, F, dtype, seed, int8=False, wave="mixed", heads=H):
     """K8 on a wave of the 8 slot rows (``wave_of``: the mixed wave
     has a wide prompt q-block, a 600-token prompt at Q 1024, its pow2
     bucket, a 300-token prompt, decode tokens, a length-0 slot); with
     ``int8`` K8-int8 over the f32 rows' encoding; bf16 over bf16 rows
     within TOL plus ``ragged_rounding_bound``, over int8 rows within TOL
-    alone, as ``check_k1``.  Yardstick: SDPA over
+    alone, as ``check_k1``; ``heads`` per position.  Yardstick: SDPA over
     the (dequantized) slot rows with the equivalent mask."""
     from hetu_tpu_torch.kernels import ragged_attention as ra
-    k, v = slot_rows_case(torch, "float32" if int8 else dtype, seed + 7)
+    k, v = slot_rows_case(torch, "float32" if int8 else dtype, seed + 7,
+                          heads)
     (k, v), sc, sc_plain, dense, row_bytes = kv_operands(torch, k, v,
                                                          dtype, int8)
     Q, q_lens, suffix = wave_of("K8", wave)
     B = len(LENGTHS)
     g = torch.Generator(device="cuda").manual_seed(seed + 8)
-    q = torch.randn((B, Q, H, DH), generator=g,
+    q = torch.randn((B, Q, heads, DH), generator=g,
                     device="cuda").to(getattr(torch, dtype))
     args = (q, k, v, torch.from_numpy(LENGTHS).cuda(),
             torch.from_numpy(q_lens).cuda())
     qd, kd, vd = (x.transpose(1, 2) for x in (q, *dense))
     mask = length_mask(torch, LENGTHS, q_lens, Q, k.shape[1])
     es = q.element_size()
-    nbytes = (int((LENGTHS > 0).sum()) * Q * H * DH * es + q.numel() * es
-              + int(LENGTHS.sum()) * H * row_bytes + LENGTHS.nbytes
+    nbytes = (int((LENGTHS > 0).sum()) * Q * heads * DH * es
+              + q.numel() * es + int(LENGTHS.sum()) * heads * row_bytes
+              + LENGTHS.nbytes
               + q_lens.nbytes)
     r = measure(
-        torch, f"K8{'-int8' if int8 else ''} ragged_attention{suffix}",
+        torch, f"K8{'-int8' if int8 else ''} ragged_attention{suffix}"
+        + heads_label(heads),
         dtype, lambda: ra.ragged_attention(*args, **sc),
         lambda: ra.ragged_masked_reference(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
-        nbytes, ragged_flops(LENGTHS, q_lens, Q)
-        + (2 * int(LENGTHS.sum()) * H * DH if int8 else 0),
+        nbytes, ragged_flops(LENGTHS, q_lens, Q, heads)
+        + (2 * int(LENGTHS.sum()) * heads * DH if int8 else 0),
         rounding=int8_rounding(
             int8, lambda: ra.ragged_rounding_bound(*args, **sc)),
         b2b=True, method=ragged_method(dtype, wave))
-    if int8 or wave != "mixed":
+    if int8 or wave != "mixed" or heads != H:
         return r
     # the dead-row cost: the same slots with no dead row, each prompt
     # slot launched at Q = its q_len and the decode slots at Q = 1
@@ -1143,13 +1182,13 @@ def check_k8(torch, F, dtype, seed, int8=False, wave="mixed"):
 
 
 def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False,
-                 lengths=None):
+                 lengths=None, heads=H):
     """The 8 slots of ``LENGTHS`` (or ``lengths``, a decode wave's:
     ``SHORT_LENGTHS``) through the tables of the pool (K5, or with
     ``verify`` K7), else over slot rows (K4, or K6): one query per slot,
     or with ``verify`` a Q-5 verify block of q_lens ``VERIFY_QLENS``
     (dead rows included in the comparison); with ``int8`` the int8 twin
-    over the f32 K/V's encoding, q of ``dtype``.
+    over the f32 K/V's encoding, q of ``dtype``; ``heads`` per position.
     bf16 K4-K7 over a bf16 cache add ``ragged_rounding_bound`` to TOL
     (they round P as bf16 K1/K8 do); every kernel is also timed back to
     back and on the device.  Yardstick: SDPA with a per-query length
@@ -1164,7 +1203,8 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False,
     seed += 3 if verify else 0
     g = torch.Generator(device="cuda").manual_seed(seed + 9)
     dt = getattr(torch, dtype)
-    q = torch.randn((B, Q, H, DH), generator=g, device="cuda").to(dt)
+    q = torch.randn((B, Q, heads, DH), generator=g,
+                    device="cuda").to(dt)
     if not verify:
         q = q[:, 0]
     lens = torch.from_numpy(L).cuda()
@@ -1173,15 +1213,16 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False,
     kv_dtype = "float32" if int8 else dtype
     if paged:
         pool_k, pool_v, tables, n_rows = pool_case(torch, kv_dtype,
-                                                   seed + 10, lengths=L)
+                                                   seed + 10, lengths=L,
+                                                   heads=heads)
         (pool_k, pool_v), sc, sc_plain, dense, row_bytes = kv_operands(
             torch, pool_k, pool_v, dtype, int8)
         tab = torch.from_numpy(tables).cuda()
         args = (q, pool_k, pool_v, lens) + extra + (tab,)
-        kd, vd = (x[tab.long()].reshape(B, T_WIDTH * BS, H, DH)
+        kd, vd = (x[tab.long()].reshape(B, T_WIDTH * BS, heads, DH)
                   for x in dense)
         n_tab = int(sum(-(-int(n) // BS) for n in L))
-        kv_bytes = n_rows * H * row_bytes + 4 * n_tab
+        kv_bytes = n_rows * heads * row_bytes + 4 * n_tab
         label, run, plain = (
             ("K7 paged_block_verify_attention",
              da.paged_block_verify_attention,
@@ -1191,11 +1232,11 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False,
              da.paged_block_decode_reference))
     else:
         n_rows = int(L.sum())
-        k, v = slot_rows_case(torch, kv_dtype, seed + 11)
+        k, v = slot_rows_case(torch, kv_dtype, seed + 11, heads)
         (k, v), sc, sc_plain, (kd, vd), row_bytes = kv_operands(
             torch, k, v, dtype, int8)
         args = (q, k, v, lens) + extra
-        kv_bytes = n_rows * H * row_bytes
+        kv_bytes = n_rows * heads * row_bytes
         label, run, plain = (
             ("K6 paged_verify_attention", da.paged_verify_attention,
              da.masked_verify_reference) if verify else
@@ -1208,12 +1249,13 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False,
     # unread), o in full, the K/V rows up to each slot's length once (a
     # shared pool row once, plus the table entries of those blocks),
     # lengths and the verify block's q_lens
-    nbytes = (int((L > 0).sum()) * Q * H * DH * es + q.numel() * es
+    nbytes = (int((L > 0).sum()) * Q * heads * DH * es + q.numel() * es
               + kv_bytes + L.nbytes + (q_lens.nbytes if verify else 0))
     if int8:
         label = label.replace(" ", "-int8 ", 1)
     if short:
         label += " short"
+    label += heads_label(heads)
     from hetu_tpu_torch.kernels import ragged_attention as ra
 
     def rounding():
@@ -1228,8 +1270,8 @@ def check_decode(torch, F, dtype, seed, paged, verify=False, int8=False,
         torch, label, dtype, lambda: run(*args, **sc),
         lambda: plain(*args, *sc_plain),
         lambda: F.scaled_dot_product_attention(qd, kt, vt, attn_mask=mask),
-        nbytes, ragged_flops(L, q_lens, Q)
-        + (2 * n_rows * H * DH if int8 else 0),
+        nbytes, ragged_flops(L, q_lens, Q, heads)
+        + (2 * n_rows * heads * DH if int8 else 0),
         rounding=None if int8 else rounding, b2b=True)
 
 
@@ -1477,13 +1519,13 @@ def check_k6_int8_equals_k8_int8(torch, seed):
         "int8 slot rows, bit for bit")
 
 
-def check_k2(torch, F, dtype, seed):
+def check_k2(torch, F, dtype, seed, heads=H):
     from hetu_tpu_torch.kernels import flash_attention as fa
-    N, P, H, D = 8, 512, 12, 64
+    N, P, Hn, D = 8, 512, heads, 64
     kv = np.array([512, 300, 0, 77, 512, 1, 250, 450], np.int32)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn((N, P, H, D), generator=g,
+    q, k, v = (torch.randn((N, P, Hn, D), generator=g,
                            device="cuda").to(dt) for _ in range(3))
     kv_d = torch.from_numpy(kv).cuda()
     o, lse = fa.flash_fwd(q, k, v, causal=True, kv_lens=kv_d)
@@ -1512,19 +1554,19 @@ def check_k2(torch, F, dtype, seed):
     # (a kv_lens-0 prompt outputs zeros unread), the kv_lens[b] live K
     # and V rows of each prompt, o and lse in full, kv_lens
     es = q.element_size()
-    nbytes = (int((kv > 0).sum()) * P * H * D * es
-              + 2 * int(kv.sum()) * H * D * es + q.numel() * es
-              + N * H * P * 4 + kv.nbytes)
+    nbytes = (int((kv > 0).sum()) * P * Hn * D * es
+              + 2 * int(kv.sum()) * Hn * D * es + q.numel() * es
+              + N * Hn * P * 4 + kv.nbytes)
     rows = np.arange(P)
-    flops = int(sum(4 * np.minimum(rows + 1, n).sum() * H * D
+    flops = int(sum(4 * np.minimum(rows + 1, n).sum() * Hn * D
                     for n in kv))
     b_ms, b_by = bound(nbytes, flops, dtype, tf32_method(dtype))
-    log(f"  K2 flash_attention {dtype}: max_abs_err {err:.3e}, largest "
+    log(f"  K2 flash_attention{heads_label(heads)} {dtype}: max_abs_err {err:.3e}, largest "
         f"err / bound {ratio:.4f} (flash_compare); lse {lse_err:.3e}, tol "
         f"{LSE_TOL:g}; kernel "
         f"{ms:.4f} ms ({run_ms:.4f} back to back, {ms_text(dev)} on the "
         f"device), plain {plain_ms:.4f} ms, SDPA is_causal on "
-        f"[8,12,512,64] without the kv_lens mask {lib_ms:.4f} ms; bound "
+        f"[8,{Hn},512,64] without the kv_lens mask {lib_ms:.4f} ms; bound "
         f"{b_ms:.4f} ms by {b_by} ({nbytes} B, {flops} flop"
         f"{', 3 TF32 passes' if dtype == 'float32' else ''})")
     return dict(err=err, ratio=ratio, ms=ms, run_ms=run_ms, dev_ms=dev,
@@ -1623,8 +1665,12 @@ def want_launches(eng, L):
     is the int8 twin, and its float twin launches never.  A
     speculative engine's draft (never quantized) adds the contiguous
     decode kernel per draft layer per draft step (k + 1 a wave) and the
-    flash kernel per draft layer per admission."""
+    flash kernel per draft layer per admission.  A tensor-parallel
+    engine (``tp_shard_params``) launches each of those once per local
+    rank."""
     from hetu_tpu_torch.kernels import KERNELS
+    R = 1 if eng.kv.tp is None else len(eng.kv.tp.ranks)
+    L = L * R
     want = dict.fromkeys(KERNELS, 0)
     q = "_int8" if eng.kv_quant else ""
     if eng.ragged:
@@ -1640,7 +1686,7 @@ def want_launches(eng, L):
         want[(wave[0] if eng.paged else wave[1]) + q] = \
             L * eng.steps * verify_launches(eng)
     if eng.spec_k:
-        Ld = eng.spec_draft_layers
+        Ld = eng.spec_draft_layers * R
         want["paged_decode_attention"] += Ld * (eng.spec_k_sum
                                                 + eng.spec_waves)
         want["flash_attention"] += Ld * eng.spec_draft_prefills
@@ -2237,14 +2283,15 @@ def sdpa_backend(torch, q, k, v):
     return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
 
 
-def check_k3(torch, F, dtype, seed):
-    """K3's kernels and K2 at the training shape (B 8, S 1024, H 12, D 64,
-    causal, no kv_lens): each against its plain version, timed beside
+def check_k3(torch, F, dtype, seed, Hn=H):
+    """K3's kernels and K2 at the training shape (B 8, S 1024, ``Hn``
+    heads (12, or a tensor-parallel rank's 12/tp), D 64, causal, no
+    kv_lens): each against its plain version, timed beside
     its bound; the yardsticks are SDPA's backward (autograd.grad through
     ``scaled_dot_product_attention(is_causal=True)``, the backward alone
     timed) and SDPA's forward.  Returns {"dkv", "dq", "fwd": result}."""
     from hetu_tpu_torch.kernels import flash_attention as fa
-    q, k, v, do = k3_inputs(torch, TB, TS, TS, DH, dtype, seed + 21)
+    q, k, v, do = k3_inputs(torch, TB, TS, TS, DH, dtype, seed + 21, Hn)
     o, lse = fa.flash_fwd(q, k, v, causal=True)
     o_r, lse_r = fa.flash_fwd_reference(q, k, v, causal=True)
     err_o, ratio_o, ok = flash_compare(o, o_r, q, k, v, dtype, causal=True)
@@ -2256,9 +2303,9 @@ def check_k3(torch, F, dtype, seed):
     delta = fa.bwd_delta(o, do)
     args = (q, k, v, None, lse, delta, do)
     es = q.element_size()
-    n = TB * TS * H * DH * es                    # one [B, S, H, D] tensor
-    stats = 2 * TB * H * TS * 4                  # lse and delta, f32
-    pairs = TB * H * TS * (TS + 1) // 2          # live (q, k) pairs
+    n = TB * TS * Hn * DH * es                   # one [B, S, H, D] tensor
+    stats = 2 * TB * Hn * TS * 4                 # lse and delta, f32
+    pairs = TB * Hn * TS * (TS + 1) // 2         # live (q, k) pairs
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     qg, kg, vg = (x.clone().requires_grad_() for x in (qt, kt, vt))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
@@ -2299,7 +2346,7 @@ def check_k3(torch, F, dtype, seed):
         res[name] = dict(err=err, ms=ms, run_ms=run_ms, dev_ms=dev,
                          plain_ms=plain_ms, library_ms=lib_bwd,
                          bound_ms=b_ms, bound_by=b_by)
-        log(f"  K3 flash_attention_bwd_{name} {dtype} [{TB},{TS},{H},{DH}] "
+        log(f"  K3 flash_attention_bwd_{name} {dtype} [{TB},{TS},{Hn},{DH}] "
             f"causal: "
             f"max_abs_err {err:.3e} (atol, rtol) {K3_TOL[dtype]}; kernel "
             f"{ms:.4f} ms ({run_ms:.4f} back to back, {ms_text(dev)} on the "
@@ -2313,7 +2360,7 @@ def check_k3(torch, F, dtype, seed):
                                                 causal=True))
     whole_run = time_run_ms(torch, lambda: fa.flash_bwd(
         q, k, v, None, o, lse, do, causal=True))
-    b_ms, b_by = bound(8 * n + TB * H * TS * 4, 5 * 2 * DH * pairs, dtype,
+    b_ms, b_by = bound(8 * n + TB * Hn * TS * 4, 5 * 2 * DH * pairs, dtype,
                        tf32_method(dtype))
     log(f"  K3 flash_bwd {dtype} (delta + both kernels): {whole:.4f} ms "
         f"({whole_run:.4f} back to back); "
@@ -2324,12 +2371,13 @@ def check_k3(torch, F, dtype, seed):
     dev = device_ms(torch, lambda: fa.flash_fwd(q, k, v, causal=True))
     plain_ms = time_ms(torch, lambda: fa.flash_fwd_reference(
         q, k, v, causal=True), reps=5)
-    b_ms, b_by = bound(4 * n + TB * H * TS * 4, 2 * 2 * DH * pairs, dtype,
+    b_ms, b_by = bound(4 * n + TB * Hn * TS * 4, 2 * 2 * DH * pairs, dtype,
                        tf32_method(dtype))
     res["fwd"] = dict(err=err_o, ratio=ratio_o, ms=ms, run_ms=run_ms,
                       dev_ms=dev, plain_ms=plain_ms,
                       library_ms=lib_fwd, bound_ms=b_ms, bound_by=b_by)
-    log(f"  K2 flash_attention {dtype} at the training shape: max_abs_err "
+    log(f"  K2 flash_attention {dtype} at the training shape"
+        f"{heads_label(Hn)}: max_abs_err "
         f"{err_o:.3e}, largest err / bound {ratio_o:.4f} (flash_compare), "
         f"lse {lse_err:.3e}; kernel {ms:.4f} ms "
         f"({run_ms:.4f} back to back, {ms_text(dev)} on the device), plain "
@@ -4671,10 +4719,13 @@ def phase15a(torch, seed, card):
     return counts["1f1b"], w0, batches, plain, plain_s
 
 
-def phase15b(torch, seed, card, w0, batches, plain, plain_s):
+def phase15b(torch, F, seed, card, w0, batches, plain, plain_s):
     """15b: FSDP over a virtual dp 4 and ShardingPlan over dp 2 x tp 2,
     the graph built at the global batch, each three SGD steps against
-    the plain executor's (one evaluation of the batch a step)."""
+    the plain executor's (one evaluation of the batch a step); then K2
+    and K3's two kernels against their plain versions at the plan's
+    per-rank shape (6 heads).  Returns (the plan's launches, {"fwd",
+    "dkv", "dq": result})."""
     from hetu_tpu_torch import graph as ht
     from hetu_tpu_torch import models
     from hetu_tpu_torch.kernels import launch_counts
@@ -4699,8 +4750,16 @@ def phase15b(torch, seed, card, w0, batches, plain, plain_s):
         ex = ht.Executor({"train": [loss, train]}, seed=seed,
                          dist_strategy=strategy)
         ex.load_dict(w0)
-        want = flash_launches(launch_counts(), 12)
+        # the dp x tp plan splits the attention over tp: each rank
+        # launches K2 and K3 on its heads
+        tp_n = 1 if ex.tp_run is None else ex.tp_run.n
+        want = flash_launches(launch_counts(), 12 * tp_n)
         got = steps15(torch, ex, ids, labels, batches, want, f"15b {tag}")
+        if tp_n > 1:
+            plan = (got[3], tp_n)
+        if ex.tp_gathers:
+            fail(f"15b {tag}: {ex.tp_gathers} gathers of split values in "
+                 f"a step, want 0")
         worst = close15((got[0], ex.return_tensor_values()), plain,
                         f"15b {tag}")
         emb = ex.local_shards("bert_embeddings_word_embeddings")
@@ -4713,7 +4772,9 @@ def phase15b(torch, seed, card, w0, batches, plain, plain_s):
         log(f"  15b {tag} on {card}: {len(emb)} virtual ranks, a rank's "
             f"shard of the word embeddings {list(emb[0].shape)}, of layer "
             f"0's q weight {list(q0[0].shape)}; built at the global batch "
-            f"{B}, one evaluation a step (12 K2, 12 K3 dK/dV, 12 K3 dQ); "
+            f"{B}, one evaluation a step ({12 * tp_n} K2, {12 * tp_n} K3 "
+            f"dK/dV, {12 * tp_n} K3 dQ: tp {tp_n}, {ex.tp_gathers} "
+            f"gathers); "
             f"losses {got[0]} (plain {plain[0]}), worst final tensor err / "
             f"bound {worst:.4f}; step {step_ms15(got[1]):.2f} ms (median "
             f"after the first; steps {[round(x * 1e3, 2) for x in got[1]]}; "
@@ -4721,6 +4782,11 @@ def phase15b(torch, seed, card, w0, batches, plain, plain_s):
             f"{got[2]} B")
         del ex
         torch.cuda.empty_cache()
+    counts, tp_n = plan
+    kres = check_bert_kernels(
+        torch, F, "float32", seed + 15, (B, PP15["seq"], H // tp_n, DH),
+        None, "15b", "15b, a dp 2 x tp 2 rank's heads")
+    return counts, kres
 
 
 def trio_on_the_wire(torch, ht, mesh, seed):
@@ -4925,17 +4991,18 @@ def phase15d(torch, seed, card, w0, batches):
 def phase15(torch, F, seed, card):
     """Phase 15: 15-pre (f32 K2/K3 at 15a's microbatch shape), 15a, 15b,
     15c, 15d.  Returns (15-pre's {"fwd", "dkv", "dq": result}, 15a
-    1f1b's launches)."""
+    1f1b's launches, 15b's plan's launches and its per-rank results)."""
     t_phase = time.perf_counter()
     shape = (PP15["batch"] // PP15["microbatches"], PP15["seq"], H, DH)
     kres = check_bert_kernels(torch, F, "float32", seed + 15, shape, None,
                               "15-pre", "15-pre, 15a's microbatch")
     counts, w0, batches, plain, plain_s = phase15a(torch, seed, card)
-    phase15b(torch, seed, card, w0, batches, plain, plain_s)
+    counts_b, kres_b = phase15b(torch, F, seed, card, w0, batches, plain,
+                                plain_s)
     phase15c(torch, seed, card, w0, batches, plain, plain_s)
     phase15d(torch, seed, card, w0, batches)
     log(f"  phase 15 in {time.perf_counter() - t_phase:.1f} s")
-    return kres, counts
+    return kres, counts, counts_b, kres_b
 
 
 # ---------------------------------------------------------------- #
@@ -5011,11 +5078,12 @@ def phase16(torch, seed, card, train_runs):
     data = synthetic(cfg, np.random.RandomState(seed))
     batches = [next(data) for _ in range(n)]
     weights = htt.GPTForCausalLMModule(cfg, seed=seed).var_values()
-    counts, res = {}, {}
+    counts, res, final = {}, {}, {}
     for dt, mp in (("float32", None), ("bfloat16", "bf16")):
         ids, labels, ex = gpt16_executor(ht, models, cfg, seed, weights, mp)
         losses, secs, counts[dt] = gpt16_steps(torch, ex, ids, labels,
                                                batches, L, dt)
+        final[dt] = ex.return_tensor_values()
         want = train_runs[dt][0]["losses"][:n]
         ms = float(np.median(secs[GPT16["warm"]:])) * 1e3
         res[dt] = (losses, ms)
@@ -5096,7 +5164,8 @@ def phase16(torch, seed, card, train_runs):
         f"waves, {eng3.spec_accepted}/{eng3.spec_proposed} drafts "
         f"accepted)")
     log(f"  phase 16 in {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, dict(cfg=cfg, weights=weights, batches=batches, res=res,
+                        final=final)
 
 
 # ---------------------------------------------------------------- #
@@ -5187,7 +5256,7 @@ def phase17a(torch, htt, spec, moe10, card):
     from hetu_tpu_torch.models import gpt_decode as gd
     from hetu_tpu_torch.models import moe_decode as md
     from hetu_tpu_torch.parallel import make_mesh
-    from hetu_tpu_torch.parallel.sharding import rank_pieces
+    from hetu_tpu_torch.parallel.sharding import placement, rank_pieces
     params, cfg, (res10, _, st10) = moe10
     n, E = EP17["ep"], cfg.num_experts
     mesh = make_mesh({"ep": n}, device=params["gpt_wte_table"].device)
@@ -5196,10 +5265,10 @@ def phase17a(torch, htt, spec, moe10, card):
     for k in stacks:
         v = placed[k]
         views = rank_pieces(v, ("ep",) + (None,) * (v.dim() - 1), mesh)
-        if md.expert_placement(v) != (mesh, "ep") or len(views) != n or any(
+        if placement(v) != (mesh, "ep", 0) or len(views) != n or any(
                 q.shape[0] * n != v.shape[0] for q in views):
             fail(f"17a: {k} is not split over ep {n}")
-    if any(md.expert_placement(v) is not None
+    if any(placement(v) is not None
            for k, v in placed.items() if k not in stacks):
         fail("17a: a parameter other than the expert stacks is placed")
     with expert_batches(md) as seen, first_moe_call(gd) as kept:
@@ -5445,6 +5514,341 @@ def phase17(torch, htt, seed, spec, moe10, card):
     return counts
 
 
+# ---------------------------------------------------------------- #
+# phase 18: the tensor-parallel compute split
+# ---------------------------------------------------------------- #
+
+TP18 = dict(tp=4)
+# placed vs whole logits of the first prompt (teacher-forced, flash):
+# the all-reduce sums the out-projections' partials in another order
+TP18_LOGIT_RTOL = 1e-5
+# the one-rank NCCL mesh when it is not bit-equal
+TP18_NCCL_RTOL = 1e-6
+# 18b: phase 15's loss tolerance and final-tensor bound
+TP18_LOSS_RTOL = PP15_RTOL
+TP18_ATOL, TP18_RTOL = PP15_ATOL, PP15_RTOL
+TP18_LR = 3e-4          # gpt16_executor's AdamW rate
+# the serving cores' attention wrappers (models/gpt_decode.py's names)
+SERVE_WRAPPERS = ("flash_attention", "ragged_attention",
+                  "ragged_paged_attention", "paged_decode_attention",
+                  "paged_block_decode_attention", "paged_verify_attention",
+                  "paged_block_verify_attention")
+
+
+@contextlib.contextmanager
+def launch_heads(module, names):
+    """Count each call of ``module``'s wrappers ``names`` by (wrapper,
+    q's (heads, head dim)): what one rank's launch attends."""
+    seen = collections.Counter()
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n, f):
+        def call(q, *a, **kw):
+            seen[n, tuple(q.shape[-2:])] += 1
+            return f(q, *a, **kw)
+        return call
+
+    for n, f in saved.items():
+        setattr(module, n, wrap(n, f))
+    try:
+        yield seen
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+
+
+def heads_only(seen, want, tag):
+    bad = {k: v for k, v in seen.items() if k[1] != want}
+    if bad or not seen:
+        fail(f"{tag}: launches on other heads than {want}: {dict(bad)}")
+
+
+def rel_err(torch, got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def tp_serving_checks(torch, F, seed, heads):
+    """18a's kernels against their plain versions at a rank's ``heads``
+    (f32 q, phase 2's and phase 7's waves): each kernel that 18a's
+    engines launch, {row key: ``measure``'s result}."""
+    dt = "float32"
+    return {
+        "K1": check_k1(torch, F, dt, seed, heads=heads),
+        "K1 decode": check_k1(torch, F, dt, seed, wave="decode",
+                              heads=heads),
+        "K1 verify": check_k1(torch, F, dt, seed, wave="verify",
+                              heads=heads),
+        "K8": check_k8(torch, F, dt, seed, heads=heads),
+        "K8 decode": check_k8(torch, F, dt, seed, wave="decode",
+                              heads=heads),
+        "K4": check_decode(torch, F, dt, seed, False, heads=heads),
+        "K5": check_decode(torch, F, dt, seed, True, heads=heads),
+        "K2": check_k2(torch, F, dt, seed, heads=heads),
+        "K1-int8": check_k1(torch, F, dt, seed, int8=True, heads=heads),
+        "K1-int8 decode": check_k1(torch, F, dt, seed, int8=True,
+                                   wave="decode", heads=heads)}
+
+
+def phase18a(torch, F, htt, seed, spec, runs, spec_runs, runs8, res32,
+             card):
+    """18a: GPT-2-small placed by ``tp_shard_params`` over a virtual tp
+    4 (3 heads a rank) through the four engine configurations, paged
+    mixed with ``spec=4`` and with an int8 cache, f32, on phase 4's
+    requests; then a one-rank NCCL ``DeviceMesh``; then each kernel the
+    engines launched against its plain version at 3 heads.  Returns
+    ({run tag: launches}, {row key: kernel result})."""
+    from hetu_tpu_torch.models import gpt_decode as gd
+    from hetu_tpu_torch.parallel import make_mesh
+    from hetu_tpu_torch.parallel.sharding import placement
+    cfg = htt.GPTConfig()
+    n, H = TP18["tp"], cfg.num_attention_heads
+    Dh = cfg.hidden_size // H
+    params = htt.params_from_numpy(gpt2_small_params(cfg, seed))
+    mesh = make_mesh({"tp": n}, device=params["gpt_wte_table"].device)
+    placed = gd.tp_shard_params(params, mesh, cfg)
+    split = {k: placement(v)[2] for k, v in placed.items()
+             if placement(v) is not None}
+    if len(split) != 10 * cfg.num_hidden_layers:
+        fail(f"18a: {len(split)} split parameters, want 10 a layer")
+    greedy = [i for i, (_, t, _) in enumerate(spec) if t == 0]
+    out, oracle = {}, {}
+    for config, kw in [(c, {}) for c in CONFIGS] + [
+            ("paged-mixed", {"spec": 4}), ("paged-mixed",
+                                           {"kv_quant": "int8"})]:
+        tag = config + "".join(f" {k}={v}" for k, v in kw.items())
+        with launch_heads(gd, SERVE_WRAPPERS) as seen:
+            res, counts, st = serve(torch, htt, placed, cfg, spec,
+                                    "float32", config, **kw)
+        heads_only(seen, (H // n, Dh), f"18a {tag}")
+        if kw.get("kv_quant"):
+            base = runs8[config, "float32"]
+            gates = [margin_gate(torch, params, cfg, res32[f"r{i}"].tokens,
+                                 res[f"r{i}"].tokens, len(spec[i][0]),
+                                 oracle) for i in greedy]
+            same = [i for i in greedy if list(res[f"r{i}"].tokens)
+                    == list(base[0][f"r{i}"].tokens)]
+            verdict = (f"int8 greedy tokens == the unplaced int8 run's for "
+                       f"{len(same)} of {len(greedy)}; vs phase 4's f32 "
+                       f"within the margin gate {[g for g in gates if g]}")
+        else:
+            base = (spec_runs if kw.get("spec") else runs)[config,
+                                                           "float32"]
+            bad = [i for i in greedy if list(res[f"r{i}"].tokens)
+                   != list(base[0][f"r{i}"].tokens)]
+            if bad:
+                fail(f"18a {tag}: greedy tokens differ from the unplaced "
+                     f"engine's for requests {bad}")
+            verdict = (f"greedy tokens == the unplaced engine's "
+                       f"({len(greedy)} requests)")
+        ub = base[2]
+        if st["cache_bytes"] * n != ub["cache_bytes"]:
+            fail(f"18a {tag}: a rank's cache {st['cache_bytes']} B is not "
+                 f"1/{n} of the unplaced {ub['cache_bytes']} B")
+        out[tag] = (counts, st)
+        log(f"  18a {tag} on {card}: tp {n}, {H // n} heads of {Dh} a "
+            f"rank's launch ({sum(seen.values())} launches: "
+            f"{dict(seen)}); {verdict}; {st['tokens_per_s']:.1f} tok/s, "
+            f"TTFT p50 {st['ttft_p50_ms']:.1f} p99 {st['ttft_p99_ms']:.1f} "
+            f"ms (unplaced {ub['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{ub['ttft_p50_ms']:.1f} ms); cache {st['cache_bytes']} B a "
+            f"rank (unplaced {ub['cache_bytes']} B)")
+    first = np.asarray(spec[0][0], np.int64)
+    want = gd.teacher_forced_logits(params, cfg, first)
+    got = gd.teacher_forced_logits(placed, cfg, first)
+    err = rel_err(torch, got, want)
+    if not err <= TP18_LOGIT_RTOL:
+        fail(f"18a: placed vs whole logits of the first prompt {err:.3e} "
+             f"of max |logit| > {TP18_LOGIT_RTOL}")
+    log(f"  18a: placed vs whole teacher-forced logits of the first prompt "
+        f"({first.size} positions) {err:.3e} of max |logit| (tol "
+        f"{TP18_LOGIT_RTOL})")
+    del placed
+    nccl18(torch, htt, params, cfg, spec, res32, want, card)
+    del params
+    torch.cuda.empty_cache()
+    log(f"  18a: the engines' kernels at a rank's {H // n} heads against "
+        f"their plain versions")
+    kres = tp_serving_checks(torch, F, seed, H // n)
+    return {tag: c for tag, (c, _) in out.items()}, kres
+
+
+def nccl18(torch, htt, params, cfg, spec, res32, want, card):
+    """18a's one-rank NCCL world: the placed engine and logits against
+    the unplaced ones, bit for bit or within TP18_NCCL_RTOL."""
+    import torch.distributed as dist
+    from hetu_tpu_torch.models import gpt_decode as gd
+    from hetu_tpu_torch.parallel import make_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke18_")
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh({"tp": 1})
+            if type(mesh).__name__ != "DeviceMesh":
+                fail(f"18a: make_mesh under torch.distributed gave "
+                     f"{type(mesh).__name__}")
+            placed = gd.tp_shard_params(params, mesh, cfg)
+            res, _, st = serve(torch, htt, placed, cfg, spec, "float32",
+                               "paged-mixed")
+            bad = [i for i in range(len(spec)) if list(res[f"r{i}"].tokens)
+                   != list(res32[f"r{i}"].tokens)]
+            got = gd.teacher_forced_logits(placed, cfg,
+                                           np.asarray(spec[0][0], np.int64))
+            if torch.equal(got, want) and not bad:
+                verdict = "bit-equal to the unplaced logits and tokens"
+            else:
+                err = rel_err(torch, got, want)
+                why = ("the NCCL all-reduce of one rank returned other "
+                       "bits than its input" if not torch.equal(got, want)
+                       else f"tokens of requests {bad} differ")
+                if bad or not err <= TP18_NCCL_RTOL:
+                    fail(f"18a NCCL: {why}; logits {err:.3e} of max |logit|"
+                         f" (tol {TP18_NCCL_RTOL})")
+                verdict = (f"not bit-equal ({why}); logits {err:.3e} of "
+                           f"max |logit| <= {TP18_NCCL_RTOL}")
+            log(f"  18a on {card}: one-rank NCCL DeviceMesh "
+                f"{mesh.mesh_dim_names}, paged mixed f32: all "
+                f"{len(spec)} requests (greedy and sampled) and the first "
+                f"prompt's logits {verdict}; {st['tokens_per_s']:.1f} "
+                f"tok/s, cache {st['cache_bytes']} B")
+            del placed
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def gpt_tp_specs(L):
+    """JAX's GPT_TP_SPECS pattern (tests/test_all_layouts.py) over ``L``
+    layers of the model named "gpt"."""
+    specs = {}
+    for i in range(L):
+        for n in ("attn_q_weight", "attn_k_weight", "attn_v_weight",
+                  "ffn_wi_weight"):
+            specs[f"gpt_h{i}_{n}"] = (None, "tp")
+        for n in ("attn_proj_weight", "ffn_wo_weight"):
+            specs[f"gpt_h{i}_{n}"] = ("tp", None)
+    return specs
+
+
+def phase18b(torch, F, seed, card, graph16):
+    """18b: phase 16's graph GPT-2-small (B 8, S 1024, three AdamW
+    steps, f32 and bf16) under ``ModelParallel4LM(tp=4)`` with JAX's
+    GPT_TP_SPECS pattern over all 12 layers, against phase 16's plain
+    executor; then K2 and K3's two kernels against their plain versions
+    at the training shape with a rank's 3 heads.  Returns ({dtype:
+    launches of the three steps}, {"fwd", "dkv", "dq": {dtype:
+    result}})."""
+    import hetu_tpu_torch.kernels.flash_attention as fa
+    from hetu_tpu_torch import graph as ht
+    from hetu_tpu_torch import models
+    from hetu_tpu_torch.kernels import launch_counts, reset_launches
+    cfg, weights, batches = (graph16[k] for k in ("cfg", "weights",
+                                                  "batches"))
+    n, L, H = TP18["tp"], cfg.num_hidden_layers, cfg.num_attention_heads
+    Dh = cfg.hidden_size // H
+    counts = {}
+    for dt, mp in (("float32", None), ("bfloat16", "bf16")):
+        with launch_heads(fa, ("flash_attention",)) as seen:
+            model = models.GPTForCausalLM(cfg, name="gpt")
+            ids = ht.placeholder_op("input_ids")
+            labels = ht.placeholder_op("labels")
+            loss, _ = model(ids, labels=labels)
+            opt = ht.optim.AdamWOptimizer(learning_rate=TP18_LR,
+                                          weight_decay=0.01)
+            opt.clip_grad_norm = 1.0
+            ex = ht.Executor({"train": [loss, opt.minimize(loss)]},
+                             seed=seed, mixed_precision=mp,
+                             dist_strategy=ht.dist.ModelParallel4LM(
+                                 tp=n, specs=gpt_tp_specs(L)))
+            ex.load_dict(weights)
+            losses, secs = [], []
+            total = collections.Counter()
+            for i, (x, y) in enumerate(batches):
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(ex.run("train", feed_dict={
+                    ids: x, labels: y})[0]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                c = launch_counts()
+                want = flash_launches(c, L * n)
+                if c != want:
+                    fail(f"18b {dt} step {i}: launches {c}, want {want} "
+                         f"({L} layers x tp {n})")
+                if ex.tp_gathers:
+                    fail(f"18b {dt} step {i}: {ex.tp_gathers} gathers of "
+                         f"split values, want 0")
+                total.update(c)
+        heads_only(seen, (H // n, Dh), f"18b {dt}")
+        counts[dt] = total
+        plain_l, plain_ms = graph16["res"][dt]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_l))
+        if not all(np.isfinite(losses)):
+            fail(f"18b {dt}: a loss is not finite: {losses}")
+        ms = float(np.median(secs[GPT16["warm"]:])) * 1e3
+        text = ""
+        if dt == "float32":
+            if not rel <= TP18_LOSS_RTOL:
+                fail(f"18b f32: losses {losses} vs plain {plain_l}: "
+                     f"{rel:.3e} relative > {TP18_LOSS_RTOL}")
+            got, want = ex.return_tensor_values(), graph16["final"][dt]
+            # k's bias has an exact gradient of 0 (softmax is invariant to
+            # it), so each side's rounding-level gradient becomes an AdamW
+            # step of up to lr: held within steps x lr instead (as
+            # tests/test_torch_gpt_graph.py holds it against JAX)
+            kb = [k for k in want if k.endswith("_attn_k_bias")]
+            kb_err = max(float(np.max(np.abs(got[k] - want[k]))) for k in kb)
+            if not kb_err <= len(batches) * TP18_LR:
+                fail(f"18b f32: k biases {kb_err:.3e} from plain > "
+                     f"{len(batches)} steps x lr {TP18_LR}")
+            ratio = {k: float(np.max(np.abs(got[k] - want[k])
+                                     / (TP18_ATOL + TP18_RTOL
+                                        * np.abs(want[k]))))
+                     for k in want if k not in kb}
+            worst = max(ratio, key=ratio.get)
+            if not ratio[worst] <= 1.0:
+                fail(f"18b f32: final tensors {ratio[worst]:.3f} x (atol "
+                     f"{TP18_ATOL} + rtol {TP18_RTOL} |plain|) at {worst}; "
+                     f"over: {sorted(k for k, r in ratio.items() if r > 1)}")
+            text = (f", worst final tensor err / bound {ratio[worst]:.4f} "
+                    f"({worst}), k biases {kb_err:.3e} (<= {len(batches)} "
+                    f"x lr)")
+        log(f"  18b {dt} on {card}: graph GPT-2-small B {TB} S {TS} over a "
+            f"virtual tp {n} ({len(ex.tp_run.split_vars)} split weights), "
+            f"losses {losses} (plain {plain_l}: {rel:.3e} relative"
+            + (f", tol {TP18_LOSS_RTOL}" if dt == "float32" else ", logged")
+            + f"){text}; {ex.tp_gathers} gathers, {ex.tp_run.grad_joins} "
+            f"gradient joins a step; launches a step {L * n} K2, {L * n} K3 "
+            f"dK/dV, {L * n} K3 dQ, K2 on {H // n} heads of {Dh}; step "
+            f"{ms:.2f} ms (median of steps {GPT16['warm'] + 1}-"
+            f"{len(batches)}; steps {[round(x * 1e3, 2) for x in secs]}), "
+            f"plain {plain_ms:.2f} ms")
+        del ex
+        torch.cuda.empty_cache()
+    kres = {}
+    for dt in ("float32", "bfloat16"):
+        for key, r in check_k3(torch, F, dt, seed, Hn=H // n).items():
+            kres.setdefault(key, {})[dt] = r
+    return counts, kres
+
+
+def phase18(torch, F, htt, seed, spec, runs, spec_runs, runs8, res32,
+            graph16, card):
+    """Phase 18: 18a, 18b.  Returns (18a's {run tag: launches} and
+    kernel results, 18b's {dtype: launches} and kernel results)."""
+    t18 = time.perf_counter()
+    r18a = phase18a(torch, F, htt, seed, spec, runs, spec_runs, runs8,
+                    res32, card)
+    torch.cuda.empty_cache()
+    r18b = phase18b(torch, F, seed, card, graph16)
+    log(f"  phase 18 in {time.perf_counter() - t18:.1f} s")
+    return r18a, r18b
+
+
 def request_set(prompts, seed, V):
     """16 requests: phase 3's four 128-token prompts (greedy), four that
     share a 128-token prefix, and eight of 32-600 tokens, four of them
@@ -5662,14 +6066,15 @@ def main(argv=None):
         "BERT-base pipelined over four stages of a virtual mesh (gpipe, "
         "1f1b), FSDP and a dp x tp ShardingPlan on virtual ranks, "
         "DataParallel over a one-rank NCCL world")
-    kres15, counts15 = phase15(torch, F, args.seed, card)
+    kres15, counts15, counts15b, kres15b = phase15(torch, F, args.seed,
+                                                   card)
 
     # ---- phase 16 ---- #
     log("phase 16: GPT on the graph surface: GPT-2-small (B 8, S 1024) "
         "three AdamW steps in f32 and bf16 against phase 8's nn.Module "
         "trainer, greedy_generate vs generate_fast, the engine over the "
         "graph-trained weights, serve_gpt")
-    counts16 = phase16(torch, args.seed, card, train_runs)
+    counts16, graph16 = phase16(torch, args.seed, card, train_runs)
 
     # ---- phase 17 ---- #
     log("phase 17: expert parallelism: phase 10's MoE GPT over a virtual "
@@ -5678,6 +6083,16 @@ def main(argv=None):
         "widths with the 1.5-D layer")
     counts17 = phase17(torch, htt, args.seed, spec, moe10, card)
     del moe10
+
+    # ---- phase 18 ---- #
+    log("phase 18: tensor parallelism: GPT-2-small placed by "
+        "tp_shard_params over a virtual tp 4 through every engine "
+        "configuration and a one-rank NCCL mesh; the graph GPT-2-small "
+        "under ModelParallel4LM(tp=4), f32 and bf16")
+    (counts18a, kres18a), (counts18b, kres18b) = phase18(
+        torch, F, htt, args.seed, spec, runs, spec_runs, runs8, res32,
+        graph16, card)
+    del graph16
 
     # each kernel's launches from the run of the path it serves: K1 the
     # phase-4 engine, K2 phase 3's generate_fast, K4/K5/K8 the phase-5
@@ -5863,6 +6278,22 @@ def main(argv=None):
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    # K2 and K3 at 15b's per-rank shape (the dp 2 x tp 2 plan, 6 heads),
+    # f32: launches from the plan's three steps, the numbers 15b's checks
+    for key, name, file, replaces in (
+            ("fwd", "flash_attention", "flash_fwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:173"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:396"),
+            ("dq", "flash_attention_bwd_dq", "flash_bwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:428")):
+        r = kres15b[key]
+        kernels.append(dict(
+            name=f"{name}[float32, 15b tp 2, 6 heads]", route="cuda",
+            source=src + file, replaces=replaces, launches=counts15b[name],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     # K2 and K3 at the training shape: launches from phase 16's three
     # graph steps of their dtype (the numbers phase 8's)
     for key, name, file, replaces in (
@@ -5895,6 +6326,65 @@ def main(argv=None):
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    # 18a's kernels at a rank's 3 heads: launches from the 18a run of
+    # their path (K1 and its int8 twin the paged mixed engine, f32 and
+    # int8; K1's verify rows its spec 4 run; K8 the contiguous mixed
+    # engine; K4 and K2 the contiguous split engine; K5 the paged split
+    # engine), the numbers 18a's checks at those heads
+    for k, name, file, replaces, tag, counter in (
+            ("K1", "ragged_paged_attention", k1[0], r1, "paged-mixed",
+             "ragged_paged_attention:wide"),
+            ("K1 decode", "ragged_paged_attention", k1n[0], r1,
+             "paged-mixed", "ragged_paged_attention:narrow"),
+            ("K1 verify", "ragged_paged_attention", k1n[0], r1,
+             "paged-mixed spec=4", "ragged_paged_attention:narrow"),
+            ("K8", "ragged_attention", k1[0], r8, "contiguous-mixed",
+             "ragged_attention:wide"),
+            ("K8 decode", "ragged_attention", k1n[0], r8,
+             "contiguous-mixed", "ragged_attention:narrow"),
+            ("K4", "paged_decode_attention", split[0],
+             "hetu_tpu/kernels/decode_attention.py:159", "contiguous-split",
+             "paged_decode_attention"),
+            ("K5", "paged_block_decode_attention", split[0],
+             "hetu_tpu/kernels/decode_attention.py:259", "paged-split",
+             "paged_block_decode_attention"),
+            ("K2", "flash_attention", "flash_fwd.cu",
+             "hetu_tpu/kernels/flash_attention.py:173", "contiguous-split",
+             "flash_attention"),
+            ("K1-int8", "ragged_paged_attention_int8", k1[0], rq,
+             "paged-mixed kv_quant=int8", "ragged_paged_attention_int8:wide"),
+            ("K1-int8 decode", "ragged_paged_attention_int8", k1n[0], rq,
+             "paged-mixed kv_quant=int8",
+             "ragged_paged_attention_int8:narrow")):
+        r = kres18a[k]
+        wave = k.split(" ")[1] if " " in k else None
+        kernels.append(dict(
+            name=(f"{name}[float32, 18a tp 4, 3 heads"
+                  + (f", {wave} Q {NARROW_WAVES[wave][0]}" if wave else "")
+                  + "]"), route="cuda", source=src + file,
+            replaces=replaces, launches=counts18a[tag][counter],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
+    # K2 and K3 at the training shape with a rank's 3 heads: launches
+    # from 18b's steps of their dtype, the numbers 18b's checks
+    for key, name, file, replaces in (
+            ("fwd", "flash_attention", "flash_fwd",
+             "hetu_tpu/kernels/flash_attention.py:173"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_bwd",
+             "hetu_tpu/kernels/flash_attention.py:396"),
+            ("dq", "flash_attention_bwd_dq", "flash_bwd",
+             "hetu_tpu/kernels/flash_attention.py:428")):
+        for dt in ("float32", "bfloat16"):
+            r = kres18b[key][dt]
+            kernels.append(dict(
+                name=f"{name}[{dt}, 18b tp 4, 3 heads]", route="cuda",
+                source=src + file + ("_bf16.cu" if dt == "bfloat16"
+                                     else ".cu"),
+                replaces=replaces, launches=counts18b[dt][name],
+                max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"], dev_ms=r.get("dev_ms")))
     for k in kernels:
         if k["launches"] < 1:
             fail(f"{k['name']} was not launched on the main path")

@@ -96,7 +96,8 @@ def validate_serving(params, config, name, mesh=None):
         # count the config declares — a per-expert leaf with the wrong
         # leading dim is exactly the corrupt rolling-swap payload that
         # swap_params' shape check refuses, so catch it at build too
-        from ..models.moe_decode import expert_stack_shape, moe_spec_of
+        from ..models.moe_decode import moe_spec_of
+        from ..parallel.sharding import whole_shape
         spec = moe_spec_of(config)
         if spec is not None:
             E = spec.num_experts
@@ -128,12 +129,23 @@ def validate_serving(params, config, name, mesh=None):
                         ("moe_expert_stack_w2", w2, 0, E),
                         ("moe_expert_stack_w1", w1, 1, H),
                         ("moe_expert_stack_w2", w2, 2, H)):
-                    shape = expert_stack_shape(v)
+                    shape = whole_shape(v)
                     if shape[dim] != want:
                         raise GraphVerifyError(
                             f"serving params: {us}_{leaf} dim {dim} is "
                             f"{shape[dim]}, config wants {want} (shape "
                             f"{shape})", kind="shape")
+        # the attention projections' whole shapes: a tensor-parallel
+        # rank's piece (tp_shard_params) counts as its whole value
+        for i in range(int(config.num_hidden_layers)):
+            for leaf in ("attn_q_weight", "attn_k_weight", "attn_v_weight",
+                         "attn_proj_weight"):
+                v = params.get(f"{name}_h{i}_{leaf}")
+                if v is not None and whole_shape(v) != (H, H):
+                    raise GraphVerifyError(
+                        f"serving params: {name}_h{i}_{leaf} has shape "
+                        f"{whole_shape(v)}, config wants ({H}, {H})",
+                        kind="shape")
         dtypes = sorted({str(v.dtype) for v in params.values()
                          if hasattr(v, "dtype")})
         records.append(make_record(

@@ -14,6 +14,8 @@ device work, the port of the JAX package's ``analysis/shard_check.py``.
   agree.
 - :func:`check_expert_mesh` / :func:`check_expert_alltoall`: MoE
   expert-parallel placement and dispatch/combine all-to-all pairing.
+- :func:`check_tp_mesh`: a tensor-parallel serving placement's axis
+  and head divisibility.
 - :func:`check_quantized_collectives`: every quantized collective is a
   complete, axis-consistent quantize -> collective -> dequantize trio.
 
@@ -63,6 +65,27 @@ def check_expert_mesh(mesh, num_experts, axis="ep"):
             f"mesh axis {axis!r} (size {size}) — each shard must own "
             f"E/size whole experts for the a2a block layout to hold",
             kind="expert_mesh")
+    return size
+
+
+def check_tp_mesh(mesh, num_heads, axis="tp"):
+    """Validate a tensor-parallel serving placement BEFORE any tensor
+    is placed: the ``axis`` must exist in ``mesh`` and ``num_heads``
+    must divide over it (the column split of q/k/v has to land on head
+    boundaries, each rank attending with its H/size whole heads).
+    Raises ValueError, as JAX's ``tp_shard_params``; returns the axis
+    size."""
+    names = axis_names(mesh)
+    if axis not in names:
+        raise ValueError(
+            f"tensor-parallel mesh axis {axis!r} absent from mesh axes "
+            f"{names}")
+    size = mesh_shape(mesh)[axis]
+    if num_heads % size:
+        raise ValueError(
+            f"num_attention_heads={num_heads} not divisible by "
+            f"{axis}={size}: the column split must land on head "
+            f"boundaries")
     return size
 
 

@@ -100,4 +100,5 @@ __all__ = [n for n in dir() if not n.startswith("_")
            and n not in ("node", "autodiff", "executor", "ops_misc",
                          "ops_math", "ops_matmul", "ops_conv", "ops_shape",
                          "ops_loss", "ops_embed", "ops_gnn",
-                         "ops_attention", "ops_moe", "ops_comm")]
+                         "ops_attention", "ops_moe", "ops_comm",
+                         "tensor_parallel")]

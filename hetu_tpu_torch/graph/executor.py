@@ -47,15 +47,24 @@ optimizer slot; a ``VirtualMesh``, whose ranks share one device, stores
 the whole values and reads each rank's shard as a view
 (``parallel.sharding``).  The graph is built at the global batch, as in
 JAX, and a step is the single-device step of that batch, as JAX's is
-under GSPMD: it gathers the whole values, evaluates the whole batch once
-(one dropout stream), updates the whole values and keeps each rank's
-shard.  So BatchNorm's moments, summed and ratio losses and MoE gate
-capacities see every row.  Data parallelism replicates the compute: on
-a ``DeviceMesh`` every process is fed the global batch and evaluates it
-whole, with no all-reduce over ``'dp'``; splitting the compute over the
-data axis waits for the tensor-parallel compute split (ROADMAP A9b item
-2).  ``pipeline`` runs the training subgraphs through
-``pipeline_executor.PipelineSubExecutor``.
+under GSPMD: it evaluates the whole batch once (one dropout stream),
+updates the whole values and keeps each rank's shard.  So BatchNorm's
+moments, summed and ratio losses and MoE gate capacities see every row.
+
+Tensor parallelism splits the compute (``graph/tensor_parallel.py``):
+the variables split over ``'tp'`` enter the step as each rank's pieces,
+the Megatron segments (column products, the ops between, the row
+products whose partial sums are all-reduced over ``'tp'``) and their
+gradients run per rank on them, and any other reader of a split value
+gathers it whole, counted in ``tp_gathers`` (the last run's count).  The
+optimizer updates whole values: on a ``DeviceMesh`` a step still
+all-gathers each sharded master and gradient for its update.  Data
+parallelism replicates the compute: on a ``DeviceMesh`` every process is
+fed the global batch and evaluates it whole, with no all-reduce over
+``'dp'``; splitting it over the data axis is the next slice (ROADMAP
+A9b item 2).  ``pipeline`` runs the training subgraphs through
+``pipeline_executor.PipelineSubExecutor``, whose stages read split
+values whole (counted in ``tp_gathers`` too).
 
 Parameter-server modes, sharded or asynchronous checkpoints, profiling
 and ``HETU_VALIDATE`` raise ``NotImplementedError`` naming the ROADMAP
@@ -80,11 +89,13 @@ from ..dataloader import DataloaderOp, device_transform
 from ..device import resolve_device
 from ..parallel import sharding as _sh
 from ..parallel.mesh import VirtualMesh
+from ..parallel.mesh import axis_names as _axis_names
 from . import optim as _opt
 from .autodiff import find_topo_sort
 from .node import Op, TraceContext, mix_seed
 from .ops_embed import IndexedSlicesOp
 from .ops_misc import PlaceholderOp, VJPOp, forward_with_leaves, vjp_of
+from .tensor_parallel import RankVals, TPRun, tp_split_dim
 
 
 def _later(item, what):
@@ -314,6 +325,8 @@ class SubExecutor:
         shards on a mesh)."""
         ex = self.executor
         feeds = self._feed_values(feed_dict)
+        if ex.tp_run is not None:
+            ex.tp_run.gathers = ex.tp_run.grad_joins = 0
         full = ex.full_values()
         outputs, extras, new_opt_states = self._walk(
             feeds, full, ex.run_seed(), ex.full_opt_states())
@@ -334,11 +347,23 @@ class SubExecutor:
         (outputs, the state writes, the new optimizer states)."""
         ex = self.executor
         mp = ex.config.mixed_precision
+        tp = ex.tp_run
 
         def cast_in(v):
             if mp is not None and v.is_floating_point():
                 return v.to(mp)
             return v
+
+        def whole(v):
+            return v if tp is None else tp.gather(v)
+
+        def split(xs):
+            return tp is not None and any(isinstance(x, RankVals)
+                                          for x in xs)
+
+        def dense_grad(g):
+            # a split gradient is joined for the whole-value update
+            return tp.join_grad(g) if isinstance(g, RankVals) else g
 
         tc = TraceContext(params=_ParamView(values), rng=rng,
                           training=self.training, config=ex.config,
@@ -355,7 +380,10 @@ class SubExecutor:
                 if isinstance(node, DataloaderOp):
                     vals[nid] = cast_in(feeds[node.name])
                 elif isinstance(node, PlaceholderOp):
-                    if node.name in values:
+                    if tp is not None and node.name in tp.split_vars:
+                        vals[nid] = tp.scatter(cast_in(values[node.name]),
+                                               tp.split_vars[node.name])
+                    elif node.name in values:
                         vals[nid] = cast_in(values[node.name])
                     elif node.name in feeds:
                         vals[nid] = cast_in(feeds[node.name])
@@ -366,7 +394,7 @@ class SubExecutor:
                 elif isinstance(node, _opt.OptimizerOp):
                     grad_vals = [
                         (vals[id(g.ids_node)], vals[id(g.values_node)])
-                        if i in node.sparse_inputs else vals[id(g)]
+                        if i in node.sparse_inputs else dense_grad(vals[id(g)])
                         for i, g in enumerate(node.inputs)]
                     new_opt_states[node.name] = node.apply(
                         grad_vals, tc, opt_states[node.name])
@@ -377,18 +405,27 @@ class SubExecutor:
                     vals[nid] = self._vjp(node, vals, records, answers, tc)
                 elif nid in self.recorded:
                     xs = [vals[id(i)] for i in node.inputs]
-                    leaves, out = forward_with_leaves(
-                        node, xs, tc, sorted(self.leaf_idx[nid]))
-                    records[nid] = [leaves, xs, out, self.recorded[nid]]
-                    vals[nid] = out.detach() \
-                        if isinstance(out, torch.Tensor) else out
+                    idxs = sorted(self.leaf_idx[nid])
+                    per_rank = tp.forward_with_leaves(node, xs, tc, idxs) \
+                        if split(xs) else None
+                    if per_rank is not None:
+                        vals[nid], rec = per_rank
+                        records[nid] = [rec, None, None, self.recorded[nid]]
+                    else:
+                        xs = [whole(x) for x in xs]
+                        leaves, out = forward_with_leaves(node, xs, tc,
+                                                          idxs)
+                        records[nid] = [leaves, xs, out, self.recorded[nid]]
+                        vals[nid] = out.detach() \
+                            if isinstance(out, torch.Tensor) else out
                 else:
-                    vals[nid] = node.compute(
-                        [vals[id(i)] for i in node.inputs], tc)
+                    xs = [vals[id(i)] for i in node.inputs]
+                    vals[nid] = tp.compute(node, xs, tc) if split(xs) \
+                        else node.compute(xs, tc)
                 for r in self._reads(node):
                     if self.last_use.get(id(r)) == pos:
                         vals.pop(id(r), None)
-        outputs = [vals[id(n)] for n in self.eval_nodes]
+        outputs = [whole(vals[id(n)]) for n in self.eval_nodes]
         if mp is not None:
             # report losses and metrics in f32
             outputs = [o.float() if isinstance(o, torch.Tensor)
@@ -404,8 +441,16 @@ class SubExecutor:
         if ans is None:
             leaves, xs, out, left = records[fid]
             idxs = sorted(self.groups[key])
-            grads = vjp_of(out, leaves, xs, idxs, vals[gid],
-                           retain=left > 1)
+            if xs is None:          # evaluated per rank (tensor_parallel)
+                grads = self.executor.tp_run.vjp(leaves, idxs, vals[gid],
+                                                 retain=left > 1)
+            else:
+                g = vals[gid]
+                if isinstance(g, RankVals):
+                    # the cotangent of a whole value some per-rank node
+                    # read as pieces (a scattered bias): joined
+                    g = self.executor.tp_run.join_grad(g)
+                grads = vjp_of(out, leaves, xs, idxs, g, retain=left > 1)
             ans = answers[key] = dict(zip(idxs, grads))
             ans["left"] = len(idxs)
             if left > 1:
@@ -488,6 +533,23 @@ class Executor:
         if self.mesh is not None:
             self.store_values(values)
             self.store_opt_states(self.opt_states)
+        self.tp_run = self._tp_run()
+
+    def _tp_run(self):
+        """The per-rank evaluation over the mesh's ``'tp'`` axis (None
+        without a mesh, the axis or a variable split over it alone)."""
+        if self.mesh is None or "tp" not in _axis_names(self.mesh):
+            return None
+        split = {name: tp_split_dim(n.sharding_spec)
+                 for name, n in self.variables.items()}
+        split = {k: d for k, d in split.items() if d is not None}
+        return TPRun(self.mesh, split) if split else None
+
+    @property
+    def tp_gathers(self):
+        """Whole-value gathers of split values by the last run's compute
+        (0 without tensor parallelism)."""
+        return 0 if self.tp_run is None else self.tp_run.gathers
 
     # ---- the mesh: placement and the per-run views ---- #
 

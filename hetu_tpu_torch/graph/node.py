@@ -104,7 +104,12 @@ class Op:
         self.id = Op._next_id
         Op._next_id += 1
         base = name if name is not None else type(self).__name__.replace("Op", "")
+        # the op's kind ("Matmul", "Reshape", ...; a variable's own name)
+        self.kind = base
         self.name = f"{base}_{self.id}"
+        # the factory's arguments that shape the op, for passes that
+        # rewrite how it runs (graph/tensor_parallel.py)
+        self.attrs = {}
         self.raw_ctx = ctx
         self.dtype = dtype
 
@@ -210,8 +215,9 @@ class SimpleOp(Op):
     need its device)."""
 
     def __init__(self, fn, *inputs, name=None, grad_rule=None, ctx=None,
-                 with_tc=False):
+                 with_tc=False, attrs=None):
         super().__init__(*inputs, name=name, ctx=ctx)
+        self.attrs = dict(attrs or {})
         self._fn = fn
         self._grad_rule = grad_rule
         self._with_tc = with_tc

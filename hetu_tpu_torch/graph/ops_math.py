@@ -13,8 +13,10 @@ from .. import functional as Fn
 from .node import SimpleOp
 
 
-def _simple(name, fn, *inputs, grad_rule=None, nondiff=False, ctx=None):
-    op = SimpleOp(fn, *inputs, name=name, grad_rule=grad_rule, ctx=ctx)
+def _simple(name, fn, *inputs, grad_rule=None, nondiff=False, ctx=None,
+            attrs=None):
+    op = SimpleOp(fn, *inputs, name=name, grad_rule=grad_rule, ctx=ctx,
+                  attrs=attrs)
     if nondiff:
         op.gradient = lambda output_grad: [None] * len(op.inputs)
     return op

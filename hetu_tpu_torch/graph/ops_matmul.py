@@ -28,14 +28,14 @@ def _mm(x, y, ta, tb):
 
 def matmul_op(a, b, trans_A=False, trans_B=False, ctx=None):
     return _simple("Matmul", lambda x, y: _mm(x, y, trans_A, trans_B), a, b,
-                   ctx=ctx)
+                   ctx=ctx, attrs=dict(trans=(trans_A, trans_B)))
 
 
 def linear_op(a, w, bias, trans_A=False, trans_B=False, ctx=None):
     """x @ w + bias fused."""
     return _simple("Linear",
                    lambda x, y, b: _mm(x, y, trans_A, trans_B) + b,
-                   a, w, bias, ctx=ctx)
+                   a, w, bias, ctx=ctx, attrs=dict(trans=(trans_A, trans_B)))
 
 
 def batch_matmul_op(a, b, trans_A=False, trans_B=False, ctx=None):
@@ -45,7 +45,8 @@ def batch_matmul_op(a, b, trans_A=False, trans_B=False, ctx=None):
         if trans_B:
             y = y.transpose(-1, -2)
         return _matmul(x, y).to(x.dtype)
-    return _simple("BatchMatmul", f, a, b, ctx=ctx)
+    return _simple("BatchMatmul", f, a, b, ctx=ctx,
+                   attrs=dict(trans=(trans_A, trans_B)))
 
 
 def baddbmm_op(inp, a, b, alpha=1.0, beta=1.0, ctx=None):

@@ -142,7 +142,8 @@ def norm_op(a, axis=None, p=2, ctx=None):
 
 def array_reshape_op(a, shape, ctx=None):
     shape = tuple(int(s) for s in shape)
-    return _simple("Reshape", lambda x: torch.reshape(x, shape), a, ctx=ctx)
+    return _simple("Reshape", lambda x: torch.reshape(x, shape), a, ctx=ctx,
+                   attrs=dict(shape=shape))
 
 
 def transpose_op(a, perm=None, ctx=None):
@@ -151,7 +152,7 @@ def transpose_op(a, perm=None, ctx=None):
     def f(x):
         return x.permute(*(perm if perm is not None
                            else reversed(range(x.dim()))))
-    return _simple("Transpose", f, a, ctx=ctx)
+    return _simple("Transpose", f, a, ctx=ctx, attrs=dict(perm=perm))
 
 
 def squeeze_op(a, axis, ctx=None):
@@ -168,8 +169,11 @@ def _slices(begin, size):
 
 def slice_op(a, begin, size, ctx=None):
     """size entries of -1 mean "to the end"."""
-    idx = _slices(tuple(int(b) for b in begin), tuple(int(s) for s in size))
-    return _simple("Slice", lambda x: x[idx], a, ctx=ctx)
+    begin = tuple(int(b) for b in begin)
+    size = tuple(int(s) for s in size)
+    idx = _slices(begin, size)
+    return _simple("Slice", lambda x: x[idx], a, ctx=ctx,
+                   attrs=dict(begin=begin, size=size))
 
 
 def _set(x, idx, val):
@@ -222,12 +226,13 @@ def _cat(xs, axis):
 
 
 def concat_op(a, b, axis=0, ctx=None):
-    return _simple("Concat", lambda x, y: _cat([x, y], axis), a, b, ctx=ctx)
+    return _simple("Concat", lambda x, y: _cat([x, y], axis), a, b, ctx=ctx,
+                   attrs=dict(axis=axis))
 
 
 def concatenate_op(nodes, axis=0, ctx=None):
     return _simple("Concatenate", lambda *xs: _cat(list(xs), axis), *nodes,
-                   ctx=ctx)
+                   ctx=ctx, attrs=dict(axis=axis))
 
 
 def _pad_index(n, lo, hi, mode, device):

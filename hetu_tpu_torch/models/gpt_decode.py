@@ -34,6 +34,18 @@ A serving cache may be int8 (an ``(int8 payload, f32 scales)`` pair, see
 ``_kv_write``): the cores then attend through the int8 twins of the same
 kernels.  ``teacher_forced_logits`` is the oracle of int8's margin gate.
 
+Tensor parallelism: :func:`tp_shard_params` places a dict Megatron-style
+(q/k/v and ``ffn_wi`` split by column over a mesh axis, ``attn_proj``
+and ``ffn_wo`` by row; the placement rides each tensor,
+``parallel.sharding.Placed``).  Every core then computes each rank's
+H/tp heads (``_attention``) and FFN columns (``_ffn_block``): the rank's
+q/k/v, its own KV cache and kernel launch, and a partial sum through
+its rows of the out-projection, all-reduced over the axis with the bias
+added once after the sum.  The caches of a placed model are rank-major,
+``[R, L, .., H/tp, Dh]`` for the R ranks this process runs (every rank
+of a ``VirtualMesh``, one of a ``DeviceMesh``), so each rank's cache is
+contiguous, as the kernels take it.  An unplaced dict runs as before.
+
 An MoE model (``moe_decode.MoEDecodeConfig``) runs through the same
 cores: its ``MoESpec`` rides ``cfg_tuple`` as a sixth element, and
 ``_ffn_block`` routes every position of a call through
@@ -63,6 +75,7 @@ from ..kernels.decode_attention import (paged_block_decode_attention,
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ragged_attention import (ragged_attention,
                                         ragged_paged_attention)
+from ..parallel.sharding import group_of, place_params
 from ..quant import kv_decode, kv_encode
 from ..weights import prep_param
 from .moe_decode import moe_ffn, moe_spec_of
@@ -97,6 +110,32 @@ def _kv_layer(cache, i):
     if _kv_q(cache):
         return cache[0][i], cache[1][i]
     return cache[i], None
+
+
+def _tp_group(params, name):
+    """The ``parallel.sharding.AxisGroup`` of a tensor-parallel model
+    (placed by :func:`tp_shard_params`), else None."""
+    return group_of(params[f"{name}_h0_attn_q_weight"])
+
+
+def _kv_rank(cache, j):
+    """Local rank ``j``'s cache of a tensor-parallel model's rank-major
+    ``[R, L, ..]`` cache; with ``j`` None (an unplaced model) the cache
+    as it is."""
+    if j is None:
+        return cache
+    if _kv_q(cache):
+        return cache[0][j], cache[1][j]
+    return cache[j]
+
+
+def _kv_alloc(params, name, lead, H, Dh, dtype, device):
+    """A zero float cache ``[*lead, H, Dh]``, or for a tensor-parallel
+    model the rank-major ``[R, *lead, H/tp, Dh]``."""
+    g = _tp_group(params, name)
+    shape = (*lead, H, Dh) if g is None \
+        else (len(g.ranks), *lead, H // g.n, Dh)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def _kv_write(cache, i, idx, val):
@@ -208,20 +247,53 @@ def _ffn_block(params, us, h, i, moe=None, valid=None, stats=None,
                     stats=stats, rows=moe_rows)
         return h + y.reshape(shp)
     x = _ln(h, params[f"{us}_ln2_scale"], params[f"{us}_ln2_bias"])
-    f = _gelu_tanh(x @ params[f"{us}_ffn_wi_weight"]
-                   + params[f"{us}_ffn_wi_bias"])
-    f = f @ params[f"{us}_ffn_wo_weight"] + params[f"{us}_ffn_wo_bias"]
-    return h + f
+    wi, bi = params[f"{us}_ffn_wi_weight"], params[f"{us}_ffn_wi_bias"]
+    wo = params[f"{us}_ffn_wo_weight"]
+    g = group_of(wi)
+    if g is None:
+        f = _gelu_tanh(x @ wi + bi)
+        f = f @ wo + params[f"{us}_ffn_wo_bias"]
+        return h + f
+    # each rank's columns of wi, then its rows of wo: partial sums
+    parts = [_gelu_tanh(x @ g.piece(wi, r) + g.piece(bi, r))
+             @ g.piece(wo, r) for r in g.ranks]
+    return h + (g.all_reduce(parts) + params[f"{us}_ffn_wo_bias"])
 
 
-def _qkv(params, us, x, shape):
-    q = (x @ params[f"{us}_attn_q_weight"]
-         + params[f"{us}_attn_q_bias"]).reshape(shape)
-    k = (x @ params[f"{us}_attn_k_weight"]
-         + params[f"{us}_attn_k_bias"]).reshape(shape)
-    v = (x @ params[f"{us}_attn_v_weight"]
-         + params[f"{us}_attn_v_bias"]).reshape(shape)
+def _qkv(params, us, x, shape, g=None, r=0):
+    """q, k, v of ``x`` shaped ``shape``; with an ``AxisGroup`` ``g``,
+    rank ``r``'s heads (its columns of the weights and biases)."""
+    def w(key):
+        t = params[f"{us}_attn_{key}"]
+        return t if g is None else g.piece(t, r)
+    q = (x @ w("q_weight") + w("q_bias")).reshape(shape)
+    k = (x @ w("k_weight") + w("k_bias")).reshape(shape)
+    v = (x @ w("v_weight") + w("v_bias")).reshape(shape)
     return q, k, v
+
+
+def _attention(params, us, x, shape, attend):
+    """Block ``us``'s attention sublayer on ``x`` without the residual:
+    q, k, v shaped ``shape`` ([.., H, Dh]), ``attend(j, q, k, v)`` -> o
+    of q's shape (``j`` the local rank whose cache it writes and reads,
+    None for an unplaced model), then o @ attn_proj + bias.  A tensor-parallel block runs
+    ``attend`` once per local rank on that rank's H/tp heads and sums
+    the ranks' partial out-projections over the mesh axis (the bias
+    added once, after the sum)."""
+    w = params[f"{us}_attn_proj_weight"]
+    b = params[f"{us}_attn_proj_bias"]
+    g = group_of(params[f"{us}_attn_q_weight"])
+    if g is None:
+        q, k, v = _qkv(params, us, x, shape)
+        o = attend(None, q, k, v)
+        return o.reshape(*shape[:-2], shape[-2] * shape[-1]) @ w + b
+    rs = (*shape[:-2], shape[-2] // g.n, shape[-1])
+    parts = []
+    for j, r in enumerate(g.ranks):
+        q, k, v = _qkv(params, us, x, rs, g, r)
+        o = attend(j, q, k, v)
+        parts.append(o.reshape(*rs[:-2], rs[-2] * rs[-1]) @ g.piece(w, r))
+    return g.all_reduce(parts) + b
 
 
 def _logits(params, name, h):
@@ -241,7 +313,7 @@ def _kv_index(cache_k, block_tables, slots, posns):
     row and the offset in it for the block-table pool."""
     if block_tables is None:
         return slots, posns
-    bs = _kv_payload(cache_k).shape[2]
+    bs = _kv_payload(cache_k).shape[-3]
     return block_tables.long()[slots, posns // bs], posns % bs
 
 
@@ -274,7 +346,6 @@ def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
     name, L, H, Dh = cfg_tuple[:4]
     moe = _moe_of(cfg_tuple)
     B = token.shape[0]
-    hdim = H * Dh
     dev = token.device
     if torch.is_tensor(pos):
         pos = pos.long()
@@ -291,19 +362,21 @@ def _decode_step(params, cfg_tuple, cache_k, cache_v, pos, token,
     for i in range(L):
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
-        q, k, v = _qkv(params, us, x, (B, H, Dh))
-        _kv_write(cache_k, i, (wa, wo), k[rows])
-        _kv_write(cache_v, i, (wa, wo), v[rows])
-        ks, ksc = _kv_layer(cache_k, i)
-        vs, vsc = _kv_layer(cache_v, i)
-        if block_tables is None:
-            o = paged_decode_attention(q, ks, vs, lens, k_scale=ksc,
-                                       v_scale=vsc)
-        else:
-            o = paged_block_decode_attention(q, ks, vs, lens, block_tables,
-                                             k_scale=ksc, v_scale=vsc)
-        o = o.reshape(B, hdim) @ params[f"{us}_attn_proj_weight"] \
-            + params[f"{us}_attn_proj_bias"]
+
+        def attend(j, q, k, v, i=i):
+            ck, cv = _kv_rank(cache_k, j), _kv_rank(cache_v, j)
+            _kv_write(ck, i, (wa, wo), k[rows])
+            _kv_write(cv, i, (wa, wo), v[rows])
+            ks, ksc = _kv_layer(ck, i)
+            vs, vsc = _kv_layer(cv, i)
+            if block_tables is None:
+                return paged_decode_attention(q, ks, vs, lens, k_scale=ksc,
+                                              v_scale=vsc)
+            return paged_block_decode_attention(q, ks, vs, lens,
+                                                block_tables, k_scale=ksc,
+                                                v_scale=vsc)
+
+        o = _attention(params, us, x, (B, H, Dh), attend)
         h = _ffn_block(params, us, h + o, i, moe, live_mask, stats)
     return _logits(params, name, h)
 
@@ -398,30 +471,41 @@ def _prefill_forward(params, cfg_tuple, tokens, kv_lens, stats=None,
     moe_rows: the position count that sets MoE capacity (default
     N x P_b; ``_ffn_block``).
     Returns (logits [N, V] f32 at each row's kv_lens-1, ks, vs [L, N,
-    P_b, H, Dh])."""
+    P_b, H, Dh], or rank-major [R, L, N, P_b, H/tp, Dh] for a
+    tensor-parallel model)."""
     name, L, H, Dh = cfg_tuple[:4]
     moe = _moe_of(cfg_tuple)
     N, P_b = tokens.shape
-    hdim = H * Dh
     dev = tokens.device
     valid = (None if moe is None else
              torch.arange(P_b, device=dev)[None, :] < kv_lens[:, None])
     h = params[f"{name}_wte_table"][tokens] \
         + params[f"{name}_wpe"][:P_b][None]
-    ks, vs = [], []
+    ks, vs = {}, {}
+
+    def attend(j, q, k, v):
+        ks.setdefault(j, []).append(k)
+        vs.setdefault(j, []).append(v)
+        return flash_attention(q, k, v, causal=True, kv_lens=kv_lens)
+
     for i in range(L):
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
-        q, k, v = _qkv(params, us, x, (N, P_b, H, Dh))
-        o = flash_attention(q, k, v, causal=True, kv_lens=kv_lens)
-        o = o.reshape(N, P_b, hdim) @ params[f"{us}_attn_proj_weight"] \
-            + params[f"{us}_attn_proj_bias"]
+        o = _attention(params, us, x, (N, P_b, H, Dh), attend)
         h = _ffn_block(params, us, h + o, i, moe, valid, stats, moe_rows)
-        ks.append(k)
-        vs.append(v)
     last = h[torch.arange(N, device=dev),
              torch.clamp(kv_lens.long() - 1, min=0)]
-    return _logits(params, name, last), torch.stack(ks), torch.stack(vs)
+    return (_logits(params, name, last), _stack_ranks(ks, params, name),
+            _stack_ranks(vs, params, name))
+
+
+def _stack_ranks(per_rank, params, name):
+    """{local rank: [each layer's K or V]} as [L, ..], or rank-major
+    [R, L, ..] for a tensor-parallel model."""
+    if _tp_group(params, name) is None:
+        return torch.stack(per_rank[None])
+    return torch.stack([torch.stack(per_rank[j])
+                        for j in sorted(per_rank)])
 
 
 def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
@@ -444,8 +528,11 @@ def _prefill_into(params, cfg_tuple, cache_k, cache_v, slots, prompts,
     r, c = (torch.from_numpy(a).to(dev) for a in (rows, cols))
     wa, wo = _kv_index(cache_k, block_tables,
                        torch.from_numpy(np.asarray(slots)[rows]).to(dev), c)
-    _kv_write(cache_k, slice(None), (wa, wo), ks[:, r, c])
-    _kv_write(cache_v, slice(None), (wa, wo), vs[:, r, c])
+    # every layer (and every local rank of a rank-major cache) at once
+    lead = (slice(None),) * (1 if _tp_group(params, cfg_tuple[0]) is None
+                             else 2)
+    _kv_write(cache_k, lead[0], (*lead[1:], wa, wo), ks[(*lead, r, c)])
+    _kv_write(cache_v, lead[0], (*lead[1:], wa, wo), vs[(*lead, r, c)])
     return logits
 
 
@@ -530,15 +617,17 @@ def _serve_prefill_chunk(params, cfg_tuple, cache_k, cache_v, table_row,
     for i in range(L):
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
-        q, k, v = _qkv(params, us, x, (1, C, H, Dh))
-        _kv_write(cache_k, i, (wa, wo), k[0])
-        _kv_write(cache_v, i, (wa, wo), v[0])
-        ks, ksc = _kv_layer(cache_k, i)
-        vs, vsc = _kv_layer(cache_v, i)
-        o = ragged_paged_attention(q, ks, vs, lens, q_len, tables,
-                                   k_scale=ksc, v_scale=vsc)
-        o = o.reshape(C, H * Dh) @ params[f"{us}_attn_proj_weight"] \
-            + params[f"{us}_attn_proj_bias"]
+
+        def attend(j, q, k, v, i=i):
+            ck, cv = _kv_rank(cache_k, j), _kv_rank(cache_v, j)
+            _kv_write(ck, i, (wa, wo), k[0])
+            _kv_write(cv, i, (wa, wo), v[0])
+            ks, ksc = _kv_layer(ck, i)
+            vs, vsc = _kv_layer(cv, i)
+            return ragged_paged_attention(q, ks, vs, lens, q_len, tables,
+                                          k_scale=ksc, v_scale=vsc)
+
+        o = _attention(params, us, x, (1, C, H, Dh), attend)[0]
         h = _ffn_block(params, us, h + o, i, moe, stats=stats,
                        moe_rows=moe_rows)
     logits = _logits(params, name, h[C - 1])
@@ -575,7 +664,6 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     name, L, H, Dh = cfg_tuple[:4]
     moe = _moe_of(cfg_tuple)
     B, Q = tokens.shape
-    hdim = H * Dh
     dev = tokens.device
     posns = pos.long()[:, None] + torch.arange(Q, device=dev)[None, :]
     valid = torch.arange(Q, device=dev)[None, :] < q_len[:, None]
@@ -589,24 +677,25 @@ def _mixed_step(params, cfg_tuple, cache_k, cache_v, pos, tokens, q_len,
     for i in range(L):
         us = f"{name}_h{i}"
         x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
-        q, k, v = _qkv(params, us, x, (B, Q, H, Dh))
-        _kv_write(cache_k, i, (wa, wo), k[wb, wj])
-        _kv_write(cache_v, i, (wa, wo), v[wb, wj])
-        ks, ksc = _kv_layer(cache_k, i)
-        vs, vsc = _kv_layer(cache_v, i)
-        sc = dict(k_scale=ksc, v_scale=vsc)
-        if verify and block_tables is None:
-            o = paged_verify_attention(q, ks, vs, lens, q_len, **sc)
-        elif verify:
-            o = paged_block_verify_attention(q, ks, vs, lens, q_len,
-                                             block_tables, **sc)
-        elif block_tables is None:
-            o = ragged_attention(q, ks, vs, lens, q_len, **sc)
-        else:
-            o = ragged_paged_attention(q, ks, vs, lens, q_len, block_tables,
-                                       **sc)
-        o = o.reshape(B, Q, hdim) @ params[f"{us}_attn_proj_weight"] \
-            + params[f"{us}_attn_proj_bias"]
+
+        def attend(j, q, k, v, i=i):
+            ck, cv = _kv_rank(cache_k, j), _kv_rank(cache_v, j)
+            _kv_write(ck, i, (wa, wo), k[wb, wj])
+            _kv_write(cv, i, (wa, wo), v[wb, wj])
+            ks, ksc = _kv_layer(ck, i)
+            vs, vsc = _kv_layer(cv, i)
+            sc = dict(k_scale=ksc, v_scale=vsc)
+            if verify and block_tables is None:
+                return paged_verify_attention(q, ks, vs, lens, q_len, **sc)
+            if verify:
+                return paged_block_verify_attention(q, ks, vs, lens, q_len,
+                                                    block_tables, **sc)
+            if block_tables is None:
+                return ragged_attention(q, ks, vs, lens, q_len, **sc)
+            return ragged_paged_attention(q, ks, vs, lens, q_len,
+                                          block_tables, **sc)
+
+        o = _attention(params, us, x, (B, Q, H, Dh), attend)
         h = _ffn_block(params, us, h + o, i, moe, valid, stats)
     return _logits(params, name, h)
 
@@ -669,7 +758,7 @@ def _spec_propose(params, cfg_tuple, cache_k, cache_v, pos, token, k, live):
     cache is never quantized, whatever the target's (the JAX engine's
     rule).  Returns draft tokens [B, k] int64 numpy."""
     assert not _kv_q(cache_k), "the draft's cache is never quantized"
-    S = cache_k.shape[2]
+    S = cache_k.shape[-3]
     dev = pos.device
     live = torch.from_numpy(np.asarray(live, bool)).to(dev)
     p = pos.long()
@@ -715,6 +804,46 @@ def _infer_name(params, name=None):
     return tables[0]
 
 
+_TP_COLUMN = ("_attn_q_weight", "_attn_k_weight", "_attn_v_weight",
+              "_ffn_wi_weight")
+_TP_ROW = ("_attn_proj_weight", "_ffn_wo_weight")
+_TP_BIAS = ("_attn_q_bias", "_attn_k_bias", "_attn_v_bias", "_ffn_wi_bias")
+
+
+def _tp_dim(key):
+    """The dim a parameter splits on under JAX's ``tp_shard_params``
+    rules (``spec_for``), or None when it is replicated: a column split
+    of q/k/v and ``ffn_wi`` (their biases with them), a row split of
+    ``attn_proj`` and ``ffn_wo``; everything else (embeddings, LNs, the
+    out-projections' biases, MoE gates and expert stacks) whole."""
+    if any(t in key for t in _TP_COLUMN):
+        return 1
+    if any(t in key for t in _TP_ROW + _TP_BIAS):
+        return 0
+    return None
+
+
+def tp_shard_params(params, mesh, config, axis="tp", name=None):
+    """Place a GPT parameter dict for TENSOR-PARALLEL decoding: the
+    Megatron column/row split by name over ``axis`` of ``mesh`` (JAX's
+    names and rules, :func:`_tp_dim`).  ``generate_fast`` and the
+    ``ServingEngine`` take the result unchanged: every core computes
+    each rank's H/tp heads and FFN columns, with its own KV cache, and
+    all-reduces the out-projections' partial sums over the axis.
+
+    Refused with ValueError before anything is placed when the axis is
+    absent or the heads do not divide over it
+    (``analysis.shard_check.check_tp_mesh``).  The values go to the
+    mesh's device: a ``VirtualMesh`` keeps whole values (each virtual
+    rank computes on views of them), a ``DeviceMesh`` process keeps
+    only its rank's columns or rows.  An MoE config splits its
+    attention and dense FFN blocks and keeps its expert stacks whole."""
+    from ..analysis.shard_check import check_tp_mesh
+    check_tp_mesh(mesh, int(config.num_attention_heads), axis=axis)
+    return place_params(params, _infer_name(params, name), mesh, axis,
+                        _tp_dim)
+
+
 def _model_params(params, name, device, dtype):
     return {k: prep_param(v, device, dtype) for k, v in params.items()
             if k.startswith(name + "_")}
@@ -745,16 +874,17 @@ def teacher_forced_logits(params, config, seq, kv_fake_quant=False,
     seq = torch.as_tensor(np.asarray(seq, np.int64), device=dev)
     P = seq.shape[0]
     h = params[f"{name}_wte_table"][seq] + params[f"{name}_wpe"][:P]
-    for i in range(L):
-        us = f"{name}_h{i}"
-        x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
-        q, k, v = _qkv(params, us, x, (1, P, H, Dh))
+
+    def attend(j, q, k, v):
         if kv_fake_quant:
             k = kv_decode(*kv_encode(k)).to(k.dtype)
             v = kv_decode(*kv_encode(v)).to(v.dtype)
-        o = flash_attention(q, k, v, causal=True)
-        o = o.reshape(P, H * Dh) @ params[f"{us}_attn_proj_weight"] \
-            + params[f"{us}_attn_proj_bias"]
+        return flash_attention(q, k, v, causal=True)
+
+    for i in range(L):
+        us = f"{name}_h{i}"
+        x = _ln(h, params[f"{us}_ln1_scale"], params[f"{us}_ln1_bias"])
+        o = _attention(params, us, x, (1, P, H, Dh), attend)[0]
         h = _ffn_block(params, us, h + o, i, moe)
     return _logits(params, name, h)
 
@@ -776,10 +906,10 @@ def _generate_spec(params, cfg_tuple, draft_layers, prompts, num_tokens,
     B, P = prompts.shape
     Q = spec_k + 1
     cdtype = params[f"{name}_wte_table"].dtype
-    ck = torch.zeros((L, B, S_max, H, Dh), dtype=cdtype, device=dev)
+    ck = _kv_alloc(params, name, (L, B, S_max), H, Dh, cdtype, dev)
     cv = torch.zeros_like(ck)
-    dck = torch.zeros((draft_layers, B, S_max, H, Dh), dtype=cdtype,
-                      device=dev)
+    dck = _kv_alloc(params, name, (draft_layers, B, S_max), H, Dh, cdtype,
+                    dev)
     dcv = torch.zeros_like(dck)
     P_b = min(_pow2(P, floor=8), S_max)
     padb = np.zeros((B, P_b), np.int64)
@@ -886,7 +1016,7 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     use_eos = eos_id is not None
-    cache_k = torch.zeros((L, B, S_max, H, Dh), dtype=cdtype, device=dev)
+    cache_k = _kv_alloc(params, name, (L, B, S_max), H, Dh, cdtype, dev)
     cache_v = torch.zeros_like(cache_k)
     out = torch.full((B, total), int(pad_id), dtype=torch.int64, device=dev)
     out[:, :P] = torch.from_numpy(prompts).to(dev)
@@ -905,8 +1035,8 @@ def generate_fast(params, config, prompts, num_tokens, temperature=0.0,
     padb[:, :P] = out[:, :P]
     lens = torch.full((B,), P, dtype=torch.int32, device=dev)
     logits, ks, vs = _prefill_forward(params, cfg_tuple, padb, lens)
-    cache_k[:, :, :P_b] = ks.to(cdtype)
-    cache_v[:, :, :P_b] = vs.to(cdtype)
+    cache_k[..., :P_b, :, :] = ks.to(cdtype)
+    cache_v[..., :P_b, :, :] = vs.to(cdtype)
     emit(P - 1, logits)
     for t in range(P, total - 1):
         if use_eos and bool(done.all()):

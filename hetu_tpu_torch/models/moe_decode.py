@@ -23,10 +23,10 @@ expert load and drop counts accumulate as device tensors in a ``stats``
 dict; the engine reads them once a step.
 
 Expert parallelism: :func:`ep_shard_params` places the expert stacks
-over an ``ep`` mesh axis (:class:`ExpertStack`, the placement carried
-by the tensor), and ``moe_ffn`` on such stacks runs each rank's E/n
-experts on its E/n rows of the dispatch and all-gathers the outputs
-over the axis, where JAX's GSPMD derives the same exchange from the
+over an ``ep`` mesh axis (``parallel.sharding.Placed`` on dim 0, the
+placement carried by the tensor), and ``moe_ffn`` on such stacks runs
+each rank's E/n experts on its E/n rows of the dispatch and all-gathers
+the outputs over the axis, where JAX's GSPMD derives the same exchange from the
 stacks' sharding; the engine and ``generate_fast`` take a placed dict
 unchanged.  :func:`moe_ffn_ep_reference` is the explicit per-rank
 formulation (tokens split over the axis, per-shard routing, the
@@ -43,10 +43,10 @@ import numpy as np
 import torch
 
 from .. import envvars
-from ..parallel.collectives import ProcessComm, run_per_rank
+from ..parallel.collectives import run_per_rank
 from ..parallel.mesh import VirtualMesh, axis_size, rank_coords
+from ..parallel.sharding import group_of, place_params
 from ..quant import dequantize, quantize, resolve_quant
-from ..weights import prep_param
 from .gpt_config import GPTConfig
 
 
@@ -264,19 +264,12 @@ def _expert_outputs(params, us, xe):
     ranks of a ``VirtualMesh`` in turn, this process's rank of a
     ``DeviceMesh`` over the axis group."""
     stacks = _stacks(params, us)
-    place = expert_placement(stacks[0])
-    if place is None:
+    g = group_of(stacks[0])
+    if g is None:
         return _experts(xe, *stacks)
-    mesh, axis = place
-    if isinstance(mesh, VirtualMesh):
-        n = axis_size(mesh, axis)
-        return torch.cat([
-            _experts(xb, *(_rank_piece(s, n, r) for s in stacks))
-            for r, xb in enumerate(xe.chunk(n))])
-    comm = ProcessComm(mesh)
-    n, r = comm.size(axis), comm.index(axis)
-    h = _experts(xe.chunk(n)[r], *(_rank_piece(s, n, r) for s in stacks))
-    return comm.all_gather(h, axis, dim=0)
+    xs = xe.chunk(g.n)
+    return g.join([_experts(xs[r], *(g.piece(s, r) for s in stacks))
+                   for r in g.ranks], 0)
 
 
 def _gelu_tanh(x):
@@ -385,93 +378,19 @@ def convert_dense_to_moe(params, config, moe_config, name=None):
 # ------------------- expert-parallel placement ------------------- #
 
 
-class ExpertStack(torch.Tensor):
-    """An expert stack placed by :func:`ep_shard_params`: its leading
-    (expert) dim split over ``ep_axis`` of ``ep_mesh``.  On a
-    ``VirtualMesh`` the tensor is the whole stack (each virtual rank's
-    E/n experts are a view of it, as ``parallel/sharding.py`` stores
-    graph variables); on a ``DeviceMesh`` it is this rank's E/n experts.
-
-    The placement rides the tensor, as a JAX array's ``NamedSharding``
-    does, so that ``moe_ffn`` learns it from the parameter dict alone:
-    what the engine does to a parameter (``to``, ``contiguous``,
-    ``clone``, an in-place ``copy_``) keeps it; every other operation
-    returns a plain tensor."""
-
-    _KEEP = frozenset((torch.Tensor.to, torch.Tensor.contiguous,
-                       torch.Tensor.clone, torch.Tensor.copy_))
-
-    @classmethod
-    def __torch_function__(cls, func, types, args=(), kwargs=None):
-        with torch._C.DisableTorchFunctionSubclass():
-            out = func(*args, **(kwargs or {}))
-        if func in cls._KEEP and type(out) is torch.Tensor:
-            return _place_stack(out, args[0].ep_mesh, args[0].ep_axis)
-        return out
-
-
-def _place_stack(t, mesh, axis):
-    s = t.as_subclass(ExpertStack)
-    s.ep_mesh, s.ep_axis = mesh, axis
-    return s
-
-
-def expert_placement(t):
-    """(mesh, axis) of an :class:`ExpertStack`, else None."""
-    if isinstance(t, ExpertStack):
-        return t.ep_mesh, t.ep_axis
-    return None
-
-
-def _stores_piece(t):
-    """True when ``t`` holds one ``DeviceMesh`` rank's experts only."""
-    place = expert_placement(t)
-    return place is not None and not isinstance(place[0], VirtualMesh)
-
-
-def _rank_piece(t, n, r):
-    """Rank r's E/n experts of a stack (None stays None), as a plain
-    tensor: a view of a whole stack, or the piece a rank stores."""
-    if t is None:
-        return None
-    if not _stores_piece(t):
-        t = t.chunk(n)[r]
-    return t.as_subclass(torch.Tensor)
-
-
-def expert_stack_shape(t):
-    """The whole stack's shape of a parameter (its own shape unless it
-    is one ``DeviceMesh`` rank's piece)."""
-    shape = tuple(t.shape)
-    if _stores_piece(t):
-        shape = (shape[0] * axis_size(t.ep_mesh, t.ep_axis),) + shape[1:]
-    return shape
-
-
-def local_value(resident, value):
-    """What ``resident`` stores of a whole new ``value`` (a numpy array
-    or a tensor): the rank's E/n experts of a ``DeviceMesh`` piece, else
-    the value itself."""
-    if not _stores_piece(resident):
-        return value
-    e = resident.shape[0]
-    r = ProcessComm(resident.ep_mesh).index(resident.ep_axis)
-    return value[r * e:(r + 1) * e]
-
-
-def _mesh_device(mesh):
-    if isinstance(mesh, VirtualMesh):
-        return mesh.device
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
+def _expert_piece(t, n, r):
+    """Rank r's E/n experts of a stack, placed or whole (None stays
+    None), as a plain tensor."""
+    if group_of(t) is not None:
+        return group_of(t).piece(t, r)
+    return None if t is None else t.chunk(n)[r]
 
 
 def ep_shard_params(params, mesh, config, axis="ep", name=None):
     """Place a MoE-GPT parameter dict for expert-parallel serving: the
     ``*_moe_expert_stack_*`` leaves split their leading expert dim over
-    ``axis`` (:class:`ExpertStack`); everything else (gate, attention,
-    embeddings, dense FFN blocks) is replicated.  The engine and
+    ``axis`` (``parallel.sharding.Placed`` on dim 0); everything else
+    (gate, attention, embeddings, dense FFN blocks) is replicated.  The engine and
     ``generate_fast`` take the result as they take any dict: ``moe_ffn``
     splits the expert products over the axis and gathers them, and
     every other computation is the unsharded one.
@@ -483,23 +402,10 @@ def ep_shard_params(params, mesh, config, axis="ep", name=None):
     ``DeviceMesh``, where each process stores only its E/n experts."""
     from ..analysis.shard_check import check_expert_mesh
     from .gpt_decode import _infer_name
-    n = check_expert_mesh(mesh, int(config.num_experts), axis=axis)
-    name = _infer_name(params, name)
-    dev = _mesh_device(mesh)
-    r = None if isinstance(mesh, VirtualMesh) \
-        else ProcessComm(mesh).index(axis)
-    out = {}
-    for k, v in params.items():
-        if not k.startswith(name + "_"):
-            continue
-        if "_moe_expert_stack_" not in k:
-            out[k] = prep_param(v, dev)
-            continue
-        if r is not None:
-            e = v.shape[0] // n
-            v = v[r * e:(r + 1) * e]
-        out[k] = _place_stack(prep_param(v, dev), mesh, axis)
-    return out
+    check_expert_mesh(mesh, int(config.num_experts), axis=axis)
+    return place_params(
+        params, _infer_name(params, name), mesh, axis,
+        lambda k: 0 if "_moe_expert_stack_" in k else None)
 
 
 def resolve_moe_quant(mode=None):
@@ -566,7 +472,7 @@ def moe_ffn_ep_reference(params, us, x, spec, mesh, quant=None):
         return comm.all_gather(y, axis, dim=0)
 
     args = [(x.chunk(n)[c.get(axis, 0)],
-             *(_rank_piece(s, n, c.get(axis, 0)) for s in stacks))
+             *(_expert_piece(s, n, c.get(axis, 0)) for s in stacks))
             for c in rank_coords(mesh)]
     if isinstance(mesh, VirtualMesh):
         return run_per_rank(local, mesh, args)[0]

@@ -5,9 +5,11 @@ the port of the JAX package's ``parallel/distributed_strategies.py``
 A strategy configures the Executor with a mesh (``make_mesh`` on the
 executor's device when none is given) and per-variable specs (JAX's
 ``PartitionSpec`` as a tuple: per dimension a mesh axis or None).  The
-executor (``graph/executor.py``) stores each rank's shard, gathers the
-whole values on use and runs the global batch's step, as JAX's GSPMD
-step is.
+executor (``graph/executor.py``) stores each rank's shard and runs the
+global batch's step, as JAX's GSPMD step is: the Megatron segments of
+variables split over ``'tp'`` run per rank on their shards
+(``graph/tensor_parallel.py``), other readers of a split value gather it
+whole, and the compute is replicated over ``'dp'``.
 
 ``DataParallel(aggregate="int8")`` (or ``$HETU_COMM_QUANT=int8``)
 splices the quantize -> all-gather -> dequantize trio
@@ -46,8 +48,8 @@ class Strategy:
 
 class DataParallel(Strategy):
     """A 'dp' mesh; params replicated.  Every data rank evaluates the
-    global batch (the compute is replicated over 'dp' until the compute
-    split lands, ROADMAP A9b item 2), so the step is JAX's GSPMD step.
+    global batch (the compute is replicated over 'dp' until its split
+    lands, ROADMAP A9b item 2), so the step is JAX's GSPMD step.
 
     ``aggregate``: None/'allreduce' (and the PS parity names) keep the
     plain aggregation; 'int8'/'quant'/'quant_allreduce' (or
@@ -129,8 +131,9 @@ class ShardingPlan(Strategy):
 
 class ModelParallel4LM(Strategy):
     """Megatron-style tensor parallel over 'tp': column-split attention/MLP
-    in-projections, row-split out-projections (the port gathers them on
-    use).
+    in-projections, row-split out-projections, each rank computing its
+    columns and its rows' partial sums (all-reduced over 'tp'); 'dp'
+    replicates the compute.
 
     Preferred: pass ``specs`` ({var_name: spec}) for explicit,
     typo-checked assignment.  Fallback: name-pattern matching over

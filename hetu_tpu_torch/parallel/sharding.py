@@ -14,10 +14,15 @@ piece ``coords[axis]`` of n equal pieces.
   would save nothing: the whole tensor is stored, and
   :func:`rank_pieces` gives each virtual rank's piece as a view.
 
-Only the stored pieces shrink, and only on a ``DeviceMesh``: a step
-gathers whole values, computes with them and scatters what it writes
-(the tensor-parallel compute split of a sharded matmul is not derived
-from the specs, as XLA derives it).
+The graph executor computes the Megatron pattern per rank on these
+pieces (``graph/tensor_parallel.py``); any other reader of a split
+value gathers it whole.
+
+:class:`Placed` is the serving side's placement: a parameter split over
+one mesh axis (Megatron-style by ``models.gpt_decode.tp_shard_params``,
+by expert by ``models.moe_decode.ep_shard_params``), the placement
+riding the tensor, and :class:`AxisGroup` the ranks of its mesh axis
+that this process runs.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
+from ..weights import prep_param
 from .collectives import ProcessComm
-from .mesh import VirtualMesh, axis_names, mesh_shape, rank_coords
+from .mesh import (VirtualMesh, axis_names, axis_size, mesh_shape,
+                   rank_coords)
 
 
 def norm_spec(spec):
@@ -131,3 +138,178 @@ def place_tree(tree, like_shape, spec, mesh):
 def gather_tree(tree, mesh):
     return pytree.tree_map(lambda x: gather(x, mesh), tree,
                            is_leaf=lambda x: isinstance(x, Shards))
+
+
+# ------------------- serving placement over one mesh axis ------------------- #
+
+
+class AxisGroup:
+    """The ranks of ``axis`` of ``mesh`` that this process runs: all
+    ``n`` of a ``VirtualMesh`` (in turn, each on its own pieces), or this
+    process's one rank of a ``DeviceMesh``.  ``all_reduce`` sums one
+    partial per local rank: in rank order on a ``VirtualMesh`` (as its
+    collectives sum), over the axis's process group on a
+    ``DeviceMesh``."""
+
+    def __init__(self, mesh, axis):
+        self.mesh, self.axis = mesh, axis
+        self.n = axis_size(mesh, axis)
+        self.virtual = isinstance(mesh, VirtualMesh)
+        if self.virtual:
+            self.comm = None
+            self.ranks = tuple(range(self.n))
+        else:
+            self.comm = ProcessComm(mesh)
+            self.ranks = (self.comm.index(axis),)
+
+    def piece(self, t, r):
+        """Rank ``r``'s piece of a :class:`Placed` tensor as a plain
+        contiguous tensor (:meth:`Placed.rank_pieces`); any other tensor
+        (or None) is whole on every rank."""
+        if not isinstance(t, Placed):
+            return t
+        return t.rank_pieces()[self.ranks.index(r)]
+
+    def all_reduce(self, parts):
+        if self.virtual:
+            out = parts[0]
+            for p in parts[1:]:
+                out = out + p
+            return out
+        return self.comm.all_reduce(parts[0], self.axis)
+
+    def join(self, parts, dim):
+        """The whole value of per-rank pieces split on ``dim``."""
+        if self.virtual:
+            return torch.cat(parts, dim=dim)
+        return self.comm.all_gather(parts[0], self.axis, dim=dim)
+
+    def split(self, whole, dim):
+        """The local ranks' pieces of a whole value, stacked on a new
+        leading dim (the rank-major layout of a tensor-parallel KV
+        cache)."""
+        pieces = whole.chunk(self.n, dim=dim)
+        return torch.stack([pieces[r] for r in self.ranks])
+
+
+class Placed(torch.Tensor):
+    """A serving parameter split on ``place_dim`` over the mesh axis of
+    ``place_group`` (an :class:`AxisGroup`), the placement riding the
+    tensor as a JAX array's ``NamedSharding`` does: a q/k/v or FFN
+    weight placed by ``models.gpt_decode.tp_shard_params`` (the Megatron
+    column or row split), an expert stack by
+    ``models.moe_decode.ep_shard_params`` (dim 0).  On a ``VirtualMesh``
+    the tensor is the whole value; on a ``DeviceMesh`` it is this rank's
+    piece.  What the engine does to a parameter (``to``, ``contiguous``,
+    ``clone``, an in-place ``copy_``) keeps the placement; every other
+    operation returns a plain tensor."""
+
+    _KEEP = frozenset((torch.Tensor.to, torch.Tensor.contiguous,
+                       torch.Tensor.clone, torch.Tensor.copy_))
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*args, **(kwargs or {}))
+        if func in cls._KEEP and type(out) is torch.Tensor:
+            return placed(out, args[0].place_group, args[0].place_dim)
+        return out
+
+    def rank_pieces(self):
+        """Each local rank's piece as a plain contiguous tensor, in the
+        order of the group's ranks: cut once and kept until the tensor
+        is written in place (its version counter moves, as under
+        ``swap_params``' ``copy_``), so a serving step slices nothing.
+        An inference-mode tensor tracks no version: cut on every call."""
+        cache = self.__dict__.get("_pieces")
+        version = None if self.is_inference() else self._version
+        if cache is None or version is None or cache[0] != version:
+            whole = self.as_subclass(torch.Tensor)
+            g = self.place_group
+            pieces = ([c.contiguous()
+                       for c in whole.chunk(g.n, dim=self.place_dim)]
+                      if g.virtual else [whole])
+            cache = self._pieces = (version, pieces)
+        return cache[1]
+
+
+def placed(t, group, dim):
+    """``t`` tagged as split on ``dim`` over ``group``."""
+    s = t.as_subclass(Placed)
+    s.place_group, s.place_dim = group, dim
+    return s
+
+
+def placement(t):
+    """(mesh, axis, dim) of a :class:`Placed` tensor, else None."""
+    if isinstance(t, Placed):
+        g = t.place_group
+        return g.mesh, g.axis, t.place_dim
+    return None
+
+
+def group_of(t):
+    """The :class:`AxisGroup` of a :class:`Placed` tensor, else None."""
+    return t.place_group if isinstance(t, Placed) else None
+
+
+def _stores_piece(t):
+    """True when ``t`` holds one ``DeviceMesh`` rank's piece only."""
+    return isinstance(t, Placed) and not t.place_group.virtual
+
+
+def whole_shape(t):
+    """The whole value's shape of a parameter (its own shape unless it
+    is one ``DeviceMesh`` rank's piece)."""
+    shape = tuple(t.shape)
+    if not _stores_piece(t):
+        return shape
+    d = t.place_dim
+    return shape[:d] + (shape[d] * t.place_group.n,) + shape[d + 1:]
+
+
+def _rank_slice(value, group, dim):
+    """This ``DeviceMesh`` rank's piece of a whole ``value`` (a numpy
+    array or a tensor) split on ``dim`` over ``group``."""
+    m = value.shape[dim] // group.n
+    r = group.ranks[0]
+    return value[(slice(None),) * dim + (slice(r * m, (r + 1) * m),)]
+
+
+def local_value(resident, value):
+    """What ``resident`` stores of a whole new ``value`` (a numpy array
+    or a tensor): a ``DeviceMesh`` rank's piece, else the value itself."""
+    if not _stores_piece(resident):
+        return value
+    return _rank_slice(value, resident.place_group, resident.place_dim)
+
+
+def mesh_device(mesh):
+    """Where a mesh's values live: a ``VirtualMesh``'s device, or this
+    rank's card (or CPU) of a ``DeviceMesh``."""
+    if isinstance(mesh, VirtualMesh):
+        return mesh.device
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def place_params(params, name, mesh, axis, dim_of):
+    """Model ``name``'s parameters of ``params`` on the mesh's device,
+    each one whose key ``dim_of`` maps to a dim :class:`Placed` on it
+    over ``axis`` (the whole value on a ``VirtualMesh``, this rank's
+    piece on a ``DeviceMesh``), the rest whole."""
+    group = AxisGroup(mesh, axis)
+    dev = mesh_device(mesh)
+    out = {}
+    for k, v in params.items():
+        if not k.startswith(name + "_"):
+            continue
+        d = dim_of(k)
+        if d is None:
+            out[k] = prep_param(v, dev)
+            continue
+        if not group.virtual:
+            v = _rank_slice(v, group, d)
+        out[k] = placed(prep_param(v, dev), group, d)
+    return out

@@ -180,12 +180,15 @@ class PipelineSubExecutor:
         head) is bound where it is read."""
         vals = dict(seed_vals or {})
         mp = self.executor.config.mixed_precision
+        tp = self.executor.tp_run
 
         def bind(node):
             if isinstance(node, DataloaderOp) or not node.is_variable:
                 v = feeds[node.name]
             else:
                 v = values[node.name]
+                if tp is not None and node.name in tp.split_vars:
+                    tp.gathers += 1     # a split value read whole
             if mp is not None and v.is_floating_point():
                 v = v.to(mp)
             return v
@@ -273,6 +276,8 @@ class PipelineSubExecutor:
         mbs = [{**{k: v[m] for k, v in split.items()}, **whole}
                for m in range(M)]
         full = ex.full_values()
+        if ex.tp_run is not None:
+            ex.tp_run.gathers = ex.tp_run.grad_joins = 0
         opt_name = self.opt_op.name
         ostate = ex.full_opt_states()[opt_name]
 

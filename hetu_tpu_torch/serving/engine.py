@@ -67,12 +67,13 @@ from .. import envvars, telemetry
 from ..analysis import validate_serving
 from ..device import resolve_device
 from ..models.gpt_decode import (
-    _accept_span, _draft_cfg, _infer_name, _model_params, _pow2,
+    _accept_span, _draft_cfg, _infer_name, _kv_alloc, _model_params, _pow2,
     _prefill_into, _serve_decode_step, _serve_mixed, _serve_prefill_batch,
     _serve_prefill_chunk, _serve_verify, _spec_propose,
     resolve_draft_layers, resolve_serve_ragged, resolve_spec_k,
 )
-from ..models.moe_decode import expert_stack_shape, local_value, moe_spec_of
+from ..models.moe_decode import moe_spec_of
+from ..parallel.sharding import group_of, local_value, whole_shape
 from ..telemetry import flight
 from ..telemetry import slo as slo_mod
 from ..weights import prep_param
@@ -164,6 +165,11 @@ class ServingEngine:
     on) moves the per-wave draft length through the pow2 ladder 1..spec
     on a sliding acceptance window.
 
+    A dict placed by ``tp_shard_params`` serves tensor-parallel with no
+    other argument: each rank computes its H/tp heads over its own
+    contiguous KV cache (the managers' ``tp``), and the draft's cache
+    follows.
+
     Observability: lifecycle-traced requests (``metrics``), an
     ``SLOMonitor`` behind ``health()``, and the flight recorder dumped
     when an exception escapes ``step()`` or on QueueFull storms.
@@ -201,7 +207,9 @@ class ServingEngine:
         shape = dict(layers=c.num_hidden_layers,
                      heads=c.num_attention_heads, head_dim=Dh, slots=slots,
                      max_seq_len=want, pos_cap=c.max_position_embeddings,
-                     dtype=self.kv_quant or cdtype, device=self.device)
+                     dtype=self.kv_quant or cdtype, device=self.device,
+                     tp=group_of(
+                         self.params[f"{self._name}_h0_attn_q_weight"]))
         if self.paged:
             self.kv = PagedKVManager(block=block, pool_blocks=pool_blocks,
                                      prefix_share=prefix_share, **shape)
@@ -283,9 +291,9 @@ class ServingEngine:
                                if self.spec_adapt else self.spec_k)
             # the draft's own cache: always slot-contiguous, whatever the
             # target's layout; rollback there is position bookkeeping
-            self._draft_ck = torch.zeros(
-                (dl, B, self.kv.s_max, c.num_attention_heads, Dh),
-                dtype=cdtype, device=self.device)
+            self._draft_ck = _kv_alloc(
+                self.params, self._name, (dl, B, self.kv.s_max),
+                c.num_attention_heads, Dh, cdtype, self.device)
             self._draft_cv = torch.zeros_like(self._draft_ck)
             self._acc_window = collections.deque(maxlen=32)
             self.spec_proposed = 0    # draft tokens scored
@@ -317,7 +325,8 @@ class ServingEngine:
         address changes and the draft, which shares the dict, swaps with
         it.  The new dict must match the resident one key for key and
         shape for shape (an expert-parallel rank's piece of a stack
-        takes its experts of the whole new value); a corrupt push fails
+        takes its experts of the whole new value, a tensor-parallel
+        rank's piece its columns or rows); a corrupt push fails
         HERE, before any tensor moves.  Call only on a drained engine
         (the coordinator's job): live slots would mix versions
         mid-request.  A paged pool drops
@@ -332,10 +341,10 @@ class ServingEngine:
                 continue
             old = self.params.get(k)
             shape = tuple(v.shape) if hasattr(v, "shape") else np.shape(v)
-            if old is not None and tuple(shape) != expert_stack_shape(old):
+            if old is not None and tuple(shape) != whole_shape(old):
                 raise ValueError(
                     f"swap_params: {k} has shape {tuple(shape)}, "
-                    f"resident is {expert_stack_shape(old)}")
+                    f"resident is {whole_shape(old)}")
             new[k] = v
         if set(new) != set(self.params):
             missing = sorted(set(self.params) - set(new))

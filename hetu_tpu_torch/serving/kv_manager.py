@@ -22,13 +22,25 @@ The host logic is the JAX package's ``serving/kv_manager.py`` as it is;
 where the JAX manager rebuilt a donated cache (``.at[].set``), these
 write the tensors in place.
 
+Either manager takes ``tp`` (a ``parallel.sharding.AxisGroup``, the
+engine passes the one of a ``tp_shard_params`` dict): each cache is then
+rank-major, ``[R, L, .., H/tp, Dh]`` for the R ranks this process runs,
+so that every rank's cache is contiguous, as the kernels take it.  One
+allocator serves all ranks (slots, block tables, refcounts, prefixes
+and copy-on-write), since every rank holds the same tokens, and
+``cache_bytes`` counts one rank's bytes.
+
 Replica-to-replica handoff (the serving fleet): ``export_blocks`` /
 ``export_prefix`` gather a span of the cache on the device through a
 device index tensor and copy it to the host once per cache plane, as
 the wire payload dict of the JAX package (``layout``, ``block``,
 ``length``, ``quant``, ``k``, ``v``, ``nbytes``, ``raw_nbytes``);
 ``import_blocks`` writes a payload into the resident tensors with one
-indexed copy per plane, never a new pool.  An f32 wire is numpy f32, an
+indexed copy per plane, never a new pool.  The wire holds whole heads
+whatever ``tp``: a tensor-parallel manager joins its ranks' heads on
+export (an all-gather over the axis on a ``DeviceMesh``) and keeps its
+ranks' heads on import, so a tensor-parallel replica and a plain one
+hand off to each other.  An f32 wire is numpy f32, an
 int8 wire an (int8, f32 scales) numpy pair, byte for byte the JAX
 package's; a bf16 wire is a host ``torch.bfloat16`` tensor (numpy has no
 bf16; the JAX package ships ``ml_dtypes`` arrays of the same bytes).
@@ -85,6 +97,14 @@ def _is_int8(dtype):
     return dtype == torch.int8
 
 
+def _cache_shape(layers, n, s, heads, head_dim, tp):
+    """The shape of one cache: ``[L, n, s, H, Dh]``, or rank-major
+    ``[R, L, n, s, H/tp, Dh]`` under an ``AxisGroup`` ``tp``."""
+    if tp is None:
+        return (layers, n, s, heads, head_dim)
+    return (len(tp.ranks), layers, n, s, heads // tp.n, head_dim)
+
+
 def _alloc_cache(shape, dtype, quant, device):
     """One cache: a float tensor of ``shape``, or for ``quant`` the
     (int8 payload of ``shape``, f32 scales of ``shape[:-1]``) pair."""
@@ -107,6 +127,12 @@ def cache_nbytes(cache):
     if isinstance(cache, torch.Tensor):
         return cache.numel() * cache.element_size()
     return int(cache.nbytes)
+
+
+def _rank_bytes(mgr):
+    """One rank's bytes of a manager's cache pair."""
+    total = cache_nbytes(mgr.cache_k) + cache_nbytes(mgr.cache_v)
+    return total if mgr.tp is None else total // len(mgr.tp.ranks)
 
 
 def resolve_handoff_quant(mode=None):
@@ -183,21 +209,38 @@ def _wire_to_pool(wire, wire_quant, pool_cache):
     return vals.to(pool_cache.dtype)
 
 
-def _gather(cache, index):
+# the head axis of each plane: the payload's (or float cache's) and the
+# scales'
+_HEAD_DIMS = (-2, -1)
+
+
+def _gather(cache, index, tp=None):
     """Every plane of one cache indexed on axis 1 by the device tensor
     ``index`` (blocks or, for a slot row, (slot, positions)): a tensor
-    or an (int8, scales) pair, still on the device."""
-    if isinstance(cache, (tuple, list)):
-        return tuple(a[index] for a in cache)
-    return cache[index]
+    or an (int8, scales) pair, still on the device.  A rank-major cache
+    joins its ranks' heads (``tp``'s ``join``)."""
+    if tp is None:
+        out = tuple(a[index] for a in _planes(cache))
+    else:
+        out = tuple(tp.join(list(a[(slice(None),) + index]), dim=hd)
+                    for a, hd in zip(_planes(cache), _HEAD_DIMS))
+    return out if isinstance(cache, (tuple, list)) else out[0]
 
 
-def _host_payload(cache_k, cache_v, index, pool_quant, quant_mode):
+def _write_planes(cache, vals, tp, put):
+    """``put(plane, value)`` for each plane of ``cache`` and of the
+    whole-head ``vals``; a rank-major cache takes its ranks' heads."""
+    for t, val, hd in zip(_planes(cache), _planes(vals), _HEAD_DIMS):
+        put(t, val if tp is None else tp.split(val, hd))
+
+
+def _host_payload(cache_k, cache_v, index, pool_quant, quant_mode,
+                  tp=None):
     """(k wire, v wire, wire quant, nbytes, raw_nbytes) of the span
     ``index`` selects in both caches."""
     mode = resolve_handoff_quant(quant_mode)
-    k, kq = _wire_repr(_gather(cache_k, index), pool_quant, mode)
-    v, _ = _wire_repr(_gather(cache_v, index), pool_quant, mode)
+    k, kq = _wire_repr(_gather(cache_k, index, tp), pool_quant, mode)
+    v, _ = _wire_repr(_gather(cache_v, index, tp), pool_quant, mode)
     nbytes = cache_nbytes(k) + cache_nbytes(v)
     shape = (k[0] if isinstance(k, tuple) else k).shape
     raw = 2 * 4 * int(np.prod(tuple(shape)))     # f32-equivalent bytes
@@ -298,17 +341,20 @@ class KVCacheManager:
     ``[L, B, S_max, H, Dh]`` tensors on ``device`` (int8: each an
     (int8 payload, f32 [L, B, S_max, H] scales) pair): the card unless
     the caller passes ``device="cpu"`` (``device.resolve_device``).
+    ``tp``: rank-major caches for a tensor-parallel model (above).
     """
 
     def __init__(self, *, layers, heads, head_dim, slots, max_seq_len,
                  pos_cap=None, dtype=torch.float32, device=None,
-                 bucket=True):
+                 bucket=True, tp=None):
         self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
                                                  pos_cap, bucket)
         self.pos_cap = int(pos_cap) if pos_cap is not None else self.s_max
         self.quant = "int8" if _is_int8(dtype) else None
         device = resolve_device(device)
-        shape = (layers, self.n_slots, self.s_max, heads, head_dim)
+        self.tp = tp
+        shape = _cache_shape(layers, self.n_slots, self.s_max, heads,
+                             head_dim, tp)
         self.cache_k = _alloc_cache(shape, dtype, self.quant, device)
         self.cache_v = _alloc_cache(shape, dtype, self.quant, device)
         self._free = list(range(self.n_slots))
@@ -326,8 +372,9 @@ class KVCacheManager:
 
     @property
     def cache_bytes(self):
-        """Device bytes of the cache pair (scales included when int8)."""
-        return cache_nbytes(self.cache_k) + cache_nbytes(self.cache_v)
+        """Device bytes of the cache pair (scales included when int8),
+        one rank's under ``tp``."""
+        return _rank_bytes(self)
 
     def live(self):
         """Slot indices currently holding a sequence (ascending)."""
@@ -397,7 +444,8 @@ class KVCacheManager:
         length = int(self.lengths[slot])
         index = (slice(None), slot, slice(0, length))
         k, v, kq, nbytes, raw = _host_payload(
-            self.cache_k, self.cache_v, index, self.quant, quant_mode)
+            self.cache_k, self.cache_v, index, self.quant, quant_mode,
+            self.tp)
         return {"layout": "contiguous", "length": length,
                 "quant": kq, "k": k, "v": v,
                 "nbytes": nbytes, "raw_nbytes": raw}
@@ -421,11 +469,15 @@ class KVCacheManager:
             return None
         self.lengths[slot] = length
         wq = payload["quant"]
+        lead = (slice(None),) * (1 if self.tp is None else 2)
+
+        def put(t, val):
+            t[(*lead, slot, slice(0, length))] = val
+
         for name, key in (("cache_k", "k"), ("cache_v", "v")):
             cache = getattr(self, name)
-            vals = _wire_to_pool(payload[key], wq, cache)
-            for t, val in zip(_planes(cache), _planes(vals)):
-                t[:, slot, :length] = val
+            _write_planes(cache, _wire_to_pool(payload[key], wq, cache),
+                          self.tp, put)
         return slot
 
 
@@ -469,7 +521,7 @@ class PagedKVManager:
     def __init__(self, *, layers, heads, head_dim, slots, max_seq_len,
                  pos_cap=None, dtype=torch.float32, device=None,
                  bucket=True, block=16, pool_blocks=None,
-                 prefix_share=None):
+                 prefix_share=None, tp=None):
         self.n_slots, self.s_max = _bucket_shape(slots, max_seq_len,
                                                  pos_cap, bucket)
         self.pos_cap = int(pos_cap) if pos_cap is not None else self.s_max
@@ -490,7 +542,9 @@ class PagedKVManager:
         self.prefix_share = bool(prefix_share)
         self.quant = "int8" if _is_int8(dtype) else None
         device = resolve_device(device)
-        shape = (layers, self.n_blocks, self.block, heads, head_dim)
+        self.tp = tp
+        shape = _cache_shape(layers, self.n_blocks, self.block, heads,
+                             head_dim, tp)
         self.cache_k = _alloc_cache(shape, dtype, self.quant, device)
         self.cache_v = _alloc_cache(shape, dtype, self.quant, device)
         self._free = list(range(1, self.n_blocks))   # 0 = scratch
@@ -549,8 +603,9 @@ class PagedKVManager:
 
     @property
     def cache_bytes(self):
-        """Device bytes of the pool pair (scales included when int8)."""
-        return cache_nbytes(self.cache_k) + cache_nbytes(self.cache_v)
+        """Device bytes of the pool pair (scales included when int8),
+        one rank's under ``tp``."""
+        return _rank_bytes(self)
 
     @property
     def occupancy(self):
@@ -740,8 +795,9 @@ class PagedKVManager:
         (the JAX manager rebuilds the donated pool here); an int8 pool
         copies payload and scales together, so a fork never mixes one
         block's payload with another's scales."""
+        lead = (slice(None),) * (1 if self.tp is None else 2)
         for t in _planes(self.cache_k) + _planes(self.cache_v):
-            t[:, dst] = t[:, src]
+            t[(*lead, dst)] = t[(*lead, src)]
 
     def advance(self, slot, n=1):
         """Record ``n`` more filled positions (blocks were reserved at
@@ -850,7 +906,7 @@ class PagedKVManager:
         idx = torch.as_tensor(np.asarray(blocks, np.int64), device=dev)
         k, v, kq, nbytes, raw = _host_payload(
             self.cache_k, self.cache_v, (slice(None), idx), self.quant,
-            quant_mode)
+            quant_mode, self.tp)
         if count:
             self.exports += 1
             self.export_bytes += nbytes
@@ -904,11 +960,11 @@ class PagedKVManager:
         wq = payload["quant"]
         dev = _planes(self.cache_k)[0].device
         dst = torch.as_tensor(np.asarray(row[:n_pay], np.int64), device=dev)
+        axis = 1 if self.tp is None else 2
         for name, key in (("cache_k", "k"), ("cache_v", "v")):
             cache = getattr(self, name)
-            vals = _wire_to_pool(payload[key], wq, cache)
-            for t, val in zip(_planes(cache), _planes(vals)):
-                t.index_copy_(1, dst, val)
+            _write_planes(cache, _wire_to_pool(payload[key], wq, cache),
+                          self.tp, lambda t, v: t.index_copy_(axis, dst, v))
         self.tables[slot, :] = 0
         self.tables[slot, :len(row)] = row
         self.n_table[slot] = len(row)

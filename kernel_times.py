@@ -50,7 +50,9 @@ slot rows (K4-int8) and on the pool (K5-int8); in f32 the
 auto paged mixed engine (K1 on every wave), the contiguous mixed engine
 (K8 on every wave) and the paged mixed engine over an int8 pool
 (K1-int8 on every wave) and the contiguous mixed engine over int8
-slot rows (K8-int8 on every wave): one run for tok/s, then one
+slot rows (K8-int8 on every wave), and in f32 the paged mixed engine
+over the dict ``tp_shard_params`` places on a virtual tp 4 (K1 once per
+rank, on 3 heads): one run for tok/s, then one
 under torch.profiler (device ms by kind, tables into DIR/<run>/);
 ``--engine-labels`` runs only the engines of those labels.  With
 ``--train`` each tree also trains GPT-2-small in f32 at B 8, S 1024 for
@@ -116,7 +118,9 @@ def _bound_of(ra):
 # every wave (narrow decode waves, wide prompt chunks), the f32
 # contiguous mixed engine K8, the f32 paged mixed engine over an int8
 # pool K1-int8 and the f32 contiguous mixed engine over int8 slot rows
-# K8-int8, the same way
+# K8-int8, the same way; "paged-mixed-tp4-f32" is the f32 paged mixed
+# engine over ``tp_shard_params`` on a virtual tp 4 (``TP_ENGINES``: K1
+# once per rank, on 3 heads)
 ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
             ("K6 paged_verify_attention", "K4 paged_decode_attention")),
            ("contiguous-split-int8", "contiguous-split", 4, "int8",
@@ -162,7 +166,12 @@ ENGINES = (("contiguous-split", "contiguous-split", 4, None, "bfloat16",
            ("paged-mixed-int8-f32", "paged-mixed", 0, "int8", "float32",
             ("K1-int8 ragged_paged_attention",)),
            ("contiguous-mixed-int8-f32", "contiguous-mixed", 0, "int8",
-            "float32", ("K8-int8 ragged_attention",)))
+            "float32", ("K8-int8 ragged_attention",)),
+           ("paged-mixed-tp4-f32", "paged-mixed", 0, None, "float32",
+            ("K1 ragged_paged_attention",)))
+# the engines of ENGINES that serve a dict placed over a virtual tp
+# mesh of this size
+TP_ENGINES = {"paged-mixed-tp4-f32": 4}
 
 
 def engines(torch, cs, seed, out_dir, labels):
@@ -180,9 +189,16 @@ def engines(torch, cs, seed, out_dir, labels):
     for label, config, spec_k, quant, dtype, _ in ENGINES:
         if label not in labels:
             continue
-        st = cs.serve(torch, htt, params, cfg, spec, dtype, config,
+        p = params
+        if label in TP_ENGINES:
+            from hetu_tpu_torch.models.gpt_decode import tp_shard_params
+            from hetu_tpu_torch.parallel import make_mesh
+            p = tp_shard_params(params, make_mesh(
+                {"tp": TP_ENGINES[label]},
+                device=params["gpt_wte_table"].device), cfg)
+        st = cs.serve(torch, htt, p, cfg, spec, dtype, config,
                       spec=spec_k, kv_quant=quant)[2]
-        prof = cs.profile_serve(torch, htt, params, cfg, spec, out_dir,
+        prof = cs.profile_serve(torch, htt, p, cfg, spec, out_dir,
                                 runs=((config, spec_k, quant, dtype),))
         out[label] = dict(tokens_per_s=st["tokens_per_s"],
                           profiled=next(iter(prof.values())))

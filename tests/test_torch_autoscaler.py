@@ -12,6 +12,7 @@ static fleet's outputs byte-identical.
 
 import test_autoscaler as J
 from torch_fleet_shim import port_fixture
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 model = J.model
 _fresh = port_fixture(J)

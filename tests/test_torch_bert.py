@@ -22,6 +22,7 @@ the JAX executor's initial values (``Executor.load_dict``):
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import hetu_tpu as jm
 from hetu_tpu import models as jmodels

@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import hetu_tpu as jm
 from hetu_tpu import lr_scheduler as jlr

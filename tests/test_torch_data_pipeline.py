@@ -19,6 +19,7 @@ import pickle
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 from hetu_tpu import data as jdata
 from hetu_tpu import glue as jglue

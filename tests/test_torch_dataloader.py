@@ -16,6 +16,7 @@ The ring's copies onto a card are held in
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import hetu_tpu as jm
 from hetu_tpu import dataloader as jdl

@@ -71,7 +71,8 @@ from hetu_tpu_torch.graph.node import TraceContext as TTC
 from hetu_tpu_torch.models import moe_decode as tmd
 from hetu_tpu_torch.parallel import make_mesh
 from hetu_tpu_torch.parallel.collectives import run_per_rank
-from hetu_tpu_torch.parallel.sharding import rank_pieces
+from hetu_tpu_torch.parallel import sharding
+from hetu_tpu_torch.parallel.sharding import placement, rank_pieces
 from hetu_tpu_torch.serving import Request as TRequest
 from hetu_tpu_torch.serving import ServingEngine as TEngine
 
@@ -211,7 +212,7 @@ def test_ep_shard_params_rejects_bad_mesh_before_placement(case,
     with pytest.raises(JShardCheckError) as je:
         jcheck(jmesh, E, "ep")
     placed = []
-    monkeypatch.setattr(tmd, "prep_param",
+    monkeypatch.setattr(sharding, "prep_param",
                         lambda *a, **k: placed.append(a))
     mesh = None if axes is None else make_mesh(axes, device="cpu")
     with pytest.raises(ShardCheckError) as te:
@@ -227,11 +228,11 @@ def test_ep_shard_params_places_experts_per_rank(ep):
     assert sorted(placed) == sorted(jplaced)
     for k, v in placed.items():
         np.testing.assert_array_equal(v.numpy(), ep.p[k])
-        place = tmd.expert_placement(v)
+        place = placement(v)
         if "_moe_expert_stack_" not in k:
             assert place is None, k
             continue
-        assert place == (ep.tmesh, "ep"), k
+        assert place == (ep.tmesh, "ep", 0), k
         spec = ("ep",) + (None,) * (v.dim() - 1)
         want = {s.data.shape for s in jplaced[k].addressable_shards}
         assert {tuple(q.shape) for q in rank_pieces(v, spec, ep.tmesh)} \
@@ -240,8 +241,8 @@ def test_ep_shard_params_places_experts_per_rank(ep):
     w1 = placed[f"{US}_moe_expert_stack_w1"]
     for t in (w1.to(torch.float32), w1.contiguous(), w1.clone(),
               w1.clone().copy_(w1)):
-        assert tmd.expert_placement(t) == (ep.tmesh, "ep")
-    assert tmd.expert_placement(w1 + 0) is None
+        assert placement(t) == (ep.tmesh, "ep", 0)
+    assert placement(w1 + 0) is None
 
 
 def test_expert_parallel_spec_matches_jax():
@@ -289,7 +290,7 @@ def test_engine_over_ep_placed_params(engines, n, monkeypatch):
     mesh = make_mesh({"ep": n}, device="cpu")
     placed = tmd.ep_shard_params(p, mesh, tcfg, name="moe")
     eng = TEngine(placed, tcfg, slots=4, name="moe", device="cpu", **ENGINE)
-    assert all(tmd.expert_placement(v) == (mesh, "ep")
+    assert all(placement(v) == (mesh, "ep", 0)
                for k, v in eng.params.items() if "_moe_expert_stack_" in k)
     seen = []
     inner = tmd._experts

@@ -22,6 +22,7 @@ test_torch_kernels_cuda.py and chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

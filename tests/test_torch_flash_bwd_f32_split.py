@@ -28,6 +28,7 @@ serves both ways a streamed tile is read without a bank conflict.
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

@@ -32,6 +32,7 @@ ulp and so flip its bf16 rounding now and then:
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

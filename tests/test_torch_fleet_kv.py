@@ -20,6 +20,7 @@ The export/import unit scenarios are in test_torch_fleet_wire.py.
 
 import test_fleet_kv as J
 from torch_fleet_shim import CpuEngine, port_fixture
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 model = J.model
 _fresh = port_fixture(J, helpers=True)

@@ -26,6 +26,7 @@ from contextlib import redirect_stdout
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import test_faults as JF
 from hetu_tpu.ps import faults as jfaults

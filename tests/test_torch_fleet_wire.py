@@ -21,6 +21,7 @@
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 import test_fleet_kv as J

@@ -17,6 +17,7 @@ of to JAX's bits; BatchNorm runs through both executors.
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 from hetu_tpu import quant as jquant
 from hetu_tpu.kernels import decode_attention as jda

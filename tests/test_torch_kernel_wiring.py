@@ -15,6 +15,7 @@ import re
 
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 from hetu_tpu_torch.kernels import _build
 from hetu_tpu_torch.kernels import decode_attention as tda

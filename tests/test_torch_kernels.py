@@ -20,6 +20,7 @@ versions on the card.
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

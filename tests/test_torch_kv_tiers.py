@@ -17,6 +17,7 @@ refuses it, by argument and environment variable, naming A10.
 """
 
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import test_kv_tiers as J
 from hetu_tpu_torch.serving import ServingEngine, TieredKVStore

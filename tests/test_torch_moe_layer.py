@@ -28,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

@@ -38,6 +38,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 from hetu_tpu_torch.models import gpt_decode as tgd
 from hetu_tpu_torch.models import moe_decode as tmd

@@ -23,6 +23,7 @@ import shutil
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 from hetu_tpu_torch import finetune_bert_glue, finetune_bert_squad
 from hetu_tpu_torch import train_bert, train_gpt

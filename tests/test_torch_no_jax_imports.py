@@ -44,8 +44,10 @@ def test_no_jax_or_hetu_tpu_import_in_the_port():
 def test_the_parallel_modules_are_scanned():
     """The pipeline, strategy, collective, collective-check and
     shard-check modules, the graph GPT, the ``nn.Module`` GPT,
-    ``serve_gpt``, expert parallelism, the GCN and ``train_gcn`` are
-    among the sources the scan above reads."""
+    ``serve_gpt``, expert parallelism, the GCN and ``train_gcn``, and
+    the tensor-parallel split (the graph's per-rank evaluation, the
+    serving cores and the KV managers) are among the sources the scan
+    above reads."""
     scanned = {p.relative_to(ROOT).as_posix() for p in _sources()}
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/partition.py", "parallel/pipeline.py",
@@ -55,5 +57,7 @@ def test_the_parallel_modules_are_scanned():
                 "analysis/shard_check.py", "parallel/collective_check.py",
                 "models/gpt.py", "models/gpt_module.py", "serve_gpt.py",
                 "quant.py", "models/moe_decode.py", "graph/ops_moe.py",
-                "graph/ops_gnn.py", "train_gcn.py", "gnn_common.py"):
+                "graph/ops_gnn.py", "train_gcn.py", "gnn_common.py",
+                "graph/tensor_parallel.py", "models/gpt_decode.py",
+                "serving/kv_manager.py"):
         assert f"hetu_tpu_torch/{rel}" in scanned, rel

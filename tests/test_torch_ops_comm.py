@@ -21,6 +21,7 @@ import re
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

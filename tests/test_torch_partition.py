@@ -17,6 +17,7 @@ import re
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import hetu_tpu as jht
 import hetu_tpu_torch.graph as tht

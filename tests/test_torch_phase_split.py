@@ -20,6 +20,7 @@ engine with no layout arguments runs contiguous phase-split.
 
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 from hetu_tpu.serving import Request, ServingEngine
 from hetu_tpu_torch.models import gpt_decode as tgd

@@ -22,6 +22,7 @@ pipelined BERT; the MLP cases agree to ~1e-6).
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import hetu_tpu as jht
 import hetu_tpu_torch.graph as tht

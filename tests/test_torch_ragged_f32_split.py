@@ -41,6 +41,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 
@@ -145,8 +146,9 @@ KERNELS = {("ragged", "pool"): (jra.ragged_paged_attention,
 
 
 def _case(Q, Dh, seed, layout, cache, kernel, with_jax):
-    """(JAX's f32 o or, without ``with_jax``, None; the port's plain o;
-    the emulated body's o; q_lens), numpy, one wave through the pool (K1
+    """(JAX's f32 o or, without ``with_jax``, None; the port's plain o
+    without ``with_jax``, else None; the emulated body's o; q_lens),
+    numpy, one wave through the pool (K1
     or K7) or its slot rows (K8 or K6) of ``kernel`` ("ragged" or
     "verify"), over the f32 cache or (``cache`` "int8") its
     ``kv_encode``, which the body dequantizes to ``kv_decode``'s
@@ -174,12 +176,13 @@ def _case(Q, Dh, seed, layout, cache, kernel, with_jax):
                       interpret=True)
         assert want.dtype == jnp.float32
         want = np.asarray(want)
-    plain = plain_fn(q, *kv, *idx, *sc)
+    # the JAX kernel's case reads no plain version
+    plain = None if with_jax else plain_fn(q, *kv, *idx, *sc).numpy()
     if cache == "int8":
         pk, pv = kv_decode(k8, ks), kv_decode(v8, vs)
     emu = _emulate(q, rows(pk), rows(pv), lens, ql)
     assert emu.dtype == torch.float32
-    return want, plain.numpy(), emu.numpy(), ql.numpy()
+    return want, plain, emu.numpy(), ql.numpy()
 
 
 # (Dh, Q, layout, cache, kernel): f32 K1 (the f32 pool) keeps its ids

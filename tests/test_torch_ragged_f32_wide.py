@@ -38,6 +38,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax.numpy as jnp
 

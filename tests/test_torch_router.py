@@ -14,6 +14,7 @@
 """
 
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import test_router as J
 from hetu_tpu.ps import faults as jfaults

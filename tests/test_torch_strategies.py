@@ -32,6 +32,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 from jax.sharding import PartitionSpec as P
 
 import hetu_tpu as jht

@@ -32,6 +32,7 @@ same numpy inputs and weights.
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import jax
 import jax.numpy as jnp

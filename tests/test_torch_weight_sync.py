@@ -20,6 +20,7 @@
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import test_weight_sync as J
 from hetu_tpu.serving import Request as JRequest

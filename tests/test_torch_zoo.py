@@ -19,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 import hetu_tpu as jm
 import hetu_tpu.graph as jgraph
